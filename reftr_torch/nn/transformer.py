@@ -1,0 +1,150 @@
+"""DETR-style transformer encoder and decoder, batch-first (port of
+reftr_tpu/nn/transformer.py).
+
+Positional embeddings are added to q and k at every layer, residual blocks
+are post-norm (or pre-norm), and the decoder returns every layer's output
+through the shared final LayerNorm. LayerNorm eps is Flax's default 1e-6,
+not PyTorch's 1e-5. Masks are validity masks (True = real token). Eval
+only: dropout comes with the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from reftr_torch.nn.attention import MultiHeadAttention
+
+LN_EPS = 1e-6  # flax.linen.LayerNorm's default
+
+_ACTIVATIONS = {
+    "relu": F.relu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),  # flax nn.gelu default
+}
+
+
+def with_pos(x: torch.Tensor, pos: Optional[torch.Tensor]) -> torch.Tensor:
+    return x if pos is None else x + pos
+
+
+class FFN(nn.Module):
+    def __init__(self, d_model: int, dim_feedforward: int,
+                 activation: str = "relu"):
+        super().__init__()
+        self.linear1 = nn.Linear(d_model, dim_feedforward)
+        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.activation = _ACTIVATIONS[activation]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.linear2(self.activation(self.linear1(x)))
+
+
+class TransformerEncoderLayer(nn.Module):
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
+                 activation: str = "relu", normalize_before: bool = False):
+        super().__init__()
+        self.self_attn = MultiHeadAttention(d_model, nhead)
+        self.ffn = FFN(d_model, dim_feedforward, activation)
+        self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.normalize_before = normalize_before
+
+    def forward(self, src: torch.Tensor, pos: Optional[torch.Tensor] = None,
+                valid_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.normalize_before:
+            s2 = self.norm1(src)
+            qk = with_pos(s2, pos)
+            src = src + self.self_attn(qk, qk, s2, valid_mask)
+            return src + self.ffn(self.norm2(src))
+        qk = with_pos(src, pos)
+        src = self.norm1(src + self.self_attn(qk, qk, src, valid_mask))
+        return self.norm2(src + self.ffn(src))
+
+
+class TransformerEncoder(nn.Module):
+    def __init__(self, num_layers: int, d_model: int, nhead: int,
+                 dim_feedforward: int = 2048, activation: str = "relu",
+                 normalize_before: bool = False):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            TransformerEncoderLayer(d_model, nhead, dim_feedforward,
+                                    activation, normalize_before)
+            for _ in range(num_layers))
+        self.norm = (nn.LayerNorm(d_model, eps=LN_EPS) if normalize_before
+                     else None)
+
+    def forward(self, src: torch.Tensor, pos: Optional[torch.Tensor] = None,
+                valid_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        out = src
+        for layer in self.layers:
+            out = layer(out, pos, valid_mask)
+        return out if self.norm is None else self.norm(out)
+
+
+class TransformerDecoderLayer(nn.Module):
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
+                 activation: str = "relu", normalize_before: bool = False):
+        super().__init__()
+        self.self_attn = MultiHeadAttention(d_model, nhead)
+        self.multihead_attn = MultiHeadAttention(d_model, nhead)
+        self.ffn = FFN(d_model, dim_feedforward, activation)
+        self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.norm3 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.normalize_before = normalize_before
+
+    def forward(self, tgt: torch.Tensor, memory: torch.Tensor,
+                tgt_valid_mask: Optional[torch.Tensor] = None,
+                memory_valid_mask: Optional[torch.Tensor] = None,
+                pos: Optional[torch.Tensor] = None,
+                query_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+        mem_k = with_pos(memory, pos)
+        if self.normalize_before:
+            t2 = self.norm1(tgt)
+            qk = with_pos(t2, query_pos)
+            tgt = tgt + self.self_attn(qk, qk, t2, tgt_valid_mask)
+            t2 = self.norm2(tgt)
+            tgt = tgt + self.multihead_attn(with_pos(t2, query_pos), mem_k,
+                                            memory, memory_valid_mask)
+            return tgt + self.ffn(self.norm3(tgt))
+        qk = with_pos(tgt, query_pos)
+        tgt = self.norm1(tgt + self.self_attn(qk, qk, tgt, tgt_valid_mask))
+        tgt = self.norm2(tgt + self.multihead_attn(
+            with_pos(tgt, query_pos), mem_k, memory, memory_valid_mask))
+        return self.norm3(tgt + self.ffn(tgt))
+
+
+class TransformerDecoder(nn.Module):
+    """Returns [L, B, Sq, D] with return_intermediate (each layer's output
+    through the shared final norm), else [1, B, Sq, D]."""
+
+    def __init__(self, num_layers: int, d_model: int, nhead: int,
+                 dim_feedforward: int = 2048, activation: str = "relu",
+                 normalize_before: bool = False,
+                 return_intermediate: bool = True):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            TransformerDecoderLayer(d_model, nhead, dim_feedforward,
+                                    activation, normalize_before)
+            for _ in range(num_layers))
+        self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.return_intermediate = return_intermediate
+
+    def forward(self, tgt: torch.Tensor, memory: torch.Tensor,
+                tgt_valid_mask: Optional[torch.Tensor] = None,
+                memory_valid_mask: Optional[torch.Tensor] = None,
+                pos: Optional[torch.Tensor] = None,
+                query_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+        out = tgt
+        intermediate = []
+        for layer in self.layers:
+            out = layer(out, memory, tgt_valid_mask, memory_valid_mask, pos,
+                        query_pos)
+            if self.return_intermediate:
+                intermediate.append(self.norm(out))
+        if self.return_intermediate:
+            return torch.stack(intermediate, dim=0)
+        return self.norm(out)[None]
