@@ -5,37 +5,69 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. Print the card's name and power limit, then build every kernel of the
-   serving path from the sources in this checkout
-   (reftr_torch/kernels/csrc/flash_attn_fwd.cu, nvcc for sm_90a).
-2. Kernel against its plain PyTorch version on the card, at the four call
-   sites of the refcoco_det forward (B=8), with random key padding and one
-   row whose keys are all masked, in float32 and bfloat16, each against
-   the plain version in float32 on the same inputs. Tolerances: 1e-5 max
-   abs in float32 (the sums run in another order), 2e-2 in bfloat16 (the
-   kernel rounds its output to bf16: half a bf16 ulp is 7.8e-3 at
-   magnitudes up to 4). Times of the kernel, the
-   plain version and F.scaled_dot_product_attention (a yardstick only;
-   the port never calls it) with CUDA events after a warm-up.
-3. The serving path at full width: refcoco_det (ResNet-50, BERT-base,
+   serving and training paths from the sources in this checkout
+   (reftr_torch/kernels/csrc/flash_attn_fwd.cu and flash_attn_bwd.cu, one
+   nvcc each for sm_90a, started together).
+2. The forward kernel (K1) against its plain PyTorch version on the card,
+   at the four call sites of the refcoco_det forward (B=8), with random key
+   padding and one row whose keys are all masked, in float32 and bfloat16,
+   each against the plain version in float32 on the same inputs.
+   Tolerances: 1e-5 max abs in float32 (the sums run in another order),
+   2e-2 in bfloat16 (the kernel rounds its output to bf16: half a bf16 ulp
+   is 7.8e-3 at magnitudes up to 4). Times of the kernel, the plain version
+   and F.scaled_dot_product_attention (a yardstick only; the port never
+   calls it) with CUDA events after a warm-up.
+3. The training kernels at the same call sites and inputs, in float32 and
+   bfloat16, without dropout and with rate 0.1: K1 with dropout against
+   attention_plain with the same seed (tolerances as in phase 2), and the
+   backward kernels K2 (dq) and K3 (dk, dv) each against
+   attention_bwd_plain on the same O, lse and dO. Gradient tolerance, as a
+   share of the largest magnitude among the plain dq, dk and dv: 1e-4 in
+   float32 (sums of up to 440 terms in another order, at most 2.6e-5 of
+   the largest term), 1e-2 in bfloat16 (the kernels round their output to
+   bf16, 2^-9 = 2e-3). Then an exact mask check in float32: v one-hot over
+   the head dim makes K1's output p * keep for D keys at a time, and the
+   kept set must equal the plain Philox mask on every key with p > 0.
+   Times of each kernel, its plain version, its bound and a yardstick:
+   SDPA forward + backward minus SDPA forward, which covers K2 and K3
+   together.
+4. The serving path at full width: refcoco_det (ResNet-50, BERT-base,
    6+6 VL layers, d=256) at 640x640 with seeded random weights, bfloat16,
    behind a MicroBatcher with serve batch 8. Six requests of 1-3 phrases
    each (random uint8 canvases with ragged valid regions, token ids of
    length 5-40). Every request must come back without error, with finite
-   boxes inside its image, and the kernel's launch count must rise by
-   exactly 30 per batch forward (12 BERT + 6 encoder + 12 decoder
-   attentions). Then full batches time the forward (host to host, median
-   of four turns each with the kernel and with the plain attention, after
-   a warm-up), torch.profiler splits one forward's device time by kernel
-   category, and one padded batch runs through the kernel and through
-   the plain attention on the card and the encoder memory and decoder
-   states are compared: float32 kernel against float32 plain at 1e-4 max
-   abs (the per-attention 1e-6 gap carried through 30 attentions and
-   their LayerNorms), bfloat16 kernel against bfloat16 plain and against
-   float32 plain at 5e-2 relative L2 error (bf16 rounding of every
+   boxes inside its image, and K1's launch count must rise by exactly 30
+   per batch forward (12 BERT + 6 encoder + 12 decoder attentions), K2's
+   and K3's not at all. Then full batches time the forward (host to host,
+   median of four turns each with the kernel and with the plain
+   attention, after a warm-up), torch.profiler splits one forward's device
+   time by kernel category, and one padded batch runs through the kernel
+   and through the plain attention on the card and the encoder memory and
+   decoder states are compared: float32 kernel against float32 plain at
+   1e-4 max abs (the per-attention 1e-6 gap carried through 30 attentions
+   and their LayerNorms), bfloat16 kernel against bfloat16 plain and
+   against float32 plain at 5e-2 relative L2 error (bf16 rounding of every
    activation of a 100-layer network).
-4. Print one JSON line listing each kernel with its launches on the main
+5. The training path at full width: the same model with float32
+   parameters under bfloat16 autocast, dropout 0.1, AdamW in the four LR
+   groups with the clip at 0.1, batch 8 of seeded random canvases, token
+   ids and boxes, through train_one_epoch over 20 steps of that one batch.
+   Every loss and gradient norm must be finite, the mean loss of the last
+   3 steps below that of the first 3 (a memorised batch), and each of K1,
+   K2 and K3 launched exactly 30 times per step. It reports the median
+   host-to-host step time after 3 warm-up steps, the peak device memory
+   and one step's device time by kernel category. Then one float32 step
+   with dropout 0 from one set of weights through the kernels and through
+   the plain attention: the loss within 1e-5 relative, and every trainable
+   gradient within 1e-3 relative L2 of the plain path's, measured against
+   the larger of its norm and 1e-4 of the global gradient norm (gradients
+   that are zero in exact arithmetic, a key bias's or the decoder's 1x1
+   self-attention's q and k, come out at rounding level on both paths).
+   The last layer of the box head is drawn like the other layers for this
+   step: at init it is zero and no gradient would reach the attentions.
+6. Print one JSON line listing each kernel with its launches on the main
    path, its error, its times and its bound on this card.
-5. Print {"ok": true, "device": {...}} as the last line.
+7. Print {"ok": true, "device": {...}} as the last line.
 
 It needs a CUDA card and the reftr_torch package beside it; without
 either it fails before it prints any result.
@@ -43,12 +75,14 @@ either it fails before it prints any result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -67,8 +101,27 @@ CALL_SITES = {
     "bert_self": (40, 40, 12, 64),
 }
 KERNEL_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 MODEL_TOL_F32_ABS = 1e-4
 MODEL_TOL_BF16_REL = 5e-2
+DROPOUT = 0.1  # the preset's rate: attention and hidden dropout
+TRAIN_STEPS = 20
+WARM_STEPS = 3
+TRAIN_LOSS_TOL = 1e-5  # f32 kernel path vs plain path, relative
+TRAIN_GRAD_TOL = 1e-3  # relative L2 per trainable gradient
+# kernels of the main paths: the C entry point, its source, the Pallas
+# function it replaces
+KERNELS = {
+    "flash_attn_fwd": ("flash_attn_fwd.cu", "reftr_tpu/kernels/attention.py:86"),
+    "flash_attn_bwd_dq": ("flash_attn_bwd.cu",
+                          "reftr_tpu/kernels/attention.py:242"),
+    "flash_attn_bwd_dkv": ("flash_attn_bwd.cu",
+                           "reftr_tpu/kernels/attention.py:287"),
+}
+# products of each kernel over (query, valid key) pairs: K1 q k^T and p v;
+# K2 q k^T, dO v^T and ds k; K3 those of K2 with (p keep)^T dO, ds^T q
+PRODUCTS = {"flash_attn_fwd": 2, "flash_attn_bwd_dq": 3,
+            "flash_attn_bwd_dkv": 4}
 # NVIDIA H100 SXM data sheet: HBM rate, f32 outside the tensor cores, bf16
 # dense tensor-core rate
 PEAK_BYTES_S = 3.35e12
@@ -98,20 +151,42 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(b, sq, sk, h, d, valid, dtype_name) -> tuple:
-    """Least time for one attention on this card: each input read once and
-    the output written once, against the two products over the keys this
-    data needs (the valid keys; all sk keys for a row with none valid)."""
+def attention_bound_ms(b, sq, sk, h, d, valid, dtype_name,
+                       kernel="flash_attn_fwd") -> tuple:
+    """Least time for one call of ``kernel`` on this card: each input read
+    once and each output written once, against its products over the keys
+    this data needs (the valid keys; all sk keys for a row with none
+    valid). The forward reads q, k, v and writes out; the backward
+    kernels read q, k, v, O, dO and lse and write dq, or dk and dv."""
     import torch
 
     es = 4 if dtype_name == "float32" else 2
-    nbytes = (2 * b * sq * h * d + 2 * b * sk * h * d) * es + b * sk
+    qs, ks = b * sq * h * d * es, b * sk * h * d * es
+    lse = b * h * sq * 4
+    nbytes = {"flash_attn_fwd": 2 * qs + 2 * ks,
+              "flash_attn_bwd_dq": 4 * qs + 2 * ks + lse,
+              "flash_attn_bwd_dkv": 3 * qs + 4 * ks + lse}[kernel] + b * sk
     keys = torch.where(valid.any(-1), valid.sum(-1), sk)
-    flops = 4.0 * h * d * sq * float(keys.sum())
+    flops = 2.0 * PRODUCTS[kernel] * h * d * sq * float(keys.sum())
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
+
+
+def site_inputs(gen, site: str, dtype):
+    """q, k, v [B, S, H, D] in ``dtype`` and valid [B, Sk] with random
+    padding and batch row 0 fully masked, at a call site's shape."""
+    import torch
+
+    sq, sk, h, d = CALL_SITES[site]
+    b = SERVE_BATCH
+    q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=gen).to(dtype)
+               for s in (sq, sk, sk))
+    lens = torch.randint(1, sk + 1, (b,), device="cuda", generator=gen)
+    valid = torch.arange(sk, device="cuda")[None] < lens[:, None]
+    valid[0] = False  # a row whose keys are all masked
+    return q, k, v, valid
 
 
 def check_kernel(report: dict) -> dict:
@@ -127,11 +202,7 @@ def check_kernel(report: dict) -> dict:
     worst = {"float32": 0.0, "bfloat16": 0.0}
     for site, (sq, sk, h, d) in CALL_SITES.items():
         b = SERVE_BATCH
-        q32, k32, v32 = (torch.randn(b, s, h, d, device="cuda", generator=gen)
-                         for s in (sq, sk, sk))
-        lens = torch.randint(1, sk + 1, (b,), device="cuda", generator=gen)
-        valid = torch.arange(sk, device="cuda")[None] < lens[:, None]
-        valid[0] = False  # a row whose keys are all masked
+        q32, k32, v32, valid = site_inputs(gen, site, torch.float32)
         bias = torch.where(valid, 0.0, -1e9)[:, None, None, :]
         for name, dt in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
@@ -164,6 +235,142 @@ def check_kernel(report: dict) -> dict:
                   flush=True)
     report["call_sites"] = rows
     report["max_abs_err"] = worst
+    return report
+
+
+def sdpa_backward_ms(q, k, v, valid, do, rate: float) -> float:
+    """The yardstick for K2 + K3: F.scaled_dot_product_attention forward
+    and backward minus its forward, on the same inputs and mask."""
+    import torch
+    import torch.nn.functional as F
+
+    bias = torch.where(valid, 0.0, -1e9)[:, None, None, :].to(q.dtype)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias,
+                                              dropout_p=rate)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qt, kt, vt), dot)
+
+    return cuda_ms(fwd_bwd) - cuda_ms(fwd)
+
+
+def check_mask_exact(gen, site: str, rate: float, seed: int) -> int:
+    """K1 with v one-hot over the head dim: out = p * keep / l for D keys
+    at a time, so the kept set is read off exactly and must equal the
+    plain Philox mask on every key with p > 0 (valid keys, or all keys of
+    a fully masked row). Returns the number of elements compared."""
+    import torch
+
+    from reftr_torch.kernels.attention import (flash_attention,
+                                               philox_keep_plain)
+
+    q, k, _, valid = site_inputs(gen, site, torch.float32)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    keep = philox_keep_plain(seed, b, h, sq, sk, rate, "cuda")
+    live_keys = torch.where(valid.any(-1, keepdim=True), valid, True)
+    compared = 0
+    for k0 in range(0, sk, d):
+        n = min(d, sk - k0)
+        v = torch.zeros(b, sk, h, d, device="cuda")
+        v[:, k0:k0 + n, :, :n] = torch.eye(n, device="cuda")[:, None, :]
+        out = flash_attention(q, k, v, valid, dropout_rate=rate, seed=seed)
+        kept = out[..., :n].permute(0, 2, 1, 3) != 0  # [B, H, Sq, n]
+        live = live_keys[:, None, None, k0:k0 + n].expand_as(kept)
+        if not torch.equal(kept[live], keep[..., k0:k0 + n][live]):
+            raise AssertionError(f"{site}: K1's dropout mask differs from "
+                                 f"the plain Philox mask at keys {k0}+")
+        compared += int(live.sum())
+    return compared
+
+
+def check_training_kernels(report: dict) -> dict:
+    """Phase 3: K1 with dropout, K2 and K3 against their plain versions."""
+    import torch
+
+    from reftr_torch.kernels.attention import (attention_bwd_plain,
+                                               attention_plain,
+                                               flash_attention,
+                                               flash_attn_bwd_dkv,
+                                               flash_attn_bwd_dq)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    rows = []
+    for site, (sq, sk, h, d) in CALL_SITES.items():
+        b = SERVE_BATCH
+        q32, k32, v32, valid = site_inputs(gen, site, torch.float32)
+        do32 = torch.randn(b, sq, h, d, device="cuda", generator=gen)
+        for name, dt in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+            q, k, v, do = (x.to(dt) for x in (q32, k32, v32, do32))
+            for rate in (0.0, DROPOUT):
+                seed = 0x5EED_0000 + len(rows) if rate else None
+                drop = dict(dropout_rate=rate, seed=seed)
+                out, lse = flash_attention(q, k, v, valid, True, **drop)
+                want = attention_plain(q, k, v, valid, **drop)
+                bwd = (q, k, v, valid, out, lse, do, rate, seed)
+                wants = attention_bwd_plain(*bwd)
+                dq = flash_attn_bwd_dq(*bwd)
+                dk, dv = flash_attn_bwd_dkv(*bwd)
+                torch.cuda.synchronize()
+                fwd_err = (out.float() - want.float()).abs().max().item()
+                scale = max(w.float().abs().max().item() for w in wants)
+                errs = [(g.float() - w.float()).abs().max().item()
+                        for g, w in zip((dq, dk, dv), wants)]
+                bad = (not math.isfinite(fwd_err)
+                       or fwd_err > KERNEL_TOL[name]
+                       or not all(math.isfinite(e) and
+                                  e <= GRAD_TOL[name] * scale for e in errs))
+                row = {"site": site, "dtype": name, "dropout": rate,
+                       "B": b, "Sq": sq, "Sk": sk, "H": h, "D": d,
+                       "fwd_max_abs_err": fwd_err,
+                       "fwd_tol": KERNEL_TOL[name],
+                       "dq_max_abs_err": errs[0], "dk_max_abs_err": errs[1],
+                       "dv_max_abs_err": errs[2], "grad_scale": scale,
+                       "grad_tol": GRAD_TOL[name] * scale}
+                if bad:
+                    raise AssertionError(f"phase 3 {row}")
+                row.update({
+                    "fwd_ms": cuda_ms(lambda: flash_attention(
+                        q, k, v, valid, **drop)),
+                    "dq_ms": cuda_ms(lambda: flash_attn_bwd_dq(*bwd)),
+                    "dkv_ms": cuda_ms(lambda: flash_attn_bwd_dkv(*bwd)),
+                    "fwd_plain_ms": cuda_ms(lambda: attention_plain(
+                        q, k, v, valid, **drop), iters=10),
+                    "bwd_plain_ms": cuda_ms(lambda: attention_bwd_plain(
+                        *bwd), iters=10),
+                    "sdpa_bwd_ms": sdpa_backward_ms(q, k, v, valid, do,
+                                                    rate)})
+                for kern in KERNELS:
+                    row[f"{kern}_bound_ms"], row[f"{kern}_bound_by"] = \
+                        attention_bound_ms(b, sq, sk, h, d, valid, name, kern)
+                rows.append(row)
+                print(f"train kernels {site:16s} {name:8s} dropout {rate}: "
+                      f"fwd err {fwd_err:.3g} (tol {KERNEL_TOL[name]}), "
+                      f"dq/dk/dv err {errs[0]:.3g}/{errs[1]:.3g}/"
+                      f"{errs[2]:.3g} (tol {GRAD_TOL[name] * scale:.3g}); "
+                      f"K1 {row['fwd_ms']:.4f} ms, K2 {row['dq_ms']:.4f} ms,"
+                      f" K3 {row['dkv_ms']:.4f} ms; plain fwd "
+                      f"{row['fwd_plain_ms']:.4f}, bwd "
+                      f"{row['bwd_plain_ms']:.4f} ms; sdpa bwd "
+                      f"{row['sdpa_bwd_ms']:.4f} ms; bounds "
+                      f"{row['flash_attn_fwd_bound_ms']:.5f}/"
+                      f"{row['flash_attn_bwd_dq_bound_ms']:.5f}/"
+                      f"{row['flash_attn_bwd_dkv_bound_ms']:.5f} ms",
+                      flush=True)
+    masks = {site: check_mask_exact(gen, site, DROPOUT, 0xC0FFEE)
+             for site in CALL_SITES}
+    print(f"train kernels: K1's dropout mask equals the plain Philox mask "
+          f"exactly on {sum(masks.values())} elements at p > 0 "
+          f"({masks})", flush=True)
+    report["train_kernels"] = rows
+    report["mask_elements_checked"] = masks
     return report
 
 
@@ -216,8 +423,15 @@ def kernel_category(name: str) -> str:
     low = name.lower()
     if "flash_fwd_kernel" in name:
         return "flash_attn_fwd"
-    if "conv" in low or "fprop" in low or "dgrad" in low or "cudnn" in low:
+    if "flash_bwd_dq_kernel" in name:
+        return "flash_attn_bwd_dq"
+    if "flash_bwd_dkv_kernel" in name:
+        return "flash_attn_bwd_dkv"
+    if ("conv" in low or "fprop" in low or "dgrad" in low or "wgrad" in low
+            or "cudnn" in low):
         return "convolution"
+    if "multi_tensor" in low or "foreach" in low or "adam" in low:
+        return "optimizer"
     if "gemm" in low or "nvjet" in low or "cublas" in low:
         return "gemm"
     if "norm" in low:
@@ -231,10 +445,10 @@ def kernel_category(name: str) -> str:
     return "other"
 
 
-def profile_forward(model, batch, step_ms: float, iters: int = 5) -> dict:
-    """Device time of the steady-state serving forward by kernel category
-    (torch.profiler's device events), the kernels launched per forward, and
-    the device's busy share of the forward's unprofiled host time
+def profile_device(run, what: str, step_ms: float, iters: int = 5) -> dict:
+    """Device time of ``iters`` calls of ``run`` by kernel category
+    (torch.profiler's device events), the kernels launched per call, and
+    the device's busy share of one call's unprofiled host time
     ``step_ms``."""
     import torch
     from torch.autograd import DeviceType
@@ -243,13 +457,16 @@ def profile_forward(model, batch, step_ms: float, iters: int = 5) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
-            model(batch)
+            run()
         torch.cuda.synchronize()
     by_cat: dict = {}
     by_name: dict = {}
     n_kernels = 0
     for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA or ev.device_time_total <= 0:
+        # a GPU user annotation (Optimizer.step#AdamW.step) spans kernels
+        # that are counted on their own
+        if (ev.device_type != DeviceType.CUDA or ev.device_time_total <= 0
+                or getattr(ev, "is_user_annotation", False)):
             continue
         ms = ev.device_time_total / 1e3 / iters
         n_kernels += 1
@@ -262,7 +479,7 @@ def profile_forward(model, batch, step_ms: float, iters: int = 5) -> dict:
               flush=True)
         return {"device_ms": None}
     busy = device_ms / step_ms
-    print(f"profile: bf16 batch {SERVE_BATCH} forward: device {device_ms:.3f}"
+    print(f"profile: {what}: device {device_ms:.3f}"
           f" ms in {n_kernels / iters:.0f} kernels, of {step_ms:.3f} ms host"
           f" time unprofiled: busy share {busy:.3f}", flush=True)
     for cat, ms in sorted(by_cat.items(), key=lambda x: -x[1]):
@@ -271,9 +488,16 @@ def profile_forward(model, batch, step_ms: float, iters: int = 5) -> dict:
     top = sorted(by_name.items(), key=lambda x: -x[1])[:8]
     for name, ms in top:
         print(f"profile:   top {ms:8.3f} ms  {name[:90]}", flush=True)
-    return {"device_ms": device_ms, "kernels_per_forward": n_kernels / iters,
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3 / iters, e.count
+                    / iters) for e in prof.key_averages()),
+                  key=lambda x: -x[1])[:10]
+    for name, ms, calls in host:
+        print(f"profile:   host {ms:8.3f} ms in {calls:6.0f} calls  "
+              f"{name[:70]}", flush=True)
+    return {"device_ms": device_ms, "kernels_per_call": n_kernels / iters,
             "host_ms": step_ms, "busy_share": busy, "by_category_ms": by_cat,
-            "top_kernels_ms": dict(top)}
+            "top_kernels_ms": dict(top),
+            "top_host_ops_ms": {name: ms for name, ms, _ in host}}
 
 
 def serve(report: dict, counters) -> dict:
@@ -332,11 +556,12 @@ def serve(report: dict, counters) -> dict:
                                      f"outside its {w0}x{h0} image")
     n_batches = batcher.stats["batches"]
     rows = sum(r.k for r in reqs)
-    if n_batches < 1 or launches["flash_attention"] != \
-            ATTN_PER_FORWARD * n_batches:
+    want = {"flash_attention": ATTN_PER_FORWARD * n_batches,
+            "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0}
+    if n_batches < 1 or launches != want:
         raise AssertionError(
-            f"flash_attention launched {launches['flash_attention']} times "
-            f"for {n_batches} batch forwards, not {ATTN_PER_FORWARD} each")
+            f"launches {launches} for {n_batches} batch forwards, not "
+            f"{want}")
     print(f"serve: {len(reqs)} requests, {rows} phrases in {n_batches} "
           f"batches of {SERVE_BATCH}, {served_s:.3f} s; launches {launches}",
           flush=True)
@@ -361,7 +586,9 @@ def serve(report: dict, counters) -> dict:
           f"{ms_list(step_ms['plain'])} ms); peak device memory "
           f"{peak_gb:.2f} GB", flush=True)
 
-    report["profile"] = profile_forward(model, full, step_s * 1e3)
+    report["profile"] = profile_device(
+        lambda: model(full), f"bf16 batch {SERVE_BATCH} forward",
+        step_s * 1e3)
 
     # kernel path against the plain attention path on one batch
     compare = pad_batch(reqs[:3], SERVE_BATCH)
@@ -408,6 +635,236 @@ def serve(report: dict, counters) -> dict:
     return report
 
 
+def train_batch(rng: np.random.Generator, img: int, seq: int, vocab: int,
+                b: int):
+    """A seeded batch of random canvases with ragged valid regions, token
+    ids of length 5-``seq`` and one target box per row, as numpy dicts."""
+    valid = np.zeros((b, img, img), bool)
+    for i in range(b):
+        vh, vw = (int(x) for x in rng.integers(img // 2, img + 1, size=2))
+        valid[i, :vh, :vw] = True
+    sentence = np.zeros((b, seq), np.int32)
+    sentence_valid = np.zeros((b, seq), np.int32)
+    for i in range(b):
+        n = int(rng.integers(5, seq + 1))
+        sentence[i, :n] = rng.integers(1, vocab, n)
+        sentence_valid[i, :n] = 1
+    centre = rng.uniform(0.3, 0.7, (b, 1, 2))
+    size = rng.uniform(0.1, 0.5, (b, 1, 2))
+    batch = {"image": rng.integers(0, 256, (b, img, img, 3), dtype=np.uint8),
+             "image_valid": valid, "sentence": sentence,
+             "sentence_valid": sentence_valid}
+    targets = {"boxes": np.concatenate([centre, size], -1).astype(np.float32),
+               "box_valid": np.ones((b, 1), bool)}
+    return batch, targets
+
+
+def compare_train_paths(cfg, batch, targets) -> dict:
+    """One float32 step with dropout 0 from one set of seeded weights,
+    through the kernels and through the plain attention: the loss and
+    every trainable gradient. The last layer of bbox_embed, zero at init
+    (no gradient would reach the attentions), is drawn like the others."""
+    import torch
+
+    from reftr_torch.convert import build_model
+    from reftr_torch.core.config import LossConfig
+    from reftr_torch.models.criterion import criterion, total_loss, weight_dict
+    from reftr_torch.nn.attention import set_plain_attention
+    from reftr_torch.train.steps import to_device
+
+    mc = dataclasses.replace(
+        cfg.model, dtype="float32", dropout=0.0,
+        bert=dataclasses.replace(cfg.model.bert, hidden_dropout=0.0,
+                                 attention_dropout=0.0))
+    model = build_model(mc, seed=1).train()  # on the card
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    with torch.no_grad():
+        torch.nn.init.xavier_uniform_(model.bbox_embed.layers[-1].weight,
+                                      generator=gen)
+    wd = weight_dict(LossConfig(), mc.dec_layers, mc.aux_loss)
+    dev_batch = to_device(batch, torch.device("cuda"))
+    dev_targets = to_device(targets, torch.device("cuda"))
+    runs = {}
+    for plain in (False, True):
+        set_plain_attention(model, plain)
+        model.zero_grad(set_to_none=True)
+        loss = total_loss(criterion(model(dev_batch), dev_targets,
+                                    LossConfig()), wd)
+        loss.backward()
+        runs[plain] = (loss.item(), {n: p.grad.clone() for n, p in
+                                     model.named_parameters()
+                                     if p.requires_grad})
+    (loss_k, grads_k), (loss_p, grads_p) = runs[False], runs[True]
+    norm = math.sqrt(sum(float(g.square().sum()) for g in grads_p.values()))
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    worst, worst_name, live = 0.0, "", 0
+    for name, gp in grads_p.items():
+        live += float(gp.norm()) > 1e-4 * norm
+        err = float((grads_k[name] - gp).norm()) / max(float(gp.norm()),
+                                                       1e-4 * norm)
+        if not math.isfinite(err) or err > worst:
+            worst, worst_name = err, name
+    print(f"train: f32 step, kernels vs plain attention: loss {loss_k:.6f} "
+          f"vs {loss_p:.6f} (rel {loss_err:.3g}, tol {TRAIN_LOSS_TOL}); "
+          f"worst gradient rel L2 {worst:.3g} at {worst_name} (tol "
+          f"{TRAIN_GRAD_TOL}) over {len(grads_p)} trainable tensors, {live} "
+          f"of them above the floor; global norm {norm:.4g}", flush=True)
+    if live < len(grads_p) // 2:
+        raise AssertionError(f"only {live} of {len(grads_p)} gradients are "
+                             f"above 1e-4 of the global norm: the check "
+                             f"would compare nothing")
+    if not (loss_err <= TRAIN_LOSS_TOL and worst <= TRAIN_GRAD_TOL):
+        raise AssertionError(f"f32 kernel vs plain step: loss rel "
+                             f"{loss_err:.3g}, gradient rel L2 {worst:.3g} "
+                             f"at {worst_name}")
+    return {"loss_kernel": loss_k, "loss_plain": loss_p,
+            "loss_rel_err": loss_err, "worst_grad_rel_l2": worst,
+            "worst_grad_name": worst_name, "grad_norm": norm,
+            "n_trainable": len(grads_p), "n_above_floor": live}
+
+
+def train(report: dict, counters) -> dict:
+    """Phase 5: refcoco_det training at full width through train_one_epoch."""
+    import torch
+
+    from reftr_torch.cli.presets import preset_config
+    from reftr_torch.core.config import LossConfig, TrainConfig
+    from reftr_torch.models.criterion import weight_dict
+    from reftr_torch.train.engine import train_one_epoch
+    from reftr_torch.train.state import TrainState
+    from reftr_torch.train.steps import make_train_step
+
+    cfg = preset_config("refcoco_det", dtype="bfloat16")
+    mc = cfg.model
+    if not (mc.dropout == mc.bert.hidden_dropout
+            == mc.bert.attention_dropout == DROPOUT):
+        raise AssertionError(f"refcoco_det dropout is not {DROPOUT}")
+    batch, targets = train_batch(np.random.default_rng(2), cfg.data.img_size,
+                                 cfg.data.max_query_len, mc.bert.vocab_size,
+                                 SERVE_BATCH)
+    t0 = time.perf_counter()
+    # the entry points run on the card by default
+    state = TrainState.create(mc, TrainConfig(epochs=1), TRAIN_STEPS, seed=0)
+    model = state.model
+    wd = weight_dict(LossConfig(), mc.dec_layers, mc.aux_loss)
+    step = make_train_step(model, wd, LossConfig())
+    n_params = sum(p.numel() for p in state.trainable())
+    print(f"train: bf16 autocast over f32 params, {n_params} trainable in "
+          f"{len(state.optimizer.param_groups)} groups, built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    seen, stamps = [], []
+
+    def traced(state, batch, targets):
+        state, metrics = step(state, batch, targets)
+        seen.append(metrics)
+        stamps.append(time.perf_counter())
+        return state, metrics
+
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stamps.append(time.perf_counter())
+    state, stats = train_one_epoch(traced, state, [(batch, targets)] *
+                                   TRAIN_STEPS, 0, print_freq=5,
+                                   weight_dict=wd)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_step = [m.get() for m in seen]
+    losses = [m["loss"] for m in per_step]
+    norms = [m["grad_norm"] for m in per_step]
+    if not all(math.isfinite(v) for m in per_step for v in m.values()):
+        raise AssertionError(f"a loss or gradient norm is not finite: "
+                             f"{per_step}")
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    if not last < first:
+        raise AssertionError(f"the loss on the memorised batch did not fall:"
+                             f" first 3 {first:.5f}, last 3 {last:.5f}")
+    want = ATTN_PER_FORWARD * TRAIN_STEPS
+    if any(n != want for n in launches.values()):
+        raise AssertionError(f"launches {launches} in {TRAIN_STEPS} steps, "
+                             f"not {want} of each")
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps[WARM_STEPS:-1],
+                                              stamps[WARM_STEPS + 1:])]
+    med = statistics.median(step_ms)
+    print(f"train: {TRAIN_STEPS} steps; loss {ms_list(losses)}; grad norm "
+          f"{ms_list(norms)}; first 3 mean {first:.4f}, last 3 mean "
+          f"{last:.4f}; launches {launches}", flush=True)
+    print(f"train: bf16 batch {SERVE_BATCH} step median {med:.2f} ms = "
+          f"{SERVE_BATCH / med * 1e3:.1f} img/s (steps {WARM_STEPS + 1}-"
+          f"{TRAIN_STEPS}: {ms_list(step_ms)} ms); peak device memory "
+          f"{peak_gb:.2f} GB", flush=True)
+    profile = profile_device(
+        lambda: step(state, batch, targets),
+        f"bf16 batch {SERVE_BATCH} train step", med, iters=3)
+    del state, model, step
+    torch.cuda.empty_cache()
+    paths = compare_train_paths(cfg, batch, targets)
+    report["train"] = {
+        "steps": TRAIN_STEPS, "launches": launches, "losses": losses,
+        "grad_norms": norms, "first3_mean": first, "last3_mean": last,
+        "stats": stats, "step_ms": step_ms, "median_step_ms": med,
+        "img_per_s": SERVE_BATCH / med * 1e3, "peak_memory_gb": peak_gb,
+        "trainable_params": n_params, "profile": profile,
+        "f32_kernel_vs_plain": paths}
+    return report
+
+
+def kernel_line(report: dict) -> list:
+    """The kernels of the main paths at the VL encoder's bfloat16 shape,
+    the dominant call site: K1 as served (no dropout; its time with the
+    training dropout beside it), K2 and K3 as trained (dropout 0.1).
+    Every site's numbers are in the JSON report written before it."""
+    enc = next(r for r in report["call_sites"]
+               if r["site"] == "vl_encoder_self" and r["dtype"] == "bfloat16")
+    tr = next(r for r in report["train_kernels"]
+              if r["site"] == "vl_encoder_self" and r["dtype"] == "bfloat16"
+              and r["dropout"] == DROPOUT)
+    rows = report["train_kernels"]
+    shape = "vl_encoder_self bfloat16 B=8 Sq=Sk=440 H=8 D=32"
+    out = []
+    for name, (source, replaces) in KERNELS.items():
+        entry = {"name": name, "route": "cuda",
+                 "source": f"reftr_torch/kernels/csrc/{source}",
+                 "replaces": replaces}
+        if name == "flash_attn_fwd":
+            entry.update({
+                "launches": report["train"]["launches"]["flash_attention"],
+                "launches_serve":
+                    report["serve"]["launches"]["flash_attention"],
+                "max_abs_err": max(report["max_abs_err"].values()),
+                "max_abs_err_dropout": max(r["fwd_max_abs_err"]
+                                           for r in rows),
+                "shape": f"{shape}, no dropout",
+                "ms": enc["ms"], "ms_dropout": tr["fwd_ms"],
+                "plain_ms": enc["plain_ms"], "bound_ms": enc["bound_ms"],
+                "bound_by": enc["bound_by"],
+                "library_ms": enc["library_ms"]})
+        else:
+            short = "dq" if name.endswith("dq") else "dkv"
+            grads = ("dq",) if short == "dq" else ("dk", "dv")
+            entry.update({
+                "launches": report["train"]["launches"][name],
+                "max_abs_err": max(r[f"{g}_max_abs_err"] for r in rows
+                                   for g in grads),
+                "max_rel_err": max(r[f"{g}_max_abs_err"] / r["grad_scale"]
+                                   for r in rows for g in grads),
+                "shape": f"{shape}, dropout {DROPOUT}",
+                "ms": tr[f"{short}_ms"],
+                "plain_ms": tr["bwd_plain_ms"],
+                "plain_covers": "attention_bwd_plain: dq, dk and dv",
+                "bound_ms": tr[f"{name}_bound_ms"],
+                "bound_by": tr[f"{name}_bound_by"],
+                "library_ms": tr["sdpa_bwd_ms"],
+                "library_covers": "SDPA backward (fwd+bwd minus fwd): "
+                                  "K2 and K3 together"})
+        out.append(entry)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -415,44 +872,35 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from reftr_torch.kernels import _nvcc
-    from reftr_torch.kernels.attention import SOURCE, flash_attention
+    from reftr_torch.kernels.attention import (flash_attention,
+                                               flash_attn_bwd_dkv,
+                                               flash_attn_bwd_dq)
 
     card = card_line()
     print(card, flush=True)
     t0 = time.perf_counter()
-    _nvcc.build(SOURCE)
-    print(f"built {SOURCE} in {time.perf_counter() - t0:.1f} s", flush=True)
+    sources = sorted({src for src, _ in KERNELS.values()})
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(_nvcc.build, sources))
+    print(f"built {', '.join(sources)} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
           f"cudnn {torch.backends.cudnn.allow_tf32}", flush=True)
 
+    counters = [flash_attention, flash_attn_bwd_dq, flash_attn_bwd_dkv]
     report = {"card": card}
     check_kernel(report)
-    serve(report, [flash_attention])
+    check_training_kernels(report)
+    serve(report, counters)
+    torch.cuda.empty_cache()
+    train(report, counters)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
-
-    # the main path serves in bfloat16; its dominant call site is the VL
-    # encoder (call_sites in chiprun_out/chip_smoke.json has every site)
-    enc = next(r for r in report["call_sites"]
-               if r["site"] == "vl_encoder_self" and r["dtype"] == "bfloat16")
-    kernels = [{
-        "name": "flash_attn_fwd",
-        "route": "cuda",
-        "source": "reftr_torch/kernels/csrc/flash_attn_fwd.cu",
-        "replaces": "reftr_tpu/kernels/attention.py:86",
-        "launches": report["serve"]["launches"]["flash_attention"],
-        "max_abs_err": max(report["max_abs_err"].values()),
-        "max_abs_err_f32": report["max_abs_err"]["float32"],
-        "shape": "vl_encoder_self bfloat16 B=8 Sq=Sk=440 H=8 D=32",
-        "ms": enc["ms"], "kernel_ms": enc["ms"],
-        "plain_ms": enc["plain_ms"], "bound_ms": enc["bound_ms"],
-        "bound_by": enc["bound_by"], "library_ms": enc["library_ms"],
-    }]
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernel_line(report)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -20,19 +20,24 @@ package's initialisers do: xavier-uniform for the transformer, heads and
 projections, normal(0.02) for BERT's embeddings and dense layers,
 lecun-normal for the backbone convolutions, normal(1.0) for
 ``level_embed``, and a zero final layer of ``bbox_embed``.
+
+``build_model`` makes a RefTR on its device with either: the one place
+where serving (``serve.ServingModel``) and training
+(``train.TrainState.create``) get their model.
 """
 
 from __future__ import annotations
 
 import math
 import re
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
 from reftr_torch.core.config import ModelConfig
+from reftr_torch.core.device import resolve_device
 from reftr_torch.models.reftr import RefTR
 from reftr_torch.models.vl_transformer import VLTransformer
 from reftr_torch.nn.bert import BertEmbeddings, BertLayer, BertModel
@@ -157,4 +162,26 @@ def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
               and mod.kind == "learned"):
             nn.init.uniform_(mod.row_embed.weight, 0.0, 1.0, generator=g)
             nn.init.uniform_(mod.col_embed.weight, 0.0, 1.0, generator=g)
+    return model
+
+
+def build_model(cfg: ModelConfig, device: Union[str, torch.device] = "cuda",
+                state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+                seed: int = 0) -> RefTR:
+    """``RefTR(cfg)`` built on ``device`` ("cuda" unless the caller passes
+    the CPU) with the weights of ``state_dict`` or, without one, from
+    ``init_params`` with a generator on the device seeded by ``seed``. On
+    a card the convolutions run NHWC (channels_last), the layout the
+    images arrive in."""
+    dev = resolve_device(device)
+    with torch.device(dev):
+        model = RefTR(cfg)
+    if state_dict is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        init_params(model, gen)
+    else:
+        model.load_state_dict(state_dict)
+    if dev.type == "cuda":
+        model.to(memory_format=torch.channels_last)
     return model

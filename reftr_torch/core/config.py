@@ -1,16 +1,20 @@
-"""Configuration of the port: the fields its serving path reads.
+"""Configuration of the port: the fields its serving and training paths
+read.
 
 A copy of the matching fields of reftr_tpu/core/config.py (``BertConfig``
-:24-67, ``ModelConfig`` :70-176, ``DataConfig`` :251-273), kept here because
-the port imports nothing of reftr_tpu. Options of the JAX package that the
-port does not run yet (training, RES, multi-phrase, the from-scratch flags,
-the TPU reparameterisations and int8) are left out rather than accepted and
-ignored; they come back with the slice that runs them.
+:24-67, ``ModelConfig`` :70-176, ``LossConfig`` :232-249, ``DataConfig``
+:251-273, ``TrainConfig`` :302-330), kept here because the port imports
+nothing of reftr_tpu. Options of the JAX package that the port does not run
+yet (RES, multi-phrase, the training loop's checkpoints and output, the
+from-scratch flags, the TPU reparameterisations and int8) are left out
+rather than accepted and ignored; they come back with the slice that runs
+them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Optional, Tuple
 
 
 @dataclass
@@ -24,6 +28,8 @@ class BertConfig:
     intermediate_size: int = 3072
     max_position_embeddings: int = 512
     type_vocab_size: int = 2
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
     layer_norm_eps: float = 1e-12
     pad_token_id: int = 0
 
@@ -47,9 +53,12 @@ class ModelConfig:
     dec_layers: int = 6
     dim_feedforward: int = 2048
     hidden_dim: int = 256
+    dropout: float = 0.1
     nheads: int = 8
     normalize_before: bool = False
     activation: str = "relu"
+    freeze_bert: bool = False
+    freeze_backbone: bool = False
     bert: BertConfig = field(default_factory=BertConfig)
     max_lang_seq: int = 128
     num_queries_per_phrase: int = 1
@@ -59,8 +68,43 @@ class ModelConfig:
     vision_aux: bool = False
     heatmap_box: bool = False
     # compute dtype: float32 | bfloat16. The JAX ModelConfig defaults to
-    # float32 while its CLI defaults to bfloat16 (cli/main.py:149).
+    # float32 while its CLI defaults to bfloat16 (cli/main.py:149). Serving
+    # casts the weights to it; training keeps them float32 and computes
+    # under torch.autocast in it.
     dtype: str = "float32"
+
+
+@dataclass
+class LossConfig:
+    """Loss coefficients of the REC path (main_vg.py:119-134)."""
+
+    bbox_loss_coef: float = 1.0
+    giou_loss_coef: float = 1.0
+
+
+@dataclass
+class TrainConfig:
+    """Optimization and schedule (main_vg.py:28-55, 234-287)."""
+
+    lr: float = 1e-4
+    lr_backbone: float = 1e-5
+    lr_bert: float = 1e-5
+    lr_mask_branch_proj: float = 1.0  # multiplier on base lr
+    # parameter-name keywords selecting each LR group (substring match)
+    lr_backbone_names: Tuple[str, ...] = ("img_backbone",)
+    lr_bert_names: Tuple[str, ...] = ("lang_backbone",)
+    lr_mask_branch_names: Tuple[str, ...] = ("bbox_attention", "mask_head")
+    sgd: bool = False
+    momentum: float = 0.9
+    weight_decay: float = 1e-4
+    clip_max_norm: float = 0.1
+    epochs: int = 60
+    lr_drop: int = 40
+    lr_drop_epochs: Optional[Tuple[int, ...]] = None
+    warm_up_epoch: int = 2
+    lr_decay: float = 0.1
+    lr_schedule: str = "StepLR"  # StepLR | MultiStepWarmupLR | CosineWarmupLR
+    seed: int = 42
 
 
 @dataclass

@@ -2,8 +2,8 @@
 
 Each source under ``csrc/`` is compiled on its own by ``nvcc`` for Hopper
 (``sm_90a``) into ``build/<stem>-<hash>.so``, where the hash covers the
-source and the flags, so an edited source rebuilds and an unchanged one is
-loaded as it is. The library has a plain C interface and is loaded with
+source, the headers beside it (``csrc/*.cuh``) and the flags, so an edited
+source or header rebuilds and an unchanged one is loaded as it is. The library has a plain C interface and is loaded with
 ``ctypes``; nothing here includes PyTorch's headers, so a build takes
 seconds. Nothing is built or loaded when this module is imported.
 """
@@ -44,6 +44,8 @@ def nvcc_path() -> str:
 def library_path(source: str) -> Path:
     src = CSRC / source
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
 
 

@@ -1,19 +1,43 @@
-"""Flash-attention forward: the CUDA kernel for Hopper and its plain version.
+"""Flash attention, forward and backward: the CUDA kernels for Hopper and
+their plain versions.
 
-Port of the Pallas forward kernel ``_flash_kernel`` / ``_fwd`` of
-reftr_tpu/kernels/attention.py. The kernel is
-``csrc/flash_attn_fwd.cu`` (see its header for the design and its bound on
-the card); it is built with nvcc on first use and called through ctypes.
+Port of the Pallas kernels of reftr_tpu/kernels/attention.py and of their
+autograd contract:
 
-``flash_attention`` is the wrapper. It takes the layout the attention
-projections produce, ``[B, S, H, D]``, and a validity mask ``[B, Sk]``
-(True = keep) that becomes an additive -1e9, like the TPU kernel's bias row.
-On a CPU tensor it runs ``attention_plain``; on a CUDA tensor it launches
-the kernel or raises. ``flash_attention.launches`` counts kernel launches.
+  K1 ``flash_attention``    <- ``_flash_kernel`` / ``_fwd``
+                               (``csrc/flash_attn_fwd.cu``)
+  K2 ``flash_attn_bwd_dq``  <- ``_bwd_dq_kernel`` (``csrc/flash_attn_bwd.cu``)
+  K3 ``flash_attn_bwd_dkv`` <- ``_bwd_dkv_kernel`` (``csrc/flash_attn_bwd.cu``)
+  ``FlashAttentionFn``      <- ``_attention``'s ``custom_vjp`` and
+                               ``fused_attention``
 
-Not ported yet (training slice): the backward kernels ``_bwd_dq_kernel``
-and ``_bwd_dkv_kernel``, the in-kernel attention dropout and the autograd
-contract of ``fused_attention``.
+The kernels are built with nvcc on first use and called through ctypes (see
+each source's header for its design and its bound on the card). Layout at
+every function here is the one the attention projections produce:
+q [B, Sq, H, D], k and v [B, Sk, H, D], and a validity mask [B, Sk]
+(True = keep) that becomes an additive -1e9, like the TPU kernel's bias
+row; lse is [B, H, Sq] f32.
+
+Every kernel has its plain PyTorch version here (``attention_plain``,
+``attention_bwd_plain``, ``philox_keep_plain``). A wrapper runs the plain
+version for a tensor on the CPU, and for a CUDA tensor launches its kernel
+or raises. Each wrapper counts its kernel's launches in
+``<wrapper>.launches`` (K1's in ``flash_attention.launches``, also when
+``FlashAttentionFn`` launches it).
+
+Attention dropout follows the TPU kernel: the softmax denominator sums the
+un-dropped weights and only the weights applied to v are dropped and
+scaled by 1 / (1 - rate). The mask is Philox4x32-10 keyed by a 64-bit seed
+and counted by the element's offset ((b * H + h) * Sq + i) * Sk + j, so the
+kernels and the plain version draw the same mask at any tiling. It does not
+match the TPU's mask bit for bit, and need not.
+
+A batch row whose keys are all masked is the uniform average of the eager
+path (reftr_tpu/nn/attention.py:139-155), in the forward and in the
+gradient. Its logits are about -1e9, where a float32 ulp is 64, so the
+kernels and the plain versions add 1e9 back to them (exact): the softmax is
+unchanged and lse, which the backward reads, keeps its digits. The lse of
+such a row is therefore the logsumexp of the shifted logits.
 """
 
 from __future__ import annotations
@@ -26,29 +50,170 @@ import torch
 
 NEG_INF = -1e9
 SOURCE = "flash_attn_fwd.cu"
-HEAD_DIMS = (16, 32, 64)  # the kernel's template instances
+BWD_SOURCE = "flash_attn_bwd.cu"
+HEAD_DIMS = (16, 32, 64)  # the kernels' template instances
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MASK32 = 0xFFFFFFFF
+# Philox4x32-10 multipliers and Weyl key increments (Salmon et al., SC'11)
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+SEED_BITS = 63  # seeds are drawn in [0, 2^63): a non-negative int64
+
+
+def dropout_threshold(rate: float) -> int:
+    """Keep an element iff the top 24 bits of its Philox word are at least
+    this: u >= rate for u = word >> 8 over 2^24."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+    return math.ceil(rate * (1 << 24))
+
+
+def _plain_precision(*tensors: torch.Tensor) -> torch.dtype:
+    """float64 where the caller gives float64 (gradcheck), else float32."""
+    return (torch.float64 if any(t.dtype == torch.float64 for t in tensors)
+            else torch.float32)
+
+
+def _no_autocast(device: torch.device):
+    """The plain versions compute in the precision they state, also inside
+    a caller's autocast region."""
+    return torch.autocast(device.type, enabled=False)
+
+
+def _mulhilo32(a: int, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) 32-bit words of a * b for a 32-bit constant ``a`` and int64
+    ``b`` in [0, 2^32), in int64 arithmetic that never overflows."""
+    t = b * (a & 0xFFFF)  # < 2^48
+    u = b * (a >> 16)  # < 2^48; a * b = t + u * 2^16
+    s = t + ((u & 0xFFFF) << 16)  # < 2^49
+    return ((s >> 32) + (u >> 16)) & _MASK32, s & _MASK32
+
+
+def philox4x32(counter: torch.Tensor, key: Tuple[int, int]) -> torch.Tensor:
+    """Philox4x32-10 in plain integer ops: counter [..., 4] int64 holding
+    32-bit words, key two 32-bit ints; returns the [..., 4] output words."""
+    c0, c1, c2, c3 = (counter[..., i] for i in range(4))
+    k0, k1 = key
+    for r in range(10):
+        if r:
+            k0 = (k0 + _PHILOX_W[0]) & _MASK32
+            k1 = (k1 + _PHILOX_W[1]) & _MASK32
+        hi0, lo0 = _mulhilo32(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo32(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return torch.stack([c0, c1, c2, c3], dim=-1)
+
+
+def philox_keep_plain(seed: int, b: int, h: int, sq: int, sk: int,
+                      rate: float, device=None) -> torch.Tensor:
+    """The kernels' dropout mask in plain PyTorch: bool [B, H, Sq, Sk], True
+    where element n = ((b * H + h) * Sq + i) * Sk + j is kept. Element n
+    takes word n % 4 of Philox4x32-10 at counter (n / 4, 0, 0) under key
+    ``seed`` (low word first), and is kept iff word >> 8 >=
+    ``dropout_threshold(rate)``."""
+    if not 0 <= seed < (1 << 64):
+        raise ValueError(f"seed must be a 64-bit unsigned int, got {seed}")
+    n = b * h * sq * sk
+    ctr = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
+    counter = torch.stack([ctr & _MASK32, ctr >> 32,
+                           torch.zeros_like(ctr), torch.zeros_like(ctr)], -1)
+    words = philox4x32(counter, (seed & _MASK32, seed >> 32)).reshape(-1)[:n]
+    keep = (words >> 8) >= dropout_threshold(rate)
+    return keep.reshape(b, h, sq, sk)
+
+
+def _logits(q: torch.Tensor, k: torch.Tensor,
+            valid_mask: Optional[torch.Tensor], acc: torch.dtype
+            ) -> torch.Tensor:
+    """[B, H, Sq, Sk] logits as the kernels round them: s * scale, then
+    + bias, then + 1e9 in a batch row whose keys are all masked."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) * scale
+    if valid_mask is not None:
+        bias = torch.where(valid_mask, 0.0, NEG_INF).to(acc)
+        shift = torch.where(valid_mask.any(-1), 0.0, -NEG_INF).to(acc)
+        logits = logits + bias[:, None, None, :]
+        logits = logits + shift[:, None, None, None]
+    return logits
+
+
+def _keep_scale(rate: float, seed: Optional[int], b: int, h: int, sq: int,
+                sk: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """The dropout multiplier [B, H, Sq, Sk]: 1 / (1 - rate) where kept,
+    0 where dropped."""
+    keep = philox_keep_plain(seed, b, h, sq, sk, rate, device)
+    return keep.to(dtype) * (1.0 / (1.0 - rate))
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     valid_mask: Optional[torch.Tensor] = None,
-                    return_lse: bool = False):
-    """The kernel's function in plain PyTorch: f32 logits and softmax with
-    an additive -1e9 on masked keys, output in the input dtype.
+                    return_lse: bool = False, *, dropout_rate: float = 0.0,
+                    seed: Optional[int] = None):
+    """The forward kernel's function in plain PyTorch: f32 logits and
+    softmax (f64 for f64 inputs) with an additive -1e9 on masked keys, the
+    kernels' dropout mask after the softmax, output in the input dtype.
+    Differentiable by autograd.
 
     q [B, Sq, H, D]; k, v [B, Sk, H, D]; valid_mask [B, Sk] bool or None.
-    Returns out [B, Sq, H, D] and, with return_lse, lse [B, H, Sq] f32.
+    Returns out [B, Sq, H, D] and, with return_lse, lse [B, H, Sq].
     """
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    if valid_mask is not None:
-        bias = torch.where(valid_mask[:, None, None, :], 0.0, NEG_INF)
-        logits = logits + bias
-    weights = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", weights, v.float()).to(q.dtype)
-    if return_lse:
-        return out, torch.logsumexp(logits, dim=-1)
+    _check_dropout(dropout_rate, seed)
+    acc = _plain_precision(q)
+    with _no_autocast(q.device):
+        logits = _logits(q, k, valid_mask, acc)
+        weights = torch.softmax(logits, dim=-1)
+        if dropout_rate > 0.0:
+            b, h, sq, sk = weights.shape
+            weights = weights * _keep_scale(dropout_rate, seed, b, h, sq, sk,
+                                            acc, q.device)
+        out = torch.einsum("bhqk,bkhd->bqhd", weights, v.to(acc)).to(q.dtype)
+        if return_lse:
+            return out, torch.logsumexp(logits, dim=-1)
     return out
+
+
+def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        valid_mask: Optional[torch.Tensor], o: torch.Tensor,
+                        lse: torch.Tensor, do: torch.Tensor,
+                        dropout_rate: float = 0.0, seed: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels' function in plain PyTorch, the flash-2
+    formulas of ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel`` written out:
+
+      p = exp(x - lse), dp = (dO v^T) * keep, di = rowsum(dO * O),
+      ds = p * (dp - di), dq = scale * ds k, dk = scale * ds^T q,
+      dv = (p * keep)^T dO
+
+    with x the forward's logits and keep its dropout multiplier. o and lse
+    are the forward's outputs, do the gradient of o. Computes in f32 (f64
+    for f64 inputs); returns (dq, dk, dv) in the input dtype.
+    """
+    _check_dropout(dropout_rate, seed)
+    acc = _plain_precision(q, do)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    with _no_autocast(q.device):
+        p = torch.exp(_logits(q, k, valid_mask, acc)
+                      - lse.to(acc)[..., None])  # [B, H, Sq, Sk]
+        dp = torch.einsum("bqhd,bkhd->bhqk", do.to(acc), v.to(acc))
+        pk = p
+        if dropout_rate > 0.0:
+            b, h, sq, sk = p.shape
+            keep = _keep_scale(dropout_rate, seed, b, h, sq, sk, acc,
+                               q.device)
+            pk = p * keep
+            dp = dp * keep
+        di = (do.to(acc) * o.to(acc)).sum(-1).transpose(1, 2)  # [B, H, Sq]
+        ds = p * (dp - di[..., None])
+        dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.to(acc)) * scale
+        dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.to(acc)) * scale
+        dv = torch.einsum("bhqk,bqhd->bkhd", pk, do.to(acc))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_dropout(rate: float, seed: Optional[int]) -> None:
+    dropout_threshold(rate)
+    if rate > 0.0 and seed is None:
+        raise ValueError("dropout_rate > 0 needs a seed")
 
 
 def _check(q, k, v, valid_mask) -> None:
@@ -60,76 +225,216 @@ def _check(q, k, v, valid_mask) -> None:
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if k.shape[1] == 0 or q.shape[1] == 0:
         raise ValueError("empty query or key sequence")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"q, k, v must share one dtype of float32/bfloat16, "
-                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    allowed = tuple(_DTYPES) + ((torch.float64,) if q.device.type == "cpu"
+                                else ())
+    if q.dtype not in allowed or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share one dtype of float32/bfloat16 "
+                        f"(float64 on the CPU), got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
     if valid_mask is not None and (valid_mask.dtype != torch.bool
                                    or valid_mask.shape != (b, k.shape[1])):
         raise ValueError(f"valid_mask must be bool [{b}, {k.shape[1]}], got "
                          f"{valid_mask.dtype} {tuple(valid_mask.shape)}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash attention runs on cpu or cuda, not "
+                         f"{q.device}")
+
+
+def _check_cuda(*tensors: Optional[torch.Tensor]) -> None:
+    """What the kernels take: one CUDA device, contiguous, a head dim they
+    were instantiated for."""
+    q = tensors[0]
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"head_dim {q.shape[-1]} not in the kernels' "
+                         f"{HEAD_DIMS}")
+    for t in tensors:
+        if t is None:
+            continue
+        if t.device != q.device:
+            raise ValueError("every input must be on one device")
+        if not t.is_contiguous():
+            raise ValueError("the flash kernels need contiguous inputs")
+
+
+def _check_bwd(q, o, lse, do) -> None:
+    """The backward kernels read O and dO in q's dtype and lse in f32."""
+    if o.dtype != q.dtype or do.dtype != q.dtype or lse.dtype != torch.float32:
+        raise TypeError(f"o and do must be {q.dtype} and lse float32, got "
+                        f"{o.dtype}, {do.dtype}, {lse.dtype}")
 
 
 def _threads_per_row(sq: int) -> int:
-    """Threads that share one query row in the kernel: a short query side
-    (the decoder's single query) spreads its keys over up to a warp."""
+    """Threads that share one query row in the forward and dq kernels: a
+    short query side (the decoder's single query) spreads its keys over up
+    to a warp."""
     for g, most in ((32, 4), (16, 8), (8, 16)):
         if sq <= most:
             return g
     return 4
 
 
-def _library() -> ctypes.CDLL:
+_PTR = ctypes.c_void_p
+_INT = ctypes.c_int
+_DROPOUT_ARGS = [ctypes.c_uint64, ctypes.c_uint32, ctypes.c_float]
+_ARGTYPES = {
+    "flash_attn_fwd": [_PTR] * 6 + [_INT] * 7 + _DROPOUT_ARGS + [_PTR],
+    "flash_attn_bwd_dq": [_PTR] * 8 + [_INT] * 7 + _DROPOUT_ARGS + [_PTR],
+    "flash_attn_bwd_dkv": [_PTR] * 9 + [_INT] * 6 + _DROPOUT_ARGS + [_PTR],
+}
+
+
+def _entry(source: str, name: str):
+    """The C entry point ``name`` of ``csrc/<source>``, built on first use."""
     from reftr_torch.kernels import _nvcc
 
-    lib = _nvcc.load(SOURCE)
-    fn = lib.flash_attn_fwd
+    fn = getattr(_nvcc.load(source), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
-            ctypes.c_void_p]
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-    return lib
+    return fn
+
+
+def _launch(source: str, name: str, device: torch.device, *args) -> None:
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _entry(source, name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _dropout_args(rate: float, seed: Optional[int]):
+    if rate == 0.0:
+        return 0, 0, 1.0
+    return seed, dropout_threshold(rate), 1.0 / (1.0 - rate)
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             valid_mask: Optional[torch.Tensor], dropout_rate: float,
+             seed: Optional[int], return_lse: bool = True):
+    """K1 without autograd, on checked inputs: (out [B, Sq, H, D], lse
+    [B, H, Sq] f32 or None). The plain version on a CPU tensor."""
+    if q.device.type == "cpu":
+        if return_lse:
+            return attention_plain(q, k, v, valid_mask, True,
+                                   dropout_rate=dropout_rate, seed=seed)
+        return attention_plain(q, k, v, valid_mask, dropout_rate=dropout_rate,
+                               seed=seed), None
+    _check_cuda(q, k, v, valid_mask)
+    b, sq, h, d = q.shape
+    out = torch.empty_like(q)
+    lse = (torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
+           if return_lse else None)
+    _launch(SOURCE, "flash_attn_fwd", q.device, _ptr(q), _ptr(k), _ptr(v),
+            _ptr(valid_mask), _ptr(out), _ptr(lse), b, h, sq, k.shape[1], d,
+            _DTYPES[q.dtype], _threads_per_row(sq),
+            *_dropout_args(dropout_rate, seed))
+    flash_attention.launches += 1
+    return out, lse
+
+
+def flash_attn_bwd_dq(q, k, v, valid_mask, o, lse, do,
+                      dropout_rate: float = 0.0,
+                      seed: Optional[int] = None) -> torch.Tensor:
+    """K2: dq [B, Sq, H, D] in the input dtype. The plain version on a CPU
+    tensor."""
+    if q.device.type == "cpu":
+        return attention_bwd_plain(q, k, v, valid_mask, o, lse, do,
+                                   dropout_rate, seed)[0]
+    _check_cuda(q, k, v, valid_mask, o, lse, do)
+    _check_bwd(q, o, lse, do)
+    b, sq, h, d = q.shape
+    dq = torch.empty_like(q)
+    _launch(BWD_SOURCE, "flash_attn_bwd_dq", q.device, _ptr(q), _ptr(k),
+            _ptr(v), _ptr(valid_mask), _ptr(o), _ptr(do), _ptr(lse),
+            _ptr(dq), b, h, sq, k.shape[1], d, _DTYPES[q.dtype],
+            _threads_per_row(sq), *_dropout_args(dropout_rate, seed))
+    flash_attn_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attn_bwd_dkv(q, k, v, valid_mask, o, lse, do,
+                       dropout_rate: float = 0.0, seed: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3: (dk, dv) [B, Sk, H, D] in the input dtype. The plain version on
+    a CPU tensor."""
+    if q.device.type == "cpu":
+        return attention_bwd_plain(q, k, v, valid_mask, o, lse, do,
+                                   dropout_rate, seed)[1:]
+    _check_cuda(q, k, v, valid_mask, o, lse, do)
+    _check_bwd(q, o, lse, do)
+    b, sq, h, d = q.shape
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _launch(BWD_SOURCE, "flash_attn_bwd_dkv", q.device, _ptr(q), _ptr(k),
+            _ptr(v), _ptr(valid_mask), _ptr(o), _ptr(do), _ptr(lse),
+            _ptr(dk), _ptr(dv), b, h, sq, k.shape[1], d, _DTYPES[q.dtype],
+            *_dropout_args(dropout_rate, seed))
+    flash_attn_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attn_bwd_dq.launches = 0
+flash_attn_bwd_dkv.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention with the flash kernels' backward (the ``custom_vjp`` of
+    reftr_tpu's ``_attention``): the forward saves q, k, v, the mask, O,
+    lse and the dropout seed; the backward runs K2 and K3 (their plain
+    versions on the CPU) and gives no gradient for the mask, the rate or
+    the seed."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, valid_mask, dropout_rate, seed):
+        out, lse = _forward(q, k, v, valid_mask, dropout_rate, seed)
+        ctx.save_for_backward(q, k, v, valid_mask, out, lse)
+        ctx.dropout = (dropout_rate, seed)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, valid_mask, out, lse = ctx.saved_tensors
+        do = do.to(out.dtype).contiguous()
+        if q.device.type == "cpu":
+            dq, dk, dv = attention_bwd_plain(q, k, v, valid_mask, out, lse,
+                                             do, *ctx.dropout)
+        else:
+            dq = flash_attn_bwd_dq(q, k, v, valid_mask, out, lse, do,
+                                   *ctx.dropout)
+            dk, dv = flash_attn_bwd_dkv(q, k, v, valid_mask, out, lse, do,
+                                        *ctx.dropout)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     valid_mask: Optional[torch.Tensor] = None,
-                    return_lse: bool = False
+                    return_lse: bool = False, *, dropout_rate: float = 0.0,
+                    seed: Optional[int] = None
                     ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """softmax(q k^T / sqrt(D) - 1e9 * ~valid) v, per batch and head.
+    """softmax(q k^T / sqrt(D) - 1e9 * ~valid) v per batch and head, with
+    attention dropout at ``dropout_rate`` keyed by ``seed``.
 
     q [B, Sq, H, D]; k, v [B, Sk, H, D] in float32 or bfloat16;
     valid_mask [B, Sk] bool (True = keep) or None. Returns out
     [B, Sq, H, D] in the input dtype and, with return_lse, the row
-    logsumexp [B, H, Sq] f32.
+    logsumexp [B, H, Sq] f32. Where grad is enabled and q, k or v needs
+    it, the call goes through ``FlashAttentionFn`` (K1, then K2 and K3 in
+    the backward); return_lse is for calls without grad.
     """
     _check(q, k, v, valid_mask)
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, valid_mask, return_lse)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda, not "
-                         f"{q.device}")
-    b, sq, h, d = q.shape
-    sk = k.shape[1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in the kernel's {HEAD_DIMS}")
-    tensors = (q, k, v) if valid_mask is None else (q, k, v, valid_mask)
-    for t in tensors:
-        if t.device != q.device:
-            raise ValueError("q, k, v and valid_mask must be on one device")
-        if not t.is_contiguous():
-            raise ValueError("flash_attention needs contiguous inputs")
-    out = torch.empty_like(q)
-    lse = (torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
-           if return_lse else None)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _library().flash_attn_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if valid_mask is None else valid_mask.data_ptr(),
-            out.data_ptr(), None if lse is None else lse.data_ptr(),
-            b, h, sq, sk, d, _DTYPES[q.dtype], _threads_per_row(sq), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attn_fwd launch failed: cudaError {err}")
-    flash_attention.launches += 1
+    _check_dropout(dropout_rate, seed)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if return_lse:
+            raise ValueError("return_lse is for calls without grad")
+        return FlashAttentionFn.apply(q, k, v, valid_mask, dropout_rate,
+                                      seed)
+    out, lse = _forward(q, k, v, valid_mask, dropout_rate, seed,
+                        return_lse=return_lse)
     return (out, lse) if return_lse else out
 
 

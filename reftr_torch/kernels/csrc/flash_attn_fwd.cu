@@ -4,8 +4,16 @@
 // (driven by `_fwd`, pallas_call at :210): out = softmax(q k^T / sqrt(D) +
 // bias) v per (batch, head), with an f32 running max, denominator and
 // accumulator, q/k/v in f32 or bf16 upcast on load, out in the input dtype
-// and an optional row logsumexp. Attention dropout (the TPU kernel's
-// in-kernel PRNG) is a training feature and is not part of this kernel.
+// and an optional row logsumexp (always written in training, for the
+// backward kernels of flash_attn_bwd.cu).
+//
+// Attention dropout, in the TPU kernel's order (`_flash_kernel` :106-125):
+// the denominator sums the un-dropped p, and only the numerator p v is
+// dropped and scaled by 1 / (1 - rate). The mask is Philox keyed by the
+// call's seed and counted by the element's absolute offset
+// (flash_common.cuh), so it does not depend on the tiling; the TPU kernel
+// keys its PRNG by tile and must run its forward at the backward's tiles
+// (:476-480), which this kernel need not.
 //
 // Layout: q [B, Sq, H, D], k/v [B, Sk, H, D], out [B, Sq, H, D], all
 // contiguous (the layout the projections produce, so no transposes);
@@ -13,7 +21,8 @@
 // -1e9 of the TPU kernel's bias row); lse [B, H, Sq] f32 (nullable).
 // Keys past Sk are left out of the sum entirely (the TPU kernel pads them
 // with -1e9 instead), so a row whose keys are all masked gives the same
-// finite uniform average as the eager path.
+// finite uniform average as the eager path (see flash_common.cuh for the
+// lse of such a row).
 //
 // Design (simple first): one block of 128 threads per (batch*head, q tile).
 // G threads share one query row (G a power of two up to 32, chosen by the
@@ -32,39 +41,33 @@
 // measured times are in PERF.md. What this design leaves on the table:
 // tensor cores (mma.sync / wgmma on bf16 tiles would lift the operation
 // bound some 15x), TMA or cp.async double-buffering of the k/v tiles (the
-// block waits on every tile load), vectorised 16-byte loads, and the
-// redundant exp of the per-chunk rescale.
+// block waits on every tile load), vectorised 16-byte loads, the
+// redundant exp of the per-chunk rescale, and one Philox call per element
+// with dropout where one call gives four elements' words.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
+
+using flash::from_f32;
+using flash::to_f32;
 
 constexpr int kThreads = 128;  // threads per block
 constexpr int kTileK = 64;     // keys staged in shared memory per step
 constexpr int kChunk = 8;      // keys per online-softmax rescale
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const uint8_t* __restrict__ valid,
                  T* __restrict__ out, float* __restrict__ lse, int H, int Sq,
-                 int Sk, int G, int n_qt, float scale) {
+                 int Sk, int G, int n_qt, float scale, uint64_t seed,
+                 uint32_t threshold, float inv_keep) {
   // rows padded to D + 1 floats: the G threads of a row read G different
   // keys at the same d, which would otherwise share one bank
   __shared__ float ks[kTileK][D + 1];
@@ -81,6 +84,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int row = qt * rows + tid / G;
   const bool live = row < Sq;
   const long row_stride = (long)H * D;  // elements between tokens
+  const float shift = flash::masked_row_shift(valid, b, Sk);
+  // dropout offset of (b, h, row, key 0)
+  const uint64_t n_row = ((uint64_t)bh * Sq + (live ? row : 0)) * Sk;
 
   float qr[D];
   float acc[D];
@@ -107,7 +113,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       vs[j][d] = to_f32(vb[off]);
     }
     for (int j = tid; j < nk; j += kThreads)
-      bs[j] = (valid == nullptr || valid[(long)b * Sk + k0 + j]) ? 0.f : -1e9f;
+      bs[j] = (valid == nullptr || valid[(long)b * Sk + k0 + j])
+                  ? 0.f
+                  : flash::kMaskBias;
     __syncthreads();
 
     // this thread's keys in the tile: j = sub, sub + G, ...
@@ -122,7 +130,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           float dot = 0.f;
 #pragma unroll
           for (int d = 0; d < D; ++d) dot = fmaf(qr[d], ks[j][d], dot);
-          x = dot * scale + bs[j];
+          x = flash::logit(dot, scale, bs[j], shift);
         }
         s[c] = x;
         cmax = fmaxf(cmax, x);
@@ -137,9 +145,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int j = j0 + c * G;
         if (j < nk) {
           const float p = expf(s[c] - m_new);
-          l += p;
+          l += p;  // the denominator sums the un-dropped p
+          const float pv =
+              threshold == 0u
+                  ? p
+                  : p * flash::keep_scale(seed, n_row + k0 + j, threshold,
+                                          inv_keep);
 #pragma unroll
-          for (int d = 0; d < D; ++d) acc[d] = fmaf(p, vs[j][d], acc[d]);
+          for (int d = 0; d < D; ++d) acc[d] = fmaf(pv, vs[j][d], acc[d]);
         }
       }
       m = m_new;
@@ -166,10 +179,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     lse[(long)bh * Sq + row] = m_row + logf(l);
 }
 
+struct Dropout {
+  uint64_t seed;
+  uint32_t threshold;  // 0: no dropout
+  float inv_keep;
+};
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const uint8_t* valid, void* out, float* lse, int B, int H,
-                   int Sq, int Sk, int G, cudaStream_t stream) {
+                   int Sq, int Sk, int G, Dropout dr, cudaStream_t stream) {
   const int rows = kThreads / G;
   const int n_qt = (Sq + rows - 1) / rows;
   const long blocks = (long)B * H * n_qt;
@@ -178,22 +197,25 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   flash_fwd_kernel<T, D><<<(unsigned)blocks, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), valid, static_cast<T*>(out), lse, H, Sq, Sk,
-      G, n_qt, scale);
+      G, n_qt, scale, dr.seed, dr.threshold, dr.inv_keep);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v,
                        const uint8_t* valid, void* out, float* lse, int B,
-                       int H, int Sq, int Sk, int D, int G,
+                       int H, int Sq, int Sk, int D, int G, Dropout dr,
                        cudaStream_t stream) {
   switch (D) {
     case 16:
-      return launch<T, 16>(q, k, v, valid, out, lse, B, H, Sq, Sk, G, stream);
+      return launch<T, 16>(q, k, v, valid, out, lse, B, H, Sq, Sk, G, dr,
+                            stream);
     case 32:
-      return launch<T, 32>(q, k, v, valid, out, lse, B, H, Sq, Sk, G, stream);
+      return launch<T, 32>(q, k, v, valid, out, lse, B, H, Sq, Sk, G, dr,
+                            stream);
     case 64:
-      return launch<T, 64>(q, k, v, valid, out, lse, B, H, Sq, Sk, G, stream);
+      return launch<T, 64>(q, k, v, valid, out, lse, B, H, Sq, Sk, G, dr,
+                            stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -202,20 +224,23 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. G: threads per query row, a power of two
-// in [1, 32]. Returns a cudaError_t (0 = launched).
+// in [1, 32]. Dropout: threshold = ceil(rate * 2^24) (0 = none), inv_keep =
+// 1 / (1 - rate). Returns a cudaError_t (0 = launched).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               const uint8_t* valid, void* out, float* lse, int B,
                               int H, int Sq, int Sk, int D, int dtype, int G,
+                              uint64_t seed, uint32_t threshold, float inv_keep,
                               void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || G < 1 || G > 32 ||
-      (G & (G - 1)) != 0)
+      (G & (G - 1)) != 0 || threshold > (1u << 24))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Dropout dr{seed, threshold, inv_keep};
   if (dtype == 0)
     return (int)dispatch_d<float>(q, k, v, valid, out, lse, B, H, Sq, Sk, D, G,
-                                  s);
+                                  dr, s);
   if (dtype == 1)
     return (int)dispatch_d<__nv_bfloat16>(q, k, v, valid, out, lse, B, H, Sq,
-                                          Sk, D, G, s);
+                                          Sk, D, G, dr, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -13,6 +13,14 @@ Outputs: pred_boxes [B,1,nq,4] sigmoid cxcywh, phrase_mask [B,nq],
 aux_outputs (per decoder layer but the last, with aux_loss) and, with
 return_internals, the encoder memory and decoder states.
 
+Training (``model.train()``) keeps the parameters float32 and runs the
+compute dtype through ``torch.autocast`` (``train/steps.py``); dropout is
+``ModelConfig.dropout`` in the VL modules and the BERT config's rates in
+BERT. The ResNet stem and layer1 never train (every stage with
+``freeze_backbone``), nor BERT with ``freeze_bert``
+(reftr_tpu/models/reftr.py:94-104, 226-227, 252): their parameters get
+``requires_grad=False`` and they run without a graph.
+
 Not in this slice: multi-phrase inputs, more than one feature level,
 ``vision_aux`` and ``heatmap_box`` raise NotImplementedError; the RES mask
 head and the other from-scratch options (img_pos_in_stream,
@@ -21,10 +29,10 @@ pos_in_value) have no config field yet.
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Any, Dict
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from reftr_torch.core.config import ModelConfig
@@ -64,8 +72,12 @@ class RefTR(nn.Module):
         self.config = mc
         self.dtype = _DTYPES[mc.dtype]
         self.img_backbone = ResNet(mc.backbone, mc.dilation)
+        self.img_backbone.freeze(4 if mc.freeze_backbone else 1)
         self.lang_backbone = BertModel(mc.bert)
-        self.map_sentence = MLPMapping(mc.bert.hidden_size, mc.hidden_dim)
+        if mc.freeze_bert:
+            self.lang_backbone.requires_grad_(False)
+        self.map_sentence = MLPMapping(mc.bert.hidden_size, mc.hidden_dim,
+                                       mc.dropout)
         self.vl_transformer = VLTransformer(
             d_model=mc.hidden_dim, nhead=mc.nheads,
             num_encoder_layers=mc.enc_layers,
@@ -73,10 +85,11 @@ class RefTR(nn.Module):
             dim_feedforward=mc.dim_feedforward, activation=mc.activation,
             normalize_before=mc.normalize_before,
             num_feature_levels=mc.num_feature_levels,
-            max_lang_seq=mc.max_lang_seq)
-        self.map_phrase = MLPMapping(mc.bert.hidden_size, mc.hidden_dim)
+            max_lang_seq=mc.max_lang_seq, dropout=mc.dropout)
+        self.map_phrase = MLPMapping(mc.bert.hidden_size, mc.hidden_dim,
+                                     mc.dropout)
         self.query_encoder = QueryEncoder(mc.num_queries_per_phrase,
-                                          mc.hidden_dim)
+                                          mc.hidden_dim, mc.dropout)
         self.bbox_embed = MLP(mc.hidden_dim, mc.hidden_dim, 4, 3,
                               final_zero_init=True)
         self.pos_embedding = ImagePositionEmbedding(mc.hidden_dim,
@@ -86,7 +99,10 @@ class RefTR(nn.Module):
     def cast_to_compute_dtype(self) -> "RefTR":
         """Cast parameters and buffers to the compute dtype, except the
         FrozenBatchNorm statistics, which stay float32 (the JAX package
-        keeps all parameters f32 and computes the BN scale in f32)."""
+        keeps all parameters f32 and computes the BN scale in f32).
+
+        For serving only: training keeps every parameter float32 and runs
+        the compute dtype through ``torch.autocast``."""
         frozen = {id(t) for m in self.modules()
                   if isinstance(m, FrozenBatchNorm) for t in m.buffers()}
         for t in list(self.parameters()) + list(self.buffers()):
@@ -109,7 +125,9 @@ class RefTR(nn.Module):
         return [src], [valid], [pos]
 
     def encode_language(self, sentence, sentence_valid):
-        seq, pooled = self.lang_backbone(sentence, sentence_valid)
+        frozen = self.config.freeze_bert
+        with torch.no_grad() if frozen else nullcontext():
+            seq, pooled = self.lang_backbone(sentence, sentence_valid)
         return self.map_sentence(seq), pooled
 
     def phrase_inputs(self, batch: Dict[str, torch.Tensor],

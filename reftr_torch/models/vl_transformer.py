@@ -24,7 +24,7 @@ class VLTransformer(nn.Module):
                  num_encoder_layers: int = 6, num_decoder_layers: int = 6,
                  dim_feedforward: int = 2048, activation: str = "relu",
                  normalize_before: bool = False, num_feature_levels: int = 1,
-                 max_lang_seq: int = 128):
+                 max_lang_seq: int = 128, dropout: float = 0.1):
         super().__init__()
         if num_decoder_layers <= 0:
             raise NotImplementedError("the serving path needs a decoder")
@@ -35,10 +35,10 @@ class VLTransformer(nn.Module):
                                                     d_model))
         self.encoder = TransformerEncoder(
             num_encoder_layers, d_model, nhead, dim_feedforward, activation,
-            normalize_before)
+            normalize_before, dropout=dropout)
         self.decoder = TransformerDecoder(
             num_decoder_layers, d_model, nhead, dim_feedforward, activation,
-            normalize_before)
+            normalize_before, dropout=dropout)
 
     def process_img_feat(self, img_srcs: Sequence[torch.Tensor],
                          img_valids: Sequence[torch.Tensor],

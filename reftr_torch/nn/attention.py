@@ -6,35 +6,67 @@ applied as an additive -1e9, not -inf: a row whose keys are all masked
 gives a finite uniform average instead of NaN, as in the JAX package.
 
 The attention itself is ``reftr_torch.kernels.attention.flash_attention``:
-the CUDA kernel on a CUDA tensor, its plain version on a CPU tensor. The
-JAX package's rule for choosing between its kernel and XLA was tuned on a
-TPU v5e and is not carried over; on the card every attention takes the
-kernel until H100 measurements say otherwise. ``plain = True`` sends a
-module to the plain version on any device, which is how a run is checked
-against the plain path on the card (``set_plain_attention``).
+the CUDA kernels on a CUDA tensor (K1 forward; K2 and K3 in the backward
+when grad is enabled), their plain versions on a CPU tensor. The JAX
+package's rule for choosing between its kernel and XLA was tuned on a TPU
+v5e and is not carried over; on the card every attention takes the kernel
+until H100 measurements say otherwise. ``plain = True`` sends a module to
+the plain version on any device, in training too and with the same
+dropout mask, which is how a run is checked against the plain path on the
+card (``set_plain_attention``).
 
-Eval only: attention-weight dropout comes with the training slice.
+Attention-weight dropout (training mode, ``dropout > 0``) runs inside the
+kernels. Each call draws its 64-bit seed from the host ``torch.Generator``
+bound by ``attention_rng`` (the counterpart of the ``rngs={"dropout": ...}``
+that the JAX train step passes, reftr_tpu/train/steps.py:74): a draw on the
+host, so the call never waits for the device.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from contextlib import contextmanager
+from typing import Iterator, Optional
 
 import torch
 from torch import nn
 
-from reftr_torch.kernels.attention import (NEG_INF, attention_plain,
-                                           flash_attention)
+from reftr_torch.kernels.attention import (NEG_INF, SEED_BITS,
+                                           attention_plain, flash_attention)
 
-__all__ = ["MultiHeadAttention", "NEG_INF", "set_plain_attention"]
+__all__ = ["MultiHeadAttention", "NEG_INF", "attention_rng",
+           "set_plain_attention"]
+
+_RNG: Optional[torch.Generator] = None
+
+
+@contextmanager
+def attention_rng(generator: torch.Generator) -> Iterator[None]:
+    """Bind the host generator that attention dropout draws its seeds from,
+    for the calls made inside the block."""
+    global _RNG
+    if generator.device.type != "cpu":
+        raise ValueError("attention seeds come from a CPU generator")
+    outer, _RNG = _RNG, generator
+    try:
+        yield
+    finally:
+        _RNG = outer
+
+
+def _draw_seed() -> int:
+    if _RNG is None:
+        raise RuntimeError("attention dropout in training mode needs a "
+                           "generator: run the forward inside attention_rng")
+    return int(torch.randint(0, 2 ** SEED_BITS - 1, (), generator=_RNG))
 
 
 class MultiHeadAttention(nn.Module):
-    def __init__(self, d_model: int, num_heads: int):
+    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         if d_model % num_heads:
             raise ValueError("d_model must be divisible by num_heads")
         self.num_heads = num_heads
+        self.dropout = dropout
         self.q_proj = nn.Linear(d_model, d_model)
         self.k_proj = nn.Linear(d_model, d_model)
         self.v_proj = nn.Linear(d_model, d_model)
@@ -51,14 +83,16 @@ class MultiHeadAttention(nn.Module):
         q = self.q_proj(query).view(b, sq, h, d // h)
         k = self.k_proj(key).view(b, sk, h, d // h)
         v = self.v_proj(value).view(b, sk, h, d // h)
+        rate = self.dropout if self.training else 0.0
+        seed = _draw_seed() if rate > 0.0 else None
         attend = attention_plain if self.plain else flash_attention
-        out = attend(q, k, v, key_valid)
+        out = attend(q, k, v, key_valid, dropout_rate=rate, seed=seed)
         return self.out_proj(out.reshape(b, sq, d))
 
 
 def set_plain_attention(model: nn.Module, plain: bool) -> None:
     """Route every MultiHeadAttention of ``model`` to the plain version
-    (True) or back to the kernel (False)."""
+    (True) or back to the kernels (False)."""
     for mod in model.modules():
         if isinstance(mod, MultiHeadAttention):
             mod.plain = plain

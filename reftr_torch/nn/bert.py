@@ -3,8 +3,10 @@
 Embeddings, the post-norm encoder stack with exact GELU, and the tanh
 pooler; the model reads ``(sequence_output, pooled_output)``. Attention
 masks are validity masks (True = real token) applied as an additive -1e9
-through ``MultiHeadAttention``. Eval only: dropout and the RoBERTa
-position offset come with later slices.
+through ``MultiHeadAttention``. Dropout as in the JAX package
+(reftr_tpu/nn/bert.py:54, 75, 79, 96): after the embeddings' LayerNorm, on
+the attention weights, and on both residual branches; training mode only.
+The RoBERTa position offset comes with a later slice.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ class BertEmbeddings(nn.Module):
         self.token_type_embeddings = nn.Embedding(c.type_vocab_size,
                                                   c.hidden_size)
         self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+        self.dropout = nn.Dropout(c.hidden_dropout)
 
     def forward(self, input_ids: torch.Tensor,
                 token_type_ids: Optional[torch.Tensor] = None
@@ -38,25 +41,28 @@ class BertEmbeddings(nn.Module):
         x = (self.word_embeddings(input_ids)
              + self.position_embeddings.weight[:s]
              + self.token_type_embeddings(token_type_ids))
-        return self.LayerNorm(x)
+        return self.dropout(self.LayerNorm(x))
 
 
 class BertLayer(nn.Module):
     def __init__(self, c: BertConfig):
         super().__init__()
         self.attention = MultiHeadAttention(c.hidden_size,
-                                            c.num_attention_heads)
+                                            c.num_attention_heads,
+                                            c.attention_dropout)
         self.attention_norm = nn.LayerNorm(c.hidden_size,
                                            eps=c.layer_norm_eps)
         self.intermediate = nn.Linear(c.hidden_size, c.intermediate_size)
         self.output = nn.Linear(c.intermediate_size, c.hidden_size)
         self.output_norm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+        self.dropout = nn.Dropout(c.hidden_dropout)
 
     def forward(self, x: torch.Tensor,
                 valid_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self.attention_norm(x + self.attention(x, x, x, valid_mask))
+        x = self.attention_norm(
+            x + self.dropout(self.attention(x, x, x, valid_mask)))
         y = self.output(F.gelu(self.intermediate(x)))  # exact GELU
-        return self.output_norm(x + y)
+        return self.output_norm(x + self.dropout(y))
 
 
 class BertModel(nn.Module):

@@ -3,7 +3,8 @@
 ``MLP``: N linear layers with ReLU between (the DETR bbox head; the final
 layer starts at zero, see ``convert.init_params``). ``MLPMapping``: Linear
 -> LayerNorm -> ReLU -> Linear -> LayerNorm -> ReLU, mapping BERT features
-to the VL width (LayerNorm eps 1e-6, Flax's default).
+to the VL width (LayerNorm eps 1e-6, Flax's default), with dropout after the
+first ReLU (reftr_tpu/nn/mlp.py:57).
 """
 
 from __future__ import annotations
@@ -33,13 +34,15 @@ class MLP(nn.Module):
 
 
 class MLPMapping(nn.Module):
-    def __init__(self, input_dim: int, output_dim: int):
+    def __init__(self, input_dim: int, output_dim: int,
+                 dropout: float = 0.1):
         super().__init__()
         self.fc1 = nn.Linear(input_dim, output_dim)
         self.ln1 = nn.LayerNorm(output_dim, eps=LN_EPS)
+        self.dropout = nn.Dropout(dropout)
         self.fc2 = nn.Linear(output_dim, output_dim)
         self.ln2 = nn.LayerNorm(output_dim, eps=LN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.ln1(self.fc1(x)))
+        x = self.dropout(F.relu(self.ln1(self.fc1(x))))
         return F.relu(self.ln2(self.fc2(x)))

@@ -4,8 +4,9 @@ of reftr_tpu/nn/query_encoder.py).
 An attended reduce over the encoded sentence (keys from the [CLS] slot,
 masked positions set to -1e9, f32 softmax pooling, Linear + LayerNorm,
 residual from [CLS]), fused with the per-phrase pooled BERT feature through
-an MLPMapping, then tiled over n_q learned query embeddings of width 2*d
-and split into (query, query_pos).
+an MLPMapping (whose dropout is the module's, reftr_tpu/nn/query_encoder.py
+:66), then tiled over n_q learned query embeddings of width 2*d and split
+into (query, query_pos).
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ from reftr_torch.nn.mlp import LN_EPS, MLPMapping
 
 
 class QueryEncoder(nn.Module):
-    def __init__(self, num_queries_per_phrase: int, hidden_dim: int):
+    def __init__(self, num_queries_per_phrase: int, hidden_dim: int,
+                 dropout: float = 0.1):
         super().__init__()
         d = hidden_dim
         self.linear1 = nn.Linear(d, d)
@@ -28,7 +30,7 @@ class QueryEncoder(nn.Module):
         self.linear3 = nn.Linear(d, d)
         self.context_fc = nn.Linear(d, d)
         self.context_ln = nn.LayerNorm(d, eps=LN_EPS)
-        self.fuse_encoder_query = MLPMapping(2 * d, d)
+        self.fuse_encoder_query = MLPMapping(2 * d, d, dropout)
         self.query_embed = nn.Parameter(torch.empty(num_queries_per_phrase,
                                                     2 * d))
 

@@ -7,13 +7,20 @@ FrozenBatchNorm adds eps before the rsqrt and computes its scale and shift
 in f32 (:36-66). The public layout is NHWC, as in the JAX package; inside,
 the convolutions run on the channels-last view of the same memory.
 
+Training freezes a prefix of the network (``freeze``): the stem and layer1
+always, every stage with ``freeze_backbone``, as ``stop_grad_stages`` does in
+the JAX package (reftr_tpu/models/reftr.py:94-104, nn/resnet.py:222, 326).
+Their parameters get ``requires_grad=False`` and they run under
+``torch.no_grad()``, so no graph is kept for them.
+
 Left out: the space-to-depth stem, ``block_layer1``, ``min_inner_width``,
-remat, GroupNorm and int8 (TPU reparameterisations, training and
-from-scratch options).
+remat, GroupNorm and int8 (TPU reparameterisations and from-scratch
+options).
 """
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Tuple
 
 import torch
@@ -111,12 +118,26 @@ class ResNet(nn.Module):
                                          downsample=(b == 0)))
                 cin = width * 4
             setattr(self, f"layer{stage}", nn.Sequential(*blocks))
+        self.frozen_stages = 0
+
+    def freeze(self, stages: int) -> None:
+        """Freeze the stem and layers 1..``stages``: no gradient, no graph."""
+        self.frozen_stages = stages
+        frozen = [self.conv1] + [getattr(self, f"layer{s}")
+                                 for s in range(1, stages + 1)]
+        for mod in frozen:
+            mod.requires_grad_(False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory
-        x = F.relu(self.bn1(self.conv1(x)))
-        x = F.max_pool2d(x, 3, stride=2, padding=1)
-        for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
+        stages = (self.layer1, self.layer2, self.layer3, self.layer4)
+        n = self.frozen_stages
+        with torch.no_grad() if n else nullcontext():
+            x = F.relu(self.bn1(self.conv1(x)))
+            x = F.max_pool2d(x, 3, stride=2, padding=1)
+            for stage in stages[:n]:
+                x = stage(x)
+        for stage in stages[n:]:
             x = stage(x)
         return x.permute(0, 2, 3, 1)
 

@@ -4,8 +4,10 @@ reftr_tpu/nn/transformer.py).
 Positional embeddings are added to q and k at every layer, residual blocks
 are post-norm (or pre-norm), and the decoder returns every layer's output
 through the shared final LayerNorm. LayerNorm eps is Flax's default 1e-6,
-not PyTorch's 1e-5. Masks are validity masks (True = real token). Eval
-only: dropout comes with the training slice.
+not PyTorch's 1e-5. Masks are validity masks (True = real token).
+Dropout sits where the JAX package has it (reftr_tpu/nn/transformer.py:65,
+101-114, 202-222): after the FFN's activation, on each residual branch and,
+inside the kernels, on the attention weights; it acts in training mode only.
 """
 
 from __future__ import annotations
@@ -32,46 +34,50 @@ def with_pos(x: torch.Tensor, pos: Optional[torch.Tensor]) -> torch.Tensor:
 
 class FFN(nn.Module):
     def __init__(self, d_model: int, dim_feedforward: int,
-                 activation: str = "relu"):
+                 activation: str = "relu", dropout: float = 0.1):
         super().__init__()
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
         self.activation = _ACTIVATIONS[activation]
+        self.dropout = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.linear2(self.activation(self.linear1(x)))
+        return self.linear2(self.dropout(self.activation(self.linear1(x))))
 
 
 class TransformerEncoderLayer(nn.Module):
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
-                 activation: str = "relu", normalize_before: bool = False):
+                 activation: str = "relu", normalize_before: bool = False,
+                 dropout: float = 0.1):
         super().__init__()
-        self.self_attn = MultiHeadAttention(d_model, nhead)
-        self.ffn = FFN(d_model, dim_feedforward, activation)
+        self.self_attn = MultiHeadAttention(d_model, nhead, dropout)
+        self.ffn = FFN(d_model, dim_feedforward, activation, dropout)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.drop = nn.Dropout(dropout)
         self.normalize_before = normalize_before
 
     def forward(self, src: torch.Tensor, pos: Optional[torch.Tensor] = None,
                 valid_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        drop = self.drop
         if self.normalize_before:
             s2 = self.norm1(src)
             qk = with_pos(s2, pos)
-            src = src + self.self_attn(qk, qk, s2, valid_mask)
-            return src + self.ffn(self.norm2(src))
+            src = src + drop(self.self_attn(qk, qk, s2, valid_mask))
+            return src + drop(self.ffn(self.norm2(src)))
         qk = with_pos(src, pos)
-        src = self.norm1(src + self.self_attn(qk, qk, src, valid_mask))
-        return self.norm2(src + self.ffn(src))
+        src = self.norm1(src + drop(self.self_attn(qk, qk, src, valid_mask)))
+        return self.norm2(src + drop(self.ffn(src)))
 
 
 class TransformerEncoder(nn.Module):
     def __init__(self, num_layers: int, d_model: int, nhead: int,
                  dim_feedforward: int = 2048, activation: str = "relu",
-                 normalize_before: bool = False):
+                 normalize_before: bool = False, dropout: float = 0.1):
         super().__init__()
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(d_model, nhead, dim_feedforward,
-                                    activation, normalize_before)
+                                    activation, normalize_before, dropout)
             for _ in range(num_layers))
         self.norm = (nn.LayerNorm(d_model, eps=LN_EPS) if normalize_before
                      else None)
@@ -86,11 +92,13 @@ class TransformerEncoder(nn.Module):
 
 class TransformerDecoderLayer(nn.Module):
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
-                 activation: str = "relu", normalize_before: bool = False):
+                 activation: str = "relu", normalize_before: bool = False,
+                 dropout: float = 0.1):
         super().__init__()
-        self.self_attn = MultiHeadAttention(d_model, nhead)
-        self.multihead_attn = MultiHeadAttention(d_model, nhead)
-        self.ffn = FFN(d_model, dim_feedforward, activation)
+        self.self_attn = MultiHeadAttention(d_model, nhead, dropout)
+        self.multihead_attn = MultiHeadAttention(d_model, nhead, dropout)
+        self.ffn = FFN(d_model, dim_feedforward, activation, dropout)
+        self.drop = nn.Dropout(dropout)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm3 = nn.LayerNorm(d_model, eps=LN_EPS)
@@ -102,19 +110,21 @@ class TransformerDecoderLayer(nn.Module):
                 pos: Optional[torch.Tensor] = None,
                 query_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
         mem_k = with_pos(memory, pos)
+        drop = self.drop
         if self.normalize_before:
             t2 = self.norm1(tgt)
             qk = with_pos(t2, query_pos)
-            tgt = tgt + self.self_attn(qk, qk, t2, tgt_valid_mask)
+            tgt = tgt + drop(self.self_attn(qk, qk, t2, tgt_valid_mask))
             t2 = self.norm2(tgt)
-            tgt = tgt + self.multihead_attn(with_pos(t2, query_pos), mem_k,
-                                            memory, memory_valid_mask)
-            return tgt + self.ffn(self.norm3(tgt))
+            tgt = tgt + drop(self.multihead_attn(
+                with_pos(t2, query_pos), mem_k, memory, memory_valid_mask))
+            return tgt + drop(self.ffn(self.norm3(tgt)))
         qk = with_pos(tgt, query_pos)
-        tgt = self.norm1(tgt + self.self_attn(qk, qk, tgt, tgt_valid_mask))
-        tgt = self.norm2(tgt + self.multihead_attn(
-            with_pos(tgt, query_pos), mem_k, memory, memory_valid_mask))
-        return self.norm3(tgt + self.ffn(tgt))
+        tgt = self.norm1(tgt + drop(self.self_attn(qk, qk, tgt,
+                                                   tgt_valid_mask)))
+        tgt = self.norm2(tgt + drop(self.multihead_attn(
+            with_pos(tgt, query_pos), mem_k, memory, memory_valid_mask)))
+        return self.norm3(tgt + drop(self.ffn(tgt)))
 
 
 class TransformerDecoder(nn.Module):
@@ -124,11 +134,11 @@ class TransformerDecoder(nn.Module):
     def __init__(self, num_layers: int, d_model: int, nhead: int,
                  dim_feedforward: int = 2048, activation: str = "relu",
                  normalize_before: bool = False,
-                 return_intermediate: bool = True):
+                 return_intermediate: bool = True, dropout: float = 0.1):
         super().__init__()
         self.layers = nn.ModuleList(
             TransformerDecoderLayer(d_model, nhead, dim_feedforward,
-                                    activation, normalize_before)
+                                    activation, normalize_before, dropout)
             for _ in range(num_layers))
         self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
         self.return_intermediate = return_intermediate

@@ -34,21 +34,10 @@ from typing import Dict, List, Mapping, Optional, Union
 import numpy as np
 import torch
 
-from reftr_torch.convert import init_params
+from reftr_torch.convert import build_model
 from reftr_torch.core.config import RefTRConfig
+from reftr_torch.core.device import resolve_device
 from reftr_torch.models.postprocess import decode_boxes
-from reftr_torch.models.reftr import RefTR
-
-
-def resolve_device(device: Union[str, torch.device] = "cuda"
-                   ) -> torch.device:
-    """The device an entry point runs on. Asking for CUDA where there is
-    none raises; nothing falls back to the CPU unless the caller asks."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
-                           "on the CPU")
-    return dev
 
 
 @dataclass
@@ -103,19 +92,8 @@ class ServingModel:
         self.cfg = cfg
         self.batch_size = batch_size
         self.device = resolve_device(device)
-        with torch.device(self.device):
-            model = RefTR(cfg.model)
-        if state_dict is None:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(seed)
-            init_params(model, gen)
-        else:
-            model.load_state_dict(state_dict)
-        model.eval().cast_to_compute_dtype()
-        if self.device.type == "cuda":
-            # NHWC convolutions: the layout the images arrive in
-            model.to(memory_format=torch.channels_last)
-        self.model = model
+        self.model = build_model(cfg.model, self.device, state_dict,
+                                 seed).eval().cast_to_compute_dtype()
 
     def to_device(self, batch: Mapping[str, np.ndarray]
                   ) -> Dict[str, torch.Tensor]:

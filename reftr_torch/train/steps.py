@@ -1,0 +1,152 @@
+"""Train and eval steps (port of reftr_tpu/train/steps.py:54-128).
+
+The train step is the reference's hot loop (engine_vg.py:39-74): forward
+in training mode, criterion, weighted total, backward, global-norm clip,
+optimizer step and LR-scheduler step. Parameters stay float32; a bfloat16
+model config computes under ``torch.autocast``, the counterpart of the JAX
+package's bf16 compute dtype over f32 params.
+
+Dropout is seeded from the state's host generator: one draw seeds the
+elementwise dropouts (``nn.Dropout``, on a forked global RNG so the
+caller's stays as it was) and every attention draws its own seed
+(``attention_rng``), the counterpart of
+``jax.random.fold_in(state.rng, state.step)`` (:74).
+
+The step returns ``StepMetrics``: every loss term, ``loss``, ``grad_norm``
+and ``lr``, copied to the host without waiting, so a loop can read step
+i-1's while step i runs. ``grad_norm`` is the norm the clip sees, over the
+trainable parameters; JAX's reported ``grad_norm`` (:87) also counts the
+FrozenBN leaves of layer2-4, which are Flax params there and buffers here
+(ROADMAP.md section 4).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Mapping, Tuple, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from reftr_torch.core.config import LossConfig
+from reftr_torch.core.device import resolve_device
+from reftr_torch.kernels.attention import SEED_BITS
+from reftr_torch.models.criterion import criterion, total_loss
+from reftr_torch.models.postprocess import rec_metrics
+from reftr_torch.nn.attention import attention_rng
+from reftr_torch.train.optimizer import clip_by_global_norm
+from reftr_torch.train.state import TrainState
+
+
+def to_device(tree: Mapping[str, np.ndarray],
+              device: torch.device) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+        device, non_blocking=True) for k, v in tree.items()}
+
+
+class StepMetrics:
+    """One step's metrics. The device scalars are copied to pinned host
+    memory behind the step's work; ``get`` waits for this step alone."""
+
+    def __init__(self, values: Dict[str, torch.Tensor],
+                 host: Dict[str, float]):
+        self._names = list(values)
+        vec = torch.stack([v.detach().float() for v in values.values()])
+        self._event = None
+        if vec.is_cuda:
+            self._buf = torch.empty(vec.shape, pin_memory=True)
+            self._buf.copy_(vec, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._buf = vec
+        self._host = dict(host)
+
+    def get(self) -> Dict[str, float]:
+        if self._event is not None:
+            self._event.synchronize()
+        return {**dict(zip(self._names, self._buf.tolist())), **self._host}
+
+
+def model_device(model: nn.Module,
+                 device: Union[str, torch.device]) -> torch.device:
+    """``device`` resolved ("cuda" unless the caller passes the CPU);
+    raises if a parameter of ``model`` lies elsewhere."""
+    dev = resolve_device(device)
+    elsewhere = sorted({str(p.device) for p in model.parameters()
+                        if p.device != dev})
+    if elsewhere:
+        raise ValueError(f"the model is on {', '.join(elsewhere)}, not {dev}:"
+                         f" build it there with TrainState.create(..., "
+                         f"device=...)")
+    return dev
+
+
+def _autocast(model: nn.Module, device: torch.device):
+    dtype = model.dtype
+    return torch.autocast(device.type, dtype=dtype,
+                          enabled=dtype != torch.float32)
+
+
+def make_train_step(model: nn.Module, weight_dict: Dict[str, float],
+                    loss_cfg: LossConfig,
+                    device: Union[str, torch.device] = "cuda"
+                    ) -> Callable[[TrainState, Mapping, Mapping],
+                                  Tuple[TrainState, StepMetrics]]:
+    """step(state, batch, targets) -> (state, metrics) on ``device``
+    ("cuda" unless the caller passes the CPU), where ``model`` must lie
+    (``TrainState.create`` builds it there); batch and targets are numpy
+    dicts."""
+    device = model_device(model, device)
+    rng_devices = [device.index] if device.type == "cuda" else []
+
+    def step_fn(state: TrainState, batch: Mapping, targets: Mapping):
+        model.train()
+        batch = to_device(batch, device)
+        targets = to_device(targets, device)
+        seed = int(torch.randint(0, 2 ** SEED_BITS - 1, (),
+                                 generator=state.generator))
+        with torch.random.fork_rng(devices=rng_devices):
+            torch.manual_seed(seed)
+            with _autocast(model, device), attention_rng(state.generator):
+                out = model(batch)
+        losses = criterion(out, targets, loss_cfg)
+        loss = total_loss(losses, weight_dict)
+        # the model's, not the optimizer's: a parameter with a gradient
+        # may stay out of the optimizer (the backbone at lr_backbone <= 0)
+        model.zero_grad(set_to_none=True)
+        loss.backward()
+        grad_norm = clip_by_global_norm(state.trainable(),
+                                        state.clip_max_norm)
+        lr = next(g["lr"] for g in state.optimizer.param_groups
+                  if g["name"] == "base")
+        state.optimizer.step()
+        state.scheduler.step()
+        state.step += 1
+        metrics = StepMetrics({**losses, "loss": loss,
+                               "grad_norm": grad_norm}, {"lr": lr})
+        return state, metrics
+
+    return step_fn
+
+
+def make_eval_step(model: nn.Module, loss_cfg: LossConfig,
+                   device: Union[str, torch.device] = "cuda"):
+    """step(batch, targets) -> (outputs, losses, rec_metrics sums): the
+    forward in eval mode on ``device`` (as in ``make_train_step``), the
+    losses for logging and the P@0.5 / mIoU sums, as device tensors."""
+    device = model_device(model, device)
+
+    @torch.no_grad()
+    def step_fn(batch: Mapping, targets: Mapping):
+        model.eval()
+        batch = to_device(batch, device)
+        targets = to_device(targets, device)
+        with _autocast(model, device):
+            out = model(batch)
+        losses = criterion(out, targets, loss_cfg)
+        sums = rec_metrics(out["pred_boxes"], targets["boxes"],
+                           targets["box_valid"])
+        return out, losses, sums
+
+    return step_fn

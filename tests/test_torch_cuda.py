@@ -1,6 +1,6 @@
-"""reftr_torch's CUDA flash-attention kernel against its plain version.
+"""reftr_torch's CUDA flash-attention kernels against their plain versions.
 
-These tests need an NVIDIA card (the kernel has no CPU mode) and skip
+These tests need an NVIDIA card (the kernels have no CPU mode) and skip
 without one. They import neither JAX nor the shared parity helpers, so on
 a machine without JAX they run with
 
@@ -8,18 +8,32 @@ a machine without JAX they run with
 
 Tolerances, against the plain version in float32 on the same inputs:
 1e-5 max abs in float32 (sums in another order), 2e-2 in bfloat16 (the
-kernel's output is rounded to bf16).
+kernel's output is rounded to bf16). Gradients (K2, K3 and the autograd
+Function), as a share of the largest magnitude among the call's plain
+dq, dk and dv (a gradient can be zero in exact arithmetic, as dq and dk
+are with a single key): 1e-4 in float32 (sums of up to 440 terms in
+another order), 1e-2 in bfloat16 (rounding of the output to bf16, 2^-9).
 """
 
 import pytest
 import torch
 
-from reftr_torch.kernels.attention import attention_plain, flash_attention
-from reftr_torch.nn.attention import MultiHeadAttention, set_plain_attention
+from reftr_torch.kernels.attention import (FlashAttentionFn,
+                                           attention_bwd_plain,
+                                           attention_plain, flash_attention,
+                                           flash_attn_bwd_dkv,
+                                           flash_attn_bwd_dq,
+                                           philox_keep_plain)
+from reftr_torch.nn.attention import (MultiHeadAttention, attention_rng,
+                                      set_plain_attention)
 
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+SHAPES = [(8, 440, 440, 8, 32), (8, 1, 1, 8, 32), (8, 1, 440, 8, 32),
+          (8, 40, 40, 12, 64), (3, 70, 130, 4, 16), (2, 129, 65, 2, 64),
+          (2, 5, 3, 2, 16)]
 
 
 @pytest.fixture
@@ -42,10 +56,7 @@ def inputs(gen, b, sq, sk, h, d, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [
-    (8, 440, 440, 8, 32), (8, 1, 1, 8, 32), (8, 1, 440, 8, 32),
-    (8, 40, 40, 12, 64), (3, 70, 130, 4, 16), (2, 129, 65, 2, 64),
-    (2, 5, 3, 2, 16)])
+@pytest.mark.parametrize("shape", SHAPES)
 def test_kernel_matches_plain(gen, shape, dtype):
     q, k, v, valid = inputs(gen, *shape, dtype)
     out, lse = flash_attention(q, k, v, valid, return_lse=True)
@@ -94,3 +105,113 @@ def test_mha_on_the_card_matches_the_plain_path(gen):
         set_plain_attention(mha, True)
         want = mha(x, x, x, valid)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+def rel_close(got, want, tol, floor=0.0):
+    """Max abs error within tol of the reference's largest magnitude (or of
+    ``floor``, for a gradient that is zero in exact arithmetic)."""
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * max(want.float().abs().max().item(), floor), err
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_forward_with_dropout_and_backward_kernels_match_plain(
+        gen, shape, dtype, rate):
+    q, k, v, valid = inputs(gen, *shape, dtype)
+    seed = 0x1234_5678_9ABC if rate else None
+    out, lse = flash_attention(q, k, v, valid, return_lse=True,
+                               dropout_rate=rate, seed=seed)
+    want = attention_plain(q, k, v, valid, dropout_rate=rate, seed=seed)
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype],
+                               rtol=0)
+    do = torch.randn(out.shape, device="cuda", generator=gen).to(dtype)
+    want_dq, want_dk, want_dv = attention_bwd_plain(q, k, v, valid, out, lse,
+                                                    do, rate, seed)
+    dq = flash_attn_bwd_dq(q, k, v, valid, out, lse, do, rate, seed)
+    dk, dv = flash_attn_bwd_dkv(q, k, v, valid, out, lse, do, rate, seed)
+    torch.cuda.synchronize()
+    scale = max(w.float().abs().max().item()
+                for w in (want_dq, want_dk, want_dv))
+    for got, w in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert got.dtype == dtype and got.shape == w.shape
+        rel_close(got, w, GRAD_TOL[dtype], floor=scale)
+
+
+@pytest.mark.parametrize("shape", [(8, 440, 440, 8, 32), (2, 40, 40, 4, 64)])
+def test_dropout_mask_is_exact(gen, shape):
+    """v one-hot over the head dim recovers p * keep for D keys at a time:
+    the kernel's kept set equals the plain Philox mask exactly."""
+    b, sq, sk, h, d = shape
+    q, k, _, valid = inputs(gen, b, sq, sk, h, d, torch.float32)
+    rate, seed = 0.1, 42
+    keep = philox_keep_plain(seed, b, h, sq, sk, rate, "cuda")
+    for k0 in range(0, sk, d):
+        v = torch.zeros(b, sk, h, d, device="cuda")
+        n = min(d, sk - k0)
+        v[:, k0:k0 + n, :, :n] = torch.eye(n, device="cuda")[:, None, :]
+        out = flash_attention(q, k, v, valid, dropout_rate=rate, seed=seed)
+        got = out[..., :n].permute(0, 2, 1, 3) != 0  # [B, H, Sq, n]
+        live = torch.where(valid.any(-1, keepdim=True), valid,
+                           True)[:, None, None, k0:k0 + n]
+        want = keep[..., k0:k0 + n]
+        assert torch.equal(got & live, want & live)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_function_gradients_match_the_plain_path(gen, dtype, rate):
+    q, k, v, valid = inputs(gen, 4, 97, 97, 8, 32, dtype)
+    seed = 77 if rate else None
+    do = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
+    grads = {}
+    for name, fn in (("kernel", FlashAttentionFn.apply),
+                     ("plain", lambda *a: attention_plain(
+                         *a[:4], dropout_rate=a[4], seed=a[5]))):
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        fn(*leaves, valid, rate, seed).backward(do)
+        grads[name] = [x.grad for x in leaves]
+    scale = max(w.float().abs().max().item() for w in grads["plain"])
+    for got, want in zip(grads["kernel"], grads["plain"]):
+        rel_close(got, want, GRAD_TOL[dtype], floor=scale)
+
+
+def test_backward_launch_counters_count_kernel_launches(gen):
+    q, k, v, valid = inputs(gen, 2, 8, 8, 2, 16, torch.float32)
+    q.requires_grad_()
+    before = (flash_attention.launches, flash_attn_bwd_dq.launches,
+              flash_attn_bwd_dkv.launches)
+    flash_attention(q, k, v, valid).sum().backward()
+    after = (flash_attention.launches, flash_attn_bwd_dq.launches,
+             flash_attn_bwd_dkv.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_mha_projection_gradients_through_the_kernels(gen, dropout):
+    """The attention's output carries its graph on the card: the q/k/v
+    projections get the plain path's gradients (a graph-detached output
+    would leave them without any)."""
+    torch.manual_seed(0)
+    mha = MultiHeadAttention(256, 8, dropout).cuda().train()
+    x = torch.randn(4, 440, 256, device="cuda", generator=gen)
+    valid = torch.arange(440, device="cuda")[None] < torch.tensor(
+        [[440], [300], [41], [1]], device="cuda")
+    grads = {}
+    for plain in (False, True):
+        set_plain_attention(mha, plain)
+        mha.zero_grad()
+        rng = torch.Generator()
+        rng.manual_seed(5)
+        with attention_rng(rng):
+            mha(x, x, x, valid).square().sum().backward()
+        grads[plain] = {n: p.grad.clone() for n, p in mha.named_parameters()}
+    # k_proj.bias shifts every logit of a row alike: its gradient is zero
+    # in exact arithmetic and is held to the module's gradient scale
+    scale = max(g.abs().max().item() for g in grads[True].values())
+    for name, want in grads[True].items():
+        got = grads[False][name]
+        if name != "k_proj.bias":
+            assert got.abs().max() > 0, name
+        rel_close(got, want, GRAD_TOL[torch.float32], floor=0.1 * scale)
