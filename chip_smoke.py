@@ -6,39 +6,51 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. Print the card's name and power limit, then build every kernel of the
    serving and training paths from the sources in this checkout
-   (reftr_torch/kernels/csrc/flash_attn_fwd.cu and flash_attn_bwd.cu, one
-   nvcc each for sm_90a, started together).
+   (reftr_torch/kernels/csrc/flash_attn_fwd.cu, flash_attn_fwd_tc.cu,
+   flash_attn_bwd.cu and flash_attn_bwd_dkv_tc.cu, one nvcc each for
+   sm_90a, started together), and count the tensor-core products (HMMA)
+   in the machine code of the two tensor-core kernels (cuobjdump -sass):
+   none fails the run.
 2. The forward kernel (K1) against its plain PyTorch version on the card,
    at the four call sites of the refcoco_det forward (B=8), with random key
    padding and one row whose keys are all masked, in float32 and bfloat16,
-   each against the plain version in float32 on the same inputs.
-   Tolerances: 1e-5 max abs in float32 (the sums run in another order),
-   2e-2 in bfloat16 (the kernel rounds its output to bf16: half a bf16 ulp
-   is 7.8e-3 at magnitudes up to 4). Times of the kernel, the plain version
-   and F.scaled_dot_product_attention (a yardstick only; the port never
-   calls it) with CUDA events after a warm-up.
+   each against the plain version in float32 on the same inputs, through
+   the variant the dispatch rule picks (attention.fwd_variant: bf16 with
+   16 or more queries on the tensor cores, the rest SIMT). Where that is
+   the tensor-core kernel, the SIMT kernel is checked and timed too, as
+   the same-run "before". Tolerances: 1e-5 max abs in float32 (the sums
+   run in another order), 2e-2 in bfloat16 (the kernel rounds its output
+   to bf16: half a bf16 ulp is 7.8e-3 at magnitudes up to 4). Times of
+   the kernel, the plain version and F.scaled_dot_product_attention (a
+   yardstick only; the port never calls it): "ms" with CUDA events around
+   50 back-to-back calls after a warm-up (which includes the host's time
+   per call where that exceeds the kernel's), "device_ms" as the device
+   activities torch.profiler records per call.
 3. The training kernels at the same call sites and inputs, in float32 and
-   bfloat16, without dropout and with rate 0.1: K1 with dropout against
-   attention_plain with the same seed (tolerances as in phase 2), and the
-   backward kernels K2 (dq) and K3 (dk, dv) each against
-   attention_bwd_plain on the same O, lse and dO. Gradient tolerance, as a
-   share of the largest magnitude among the plain dq, dk and dv: 1e-4 in
-   float32 (sums of up to 440 terms in another order, at most 2.6e-5 of
-   the largest term), 1e-2 in bfloat16 (the kernels round their output to
-   bf16, 2^-9 = 2e-3). Then an exact mask check in float32: v one-hot over
-   the head dim makes K1's output p * keep for D keys at a time, and the
-   kept set must equal the plain Philox mask on every key with p > 0.
-   Times of each kernel, its plain version, its bound and a yardstick:
-   SDPA forward + backward minus SDPA forward, which covers K2 and K3
-   together.
+   bfloat16, without dropout and with rate 0.1, each through the variant
+   the rule picks (attention.dkv_variant for K3), and the SIMT K1 and K3
+   beside the tensor-core ones: K1 with dropout against attention_plain
+   with the same seed (tolerances as in phase 2), and the backward
+   kernels K2 (dq) and K3 (dk, dv) each against attention_bwd_plain on the
+   same O, lse and dO. Gradient tolerance, as a share of the largest
+   magnitude among the plain dq, dk and dv: 1e-4 in float32 (sums of up to
+   440 terms in another order, at most 2.6e-5 of the largest term), 1e-2
+   in bfloat16 (the kernels round their output to bf16, 2^-9 = 2e-3).
+   Then an exact mask check in float32 and in bfloat16 (so through both
+   variants of K1): v one-hot over the head dim makes K1's output
+   p * keep for D keys at a time, and the kept set must equal the plain
+   Philox mask on every key with p > 0. Times (host loop and device) of
+   each kernel, its plain version, its bound and the yardsticks: SDPA's
+   forward, and its backward, which covers K2 and K3 together.
 4. The serving path at full width: refcoco_det (ResNet-50, BERT-base,
    6+6 VL layers, d=256) at 640x640 with seeded random weights, bfloat16,
    behind a MicroBatcher with serve batch 8. Six requests of 1-3 phrases
    each (random uint8 canvases with ragged valid regions, token ids of
    length 5-40). Every request must come back without error, with finite
    boxes inside its image, and K1's launch count must rise by exactly 30
-   per batch forward (12 BERT + 6 encoder + 12 decoder attentions), K2's
-   and K3's not at all. Then full batches time the forward (host to host,
+   per batch forward (12 BERT + 6 encoder + 12 decoder attentions), 18 of
+   them (BERT and encoder) through the tensor-core kernel, K2's and K3's
+   not at all. Then full batches time the forward (host to host,
    median of four turns each with the kernel and with the plain
    attention, after a warm-up), torch.profiler splits one forward's device
    time by kernel category, and one padded batch runs through the kernel
@@ -54,7 +66,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    ids and boxes, through train_one_epoch over 20 steps of that one batch.
    Every loss and gradient norm must be finite, the mean loss of the last
    3 steps below that of the first 3 (a memorised batch), and each of K1,
-   K2 and K3 launched exactly 30 times per step. It reports the median
+   K2 and K3 launched exactly 30 times per step, 18 of K1's and of K3's
+   (BERT and encoder) through the tensor-core kernels. It reports the median
    host-to-host step time after 3 warm-up steps, the peak device memory
    and one step's device time by kernel category. Then one float32 step
    with dropout 0 from one set of weights through the kernels and through
@@ -65,8 +78,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    self-attention's q and k, come out at rounding level on both paths).
    The last layer of the box head is drawn like the other layers for this
    step: at init it is zero and no gradient would reach the attentions.
-6. Print one JSON line listing each kernel with its launches on the main
-   path, its error, its times and its bound on this card.
+6. Print one JSON line listing each kernel (each variant of K1 and K3 on
+   a row of its own) with its launches on the main path, its error, its
+   times and its bound on this card.
 7. Print {"ok": true, "device": {...}} as the last line.
 
 It needs a CUDA card and the reftr_torch package beside it; without
@@ -78,6 +92,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -110,18 +125,27 @@ WARM_STEPS = 3
 TRAIN_LOSS_TOL = 1e-5  # f32 kernel path vs plain path, relative
 TRAIN_GRAD_TOL = 1e-3  # relative L2 per trainable gradient
 # kernels of the main paths: the C entry point, its source, the Pallas
-# function it replaces
+# function it replaces, its variant
 KERNELS = {
-    "flash_attn_fwd": ("flash_attn_fwd.cu", "reftr_tpu/kernels/attention.py:86"),
+    "flash_attn_fwd": ("flash_attn_fwd.cu",
+                       "reftr_tpu/kernels/attention.py:86", "simt"),
+    "flash_attn_fwd_tc": ("flash_attn_fwd_tc.cu",
+                          "reftr_tpu/kernels/attention.py:86", "tc"),
     "flash_attn_bwd_dq": ("flash_attn_bwd.cu",
-                          "reftr_tpu/kernels/attention.py:242"),
+                          "reftr_tpu/kernels/attention.py:242", "simt"),
     "flash_attn_bwd_dkv": ("flash_attn_bwd.cu",
-                           "reftr_tpu/kernels/attention.py:287"),
+                           "reftr_tpu/kernels/attention.py:287", "simt"),
+    "flash_attn_bwd_dkv_tc": ("flash_attn_bwd_dkv_tc.cu",
+                              "reftr_tpu/kernels/attention.py:287", "tc"),
 }
 # products of each kernel over (query, valid key) pairs: K1 q k^T and p v;
 # K2 q k^T, dO v^T and ds k; K3 those of K2 with (p keep)^T dO, ds^T q
 PRODUCTS = {"flash_attn_fwd": 2, "flash_attn_bwd_dq": 3,
             "flash_attn_bwd_dkv": 4}
+# attention calls per refcoco_det forward that the dispatch rule sends to
+# the tensor-core kernels in bf16: 12 BERT + 6 encoder (K1, and K3 in the
+# backward); the decoder's 12 single-query calls take the SIMT kernels
+TC_PER_FORWARD = 18
 # NVIDIA H100 SXM data sheet: HBM rate, f32 outside the tensor cores, bf16
 # dense tensor-core rate
 PEAK_BYTES_S = 3.35e12
@@ -151,6 +175,50 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time of one call of ``fn``: the durations of the device
+    activities (kernels, copies, sets) that torch.profiler records over
+    ``iters`` calls, summed and divided by ``iters``. Unlike ``cuda_ms``,
+    which times back-to-back calls with events and so includes the host's
+    time between launches where it exceeds the kernel's, this is the time
+    the card spent on the call's work. A window in which the profiler
+    recorded no device activity at all (seen once in some hundred windows
+    on the H100) is profiled again, up to 3 times in all."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(ev.device_time_total for ev in prof.events()
+                       if ev.device_type == DeviceType.CUDA
+                       and ev.device_time_total > 0
+                       and not getattr(ev, "is_user_annotation", False))
+        if total_us > 0:
+            return total_us / 1e3 / iters
+    raise AssertionError("torch.profiler recorded no device time in 3 "
+                         "windows")
+
+
+def sass_count(so: Path, opcode: str) -> int:
+    """Instructions of ``opcode`` in a built library's machine code
+    (cuobjdump -sass, beside nvcc in the toolkit)."""
+    from reftr_torch.kernels import _nvcc
+
+    tool = Path(_nvcc.nvcc_path()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
+                         text=True, check=True, timeout=300)
+    pattern = re.compile(rf"\*/\s+(@!?P\w+\s+)?{opcode}\b")
+    return sum(bool(pattern.search(line)) for line in out.stdout.splitlines())
+
+
 def attention_bound_ms(b, sq, sk, h, d, valid, dtype_name,
                        kernel="flash_attn_fwd") -> tuple:
     """Least time for one call of ``kernel`` on this card: each input read
@@ -160,6 +228,7 @@ def attention_bound_ms(b, sq, sk, h, d, valid, dtype_name,
     kernels read q, k, v, O, dO and lse and write dq, or dk and dv."""
     import torch
 
+    kernel = kernel.removesuffix("_tc")  # both variants do the same work
     es = 4 if dtype_name == "float32" else 2
     qs, ks = b * sq * h * d * es, b * sk * h * d * es
     lse = b * h * sq * 4
@@ -194,12 +263,23 @@ def check_kernel(report: dict) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from reftr_torch.kernels.attention import attention_plain, flash_attention
+    from reftr_torch.kernels.attention import (_launch_fwd, attention_plain,
+                                               flash_attention, fwd_variant)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rows = []
     worst = {"float32": 0.0, "bfloat16": 0.0}
+
+    def check(what, got, want, name):
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs().max().item()
+        if not math.isfinite(err) or err > KERNEL_TOL[name]:
+            raise AssertionError(f"{what} {name}: kernel vs plain max abs "
+                                 f"error {err:.3g} > {KERNEL_TOL[name]}")
+        worst[name] = max(worst[name], err)
+        return err
+
     for site, (sq, sk, h, d) in CALL_SITES.items():
         b = SERVE_BATCH
         q32, k32, v32, valid = site_inputs(gen, site, torch.float32)
@@ -208,39 +288,60 @@ def check_kernel(report: dict) -> dict:
                          ("bfloat16", torch.bfloat16)):
             q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
             want = attention_plain(q.float(), k.float(), v.float(), valid)
-            got = flash_attention(q, k, v, valid)
-            torch.cuda.synchronize()
-            err = (got.float() - want).abs().max().item()
-            if not math.isfinite(err) or err > KERNEL_TOL[name]:
-                raise AssertionError(
-                    f"{site} {name}: kernel vs plain max abs error {err:.3g}"
-                    f" > {KERNEL_TOL[name]}")
-            worst[name] = max(worst[name], err)
+            variant = fwd_variant(sq, dt)
+            err = check(site, flash_attention(q, k, v, valid), want, name)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             bias_dt = bias.to(dt)
-            ms = cuda_ms(lambda: flash_attention(q, k, v, valid))
+
+            def kern():
+                return flash_attention(q, k, v, valid)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=bias_dt)
+
+            ms, dev = cuda_ms(kern), device_ms(kern)
             plain_ms = cuda_ms(lambda: attention_plain(q, k, v, valid))
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=bias_dt))
+            lib_ms, lib_dev = cuda_ms(sdpa), device_ms(sdpa)
             bound, bound_by = attention_bound_ms(b, sq, sk, h, d, valid, name)
-            row = {"site": site, "dtype": name, "B": b, "Sq": sq, "Sk": sk,
-                   "H": h, "D": d, "max_abs_err": err, "tol": KERNEL_TOL[name],
-                   "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                   "bound_ms": bound, "bound_by": bound_by}
+            row = {"site": site, "dtype": name, "variant": variant, "B": b,
+                   "Sq": sq, "Sk": sk, "H": h, "D": d, "max_abs_err": err,
+                   "tol": KERNEL_TOL[name], "ms": ms, "device_ms": dev,
+                   "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "library_device_ms": lib_dev, "bound_ms": bound,
+                   "bound_by": bound_by}
+            before = ""
+            if variant == "tc":
+                # the same-run "before": the SIMT kernel at this call site
+                simt_err = check(f"{site} simt", _launch_fwd(
+                    "simt", q, k, v, valid, 0.0, None, False)[0], want, name)
+
+                def simt():
+                    return _launch_fwd("simt", q, k, v, valid, 0.0, None,
+                                       False)
+
+                row.update({"simt_max_abs_err": simt_err,
+                            "simt_ms": cuda_ms(simt),
+                            "simt_device_ms": device_ms(simt)})
+                before = (f"; simt {row['simt_ms']:.4f} ms host loop, "
+                          f"{row['simt_device_ms']:.4f} ms device")
             rows.append(row)
-            print(f"kernel {site:16s} {name:8s} B={b} Sq={sq} Sk={sk} H={h} "
-                  f"D={d}: max_abs_err {err:.3g} (tol {KERNEL_TOL[name]}) "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-                  f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})",
-                  flush=True)
+            print(f"kernel {site:16s} {name:8s} {variant:4s} B={b} Sq={sq} "
+                  f"Sk={sk} H={h} D={d}: max_abs_err {err:.3g} (tol "
+                  f"{KERNEL_TOL[name]}) kernel {ms:.4f} ms host loop, "
+                  f"{dev:.4f} ms device; plain {plain_ms:.4f} ms, sdpa "
+                  f"{lib_ms:.4f} ms host loop, {lib_dev:.4f} ms device; "
+                  f"bound {bound:.5f} ms ({bound_by}){before}", flush=True)
     report["call_sites"] = rows
     report["max_abs_err"] = worst
     return report
 
 
-def sdpa_backward_ms(q, k, v, valid, do, rate: float) -> float:
-    """The yardstick for K2 + K3: F.scaled_dot_product_attention forward
-    and backward minus its forward, on the same inputs and mask."""
+def sdpa_times(q, k, v, valid, do, rate: float) -> dict:
+    """The yardsticks on the same inputs and mask:
+    F.scaled_dot_product_attention's forward (device ms), and its backward,
+    which covers K2 and K3 together: host loop ms as forward and backward
+    minus forward, and device ms of the backward alone."""
     import torch
     import torch.nn.functional as F
 
@@ -256,20 +357,26 @@ def sdpa_backward_ms(q, k, v, valid, do, rate: float) -> float:
     def fwd_bwd():
         torch.autograd.grad(fwd(), (qt, kt, vt), dot)
 
-    return cuda_ms(fwd_bwd) - cuda_ms(fwd)
+    out = fwd()
+    return {"sdpa_bwd_ms": cuda_ms(fwd_bwd) - cuda_ms(fwd),
+            "sdpa_fwd_device_ms": device_ms(fwd),
+            "sdpa_bwd_device_ms": device_ms(lambda: torch.autograd.grad(
+                out, (qt, kt, vt), dot, retain_graph=True))}
 
 
-def check_mask_exact(gen, site: str, rate: float, seed: int) -> int:
+def check_mask_exact(gen, site: str, rate: float, seed: int, dtype) -> int:
     """K1 with v one-hot over the head dim: out = p * keep / l for D keys
     at a time, so the kept set is read off exactly and must equal the
     plain Philox mask on every key with p > 0 (valid keys, or all keys of
-    a fully masked row). Returns the number of elements compared."""
+    a fully masked row). In bf16 the call goes to the variant the rule
+    picks for the site, and p of a live key stays far above bf16's
+    smallest normal. Returns the number of elements compared."""
     import torch
 
     from reftr_torch.kernels.attention import (flash_attention,
                                                philox_keep_plain)
 
-    q, k, _, valid = site_inputs(gen, site, torch.float32)
+    q, k, _, valid = site_inputs(gen, site, dtype)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     keep = philox_keep_plain(seed, b, h, sq, sk, rate, "cuda")
@@ -277,7 +384,7 @@ def check_mask_exact(gen, site: str, rate: float, seed: int) -> int:
     compared = 0
     for k0 in range(0, sk, d):
         n = min(d, sk - k0)
-        v = torch.zeros(b, sk, h, d, device="cuda")
+        v = torch.zeros(b, sk, h, d, device="cuda", dtype=dtype)
         v[:, k0:k0 + n, :, :n] = torch.eye(n, device="cuda")[:, None, :]
         out = flash_attention(q, k, v, valid, dropout_rate=rate, seed=seed)
         kept = out[..., :n].permute(0, 2, 1, 3) != 0  # [B, H, Sq, n]
@@ -293,11 +400,12 @@ def check_training_kernels(report: dict) -> dict:
     """Phase 3: K1 with dropout, K2 and K3 against their plain versions."""
     import torch
 
-    from reftr_torch.kernels.attention import (attention_bwd_plain,
-                                               attention_plain,
+    from reftr_torch.kernels.attention import (_launch_dkv, _launch_fwd,
+                                               attention_bwd_plain,
+                                               attention_plain, dkv_variant,
                                                flash_attention,
                                                flash_attn_bwd_dkv,
-                                               flash_attn_bwd_dq)
+                                               flash_attn_bwd_dq, fwd_variant)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
@@ -336,36 +444,70 @@ def check_training_kernels(report: dict) -> dict:
                        "grad_tol": GRAD_TOL[name] * scale}
                 if bad:
                     raise AssertionError(f"phase 3 {row}")
+                row["fwd_variant"] = fwd_variant(sq, dt)
+                row["dkv_variant"] = dkv_variant(sq, sk, dt)
+                timed = {
+                    "fwd": lambda: flash_attention(q, k, v, valid, **drop),
+                    "dq": lambda: flash_attn_bwd_dq(*bwd),
+                    "dkv": lambda: flash_attn_bwd_dkv(*bwd)}
+                if row["fwd_variant"] == "tc":
+                    # the same-run "before": the SIMT kernels at this site
+                    simt_out = _launch_fwd("simt", q, k, v, valid, rate,
+                                           seed, False)[0]
+                    simt_dkv = _launch_dkv("simt", *bwd)
+                    torch.cuda.synchronize()
+                    row["simt_fwd_max_abs_err"] = (
+                        simt_out.float() - want.float()).abs().max().item()
+                    row["simt_dkv_max_abs_err"] = max(
+                        (g.float() - w.float()).abs().max().item()
+                        for g, w in zip(simt_dkv, wants[1:]))
+                    if not (row["simt_fwd_max_abs_err"] <= KERNEL_TOL[name]
+                            and row["simt_dkv_max_abs_err"]
+                            <= GRAD_TOL[name] * scale):
+                        raise AssertionError(f"phase 3 simt {row}")
+                    timed["simt_fwd"] = lambda: _launch_fwd(
+                        "simt", q, k, v, valid, rate, seed, False)
+                    timed["simt_dkv"] = lambda: _launch_dkv("simt", *bwd)
+                for what, fn in timed.items():
+                    row[f"{what}_ms"] = cuda_ms(fn)
+                    row[f"{what}_device_ms"] = device_ms(fn)
                 row.update({
-                    "fwd_ms": cuda_ms(lambda: flash_attention(
-                        q, k, v, valid, **drop)),
-                    "dq_ms": cuda_ms(lambda: flash_attn_bwd_dq(*bwd)),
-                    "dkv_ms": cuda_ms(lambda: flash_attn_bwd_dkv(*bwd)),
                     "fwd_plain_ms": cuda_ms(lambda: attention_plain(
                         q, k, v, valid, **drop), iters=10),
                     "bwd_plain_ms": cuda_ms(lambda: attention_bwd_plain(
-                        *bwd), iters=10),
-                    "sdpa_bwd_ms": sdpa_backward_ms(q, k, v, valid, do,
-                                                    rate)})
-                for kern in KERNELS:
+                        *bwd), iters=10)})
+                row.update(sdpa_times(q, k, v, valid, do, rate))
+                for kern in PRODUCTS:
                     row[f"{kern}_bound_ms"], row[f"{kern}_bound_by"] = \
                         attention_bound_ms(b, sq, sk, h, d, valid, name, kern)
                 rows.append(row)
+                before = ""
+                if "simt_fwd_ms" in row:
+                    before = (f"; simt K1 {row['simt_fwd_device_ms']:.4f}, "
+                              f"K3 {row['simt_dkv_device_ms']:.4f} ms "
+                              f"device")
                 print(f"train kernels {site:16s} {name:8s} dropout {rate}: "
                       f"fwd err {fwd_err:.3g} (tol {KERNEL_TOL[name]}), "
                       f"dq/dk/dv err {errs[0]:.3g}/{errs[1]:.3g}/"
                       f"{errs[2]:.3g} (tol {GRAD_TOL[name] * scale:.3g}); "
-                      f"K1 {row['fwd_ms']:.4f} ms, K2 {row['dq_ms']:.4f} ms,"
-                      f" K3 {row['dkv_ms']:.4f} ms; plain fwd "
+                      f"K1 {row['fwd_variant']} {row['fwd_ms']:.4f} ms host "
+                      f"loop, {row['fwd_device_ms']:.4f} device; K2 "
+                      f"{row['dq_ms']:.4f}, {row['dq_device_ms']:.4f}; K3 "
+                      f"{row['dkv_variant']} {row['dkv_ms']:.4f}, "
+                      f"{row['dkv_device_ms']:.4f}; plain fwd "
                       f"{row['fwd_plain_ms']:.4f}, bwd "
-                      f"{row['bwd_plain_ms']:.4f} ms; sdpa bwd "
-                      f"{row['sdpa_bwd_ms']:.4f} ms; bounds "
+                      f"{row['bwd_plain_ms']:.4f} ms; sdpa fwd "
+                      f"{row['sdpa_fwd_device_ms']:.4f}, bwd "
+                      f"{row['sdpa_bwd_device_ms']:.4f} ms device; bounds "
                       f"{row['flash_attn_fwd_bound_ms']:.5f}/"
                       f"{row['flash_attn_bwd_dq_bound_ms']:.5f}/"
-                      f"{row['flash_attn_bwd_dkv_bound_ms']:.5f} ms",
+                      f"{row['flash_attn_bwd_dkv_bound_ms']:.5f} ms{before}",
                       flush=True)
-    masks = {site: check_mask_exact(gen, site, DROPOUT, 0xC0FFEE)
-             for site in CALL_SITES}
+    masks = {f"{site} {name}": check_mask_exact(gen, site, DROPOUT, 0xC0FFEE,
+                                                dt)
+             for site in CALL_SITES
+             for name, dt in (("float32", torch.float32),
+                              ("bfloat16", torch.bfloat16))}
     print(f"train kernels: K1's dropout mask equals the plain Philox mask "
           f"exactly on {sum(masks.values())} elements at p > 0 "
           f"({masks})", flush=True)
@@ -421,6 +563,10 @@ def ms_list(values) -> str:
 
 def kernel_category(name: str) -> str:
     low = name.lower()
+    if "flash_fwd_tc_kernel" in name:
+        return "flash_attn_fwd_tc"
+    if "flash_bwd_dkv_tc_kernel" in name:
+        return "flash_attn_bwd_dkv_tc"
     if "flash_fwd_kernel" in name:
         return "flash_attn_fwd"
     if "flash_bwd_dq_kernel" in name:
@@ -500,6 +646,24 @@ def profile_device(run, what: str, step_ms: float, iters: int = 5) -> dict:
             "top_host_ops_ms": {name: ms for name, ms, _ in host}}
 
 
+def reset_counts(counters) -> None:
+    for c in counters:
+        c.launches = 0
+        if hasattr(c, "launches_tc"):
+            c.launches_tc = 0
+
+
+def read_counts(counters) -> dict:
+    """Launches per wrapper, and those of its tensor-core variant under
+    ``<wrapper>_tc``."""
+    out = {}
+    for c in counters:
+        out[c.__name__] = c.launches
+        if hasattr(c, "launches_tc"):
+            out[f"{c.__name__}_tc"] = c.launches_tc
+    return out
+
+
 def serve(report: dict, counters) -> dict:
     """Phase 3: refcoco_det at full width behind the MicroBatcher."""
     import torch
@@ -526,8 +690,7 @@ def serve(report: dict, counters) -> dict:
           flush=True)
 
     reqs = make_requests(rng, img, seq, vocab)
-    for c in counters:
-        c.launches = 0
+    reset_counts(counters)
     batcher = MicroBatcher(model, timeout_ms=5.0)
     t0 = time.perf_counter()
     for r in reqs:
@@ -537,7 +700,7 @@ def serve(report: dict, counters) -> dict:
             raise AssertionError("a request was not answered in 300 s")
     served_s = time.perf_counter() - t0
     batcher.stop()
-    launches = {c.__name__: c.launches for c in counters}
+    launches = read_counts(counters)
     if batcher.thread.is_alive():
         raise AssertionError("the MicroBatcher thread did not stop")
     for i, r in enumerate(reqs):
@@ -557,7 +720,9 @@ def serve(report: dict, counters) -> dict:
     n_batches = batcher.stats["batches"]
     rows = sum(r.k for r in reqs)
     want = {"flash_attention": ATTN_PER_FORWARD * n_batches,
-            "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0}
+            "flash_attention_tc": TC_PER_FORWARD * n_batches,
+            "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0,
+            "flash_attn_bwd_dkv_tc": 0}
     if n_batches < 1 or launches != want:
         raise AssertionError(
             f"launches {launches} for {n_batches} batch forwards, not "
@@ -762,8 +927,7 @@ def train(report: dict, counters) -> dict:
         stamps.append(time.perf_counter())
         return state, metrics
 
-    for c in counters:
-        c.launches = 0
+    reset_counts(counters)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     stamps.append(time.perf_counter())
@@ -771,7 +935,7 @@ def train(report: dict, counters) -> dict:
                                    TRAIN_STEPS, 0, print_freq=5,
                                    weight_dict=wd)
     torch.cuda.synchronize()
-    launches = {c.__name__: c.launches for c in counters}
+    launches = read_counts(counters)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     per_step = [m.get() for m in seen]
     losses = [m["loss"] for m in per_step]
@@ -783,10 +947,11 @@ def train(report: dict, counters) -> dict:
     if not last < first:
         raise AssertionError(f"the loss on the memorised batch did not fall:"
                              f" first 3 {first:.5f}, last 3 {last:.5f}")
-    want = ATTN_PER_FORWARD * TRAIN_STEPS
-    if any(n != want for n in launches.values()):
+    want = {name: (TC_PER_FORWARD if name.endswith("_tc")
+                   else ATTN_PER_FORWARD) * TRAIN_STEPS for name in launches}
+    if launches != want:
         raise AssertionError(f"launches {launches} in {TRAIN_STEPS} steps, "
-                             f"not {want} of each")
+                             f"not {want}")
     step_ms = [(b - a) * 1e3 for a, b in zip(stamps[WARM_STEPS:-1],
                                               stamps[WARM_STEPS + 1:])]
     med = statistics.median(step_ms)
@@ -815,51 +980,87 @@ def train(report: dict, counters) -> dict:
 
 def kernel_line(report: dict) -> list:
     """The kernels of the main paths at the VL encoder's bfloat16 shape,
-    the dominant call site: K1 as served (no dropout; its time with the
-    training dropout beside it), K2 and K3 as trained (dropout 0.1).
+    the dominant call site: K1 as served (no dropout; its times with the
+    training dropout beside them), K2 and K3 as trained (dropout 0.1). The
+    SIMT rows' times there are the same-run "before" of the tensor-core
+    kernels, which the dispatch rule sends that shape to; on the main path
+    the SIMT kernels serve the decoder's single-query calls. ``ms`` is the
+    host loop's time per call (CUDA events around back-to-back wrapper
+    calls), ``device_ms`` the card's time per call (torch.profiler).
     Every site's numbers are in the JSON report written before it."""
     enc = next(r for r in report["call_sites"]
                if r["site"] == "vl_encoder_self" and r["dtype"] == "bfloat16")
     tr = next(r for r in report["train_kernels"]
               if r["site"] == "vl_encoder_self" and r["dtype"] == "bfloat16"
               and r["dropout"] == DROPOUT)
+    sites = report["call_sites"]
     rows = report["train_kernels"]
+    train_n = report["train"]["launches"]
+    serve_n = report["serve"]["launches"]
     shape = "vl_encoder_self bfloat16 B=8 Sq=Sk=440 H=8 D=32"
+    grads_of = {"flash_attn_bwd_dq": ("dq",),
+                "flash_attn_bwd_dkv": ("dk", "dv")}
     out = []
-    for name, (source, replaces) in KERNELS.items():
-        entry = {"name": name, "route": "cuda",
+    for name, (source, replaces, variant) in KERNELS.items():
+        base = name.removesuffix("_tc")
+        simt = "" if variant == "tc" else "simt_"
+        entry = {"name": name, "route": "cuda", "variant": variant,
                  "source": f"reftr_torch/kernels/csrc/{source}",
                  "replaces": replaces}
-        if name == "flash_attn_fwd":
+        if base == "flash_attn_fwd":
+            def count(n):
+                return (n["flash_attention_tc"] if variant == "tc" else
+                        n["flash_attention"] - n["flash_attention_tc"])
+            errs = ([r["max_abs_err"] for r in sites
+                     if r["variant"] == variant]
+                    + [r["fwd_max_abs_err"] for r in rows
+                       if r["fwd_variant"] == variant])
+            if variant == "simt":
+                errs += [r[k] for r in sites + rows
+                         for k in ("simt_max_abs_err", "simt_fwd_max_abs_err")
+                         if k in r]
             entry.update({
-                "launches": report["train"]["launches"]["flash_attention"],
-                "launches_serve":
-                    report["serve"]["launches"]["flash_attention"],
-                "max_abs_err": max(report["max_abs_err"].values()),
-                "max_abs_err_dropout": max(r["fwd_max_abs_err"]
-                                           for r in rows),
+                "launches": count(train_n), "launches_serve": count(serve_n),
+                "max_abs_err": max(errs),
                 "shape": f"{shape}, no dropout",
-                "ms": enc["ms"], "ms_dropout": tr["fwd_ms"],
+                "ms": enc[f"{simt}ms"], "device_ms": enc[f"{simt}device_ms"],
+                "ms_dropout": tr[f"{simt}fwd_ms"],
+                "device_ms_dropout": tr[f"{simt}fwd_device_ms"],
                 "plain_ms": enc["plain_ms"], "bound_ms": enc["bound_ms"],
                 "bound_by": enc["bound_by"],
-                "library_ms": enc["library_ms"]})
+                "library_ms": enc["library_ms"],
+                "library_device_ms": enc["library_device_ms"],
+                "library_device_ms_dropout": tr["sdpa_fwd_device_ms"]})
         else:
-            short = "dq" if name.endswith("dq") else "dkv"
-            grads = ("dq",) if short == "dq" else ("dk", "dv")
+            short = "dq" if base.endswith("dq") else "dkv"
+            grads = grads_of[base]
+            if base == "flash_attn_bwd_dq":
+                launches = train_n[base]
+                picked = rows
+            else:
+                launches = (train_n[name] if variant == "tc" else
+                            train_n[base] - train_n[f"{base}_tc"])
+                picked = [r for r in rows if r["dkv_variant"] == variant]
+            errs = [(r[f"{g}_max_abs_err"], r["grad_scale"]) for r in picked
+                    for g in grads]
+            if base == "flash_attn_bwd_dkv" and variant == "simt":
+                errs += [(r["simt_dkv_max_abs_err"], r["grad_scale"])
+                         for r in rows if "simt_dkv_max_abs_err" in r]
+            key = f"simt_{short}" if simt and short == "dkv" else short
             entry.update({
-                "launches": report["train"]["launches"][name],
-                "max_abs_err": max(r[f"{g}_max_abs_err"] for r in rows
-                                   for g in grads),
-                "max_rel_err": max(r[f"{g}_max_abs_err"] / r["grad_scale"]
-                                   for r in rows for g in grads),
+                "launches": launches,
+                "max_abs_err": max(e for e, _ in errs),
+                "max_rel_err": max(e / s for e, s in errs),
                 "shape": f"{shape}, dropout {DROPOUT}",
-                "ms": tr[f"{short}_ms"],
+                "ms": tr[f"{key}_ms"], "device_ms": tr[f"{key}_device_ms"],
                 "plain_ms": tr["bwd_plain_ms"],
                 "plain_covers": "attention_bwd_plain: dq, dk and dv",
-                "bound_ms": tr[f"{name}_bound_ms"],
-                "bound_by": tr[f"{name}_bound_by"],
+                "bound_ms": tr[f"{base}_bound_ms"],
+                "bound_by": tr[f"{base}_bound_by"],
                 "library_ms": tr["sdpa_bwd_ms"],
-                "library_covers": "SDPA backward (fwd+bwd minus fwd): "
+                "library_device_ms": tr["sdpa_bwd_device_ms"],
+                "library_covers": "SDPA backward (host loop: fwd+bwd minus "
+                                  "fwd; device: the backward's kernels): "
                                   "K2 and K3 together"})
         out.append(entry)
     return out
@@ -879,18 +1080,24 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
     t0 = time.perf_counter()
-    sources = sorted({src for src, _ in KERNELS.values()})
+    sources = sorted({src for src, _, _ in KERNELS.values()})
     with ThreadPoolExecutor(len(sources)) as pool:
-        list(pool.map(_nvcc.build, sources))
+        libs = dict(zip(sources, pool.map(_nvcc.build, sources)))
     print(f"built {', '.join(sources)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    # the tensor-core kernels' machine code must hold tensor-core products
+    hmma = {src: sass_count(libs[src], "HMMA")
+            for src, _, variant in KERNELS.values() if variant == "tc"}
+    print(f"cuobjdump -sass: HMMA instructions {hmma}", flush=True)
+    if not all(hmma.values()):
+        raise AssertionError(f"a tensor-core kernel has no HMMA: {hmma}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
           f"cudnn {torch.backends.cudnn.allow_tf32}", flush=True)
 
     counters = [flash_attention, flash_attn_bwd_dq, flash_attn_bwd_dkv]
-    report = {"card": card}
+    report = {"card": card, "hmma": hmma}
     check_kernel(report)
     check_training_kernels(report)
     serve(report, counters)

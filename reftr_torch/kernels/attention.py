@@ -5,11 +5,20 @@ Port of the Pallas kernels of reftr_tpu/kernels/attention.py and of their
 autograd contract:
 
   K1 ``flash_attention``    <- ``_flash_kernel`` / ``_fwd``
-                               (``csrc/flash_attn_fwd.cu``)
+                               (``csrc/flash_attn_fwd_tc.cu`` on tensor
+                               cores, ``csrc/flash_attn_fwd.cu`` on SIMT)
   K2 ``flash_attn_bwd_dq``  <- ``_bwd_dq_kernel`` (``csrc/flash_attn_bwd.cu``)
-  K3 ``flash_attn_bwd_dkv`` <- ``_bwd_dkv_kernel`` (``csrc/flash_attn_bwd.cu``)
+  K3 ``flash_attn_bwd_dkv`` <- ``_bwd_dkv_kernel``
+                               (``csrc/flash_attn_bwd_dkv_tc.cu`` on tensor
+                               cores, ``csrc/flash_attn_bwd.cu`` on SIMT)
   ``FlashAttentionFn``      <- ``_attention``'s ``custom_vjp`` and
                                ``fused_attention``
+
+K1 and K3 have two variants on the card, picked by shape and dtype alone
+(``fwd_variant``, ``dkv_variant``): bf16 with 16 or more query rows (and,
+for K3, 16 or more keys) takes the tensor-core kernel ("tc"); float32 and
+the decoder's single query take the SIMT kernel ("simt"). A kernel that
+fails to build or launch raises; no variant stands in for another.
 
 The kernels are built with nvcc on first use and called through ctypes (see
 each source's header for its design and its bound on the card). Layout at
@@ -23,7 +32,9 @@ Every kernel has its plain PyTorch version here (``attention_plain``,
 version for a tensor on the CPU, and for a CUDA tensor launches its kernel
 or raises. Each wrapper counts its kernel's launches in
 ``<wrapper>.launches`` (K1's in ``flash_attention.launches``, also when
-``FlashAttentionFn`` launches it).
+``FlashAttentionFn`` launches it), and those of the tensor-core variant
+among them in ``flash_attention.launches_tc`` and
+``flash_attn_bwd_dkv.launches_tc``.
 
 Attention dropout follows the TPU kernel: the softmax denominator sums the
 un-dropped weights and only the weights applied to v are dropped and
@@ -51,6 +62,11 @@ import torch
 NEG_INF = -1e9
 SOURCE = "flash_attn_fwd.cu"
 BWD_SOURCE = "flash_attn_bwd.cu"
+FWD_TC_SOURCE = "flash_attn_fwd_tc.cu"
+DKV_TC_SOURCE = "flash_attn_bwd_dkv_tc.cu"
+# the tensor-core kernels tile 64 rows as 4 warps of 16: a side shorter
+# than one warp's 16 rows leaves most of each tile empty
+TC_MIN_ROWS = 16
 HEAD_DIMS = (16, 32, 64)  # the kernels' template instances
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MASK32 = 0xFFFFFFFF
@@ -273,13 +289,38 @@ def _threads_per_row(sq: int) -> int:
     return 4
 
 
+def fwd_variant(sq: int, dtype: torch.dtype) -> str:
+    """K1's kernel on the card: "tc" (flash_attn_fwd_tc.cu) for bf16 with at
+    least TC_MIN_ROWS queries, the VL encoder's 440 and BERT's 40; else
+    "simt" (flash_attn_fwd.cu). float32 stays on SIMT because tensor cores
+    would take it as TF32 (10-bit mantissa), which breaks its 1e-5
+    tolerance; the decoder's single query stays there because the SIMT
+    kernel spreads one query's keys over a warp, where a 64-row tile would
+    be 63 rows of zeros."""
+    return "tc" if dtype == torch.bfloat16 and sq >= TC_MIN_ROWS else "simt"
+
+
+def dkv_variant(sq: int, sk: int, dtype: torch.dtype) -> str:
+    """K3's kernel on the card: "tc" (flash_attn_bwd_dkv_tc.cu) for bf16
+    with at least TC_MIN_ROWS queries and keys (the VL encoder and BERT);
+    else "simt" (flash_attn_bwd.cu): float32 for the reason of
+    ``fwd_variant``, and the decoder's single query, where each 64-query
+    tile of the tensor-core kernel would be 63 rows of zeros, while the
+    SIMT kernel spends one thread group per key on it."""
+    return ("tc" if dtype == torch.bfloat16 and min(sq, sk) >= TC_MIN_ROWS
+            else "simt")
+
+
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _DROPOUT_ARGS = [ctypes.c_uint64, ctypes.c_uint32, ctypes.c_float]
 _ARGTYPES = {
     "flash_attn_fwd": [_PTR] * 6 + [_INT] * 7 + _DROPOUT_ARGS + [_PTR],
+    "flash_attn_fwd_tc": [_PTR] * 6 + [_INT] * 5 + _DROPOUT_ARGS + [_PTR],
     "flash_attn_bwd_dq": [_PTR] * 8 + [_INT] * 7 + _DROPOUT_ARGS + [_PTR],
     "flash_attn_bwd_dkv": [_PTR] * 9 + [_INT] * 6 + _DROPOUT_ARGS + [_PTR],
+    "flash_attn_bwd_dkv_tc": [_PTR] * 9 + [_INT] * 5 + _DROPOUT_ARGS
+                             + [_PTR],
 }
 
 
@@ -323,15 +364,43 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    dropout_rate=dropout_rate, seed=seed)
         return attention_plain(q, k, v, valid_mask, dropout_rate=dropout_rate,
                                seed=seed), None
+    return _launch_fwd(fwd_variant(q.shape[1], q.dtype), q, k, v, valid_mask,
+                       dropout_rate, seed, return_lse)
+
+
+def _check_tc(*tensors: Optional[torch.Tensor]) -> None:
+    """What the tensor-core kernels take beyond ``_check_cuda``: bf16, and
+    16-byte aligned rows for their cp.async tile copies."""
+    if tensors[0].dtype != torch.bfloat16:
+        raise TypeError(f"the tensor-core kernels take bfloat16, not "
+                        f"{tensors[0].dtype}")
+    for t in tensors:
+        if t is not None and t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError("the tensor-core kernels need 16-byte aligned "
+                             "inputs")
+
+
+def _launch_fwd(variant: str, q, k, v, valid_mask, dropout_rate: float,
+                seed: Optional[int], return_lse: bool = True):
+    """Launch K1's ``variant`` ("tc" or "simt") on CUDA tensors: (out, lse
+    or None)."""
     _check_cuda(q, k, v, valid_mask)
     b, sq, h, d = q.shape
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
            if return_lse else None)
-    _launch(SOURCE, "flash_attn_fwd", q.device, _ptr(q), _ptr(k), _ptr(v),
-            _ptr(valid_mask), _ptr(out), _ptr(lse), b, h, sq, k.shape[1], d,
-            _DTYPES[q.dtype], _threads_per_row(sq),
-            *_dropout_args(dropout_rate, seed))
+    ptrs = (_ptr(q), _ptr(k), _ptr(v), _ptr(valid_mask), _ptr(out), _ptr(lse))
+    drop = _dropout_args(dropout_rate, seed)
+    if variant == "tc":
+        _check_tc(q, k, v)
+        _launch(FWD_TC_SOURCE, "flash_attn_fwd_tc", q.device, *ptrs, b, h, sq,
+                k.shape[1], d, *drop)
+        flash_attention.launches_tc += 1
+    elif variant == "simt":
+        _launch(SOURCE, "flash_attn_fwd", q.device, *ptrs, b, h, sq,
+                k.shape[1], d, _DTYPES[q.dtype], _threads_per_row(sq), *drop)
+    else:
+        raise ValueError(f"unknown variant {variant!r}")
     flash_attention.launches += 1
     return out, lse
 
@@ -364,21 +433,39 @@ def flash_attn_bwd_dkv(q, k, v, valid_mask, o, lse, do,
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, valid_mask, o, lse, do,
                                    dropout_rate, seed)[1:]
+    return _launch_dkv(dkv_variant(q.shape[1], k.shape[1], q.dtype), q, k, v,
+                       valid_mask, o, lse, do, dropout_rate, seed)
+
+
+def _launch_dkv(variant: str, q, k, v, valid_mask, o, lse, do,
+                dropout_rate: float, seed: Optional[int]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K3's ``variant`` ("tc" or "simt") on CUDA tensors: (dk, dv)."""
     _check_cuda(q, k, v, valid_mask, o, lse, do)
     _check_bwd(q, o, lse, do)
     b, sq, h, d = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch(BWD_SOURCE, "flash_attn_bwd_dkv", q.device, _ptr(q), _ptr(k),
-            _ptr(v), _ptr(valid_mask), _ptr(o), _ptr(do), _ptr(lse),
-            _ptr(dk), _ptr(dv), b, h, sq, k.shape[1], d, _DTYPES[q.dtype],
-            *_dropout_args(dropout_rate, seed))
+    ptrs = (_ptr(q), _ptr(k), _ptr(v), _ptr(valid_mask), _ptr(o), _ptr(do),
+            _ptr(lse), _ptr(dk), _ptr(dv))
+    drop = _dropout_args(dropout_rate, seed)
+    if variant == "tc":
+        _check_tc(q, k, v, o, do)
+        _launch(DKV_TC_SOURCE, "flash_attn_bwd_dkv_tc", q.device, *ptrs, b, h,
+                sq, k.shape[1], d, *drop)
+        flash_attn_bwd_dkv.launches_tc += 1
+    elif variant == "simt":
+        _launch(BWD_SOURCE, "flash_attn_bwd_dkv", q.device, *ptrs, b, h, sq,
+                k.shape[1], d, _DTYPES[q.dtype], *drop)
+    else:
+        raise ValueError(f"unknown variant {variant!r}")
     flash_attn_bwd_dkv.launches += 1
     return dk, dv
 
 
 flash_attn_bwd_dq.launches = 0
 flash_attn_bwd_dkv.launches = 0
+flash_attn_bwd_dkv.launches_tc = 0
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -439,3 +526,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+flash_attention.launches_tc = 0

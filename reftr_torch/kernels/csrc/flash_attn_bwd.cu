@@ -2,6 +2,12 @@
 // dq in one kernel, dk and dv in another, p recomputed from the forward's
 // row logsumexp (flash-attention 2).
 //
+// What they serve: the dq kernel (K2) every call; the dk/dv kernel, the SIMT
+// variant of K3, float32 and bf16 calls with fewer than 16 queries or keys
+// (the decoder's single query). bf16 calls with 16 or more of both take the
+// tensor-core kernel, flash_attn_bwd_dkv_tc.cu
+// (kernels/attention.py::dkv_variant).
+//
 // Replaces the TPU kernels of reftr_tpu/kernels/attention.py driven by
 // `_bwd` (:342-457):
 //   flash_attn_bwd_dq  <- `_bwd_dq_kernel` (:242-284, pallas_call at :420)

@@ -1,4 +1,10 @@
-// Flash-attention forward for Hopper (sm_90a), plain C interface for ctypes.
+// Flash-attention forward for Hopper (sm_90a), plain C interface for ctypes:
+// the SIMT variant of K1.
+//
+// What it serves: float32 (on tensor cores that would be TF32, outside the
+// 1e-5 tolerance) and bf16 calls with fewer than 16 queries, the decoder's
+// single query. bf16 calls with 16 or more queries take the tensor-core
+// kernel, flash_attn_fwd_tc.cu (kernels/attention.py::fwd_variant).
 //
 // Replaces the TPU kernel `_flash_kernel` of reftr_tpu/kernels/attention.py
 // (driven by `_fwd`, pallas_call at :210): out = softmax(q k^T / sqrt(D) +

@@ -1,6 +1,7 @@
-// Pieces shared by the flash-attention kernels (flash_attn_fwd.cu and
-// flash_attn_bwd.cu): dtype conversion, the logit of one (query, key) pair,
-// and the attention-dropout random numbers.
+// Pieces shared by the flash-attention kernels (flash_attn_fwd.cu,
+// flash_attn_bwd.cu and the tensor-core flash_attn_fwd_tc.cu and
+// flash_attn_bwd_dkv_tc.cu): dtype conversion, the logit of one (query, key)
+// pair, and the attention-dropout random numbers.
 //
 // The logit. x = (s * scale) + bias, rounded at each step as the plain
 // PyTorch version rounds it (no contraction into an fma), with bias 0 for a
@@ -60,9 +61,8 @@ __device__ __forceinline__ float logit(float dot, float scale, float bias,
   return __fadd_rn(__fadd_rn(__fmul_rn(dot, scale), bias), shift);
 }
 
-// Word n % 4 of Philox4x32-10 at counter (n / 4, 0, 0) under key `seed`.
-__device__ __forceinline__ uint32_t philox_word(uint64_t seed, uint64_t n) {
-  const uint64_t ctr = n >> 2;
+// The four words of Philox4x32-10 at counter (ctr, 0, 0) under key `seed`.
+__device__ __forceinline__ uint4 philox4(uint64_t seed, uint64_t ctr) {
   uint32_t c0 = (uint32_t)ctr, c1 = (uint32_t)(ctr >> 32), c2 = 0u, c3 = 0u;
   uint32_t k0 = (uint32_t)seed, k1 = (uint32_t)(seed >> 32);
 #pragma unroll
@@ -79,8 +79,17 @@ __device__ __forceinline__ uint32_t philox_word(uint64_t seed, uint64_t n) {
     c2 = n2;
     c3 = lo0;
   }
+  return make_uint4(c0, c1, c2, c3);
+}
+
+__device__ __forceinline__ uint32_t pick_word(uint4 r, uint64_t n) {
   const uint32_t w = n & 3;
-  return w == 0 ? c0 : w == 1 ? c1 : w == 2 ? c2 : c3;
+  return w == 0 ? r.x : w == 1 ? r.y : w == 2 ? r.z : r.w;
+}
+
+// Word n % 4 of Philox4x32-10 at counter (n / 4, 0, 0) under key `seed`.
+__device__ __forceinline__ uint32_t philox_word(uint64_t seed, uint64_t n) {
+  return pick_word(philox4(seed, n >> 2), n);
 }
 
 // The dropout multiplier of element n: inv_keep where kept, 0 where dropped.

@@ -1,0 +1,157 @@
+// Tensor-core building blocks of the bf16 flash-attention kernels
+// (flash_attn_fwd_tc.cu, flash_attn_bwd_dkv_tc.cu): asynchronous tile
+// copies, ldmatrix, and the warp-level bf16 product mma.sync m16n8k16 with
+// f32 accumulation (sm_80 and later, so sm_90a too).
+//
+// Fragment layouts of mma.m16n8k16 (PTX ISA, "Matrix Fragments for
+// mma.m16n8k16"), for lane l of a warp, g = l / 4 and c = (l % 4) * 2:
+//   A (16 x 16, row-major): a[0] = rows g, cols c..c+1; a[1] = rows g + 8,
+//     cols c..c+1; a[2] = rows g, cols c+8..c+9; a[3] = rows g + 8,
+//     cols c+8..c+9 (two bf16 per 32-bit register, the lower column low).
+//   B (16 x 8, "col"): b[0] = k c..c+1 of column g; b[1] = k c+8..c+9.
+//   C/D (16 x 8, f32): d[0..1] = row g, cols c..c+1; d[2..3] = row g + 8.
+// So the accumulators of two neighbouring n-tiles of a product are, packed
+// to bf16 pairs, the A fragment of one 16-deep k-step of the next product:
+// the flash-attention trick that keeps P (and dS) in registers.
+//
+// Shared-memory tiles are row-major [row][D] bf16 with rows padded to
+// D + 8 elements (D * 2 + 16 bytes: 48, 80, 144 for D = 16, 32, 64). The 8
+// row addresses of one 8 x 8 ldmatrix matrix then start 12, 20 or 36 words
+// apart, which puts the 8 rows' 16 bytes in 8 disjoint groups of 4 banks:
+// no bank conflicts, with or without .trans. Every row start stays
+// 16-byte aligned for cp.async.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace flash_tc {
+
+template <int D>
+struct Tile {
+  static constexpr int kStride = D + 8;  // padded row, in bf16 elements
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronous; `bytes` = 0 fills zeros (the
+// source address must still be a valid one).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+
+// 4 bytes global -> shared, asynchronous, for rows of per-query floats that
+// need not be 16-byte aligned; `bytes` = 0 fills zeros.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Stage `rows` (<= R) rows of D bf16 from global, one row every
+// `row_stride` elements, into a padded shared tile of R rows; rows past
+// `rows` are zero-filled. Every thread of the block calls it.
+template <int D, int R, int kThreads>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* tile,
+                                          const __nv_bfloat16* src,
+                                          long row_stride, int rows) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks per row
+  for (int i = threadIdx.x; i < R * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = i % kChunks;
+    const bool live = r < rows;
+    cp_async16(tile + r * Tile<D>::kStride + c * 8,
+               live ? src + r * row_stride + c * 8 : src, live ? 16 : 0);
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d += a b, bf16 inputs, f32 accumulators. Volatile, so the compiler keeps
+// it where the source puts it: mma.sync is .aligned, and a copy moved into a
+// branch where the warp's lanes diverge (as the dropout's Philox branches
+// do) would give undefined results.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats as one bf16 pair, `lo` in the low half (the lower column).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The A fragment of rows row0..row0+15, cols col0..col0+15 of a padded
+// tile (ldmatrix.x4: lanes 0-15 give rows at col0, lanes 16-31 at col0+8).
+template <int D>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4],
+                                       const __nv_bfloat16* tile, int row0,
+                                       int col0) {
+  const int l = threadIdx.x % 32;
+  ldsm_x4(a, tile + (row0 + l % 16) * Tile<D>::kStride + col0 + (l / 16) * 8);
+}
+
+// B fragments of a product with the tile's rows as the n side (X^T as B:
+// B[k][n] = tile[n][k]): n-tiles of rows row0..row0+7 and row0+8..row0+15,
+// k = col0..col0+15. b[0], b[1] belong to the first n-tile, b[2], b[3] to
+// the second.
+template <int D>
+__device__ __forceinline__ void load_b_rows(uint32_t (&b)[4],
+                                            const __nv_bfloat16* tile,
+                                            int row0, int col0) {
+  const int l = threadIdx.x % 32;
+  ldsm_x4(b, tile + (row0 + (l / 16) * 8 + l % 8) * Tile<D>::kStride + col0 +
+                 ((l / 8) % 2) * 8);
+}
+
+// B fragments of a product with the tile's rows as the k side (X as B:
+// B[k][n] = tile[k][n]): k = row0..row0+15, n-tiles of cols col0..col0+7
+// and col0+8..col0+15 (ldmatrix.trans). b[0], b[1] belong to the first
+// n-tile, b[2], b[3] to the second.
+template <int D>
+__device__ __forceinline__ void load_b_cols(uint32_t (&b)[4],
+                                            const __nv_bfloat16* tile,
+                                            int row0, int col0) {
+  const int l = threadIdx.x % 32;
+  ldsm_x4_trans(b, tile + (row0 + ((l / 8) % 2) * 8 + l % 8) *
+                              Tile<D>::kStride +
+                          col0 + (l / 16) * 8);
+}
+
+}  // namespace flash_tc

@@ -10,7 +10,11 @@ import torch
 
 from reftr_tpu.kernels.attention import _xla_attention, fused_attention
 from reftr_tpu.nn.attention import MultiHeadAttention as JaxMHA
-from reftr_torch.kernels.attention import attention_plain, flash_attention
+from reftr_torch.kernels.attention import (TC_MIN_ROWS, attention_bwd_plain,
+                                           attention_plain,
+                                           dkv_variant, flash_attention,
+                                           flash_attn_bwd_dkv,
+                                           flash_attn_bwd_dq, fwd_variant)
 from reftr_torch.nn.attention import MultiHeadAttention, set_plain_attention
 from torch_parity_utils import close, load_port, random_flax_params, t
 
@@ -135,3 +139,54 @@ def test_wrapper_rejects_bad_inputs():
 def test_mha_rejects_indivisible_width():
     with pytest.raises(ValueError):
         MultiHeadAttention(30, 4)
+
+
+# (Sq, Sk) of refcoco_det's four attention call sites at 640 px
+CALL_SITES = {"vl_encoder_self": (440, 440), "decoder_self": (1, 1),
+              "decoder_cross": (1, 440), "bert_self": (40, 40)}
+TC_SITES = {"vl_encoder_self", "bert_self"}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("site", sorted(CALL_SITES))
+def test_variant_rule_at_the_call_sites(site, dtype):
+    sq, sk = CALL_SITES[site]
+    want = ("tc" if dtype == torch.bfloat16 and site in TC_SITES
+            else "simt")
+    assert fwd_variant(sq, dtype) == want
+    assert dkv_variant(sq, sk, dtype) == want
+
+
+def test_variant_rule_boundary():
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert TC_MIN_ROWS == 16
+    assert fwd_variant(15, bf16) == "simt"
+    assert fwd_variant(16, bf16) == "tc"
+    assert fwd_variant(16, f32) == "simt"
+    assert fwd_variant(8540, f32) == "simt"
+    assert dkv_variant(16, 16, bf16) == "tc"
+    assert dkv_variant(15, 440, bf16) == "simt"
+    assert dkv_variant(440, 15, bf16) == "simt"
+    assert dkv_variant(440, 440, f32) == "simt"
+
+
+@pytest.mark.parametrize("sq", [1, 16, 64])
+def test_cpu_tensors_take_the_plain_version_whatever_the_variant(sq):
+    """bf16 CPU tensors at shapes the rule sends to the tensor-core
+    kernels: the plain versions run, forward and backward, and no launch
+    counter moves."""
+    q, k, v, valid = (t(a) for a in make_qkv(8, 2, sq, 20, 2, 32))
+    q, k, v = (x.to(torch.bfloat16).requires_grad_() for x in (q, k, v))
+    counters = (flash_attention, flash_attn_bwd_dq, flash_attn_bwd_dkv)
+    before = [(c.launches, getattr(c, "launches_tc", 0)) for c in counters]
+    out = flash_attention(q, k, v, valid)
+    do = torch.ones_like(out)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    with torch.no_grad():
+        want, lse = attention_plain(q, k, v, valid, return_lse=True)
+        want_grads = attention_bwd_plain(q, k, v, valid, want, lse, do)
+    assert torch.equal(out, want)
+    for g, w in zip(grads, want_grads):
+        assert torch.equal(g, w)
+    assert [(c.launches, getattr(c, "launches_tc", 0))
+            for c in counters] == before

@@ -13,12 +13,18 @@ Function), as a share of the largest magnitude among the call's plain
 dq, dk and dv (a gradient can be zero in exact arithmetic, as dq and dk
 are with a single key): 1e-4 in float32 (sums of up to 440 terms in
 another order), 1e-2 in bfloat16 (rounding of the output to bf16, 2^-9).
+
+The wrappers pick K1's and K3's variant by shape and dtype (bf16 with 16
+or more rows: the tensor-core kernels), so the tests through the wrappers
+cover both variants; the tests of the tensor-core kernels alone launch
+them at the edges of their 64-row and 64-key tiles.
 """
 
 import pytest
 import torch
 
-from reftr_torch.kernels.attention import (FlashAttentionFn,
+from reftr_torch.kernels.attention import (FlashAttentionFn, _launch_dkv,
+                                           _launch_fwd,
                                            attention_bwd_plain,
                                            attention_plain, flash_attention,
                                            flash_attn_bwd_dkv,
@@ -33,7 +39,14 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 SHAPES = [(8, 440, 440, 8, 32), (8, 1, 1, 8, 32), (8, 1, 440, 8, 32),
           (8, 40, 40, 12, 64), (3, 70, 130, 4, 16), (2, 129, 65, 2, 64),
-          (2, 5, 3, 2, 16)]
+          (2, 5, 3, 2, 16),
+          # the edges of the tensor-core kernels' 64-row and 64-key tiles
+          (2, 16, 1, 2, 16), (2, 63, 15, 2, 32), (2, 64, 17, 2, 64),
+          (2, 65, 63, 2, 16), (2, 16, 65, 2, 32), (2, 63, 440, 2, 64),
+          (2, 64, 64, 2, 32), (2, 65, 17, 2, 64), (2, 15, 440, 2, 32)]
+TC_SQ = (16, 63, 64, 65)
+TC_SK = (1, 15, 17, 63, 65, 440)
+HEAD_DIMS = (16, 32, 64)
 
 
 @pytest.fixture
@@ -215,3 +228,84 @@ def test_mha_projection_gradients_through_the_kernels(gen, dropout):
         if name != "k_proj.bias":
             assert got.abs().max() > 0, name
         rel_close(got, want, GRAD_TOL[torch.float32], floor=0.1 * scale)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("sk", TC_SK)
+@pytest.mark.parametrize("sq", TC_SQ)
+def test_tensor_core_kernels_match_plain(gen, sq, sk, d, rate):
+    """K1-TC and K3-TC launched directly at every tile edge, batch row 0
+    with every key masked, against the plain versions in float32 on the
+    same bf16 inputs."""
+    q, k, v, valid = inputs(gen, 2, sq, sk, 3, d, torch.bfloat16)
+    seed = 0xABCD_EF01_2345 if rate else None
+    out, lse = _launch_fwd("tc", q, k, v, valid, rate, seed)
+    want, want_lse = attention_plain(q.float(), k.float(), v.float(), valid,
+                                     True, dropout_rate=rate, seed=seed)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    torch.testing.assert_close(out.float(), want, atol=TOL[torch.bfloat16],
+                               rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-6)
+    do = torch.randn(out.shape, device="cuda", generator=gen).to(q.dtype)
+    wants = attention_bwd_plain(q, k, v, valid, out, lse, do, rate, seed)
+    dk, dv = _launch_dkv("tc", q, k, v, valid, out, lse, do, rate, seed)
+    torch.cuda.synchronize()
+    scale = max(w.float().abs().max().item() for w in wants)
+    for got, w in ((dk, wants[1]), (dv, wants[2])):
+        assert got.dtype == torch.bfloat16 and got.shape == w.shape
+        rel_close(got, w, GRAD_TOL[torch.bfloat16], floor=scale)
+
+
+@pytest.mark.parametrize("shape", [(8, 440, 440, 8, 32), (2, 40, 40, 4, 64)])
+def test_dropout_mask_is_exact_through_the_tensor_core_kernel(gen, shape):
+    """As test_dropout_mask_is_exact, in bf16, where K1-TC runs: the p of a
+    live key (logits of unit spread) stays far above bf16's smallest
+    normal, so the kept set is read off exactly."""
+    b, sq, sk, h, d = shape
+    q, k, _, valid = inputs(gen, b, sq, sk, h, d, torch.bfloat16)
+    rate, seed = 0.1, 42
+    keep = philox_keep_plain(seed, b, h, sq, sk, rate, "cuda")
+    before = flash_attention.launches_tc
+    for k0 in range(0, sk, d):
+        v = torch.zeros(b, sk, h, d, device="cuda", dtype=torch.bfloat16)
+        n = min(d, sk - k0)
+        v[:, k0:k0 + n, :, :n] = torch.eye(n, device="cuda")[:, None, :]
+        out = flash_attention(q, k, v, valid, dropout_rate=rate, seed=seed)
+        got = out[..., :n].permute(0, 2, 1, 3) != 0  # [B, H, Sq, n]
+        live = torch.where(valid.any(-1, keepdim=True), valid,
+                           True)[:, None, None, k0:k0 + n]
+        want = keep[..., k0:k0 + n]
+        assert torch.equal(got & live, want & live)
+    assert flash_attention.launches_tc - before == -(-sk // d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tensor_core_counters_count_only_bf16_calls(gen, dtype):
+    """An encoder-shaped bf16 call goes through K1-TC and K3-TC, a float32
+    one through the SIMT kernels; the totals count both."""
+    q, k, v, valid = inputs(gen, 2, 440, 440, 8, 32, dtype)
+    q.requires_grad_()
+    counters = (flash_attention, flash_attn_bwd_dq, flash_attn_bwd_dkv)
+    before = [(c.launches, getattr(c, "launches_tc", 0)) for c in counters]
+    flash_attention(q, k, v, valid).float().sum().backward()
+    torch.cuda.synchronize()
+    after = [(c.launches, getattr(c, "launches_tc", 0)) for c in counters]
+    tc = 1 if dtype == torch.bfloat16 else 0
+    assert [(a[0] - b[0], a[1] - b[1]) for a, b in zip(after, before)] == [
+        (1, tc), (1, 0), (1, tc)]
+
+
+def test_tensor_core_kernels_refuse_what_they_do_not_take(gen):
+    q, k, v, valid = inputs(gen, 2, 64, 64, 2, 32, torch.float32)
+    with pytest.raises(TypeError, match="bfloat16"):
+        _launch_fwd("tc", q, k, v, valid, 0.0, None)
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    shifted = torch.empty(qb.numel() + 1, device="cuda",
+                          dtype=torch.bfloat16)[1:].view(qb.shape)
+    shifted.copy_(qb)
+    with pytest.raises(ValueError, match="aligned"):
+        _launch_fwd("tc", shifted, kb, vb, valid, 0.0, None)
+    with pytest.raises(ValueError, match="variant"):
+        _launch_fwd("wgmma", qb, kb, vb, valid, 0.0, None)
