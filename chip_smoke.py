@@ -7,41 +7,46 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. Print the card's name and power limit, then build every kernel of the
    serving and training paths from the sources in this checkout
    (reftr_torch/kernels/csrc/flash_attn_fwd.cu, flash_attn_fwd_tc.cu,
-   flash_attn_bwd.cu and flash_attn_bwd_dkv_tc.cu, one nvcc each for
-   sm_90a, started together), and count the tensor-core products (HMMA)
-   in the machine code of the two tensor-core kernels (cuobjdump -sass):
-   none fails the run.
+   flash_attn_fwd_dec.cu, flash_attn_bwd.cu, flash_attn_bwd_dq_tc.cu and
+   flash_attn_bwd_dkv_tc.cu, one nvcc each for sm_90a, started together),
+   and count the tensor-core products (HMMA) in the machine code of the
+   three tensor-core kernels (cuobjdump -sass): none fails the run.
 2. The forward kernel (K1) against its plain PyTorch version on the card,
    at the four call sites of the refcoco_det forward (B=8), with random key
    padding and one row whose keys are all masked, in float32 and bfloat16,
    each against the plain version in float32 on the same inputs, through
-   the variant the dispatch rule picks (attention.fwd_variant: bf16 with
-   16 or more queries on the tensor cores, the rest SIMT). Where that is
-   the tensor-core kernel, the SIMT kernel is checked and timed too, as
-   the same-run "before". Tolerances: 1e-5 max abs in float32 (the sums
-   run in another order), 2e-2 in bfloat16 (the kernel rounds its output
-   to bf16: half a bf16 ulp is 7.8e-3 at magnitudes up to 4). Times of
-   the kernel, the plain version and F.scaled_dot_product_attention (a
-   yardstick only; the port never calls it): "ms" with CUDA events around
-   50 back-to-back calls after a warm-up (which includes the host's time
-   per call where that exceeds the kernel's), "device_ms" as the device
-   activities torch.profiler records per call.
+   the variant the dispatch rule picks (attention.fwd_variant: fewer than
+   16 queries on the decode kernel, bf16 with more on the tensor cores,
+   the rest SIMT). Where that is not the SIMT kernel, the SIMT kernel is
+   checked and timed too, as the same-run "before". Tolerances: 1e-5 max
+   abs in float32 (the sums run in another order), 2e-2 in bfloat16 (the
+   kernel rounds its output to bf16: half a bf16 ulp is 7.8e-3 at
+   magnitudes up to 4). Times of the kernel, the plain version and
+   F.scaled_dot_product_attention (a yardstick only; the port never calls
+   it): "ms" with CUDA events around 50 back-to-back calls after a warm-up
+   (which includes the host's time per call where that exceeds the
+   kernel's), "device_ms" as the device activities torch.profiler records
+   per call.
 3. The training kernels at the same call sites and inputs, in float32 and
    bfloat16, without dropout and with rate 0.1, each through the variant
-   the rule picks (attention.dkv_variant for K3), and the SIMT K1 and K3
-   beside the tensor-core ones: K1 with dropout against attention_plain
-   with the same seed (tolerances as in phase 2), and the backward
-   kernels K2 (dq) and K3 (dk, dv) each against attention_bwd_plain on the
-   same O, lse and dO. Gradient tolerance, as a share of the largest
-   magnitude among the plain dq, dk and dv: 1e-4 in float32 (sums of up to
-   440 terms in another order, at most 2.6e-5 of the largest term), 1e-2
-   in bfloat16 (the kernels round their output to bf16, 2^-9 = 2e-3).
-   Then an exact mask check in float32 and in bfloat16 (so through both
-   variants of K1): v one-hot over the head dim makes K1's output
-   p * keep for D keys at a time, and the kept set must equal the plain
-   Philox mask on every key with p > 0. Times (host loop and device) of
-   each kernel, its plain version, its bound and the yardsticks: SDPA's
-   forward, and its backward, which covers K2 and K3 together.
+   the rule picks (attention.dq_variant for K2, dkv_variant for K3), and
+   the SIMT kernels beside the others: K1 with dropout and its lse against
+   attention_plain with the same seed (tolerances as in phase 2; lse 1e-5
+   abs plus 1e-6 relative), and the backward kernels K2 (dq) and K3 (dk,
+   dv) each against attention_bwd_plain on the same O, lse and dO.
+   Gradient tolerance, as a share of the largest magnitude among the plain
+   dq, dk and dv: 1e-4 in float32 (sums of up to 440 terms in another
+   order, at most 2.6e-5 of the largest term), 1e-2 in bfloat16 (the
+   kernels round their output to bf16, 2^-9 = 2e-3). Then exact mask
+   checks in float32 and in bfloat16 (so through every variant of K1 and
+   K2): v one-hot over the head dim makes K1's output p * keep for D keys
+   at a time; q = 0, lse = 0, O = 0 and dO, v one-hot on the first head
+   dim make K2's ds the keep multiplier of each valid key, and k one-hot
+   over the head dim reads it off dq for D keys at a time. The kept set
+   must equal the plain Philox mask on every key with p > 0. Times (host
+   loop and device) of each kernel, its plain version, its bound and the
+   yardsticks: SDPA's forward, and its backward, which covers K2 and K3
+   together.
 4. The serving path at full width: refcoco_det (ResNet-50, BERT-base,
    6+6 VL layers, d=256) at 640x640 with seeded random weights, bfloat16,
    behind a MicroBatcher with serve batch 8. Six requests of 1-3 phrases
@@ -49,11 +54,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    length 5-40). Every request must come back without error, with finite
    boxes inside its image, and K1's launch count must rise by exactly 30
    per batch forward (12 BERT + 6 encoder + 12 decoder attentions), 18 of
-   them (BERT and encoder) through the tensor-core kernel, K2's and K3's
-   not at all. Then full batches time the forward (host to host,
-   median of four turns each with the kernel and with the plain
-   attention, after a warm-up), torch.profiler splits one forward's device
-   time by kernel category, and one padded batch runs through the kernel
+   them (BERT and encoder) through the tensor-core kernel and 12 (the
+   decoder) through the decode kernel, K2's and K3's not at all. Then full
+   batches time the forward (host to host, median of four turns each with
+   the kernel and with the plain attention, after a warm-up), and
+   torch.profiler splits one forward's device time by kernel category.
+   The same six requests are then served by the float32 model (30 K1
+   launches per forward again: 18 on the SIMT kernel, 12 on the decode
+   kernel), and one padded batch runs through the kernel
    and through the plain attention on the card and the encoder memory and
    decoder states are compared: float32 kernel against float32 plain at
    1e-4 max abs (the per-attention 1e-6 gap carried through 30 attentions
@@ -66,8 +74,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    ids and boxes, through train_one_epoch over 20 steps of that one batch.
    Every loss and gradient norm must be finite, the mean loss of the last
    3 steps below that of the first 3 (a memorised batch), and each of K1,
-   K2 and K3 launched exactly 30 times per step, 18 of K1's and of K3's
-   (BERT and encoder) through the tensor-core kernels. It reports the median
+   K2 and K3 launched exactly 30 times per step, 18 of each (BERT and
+   encoder) through the tensor-core kernels and K1's other 12 (the
+   decoder) through its decode kernel. It reports the median
    host-to-host step time after 3 warm-up steps, the peak device memory
    and one step's device time by kernel category. Then one float32 step
    with dropout 0 from one set of weights through the kernels and through
@@ -78,9 +87,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    self-attention's q and k, come out at rounding level on both paths).
    The last layer of the box head is drawn like the other layers for this
    step: at init it is zero and no gradient would reach the attentions.
-6. Print one JSON line listing each kernel (each variant of K1 and K3 on
-   a row of its own) with its launches on the main path, its error, its
-   times and its bound on this card.
+6. Print one JSON line listing each kernel (each variant on a row of its
+   own) with its launches on the main path, its error, and its times and
+   bound at the call site where the main path launches it (the decoder's
+   cross-attention for the decode and SIMT kernels, the VL encoder for the
+   tensor-core kernels) on this card.
 7. Print {"ok": true, "device": {...}} as the last line.
 
 It needs a CUDA card and the reftr_torch package beside it; without
@@ -116,6 +127,7 @@ CALL_SITES = {
     "bert_self": (40, 40, 12, 64),
 }
 KERNEL_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+LSE_TOL = (1e-5, 1e-6)  # abs, rel: both variants sum in f32
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 MODEL_TOL_F32_ABS = 1e-4
 MODEL_TOL_BF16_REL = 5e-2
@@ -131,8 +143,12 @@ KERNELS = {
                        "reftr_tpu/kernels/attention.py:86", "simt"),
     "flash_attn_fwd_tc": ("flash_attn_fwd_tc.cu",
                           "reftr_tpu/kernels/attention.py:86", "tc"),
+    "flash_attn_fwd_dec": ("flash_attn_fwd_dec.cu",
+                           "reftr_tpu/kernels/attention.py:86", "dec"),
     "flash_attn_bwd_dq": ("flash_attn_bwd.cu",
                           "reftr_tpu/kernels/attention.py:242", "simt"),
+    "flash_attn_bwd_dq_tc": ("flash_attn_bwd_dq_tc.cu",
+                             "reftr_tpu/kernels/attention.py:242", "tc"),
     "flash_attn_bwd_dkv": ("flash_attn_bwd.cu",
                            "reftr_tpu/kernels/attention.py:287", "simt"),
     "flash_attn_bwd_dkv_tc": ("flash_attn_bwd_dkv_tc.cu",
@@ -142,10 +158,17 @@ KERNELS = {
 # K2 q k^T, dO v^T and ds k; K3 those of K2 with (p keep)^T dO, ds^T q
 PRODUCTS = {"flash_attn_fwd": 2, "flash_attn_bwd_dq": 3,
             "flash_attn_bwd_dkv": 4}
-# attention calls per refcoco_det forward that the dispatch rule sends to
-# the tensor-core kernels in bf16: 12 BERT + 6 encoder (K1, and K3 in the
-# backward); the decoder's 12 single-query calls take the SIMT kernels
+# attention calls per refcoco_det forward (and per step, for each of K1, K2
+# and K3) that the dispatch rule sends to the tensor-core kernels in bf16:
+# 12 BERT + 6 encoder; the decoder's 12 single-query calls take K1's decode
+# kernel and the SIMT K2 and K3
 TC_PER_FORWARD = 18
+DEC_PER_FORWARD = 12
+# the call site where the main path launches each variant, for the kernels
+# line: the SIMT K1 has no launch on the bf16 main path and stands at the
+# decoder's site, where it ran before the decode kernel
+MAIN_SITE = {"tc": "vl_encoder_self", "dec": "decoder_cross",
+             "simt": "decoder_cross"}
 # NVIDIA H100 SXM data sheet: HBM rate, f32 outside the tensor cores, bf16
 # dense tensor-core rate
 PEAK_BYTES_S = 3.35e12
@@ -228,7 +251,8 @@ def attention_bound_ms(b, sq, sk, h, d, valid, dtype_name,
     kernels read q, k, v, O, dO and lse and write dq, or dk and dv."""
     import torch
 
-    kernel = kernel.removesuffix("_tc")  # both variants do the same work
+    # every variant of a kernel does the same work
+    kernel = kernel.removesuffix("_tc").removesuffix("_dec")
     es = 4 if dtype_name == "float32" else 2
     qs, ks = b * sq * h * d * es, b * sk * h * d * es
     lse = b * h * sq * 4
@@ -311,7 +335,7 @@ def check_kernel(report: dict) -> dict:
                    "library_device_ms": lib_dev, "bound_ms": bound,
                    "bound_by": bound_by}
             before = ""
-            if variant == "tc":
+            if variant != "simt":
                 # the same-run "before": the SIMT kernel at this call site
                 simt_err = check(f"{site} simt", _launch_fwd(
                     "simt", q, k, v, valid, 0.0, None, False)[0], want, name)
@@ -368,8 +392,8 @@ def check_mask_exact(gen, site: str, rate: float, seed: int, dtype) -> int:
     """K1 with v one-hot over the head dim: out = p * keep / l for D keys
     at a time, so the kept set is read off exactly and must equal the
     plain Philox mask on every key with p > 0 (valid keys, or all keys of
-    a fully masked row). In bf16 the call goes to the variant the rule
-    picks for the site, and p of a live key stays far above bf16's
+    a fully masked row). The call goes to the variant the rule picks for
+    the site and dtype, and in bf16 p of a live key stays far above bf16's
     smallest normal. Returns the number of elements compared."""
     import torch
 
@@ -396,14 +420,62 @@ def check_mask_exact(gen, site: str, rate: float, seed: int, dtype) -> int:
     return compared
 
 
+def check_dq_mask_exact(site: str, rate: float, seed: int, dtype) -> int:
+    """K2 on inputs whose dq reveals each keep decision: q = 0 and lse = 0
+    give p = 1 on every live key (0 on a masked one), dO and v one-hot on
+    head dim 0 give dP = 1, and O = 0 gives di = 0, so ds is the keep
+    multiplier itself; with k one-hot over the head dim for D keys at a
+    time, dq = scale * ds for those keys. The kept set must equal the plain
+    Philox mask on every live key. The call goes to the variant the rule
+    picks (K2-TC in bf16 at the encoder and BERT sites). Returns the number
+    of elements compared."""
+    import torch
+
+    from reftr_torch.kernels.attention import (flash_attn_bwd_dq,
+                                               philox_keep_plain)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    _, _, _, valid = site_inputs(gen, site, dtype)
+    sq, sk, h, d = CALL_SITES[site]
+    b = SERVE_BATCH
+    keep = philox_keep_plain(seed, b, h, sq, sk, rate, "cuda")
+    live_keys = torch.where(valid.any(-1, keepdim=True), valid, True)
+    q = torch.zeros(b, sq, h, d, device="cuda", dtype=dtype)
+    o = torch.zeros_like(q)
+    do = torch.zeros_like(q)
+    do[..., 0] = 1
+    v = torch.zeros(b, sk, h, d, device="cuda", dtype=dtype)
+    v[..., 0] = 1
+    lse = torch.zeros(b, h, sq, device="cuda")
+    compared = 0
+    for k0 in range(0, sk, d):
+        n = min(d, sk - k0)
+        k = torch.zeros(b, sk, h, d, device="cuda", dtype=dtype)
+        k[:, k0:k0 + n, :, :n] = torch.eye(n, device="cuda")[:, None, :]
+        dq = flash_attn_bwd_dq(q, k, v, valid, o, lse, do, rate, seed)
+        kept = dq[..., :n].permute(0, 2, 1, 3) != 0  # [B, H, Sq, n]
+        live = live_keys[:, None, None, k0:k0 + n].expand_as(kept)
+        if not torch.equal(kept[live], keep[..., k0:k0 + n][live]):
+            raise AssertionError(f"{site}: K2's dropout mask differs from "
+                                 f"the plain Philox mask at keys {k0}+")
+        compared += int(live.sum())
+    return compared
+
+
+def max_err(got, want) -> float:
+    return (got.float() - want.float()).abs().max().item()
+
+
 def check_training_kernels(report: dict) -> dict:
     """Phase 3: K1 with dropout, K2 and K3 against their plain versions."""
     import torch
 
-    from reftr_torch.kernels.attention import (_launch_dkv, _launch_fwd,
+    from reftr_torch.kernels.attention import (_launch_dkv, _launch_dq,
+                                               _launch_fwd,
                                                attention_bwd_plain,
                                                attention_plain, dkv_variant,
-                                               flash_attention,
+                                               dq_variant, flash_attention,
                                                flash_attn_bwd_dkv,
                                                flash_attn_bwd_dq, fwd_variant)
 
@@ -421,53 +493,64 @@ def check_training_kernels(report: dict) -> dict:
                 seed = 0x5EED_0000 + len(rows) if rate else None
                 drop = dict(dropout_rate=rate, seed=seed)
                 out, lse = flash_attention(q, k, v, valid, True, **drop)
-                want = attention_plain(q, k, v, valid, **drop)
+                want, want_lse = attention_plain(q, k, v, valid, True, **drop)
                 bwd = (q, k, v, valid, out, lse, do, rate, seed)
                 wants = attention_bwd_plain(*bwd)
                 dq = flash_attn_bwd_dq(*bwd)
                 dk, dv = flash_attn_bwd_dkv(*bwd)
                 torch.cuda.synchronize()
-                fwd_err = (out.float() - want.float()).abs().max().item()
+                fwd_err = max_err(out, want)
+                lse_err = max_err(lse, want_lse)
+                lse_tol = LSE_TOL[0] + LSE_TOL[1] * want_lse.abs().max().item()
                 scale = max(w.float().abs().max().item() for w in wants)
-                errs = [(g.float() - w.float()).abs().max().item()
-                        for g, w in zip((dq, dk, dv), wants)]
+                errs = [max_err(g, w) for g, w in zip((dq, dk, dv), wants)]
                 bad = (not math.isfinite(fwd_err)
                        or fwd_err > KERNEL_TOL[name]
+                       or not lse_err <= lse_tol
                        or not all(math.isfinite(e) and
                                   e <= GRAD_TOL[name] * scale for e in errs))
                 row = {"site": site, "dtype": name, "dropout": rate,
                        "B": b, "Sq": sq, "Sk": sk, "H": h, "D": d,
                        "fwd_max_abs_err": fwd_err,
                        "fwd_tol": KERNEL_TOL[name],
+                       "lse_max_abs_err": lse_err, "lse_tol": lse_tol,
                        "dq_max_abs_err": errs[0], "dk_max_abs_err": errs[1],
                        "dv_max_abs_err": errs[2], "grad_scale": scale,
-                       "grad_tol": GRAD_TOL[name] * scale}
+                       "grad_tol": GRAD_TOL[name] * scale,
+                       "fwd_variant": fwd_variant(sq, dt),
+                       "dq_variant": dq_variant(sq, dt),
+                       "dkv_variant": dkv_variant(sq, sk, dt)}
                 if bad:
                     raise AssertionError(f"phase 3 {row}")
-                row["fwd_variant"] = fwd_variant(sq, dt)
-                row["dkv_variant"] = dkv_variant(sq, sk, dt)
                 timed = {
                     "fwd": lambda: flash_attention(q, k, v, valid, **drop),
                     "dq": lambda: flash_attn_bwd_dq(*bwd),
                     "dkv": lambda: flash_attn_bwd_dkv(*bwd)}
-                if row["fwd_variant"] == "tc":
-                    # the same-run "before": the SIMT kernels at this site
-                    simt_out = _launch_fwd("simt", q, k, v, valid, rate,
-                                           seed, False)[0]
-                    simt_dkv = _launch_dkv("simt", *bwd)
-                    torch.cuda.synchronize()
-                    row["simt_fwd_max_abs_err"] = (
-                        simt_out.float() - want.float()).abs().max().item()
-                    row["simt_dkv_max_abs_err"] = max(
-                        (g.float() - w.float()).abs().max().item()
-                        for g, w in zip(simt_dkv, wants[1:]))
-                    if not (row["simt_fwd_max_abs_err"] <= KERNEL_TOL[name]
-                            and row["simt_dkv_max_abs_err"]
-                            <= GRAD_TOL[name] * scale):
-                        raise AssertionError(f"phase 3 simt {row}")
-                    timed["simt_fwd"] = lambda: _launch_fwd(
+                # the same-run "before": the SIMT kernel of each kernel that
+                # the rule sends elsewhere at this site
+                simt = {}
+                if row["fwd_variant"] != "simt":
+                    simt["fwd"] = lambda: _launch_fwd(
                         "simt", q, k, v, valid, rate, seed, False)
-                    timed["simt_dkv"] = lambda: _launch_dkv("simt", *bwd)
+                if row["dq_variant"] != "simt":
+                    simt["dq"] = lambda: _launch_dq("simt", *bwd)
+                if row["dkv_variant"] != "simt":
+                    simt["dkv"] = lambda: _launch_dkv("simt", *bwd)
+                for what, fn in simt.items():
+                    got = fn()
+                    torch.cuda.synchronize()
+                    if what == "fwd":
+                        err, tol = max_err(got[0], want), KERNEL_TOL[name]
+                    elif what == "dq":
+                        err = max_err(got, wants[0])
+                        tol = GRAD_TOL[name] * scale
+                    else:
+                        err = max(max_err(g, w) for g, w in zip(got, wants[1:]))
+                        tol = GRAD_TOL[name] * scale
+                    row[f"simt_{what}_max_abs_err"] = err
+                    if not err <= tol:
+                        raise AssertionError(f"phase 3 simt {what} {row}")
+                    timed[f"simt_{what}"] = fn
                 for what, fn in timed.items():
                     row[f"{what}_ms"] = cuda_ms(fn)
                     row[f"{what}_device_ms"] = device_ms(fn)
@@ -481,18 +564,18 @@ def check_training_kernels(report: dict) -> dict:
                     row[f"{kern}_bound_ms"], row[f"{kern}_bound_by"] = \
                         attention_bound_ms(b, sq, sk, h, d, valid, name, kern)
                 rows.append(row)
-                before = ""
-                if "simt_fwd_ms" in row:
-                    before = (f"; simt K1 {row['simt_fwd_device_ms']:.4f}, "
-                              f"K3 {row['simt_dkv_device_ms']:.4f} ms "
-                              f"device")
+                before = "".join(
+                    f"; simt {what} {row[f'simt_{what}_device_ms']:.4f}"
+                    for what in simt)
                 print(f"train kernels {site:16s} {name:8s} dropout {rate}: "
-                      f"fwd err {fwd_err:.3g} (tol {KERNEL_TOL[name]}), "
-                      f"dq/dk/dv err {errs[0]:.3g}/{errs[1]:.3g}/"
-                      f"{errs[2]:.3g} (tol {GRAD_TOL[name] * scale:.3g}); "
-                      f"K1 {row['fwd_variant']} {row['fwd_ms']:.4f} ms host "
+                      f"fwd err {fwd_err:.3g} (tol {KERNEL_TOL[name]}), lse "
+                      f"err {lse_err:.3g} (tol {lse_tol:.3g}), dq/dk/dv err "
+                      f"{errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g} (tol "
+                      f"{GRAD_TOL[name] * scale:.3g}); K1 "
+                      f"{row['fwd_variant']} {row['fwd_ms']:.4f} ms host "
                       f"loop, {row['fwd_device_ms']:.4f} device; K2 "
-                      f"{row['dq_ms']:.4f}, {row['dq_device_ms']:.4f}; K3 "
+                      f"{row['dq_variant']} {row['dq_ms']:.4f}, "
+                      f"{row['dq_device_ms']:.4f}; K3 "
                       f"{row['dkv_variant']} {row['dkv_ms']:.4f}, "
                       f"{row['dkv_device_ms']:.4f}; plain fwd "
                       f"{row['fwd_plain_ms']:.4f}, bwd "
@@ -501,15 +584,17 @@ def check_training_kernels(report: dict) -> dict:
                       f"{row['sdpa_bwd_device_ms']:.4f} ms device; bounds "
                       f"{row['flash_attn_fwd_bound_ms']:.5f}/"
                       f"{row['flash_attn_bwd_dq_bound_ms']:.5f}/"
-                      f"{row['flash_attn_bwd_dkv_bound_ms']:.5f} ms{before}",
-                      flush=True)
-    masks = {f"{site} {name}": check_mask_exact(gen, site, DROPOUT, 0xC0FFEE,
-                                                dt)
-             for site in CALL_SITES
-             for name, dt in (("float32", torch.float32),
-                              ("bfloat16", torch.bfloat16))}
-    print(f"train kernels: K1's dropout mask equals the plain Philox mask "
-          f"exactly on {sum(masks.values())} elements at p > 0 "
+                      f"{row['flash_attn_bwd_dkv_bound_ms']:.5f} ms"
+                      f"{before} ms device", flush=True)
+    dtypes = (("float32", torch.float32), ("bfloat16", torch.bfloat16))
+    masks = {f"K1 {site} {name}": check_mask_exact(gen, site, DROPOUT,
+                                                   0xC0FFEE, dt)
+             for site in CALL_SITES for name, dt in dtypes}
+    masks.update({f"K2 {site} {name}": check_dq_mask_exact(site, DROPOUT,
+                                                           0xD0D0, dt)
+                  for site in CALL_SITES for name, dt in dtypes})
+    print(f"train kernels: K1's and K2's dropout masks equal the plain "
+          f"Philox mask exactly on {sum(masks.values())} elements at p > 0 "
           f"({masks})", flush=True)
     report["train_kernels"] = rows
     report["mask_elements_checked"] = masks
@@ -565,6 +650,10 @@ def kernel_category(name: str) -> str:
     low = name.lower()
     if "flash_fwd_tc_kernel" in name:
         return "flash_attn_fwd_tc"
+    if "flash_fwd_dec_kernel" in name:
+        return "flash_attn_fwd_dec"
+    if "flash_bwd_dq_tc_kernel" in name:
+        return "flash_attn_bwd_dq_tc"
     if "flash_bwd_dkv_tc_kernel" in name:
         return "flash_attn_bwd_dkv_tc"
     if "flash_fwd_kernel" in name:
@@ -646,50 +735,37 @@ def profile_device(run, what: str, step_ms: float, iters: int = 5) -> dict:
             "top_host_ops_ms": {name: ms for name, ms, _ in host}}
 
 
+VARIANT_COUNTS = ("launches_tc", "launches_dec")
+
+
 def reset_counts(counters) -> None:
     for c in counters:
         c.launches = 0
-        if hasattr(c, "launches_tc"):
-            c.launches_tc = 0
+        for attr in VARIANT_COUNTS:
+            if hasattr(c, attr):
+                setattr(c, attr, 0)
 
 
 def read_counts(counters) -> dict:
-    """Launches per wrapper, and those of its tensor-core variant under
-    ``<wrapper>_tc``."""
+    """Launches per wrapper, and those of its tensor-core and decode
+    variants under ``<wrapper>_tc`` and ``<wrapper>_dec``."""
     out = {}
     for c in counters:
         out[c.__name__] = c.launches
-        if hasattr(c, "launches_tc"):
-            out[f"{c.__name__}_tc"] = c.launches_tc
+        for attr in VARIANT_COUNTS:
+            if hasattr(c, attr):
+                out[c.__name__ + attr.removeprefix("launches")] = getattr(
+                    c, attr)
     return out
 
 
-def serve(report: dict, counters) -> dict:
-    """Phase 3: refcoco_det at full width behind the MicroBatcher."""
-    import torch
+def serve_requests(model, reqs, counters) -> tuple:
+    """Serve ``reqs`` through a MicroBatcher over ``model``, the launch
+    counts set to 0 just before and read just after; every request must
+    come back without error, with finite boxes inside its image. Returns
+    (launches, batches, seconds)."""
+    from reftr_torch.serve import MicroBatcher
 
-    from reftr_torch.cli.presets import preset_config
-    from reftr_torch.kernels.attention import flash_attention
-    from reftr_torch.nn.attention import set_plain_attention
-    from reftr_torch.serve import MicroBatcher, ServingModel, pad_batch
-
-    cfg = {name: preset_config("refcoco_det", dtype=name)
-           for name in ("float32", "bfloat16")}
-    img = cfg["bfloat16"].data.img_size
-    seq = cfg["bfloat16"].data.max_query_len
-    vocab = cfg["bfloat16"].model.bert.vocab_size
-    rng = np.random.default_rng(0)
-
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    model = ServingModel(cfg["bfloat16"], SERVE_BATCH, device="cuda", seed=0)
-    warm = make_requests(np.random.default_rng(1), img, seq, vocab)[:1]
-    model(pad_batch(warm, SERVE_BATCH))  # first forward: cuDNN, kernel set-up
-    torch.cuda.synchronize()
-    print(f"serve: model built and warmed in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-
-    reqs = make_requests(rng, img, seq, vocab)
     reset_counts(counters)
     batcher = MicroBatcher(model, timeout_ms=5.0)
     t0 = time.perf_counter()
@@ -718,12 +794,51 @@ def serve(report: dict, counters) -> dict:
                 raise AssertionError(f"request {i}: box {res['box_xyxy']} "
                                      f"outside its {w0}x{h0} image")
     n_batches = batcher.stats["batches"]
+    if n_batches < 1:
+        raise AssertionError("no batch was served")
+    return launches, n_batches, served_s
+
+
+def serve_launches(n_batches: int, tc: int) -> dict:
+    """K1's launches for ``n_batches`` forwards, ``tc`` per forward on the
+    tensor cores; the backward kernels none."""
+    return {"flash_attention": ATTN_PER_FORWARD * n_batches,
+            "flash_attention_tc": tc * n_batches,
+            "flash_attention_dec": DEC_PER_FORWARD * n_batches,
+            "flash_attn_bwd_dq": 0, "flash_attn_bwd_dq_tc": 0,
+            "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dkv_tc": 0}
+
+
+def serve(report: dict, counters) -> dict:
+    """Phase 4: refcoco_det at full width behind the MicroBatcher."""
+    import torch
+
+    from reftr_torch.cli.presets import preset_config
+    from reftr_torch.kernels.attention import flash_attention
+    from reftr_torch.nn.attention import set_plain_attention
+    from reftr_torch.serve import ServingModel, pad_batch
+
+    cfg = {name: preset_config("refcoco_det", dtype=name)
+           for name in ("float32", "bfloat16")}
+    img = cfg["bfloat16"].data.img_size
+    seq = cfg["bfloat16"].data.max_query_len
+    vocab = cfg["bfloat16"].model.bert.vocab_size
+    rng = np.random.default_rng(0)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = ServingModel(cfg["bfloat16"], SERVE_BATCH, device="cuda", seed=0)
+    warm = make_requests(np.random.default_rng(1), img, seq, vocab)[:1]
+    model(pad_batch(warm, SERVE_BATCH))  # first forward: cuDNN, kernel set-up
+    torch.cuda.synchronize()
+    print(f"serve: model built and warmed in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    reqs = make_requests(rng, img, seq, vocab)
+    launches, n_batches, served_s = serve_requests(model, reqs, counters)
     rows = sum(r.k for r in reqs)
-    want = {"flash_attention": ATTN_PER_FORWARD * n_batches,
-            "flash_attention_tc": TC_PER_FORWARD * n_batches,
-            "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0,
-            "flash_attn_bwd_dkv_tc": 0}
-    if n_batches < 1 or launches != want:
+    want = serve_launches(n_batches, TC_PER_FORWARD)
+    if launches != want:
         raise AssertionError(
             f"launches {launches} for {n_batches} batch forwards, not "
             f"{want}")
@@ -756,8 +871,22 @@ def serve(report: dict, counters) -> dict:
         step_s * 1e3)
 
     # kernel path against the plain attention path on one batch
-    compare = pad_batch(reqs[:3], SERVE_BATCH)
+    # the same requests served in float32: BERT and the encoder on the
+    # SIMT K1, the decoder on the decode kernel
     f32 = ServingModel(cfg["float32"], SERVE_BATCH, device="cuda", seed=0)
+    f32(pad_batch(warm, SERVE_BATCH))
+    launches32, n_batches32, served32_s = serve_requests(
+        f32, make_requests(np.random.default_rng(0), img, seq, vocab),
+        counters)
+    want = serve_launches(n_batches32, 0)
+    if launches32 != want:
+        raise AssertionError(
+            f"float32: launches {launches32} for {n_batches32} batch "
+            f"forwards, not {want}")
+    print(f"serve: the same requests in float32 in {n_batches32} batches, "
+          f"{served32_s:.3f} s; launches {launches32}", flush=True)
+
+    compare = pad_batch(reqs[:3], SERVE_BATCH)
     outs = {}
     with torch.inference_mode():
         for name, m in (("float32", f32.model), ("bfloat16", model.model)):
@@ -792,6 +921,8 @@ def serve(report: dict, counters) -> dict:
             raise AssertionError(f"{key}: bf16 rel L2 {e16:.3g}, {e16p:.3g}")
     report["serve"] = {"requests": len(reqs), "phrases": rows,
                        "batches": n_batches, "launches": launches,
+                       "f32_batches": n_batches32,
+                       "f32_launches": launches32,
                        "served_s": served_s, "bf16_forward_ms": step_s * 1e3,
                        "bf16_img_per_s": SERVE_BATCH / step_s,
                        "bf16_forward_runs_ms": step_ms,
@@ -947,8 +1078,9 @@ def train(report: dict, counters) -> dict:
     if not last < first:
         raise AssertionError(f"the loss on the memorised batch did not fall:"
                              f" first 3 {first:.5f}, last 3 {last:.5f}")
-    want = {name: (TC_PER_FORWARD if name.endswith("_tc")
-                   else ATTN_PER_FORWARD) * TRAIN_STEPS for name in launches}
+    variant_share = {"_tc": TC_PER_FORWARD, "_dec": DEC_PER_FORWARD}
+    want = {name: variant_share.get(name[name.rfind("_"):], ATTN_PER_FORWARD)
+            * TRAIN_STEPS for name in launches}
     if launches != want:
         raise AssertionError(f"launches {launches} in {TRAIN_STEPS} steps, "
                              f"not {want}")
@@ -979,77 +1111,81 @@ def train(report: dict, counters) -> dict:
 
 
 def kernel_line(report: dict) -> list:
-    """The kernels of the main paths at the VL encoder's bfloat16 shape,
-    the dominant call site: K1 as served (no dropout; its times with the
-    training dropout beside them), K2 and K3 as trained (dropout 0.1). The
-    SIMT rows' times there are the same-run "before" of the tensor-core
-    kernels, which the dispatch rule sends that shape to; on the main path
-    the SIMT kernels serve the decoder's single-query calls. ``ms`` is the
-    host loop's time per call (CUDA events around back-to-back wrapper
-    calls), ``device_ms`` the card's time per call (torch.profiler).
-    Every site's numbers are in the JSON report written before it."""
-    enc = next(r for r in report["call_sites"]
-               if r["site"] == "vl_encoder_self" and r["dtype"] == "bfloat16")
-    tr = next(r for r in report["train_kernels"]
-              if r["site"] == "vl_encoder_self" and r["dtype"] == "bfloat16"
-              and r["dropout"] == DROPOUT)
+    """Every variant of each kernel at the call site where the main path
+    launches it (MAIN_SITE), in bfloat16: K1 as served (no dropout; its
+    times with the training dropout beside them), K2 and K3 as trained
+    (dropout 0.1). ``ms`` is the host loop's time per call (CUDA events
+    around back-to-back wrapper calls), ``device_ms`` the card's time per
+    call (torch.profiler). ``launches`` counts the main path's runs: both
+    serving runs (bf16 and float32) and the bf16 training steps, split in
+    ``launches_serve`` and ``launches_train``. Every site's numbers are in
+    the JSON report written before it."""
     sites = report["call_sites"]
     rows = report["train_kernels"]
     train_n = report["train"]["launches"]
-    serve_n = report["serve"]["launches"]
-    shape = "vl_encoder_self bfloat16 B=8 Sq=Sk=440 H=8 D=32"
-    grads_of = {"flash_attn_bwd_dq": ("dq",),
-                "flash_attn_bwd_dkv": ("dk", "dv")}
+    serve_n = {k: report["serve"]["launches"][k]
+               + report["serve"]["f32_launches"][k]
+               for k in report["serve"]["launches"]}
+    shorts = {"flash_attn_fwd": "fwd", "flash_attn_bwd_dq": "dq",
+              "flash_attn_bwd_dkv": "dkv"}
+    grads_of = {"fwd": ("fwd",), "dq": ("dq",), "dkv": ("dk", "dv")}
     out = []
     for name, (source, replaces, variant) in KERNELS.items():
-        base = name.removesuffix("_tc")
-        simt = "" if variant == "tc" else "simt_"
+        base = name.removesuffix("_tc").removesuffix("_dec")
+        short = shorts[base]
+        wrapper = "flash_attention" if short == "fwd" else base
+        site = MAIN_SITE[variant]
+
+        def count(n):
+            if variant != "simt":
+                return n[f"{wrapper}_{variant}"]
+            return n[wrapper] - sum(n.get(f"{wrapper}_{v}", 0)
+                                    for v in ("tc", "dec"))
+
+        # the errors of every call of this variant: as the rule picked it,
+        # or as the SIMT "before" beside another variant
+        errs = []
+        for r in rows:
+            scale = 1.0 if short == "fwd" else r["grad_scale"]
+            if r[f"{short}_variant"] == variant:
+                errs += [(r[f"{g}_max_abs_err"], scale)
+                         for g in grads_of[short]]
+            elif variant == "simt" and f"simt_{short}_max_abs_err" in r:
+                errs.append((r[f"simt_{short}_max_abs_err"], scale))
+        if short == "fwd":
+            errs += [(r["max_abs_err"], 1.0) for r in sites
+                     if r["variant"] == variant]
+            if variant == "simt":
+                errs += [(r["simt_max_abs_err"], 1.0) for r in sites
+                         if "simt_max_abs_err" in r]
+        tr = next(r for r in rows if r["site"] == site
+                  and r["dtype"] == "bfloat16" and r["dropout"] == DROPOUT)
+        key = short if tr[f"{short}_variant"] == variant else f"simt_{short}"
+        shape = (f"{site} bfloat16 B={tr['B']} Sq={tr['Sq']} Sk={tr['Sk']} "
+                 f"H={tr['H']} D={tr['D']}")
         entry = {"name": name, "route": "cuda", "variant": variant,
                  "source": f"reftr_torch/kernels/csrc/{source}",
-                 "replaces": replaces}
-        if base == "flash_attn_fwd":
-            def count(n):
-                return (n["flash_attention_tc"] if variant == "tc" else
-                        n["flash_attention"] - n["flash_attention_tc"])
-            errs = ([r["max_abs_err"] for r in sites
-                     if r["variant"] == variant]
-                    + [r["fwd_max_abs_err"] for r in rows
-                       if r["fwd_variant"] == variant])
-            if variant == "simt":
-                errs += [r[k] for r in sites + rows
-                         for k in ("simt_max_abs_err", "simt_fwd_max_abs_err")
-                         if k in r]
+                 "replaces": replaces,
+                 "launches": count(train_n) + count(serve_n),
+                 "launches_train": count(train_n),
+                 "launches_serve": count(serve_n),
+                 "max_abs_err": max(e for e, _ in errs), "site": site}
+        if short == "fwd":
+            sv = next(r for r in sites
+                      if r["site"] == site and r["dtype"] == "bfloat16")
+            pre = "" if sv["variant"] == variant else "simt_"
             entry.update({
-                "launches": count(train_n), "launches_serve": count(serve_n),
-                "max_abs_err": max(errs),
                 "shape": f"{shape}, no dropout",
-                "ms": enc[f"{simt}ms"], "device_ms": enc[f"{simt}device_ms"],
-                "ms_dropout": tr[f"{simt}fwd_ms"],
-                "device_ms_dropout": tr[f"{simt}fwd_device_ms"],
-                "plain_ms": enc["plain_ms"], "bound_ms": enc["bound_ms"],
-                "bound_by": enc["bound_by"],
-                "library_ms": enc["library_ms"],
-                "library_device_ms": enc["library_device_ms"],
+                "ms": sv[f"{pre}ms"], "device_ms": sv[f"{pre}device_ms"],
+                "ms_dropout": tr[f"{key}_ms"],
+                "device_ms_dropout": tr[f"{key}_device_ms"],
+                "plain_ms": sv["plain_ms"], "bound_ms": sv["bound_ms"],
+                "bound_by": sv["bound_by"],
+                "library_ms": sv["library_ms"],
+                "library_device_ms": sv["library_device_ms"],
                 "library_device_ms_dropout": tr["sdpa_fwd_device_ms"]})
         else:
-            short = "dq" if base.endswith("dq") else "dkv"
-            grads = grads_of[base]
-            if base == "flash_attn_bwd_dq":
-                launches = train_n[base]
-                picked = rows
-            else:
-                launches = (train_n[name] if variant == "tc" else
-                            train_n[base] - train_n[f"{base}_tc"])
-                picked = [r for r in rows if r["dkv_variant"] == variant]
-            errs = [(r[f"{g}_max_abs_err"], r["grad_scale"]) for r in picked
-                    for g in grads]
-            if base == "flash_attn_bwd_dkv" and variant == "simt":
-                errs += [(r["simt_dkv_max_abs_err"], r["grad_scale"])
-                         for r in rows if "simt_dkv_max_abs_err" in r]
-            key = f"simt_{short}" if simt and short == "dkv" else short
             entry.update({
-                "launches": launches,
-                "max_abs_err": max(e for e, _ in errs),
                 "max_rel_err": max(e / s for e, s in errs),
                 "shape": f"{shape}, dropout {DROPOUT}",
                 "ms": tr[f"{key}_ms"], "device_ms": tr[f"{key}_device_ms"],

@@ -5,20 +5,26 @@ Port of the Pallas kernels of reftr_tpu/kernels/attention.py and of their
 autograd contract:
 
   K1 ``flash_attention``    <- ``_flash_kernel`` / ``_fwd``
-                               (``csrc/flash_attn_fwd_tc.cu`` on tensor
-                               cores, ``csrc/flash_attn_fwd.cu`` on SIMT)
-  K2 ``flash_attn_bwd_dq``  <- ``_bwd_dq_kernel`` (``csrc/flash_attn_bwd.cu``)
+                               (``csrc/flash_attn_fwd_dec.cu`` for short
+                               query sides, ``csrc/flash_attn_fwd_tc.cu``
+                               on tensor cores, ``csrc/flash_attn_fwd.cu``
+                               on SIMT)
+  K2 ``flash_attn_bwd_dq``  <- ``_bwd_dq_kernel``
+                               (``csrc/flash_attn_bwd_dq_tc.cu`` on tensor
+                               cores, ``csrc/flash_attn_bwd.cu`` on SIMT)
   K3 ``flash_attn_bwd_dkv`` <- ``_bwd_dkv_kernel``
                                (``csrc/flash_attn_bwd_dkv_tc.cu`` on tensor
                                cores, ``csrc/flash_attn_bwd.cu`` on SIMT)
   ``FlashAttentionFn``      <- ``_attention``'s ``custom_vjp`` and
                                ``fused_attention``
 
-K1 and K3 have two variants on the card, picked by shape and dtype alone
-(``fwd_variant``, ``dkv_variant``): bf16 with 16 or more query rows (and,
-for K3, 16 or more keys) takes the tensor-core kernel ("tc"); float32 and
-the decoder's single query take the SIMT kernel ("simt"). A kernel that
-fails to build or launch raises; no variant stands in for another.
+Each kernel has variants on the card, picked by shape and dtype alone
+(``fwd_variant``, ``dq_variant``, ``dkv_variant``): bf16 with 16 or more
+query rows (and, for K3, 16 or more keys) takes the tensor-core kernel
+("tc"); K1 with fewer than 16 query rows, the decoder's single query, takes
+the decode kernel ("dec") in either dtype; the rest takes the SIMT kernel
+("simt"). A kernel that fails to build or launch raises; no variant stands
+in for another.
 
 The kernels are built with nvcc on first use and called through ctypes (see
 each source's header for its design and its bound on the card). Layout at
@@ -32,9 +38,9 @@ Every kernel has its plain PyTorch version here (``attention_plain``,
 version for a tensor on the CPU, and for a CUDA tensor launches its kernel
 or raises. Each wrapper counts its kernel's launches in
 ``<wrapper>.launches`` (K1's in ``flash_attention.launches``, also when
-``FlashAttentionFn`` launches it), and those of the tensor-core variant
-among them in ``flash_attention.launches_tc`` and
-``flash_attn_bwd_dkv.launches_tc``.
+``FlashAttentionFn`` launches it), and those of the tensor-core and decode
+variants among them in ``<wrapper>.launches_tc`` (all three) and
+``flash_attention.launches_dec``.
 
 Attention dropout follows the TPU kernel: the softmax denominator sums the
 un-dropped weights and only the weights applied to v are dropped and
@@ -60,10 +66,6 @@ from typing import Optional, Tuple, Union
 import torch
 
 NEG_INF = -1e9
-SOURCE = "flash_attn_fwd.cu"
-BWD_SOURCE = "flash_attn_bwd.cu"
-FWD_TC_SOURCE = "flash_attn_fwd_tc.cu"
-DKV_TC_SOURCE = "flash_attn_bwd_dkv_tc.cu"
 # the tensor-core kernels tile 64 rows as 4 warps of 16: a side shorter
 # than one warp's 16 rows leaves most of each tile empty
 TC_MIN_ROWS = 16
@@ -290,13 +292,24 @@ def _threads_per_row(sq: int) -> int:
 
 
 def fwd_variant(sq: int, dtype: torch.dtype) -> str:
-    """K1's kernel on the card: "tc" (flash_attn_fwd_tc.cu) for bf16 with at
-    least TC_MIN_ROWS queries, the VL encoder's 440 and BERT's 40; else
-    "simt" (flash_attn_fwd.cu). float32 stays on SIMT because tensor cores
-    would take it as TF32 (10-bit mantissa), which breaks its 1e-5
-    tolerance; the decoder's single query stays there because the SIMT
-    kernel spreads one query's keys over a warp, where a 64-row tile would
-    be 63 rows of zeros."""
+    """K1's kernel on the card: "dec" (flash_attn_fwd_dec.cu) for fewer than
+    TC_MIN_ROWS queries in either dtype, the decoder's single query, where
+    a 64-row tile would be 63 rows of zeros and the call is bound by
+    reading K and V once; "tc" (flash_attn_fwd_tc.cu) for bf16 with more,
+    the VL encoder's 440 and BERT's 40; else "simt" (flash_attn_fwd.cu):
+    float32 stays off the tensor cores, which would take it as TF32 (10-bit
+    mantissa) and break its 1e-5 tolerance."""
+    if sq < TC_MIN_ROWS:
+        return "dec"
+    return "tc" if dtype == torch.bfloat16 else "simt"
+
+
+def dq_variant(sq: int, dtype: torch.dtype) -> str:
+    """K2's kernel on the card: "tc" (flash_attn_bwd_dq_tc.cu) for bf16 with
+    at least TC_MIN_ROWS queries (keys are its N side, so any Sk); else
+    "simt" (flash_attn_bwd.cu): float32 for the reason of ``fwd_variant``,
+    and the decoder's single query, where the SIMT kernel spreads the
+    query's keys over a warp."""
     return "tc" if dtype == torch.bfloat16 and sq >= TC_MIN_ROWS else "simt"
 
 
@@ -314,31 +327,42 @@ def dkv_variant(sq: int, sk: int, dtype: torch.dtype) -> str:
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _DROPOUT_ARGS = [ctypes.c_uint64, ctypes.c_uint32, ctypes.c_float]
+# each C entry point: its source under csrc/ and its arguments before the
+# stream, which every entry point takes last
 _ARGTYPES = {
-    "flash_attn_fwd": [_PTR] * 6 + [_INT] * 7 + _DROPOUT_ARGS + [_PTR],
-    "flash_attn_fwd_tc": [_PTR] * 6 + [_INT] * 5 + _DROPOUT_ARGS + [_PTR],
-    "flash_attn_bwd_dq": [_PTR] * 8 + [_INT] * 7 + _DROPOUT_ARGS + [_PTR],
-    "flash_attn_bwd_dkv": [_PTR] * 9 + [_INT] * 6 + _DROPOUT_ARGS + [_PTR],
-    "flash_attn_bwd_dkv_tc": [_PTR] * 9 + [_INT] * 5 + _DROPOUT_ARGS
-                             + [_PTR],
+    "flash_attn_fwd": ("flash_attn_fwd.cu",
+                       [_PTR] * 6 + [_INT] * 7 + _DROPOUT_ARGS),
+    "flash_attn_fwd_tc": ("flash_attn_fwd_tc.cu",
+                          [_PTR] * 6 + [_INT] * 5 + _DROPOUT_ARGS),
+    "flash_attn_fwd_dec": ("flash_attn_fwd_dec.cu",
+                           [_PTR] * 6 + [_INT] * 6 + _DROPOUT_ARGS),
+    "flash_attn_bwd_dq": ("flash_attn_bwd.cu",
+                          [_PTR] * 8 + [_INT] * 7 + _DROPOUT_ARGS),
+    "flash_attn_bwd_dq_tc": ("flash_attn_bwd_dq_tc.cu",
+                             [_PTR] * 8 + [_INT] * 5 + _DROPOUT_ARGS),
+    "flash_attn_bwd_dkv": ("flash_attn_bwd.cu",
+                           [_PTR] * 9 + [_INT] * 6 + _DROPOUT_ARGS),
+    "flash_attn_bwd_dkv_tc": ("flash_attn_bwd_dkv_tc.cu",
+                              [_PTR] * 9 + [_INT] * 5 + _DROPOUT_ARGS),
 }
 
 
-def _entry(source: str, name: str):
-    """The C entry point ``name`` of ``csrc/<source>``, built on first use."""
+def _entry(name: str):
+    """The C entry point ``name``, built from its source on first use."""
     from reftr_torch.kernels import _nvcc
 
+    source, argtypes = _ARGTYPES[name]
     fn = getattr(_nvcc.load(source), name)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name]
+        fn.argtypes = argtypes + [_PTR]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(source: str, name: str, device: torch.device, *args) -> None:
+def _launch(name: str, device: torch.device, *args) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = _entry(source, name)(*args, stream)
+        err = _entry(name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
@@ -368,22 +392,26 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        dropout_rate, seed, return_lse)
 
 
+def _check_aligned(what: str, *tensors: Optional[torch.Tensor]) -> None:
+    """16-byte aligned data, for the kernels' 16-byte vector loads and
+    cp.async tile copies."""
+    if any(t is not None and t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"the {what} kernels need 16-byte aligned inputs")
+
+
 def _check_tc(*tensors: Optional[torch.Tensor]) -> None:
     """What the tensor-core kernels take beyond ``_check_cuda``: bf16, and
     16-byte aligned rows for their cp.async tile copies."""
     if tensors[0].dtype != torch.bfloat16:
         raise TypeError(f"the tensor-core kernels take bfloat16, not "
                         f"{tensors[0].dtype}")
-    for t in tensors:
-        if t is not None and t.dtype == torch.bfloat16 and t.data_ptr() % 16:
-            raise ValueError("the tensor-core kernels need 16-byte aligned "
-                             "inputs")
+    _check_aligned("tensor-core", *tensors)
 
 
 def _launch_fwd(variant: str, q, k, v, valid_mask, dropout_rate: float,
                 seed: Optional[int], return_lse: bool = True):
-    """Launch K1's ``variant`` ("tc" or "simt") on CUDA tensors: (out, lse
-    or None)."""
+    """Launch K1's ``variant`` ("dec", "tc" or "simt") on CUDA tensors:
+    (out, lse or None)."""
     _check_cuda(q, k, v, valid_mask)
     b, sq, h, d = q.shape
     out = torch.empty_like(q)
@@ -391,14 +419,19 @@ def _launch_fwd(variant: str, q, k, v, valid_mask, dropout_rate: float,
            if return_lse else None)
     ptrs = (_ptr(q), _ptr(k), _ptr(v), _ptr(valid_mask), _ptr(out), _ptr(lse))
     drop = _dropout_args(dropout_rate, seed)
-    if variant == "tc":
+    if variant == "dec":
+        _check_aligned("decode", q, k, v)
+        _launch("flash_attn_fwd_dec", q.device, *ptrs, b, h, sq, k.shape[1],
+                d, _DTYPES[q.dtype], *drop)
+        flash_attention.launches_dec += 1
+    elif variant == "tc":
         _check_tc(q, k, v)
-        _launch(FWD_TC_SOURCE, "flash_attn_fwd_tc", q.device, *ptrs, b, h, sq,
-                k.shape[1], d, *drop)
+        _launch("flash_attn_fwd_tc", q.device, *ptrs, b, h, sq, k.shape[1], d,
+                *drop)
         flash_attention.launches_tc += 1
     elif variant == "simt":
-        _launch(SOURCE, "flash_attn_fwd", q.device, *ptrs, b, h, sq,
-                k.shape[1], d, _DTYPES[q.dtype], _threads_per_row(sq), *drop)
+        _launch("flash_attn_fwd", q.device, *ptrs, b, h, sq, k.shape[1], d,
+                _DTYPES[q.dtype], _threads_per_row(sq), *drop)
     else:
         raise ValueError(f"unknown variant {variant!r}")
     flash_attention.launches += 1
@@ -413,14 +446,30 @@ def flash_attn_bwd_dq(q, k, v, valid_mask, o, lse, do,
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, valid_mask, o, lse, do,
                                    dropout_rate, seed)[0]
+    return _launch_dq(dq_variant(q.shape[1], q.dtype), q, k, v, valid_mask,
+                      o, lse, do, dropout_rate, seed)
+
+
+def _launch_dq(variant: str, q, k, v, valid_mask, o, lse, do,
+               dropout_rate: float, seed: Optional[int]) -> torch.Tensor:
+    """Launch K2's ``variant`` ("tc" or "simt") on CUDA tensors: dq."""
     _check_cuda(q, k, v, valid_mask, o, lse, do)
     _check_bwd(q, o, lse, do)
     b, sq, h, d = q.shape
     dq = torch.empty_like(q)
-    _launch(BWD_SOURCE, "flash_attn_bwd_dq", q.device, _ptr(q), _ptr(k),
-            _ptr(v), _ptr(valid_mask), _ptr(o), _ptr(do), _ptr(lse),
-            _ptr(dq), b, h, sq, k.shape[1], d, _DTYPES[q.dtype],
-            _threads_per_row(sq), *_dropout_args(dropout_rate, seed))
+    ptrs = (_ptr(q), _ptr(k), _ptr(v), _ptr(valid_mask), _ptr(o), _ptr(do),
+            _ptr(lse), _ptr(dq))
+    drop = _dropout_args(dropout_rate, seed)
+    if variant == "tc":
+        _check_tc(q, k, v, o, do)
+        _launch("flash_attn_bwd_dq_tc", q.device, *ptrs, b, h, sq, k.shape[1],
+                d, *drop)
+        flash_attn_bwd_dq.launches_tc += 1
+    elif variant == "simt":
+        _launch("flash_attn_bwd_dq", q.device, *ptrs, b, h, sq, k.shape[1], d,
+                _DTYPES[q.dtype], _threads_per_row(sq), *drop)
+    else:
+        raise ValueError(f"unknown variant {variant!r}")
     flash_attn_bwd_dq.launches += 1
     return dq
 
@@ -451,12 +500,12 @@ def _launch_dkv(variant: str, q, k, v, valid_mask, o, lse, do,
     drop = _dropout_args(dropout_rate, seed)
     if variant == "tc":
         _check_tc(q, k, v, o, do)
-        _launch(DKV_TC_SOURCE, "flash_attn_bwd_dkv_tc", q.device, *ptrs, b, h,
-                sq, k.shape[1], d, *drop)
+        _launch("flash_attn_bwd_dkv_tc", q.device, *ptrs, b, h, sq,
+                k.shape[1], d, *drop)
         flash_attn_bwd_dkv.launches_tc += 1
     elif variant == "simt":
-        _launch(BWD_SOURCE, "flash_attn_bwd_dkv", q.device, *ptrs, b, h, sq,
-                k.shape[1], d, _DTYPES[q.dtype], *drop)
+        _launch("flash_attn_bwd_dkv", q.device, *ptrs, b, h, sq, k.shape[1],
+                d, _DTYPES[q.dtype], *drop)
     else:
         raise ValueError(f"unknown variant {variant!r}")
     flash_attn_bwd_dkv.launches += 1
@@ -464,6 +513,7 @@ def _launch_dkv(variant: str, q, k, v, valid_mask, o, lse, do,
 
 
 flash_attn_bwd_dq.launches = 0
+flash_attn_bwd_dq.launches_tc = 0
 flash_attn_bwd_dkv.launches = 0
 flash_attn_bwd_dkv.launches_tc = 0
 
@@ -527,3 +577,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention.launches = 0
 flash_attention.launches_tc = 0
+flash_attention.launches_dec = 0

@@ -2,11 +2,11 @@
 // dq in one kernel, dk and dv in another, p recomputed from the forward's
 // row logsumexp (flash-attention 2).
 //
-// What they serve: the dq kernel (K2) every call; the dk/dv kernel, the SIMT
-// variant of K3, float32 and bf16 calls with fewer than 16 queries or keys
-// (the decoder's single query). bf16 calls with 16 or more of both take the
-// tensor-core kernel, flash_attn_bwd_dkv_tc.cu
-// (kernels/attention.py::dkv_variant).
+// What they serve: float32 calls and bf16 calls with fewer than 16 queries
+// (the decoder's single query), and for dk/dv also bf16 calls with fewer
+// than 16 keys. bf16 calls with 16 or more take the tensor-core kernels,
+// flash_attn_bwd_dq_tc.cu and flash_attn_bwd_dkv_tc.cu
+// (kernels/attention.py::dq_variant, dkv_variant).
 //
 // Replaces the TPU kernels of reftr_tpu/kernels/attention.py driven by
 // `_bwd` (:342-457):
@@ -69,11 +69,7 @@ constexpr int kTileK = 64;     // keys staged per step of the dq kernel
 constexpr int kTileQ = 64;     // queries staged per step of the dk/dv kernel
 constexpr int kSplit = 4;      // threads per key row in the dk/dv kernel
 
-struct Dropout {
-  uint64_t seed;
-  uint32_t threshold;  // 0: no dropout
-  float inv_keep;
-};
+using flash::Dropout;
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)

@@ -68,11 +68,7 @@ constexpr int kThreads = 128;  // one warpgroup
 constexpr int kKeys = 64;      // keys per block, 16 per warp
 constexpr int kTileQ = 64;     // queries per staged tile
 
-struct Dropout {
-  uint64_t seed;
-  uint32_t threshold;  // 0: no dropout
-  float inv_keep;
-};
+using flash::Dropout;
 
 template <int D>
 constexpr int smem_bytes() {
@@ -91,9 +87,7 @@ constexpr int smem_bytes() {
 __device__ __forceinline__ uint32_t chunk_keep(const Dropout& dr,
                                                uint64_t row0, int Sk,
                                                const int (&keys)[2]) {
-  auto kept = [&](uint32_t word) {
-    return (uint32_t)((word >> 8) >= dr.threshold);
-  };
+  auto kept = [&](uint32_t word) { return flash::kept(word, dr); };
   // combo m = r * 4 + n * 2 + s: key row r, query row0 + n * 8 + s, bit
   // n * 4 + r * 2 + s
   auto element = [&](int m, int key) {

@@ -1,10 +1,11 @@
 // Flash-attention forward for Hopper (sm_90a), plain C interface for ctypes:
 // the SIMT variant of K1.
 //
-// What it serves: float32 (on tensor cores that would be TF32, outside the
-// 1e-5 tolerance) and bf16 calls with fewer than 16 queries, the decoder's
-// single query. bf16 calls with 16 or more queries take the tensor-core
-// kernel, flash_attn_fwd_tc.cu (kernels/attention.py::fwd_variant).
+// What it serves: float32 calls with 16 or more queries (on tensor cores
+// float32 would be TF32, outside the 1e-5 tolerance). bf16 calls with 16 or
+// more queries take the tensor-core kernel, flash_attn_fwd_tc.cu, and every
+// call with fewer, the decoder's single query, takes flash_attn_fwd_dec.cu
+// (kernels/attention.py::fwd_variant).
 //
 // Replaces the TPU kernel `_flash_kernel` of reftr_tpu/kernels/attention.py
 // (driven by `_fwd`, pallas_call at :210): out = softmax(q k^T / sqrt(D) +
@@ -60,6 +61,7 @@
 
 namespace {
 
+using flash::Dropout;
 using flash::from_f32;
 using flash::to_f32;
 
@@ -184,12 +186,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (lse != nullptr && live && sub == 0)
     lse[(long)bh * Sq + row] = m_row + logf(l);
 }
-
-struct Dropout {
-  uint64_t seed;
-  uint32_t threshold;  // 0: no dropout
-  float inv_keep;
-};
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,

@@ -67,73 +67,12 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using flash::Dropout;
 using flash_tc::Tile;
 
 constexpr int kThreads = 128;  // one warpgroup
 constexpr int kRows = 64;      // query rows per block, 16 per warp
 constexpr int kTileK = 64;     // keys per staged tile
-
-struct Dropout {
-  uint64_t seed;
-  uint32_t threshold;  // 0: no dropout
-  float inv_keep;
-};
-
-__device__ __forceinline__ uint32_t kept(uint32_t word, const Dropout& dr) {
-  return (word >> 8) >= dr.threshold;
-}
-
-// The keep decisions of this lane's elements of one key tile, bit n * 4 + e
-// for s[n][e]: row n_row[e / 2], key k0 + n * 8 + c + e % 2. They depend on
-// no data, so they are drawn at the top of the tile, where the integer work
-// overlaps the copies and the products. Where Sk % 4 == 0, keys 4a..4a+3
-// of a row share one Philox counter, and lanes l and l ^ 1 of a quad hold
-// them as two pairs: each lane draws the counters of every other n-tile and
-// one shuffle of their decisions hands its partner the partner's pairs, one
-// Philox call per 4 elements. Elsewhere one call per element, with no
-// branch that depends on the lane.
-template <int NT>
-__device__ __forceinline__ uint32_t keep_bits(const uint64_t (&n_row)[2],
-                                              int k0, int c, int Sk,
-                                              const Dropout& dr) {
-  uint32_t bits = 0u;
-  if ((Sk & 3) == 0) {
-    const int odd = threadIdx.x & 1;  // this lane holds words 2 and 3
-    // this lane's counters, of n-tiles 2t + odd: their 4 decisions at bit
-    // (t * 2 + r) * 4 + word of `own`; one shuffle gives the partner's
-    uint32_t own = 0u;
-#pragma unroll
-    for (int t = 0; t < NT / 2; ++t) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const uint64_t n = n_row[r] + k0 + (2 * t + odd) * 8 + (c & ~3);
-        const uint4 w = flash::philox4(dr.seed, n >> 2);
-        own |= (kept(w.x, dr) | kept(w.y, dr) << 1 | kept(w.z, dr) << 2 |
-                kept(w.w, dr) << 3)
-               << ((t * 2 + r) * 4);
-      }
-    }
-    const uint32_t partner = __shfl_xor_sync(0xffffffffu, own, 1);
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const uint32_t from = (n & 1) == odd ? own : partner;
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-        bits |= ((from >> (((n / 2) * 2 + r) * 4 + 2 * odd)) & 3u)
-                << (n * 4 + 2 * r);
-    }
-  } else {
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        bits |= kept(flash::philox_word(
-                         dr.seed, n_row[e >> 1] + k0 + n * 8 + c + (e & 1)),
-                     dr)
-                << (n * 4 + e);
-  }
-  return bits;
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, D <= 32 ? 4 : 2)
@@ -209,7 +148,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     flash_tc::cp_async_commit();  // (possibly empty) group of tile t + 1
     const uint32_t keep =
         dr.threshold != 0u
-            ? keep_bits<kTileK / 8>(n_row, t * kTileK, c, Sk, dr)
+            ? flash_tc::keep_bits<kTileK / 8>(n_row, t * kTileK, c, Sk, dr)
             : 0u;
     flash_tc::cp_async_wait<1>();  // tile t (and Q) arrived
     __syncthreads();
@@ -218,7 +157,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int kk = 0; kk < kK; ++kk)
         flash_tc::load_a<D>(qa[kk], qs, warp * 16, kk * 16);
     }
-    const int buf = t & 1, k0 = t * kTileK;
+    const int buf = t & 1;
 
     float s[kTileK / 8][4];
 #pragma unroll

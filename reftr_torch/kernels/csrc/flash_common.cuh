@@ -1,7 +1,8 @@
 // Pieces shared by the flash-attention kernels (flash_attn_fwd.cu,
-// flash_attn_bwd.cu and the tensor-core flash_attn_fwd_tc.cu and
-// flash_attn_bwd_dkv_tc.cu): dtype conversion, the logit of one (query, key)
-// pair, and the attention-dropout random numbers.
+// flash_attn_fwd_dec.cu, flash_attn_bwd.cu and the tensor-core
+// flash_attn_fwd_tc.cu, flash_attn_bwd_dq_tc.cu and flash_attn_bwd_dkv_tc.cu):
+// dtype conversion, the logit of one (query, key) pair, and the
+// attention-dropout parameters and random numbers.
 //
 // The logit. x = (s * scale) + bias, rounded at each step as the plain
 // PyTorch version rounds it (no contraction into an fma), with bias 0 for a
@@ -31,6 +32,19 @@
 namespace flash {
 
 constexpr float kMaskBias = -1e9f;
+
+// A call's dropout: threshold = ceil(rate * 2^24) (0 = no dropout) and
+// inv_keep = 1 / (1 - rate), from the wrapper.
+struct Dropout {
+  uint64_t seed;
+  uint32_t threshold;
+  float inv_keep;
+};
+
+// 1 if the element whose Philox word is `word` is kept, else 0.
+__device__ __forceinline__ uint32_t kept(uint32_t word, const Dropout& dr) {
+  return (word >> 8) >= dr.threshold;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {

@@ -1,7 +1,9 @@
 // Tensor-core building blocks of the bf16 flash-attention kernels
-// (flash_attn_fwd_tc.cu, flash_attn_bwd_dkv_tc.cu): asynchronous tile
-// copies, ldmatrix, and the warp-level bf16 product mma.sync m16n8k16 with
-// f32 accumulation (sm_80 and later, so sm_90a too).
+// (flash_attn_fwd_tc.cu, flash_attn_bwd_dq_tc.cu, flash_attn_bwd_dkv_tc.cu):
+// asynchronous tile copies, ldmatrix, the warp-level bf16 product mma.sync
+// m16n8k16 with f32 accumulation (sm_80 and later, so sm_90a too), and the
+// dropout decisions of a key tile in the accumulator layout with queries as
+// M (keep_bits).
 //
 // Fragment layouts of mma.m16n8k16 (PTX ISA, "Matrix Fragments for
 // mma.m16n8k16"), for lane l of a warp, g = l / 4 and c = (l % 4) * 2:
@@ -26,6 +28,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace flash_tc {
 
@@ -152,6 +156,61 @@ __device__ __forceinline__ void load_b_cols(uint32_t (&b)[4],
   ldsm_x4_trans(b, tile + (row0 + ((l / 8) % 2) * 8 + l % 8) *
                               Tile<D>::kStride +
                           col0 + (l / 16) * 8);
+}
+
+// The keep decisions of this lane's elements of one tile of NT * 8 keys in
+// the layout of an accumulator with queries as M and keys as N (K1-TC's S,
+// K2-TC's S and dP): bit n * 4 + e for element e of n-tile n, which is row
+// n_row[e / 2] (the dropout offset of (b, h, query, key 0)) and key
+// k0 + n * 8 + c + e % 2, c = (lane % 4) * 2. They depend on no data, so a
+// kernel draws them at the top of the tile, where the integer work overlaps
+// the copies and the products. Where Sk % 4 == 0, keys 4a..4a+3 of a row
+// share one Philox counter, and lanes l and l ^ 1 of a quad hold them as two
+// pairs: each lane draws the counters of every other n-tile and one shuffle
+// of their decisions hands its partner the partner's pairs, one Philox call
+// per 4 elements. Elsewhere one call per element. No branch depends on the
+// lane: mma.sync and ldmatrix are .aligned, and a per-lane branch near them
+// (one Philox call or two, by counter) gave wrong masks on the card.
+template <int NT>
+__device__ __forceinline__ uint32_t keep_bits(const uint64_t (&n_row)[2],
+                                              int k0, int c, int Sk,
+                                              const flash::Dropout& dr) {
+  uint32_t bits = 0u;
+  if ((Sk & 3) == 0) {
+    const int odd = threadIdx.x & 1;  // this lane holds words 2 and 3
+    // this lane's counters, of n-tiles 2t + odd: their 4 decisions at bit
+    // (t * 2 + r) * 4 + word of `own`; one shuffle gives the partner's
+    uint32_t own = 0u;
+#pragma unroll
+    for (int t = 0; t < NT / 2; ++t) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const uint64_t n = n_row[r] + k0 + (2 * t + odd) * 8 + (c & ~3);
+        const uint4 w = flash::philox4(dr.seed, n >> 2);
+        own |= (flash::kept(w.x, dr) | flash::kept(w.y, dr) << 1 |
+                flash::kept(w.z, dr) << 2 | flash::kept(w.w, dr) << 3)
+               << ((t * 2 + r) * 4);
+      }
+    }
+    const uint32_t partner = __shfl_xor_sync(0xffffffffu, own, 1);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const uint32_t from = (n & 1) == odd ? own : partner;
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        bits |= ((from >> (((n / 2) * 2 + r) * 4 + 2 * odd)) & 3u)
+                << (n * 4 + 2 * r);
+    }
+  } else {
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint64_t el = n_row[e >> 1] + k0 + n * 8 + c + (e & 1);
+        bits |= flash::kept(flash::philox_word(dr.seed, el), dr) << (n * 4 + e);
+      }
+  }
+  return bits;
 }
 
 }  // namespace flash_tc

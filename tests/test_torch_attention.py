@@ -4,15 +4,20 @@ MultiHeadAttention against reftr_tpu (float32, CPU).
 Tolerance: atol 1e-5 (f32; the einsum and softmax sum in another order).
 """
 
+import importlib.util
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from reftr_tpu.kernels.attention import _xla_attention, fused_attention
 from reftr_tpu.nn.attention import MultiHeadAttention as JaxMHA
-from reftr_torch.kernels.attention import (TC_MIN_ROWS, attention_bwd_plain,
-                                           attention_plain,
-                                           dkv_variant, flash_attention,
+from reftr_torch.kernels.attention import (_ARGTYPES, TC_MIN_ROWS,
+                                           attention_bwd_plain,
+                                           attention_plain, dkv_variant,
+                                           dq_variant, flash_attention,
                                            flash_attn_bwd_dkv,
                                            flash_attn_bwd_dq, fwd_variant)
 from reftr_torch.nn.attention import MultiHeadAttention, set_plain_attention
@@ -150,17 +155,21 @@ TC_SITES = {"vl_encoder_self", "bert_self"}
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("site", sorted(CALL_SITES))
 def test_variant_rule_at_the_call_sites(site, dtype):
+    """bf16 BERT and encoder calls on the tensor cores; the decoder's single
+    query on K1's decode kernel in either dtype, and on SIMT K2 and K3."""
     sq, sk = CALL_SITES[site]
     want = ("tc" if dtype == torch.bfloat16 and site in TC_SITES
             else "simt")
-    assert fwd_variant(sq, dtype) == want
+    assert fwd_variant(sq, dtype) == ("dec" if site.startswith("decoder")
+                                      else want)
+    assert dq_variant(sq, dtype) == want
     assert dkv_variant(sq, sk, dtype) == want
 
 
 def test_variant_rule_boundary():
     bf16, f32 = torch.bfloat16, torch.float32
     assert TC_MIN_ROWS == 16
-    assert fwd_variant(15, bf16) == "simt"
+    assert fwd_variant(15, bf16) == "dec"
     assert fwd_variant(16, bf16) == "tc"
     assert fwd_variant(16, f32) == "simt"
     assert fwd_variant(8540, f32) == "simt"
@@ -170,15 +179,60 @@ def test_variant_rule_boundary():
     assert dkv_variant(440, 440, f32) == "simt"
 
 
+@pytest.mark.parametrize("sq,dtype,fwd,dq", [
+    (1, torch.float32, "dec", "simt"), (15, torch.float32, "dec", "simt"),
+    (16, torch.float32, "simt", "simt"), (1, torch.bfloat16, "dec", "simt"),
+    (15, torch.bfloat16, "dec", "simt"), (16, torch.bfloat16, "tc", "tc"),
+    (8540, torch.bfloat16, "tc", "tc")])
+def test_dec_and_dq_variant_rules(sq, dtype, fwd, dq):
+    """K1 takes its decode kernel below TC_MIN_ROWS queries in either dtype;
+    K2 takes the tensor cores from TC_MIN_ROWS queries in bf16, whatever
+    Sk."""
+    assert fwd_variant(sq, dtype) == fwd
+    assert dq_variant(sq, dtype) == dq
+
+
+CSRC = Path(__file__).resolve().parents[1] / "reftr_torch/kernels/csrc"
+
+
+def _chip_smoke_kernels() -> dict:
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_kernels", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.KERNELS
+
+
+@pytest.mark.parametrize("name", sorted(_ARGTYPES))
+def test_ctypes_signatures_match_the_sources(name):
+    """Each entry point's ctypes arguments against its extern "C"
+    definition in the named source: one parameter more (the stream, which
+    the wrapper appends), so a signature that drifts fails without a card.
+    chip_smoke.py lists every entry point with the same source."""
+    source, argtypes = _ARGTYPES[name]
+    text = (CSRC / source).read_text()
+    found = re.search(rf'extern "C" int {name}\(([^)]*)\)', text)
+    assert found, f"no extern \"C\" {name} in {source}"
+    params = [p for p in found.group(1).split(",") if p.strip()]
+    assert len(params) == len(argtypes) + 1
+    assert params[-1].split() == ["void*", "stream"]
+    assert _chip_smoke_kernels()[name][0] == source
+
+
 @pytest.mark.parametrize("sq", [1, 16, 64])
 def test_cpu_tensors_take_the_plain_version_whatever_the_variant(sq):
-    """bf16 CPU tensors at shapes the rule sends to the tensor-core
-    kernels: the plain versions run, forward and backward, and no launch
-    counter moves."""
+    """bf16 CPU tensors at shapes the rule sends to the decode kernel (one
+    query) and to the tensor-core kernels: the plain versions run, forward
+    and backward, and no launch counter moves."""
     q, k, v, valid = (t(a) for a in make_qkv(8, 2, sq, 20, 2, 32))
     q, k, v = (x.to(torch.bfloat16).requires_grad_() for x in (q, k, v))
     counters = (flash_attention, flash_attn_bwd_dq, flash_attn_bwd_dkv)
-    before = [(c.launches, getattr(c, "launches_tc", 0)) for c in counters]
+
+    def counts():
+        return [(c.launches, c.launches_tc, getattr(c, "launches_dec", 0))
+                for c in counters]
+
+    before = counts()
     out = flash_attention(q, k, v, valid)
     do = torch.ones_like(out)
     grads = torch.autograd.grad(out, (q, k, v), do)
@@ -188,5 +242,4 @@ def test_cpu_tensors_take_the_plain_version_whatever_the_variant(sq):
     assert torch.equal(out, want)
     for g, w in zip(grads, want_grads):
         assert torch.equal(g, w)
-    assert [(c.launches, getattr(c, "launches_tc", 0))
-            for c in counters] == before
+    assert counts() == before

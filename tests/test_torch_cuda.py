@@ -14,17 +14,19 @@ dq, dk and dv (a gradient can be zero in exact arithmetic, as dq and dk
 are with a single key): 1e-4 in float32 (sums of up to 440 terms in
 another order), 1e-2 in bfloat16 (rounding of the output to bf16, 2^-9).
 
-The wrappers pick K1's and K3's variant by shape and dtype (bf16 with 16
-or more rows: the tensor-core kernels), so the tests through the wrappers
-cover both variants; the tests of the tensor-core kernels alone launch
-them at the edges of their 64-row and 64-key tiles.
+The wrappers pick each kernel's variant by shape and dtype (bf16 with 16
+or more rows: the tensor-core kernels; K1 with fewer than 16 queries: its
+decode kernel), so the tests through the wrappers cover every variant; the
+tests of the tensor-core kernels alone launch them at the edges of their
+64-row and 64-key tiles, those of the decode kernel at the edges of its
+4-key steps and 64-key quarters.
 """
 
 import pytest
 import torch
 
 from reftr_torch.kernels.attention import (FlashAttentionFn, _launch_dkv,
-                                           _launch_fwd,
+                                           _launch_dq, _launch_fwd,
                                            attention_bwd_plain,
                                            attention_plain, flash_attention,
                                            flash_attn_bwd_dkv,
@@ -47,6 +49,8 @@ SHAPES = [(8, 440, 440, 8, 32), (8, 1, 1, 8, 32), (8, 1, 440, 8, 32),
 TC_SQ = (16, 63, 64, 65)
 TC_SK = (1, 15, 17, 63, 65, 440)
 HEAD_DIMS = (16, 32, 64)
+DEC_SQ = (1, 2, 5, 15)
+DEC_SK = (1, 3, 4, 5, 63, 64, 65, 440)
 
 
 @pytest.fixture
@@ -283,8 +287,8 @@ def test_dropout_mask_is_exact_through_the_tensor_core_kernel(gen, shape):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_tensor_core_counters_count_only_bf16_calls(gen, dtype):
-    """An encoder-shaped bf16 call goes through K1-TC and K3-TC, a float32
-    one through the SIMT kernels; the totals count both."""
+    """An encoder-shaped bf16 call goes through K1-TC, K2-TC and K3-TC, a
+    float32 one through the SIMT kernels; the totals count both."""
     q, k, v, valid = inputs(gen, 2, 440, 440, 8, 32, dtype)
     q.requires_grad_()
     counters = (flash_attention, flash_attn_bwd_dq, flash_attn_bwd_dkv)
@@ -294,7 +298,7 @@ def test_tensor_core_counters_count_only_bf16_calls(gen, dtype):
     after = [(c.launches, getattr(c, "launches_tc", 0)) for c in counters]
     tc = 1 if dtype == torch.bfloat16 else 0
     assert [(a[0] - b[0], a[1] - b[1]) for a, b in zip(after, before)] == [
-        (1, tc), (1, 0), (1, tc)]
+        (1, tc), (1, tc), (1, tc)]
 
 
 def test_tensor_core_kernels_refuse_what_they_do_not_take(gen):
@@ -309,3 +313,120 @@ def test_tensor_core_kernels_refuse_what_they_do_not_take(gen):
         _launch_fwd("tc", shifted, kb, vb, valid, 0.0, None)
     with pytest.raises(ValueError, match="variant"):
         _launch_fwd("wgmma", qb, kb, vb, valid, 0.0, None)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("sk", TC_SK)
+@pytest.mark.parametrize("sq", TC_SQ)
+def test_dq_tensor_core_kernel_matches_plain(gen, sq, sk, d, rate):
+    """K2-TC launched directly at every tile edge, batch row 0 with every
+    key masked, against attention_bwd_plain's dq on the same bf16 inputs,
+    O and lse."""
+    q, k, v, valid = inputs(gen, 2, sq, sk, 3, d, torch.bfloat16)
+    seed = 0x1357_9BDF_2468 if rate else None
+    out, lse = (x.contiguous() for x in attention_plain(
+        q, k, v, valid, True, dropout_rate=rate, seed=seed))
+    do = torch.randn(out.shape, device="cuda", generator=gen).to(q.dtype)
+    wants = attention_bwd_plain(q, k, v, valid, out, lse, do, rate, seed)
+    before = flash_attn_bwd_dq.launches_tc
+    dq = _launch_dq("tc", q, k, v, valid, out, lse, do, rate, seed)
+    torch.cuda.synchronize()
+    assert flash_attn_bwd_dq.launches_tc == before + 1
+    assert dq.dtype == torch.bfloat16 and dq.shape == q.shape
+    scale = max(w.float().abs().max().item() for w in wants)
+    rel_close(dq, wants[0], GRAD_TOL[torch.bfloat16], floor=scale)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("sk", DEC_SK)
+@pytest.mark.parametrize("sq", DEC_SQ)
+def test_decode_kernel_matches_plain(gen, sq, sk, d, dtype, rate):
+    """K1-dec launched directly: out and lse against the plain version in
+    float32 on the same inputs, batch row 0 with every key masked."""
+    q, k, v, valid = inputs(gen, 2, sq, sk, 3, d, dtype)
+    seed = 0x2468_ACE0_1357 if rate else None
+    before = flash_attention.launches_dec
+    out, lse = _launch_fwd("dec", q, k, v, valid, rate, seed)
+    want, want_lse = attention_plain(q.float(), k.float(), v.float(), valid,
+                                     True, dropout_rate=rate, seed=seed)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_dec == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), want, atol=TOL[dtype], rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 1, 440, 8, 32), (2, 5, 65, 4, 64)])
+def test_dropout_mask_is_exact_through_the_decode_kernel(gen, shape, dtype):
+    """As test_dropout_mask_is_exact, with fewer than 16 queries, where
+    K1-dec runs; Sk = 65 takes its one-Philox-call-per-element path."""
+    b, sq, sk, h, d = shape
+    q, k, _, valid = inputs(gen, b, sq, sk, h, d, dtype)
+    rate, seed = 0.1, 4242
+    keep = philox_keep_plain(seed, b, h, sq, sk, rate, "cuda")
+    before = flash_attention.launches_dec
+    for k0 in range(0, sk, d):
+        v = torch.zeros(b, sk, h, d, device="cuda", dtype=dtype)
+        n = min(d, sk - k0)
+        v[:, k0:k0 + n, :, :n] = torch.eye(n, device="cuda")[:, None, :]
+        out = flash_attention(q, k, v, valid, dropout_rate=rate, seed=seed)
+        got = out[..., :n].permute(0, 2, 1, 3) != 0  # [B, H, Sq, n]
+        live = torch.where(valid.any(-1, keepdim=True), valid,
+                           True)[:, None, None, k0:k0 + n]
+        want = keep[..., k0:k0 + n]
+        assert torch.equal(got & live, want & live)
+    assert flash_attention.launches_dec - before == -(-sk // d)
+
+
+@pytest.mark.parametrize("shape,dtype,want", [
+    ((2, 1, 440, 8, 32), torch.bfloat16, [(1, 0, 1), (1, 0), (1, 0)]),
+    ((2, 1, 1, 8, 32), torch.float32, [(1, 0, 1), (1, 0), (1, 0)]),
+    ((2, 40, 40, 12, 64), torch.bfloat16, [(1, 1, 0), (1, 1), (1, 1)]),
+    ((2, 40, 40, 12, 64), torch.float32, [(1, 0, 0), (1, 0), (1, 0)])])
+def test_decode_and_dq_counters_count_only_their_own_calls(gen, shape, dtype,
+                                                          want):
+    """One forward and backward per shape: K1's (launches, launches_tc,
+    launches_dec) and K2's and K3's (launches, launches_tc) each move by
+    their own variant's launch only."""
+    q, k, v, valid = inputs(gen, *shape, dtype)
+    q.requires_grad_()
+
+    def counts():
+        return [(flash_attention.launches, flash_attention.launches_tc,
+                 flash_attention.launches_dec)] + [
+            (c.launches, c.launches_tc)
+            for c in (flash_attn_bwd_dq, flash_attn_bwd_dkv)]
+
+    before = counts()
+    flash_attention(q, k, v, valid).float().sum().backward()
+    torch.cuda.synchronize()
+    assert [tuple(a - b for a, b in zip(x, y))
+            for x, y in zip(counts(), before)] == want
+
+
+def test_decode_and_dq_kernels_refuse_what_they_do_not_take(gen):
+    q, k, v, valid = inputs(gen, 2, 64, 64, 2, 32, torch.float32)
+    out, lse = (x.contiguous() for x in attention_plain(q, k, v, valid,
+                                                        True))
+    with pytest.raises(TypeError, match="bfloat16"):
+        _launch_dq("tc", q, k, v, valid, out, lse, out, 0.0, None)
+    qb, kb, vb, ob = (x.to(torch.bfloat16) for x in (q, k, v, out))
+    shifted = torch.empty(qb.numel() + 1, device="cuda",
+                          dtype=torch.bfloat16)[1:].view(qb.shape)
+    shifted.copy_(qb)
+    with pytest.raises(ValueError, match="aligned"):
+        _launch_dq("tc", shifted, kb, vb, valid, ob, lse, ob, 0.0, None)
+    with pytest.raises(ValueError, match="variant"):
+        _launch_dq("dec", qb, kb, vb, valid, ob, lse, ob, 0.0, None)
+    with pytest.raises(TypeError, match="float32"):
+        _launch_dq("tc", qb, kb, vb, valid, ob, lse.double(), ob, 0.0, None)
+    q1 = torch.empty(2 * 2 * 32 + 1, device="cuda")[1:].view(2, 1, 2, 32)
+    with pytest.raises(ValueError, match="aligned"):
+        _launch_fwd("dec", q1, k, v, None, 0.0, None)
+    with pytest.raises(ValueError, match="head_dim"):
+        w = torch.zeros(2, 1, 2, 48, device="cuda")
+        _launch_fwd("dec", w, w, w, None, 0.0, None)
