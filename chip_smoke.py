@@ -7,8 +7,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. Print the card's name and power limit, then build every kernel of the
    serving and training paths from the sources in this checkout
    (reftr_torch/kernels/csrc/flash_attn_fwd.cu, flash_attn_fwd_tc.cu,
-   flash_attn_fwd_dec.cu, flash_attn_bwd.cu, flash_attn_bwd_dq_tc.cu and
-   flash_attn_bwd_dkv_tc.cu, one nvcc each for sm_90a, started together),
+   flash_attn_fwd_dec.cu, flash_attn_bwd.cu, flash_attn_bwd_dq_tc.cu,
+   flash_attn_bwd_dkv_tc.cu and flash_attn_bwd_dec.cu, one nvcc each for
+   sm_90a, started together),
    and count the tensor-core products (HMMA) in the machine code of the
    three tensor-core kernels (cuobjdump -sass): none fails the run.
 2. The forward kernel (K1) against its plain PyTorch version on the card,
@@ -29,24 +30,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    per call.
 3. The training kernels at the same call sites and inputs, in float32 and
    bfloat16, without dropout and with rate 0.1, each through the variant
-   the rule picks (attention.dq_variant for K2, dkv_variant for K3), and
+   the rule picks (attention.dq_variant for K2, dkv_variant for K3: below
+   16 queries one launch of the decode backward gives dq, dk and dv), and
    the SIMT kernels beside the others: K1 with dropout and its lse against
    attention_plain with the same seed (tolerances as in phase 2; lse 1e-5
    abs plus 1e-6 relative), and the backward kernels K2 (dq) and K3 (dk,
-   dv) each against attention_bwd_plain on the same O, lse and dO.
+   dv) each against attention_bwd_plain on the same O, lse and dO. The
+   decode backward is called twice on the same inputs and must give the
+   same bits.
    Gradient tolerance, as a share of the largest magnitude among the plain
    dq, dk and dv: 1e-4 in float32 (sums of up to 440 terms in another
    order, at most 2.6e-5 of the largest term), 1e-2 in bfloat16 (the
    kernels round their output to bf16, 2^-9 = 2e-3). Then exact mask
-   checks in float32 and in bfloat16 (so through every variant of K1 and
-   K2): v one-hot over the head dim makes K1's output p * keep for D keys
-   at a time; q = 0, lse = 0, O = 0 and dO, v one-hot on the first head
-   dim make K2's ds the keep multiplier of each valid key, and k one-hot
-   over the head dim reads it off dq for D keys at a time. The kept set
-   must equal the plain Philox mask on every key with p > 0. Times (host
-   loop and device) of each kernel, its plain version, its bound and the
-   yardsticks: SDPA's forward, and its backward, which covers K2 and K3
-   together.
+   checks in float32 and in bfloat16 at every site (so through every
+   variant of K1, K2 and K3): v one-hot over the head dim makes K1's
+   output p * keep for D keys at a time; q = 0, lse = 0, O = 0 and dO, v
+   one-hot on the first head dim make K2's ds the keep multiplier of each
+   valid key, and k one-hot over the head dim reads it off dq for D keys
+   at a time; q = 0 makes p uniform over the valid keys, and dO one-hot
+   over the head dim for D queries at a time (zero for the others) makes
+   K3's dv_j[d] = p * keep(i0 + d, j). The kept set must equal the plain
+   Philox mask on every key with p > 0. Times (host loop and device) of
+   each kernel, its plain version, its bound and the yardsticks: SDPA's
+   forward, and its backward, which covers K2 and K3 together.
 4. The serving path at full width: refcoco_det (ResNet-50, BERT-base,
    6+6 VL layers, d=256) at 640x640 with seeded random weights, bfloat16,
    behind a MicroBatcher with serve batch 8. Six requests of 1-3 phrases
@@ -75,8 +81,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    Every loss and gradient norm must be finite, the mean loss of the last
    3 steps below that of the first 3 (a memorised batch), and each of K1,
    K2 and K3 launched exactly 30 times per step, 18 of each (BERT and
-   encoder) through the tensor-core kernels and K1's other 12 (the
-   decoder) through its decode kernel. It reports the median
+   encoder) through the tensor-core kernels and the other 12 of each (the
+   decoder) through the decode kernels (K2's and K3's 12 are the decode
+   backward's 12 launches, each counted on both): none through the SIMT
+   kernels. It reports the median
    host-to-host step time after 3 warm-up steps, the peak device memory
    and one step's device time by kernel category. Then one float32 step
    with dropout 0 from one set of weights through the kernels and through
@@ -88,10 +96,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    The last layer of the box head is drawn like the other layers for this
    step: at init it is zero and no gradient would reach the attentions.
 6. Print one JSON line listing each kernel (each variant on a row of its
-   own) with its launches on the main path, its error, and its times and
-   bound at the call site where the main path launches it (the decoder's
-   cross-attention for the decode and SIMT kernels, the VL encoder for the
-   tensor-core kernels) on this card.
+   own; the decode backward on one row for K2 and K3) with its launches
+   on the main path, its error, and its times and bound at the call site
+   where the main path launches it (the decoder's cross-attention for the
+   decode and SIMT kernels, the VL encoder for the tensor-core kernels) on
+   this card.
 7. Print {"ok": true, "device": {...}} as the last line.
 
 It needs a CUDA card and the reftr_torch package beside it; without
@@ -153,15 +162,20 @@ KERNELS = {
                            "reftr_tpu/kernels/attention.py:287", "simt"),
     "flash_attn_bwd_dkv_tc": ("flash_attn_bwd_dkv_tc.cu",
                               "reftr_tpu/kernels/attention.py:287", "tc"),
+    # K2 and K3 in one kernel: replaces :242 and :287 (BWD_DEC_ALSO)
+    "flash_attn_bwd_dec": ("flash_attn_bwd_dec.cu",
+                           "reftr_tpu/kernels/attention.py:242", "dec"),
 }
+BWD_DEC_ALSO = "reftr_tpu/kernels/attention.py:287"
 # products of each kernel over (query, valid key) pairs: K1 q k^T and p v;
-# K2 q k^T, dO v^T and ds k; K3 those of K2 with (p keep)^T dO, ds^T q
+# K2 q k^T, dO v^T and ds k; K3 those of K2 with (p keep)^T dO, ds^T q;
+# the decode backward (flash_attn_bwd) K2's and K3's without repeats
 PRODUCTS = {"flash_attn_fwd": 2, "flash_attn_bwd_dq": 3,
-            "flash_attn_bwd_dkv": 4}
+            "flash_attn_bwd_dkv": 4, "flash_attn_bwd": 5}
 # attention calls per refcoco_det forward (and per step, for each of K1, K2
 # and K3) that the dispatch rule sends to the tensor-core kernels in bf16:
 # 12 BERT + 6 encoder; the decoder's 12 single-query calls take K1's decode
-# kernel and the SIMT K2 and K3
+# kernel and the decode backward
 TC_PER_FORWARD = 18
 DEC_PER_FORWARD = 12
 # the call site where the main path launches each variant, for the kernels
@@ -248,7 +262,8 @@ def attention_bound_ms(b, sq, sk, h, d, valid, dtype_name,
     once and each output written once, against its products over the keys
     this data needs (the valid keys; all sk keys for a row with none
     valid). The forward reads q, k, v and writes out; the backward
-    kernels read q, k, v, O, dO and lse and write dq, or dk and dv."""
+    kernels read q, k, v, O, dO and lse and write dq, or dk and dv, or (the
+    decode backward, flash_attn_bwd) all three."""
     import torch
 
     # every variant of a kernel does the same work
@@ -258,7 +273,8 @@ def attention_bound_ms(b, sq, sk, h, d, valid, dtype_name,
     lse = b * h * sq * 4
     nbytes = {"flash_attn_fwd": 2 * qs + 2 * ks,
               "flash_attn_bwd_dq": 4 * qs + 2 * ks + lse,
-              "flash_attn_bwd_dkv": 3 * qs + 4 * ks + lse}[kernel] + b * sk
+              "flash_attn_bwd_dkv": 3 * qs + 4 * ks + lse,
+              "flash_attn_bwd": 4 * qs + 4 * ks + lse}[kernel] + b * sk
     keys = torch.where(valid.any(-1), valid.sum(-1), sk)
     flops = 2.0 * PRODUCTS[kernel] * h * d * sq * float(keys.sum())
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
@@ -427,8 +443,8 @@ def check_dq_mask_exact(site: str, rate: float, seed: int, dtype) -> int:
     multiplier itself; with k one-hot over the head dim for D keys at a
     time, dq = scale * ds for those keys. The kept set must equal the plain
     Philox mask on every live key. The call goes to the variant the rule
-    picks (K2-TC in bf16 at the encoder and BERT sites). Returns the number
-    of elements compared."""
+    picks (K2-TC in bf16 at the encoder and BERT sites, the decode backward
+    at the decoder's). Returns the number of elements compared."""
     import torch
 
     from reftr_torch.kernels.attention import (flash_attn_bwd_dq,
@@ -463,6 +479,54 @@ def check_dq_mask_exact(site: str, rate: float, seed: int, dtype) -> int:
     return compared
 
 
+def check_dv_mask_exact(site: str, rate: float, seed: int, dtype) -> int:
+    """K3 on inputs whose dv reveals each keep decision: q = 0 makes p
+    uniform over a row's valid keys (all keys of a fully masked row), and
+    dO one-hot over the head dim for D queries at a time, from query i0,
+    and zero for the others, gives dv_j[d] = p * keep(i0 + d, j). The kept
+    set must equal the plain Philox mask on every live key. The call goes
+    to the variant the rule picks (K3-TC in bf16 at the encoder and BERT
+    sites, the decode backward at the decoder's, SIMT in float32). Returns
+    the number of elements compared."""
+    import torch
+
+    from reftr_torch.kernels.attention import (attention_plain,
+                                               flash_attn_bwd_dkv,
+                                               philox_keep_plain)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    _, k, v, valid = site_inputs(gen, site, dtype)
+    sq, sk, h, d = CALL_SITES[site]
+    b = SERVE_BATCH
+    keep = philox_keep_plain(seed, b, h, sq, sk, rate, "cuda")
+    live_keys = torch.where(valid.any(-1, keepdim=True), valid, True)
+    q = torch.zeros(b, sq, h, d, device="cuda", dtype=dtype)
+    o = torch.zeros_like(q)
+    lse = attention_plain(q, k, v, valid, True)[1].contiguous()
+    compared = 0
+    for i0 in range(0, sq, d):
+        n = min(d, sq - i0)
+        do = torch.zeros_like(q)
+        do[:, i0:i0 + n, :, :n] = torch.eye(n, device="cuda")[:, None, :]
+        _, dv = flash_attn_bwd_dkv(q, k, v, valid, o, lse, do, rate, seed)
+        kept = dv[..., :n].permute(0, 2, 3, 1) != 0  # [B, H, n, Sk]
+        live = live_keys[:, None, None, :].expand_as(kept)
+        if not torch.equal(kept[live], keep[:, :, i0:i0 + n][live]):
+            raise AssertionError(f"{site}: K3's dropout mask differs from "
+                                 f"the plain Philox mask at queries {i0}+")
+        compared += int(live.sum())
+    return compared
+
+
+def same_bits(a, b) -> bool:
+    """Bitwise equality of two float32 or bfloat16 tensors."""
+    import torch
+
+    view = torch.int32 if a.dtype == torch.float32 else torch.int16
+    return torch.equal(a.view(view), b.view(view))
+
+
 def max_err(got, want) -> float:
     return (got.float() - want.float()).abs().max().item()
 
@@ -471,8 +535,8 @@ def check_training_kernels(report: dict) -> dict:
     """Phase 3: K1 with dropout, K2 and K3 against their plain versions."""
     import torch
 
-    from reftr_torch.kernels.attention import (_launch_dkv, _launch_dq,
-                                               _launch_fwd,
+    from reftr_torch.kernels.attention import (_launch_bwd_dec, _launch_dkv,
+                                               _launch_dq, _launch_fwd,
                                                attention_bwd_plain,
                                                attention_plain, dkv_variant,
                                                dq_variant, flash_attention,
@@ -498,6 +562,14 @@ def check_training_kernels(report: dict) -> dict:
                 wants = attention_bwd_plain(*bwd)
                 dq = flash_attn_bwd_dq(*bwd)
                 dk, dv = flash_attn_bwd_dkv(*bwd)
+                dec = dq_variant(sq, dt) == "dec"
+                if dec:  # the decode backward gives the same bits again
+                    again = _launch_bwd_dec(*bwd)
+                    if not all(same_bits(x, y) for x, y in
+                               zip((dq, dk, dv), again)):
+                        raise AssertionError(f"phase 3 {site} {name} dropout"
+                                             f" {rate}: two calls of the "
+                                             f"decode backward differ")
                 torch.cuda.synchronize()
                 fwd_err = max_err(out, want)
                 lse_err = max_err(lse, want_lse)
@@ -523,9 +595,13 @@ def check_training_kernels(report: dict) -> dict:
                 if bad:
                     raise AssertionError(f"phase 3 {row}")
                 timed = {
-                    "fwd": lambda: flash_attention(q, k, v, valid, **drop),
-                    "dq": lambda: flash_attn_bwd_dq(*bwd),
-                    "dkv": lambda: flash_attn_bwd_dkv(*bwd)}
+                    "fwd": lambda: flash_attention(q, k, v, valid, **drop)}
+                if dec:  # one launch gives K2's and K3's gradients
+                    row["bitwise_repeatable"] = True
+                    timed["bwd"] = lambda: _launch_bwd_dec(*bwd)
+                else:
+                    timed["dq"] = lambda: flash_attn_bwd_dq(*bwd)
+                    timed["dkv"] = lambda: flash_attn_bwd_dkv(*bwd)
                 # the same-run "before": the SIMT kernel of each kernel that
                 # the rule sends elsewhere at this site
                 simt = {}
@@ -567,24 +643,29 @@ def check_training_kernels(report: dict) -> dict:
                 before = "".join(
                     f"; simt {what} {row[f'simt_{what}_device_ms']:.4f}"
                     for what in simt)
+                bwd_times = (
+                    f"K2+K3 dec {row['bwd_ms']:.4f}, "
+                    f"{row['bwd_device_ms']:.4f} (bitwise repeatable)"
+                    if dec else
+                    f"K2 {row['dq_variant']} {row['dq_ms']:.4f}, "
+                    f"{row['dq_device_ms']:.4f}; K3 {row['dkv_variant']} "
+                    f"{row['dkv_ms']:.4f}, {row['dkv_device_ms']:.4f}")
                 print(f"train kernels {site:16s} {name:8s} dropout {rate}: "
                       f"fwd err {fwd_err:.3g} (tol {KERNEL_TOL[name]}), lse "
                       f"err {lse_err:.3g} (tol {lse_tol:.3g}), dq/dk/dv err "
                       f"{errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g} (tol "
                       f"{GRAD_TOL[name] * scale:.3g}); K1 "
                       f"{row['fwd_variant']} {row['fwd_ms']:.4f} ms host "
-                      f"loop, {row['fwd_device_ms']:.4f} device; K2 "
-                      f"{row['dq_variant']} {row['dq_ms']:.4f}, "
-                      f"{row['dq_device_ms']:.4f}; K3 "
-                      f"{row['dkv_variant']} {row['dkv_ms']:.4f}, "
-                      f"{row['dkv_device_ms']:.4f}; plain fwd "
+                      f"loop, {row['fwd_device_ms']:.4f} device; {bwd_times}"
+                      f"; plain fwd "
                       f"{row['fwd_plain_ms']:.4f}, bwd "
                       f"{row['bwd_plain_ms']:.4f} ms; sdpa fwd "
                       f"{row['sdpa_fwd_device_ms']:.4f}, bwd "
                       f"{row['sdpa_bwd_device_ms']:.4f} ms device; bounds "
                       f"{row['flash_attn_fwd_bound_ms']:.5f}/"
                       f"{row['flash_attn_bwd_dq_bound_ms']:.5f}/"
-                      f"{row['flash_attn_bwd_dkv_bound_ms']:.5f} ms"
+                      f"{row['flash_attn_bwd_dkv_bound_ms']:.5f}/"
+                      f"{row['flash_attn_bwd_bound_ms']:.5f} ms"
                       f"{before} ms device", flush=True)
     dtypes = (("float32", torch.float32), ("bfloat16", torch.bfloat16))
     masks = {f"K1 {site} {name}": check_mask_exact(gen, site, DROPOUT,
@@ -593,9 +674,12 @@ def check_training_kernels(report: dict) -> dict:
     masks.update({f"K2 {site} {name}": check_dq_mask_exact(site, DROPOUT,
                                                            0xD0D0, dt)
                   for site in CALL_SITES for name, dt in dtypes})
-    print(f"train kernels: K1's and K2's dropout masks equal the plain "
-          f"Philox mask exactly on {sum(masks.values())} elements at p > 0 "
-          f"({masks})", flush=True)
+    masks.update({f"K3 {site} {name}": check_dv_mask_exact(site, DROPOUT,
+                                                           0xDEC0, dt)
+                  for site in CALL_SITES for name, dt in dtypes})
+    print(f"train kernels: K1's, K2's and K3's dropout masks equal the "
+          f"plain Philox mask exactly on {sum(masks.values())} elements at "
+          f"p > 0 ({masks})", flush=True)
     report["train_kernels"] = rows
     report["mask_elements_checked"] = masks
     return report
@@ -656,6 +740,8 @@ def kernel_category(name: str) -> str:
         return "flash_attn_bwd_dq_tc"
     if "flash_bwd_dkv_tc_kernel" in name:
         return "flash_attn_bwd_dkv_tc"
+    if "flash_bwd_dec_kernel" in name:
+        return "flash_attn_bwd_dec"
     if "flash_fwd_kernel" in name:
         return "flash_attn_fwd"
     if "flash_bwd_dq_kernel" in name:
@@ -806,7 +892,8 @@ def serve_launches(n_batches: int, tc: int) -> dict:
             "flash_attention_tc": tc * n_batches,
             "flash_attention_dec": DEC_PER_FORWARD * n_batches,
             "flash_attn_bwd_dq": 0, "flash_attn_bwd_dq_tc": 0,
-            "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dkv_tc": 0}
+            "flash_attn_bwd_dq_dec": 0, "flash_attn_bwd_dkv": 0,
+            "flash_attn_bwd_dkv_tc": 0, "flash_attn_bwd_dkv_dec": 0}
 
 
 def serve(report: dict, counters) -> dict:
@@ -1078,6 +1165,7 @@ def train(report: dict, counters) -> dict:
     if not last < first:
         raise AssertionError(f"the loss on the memorised batch did not fall:"
                              f" first 3 {first:.5f}, last 3 {last:.5f}")
+    # 18 + 12 of each wrapper's 30: none left for the SIMT kernels
     variant_share = {"_tc": TC_PER_FORWARD, "_dec": DEC_PER_FORWARD}
     want = {name: variant_share.get(name[name.rfind("_"):], ATTN_PER_FORWARD)
             * TRAIN_STEPS for name in launches}
@@ -1118,8 +1206,9 @@ def kernel_line(report: dict) -> list:
     around back-to-back wrapper calls), ``device_ms`` the card's time per
     call (torch.profiler). ``launches`` counts the main path's runs: both
     serving runs (bf16 and float32) and the bf16 training steps, split in
-    ``launches_serve`` and ``launches_train``. Every site's numbers are in
-    the JSON report written before it."""
+    ``launches_serve`` and ``launches_train``. The decode backward has one
+    row for K2 and K3, whose launches it is counted in. Every site's
+    numbers are in the JSON report written before it."""
     sites = report["call_sites"]
     rows = report["train_kernels"]
     train_n = report["train"]["launches"]
@@ -1131,6 +1220,10 @@ def kernel_line(report: dict) -> list:
     grads_of = {"fwd": ("fwd",), "dq": ("dq",), "dkv": ("dk", "dv")}
     out = []
     for name, (source, replaces, variant) in KERNELS.items():
+        if name == "flash_attn_bwd_dec":
+            out.append(bwd_dec_entry(report, name, source, replaces,
+                                     train_n, serve_n))
+            continue
         base = name.removesuffix("_tc").removesuffix("_dec")
         short = shorts[base]
         wrapper = "flash_attention" if short == "fwd" else base
@@ -1200,6 +1293,53 @@ def kernel_line(report: dict) -> list:
                                   "K2 and K3 together"})
         out.append(entry)
     return out
+
+
+def bwd_dec_entry(report: dict, name: str, source: str, replaces: str,
+                  train_n: dict, serve_n: dict) -> dict:
+    """The kernels line's row of the decode backward, which replaces K2 and
+    K3 below 16 queries: its launches (each counted on K2 and on K3, so
+    K2's count), its errors over every call of phase 3 that the rule sent
+    to it, and its times at the decoder's cross-attention in bf16 with
+    dropout 0.1 (and without), beside the SIMT K2 + K3 pair of the same
+    run and SDPA's whole backward."""
+    rows = report["train_kernels"]
+    errs = [(r[f"{g}_max_abs_err"], r["grad_scale"]) for r in rows
+            if r["dq_variant"] == "dec" for g in ("dq", "dk", "dv")]
+    tr, tr0 = (next(r for r in rows if r["site"] == "decoder_cross"
+                    and r["dtype"] == "bfloat16" and r["dropout"] == rate)
+               for rate in (DROPOUT, 0.0))
+    key = "flash_attn_bwd_dq_dec"
+    return {
+        "name": name, "route": "cuda", "variant": "dec",
+        "source": f"reftr_torch/kernels/csrc/{source}",
+        "replaces": replaces, "also_replaces": BWD_DEC_ALSO,
+        "launches": train_n[key] + serve_n[key],
+        "launches_train": train_n[key], "launches_serve": serve_n[key],
+        "max_abs_err": max(e for e, _ in errs),
+        "max_rel_err": max(e / s for e, s in errs),
+        "site": "decoder_cross",
+        "shape": (f"decoder_cross bfloat16 B={tr['B']} Sq={tr['Sq']} "
+                  f"Sk={tr['Sk']} H={tr['H']} D={tr['D']}, dropout "
+                  f"{DROPOUT}"),
+        "ms": tr["bwd_ms"], "device_ms": tr["bwd_device_ms"],
+        "ms_no_dropout": tr0["bwd_ms"],
+        "device_ms_no_dropout": tr0["bwd_device_ms"],
+        "simt_pair_device_ms": (tr["simt_dq_device_ms"]
+                                + tr["simt_dkv_device_ms"]),
+        "simt_pair_device_ms_no_dropout": (tr0["simt_dq_device_ms"]
+                                           + tr0["simt_dkv_device_ms"]),
+        "plain_ms": tr["bwd_plain_ms"],
+        "plain_covers": "attention_bwd_plain: dq, dk and dv",
+        "bound_ms": tr["flash_attn_bwd_bound_ms"],
+        "bound_by": tr["flash_attn_bwd_bound_by"],
+        "library_ms": tr["sdpa_bwd_ms"],
+        "library_device_ms": tr["sdpa_bwd_device_ms"],
+        "library_device_ms_no_dropout": tr0["sdpa_bwd_device_ms"],
+        "library_covers": "SDPA backward (host loop: fwd+bwd minus fwd; "
+                          "device: the backward's kernels): dq, dk and dv",
+        "bitwise_repeatable": all(r.get("bitwise_repeatable", False)
+                                  for r in rows if r["dq_variant"] == "dec")}
 
 
 def main() -> int:

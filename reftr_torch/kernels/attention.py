@@ -10,21 +10,26 @@ autograd contract:
                                on tensor cores, ``csrc/flash_attn_fwd.cu``
                                on SIMT)
   K2 ``flash_attn_bwd_dq``  <- ``_bwd_dq_kernel``
-                               (``csrc/flash_attn_bwd_dq_tc.cu`` on tensor
-                               cores, ``csrc/flash_attn_bwd.cu`` on SIMT)
+                               (``csrc/flash_attn_bwd_dec.cu`` for short
+                               query sides, ``csrc/flash_attn_bwd_dq_tc.cu``
+                               on tensor cores, ``csrc/flash_attn_bwd.cu``
+                               on SIMT)
   K3 ``flash_attn_bwd_dkv`` <- ``_bwd_dkv_kernel``
-                               (``csrc/flash_attn_bwd_dkv_tc.cu`` on tensor
-                               cores, ``csrc/flash_attn_bwd.cu`` on SIMT)
+                               (``csrc/flash_attn_bwd_dec.cu`` for short
+                               query sides, ``csrc/flash_attn_bwd_dkv_tc.cu``
+                               on tensor cores, ``csrc/flash_attn_bwd.cu``
+                               on SIMT)
   ``FlashAttentionFn``      <- ``_attention``'s ``custom_vjp`` and
                                ``fused_attention``
 
 Each kernel has variants on the card, picked by shape and dtype alone
 (``fwd_variant``, ``dq_variant``, ``dkv_variant``): bf16 with 16 or more
 query rows (and, for K3, 16 or more keys) takes the tensor-core kernel
-("tc"); K1 with fewer than 16 query rows, the decoder's single query, takes
-the decode kernel ("dec") in either dtype; the rest takes the SIMT kernel
-("simt"). A kernel that fails to build or launch raises; no variant stands
-in for another.
+("tc"); fewer than 16 query rows, the decoder's single query, take the
+decode kernels ("dec") in either dtype, where one launch of
+``flash_attn_bwd_dec.cu`` gives K2's and K3's gradients together; the rest
+takes the SIMT kernel ("simt"). A kernel that fails to build or launch
+raises; no variant stands in for another.
 
 The kernels are built with nvcc on first use and called through ctypes (see
 each source's header for its design and its bound on the card). Layout at
@@ -39,8 +44,9 @@ version for a tensor on the CPU, and for a CUDA tensor launches its kernel
 or raises. Each wrapper counts its kernel's launches in
 ``<wrapper>.launches`` (K1's in ``flash_attention.launches``, also when
 ``FlashAttentionFn`` launches it), and those of the tensor-core and decode
-variants among them in ``<wrapper>.launches_tc`` (all three) and
-``flash_attention.launches_dec``.
+variants among them in ``<wrapper>.launches_tc`` and
+``<wrapper>.launches_dec`` (all three). One launch of the decode backward
+counts on K2 and on K3.
 
 Attention dropout follows the TPU kernel: the softmax denominator sums the
 un-dropped weights and only the weights applied to v are dropped and
@@ -305,23 +311,28 @@ def fwd_variant(sq: int, dtype: torch.dtype) -> str:
 
 
 def dq_variant(sq: int, dtype: torch.dtype) -> str:
-    """K2's kernel on the card: "tc" (flash_attn_bwd_dq_tc.cu) for bf16 with
-    at least TC_MIN_ROWS queries (keys are its N side, so any Sk); else
-    "simt" (flash_attn_bwd.cu): float32 for the reason of ``fwd_variant``,
-    and the decoder's single query, where the SIMT kernel spreads the
-    query's keys over a warp."""
-    return "tc" if dtype == torch.bfloat16 and sq >= TC_MIN_ROWS else "simt"
+    """K2's kernel on the card: "dec" (flash_attn_bwd_dec.cu, which gives
+    dk and dv in the same launch) for fewer than TC_MIN_ROWS queries in
+    either dtype, the decoder's single query, bound by reading K and V
+    once; "tc" (flash_attn_bwd_dq_tc.cu) for bf16 with more (keys are its N
+    side, so any Sk); else "simt" (flash_attn_bwd.cu): float32 for the
+    reason of ``fwd_variant``."""
+    if sq < TC_MIN_ROWS:
+        return "dec"
+    return "tc" if dtype == torch.bfloat16 else "simt"
 
 
 def dkv_variant(sq: int, sk: int, dtype: torch.dtype) -> str:
-    """K3's kernel on the card: "tc" (flash_attn_bwd_dkv_tc.cu) for bf16
-    with at least TC_MIN_ROWS queries and keys (the VL encoder and BERT);
-    else "simt" (flash_attn_bwd.cu): float32 for the reason of
-    ``fwd_variant``, and the decoder's single query, where each 64-query
-    tile of the tensor-core kernel would be 63 rows of zeros, while the
-    SIMT kernel spends one thread group per key on it."""
-    return ("tc" if dtype == torch.bfloat16 and min(sq, sk) >= TC_MIN_ROWS
-            else "simt")
+    """K3's kernel on the card: "dec" (flash_attn_bwd_dec.cu) for fewer
+    than TC_MIN_ROWS queries in either dtype, as for ``dq_variant``; "tc"
+    (flash_attn_bwd_dkv_tc.cu) for bf16 with at least TC_MIN_ROWS keys too
+    (the VL encoder and BERT); else "simt" (flash_attn_bwd.cu): float32 for
+    the reason of ``fwd_variant``, and bf16 with fewer than TC_MIN_ROWS
+    keys, where each 64-key tile of the tensor-core kernel would be mostly
+    empty."""
+    if sq < TC_MIN_ROWS:
+        return "dec"
+    return "tc" if dtype == torch.bfloat16 and sk >= TC_MIN_ROWS else "simt"
 
 
 _PTR = ctypes.c_void_p
@@ -344,6 +355,8 @@ _ARGTYPES = {
                            [_PTR] * 9 + [_INT] * 6 + _DROPOUT_ARGS),
     "flash_attn_bwd_dkv_tc": ("flash_attn_bwd_dkv_tc.cu",
                               [_PTR] * 9 + [_INT] * 5 + _DROPOUT_ARGS),
+    "flash_attn_bwd_dec": ("flash_attn_bwd_dec.cu",
+                           [_PTR] * 10 + [_INT] * 6 + _DROPOUT_ARGS),
 }
 
 
@@ -452,7 +465,11 @@ def flash_attn_bwd_dq(q, k, v, valid_mask, o, lse, do,
 
 def _launch_dq(variant: str, q, k, v, valid_mask, o, lse, do,
                dropout_rate: float, seed: Optional[int]) -> torch.Tensor:
-    """Launch K2's ``variant`` ("tc" or "simt") on CUDA tensors: dq."""
+    """Launch K2's ``variant`` ("dec", "tc" or "simt") on CUDA tensors:
+    dq."""
+    if variant == "dec":
+        return _launch_bwd_dec(q, k, v, valid_mask, o, lse, do, dropout_rate,
+                               seed)[0]
     _check_cuda(q, k, v, valid_mask, o, lse, do)
     _check_bwd(q, o, lse, do)
     b, sq, h, d = q.shape
@@ -489,7 +506,11 @@ def flash_attn_bwd_dkv(q, k, v, valid_mask, o, lse, do,
 def _launch_dkv(variant: str, q, k, v, valid_mask, o, lse, do,
                 dropout_rate: float, seed: Optional[int]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K3's ``variant`` ("tc" or "simt") on CUDA tensors: (dk, dv)."""
+    """Launch K3's ``variant`` ("dec", "tc" or "simt") on CUDA tensors:
+    (dk, dv)."""
+    if variant == "dec":
+        return _launch_bwd_dec(q, k, v, valid_mask, o, lse, do, dropout_rate,
+                               seed)[1:]
     _check_cuda(q, k, v, valid_mask, o, lse, do)
     _check_bwd(q, o, lse, do)
     b, sq, h, d = q.shape
@@ -512,16 +533,46 @@ def _launch_dkv(variant: str, q, k, v, valid_mask, o, lse, do,
     return dk, dv
 
 
+def _launch_bwd_dec(q, k, v, valid_mask, o, lse, do, dropout_rate: float,
+                    seed: Optional[int]
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the decode backward (flash_attn_bwd_dec.cu: K2 and K3 in one
+    kernel, fewer than TC_MIN_ROWS queries) on CUDA tensors: (dq, dk, dv).
+    The launch counts once on K2 and once on K3."""
+    _check_cuda(q, k, v, valid_mask, o, lse, do)
+    _check_bwd(q, o, lse, do)
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"the decode kernels take float32 or bfloat16, not "
+                        f"{q.dtype}")
+    _check_aligned("decode", q, k, v, o, do)
+    b, sq, h, d = q.shape
+    if sq >= TC_MIN_ROWS:
+        raise ValueError(f"the decode backward takes fewer than "
+                         f"{TC_MIN_ROWS} queries, got {sq}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _launch("flash_attn_bwd_dec", q.device, _ptr(q), _ptr(k), _ptr(v),
+            _ptr(valid_mask), _ptr(o), _ptr(do), _ptr(lse), _ptr(dq),
+            _ptr(dk), _ptr(dv), b, h, sq, k.shape[1], d, _DTYPES[q.dtype],
+            *_dropout_args(dropout_rate, seed))
+    for wrapper in (flash_attn_bwd_dq, flash_attn_bwd_dkv):
+        wrapper.launches += 1
+        wrapper.launches_dec += 1
+    return dq, dk, dv
+
+
 flash_attn_bwd_dq.launches = 0
 flash_attn_bwd_dq.launches_tc = 0
+flash_attn_bwd_dq.launches_dec = 0
 flash_attn_bwd_dkv.launches = 0
 flash_attn_bwd_dkv.launches_tc = 0
+flash_attn_bwd_dkv.launches_dec = 0
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """Attention with the flash kernels' backward (the ``custom_vjp`` of
     reftr_tpu's ``_attention``): the forward saves q, k, v, the mask, O,
-    lse and the dropout seed; the backward runs K2 and K3 (their plain
+    lse and the dropout seed; the backward runs K2 and K3 (one launch of the
+    decode backward for fewer than TC_MIN_ROWS queries; their plain
     versions on the CPU) and gives no gradient for the mask, the rate or
     the seed."""
 
@@ -539,6 +590,9 @@ class FlashAttentionFn(torch.autograd.Function):
         if q.device.type == "cpu":
             dq, dk, dv = attention_bwd_plain(q, k, v, valid_mask, out, lse,
                                              do, *ctx.dropout)
+        elif dq_variant(q.shape[1], q.dtype) == "dec":
+            dq, dk, dv = _launch_bwd_dec(q, k, v, valid_mask, out, lse, do,
+                                         *ctx.dropout)
         else:
             dq = flash_attn_bwd_dq(q, k, v, valid_mask, out, lse, do,
                                    *ctx.dropout)

@@ -2,11 +2,12 @@
 // dq in one kernel, dk and dv in another, p recomputed from the forward's
 // row logsumexp (flash-attention 2).
 //
-// What they serve: float32 calls and bf16 calls with fewer than 16 queries
-// (the decoder's single query), and for dk/dv also bf16 calls with fewer
-// than 16 keys. bf16 calls with 16 or more take the tensor-core kernels,
-// flash_attn_bwd_dq_tc.cu and flash_attn_bwd_dkv_tc.cu
-// (kernels/attention.py::dq_variant, dkv_variant).
+// What they serve: float32 calls with 16 or more queries, and for dk/dv
+// also bf16 calls with 16 or more queries and fewer than 16 keys. bf16
+// calls with more take the tensor-core kernels, flash_attn_bwd_dq_tc.cu and
+// flash_attn_bwd_dkv_tc.cu, and calls with fewer than 16 queries the
+// decode backward, flash_attn_bwd_dec.cu (kernels/attention.py::dq_variant,
+// dkv_variant).
 //
 // Replaces the TPU kernels of reftr_tpu/kernels/attention.py driven by
 // `_bwd` (:342-457):

@@ -149,19 +149,18 @@ def test_mha_rejects_indivisible_width():
 # (Sq, Sk) of refcoco_det's four attention call sites at 640 px
 CALL_SITES = {"vl_encoder_self": (440, 440), "decoder_self": (1, 1),
               "decoder_cross": (1, 440), "bert_self": (40, 40)}
-TC_SITES = {"vl_encoder_self", "bert_self"}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("site", sorted(CALL_SITES))
 def test_variant_rule_at_the_call_sites(site, dtype):
-    """bf16 BERT and encoder calls on the tensor cores; the decoder's single
-    query on K1's decode kernel in either dtype, and on SIMT K2 and K3."""
+    """bf16 BERT and encoder calls on the tensor cores, float32 ones on
+    SIMT; the decoder's single query on the decode kernels (K1's, and the
+    one backward kernel for K2 and K3) in either dtype."""
     sq, sk = CALL_SITES[site]
-    want = ("tc" if dtype == torch.bfloat16 and site in TC_SITES
-            else "simt")
-    assert fwd_variant(sq, dtype) == ("dec" if site.startswith("decoder")
-                                      else want)
+    want = ("dec" if site.startswith("decoder")
+            else "tc" if dtype == torch.bfloat16 else "simt")
+    assert fwd_variant(sq, dtype) == want
     assert dq_variant(sq, dtype) == want
     assert dkv_variant(sq, sk, dtype) == want
 
@@ -174,22 +173,38 @@ def test_variant_rule_boundary():
     assert fwd_variant(16, f32) == "simt"
     assert fwd_variant(8540, f32) == "simt"
     assert dkv_variant(16, 16, bf16) == "tc"
-    assert dkv_variant(15, 440, bf16) == "simt"
+    assert dkv_variant(15, 440, bf16) == "dec"
+    assert dkv_variant(15, 15, f32) == "dec"
     assert dkv_variant(440, 15, bf16) == "simt"
     assert dkv_variant(440, 440, f32) == "simt"
 
 
 @pytest.mark.parametrize("sq,dtype,fwd,dq", [
-    (1, torch.float32, "dec", "simt"), (15, torch.float32, "dec", "simt"),
-    (16, torch.float32, "simt", "simt"), (1, torch.bfloat16, "dec", "simt"),
-    (15, torch.bfloat16, "dec", "simt"), (16, torch.bfloat16, "tc", "tc"),
+    (1, torch.float32, "dec", "dec"), (15, torch.float32, "dec", "dec"),
+    (16, torch.float32, "simt", "simt"), (1, torch.bfloat16, "dec", "dec"),
+    (15, torch.bfloat16, "dec", "dec"), (16, torch.bfloat16, "tc", "tc"),
     (8540, torch.bfloat16, "tc", "tc")])
 def test_dec_and_dq_variant_rules(sq, dtype, fwd, dq):
-    """K1 takes its decode kernel below TC_MIN_ROWS queries in either dtype;
-    K2 takes the tensor cores from TC_MIN_ROWS queries in bf16, whatever
-    Sk."""
+    """K1 and K2 take their decode kernels below TC_MIN_ROWS queries in
+    either dtype; K2 takes the tensor cores from TC_MIN_ROWS queries in
+    bf16, whatever Sk."""
     assert fwd_variant(sq, dtype) == fwd
     assert dq_variant(sq, dtype) == dq
+
+
+@pytest.mark.parametrize("sq,sk,dtype,want", [
+    (15, 440, torch.bfloat16, "dec"), (16, 440, torch.bfloat16, "tc"),
+    (15, 1, torch.float32, "dec"), (16, 1, torch.float32, "simt"),
+    (15, 15, torch.bfloat16, "dec"), (16, 15, torch.bfloat16, "simt"),
+    (16, 16, torch.bfloat16, "tc")])
+def test_dkv_variant_rule(sq, sk, dtype, want):
+    """K3 takes the decode backward below TC_MIN_ROWS queries whatever Sk
+    and dtype, the tensor cores from TC_MIN_ROWS queries and keys in bf16,
+    and SIMT otherwise; below TC_MIN_ROWS queries K2 and K3 agree, as one
+    kernel computes both."""
+    assert dkv_variant(sq, sk, dtype) == want
+    if sq < TC_MIN_ROWS:
+        assert dq_variant(sq, dtype) == want
 
 
 CSRC = Path(__file__).resolve().parents[1] / "reftr_torch/kernels/csrc"

@@ -31,12 +31,17 @@ torch.set_num_threads(1)
 ATOL = 1e-5
 
 # (batch, Sq, Sk, heads, head_dim): the encoder's square shape, the
-# decoder's single query, its 1x1 self-attention, BERT's head dim
+# decoder's single query, its 1x1 self-attention, BERT's head dim, and more
+# short query sides (the decode backward's, below 16 queries) at key counts
+# that are not a multiple of 4
 CASES = [
     (2, 13, 13, 4, 32),
     (2, 1, 23, 4, 32),
     (3, 1, 1, 2, 16),
     (2, 9, 17, 2, 64),
+    (2, 2, 23, 2, 16),
+    (2, 5, 19, 4, 32),
+    (2, 15, 30, 2, 64),
 ]
 
 

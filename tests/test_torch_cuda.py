@@ -15,17 +15,18 @@ are with a single key): 1e-4 in float32 (sums of up to 440 terms in
 another order), 1e-2 in bfloat16 (rounding of the output to bf16, 2^-9).
 
 The wrappers pick each kernel's variant by shape and dtype (bf16 with 16
-or more rows: the tensor-core kernels; K1 with fewer than 16 queries: its
-decode kernel), so the tests through the wrappers cover every variant; the
-tests of the tensor-core kernels alone launch them at the edges of their
-64-row and 64-key tiles, those of the decode kernel at the edges of its
-4-key steps and 64-key quarters.
+or more rows: the tensor-core kernels; fewer than 16 queries: the decode
+kernels, K1's and the one backward for K2 and K3), so the tests through
+the wrappers cover every variant; the tests of the tensor-core kernels
+alone launch them at the edges of their 64-row and 64-key tiles, those of
+the decode kernels at the edges of their key steps.
 """
 
 import pytest
 import torch
 
-from reftr_torch.kernels.attention import (FlashAttentionFn, _launch_dkv,
+from reftr_torch.kernels.attention import (FlashAttentionFn,
+                                           _launch_bwd_dec, _launch_dkv,
                                            _launch_dq, _launch_fwd,
                                            attention_bwd_plain,
                                            attention_plain, flash_attention,
@@ -50,7 +51,9 @@ TC_SQ = (16, 63, 64, 65)
 TC_SK = (1, 15, 17, 63, 65, 440)
 HEAD_DIMS = (16, 32, 64)
 DEC_SQ = (1, 2, 5, 15)
-DEC_SK = (1, 3, 4, 5, 63, 64, 65, 440)
+# the edges of K1-dec's 4-key steps and of the decode backward's block
+# steps (64, 128 or 256 keys by dtype and head dim)
+DEC_SK = (1, 3, 4, 5, 63, 64, 65, 129, 257, 440)
 
 
 @pytest.fixture
@@ -383,23 +386,22 @@ def test_dropout_mask_is_exact_through_the_decode_kernel(gen, shape, dtype):
 
 
 @pytest.mark.parametrize("shape,dtype,want", [
-    ((2, 1, 440, 8, 32), torch.bfloat16, [(1, 0, 1), (1, 0), (1, 0)]),
-    ((2, 1, 1, 8, 32), torch.float32, [(1, 0, 1), (1, 0), (1, 0)]),
-    ((2, 40, 40, 12, 64), torch.bfloat16, [(1, 1, 0), (1, 1), (1, 1)]),
-    ((2, 40, 40, 12, 64), torch.float32, [(1, 0, 0), (1, 0), (1, 0)])])
+    ((2, 1, 440, 8, 32), torch.bfloat16, [(1, 0, 1)] * 3),
+    ((2, 1, 1, 8, 32), torch.float32, [(1, 0, 1)] * 3),
+    ((2, 40, 40, 12, 64), torch.bfloat16, [(1, 1, 0)] * 3),
+    ((2, 40, 40, 12, 64), torch.float32, [(1, 0, 0)] * 3)])
 def test_decode_and_dq_counters_count_only_their_own_calls(gen, shape, dtype,
                                                           want):
-    """One forward and backward per shape: K1's (launches, launches_tc,
-    launches_dec) and K2's and K3's (launches, launches_tc) each move by
-    their own variant's launch only."""
+    """One forward and backward per shape: K1's, K2's and K3's (launches,
+    launches_tc, launches_dec) each move by their own variant's launch
+    only; the decode backward's one launch counts on K2 and on K3."""
     q, k, v, valid = inputs(gen, *shape, dtype)
     q.requires_grad_()
 
     def counts():
-        return [(flash_attention.launches, flash_attention.launches_tc,
-                 flash_attention.launches_dec)] + [
-            (c.launches, c.launches_tc)
-            for c in (flash_attn_bwd_dq, flash_attn_bwd_dkv)]
+        return [(c.launches, c.launches_tc, c.launches_dec)
+                for c in (flash_attention, flash_attn_bwd_dq,
+                          flash_attn_bwd_dkv)]
 
     before = counts()
     flash_attention(q, k, v, valid).float().sum().backward()
@@ -421,12 +423,124 @@ def test_decode_and_dq_kernels_refuse_what_they_do_not_take(gen):
     with pytest.raises(ValueError, match="aligned"):
         _launch_dq("tc", shifted, kb, vb, valid, ob, lse, ob, 0.0, None)
     with pytest.raises(ValueError, match="variant"):
-        _launch_dq("dec", qb, kb, vb, valid, ob, lse, ob, 0.0, None)
+        _launch_dq("wgmma", qb, kb, vb, valid, ob, lse, ob, 0.0, None)
     with pytest.raises(TypeError, match="float32"):
         _launch_dq("tc", qb, kb, vb, valid, ob, lse.double(), ob, 0.0, None)
+    # the decode backward: fewer than 16 queries, float32 or bf16, aligned
+    with pytest.raises(ValueError, match="fewer than 16"):
+        _launch_dq("dec", qb, kb, vb, valid, ob, lse, ob, 0.0, None)
+    q1, o1 = (x[:, :1].contiguous() for x in (qb, ob))
+    lse1 = lse[..., :1].contiguous()
+    shifted1 = torch.empty(q1.numel() + 1, device="cuda",
+                           dtype=torch.bfloat16)[1:].view(q1.shape)
+    shifted1.copy_(q1)
+    with pytest.raises(ValueError, match="aligned"):
+        _launch_dkv("dec", shifted1, kb, vb, valid, o1, lse1, o1, 0.0, None)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        _launch_bwd_dec(*(x.double() for x in (q1, kb, vb)), valid,
+                        o1.double(), lse1, o1.double(), 0.0, None)
     q1 = torch.empty(2 * 2 * 32 + 1, device="cuda")[1:].view(2, 1, 2, 32)
     with pytest.raises(ValueError, match="aligned"):
         _launch_fwd("dec", q1, k, v, None, 0.0, None)
     with pytest.raises(ValueError, match="head_dim"):
         w = torch.zeros(2, 1, 2, 48, device="cuda")
         _launch_fwd("dec", w, w, w, None, 0.0, None)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("sk", DEC_SK)
+@pytest.mark.parametrize("sq", DEC_SQ)
+def test_decode_backward_matches_plain(gen, sq, sk, d, dtype, rate):
+    """The decode backward launched directly: dq, dk and dv against
+    attention_bwd_plain on the same inputs, O and lse, batch row 0 with
+    every key masked; its one launch counts on K2 and on K3."""
+    q, k, v, valid = inputs(gen, 2, sq, sk, 3, d, dtype)
+    seed = 0x3579_BDF1_2468 if rate else None
+    out, lse = (x.contiguous() for x in attention_plain(
+        q, k, v, valid, True, dropout_rate=rate, seed=seed))
+    do = torch.randn(out.shape, device="cuda", generator=gen).to(dtype)
+    wants = attention_bwd_plain(q, k, v, valid, out, lse, do, rate, seed)
+    counters = (flash_attn_bwd_dq, flash_attn_bwd_dkv)
+    before = [(c.launches, c.launches_dec) for c in counters]
+    grads = _launch_bwd_dec(q, k, v, valid, out, lse, do, rate, seed)
+    torch.cuda.synchronize()
+    assert [(c.launches - a, c.launches_dec - b)
+            for c, (a, b) in zip(counters, before)] == [(1, 1), (1, 1)]
+    scale = max(w.float().abs().max().item() for w in wants)
+    for got, w in zip(grads, wants):
+        assert got.dtype == dtype and got.shape == w.shape
+        rel_close(got, w, GRAD_TOL[dtype], floor=scale)
+
+
+def keep_live(valid):
+    """[B, 1, 1, Sk]: the keys with p > 0 (every key of a row that has no
+    valid key)."""
+    return torch.where(valid.any(-1, keepdim=True), valid,
+                       True)[:, None, None, :]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 1, 440, 8, 32), (2, 5, 65, 4, 64),
+                                   (2, 15, 17, 2, 16)])
+def test_dropout_mask_is_exact_through_the_decode_backward(gen, shape,
+                                                           dtype):
+    """The decode backward's kept set equals the plain Philox mask, read
+    off dv and off dq. dv: q = 0 makes p uniform over a row's live keys and
+    dO one-hot over the head dim for D queries at a time gives dv_j[d] =
+    p * keep(i0 + d, j). dq: q = 0, lse = 0 and O = 0 with dO and v one-hot
+    on head dim 0 make ds the keep multiplier, and k one-hot over the head
+    dim for D keys at a time gives dq_i[d] = scale * ds(i, k0 + d). Sk = 65
+    and 17 take the one-Philox-call-per-element path."""
+    b, sq, sk, h, d = shape
+    _, k, v, valid = inputs(gen, b, sq, sk, h, d, dtype)
+    rate, seed = 0.1, 0xDEC0DE
+    keep = philox_keep_plain(seed, b, h, sq, sk, rate, "cuda")
+    live = keep_live(valid)
+    q = torch.zeros(b, sq, h, d, device="cuda", dtype=dtype)
+    o = torch.zeros_like(q)
+    lse = attention_plain(q, k, v, valid, True)[1].contiguous()
+    for i0 in range(0, sq, d):
+        n = min(d, sq - i0)
+        do = torch.zeros_like(q)
+        do[:, i0:i0 + n, :, :n] = torch.eye(n, device="cuda")[:, None, :]
+        dv = _launch_bwd_dec(q, k, v, valid, o, lse, do, rate, seed)[2]
+        got = dv[..., :n].permute(0, 2, 3, 1) != 0  # [B, H, n, Sk]
+        m = live.expand_as(got)
+        assert torch.equal(got[m], keep[:, :, i0:i0 + n][m])
+    do = torch.zeros_like(q)
+    do[..., 0] = 1
+    v1 = torch.zeros_like(v)
+    v1[..., 0] = 1
+    lse0 = torch.zeros_like(lse)
+    for k0 in range(0, sk, d):
+        n = min(d, sk - k0)
+        k1 = torch.zeros_like(k)
+        k1[:, k0:k0 + n, :, :n] = torch.eye(n, device="cuda")[:, None, :]
+        dq = _launch_bwd_dec(q, k1, v1, valid, o, lse0, do, rate, seed)[0]
+        got = dq[..., :n].permute(0, 2, 1, 3) != 0  # [B, H, Sq, n]
+        m = live[..., k0:k0 + n].expand_as(got)
+        assert torch.equal(got[m], keep[..., k0:k0 + n][m])
+
+
+def same_bits(a, b):
+    view = torch.int32 if a.dtype == torch.float32 else torch.int16
+    return torch.equal(a.view(view), b.view(view))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 1, 440, 8, 32), (2, 15, 300, 4, 64)])
+def test_decode_backward_is_bitwise_repeatable(gen, shape, dtype, rate):
+    """dq is summed inside one block in a fixed order (no atomics): two
+    calls on the same inputs give the same bits in dq, dk and dv."""
+    q, k, v, valid = inputs(gen, *shape, dtype)
+    seed = 0x1111_3333_5555 if rate else None
+    out, lse = (x.contiguous() for x in attention_plain(
+        q, k, v, valid, True, dropout_rate=rate, seed=seed))
+    do = torch.randn(out.shape, device="cuda", generator=gen).to(dtype)
+    first = _launch_bwd_dec(q, k, v, valid, out, lse, do, rate, seed)
+    second = _launch_bwd_dec(q, k, v, valid, out, lse, do, rate, seed)
+    torch.cuda.synchronize()
+    assert all(same_bits(a, b) for a, b in zip(first, second))
