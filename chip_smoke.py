@@ -8,10 +8,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    serving and training paths from the sources in this checkout
    (reftr_torch/kernels/csrc/flash_attn_fwd.cu, flash_attn_fwd_tc.cu,
    flash_attn_fwd_dec.cu, flash_attn_bwd.cu, flash_attn_bwd_dq_tc.cu,
-   flash_attn_bwd_dkv_tc.cu and flash_attn_bwd_dec.cu, one nvcc each for
-   sm_90a, started together),
-   and count the tensor-core products (HMMA) in the machine code of the
-   three tensor-core kernels (cuobjdump -sass): none fails the run.
+   flash_attn_bwd_dkv_tc.cu, flash_attn_bwd_dq_f32tc.cu,
+   flash_attn_bwd_dkv_f32tc.cu and flash_attn_bwd_dec.cu, one nvcc each
+   for sm_90a, started together), and count the tensor-core products
+   (HMMA) in the machine code of the five tensor-core kernels, bf16 and
+   3xTF32 (cuobjdump -sass): none fails the run.
 2. The forward kernel (K1) against its plain PyTorch version on the card,
    at the four call sites of the refcoco_det forward (B=8), with random key
    padding and one row whose keys are all masked, in float32 and bfloat16,
@@ -31,12 +32,13 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. The training kernels at the same call sites and inputs, in float32 and
    bfloat16, without dropout and with rate 0.1, each through the variant
    the rule picks (attention.dq_variant for K2, dkv_variant for K3: below
-   16 queries one launch of the decode backward gives dq, dk and dv), and
-   the SIMT kernels beside the others: K1 with dropout and its lse against
+   16 queries one launch of the decode backward gives dq, dk and dv; with
+   more, the tensor-core kernels, in float32 the 3xTF32 ones), and the
+   SIMT kernels beside the others: K1 with dropout and its lse against
    attention_plain with the same seed (tolerances as in phase 2; lse 1e-5
    abs plus 1e-6 relative), and the backward kernels K2 (dq) and K3 (dk,
-   dv) each against attention_bwd_plain on the same O, lse and dO. The
-   decode backward is called twice on the same inputs and must give the
+   dv) each against attention_bwd_plain on the same O, lse and dO. Every
+   backward variant is called twice on the same inputs and must give the
    same bits.
    Gradient tolerance, as a share of the largest magnitude among the plain
    dq, dk and dv: 1e-4 in float32 (sums of up to 440 terms in another
@@ -52,7 +54,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    K3's dv_j[d] = p * keep(i0 + d, j). The kept set must equal the plain
    Philox mask on every key with p > 0. Times (host loop and device) of
    each kernel, its plain version, its bound and the yardsticks: SDPA's
-   forward, and its backward, which covers K2 and K3 together.
+   forward, and its backward, which covers K2 and K3 together. The bound
+   reckons float32 products at the 165 TFLOP/s of float32-accurate
+   products that 3xTF32 gets from the tensor cores.
+   Then head dims off the kernels' instances (HEAD_DIM_SWEEP: 8, 24, 48
+   and 96 pad to the next of 16, 32, 64, 128; 160 and 256 take the plain
+   versions by the rule), in both dtypes with and without dropout, K1, K2
+   and K3 through the rule against the plain versions at the same
+   tolerances; a plain call must launch nothing and count in
+   launches_plain, which is printed.
 4. The serving path at full width: refcoco_det (ResNet-50, BERT-base,
    6+6 VL layers, d=256) at 640x640 with seeded random weights, bfloat16,
    behind a MicroBatcher with serve batch 8. Six requests of 1-3 phrases
@@ -95,12 +105,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    self-attention's q and k, come out at rounding level on both paths).
    The last layer of the box head is drawn like the other layers for this
    step: at init it is zero and no gradient would reach the attentions.
+   The float32 step's K2 and K3 run on the 3xTF32 kernels (BERT and
+   encoder) and the decode backward. Then a timed float32 training run:
+   the same model with float32 parameters and compute (no autocast),
+   dropout 0.1, 8 steps through train_one_epoch: finite losses, 30
+   launches of each of K1, K2 and K3 per step, K2's and K3's 18 on the
+   3xTF32 kernels and 12 on the decode backward, none on SIMT; the median
+   host step after 3 warm-up steps, one step's device time by category
+   with the attention kernels' share, and the same step profiled with K2
+   and K3 on the SIMT kernels, as the rule sent them before (the same-run
+   "before").
 6. Print one JSON line listing each kernel (each variant on a row of its
    own; the decode backward on one row for K2 and K3) with its launches
    on the main path, its error, and its times and bound at the call site
    where the main path launches it (the decoder's cross-attention for the
-   decode and SIMT kernels, the VL encoder for the tensor-core kernels) on
-   this card.
+   decode and SIMT kernels, the VL encoder for the tensor-core kernels, in
+   float32 with dropout 0.1 for the 3xTF32 ones) on this card.
 7. Print {"ok": true, "device": {...}} as the last line.
 
 It needs a CUDA card and the reftr_torch package beside it; without
@@ -158,10 +178,16 @@ KERNELS = {
                           "reftr_tpu/kernels/attention.py:242", "simt"),
     "flash_attn_bwd_dq_tc": ("flash_attn_bwd_dq_tc.cu",
                              "reftr_tpu/kernels/attention.py:242", "tc"),
+    "flash_attn_bwd_dq_f32tc": ("flash_attn_bwd_dq_f32tc.cu",
+                                "reftr_tpu/kernels/attention.py:242",
+                                "tf32x3"),
     "flash_attn_bwd_dkv": ("flash_attn_bwd.cu",
                            "reftr_tpu/kernels/attention.py:287", "simt"),
     "flash_attn_bwd_dkv_tc": ("flash_attn_bwd_dkv_tc.cu",
                               "reftr_tpu/kernels/attention.py:287", "tc"),
+    "flash_attn_bwd_dkv_f32tc": ("flash_attn_bwd_dkv_f32tc.cu",
+                                 "reftr_tpu/kernels/attention.py:287",
+                                 "tf32x3"),
     # K2 and K3 in one kernel: replaces :242 and :287 (BWD_DEC_ALSO)
     "flash_attn_bwd_dec": ("flash_attn_bwd_dec.cu",
                            "reftr_tpu/kernels/attention.py:242", "dec"),
@@ -173,20 +199,31 @@ BWD_DEC_ALSO = "reftr_tpu/kernels/attention.py:287"
 PRODUCTS = {"flash_attn_fwd": 2, "flash_attn_bwd_dq": 3,
             "flash_attn_bwd_dkv": 4, "flash_attn_bwd": 5}
 # attention calls per refcoco_det forward (and per step, for each of K1, K2
-# and K3) that the dispatch rule sends to the tensor-core kernels in bf16:
-# 12 BERT + 6 encoder; the decoder's 12 single-query calls take K1's decode
-# kernel and the decode backward
+# and K3) that the dispatch rule sends to the tensor-core kernels: 12 BERT
+# + 6 encoder (K2 and K3 in float32 to the 3xTF32 ones); the decoder's 12
+# single-query calls take K1's decode kernel and the decode backward
 TC_PER_FORWARD = 18
 DEC_PER_FORWARD = 12
-# the call site where the main path launches each variant, for the kernels
-# line: the SIMT K1 has no launch on the bf16 main path and stands at the
-# decoder's site, where it ran before the decode kernel
+F32_TRAIN_STEPS = 8  # the timed float32 training run
+# the call site and dtype where the main path launches each variant, for
+# the kernels line: the SIMT K1 has no launch on the bf16 main path and
+# stands at the decoder's site, where it ran before the decode kernel; the
+# 3xTF32 kernels run in the float32 step
 MAIN_SITE = {"tc": "vl_encoder_self", "dec": "decoder_cross",
-             "simt": "decoder_cross"}
-# NVIDIA H100 SXM data sheet: HBM rate, f32 outside the tensor cores, bf16
-# dense tensor-core rate
+             "simt": "decoder_cross", "tf32x3": "vl_encoder_self"}
+MAIN_DTYPE = {"tf32x3": "float32"}
+# head dims off the instances: (B, Sq, Sk, H, D), one that pads, ones
+# that pad in the decode kernels, the largest instance and two above it,
+# which the rule sends to the plain versions
+HEAD_DIM_SWEEP = [(2, 70, 130, 4, 48), (2, 70, 130, 2, 96),
+                  (2, 3, 130, 4, 24), (2, 65, 17, 3, 8),
+                  (2, 70, 130, 2, 128), (2, 70, 130, 1, 160),
+                  (2, 70, 130, 1, 256)]
+# NVIDIA H100 SXM data sheet: HBM rate, bf16 dense tensor-core rate, and
+# float32-accurate products: 3xTF32 gets a third of the 495 TFLOP/s of TF32
+# (the f32 FMA rate outside the tensor cores, 67 TFLOP/s, is lower)
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 
 
 def card_line() -> str:
@@ -267,7 +304,8 @@ def attention_bound_ms(b, sq, sk, h, d, valid, dtype_name,
     import torch
 
     # every variant of a kernel does the same work
-    kernel = kernel.removesuffix("_tc").removesuffix("_dec")
+    for suffix in ("_f32tc", "_tc", "_dec"):
+        kernel = kernel.removesuffix(suffix)
     es = 4 if dtype_name == "float32" else 2
     qs, ks = b * sq * h * d * es, b * sk * h * d * es
     lse = b * h * sq * 4
@@ -328,7 +366,7 @@ def check_kernel(report: dict) -> dict:
                          ("bfloat16", torch.bfloat16)):
             q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
             want = attention_plain(q.float(), k.float(), v.float(), valid)
-            variant = fwd_variant(sq, dt)
+            variant = fwd_variant(sq, dt, d)
             err = check(site, flash_attention(q, k, v, valid), want, name)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             bias_dt = bias.to(dt)
@@ -562,14 +600,16 @@ def check_training_kernels(report: dict) -> dict:
                 wants = attention_bwd_plain(*bwd)
                 dq = flash_attn_bwd_dq(*bwd)
                 dk, dv = flash_attn_bwd_dkv(*bwd)
-                dec = dq_variant(sq, dt) == "dec"
-                if dec:  # the decode backward gives the same bits again
-                    again = _launch_bwd_dec(*bwd)
-                    if not all(same_bits(x, y) for x, y in
-                               zip((dq, dk, dv), again)):
-                        raise AssertionError(f"phase 3 {site} {name} dropout"
-                                             f" {rate}: two calls of the "
-                                             f"decode backward differ")
+                dec = dq_variant(sq, dt, d) == "dec"
+                # no variant sums with atomics: a second call on the same
+                # inputs gives the same bits
+                again = (_launch_bwd_dec(*bwd) if dec else
+                         (flash_attn_bwd_dq(*bwd), *flash_attn_bwd_dkv(*bwd)))
+                if not all(same_bits(x, y) for x, y in
+                           zip((dq, dk, dv), again)):
+                    raise AssertionError(f"phase 3 {site} {name} dropout "
+                                         f"{rate}: two calls of the backward "
+                                         f"kernels differ")
                 torch.cuda.synchronize()
                 fwd_err = max_err(out, want)
                 lse_err = max_err(lse, want_lse)
@@ -589,15 +629,15 @@ def check_training_kernels(report: dict) -> dict:
                        "dq_max_abs_err": errs[0], "dk_max_abs_err": errs[1],
                        "dv_max_abs_err": errs[2], "grad_scale": scale,
                        "grad_tol": GRAD_TOL[name] * scale,
-                       "fwd_variant": fwd_variant(sq, dt),
-                       "dq_variant": dq_variant(sq, dt),
-                       "dkv_variant": dkv_variant(sq, sk, dt)}
+                       "fwd_variant": fwd_variant(sq, dt, d),
+                       "dq_variant": dq_variant(sq, dt, d),
+                       "dkv_variant": dkv_variant(sq, sk, dt, d),
+                       "bitwise_repeatable": True}
                 if bad:
                     raise AssertionError(f"phase 3 {row}")
                 timed = {
                     "fwd": lambda: flash_attention(q, k, v, valid, **drop)}
                 if dec:  # one launch gives K2's and K3's gradients
-                    row["bitwise_repeatable"] = True
                     timed["bwd"] = lambda: _launch_bwd_dec(*bwd)
                 else:
                     timed["dq"] = lambda: flash_attn_bwd_dq(*bwd)
@@ -645,7 +685,7 @@ def check_training_kernels(report: dict) -> dict:
                     for what in simt)
                 bwd_times = (
                     f"K2+K3 dec {row['bwd_ms']:.4f}, "
-                    f"{row['bwd_device_ms']:.4f} (bitwise repeatable)"
+                    f"{row['bwd_device_ms']:.4f}"
                     if dec else
                     f"K2 {row['dq_variant']} {row['dq_ms']:.4f}, "
                     f"{row['dq_device_ms']:.4f}; K3 {row['dkv_variant']} "
@@ -666,7 +706,7 @@ def check_training_kernels(report: dict) -> dict:
                       f"{row['flash_attn_bwd_dq_bound_ms']:.5f}/"
                       f"{row['flash_attn_bwd_dkv_bound_ms']:.5f}/"
                       f"{row['flash_attn_bwd_bound_ms']:.5f} ms"
-                      f"{before} ms device", flush=True)
+                      f"{before} ms device; bitwise repeatable", flush=True)
     dtypes = (("float32", torch.float32), ("bfloat16", torch.bfloat16))
     masks = {f"K1 {site} {name}": check_mask_exact(gen, site, DROPOUT,
                                                    0xC0FFEE, dt)
@@ -682,6 +722,95 @@ def check_training_kernels(report: dict) -> dict:
           f"p > 0 ({masks})", flush=True)
     report["train_kernels"] = rows
     report["mask_elements_checked"] = masks
+    return report
+
+
+def check_head_dims(report: dict) -> dict:
+    """Phase 3b: head dims off the kernels' instances (HEAD_DIM_SWEEP), in
+    float32 and bfloat16, without dropout and with rate 0.1: K1 (out and
+    lse), K2 and K3 through the rule against the plain versions on the
+    same inputs, at phase 3's tolerances. A head dim up to 128 is
+    zero-padded to the next instance and launches kernels; one above takes
+    the plain versions by the rule, launches nothing and counts in each
+    wrapper's launches_plain."""
+    import torch
+
+    from reftr_torch.kernels.attention import (MAX_HEAD_DIM,
+                                               attention_bwd_plain,
+                                               attention_plain, dkv_variant,
+                                               dq_variant, flash_attention,
+                                               flash_attn_bwd_dkv,
+                                               flash_attn_bwd_dq, fwd_variant,
+                                               padded_head_dim)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    counters = (flash_attention, flash_attn_bwd_dq, flash_attn_bwd_dkv)
+    rows = []
+    for b, sq, sk, h, d in HEAD_DIM_SWEEP:
+        q32, k32, v32 = (torch.randn(b, s, h, d, device="cuda", generator=gen)
+                         for s in (sq, sk, sk))
+        do32 = torch.randn(b, sq, h, d, device="cuda", generator=gen)
+        lens = torch.randint(1, sk + 1, (b,), device="cuda", generator=gen)
+        valid = torch.arange(sk, device="cuda")[None] < lens[:, None]
+        valid[0] = False  # a row whose keys are all masked
+        plain = d > MAX_HEAD_DIM
+        for name, dt in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+            q, k, v, do = (x.to(dt) for x in (q32, k32, v32, do32))
+            for rate in (0.0, DROPOUT):
+                seed = 0xD1A0_0000 + len(rows) if rate else None
+                drop = dict(dropout_rate=rate, seed=seed)
+                before = [(c.launches, c.launches_plain) for c in counters]
+                out, lse = flash_attention(q, k, v, valid, True, **drop)
+                bwd = (q, k, v, valid, out, lse, do, rate, seed)
+                grads = (flash_attn_bwd_dq(*bwd), *flash_attn_bwd_dkv(*bwd))
+                torch.cuda.synchronize()
+                moved = [(c.launches - n, c.launches_plain - m)
+                         for c, (n, m) in zip(counters, before)]
+                want, want_lse = attention_plain(q, k, v, valid, True, **drop)
+                wants = attention_bwd_plain(*bwd)
+                fwd_err = max_err(out, want)
+                lse_err = max_err(lse, want_lse)
+                lse_tol = LSE_TOL[0] + LSE_TOL[1] * want_lse.abs().max().item()
+                scale = max(w.float().abs().max().item() for w in wants)
+                errs = [max_err(g, w) for g, w in zip(grads, wants)]
+                row = {"B": b, "Sq": sq, "Sk": sk, "H": h, "D": d,
+                       "padded_to": None if plain else padded_head_dim(d),
+                       "dtype": name, "dropout": rate,
+                       "fwd_variant": fwd_variant(sq, dt, d),
+                       "dq_variant": dq_variant(sq, dt, d),
+                       "dkv_variant": dkv_variant(sq, sk, dt, d),
+                       "fwd_max_abs_err": fwd_err, "lse_max_abs_err": lse_err,
+                       "dq_max_abs_err": errs[0], "dk_max_abs_err": errs[1],
+                       "dv_max_abs_err": errs[2], "grad_scale": scale,
+                       "launches_moved": [m[0] for m in moved],
+                       "launches_plain_moved": [m[1] for m in moved]}
+                # a plain call launches nothing and counts as plain; a
+                # kernel call the reverse
+                routed = all((n == 0) == plain and (m > 0) == plain
+                             for n, m in moved)
+                if (not routed or not fwd_err <= KERNEL_TOL[name]
+                        or not lse_err <= lse_tol
+                        or not all(e <= GRAD_TOL[name] * scale
+                                   for e in errs)):
+                    raise AssertionError(f"phase 3b {row}")
+                rows.append(row)
+                print(f"head dims B={b} Sq={sq} Sk={sk} H={h} D={d} -> "
+                      f"{row['padded_to'] or 'plain'} {name} dropout {rate}: "
+                      f"K1 {row['fwd_variant']} err {fwd_err:.3g}, lse "
+                      f"{lse_err:.3g}; K2 {row['dq_variant']} / K3 "
+                      f"{row['dkv_variant']} dq/dk/dv err "
+                      f"{errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g} (tol "
+                      f"{GRAD_TOL[name] * scale:.3g}); launches moved "
+                      f"{row['launches_moved']}, plain "
+                      f"{row['launches_plain_moved']}", flush=True)
+    plain_counts = {c.__name__ + "_plain": c.launches_plain
+                    for c in counters}
+    print(f"head dims: {len(rows)} calls within tolerance; launches_plain "
+          f"{plain_counts}", flush=True)
+    report["head_dims"] = rows
+    report["launches_plain_after_sweep"] = plain_counts
     return report
 
 
@@ -740,6 +869,10 @@ def kernel_category(name: str) -> str:
         return "flash_attn_bwd_dq_tc"
     if "flash_bwd_dkv_tc_kernel" in name:
         return "flash_attn_bwd_dkv_tc"
+    if "flash_bwd_dq_f32tc_kernel" in name:
+        return "flash_attn_bwd_dq_f32tc"
+    if "flash_bwd_dkv_f32tc_kernel" in name:
+        return "flash_attn_bwd_dkv_f32tc"
     if "flash_bwd_dec_kernel" in name:
         return "flash_attn_bwd_dec"
     if "flash_fwd_kernel" in name:
@@ -821,7 +954,8 @@ def profile_device(run, what: str, step_ms: float, iters: int = 5) -> dict:
             "top_host_ops_ms": {name: ms for name, ms, _ in host}}
 
 
-VARIANT_COUNTS = ("launches_tc", "launches_dec")
+VARIANT_COUNTS = ("launches_tc", "launches_tf32x3", "launches_dec",
+                  "launches_plain")
 
 
 def reset_counts(counters) -> None:
@@ -833,8 +967,10 @@ def reset_counts(counters) -> None:
 
 
 def read_counts(counters) -> dict:
-    """Launches per wrapper, and those of its tensor-core and decode
-    variants under ``<wrapper>_tc`` and ``<wrapper>_dec``."""
+    """Launches per wrapper, and those of its tensor-core, 3xTF32 and
+    decode variants under ``<wrapper>_tc``, ``<wrapper>_tf32x3`` and
+    ``<wrapper>_dec``; its calls sent to the plain version under
+    ``<wrapper>_plain``."""
     out = {}
     for c in counters:
         out[c.__name__] = c.launches
@@ -885,15 +1021,24 @@ def serve_requests(model, reqs, counters) -> tuple:
     return launches, n_batches, served_s
 
 
-def serve_launches(n_batches: int, tc: int) -> dict:
-    """K1's launches for ``n_batches`` forwards, ``tc`` per forward on the
-    tensor cores; the backward kernels none."""
-    return {"flash_attention": ATTN_PER_FORWARD * n_batches,
-            "flash_attention_tc": tc * n_batches,
-            "flash_attention_dec": DEC_PER_FORWARD * n_batches,
-            "flash_attn_bwd_dq": 0, "flash_attn_bwd_dq_tc": 0,
-            "flash_attn_bwd_dq_dec": 0, "flash_attn_bwd_dkv": 0,
-            "flash_attn_bwd_dkv_tc": 0, "flash_attn_bwd_dkv_dec": 0}
+def expected_launches(n: int, k1_tc: int, k23) -> dict:
+    """The counters (read_counts) after ``n`` forwards, or ``n`` train
+    steps: ATTN_PER_FORWARD launches of K1 per forward, DEC_PER_FORWARD of
+    them (the decoder's) on its decode kernel and ``k1_tc`` on K1-TC (18
+    in bf16; in float32 the SIMT K1 takes them); per step as many of K2
+    and K3, the decoder's on the decode backward and BERT's and the
+    encoder's TC_PER_FORWARD on ``k23``, "tc" (bf16) or "tf32x3" (float32),
+    or none for a forward alone (k23 None). Nothing goes to the plain
+    versions."""
+    per = {"flash_attention": {"": ATTN_PER_FORWARD, "_tc": k1_tc,
+                               "_dec": DEC_PER_FORWARD, "_plain": 0}}
+    for name in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+        per[name] = {"": ATTN_PER_FORWARD if k23 else 0,
+                     "_tc": TC_PER_FORWARD if k23 == "tc" else 0,
+                     "_tf32x3": TC_PER_FORWARD if k23 == "tf32x3" else 0,
+                     "_dec": DEC_PER_FORWARD if k23 else 0, "_plain": 0}
+    return {name + suffix: count * n for name, counts in per.items()
+            for suffix, count in counts.items()}
 
 
 def serve(report: dict, counters) -> dict:
@@ -924,7 +1069,7 @@ def serve(report: dict, counters) -> dict:
     reqs = make_requests(rng, img, seq, vocab)
     launches, n_batches, served_s = serve_requests(model, reqs, counters)
     rows = sum(r.k for r in reqs)
-    want = serve_launches(n_batches, TC_PER_FORWARD)
+    want = expected_launches(n_batches, TC_PER_FORWARD, None)
     if launches != want:
         raise AssertionError(
             f"launches {launches} for {n_batches} batch forwards, not "
@@ -965,7 +1110,7 @@ def serve(report: dict, counters) -> dict:
     launches32, n_batches32, served32_s = serve_requests(
         f32, make_requests(np.random.default_rng(0), img, seq, vocab),
         counters)
-    want = serve_launches(n_batches32, 0)
+    want = expected_launches(n_batches32, 0, None)
     if launches32 != want:
         raise AssertionError(
             f"float32: launches {launches32} for {n_batches32} batch "
@@ -1166,9 +1311,7 @@ def train(report: dict, counters) -> dict:
         raise AssertionError(f"the loss on the memorised batch did not fall:"
                              f" first 3 {first:.5f}, last 3 {last:.5f}")
     # 18 + 12 of each wrapper's 30: none left for the SIMT kernels
-    variant_share = {"_tc": TC_PER_FORWARD, "_dec": DEC_PER_FORWARD}
-    want = {name: variant_share.get(name[name.rfind("_"):], ATTN_PER_FORWARD)
-            * TRAIN_STEPS for name in launches}
+    want = expected_launches(TRAIN_STEPS, TC_PER_FORWARD, "tc")
     if launches != want:
         raise AssertionError(f"launches {launches} in {TRAIN_STEPS} steps, "
                              f"not {want}")
@@ -1198,20 +1341,143 @@ def train(report: dict, counters) -> dict:
     return report
 
 
+def attention_ms(profile: dict):
+    """The attention kernels' share of a profiled step (device ms): the
+    categories of this module's kernels."""
+    if profile.get("device_ms") is None:
+        return None
+    return sum(ms for cat, ms in profile["by_category_ms"].items()
+               if cat.startswith("flash_attn"))
+
+
+def train_f32(report: dict, counters) -> dict:
+    """Phase 5b: refcoco_det training in float32 at full width: float32
+    parameters and compute (no autocast), dropout 0.1, AdamW as in phase 5,
+    F32_TRAIN_STEPS steps of phase 5's batch through train_one_epoch. Every
+    loss and gradient norm finite; K1, K2 and K3 launched 30 times per
+    step each, K2's and K3's 18 (BERT and encoder) on the 3xTF32 kernels
+    and 12 on the decode backward, none on SIMT. Reports the median host
+    step after WARM_STEPS, one step's device time by category with the
+    attention kernels' share, and the same step profiled with K2 and K3
+    sent to the SIMT kernels as before this rule (the same-run
+    "before")."""
+    import torch
+
+    import reftr_torch.kernels.attention as attn
+    from reftr_torch.cli.presets import preset_config
+    from reftr_torch.core.config import LossConfig, TrainConfig
+    from reftr_torch.models.criterion import weight_dict
+    from reftr_torch.train.engine import train_one_epoch
+    from reftr_torch.train.state import TrainState
+    from reftr_torch.train.steps import make_train_step
+
+    cfg = preset_config("refcoco_det", dtype="float32")
+    mc = cfg.model
+    batch, targets = train_batch(np.random.default_rng(2), cfg.data.img_size,
+                                 cfg.data.max_query_len, mc.bert.vocab_size,
+                                 SERVE_BATCH)
+    state = TrainState.create(mc, TrainConfig(epochs=1), F32_TRAIN_STEPS,
+                              seed=0)
+    wd = weight_dict(LossConfig(), mc.dec_layers, mc.aux_loss)
+    step = make_train_step(state.model, wd, LossConfig())
+    seen, stamps = [], []
+
+    def traced(state, batch, targets):
+        state, metrics = step(state, batch, targets)
+        seen.append(metrics)
+        stamps.append(time.perf_counter())
+        return state, metrics
+
+    reset_counts(counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stamps.append(time.perf_counter())
+    state, _ = train_one_epoch(traced, state, [(batch, targets)] *
+                               F32_TRAIN_STEPS, 0, print_freq=4,
+                               weight_dict=wd)
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_step = [m.get() for m in seen]
+    if not all(math.isfinite(v) for m in per_step for v in m.values()):
+        raise AssertionError(f"float32: a loss or gradient norm is not "
+                             f"finite: {per_step}")
+    want = expected_launches(F32_TRAIN_STEPS, 0, "tf32x3")
+    if launches != want:
+        raise AssertionError(f"float32: launches {launches} in "
+                             f"{F32_TRAIN_STEPS} steps, not {want}")
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps[WARM_STEPS:-1],
+                                              stamps[WARM_STEPS + 1:])]
+    med = statistics.median(step_ms)
+    losses = [m["loss"] for m in per_step]
+    print(f"train f32: {F32_TRAIN_STEPS} steps; loss {ms_list(losses)}; "
+          f"launches {launches}", flush=True)
+    print(f"train f32: batch {SERVE_BATCH} step median {med:.2f} ms = "
+          f"{SERVE_BATCH / med * 1e3:.1f} img/s (steps {WARM_STEPS + 1}-"
+          f"{F32_TRAIN_STEPS}: {ms_list(step_ms)} ms); peak device memory "
+          f"{peak_gb:.2f} GB", flush=True)
+    profile = profile_device(lambda: step(state, batch, targets),
+                             f"f32 batch {SERVE_BATCH} train step", med,
+                             iters=3)
+    # the same step with K2 and K3 on the SIMT kernels, as the rule sent
+    # float32 before the 3xTF32 kernels
+    rule = (attn.dq_variant, attn.dkv_variant)
+
+    def simt(variant: str) -> str:
+        return "simt" if variant == "tf32x3" else variant
+
+    attn.dq_variant = lambda sq, dt, d: simt(rule[0](sq, dt, d))
+    attn.dkv_variant = lambda sq, sk, dt, d: simt(rule[1](sq, sk, dt, d))
+    reset_counts(counters)
+    try:
+        before = profile_device(
+            lambda: step(state, batch, targets),
+            f"f32 batch {SERVE_BATCH} train step, K2 and K3 on SIMT", med,
+            iters=3)
+    finally:
+        attn.dq_variant, attn.dkv_variant = rule
+    simt_n = read_counts(counters)
+    if (simt_n["flash_attn_bwd_dq_tf32x3"]
+            or simt_n["flash_attn_bwd_dkv_tf32x3"]
+            or simt_n["flash_attn_bwd_dq"] == simt_n["flash_attn_bwd_dq_dec"]):
+        raise AssertionError(f"the SIMT-rule step did not run K2 and K3 on "
+                             f"SIMT: launches {simt_n}")
+    att, att_before = attention_ms(profile), attention_ms(before)
+    print(f"train f32: attention kernels {att} ms of the step's device time"
+          f" {profile.get('device_ms')} ms; with K2 and K3 on SIMT "
+          f"{att_before} of {before.get('device_ms')} ms", flush=True)
+    del state, step
+    torch.cuda.empty_cache()
+    report["train_f32"] = {
+        "steps": F32_TRAIN_STEPS, "launches": launches, "losses": losses,
+        "step_ms": step_ms, "median_step_ms": med,
+        "img_per_s": SERVE_BATCH / med * 1e3, "peak_memory_gb": peak_gb,
+        "profile": profile, "attention_device_ms": att,
+        "profile_k2_k3_simt": before,
+        "attention_device_ms_k2_k3_simt": att_before}
+    return report
+
+
 def kernel_line(report: dict) -> list:
-    """Every variant of each kernel at the call site where the main path
-    launches it (MAIN_SITE), in bfloat16: K1 as served (no dropout; its
-    times with the training dropout beside them), K2 and K3 as trained
-    (dropout 0.1). ``ms`` is the host loop's time per call (CUDA events
-    around back-to-back wrapper calls), ``device_ms`` the card's time per
-    call (torch.profiler). ``launches`` counts the main path's runs: both
-    serving runs (bf16 and float32) and the bf16 training steps, split in
-    ``launches_serve`` and ``launches_train``. The decode backward has one
-    row for K2 and K3, whose launches it is counted in. Every site's
-    numbers are in the JSON report written before it."""
+    """Every variant of each kernel at the call site and dtype where the
+    main path launches it (MAIN_SITE, MAIN_DTYPE; bfloat16 but for the
+    3xTF32 kernels): K1 as served (no dropout; its times with the training
+    dropout beside them), K2 and K3 as trained (dropout 0.1; without it
+    beside). ``ms`` is the host loop's time per call (CUDA events around
+    back-to-back wrapper calls), ``device_ms`` the card's time per call
+    (torch.profiler); a K2 or K3 row of another variant than SIMT has the
+    SIMT kernel's device time at its site beside it (the same-run
+    "before"). ``launches`` counts the main path's runs: both serving runs
+    (bf16 and float32) and both training runs (the bf16 steps and the
+    float32 steps), split in ``launches_serve`` and ``launches_train``.
+    The decode backward has one row for K2 and K3, whose launches it is
+    counted in. Every site's numbers are in the JSON report written before
+    it."""
     sites = report["call_sites"]
     rows = report["train_kernels"]
-    train_n = report["train"]["launches"]
+    train_n = {k: report["train"]["launches"][k]
+               + report["train_f32"]["launches"][k]
+               for k in report["train"]["launches"]}
     serve_n = {k: report["serve"]["launches"][k]
                + report["serve"]["f32_launches"][k]
                for k in report["serve"]["launches"]}
@@ -1224,16 +1490,19 @@ def kernel_line(report: dict) -> list:
             out.append(bwd_dec_entry(report, name, source, replaces,
                                      train_n, serve_n))
             continue
-        base = name.removesuffix("_tc").removesuffix("_dec")
+        base = name
+        for suffix in ("_f32tc", "_tc", "_dec"):
+            base = base.removesuffix(suffix)
         short = shorts[base]
         wrapper = "flash_attention" if short == "fwd" else base
         site = MAIN_SITE[variant]
+        dtype = MAIN_DTYPE.get(variant, "bfloat16")
 
         def count(n):
             if variant != "simt":
                 return n[f"{wrapper}_{variant}"]
             return n[wrapper] - sum(n.get(f"{wrapper}_{v}", 0)
-                                    for v in ("tc", "dec"))
+                                    for v in ("tc", "tf32x3", "dec"))
 
         # the errors of every call of this variant: as the rule picked it,
         # or as the SIMT "before" beside another variant
@@ -1251,21 +1520,23 @@ def kernel_line(report: dict) -> list:
             if variant == "simt":
                 errs += [(r["simt_max_abs_err"], 1.0) for r in sites
                          if "simt_max_abs_err" in r]
-        tr = next(r for r in rows if r["site"] == site
-                  and r["dtype"] == "bfloat16" and r["dropout"] == DROPOUT)
+        tr, tr0 = (next(r for r in rows if r["site"] == site
+                        and r["dtype"] == dtype and r["dropout"] == rate)
+                   for rate in (DROPOUT, 0.0))
         key = short if tr[f"{short}_variant"] == variant else f"simt_{short}"
-        shape = (f"{site} bfloat16 B={tr['B']} Sq={tr['Sq']} Sk={tr['Sk']} "
+        shape = (f"{site} {dtype} B={tr['B']} Sq={tr['Sq']} Sk={tr['Sk']} "
                  f"H={tr['H']} D={tr['D']}")
         entry = {"name": name, "route": "cuda", "variant": variant,
                  "source": f"reftr_torch/kernels/csrc/{source}",
                  "replaces": replaces,
                  "launches": count(train_n) + count(serve_n),
                  "launches_train": count(train_n),
+                 "launches_train_f32": count(report["train_f32"]["launches"]),
                  "launches_serve": count(serve_n),
                  "max_abs_err": max(e for e, _ in errs), "site": site}
         if short == "fwd":
             sv = next(r for r in sites
-                      if r["site"] == site and r["dtype"] == "bfloat16")
+                      if r["site"] == site and r["dtype"] == dtype)
             pre = "" if sv["variant"] == variant else "simt_"
             entry.update({
                 "shape": f"{shape}, no dropout",
@@ -1290,7 +1561,14 @@ def kernel_line(report: dict) -> list:
                 "library_device_ms": tr["sdpa_bwd_device_ms"],
                 "library_covers": "SDPA backward (host loop: fwd+bwd minus "
                                   "fwd; device: the backward's kernels): "
-                                  "K2 and K3 together"})
+                                  "K2 and K3 together",
+                "device_ms_no_dropout": tr0[f"{key}_device_ms"],
+                "library_device_ms_no_dropout": tr0["sdpa_bwd_device_ms"]})
+            if variant != "simt":
+                entry.update({
+                    "simt_device_ms": tr[f"simt_{short}_device_ms"],
+                    "simt_device_ms_no_dropout":
+                        tr0[f"simt_{short}_device_ms"]})
         out.append(entry)
     return out
 
@@ -1315,7 +1593,9 @@ def bwd_dec_entry(report: dict, name: str, source: str, replaces: str,
         "source": f"reftr_torch/kernels/csrc/{source}",
         "replaces": replaces, "also_replaces": BWD_DEC_ALSO,
         "launches": train_n[key] + serve_n[key],
-        "launches_train": train_n[key], "launches_serve": serve_n[key],
+        "launches_train": train_n[key],
+        "launches_train_f32": report["train_f32"]["launches"][key],
+        "launches_serve": serve_n[key],
         "max_abs_err": max(e for e, _ in errs),
         "max_rel_err": max(e / s for e, s in errs),
         "site": "decoder_cross",
@@ -1361,9 +1641,11 @@ def main() -> int:
         libs = dict(zip(sources, pool.map(_nvcc.build, sources)))
     print(f"built {', '.join(sources)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    # the tensor-core kernels' machine code must hold tensor-core products
+    # the tensor-core kernels' machine code (bf16 and 3xTF32) must hold
+    # tensor-core products
     hmma = {src: sass_count(libs[src], "HMMA")
-            for src, _, variant in KERNELS.values() if variant == "tc"}
+            for src, _, variant in KERNELS.values()
+            if variant in ("tc", "tf32x3")}
     print(f"cuobjdump -sass: HMMA instructions {hmma}", flush=True)
     if not all(hmma.values()):
         raise AssertionError(f"a tensor-core kernel has no HMMA: {hmma}")
@@ -1376,9 +1658,11 @@ def main() -> int:
     report = {"card": card, "hmma": hmma}
     check_kernel(report)
     check_training_kernels(report)
+    check_head_dims(report)
     serve(report, counters)
     torch.cuda.empty_cache()
     train(report, counters)
+    train_f32(report, counters)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

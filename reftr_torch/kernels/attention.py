@@ -7,29 +7,43 @@ autograd contract:
   K1 ``flash_attention``    <- ``_flash_kernel`` / ``_fwd``
                                (``csrc/flash_attn_fwd_dec.cu`` for short
                                query sides, ``csrc/flash_attn_fwd_tc.cu``
-                               on tensor cores, ``csrc/flash_attn_fwd.cu``
-                               on SIMT)
+                               on tensor cores in bf16,
+                               ``csrc/flash_attn_fwd.cu`` on SIMT)
   K2 ``flash_attn_bwd_dq``  <- ``_bwd_dq_kernel``
                                (``csrc/flash_attn_bwd_dec.cu`` for short
-                               query sides, ``csrc/flash_attn_bwd_dq_tc.cu``
-                               on tensor cores, ``csrc/flash_attn_bwd.cu``
-                               on SIMT)
+                               query sides, on tensor cores
+                               ``csrc/flash_attn_bwd_dq_tc.cu`` in bf16 and
+                               ``csrc/flash_attn_bwd_dq_f32tc.cu`` in
+                               float32 by 3xTF32; ``csrc/flash_attn_bwd.cu``
+                               on SIMT, which the rule no longer picks)
   K3 ``flash_attn_bwd_dkv`` <- ``_bwd_dkv_kernel``
                                (``csrc/flash_attn_bwd_dec.cu`` for short
-                               query sides, ``csrc/flash_attn_bwd_dkv_tc.cu``
-                               on tensor cores, ``csrc/flash_attn_bwd.cu``
-                               on SIMT)
+                               query sides, on tensor cores
+                               ``csrc/flash_attn_bwd_dkv_tc.cu`` in bf16 and
+                               ``csrc/flash_attn_bwd_dkv_f32tc.cu`` in
+                               float32, ``csrc/flash_attn_bwd.cu`` on SIMT
+                               for fewer than 16 keys)
   ``FlashAttentionFn``      <- ``_attention``'s ``custom_vjp`` and
                                ``fused_attention``
 
-Each kernel has variants on the card, picked by shape and dtype alone
-(``fwd_variant``, ``dq_variant``, ``dkv_variant``): bf16 with 16 or more
-query rows (and, for K3, 16 or more keys) takes the tensor-core kernel
-("tc"); fewer than 16 query rows, the decoder's single query, take the
-decode kernels ("dec") in either dtype, where one launch of
-``flash_attn_bwd_dec.cu`` gives K2's and K3's gradients together; the rest
-takes the SIMT kernel ("simt"). A kernel that fails to build or launch
-raises; no variant stands in for another.
+Each kernel has variants on the card, picked by shape, dtype and head dim
+alone (``fwd_variant``, ``dq_variant``, ``dkv_variant``): fewer than 16
+query rows, the decoder's single query, take the decode kernels ("dec") in
+either dtype, where one launch of ``flash_attn_bwd_dec.cu`` gives K2's and
+K3's gradients together; with 16 or more (and, for K3, 16 or more keys)
+bf16 takes the tensor-core kernels ("tc") and float32 K2 and K3 take the
+3xTF32 tensor-core kernels ("tf32x3"), which split each float32 operand
+into two tf32 halves and keep float32's accuracy; float32 K1 and K3 with
+fewer than 16 keys take the SIMT kernels ("simt"). A head dim above
+``MAX_HEAD_DIM`` takes the plain versions on the card ("plain"), a rule
+of the dispatch that no error reaches. A kernel that fails to build or
+launch raises; no variant stands in for another.
+
+Head dims. The kernels are instantiated for ``HEAD_DIMS`` (16, 32, 64,
+128). A call with another head dim up to 128 is zero-padded to the next
+one in the wrapper and its outputs sliced back: zero columns leave q k^T,
+p v and every gradient product unchanged, and each kernel takes the
+softmax scale 1 / sqrt(D) of the caller's D, not of the instance's.
 
 The kernels are built with nvcc on first use and called through ctypes (see
 each source's header for its design and its bound on the card). Layout at
@@ -41,12 +55,15 @@ row; lse is [B, H, Sq] f32.
 Every kernel has its plain PyTorch version here (``attention_plain``,
 ``attention_bwd_plain``, ``philox_keep_plain``). A wrapper runs the plain
 version for a tensor on the CPU, and for a CUDA tensor launches its kernel
-or raises. Each wrapper counts its kernel's launches in
-``<wrapper>.launches`` (K1's in ``flash_attention.launches``, also when
-``FlashAttentionFn`` launches it), and those of the tensor-core and decode
-variants among them in ``<wrapper>.launches_tc`` and
-``<wrapper>.launches_dec`` (all three). One launch of the decode backward
-counts on K2 and on K3.
+or raises (or, for a head dim above 128, runs the plain version by the
+rule). Each wrapper counts its kernel's launches in ``<wrapper>.launches``
+(K1's in ``flash_attention.launches``, also when ``FlashAttentionFn``
+launches it), those of the tensor-core, 3xTF32 and decode variants among
+them in ``<wrapper>.launches_tc``, ``flash_attn_bwd_dq.launches_tf32x3``
+and ``flash_attn_bwd_dkv.launches_tf32x3``, and ``<wrapper>.launches_dec``,
+and the CUDA calls that the rule sent to the plain version, which launch
+no kernel of this module, in ``<wrapper>.launches_plain``. One launch of
+the decode backward, or one plain backward, counts on K2 and on K3.
 
 Attention dropout follows the TPU kernel: the softmax denominator sums the
 un-dropped weights and only the weights applied to v are dropped and
@@ -75,7 +92,10 @@ NEG_INF = -1e9
 # the tensor-core kernels tile 64 rows as 4 warps of 16: a side shorter
 # than one warp's 16 rows leaves most of each tile empty
 TC_MIN_ROWS = 16
-HEAD_DIMS = (16, 32, 64)  # the kernels' template instances
+# the kernels' template instances; a head dim between them is zero-padded
+# to the next, one above the last takes the plain versions ("plain")
+HEAD_DIMS = (16, 32, 64, 128)
+MAX_HEAD_DIM = HEAD_DIMS[-1]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MASK32 = 0xFFFFFFFF
 # Philox4x32-10 multipliers and Weyl key increments (Salmon et al., SC'11)
@@ -146,12 +166,18 @@ def philox_keep_plain(seed: int, b: int, h: int, sq: int, sk: int,
     return keep.reshape(b, h, sq, sk)
 
 
+def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
+    """The softmax scale: 1 / sqrt(D) of q's head dim unless given (a head
+    dim zero-padded from D keeps D's)."""
+    return 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+
+
 def _logits(q: torch.Tensor, k: torch.Tensor,
-            valid_mask: Optional[torch.Tensor], acc: torch.dtype
-            ) -> torch.Tensor:
+            valid_mask: Optional[torch.Tensor], acc: torch.dtype,
+            scale: Optional[float] = None) -> torch.Tensor:
     """[B, H, Sq, Sk] logits as the kernels round them: s * scale, then
     + bias, then + 1e9 in a batch row whose keys are all masked."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    scale = _scale(q, scale)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) * scale
     if valid_mask is not None:
         bias = torch.where(valid_mask, 0.0, NEG_INF).to(acc)
@@ -172,19 +198,21 @@ def _keep_scale(rate: float, seed: Optional[int], b: int, h: int, sq: int,
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     valid_mask: Optional[torch.Tensor] = None,
                     return_lse: bool = False, *, dropout_rate: float = 0.0,
-                    seed: Optional[int] = None):
+                    seed: Optional[int] = None,
+                    scale: Optional[float] = None):
     """The forward kernel's function in plain PyTorch: f32 logits and
     softmax (f64 for f64 inputs) with an additive -1e9 on masked keys, the
     kernels' dropout mask after the softmax, output in the input dtype.
     Differentiable by autograd.
 
-    q [B, Sq, H, D]; k, v [B, Sk, H, D]; valid_mask [B, Sk] bool or None.
-    Returns out [B, Sq, H, D] and, with return_lse, lse [B, H, Sq].
+    q [B, Sq, H, D]; k, v [B, Sk, H, D]; valid_mask [B, Sk] bool or None;
+    scale 1 / sqrt(D) unless given. Returns out [B, Sq, H, D] and, with
+    return_lse, lse [B, H, Sq].
     """
     _check_dropout(dropout_rate, seed)
     acc = _plain_precision(q)
     with _no_autocast(q.device):
-        logits = _logits(q, k, valid_mask, acc)
+        logits = _logits(q, k, valid_mask, acc, scale)
         weights = torch.softmax(logits, dim=-1)
         if dropout_rate > 0.0:
             b, h, sq, sk = weights.shape
@@ -199,7 +227,8 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         valid_mask: Optional[torch.Tensor], o: torch.Tensor,
                         lse: torch.Tensor, do: torch.Tensor,
-                        dropout_rate: float = 0.0, seed: Optional[int] = None
+                        dropout_rate: float = 0.0, seed: Optional[int] = None,
+                        scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernels' function in plain PyTorch, the flash-2
     formulas of ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel`` written out:
@@ -208,15 +237,16 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
       ds = p * (dp - di), dq = scale * ds k, dk = scale * ds^T q,
       dv = (p * keep)^T dO
 
-    with x the forward's logits and keep its dropout multiplier. o and lse
-    are the forward's outputs, do the gradient of o. Computes in f32 (f64
-    for f64 inputs); returns (dq, dk, dv) in the input dtype.
+    with x the forward's logits and keep its dropout multiplier; scale is
+    1 / sqrt(D) unless given. o and lse are the forward's outputs, do the
+    gradient of o. Computes in f32 (f64 for f64 inputs); returns (dq, dk,
+    dv) in the input dtype.
     """
     _check_dropout(dropout_rate, seed)
     acc = _plain_precision(q, do)
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    scale = _scale(q, scale)
     with _no_autocast(q.device):
-        p = torch.exp(_logits(q, k, valid_mask, acc)
+        p = torch.exp(_logits(q, k, valid_mask, acc, scale)
                       - lse.to(acc)[..., None])  # [B, H, Sq, Sk]
         dp = torch.einsum("bqhd,bkhd->bhqk", do.to(acc), v.to(acc))
         pk = p
@@ -265,12 +295,13 @@ def _check(q, k, v, valid_mask) -> None:
 
 
 def _check_cuda(*tensors: Optional[torch.Tensor]) -> None:
-    """What the kernels take: one CUDA device, contiguous, a head dim they
-    were instantiated for."""
+    """What the kernels take: one CUDA device, contiguous, a head dim up to
+    the largest instance (the launchers pad it to an instance)."""
     q = tensors[0]
-    if q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"head_dim {q.shape[-1]} not in the kernels' "
-                         f"{HEAD_DIMS}")
+    if q.shape[-1] > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {q.shape[-1]} is above the kernels' "
+                         f"largest instance {MAX_HEAD_DIM}: the rule sends "
+                         f"it to the plain versions")
     for t in tensors:
         if t is None:
             continue
@@ -297,66 +328,98 @@ def _threads_per_row(sq: int) -> int:
     return 4
 
 
-def fwd_variant(sq: int, dtype: torch.dtype) -> str:
-    """K1's kernel on the card: "dec" (flash_attn_fwd_dec.cu) for fewer than
-    TC_MIN_ROWS queries in either dtype, the decoder's single query, where
-    a 64-row tile would be 63 rows of zeros and the call is bound by
+def fwd_variant(sq: int, dtype: torch.dtype, d: int) -> str:
+    """K1's kernel on the card for sq queries of head dim d: "plain"
+    (``attention_plain`` on the card, counted in
+    ``flash_attention.launches_plain``) for d above MAX_HEAD_DIM, where no
+    kernel is instantiated; else "dec" (flash_attn_fwd_dec.cu) for fewer
+    than TC_MIN_ROWS queries in either dtype, the decoder's single query,
+    where a 64-row tile would be 63 rows of zeros and the call is bound by
     reading K and V once; "tc" (flash_attn_fwd_tc.cu) for bf16 with more,
     the VL encoder's 440 and BERT's 40; else "simt" (flash_attn_fwd.cu):
-    float32 stays off the tensor cores, which would take it as TF32 (10-bit
-    mantissa) and break its 1e-5 tolerance."""
+    float32 with 16 or more queries, until a 3xTF32 forward takes it as
+    "tf32x3" took K2 and K3 (plain TF32 would break its 1e-5
+    tolerance)."""
+    if d > MAX_HEAD_DIM:
+        return "plain"
     if sq < TC_MIN_ROWS:
         return "dec"
     return "tc" if dtype == torch.bfloat16 else "simt"
 
 
-def dq_variant(sq: int, dtype: torch.dtype) -> str:
-    """K2's kernel on the card: "dec" (flash_attn_bwd_dec.cu, which gives
-    dk and dv in the same launch) for fewer than TC_MIN_ROWS queries in
-    either dtype, the decoder's single query, bound by reading K and V
-    once; "tc" (flash_attn_bwd_dq_tc.cu) for bf16 with more (keys are its N
-    side, so any Sk); else "simt" (flash_attn_bwd.cu): float32 for the
-    reason of ``fwd_variant``."""
+def dq_variant(sq: int, dtype: torch.dtype, d: int) -> str:
+    """K2's kernel on the card for sq queries of head dim d: "plain"
+    (``attention_bwd_plain`` on the card) for d above MAX_HEAD_DIM; else
+    "dec" (flash_attn_bwd_dec.cu, which gives dk and dv in the same launch)
+    for fewer than TC_MIN_ROWS queries in either dtype, the decoder's single
+    query, bound by reading K and V once; with more (keys are the N side of
+    the tensor-core kernels, so any Sk) "tc" (flash_attn_bwd_dq_tc.cu) for
+    bf16 and "tf32x3" (flash_attn_bwd_dq_f32tc.cu) for float32: its
+    products on the tensor cores as three TF32 products of split operands,
+    which keeps float32's accuracy. The SIMT kernel (flash_attn_bwd.cu) has
+    no route left."""
+    if d > MAX_HEAD_DIM:
+        return "plain"
     if sq < TC_MIN_ROWS:
         return "dec"
-    return "tc" if dtype == torch.bfloat16 else "simt"
+    return "tc" if dtype == torch.bfloat16 else "tf32x3"
 
 
-def dkv_variant(sq: int, sk: int, dtype: torch.dtype) -> str:
-    """K3's kernel on the card: "dec" (flash_attn_bwd_dec.cu) for fewer
-    than TC_MIN_ROWS queries in either dtype, as for ``dq_variant``; "tc"
-    (flash_attn_bwd_dkv_tc.cu) for bf16 with at least TC_MIN_ROWS keys too
-    (the VL encoder and BERT); else "simt" (flash_attn_bwd.cu): float32 for
-    the reason of ``fwd_variant``, and bf16 with fewer than TC_MIN_ROWS
-    keys, where each 64-key tile of the tensor-core kernel would be mostly
-    empty."""
+def dkv_variant(sq: int, sk: int, dtype: torch.dtype, d: int) -> str:
+    """K3's kernel on the card for sq queries, sk keys and head dim d:
+    "plain" and "dec" as for ``dq_variant``; with at least TC_MIN_ROWS
+    queries and keys (the VL encoder and BERT) "tc"
+    (flash_attn_bwd_dkv_tc.cu) for bf16 and "tf32x3"
+    (flash_attn_bwd_dkv_f32tc.cu) for float32; else "simt"
+    (flash_attn_bwd.cu): fewer than TC_MIN_ROWS keys in either dtype, where
+    each 64-key tile of a tensor-core kernel would be mostly empty."""
+    if d > MAX_HEAD_DIM:
+        return "plain"
     if sq < TC_MIN_ROWS:
         return "dec"
-    return "tc" if dtype == torch.bfloat16 and sk >= TC_MIN_ROWS else "simt"
+    if sk < TC_MIN_ROWS:
+        return "simt"
+    return "tc" if dtype == torch.bfloat16 else "tf32x3"
 
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
+_FLOAT = ctypes.c_float
 _DROPOUT_ARGS = [ctypes.c_uint64, ctypes.c_uint32, ctypes.c_float]
 # each C entry point: its source under csrc/ and its arguments before the
-# stream, which every entry point takes last
+# stream, which every entry point takes last: pointers, then B, H, Sq, Sk,
+# D, the softmax scale, then the dtype and threads per row where the kernel
+# takes them, then the dropout
 _ARGTYPES = {
     "flash_attn_fwd": ("flash_attn_fwd.cu",
-                       [_PTR] * 6 + [_INT] * 7 + _DROPOUT_ARGS),
+                       [_PTR] * 6 + [_INT] * 5 + [_FLOAT] + [_INT] * 2
+                       + _DROPOUT_ARGS),
     "flash_attn_fwd_tc": ("flash_attn_fwd_tc.cu",
-                          [_PTR] * 6 + [_INT] * 5 + _DROPOUT_ARGS),
+                          [_PTR] * 6 + [_INT] * 5 + [_FLOAT] + _DROPOUT_ARGS),
     "flash_attn_fwd_dec": ("flash_attn_fwd_dec.cu",
-                           [_PTR] * 6 + [_INT] * 6 + _DROPOUT_ARGS),
+                           [_PTR] * 6 + [_INT] * 5 + [_FLOAT, _INT]
+                           + _DROPOUT_ARGS),
     "flash_attn_bwd_dq": ("flash_attn_bwd.cu",
-                          [_PTR] * 8 + [_INT] * 7 + _DROPOUT_ARGS),
+                          [_PTR] * 8 + [_INT] * 5 + [_FLOAT] + [_INT] * 2
+                          + _DROPOUT_ARGS),
     "flash_attn_bwd_dq_tc": ("flash_attn_bwd_dq_tc.cu",
-                             [_PTR] * 8 + [_INT] * 5 + _DROPOUT_ARGS),
+                             [_PTR] * 8 + [_INT] * 5 + [_FLOAT]
+                             + _DROPOUT_ARGS),
+    "flash_attn_bwd_dq_f32tc": ("flash_attn_bwd_dq_f32tc.cu",
+                                [_PTR] * 8 + [_INT] * 5 + [_FLOAT]
+                                + _DROPOUT_ARGS),
     "flash_attn_bwd_dkv": ("flash_attn_bwd.cu",
-                           [_PTR] * 9 + [_INT] * 6 + _DROPOUT_ARGS),
+                           [_PTR] * 9 + [_INT] * 5 + [_FLOAT, _INT]
+                           + _DROPOUT_ARGS),
     "flash_attn_bwd_dkv_tc": ("flash_attn_bwd_dkv_tc.cu",
-                              [_PTR] * 9 + [_INT] * 5 + _DROPOUT_ARGS),
+                              [_PTR] * 9 + [_INT] * 5 + [_FLOAT]
+                              + _DROPOUT_ARGS),
+    "flash_attn_bwd_dkv_f32tc": ("flash_attn_bwd_dkv_f32tc.cu",
+                                 [_PTR] * 9 + [_INT] * 5 + [_FLOAT]
+                                 + _DROPOUT_ARGS),
     "flash_attn_bwd_dec": ("flash_attn_bwd_dec.cu",
-                           [_PTR] * 10 + [_INT] * 6 + _DROPOUT_ARGS),
+                           [_PTR] * 10 + [_INT] * 5 + [_FLOAT, _INT]
+                           + _DROPOUT_ARGS),
 }
 
 
@@ -390,6 +453,22 @@ def _dropout_args(rate: float, seed: Optional[int]):
     return seed, dropout_threshold(rate), 1.0 / (1.0 - rate)
 
 
+def padded_head_dim(d: int) -> int:
+    """The instance a head dim d <= MAX_HEAD_DIM runs at: the smallest of
+    HEAD_DIMS at least d."""
+    return next(x for x in HEAD_DIMS if x >= d)
+
+
+def _pad(t: torch.Tensor, dp: int) -> torch.Tensor:
+    """t zero-padded on its last dim to dp (t itself where it is dp)."""
+    d = t.shape[-1]
+    return t if d == dp else torch.nn.functional.pad(t, (0, dp - d))
+
+
+def _unpad(t: torch.Tensor, d: int) -> torch.Tensor:
+    return t if t.shape[-1] == d else t[..., :d].contiguous()
+
+
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              valid_mask: Optional[torch.Tensor], dropout_rate: float,
              seed: Optional[int], return_lse: bool = True):
@@ -401,8 +480,8 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    dropout_rate=dropout_rate, seed=seed)
         return attention_plain(q, k, v, valid_mask, dropout_rate=dropout_rate,
                                seed=seed), None
-    return _launch_fwd(fwd_variant(q.shape[1], q.dtype), q, k, v, valid_mask,
-                       dropout_rate, seed, return_lse)
+    return _launch_fwd(fwd_variant(q.shape[1], q.dtype, q.shape[-1]), q, k,
+                       v, valid_mask, dropout_rate, seed, return_lse)
 
 
 def _check_aligned(what: str, *tensors: Optional[torch.Tensor]) -> None:
@@ -412,43 +491,57 @@ def _check_aligned(what: str, *tensors: Optional[torch.Tensor]) -> None:
         raise ValueError(f"the {what} kernels need 16-byte aligned inputs")
 
 
-def _check_tc(*tensors: Optional[torch.Tensor]) -> None:
-    """What the tensor-core kernels take beyond ``_check_cuda``: bf16, and
-    16-byte aligned rows for their cp.async tile copies."""
-    if tensors[0].dtype != torch.bfloat16:
-        raise TypeError(f"the tensor-core kernels take bfloat16, not "
+def _check_tc(*tensors: Optional[torch.Tensor],
+              dtype: torch.dtype = torch.bfloat16) -> None:
+    """What the tensor-core kernels take beyond ``_check_cuda``: their
+    dtype (bf16, or float32 for the 3xTF32 kernels), and 16-byte aligned
+    rows for their cp.async tile copies."""
+    if tensors[0].dtype != dtype:
+        name = "bf16" if dtype == torch.bfloat16 else "3xTF32"
+        raise TypeError(f"the {name} tensor-core kernels take "
+                        f"{str(dtype).removeprefix('torch.')}, not "
                         f"{tensors[0].dtype}")
     _check_aligned("tensor-core", *tensors)
 
 
 def _launch_fwd(variant: str, q, k, v, valid_mask, dropout_rate: float,
                 seed: Optional[int], return_lse: bool = True):
-    """Launch K1's ``variant`` ("dec", "tc" or "simt") on CUDA tensors:
-    (out, lse or None)."""
+    """Launch K1's ``variant`` ("dec", "tc" or "simt"; "plain" runs
+    ``attention_plain``) on CUDA tensors: (out, lse or None). A head dim
+    between the instances is zero-padded to the next one."""
+    if variant == "plain":
+        flash_attention.launches_plain += 1
+        if return_lse:
+            return attention_plain(q, k, v, valid_mask, True,
+                                   dropout_rate=dropout_rate, seed=seed)
+        return attention_plain(q, k, v, valid_mask, dropout_rate=dropout_rate,
+                               seed=seed), None
     _check_cuda(q, k, v, valid_mask)
     b, sq, h, d = q.shape
+    dp = padded_head_dim(d)
+    q, k, v = (_pad(x, dp) for x in (q, k, v))
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
            if return_lse else None)
     ptrs = (_ptr(q), _ptr(k), _ptr(v), _ptr(valid_mask), _ptr(out), _ptr(lse))
+    shape = (b, h, sq, k.shape[1], dp, 1.0 / math.sqrt(d))
     drop = _dropout_args(dropout_rate, seed)
     if variant == "dec":
         _check_aligned("decode", q, k, v)
-        _launch("flash_attn_fwd_dec", q.device, *ptrs, b, h, sq, k.shape[1],
-                d, _DTYPES[q.dtype], *drop)
+        _launch("flash_attn_fwd_dec", q.device, *ptrs, *shape,
+                _DTYPES[q.dtype], *drop)
         flash_attention.launches_dec += 1
     elif variant == "tc":
         _check_tc(q, k, v)
-        _launch("flash_attn_fwd_tc", q.device, *ptrs, b, h, sq, k.shape[1], d,
-                *drop)
+        _launch("flash_attn_fwd_tc", q.device, *ptrs, *shape, *drop)
         flash_attention.launches_tc += 1
     elif variant == "simt":
-        _launch("flash_attn_fwd", q.device, *ptrs, b, h, sq, k.shape[1], d,
-                _DTYPES[q.dtype], _threads_per_row(sq), *drop)
+        _launch("flash_attn_fwd", q.device, *ptrs, *shape, _DTYPES[q.dtype],
+                _threads_per_row(sq), *drop)
     else:
         raise ValueError(f"unknown variant {variant!r}")
     flash_attention.launches += 1
-    return out, lse
+    return _unpad(out, d), lse
 
 
 def flash_attn_bwd_dq(q, k, v, valid_mask, o, lse, do,
@@ -459,36 +552,48 @@ def flash_attn_bwd_dq(q, k, v, valid_mask, o, lse, do,
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, valid_mask, o, lse, do,
                                    dropout_rate, seed)[0]
-    return _launch_dq(dq_variant(q.shape[1], q.dtype), q, k, v, valid_mask,
-                      o, lse, do, dropout_rate, seed)
+    return _launch_dq(dq_variant(q.shape[1], q.dtype, q.shape[-1]), q, k, v,
+                      valid_mask, o, lse, do, dropout_rate, seed)
+
+
+def _bwd_inputs(q, k, v, valid_mask, o, lse, do):
+    """The backward kernels' checked inputs, the head dim padded to its
+    instance: (q, k, v, o, do, d, shape args up to the scale)."""
+    _check_cuda(q, k, v, valid_mask, o, lse, do)
+    _check_bwd(q, o, lse, do)
+    b, sq, h, d = q.shape
+    dp = padded_head_dim(d)
+    q, k, v, o, do = (_pad(x, dp) for x in (q, k, v, o, do))
+    return q, k, v, o, do, d, (b, h, sq, k.shape[1], dp, 1.0 / math.sqrt(d))
 
 
 def _launch_dq(variant: str, q, k, v, valid_mask, o, lse, do,
                dropout_rate: float, seed: Optional[int]) -> torch.Tensor:
-    """Launch K2's ``variant`` ("dec", "tc" or "simt") on CUDA tensors:
-    dq."""
-    if variant == "dec":
-        return _launch_bwd_dec(q, k, v, valid_mask, o, lse, do, dropout_rate,
-                               seed)[0]
-    _check_cuda(q, k, v, valid_mask, o, lse, do)
-    _check_bwd(q, o, lse, do)
-    b, sq, h, d = q.shape
+    """Launch K2's ``variant`` ("dec", "tc", "tf32x3" or "simt"; "plain"
+    runs ``attention_bwd_plain``) on CUDA tensors: dq."""
+    if variant in ("dec", "plain"):
+        return _bwd_shared(variant, q, k, v, valid_mask, o, lse, do,
+                           dropout_rate, seed)[0]
+    q, k, v, o, do, d, shape = _bwd_inputs(q, k, v, valid_mask, o, lse, do)
     dq = torch.empty_like(q)
     ptrs = (_ptr(q), _ptr(k), _ptr(v), _ptr(valid_mask), _ptr(o), _ptr(do),
             _ptr(lse), _ptr(dq))
     drop = _dropout_args(dropout_rate, seed)
     if variant == "tc":
         _check_tc(q, k, v, o, do)
-        _launch("flash_attn_bwd_dq_tc", q.device, *ptrs, b, h, sq, k.shape[1],
-                d, *drop)
+        _launch("flash_attn_bwd_dq_tc", q.device, *ptrs, *shape, *drop)
         flash_attn_bwd_dq.launches_tc += 1
+    elif variant == "tf32x3":
+        _check_tc(q, k, v, o, do, dtype=torch.float32)
+        _launch("flash_attn_bwd_dq_f32tc", q.device, *ptrs, *shape, *drop)
+        flash_attn_bwd_dq.launches_tf32x3 += 1
     elif variant == "simt":
-        _launch("flash_attn_bwd_dq", q.device, *ptrs, b, h, sq, k.shape[1], d,
-                _DTYPES[q.dtype], _threads_per_row(sq), *drop)
+        _launch("flash_attn_bwd_dq", q.device, *ptrs, *shape,
+                _DTYPES[q.dtype], _threads_per_row(shape[2]), *drop)
     else:
         raise ValueError(f"unknown variant {variant!r}")
     flash_attn_bwd_dq.launches += 1
-    return dq
+    return _unpad(dq, d)
 
 
 def flash_attn_bwd_dkv(q, k, v, valid_mask, o, lse, do,
@@ -499,21 +604,20 @@ def flash_attn_bwd_dkv(q, k, v, valid_mask, o, lse, do,
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, valid_mask, o, lse, do,
                                    dropout_rate, seed)[1:]
-    return _launch_dkv(dkv_variant(q.shape[1], k.shape[1], q.dtype), q, k, v,
-                       valid_mask, o, lse, do, dropout_rate, seed)
+    return _launch_dkv(dkv_variant(q.shape[1], k.shape[1], q.dtype,
+                                   q.shape[-1]),
+                       q, k, v, valid_mask, o, lse, do, dropout_rate, seed)
 
 
 def _launch_dkv(variant: str, q, k, v, valid_mask, o, lse, do,
                 dropout_rate: float, seed: Optional[int]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K3's ``variant`` ("dec", "tc" or "simt") on CUDA tensors:
-    (dk, dv)."""
-    if variant == "dec":
-        return _launch_bwd_dec(q, k, v, valid_mask, o, lse, do, dropout_rate,
-                               seed)[1:]
-    _check_cuda(q, k, v, valid_mask, o, lse, do)
-    _check_bwd(q, o, lse, do)
-    b, sq, h, d = q.shape
+    """Launch K3's ``variant`` ("dec", "tc", "tf32x3" or "simt"; "plain"
+    runs ``attention_bwd_plain``) on CUDA tensors: (dk, dv)."""
+    if variant in ("dec", "plain"):
+        return _bwd_shared(variant, q, k, v, valid_mask, o, lse, do,
+                           dropout_rate, seed)[1:]
+    q, k, v, o, do, d, shape = _bwd_inputs(q, k, v, valid_mask, o, lse, do)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     ptrs = (_ptr(q), _ptr(k), _ptr(v), _ptr(valid_mask), _ptr(o), _ptr(do),
@@ -521,16 +625,37 @@ def _launch_dkv(variant: str, q, k, v, valid_mask, o, lse, do,
     drop = _dropout_args(dropout_rate, seed)
     if variant == "tc":
         _check_tc(q, k, v, o, do)
-        _launch("flash_attn_bwd_dkv_tc", q.device, *ptrs, b, h, sq,
-                k.shape[1], d, *drop)
+        _launch("flash_attn_bwd_dkv_tc", q.device, *ptrs, *shape, *drop)
         flash_attn_bwd_dkv.launches_tc += 1
+    elif variant == "tf32x3":
+        _check_tc(q, k, v, o, do, dtype=torch.float32)
+        _launch("flash_attn_bwd_dkv_f32tc", q.device, *ptrs, *shape, *drop)
+        flash_attn_bwd_dkv.launches_tf32x3 += 1
     elif variant == "simt":
-        _launch("flash_attn_bwd_dkv", q.device, *ptrs, b, h, sq, k.shape[1],
-                d, _DTYPES[q.dtype], *drop)
+        _launch("flash_attn_bwd_dkv", q.device, *ptrs, *shape,
+                _DTYPES[q.dtype], *drop)
     else:
         raise ValueError(f"unknown variant {variant!r}")
     flash_attn_bwd_dkv.launches += 1
-    return dk, dv
+    return _unpad(dk, d), _unpad(dv, d)
+
+
+def _bwd_shared(variant: str, q, k, v, valid_mask, o, lse, do,
+                dropout_rate: float, seed: Optional[int]
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The variants that give K2's and K3's gradients in one call: "dec",
+    the decode backward, and "plain", ``attention_bwd_plain`` on the card.
+    The call counts once on K2 and once on K3."""
+    if variant == "plain":
+        grads = attention_bwd_plain(q, k, v, valid_mask, o, lse, do,
+                                    dropout_rate, seed)
+        for wrapper in (flash_attn_bwd_dq, flash_attn_bwd_dkv):
+            wrapper.launches_plain += 1
+        return grads
+    if variant != "dec":
+        raise ValueError(f"unknown variant {variant!r}")
+    return _launch_bwd_dec(q, k, v, valid_mask, o, lse, do, dropout_rate,
+                           seed)
 
 
 def _launch_bwd_dec(q, k, v, valid_mask, o, lse, do, dropout_rate: float,
@@ -539,40 +664,42 @@ def _launch_bwd_dec(q, k, v, valid_mask, o, lse, do, dropout_rate: float,
     """Launch the decode backward (flash_attn_bwd_dec.cu: K2 and K3 in one
     kernel, fewer than TC_MIN_ROWS queries) on CUDA tensors: (dq, dk, dv).
     The launch counts once on K2 and once on K3."""
-    _check_cuda(q, k, v, valid_mask, o, lse, do)
-    _check_bwd(q, o, lse, do)
+    q, k, v, o, do, d, shape = _bwd_inputs(q, k, v, valid_mask, o, lse, do)
     if q.dtype not in _DTYPES:
         raise TypeError(f"the decode kernels take float32 or bfloat16, not "
                         f"{q.dtype}")
     _check_aligned("decode", q, k, v, o, do)
-    b, sq, h, d = q.shape
-    if sq >= TC_MIN_ROWS:
+    if q.shape[1] >= TC_MIN_ROWS:
         raise ValueError(f"the decode backward takes fewer than "
-                         f"{TC_MIN_ROWS} queries, got {sq}")
+                         f"{TC_MIN_ROWS} queries, got {q.shape[1]}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     _launch("flash_attn_bwd_dec", q.device, _ptr(q), _ptr(k), _ptr(v),
             _ptr(valid_mask), _ptr(o), _ptr(do), _ptr(lse), _ptr(dq),
-            _ptr(dk), _ptr(dv), b, h, sq, k.shape[1], d, _DTYPES[q.dtype],
+            _ptr(dk), _ptr(dv), *shape, _DTYPES[q.dtype],
             *_dropout_args(dropout_rate, seed))
     for wrapper in (flash_attn_bwd_dq, flash_attn_bwd_dkv):
         wrapper.launches += 1
         wrapper.launches_dec += 1
-    return dq, dk, dv
+    return _unpad(dq, d), _unpad(dk, d), _unpad(dv, d)
 
 
-flash_attn_bwd_dq.launches = 0
-flash_attn_bwd_dq.launches_tc = 0
-flash_attn_bwd_dq.launches_dec = 0
-flash_attn_bwd_dkv.launches = 0
-flash_attn_bwd_dkv.launches_tc = 0
-flash_attn_bwd_dkv.launches_dec = 0
+# kernel launches per wrapper, and among them those of each variant but the
+# SIMT kernels; launches_plain counts the CUDA calls that the rule sent to
+# the plain versions, which launch no kernel of this module
+for _wrapper in (flash_attn_bwd_dq, flash_attn_bwd_dkv):
+    _wrapper.launches = 0
+    _wrapper.launches_tc = 0
+    _wrapper.launches_tf32x3 = 0
+    _wrapper.launches_dec = 0
+    _wrapper.launches_plain = 0
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """Attention with the flash kernels' backward (the ``custom_vjp`` of
     reftr_tpu's ``_attention``): the forward saves q, k, v, the mask, O,
     lse and the dropout seed; the backward runs K2 and K3 (one launch of the
-    decode backward for fewer than TC_MIN_ROWS queries; their plain
+    decode backward for fewer than TC_MIN_ROWS queries, one call of
+    ``attention_bwd_plain`` for a head dim above MAX_HEAD_DIM; their plain
     versions on the CPU) and gives no gradient for the mask, the rate or
     the seed."""
 
@@ -587,12 +714,13 @@ class FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, valid_mask, out, lse = ctx.saved_tensors
         do = do.to(out.dtype).contiguous()
+        variant = dq_variant(q.shape[1], q.dtype, q.shape[-1])
         if q.device.type == "cpu":
             dq, dk, dv = attention_bwd_plain(q, k, v, valid_mask, out, lse,
                                              do, *ctx.dropout)
-        elif dq_variant(q.shape[1], q.dtype) == "dec":
-            dq, dk, dv = _launch_bwd_dec(q, k, v, valid_mask, out, lse, do,
-                                         *ctx.dropout)
+        elif variant in ("dec", "plain"):
+            dq, dk, dv = _bwd_shared(variant, q, k, v, valid_mask, out, lse,
+                                     do, *ctx.dropout)
         else:
             dq = flash_attn_bwd_dq(q, k, v, valid_mask, out, lse, do,
                                    *ctx.dropout)
@@ -609,8 +737,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q k^T / sqrt(D) - 1e9 * ~valid) v per batch and head, with
     attention dropout at ``dropout_rate`` keyed by ``seed``.
 
-    q [B, Sq, H, D]; k, v [B, Sk, H, D] in float32 or bfloat16;
-    valid_mask [B, Sk] bool (True = keep) or None. Returns out
+    q [B, Sq, H, D]; k, v [B, Sk, H, D] in float32 or bfloat16, any head
+    dim; valid_mask [B, Sk] bool (True = keep) or None. Returns out
     [B, Sq, H, D] in the input dtype and, with return_lse, the row
     logsumexp [B, H, Sq] f32. Where grad is enabled and q, k or v needs
     it, the call goes through ``FlashAttentionFn`` (K1, then K2 and K3 in
@@ -632,3 +760,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = 0
 flash_attention.launches_tc = 0
 flash_attention.launches_dec = 0
+flash_attention.launches_plain = 0

@@ -2,12 +2,15 @@
 // dq in one kernel, dk and dv in another, p recomputed from the forward's
 // row logsumexp (flash-attention 2).
 //
-// What they serve: float32 calls with 16 or more queries, and for dk/dv
-// also bf16 calls with 16 or more queries and fewer than 16 keys. bf16
-// calls with more take the tensor-core kernels, flash_attn_bwd_dq_tc.cu and
-// flash_attn_bwd_dkv_tc.cu, and calls with fewer than 16 queries the
-// decode backward, flash_attn_bwd_dec.cu (kernels/attention.py::dq_variant,
-// dkv_variant).
+// What they serve (kernels/attention.py::dq_variant, dkv_variant): dk/dv
+// calls with 16 or more queries and fewer than 16 keys, in float32 and
+// bf16. dq has no route left: calls with 16 or more queries take the
+// tensor-core kernels, flash_attn_bwd_dq_tc.cu in bf16 and the 3xTF32
+// flash_attn_bwd_dq_f32tc.cu in float32 (dk/dv likewise, with 16 or more
+// keys: flash_attn_bwd_dkv_tc.cu, flash_attn_bwd_dkv_f32tc.cu), and calls
+// with fewer than 16 queries the decode backward, flash_attn_bwd_dec.cu.
+// The dq kernel stays as the same-run "before" that chip_smoke.py times
+// beside its successors.
 //
 // Replaces the TPU kernels of reftr_tpu/kernels/attention.py driven by
 // `_bwd` (:342-457):
@@ -66,9 +69,11 @@ using flash::from_f32;
 using flash::to_f32;
 
 constexpr int kThreads = 128;  // threads per block
-constexpr int kTileK = 64;     // keys staged per step of the dq kernel
-constexpr int kTileQ = 64;     // queries staged per step of the dk/dv kernel
 constexpr int kSplit = 4;      // threads per key row in the dk/dv kernel
+// keys (dq) or queries (dk/dv) staged per step: 64, or 32 at D = 128, where
+// 64 rows of two f32 tiles would pass the 48 KB of static shared memory
+template <int D>
+constexpr int kTileRows = D <= 64 ? 64 : 32;
 
 using flash::Dropout;
 
@@ -81,6 +86,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     int Sq, int Sk, int G, int n_qt, float scale, Dropout dr) {
   // rows padded to D + 1 floats: the G threads of a row read G different
   // keys at the same d
+  constexpr int kTileK = kTileRows<D>;
   __shared__ float ks[kTileK][D + 1];
   __shared__ float vs[kTileK][D + 1];
   __shared__ float bs[kTileK];
@@ -167,6 +173,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      T* __restrict__ dv, int H, int Sq, int Sk, int n_kt,
                      float scale, Dropout dr) {
   constexpr int E = D / kSplit;  // dims per thread
+  constexpr int kTileQ = kTileRows<D>;
   __shared__ float qs[kTileQ][D + 1];
   __shared__ float dos[kTileQ][D + 1];
   __shared__ float ls[kTileQ];   // lse of the staged queries
@@ -266,7 +273,7 @@ template <typename T, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const uint8_t* valid, const void* o, const void* dout,
                       const float* lse, void* dq, int B, int H, int Sq, int Sk,
-                      int G, Dropout dr, cudaStream_t stream) {
+                      int G, float scale, Dropout dr, cudaStream_t stream) {
   const int rows = kThreads / G;
   const int n_qt = (Sq + rows - 1) / rows;
   const long blocks = (long)B * H * n_qt;
@@ -275,7 +282,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), valid, static_cast<const T*>(o),
       static_cast<const T*>(dout), lse, static_cast<T*>(dq), H, Sq, Sk, G,
-      n_qt, 1.0f / sqrtf((float)D), dr);
+      n_qt, scale, dr);
   return cudaGetLastError();
 }
 
@@ -283,7 +290,8 @@ template <typename T, int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const uint8_t* valid, const void* o, const void* dout,
                        const float* lse, void* dk, void* dv, int B, int H,
-                       int Sq, int Sk, Dropout dr, cudaStream_t stream) {
+                       int Sq, int Sk, float scale, Dropout dr,
+                       cudaStream_t stream) {
   const int rows = kThreads / kSplit;
   const int n_kt = (Sk + rows - 1) / rows;
   const long blocks = (long)B * H * n_kt;
@@ -292,7 +300,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), valid, static_cast<const T*>(o),
       static_cast<const T*>(dout), lse, static_cast<T*>(dk),
-      static_cast<T*>(dv), H, Sq, Sk, n_kt, 1.0f / sqrtf((float)D), dr);
+      static_cast<T*>(dv), H, Sq, Sk, n_kt, scale, dr);
   return cudaGetLastError();
 }
 
@@ -302,15 +310,17 @@ bool bad_shape(int B, int H, int Sq, int Sk, uint32_t threshold) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. G: threads per query row, a power of two
-// in [1, 32]. Dropout as in flash_attn_fwd: threshold = ceil(rate * 2^24)
+// dtype: 0 = float32, 1 = bfloat16. D in {16, 32, 64, 128}; scale = 1 /
+// sqrt(the caller's head dim), which is below D where the caller zero-pads
+// the head dim up to D. G: threads per query row, a power of two in
+// [1, 32]. Dropout as in flash_attn_fwd: threshold = ceil(rate * 2^24)
 // (0 = none), inv_keep = 1 / (1 - rate), the forward's seed. Each returns a
 // cudaError_t (0 = launched).
 extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                  const uint8_t* valid, const void* o,
                                  const void* dout, const float* lse, void* dq,
                                  int B, int H, int Sq, int Sk, int D,
-                                 int dtype, int G, uint64_t seed,
+                                 float scale, int dtype, int G, uint64_t seed,
                                  uint32_t threshold, float inv_keep,
                                  void* stream) {
   if (bad_shape(B, H, Sq, Sk, threshold) || G < 1 || G > 32 ||
@@ -321,14 +331,20 @@ extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
 #define DQ_CASE(T, DIM)                                                     \
   case DIM:                                                                 \
     return (int)launch_dq<T, DIM>(q, k, v, valid, o, dout, lse, dq, B, H, Sq, \
-                                  Sk, G, dr, s);
+                                  Sk, G, scale, dr, s);
   if (dtype == 0) {
-    switch (D) { DQ_CASE(float, 16) DQ_CASE(float, 32) DQ_CASE(float, 64) }
+    switch (D) {
+      DQ_CASE(float, 16)
+      DQ_CASE(float, 32)
+      DQ_CASE(float, 64)
+      DQ_CASE(float, 128)
+    }
   } else if (dtype == 1) {
     switch (D) {
       DQ_CASE(__nv_bfloat16, 16)
       DQ_CASE(__nv_bfloat16, 32)
       DQ_CASE(__nv_bfloat16, 64)
+      DQ_CASE(__nv_bfloat16, 128)
     }
   }
 #undef DQ_CASE
@@ -339,22 +355,29 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                                   const uint8_t* valid, const void* o,
                                   const void* dout, const float* lse, void* dk,
                                   void* dv, int B, int H, int Sq, int Sk, int D,
-                                  int dtype, uint64_t seed, uint32_t threshold,
-                                  float inv_keep, void* stream) {
+                                  float scale, int dtype, uint64_t seed,
+                                  uint32_t threshold, float inv_keep,
+                                  void* stream) {
   if (bad_shape(B, H, Sq, Sk, threshold)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout dr{seed, threshold, inv_keep};
 #define DKV_CASE(T, DIM)                                                    \
   case DIM:                                                                 \
     return (int)launch_dkv<T, DIM>(q, k, v, valid, o, dout, lse, dk, dv, B, H, \
-                                   Sq, Sk, dr, s);
+                                   Sq, Sk, scale, dr, s);
   if (dtype == 0) {
-    switch (D) { DKV_CASE(float, 16) DKV_CASE(float, 32) DKV_CASE(float, 64) }
+    switch (D) {
+      DKV_CASE(float, 16)
+      DKV_CASE(float, 32)
+      DKV_CASE(float, 64)
+      DKV_CASE(float, 128)
+    }
   } else if (dtype == 1) {
     switch (D) {
       DKV_CASE(__nv_bfloat16, 16)
       DKV_CASE(__nv_bfloat16, 32)
       DKV_CASE(__nv_bfloat16, 64)
+      DKV_CASE(__nv_bfloat16, 128)
     }
   }
 #undef DKV_CASE

@@ -5,7 +5,9 @@
 // and bf16 (kernels/attention.py::dq_variant, dkv_variant): the decoder's
 // single query, whose self-attention sees 1 key and whose cross-attention
 // sees the 440 tokens of the VL memory. Calls with 16 or more queries take
-// the tensor-core kernels (bf16) or flash_attn_bwd.cu (float32).
+// the tensor-core kernels: flash_attn_bwd_dq_tc.cu and
+// flash_attn_bwd_dkv_tc.cu in bf16, the 3xTF32 flash_attn_bwd_dq_f32tc.cu
+// and flash_attn_bwd_dkv_f32tc.cu in float32.
 //
 // Replaces, for those calls, the TPU kernels of
 // reftr_tpu/kernels/attention.py driven by `_bwd` (:342-457):
@@ -21,7 +23,8 @@
 // again from the same Philox stream. Sums in f32; each gradient is rounded
 // once to the input dtype. Layout q, O, dO, dq [B, Sq, H, D]; k, v, dk, dv
 // [B, Sk, H, D], contiguous and 16-byte aligned, float32 or bf16; valid
-// [B, Sk] bool (nullable); lse [B, H, Sq] f32; D in {16, 32, 64}; Sq <= 15.
+// [B, Sk] bool (nullable); lse [B, H, Sq] f32; D in {16, 32, 64, 128};
+// Sq <= 15.
 //
 // Design. A short query side is bound by reading K and V and writing dK and
 // dV once each, so one launch does all three gradients and reads K and V
@@ -77,6 +80,11 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kSplit = 4;               // lanes per key
 constexpr int kGroupsPerWarp = 32 / kSplit;
 constexpr int kMaxQ = 15;               // queries a call may have
+
+// Bytes of shared memory: q and dO as f32, each warp's dq rows, lse, di
+// (77 KB at D = 128, which a block gets only by opting in above 48 KB).
+template <int D>
+constexpr int kSmemBytes = ((2 + kWarps) * kMaxQ * D + 2 * kMaxQ) * 4;
 
 // Keys a group takes per step: a lane's quarter of U rows of K (and of V)
 // holds at most 64 bytes.
@@ -170,10 +178,14 @@ flash_bwd_dec_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int U = kKeysPerGroup<T, D>;
   constexpr int kWarpKeys = kGroupsPerWarp * U;  // keys per warp and step
   constexpr int kBlockKeys = kWarps * kWarpKeys;
-  __shared__ __align__(16) float qs[kMaxQ][D];
-  __shared__ __align__(16) float dos[kMaxQ][D];
-  __shared__ float ls[kMaxQ], dis[kMaxQ];
-  __shared__ float wdq[kWarps][kMaxQ][D];  // each warp's share of dq / scale
+  extern __shared__ __align__(16) float smem[];
+  float(*qs)[D] = reinterpret_cast<float(*)[D]>(smem);
+  float(*dos)[D] = reinterpret_cast<float(*)[D]>(smem + kMaxQ * D);
+  // each warp's share of dq / scale
+  float(*wdq)[kMaxQ][D] =
+      reinterpret_cast<float(*)[kMaxQ][D]>(smem + 2 * kMaxQ * D);
+  float* ls = smem + (2 + kWarps) * kMaxQ * D;
+  float* dis = ls + kMaxQ;
 
   const int bh = blockIdx.x;  // b * H + h
   const int b = bh / H, h = bh % H;
@@ -331,31 +343,40 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const uint8_t* valid, const void* o, const void* dout,
                    const float* lse, void* dq, void* dk, void* dv, int B,
-                   int H, int Sq, int Sk, Dropout dr, cudaStream_t stream) {
+                   int H, int Sq, int Sk, float scale, Dropout dr,
+                   cudaStream_t stream) {
   const long blocks = (long)B * H;
   if (blocks > 0x7fffffffL) return cudaErrorInvalidConfiguration;
-  flash_bwd_dec_kernel<T, D><<<(unsigned)blocks, kThreads, 0, stream>>>(
+  constexpr int bytes = kSmemBytes<D>;
+  if (bytes > 48 * 1024) {  // above 48 KB only by opting in
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dec_kernel<T, D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+  }
+  flash_bwd_dec_kernel<T, D><<<(unsigned)blocks, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), valid, static_cast<const T*>(o),
       static_cast<const T*>(dout), lse, static_cast<T*>(dq),
-      static_cast<T*>(dk), static_cast<T*>(dv), H, Sq, Sk,
-      1.0f / sqrtf((float)D), dr);
+      static_cast<T*>(dk), static_cast<T*>(dv), H, Sq, Sk, scale, dr);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; 1 <= Sq <= 15; q, k, v, O, dO and the
-// gradients 16-byte aligned. Dropout as in flash_attn_fwd: threshold =
-// ceil(rate * 2^24) (0 = none), inv_keep = 1 / (1 - rate), the forward's
-// seed. Returns a cudaError_t (0 = launched).
+// gradients 16-byte aligned; scale = 1 / sqrt(the caller's head dim), which
+// is below D where the caller zero-pads the head dim up to D. Dropout as in
+// flash_attn_fwd: threshold = ceil(rate * 2^24) (0 = none), inv_keep =
+// 1 / (1 - rate), the forward's seed. Returns a cudaError_t (0 =
+// launched).
 extern "C" int flash_attn_bwd_dec(const void* q, const void* k, const void* v,
                                   const uint8_t* valid, const void* o,
                                   const void* dout, const float* lse, void* dq,
                                   void* dk, void* dv, int B, int H, int Sq,
-                                  int Sk, int D, int dtype, uint64_t seed,
-                                  uint32_t threshold, float inv_keep,
-                                  void* stream) {
+                                  int Sk, int D, float scale, int dtype,
+                                  uint64_t seed, uint32_t threshold,
+                                  float inv_keep, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sq > kMaxQ || Sk <= 0 ||
       threshold > (1u << 24))
     return (int)cudaErrorInvalidValue;
@@ -364,14 +385,20 @@ extern "C" int flash_attn_bwd_dec(const void* q, const void* k, const void* v,
 #define DEC_CASE(T, DIM)                                                    \
   case DIM:                                                                 \
     return (int)launch<T, DIM>(q, k, v, valid, o, dout, lse, dq, dk, dv, B, \
-                               H, Sq, Sk, dr, s);
+                               H, Sq, Sk, scale, dr, s);
   if (dtype == 0) {
-    switch (D) { DEC_CASE(float, 16) DEC_CASE(float, 32) DEC_CASE(float, 64) }
+    switch (D) {
+      DEC_CASE(float, 16)
+      DEC_CASE(float, 32)
+      DEC_CASE(float, 64)
+      DEC_CASE(float, 128)
+    }
   } else if (dtype == 1) {
     switch (D) {
       DEC_CASE(__nv_bfloat16, 16)
       DEC_CASE(__nv_bfloat16, 32)
       DEC_CASE(__nv_bfloat16, 64)
+      DEC_CASE(__nv_bfloat16, 128)
     }
   }
 #undef DEC_CASE

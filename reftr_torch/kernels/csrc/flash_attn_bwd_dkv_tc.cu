@@ -76,56 +76,6 @@ constexpr int smem_bytes() {
   return (2 * kKeys + 6 * kTileQ) * Tile<D>::kStride * 2 + 4 * kTileQ * 4;
 }
 
-// The keep decisions of this lane's 8 elements of a 16-query chunk, bit
-// n * 4 + e for key keys[e / 2] and query row0 - bh * Sq + n * 8 + e % 2
-// (row0 = bh * Sq + the lane's first query of the chunk). Where
-// Sk % 4 == 0, the four keys 4a..4a+3 of one query share one Philox
-// counter, and they sit on four lanes (lane / 4 = 4a' + p, p = 0..3, same
-// lane % 4): each of the four draws two of the group's eight counters, and
-// four shuffles of the decisions hand every lane those of its key p: one
-// Philox call per 4 elements. Elsewhere one call per element.
-__device__ __forceinline__ uint32_t chunk_keep(const Dropout& dr,
-                                               uint64_t row0, int Sk,
-                                               const int (&keys)[2]) {
-  auto kept = [&](uint32_t word) { return flash::kept(word, dr); };
-  // combo m = r * 4 + n * 2 + s: key row r, query row0 + n * 8 + s, bit
-  // n * 4 + r * 2 + s
-  auto element = [&](int m, int key) {
-    return (row0 + ((m >> 1) & 1) * 8 + (m & 1)) * (uint64_t)Sk + key;
-  };
-  auto bit = [](int m) { return ((m >> 1) & 1) * 4 + (m >> 2) * 2 + (m & 1); };
-  uint32_t bits = 0u;
-  if ((Sk & 3) == 0) {
-    const int lane = threadIdx.x % 32;
-    const int p = (lane / 4) & 3;  // this lane's key within its four
-    // the 4 decisions of each of this lane's counters (combos 2p, 2p + 1)
-    // at bit s * 4 + word of `own`; lane q of the group holds combos 2q
-    // and 2q + 1, and this lane takes word p of each
-    uint32_t own = 0u;
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const int m = 2 * p + s;
-      const int key4 = (keys[0] & ~3) + 8 * (m >> 2);  // no dynamic index
-      const uint4 w = flash::philox4(dr.seed, element(m, key4) >> 2);
-      own |= (kept(w.x) | kept(w.y) << 1 | kept(w.z) << 2 | kept(w.w) << 3)
-             << (4 * s);
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const uint32_t got = __shfl_sync(0xffffffffu, own, lane + 4 * (q - p));
-#pragma unroll
-      for (int s = 0; s < 2; ++s)
-        bits |= ((got >> (4 * s + p)) & 1u) << bit(2 * q + s);
-    }
-  } else {
-#pragma unroll
-    for (int m = 0; m < 8; ++m)
-      bits |= kept(flash::philox_word(dr.seed, element(m, keys[m >> 2])))
-              << bit(m);
-  }
-  return bits;
-}
-
 template <int D>
 __global__ void __launch_bounds__(kThreads, D <= 32 ? 4 : 2)
 flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -215,8 +165,9 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (dr.threshold != 0u) {
 #pragma unroll
       for (int cq = 0; cq < kTileQ / 16; ++cq)
-        keep |= chunk_keep(dr, (uint64_t)bh * Sq + t * kTileQ + cq * 16 + c,
-                           Sk, keys)
+        keep |= flash_tc::chunk_keep(
+                    dr, (uint64_t)bh * Sq + t * kTileQ + cq * 16 + c, Sk,
+                    keys)
                 << (cq * 8);
     }
     flash_tc::cp_async_wait<1>();  // tile t (and K, V) arrived
@@ -328,7 +279,7 @@ template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const uint8_t* valid, const void* o, const void* dout,
                    const float* lse, void* dk, void* dv, int B, int H, int Sq,
-                   int Sk, Dropout dr, cudaStream_t stream) {
+                   int Sk, float scale, Dropout dr, cudaStream_t stream) {
   const int n_kt = (Sk + kKeys - 1) / kKeys;
   const long blocks = (long)B * H * n_kt;
   if (blocks > 0x7fffffffL) return cudaErrorInvalidConfiguration;
@@ -343,22 +294,24 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), valid, static_cast<const bf16*>(o),
       static_cast<const bf16*>(dout), lse, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), H, Sq, Sk, n_kt, 1.0f / sqrtf((float)D), dr);
+      static_cast<bf16*>(dv), H, Sq, Sk, n_kt, scale, dr);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// bf16 only; q, k, v, O, dO, dk, dv 16-byte aligned. Dropout as in
-// flash_attn_fwd, with the forward's seed. Returns a cudaError_t
-// (0 = launched).
+// bf16 only; q, k, v, O, dO, dk, dv 16-byte aligned; D in {16, 32, 64,
+// 128}; scale = 1 / sqrt(the caller's head dim), which is below D where
+// the caller zero-pads the head dim up to D. Dropout as in flash_attn_fwd,
+// with the forward's seed. Returns a cudaError_t (0 = launched).
 extern "C" int flash_attn_bwd_dkv_tc(const void* q, const void* k,
                                      const void* v, const uint8_t* valid,
                                      const void* o, const void* dout,
                                      const float* lse, void* dk, void* dv,
                                      int B, int H, int Sq, int Sk, int D,
-                                     uint64_t seed, uint32_t threshold,
-                                     float inv_keep, void* stream) {
+                                     float scale, uint64_t seed,
+                                     uint32_t threshold, float inv_keep,
+                                     void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || threshold > (1u << 24))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -366,13 +319,16 @@ extern "C" int flash_attn_bwd_dkv_tc(const void* q, const void* k,
   switch (D) {
     case 16:
       return (int)launch<16>(q, k, v, valid, o, dout, lse, dk, dv, B, H, Sq,
-                             Sk, dr, s);
+                             Sk, scale, dr, s);
     case 32:
       return (int)launch<32>(q, k, v, valid, o, dout, lse, dk, dv, B, H, Sq,
-                             Sk, dr, s);
+                             Sk, scale, dr, s);
     case 64:
       return (int)launch<64>(q, k, v, valid, o, dout, lse, dk, dv, B, H, Sq,
-                             Sk, dr, s);
+                             Sk, scale, dr, s);
+    case 128:
+      return (int)launch<128>(q, k, v, valid, o, dout, lse, dk, dv, B, H, Sq,
+                              Sk, scale, dr, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

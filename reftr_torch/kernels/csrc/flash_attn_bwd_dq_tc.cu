@@ -11,7 +11,8 @@
 // (flash_common.cuh) and the logit rounded as the forward rounds it,
 // including a fully masked row's +1e9 shift. Layout q, O, dO, dq
 // [B, Sq, H, D]; k, v [B, Sk, H, D], bf16, contiguous and 16-byte aligned;
-// valid [B, Sk] bool (nullable); lse [B, H, Sq] f32; D in {16, 32, 64}.
+// valid [B, Sk] bool (nullable); lse [B, H, Sq] f32; D in {16, 32, 64,
+// 128}.
 // Keys past Sk get p = 0; query rows past Sq are computed (on zeros) and
 // not written.
 //
@@ -266,7 +267,7 @@ template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const uint8_t* valid, const void* o, const void* dout,
                    const float* lse, void* dq, int B, int H, int Sq, int Sk,
-                   Dropout dr, cudaStream_t stream) {
+                   float scale, Dropout dr, cudaStream_t stream) {
   const int n_qt = (Sq + kRows - 1) / kRows;
   const long blocks = (long)B * H * n_qt;
   if (blocks > 0x7fffffffL) return cudaErrorInvalidConfiguration;
@@ -281,22 +282,23 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), valid, static_cast<const bf16*>(o),
       static_cast<const bf16*>(dout), lse, static_cast<bf16*>(dq), H, Sq, Sk,
-      n_qt, 1.0f / sqrtf((float)D), dr);
+      n_qt, scale, dr);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// bf16 only; q, k, v, O, dO, dq 16-byte aligned. Dropout as in
-// flash_attn_fwd, with the forward's seed. Returns a cudaError_t
-// (0 = launched).
+// bf16 only; q, k, v, O, dO, dq 16-byte aligned; D in {16, 32, 64, 128};
+// scale = 1 / sqrt(the caller's head dim), which is below D where the
+// caller zero-pads the head dim up to D. Dropout as in flash_attn_fwd, with
+// the forward's seed. Returns a cudaError_t (0 = launched).
 extern "C" int flash_attn_bwd_dq_tc(const void* q, const void* k,
                                     const void* v, const uint8_t* valid,
                                     const void* o, const void* dout,
                                     const float* lse, void* dq, int B, int H,
-                                    int Sq, int Sk, int D, uint64_t seed,
-                                    uint32_t threshold, float inv_keep,
-                                    void* stream) {
+                                    int Sq, int Sk, int D, float scale,
+                                    uint64_t seed, uint32_t threshold,
+                                    float inv_keep, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || threshold > (1u << 24))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -304,13 +306,16 @@ extern "C" int flash_attn_bwd_dq_tc(const void* q, const void* k,
   switch (D) {
     case 16:
       return (int)launch<16>(q, k, v, valid, o, dout, lse, dq, B, H, Sq, Sk,
-                             dr, s);
+                             scale, dr, s);
     case 32:
       return (int)launch<32>(q, k, v, valid, o, dout, lse, dq, B, H, Sq, Sk,
-                             dr, s);
+                             scale, dr, s);
     case 64:
       return (int)launch<64>(q, k, v, valid, o, dout, lse, dq, B, H, Sq, Sk,
-                             dr, s);
+                             scale, dr, s);
+    case 128:
+      return (int)launch<128>(q, k, v, valid, o, dout, lse, dq, B, H, Sq, Sk,
+                              scale, dr, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

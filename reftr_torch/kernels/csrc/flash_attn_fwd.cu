@@ -1,10 +1,12 @@
 // Flash-attention forward for Hopper (sm_90a), plain C interface for ctypes:
 // the SIMT variant of K1.
 //
-// What it serves: float32 calls with 16 or more queries (on tensor cores
-// float32 would be TF32, outside the 1e-5 tolerance). bf16 calls with 16 or
-// more queries take the tensor-core kernel, flash_attn_fwd_tc.cu, and every
-// call with fewer, the decoder's single query, takes flash_attn_fwd_dec.cu
+// What it serves: float32 calls with 16 or more queries, until a 3xTF32
+// forward on the tensor cores takes them as flash_attn_bwd_dq_f32tc.cu and
+// flash_attn_bwd_dkv_f32tc.cu took the backward's (plain TF32 would break
+// the 1e-5 tolerance). bf16 calls with 16 or more queries take the
+// tensor-core kernel, flash_attn_fwd_tc.cu, and every call with fewer, the
+// decoder's single query, takes flash_attn_fwd_dec.cu
 // (kernels/attention.py::fwd_variant).
 //
 // Replaces the TPU kernel `_flash_kernel` of reftr_tpu/kernels/attention.py
@@ -66,8 +68,11 @@ using flash::from_f32;
 using flash::to_f32;
 
 constexpr int kThreads = 128;  // threads per block
-constexpr int kTileK = 64;     // keys staged in shared memory per step
 constexpr int kChunk = 8;      // keys per online-softmax rescale
+// keys staged in shared memory per step: 64, or 32 at D = 128, where 64
+// rows of K and V would pass the 48 KB of static shared memory
+template <int D>
+constexpr int kTileK = D <= 64 ? 64 : 32;
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -78,9 +83,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  uint32_t threshold, float inv_keep) {
   // rows padded to D + 1 floats: the G threads of a row read G different
   // keys at the same d, which would otherwise share one bank
-  __shared__ float ks[kTileK][D + 1];
-  __shared__ float vs[kTileK][D + 1];
-  __shared__ float bs[kTileK];
+  constexpr int kTile = kTileK<D>;
+  __shared__ float ks[kTile][D + 1];
+  __shared__ float vs[kTile][D + 1];
+  __shared__ float bs[kTile];
 
   const int rows = kThreads / G;
   const int bh = blockIdx.x / n_qt;  // b * H + h
@@ -111,8 +117,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const T* kb = k + (long)b * Sk * row_stride + h * D;
   const T* vb = v + (long)b * Sk * row_stride + h * D;
-  for (int k0 = 0; k0 < Sk; k0 += kTileK) {
-    const int nk = min(kTileK, Sk - k0);
+  for (int k0 = 0; k0 < Sk; k0 += kTile) {
+    const int nk = min(kTile, Sk - k0);
     __syncthreads();  // the previous tile is consumed
     for (int i = tid; i < nk * D; i += kThreads) {
       const int j = i / D, d = i % D;
@@ -190,12 +196,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const uint8_t* valid, void* out, float* lse, int B, int H,
-                   int Sq, int Sk, int G, Dropout dr, cudaStream_t stream) {
+                   int Sq, int Sk, int G, float scale, Dropout dr,
+                   cudaStream_t stream) {
   const int rows = kThreads / G;
   const int n_qt = (Sq + rows - 1) / rows;
   const long blocks = (long)B * H * n_qt;
   if (blocks > 0x7fffffffL) return cudaErrorInvalidConfiguration;
-  const float scale = 1.0f / sqrtf((float)D);
   flash_fwd_kernel<T, D><<<(unsigned)blocks, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), valid, static_cast<T*>(out), lse, H, Sq, Sk,
@@ -206,18 +212,21 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v,
                        const uint8_t* valid, void* out, float* lse, int B,
-                       int H, int Sq, int Sk, int D, int G, Dropout dr,
-                       cudaStream_t stream) {
+                       int H, int Sq, int Sk, int D, int G, float scale,
+                       Dropout dr, cudaStream_t stream) {
   switch (D) {
     case 16:
-      return launch<T, 16>(q, k, v, valid, out, lse, B, H, Sq, Sk, G, dr,
-                            stream);
+      return launch<T, 16>(q, k, v, valid, out, lse, B, H, Sq, Sk, G, scale,
+                           dr, stream);
     case 32:
-      return launch<T, 32>(q, k, v, valid, out, lse, B, H, Sq, Sk, G, dr,
-                            stream);
+      return launch<T, 32>(q, k, v, valid, out, lse, B, H, Sq, Sk, G, scale,
+                           dr, stream);
     case 64:
-      return launch<T, 64>(q, k, v, valid, out, lse, B, H, Sq, Sk, G, dr,
-                            stream);
+      return launch<T, 64>(q, k, v, valid, out, lse, B, H, Sq, Sk, G, scale,
+                           dr, stream);
+    case 128:
+      return launch<T, 128>(q, k, v, valid, out, lse, B, H, Sq, Sk, G, scale,
+                            dr, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -225,13 +234,16 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. G: threads per query row, a power of two
-// in [1, 32]. Dropout: threshold = ceil(rate * 2^24) (0 = none), inv_keep =
+// dtype: 0 = float32, 1 = bfloat16. D in {16, 32, 64, 128}; scale = 1 /
+// sqrt(the caller's head dim), which is below D where the caller zero-pads
+// the head dim up to D. G: threads per query row, a power of two in
+// [1, 32]. Dropout: threshold = ceil(rate * 2^24) (0 = none), inv_keep =
 // 1 / (1 - rate). Returns a cudaError_t (0 = launched).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               const uint8_t* valid, void* out, float* lse, int B,
-                              int H, int Sq, int Sk, int D, int dtype, int G,
-                              uint64_t seed, uint32_t threshold, float inv_keep,
+                              int H, int Sq, int Sk, int D, float scale,
+                              int dtype, int G, uint64_t seed,
+                              uint32_t threshold, float inv_keep,
                               void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || G < 1 || G > 32 ||
       (G & (G - 1)) != 0 || threshold > (1u << 24))
@@ -240,9 +252,9 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   const Dropout dr{seed, threshold, inv_keep};
   if (dtype == 0)
     return (int)dispatch_d<float>(q, k, v, valid, out, lse, B, H, Sq, Sk, D, G,
-                                  dr, s);
+                                  scale, dr, s);
   if (dtype == 1)
     return (int)dispatch_d<__nv_bfloat16>(q, k, v, valid, out, lse, B, H, Sq,
-                                          Sk, D, G, dr, s);
+                                          Sk, D, G, scale, dr, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -17,7 +17,8 @@
 // input dtype, and the row logsumexp on request (training needs it).
 // Layout q [B, Sq, H, D], k/v [B, Sk, H, D], out [B, Sq, H, D], contiguous
 // and 16-byte aligned, float32 or bf16; valid [B, Sk] bool (nullable); lse
-// [B, H, Sq] f32 (nullable); D in {16, 32, 64}.
+// [B, H, Sq] f32 (nullable); D in {16, 32, 64, 128} (at D = 128 a
+// thread's q, accumulator and key rows pass the 255 registers and spill).
 //
 // Design. A short query side is bound by reading K and V once, and a
 // 64-row tile would be mostly empty rows, so:
@@ -215,7 +216,8 @@ flash_fwd_dec_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const uint8_t* valid, void* out, float* lse, int B, int H,
-                   int Sq, int Sk, Dropout dr, cudaStream_t stream) {
+                   int Sq, int Sk, float scale, Dropout dr,
+                   cudaStream_t stream) {
   const long blocks = (long)B * H * Sq;
   if (blocks > 0x7fffffffL) return cudaErrorInvalidConfiguration;
   // each warp's share of the keys, a multiple of 4 so that a lane's 4 keys
@@ -225,22 +227,28 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   flash_fwd_dec_kernel<T, D><<<(unsigned)blocks, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), valid, static_cast<T*>(out), lse, H, Sq, Sk,
-      quarter, 1.0f / sqrtf((float)D), dr);
+      quarter, scale, dr);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v,
                        const uint8_t* valid, void* out, float* lse, int B,
-                       int H, int Sq, int Sk, int D, Dropout dr,
+                       int H, int Sq, int Sk, int D, float scale, Dropout dr,
                        cudaStream_t stream) {
   switch (D) {
     case 16:
-      return launch<T, 16>(q, k, v, valid, out, lse, B, H, Sq, Sk, dr, stream);
+      return launch<T, 16>(q, k, v, valid, out, lse, B, H, Sq, Sk, scale, dr,
+                           stream);
     case 32:
-      return launch<T, 32>(q, k, v, valid, out, lse, B, H, Sq, Sk, dr, stream);
+      return launch<T, 32>(q, k, v, valid, out, lse, B, H, Sq, Sk, scale, dr,
+                           stream);
     case 64:
-      return launch<T, 64>(q, k, v, valid, out, lse, B, H, Sq, Sk, dr, stream);
+      return launch<T, 64>(q, k, v, valid, out, lse, B, H, Sq, Sk, scale, dr,
+                           stream);
+    case 128:
+      return launch<T, 128>(q, k, v, valid, out, lse, B, H, Sq, Sk, scale, dr,
+                            stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -248,23 +256,26 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; q, k, v, out 16-byte aligned. Dropout
-// as in flash_attn_fwd: threshold = ceil(rate * 2^24) (0 = none), inv_keep
-// = 1 / (1 - rate). Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16; q, k, v, out 16-byte aligned; scale =
+// 1 / sqrt(the caller's head dim), which is below D where the caller
+// zero-pads the head dim up to D. Dropout as in flash_attn_fwd: threshold =
+// ceil(rate * 2^24) (0 = none), inv_keep = 1 / (1 - rate). Returns a
+// cudaError_t (0 = launched).
 extern "C" int flash_attn_fwd_dec(const void* q, const void* k, const void* v,
                                   const uint8_t* valid, void* out, float* lse,
                                   int B, int H, int Sq, int Sk, int D,
-                                  int dtype, uint64_t seed, uint32_t threshold,
-                                  float inv_keep, void* stream) {
+                                  float scale, int dtype, uint64_t seed,
+                                  uint32_t threshold, float inv_keep,
+                                  void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || threshold > (1u << 24))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout dr{seed, threshold, inv_keep};
   if (dtype == 0)
     return (int)dispatch_d<float>(q, k, v, valid, out, lse, B, H, Sq, Sk, D,
-                                  dr, s);
+                                  scale, dr, s);
   if (dtype == 1)
     return (int)dispatch_d<__nv_bfloat16>(q, k, v, valid, out, lse, B, H, Sq,
-                                          Sk, D, dr, s);
+                                          Sk, D, scale, dr, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -9,10 +9,10 @@
 // dropout after the denominator, the row logsumexp on request; layout q
 // [B, Sq, H, D], k/v [B, Sk, H, D], out [B, Sq, H, D] bf16 and contiguous;
 // valid [B, Sk] bool (nullable); lse [B, H, Sq] f32 (nullable); D in
-// {16, 32, 64}. The logit, the masked-row shift and the Philox dropout mask
-// are flash_common.cuh's, so the mask is bit for bit the SIMT kernel's and
-// philox_keep_plain's. Keys past Sk leave the sum; query rows past Sq are
-// computed (on zeros) and not written.
+// {16, 32, 64, 128}. The logit, the masked-row shift and the Philox
+// dropout mask are flash_common.cuh's, so the mask is bit for bit the SIMT
+// kernel's and philox_keep_plain's. Keys past Sk leave the sum; query rows
+// past Sq are computed (on zeros) and not written.
 //
 // Design. One block of one warpgroup (4 warps, 128 threads) per
 // (batch * head, tile of 64 queries); each warp owns 16 query rows.
@@ -50,6 +50,8 @@
 // - The key bias row (0 or -1e9) is read a tile ahead into a register and
 //   stored beside the tile, so no warp waits on that global load; the
 //   masked-row vote runs while the first tiles are in flight.
+// - The tiles live in dynamic shared memory: 87 KB at D = 128, which a
+//   block gets only by opting in above 48 KB.
 //
 // Bound on an NVIDIA H100 80GB HBM3 at its 700 W power limit (data sheet):
 // at the VL encoder's shape (B=8, H=8, S=440, D=32) the two products are
@@ -75,6 +77,12 @@ constexpr int kRows = 64;      // query rows per block, 16 per warp
 constexpr int kTileK = 64;     // keys per staged tile
 
 template <int D>
+constexpr int smem_bytes() {
+  // Q, then two stages of K and V (bf16), then two of the key bias
+  return (kRows + 4 * kTileK) * Tile<D>::kStride * 2 + 2 * kTileK * 4;
+}
+
+template <int D>
 __global__ void __launch_bounds__(kThreads, D <= 32 ? 4 : 2)
 flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v,
@@ -84,10 +92,12 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int kS = Tile<D>::kStride;
   constexpr int kK = D / 16;  // k-steps of S = Q K^T
   constexpr int kN = D / 8;   // n-tiles of O
-  __shared__ __align__(16) bf16 qs[kRows * kS];
-  __shared__ __align__(16) bf16 ks[2][kTileK * kS];
-  __shared__ __align__(16) bf16 vs[2][kTileK * kS];
-  __shared__ float bs[2][kTileK];
+  constexpr int kTile = kTileK * kS;  // elements of one staged key tile
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* ks = qs + kRows * kS;  // [2][kTile]
+  bf16* vs = ks + 2 * kTile;   // [2][kTile]
+  float* bs = reinterpret_cast<float*>(vs + 2 * kTile);  // [2][kTileK]
 
   const int bh = blockIdx.x / n_qt;  // b * H + h
   const int q0 = (blockIdx.x % n_qt) * kRows;
@@ -103,10 +113,12 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   auto stage = [&](int t) {
     const int buf = t & 1, k0 = t * kTileK, nk = min(kTileK, Sk - k0);
-    flash_tc::load_tile<D, kTileK, kThreads>(ks[buf], kb + k0 * row_stride,
-                                             row_stride, nk);
-    flash_tc::load_tile<D, kTileK, kThreads>(vs[buf], vb + k0 * row_stride,
-                                             row_stride, nk);
+    flash_tc::load_tile<D, kTileK, kThreads>(ks + buf * kTile,
+                                             kb + k0 * row_stride, row_stride,
+                                             nk);
+    flash_tc::load_tile<D, kTileK, kThreads>(vs + buf * kTile,
+                                             vb + k0 * row_stride, row_stride,
+                                             nk);
   };
   // the bias of key tile t's key tid (threads below kTileK): read into a
   // register a tile ahead and stored at the end of the tile before, so no
@@ -124,7 +136,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   flash_tc::cp_async_commit();
   // with the first tiles in flight: the masked-row shift and tile 0's bias
   const float shift = flash::masked_row_shift(valid, b, Sk);
-  if (tid < kTileK) bs[0][tid] = key_bias(0);
+  if (tid < kTileK) bs[tid] = key_bias(0);
 
   // this lane's two rows: warp * 16 + lane / 4 and 8 below it
   int rows[2];
@@ -168,7 +180,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int kk = 0; kk < kK; ++kk) {
         uint32_t bk[4];
-        flash_tc::load_b_rows<D>(bk, ks[buf], n2 * 16, kk * 16);
+        flash_tc::load_b_rows<D>(bk, ks + buf * kTile, n2 * 16, kk * 16);
         flash_tc::mma_bf16(s[2 * n2], qa[kk], bk[0], bk[1]);
         flash_tc::mma_bf16(s[2 * n2 + 1], qa[kk], bk[2], bk[3]);
       }
@@ -180,8 +192,8 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int n = 0; n < kTileK / 8; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float x =
-            flash::logit(s[n][e], scale, bs[buf][n * 8 + c + (e & 1)], shift);
+        const float x = flash::logit(
+            s[n][e], scale, bs[buf * kTileK + n * 8 + c + (e & 1)], shift);
         s[n][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -231,12 +243,12 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int n2 = 0; n2 < kN / 2; ++n2) {
         uint32_t bv[4];
-        flash_tc::load_b_cols<D>(bv, vs[buf], kt * 16, n2 * 16);
+        flash_tc::load_b_cols<D>(bv, vs + buf * kTile, kt * 16, n2 * 16);
         flash_tc::mma_bf16(o[2 * n2], pa, bv[0], bv[1]);
         flash_tc::mma_bf16(o[2 * n2 + 1], pa, bv[2], bv[3]);
       }
     }
-    if (next && tid < kTileK) bs[(t + 1) & 1][tid] = next_bias;
+    if (next && tid < kTileK) bs[((t + 1) & 1) * kTileK + tid] = next_bias;
     __syncthreads();  // every warp is done with buffer t & 1
   }
 
@@ -259,38 +271,54 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const uint8_t* valid, void* out, float* lse, int B, int H,
-                   int Sq, int Sk, Dropout dr, cudaStream_t stream) {
+                   int Sq, int Sk, float scale, Dropout dr,
+                   cudaStream_t stream) {
   const int n_qt = (Sq + kRows - 1) / kRows;
   const long blocks = (long)B * H * n_qt;
   if (blocks > 0x7fffffffL) return cudaErrorInvalidConfiguration;
-  flash_fwd_tc_kernel<D><<<(unsigned)blocks, kThreads, 0, stream>>>(
+  constexpr int bytes = smem_bytes<D>();
+  if (bytes > 48 * 1024) {  // above 48 KB only by opting in
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (err != cudaSuccess) return err;
+  }
+  flash_fwd_tc_kernel<D><<<(unsigned)blocks, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), valid, static_cast<bf16*>(out), lse, H, Sq,
-      Sk, n_qt, 1.0f / sqrtf((float)D), dr);
+      Sk, n_qt, scale, dr);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// bf16 only; q, k, v, out 16-byte aligned. Dropout as in flash_attn_fwd:
-// threshold = ceil(rate * 2^24) (0 = none), inv_keep = 1 / (1 - rate).
-// Returns a cudaError_t (0 = launched).
+// bf16 only; q, k, v, out 16-byte aligned; scale = 1 / sqrt(the caller's
+// head dim), which is below D where the caller zero-pads the head dim up to
+// D. Dropout as in flash_attn_fwd: threshold = ceil(rate * 2^24) (0 =
+// none), inv_keep = 1 / (1 - rate). Returns a cudaError_t (0 = launched).
 extern "C" int flash_attn_fwd_tc(const void* q, const void* k, const void* v,
                                  const uint8_t* valid, void* out, float* lse,
                                  int B, int H, int Sq, int Sk, int D,
-                                 uint64_t seed, uint32_t threshold,
-                                 float inv_keep, void* stream) {
+                                 float scale, uint64_t seed,
+                                 uint32_t threshold, float inv_keep,
+                                 void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || threshold > (1u << 24))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout dr{seed, threshold, inv_keep};
   switch (D) {
     case 16:
-      return (int)launch<16>(q, k, v, valid, out, lse, B, H, Sq, Sk, dr, s);
+      return (int)launch<16>(q, k, v, valid, out, lse, B, H, Sq, Sk, scale,
+                             dr, s);
     case 32:
-      return (int)launch<32>(q, k, v, valid, out, lse, B, H, Sq, Sk, dr, s);
+      return (int)launch<32>(q, k, v, valid, out, lse, B, H, Sq, Sk, scale,
+                             dr, s);
     case 64:
-      return (int)launch<64>(q, k, v, valid, out, lse, B, H, Sq, Sk, dr, s);
+      return (int)launch<64>(q, k, v, valid, out, lse, B, H, Sq, Sk, scale,
+                             dr, s);
+    case 128:
+      return (int)launch<128>(q, k, v, valid, out, lse, B, H, Sq, Sk, scale,
+                              dr, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

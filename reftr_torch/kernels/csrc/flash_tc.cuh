@@ -2,8 +2,10 @@
 // (flash_attn_fwd_tc.cu, flash_attn_bwd_dq_tc.cu, flash_attn_bwd_dkv_tc.cu):
 // asynchronous tile copies, ldmatrix, the warp-level bf16 product mma.sync
 // m16n8k16 with f32 accumulation (sm_80 and later, so sm_90a too), and the
-// dropout decisions of a key tile in the accumulator layout with queries as
-// M (keep_bits).
+// dropout decisions of a tile in the accumulator layout with queries as M
+// (keep_bits) or keys as M (chunk_keep). The float32 kernels' 3xTF32
+// pieces (flash_tf32.cuh) use the copies and the dropout decisions: the
+// accumulator of m16n8k8 has m16n8k16's layout.
 //
 // Fragment layouts of mma.m16n8k16 (PTX ISA, "Matrix Fragments for
 // mma.m16n8k16"), for lane l of a warp, g = l / 4 and c = (l % 4) * 2:
@@ -209,6 +211,57 @@ __device__ __forceinline__ uint32_t keep_bits(const uint64_t (&n_row)[2],
         const uint64_t el = n_row[e >> 1] + k0 + n * 8 + c + (e & 1);
         bits |= flash::kept(flash::philox_word(dr.seed, el), dr) << (n * 4 + e);
       }
+  }
+  return bits;
+}
+
+// The keep decisions of this lane's 8 elements of a 16-query chunk in the
+// layout of an accumulator with keys as M and queries as N (K3-TC's and
+// K3-f32tc's S^T and dP^T): bit n * 4 + e for key keys[e / 2] and query
+// row0 - bh * Sq + n * 8 + e % 2 (row0 = bh * Sq + the lane's first query
+// of the chunk). Where Sk % 4 == 0, the four keys 4a..4a+3 of one query
+// share one Philox counter, and they sit on four lanes (lane / 4 = 4a' + p,
+// p = 0..3, same lane % 4): each of the four draws two of the group's eight
+// counters, and four shuffles of the decisions hand every lane those of its
+// key p: one Philox call per 4 elements. Elsewhere one call per element.
+__device__ __forceinline__ uint32_t chunk_keep(const flash::Dropout& dr,
+                                               uint64_t row0, int Sk,
+                                               const int (&keys)[2]) {
+  auto kept = [&](uint32_t word) { return flash::kept(word, dr); };
+  // combo m = r * 4 + n * 2 + s: key row r, query row0 + n * 8 + s, bit
+  // n * 4 + r * 2 + s
+  auto element = [&](int m, int key) {
+    return (row0 + ((m >> 1) & 1) * 8 + (m & 1)) * (uint64_t)Sk + key;
+  };
+  auto bit = [](int m) { return ((m >> 1) & 1) * 4 + (m >> 2) * 2 + (m & 1); };
+  uint32_t bits = 0u;
+  if ((Sk & 3) == 0) {
+    const int lane = threadIdx.x % 32;
+    const int p = (lane / 4) & 3;  // this lane's key within its four
+    // the 4 decisions of each of this lane's counters (combos 2p, 2p + 1)
+    // at bit s * 4 + word of `own`; lane q of the group holds combos 2q
+    // and 2q + 1, and this lane takes word p of each
+    uint32_t own = 0u;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int m = 2 * p + s;
+      const int key4 = (keys[0] & ~3) + 8 * (m >> 2);  // no dynamic index
+      const uint4 w = flash::philox4(dr.seed, element(m, key4) >> 2);
+      own |= (kept(w.x) | kept(w.y) << 1 | kept(w.z) << 2 | kept(w.w) << 3)
+             << (4 * s);
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint32_t got = __shfl_sync(0xffffffffu, own, lane + 4 * (q - p));
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+        bits |= ((got >> (4 * s + p)) & 1u) << bit(2 * q + s);
+    }
+  } else {
+#pragma unroll
+    for (int m = 0; m < 8; ++m)
+      bits |= kept(flash::philox_word(dr.seed, element(m, keys[m >> 2])))
+              << bit(m);
   }
   return bits;
 }

@@ -14,12 +14,14 @@ import torch
 
 from reftr_tpu.kernels.attention import _xla_attention, fused_attention
 from reftr_tpu.nn.attention import MultiHeadAttention as JaxMHA
-from reftr_torch.kernels.attention import (_ARGTYPES, TC_MIN_ROWS,
+from reftr_torch.kernels.attention import (_ARGTYPES, HEAD_DIMS,
+                                           MAX_HEAD_DIM, TC_MIN_ROWS,
                                            attention_bwd_plain,
                                            attention_plain, dkv_variant,
                                            dq_variant, flash_attention,
                                            flash_attn_bwd_dkv,
-                                           flash_attn_bwd_dq, fwd_variant)
+                                           flash_attn_bwd_dq, fwd_variant,
+                                           padded_head_dim)
 from reftr_torch.nn.attention import MultiHeadAttention, set_plain_attention
 from torch_parity_utils import close, load_port, random_flax_params, t
 
@@ -146,65 +148,145 @@ def test_mha_rejects_indivisible_width():
         MultiHeadAttention(30, 4)
 
 
-# (Sq, Sk) of refcoco_det's four attention call sites at 640 px
-CALL_SITES = {"vl_encoder_self": (440, 440), "decoder_self": (1, 1),
-              "decoder_cross": (1, 440), "bert_self": (40, 40)}
+# (Sq, Sk, head dim) of refcoco_det's four attention call sites at 640 px
+CALL_SITES = {"vl_encoder_self": (440, 440, 32), "decoder_self": (1, 1, 32),
+              "decoder_cross": (1, 440, 32), "bert_self": (40, 40, 64)}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("site", sorted(CALL_SITES))
 def test_variant_rule_at_the_call_sites(site, dtype):
-    """bf16 BERT and encoder calls on the tensor cores, float32 ones on
-    SIMT; the decoder's single query on the decode kernels (K1's, and the
-    one backward kernel for K2 and K3) in either dtype."""
-    sq, sk = CALL_SITES[site]
-    want = ("dec" if site.startswith("decoder")
-            else "tc" if dtype == torch.bfloat16 else "simt")
-    assert fwd_variant(sq, dtype) == want
-    assert dq_variant(sq, dtype) == want
-    assert dkv_variant(sq, sk, dtype) == want
+    """bf16 BERT and encoder calls on the tensor cores; float32 ones on
+    SIMT for K1 and on the 3xTF32 tensor-core kernels for K2 and K3; the
+    decoder's single query on the decode kernels (K1's, and the one
+    backward kernel for K2 and K3) in either dtype."""
+    sq, sk, d = CALL_SITES[site]
+    dec = site.startswith("decoder")
+    bf16 = dtype == torch.bfloat16
+    assert fwd_variant(sq, dtype, d) == ("dec" if dec else
+                                         "tc" if bf16 else "simt")
+    want = "dec" if dec else "tc" if bf16 else "tf32x3"
+    assert dq_variant(sq, dtype, d) == want
+    assert dkv_variant(sq, sk, dtype, d) == want
 
 
 def test_variant_rule_boundary():
     bf16, f32 = torch.bfloat16, torch.float32
     assert TC_MIN_ROWS == 16
-    assert fwd_variant(15, bf16) == "dec"
-    assert fwd_variant(16, bf16) == "tc"
-    assert fwd_variant(16, f32) == "simt"
-    assert fwd_variant(8540, f32) == "simt"
-    assert dkv_variant(16, 16, bf16) == "tc"
-    assert dkv_variant(15, 440, bf16) == "dec"
-    assert dkv_variant(15, 15, f32) == "dec"
-    assert dkv_variant(440, 15, bf16) == "simt"
-    assert dkv_variant(440, 440, f32) == "simt"
+    assert fwd_variant(15, bf16, 32) == "dec"
+    assert fwd_variant(16, bf16, 32) == "tc"
+    assert fwd_variant(16, f32, 32) == "simt"
+    assert fwd_variant(8540, f32, 32) == "simt"
+    assert dkv_variant(16, 16, bf16, 32) == "tc"
+    assert dkv_variant(15, 440, bf16, 32) == "dec"
+    assert dkv_variant(15, 15, f32, 32) == "dec"
+    assert dkv_variant(440, 15, bf16, 32) == "simt"
+    assert dkv_variant(440, 440, f32, 32) == "tf32x3"
+    assert MAX_HEAD_DIM == 128
+    assert fwd_variant(440, f32, 128) == "simt"
+    assert fwd_variant(440, f32, 129) == "plain"
 
 
 @pytest.mark.parametrize("sq,dtype,fwd,dq", [
     (1, torch.float32, "dec", "dec"), (15, torch.float32, "dec", "dec"),
-    (16, torch.float32, "simt", "simt"), (1, torch.bfloat16, "dec", "dec"),
+    (16, torch.float32, "simt", "tf32x3"), (1, torch.bfloat16, "dec", "dec"),
     (15, torch.bfloat16, "dec", "dec"), (16, torch.bfloat16, "tc", "tc"),
     (8540, torch.bfloat16, "tc", "tc")])
 def test_dec_and_dq_variant_rules(sq, dtype, fwd, dq):
     """K1 and K2 take their decode kernels below TC_MIN_ROWS queries in
-    either dtype; K2 takes the tensor cores from TC_MIN_ROWS queries in
-    bf16, whatever Sk."""
-    assert fwd_variant(sq, dtype) == fwd
-    assert dq_variant(sq, dtype) == dq
+    either dtype; K2 takes the tensor cores from TC_MIN_ROWS queries,
+    whatever Sk: bf16 products in bf16, float32 ones by 3xTF32."""
+    assert fwd_variant(sq, dtype, 32) == fwd
+    assert dq_variant(sq, dtype, 32) == dq
 
 
 @pytest.mark.parametrize("sq,sk,dtype,want", [
     (15, 440, torch.bfloat16, "dec"), (16, 440, torch.bfloat16, "tc"),
     (15, 1, torch.float32, "dec"), (16, 1, torch.float32, "simt"),
     (15, 15, torch.bfloat16, "dec"), (16, 15, torch.bfloat16, "simt"),
-    (16, 16, torch.bfloat16, "tc")])
+    (16, 16, torch.bfloat16, "tc"), (16, 16, torch.float32, "tf32x3"),
+    (16, 15, torch.float32, "simt")])
 def test_dkv_variant_rule(sq, sk, dtype, want):
     """K3 takes the decode backward below TC_MIN_ROWS queries whatever Sk
-    and dtype, the tensor cores from TC_MIN_ROWS queries and keys in bf16,
-    and SIMT otherwise; below TC_MIN_ROWS queries K2 and K3 agree, as one
-    kernel computes both."""
-    assert dkv_variant(sq, sk, dtype) == want
+    and dtype, the tensor cores from TC_MIN_ROWS queries and keys (bf16 in
+    bf16, float32 by 3xTF32), and SIMT otherwise; below TC_MIN_ROWS queries
+    K2 and K3 agree, as one kernel computes both."""
+    assert dkv_variant(sq, sk, dtype, 32) == want
     if sq < TC_MIN_ROWS:
-        assert dq_variant(sq, dtype) == want
+        assert dq_variant(sq, dtype, 32) == want
+
+
+def _rule(kernel, sq, sk, dtype, d):
+    """The dispatch rule written out as a table, apart from the code."""
+    if d > 128:
+        return "plain"
+    if sq < 16:
+        return "dec"
+    bf16 = dtype == torch.bfloat16
+    if kernel == "fwd":
+        return "tc" if bf16 else "simt"
+    if kernel == "dkv" and sk < 16:
+        return "simt"
+    return "tc" if bf16 else "tf32x3"
+
+
+@pytest.mark.parametrize("d", [8, 48, 128, 160])
+@pytest.mark.parametrize("sk", [1, 15, 16, 440])
+@pytest.mark.parametrize("sq", [1, 15, 16, 440])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_variant_rule_at_every_corner(dtype, sq, sk, d):
+    """Every (dtype, Sq, Sk, D) corner of the rule: the edges of
+    TC_MIN_ROWS on both sides, a head dim that pads, the largest instance
+    and one above it."""
+    assert fwd_variant(sq, dtype, d) == _rule("fwd", sq, sk, dtype, d)
+    assert dq_variant(sq, dtype, d) == _rule("dq", sq, sk, dtype, d)
+    assert dkv_variant(sq, sk, dtype, d) == _rule("dkv", sq, sk, dtype, d)
+
+
+@pytest.mark.parametrize("d,want", [(1, 16), (8, 16), (16, 16), (17, 32),
+                                    (24, 32), (33, 64), (48, 64), (64, 64),
+                                    (96, 128), (128, 128)])
+def test_head_dims_pad_to_the_next_instance(d, want):
+    assert padded_head_dim(d) == want and want in HEAD_DIMS
+
+
+@pytest.mark.parametrize("d", [8, 24, 48, 96, 160])
+def test_zero_padding_keeps_attention_and_its_gradients(d):
+    """What the launchers rely on: q, k, v and dO zero-padded on the head
+    dim (to the next instance, or to 256 above the last), with the true
+    scale 1 / sqrt(D), give the unpadded output, lse and gradients within
+    1e-6, and zero in the padded columns."""
+    dp = padded_head_dim(d) if d <= MAX_HEAD_DIM else 256
+    rng = np.random.default_rng(d)
+    q, k, v, valid = make_qkv(d, 2, 21, 37, 2, d, all_masked_row=True)
+    do = rng.normal(size=q.shape).astype(np.float32)
+    q, k, v, valid, do = (t(x) for x in (q, k, v, valid, do))
+    pad = lambda x: torch.nn.functional.pad(x, (0, dp - d))  # noqa: E731
+    scale = 1.0 / np.sqrt(d)
+    out, lse = attention_plain(q, k, v, valid, True)
+    got, got_lse = attention_plain(pad(q), pad(k), pad(v), valid, True,
+                                   scale=scale)
+    close(got[..., :d], out.numpy(), 1e-6)
+    close(got_lse, lse.numpy(), 1e-6)
+    assert not got[..., d:].any()
+    rate, seed = 0.2, 31
+    out, lse = attention_plain(q, k, v, valid, True, dropout_rate=rate,
+                               seed=seed)
+    want = attention_bwd_plain(q, k, v, valid, out, lse, do, rate, seed)
+    grads = attention_bwd_plain(pad(q), pad(k), pad(v), valid, pad(out), lse,
+                                pad(do), rate, seed, scale=scale)
+    for g, w in zip(grads, want):
+        close(g[..., :d], w.numpy(), 1e-6)
+        assert not g[..., d:].any()
+
+
+@pytest.mark.parametrize("d", [8, 24, 160])
+def test_cpu_path_takes_any_head_dim(d):
+    """On the CPU every head dim runs the plain versions, forward and
+    backward, against JAX's XLA attention."""
+    q, k, v, valid = make_qkv(9, 2, 6, 11, 2, d)
+    close(flash_attention(t(q), t(k), t(v), t(valid)),
+          xla_reference(q, k, v, valid), ATOL)
 
 
 CSRC = Path(__file__).resolve().parents[1] / "reftr_torch/kernels/csrc"

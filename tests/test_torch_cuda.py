@@ -14,12 +14,14 @@ dq, dk and dv (a gradient can be zero in exact arithmetic, as dq and dk
 are with a single key): 1e-4 in float32 (sums of up to 440 terms in
 another order), 1e-2 in bfloat16 (rounding of the output to bf16, 2^-9).
 
-The wrappers pick each kernel's variant by shape and dtype (bf16 with 16
-or more rows: the tensor-core kernels; fewer than 16 queries: the decode
-kernels, K1's and the one backward for K2 and K3), so the tests through
-the wrappers cover every variant; the tests of the tensor-core kernels
-alone launch them at the edges of their 64-row and 64-key tiles, those of
-the decode kernels at the edges of their key steps.
+The wrappers pick each kernel's variant by shape, dtype and head dim
+(16 or more rows: the tensor-core kernels, in bf16 and for K2 and K3 in
+float32 by 3xTF32; fewer than 16 queries: the decode kernels, K1's and
+the one backward for K2 and K3; a head dim above 128: the plain versions),
+so the tests through the wrappers cover every variant; the tests of the
+tensor-core kernels alone launch them at the edges of their 64-row and
+64-key tiles, those of the decode kernels at the edges of their key
+steps, and every route runs at head dims that pad to an instance.
 """
 
 import pytest
@@ -29,9 +31,10 @@ from reftr_torch.kernels.attention import (FlashAttentionFn,
                                            _launch_bwd_dec, _launch_dkv,
                                            _launch_dq, _launch_fwd,
                                            attention_bwd_plain,
-                                           attention_plain, flash_attention,
+                                           attention_plain, dkv_variant,
+                                           dq_variant, flash_attention,
                                            flash_attn_bwd_dkv,
-                                           flash_attn_bwd_dq,
+                                           flash_attn_bwd_dq, fwd_variant,
                                            philox_keep_plain)
 from reftr_torch.nn.attention import (MultiHeadAttention, attention_rng,
                                       set_plain_attention)
@@ -49,7 +52,7 @@ SHAPES = [(8, 440, 440, 8, 32), (8, 1, 1, 8, 32), (8, 1, 440, 8, 32),
           (2, 64, 64, 2, 32), (2, 65, 17, 2, 64), (2, 15, 440, 2, 32)]
 TC_SQ = (16, 63, 64, 65)
 TC_SK = (1, 15, 17, 63, 65, 440)
-HEAD_DIMS = (16, 32, 64)
+HEAD_DIMS = (16, 32, 64, 128)
 DEC_SQ = (1, 2, 5, 15)
 # the edges of K1-dec's 4-key steps and of the decode backward's block
 # steps (64, 128 or 256 keys by dtype and head dim)
@@ -108,8 +111,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(gen):
         flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v,
                         valid)
     with pytest.raises(ValueError, match="head_dim"):
-        w = torch.zeros(2, 8, 2, 48, device="cuda")
-        flash_attention(w, w, w, valid)
+        w = torch.zeros(2, 8, 2, 160, device="cuda")
+        _launch_fwd("simt", w, w, w, valid, 0.0, None)
     with pytest.raises(ValueError, match="one device"):
         flash_attention(q, k, v, valid.cpu())
 
@@ -291,17 +294,23 @@ def test_dropout_mask_is_exact_through_the_tensor_core_kernel(gen, shape):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_tensor_core_counters_count_only_bf16_calls(gen, dtype):
     """An encoder-shaped bf16 call goes through K1-TC, K2-TC and K3-TC, a
-    float32 one through the SIMT kernels; the totals count both."""
+    float32 one through the SIMT K1 and the 3xTF32 K2 and K3; the totals
+    count both."""
     q, k, v, valid = inputs(gen, 2, 440, 440, 8, 32, dtype)
     q.requires_grad_()
     counters = (flash_attention, flash_attn_bwd_dq, flash_attn_bwd_dkv)
-    before = [(c.launches, getattr(c, "launches_tc", 0)) for c in counters]
+
+    def counts():
+        return [(c.launches, c.launches_tc, getattr(c, "launches_tf32x3", 0))
+                for c in counters]
+
+    before = counts()
     flash_attention(q, k, v, valid).float().sum().backward()
     torch.cuda.synchronize()
-    after = [(c.launches, getattr(c, "launches_tc", 0)) for c in counters]
     tc = 1 if dtype == torch.bfloat16 else 0
-    assert [(a[0] - b[0], a[1] - b[1]) for a, b in zip(after, before)] == [
-        (1, tc), (1, tc), (1, tc)]
+    assert [tuple(a - b for a, b in zip(x, y))
+            for x, y in zip(counts(), before)] == [
+        (1, tc, 0), (1, tc, 1 - tc), (1, tc, 1 - tc)]
 
 
 def test_tensor_core_kernels_refuse_what_they_do_not_take(gen):
@@ -443,7 +452,7 @@ def test_decode_and_dq_kernels_refuse_what_they_do_not_take(gen):
     with pytest.raises(ValueError, match="aligned"):
         _launch_fwd("dec", q1, k, v, None, 0.0, None)
     with pytest.raises(ValueError, match="head_dim"):
-        w = torch.zeros(2, 1, 2, 48, device="cuda")
+        w = torch.zeros(2, 1, 2, 160, device="cuda")
         _launch_fwd("dec", w, w, w, None, 0.0, None)
 
 
@@ -544,3 +553,171 @@ def test_decode_backward_is_bitwise_repeatable(gen, shape, dtype, rate):
     second = _launch_bwd_dec(q, k, v, valid, out, lse, do, rate, seed)
     torch.cuda.synchronize()
     assert all(same_bits(a, b) for a, b in zip(first, second))
+
+
+F32TC_S = (16, 17, 63, 64, 65, 129, 440)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("sk", F32TC_S)
+@pytest.mark.parametrize("sq", F32TC_S)
+def test_f32_tensor_core_kernels_match_plain(gen, sq, sk, d, rate):
+    """K2-f32tc and K3-f32tc (3xTF32) launched directly at the edges of
+    their 64-row and 64-key tiles, batch row 0 with every key masked,
+    against attention_bwd_plain on the same float32 inputs, O and lse, at
+    float32's tolerance; each launch counts in launches_tf32x3."""
+    q, k, v, valid = inputs(gen, 2, sq, sk, 3, d, torch.float32)
+    seed = 0x7F32_0C0D_E5ED if rate else None
+    out, lse = (x.contiguous() for x in attention_plain(
+        q, k, v, valid, True, dropout_rate=rate, seed=seed))
+    do = torch.randn(out.shape, device="cuda", generator=gen)
+    wants = attention_bwd_plain(q, k, v, valid, out, lse, do, rate, seed)
+    before = (flash_attn_bwd_dq.launches_tf32x3,
+              flash_attn_bwd_dkv.launches_tf32x3)
+    dq = _launch_dq("tf32x3", q, k, v, valid, out, lse, do, rate, seed)
+    dk, dv = _launch_dkv("tf32x3", q, k, v, valid, out, lse, do, rate, seed)
+    torch.cuda.synchronize()
+    assert (flash_attn_bwd_dq.launches_tf32x3,
+            flash_attn_bwd_dkv.launches_tf32x3) == (before[0] + 1,
+                                                    before[1] + 1)
+    scale = max(w.abs().max().item() for w in wants)
+    for got, w in zip((dq, dk, dv), wants):
+        assert got.dtype == torch.float32 and got.shape == w.shape
+        rel_close(got, w, GRAD_TOL[torch.float32], floor=scale)
+
+
+@pytest.mark.parametrize("shape", [(8, 440, 440, 8, 32), (2, 40, 40, 4, 64),
+                                   (2, 33, 65, 2, 16), (2, 70, 130, 2, 128)])
+def test_dropout_mask_is_exact_through_the_f32_tensor_core_kernels(gen,
+                                                                   shape):
+    """The 3xTF32 kernels' kept set equals the plain Philox mask, read off
+    dq (K2) and dv (K3) as in test_dropout_mask_is_exact_through_the_decode
+    _backward; Sk = 65 and 130 take the one-Philox-call-per-element
+    path."""
+    b, sq, sk, h, d = shape
+    _, k, v, valid = inputs(gen, b, sq, sk, h, d, torch.float32)
+    rate, seed = 0.1, 0xF32C
+    keep = philox_keep_plain(seed, b, h, sq, sk, rate, "cuda")
+    live = keep_live(valid)
+    q = torch.zeros(b, sq, h, d, device="cuda")
+    o = torch.zeros_like(q)
+    lse = attention_plain(q, k, v, valid, True)[1].contiguous()
+    for i0 in range(0, sq, d):
+        n = min(d, sq - i0)
+        do = torch.zeros_like(q)
+        do[:, i0:i0 + n, :, :n] = torch.eye(n, device="cuda")[:, None, :]
+        dv = _launch_dkv("tf32x3", q, k, v, valid, o, lse, do, rate, seed)[1]
+        got = dv[..., :n].permute(0, 2, 3, 1) != 0  # [B, H, n, Sk]
+        m = live.expand_as(got)
+        assert torch.equal(got[m], keep[:, :, i0:i0 + n][m])
+    do = torch.zeros_like(q)
+    do[..., 0] = 1
+    v1 = torch.zeros_like(v)
+    v1[..., 0] = 1
+    lse0 = torch.zeros_like(lse)
+    for k0 in range(0, sk, d):
+        n = min(d, sk - k0)
+        k1 = torch.zeros_like(k)
+        k1[:, k0:k0 + n, :, :n] = torch.eye(n, device="cuda")[:, None, :]
+        dq = _launch_dq("tf32x3", q, k1, v1, valid, o, lse0, do, rate, seed)
+        got = dq[..., :n].permute(0, 2, 1, 3) != 0  # [B, H, Sq, n]
+        m = live[..., k0:k0 + n].expand_as(got)
+        assert torch.equal(got[m], keep[..., k0:k0 + n][m])
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("shape", [(8, 440, 440, 8, 32), (2, 40, 40, 12, 64),
+                                   (2, 70, 130, 2, 128)])
+def test_f32_tensor_core_kernels_are_bitwise_repeatable(gen, shape, rate):
+    """dq sums over keys inside K2's block and dk, dv over queries inside
+    K3's (no atomics): two calls on the same inputs give the same bits."""
+    q, k, v, valid = inputs(gen, *shape, torch.float32)
+    seed = 0x2222_4444_6666 if rate else None
+    out, lse = (x.contiguous() for x in attention_plain(
+        q, k, v, valid, True, dropout_rate=rate, seed=seed))
+    do = torch.randn(out.shape, device="cuda", generator=gen)
+    args = (q, k, v, valid, out, lse, do, rate, seed)
+    first = (_launch_dq("tf32x3", *args), *_launch_dkv("tf32x3", *args))
+    second = (_launch_dq("tf32x3", *args), *_launch_dkv("tf32x3", *args))
+    torch.cuda.synchronize()
+    assert all(same_bits(a, b) for a, b in zip(first, second))
+
+
+def test_f32_tensor_core_kernels_refuse_what_they_do_not_take(gen):
+    q, k, v, valid = inputs(gen, 2, 64, 64, 2, 32, torch.float32)
+    out, lse = (x.contiguous() for x in attention_plain(q, k, v, valid,
+                                                        True))
+    qb, kb, vb, ob = (x.to(torch.bfloat16) for x in (q, k, v, out))
+    with pytest.raises(TypeError, match="float32"):
+        _launch_dq("tf32x3", qb, kb, vb, valid, ob, lse, ob, 0.0, None)
+    with pytest.raises(TypeError, match="float32"):
+        _launch_dkv("tf32x3", qb, kb, vb, valid, ob, lse, ob, 0.0, None)
+    shifted = torch.empty(q.numel() + 1, device="cuda")[1:].view(q.shape)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="aligned"):
+        _launch_dq("tf32x3", shifted, k, v, valid, out, lse, out, 0.0, None)
+    with pytest.raises(ValueError, match="aligned"):
+        _launch_dkv("tf32x3", shifted, k, v, valid, out, lse, out, 0.0,
+                    None)
+
+
+# (B, Sq, Sk, H): the decode kernels (fewer than 16 queries), the
+# tensor-core kernels (both sides 16 or more), K3's SIMT kernel (fewer
+# than 16 keys)
+ROUTE_SHAPES = [(2, 3, 130, 2), (2, 70, 130, 2), (2, 70, 9, 2)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ROUTE_SHAPES)
+@pytest.mark.parametrize("d", [8, 24, 48, 96, 128, 160])
+def test_every_route_takes_odd_head_dims(gen, d, shape, dtype, rate):
+    """K1, K2 and K3 through the rule at head dims that pad to the next
+    instance (8, 24, 48, 96), the largest instance and one above it (160,
+    the plain versions by the rule): out, lse and the gradients against
+    the plain versions on the same inputs. A kernel route launches and
+    counts nothing as plain; the plain route launches nothing."""
+    b, sq, sk, h = shape
+    q, k, v, valid = inputs(gen, b, sq, sk, h, d, dtype)
+    seed = 0x0DD0_1234 if rate else None
+    counters = (flash_attention, flash_attn_bwd_dq, flash_attn_bwd_dkv)
+    before = [(c.launches, c.launches_plain) for c in counters]
+    out, lse = flash_attention(q, k, v, valid, return_lse=True,
+                               dropout_rate=rate, seed=seed)
+    want, want_lse = attention_plain(q.float(), k.float(), v.float(), valid,
+                                     True, dropout_rate=rate, seed=seed)
+    do = torch.randn(out.shape, device="cuda", generator=gen).to(dtype)
+    args = (q, k, v, valid, out, lse, do, rate, seed)
+    grads = (flash_attn_bwd_dq(*args), *flash_attn_bwd_dkv(*args))
+    wants = attention_bwd_plain(*args)
+    torch.cuda.synchronize()
+    moved = [(c.launches - n, c.launches_plain - m)
+             for c, (n, m) in zip(counters, before)]
+    plain = d > 128
+    assert all((n == 0) == plain and (m > 0) == plain for n, m in moved)
+    assert {fwd_variant(sq, dtype, d), dq_variant(sq, dtype, d),
+            dkv_variant(sq, sk, dtype, d)} >= ({"plain"} if plain else set())
+    assert out.shape == q.shape and out.dtype == dtype
+    torch.testing.assert_close(out.float(), want, atol=TOL[dtype], rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-6)
+    scale = max(w.float().abs().max().item() for w in wants)
+    for got, w in zip(grads, wants):
+        assert got.dtype == dtype and got.shape == w.shape
+        rel_close(got, w, GRAD_TOL[dtype], floor=scale)
+
+
+def test_plain_route_is_counted_and_launches_nothing(gen):
+    """A head dim above 128 goes to the plain versions by the rule, through
+    the autograd Function too: one count in launches_plain for the
+    forward and one on each of K2 and K3 for the backward, and no kernel
+    launch."""
+    q, k, v, valid = inputs(gen, 2, 40, 40, 1, 256, torch.float32)
+    q.requires_grad_()
+    counters = (flash_attention, flash_attn_bwd_dq, flash_attn_bwd_dkv)
+    before = [(c.launches, c.launches_plain) for c in counters]
+    flash_attention(q, k, v, valid).sum().backward()
+    torch.cuda.synchronize()
+    assert [(c.launches - n, c.launches_plain - m)
+            for c, (n, m) in zip(counters, before)] == [(0, 1)] * 3
+    assert q.grad is not None and torch.isfinite(q.grad).all()
