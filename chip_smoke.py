@@ -7,23 +7,24 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. Print the card's name and power limit, then build every kernel of the
    serving and training paths from the sources in this checkout
    (reftr_torch/kernels/csrc/flash_attn_fwd.cu, flash_attn_fwd_tc.cu,
-   flash_attn_fwd_dec.cu, flash_attn_bwd.cu, flash_attn_bwd_dq_tc.cu,
-   flash_attn_bwd_dkv_tc.cu, flash_attn_bwd_dq_f32tc.cu,
-   flash_attn_bwd_dkv_f32tc.cu and flash_attn_bwd_dec.cu, one nvcc each
-   for sm_90a, started together), and count the tensor-core products
-   (HMMA) in the machine code of the five tensor-core kernels, bf16 and
-   3xTF32 (cuobjdump -sass): none fails the run.
+   flash_attn_fwd_f32tc.cu, flash_attn_fwd_dec.cu, flash_attn_bwd.cu,
+   flash_attn_bwd_dq_tc.cu, flash_attn_bwd_dkv_tc.cu,
+   flash_attn_bwd_dq_f32tc.cu, flash_attn_bwd_dkv_f32tc.cu and
+   flash_attn_bwd_dec.cu, one nvcc each for sm_90a, started together),
+   and count the tensor-core products (HMMA) in the machine code of the
+   six tensor-core kernels, bf16 and 3xTF32 (cuobjdump -sass): none fails
+   the run.
 2. The forward kernel (K1) against its plain PyTorch version on the card,
    at the four call sites of the refcoco_det forward (B=8), with random key
    padding and one row whose keys are all masked, in float32 and bfloat16,
    each against the plain version in float32 on the same inputs, through
    the variant the dispatch rule picks (attention.fwd_variant: fewer than
-   16 queries on the decode kernel, bf16 with more on the tensor cores,
-   the rest SIMT). Where that is not the SIMT kernel, the SIMT kernel is
-   checked and timed too, as the same-run "before". Tolerances: 1e-5 max
-   abs in float32 (the sums run in another order), 2e-2 in bfloat16 (the
-   kernel rounds its output to bf16: half a bf16 ulp is 7.8e-3 at
-   magnitudes up to 4). Times of the kernel, the plain version and
+   16 queries on the decode kernel; with more, the tensor cores, bf16 in
+   bf16 and float32 by 3xTF32). The SIMT kernel, which the rule no longer
+   picks, is checked and timed beside each as the same-run "before".
+   Tolerances: 1e-5 max abs in float32 (the sums run in another order),
+   2e-2 in bfloat16 (the kernel rounds its output to bf16: half a bf16
+   ulp is 7.8e-3 at magnitudes up to 4). Times of the kernel, the plain version and
    F.scaled_dot_product_attention (a yardstick only; the port never calls
    it): "ms" with CUDA events around 50 back-to-back calls after a warm-up
    (which includes the host's time per call where that exceeds the
@@ -38,8 +39,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    attention_plain with the same seed (tolerances as in phase 2; lse 1e-5
    abs plus 1e-6 relative), and the backward kernels K2 (dq) and K3 (dk,
    dv) each against attention_bwd_plain on the same O, lse and dO. Every
-   backward variant is called twice on the same inputs and must give the
-   same bits.
+   variant, K1's and the backward's, is called twice on the same inputs
+   and must give the same bits.
    Gradient tolerance, as a share of the largest magnitude among the plain
    dq, dk and dv: 1e-4 in float32 (sums of up to 440 terms in another
    order, at most 2.6e-5 of the largest term), 1e-2 in bfloat16 (the
@@ -62,7 +63,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    versions by the rule), in both dtypes with and without dropout, K1, K2
    and K3 through the rule against the plain versions at the same
    tolerances; a plain call must launch nothing and count in
-   launches_plain, which is printed.
+   launches_plain, which is printed. Then K3's SIMT route, K3 with 16 or
+   more queries and fewer than 16 keys, which no call site of the model
+   reaches: B=8, Sq=440, Sk=8, H=8, D=32 in both dtypes, with and without
+   dropout, against attention_bwd_plain, with its bound, the plain time
+   and SDPA's backward.
 4. The serving path at full width: refcoco_det (ResNet-50, BERT-base,
    6+6 VL layers, d=256) at 640x640 with seeded random weights, bfloat16,
    behind a MicroBatcher with serve batch 8. Six requests of 1-3 phrases
@@ -76,8 +81,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    the kernel and with the plain attention, after a warm-up), and
    torch.profiler splits one forward's device time by kernel category.
    The same six requests are then served by the float32 model (30 K1
-   launches per forward again: 18 on the SIMT kernel, 12 on the decode
-   kernel), and one padded batch runs through the kernel
+   launches per forward again: 18 on the 3xTF32 kernel, 12 on the decode
+   kernel), full float32 batches time the forward as the bf16 ones, in
+   turns with K1 on the 3xTF32 kernel and with K1 sent to SIMT (the
+   same-run "before"), and torch.profiler profiles one forward of each;
+   then one padded batch runs through the kernel
    and through the plain attention on the card and the encoder memory and
    decoder states are compared: float32 kernel against float32 plain at
    1e-4 max abs (the per-attention 1e-6 gap carried through 30 attentions
@@ -105,22 +113,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    self-attention's q and k, come out at rounding level on both paths).
    The last layer of the box head is drawn like the other layers for this
    step: at init it is zero and no gradient would reach the attentions.
-   The float32 step's K2 and K3 run on the 3xTF32 kernels (BERT and
-   encoder) and the decode backward. Then a timed float32 training run:
+   The float32 step's K1, K2 and K3 run on the 3xTF32 kernels (BERT and
+   encoder) and the decode kernels. Then a timed float32 training run:
    the same model with float32 parameters and compute (no autocast),
    dropout 0.1, 8 steps through train_one_epoch: finite losses, 30
-   launches of each of K1, K2 and K3 per step, K2's and K3's 18 on the
-   3xTF32 kernels and 12 on the decode backward, none on SIMT; the median
-   host step after 3 warm-up steps, one step's device time by category
-   with the attention kernels' share, and the same step profiled with K2
-   and K3 on the SIMT kernels, as the rule sent them before (the same-run
-   "before").
+   launches of each of K1, K2 and K3 per step, 18 of each on the 3xTF32
+   kernels and 12 on the decode kernels, none on SIMT; the median host
+   step after 3 warm-up steps, one step's device time by category with
+   the attention kernels' share, and the same step profiled with K1, K2
+   and K3 on the SIMT kernels, as the rule sent them before the 3xTF32
+   kernels (the same-run "before").
 6. Print one JSON line listing each kernel (each variant on a row of its
    own; the decode backward on one row for K2 and K3) with its launches
    on the main path, its error, and its times and bound at the call site
    where the main path launches it (the decoder's cross-attention for the
    decode and SIMT kernels, the VL encoder for the tensor-core kernels, in
-   float32 with dropout 0.1 for the 3xTF32 ones) on this card.
+   float32 for the 3xTF32 ones) on this card.
 7. Print {"ok": true, "device": {...}} as the last line.
 
 It needs a CUDA card and the reftr_torch package beside it; without
@@ -172,6 +180,8 @@ KERNELS = {
                        "reftr_tpu/kernels/attention.py:86", "simt"),
     "flash_attn_fwd_tc": ("flash_attn_fwd_tc.cu",
                           "reftr_tpu/kernels/attention.py:86", "tc"),
+    "flash_attn_fwd_f32tc": ("flash_attn_fwd_f32tc.cu",
+                             "reftr_tpu/kernels/attention.py:86", "tf32x3"),
     "flash_attn_fwd_dec": ("flash_attn_fwd_dec.cu",
                            "reftr_tpu/kernels/attention.py:86", "dec"),
     "flash_attn_bwd_dq": ("flash_attn_bwd.cu",
@@ -200,18 +210,21 @@ PRODUCTS = {"flash_attn_fwd": 2, "flash_attn_bwd_dq": 3,
             "flash_attn_bwd_dkv": 4, "flash_attn_bwd": 5}
 # attention calls per refcoco_det forward (and per step, for each of K1, K2
 # and K3) that the dispatch rule sends to the tensor-core kernels: 12 BERT
-# + 6 encoder (K2 and K3 in float32 to the 3xTF32 ones); the decoder's 12
+# + 6 encoder (in float32 to the 3xTF32 ones); the decoder's 12
 # single-query calls take K1's decode kernel and the decode backward
 TC_PER_FORWARD = 18
 DEC_PER_FORWARD = 12
 F32_TRAIN_STEPS = 8  # the timed float32 training run
 # the call site and dtype where the main path launches each variant, for
-# the kernels line: the SIMT K1 has no launch on the bf16 main path and
-# stands at the decoder's site, where it ran before the decode kernel; the
-# 3xTF32 kernels run in the float32 step
+# the kernels line: the SIMT kernels have no launch on the main paths and
+# stand at the decoder's site, where they ran before the decode kernels;
+# the 3xTF32 kernels run in the float32 forward and step
 MAIN_SITE = {"tc": "vl_encoder_self", "dec": "decoder_cross",
              "simt": "decoder_cross", "tf32x3": "vl_encoder_self"}
 MAIN_DTYPE = {"tf32x3": "float32"}
+# (B, Sq, Sk, H, D) where the rule sends K3 to SIMT: 16 or more queries and
+# fewer than 16 keys, which no call site of the model reaches
+SIMT_DKV_SITE = (SERVE_BATCH, 440, 8, 8, 32)
 # head dims off the instances: (B, Sq, Sk, H, D), one that pads, ones
 # that pad in the decode kernels, the largest instance and two above it,
 # which the rule sends to the plain versions
@@ -603,12 +616,14 @@ def check_training_kernels(report: dict) -> dict:
                 dec = dq_variant(sq, dt, d) == "dec"
                 # no variant sums with atomics: a second call on the same
                 # inputs gives the same bits
-                again = (_launch_bwd_dec(*bwd) if dec else
-                         (flash_attn_bwd_dq(*bwd), *flash_attn_bwd_dkv(*bwd)))
+                again = (*flash_attention(q, k, v, valid, True, **drop),
+                         *(_launch_bwd_dec(*bwd) if dec else
+                           (flash_attn_bwd_dq(*bwd),
+                            *flash_attn_bwd_dkv(*bwd))))
                 if not all(same_bits(x, y) for x, y in
-                           zip((dq, dk, dv), again)):
+                           zip((out, lse, dq, dk, dv), again)):
                     raise AssertionError(f"phase 3 {site} {name} dropout "
-                                         f"{rate}: two calls of the backward "
+                                         f"{rate}: two calls of the "
                                          f"kernels differ")
                 torch.cuda.synchronize()
                 fwd_err = max_err(out, want)
@@ -814,6 +829,81 @@ def check_head_dims(report: dict) -> dict:
     return report
 
 
+def check_simt_dkv(report: dict) -> dict:
+    """Phase 3c: K3's SIMT route at SIMT_DKV_SITE (random key padding,
+    batch row 0 fully masked), in float32 and bfloat16, without dropout
+    and with rate 0.1: dk and dv through the rule against
+    attention_bwd_plain at phase 3's tolerance, one launch each, none of
+    another variant; its times, bound, the plain backward's time and
+    SDPA's (its backward covers dq, dk and dv)."""
+    import torch
+
+    from reftr_torch.kernels.attention import (attention_bwd_plain,
+                                               dkv_variant, flash_attention,
+                                               flash_attn_bwd_dkv)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    b, sq, sk, h, d = SIMT_DKV_SITE
+    q32, do32 = (torch.randn(b, sq, h, d, device="cuda", generator=gen)
+                 for _ in range(2))
+    k32, v32 = (torch.randn(b, sk, h, d, device="cuda", generator=gen)
+                for _ in range(2))
+    lens = torch.randint(1, sk + 1, (b,), device="cuda", generator=gen)
+    valid = torch.arange(sk, device="cuda")[None] < lens[:, None]
+    valid[0] = False
+    rows = []
+    for name, dt in (("float32", torch.float32),
+                     ("bfloat16", torch.bfloat16)):
+        if dkv_variant(sq, sk, dt, d) != "simt":
+            raise AssertionError(f"the rule does not send K3 at {sq}x{sk} "
+                                 f"{name} to SIMT")
+        q, k, v, do = (x.to(dt) for x in (q32, k32, v32, do32))
+        for rate in (0.0, DROPOUT):
+            seed = 0x53DC_0000 + len(rows) if rate else None
+            out, lse = flash_attention(q, k, v, valid, True,
+                                       dropout_rate=rate, seed=seed)
+            bwd = (q, k, v, valid, out, lse, do, rate, seed)
+            wants = attention_bwd_plain(*bwd)
+            before = read_counts([flash_attn_bwd_dkv])
+            dk, dv = flash_attn_bwd_dkv(*bwd)
+            moved = {key: n - before[key] for key, n in
+                     read_counts([flash_attn_bwd_dkv]).items()}
+            torch.cuda.synchronize()
+            scale = max(w.float().abs().max().item() for w in wants)
+            err = max(max_err(g, w) for g, w in zip((dk, dv), wants[1:]))
+            others = [n for key, n in moved.items()
+                      if key != "flash_attn_bwd_dkv"]
+            if (not err <= GRAD_TOL[name] * scale
+                    or moved["flash_attn_bwd_dkv"] != 1 or any(others)):
+                raise AssertionError(f"phase 3c {name} dropout {rate}: err "
+                                     f"{err:.3g}, launches moved {moved}")
+
+            def kern():
+                return flash_attn_bwd_dkv(*bwd)
+
+            bound, bound_by = attention_bound_ms(
+                b, sq, sk, h, d, valid, name, "flash_attn_bwd_dkv")
+            row = {"dtype": name, "dropout": rate, "B": b, "Sq": sq,
+                   "Sk": sk, "H": h, "D": d, "max_abs_err": err,
+                   "grad_scale": scale, "ms": cuda_ms(kern),
+                   "device_ms": device_ms(kern),
+                   "plain_ms": cuda_ms(lambda: attention_bwd_plain(*bwd),
+                                       iters=10),
+                   "bound_ms": bound, "bound_by": bound_by,
+                   **sdpa_times(q, k, v, valid, do, rate)}
+            rows.append(row)
+            print(f"simt K3 B={b} Sq={sq} Sk={sk} H={h} D={d} {name} "
+                  f"dropout {rate}: dk/dv err {err:.3g} (tol "
+                  f"{GRAD_TOL[name] * scale:.3g}); {row['ms']:.4f} ms host "
+                  f"loop, {row['device_ms']:.4f} device; plain bwd "
+                  f"{row['plain_ms']:.4f} ms; sdpa bwd "
+                  f"{row['sdpa_bwd_device_ms']:.4f} ms device; bound "
+                  f"{bound:.5f} ms ({bound_by})", flush=True)
+    report["simt_dkv"] = rows
+    return report
+
+
 def make_requests(rng: np.random.Generator, img: int, seq: int, vocab: int):
     from reftr_torch.serve import Request
 
@@ -863,6 +953,8 @@ def kernel_category(name: str) -> str:
     low = name.lower()
     if "flash_fwd_tc_kernel" in name:
         return "flash_attn_fwd_tc"
+    if "flash_fwd_f32tc_kernel" in name:
+        return "flash_attn_fwd_f32tc"
     if "flash_fwd_dec_kernel" in name:
         return "flash_attn_fwd_dec"
     if "flash_bwd_dq_tc_kernel" in name:
@@ -1021,22 +1113,21 @@ def serve_requests(model, reqs, counters) -> tuple:
     return launches, n_batches, served_s
 
 
-def expected_launches(n: int, k1_tc: int, k23) -> dict:
+def expected_launches(n: int, tc: str, backward: bool) -> dict:
     """The counters (read_counts) after ``n`` forwards, or ``n`` train
-    steps: ATTN_PER_FORWARD launches of K1 per forward, DEC_PER_FORWARD of
-    them (the decoder's) on its decode kernel and ``k1_tc`` on K1-TC (18
-    in bf16; in float32 the SIMT K1 takes them); per step as many of K2
-    and K3, the decoder's on the decode backward and BERT's and the
-    encoder's TC_PER_FORWARD on ``k23``, "tc" (bf16) or "tf32x3" (float32),
-    or none for a forward alone (k23 None). Nothing goes to the plain
-    versions."""
-    per = {"flash_attention": {"": ATTN_PER_FORWARD, "_tc": k1_tc,
-                               "_dec": DEC_PER_FORWARD, "_plain": 0}}
-    for name in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
-        per[name] = {"": ATTN_PER_FORWARD if k23 else 0,
-                     "_tc": TC_PER_FORWARD if k23 == "tc" else 0,
-                     "_tf32x3": TC_PER_FORWARD if k23 == "tf32x3" else 0,
-                     "_dec": DEC_PER_FORWARD if k23 else 0, "_plain": 0}
+    steps (``backward``): ATTN_PER_FORWARD launches of K1 per forward, and
+    per step as many of K2 and K3; the decoder's DEC_PER_FORWARD of each
+    on the decode kernels, BERT's and the encoder's TC_PER_FORWARD on the
+    tensor-core variant ``tc``, "tc" (bf16) or "tf32x3" (float32). None
+    goes to SIMT or to the plain versions."""
+    per = {}
+    for name in ("flash_attention", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+        live = name == "flash_attention" or backward
+        per[name] = {"": ATTN_PER_FORWARD if live else 0,
+                     "_tc": TC_PER_FORWARD if live and tc == "tc" else 0,
+                     "_tf32x3": (TC_PER_FORWARD if live and tc == "tf32x3"
+                                 else 0),
+                     "_dec": DEC_PER_FORWARD if live else 0, "_plain": 0}
     return {name + suffix: count * n for name, counts in per.items()
             for suffix, count in counts.items()}
 
@@ -1069,7 +1160,7 @@ def serve(report: dict, counters) -> dict:
     reqs = make_requests(rng, img, seq, vocab)
     launches, n_batches, served_s = serve_requests(model, reqs, counters)
     rows = sum(r.k for r in reqs)
-    want = expected_launches(n_batches, TC_PER_FORWARD, None)
+    want = expected_launches(n_batches, "tc", False)
     if launches != want:
         raise AssertionError(
             f"launches {launches} for {n_batches} batch forwards, not "
@@ -1102,22 +1193,23 @@ def serve(report: dict, counters) -> dict:
         lambda: model(full), f"bf16 batch {SERVE_BATCH} forward",
         step_s * 1e3)
 
-    # kernel path against the plain attention path on one batch
     # the same requests served in float32: BERT and the encoder on the
-    # SIMT K1, the decoder on the decode kernel
+    # 3xTF32 K1, the decoder on the decode kernel
     f32 = ServingModel(cfg["float32"], SERVE_BATCH, device="cuda", seed=0)
     f32(pad_batch(warm, SERVE_BATCH))
     launches32, n_batches32, served32_s = serve_requests(
         f32, make_requests(np.random.default_rng(0), img, seq, vocab),
         counters)
-    want = expected_launches(n_batches32, 0, None)
+    want = expected_launches(n_batches32, "tf32x3", False)
     if launches32 != want:
         raise AssertionError(
             f"float32: launches {launches32} for {n_batches32} batch "
             f"forwards, not {want}")
     print(f"serve: the same requests in float32 in {n_batches32} batches, "
           f"{served32_s:.3f} s; launches {launches32}", flush=True)
+    f32_timing = time_f32_forward(f32, full, counters)
 
+    # kernel path against the plain attention path on one batch
     compare = pad_batch(reqs[:3], SERVE_BATCH)
     outs = {}
     with torch.inference_mode():
@@ -1159,8 +1251,76 @@ def serve(report: dict, counters) -> dict:
                        "bf16_img_per_s": SERVE_BATCH / step_s,
                        "bf16_forward_runs_ms": step_ms,
                        "bf16_plain_attention_forward_ms": plain_s * 1e3,
+                       "f32_forward": f32_timing,
                        "peak_memory_gb": peak_gb, "internals": errs}
     return report
+
+
+def route_to_simt(kernels) -> dict:
+    """Send the dispatch rule's "tf32x3" calls of ``kernels`` (of "fwd",
+    "dq", "dkv") to the SIMT kernels, as the rule sent float32 before the
+    3xTF32 kernels (the same-run "before"). Returns the rule's functions,
+    for restore_rule."""
+    import reftr_torch.kernels.attention as attn
+
+    def simt(rule):
+        return lambda *a: "simt" if rule(*a) == "tf32x3" else rule(*a)
+
+    rule = {k: getattr(attn, f"{k}_variant") for k in kernels}
+    for k, fn in rule.items():
+        setattr(attn, f"{k}_variant", simt(fn))
+    return rule
+
+
+def restore_rule(rule: dict) -> None:
+    import reftr_torch.kernels.attention as attn
+
+    for k, fn in rule.items():
+        setattr(attn, f"{k}_variant", fn)
+
+
+def time_f32_forward(model, full, counters) -> dict:
+    """Phase 4's float32 timing: full batches through ServingModel, host to
+    host, after the bf16 timing's warm-up, in turns with K1 on the 3xTF32
+    kernel and with K1 sent to SIMT (the same-run "before"), median of four
+    turns each; one forward of each mode counted (18 of K1's 30 launches on
+    the mode's kernel) and profiled."""
+    forward_ms(model, full, iters=20)
+    runs = {"tf32x3": [], "simt": []}
+    launches = {}
+    for mode in ("tf32x3", "simt", "simt", "tf32x3") * 2:
+        rule = route_to_simt(["fwd"]) if mode == "simt" else {}
+        runs[mode].append(forward_ms(model, full))
+        if mode not in launches:
+            reset_counts(counters)
+            model(full)
+            launches[mode] = read_counts(counters)
+        restore_rule(rule)
+    for mode in runs:
+        n = launches[mode]
+        on_mode = (n["flash_attention_tf32x3"] if mode == "tf32x3" else
+                   n["flash_attention"] - n["flash_attention_dec"]
+                   - n["flash_attention_tf32x3"] - n["flash_attention_tc"])
+        if (n["flash_attention"] != ATTN_PER_FORWARD
+                or on_mode != TC_PER_FORWARD):
+            raise AssertionError(f"float32 forward with K1 on {mode}: "
+                                 f"launches {n}")
+    out = {}
+    for mode, ms in runs.items():
+        med = statistics.median(ms)
+        print(f"serve: f32 batch {SERVE_BATCH} forward + fetch, K1 on "
+              f"{mode}: median {med:.2f} ms = {SERVE_BATCH / med * 1e3:.1f} "
+              f"img/s (runs {ms_list(ms)} ms)", flush=True)
+        rule = route_to_simt(["fwd"]) if mode == "simt" else {}
+        profile = profile_device(
+            lambda: model(full),
+            f"f32 batch {SERVE_BATCH} forward, K1 on {mode}", med)
+        restore_rule(rule)
+        out[mode] = {"forward_ms": med, "img_per_s": SERVE_BATCH / med * 1e3,
+                     "runs_ms": ms, "launches": launches[mode],
+                     "profile": profile,
+                     "attention_device_ms": attention_ms(profile)}
+    return out
 
 
 def train_batch(rng: np.random.Generator, img: int, seq: int, vocab: int,
@@ -1311,7 +1471,7 @@ def train(report: dict, counters) -> dict:
         raise AssertionError(f"the loss on the memorised batch did not fall:"
                              f" first 3 {first:.5f}, last 3 {last:.5f}")
     # 18 + 12 of each wrapper's 30: none left for the SIMT kernels
-    want = expected_launches(TRAIN_STEPS, TC_PER_FORWARD, "tc")
+    want = expected_launches(TRAIN_STEPS, "tc", True)
     if launches != want:
         raise AssertionError(f"launches {launches} in {TRAIN_STEPS} steps, "
                              f"not {want}")
@@ -1355,15 +1515,14 @@ def train_f32(report: dict, counters) -> dict:
     parameters and compute (no autocast), dropout 0.1, AdamW as in phase 5,
     F32_TRAIN_STEPS steps of phase 5's batch through train_one_epoch. Every
     loss and gradient norm finite; K1, K2 and K3 launched 30 times per
-    step each, K2's and K3's 18 (BERT and encoder) on the 3xTF32 kernels
-    and 12 on the decode backward, none on SIMT. Reports the median host
-    step after WARM_STEPS, one step's device time by category with the
-    attention kernels' share, and the same step profiled with K2 and K3
-    sent to the SIMT kernels as before this rule (the same-run
-    "before")."""
+    step each, 18 of each (BERT and encoder) on the 3xTF32 kernels and 12
+    on the decode kernels, none on SIMT. Reports the median host step
+    after WARM_STEPS, one step's device time by category with the
+    attention kernels' share, and the same step profiled with K1, K2 and
+    K3 sent to the SIMT kernels as before the 3xTF32 kernels (the
+    same-run "before")."""
     import torch
 
-    import reftr_torch.kernels.attention as attn
     from reftr_torch.cli.presets import preset_config
     from reftr_torch.core.config import LossConfig, TrainConfig
     from reftr_torch.models.criterion import weight_dict
@@ -1402,7 +1561,7 @@ def train_f32(report: dict, counters) -> dict:
     if not all(math.isfinite(v) for m in per_step for v in m.values()):
         raise AssertionError(f"float32: a loss or gradient norm is not "
                              f"finite: {per_step}")
-    want = expected_launches(F32_TRAIN_STEPS, 0, "tf32x3")
+    want = expected_launches(F32_TRAIN_STEPS, "tf32x3", True)
     if launches != want:
         raise AssertionError(f"float32: launches {launches} in "
                              f"{F32_TRAIN_STEPS} steps, not {want}")
@@ -1419,33 +1578,29 @@ def train_f32(report: dict, counters) -> dict:
     profile = profile_device(lambda: step(state, batch, targets),
                              f"f32 batch {SERVE_BATCH} train step", med,
                              iters=3)
-    # the same step with K2 and K3 on the SIMT kernels, as the rule sent
-    # float32 before the 3xTF32 kernels
-    rule = (attn.dq_variant, attn.dkv_variant)
-
-    def simt(variant: str) -> str:
-        return "simt" if variant == "tf32x3" else variant
-
-    attn.dq_variant = lambda sq, dt, d: simt(rule[0](sq, dt, d))
-    attn.dkv_variant = lambda sq, sk, dt, d: simt(rule[1](sq, sk, dt, d))
+    # the same step with K1, K2 and K3 on the SIMT kernels, as the rule
+    # sent float32 before the 3xTF32 kernels
+    rule = route_to_simt(["fwd", "dq", "dkv"])
     reset_counts(counters)
-    try:
-        before = profile_device(
-            lambda: step(state, batch, targets),
-            f"f32 batch {SERVE_BATCH} train step, K2 and K3 on SIMT", med,
-            iters=3)
-    finally:
-        attn.dq_variant, attn.dkv_variant = rule
+    before = profile_device(
+        lambda: step(state, batch, targets),
+        f"f32 batch {SERVE_BATCH} train step, K1, K2 and K3 on SIMT", med,
+        iters=3)
+    restore_rule(rule)
     simt_n = read_counts(counters)
-    if (simt_n["flash_attn_bwd_dq_tf32x3"]
-            or simt_n["flash_attn_bwd_dkv_tf32x3"]
-            or simt_n["flash_attn_bwd_dq"] == simt_n["flash_attn_bwd_dq_dec"]):
-        raise AssertionError(f"the SIMT-rule step did not run K2 and K3 on "
-                             f"SIMT: launches {simt_n}")
+    if (any(simt_n[f"{c.__name__}_tf32x3"] for c in counters)
+            or any(simt_n[c.__name__] == simt_n[f"{c.__name__}_dec"]
+                   for c in counters)):
+        raise AssertionError(f"the SIMT-rule step did not run K1, K2 and K3 "
+                             f"on SIMT: launches {simt_n}")
     att, att_before = attention_ms(profile), attention_ms(before)
+    k1 = {name: (prof.get("by_category_ms") or {}).get(cat)
+          for name, prof, cat in (("tf32x3", profile, "flash_attn_fwd_f32tc"),
+                                  ("simt", before, "flash_attn_fwd"))}
     print(f"train f32: attention kernels {att} ms of the step's device time"
-          f" {profile.get('device_ms')} ms; with K2 and K3 on SIMT "
-          f"{att_before} of {before.get('device_ms')} ms", flush=True)
+          f" {profile.get('device_ms')} ms (K1 on 3xTF32 {k1['tf32x3']} ms);"
+          f" with K1, K2 and K3 on SIMT {att_before} of "
+          f"{before.get('device_ms')} ms (K1 {k1['simt']} ms)", flush=True)
     del state, step
     torch.cuda.empty_cache()
     report["train_f32"] = {
@@ -1453,8 +1608,9 @@ def train_f32(report: dict, counters) -> dict:
         "step_ms": step_ms, "median_step_ms": med,
         "img_per_s": SERVE_BATCH / med * 1e3, "peak_memory_gb": peak_gb,
         "profile": profile, "attention_device_ms": att,
-        "profile_k2_k3_simt": before,
-        "attention_device_ms_k2_k3_simt": att_before}
+        "k1_device_ms": k1["tf32x3"], "profile_simt": before,
+        "attention_device_ms_simt": att_before,
+        "k1_device_ms_simt": k1["simt"]}
     return report
 
 
@@ -1548,6 +1704,10 @@ def kernel_line(report: dict) -> list:
                 "library_ms": sv["library_ms"],
                 "library_device_ms": sv["library_device_ms"],
                 "library_device_ms_dropout": tr["sdpa_fwd_device_ms"]})
+            if variant != "simt":
+                entry.update({
+                    "simt_device_ms": sv["simt_device_ms"],
+                    "simt_device_ms_dropout": tr["simt_fwd_device_ms"]})
         else:
             entry.update({
                 "max_rel_err": max(e / s for e, s in errs),
@@ -1569,6 +1729,14 @@ def kernel_line(report: dict) -> list:
                     "simt_device_ms": tr[f"simt_{short}_device_ms"],
                     "simt_device_ms_no_dropout":
                         tr0[f"simt_{short}_device_ms"]})
+            elif short == "dkv":
+                # where the rule sends K3 to SIMT (phase 3c)
+                entry["rule_site"] = [
+                    {key: r[key] for key in (
+                        "dtype", "dropout", "B", "Sq", "Sk", "H", "D",
+                        "device_ms", "bound_ms", "bound_by", "plain_ms",
+                        "sdpa_bwd_device_ms", "max_abs_err")}
+                    for r in report["simt_dkv"]]
         out.append(entry)
     return out
 
@@ -1659,6 +1827,7 @@ def main() -> int:
     check_kernel(report)
     check_training_kernels(report)
     check_head_dims(report)
+    check_simt_dkv(report)
     serve(report, counters)
     torch.cuda.empty_cache()
     train(report, counters)

@@ -6,9 +6,11 @@ autograd contract:
 
   K1 ``flash_attention``    <- ``_flash_kernel`` / ``_fwd``
                                (``csrc/flash_attn_fwd_dec.cu`` for short
-                               query sides, ``csrc/flash_attn_fwd_tc.cu``
-                               on tensor cores in bf16,
-                               ``csrc/flash_attn_fwd.cu`` on SIMT)
+                               query sides, on tensor cores
+                               ``csrc/flash_attn_fwd_tc.cu`` in bf16 and
+                               ``csrc/flash_attn_fwd_f32tc.cu`` in float32
+                               by 3xTF32; ``csrc/flash_attn_fwd.cu`` on
+                               SIMT, which the rule no longer picks)
   K2 ``flash_attn_bwd_dq``  <- ``_bwd_dq_kernel``
                                (``csrc/flash_attn_bwd_dec.cu`` for short
                                query sides, on tensor cores
@@ -31,13 +33,13 @@ alone (``fwd_variant``, ``dq_variant``, ``dkv_variant``): fewer than 16
 query rows, the decoder's single query, take the decode kernels ("dec") in
 either dtype, where one launch of ``flash_attn_bwd_dec.cu`` gives K2's and
 K3's gradients together; with 16 or more (and, for K3, 16 or more keys)
-bf16 takes the tensor-core kernels ("tc") and float32 K2 and K3 take the
-3xTF32 tensor-core kernels ("tf32x3"), which split each float32 operand
-into two tf32 halves and keep float32's accuracy; float32 K1 and K3 with
-fewer than 16 keys take the SIMT kernels ("simt"). A head dim above
-``MAX_HEAD_DIM`` takes the plain versions on the card ("plain"), a rule
-of the dispatch that no error reaches. A kernel that fails to build or
-launch raises; no variant stands in for another.
+bf16 takes the tensor-core kernels ("tc") and float32 the 3xTF32
+tensor-core kernels ("tf32x3"), which split each float32 operand into two
+tf32 halves and keep float32's accuracy; K3 with fewer than 16 keys takes
+the SIMT kernel ("simt"). A head dim above ``MAX_HEAD_DIM`` takes the
+plain versions on the card ("plain"), a rule of the dispatch that no
+error reaches. A kernel that fails to build or launch raises; no variant
+stands in for another.
 
 Head dims. The kernels are instantiated for ``HEAD_DIMS`` (16, 32, 64,
 128). A call with another head dim up to 128 is zero-padded to the next
@@ -59,10 +61,10 @@ or raises (or, for a head dim above 128, runs the plain version by the
 rule). Each wrapper counts its kernel's launches in ``<wrapper>.launches``
 (K1's in ``flash_attention.launches``, also when ``FlashAttentionFn``
 launches it), those of the tensor-core, 3xTF32 and decode variants among
-them in ``<wrapper>.launches_tc``, ``flash_attn_bwd_dq.launches_tf32x3``
-and ``flash_attn_bwd_dkv.launches_tf32x3``, and ``<wrapper>.launches_dec``,
-and the CUDA calls that the rule sent to the plain version, which launch
-no kernel of this module, in ``<wrapper>.launches_plain``. One launch of
+them in ``<wrapper>.launches_tc``, ``<wrapper>.launches_tf32x3`` and
+``<wrapper>.launches_dec``, and the CUDA calls that the rule sent to the
+plain version, which launch no kernel of this module, in
+``<wrapper>.launches_plain``. One launch of
 the decode backward, or one plain backward, counts on K2 and on K3.
 
 Attention dropout follows the TPU kernel: the softmax denominator sums the
@@ -298,6 +300,9 @@ def _check_cuda(*tensors: Optional[torch.Tensor]) -> None:
     """What the kernels take: one CUDA device, contiguous, a head dim up to
     the largest instance (the launchers pad it to an instance)."""
     q = tensors[0]
+    if q.device.type != "cuda":
+        raise ValueError(f"the flash kernels take CUDA tensors, not "
+                         f"{q.device} ones")
     if q.shape[-1] > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {q.shape[-1]} is above the kernels' "
                          f"largest instance {MAX_HEAD_DIM}: the rule sends "
@@ -335,16 +340,18 @@ def fwd_variant(sq: int, dtype: torch.dtype, d: int) -> str:
     kernel is instantiated; else "dec" (flash_attn_fwd_dec.cu) for fewer
     than TC_MIN_ROWS queries in either dtype, the decoder's single query,
     where a 64-row tile would be 63 rows of zeros and the call is bound by
-    reading K and V once; "tc" (flash_attn_fwd_tc.cu) for bf16 with more,
-    the VL encoder's 440 and BERT's 40; else "simt" (flash_attn_fwd.cu):
-    float32 with 16 or more queries, until a 3xTF32 forward takes it as
-    "tf32x3" took K2 and K3 (plain TF32 would break its 1e-5
-    tolerance)."""
+    reading K and V once; with more, the VL encoder's 440 and BERT's 40
+    (keys are the N side of the tensor-core kernels, so any Sk), "tc"
+    (flash_attn_fwd_tc.cu) for bf16 and "tf32x3"
+    (flash_attn_fwd_f32tc.cu) for float32: its products on the tensor
+    cores as three TF32 products of split operands, which keeps the
+    float32 tolerance that plain TF32 would break. The SIMT kernel
+    (flash_attn_fwd.cu) has no route left."""
     if d > MAX_HEAD_DIM:
         return "plain"
     if sq < TC_MIN_ROWS:
         return "dec"
-    return "tc" if dtype == torch.bfloat16 else "simt"
+    return "tc" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def dq_variant(sq: int, dtype: torch.dtype, d: int) -> str:
@@ -396,6 +403,9 @@ _ARGTYPES = {
                        + _DROPOUT_ARGS),
     "flash_attn_fwd_tc": ("flash_attn_fwd_tc.cu",
                           [_PTR] * 6 + [_INT] * 5 + [_FLOAT] + _DROPOUT_ARGS),
+    "flash_attn_fwd_f32tc": ("flash_attn_fwd_f32tc.cu",
+                             [_PTR] * 6 + [_INT] * 5 + [_FLOAT]
+                             + _DROPOUT_ARGS),
     "flash_attn_fwd_dec": ("flash_attn_fwd_dec.cu",
                            [_PTR] * 6 + [_INT] * 5 + [_FLOAT, _INT]
                            + _DROPOUT_ARGS),
@@ -506,8 +516,8 @@ def _check_tc(*tensors: Optional[torch.Tensor],
 
 def _launch_fwd(variant: str, q, k, v, valid_mask, dropout_rate: float,
                 seed: Optional[int], return_lse: bool = True):
-    """Launch K1's ``variant`` ("dec", "tc" or "simt"; "plain" runs
-    ``attention_plain``) on CUDA tensors: (out, lse or None). A head dim
+    """Launch K1's ``variant`` ("dec", "tc", "tf32x3" or "simt"; "plain"
+    runs ``attention_plain``) on CUDA tensors: (out, lse or None). A head dim
     between the instances is zero-padded to the next one."""
     if variant == "plain":
         flash_attention.launches_plain += 1
@@ -535,6 +545,10 @@ def _launch_fwd(variant: str, q, k, v, valid_mask, dropout_rate: float,
         _check_tc(q, k, v)
         _launch("flash_attn_fwd_tc", q.device, *ptrs, *shape, *drop)
         flash_attention.launches_tc += 1
+    elif variant == "tf32x3":
+        _check_tc(q, k, v, dtype=torch.float32)
+        _launch("flash_attn_fwd_f32tc", q.device, *ptrs, *shape, *drop)
+        flash_attention.launches_tf32x3 += 1
     elif variant == "simt":
         _launch("flash_attn_fwd", q.device, *ptrs, *shape, _DTYPES[q.dtype],
                 _threads_per_row(sq), *drop)
@@ -759,5 +773,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention.launches = 0
 flash_attention.launches_tc = 0
+flash_attention.launches_tf32x3 = 0
 flash_attention.launches_dec = 0
 flash_attention.launches_plain = 0

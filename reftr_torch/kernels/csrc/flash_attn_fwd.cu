@@ -1,13 +1,12 @@
 // Flash-attention forward for Hopper (sm_90a), plain C interface for ctypes:
 // the SIMT variant of K1.
 //
-// What it serves: float32 calls with 16 or more queries, until a 3xTF32
-// forward on the tensor cores takes them as flash_attn_bwd_dq_f32tc.cu and
-// flash_attn_bwd_dkv_f32tc.cu took the backward's (plain TF32 would break
-// the 1e-5 tolerance). bf16 calls with 16 or more queries take the
-// tensor-core kernel, flash_attn_fwd_tc.cu, and every call with fewer, the
-// decoder's single query, takes flash_attn_fwd_dec.cu
-// (kernels/attention.py::fwd_variant).
+// What it serves: no call of the dispatch rule
+// (kernels/attention.py::fwd_variant). Calls with 16 or more queries take
+// the tensor-core kernels, flash_attn_fwd_tc.cu in bf16 and
+// flash_attn_fwd_f32tc.cu in float32 (3xTF32), and every call with fewer,
+// the decoder's single query, takes flash_attn_fwd_dec.cu. It stays built
+// as the variant the others are timed against in chip_smoke.py.
 //
 // Replaces the TPU kernel `_flash_kernel` of reftr_tpu/kernels/attention.py
 // (driven by `_fwd`, pallas_call at :210): out = softmax(q k^T / sqrt(D) +

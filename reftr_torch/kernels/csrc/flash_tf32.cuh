@@ -1,5 +1,6 @@
-// 3xTF32 building blocks of the float32 tensor-core backward kernels
-// (flash_attn_bwd_dq_f32tc.cu, flash_attn_bwd_dkv_f32tc.cu): padded f32
+// 3xTF32 building blocks of the float32 tensor-core kernels
+// (flash_attn_fwd_f32tc.cu, flash_attn_bwd_dq_f32tc.cu,
+// flash_attn_bwd_dkv_f32tc.cu): padded f32
 // tiles in shared memory, fragment loads for mma.sync m16n8k8 with tf32
 // inputs and f32 accumulators (sm_80 and later, so sm_90a too), the split
 // of each operand into a big and a small tf32 half, and the three products

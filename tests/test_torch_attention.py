@@ -16,6 +16,8 @@ from reftr_tpu.kernels.attention import _xla_attention, fused_attention
 from reftr_tpu.nn.attention import MultiHeadAttention as JaxMHA
 from reftr_torch.kernels.attention import (_ARGTYPES, HEAD_DIMS,
                                            MAX_HEAD_DIM, TC_MIN_ROWS,
+                                           _launch_dkv, _launch_dq,
+                                           _launch_fwd,
                                            attention_bwd_plain,
                                            attention_plain, dkv_variant,
                                            dq_variant, flash_attention,
@@ -157,15 +159,14 @@ CALL_SITES = {"vl_encoder_self": (440, 440, 32), "decoder_self": (1, 1, 32),
 @pytest.mark.parametrize("site", sorted(CALL_SITES))
 def test_variant_rule_at_the_call_sites(site, dtype):
     """bf16 BERT and encoder calls on the tensor cores; float32 ones on
-    SIMT for K1 and on the 3xTF32 tensor-core kernels for K2 and K3; the
-    decoder's single query on the decode kernels (K1's, and the one
-    backward kernel for K2 and K3) in either dtype."""
+    the 3xTF32 tensor-core kernels (K1, K2 and K3); the decoder's single
+    query on the decode kernels (K1's, and the one backward kernel for K2
+    and K3) in either dtype."""
     sq, sk, d = CALL_SITES[site]
     dec = site.startswith("decoder")
     bf16 = dtype == torch.bfloat16
-    assert fwd_variant(sq, dtype, d) == ("dec" if dec else
-                                         "tc" if bf16 else "simt")
     want = "dec" if dec else "tc" if bf16 else "tf32x3"
+    assert fwd_variant(sq, dtype, d) == want
     assert dq_variant(sq, dtype, d) == want
     assert dkv_variant(sq, sk, dtype, d) == want
 
@@ -175,26 +176,29 @@ def test_variant_rule_boundary():
     assert TC_MIN_ROWS == 16
     assert fwd_variant(15, bf16, 32) == "dec"
     assert fwd_variant(16, bf16, 32) == "tc"
-    assert fwd_variant(16, f32, 32) == "simt"
-    assert fwd_variant(8540, f32, 32) == "simt"
+    assert fwd_variant(16, f32, 32) == "tf32x3"
+    assert fwd_variant(15, f32, 32) == "dec"
+    assert fwd_variant(8540, f32, 32) == "tf32x3"
     assert dkv_variant(16, 16, bf16, 32) == "tc"
     assert dkv_variant(15, 440, bf16, 32) == "dec"
     assert dkv_variant(15, 15, f32, 32) == "dec"
     assert dkv_variant(440, 15, bf16, 32) == "simt"
     assert dkv_variant(440, 440, f32, 32) == "tf32x3"
     assert MAX_HEAD_DIM == 128
-    assert fwd_variant(440, f32, 128) == "simt"
+    assert fwd_variant(440, f32, 128) == "tf32x3"
     assert fwd_variant(440, f32, 129) == "plain"
 
 
 @pytest.mark.parametrize("sq,dtype,fwd,dq", [
     (1, torch.float32, "dec", "dec"), (15, torch.float32, "dec", "dec"),
-    (16, torch.float32, "simt", "tf32x3"), (1, torch.bfloat16, "dec", "dec"),
+    (16, torch.float32, "tf32x3", "tf32x3"),
+    (8540, torch.float32, "tf32x3", "tf32x3"),
+    (1, torch.bfloat16, "dec", "dec"),
     (15, torch.bfloat16, "dec", "dec"), (16, torch.bfloat16, "tc", "tc"),
     (8540, torch.bfloat16, "tc", "tc")])
 def test_dec_and_dq_variant_rules(sq, dtype, fwd, dq):
     """K1 and K2 take their decode kernels below TC_MIN_ROWS queries in
-    either dtype; K2 takes the tensor cores from TC_MIN_ROWS queries,
+    either dtype; both take the tensor cores from TC_MIN_ROWS queries,
     whatever Sk: bf16 products in bf16, float32 ones by 3xTF32."""
     assert fwd_variant(sq, dtype, 32) == fwd
     assert dq_variant(sq, dtype, 32) == dq
@@ -223,8 +227,6 @@ def _rule(kernel, sq, sk, dtype, d):
     if sq < 16:
         return "dec"
     bf16 = dtype == torch.bfloat16
-    if kernel == "fwd":
-        return "tc" if bf16 else "simt"
     if kernel == "dkv" and sk < 16:
         return "simt"
     return "tc" if bf16 else "tf32x3"
@@ -316,18 +318,23 @@ def test_ctypes_signatures_match_the_sources(name):
     assert _chip_smoke_kernels()[name][0] == source
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("sq", [1, 16, 64])
-def test_cpu_tensors_take_the_plain_version_whatever_the_variant(sq):
-    """bf16 CPU tensors at shapes the rule sends to the decode kernel (one
-    query) and to the tensor-core kernels: the plain versions run, forward
-    and backward, and no launch counter moves."""
+def test_cpu_tensors_take_the_plain_version_whatever_the_variant(sq, dtype):
+    """CPU tensors at shapes the rule sends to the decode kernel (one
+    query) and to the tensor-core kernels (bf16, and 3xTF32 in float32):
+    the plain versions run, forward and backward, and no launch counter
+    moves."""
     q, k, v, valid = (t(a) for a in make_qkv(8, 2, sq, 20, 2, 32))
-    q, k, v = (x.to(torch.bfloat16).requires_grad_() for x in (q, k, v))
+    q, k, v = (x.to(dtype).requires_grad_() for x in (q, k, v))
     counters = (flash_attention, flash_attn_bwd_dq, flash_attn_bwd_dkv)
+    assert fwd_variant(sq, dtype, 32) == ("dec" if sq == 1 else "tf32x3"
+                                          if dtype == torch.float32
+                                          else "tc")
 
     def counts():
-        return [(c.launches, c.launches_tc, getattr(c, "launches_dec", 0))
-                for c in counters]
+        return [(c.launches, c.launches_tc, c.launches_tf32x3,
+                 c.launches_dec) for c in counters]
 
     before = counts()
     out = flash_attention(q, k, v, valid)
@@ -340,3 +347,28 @@ def test_cpu_tensors_take_the_plain_version_whatever_the_variant(sq):
     for g, w in zip(grads, want_grads):
         assert torch.equal(g, w)
     assert counts() == before
+
+
+@pytest.mark.parametrize("launch,variant", [
+    (_launch_fwd, "dec"), (_launch_fwd, "tc"), (_launch_fwd, "tf32x3"),
+    (_launch_fwd, "simt"), (_launch_dq, "tc"), (_launch_dq, "tf32x3"),
+    (_launch_dq, "simt"), (_launch_dq, "dec"), (_launch_dkv, "tc"),
+    (_launch_dkv, "tf32x3"), (_launch_dkv, "simt")])
+def test_launchers_refuse_cpu_tensors(launch, variant):
+    """Each launcher, called with CPU tensors for any of its kernel
+    variants, raises before it pads, allocates or launches, and no launch
+    counter moves: only the wrappers send CPU tensors to the plain
+    versions."""
+    sq = 1 if variant == "dec" else 16
+    q, k, v, valid = (t(a) for a in make_qkv(10, 2, sq, 20, 2, 32))
+    if variant == "tc":
+        q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    args = (q, k, v, valid)
+    if launch is not _launch_fwd:
+        out, lse = attention_plain(q, k, v, valid, True)
+        args += (out, lse, out)
+    counters = (flash_attention, flash_attn_bwd_dq, flash_attn_bwd_dkv)
+    before = [c.launches for c in counters]
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        launch(variant, *args, 0.0, None)
+    assert [c.launches for c in counters] == before

@@ -15,8 +15,8 @@ are with a single key): 1e-4 in float32 (sums of up to 440 terms in
 another order), 1e-2 in bfloat16 (rounding of the output to bf16, 2^-9).
 
 The wrappers pick each kernel's variant by shape, dtype and head dim
-(16 or more rows: the tensor-core kernels, in bf16 and for K2 and K3 in
-float32 by 3xTF32; fewer than 16 queries: the decode kernels, K1's and
+(16 or more rows: the tensor-core kernels, in bf16 and in float32 by
+3xTF32; fewer than 16 queries: the decode kernels, K1's and
 the one backward for K2 and K3; a head dim above 128: the plain versions),
 so the tests through the wrappers cover every variant; the tests of the
 tensor-core kernels alone launch them at the edges of their 64-row and
@@ -294,8 +294,8 @@ def test_dropout_mask_is_exact_through_the_tensor_core_kernel(gen, shape):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_tensor_core_counters_count_only_bf16_calls(gen, dtype):
     """An encoder-shaped bf16 call goes through K1-TC, K2-TC and K3-TC, a
-    float32 one through the SIMT K1 and the 3xTF32 K2 and K3; the totals
-    count both."""
+    float32 one through the 3xTF32 K1, K2 and K3; the totals count
+    both."""
     q, k, v, valid = inputs(gen, 2, 440, 440, 8, 32, dtype)
     q.requires_grad_()
     counters = (flash_attention, flash_attn_bwd_dq, flash_attn_bwd_dkv)
@@ -309,8 +309,7 @@ def test_tensor_core_counters_count_only_bf16_calls(gen, dtype):
     torch.cuda.synchronize()
     tc = 1 if dtype == torch.bfloat16 else 0
     assert [tuple(a - b for a, b in zip(x, y))
-            for x, y in zip(counts(), before)] == [
-        (1, tc, 0), (1, tc, 1 - tc), (1, tc, 1 - tc)]
+            for x, y in zip(counts(), before)] == [(1, tc, 1 - tc)] * 3
 
 
 def test_tensor_core_kernels_refuse_what_they_do_not_take(gen):
@@ -662,6 +661,103 @@ def test_f32_tensor_core_kernels_refuse_what_they_do_not_take(gen):
                     None)
 
 
+F32FWD_S = (16, 17, 40, 63, 64, 65, 130, 440)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("sk", F32FWD_S)
+@pytest.mark.parametrize("sq", F32FWD_S)
+def test_f32_forward_kernel_matches_plain(gen, sq, sk, d, rate):
+    """K1-f32tc (3xTF32) launched directly at the edges of its 64-row and
+    64-key tiles and 16-key parts (BERT's 40, the encoder's 440), batch row
+    0 with every key masked, against attention_plain on the same float32
+    inputs: out within 1e-5 max abs and lse within 1e-5 + 1e-6 relative,
+    float32's tolerances; each launch counts in launches_tf32x3."""
+    q, k, v, valid = inputs(gen, 2, sq, sk, 3, d, torch.float32)
+    seed = 0x7F32_F0D0_0001 if rate else None
+    before = flash_attention.launches_tf32x3
+    out, lse = _launch_fwd("tf32x3", q, k, v, valid, rate, seed)
+    want, want_lse = attention_plain(q, k, v, valid, True, dropout_rate=rate,
+                                     seed=seed)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_tf32x3 == before + 1
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    torch.testing.assert_close(out, want, atol=TOL[torch.float32], rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(8, 440, 440, 8, 32), (2, 40, 40, 4, 64),
+                                   (2, 33, 65, 2, 16), (2, 70, 130, 2, 128)])
+def test_dropout_mask_is_exact_through_the_f32_forward_kernel(gen, shape):
+    """As test_dropout_mask_is_exact, through K1-f32tc launched directly:
+    v one-hot over the head dim reads p * keep off the output for D keys at
+    a time; Sk = 65 and 130 take the one-Philox-call-per-element path."""
+    b, sq, sk, h, d = shape
+    q, k, _, valid = inputs(gen, b, sq, sk, h, d, torch.float32)
+    rate, seed = 0.1, 0xF32F
+    keep = philox_keep_plain(seed, b, h, sq, sk, rate, "cuda")
+    live = keep_live(valid)
+    for k0 in range(0, sk, d):
+        n = min(d, sk - k0)
+        v = torch.zeros(b, sk, h, d, device="cuda")
+        v[:, k0:k0 + n, :, :n] = torch.eye(n, device="cuda")[:, None, :]
+        out = _launch_fwd("tf32x3", q, k, v, valid, rate, seed, False)[0]
+        got = out[..., :n].permute(0, 2, 1, 3) != 0  # [B, H, Sq, n]
+        m = live[..., k0:k0 + n].expand_as(got)
+        assert torch.equal(got[m], keep[..., k0:k0 + n][m])
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("shape", [(8, 440, 440, 8, 32), (2, 40, 40, 12, 64),
+                                   (2, 70, 130, 2, 128)])
+def test_f32_forward_kernel_is_bitwise_repeatable(gen, shape, rate):
+    """Each output row is summed by one warp in a fixed order (no atomics):
+    two calls on the same inputs give the same bits in out and lse."""
+    q, k, v, valid = inputs(gen, *shape, torch.float32)
+    seed = 0x3333_5555_7777 if rate else None
+    first = _launch_fwd("tf32x3", q, k, v, valid, rate, seed)
+    second = _launch_fwd("tf32x3", q, k, v, valid, rate, seed)
+    torch.cuda.synchronize()
+    assert all(same_bits(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("sq,d,dtype,want", [
+    (1, 32, torch.float32, 0), (15, 32, torch.float32, 0),
+    (16, 32, torch.float32, 1), (440, 32, torch.float32, 1),
+    (40, 64, torch.float32, 1), (40, 160, torch.float32, 0),
+    (16, 32, torch.bfloat16, 0), (440, 32, torch.bfloat16, 0)])
+def test_f32_forward_counter_counts_only_its_calls(gen, sq, d, dtype, want):
+    """Through the rule, K1's launches_tf32x3 moves for float32 calls with
+    16 or more queries and a head dim up to 128, and for no other; the
+    SIMT K1 is never launched (every launch of K1 is counted in one of
+    its other variants, or the call is plain)."""
+    q, k, v, valid = inputs(gen, 2, sq, 40, 2, d, dtype)
+    c = flash_attention
+    before = (c.launches, c.launches_tf32x3, c.launches_tc, c.launches_dec)
+    flash_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    moved = [a - b for a, b in zip(
+        (c.launches, c.launches_tf32x3, c.launches_tc, c.launches_dec),
+        before)]
+    assert moved[1] == want
+    assert moved[0] == sum(moved[1:])
+
+
+def test_f32_forward_kernel_refuses_what_it_does_not_take(gen):
+    q, k, v, valid = inputs(gen, 2, 64, 64, 2, 32, torch.float32)
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    with pytest.raises(TypeError, match="float32"):
+        _launch_fwd("tf32x3", qb, kb, vb, valid, 0.0, None)
+    shifted = torch.empty(q.numel() + 1, device="cuda")[1:].view(q.shape)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="aligned"):
+        _launch_fwd("tf32x3", shifted, k, v, valid, 0.0, None)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _launch_fwd("tf32x3", q.cpu(), k.cpu(), v.cpu(), valid.cpu(), 0.0,
+                    None)
+
+
 # (B, Sq, Sk, H): the decode kernels (fewer than 16 queries), the
 # tensor-core kernels (both sides 16 or more), K3's SIMT kernel (fewer
 # than 16 keys)
@@ -683,6 +779,7 @@ def test_every_route_takes_odd_head_dims(gen, d, shape, dtype, rate):
     seed = 0x0DD0_1234 if rate else None
     counters = (flash_attention, flash_attn_bwd_dq, flash_attn_bwd_dkv)
     before = [(c.launches, c.launches_plain) for c in counters]
+    tf32x3 = flash_attention.launches_tf32x3
     out, lse = flash_attention(q, k, v, valid, return_lse=True,
                                dropout_rate=rate, seed=seed)
     want, want_lse = attention_plain(q.float(), k.float(), v.float(), valid,
@@ -696,6 +793,8 @@ def test_every_route_takes_odd_head_dims(gen, d, shape, dtype, rate):
              for c, (n, m) in zip(counters, before)]
     plain = d > 128
     assert all((n == 0) == plain and (m > 0) == plain for n, m in moved)
+    assert flash_attention.launches_tf32x3 - tf32x3 == (
+        fwd_variant(sq, dtype, d) == "tf32x3")
     assert {fwd_variant(sq, dtype, d), dq_variant(sq, dtype, d),
             dkv_variant(sq, sk, dtype, d)} >= ({"plain"} if plain else set())
     assert out.shape == q.shape and out.dtype == dtype

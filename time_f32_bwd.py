@@ -1,6 +1,6 @@
-"""Device time of the 3xTF32 backward kernels (K2 and K3 in float32) of one
+"""Device time of the 3xTF32 kernels (K1, K2 and K3 in float32) of one
 checkout of the port, at the VL encoder's and BERT's shapes, each checked
-against the plain backward.
+against its plain version.
 
     python3 time_f32_bwd.py ROOT LABEL
 
@@ -10,10 +10,12 @@ call to the card, in turns (base, change, change, base), to compare two
 versions of the kernels. For each site (B=8 with random key padding and
 batch row 0 fully masked; encoder 440×440, H=8, D=32; BERT 40×40, H=12,
 D=64), without dropout and at 0.1, it prints one JSON line: the device
-ms per call of K2 (``_launch_dq("tf32x3")``) and K3 (``_launch_dkv``)
-by torch.profiler over 20 calls after 3 warm-up calls, their sum, and the
-largest error of dq, dk and dv against ``attention_bwd_plain`` as a share
-of the largest plain gradient.
+ms per call of K1 (``_launch_fwd("tf32x3")``) and, in the same process,
+of the SIMT K1 (``_launch_fwd("simt")``), K2 (``_launch_dq("tf32x3")``)
+and K3 (``_launch_dkv``) by torch.profiler over 20 calls after 3 warm-up
+calls, K2's and K3's sum, K1's largest error of out and lse against
+``attention_plain``, and the largest error of dq, dk and dv against
+``attention_bwd_plain`` as a share of the largest plain gradient.
 """
 
 import json
@@ -28,7 +30,7 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 import reftr_torch  # noqa: E402
 from reftr_torch.kernels.attention import (_launch_dkv, _launch_dq,  # noqa: E402
-                                           attention_bwd_plain,
+                                           _launch_fwd, attention_bwd_plain,
                                            attention_plain)
 
 assert reftr_torch.__file__.startswith(root), reftr_torch.__file__
@@ -68,6 +70,12 @@ def main():
             seed = 1234 if rate else None
             out, lse = (x.contiguous() for x in attention_plain(
                 q, k, v, valid, True, dropout_rate=rate, seed=seed))
+            fwd = (q, k, v, valid, rate, seed)
+            got_out, got_lse = _launch_fwd("tf32x3", *fwd)
+            fwd_err = (got_out - out).abs().max().item()
+            lse_err = (got_lse - lse).abs().max().item()
+            k1 = device_ms(lambda: _launch_fwd("tf32x3", *fwd))
+            k1_simt = device_ms(lambda: _launch_fwd("simt", *fwd))
             args = (q, k, v, valid, out, lse, do, rate, seed)
             wants = attention_bwd_plain(*args)
             got = (_launch_dq("tf32x3", *args), *_launch_dkv("tf32x3", *args))
@@ -77,6 +85,10 @@ def main():
             dq = device_ms(lambda: _launch_dq("tf32x3", *args))
             dkv = device_ms(lambda: _launch_dkv("tf32x3", *args))
             print(json.dumps({"label": label, "site": site, "dropout": rate,
+                              "fwd_device_ms": k1,
+                              "simt_fwd_device_ms": k1_simt,
+                              "fwd_max_abs_err": fwd_err,
+                              "lse_max_abs_err": lse_err,
                               "dq_device_ms": dq, "dkv_device_ms": dkv,
                               "pair": dq + dkv, "rel_err": err}), flush=True)
 
