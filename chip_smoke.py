@@ -10,8 +10,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    flash_attn_fwd_f32tc.cu, flash_attn_fwd_dec.cu, flash_attn_bwd.cu,
    flash_attn_bwd_dq_tc.cu, flash_attn_bwd_dkv_tc.cu,
    flash_attn_bwd_dq_f32tc.cu, flash_attn_bwd_dkv_f32tc.cu and
-   flash_attn_bwd_dec.cu, one nvcc each for sm_90a, started together),
-   and count the tensor-core products (HMMA) in the machine code of the
+   flash_attn_bwd_dec.cu, one nvcc each for sm_90a, started together with
+   one g++ of the data pipeline's C++ under reftr_torch/data/csrc/), and
+   count the tensor-core products (HMMA) in the machine code of the
    six tensor-core kernels, bf16 and 3xTF32 (cuobjdump -sass): none fails
    the run.
 2. The forward kernel (K1) against its plain PyTorch version on the card,
@@ -123,13 +124,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    the attention kernels' share, and the same step profiled with K1, K2
    and K3 on the SIMT kernels, as the rule sent them before the 3xTF32
    kernels (the same-run "before").
-6. Print one JSON line listing each kernel (each variant on a row of its
+6. The trainer's entry point: reftr_torch.cli.main.main(argv), called in
+   this process, on refcoco_det at full width and depth in float32 (the
+   preset has no dtype; the command line's default is bfloat16, so
+   --dtype float32 is passed) on the synthetic fixture: 64 train items
+   and the fixed 64-item val split at 640 px, batch 8, 4 loader threads,
+   output in chiprun_out/cli (emptied first). Three runs: epoch 0 of 2
+   (--run_epoch 1 --auto_resume: 8 train steps, 8 eval batches,
+   checkpoints), the same command again (it must auto-resume at epoch 1,
+   step 8, and train epoch 1), and --eval --resume of the saved
+   checkpoint. Checks: exit code 0 each; log.txt's two lines with every
+   loss finite; checkpoint and the val result file written;
+   checkpoint_best present exactly when an epoch's accuracy_iou0.5 rose
+   above 0 (the best starts at 0); the eval-only accuracy_iou0.5 equal to
+   the epoch-1 line's and its miou within 1e-5; each run's launches
+   exactly 30 of each of K1, K2 and K3 per train step and 30 of K1 per
+   eval batch (18 on the 3xTF32 kernels, 12 on the decode kernels, none
+   on SIMT or plain). Reports, beside the card's name and power limit,
+   the seconds per train step and per eval batch host to host, the mean
+   time: and data: of a step (core/metrics.py::log_every), the model's
+   build time, each checkpoint's bytes and save time and the peak device
+   memory of each run. The checkpoints are then deleted (their sizes are
+   reported), so chiprun_out/ stays small.
+7. Print one JSON line listing each kernel (each variant on a row of its
    own; the decode backward on one row for K2 and K3) with its launches
    on the main path, its error, and its times and bound at the call site
    where the main path launches it (the decoder's cross-attention for the
    decode and SIMT kernels, the VL encoder for the tensor-core kernels, in
    float32 for the 3xTF32 ones) on this card.
-7. Print {"ok": true, "device": {...}} as the last line.
+8. Print {"ok": true, "device": {...}} as the last line.
 
 It needs a CUDA card and the reftr_torch package beside it; without
 either it fails before it prints any result.
@@ -232,6 +255,20 @@ HEAD_DIM_SWEEP = [(2, 70, 130, 4, 48), (2, 70, 130, 2, 96),
                   (2, 3, 130, 4, 24), (2, 65, 17, 3, 8),
                   (2, 70, 130, 2, 128), (2, 70, 130, 1, 160),
                   (2, 70, 130, 1, 256)]
+# phase 6: the trainer's entry point, refcoco_det at full width in float32
+# on the synthetic fixture; 64 train items and the fixed 64-item val split
+# in batches of 8 make 8 train steps and 8 eval batches an epoch
+CLI_OUT = ROOT / "chiprun_out" / "cli"
+CLI_MODEL_DATA = ["--preset", "refcoco_det", "--dataset", "synthetic",
+                  "--test_split", "val", "--synthetic_n", "64",
+                  "--batch_size", "8", "--num_workers", "4",
+                  "--dtype", "float32"]
+CLI_TRAIN = CLI_MODEL_DATA + ["--epochs", "2", "--run_epoch", "1",
+                              "--auto_resume", "--output_dir", str(CLI_OUT)]
+CLI_EVAL = CLI_MODEL_DATA + ["--eval", "--resume", str(CLI_OUT / "checkpoint")]
+CLI_STEPS = 8
+CLI_EVAL_BATCHES = 8
+CLI_MIOU_TOL = 1e-5  # the eval-only pass against the log: sums in order
 # NVIDIA H100 SXM data sheet: HBM rate, bf16 dense tensor-core rate, and
 # float32-accurate products: 3xTF32 gets a third of the 495 TFLOP/s of TF32
 # (the f32 FMA rate outside the tensor cores, 67 TFLOP/s, is lower)
@@ -1614,6 +1651,180 @@ def train_f32(report: dict, counters) -> dict:
     return report
 
 
+class _Tee:
+    """Writes to the real stdout and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_cli(argv, counters) -> dict:
+    """One call of reftr_torch.cli.main.main(argv) in this process, the
+    launch counts set to 0 just before and read just after: its exit
+    code, printed output, launches, seconds and peak device memory."""
+    import contextlib
+    import gc
+
+    import torch
+
+    from reftr_torch.cli.main import main as cli_main
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tee = _Tee(sys.stdout)
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        rc = cli_main(argv)
+    torch.cuda.synchronize()
+    return {"rc": rc, "seconds": time.perf_counter() - t0,
+            "launches": read_counts(counters),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "out": "".join(tee.parts)}
+
+
+def _floats(pattern: str, text: str) -> list:
+    return [float(m) for m in re.findall(pattern, text)]
+
+
+def log_every_times(out: str, header: str):
+    """The ``time:`` and ``data:`` that core/metrics.py::log_every printed
+    for one pass of ``header`` ("Epoch: [e]" or "Test:"): its first line
+    is the first iteration's, its last line the mean of its window (20),
+    which holds every iteration of these 8-batch passes; the mean of the
+    others follows from the two. None if the run has no such pass."""
+    rows = re.findall(rf"^{re.escape(header)} \[\d+/(\d+)\].*time: "
+                      rf"([\d.]+)  data: ([\d.]+)", out, re.M)
+    if not rows:
+        return None
+    n = int(rows[0][0])
+    (t0, d0), (t, d) = ([float(x) for x in r[1:]] for r in (rows[0],
+                                                             rows[-1]))
+    return {"n": n, "time_s": t, "data_s": d, "first_time_s": t0,
+            "first_data_s": d0, "rest_time_s": (n * t - t0) / (n - 1),
+            "rest_data_s": (n * d - d0) / (n - 1)}
+
+
+def cli_report(run: dict) -> dict:
+    """The numbers a run prints (core/metrics.py::log_every and
+    train/loop.py): the host's seconds per train step and per eval batch
+    (log_every's "Total time"), the mean ``time:`` and ``data:`` of its
+    train epoch and of its eval pass, also without their first
+    iteration, the model's build seconds and each checkpoint's bytes and
+    save seconds."""
+    out = run["out"]
+    epochs = re.findall(r"^(Epoch: \[\d+\]) \[0/", out, re.M)
+    return {
+        "train": log_every_times(out, epochs[0]) if epochs else None,
+        "eval": log_every_times(out, "Test:"),
+        "train_s_per_step": _floats(
+            r"Epoch: \[\d+\] Total time: \S+ \(([\d.]+) s / it\)", out),
+        "eval_s_per_batch": _floats(
+            r"Test: Total time: \S+ \(([\d.]+) s / it\)", out),
+        "build_s": _floats(r"model built in ([\d.]+) s", out),
+        "checkpoints": [
+            {"name": name, "bytes": int(n), "save_s": float(sec)}
+            for name, n, sec in re.findall(
+                r"checkpoint (\S+): (\d+) bytes saved in ([\d.]+) s", out)],
+        "seconds": run["seconds"], "peak_memory_gb": run["peak_memory_gb"]}
+
+
+def cli_launches(steps: int, eval_batches: int) -> dict:
+    """The counters after ``steps`` float32 train steps and
+    ``eval_batches`` eval forwards: K1 30 a forward, K2 and K3 30 a step,
+    18 of each on the 3xTF32 kernels and 12 on the decode kernels."""
+    train = expected_launches(steps, "tf32x3", True)
+    evals = expected_launches(eval_batches, "tf32x3", False)
+    return {k: train[k] + evals[k] for k in train}
+
+
+def train_cli(report: dict, counters) -> dict:
+    """Phase 6: the trainer's entry point, reftr_torch.cli.main.main, on
+    refcoco_det at full width in float32 on the synthetic fixture: the
+    first epoch, the same command again (an auto-resume at epoch 1, step
+    8), and an eval-only pass over the saved checkpoint."""
+    import shutil
+
+    shutil.rmtree(CLI_OUT, ignore_errors=True)
+    runs = {"epoch0": run_cli(CLI_TRAIN, counters),
+            "epoch1": run_cli(CLI_TRAIN, counters),
+            "eval": run_cli(CLI_EVAL, counters)}
+    for name, run in runs.items():
+        if run["rc"] != 0:
+            raise AssertionError(f"phase 6 {name}: exit code {run['rc']}")
+    if not re.search(rf"Resumed from \S+ at epoch 1, step {CLI_STEPS}\b",
+                     runs["epoch1"]["out"]):
+        raise AssertionError(f"phase 6: the second run did not auto-resume "
+                             f"at epoch 1, step {CLI_STEPS}")
+    with open(CLI_OUT / "log.txt") as f:
+        log = [json.loads(line) for line in f]
+    if [e["epoch"] for e in log] != [0, 1]:
+        raise AssertionError(f"phase 6: log.txt epochs "
+                             f"{[e['epoch'] for e in log]}, not [0, 1]")
+    bad = {k: v for e in log for k, v in e.items()
+           if k.startswith(("train_loss", "test_val_loss"))
+           and not math.isfinite(v)}
+    if bad:
+        raise AssertionError(f"phase 6: losses not finite: {bad}")
+    for name in ("checkpoint", "synthetic_val_result.json"):
+        if not (CLI_OUT / name).is_file():
+            raise AssertionError(f"phase 6: no {name}")
+    accs = [e["test_val_accuracy_iou0.5"] for e in log]
+    if (CLI_OUT / "checkpoint_best").is_file() != (max(accs) > 0):
+        raise AssertionError(f"phase 6: checkpoint_best exists: "
+                             f"{(CLI_OUT / 'checkpoint_best').is_file()}, "
+                             f"accuracies {accs}")
+    evals = [json.loads(m) for m in re.findall(
+        r"^\[val\] (\{.*\})$", runs["eval"]["out"], re.M)]
+    if len(evals) != 1:
+        raise AssertionError(f"phase 6: {len(evals)} eval lines")
+    got, want = evals[0], log[-1]
+    miou_err = abs(got["miou"] - want["test_val_miou"])
+    if (got["accuracy_iou0.5"] != want["test_val_accuracy_iou0.5"]
+            or not miou_err <= CLI_MIOU_TOL):
+        raise AssertionError(f"phase 6: eval-only {got} against epoch 1 "
+                             f"{want}")
+    wants = {"epoch0": cli_launches(CLI_STEPS, CLI_EVAL_BATCHES),
+             "epoch1": cli_launches(CLI_STEPS, CLI_EVAL_BATCHES),
+             "eval": cli_launches(0, CLI_EVAL_BATCHES)}
+    for name, run in runs.items():
+        if run["launches"] != wants[name]:
+            raise AssertionError(f"phase 6 {name}: launches "
+                                 f"{run['launches']}, not {wants[name]}")
+    reports = {name: cli_report(run) for name, run in runs.items()}
+    card = report["card"]
+    for name, r in reports.items():
+        print(f"cli {name} ({card}): s per train step host to host "
+              f"{r['train_s_per_step']}, time:/data: {r['train']}; s per "
+              f"eval batch {r['eval_s_per_batch']}, time:/data: "
+              f"{r['eval']}; model built in {r['build_s']} s; checkpoints "
+              f"{r['checkpoints']}; {r['seconds']:.1f} s in all; peak "
+              f"device memory {r['peak_memory_gb']:.2f} GB", flush=True)
+    keys = ("epoch", "train_loss", "test_val_accuracy_iou0.5",
+            "test_val_miou", "epoch_time")
+    print(f"cli: log {[{k: e[k] for k in keys} for e in log]}; eval-only "
+          f"accuracy {got['accuracy_iou0.5']}, miou {got['miou']} (|err| "
+          f"{miou_err:.2e}); launches "
+          f"{ {n: r['launches'] for n, r in runs.items()} }", flush=True)
+    # the checkpoints (GBs) stay out of chiprun_out/: sizes are reported
+    for path in CLI_OUT.glob("checkpoint*"):
+        path.unlink()
+    report["cli"] = {
+        "argv_train": CLI_TRAIN, "argv_eval": CLI_EVAL, "log": log,
+        "eval_only": got, "eval_only_miou_err": miou_err,
+        "launches": {n: r["launches"] for n, r in runs.items()},
+        "runs": reports}
+    return report
+
+
 def kernel_line(report: dict) -> list:
     """Every variant of each kernel at the call site and dtype where the
     main path launches it (MAIN_SITE, MAIN_DTYPE; bfloat16 but for the
@@ -1624,8 +1835,9 @@ def kernel_line(report: dict) -> list:
     (torch.profiler); a K2 or K3 row of another variant than SIMT has the
     SIMT kernel's device time at its site beside it (the same-run
     "before"). ``launches`` counts the main path's runs: both serving runs
-    (bf16 and float32) and both training runs (the bf16 steps and the
-    float32 steps), split in ``launches_serve`` and ``launches_train``.
+    (bf16 and float32), both training runs (the bf16 steps and the
+    float32 steps) and the trainer's entry point (phase 6's three runs),
+    split in ``launches_serve``, ``launches_train`` and ``launches_cli``.
     The decode backward has one row for K2 and K3, whose launches it is
     counted in. Every site's numbers are in the JSON report written before
     it."""
@@ -1637,6 +1849,8 @@ def kernel_line(report: dict) -> list:
     serve_n = {k: report["serve"]["launches"][k]
                + report["serve"]["f32_launches"][k]
                for k in report["serve"]["launches"]}
+    cli_n = {k: sum(n[k] for n in report["cli"]["launches"].values())
+             for k in train_n}
     shorts = {"flash_attn_fwd": "fwd", "flash_attn_bwd_dq": "dq",
               "flash_attn_bwd_dkv": "dkv"}
     grads_of = {"fwd": ("fwd",), "dq": ("dq",), "dkv": ("dk", "dv")}
@@ -1644,7 +1858,7 @@ def kernel_line(report: dict) -> list:
     for name, (source, replaces, variant) in KERNELS.items():
         if name == "flash_attn_bwd_dec":
             out.append(bwd_dec_entry(report, name, source, replaces,
-                                     train_n, serve_n))
+                                     train_n, serve_n, cli_n))
             continue
         base = name
         for suffix in ("_f32tc", "_tc", "_dec"):
@@ -1685,10 +1899,11 @@ def kernel_line(report: dict) -> list:
         entry = {"name": name, "route": "cuda", "variant": variant,
                  "source": f"reftr_torch/kernels/csrc/{source}",
                  "replaces": replaces,
-                 "launches": count(train_n) + count(serve_n),
+                 "launches": count(train_n) + count(serve_n) + count(cli_n),
                  "launches_train": count(train_n),
                  "launches_train_f32": count(report["train_f32"]["launches"]),
                  "launches_serve": count(serve_n),
+                 "launches_cli": count(cli_n),
                  "max_abs_err": max(e for e, _ in errs), "site": site}
         if short == "fwd":
             sv = next(r for r in sites
@@ -1742,7 +1957,7 @@ def kernel_line(report: dict) -> list:
 
 
 def bwd_dec_entry(report: dict, name: str, source: str, replaces: str,
-                  train_n: dict, serve_n: dict) -> dict:
+                  train_n: dict, serve_n: dict, cli_n: dict) -> dict:
     """The kernels line's row of the decode backward, which replaces K2 and
     K3 below 16 queries: its launches (each counted on K2 and on K3, so
     K2's count), its errors over every call of phase 3 that the rule sent
@@ -1760,10 +1975,11 @@ def bwd_dec_entry(report: dict, name: str, source: str, replaces: str,
         "name": name, "route": "cuda", "variant": "dec",
         "source": f"reftr_torch/kernels/csrc/{source}",
         "replaces": replaces, "also_replaces": BWD_DEC_ALSO,
-        "launches": train_n[key] + serve_n[key],
+        "launches": train_n[key] + serve_n[key] + cli_n[key],
         "launches_train": train_n[key],
         "launches_train_f32": report["train_f32"]["launches"][key],
         "launches_serve": serve_n[key],
+        "launches_cli": cli_n[key],
         "max_abs_err": max(e for e, _ in errs),
         "max_rel_err": max(e / s for e, s in errs),
         "site": "decoder_cross",
@@ -1796,6 +2012,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from reftr_torch.data import native
     from reftr_torch.kernels import _nvcc
     from reftr_torch.kernels.attention import (flash_attention,
                                                flash_attn_bwd_dkv,
@@ -1805,9 +2022,12 @@ def main() -> int:
     print(card, flush=True)
     t0 = time.perf_counter()
     sources = sorted({src for src, _, _ in KERNELS.values()})
-    with ThreadPoolExecutor(len(sources)) as pool:
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
+        data_lib = pool.submit(native.build)
         libs = dict(zip(sources, pool.map(_nvcc.build, sources)))
-    print(f"built {', '.join(sources)} in {time.perf_counter() - t0:.1f} s",
+        data_lib = data_lib.result()
+    print(f"built {', '.join(sources)} and the data pipeline's "
+          f"{data_lib.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
     # the tensor-core kernels' machine code (bf16 and 3xTF32) must hold
     # tensor-core products
@@ -1832,6 +2052,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     train(report, counters)
     train_f32(report, counters)
+    train_cli(report, counters)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -3,12 +3,12 @@ read.
 
 A copy of the matching fields of reftr_tpu/core/config.py (``BertConfig``
 :24-67, ``ModelConfig`` :70-176, ``LossConfig`` :232-249, ``DataConfig``
-:251-273, ``TrainConfig`` :302-330), kept here because the port imports
+:251-287, ``TrainConfig`` :302-343), kept here because the port imports
 nothing of reftr_tpu. Options of the JAX package that the port does not run
-yet (RES, multi-phrase, the training loop's checkpoints and output, the
-from-scratch flags, the TPU reparameterisations and int8) are left out
-rather than accepted and ignored; they come back with the slice that runs
-them.
+yet (RES, multi-phrase, the from-scratch flags, the TPU
+reparameterisations and int8, the mesh) are left out rather than accepted
+and ignored; the CLI refuses them (``cli/main.py``), and they come back
+with the slice that runs them.
 """
 
 from __future__ import annotations
@@ -59,6 +59,9 @@ class ModelConfig:
     activation: str = "relu"
     freeze_bert: bool = False
     freeze_backbone: bool = False
+    # the tokenizer's vocabulary: <data_root>/<bert_model>/vocab.txt, or a
+    # vocabulary file's path
+    bert_model: str = "bert-base-uncased"
     bert: BertConfig = field(default_factory=BertConfig)
     max_lang_seq: int = 128
     num_queries_per_phrase: int = 1
@@ -105,17 +108,51 @@ class TrainConfig:
     lr_decay: float = 0.1
     lr_schedule: str = "StepLR"  # StepLR | MultiStepWarmupLR | CosineWarmupLR
     seed: int = 42
+    # the driver (train/loop.py): epochs [start_epoch, start_epoch +
+    # run_epoch) of epochs, checkpoint{epoch:04d} every ckpt_cycle epochs
+    start_epoch: int = 0
+    run_epoch: int = 500  # bounded runs for time-limited queues
+    ckpt_cycle: int = 20
+    output_dir: str = ""
+    resume: str = ""
+    auto_resume: bool = False
+    resume_model_only: bool = False
+    pretrained_model: Optional[str] = None  # a checkpoint of the port
+    eval_only: bool = False
 
 
 @dataclass
 class DataConfig:
-    """The input geometry a server needs: canvas size and sentence length."""
+    """Dataset and batching (main_vg.py:137-147).
 
+    Images land on a fixed ``max_img_size`` canvas with a validity mask
+    (their short side resized to ``img_size``, the long side capped at
+    ``max_img_size``), sentences pad to ``max_query_len``. A server reads
+    ``img_size`` as its canvas."""
+
+    dataset: str = "refcoco_unc"
+    train_split: str = "train"
+    test_splits: Tuple[str, ...] = ("val",)
+    data_root: str = "./data"
     img_size: int = 640
+    max_img_size: int = 640
     max_query_len: int = 40
+    multi_phrase: bool = False
+    batch_size: int = 8
+    num_workers: int = 2
+    cache_mode: bool = False
+    # colour jitter strength of RandomIntensitySaturation
+    # (transforms.py:266-285)
+    hsv_jitter: float = 0.5
+    # the synthetic fixture's box side range as a fraction of img_size,
+    # and its train set size (every other split has 64 items)
+    synthetic_box_frac: Tuple[float, float] = (1 / 6, 1 / 3)
+    synthetic_n: int = 256
 
 
 @dataclass
 class RefTRConfig:
     model: ModelConfig = field(default_factory=ModelConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)

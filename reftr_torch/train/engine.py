@@ -1,23 +1,39 @@
-"""Epoch-level training loop (port of reftr_tpu/train/engine.py:56-108).
+"""Epoch-level train and eval loops (port of reftr_tpu/train/engine.py:
+56-108, 151-222).
 
 ``train_one_epoch`` runs one train step per batch and logs each step's
 metrics one step late: step i-1's are read while step i runs on the
 device, so the host never waits on the step it just launched. The NaN
 tripwire of the reference (engine_vg.py:55-58) is kept, on that late read.
 Loss terms are logged scaled by their weight under their own names, as the
-reference logs them; terms outside the weight dict are dropped. There is no
-profiler hook and no visual dump here; ``engine.evaluate`` comes with the
-training loop and its CLI.
+reference logs them; terms outside the weight dict are dropped.
+
+``evaluate`` runs the eval step over a loader and gives P@0.5, mIoU and the
+mean of each scaled loss term over the batches, and the boxes in the
+original image's pixels by image id. Its sums stay on the device and are
+read once per pass. There is no profiler hook and no visual dump
+(``visualize_dir`` needs PIL; ROADMAP.md queue 1 item 10).
 """
 
 from __future__ import annotations
 
 import math
 import sys
-from typing import Dict, Iterable, Tuple
+from typing import Any, Dict, Iterable, Optional, Tuple
+
+import numpy as np
+import torch
 
 from reftr_torch.core.metrics import MetricLogger, SmoothedValue
+from reftr_torch.models.postprocess import decode_boxes
 from reftr_torch.train.state import TrainState
+
+# target keys the steps do not read: kept on the host
+HOST_TARGET_KEYS = ("orig_size", "size", "image_id")
+
+
+def _strip_target(t: Dict) -> Dict:
+    return {k: v for k, v in t.items() if k not in HOST_TARGET_KEYS}
 
 
 def _log_train_metrics(metrics, weight_dict, logger, print_fn) -> None:
@@ -42,10 +58,66 @@ def train_one_epoch(train_step, state: TrainState, loader: Iterable,
     header = f"Epoch: [{epoch}]"
     prev_metrics = None
     for samples, targets in logger.log_every(loader, print_freq, header):
-        state, metrics = train_step(state, samples, targets)
+        state, metrics = train_step(state, samples, _strip_target(targets))
         if prev_metrics is not None:
             _log_train_metrics(prev_metrics, weight_dict, logger, print_fn)
         prev_metrics = metrics
     if prev_metrics is not None:
         _log_train_metrics(prev_metrics, weight_dict, logger, print_fn)
     return state, {k: m.global_avg for k, m in logger.meters.items()}
+
+
+def evaluate(eval_step, loader: Iterable,
+             weight_dict: Optional[Dict[str, float]] = None,
+             print_freq: int = 50, collect_results: bool = False,
+             print_fn=print) -> Tuple[Dict[str, float], Dict[int, Any]]:
+    """Returns (stats, results). stats: accuracy_iou0.5, miou and, with a
+    ``weight_dict``, the batches' mean of the total loss and of each
+    scaled term but the auxiliary layers' (engine_vg.py:221-222). results
+    (with ``collect_results``): image id -> the valid rows' boxes, xyxy in
+    the original image's pixels. Rows of a padded batch whose boxes are
+    all invalid are skipped, so they cannot overwrite a real entry."""
+    logger = MetricLogger(print_fn=print_fn)
+    totals = None  # device float64: scaled losses, then the metric sums
+    names: list = []
+    n_batches = n_rows = 0
+    boxes, rows = [], []
+    for samples, targets in logger.log_every(loader, print_freq, "Test:"):
+        out, losses, sums = eval_step(samples, _strip_target(targets))
+        values: Dict[str, torch.Tensor] = {}
+        if weight_dict:
+            scaled = {k: v * weight_dict[k] for k, v in losses.items()
+                      if k in weight_dict}
+            values = {"loss": sum(scaled.values()), **scaled}
+        values.update(sums)
+        names = list(values)
+        vec = torch.stack([v.detach().double() for v in values.values()])
+        totals = vec if totals is None else totals + vec
+        n_batches += 1
+        if collect_results:
+            sizes = torch.from_numpy(targets["orig_size"]).to(
+                out["pred_boxes"].device, torch.float32)
+            boxes.append(decode_boxes(out["pred_boxes"], sizes,
+                                      scale_to_original_shape=True))
+            b = len(targets["box_valid"])
+            ids = targets.get("image_id", np.arange(n_rows, n_rows + b))
+            rows.append((ids, targets["box_valid"]))
+            n_rows += b
+    host = dict(zip(names, totals.tolist())) if totals is not None else {}
+    stats = {k: host[k] / n_batches for k in names
+             if k not in ("sum_accu", "sum_iou", "cnt")}
+    cnt = max(host.get("cnt", 0.0), 1.0)
+    stats["accuracy_iou0.5"] = host.get("sum_accu", 0.0) / cnt
+    stats["miou"] = host.get("sum_iou", 0.0) / cnt
+    # no auxiliary layer's loss in the stats (engine_vg.py:221-222)
+    stats = {k: v for k, v in stats.items()
+             if k.split("_")[-1] not in {"unscaled", "0", "1", "2", "3", "4"}}
+    results: Dict[int, Any] = {}
+    if boxes:
+        arr = torch.cat(boxes).cpu().numpy()
+        ids = np.concatenate([i for i, _ in rows])
+        valid = np.concatenate([v for _, v in rows]).astype(bool)
+        for i in range(arr.shape[0]):
+            if valid[i].any():
+                results[int(ids[i])] = arr[i][valid[i]].tolist()
+    return stats, results

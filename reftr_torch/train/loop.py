@@ -1,0 +1,229 @@
+"""The training driver (port of reftr_tpu/train/loop.py:48-395), for one
+process on one card.
+
+``run_training`` is main_vg.py:167-431 of the reference RefTR:
+
+  * the host seed np.random.seed(seed + rank) (:174-177), rank 0 here;
+  * the tokenizer, the loaders, the model and optimizer (``TrainState``);
+  * a pretrained init from a checkpoint of the port, merged non-strictly
+    with a report of missing and unexpected keys (:298-349);
+  * resume, or auto-resume from <output_dir>/checkpoint (:299-303), or
+    the weights alone (resume_model_only);
+  * epochs of training with an eval of every test split after each, the
+    best checkpoint on the first split's accuracy_iou0.5 (:399-412), the
+    periodic checkpoint{epoch:04d} on lr_drop and ckpt_cycle boundaries
+    (:373-376), one JSON line per epoch in log.txt (:419-421), and
+    <dataset>_<split>_result.json with each split's boxes;
+  * eval only (:351-361), and run_epoch chunks for time-limited queues.
+
+It runs on "cuda" unless the caller passes ``device="cpu"``; without a
+card it raises.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import tempfile
+import time
+from typing import Dict, Union
+
+import numpy as np
+import torch
+
+from reftr_torch.core import checkpoint as ckpt_lib
+from reftr_torch.core.config import RefTRConfig
+from reftr_torch.core.device import resolve_device
+from reftr_torch.core.logging import log_stats, master_print
+from reftr_torch.data.build import build_refer_dataset
+from reftr_torch.data.datasets import write_synthetic_vocab
+from reftr_torch.data.loader import DataLoader
+from reftr_torch.data.native import WordPieceTokenizer
+from reftr_torch.data.samplers import NodeShardedSampler, ShardedSampler
+from reftr_torch.models.criterion import weight_dict as build_weight_dict
+from reftr_torch.train.engine import evaluate, train_one_epoch
+from reftr_torch.train.state import TrainState
+from reftr_torch.train.steps import make_eval_step, make_train_step
+
+_NOT_PORTED_CHECKPOINTS = (".pth", ".pt", ".bin")
+
+
+def build_tokenizer(cfg: RefTRConfig) -> WordPieceTokenizer:
+    """The WordPiece vocabulary of ``bert_model``: the file it names, or
+    <data_root>/<bert_model>/vocab.txt, or <data_root>/vocab.txt; for the
+    synthetic dataset without one, the fixture's own vocabulary."""
+    if cfg.model.bert_model.split("-")[0] == "roberta":
+        raise NotImplementedError(
+            "RoBERTa is not ported yet: ROADMAP.md queue 1 item 4")
+    candidates = [
+        cfg.model.bert_model,
+        os.path.join(cfg.data.data_root, cfg.model.bert_model, "vocab.txt"),
+        os.path.join(cfg.data.data_root, "vocab.txt"),
+    ]
+    for c in candidates:
+        if os.path.isfile(c):
+            return WordPieceTokenizer(c)
+    if cfg.data.dataset == "synthetic":
+        # the tokenizer reads the file when it is made
+        with tempfile.TemporaryDirectory() as d:
+            return WordPieceTokenizer(
+                write_synthetic_vocab(os.path.join(d, "vocab.txt")))
+    raise FileNotFoundError(
+        f"no vocab.txt found (searched {candidates}); place the bert vocab "
+        f"under the data root or pass an explicit file path as bert_model")
+
+
+def build_loaders(cfg: RefTRConfig, tokenizer):
+    """The train loader (shuffled, drop_last) and one loader per test
+    split (in order, the last batch padded), for one process."""
+    d, seed = cfg.data, cfg.train.seed
+    train_ds = build_refer_dataset(d.train_split, d, tokenizer, train=True,
+                                   seed=seed)
+    if d.cache_mode:
+        sampler = NodeShardedSampler(len(train_ds), local_rank=0,
+                                     local_size=1, shuffle=True, seed=seed)
+    else:
+        sampler = ShardedSampler(len(train_ds), shuffle=True, seed=seed)
+    train_loader = DataLoader(train_ds, d.batch_size, sampler=sampler,
+                              num_workers=d.num_workers, drop_last=True)
+    test_loaders = {}
+    for split in d.test_splits:
+        ds = build_refer_dataset(split, d, tokenizer, train=False, seed=seed)
+        test_loaders[split] = DataLoader(
+            ds, d.batch_size, sampler=ShardedSampler(len(ds), shuffle=False),
+            num_workers=d.num_workers, drop_last=False)
+    return train_loader, test_loaders
+
+
+def _refuse_foreign(path: str) -> None:
+    if "://" in path or path.endswith(_NOT_PORTED_CHECKPOINTS):
+        raise NotImplementedError(
+            f"{path}: URL and .pth checkpoints of the reference are not "
+            f"ported yet (ROADMAP.md queue 1 item 11); give a checkpoint of "
+            f"this port")
+
+
+def _save(out_dir: str, name: str, state: TrainState, full: bool,
+          epoch: int, best: float, cfg: RefTRConfig) -> None:
+    t0 = time.perf_counter()
+    path = ckpt_lib.save_checkpoint(out_dir, name, state, full=full,
+                                    epoch=epoch, best_val_acc=best,
+                                    config=cfg)
+    master_print(f"checkpoint {name}: {os.path.getsize(path)} bytes saved "
+                 f"in {time.perf_counter() - t0:.3f} s")
+
+
+def run_training(cfg: RefTRConfig,
+                 device: Union[str, torch.device] = "cuda") -> Dict:
+    """Train (or with ``eval_only`` evaluate) as ``cfg`` says on ``device``.
+    Returns {"history": the log entries, "best_val_acc"} or, eval only,
+    {"test": {split: stats}}."""
+    dev = resolve_device(device)
+    np.random.seed(cfg.train.seed)  # seed + rank, rank 0
+    tokenizer = build_tokenizer(cfg)
+    train_loader, test_loaders = build_loaders(cfg, tokenizer)
+    steps_per_epoch = len(train_loader)
+    master_print(f"Steps per training epoch: {steps_per_epoch}")
+
+    t0 = time.perf_counter()
+    state = TrainState.create(cfg.model, cfg.train, steps_per_epoch,
+                              device=dev, seed=cfg.train.seed)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    master_print(f"n_parameters: {n_params}; model built in "
+                 f"{time.perf_counter() - t0:.3f} s")
+
+    if cfg.train.pretrained_model:
+        _refuse_foreign(cfg.train.pretrained_model)
+        payload = ckpt_lib.load_checkpoint(cfg.train.pretrained_model)
+        ckpt_lib.load_pretrained_nonstrict(state.model, payload["model"],
+                                           log=master_print)
+
+    out_dir = cfg.train.output_dir
+    start_epoch = cfg.train.start_epoch
+    best_val_acc = 0.0
+    resume = cfg.train.resume
+    if (not resume and cfg.train.auto_resume and out_dir
+            and ckpt_lib.checkpoint_exists(out_dir, "checkpoint")):
+        resume = os.path.join(out_dir, "checkpoint")
+    if resume:
+        _refuse_foreign(resume)
+        # on the host: load_state_dict copies each tensor to its
+        # parameter's device, and the generator's state stays a CPU tensor
+        payload = ckpt_lib.load_checkpoint(resume)
+        state.model.load_state_dict(payload["model"])
+        if not cfg.train.resume_model_only:
+            if "optimizer" not in payload:
+                raise ValueError(f"{resume} holds the weights only; resume "
+                                 f"it with resume_model_only")
+            state.restore(payload)
+            start_epoch = int(payload["epoch"]) + 1
+            best_val_acc = float(payload["best_val_acc"])
+        master_print(f"Resumed from {resume} at epoch {start_epoch}, step "
+                     f"{state.step}")
+
+    wdict = build_weight_dict(cfg.loss, cfg.model.dec_layers,
+                              cfg.model.aux_loss)
+    train_step = make_train_step(state.model, wdict, cfg.loss, device=dev)
+    eval_step = make_eval_step(state.model, cfg.loss, device=dev)
+
+    def run_eval() -> Dict[str, Dict]:
+        all_stats = {}
+        for split, loader in test_loaders.items():
+            stats, results = evaluate(eval_step, loader, weight_dict=wdict,
+                                      collect_results=bool(out_dir),
+                                      print_fn=master_print)
+            # unrounded, so a log can be checked against it
+            master_print(f"[{split}] " + json.dumps(stats))
+            if out_dir:
+                os.makedirs(out_dir, exist_ok=True)
+                name = f"{cfg.data.dataset}_{split}_result.json"
+                with open(os.path.join(out_dir, name), "w") as f:
+                    json.dump(results, f)
+            all_stats[split] = stats
+        return all_stats
+
+    if cfg.train.eval_only:
+        return {"test": run_eval()}
+
+    end_epoch = min(cfg.train.epochs, start_epoch + cfg.train.run_epoch)
+    history = []
+    for epoch in range(start_epoch, end_epoch):
+        train_loader.set_epoch(epoch)
+        t0 = time.time()
+        state, train_stats = train_one_epoch(
+            train_step, state, train_loader, epoch, weight_dict=wdict,
+            print_fn=master_print)
+        test_stats = run_eval()
+
+        # the best first, so the epoch's checkpoint carries it (else an
+        # auto-resume could later overwrite checkpoint_best with a worse
+        # model)
+        if test_stats:
+            acc = next(iter(test_stats.values())).get("accuracy_iou0.5", 0.0)
+            if acc > best_val_acc:
+                best_val_acc = acc
+                master_print(f"new best accuracy_iou0.5 {best_val_acc:.4f}")
+                if out_dir:
+                    _save(out_dir, "checkpoint_best", state, False, epoch,
+                          best_val_acc, cfg)
+        if out_dir:
+            _save(out_dir, "checkpoint", state, True, epoch, best_val_acc,
+                  cfg)
+            if ((epoch + 1) % cfg.train.lr_drop == 0
+                    or (epoch + 1) % cfg.train.ckpt_cycle == 0):
+                _save(out_dir, f"checkpoint{epoch:04d}", state, False, epoch,
+                      best_val_acc, cfg)
+
+        log_entry = {
+            **{f"train_{k}": v for k, v in train_stats.items()},
+            **{f"test_{s}_{k}": v for s, st in test_stats.items()
+               for k, v in st.items()},
+            "epoch": epoch,
+            "n_parameters": n_params,
+            "epoch_time": round(time.time() - t0, 1),
+        }
+        log_stats(out_dir, log_entry)
+        history.append(log_entry)
+    return {"history": history, "best_val_acc": best_val_acc}

@@ -42,12 +42,17 @@ def multistep_warmup_lr(lr_milestones: Sequence[int], warm_up_steps: int,
 
 def cosine_warmup_lr(max_t: int, warm_up_steps: int,
                      min_decay_rate: float = 0.01) -> Schedule:
+    span = max_t - warm_up_steps
+
     def fn(step: int) -> float:
         if step < warm_up_steps:
             rate = (step + 1.0) / warm_up_steps
         else:
-            rate = 0.5 * (math.cos((step - warm_up_steps)
-                                   / (max_t - warm_up_steps) * math.pi) + 1.0)
+            # with no step after the warm-up (epochs == warm_up_epoch) JAX
+            # gives 0/0 = NaN here, at a step that never runs; LambdaLR
+            # reads it after the last step, so it must not raise
+            frac = (step - warm_up_steps) / span if span else 1.0
+            rate = 0.5 * (math.cos(frac * math.pi) + 1.0)
         return max(rate, min_decay_rate)
 
     return fn

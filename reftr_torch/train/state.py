@@ -4,7 +4,7 @@ generator (port of reftr_tpu/train/state.py:13-36)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Mapping, Optional, Union
+from typing import Any, Mapping, Optional, Union
 
 import torch
 from torch import nn
@@ -53,3 +53,38 @@ class TrainState:
     def trainable(self):
         """The parameters the optimizer updates."""
         return [p for g in self.optimizer.param_groups for p in g["params"]]
+
+    def param_names(self):
+        """The names of the optimizer's parameters, in its order."""
+        name_of = {id(p): n for n, p in self.model.named_parameters()}
+        return [name_of[id(p)] for p in self.trainable()]
+
+    def restore(self, payload: Mapping[str, Any]) -> None:
+        """Continue from a full checkpoint (``core/checkpoint.py``): the
+        optimizer's state of each parameter, matched by name (a parameter
+        the checkpoint did not train starts afresh), the step and the
+        dropout generator. The hyperparameters of each group, the base LR
+        first, stay those of this state's config, as the JAX package
+        applies the current config's LR on resume
+        (reftr_tpu/train/loop.py:301); the schedule then continues at the
+        saved step, so the next step's LR is the schedule's value there."""
+        saved = payload["optimizer"]["state"]
+        where = {n: i for i, n in enumerate(payload["optimizer_params"])}
+        state = {j: saved[where[n]] for j, n in enumerate(self.param_names())
+                 if where.get(n) in saved}
+        hyper, j = [], 0
+        for g in self.optimizer.param_groups:
+            n = len(g["params"])
+            hyper.append({**{k: v for k, v in g.items() if k != "params"},
+                          "params": list(range(j, j + n))})
+            j += n
+        self.optimizer.load_state_dict({"state": state,
+                                        "param_groups": hyper})
+        self.step = int(payload["step"])
+        self.generator.set_state(payload["generator"])
+        sched, groups = self.scheduler, self.optimizer.param_groups
+        sched.last_epoch = self.step
+        for g, fn in zip(groups, sched.lr_lambdas):
+            g["lr"] = g["initial_lr"] * fn(self.step)
+        sched.base_lrs = [g["initial_lr"] for g in groups]
+        sched._last_lr = [g["lr"] for g in groups]

@@ -1,0 +1,179 @@
+"""reftr_torch's command line against reftr_tpu's, on the CPU: the same
+flags parse to the same config values, presets agree, a flag of a feature
+the port does not have yet raises, and ``main`` trains the synthetic smoke
+preset for an epoch on the CPU."""
+
+import dataclasses
+import json
+
+import pytest
+import torch
+
+from reftr_tpu.cli import main as jax_main
+from reftr_tpu.cli import presets as jax_presets
+from reftr_torch.cli import main as cli
+from reftr_torch.cli import presets
+
+torch.set_num_threads(1)
+
+
+def parse(module, argv):
+    args = module.get_args_parser().parse_args(argv)
+    if args.preset:
+        (presets if module is cli else jax_presets).apply_preset(
+            args, args.preset, argv)
+    return args
+
+
+def test_every_preset_key_is_a_parser_dest():
+    dests = {a.dest for a in cli.get_args_parser()._actions}
+    for name, p in presets.PRESETS.items():
+        assert set(p) <= dests, (name, set(p) - dests)
+
+
+@pytest.mark.parametrize("name", sorted(presets.PRESETS))
+def test_presets_are_the_jax_presets(name):
+    assert presets.PRESETS[name] == jax_presets.PRESETS[name]
+
+
+def test_parsers_have_the_same_flags_and_defaults():
+    ours = {a.dest: a.default for a in cli.get_args_parser()._actions}
+    theirs = {a.dest: a.default for a in jax_main.get_args_parser()._actions}
+    assert ours.pop("device") == "cuda"
+    assert ours == theirs
+
+
+ARGVS = [
+    ["--preset", "refcoco_det"],
+    ["--preset", "refcoco_det", "--dataset", "synthetic", "--test_split",
+     "val", "--synthetic_n", "64", "--batch_size", "8", "--epochs", "2",
+     "--run_epoch", "1", "--auto_resume", "--num_workers", "4",
+     "--output_dir", "out", "--dtype", "float32"],
+    ["--preset", "synthetic_smoke", "--lr", "2e-4", "--epochs", "3"],
+    ["--preset", "referit_101", "--lr_backbone", "0", "--freeze_bert",
+     "--pre_norm", "--position_embedding", "learned", "--sgd",
+     "--lr_schedule", "MultiStepWarmupLR", "--lr_drop_epochs", "3", "5",
+     "--test_split", "val", "testB", "--cache_mode", "--seed", "7"],
+    ["--preset", "refcocog_det", "--lr_bert", "3e-5", "--eval", "--resume",
+     "ck", "--resume_model_only", "--start_epoch", "4", "--ckpt_cycle", "5",
+     "--pretrained_model", "pre", "--bbox_loss_coef", "5",
+     "--giou_loss_coef", "2", "--dilation", "--freeze_backbone",
+     "--synthetic_box_frac", "0.25", "0.5", "--data_root", "d",
+     "--use_pallas_attention", "auto"],
+    ["--num_feature_levels", "1", "--dataset", "refcoco_unc", "--bert_size",
+     "tiny", "--lr_backbone_names", "a", "b", "--lr_mask_branch_proj", "3",
+     "--num_queries_per_phrase", "2", "--max_img_size", "512"],
+]
+
+
+@pytest.mark.parametrize("argv", ARGVS, ids=range(len(ARGVS)))
+def test_args_to_config_agrees_with_jax(argv):
+    """Every field of the port's config that the JAX config has takes the
+    same value from the same flags."""
+    got = cli.args_to_config(parse(cli, argv))
+    want = jax_main.args_to_config(parse(jax_main, argv))
+    n = 0
+    for section in ("model", "loss", "data", "train"):
+        ours, theirs = getattr(got, section), getattr(want, section)
+        for f in dataclasses.fields(ours):
+            if f.name == "bert":
+                a, b = dataclasses.asdict(ours.bert), dataclasses.asdict(
+                    theirs.bert)
+                assert a == {k: b[k] for k in a}
+            else:
+                assert getattr(ours, f.name) == getattr(theirs, f.name), (
+                    section, f.name)
+            n += 1
+    assert n > 60
+
+
+@pytest.mark.parametrize("name", ["refcoco_det", "referit_101",
+                                  "synthetic_smoke"])
+def test_preset_config_is_the_cli_config(name):
+    """preset_config gives what the CLI gives for the preset. A preset
+    without a dtype takes the CLI's default there, bfloat16 (as in the JAX
+    package), and ModelConfig's, float32, from preset_config."""
+    want = cli.args_to_config(parse(cli, ["--preset", name]))
+    assert presets.preset_config(name).model.dtype == presets.PRESETS[
+        name].get("dtype", "float32")
+    assert presets.preset_config(name, dtype=want.model.dtype) == want
+
+
+NOT_PORTED_ARGVS = {
+    "masks": ["--masks"], "freeze_reftr": ["--freeze_reftr"],
+    "mask_loss_coef": ["--mask_loss_coef", "2"],
+    "dice_loss_coef": ["--dice_loss_coef", "2"],
+    "ablation": ["--ablation", "cem_loss"],
+    "set_cost_class": ["--set_cost_class", "2"],
+    "set_cost_bbox": ["--set_cost_bbox", "2"],
+    "set_cost_giou": ["--set_cost_giou", "3"],
+    "focal_alpha": ["--focal_alpha", "0.5"],
+    "mesh_data": ["--mesh_data", "2"], "mesh_model": ["--mesh_model", "2"],
+    "mesh_model_spans_processes": ["--mesh_model_spans_processes"],
+    "train_stem": ["--train_stem"],
+    "backbone_norm": ["--backbone_norm", "group"],
+    "vision_aux_loss": ["--vision_aux_loss"],
+    "vision_aux_loss_coef": ["--vision_aux_loss_coef", "2"],
+    "img_pos_in_stream": ["--img_pos_in_stream"],
+    "decoder_pos_in_value": ["--decoder_pos_in_value"],
+    "heatmap_box": ["--heatmap_box"], "fold_bn": ["--fold_bn"],
+    "space_to_depth_stem": ["--space_to_depth_stem"],
+    "fold_normalize": ["--fold_normalize"],
+    "block_layer1": ["--block_layer1"],
+    "backbone_pad_width": ["--backbone_pad_width", "128"],
+    "quantize_int8": ["--quantize_int8"],
+    "quantize_train_prefix": ["--quantize_train_prefix"],
+    "quant_calib_batches": ["--quant_calib_batches", "2"],
+    "quantize_scope": ["--quantize_scope", "bert"],
+    "remat": ["--remat"], "backbone_remat": ["--backbone_remat"],
+    "backbone_remat_stages": ["--backbone_remat_stages", "2"],
+    "use_pallas_attention": ["--use_pallas_attention", "on"],
+    "no_donate_state": ["--no_donate_state"],
+    "debug_nans": ["--debug_nans"], "profile_dir": ["--profile_dir", "p"],
+    "visualize": ["--visualize"],
+}
+
+
+def test_every_not_ported_flag_is_tested():
+    assert set(NOT_PORTED_ARGVS) == set(cli.NOT_PORTED)
+
+
+@pytest.mark.parametrize("dest", sorted(NOT_PORTED_ARGVS))
+def test_a_flag_of_a_missing_feature_raises(dest):
+    args = parse(cli, ["--preset", "refcoco_det"] + NOT_PORTED_ARGVS[dest])
+    with pytest.raises(NotImplementedError,
+                       match=f"--{dest} .*ROADMAP.md queue 1 item"):
+        cli.args_to_config(args)
+
+
+@pytest.mark.parametrize("argv,item", [
+    ([], "item 4"), (["--preset", "refcoco_det", "--dataset", "flickr30k"],
+                     "item 4"),
+    (["--preset", "refcoco_det", "--bert_model", "roberta-base"], "item 4"),
+    (["--preset", "refcoco_det", "--reftr_type", "transformer_multi"],
+     "transformer_single_phrase"),
+    (["--preset", "refcoco_det", "--no_decoder"], "no_decoder")])
+def test_other_missing_features_raise(argv, item):
+    with pytest.raises(NotImplementedError, match=item):
+        cli.args_to_config(parse(cli, argv))
+
+
+def test_main_trains_the_smoke_preset_on_the_cpu(tmp_path, capsys):
+    argv = ["--preset", "synthetic_smoke", "--device", "cpu", "--epochs",
+            "1", "--synthetic_n", "16", "--batch_size", "8", "--num_workers",
+            "2", "--output_dir", str(tmp_path)]
+    assert cli.main(argv) == 0
+    with open(tmp_path / "log.txt") as f:
+        (entry,) = [json.loads(x) for x in f]
+    assert entry["epoch"] == 0 and entry["train_loss"] > 0
+    assert "test_val_accuracy_iou0.5" in entry
+    out = capsys.readouterr().out
+    assert "Steps per training epoch: 2" in out
+    assert "best accuracy_iou0.5:" in out
+
+
+def test_main_needs_a_card_by_default(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["--preset", "synthetic_smoke", "--output_dir",
+                  str(tmp_path)])

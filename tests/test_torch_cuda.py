@@ -820,3 +820,49 @@ def test_plain_route_is_counted_and_launches_nothing(gen):
     assert [(c.launches - n, c.launches_plain - m)
             for c, (n, m) in zip(counters, before)] == [(0, 1)] * 3
     assert q.grad is not None and torch.isfinite(q.grad).all()
+
+
+def test_run_training_launches_the_kernels_per_step_and_eval_batch(
+        tmp_path):
+    """One epoch of the training driver on the card at a small float32
+    config: 2 train steps and 8 eval batches. A forward has 5 attentions:
+    BERT tiny's 2 (40 queries) and the encoder's 1 (44) on the 3xTF32
+    kernels, the decoder's 2 (one query) on the decode kernels; a train
+    step launches each of K1, K2 and K3 once for each, an eval batch K1
+    alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the flash kernel has no CPU mode")
+    import json
+
+    from reftr_torch.core.config import (BertConfig, DataConfig,
+                                         ModelConfig, RefTRConfig,
+                                         TrainConfig)
+    from reftr_torch.train.loop import run_training
+
+    cfg = RefTRConfig(
+        model=ModelConfig(bert=BertConfig.tiny(), enc_layers=1,
+                          dec_layers=1, dim_feedforward=64, hidden_dim=64,
+                          nheads=4, aux_loss=True, dtype="float32"),
+        data=DataConfig(dataset="synthetic", train_split="train",
+                        test_splits=("val",), img_size=64, max_img_size=64,
+                        batch_size=8, num_workers=2, synthetic_n=16),
+        train=TrainConfig(epochs=1, output_dir=str(tmp_path), seed=0))
+    wrappers = (flash_attention, flash_attn_bwd_dq, flash_attn_bwd_dkv)
+    variants = ("launches", "launches_tc", "launches_tf32x3",
+                "launches_dec", "launches_plain")
+    for w in wrappers:
+        for v in variants:
+            setattr(w, v, 0)
+    result = run_training(cfg)
+    torch.cuda.synchronize()
+    steps, evals = 2, 8
+    for w in wrappers:
+        fwds = steps + evals if w is flash_attention else steps
+        got = {v: getattr(w, v) for v in variants}
+        assert got == {"launches": 5 * fwds, "launches_tc": 0,
+                       "launches_tf32x3": 3 * fwds, "launches_dec": 2 * fwds,
+                       "launches_plain": 0}, w.__name__
+    (entry,) = result["history"]
+    with open(tmp_path / "log.txt") as f:
+        assert json.loads(f.readline()) == entry
+    assert (tmp_path / "checkpoint").is_file()
