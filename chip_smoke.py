@@ -144,15 +144,46 @@ Phases, in order; any failure raises and the script exits non-zero:
    the seconds per train step and per eval batch host to host, the mean
    time: and data: of a step (core/metrics.py::log_every), the model's
    build time, each checkpoint's bytes and save time and the peak device
-   memory of each run. The checkpoints are then deleted (their sizes are
-   reported), so chiprun_out/ stays small.
-7. Print one JSON line listing each kernel (each variant on a row of its
+   memory of each run. The checkpoints but "checkpoint" are then deleted
+   (their sizes are reported), so chiprun_out/ stays small; phase 7
+   starts from "checkpoint" and deletes it.
+7. RES: refcoco_seg (phase 6's model with the mask head over the
+   backbone's C3, C2 and C1, logits at 160 x 160) at full width on the
+   synthetic fixture, whose masks are the boxes' rectangles. a) The CLI's
+   default bf16: main(argv) fine-tunes from phase 6's checkpoint
+   (--pretrained_model) for one epoch of 8 steps and 8 eval batches into
+   chiprun_out/res, then --eval --resume evaluates its checkpoint. Checks:
+   exit codes 0; the missing-key report names only bbox_attention.* and
+   mask_head.*, with nothing unexpected; every logged loss finite,
+   loss_mask and loss_dice included; seg_miou in [0, 1]; the eval-only
+   accuracy equal to the log's, miou and seg_miou within 1e-5; launches
+   exactly 30 of each kernel a step (18 on the bf16 tensor-core kernels,
+   12 on the decode kernels) and 30 of K1 an eval batch. b) Float32
+   freeze_reftr with the CEM loss from the fine-tuned weights, 4 steps
+   through train_one_epoch: K1 30 a step, K2 and K3 never; every trunk
+   tensor keeps its bytes; every head tensor with a gradient moves, in
+   each of bbox_attention, mask_head and cem_block; loss_cem finite.
+   c) One float32 step (dropout 0) from seeded weights through the
+   kernels and through the plain attention: the loss within 1e-5
+   relative, every gradient within 1e-3 relative L2 (phase 5's rule),
+   pred_boxes within 1e-4 max abs and pred_masks within 1e-4 relative L2.
+   d) Report only: a bf16 RES step's host time after a warm-up, its peak
+   memory and its device time by kernel category, the mask head's
+   convolutions at 160 x 160 on a row of their own (told apart by their
+   weight shapes in the profile's recorded shapes). e) Phase 4's six
+   requests through a MicroBatcher over the fine-tuned RES model in bf16
+   and float32: every request answered with a finite box inside its image
+   and a mask of its original size; K1 30 a batch. Beside the card's
+   name and power limit, the fine-tune's and eval's seconds per step and
+   batch, time: and data:, and peak memory are printed. The checkpoints
+   are deleted.
+8. Print one JSON line listing each kernel (each variant on a row of its
    own; the decode backward on one row for K2 and K3) with its launches
-   on the main path, its error, and its times and bound at the call site
+   on the main paths, its error, and its times and bound at the call site
    where the main path launches it (the decoder's cross-attention for the
    decode and SIMT kernels, the VL encoder for the tensor-core kernels, in
    float32 for the 3xTF32 ones) on this card.
-8. Print {"ok": true, "device": {...}} as the last line.
+9. Print {"ok": true, "device": {...}} as the last line.
 
 It needs a CUDA card and the reftr_torch package beside it; without
 either it fails before it prints any result.
@@ -269,6 +300,26 @@ CLI_EVAL = CLI_MODEL_DATA + ["--eval", "--resume", str(CLI_OUT / "checkpoint")]
 CLI_STEPS = 8
 CLI_EVAL_BATCHES = 8
 CLI_MIOU_TOL = 1e-5  # the eval-only pass against the log: sums in order
+# phase 7: RES, refcoco_seg at full width (the mask head over C3, C2 and C1
+# of the 640 px canvas): a bf16 fine-tune from phase 6's refcoco_det
+# checkpoint through the entry point, 8 steps and 8 eval batches on the
+# synthetic fixture with box-shaped masks, and its eval-only pass
+RES_OUT = ROOT / "chiprun_out" / "res"
+RES_MODEL_DATA = ["--preset", "refcoco_seg", "--dataset", "synthetic",
+                  "--test_split", "val", "--synthetic_n", "64",
+                  "--batch_size", "8", "--num_workers", "4"]
+RES_TRAIN = RES_MODEL_DATA + ["--epochs", "1", "--pretrained_model",
+                              str(CLI_OUT / "checkpoint"), "--output_dir",
+                              str(RES_OUT)]
+RES_EVAL = RES_MODEL_DATA + ["--eval", "--resume", str(RES_OUT / "checkpoint")]
+RES_FREEZE_STEPS = 4  # the float32 --freeze_reftr --ablation cem_loss run
+RES_BOX_TOL = 1e-4  # f32 forward, kernel vs plain: pred_boxes max abs
+RES_MASK_TOL = 1e-4  # and pred_masks relative L2
+# the mask head's convolutions at 1/4 of the canvas (160 x 160 at 640 px),
+# by weight shape: adapter3 (C1's 256 channels to 32), lay5 (32 to 16) and
+# out_lay (16 to 1); layer1's convolutions there have 64 or 256 outputs
+MASK_HEAD_160 = {(32, 256, 1, 1), (16, 32, 3, 3), (1, 16, 3, 3)}
+MASK_HEAD_HW = (160, 160)
 # NVIDIA H100 SXM data sheet: HBM rate, bf16 dense tensor-core rate, and
 # float32-accurate products: 3xTF32 gets a third of the 495 TFLOP/s of TF32
 # (the f32 FMA rate outside the tensor cores, 67 TFLOP/s, is lower)
@@ -307,7 +358,9 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     time between launches where it exceeds the kernel's, this is the time
     the card spent on the call's work. A window in which the profiler
     recorded no device activity at all (seen once in some hundred windows
-    on the H100) is profiled again, up to 3 times in all."""
+    on the H100, and once three times in a row) is profiled again after
+    a pause, up to 6 times in all; then the time is not measured (None),
+    which is printed as such: it is a measurement, not a check."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -315,7 +368,9 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for attempt in range(6):
+        if attempt:
+            time.sleep(0.5)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -327,8 +382,20 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
                        and not getattr(ev, "is_user_annotation", False))
         if total_us > 0:
             return total_us / 1e3 / iters
-    raise AssertionError("torch.profiler recorded no device time in 3 "
-                         "windows")
+    print("profile: torch.profiler recorded no device time in 6 windows: "
+          "not measured", flush=True)
+    return None
+
+
+def fmt_ms(ms) -> str:
+    """A time to 4 places, or "not measured" where the profiler gave
+    none."""
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def sum_ms(*values):
+    """The sum of times, None if any is not measured."""
+    return None if None in values else sum(values)
 
 
 def sass_count(so: Path, opcode: str) -> int:
@@ -452,13 +519,13 @@ def check_kernel(report: dict) -> dict:
                             "simt_ms": cuda_ms(simt),
                             "simt_device_ms": device_ms(simt)})
                 before = (f"; simt {row['simt_ms']:.4f} ms host loop, "
-                          f"{row['simt_device_ms']:.4f} ms device")
+                          f"{fmt_ms(row['simt_device_ms'])} ms device")
             rows.append(row)
             print(f"kernel {site:16s} {name:8s} {variant:4s} B={b} Sq={sq} "
                   f"Sk={sk} H={h} D={d}: max_abs_err {err:.3g} (tol "
                   f"{KERNEL_TOL[name]}) kernel {ms:.4f} ms host loop, "
-                  f"{dev:.4f} ms device; plain {plain_ms:.4f} ms, sdpa "
-                  f"{lib_ms:.4f} ms host loop, {lib_dev:.4f} ms device; "
+                  f"{fmt_ms(dev)} ms device; plain {plain_ms:.4f} ms, sdpa "
+                  f"{lib_ms:.4f} ms host loop, {fmt_ms(lib_dev)} ms device; "
                   f"bound {bound:.5f} ms ({bound_by}){before}", flush=True)
     report["call_sites"] = rows
     report["max_abs_err"] = worst
@@ -733,27 +800,29 @@ def check_training_kernels(report: dict) -> dict:
                         attention_bound_ms(b, sq, sk, h, d, valid, name, kern)
                 rows.append(row)
                 before = "".join(
-                    f"; simt {what} {row[f'simt_{what}_device_ms']:.4f}"
+                    f"; simt {what} {fmt_ms(row[f'simt_{what}_device_ms'])}"
                     for what in simt)
                 bwd_times = (
                     f"K2+K3 dec {row['bwd_ms']:.4f}, "
-                    f"{row['bwd_device_ms']:.4f}"
+                    f"{fmt_ms(row['bwd_device_ms'])}"
                     if dec else
                     f"K2 {row['dq_variant']} {row['dq_ms']:.4f}, "
-                    f"{row['dq_device_ms']:.4f}; K3 {row['dkv_variant']} "
-                    f"{row['dkv_ms']:.4f}, {row['dkv_device_ms']:.4f}")
+                    f"{fmt_ms(row['dq_device_ms'])}; K3 "
+                    f"{row['dkv_variant']} {row['dkv_ms']:.4f}, "
+                    f"{fmt_ms(row['dkv_device_ms'])}")
                 print(f"train kernels {site:16s} {name:8s} dropout {rate}: "
                       f"fwd err {fwd_err:.3g} (tol {KERNEL_TOL[name]}), lse "
                       f"err {lse_err:.3g} (tol {lse_tol:.3g}), dq/dk/dv err "
                       f"{errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g} (tol "
                       f"{GRAD_TOL[name] * scale:.3g}); K1 "
                       f"{row['fwd_variant']} {row['fwd_ms']:.4f} ms host "
-                      f"loop, {row['fwd_device_ms']:.4f} device; {bwd_times}"
+                      f"loop, {fmt_ms(row['fwd_device_ms'])} device; "
+                      f"{bwd_times}"
                       f"; plain fwd "
                       f"{row['fwd_plain_ms']:.4f}, bwd "
                       f"{row['bwd_plain_ms']:.4f} ms; sdpa fwd "
-                      f"{row['sdpa_fwd_device_ms']:.4f}, bwd "
-                      f"{row['sdpa_bwd_device_ms']:.4f} ms device; bounds "
+                      f"{fmt_ms(row['sdpa_fwd_device_ms'])}, bwd "
+                      f"{fmt_ms(row['sdpa_bwd_device_ms'])} ms device; bounds "
                       f"{row['flash_attn_fwd_bound_ms']:.5f}/"
                       f"{row['flash_attn_bwd_dq_bound_ms']:.5f}/"
                       f"{row['flash_attn_bwd_dkv_bound_ms']:.5f}/"
@@ -933,9 +1002,9 @@ def check_simt_dkv(report: dict) -> dict:
             print(f"simt K3 B={b} Sq={sq} Sk={sk} H={h} D={d} {name} "
                   f"dropout {rate}: dk/dv err {err:.3g} (tol "
                   f"{GRAD_TOL[name] * scale:.3g}); {row['ms']:.4f} ms host "
-                  f"loop, {row['device_ms']:.4f} device; plain bwd "
+                  f"loop, {fmt_ms(row['device_ms'])} device; plain bwd "
                   f"{row['plain_ms']:.4f} ms; sdpa bwd "
-                  f"{row['sdpa_bwd_device_ms']:.4f} ms device; bound "
+                  f"{fmt_ms(row['sdpa_bwd_device_ms'])} ms device; bound "
                   f"{bound:.5f} ms ({bound_by})", flush=True)
     report["simt_dkv"] = rows
     return report
@@ -1028,17 +1097,20 @@ def kernel_category(name: str) -> str:
     return "other"
 
 
-def profile_device(run, what: str, step_ms: float, iters: int = 5) -> dict:
+def profile_device(run, what: str, step_ms: float, iters: int = 5,
+                   split=None) -> dict:
     """Device time of ``iters`` calls of ``run`` by kernel category
     (torch.profiler's device events), the kernels launched per call, and
     the device's busy share of one call's unprofiled host time
-    ``step_ms``."""
+    ``step_ms``. ``split(prof, iters)`` -> {row: (category, ms per call)}
+    moves part of a category to a row of its own (the profile then
+    records the ops' input shapes)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=split is not None) as prof:
         for _ in range(iters):
             run()
         torch.cuda.synchronize()
@@ -1061,6 +1133,9 @@ def profile_device(run, what: str, step_ms: float, iters: int = 5) -> dict:
         print("profile: torch.profiler saw no device time: not measured",
               flush=True)
         return {"device_ms": None}
+    for row, (cat, ms) in (split(prof, iters) if split else {}).items():
+        by_cat[cat] = by_cat.get(cat, 0.0) - ms
+        by_cat[row] = ms
     busy = device_ms / step_ms
     print(f"profile: {what}: device {device_ms:.3f}"
           f" ms in {n_kernels / iters:.0f} kernels, of {step_ms:.3f} ms host"
@@ -1384,11 +1459,12 @@ def train_batch(rng: np.random.Generator, img: int, seq: int, vocab: int,
     return batch, targets
 
 
-def compare_train_paths(cfg, batch, targets) -> dict:
+def compare_train_paths(cfg, batch, targets, label: str = "train") -> dict:
     """One float32 step with dropout 0 from one set of seeded weights,
     through the kernels and through the plain attention: the loss and
-    every trainable gradient. The last layer of bbox_embed, zero at init
-    (no gradient would reach the attentions), is drawn like the others."""
+    every trainable gradient, and for RES (``masks``) the forward's boxes
+    and mask logits. The last layer of bbox_embed, zero at init (no
+    gradient would reach the attentions), is drawn like the others."""
     import torch
 
     from reftr_torch.convert import build_model
@@ -1407,16 +1483,20 @@ def compare_train_paths(cfg, batch, targets) -> dict:
     with torch.no_grad():
         torch.nn.init.xavier_uniform_(model.bbox_embed.layers[-1].weight,
                                       generator=gen)
-    wd = weight_dict(LossConfig(), mc.dec_layers, mc.aux_loss)
+    wd = weight_dict(LossConfig(), mc.dec_layers, mc.aux_loss,
+                     with_masks=mc.masks)
     dev_batch = to_device(batch, torch.device("cuda"))
     dev_targets = to_device(targets, torch.device("cuda"))
-    runs = {}
+    runs, outs = {}, {}
     for plain in (False, True):
         set_plain_attention(model, plain)
         model.zero_grad(set_to_none=True)
-        loss = total_loss(criterion(model(dev_batch), dev_targets,
-                                    LossConfig()), wd)
+        out = model(dev_batch)
+        loss = total_loss(criterion(out, dev_targets, LossConfig(),
+                                    mc.masks), wd)
         loss.backward()
+        outs[plain] = {k: out[k].detach().float() for k in
+                       ("pred_boxes", "pred_masks") if k in out}
         runs[plain] = (loss.item(), {n: p.grad.clone() for n, p in
                                      model.named_parameters()
                                      if p.requires_grad})
@@ -1430,11 +1510,12 @@ def compare_train_paths(cfg, batch, targets) -> dict:
                                                        1e-4 * norm)
         if not math.isfinite(err) or err > worst:
             worst, worst_name = err, name
-    print(f"train: f32 step, kernels vs plain attention: loss {loss_k:.6f} "
-          f"vs {loss_p:.6f} (rel {loss_err:.3g}, tol {TRAIN_LOSS_TOL}); "
-          f"worst gradient rel L2 {worst:.3g} at {worst_name} (tol "
-          f"{TRAIN_GRAD_TOL}) over {len(grads_p)} trainable tensors, {live} "
-          f"of them above the floor; global norm {norm:.4g}", flush=True)
+    print(f"{label}: f32 step, kernels vs plain attention: loss "
+          f"{loss_k:.6f} vs {loss_p:.6f} (rel {loss_err:.3g}, tol "
+          f"{TRAIN_LOSS_TOL}); worst gradient rel L2 {worst:.3g} at "
+          f"{worst_name} (tol {TRAIN_GRAD_TOL}) over {len(grads_p)} "
+          f"trainable tensors, {live} of them above the floor; global norm "
+          f"{norm:.4g}", flush=True)
     if live < len(grads_p) // 2:
         raise AssertionError(f"only {live} of {len(grads_p)} gradients are "
                              f"above 1e-4 of the global norm: the check "
@@ -1443,10 +1524,25 @@ def compare_train_paths(cfg, batch, targets) -> dict:
         raise AssertionError(f"f32 kernel vs plain step: loss rel "
                              f"{loss_err:.3g}, gradient rel L2 {worst:.3g} "
                              f"at {worst_name}")
-    return {"loss_kernel": loss_k, "loss_plain": loss_p,
-            "loss_rel_err": loss_err, "worst_grad_rel_l2": worst,
-            "worst_grad_name": worst_name, "grad_norm": norm,
-            "n_trainable": len(grads_p), "n_above_floor": live}
+    result = {"loss_kernel": loss_k, "loss_plain": loss_p,
+              "loss_rel_err": loss_err, "worst_grad_rel_l2": worst,
+              "worst_grad_name": worst_name, "grad_norm": norm,
+              "n_trainable": len(grads_p), "n_above_floor": live}
+    if mc.masks:
+        box_err = (outs[False]["pred_boxes"]
+                   - outs[True]["pred_boxes"]).abs().max().item()
+        want = outs[True]["pred_masks"]
+        mask_err = ((outs[False]["pred_masks"] - want).norm()
+                    / want.norm()).item()
+        print(f"{label}: forward, kernels vs plain attention: pred_boxes "
+              f"max abs {box_err:.3g} (tol {RES_BOX_TOL}), pred_masks "
+              f"{tuple(want.shape)} rel L2 {mask_err:.3g} (tol "
+              f"{RES_MASK_TOL})", flush=True)
+        if not (box_err <= RES_BOX_TOL and mask_err <= RES_MASK_TOL):
+            raise AssertionError(f"f32 RES forward kernel vs plain: boxes "
+                                 f"{box_err:.3g}, masks {mask_err:.3g}")
+        result.update(pred_boxes_max_abs=box_err, pred_masks_rel_l2=mask_err)
+    return result
 
 
 def train(report: dict, counters) -> dict:
@@ -1814,14 +1910,341 @@ def train_cli(report: dict, counters) -> dict:
           f"accuracy {got['accuracy_iou0.5']}, miou {got['miou']} (|err| "
           f"{miou_err:.2e}); launches "
           f"{ {n: r['launches'] for n, r in runs.items()} }", flush=True)
-    # the checkpoints (GBs) stay out of chiprun_out/: sizes are reported
-    for path in CLI_OUT.glob("checkpoint*"):
+    # the checkpoints (GBs) stay out of chiprun_out/: sizes are reported;
+    # phase 7 fine-tunes from "checkpoint" and deletes it
+    for path in CLI_OUT.glob("checkpoint?*"):
         path.unlink()
     report["cli"] = {
         "argv_train": CLI_TRAIN, "argv_eval": CLI_EVAL, "log": log,
         "eval_only": got, "eval_only_miou_err": miou_err,
         "launches": {n: r["launches"] for n, r in runs.items()},
         "runs": reports}
+    return report
+
+
+def res_batch(rng: np.random.Generator, img: int, seq: int, vocab: int,
+              b: int):
+    """``train_batch`` with RES targets: each box's rectangle as its mask
+    on the canvas (as the synthetic fixture draws them), all valid."""
+    batch, targets = train_batch(rng, img, seq, vocab, b)
+    masks = np.zeros((b, img, img), np.float32)
+    for i in range(b):
+        vh, vw = np.nonzero(batch["image_valid"][i])
+        h, w = vh.max() + 1, vw.max() + 1
+        cx, cy, bw, bh = targets["boxes"][i, 0] * [w, h, w, h]
+        y0, y1 = int(cy - bh / 2), int(cy + bh / 2)
+        x0, x1 = int(cx - bw / 2), int(cx + bw / 2)
+        masks[i, y0:y1, x0:x1] = 1.0
+    targets.update(masks=masks, mask_valid=np.ones(b, bool))
+    return batch, targets
+
+
+def mask_head_conv_split(prof, iters: int) -> dict:
+    """The device time per call of the mask head's convolutions at
+    160 x 160, forward and backward (the aten ops' kernels, told apart by
+    their input size and weight shape, MASK_HEAD_160), as a row of its own
+    out of the "convolution" category."""
+    total = 0.0
+    for ev in prof.events():
+        shapes = ev.input_shapes or []
+        if ev.name == "aten::convolution" and len(shapes) > 1:
+            x, w = shapes[0], shapes[1]
+        elif ev.name == "aten::convolution_backward" and len(shapes) > 2:
+            x, w = shapes[1], shapes[2]
+        else:
+            continue
+        if (len(x) == 4 and tuple(x[-2:]) == MASK_HEAD_HW
+                and tuple(w) in MASK_HEAD_160):
+            total += ev.device_time_total / 1e3 / iters
+    return {"mask_head_conv_160": ("convolution", total)}
+
+
+def res_cli_launches(steps: int, eval_batches: int) -> dict:
+    """The counters after ``steps`` bf16 RES train steps and
+    ``eval_batches`` eval forwards: the REC trunk's 30 of K1 a forward and
+    of K2 and K3 a step, 18 of each on the bf16 tensor-core kernels and 12
+    on the decode kernels; the heads run no attention kernel."""
+    train = expected_launches(steps, "tc", True)
+    evals = expected_launches(eval_batches, "tc", False)
+    return {k: train[k] + evals[k] for k in train}
+
+
+def res_finetune(report: dict, counters) -> dict:
+    """Phase 7a: the bf16 fine-tune of refcoco_seg from phase 6's
+    refcoco_det checkpoint through reftr_torch.cli.main.main, then an
+    eval-only pass over its checkpoint."""
+    import ast
+
+    runs = {"finetune": run_cli(RES_TRAIN, counters),
+            "eval": run_cli(RES_EVAL, counters)}
+    for name, run in runs.items():
+        if run["rc"] != 0:
+            raise AssertionError(f"phase 7 {name}: exit code {run['rc']}")
+    out = runs["finetune"]["out"]
+    found = re.findall(r"^Missing keys: (\[.*\])$", out, re.M)
+    missing = ast.literal_eval(found[0]) if found else []
+    heads = {k.split(".")[0] for k in missing}
+    if (len(found) != 1 or heads != {"bbox_attention", "mask_head"}
+            or re.search(r"^(Unexpected keys|Shape-mismatched)", out, re.M)):
+        raise AssertionError(f"phase 7: the stage-1 checkpoint did not load "
+                             f"as the RES model's trunk: missing {heads}, "
+                             f"{out[-2000:]}")
+    with open(RES_OUT / "log.txt") as f:
+        log = [json.loads(line) for line in f]
+    if [e["epoch"] for e in log] != [0]:
+        raise AssertionError(f"phase 7: log.txt epochs "
+                             f"{[e['epoch'] for e in log]}, not [0]")
+    entry = log[0]
+    losses = {k: v for k, v in entry.items()
+              if k.startswith(("train_loss", "test_val_loss"))}
+    needed = {f"{p}_{t}" for p in ("train_loss", "test_val_loss")
+              for t in ("mask", "dice", "bbox", "giou")}
+    if not needed <= set(losses) or not all(
+            math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"phase 7: losses {losses}")
+    if not 0.0 <= entry["test_val_seg_miou"] <= 1.0:
+        raise AssertionError(f"phase 7: seg_miou {entry['test_val_seg_miou']}")
+    evals = [json.loads(m) for m in re.findall(
+        r"^\[val\] (\{.*\})$", runs["eval"]["out"], re.M)]
+    if len(evals) != 1:
+        raise AssertionError(f"phase 7: {len(evals)} eval lines")
+    got = evals[0]
+    errs = {k: abs(got[k] - entry[f"test_val_{k}"])
+            for k in ("miou", "seg_miou")}
+    if (got["accuracy_iou0.5"] != entry["test_val_accuracy_iou0.5"]
+            or not max(errs.values()) <= CLI_MIOU_TOL):
+        raise AssertionError(f"phase 7: eval-only {got} against the log "
+                             f"{entry}")
+    wants = {"finetune": res_cli_launches(CLI_STEPS, CLI_EVAL_BATCHES),
+             "eval": res_cli_launches(0, CLI_EVAL_BATCHES)}
+    for name, run in runs.items():
+        if run["launches"] != wants[name]:
+            raise AssertionError(f"phase 7 {name}: launches "
+                                 f"{run['launches']}, not {wants[name]}")
+    reports = {name: cli_report(run) for name, run in runs.items()}
+    card = report["card"]
+    for name, r in reports.items():
+        print(f"res {name} ({card}): s per train step host to host "
+              f"{r['train_s_per_step']}, time:/data: {r['train']}; s per "
+              f"eval batch {r['eval_s_per_batch']}, time:/data: "
+              f"{r['eval']}; model built in {r['build_s']} s; checkpoints "
+              f"{r['checkpoints']}; {r['seconds']:.1f} s in all; peak "
+              f"device memory {r['peak_memory_gb']:.2f} GB", flush=True)
+    keys = ("train_loss", "train_loss_mask", "train_loss_dice",
+            "test_val_accuracy_iou0.5", "test_val_miou", "test_val_seg_miou",
+            "epoch_time")
+    print(f"res: missing keys at the fine-tune's start: {len(missing)} "
+          f"under {sorted(heads)}; log {({k: entry[k] for k in keys})}; "
+          f"eval-only accuracy {got['accuracy_iou0.5']}, miou "
+          f"{got['miou']}, seg_miou {got['seg_miou']} (|err| {errs}); "
+          f"launches { {n: r['launches'] for n, r in runs.items()} }",
+          flush=True)
+    report["res"] = {
+        "argv_train": RES_TRAIN, "argv_eval": RES_EVAL, "log": log,
+        "missing_keys": len(missing), "eval_only": got,
+        "eval_only_errs": errs,
+        "launches": {n: r["launches"] for n, r in runs.items()},
+        "runs": reports}
+    return report
+
+
+def res_freeze(report: dict, counters, state_dict) -> dict:
+    """Phase 7b: float32 refcoco_seg with freeze_reftr and the CEM loss
+    from the fine-tuned weights, RES_FREEZE_STEPS steps through
+    train_one_epoch: K1 30 a step and K2 and K3 never (the trunk builds no
+    graph); every trunk tensor keeps its bytes; the heads move."""
+    import torch
+
+    from reftr_torch.cli.presets import preset_config
+    from reftr_torch.core.checkpoint import load_pretrained_nonstrict
+    from reftr_torch.models.criterion import weight_dict
+    from reftr_torch.train.engine import train_one_epoch
+    from reftr_torch.train.state import TrainState
+    from reftr_torch.train.steps import make_train_step
+
+    cfg = preset_config("refcoco_seg", dtype="float32", freeze_reftr=True,
+                        ablation="cem_loss")
+    mc = cfg.model
+    state = TrainState.create(mc, cfg.train, RES_FREEZE_STEPS, seed=0)
+    loaded = load_pretrained_nonstrict(state.model, state_dict, log=print)
+    if {k.split(".")[0] for k in loaded["missing"]} != {"cem_block"}:
+        raise AssertionError(f"phase 7 freeze: missing {loaded['missing']}")
+    heads = ("bbox_attention", "mask_head", "cem_block")
+    if {n.split(".")[0] for n in state.param_names()} != set(heads):
+        raise AssertionError(f"phase 7 freeze: the optimizer holds "
+                             f"{sorted(set(state.param_names()))}")
+    before = {n: t.detach().clone()
+              for n, t in state.model.state_dict().items()}
+    wd = weight_dict(cfg.loss, mc.dec_layers, mc.aux_loss, with_masks=True)
+    step = make_train_step(state.model, wd, cfg.loss)
+    batch, targets = res_batch(np.random.default_rng(3), cfg.data.img_size,
+                               cfg.data.max_query_len, mc.bert.vocab_size,
+                               SERVE_BATCH)
+    seen = []
+
+    def traced(state, batch, targets):
+        state, metrics = step(state, batch, targets)
+        seen.append(metrics)
+        return state, metrics
+
+    reset_counts(counters)
+    state, _ = train_one_epoch(traced, state, [(batch, targets)] *
+                               RES_FREEZE_STEPS, 0, print_freq=2,
+                               weight_dict=wd)
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    per_step = [m.get() for m in seen]
+    if not all(math.isfinite(v) and "loss_cem" in m
+               for m in per_step for v in m.values()):
+        raise AssertionError(f"phase 7 freeze: metrics {per_step}")
+    want = expected_launches(RES_FREEZE_STEPS, "tf32x3", False)
+    if launches != want:
+        raise AssertionError(f"phase 7 freeze: launches {launches}, not "
+                             f"{want}")
+    after = state.model.state_dict()
+    trunk = [n for n in before if n.split(".")[0] not in heads]
+    moved_trunk = [n for n in trunk if not torch.equal(before[n], after[n])]
+    grads = {n: p.grad for n, p in state.model.named_parameters()
+             if n.split(".")[0] in heads}
+    moved = {n: not torch.equal(before[n], after[n]) for n in grads}
+    # a head tensor with a gradient must move; c1 (a softmax over one
+    # query) and c2's bias (a softmax's shift) get none
+    stuck = [n for n, g in grads.items()
+             if g is not None and g.abs().max() > 0 and not moved[n]]
+    per_head = {h: sum(v for n, v in moved.items() if n.startswith(h + "."))
+                for h in heads}
+    print(f"res freeze: float32 freeze_reftr + cem_loss, {RES_FREEZE_STEPS} "
+          f"steps; loss {ms_list([m['loss'] for m in per_step])}, loss_cem "
+          f"{ms_list([m['loss_cem'] for m in per_step])}; launches "
+          f"{launches}; trunk tensors {len(trunk)}, moved "
+          f"{len(moved_trunk)}; head tensors moved {per_head} of "
+          f"{ {h: sum(n.startswith(h + '.') for n in grads) for h in heads} }",
+          flush=True)
+    if moved_trunk or stuck or not all(per_head.values()):
+        raise AssertionError(f"phase 7 freeze: trunk moved {moved_trunk}, "
+                             f"heads stuck {stuck}, moved {per_head}")
+    del state, step
+    torch.cuda.empty_cache()
+    return {"steps": RES_FREEZE_STEPS, "launches": launches,
+            "losses": [m["loss"] for m in per_step],
+            "loss_cem": [m["loss_cem"] for m in per_step],
+            "trunk_tensors": len(trunk), "head_tensors_moved": per_head}
+
+
+def res_profile(report: dict, state_dict) -> dict:
+    """Phase 7d (report only): one bf16 RES train step at full width from
+    the fine-tuned weights, timed host to host after a warm-up and
+    profiled by kernel category, the mask head's 160 x 160 convolutions
+    on a row of their own."""
+    import torch
+
+    from reftr_torch.cli.presets import preset_config
+    from reftr_torch.models.criterion import weight_dict
+    from reftr_torch.train.state import TrainState
+    from reftr_torch.train.steps import make_train_step
+
+    cfg = preset_config("refcoco_seg", dtype="bfloat16")
+    mc = cfg.model
+    torch.cuda.reset_peak_memory_stats()
+    state = TrainState.create(mc, cfg.train, 10, state_dict=state_dict)
+    wd = weight_dict(cfg.loss, mc.dec_layers, mc.aux_loss, with_masks=True)
+    step = make_train_step(state.model, wd, cfg.loss)
+    batch, targets = res_batch(np.random.default_rng(4), cfg.data.img_size,
+                               cfg.data.max_query_len, mc.bert.vocab_size,
+                               SERVE_BATCH)
+    stamps = []
+    for _ in range(WARM_STEPS + 4):
+        state, metrics = step(state, batch, targets)
+        metrics.get()
+        stamps.append(time.perf_counter())
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps[WARM_STEPS - 1:-1],
+                                              stamps[WARM_STEPS:])]
+    med = statistics.median(step_ms)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"res: bf16 batch {SERVE_BATCH} RES step median {med:.2f} ms "
+          f"(steps {ms_list(step_ms)} ms, each waiting for its metrics); "
+          f"peak device memory {peak_gb:.2f} GB", flush=True)
+    profile = profile_device(
+        lambda: step(state, batch, targets),
+        f"bf16 batch {SERVE_BATCH} RES train step", med, iters=3,
+        split=mask_head_conv_split)
+    del state, step
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "median_step_ms": med,
+            "peak_memory_gb": peak_gb, "profile": profile}
+
+
+def res_serve(report: dict, counters, state_dict) -> dict:
+    """Phase 7e: phase 4's six requests through a MicroBatcher over the
+    fine-tuned RES model in bf16 and in float32: every request answered
+    with a finite box inside its image and a mask of its original size;
+    K1 30 a batch."""
+    from reftr_torch.cli.presets import preset_config
+    from reftr_torch.serve import ServingModel
+
+    out = {}
+    for dtype, tc in (("bfloat16", "tc"), ("float32", "tf32x3")):
+        cfg = preset_config("refcoco_seg", dtype=dtype)
+        model = ServingModel(cfg, SERVE_BATCH, state_dict=state_dict)
+        reqs = make_requests(np.random.default_rng(0), cfg.data.img_size,
+                             cfg.data.max_query_len,
+                             cfg.model.bert.vocab_size)
+        launches, n_batches, served_s = serve_requests(model, reqs, counters)
+        want = expected_launches(n_batches, tc, False)
+        if launches != want:
+            raise AssertionError(f"phase 7 serve {dtype}: launches "
+                                 f"{launches}, not {want}")
+        areas = []
+        for i, r in enumerate(reqs):
+            for res in r.result:
+                h0, w0 = r.orig_hw
+                if (res.get("mask_shape") != [h0, w0]
+                        or not 0 <= res["mask_area_px"] <= h0 * w0):
+                    raise AssertionError(f"phase 7 serve {dtype}: request "
+                                         f"{i} {res}")
+                areas.append(res["mask_area_px"] / (h0 * w0))
+        print(f"res serve {dtype}: {len(reqs)} requests, "
+              f"{sum(r.k for r in reqs)} phrases in {n_batches} batches, "
+              f"{served_s:.3f} s; every phrase a box and a mask of its "
+              f"image's size (mask area shares {ms_list(areas)}); launches "
+              f"{launches}", flush=True)
+        out[dtype] = {"batches": n_batches, "launches": launches,
+                      "served_s": served_s, "mask_area_shares": areas}
+        del model
+    return out
+
+
+def train_res(report: dict, counters) -> dict:
+    """Phase 7: RES (refcoco_seg) at full width: the bf16 fine-tune from
+    phase 6's checkpoint through the entry point and its eval-only pass,
+    a float32 freeze_reftr + cem_loss run, one float32 step through the
+    kernels and the plain attention, one profiled bf16 step, and
+    serving. The checkpoints are deleted after, as in phase 6."""
+    import shutil
+
+    import torch
+
+    from reftr_torch.cli.presets import preset_config
+    from reftr_torch.core.checkpoint import load_checkpoint
+
+    shutil.rmtree(RES_OUT, ignore_errors=True)
+    try:
+        res_finetune(report, counters)
+        state_dict = load_checkpoint(str(RES_OUT / "checkpoint"))["model"]
+    finally:
+        for path in [*RES_OUT.glob("checkpoint*"),
+                     *CLI_OUT.glob("checkpoint*")]:
+            path.unlink()
+    report["res"]["freeze"] = res_freeze(report, counters, state_dict)
+    cfg = preset_config("refcoco_seg", dtype="float32")
+    batch, targets = res_batch(np.random.default_rng(2), cfg.data.img_size,
+                               cfg.data.max_query_len,
+                               cfg.model.bert.vocab_size, SERVE_BATCH)
+    report["res"]["f32_kernel_vs_plain"] = compare_train_paths(
+        cfg, batch, targets, label="res")
+    torch.cuda.empty_cache()
+    report["res"]["bf16_step"] = res_profile(report, state_dict)
+    report["res"]["serve"] = res_serve(report, counters, state_dict)
     return report
 
 
@@ -1836,8 +2259,10 @@ def kernel_line(report: dict) -> list:
     SIMT kernel's device time at its site beside it (the same-run
     "before"). ``launches`` counts the main path's runs: both serving runs
     (bf16 and float32), both training runs (the bf16 steps and the
-    float32 steps) and the trainer's entry point (phase 6's three runs),
-    split in ``launches_serve``, ``launches_train`` and ``launches_cli``.
+    float32 steps), the trainer's entry point (phase 6's three runs) and
+    RES (phase 7's fine-tune, eval-only pass, freeze_reftr steps and
+    serving), split in ``launches_serve``, ``launches_train``,
+    ``launches_cli`` and ``launches_res``.
     The decode backward has one row for K2 and K3, whose launches it is
     counted in. Every site's numbers are in the JSON report written before
     it."""
@@ -1851,6 +2276,10 @@ def kernel_line(report: dict) -> list:
                for k in report["serve"]["launches"]}
     cli_n = {k: sum(n[k] for n in report["cli"]["launches"].values())
              for k in train_n}
+    res = report["res"]
+    res_runs = [*res["launches"].values(), res["freeze"]["launches"],
+                *(v["launches"] for v in res["serve"].values())]
+    res_n = {k: sum(n[k] for n in res_runs) for k in train_n}
     shorts = {"flash_attn_fwd": "fwd", "flash_attn_bwd_dq": "dq",
               "flash_attn_bwd_dkv": "dkv"}
     grads_of = {"fwd": ("fwd",), "dq": ("dq",), "dkv": ("dk", "dv")}
@@ -1858,7 +2287,7 @@ def kernel_line(report: dict) -> list:
     for name, (source, replaces, variant) in KERNELS.items():
         if name == "flash_attn_bwd_dec":
             out.append(bwd_dec_entry(report, name, source, replaces,
-                                     train_n, serve_n, cli_n))
+                                     train_n, serve_n, cli_n, res_n))
             continue
         base = name
         for suffix in ("_f32tc", "_tc", "_dec"):
@@ -1899,11 +2328,13 @@ def kernel_line(report: dict) -> list:
         entry = {"name": name, "route": "cuda", "variant": variant,
                  "source": f"reftr_torch/kernels/csrc/{source}",
                  "replaces": replaces,
-                 "launches": count(train_n) + count(serve_n) + count(cli_n),
+                 "launches": (count(train_n) + count(serve_n)
+                              + count(cli_n) + count(res_n)),
                  "launches_train": count(train_n),
                  "launches_train_f32": count(report["train_f32"]["launches"]),
                  "launches_serve": count(serve_n),
                  "launches_cli": count(cli_n),
+                 "launches_res": count(res_n),
                  "max_abs_err": max(e for e, _ in errs), "site": site}
         if short == "fwd":
             sv = next(r for r in sites
@@ -1957,7 +2388,8 @@ def kernel_line(report: dict) -> list:
 
 
 def bwd_dec_entry(report: dict, name: str, source: str, replaces: str,
-                  train_n: dict, serve_n: dict, cli_n: dict) -> dict:
+                  train_n: dict, serve_n: dict, cli_n: dict,
+                  res_n: dict) -> dict:
     """The kernels line's row of the decode backward, which replaces K2 and
     K3 below 16 queries: its launches (each counted on K2 and on K3, so
     K2's count), its errors over every call of phase 3 that the rule sent
@@ -1975,11 +2407,12 @@ def bwd_dec_entry(report: dict, name: str, source: str, replaces: str,
         "name": name, "route": "cuda", "variant": "dec",
         "source": f"reftr_torch/kernels/csrc/{source}",
         "replaces": replaces, "also_replaces": BWD_DEC_ALSO,
-        "launches": train_n[key] + serve_n[key] + cli_n[key],
+        "launches": train_n[key] + serve_n[key] + cli_n[key] + res_n[key],
         "launches_train": train_n[key],
         "launches_train_f32": report["train_f32"]["launches"][key],
         "launches_serve": serve_n[key],
         "launches_cli": cli_n[key],
+        "launches_res": res_n[key],
         "max_abs_err": max(e for e, _ in errs),
         "max_rel_err": max(e / s for e, s in errs),
         "site": "decoder_cross",
@@ -1989,10 +2422,10 @@ def bwd_dec_entry(report: dict, name: str, source: str, replaces: str,
         "ms": tr["bwd_ms"], "device_ms": tr["bwd_device_ms"],
         "ms_no_dropout": tr0["bwd_ms"],
         "device_ms_no_dropout": tr0["bwd_device_ms"],
-        "simt_pair_device_ms": (tr["simt_dq_device_ms"]
-                                + tr["simt_dkv_device_ms"]),
-        "simt_pair_device_ms_no_dropout": (tr0["simt_dq_device_ms"]
-                                           + tr0["simt_dkv_device_ms"]),
+        "simt_pair_device_ms": sum_ms(tr["simt_dq_device_ms"],
+                                      tr["simt_dkv_device_ms"]),
+        "simt_pair_device_ms_no_dropout": sum_ms(tr0["simt_dq_device_ms"],
+                                                 tr0["simt_dkv_device_ms"]),
         "plain_ms": tr["bwd_plain_ms"],
         "plain_covers": "attention_bwd_plain: dq, dk and dv",
         "bound_ms": tr["flash_attn_bwd_bound_ms"],
@@ -2053,6 +2486,8 @@ def main() -> int:
     train(report, counters)
     train_f32(report, counters)
     train_cli(report, counters)
+    torch.cuda.empty_cache()
+    train_res(report, counters)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

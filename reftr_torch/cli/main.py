@@ -23,15 +23,9 @@ from reftr_torch.core.config import BertConfig, RefTRConfig
 _ITEM = "ROADMAP.md queue 1 item"
 # dest -> what it needs, for the flags of features not ported yet
 NOT_PORTED = {
-    "masks": f"RES ({_ITEM} 5)",
-    "freeze_reftr": f"RES ({_ITEM} 5)",
-    "mask_loss_coef": f"RES ({_ITEM} 5)",
-    "dice_loss_coef": f"RES ({_ITEM} 5)",
-    "ablation": f"the CEM loss of RES ({_ITEM} 5)",
     "set_cost_class": f"the matcher ({_ITEM} 4)",
     "set_cost_bbox": f"the matcher ({_ITEM} 4)",
     "set_cost_giou": f"the matcher ({_ITEM} 4)",
-    "focal_alpha": f"the matcher ({_ITEM} 4)",
     "mesh_data": f"multi-GPU ({_ITEM} 6)",
     "mesh_model": f"multi-GPU ({_ITEM} 6)",
     "mesh_model_spans_processes": f"multi-GPU ({_ITEM} 6)",
@@ -240,6 +234,9 @@ def args_to_config(args: argparse.Namespace) -> RefTRConfig:
     m.nheads = args.nheads
     # lr_backbone <= 0 freezes layer2-4 too (backbone.py:85-89)
     m.freeze_backbone = args.freeze_backbone or args.lr_backbone <= 0
+    m.masks = args.masks
+    m.freeze_reftr = args.freeze_reftr
+    m.ablation = args.ablation
     m.freeze_bert = args.freeze_bert
     m.bert_model = args.bert_model
     if args.bert_size == "tiny":
@@ -252,6 +249,9 @@ def args_to_config(args: argparse.Namespace) -> RefTRConfig:
     # loss
     loss.bbox_loss_coef = args.bbox_loss_coef
     loss.giou_loss_coef = args.giou_loss_coef
+    loss.mask_loss_coef = args.mask_loss_coef
+    loss.dice_loss_coef = args.dice_loss_coef
+    loss.focal_alpha = args.focal_alpha
     # data
     d.dataset = args.dataset
     d.train_split = args.train_split

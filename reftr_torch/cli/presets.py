@@ -2,12 +2,13 @@
 
 Each preset is a dict of command-line overrides, as in the JAX package:
 the single-phrase REC detection presets (reftr_tpu/cli/presets.py:14-18,
-:59-64, :65-69, :70-76 and their ``_101`` variants at :94-98) with their
-training keys, and ``synthetic_smoke`` (:101-109). The RES, multi-phrase
-and pre-training presets come with the slices that run them (ROADMAP.md
-queue 1 items 4 and 5). ``apply_preset`` sets them on parsed arguments
-(flags given explicitly win); ``preset_config`` gives a preset's
-RefTRConfig directly.
+:33-37, :59-64, :65-69, :70-76), the RES presets (:19-32, :38-44), which
+fine-tune REC+RES from a detection checkpoint (stage 2 of the reference's
+configs), their ``_101`` variants (:94-98) and ``synthetic_smoke``
+(:101-109). The multi-phrase and pre-training presets come with the slice
+that runs them (ROADMAP.md queue 1 item 4). ``apply_preset`` sets them on
+parsed arguments (flags given explicitly win); ``preset_config`` gives a
+preset's RefTRConfig directly.
 """
 
 from __future__ import annotations
@@ -21,17 +22,28 @@ from reftr_torch.core.config import (BertConfig, DataConfig, LossConfig,
 
 _REC = dict(num_feature_levels=1, dec_layers=6, aux_loss=True, img_size=640,
             max_img_size=640, epochs=90, lr_drop=60)
+_RES = dict(_REC, masks=True, lr=1e-5, lr_mask_branch_proj=10.0, epochs=40,
+            lr_drop=30)
 
 PRESETS: Dict[str, Dict] = {
     # configs/refcoco/RefTR_refcoco.sh stage 1 (REC detection)
     "refcoco_det": dict(_REC, dataset="refcoco_unc", train_split="train",
                         test_split=["val", "testA", "testB"]),
+    # configs/refcoco/RefTR_refcoco.sh stage 2 (REC+RES fine-tune)
+    "refcoco_seg": dict(_RES, dataset="refcoco_unc", train_split="train",
+                        test_split=["val", "testA", "testB"]),
+    # configs/refcoco+/RefTR_SEG_refcoco+.sh
+    "refcoco_plus_seg": dict(_RES, num_queries_per_phrase=1,
+                             dataset="refcoco+_unc", train_split="train",
+                             test_split=["testA", "testB"]),
     # configs/refcoco+/RefTR_refcoco+.sh (REC detection)
     "refcoco_plus_det": dict(_REC, num_queries_per_phrase=1,
                              dataset="refcoco+_unc", train_split="train",
                              test_split=["val", "testA", "testB"]),
     # configs/refcocog/RefTR_refcocog.sh (umd split)
     "refcocog_det": dict(_REC, dataset="refcocog_umd", train_split="train",
+                         test_split=["val"]),
+    "refcocog_seg": dict(_RES, dataset="refcocog_umd", train_split="train",
                          test_split=["val"]),
     # configs/referit/RefTR_referit.sh
     "referit": dict(_REC, dataset="referit", train_split="trainval",

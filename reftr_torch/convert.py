@@ -1,6 +1,7 @@
 """Weights for the port: the bridge from a Flax param tree, and a seeded init.
 
-``from_flax`` maps each leaf of a reftr_tpu RefTR param tree (numpy arrays)
+``from_flax`` maps each leaf of a reftr_tpu RefTR or RefTRSeg param tree
+(numpy arrays)
 onto the port's parameters and buffers. Module paths map one to one, with
 a trailing ``_<n>`` index becoming a ``.<n>`` child (``layer1_0`` ->
 ``layer1.0``, ``layers_2`` -> ``layers.2``), and leaves map as:
@@ -19,10 +20,12 @@ unfilled.
 package's initialisers do: xavier-uniform for the transformer, heads and
 projections, normal(0.02) for BERT's embeddings and dense layers,
 lecun-normal for the backbone convolutions, normal(1.0) for
-``level_embed``, and a zero final layer of ``bbox_embed``.
+``level_embed``, a zero final layer of ``bbox_embed``, and torch's
+kaiming-uniform (a=1) with zero bias for the mask head's convolutions.
 
-``build_model`` makes a RefTR on its device with either: the one place
-where serving (``serve.ServingModel``) and training
+``build_model`` makes the model of a config on its device with either:
+RefTRSeg with ``masks``, else RefTR (reftr_tpu/models/build.py:55-64). It
+is the one place where serving (``serve.ServingModel``) and training
 (``train.TrainState.create``) get their model.
 """
 
@@ -39,12 +42,14 @@ from torch import nn
 from reftr_torch.core.config import ModelConfig
 from reftr_torch.core.device import resolve_device
 from reftr_torch.models.reftr import RefTR
+from reftr_torch.models.reftr_seg import RefTRSeg
 from reftr_torch.models.vl_transformer import VLTransformer
 from reftr_torch.nn.bert import BertEmbeddings, BertLayer, BertModel
 from reftr_torch.nn.mlp import MLP
 from reftr_torch.nn.posembed import ImagePositionEmbedding
 from reftr_torch.nn.query_encoder import QueryEncoder
 from reftr_torch.nn.resnet import FrozenBatchNorm
+from reftr_torch.nn.seg_heads import MaskHeadSmallConv
 
 _INDEXED = re.compile(r"^(.+)_(\d+)$")
 
@@ -76,12 +81,25 @@ def flax_leaf_to_torch(path: Tuple[str, ...], leaf: np.ndarray
     return ".".join(modules + [name]), np.ascontiguousarray(leaf)
 
 
+def model_class(cfg: ModelConfig) -> type:
+    """RefTRSeg with ``masks``, else RefTR, after the JAX factory's checks
+    of the heads (reftr_tpu/models/build.py:20-64)."""
+    if cfg.heatmap_box:
+        if not cfg.vision_aux:
+            raise ValueError("heatmap_box decodes the vision_aux heatmap; "
+                             "enable --vision_aux_loss")
+        if cfg.masks:
+            raise ValueError("heatmap_box is a REC head; the RES path "
+                             "decodes masks instead")
+    return RefTRSeg if cfg.masks else RefTR
+
+
 def from_flax(params: Mapping[str, Any], cfg: ModelConfig
               ) -> Dict[str, torch.Tensor]:
-    """A state_dict for ``RefTR(cfg)`` from a Flax param tree (the
-    ``params`` collection, nested dicts of arrays)."""
+    """A state_dict for the model of ``cfg`` (``model_class``) from a Flax
+    param tree (the ``params`` collection, nested dicts of arrays)."""
     with torch.device("meta"):
-        expected = RefTR(cfg).state_dict()
+        expected = model_class(cfg)(cfg).state_dict()
     return flax_state_dict(params, expected)
 
 
@@ -162,20 +180,26 @@ def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
               and mod.kind == "learned"):
             nn.init.uniform_(mod.row_embed.weight, 0.0, 1.0, generator=g)
             nn.init.uniform_(mod.col_embed.weight, 0.0, 1.0, generator=g)
+        elif isinstance(mod, MaskHeadSmallConv):
+            for conv in mod.modules():
+                if isinstance(conv, nn.Conv2d):
+                    nn.init.kaiming_uniform_(conv.weight, a=1, generator=g)
+                    nn.init.zeros_(conv.bias)
     return model
 
 
 def build_model(cfg: ModelConfig, device: Union[str, torch.device] = "cuda",
                 state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                 seed: int = 0) -> RefTR:
-    """``RefTR(cfg)`` built on ``device`` ("cuda" unless the caller passes
-    the CPU) with the weights of ``state_dict`` or, without one, from
+    """The model of ``cfg`` (``model_class``: RefTRSeg with ``masks``,
+    else RefTR) built on ``device`` ("cuda" unless the caller passes the
+    CPU) with the weights of ``state_dict`` or, without one, from
     ``init_params`` with a generator on the device seeded by ``seed``. On
     a card the convolutions run NHWC (channels_last), the layout the
     images arrive in."""
     dev = resolve_device(device)
     with torch.device(dev):
-        model = RefTR(cfg)
+        model = model_class(cfg)(cfg)
     if state_dict is None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)

@@ -5,10 +5,10 @@ A copy of the matching fields of reftr_tpu/core/config.py (``BertConfig``
 :24-67, ``ModelConfig`` :70-176, ``LossConfig`` :232-249, ``DataConfig``
 :251-287, ``TrainConfig`` :302-343), kept here because the port imports
 nothing of reftr_tpu. Options of the JAX package that the port does not run
-yet (RES, multi-phrase, the from-scratch flags, the TPU
-reparameterisations and int8, the mesh) are left out rather than accepted
-and ignored; the CLI refuses them (``cli/main.py``), and they come back
-with the slice that runs them.
+yet (multi-phrase, the from-scratch flags, the TPU reparameterisations and
+int8, the mesh) are left out rather than accepted and ignored; the CLI
+refuses them (``cli/main.py``), and they come back with the slice that
+runs them.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ class BertConfig:
 
 @dataclass
 class ModelConfig:
-    """RefTR architecture, single-phrase REC path."""
+    """RefTR architecture: single-phrase REC, and RES with ``masks``."""
 
     backbone: str = "resnet50"  # resnet50 | resnet101
     dilation: bool = False  # DC5: dilate the last stage instead of striding
@@ -57,6 +57,10 @@ class ModelConfig:
     nheads: int = 8
     normalize_before: bool = False
     activation: str = "relu"
+    masks: bool = False  # add the RES segmentation head (RefTRSeg)
+    # RES: train the mask branch (and the CEM block) alone over a frozen
+    # REC trunk
+    freeze_reftr: bool = False
     freeze_bert: bool = False
     freeze_backbone: bool = False
     # the tokenizer's vocabulary: <data_root>/<bert_model>/vocab.txt, or a
@@ -66,6 +70,7 @@ class ModelConfig:
     max_lang_seq: int = 128
     num_queries_per_phrase: int = 1
     aux_loss: bool = False
+    ablation: str = "none"  # 'cem_loss' adds RES's CEM energy loss
     # from-scratch heads of the JAX package; RefTR raises on them until the
     # slice that runs them
     vision_aux: bool = False
@@ -76,13 +81,24 @@ class ModelConfig:
     # under torch.autocast in it.
     dtype: str = "float32"
 
+    @property
+    def cem_loss(self) -> bool:
+        return self.ablation == "cem_loss"
+
 
 @dataclass
 class LossConfig:
-    """Loss coefficients of the REC path (main_vg.py:119-134)."""
+    """Loss coefficients (main_vg.py:119-134); the focal terms are RES's
+    mask loss. The matcher's costs are not here: with one query per
+    phrase the criterion is matcher-free."""
 
     bbox_loss_coef: float = 1.0
     giou_loss_coef: float = 1.0
+    mask_loss_coef: float = 1.0
+    dice_loss_coef: float = 1.0
+    cem_loss_coef: float = 1.0
+    focal_alpha: float = 0.25
+    focal_gamma: float = 2.0
 
 
 @dataclass

@@ -1,4 +1,4 @@
-"""Dataset registry of the single-phrase REC path (port of
+"""Dataset registry of the single-phrase REC and RES paths (port of
 reftr_tpu/data/build.py:1-134).
 
 Maps --dataset names to datasets with the reference's directory layout
@@ -10,10 +10,14 @@ under ``data_root`` (datasets/__init__.py:17-132 of the reference RefTR):
   flickr30k_resc   -> single-phrase flickr
   flickr30k_refcoco-> flickr_resc, plus refcoco trainval for train
   synthetic        -> the in-memory fixture (train: synthetic_n items,
-                      every other split: 64)
+                      every other split: 64), with box-shaped masks
+                      under masks
+  masks            -> the segmentation dataset over refcoco's annotations
+                      (<data_root>/refcoco/anns, masks under
+                      <data_root>/refcoco/masks)
 
-flickr30k (multi-phrase) and masks (RES) raise NotImplementedError: they
-are ROADMAP.md queue 1 items 4 and 5.
+flickr30k (multi-phrase) raises NotImplementedError: it is ROADMAP.md
+queue 1 item 4.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from __future__ import annotations
 import os.path as osp
 
 from reftr_torch.core.config import DataConfig
-from reftr_torch.data.datasets import (ReferDatasetResc,
+from reftr_torch.data.datasets import (ReferDatasetResc, ReferSegDataset,
                                        SyntheticGroundingDataset)
 
 REFCOCO_VERSIONS = {
@@ -57,9 +61,6 @@ class ConcatDataset:
 
 def build_refer_dataset(split: str, cfg: DataConfig, tokenizer, train: bool,
                         masks: bool = False, seed: int = 0):
-    if masks:
-        raise NotImplementedError(
-            "RES (masks) is not ported yet: ROADMAP.md queue 1 item 5")
     if cfg.dataset == "flickr30k" or cfg.multi_phrase:
         raise NotImplementedError(
             "multi-phrase flickr30k is not ported yet: ROADMAP.md queue 1 "
@@ -68,10 +69,19 @@ def build_refer_dataset(split: str, cfg: DataConfig, tokenizer, train: bool,
         return SyntheticGroundingDataset(
             tokenizer, n=cfg.synthetic_n if train else SYNTHETIC_EVAL_N,
             img_size=cfg.img_size, canvas=cfg.max_img_size,
-            max_query_len=cfg.max_query_len, seed=seed,
+            max_query_len=cfg.max_query_len, with_masks=masks, seed=seed,
             box_frac=tuple(cfg.synthetic_box_frac))
 
     root = cfg.data_root
+    common = dict(img_size=cfg.img_size, max_img_size=cfg.max_img_size,
+                  max_query_len=cfg.max_query_len, train=train,
+                  hsv_fraction=cfg.hsv_jitter, seed=seed)
+    if masks:
+        return ReferSegDataset(
+            osp.join(root, "refcoco", "anns"),
+            osp.join(root, "refcoco", "images", "train2014"),
+            REFCOCO_VERSIONS.get(cfg.dataset, cfg.dataset), split, tokenizer,
+            mask_dir=osp.join(root, "refcoco", "masks"), **common)
     anns = osp.join(root, "annotations_resc")
     images = {
         "referit": osp.join(root, "referit", "images"),
@@ -81,10 +91,8 @@ def build_refer_dataset(split: str, cfg: DataConfig, tokenizer, train: bool,
     }
 
     def resc(im_dir: str, version: str, split_: str) -> ReferDatasetResc:
-        return ReferDatasetResc(
-            anns, im_dir, version, split_, tokenizer, img_size=cfg.img_size,
-            max_img_size=cfg.max_img_size, max_query_len=cfg.max_query_len,
-            train=train, hsv_fraction=cfg.hsv_jitter, seed=seed)
+        return ReferDatasetResc(anns, im_dir, version, split_, tokenizer,
+                                **common)
 
     if cfg.dataset == "referit":
         return resc(images["referit"], "referit", split)

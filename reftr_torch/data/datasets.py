@@ -1,17 +1,21 @@
-"""Grounding datasets of the single-phrase REC path (port of
-reftr_tpu/data/datasets.py:27-172, 354-482).
+"""Grounding datasets of the single-phrase REC and RES paths (port of
+reftr_tpu/data/datasets.py:27-172, 310-482).
 
   * ReferDatasetResc: single-phrase REC over resc-format annotations
     (resc_refer_dataset.py of the reference RefTR): refcoco/+/g (boxes
     xywh -> xyxy), referit, flickr single-phrase, visual genome.
+  * ReferSegDataset: REC + RES over refcoco's segmentation annotations,
+    each mask a .npy file under ``mask_dir`` (refer_dataset.py:213-318).
   * SyntheticGroundingDataset: an in-memory fixture (no files) of coloured
-    rectangles and template phrases, made from the item's index.
+    rectangles and template phrases, made from the item's index; with
+    ``with_masks`` each mask is its box's rectangle.
 
 Every item is a pair of numpy dicts of static shapes, ready to stack:
 image [S, S, 3] uint8, image_valid [S, S] bool, sentence and
 sentence_valid [L] int32; boxes [1, 4] normalised cxcywh, box_valid [1],
-orig_size [2], size [2], image_id. The multi-phrase and segmentation
-datasets come with a later slice (ROADMAP.md queue 1 items 4 and 5).
+orig_size [2], size [2], image_id; with masks, masks [S, S] float32 {0, 1}
+and mask_valid (a bool scalar). The multi-phrase dataset comes with a
+later slice (ROADMAP.md queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -81,7 +85,8 @@ def _load_image(path: str) -> np.ndarray:
 
 
 def _single_phrase_item(ts, ids, mask, canvas: int, idx: int):
-    """The (sample, target) dicts of one transformed single-phrase item."""
+    """The (sample, target) dicts of one transformed single-phrase item,
+    with its mask when the transform made one."""
     oh, ow = ts.valid_hw
     valid = np.zeros((canvas, canvas), bool)
     valid[:oh, :ow] = True
@@ -92,6 +97,9 @@ def _single_phrase_item(ts, ids, mask, canvas: int, idx: int):
               "orig_size": np.array(ts.orig_hw, np.int32),
               "size": np.array(ts.valid_hw, np.int32),
               "image_id": np.asarray(idx, np.int32)}
+    if ts.mask_canvas is not None:
+        target["masks"] = ts.mask_canvas
+        target["mask_valid"] = np.asarray(True)
     return sample, target
 
 
@@ -151,6 +159,32 @@ class ReferDatasetResc:
         return _single_phrase_item(ts, ids, mask, self.max_img_size, idx)
 
 
+class ReferSegDataset(ReferDatasetResc):
+    """REC + RES: each record (img_file, seg_file, bbox xyxy, phrase) adds
+    the mask in <mask_dir>/<seg_file>, a .npy array over the image."""
+
+    def __init__(self, *args, mask_dir: Optional[str] = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.mask_dir = mask_dir
+
+    def pull_item(self, idx: int):
+        img_file, seg_file, bbox, phrase = self.records[idx][:4]
+        img = _load_image(osp.join(self.im_dir, img_file))
+        bbox = np.array(bbox, np.float32)
+        return img, str(phrase), bbox, img_file, str(seg_file)
+
+    def __getitem__(self, idx: int) -> Tuple[Dict, Dict]:
+        img, phrase, bbox, _, seg_file = self.pull_item(idx)
+        mask = np.load(osp.join(self.mask_dir, seg_file), allow_pickle=True)
+        mask = (np.asarray(mask) > 0).astype(np.float32)
+        ts = transform_sample(img, bbox[None], self.img_size,
+                              self.max_img_size, self.train, self._rng(idx),
+                              self.hsv_fraction, seg_mask=mask)
+        ids, tmask, _ = self.tokenizer.encode(phrase.lower(),
+                                              self.max_query_len)
+        return _single_phrase_item(ts, ids, tmask, self.max_img_size, idx)
+
+
 # ---------------------------------------------------------------------------
 # synthetic fixture
 # ---------------------------------------------------------------------------
@@ -170,7 +204,8 @@ class SyntheticGroundingDataset:
 
     def __init__(self, tokenizer: WordPieceTokenizer, n: int = 128,
                  img_size: int = 64, max_query_len: int = 12,
-                 seed: int = 0, canvas: Optional[int] = None,
+                 with_masks: bool = False, seed: int = 0,
+                 canvas: Optional[int] = None,
                  box_frac: Tuple[float, float] = (1 / 6, 1 / 3)):
         del seed
         self.tokenizer = tokenizer
@@ -178,6 +213,7 @@ class SyntheticGroundingDataset:
         self.img_size = img_size
         self.canvas = canvas or img_size
         self.max_query_len = max_query_len
+        self.with_masks = with_masks
         # the rectangles' side range as a fraction of img_size
         self.box_frac = box_frac
         self._paths: Optional[List[str]] = None
@@ -220,17 +256,22 @@ class SyntheticGroundingDataset:
         img[oy:oy + h, ox:ox + w] = _COLORS[other]
         phrase = f"the {color} {_SHAPES[int(rng.integers(2))]} on the {side}"
         box = np.array([x0, y0, x0 + w, y0 + h], np.float32)
-        return img, phrase, box
+        mask = None
+        if self.with_masks:
+            mask = np.zeros((s, s), np.float32)
+            mask[y0:y0 + h, x0:x0 + w] = 1.0
+        return img, phrase, box, mask
 
     def __len__(self):
         return self.n
 
     def __getitem__(self, idx: int):
-        img, phrase, box = self._make(idx)
+        img, phrase, box, mask = self._make(idx)
         if self._paths is not None:
             img = _load_image(self._paths[idx])
         ts = transform_sample(img, box[None], self.img_size, self.canvas,
-                              False, np.random.default_rng(idx))
+                              False, np.random.default_rng(idx),
+                              seg_mask=mask)
         ids, tmask, _ = self.tokenizer.encode(phrase, self.max_query_len)
         return _single_phrase_item(ts, ids, tmask, self.canvas, idx)
 

@@ -1,13 +1,16 @@
-"""Training losses of the REC path (port of reftr_tpu/models/criterion.py:
-34-52, 125-185).
+"""Training losses of REC and RES (port of reftr_tpu/models/criterion.py:
+34-83, 125-185).
 
 L1 and GIoU box losses over padded phrases weighted by their validity,
 normalised by the batch's box count clamped at one, with the
-auxiliary decoder layers' losses under ``_<i>`` suffixes. The matcher is
-not on this path: with one query per phrase the criterion is matcher-free
+auxiliary decoder layers' losses under ``_<i>`` suffixes; with masks, the
+focal and DICE mask losses on logits upsampled to the target, and the CEM
+loss when the model gives one. The matcher is not on this path: with one
+query per phrase the criterion is matcher-free
 (reftr_tpu/core/config.py:244-248).
 
-Targets: boxes [B, P, 4] normalised cxcywh, box_valid [B, P] bool.
+Targets: boxes [B, P, 4] normalised cxcywh, box_valid [B, P] bool; RES
+adds masks [B, Hm, Wm] binary and mask_valid [B] bool.
 """
 
 from __future__ import annotations
@@ -15,10 +18,12 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+import torch.nn.functional as F
 
 from reftr_torch.core.config import LossConfig
 from reftr_torch.ops.boxes import (box_cxcywh_to_xyxy,
                                    generalized_box_iou_aligned)
+from reftr_torch.ops.losses import dice_loss, sigmoid_focal_loss
 
 
 def loss_boxes(pred_boxes: torch.Tensor, phrase_mask: torch.Tensor,
@@ -37,8 +42,28 @@ def loss_boxes(pred_boxes: torch.Tensor, phrase_mask: torch.Tensor,
     return {"loss_bbox": l1.sum() / denom, "loss_giou": giou.sum() / denom}
 
 
-def loss_masks(*args, **kwargs):
-    raise NotImplementedError("the RES mask losses come with a later slice")
+def loss_masks(pred_masks: torch.Tensor, target_masks: torch.Tensor,
+               mask_valid: torch.Tensor, cfg: LossConfig
+               ) -> Dict[str, torch.Tensor]:
+    """Focal and DICE losses (reftr_segmentation.py:314-337 of the
+    reference). pred_masks [B, k, h, w] logits, bilinearly upsampled
+    (align_corners=False, as jax.image.resize "linear" samples) to the
+    target's size; target_masks [B, Hm, Wm], shared by the k queries;
+    mask_valid [B]. The denominator is b * k (:332-333)."""
+    b, k = pred_masks.shape[:2]
+    if pred_masks.shape[2:] != target_masks.shape[1:]:
+        pred_masks = F.interpolate(pred_masks, size=target_masks.shape[1:],
+                                   mode="bilinear", align_corners=False)
+    src = pred_masks.reshape(b * k, -1)
+    tgt = target_masks[:, None].expand_as(pred_masks).reshape(b * k, -1)
+    tgt = tgt.to(src.dtype)
+    w = mask_valid.to(src.dtype).repeat_interleave(k)
+    denom = float(b * k)
+    return {
+        "loss_mask": sigmoid_focal_loss(src, tgt, denom, cfg.focal_alpha,
+                                        cfg.focal_gamma, weights=w),
+        "loss_dice": dice_loss(src, tgt, denom, weights=w),
+    }
 
 
 def loss_vision(*args, **kwargs):
@@ -51,11 +76,17 @@ def compute_num_boxes(box_valid: torch.Tensor) -> torch.Tensor:
 
 
 def criterion(outputs: Dict[str, Any], targets: Dict[str, torch.Tensor],
-              cfg: LossConfig) -> Dict[str, torch.Tensor]:
+              cfg: LossConfig, with_masks: bool = False
+              ) -> Dict[str, torch.Tensor]:
     """The unweighted loss dict (weights are applied by ``weight_dict``)."""
     num_boxes = compute_num_boxes(targets["box_valid"])
     losses = loss_boxes(outputs["pred_boxes"], outputs["phrase_mask"],
                         targets["boxes"], num_boxes)
+    if with_masks and "pred_masks" in outputs:
+        losses.update(loss_masks(outputs["pred_masks"], targets["masks"],
+                                 targets["mask_valid"], cfg))
+        if "cem_loss" in outputs:
+            losses["loss_cem"] = outputs["cem_loss"]
     for i, aux in enumerate(outputs.get("aux_outputs", [])):
         aux_losses = loss_boxes(aux["pred_boxes"], aux["phrase_mask"],
                                 targets["boxes"], num_boxes)
@@ -63,12 +94,18 @@ def criterion(outputs: Dict[str, Any], targets: Dict[str, torch.Tensor],
     return losses
 
 
-def weight_dict(cfg: LossConfig, dec_layers: int,
-                aux_loss: bool) -> Dict[str, float]:
-    """Loss weights (reftr_transformer.py:320-329), aux layers included."""
+def weight_dict(cfg: LossConfig, dec_layers: int, aux_loss: bool,
+                with_masks: bool = False) -> Dict[str, float]:
+    """Loss weights (reftr_transformer.py:320-329, reftr_segmentation.py:
+    349-360), aux layers included; the mask terms get no aux copies."""
     wd = {"loss_giou": cfg.giou_loss_coef, "loss_bbox": cfg.bbox_loss_coef}
+    if with_masks:
+        wd.update({"loss_dice": cfg.dice_loss_coef,
+                   "loss_mask": cfg.mask_loss_coef,
+                   "loss_cem": cfg.cem_loss_coef})
     if aux_loss:
-        base = dict(wd)
+        base = {k: v for k, v in wd.items()
+                if k in ("loss_giou", "loss_bbox")}
         for i in range(dec_layers - 1):
             wd.update({f"{k}_{i}": v for k, v in base.items()})
     return wd

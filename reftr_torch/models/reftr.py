@@ -21,10 +21,13 @@ BERT. The ResNet stem and layer1 never train (every stage with
 (reftr_tpu/models/reftr.py:94-104, 226-227, 252): their parameters get
 ``requires_grad=False`` and they run without a graph.
 
+RES (``masks``) is ``models/reftr_seg.py::RefTRSeg``, which runs this
+trunk; ``freeze_reftr`` belongs to it and is refused without ``masks``.
+
 Not in this slice: multi-phrase inputs, more than one feature level,
-``vision_aux`` and ``heatmap_box`` raise NotImplementedError; the RES mask
-head and the other from-scratch options (img_pos_in_stream,
-pos_in_value) have no config field yet.
+``vision_aux`` and ``heatmap_box`` raise NotImplementedError; the other
+from-scratch options (img_pos_in_stream, pos_in_value) have no config
+field yet.
 """
 
 from __future__ import annotations
@@ -60,6 +63,9 @@ class InputProj(nn.Module):
 
 
 class RefTR(nn.Module):
+    # the backbone's four stages (RES's mask head) or layer4 alone
+    return_interm_layers = False
+
     def __init__(self, config: ModelConfig):
         super().__init__()
         mc = config
@@ -69,10 +75,15 @@ class RefTR(nn.Module):
         if mc.vision_aux or mc.heatmap_box:
             raise NotImplementedError(
                 "vision_aux and heatmap_box come with a later slice")
+        if mc.freeze_reftr and not mc.masks:
+            raise ValueError("freeze_reftr freezes the REC trunk under RES's "
+                             "mask head: it needs masks")
         self.config = mc
         self.dtype = _DTYPES[mc.dtype]
-        self.img_backbone = ResNet(mc.backbone, mc.dilation)
-        self.img_backbone.freeze(4 if mc.freeze_backbone else 1)
+        self.img_backbone = ResNet(mc.backbone, mc.dilation,
+                                   self.return_interm_layers)
+        self.img_backbone.freeze(
+            4 if mc.freeze_backbone or mc.freeze_reftr else 1)
         self.lang_backbone = BertModel(mc.bert)
         if mc.freeze_bert:
             self.lang_backbone.requires_grad_(False)
@@ -114,9 +125,20 @@ class RefTR(nn.Module):
                                image_valid: torch.Tensor):
         """Backbone + projection + mask and sine position per level.
         Returns (srcs, valids, poss), lists per level, NHWC."""
+        return self.project_features(self.run_backbone(image), image_valid)
+
+    def run_backbone(self, image: torch.Tensor):
+        """The backbone on uint8 canvases (normalised here) or normalised
+        float images: layer4, or the four stages with
+        ``return_interm_layers``, NHWC."""
         if image.dtype == torch.uint8:
             image = normalize_images(image, self.dtype)
-        feat = self.img_backbone(image.to(self.dtype))
+        return self.img_backbone(image.to(self.dtype))
+
+    def project_features(self, feat: torch.Tensor,
+                         image_valid: torch.Tensor):
+        """Projection, mask and sine position of the layer4 map ``feat``.
+        Returns (srcs, valids, poss), lists per level, NHWC."""
         # backbone features are the NHWC view of NCHW channels-last memory
         src = self.input_proj[0](feat.permute(0, 3, 1, 2))
         src = src.permute(0, 2, 3, 1)

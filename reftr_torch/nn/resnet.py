@@ -8,8 +8,9 @@ in f32 (:36-66). The public layout is NHWC, as in the JAX package; inside,
 the convolutions run on the channels-last view of the same memory.
 
 Training freezes a prefix of the network (``freeze``): the stem and layer1
-always, every stage with ``freeze_backbone``, as ``stop_grad_stages`` does in
-the JAX package (reftr_tpu/models/reftr.py:94-104, nn/resnet.py:222, 326).
+always, every stage with ``freeze_backbone`` or ``freeze_reftr``, as
+``stop_grad_stages`` does in the JAX package (reftr_tpu/models/reftr.py:
+94-104, nn/resnet.py:222, 326).
 Their parameters get ``requires_grad=False`` and they run under
 ``torch.no_grad()``, so no graph is kept for them.
 
@@ -95,10 +96,14 @@ class Bottleneck(nn.Module):
 
 class ResNet(nn.Module):
     """Input NHWC float images (already normalised). Returns the NHWC
-    layer4 feature map, the one feature level the port serves."""
+    layer4 feature map, the one feature level REC uses, or with
+    ``return_interm_layers`` the four stage outputs C1-C4 (strides 4-32),
+    as RES's mask head needs them."""
 
-    def __init__(self, name: str = "resnet50", dilation: bool = False):
+    def __init__(self, name: str = "resnet50", dilation: bool = False,
+                 return_interm_layers: bool = False):
         super().__init__()
+        self.return_interm_layers = return_interm_layers
         self.conv1 = _conv(3, 64, 7, 2)
         self.bn1 = FrozenBatchNorm(64)
         cin = 64
@@ -128,17 +133,22 @@ class ResNet(nn.Module):
         for mod in frozen:
             mod.requires_grad_(False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor):
         x = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory
         stages = (self.layer1, self.layer2, self.layer3, self.layer4)
         n = self.frozen_stages
+        feats = []
         with torch.no_grad() if n else nullcontext():
             x = F.relu(self.bn1(self.conv1(x)))
             x = F.max_pool2d(x, 3, stride=2, padding=1)
             for stage in stages[:n]:
                 x = stage(x)
+                feats.append(x)
         for stage in stages[n:]:
             x = stage(x)
+            feats.append(x)
+        if self.return_interm_layers:
+            return tuple(f.permute(0, 2, 3, 1) for f in feats)
         return x.permute(0, 2, 3, 1)
 
 

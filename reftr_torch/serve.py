@@ -1,9 +1,15 @@
 """Micro-batching serving runtime on the card (port of the model side of
 reftr_tpu/tools/serve.py:51-262).
 
-``ServingModel`` holds a RefTR on its device at a static batch size;
-``dispatch`` starts the batched forward and returns without waiting,
-``fetch`` waits for it and brings the boxes to the host. ``MicroBatcher``
+``ServingModel`` holds a RefTR (RefTRSeg with ``masks``) on its device at
+a static batch size; ``dispatch`` starts the batched forward and returns
+without waiting, ``fetch`` waits for it and brings the boxes (and the
+masks) to the host. A RES model answers each phrase with a box and a
+mask: the mask logits upsampled to the canvas and thresholded on the
+device (``segm_masks``), then on the host cropped to the image's extent
+and nearest-resampled to its original size with floor indices, reported
+as ``mask_area_px`` and ``mask_shape`` (reftr_tpu/tools/serve.py:
+246-255). ``MicroBatcher``
 collects request rows into such batches: a batch runs when it is full or
 ``timeout_ms`` after its first row arrived, and while batch N computes the
 host collects and dispatches batch N+1 before it fetches N. An exception
@@ -37,7 +43,7 @@ import torch
 from reftr_torch.convert import build_model
 from reftr_torch.core.config import RefTRConfig
 from reftr_torch.core.device import resolve_device
-from reftr_torch.models.postprocess import decode_boxes
+from reftr_torch.models.postprocess import decode_boxes, segm_masks
 
 
 @dataclass
@@ -78,8 +84,21 @@ def pad_batch(group: List[Request], batch_size: int
     return batch
 
 
+def mask_to_original(mask: np.ndarray, valid_hw, orig_hw) -> np.ndarray:
+    """A canvas mask [S, S] cropped to the resized image's extent
+    ``valid_hw`` and nearest-resampled to ``orig_hw``, src = floor(dst *
+    in/out)."""
+    oh, ow = valid_hw
+    h0, w0 = orig_hw
+    m = mask[:oh, :ow]
+    ys = np.floor(np.arange(h0) * (oh / h0)).astype(np.int64)
+    xs = np.floor(np.arange(w0) * (ow / w0)).astype(np.int64)
+    return m[ys][:, xs]
+
+
 class ServingModel:
-    """RefTR on its device at a static batch size.
+    """RefTR (RefTRSeg with ``masks``) on its device at a static batch
+    size.
 
     Weights come from ``state_dict`` (for example ``convert.from_flax`` of
     a reftr_tpu checkpoint) or, without one, from ``init_params`` with a
@@ -104,9 +123,15 @@ class ServingModel:
     def dispatch(self, batch: Mapping[str, np.ndarray]
                  ) -> Dict[str, torch.Tensor]:
         """Start the forward on the device; returns device tensors
-        without waiting for them."""
+        without waiting for them: the boxes and, for RES, the masks on the
+        canvas ([B, S, S] bool, query 0)."""
         out = self.model(self.to_device(batch))
-        return {"pred_boxes": out["pred_boxes"]}
+        kept = {"pred_boxes": out["pred_boxes"]}
+        if self.cfg.model.masks:
+            # the canvas the batch came on (max_img_size in a server)
+            canvas = tuple(batch["image"].shape[1:3])
+            kept["masks"] = segm_masks(out["pred_masks"][:, :1], canvas)[:, 0]
+        return kept
 
     @staticmethod
     def fetch(out: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
@@ -211,10 +236,17 @@ class MicroBatcher:
             h0, w0 = g.orig_hw
             scale = np.array([w0, h0, w0, h0], np.float32)
             phrases = g.phrases or [""] * g.k
-            g.result = [{"phrase": ph,
-                         "box_xyxy": [round(float(v), 2)
-                                      for v in boxes[row + i] * scale]}
-                        for i, ph in enumerate(phrases)]
+            g.result = []
+            for i, ph in enumerate(phrases):
+                r = {"phrase": ph,
+                     "box_xyxy": [round(float(v), 2)
+                                  for v in boxes[row + i] * scale]}
+                if "masks" in out:
+                    m = mask_to_original(out["masks"][row + i], g.valid_hw,
+                                         g.orig_hw)
+                    r["mask_area_px"] = int(m.sum())
+                    r["mask_shape"] = list(m.shape)
+                g.result.append(r)
             self.stats["requests"] += 1
             self.stats["rows"] += g.k
             row += g.k

@@ -8,9 +8,10 @@ tripwire of the reference (engine_vg.py:55-58) is kept, on that late read.
 Loss terms are logged scaled by their weight under their own names, as the
 reference logs them; terms outside the weight dict are dropped.
 
-``evaluate`` runs the eval step over a loader and gives P@0.5, mIoU and the
-mean of each scaled loss term over the batches, and the boxes in the
-original image's pixels by image id. Its sums stay on the device and are
+``evaluate`` runs the eval step over a loader and gives P@0.5, mIoU (and,
+when the step gives the seg sums, the seg mIoU) and the mean of each
+scaled loss term over the batches, and the boxes in the original image's
+pixels by image id. Its sums stay on the device and are
 read once per pass. There is no profiler hook and no visual dump
 (``visualize_dir`` needs PIL; ROADMAP.md queue 1 item 10).
 """
@@ -71,7 +72,8 @@ def evaluate(eval_step, loader: Iterable,
              weight_dict: Optional[Dict[str, float]] = None,
              print_freq: int = 50, collect_results: bool = False,
              print_fn=print) -> Tuple[Dict[str, float], Dict[int, Any]]:
-    """Returns (stats, results). stats: accuracy_iou0.5, miou and, with a
+    """Returns (stats, results). stats: accuracy_iou0.5, miou, seg_miou
+    when the step gives sum_seg_iou and cnt_seg (RES) and, with a
     ``weight_dict``, the batches' mean of the total loss and of each
     scaled term but the auxiliary layers' (engine_vg.py:221-222). results
     (with ``collect_results``): image id -> the valid rows' boxes, xyxy in
@@ -104,11 +106,13 @@ def evaluate(eval_step, loader: Iterable,
             rows.append((ids, targets["box_valid"]))
             n_rows += b
     host = dict(zip(names, totals.tolist())) if totals is not None else {}
-    stats = {k: host[k] / n_batches for k in names
-             if k not in ("sum_accu", "sum_iou", "cnt")}
+    sum_keys = ("sum_accu", "sum_iou", "cnt", "sum_seg_iou", "cnt_seg")
+    stats = {k: host[k] / n_batches for k in names if k not in sum_keys}
     cnt = max(host.get("cnt", 0.0), 1.0)
     stats["accuracy_iou0.5"] = host.get("sum_accu", 0.0) / cnt
     stats["miou"] = host.get("sum_iou", 0.0) / cnt
+    if "sum_seg_iou" in host:
+        stats["seg_miou"] = host["sum_seg_iou"] / max(host["cnt_seg"], 1.0)
     # no auxiliary layer's loss in the stats (engine_vg.py:221-222)
     stats = {k: v for k, v in stats.items()
              if k.split("_")[-1] not in {"unscaled", "0", "1", "2", "3", "4"}}

@@ -76,9 +76,9 @@ def build_tokenizer(cfg: RefTRConfig) -> WordPieceTokenizer:
 def build_loaders(cfg: RefTRConfig, tokenizer):
     """The train loader (shuffled, drop_last) and one loader per test
     split (in order, the last batch padded), for one process."""
-    d, seed = cfg.data, cfg.train.seed
+    d, seed, masks = cfg.data, cfg.train.seed, cfg.model.masks
     train_ds = build_refer_dataset(d.train_split, d, tokenizer, train=True,
-                                   seed=seed)
+                                   masks=masks, seed=seed)
     if d.cache_mode:
         sampler = NodeShardedSampler(len(train_ds), local_rank=0,
                                      local_size=1, shuffle=True, seed=seed)
@@ -88,7 +88,8 @@ def build_loaders(cfg: RefTRConfig, tokenizer):
                               num_workers=d.num_workers, drop_last=True)
     test_loaders = {}
     for split in d.test_splits:
-        ds = build_refer_dataset(split, d, tokenizer, train=False, seed=seed)
+        ds = build_refer_dataset(split, d, tokenizer, train=False,
+                                 masks=masks, seed=seed)
         test_loaders[split] = DataLoader(
             ds, d.batch_size, sampler=ShardedSampler(len(ds), shuffle=False),
             num_workers=d.num_workers, drop_last=False)
@@ -163,8 +164,9 @@ def run_training(cfg: RefTRConfig,
         master_print(f"Resumed from {resume} at epoch {start_epoch}, step "
                      f"{state.step}")
 
+    masks = cfg.model.masks
     wdict = build_weight_dict(cfg.loss, cfg.model.dec_layers,
-                              cfg.model.aux_loss)
+                              cfg.model.aux_loss, with_masks=masks)
     train_step = make_train_step(state.model, wdict, cfg.loss, device=dev)
     eval_step = make_eval_step(state.model, cfg.loss, device=dev)
 

@@ -9,16 +9,23 @@ reftr_tpu/train/optimizer.py:42-90, 93-146).
 
 Groups are chosen by substring rules on parameter names, as ``label_fn``
 does on Flax paths. Frozen are the ResNet stem and layer1 always, the
-backbone when lr_backbone <= 0 or with freeze_backbone, and BERT with
-freeze_bert. FrozenBN statistics are buffers in the port, so no rule is
-needed for them.
+backbone when lr_backbone <= 0 or with freeze_backbone, BERT with
+freeze_bert, and with freeze_reftr the rest of the REC trunk; cem_block
+then stays at the base LR (reftr_tpu/train/optimizer.py:80-84). FrozenBN
+statistics are buffers in the port, so no rule is needed for them.
 
 What gets no gradient at all is the model's to decide (``RefTR`` sets
 requires_grad=False on the stem and layer1, on the backbone with
 freeze_backbone and on BERT with freeze_bert, and runs them without a
-graph); the groups hold only parameters that require a gradient. The
-backbone at lr_backbone <= 0 still gets its gradient, as in the JAX
-step, and stays out of the optimizer and so out of the clip.
+graph; ``RefTRSeg`` does so for the whole trunk with freeze_reftr); the
+groups hold only parameters that require a gradient. The backbone at
+lr_backbone <= 0 still gets its gradient, as in the JAX step, and stays
+out of the optimizer and so out of the clip. Under freeze_reftr the
+labels keep the backbone's layer2-4 and BERT in their own groups, as
+``label_fn`` does; they require no gradient, so they stay out of the
+optimizer. In the JAX package AdamW's decoupled decay still moves them,
+by lr_backbone * weight_decay (1e-9 at the defaults) of each value, which
+is below float32's rounding, so neither side changes them.
 
 AdamW (betas 0.9/0.999, eps 1e-8, weight decay on every parameter of a
 trainable group) or SGD with momentum; ``clip_by_global_norm`` clips the
@@ -53,6 +60,10 @@ def param_label(name: str, model_cfg: ModelConfig,
         return "frozen" if model_cfg.freeze_bert else "bert"
     if any(k in name for k in train_cfg.lr_mask_branch_names):
         return "mask_branch"
+    if model_cfg.freeze_reftr:
+        # the reference freezes the trunk before it builds the mask branch
+        # and the CEM block (reftr_segmentation.py:52-63)
+        return "base" if "cem_block" in parts else "frozen"
     return "base"
 
 

@@ -1,5 +1,8 @@
 """Train and eval steps (port of reftr_tpu/train/steps.py:54-128).
 
+A RES model (``config.masks``) adds the mask losses to both steps and
+the seg mIoU sums (``segm_metrics``) to the eval step's.
+
 The train step is the reference's hot loop (engine_vg.py:39-74): forward
 in training mode, criterion, weighted total, backward, global-norm clip,
 optimizer step and LR-scheduler step. Parameters stay float32; a bfloat16
@@ -32,7 +35,7 @@ from reftr_torch.core.config import LossConfig
 from reftr_torch.core.device import resolve_device
 from reftr_torch.kernels.attention import SEED_BITS
 from reftr_torch.models.criterion import criterion, total_loss
-from reftr_torch.models.postprocess import rec_metrics
+from reftr_torch.models.postprocess import rec_metrics, segm_metrics
 from reftr_torch.nn.attention import attention_rng
 from reftr_torch.train.optimizer import clip_by_global_norm
 from reftr_torch.train.state import TrainState
@@ -98,6 +101,7 @@ def make_train_step(model: nn.Module, weight_dict: Dict[str, float],
     (``TrainState.create`` builds it there); batch and targets are numpy
     dicts."""
     device = model_device(model, device)
+    with_masks = model.config.masks
     rng_devices = [device.index] if device.type == "cuda" else []
 
     def step_fn(state: TrainState, batch: Mapping, targets: Mapping):
@@ -110,7 +114,7 @@ def make_train_step(model: nn.Module, weight_dict: Dict[str, float],
             torch.manual_seed(seed)
             with _autocast(model, device), attention_rng(state.generator):
                 out = model(batch)
-        losses = criterion(out, targets, loss_cfg)
+        losses = criterion(out, targets, loss_cfg, with_masks)
         loss = total_loss(losses, weight_dict)
         # the model's, not the optimizer's: a parameter with a gradient
         # may stay out of the optimizer (the backbone at lr_backbone <= 0)
@@ -132,10 +136,12 @@ def make_train_step(model: nn.Module, weight_dict: Dict[str, float],
 
 def make_eval_step(model: nn.Module, loss_cfg: LossConfig,
                    device: Union[str, torch.device] = "cuda"):
-    """step(batch, targets) -> (outputs, losses, rec_metrics sums): the
-    forward in eval mode on ``device`` (as in ``make_train_step``), the
-    losses for logging and the P@0.5 / mIoU sums, as device tensors."""
+    """step(batch, targets) -> (outputs, losses, metric sums): the forward
+    in eval mode on ``device`` (as in ``make_train_step``), the losses for
+    logging and the P@0.5 / mIoU sums (with masks, the seg mIoU's too), as
+    device tensors."""
     device = model_device(model, device)
+    with_masks = model.config.masks
 
     @torch.no_grad()
     def step_fn(batch: Mapping, targets: Mapping):
@@ -144,9 +150,13 @@ def make_eval_step(model: nn.Module, loss_cfg: LossConfig,
         targets = to_device(targets, device)
         with _autocast(model, device):
             out = model(batch)
-        losses = criterion(out, targets, loss_cfg)
+        losses = criterion(out, targets, loss_cfg, with_masks)
         sums = rec_metrics(out["pred_boxes"], targets["boxes"],
                            targets["box_valid"])
+        if with_masks:
+            sums.update(segm_metrics(out["pred_masks"], targets["masks"],
+                                     batch["image_valid"],
+                                     mask_valid=targets.get("mask_valid")))
         return out, losses, sums
 
     return step_fn

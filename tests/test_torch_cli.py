@@ -1,7 +1,7 @@
 """reftr_torch's command line against reftr_tpu's, on the CPU: the same
 flags parse to the same config values, presets agree, a flag of a feature
 the port does not have yet raises, and ``main`` trains the synthetic smoke
-preset for an epoch on the CPU."""
+preset for an epoch on the CPU, for REC and with ``--masks`` for RES."""
 
 import dataclasses
 import json
@@ -63,6 +63,13 @@ ARGVS = [
     ["--num_feature_levels", "1", "--dataset", "refcoco_unc", "--bert_size",
      "tiny", "--lr_backbone_names", "a", "b", "--lr_mask_branch_proj", "3",
      "--num_queries_per_phrase", "2", "--max_img_size", "512"],
+    ["--preset", "refcoco_seg", "--dataset", "synthetic", "--test_split",
+     "val", "--pretrained_model", "det/checkpoint"],
+    ["--preset", "refcocog_seg_101", "--freeze_reftr", "--ablation",
+     "cem_loss", "--mask_loss_coef", "2", "--dice_loss_coef", "3",
+     "--focal_alpha", "0.5", "--lr_mask_branch_names", "mask_head"],
+    ["--preset", "synthetic_smoke", "--masks", "--nheads", "8",
+     "--hidden_dim", "128"],
 ]
 
 
@@ -100,14 +107,9 @@ def test_preset_config_is_the_cli_config(name):
 
 
 NOT_PORTED_ARGVS = {
-    "masks": ["--masks"], "freeze_reftr": ["--freeze_reftr"],
-    "mask_loss_coef": ["--mask_loss_coef", "2"],
-    "dice_loss_coef": ["--dice_loss_coef", "2"],
-    "ablation": ["--ablation", "cem_loss"],
     "set_cost_class": ["--set_cost_class", "2"],
     "set_cost_bbox": ["--set_cost_bbox", "2"],
     "set_cost_giou": ["--set_cost_giou", "3"],
-    "focal_alpha": ["--focal_alpha", "0.5"],
     "mesh_data": ["--mesh_data", "2"], "mesh_model": ["--mesh_model", "2"],
     "mesh_model_spans_processes": ["--mesh_model_spans_processes"],
     "train_stem": ["--train_stem"],
@@ -136,6 +138,31 @@ NOT_PORTED_ARGVS = {
 
 def test_every_not_ported_flag_is_tested():
     assert set(NOT_PORTED_ARGVS) == set(cli.NOT_PORTED)
+
+
+RES_ARGVS = {
+    "masks": ["--masks"], "freeze_reftr": ["--masks", "--freeze_reftr"],
+    "mask_loss_coef": ["--mask_loss_coef", "2"],
+    "dice_loss_coef": ["--dice_loss_coef", "2"],
+    "ablation": ["--ablation", "cem_loss"],
+    "focal_alpha": ["--focal_alpha", "0.5"],
+}
+
+
+@pytest.mark.parametrize("dest", sorted(RES_ARGVS))
+def test_a_res_flag_parses_to_the_jax_config(dest):
+    """The RES flags, which the port refused before it ran RES, parse to
+    JAX's values; focal_alpha is the mask loss's, not only the
+    matcher's."""
+    argv = ["--preset", "refcoco_det"] + RES_ARGVS[dest]
+    got = cli.args_to_config(parse(cli, argv))
+    want = jax_main.args_to_config(parse(jax_main, argv))
+    for section in ("model", "loss"):
+        ours, theirs = getattr(got, section), getattr(want, section)
+        for f in dataclasses.fields(ours):
+            if f.name != "bert":
+                assert getattr(ours, f.name) == getattr(theirs, f.name)
+    assert dest not in cli.NOT_PORTED
 
 
 @pytest.mark.parametrize("dest", sorted(NOT_PORTED_ARGVS))
@@ -170,6 +197,34 @@ def test_main_trains_the_smoke_preset_on_the_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "Steps per training epoch: 2" in out
     assert "best accuracy_iou0.5:" in out
+
+
+def test_main_trains_res_on_the_synthetic_fixture_on_the_cpu(tmp_path,
+                                                            capsys):
+    """--masks on the smoke preset (d=128 and 8 heads, so GroupNorm's 8
+    groups divide 2d + heads and d/16): an epoch of RES with box-shaped
+    masks, an eval with seg_miou, then --freeze_reftr --ablation cem_loss
+    from that checkpoint as a pretrained model."""
+    base = ["--preset", "synthetic_smoke", "--masks", "--hidden_dim", "128",
+            "--nheads", "8", "--device", "cpu", "--epochs", "1",
+            "--synthetic_n", "8", "--batch_size", "4", "--num_workers", "2"]
+    assert cli.main(base + ["--output_dir", str(tmp_path / "a")]) == 0
+    with open(tmp_path / "a" / "log.txt") as f:
+        (entry,) = [json.loads(x) for x in f]
+    assert entry["train_loss_mask"] > 0 and entry["train_loss_dice"] > 0
+    assert 0.0 <= entry["test_val_seg_miou"] <= 1.0
+    out = capsys.readouterr().out
+    assert '"seg_miou": ' in out
+    assert cli.main(base + [
+        "--freeze_reftr", "--ablation", "cem_loss", "--pretrained_model",
+        str(tmp_path / "a" / "checkpoint"), "--output_dir",
+        str(tmp_path / "b")]) == 0
+    with open(tmp_path / "b" / "log.txt") as f:
+        (entry,) = [json.loads(x) for x in f]
+    assert entry["train_loss_cem"] > 0
+    out = capsys.readouterr().out
+    assert "Missing keys: ['cem_block." in out
+    assert "Unexpected keys" not in out
 
 
 def test_main_needs_a_card_by_default(monkeypatch, tmp_path):

@@ -866,3 +866,124 @@ def test_run_training_launches_the_kernels_per_step_and_eval_batch(
     with open(tmp_path / "log.txt") as f:
         assert json.loads(f.readline()) == entry
     assert (tmp_path / "checkpoint").is_file()
+
+
+def _res_config(**model):
+    """A small float32 RES config: BERT tiny (two layers), one encoder and
+    one decoder layer, d=128 and 8 heads (GroupNorm's 8 groups divide the
+    mask head's 264 and 8 channels), 64 px canvases."""
+    from reftr_torch.core.config import BertConfig, ModelConfig
+
+    bert = BertConfig.tiny()
+    bert.hidden_dropout = bert.attention_dropout = 0.0
+    return ModelConfig(bert=bert, enc_layers=1, dec_layers=1,
+                       dim_feedforward=64, hidden_dim=128, nheads=8,
+                       aux_loss=True, masks=True, dropout=0.0,
+                       dtype="float32", **model)
+
+
+def _res_batch(b=4, hw=64, s=12):
+    g = torch.Generator().manual_seed(0)
+    valid = torch.zeros(b, hw, hw, dtype=torch.bool)
+    sent_valid = torch.zeros(b, s, dtype=torch.int32)
+    for i in range(b):
+        valid[i, :hw - 8 * i, :hw - 4 * i] = True
+        sent_valid[i, :s - 2 * i] = 1
+    masks = torch.zeros(b, hw, hw)
+    masks[:, 10:40, 12:50] = 1.0
+    batch = {"image": torch.randint(0, 256, (b, hw, hw, 3), generator=g,
+                                    dtype=torch.uint8),
+             "image_valid": valid,
+             "sentence": torch.randint(1, 512, (b, s), generator=g,
+                                       dtype=torch.int32),
+             "sentence_valid": sent_valid}
+    targets = {"boxes": torch.tensor([[[0.5, 0.4, 0.4, 0.5]]] * b),
+               "box_valid": torch.ones(b, 1, dtype=torch.bool),
+               "masks": masks, "mask_valid": torch.ones(b, dtype=torch.bool)}
+    return ({k: v.numpy() for k, v in batch.items()},
+            {k: v.numpy() for k, v in targets.items()})
+
+
+@pytest.mark.parametrize("freeze_reftr", [False, True])
+def test_res_step_launches_the_kernels(gen, freeze_reftr):
+    """One RES train step and one eval forward: BERT tiny's 2 attentions
+    and the encoder's 1 on the 3xTF32 kernels, the decoder's 2 on the
+    decode kernels. K1 runs 5 times in each; K2 and K3 5 times in the step,
+    and not at all under freeze_reftr, whose trunk builds no graph."""
+    from reftr_torch.core.config import LossConfig, TrainConfig
+    from reftr_torch.models.criterion import weight_dict
+    from reftr_torch.train.state import TrainState
+    from reftr_torch.train.steps import make_eval_step, make_train_step
+
+    mc = _res_config(freeze_reftr=freeze_reftr, ablation="cem_loss")
+    state = TrainState.create(mc, TrainConfig(epochs=1), 1, seed=0)
+    wd = weight_dict(LossConfig(), mc.dec_layers, mc.aux_loss,
+                     with_masks=True)
+    step = make_train_step(state.model, wd, LossConfig())
+    batch, targets = _res_batch()
+    wrappers = (flash_attention, flash_attn_bwd_dq, flash_attn_bwd_dkv)
+    before = {w: w.launches for w in wrappers}
+    state, metrics = step(state, batch, targets)
+    torch.cuda.synchronize()
+    got = {w: w.launches - before[w] for w in wrappers}
+    bwd = 0 if freeze_reftr else 5
+    assert got == {flash_attention: 5, flash_attn_bwd_dq: bwd,
+                   flash_attn_bwd_dkv: bwd}
+    m = metrics.get()
+    assert all(torch.isfinite(torch.tensor(v)) for v in m.values())
+    assert m["loss_mask"] > 0 and m["loss_dice"] > 0 and m["loss_cem"] > 0
+    names = {n.split(".")[0] for n in state.param_names()}
+    if freeze_reftr:
+        assert names == {"bbox_attention", "mask_head", "cem_block"}
+    before = {w: w.launches for w in wrappers}
+    out, _, sums = make_eval_step(state.model, LossConfig())(batch, targets)
+    torch.cuda.synchronize()
+    assert {w: w.launches - before[w] for w in wrappers} == {
+        flash_attention: 5, flash_attn_bwd_dq: 0, flash_attn_bwd_dkv: 0}
+    assert out["pred_masks"].shape == (4, 1, 16, 16)
+    assert 0.0 <= sums["sum_seg_iou"].item() <= sums["cnt_seg"].item() == 4
+
+
+def test_res_kernel_path_matches_the_plain_path(gen, monkeypatch):
+    """One float32 RES forward and backward (dropout 0) through the kernels
+    and through the plain attention: the loss within 1e-5 relative, the
+    mask logits within 1e-4 relative L2 and every gradient within 1e-3
+    relative L2 of the plain path's (measured against the larger of its
+    norm and 1e-4 of the global norm), the smoke's tolerances. The
+    convolutions run in true float32, as in the smoke: with cuDNN's TF32
+    the attention's 1e-6 differences flip the 10-bit rounding of the mask
+    head's inputs, and the logits part by TF32's rounding (2e-4)."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    from reftr_torch.convert import build_model
+    from reftr_torch.core.config import LossConfig
+    from reftr_torch.models.criterion import criterion, total_loss, weight_dict
+    from reftr_torch.train.steps import to_device
+
+    mc = _res_config(ablation="cem_loss")
+    model = build_model(mc, seed=1).train()
+    with torch.no_grad():
+        torch.nn.init.xavier_uniform_(model.bbox_embed.layers[-1].weight,
+                                      generator=gen)
+    wd = weight_dict(LossConfig(), mc.dec_layers, mc.aux_loss,
+                     with_masks=True)
+    batch, targets = (to_device(x, torch.device("cuda"))
+                      for x in _res_batch())
+    runs = {}
+    for plain in (False, True):
+        set_plain_attention(model, plain)
+        model.zero_grad(set_to_none=True)
+        out = model(batch)
+        loss = total_loss(criterion(out, targets, LossConfig(), True), wd)
+        loss.backward()
+        runs[plain] = (loss.item(), out["pred_masks"].detach(),
+                       {n: p.grad.clone() for n, p in
+                        model.named_parameters() if p.grad is not None})
+    (lk, mk, gk), (lp, mp, gp) = runs[False], runs[True]
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    assert ((mk - mp).norm() / mp.norm()).item() <= 1e-4
+    norm = sum(float(g.square().sum()) for g in gp.values()) ** 0.5
+    assert set(gk) == set(gp)
+    for name, g in gp.items():
+        err = float((gk[name] - g).norm()) / max(float(g.norm()),
+                                                 1e-4 * norm)
+        assert err <= 1e-3, name

@@ -227,12 +227,16 @@ def test_samplers_agree(n, replicas, rank):
                 assert list(a) == list(b) and len(a) == len(b)
 
 
-@pytest.mark.parametrize("img_size,canvas,items", [
-    (32, 32, range(12)), (32, 40, range(4)), (640, 640, (0, 5))])
-def test_synthetic_items_agree(toks, img_size, canvas, items):
+@pytest.mark.parametrize("img_size,canvas,items,with_masks", [
+    (32, 32, range(12), False), (32, 40, range(4), False),
+    (640, 640, (0, 5), False), (32, 40, range(6), True),
+    (640, 640, (0, 3), True)])
+def test_synthetic_items_agree(toks, img_size, canvas, items, with_masks):
+    """Items byte-equal to JAX's; with masks, each mask is its box's
+    rectangle on the canvas."""
     ref_tok, port_tok = toks
     kw = dict(n=16, img_size=img_size, canvas=canvas, max_query_len=12,
-              box_frac=(0.25, 0.5))
+              box_frac=(0.25, 0.5), with_masks=with_masks)
     ref = jax_datasets.SyntheticGroundingDataset(ref_tok, **kw)
     port = datasets.SyntheticGroundingDataset(port_tok, **kw)
     assert len(port) == len(ref)
@@ -240,6 +244,16 @@ def test_synthetic_items_agree(toks, img_size, canvas, items):
         (s1, t1), (s2, t2) = port[i], ref[i]
         assert_trees_equal(s1, s2)
         assert_trees_equal(t1, t2)
+        assert ("masks" in t1) == with_masks
+        if with_masks:
+            assert t1["masks"].shape == (canvas, canvas) and t1["mask_valid"]
+            h, w = t1["size"]
+            cx, cy, bw, bh = t1["boxes"][0] * [w, h, w, h]
+            ys, xs = np.nonzero(t1["masks"])
+            assert abs(xs.min() - (cx - bw / 2)) <= 1
+            assert abs(xs.max() + 1 - (cx + bw / 2)) <= 1
+            assert abs(ys.min() - (cy - bh / 2)) <= 1
+            assert abs(ys.max() + 1 - (cy + bh / 2)) <= 1
 
 
 @pytest.fixture(scope="module")
@@ -272,7 +286,53 @@ def resc_root(tmp_path_factory):
                          [x0, y0, int(rng.integers(2, w - x0)),
                           int(rng.integers(2, h - y0))], phrases[i]])
         (ann_dir / f"unc_{split}.json").write_text(json.dumps(recs))
+    # refcoco segmentation annotations (file, seg file, xyxy box, phrase)
+    # and each mask as .npy over its image
+    seg_dir = root / "seg"
+    (seg_dir / "anns" / "unc").mkdir(parents=True)
+    (seg_dir / "masks").mkdir()
+    for split, ids in (("train", range(5)), ("val", (0, 2, 4))):
+        recs = []
+        for i in ids:
+            h, w = shapes[i]
+            m = np.zeros((h, w), np.uint8)
+            y0, x0 = int(rng.integers(0, h // 2)), int(rng.integers(0, w // 2))
+            y1, x1 = int(rng.integers(y0 + 2, h)), int(rng.integers(x0 + 2, w))
+            m[y0:y1, x0:x1] = 1
+            m[y0, x0] = 0
+            np.save(seg_dir / "masks" / f"seg{i}.npy", m)
+            recs.append([f"im{i}.png", f"seg{i}.npy",
+                         [float(x0), float(y0), float(x1), float(y1)],
+                         phrases[i]])
+        (seg_dir / "anns" / "unc" / f"unc_{split}.json").write_text(
+            json.dumps(recs))
     return root
+
+
+@pytest.mark.parametrize("split,train", [("train", True), ("val", False)])
+def test_refer_seg_items_agree(vocab_files, resc_root, split, train):
+    """ReferSegDataset on a fixture written here: every array of every
+    item byte-equal to JAX's, masks included, with train-time
+    augmentation and without."""
+    path = vocab_files["wordpiece"]
+    kw = dict(img_size=32, max_img_size=40, max_query_len=10, train=train,
+              hsv_fraction=0.5, seed=3,
+              mask_dir=str(resc_root / "seg" / "masks"))
+    args = (str(resc_root / "seg" / "anns"), str(resc_root / "images"),
+            "unc", split)
+    ref = jax_datasets.ReferSegDataset(
+        *args, jax_native.WordPieceTokenizer(path), **kw)
+    port = datasets.ReferSegDataset(*args, native.WordPieceTokenizer(path),
+                                    **kw)
+    assert len(port) == len(ref)
+    for epoch in (0, 1):
+        ref.set_epoch(epoch)
+        port.set_epoch(epoch)
+        for i in range(len(ref)):
+            (s1, t1), (s2, t2) = port[i], ref[i]
+            assert_trees_equal(s1, s2)
+            assert_trees_equal(t1, t2)
+            assert t1["masks"].any() and t1["mask_valid"]
 
 
 @pytest.mark.parametrize("split,train", [("train", True), ("train", False),
@@ -336,12 +396,48 @@ def test_build_refer_dataset_agrees(toks, vocab_files, resc_root, split,
 
 
 def test_build_refuses_what_is_not_ported(toks):
-    with pytest.raises(NotImplementedError, match="item 5"):
-        build.build_refer_dataset("train", DataConfig(dataset="synthetic"),
-                                  toks[1], True, masks=True)
     with pytest.raises(NotImplementedError, match="item 4"):
         build.build_refer_dataset("train", DataConfig(dataset="flickr30k"),
                                   toks[1], True)
+
+
+@pytest.mark.parametrize("split,train", [("train", True), ("val", False)])
+def test_build_refer_dataset_with_masks_agrees(toks, vocab_files, resc_root,
+                                               split, train):
+    """masks: the synthetic fixture with its masks, and refcoco's
+    segmentation dataset under <data_root>/refcoco/{anns,masks}."""
+    cfg, jcfg = _configs(dataset="synthetic", img_size=32, max_img_size=40,
+                         max_query_len=12, synthetic_n=10)
+    port = build.build_refer_dataset(split, cfg, toks[1], train, masks=True)
+    ref = jax_build.build_refer_dataset(split, jcfg, toks[0], train,
+                                        masks=True)
+    for i in (0, 9):
+        for g, w in zip(port[i], ref[i]):
+            assert_trees_equal(g, w)
+        assert "masks" in port[i][1]
+    root = resc_root / "segdata"
+    (root / "refcoco" / "images").mkdir(parents=True, exist_ok=True)
+    for link, target in ((root / "refcoco" / "anns", resc_root / "seg"
+                          / "anns"),
+                         (root / "refcoco" / "masks", resc_root / "seg"
+                          / "masks"),
+                         (root / "refcoco" / "images" / "train2014",
+                          resc_root / "images")):
+        if not link.exists():
+            os.symlink(target, link)
+    cfg, jcfg = _configs(dataset="refcoco_unc", data_root=str(root),
+                         img_size=32, max_img_size=40, max_query_len=10)
+    path = vocab_files["wordpiece"]
+    port = build.build_refer_dataset(split, cfg,
+                                     native.WordPieceTokenizer(path), train,
+                                     masks=True)
+    ref = jax_build.build_refer_dataset(
+        split, jcfg, jax_native.WordPieceTokenizer(path), train, masks=True)
+    assert isinstance(port, datasets.ReferSegDataset)
+    assert len(port) == len(ref)
+    for i in range(len(ref)):
+        for g, w in zip(port[i], ref[i]):
+            assert_trees_equal(g, w)
 
 
 def test_concat_dataset_agrees():
@@ -376,6 +472,24 @@ def test_loader_batches_agree(toks, drop_last, shuffle):
     if not drop_last:
         assert got[-1][1]["box_valid"].tolist() == [[True], [False],
                                                      [False], [False]]
+
+
+def test_loader_pads_the_last_batch_with_zero_mask_valid(toks):
+    """RES: masks and mask_valid are collated, and the padded rows of the
+    last batch have mask_valid zero, as in JAX's loader."""
+    kw = dict(n=6, img_size=32, max_query_len=12, with_masks=True)
+    port = loader.DataLoader(datasets.SyntheticGroundingDataset(toks[1], **kw),
+                             4, num_workers=2, drop_last=False)
+    ref = jax_loader.DataLoader(
+        jax_datasets.SyntheticGroundingDataset(toks[0], **kw), 4,
+        num_workers=2, drop_last=False)
+    got, want = list(port), list(ref)
+    for (s1, t1), (s2, t2) in zip(got, want):
+        assert_trees_equal(s1, s2)
+        assert_trees_equal(t1, t2)
+    assert got[-1][1]["masks"].shape == (4, 32, 32)
+    assert got[-1][1]["mask_valid"].tolist() == [True, True, False, False]
+    assert got[0][1]["mask_valid"].all()
 
 
 def test_loader_surfaces_worker_errors(toks):

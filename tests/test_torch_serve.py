@@ -1,9 +1,10 @@
 """reftr_torch serving runtime, device selection and import isolation.
 
 The serving path runs on the CPU here at a tiny size (bert tiny, 64 px,
-1+1 VL layers). Entry points default to CUDA and must raise where there
-is none rather than fall back to the CPU; the package must import and run
-without JAX, Flax, Optax or any module of reftr_tpu.
+1+1 VL layers), for REC and for RES (boxes and masks). Entry points
+default to CUDA and must raise where there is none rather than fall back
+to the CPU; the package must import and run without JAX, Flax, Optax or
+any module of reftr_tpu.
 """
 
 import subprocess
@@ -17,8 +18,8 @@ import torch
 
 from reftr_torch.core.config import (BertConfig, DataConfig, ModelConfig,
                                      RefTRConfig)
-from reftr_torch.serve import (MicroBatcher, Request, ServingModel, pad_batch,
-                               resolve_device)
+from reftr_torch.serve import (MicroBatcher, Request, ServingModel,
+                               mask_to_original, pad_batch, resolve_device)
 from torch_parity_utils import t
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -105,6 +106,67 @@ def test_micro_batcher_serves_requests(serving):
     assert stats["requests"] == len(reqs)
     assert stats["rows"] == sum(r.k for r in reqs)
     assert stats["batches"] >= 3  # 9 rows, at most 4 in a batch
+
+
+def res_config():
+    """A tiny RES model: d=128 and 8 heads, so GroupNorm's 8 groups divide
+    the mask head's 2d + heads and d/16 channels."""
+    return RefTRConfig(model=ModelConfig(**dict(TINY, hidden_dim=128,
+                                                nheads=8, masks=True)),
+                       data=DataConfig(img_size=64, max_query_len=10))
+
+
+def test_micro_batcher_serves_masks_as_jax_would():
+    """RES serving: each phrase gets a box and a mask; the mask is JAX's
+    segm_masks of the model's logits to the canvas (reftr_tpu/tools/
+    serve.py:246-255), cropped to the image's extent and nearest-resampled
+    with floor indices to its original size: the same area and shape."""
+    import jax.numpy as jnp
+
+    from reftr_tpu.models.postprocess import segm_masks
+
+    model = ServingModel(res_config(), batch_size=4, device="cpu", seed=0)
+    rng = np.random.default_rng(4)
+    reqs = [make_request(rng, k) for k in (2, 1, 3)]
+    batcher = MicroBatcher(model, timeout_ms=5.0)
+    try:
+        for r in reqs:
+            batcher.submit(r)
+        for r in reqs:
+            assert r.done.wait(timeout=120)
+    finally:
+        batcher.stop()
+    for r in reqs:
+        assert r.error is None, r.error
+        with torch.no_grad():
+            logits = model.model({k: t(v) for k, v in r.rows.items()})[
+                "pred_masks"].numpy()
+        oh, ow = r.valid_hw
+        h0, w0 = r.orig_hw
+        for i, res in enumerate(r.result):
+            m = np.asarray(segm_masks(jnp.asarray(logits[i:i + 1]),
+                                      (64, 64)))[0, 0][:oh, :ow]
+            ys = np.floor(np.arange(h0) * (oh / h0)).astype(np.int64)
+            xs = np.floor(np.arange(w0) * (ow / w0)).astype(np.int64)
+            want = m[ys][:, xs]
+            assert res["mask_shape"] == [h0, w0] == list(want.shape)
+            assert res["mask_area_px"] == int(want.sum())
+            assert np.isfinite(res["box_xyxy"]).all()
+    assert any(x["mask_area_px"] > 0 for r in reqs for x in r.result)
+
+
+def test_mask_to_original_matches_the_jax_crop_and_resample():
+    rng = np.random.default_rng(5)
+    mask = rng.uniform(size=(64, 64)) > 0.5
+    for valid_hw, orig_hw in (((64, 48), (128, 96)), ((40, 64), (37, 71)),
+                              ((64, 64), (64, 64)), ((33, 20), (500, 301))):
+        oh, ow = valid_hw
+        h0, w0 = orig_hw
+        ys = np.floor(np.arange(h0) * (oh / h0)).astype(np.int64)
+        xs = np.floor(np.arange(w0) * (ow / w0)).astype(np.int64)
+        np.testing.assert_array_equal(
+            mask_to_original(mask, valid_hw, orig_hw),
+            mask[:oh, :ow][ys][:, xs])
 
 
 def test_micro_batcher_reports_a_failed_batch(serving, monkeypatch):
