@@ -37,15 +37,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    16 queries one launch of the decode backward gives dq, dk and dv; with
    more, the tensor-core kernels, in float32 the 3xTF32 ones), and the
    SIMT kernels beside the others: K1 with dropout and its lse against
-   attention_plain with the same seed (tolerances as in phase 2; lse 1e-5
-   abs plus 1e-6 relative), and the backward kernels K2 (dq) and K3 (dk,
-   dv) each against attention_bwd_plain on the same O, lse and dO. Every
+   attention_plain in float32 with the same seed (tolerances as in phase
+   2, kernel_tol; lse 1e-5 abs plus 1e-6 relative), and the backward
+   kernels K2 (dq) and K3 (dk, dv) each against attention_bwd_plain on
+   the same O, lse and dO. Every
    variant, K1's and the backward's, is called twice on the same inputs
    and must give the same bits.
    Gradient tolerance, as a share of the largest magnitude among the plain
    dq, dk and dv: 1e-4 in float32 (sums of up to 440 terms in another
    order, at most 2.6e-5 of the largest term), 1e-2 in bfloat16 (the
-   kernels round their output to bf16, 2^-9 = 2e-3). Then exact mask
+   kernels round their output to bf16, 2^-9 = 2e-3). Beyond 440 terms
+   (phase 8's sites) the float32 tolerances grow as the square root of
+   the terms, and K1's bf16 tolerance is one bf16 ulp of the largest
+   output where that exceeds 2e-2 (kernel_tol, grad_tol). Then exact mask
    checks in float32 and in bfloat16 at every site (so through every
    variant of K1, K2 and K3): v one-hot over the head dim makes K1's
    output p * keep for D keys at a time; q = 0, lse = 0, O = 0 and dO, v
@@ -177,13 +181,51 @@ Phases, in order; any failure raises and the script exits non-zero:
    name and power limit, the fine-tune's and eval's seconds per step and
    batch, time: and data:, and peak memory are printed. The checkpoints
    are deleted.
-8. Print one JSON line listing each kernel (each variant on a row of its
+8. Multi-phrase, four feature levels and RoBERTa. a) The entry point on
+   the flickr preset at full width (BERT-base over the sentence and over
+   16 phrase slots of 22 tokens, 90 sentence tokens, 6+6 VL layers, d=256,
+   batch 16 at 640 px) in the CLI's default bf16 on the multi-phrase
+   fixture (--dataset synthetic_multi, the port's name of the JAX
+   package's SyntheticMultiPhraseDataset: each sentence names two
+   rectangles): one epoch of 8 steps and the fixture's 64 eval items (4
+   batches) into chiprun_out/multi, then --eval --resume. Checks: exit
+   codes 0; every logged loss finite; the eval-only accuracy equal to the
+   log's, its miou within 1e-5; two boxes per eval item in the result
+   file; launches exactly 42 of each kernel a step and of K1 an eval batch
+   (12 BERT over the sentence + 12 over the phrases + 6 encoder + 6 + 6
+   decoder at 16 phrase queries), all on the bf16 tensor-core kernels.
+   b) K1, K2 and K3 against their plain versions at the sites this path
+   adds (BERT over 256 phrases of 22 tokens, H=12, D=64, with "[CLS]
+   [SEP]" in 14 of each image's 16 rows; the decoder's self-attention
+   16 x 16 with 2 real phrases and its cross-attention 16 x 490; the
+   encoder 490 x 490), in both dtypes, with and without dropout, with
+   phase 3's tolerances, exact dropout masks and times (no SIMT
+   "before"). c) One float32 multi-phrase step (batch 16 of the fixture)
+   through the kernels and through the plain attention, phase 5's rule
+   but for the gradients' bound, 2e-3 relative L2 (MULTI_TRAIN_GRAD_TOL);
+   one bf16 step timed and profiled by kernel category (report only).
+   d) refcoco_det at four feature levels (the encoder over 40 + 80^2 +
+   40^2 + 20^2 + 10^2 = 8540 tokens) through the entry point in bf16: 4
+   steps and 8 eval batches, 30 launches of each kernel a step and of K1
+   an eval batch (18 on the tensor cores, 12 on the decode kernels); one
+   profiled bf16 step with its attention share; K1, K2 and K3 against
+   their plain versions at the encoder at B=1 (the plain version's
+   [B, H, S, S] scores fit there) in both dtypes with exact masks; the
+   masks of K1, K2 and K3 exact in the last batch row at B=8, whose
+   element offsets run past 2^32; the kernels' times at B=8 against SDPA
+   and the bound. e) flickr_roberta (RoBERTa-base's widths: vocabulary
+   50265, 514 positions, pad id 1) on the fixture through the entry point
+   over a byte-level vocabulary the script writes: 2 steps and 4 eval
+   batches, 42 launches of each kernel a step, every loss finite. The
+   checkpoints are deleted.
+9. Print one JSON line listing each kernel (each variant on a row of its
    own; the decode backward on one row for K2 and K3) with its launches
-   on the main paths, its error, and its times and bound at the call site
+   on the main paths (phase 8's runs included, also on their own), its
+   error, and its times and bound at the call site
    where the main path launches it (the decoder's cross-attention for the
    decode and SIMT kernels, the VL encoder for the tensor-core kernels, in
    float32 for the 3xTF32 ones) on this card.
-9. Print {"ok": true, "device": {...}} as the last line.
+10. Print {"ok": true, "device": {...}} as the last line.
 
 It needs a CUDA card and the reftr_torch package beside it; without
 either it fails before it prints any result.
@@ -220,6 +262,9 @@ CALL_SITES = {
 KERNEL_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 LSE_TOL = (1e-5, 1e-6)  # abs, rel: both variants sum in f32
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# the terms a tolerance above was set for: sums over up to 440 keys or
+# queries (refcoco_det's encoder)
+TOL_TERMS = 440
 MODEL_TOL_F32_ABS = 1e-4
 MODEL_TOL_BF16_REL = 5e-2
 DROPOUT = 0.1  # the preset's rate: attention and hidden dropout
@@ -227,6 +272,12 @@ TRAIN_STEPS = 20
 WARM_STEPS = 3
 TRAIN_LOSS_TOL = 1e-5  # f32 kernel path vs plain path, relative
 TRAIN_GRAD_TOL = 1e-3  # relative L2 per trainable gradient
+# the same for phase 8c's multi-phrase step: its kernel path's worst
+# gradient is 1.09e-3 from the plain path's in float64, where the plain
+# path's own is 2.8e-4 (the 3xTF32 kernels round each product to 2^-21,
+# float32 to 2^-24; the 16 x 16 decoder turns the difference into ReLU
+# flips); measured on the H100
+MULTI_TRAIN_GRAD_TOL = 2e-3
 # kernels of the main paths: the C entry point, its source, the Pallas
 # function it replaces, its variant
 KERNELS = {
@@ -320,6 +371,67 @@ RES_MASK_TOL = 1e-4  # and pred_masks relative L2
 # out_lay (16 to 1); layer1's convolutions there have 64 or 256 outputs
 MASK_HEAD_160 = {(32, 256, 1, 1), (16, 32, 3, 3), (1, 16, 3, 3)}
 MASK_HEAD_HW = (160, 160)
+# phase 8: multi-phrase (preset flickr) at full width on the multi-phrase
+# fixture (--dataset synthetic_multi) through the entry point in bf16 (the
+# CLI's default): batch 16 of 90 sentence tokens and 16 phrase slots of 22
+# tokens at 640 px; 128 train items make 8 steps, the fixture's 64 eval
+# items 4 eval batches
+MULTI_OUT = ROOT / "chiprun_out" / "multi"
+MULTI_MODEL_DATA = ["--preset", "flickr", "--dataset", "synthetic_multi",
+                    "--test_split", "val", "--synthetic_n", "128",
+                    "--num_workers", "4"]
+MULTI_TRAIN = MULTI_MODEL_DATA + ["--epochs", "1", "--output_dir",
+                                  str(MULTI_OUT)]
+MULTI_EVAL = MULTI_MODEL_DATA + ["--eval", "--resume",
+                                 str(MULTI_OUT / "checkpoint")]
+MULTI_STEPS = 8
+MULTI_EVAL_BATCHES = 4
+# attention calls per multi-phrase forward: 12 BERT over the sentence, 12
+# BERT over the B * 16 phrases, 6 encoder, 6 + 6 decoder layers at 16
+# phrase queries: every one fills a tensor-core tile
+MULTI_PER_FORWARD = 42
+# (B, Sq, Sk, H, D) of the call sites phase 8 adds: flickr's BERT over the
+# phrases, its decoder at 16 queries and its encoder over 90 + 20^2
+# tokens; the VL encoder at four feature levels (40 + 80^2 + 40^2 + 20^2 +
+# 10^2 tokens) at B=1, where the plain version's [B, H, S, S] scores fit
+# (2.3 GB in float32), and at B=8 for the times alone
+LONG_S = 8540
+NEW_SITES = {
+    "phrase_bert_self": (256, 22, 22, 12, 64),
+    "multi_decoder_self": (16, 16, 16, 8, 32),
+    "multi_decoder_cross": (16, 16, 490, 8, 32),
+    "multi_vl_encoder_self": (16, 490, 490, 8, 32),
+    "vl_encoder_4_levels": (1, LONG_S, LONG_S, 8, 32),
+    "vl_encoder_4_levels_b8": (SERVE_BATCH, LONG_S, LONG_S, 8, 32),
+}
+MULTI_SITES = ("phrase_bert_self", "multi_decoder_self",
+               "multi_decoder_cross", "multi_vl_encoder_self")
+# refcoco_det at four feature levels through the entry point in bf16: 32
+# train items in batches of 8 (4 steps), the fixture's 64 eval items (8
+# eval batches)
+LEVELS_OUT = ROOT / "chiprun_out" / "levels"
+LEVELS_TRAIN = ["--preset", "refcoco_det", "--num_feature_levels", "4",
+                "--dataset", "synthetic", "--test_split", "val",
+                "--synthetic_n", "32", "--batch_size", "8", "--num_workers",
+                "4", "--epochs", "1", "--output_dir", str(LEVELS_OUT)]
+LEVELS_STEPS = 4
+LEVELS_EVAL_BATCHES = 8
+# flickr_roberta on the multi-phrase fixture: RoBERTa-base's widths over a
+# byte-level vocabulary written under --data_root (the 256 byte symbols
+# and <s> <pad> </s> <unk>, no merges); 32 items in batches of 16
+ROBERTA_OUT = ROOT / "chiprun_out" / "roberta"
+ROBERTA_TRAIN = ["--preset", "flickr_roberta", "--dataset",
+                 "synthetic_multi", "--data_root", str(ROBERTA_OUT / "data"),
+                 "--test_split", "val", "--synthetic_n", "32",
+                 "--num_workers", "4", "--epochs", "1", "--output_dir",
+                 str(ROBERTA_OUT)]
+ROBERTA_STEPS = 2
+ROBERTA_EVAL_BATCHES = 4
+# RoBERTa-base has BERT-base's 12 layers of 12 heads of 64
+ROBERTA_PER_FORWARD = MULTI_PER_FORWARD
+# the element offset the kernels count in 64 bits: the masks are checked
+# past it
+OFFSET_32 = 2 ** 32
 # NVIDIA H100 SXM data sheet: HBM rate, bf16 dense tensor-core rate, and
 # float32-accurate products: 3xTF32 gets a third of the 495 TFLOP/s of TF32
 # (the f32 FMA rate outside the tensor cores, 67 TFLOP/s, is lower)
@@ -438,15 +550,72 @@ def attention_bound_ms(b, sq, sk, h, d, valid, dtype_name,
                                  "operations")
 
 
-def site_inputs(gen, site: str, dtype):
-    """q, k, v [B, S, H, D] in ``dtype`` and valid [B, Sk] with random
-    padding and batch row 0 fully masked, at a call site's shape."""
+def kernel_tol(name: str, terms: int, want) -> float:
+    """K1's tolerance against the plain version in float32 on the same
+    inputs. KERNEL_TOL holds sums over up to TOL_TERMS keys and, in bf16,
+    the rounding of the output and of P to bf16 at magnitudes up to 4 (at
+    most 2^-9 of 4 each). Beyond that, in float32 it grows as the square
+    root of the keys summed (the kernels' order-dependent rounding: 3.7e-6
+    against float64 at 440 keys, 7.7e-6 at 2000, 9.0e-6 to 1.3e-5 at 8540
+    on the H100), and in bf16 to one bf16 ulp of the largest output (both
+    roundings grow with its power of two: phrase BERT's rows of 2 keys
+    with dropout reach 4.8)."""
+    if name == "float32":
+        return KERNEL_TOL[name] * max(1.0, math.sqrt(terms / TOL_TERMS))
+    top = want.float().abs().max().item()
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+    return max(KERNEL_TOL[name], ulp)
+
+
+def grad_tol(name: str, terms: int) -> float:
+    """GRAD_TOL for sums over ``terms`` keys or queries: in float32 it
+    grows as the square root of the terms beyond TOL_TERMS, as K1's."""
+    if name == "float32":
+        return GRAD_TOL[name] * max(1.0, math.sqrt(terms / TOL_TERMS))
+    return GRAD_TOL[name]
+
+
+def site_shape(site: str) -> tuple:
+    """(B, Sq, Sk, H, D) of a call site: refcoco_det's (CALL_SITES) at the
+    serve batch, or a site of phase 8 (NEW_SITES)."""
+    if site in CALL_SITES:
+        return (SERVE_BATCH, *CALL_SITES[site])
+    return NEW_SITES[site]
+
+
+def new_site_valid(gen, b: int, sk: int):
+    """The key masks phase 8's sites see: BERT over phrases, "[CLS] [SEP]"
+    (2 keys) in 14 of each image's 16 phrase rows and 3-9 keys in the
+    other 2; the decoder's self-attention, the 2 real phrases' queries of
+    16; over the encoder's memory, 10-20 real tokens of the sentence (90,
+    or 40 at four feature levels) and every image token (the fixture's
+    square images fill the canvas)."""
     import torch
 
-    sq, sk, h, d = CALL_SITES[site]
-    b = SERVE_BATCH
+    ar = torch.arange(sk, device="cuda")[None]
+    if sk == NEW_SITES["phrase_bert_self"][2]:
+        lens = torch.randint(3, 10, (b,), device="cuda", generator=gen)
+        lens = torch.where(torch.arange(b, device="cuda") % 16 < 2, lens, 2)
+        return ar < lens[:, None]
+    if sk == NEW_SITES["multi_decoder_self"][2]:
+        return (ar < 2).expand(b, sk).clone()
+    n_lang = 40 if sk == LONG_S else 90
+    lens = torch.randint(10, 21, (b,), device="cuda", generator=gen)
+    return (ar < lens[:, None]) | (ar >= n_lang)
+
+
+def site_inputs(gen, site: str, dtype):
+    """q, k, v [B, S, H, D] in ``dtype`` and valid [B, Sk] at a call
+    site's shape: for refcoco_det's sites random padding and batch row 0
+    fully masked, for phase 8's the masks of their path
+    (``new_site_valid``)."""
+    import torch
+
+    b, sq, sk, h, d = site_shape(site)
     q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=gen).to(dtype)
                for s in (sq, sk, sk))
+    if site not in CALL_SITES:
+        return q, k, v, new_site_valid(gen, b, sk)
     lens = torch.randint(1, sk + 1, (b,), device="cuda", generator=gen)
     valid = torch.arange(sk, device="cuda")[None] < lens[:, None]
     valid[0] = False  # a row whose keys are all masked
@@ -559,13 +728,16 @@ def sdpa_times(q, k, v, valid, do, rate: float) -> dict:
                 out, (qt, kt, vt), dot, retain_graph=True))}
 
 
-def check_mask_exact(gen, site: str, rate: float, seed: int, dtype) -> int:
+def check_mask_exact(gen, site: str, rate: float, seed: int, dtype,
+                     first_row: int = 0) -> int:
     """K1 with v one-hot over the head dim: out = p * keep / l for D keys
     at a time, so the kept set is read off exactly and must equal the
     plain Philox mask on every key with p > 0 (valid keys, or all keys of
     a fully masked row). The call goes to the variant the rule picks for
     the site and dtype, and in bf16 p of a live key stays far above bf16's
-    smallest normal. Returns the number of elements compared."""
+    smallest normal. With ``first_row`` the batch rows from it on are
+    compared, against the plain mask drawn from their own offsets.
+    Returns the number of elements compared."""
     import torch
 
     from reftr_torch.kernels.attention import (flash_attention,
@@ -574,15 +746,17 @@ def check_mask_exact(gen, site: str, rate: float, seed: int, dtype) -> int:
     q, k, _, valid = site_inputs(gen, site, dtype)
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    keep = philox_keep_plain(seed, b, h, sq, sk, rate, "cuda")
-    live_keys = torch.where(valid.any(-1, keepdim=True), valid, True)
+    keep = philox_keep_plain(seed, b, h, sq, sk, rate, "cuda", first_row)
+    live_keys = torch.where(valid.any(-1, keepdim=True), valid,
+                            True)[first_row:]
     compared = 0
     for k0 in range(0, sk, d):
         n = min(d, sk - k0)
         v = torch.zeros(b, sk, h, d, device="cuda", dtype=dtype)
         v[:, k0:k0 + n, :, :n] = torch.eye(n, device="cuda")[:, None, :]
         out = flash_attention(q, k, v, valid, dropout_rate=rate, seed=seed)
-        kept = out[..., :n].permute(0, 2, 1, 3) != 0  # [B, H, Sq, n]
+        # [B - first_row, H, Sq, n]
+        kept = out[first_row:, ..., :n].permute(0, 2, 1, 3) != 0
         live = live_keys[:, None, None, k0:k0 + n].expand_as(kept)
         if not torch.equal(kept[live], keep[..., k0:k0 + n][live]):
             raise AssertionError(f"{site}: K1's dropout mask differs from "
@@ -591,15 +765,17 @@ def check_mask_exact(gen, site: str, rate: float, seed: int, dtype) -> int:
     return compared
 
 
-def check_dq_mask_exact(site: str, rate: float, seed: int, dtype) -> int:
+def check_dq_mask_exact(site: str, rate: float, seed: int, dtype,
+                        first_row: int = 0) -> int:
     """K2 on inputs whose dq reveals each keep decision: q = 0 and lse = 0
     give p = 1 on every live key (0 on a masked one), dO and v one-hot on
     head dim 0 give dP = 1, and O = 0 gives di = 0, so ds is the keep
     multiplier itself; with k one-hot over the head dim for D keys at a
     time, dq = scale * ds for those keys. The kept set must equal the plain
-    Philox mask on every live key. The call goes to the variant the rule
-    picks (K2-TC in bf16 at the encoder and BERT sites, the decode backward
-    at the decoder's). Returns the number of elements compared."""
+    Philox mask on every live key (of the batch rows from ``first_row``
+    on). The call goes to the variant the rule picks (K2-TC in bf16 at the
+    encoder and BERT sites, the decode backward at the decoder's). Returns
+    the number of elements compared."""
     import torch
 
     from reftr_torch.kernels.attention import (flash_attn_bwd_dq,
@@ -608,10 +784,10 @@ def check_dq_mask_exact(site: str, rate: float, seed: int, dtype) -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     _, _, _, valid = site_inputs(gen, site, dtype)
-    sq, sk, h, d = CALL_SITES[site]
-    b = SERVE_BATCH
-    keep = philox_keep_plain(seed, b, h, sq, sk, rate, "cuda")
-    live_keys = torch.where(valid.any(-1, keepdim=True), valid, True)
+    b, sq, sk, h, d = site_shape(site)
+    keep = philox_keep_plain(seed, b, h, sq, sk, rate, "cuda", first_row)
+    live_keys = torch.where(valid.any(-1, keepdim=True), valid,
+                            True)[first_row:]
     q = torch.zeros(b, sq, h, d, device="cuda", dtype=dtype)
     o = torch.zeros_like(q)
     do = torch.zeros_like(q)
@@ -625,7 +801,7 @@ def check_dq_mask_exact(site: str, rate: float, seed: int, dtype) -> int:
         k = torch.zeros(b, sk, h, d, device="cuda", dtype=dtype)
         k[:, k0:k0 + n, :, :n] = torch.eye(n, device="cuda")[:, None, :]
         dq = flash_attn_bwd_dq(q, k, v, valid, o, lse, do, rate, seed)
-        kept = dq[..., :n].permute(0, 2, 1, 3) != 0  # [B, H, Sq, n]
+        kept = dq[first_row:, ..., :n].permute(0, 2, 1, 3) != 0
         live = live_keys[:, None, None, k0:k0 + n].expand_as(kept)
         if not torch.equal(kept[live], keep[..., k0:k0 + n][live]):
             raise AssertionError(f"{site}: K2's dropout mask differs from "
@@ -634,38 +810,40 @@ def check_dq_mask_exact(site: str, rate: float, seed: int, dtype) -> int:
     return compared
 
 
-def check_dv_mask_exact(site: str, rate: float, seed: int, dtype) -> int:
+def check_dv_mask_exact(site: str, rate: float, seed: int, dtype,
+                        first_row: int = 0) -> int:
     """K3 on inputs whose dv reveals each keep decision: q = 0 makes p
-    uniform over a row's valid keys (all keys of a fully masked row), and
-    dO one-hot over the head dim for D queries at a time, from query i0,
-    and zero for the others, gives dv_j[d] = p * keep(i0 + d, j). The kept
-    set must equal the plain Philox mask on every live key. The call goes
-    to the variant the rule picks (K3-TC in bf16 at the encoder and BERT
-    sites, the decode backward at the decoder's, SIMT in float32). Returns
+    uniform over a row's valid keys (all keys of a fully masked row), so
+    lse is the log of their count, and dO one-hot over the head dim for D
+    queries at a time, from query i0, and zero for the others, gives
+    dv_j[d] = p * keep(i0 + d, j). The kept set must equal the plain
+    Philox mask on every live key (of the batch rows from ``first_row``
+    on). The call goes to the variant the rule picks (K3-TC in bf16 at the
+    encoder and BERT sites, the decode backward at the decoder's). Returns
     the number of elements compared."""
     import torch
 
-    from reftr_torch.kernels.attention import (attention_plain,
-                                               flash_attn_bwd_dkv,
+    from reftr_torch.kernels.attention import (flash_attn_bwd_dkv,
                                                philox_keep_plain)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     _, k, v, valid = site_inputs(gen, site, dtype)
-    sq, sk, h, d = CALL_SITES[site]
-    b = SERVE_BATCH
-    keep = philox_keep_plain(seed, b, h, sq, sk, rate, "cuda")
+    b, sq, sk, h, d = site_shape(site)
+    keep = philox_keep_plain(seed, b, h, sq, sk, rate, "cuda", first_row)
     live_keys = torch.where(valid.any(-1, keepdim=True), valid, True)
     q = torch.zeros(b, sq, h, d, device="cuda", dtype=dtype)
     o = torch.zeros_like(q)
-    lse = attention_plain(q, k, v, valid, True)[1].contiguous()
+    lse = live_keys.sum(-1).float().log()[:, None, None].expand(
+        b, h, sq).contiguous()
+    live_keys = live_keys[first_row:]
     compared = 0
     for i0 in range(0, sq, d):
         n = min(d, sq - i0)
         do = torch.zeros_like(q)
         do[:, i0:i0 + n, :, :n] = torch.eye(n, device="cuda")[:, None, :]
         _, dv = flash_attn_bwd_dkv(q, k, v, valid, o, lse, do, rate, seed)
-        kept = dv[..., :n].permute(0, 2, 3, 1) != 0  # [B, H, n, Sk]
+        kept = dv[first_row:, ..., :n].permute(0, 2, 3, 1) != 0
         live = live_keys[:, None, None, :].expand_as(kept)
         if not torch.equal(kept[live], keep[:, :, i0:i0 + n][live]):
             raise AssertionError(f"{site}: K3's dropout mask differs from "
@@ -686,8 +864,13 @@ def max_err(got, want) -> float:
     return (got.float() - want.float()).abs().max().item()
 
 
-def check_training_kernels(report: dict) -> dict:
-    """Phase 3: K1 with dropout, K2 and K3 against their plain versions."""
+def check_training_kernels(report: dict, sites=tuple(CALL_SITES),
+                           key: str = "train_kernels",
+                           simt_before: bool = True) -> dict:
+    """Phase 3: K1 with dropout, K2 and K3 against their plain versions at
+    ``sites``, with the SIMT kernels beside the others (``simt_before``),
+    and the exact dropout masks; the rows go to report[key] (phase 8
+    checks its own sites so)."""
     import torch
 
     from reftr_torch.kernels.attention import (_launch_bwd_dec, _launch_dkv,
@@ -701,8 +884,8 @@ def check_training_kernels(report: dict) -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     rows = []
-    for site, (sq, sk, h, d) in CALL_SITES.items():
-        b = SERVE_BATCH
+    for site in sites:
+        b, sq, sk, h, d = site_shape(site)
         q32, k32, v32, valid = site_inputs(gen, site, torch.float32)
         do32 = torch.randn(b, sq, h, d, device="cuda", generator=gen)
         for name, dt in (("float32", torch.float32),
@@ -712,7 +895,13 @@ def check_training_kernels(report: dict) -> dict:
                 seed = 0x5EED_0000 + len(rows) if rate else None
                 drop = dict(dropout_rate=rate, seed=seed)
                 out, lse = flash_attention(q, k, v, valid, True, **drop)
-                want, want_lse = attention_plain(q, k, v, valid, True, **drop)
+                # the forward's reference in float32, as phase 2's: two
+                # roundings to bf16 of one value may part by an ulp
+                want, want_lse = attention_plain(q.float(), k.float(),
+                                                 v.float(), valid, True,
+                                                 **drop)
+                fwd_tol = kernel_tol(name, sk, want)
+                g_tol = grad_tol(name, max(sq, sk))
                 bwd = (q, k, v, valid, out, lse, do, rate, seed)
                 wants = attention_bwd_plain(*bwd)
                 dq = flash_attn_bwd_dq(*bwd)
@@ -736,18 +925,18 @@ def check_training_kernels(report: dict) -> dict:
                 scale = max(w.float().abs().max().item() for w in wants)
                 errs = [max_err(g, w) for g, w in zip((dq, dk, dv), wants)]
                 bad = (not math.isfinite(fwd_err)
-                       or fwd_err > KERNEL_TOL[name]
+                       or fwd_err > fwd_tol
                        or not lse_err <= lse_tol
                        or not all(math.isfinite(e) and
-                                  e <= GRAD_TOL[name] * scale for e in errs))
+                                  e <= g_tol * scale for e in errs))
                 row = {"site": site, "dtype": name, "dropout": rate,
                        "B": b, "Sq": sq, "Sk": sk, "H": h, "D": d,
                        "fwd_max_abs_err": fwd_err,
-                       "fwd_tol": KERNEL_TOL[name],
+                       "fwd_tol": fwd_tol,
                        "lse_max_abs_err": lse_err, "lse_tol": lse_tol,
                        "dq_max_abs_err": errs[0], "dk_max_abs_err": errs[1],
                        "dv_max_abs_err": errs[2], "grad_scale": scale,
-                       "grad_tol": GRAD_TOL[name] * scale,
+                       "grad_tol": g_tol * scale,
                        "fwd_variant": fwd_variant(sq, dt, d),
                        "dq_variant": dq_variant(sq, dt, d),
                        "dkv_variant": dkv_variant(sq, sk, dt, d),
@@ -764,24 +953,24 @@ def check_training_kernels(report: dict) -> dict:
                 # the same-run "before": the SIMT kernel of each kernel that
                 # the rule sends elsewhere at this site
                 simt = {}
-                if row["fwd_variant"] != "simt":
+                if simt_before and row["fwd_variant"] != "simt":
                     simt["fwd"] = lambda: _launch_fwd(
                         "simt", q, k, v, valid, rate, seed, False)
-                if row["dq_variant"] != "simt":
+                if simt_before and row["dq_variant"] != "simt":
                     simt["dq"] = lambda: _launch_dq("simt", *bwd)
-                if row["dkv_variant"] != "simt":
+                if simt_before and row["dkv_variant"] != "simt":
                     simt["dkv"] = lambda: _launch_dkv("simt", *bwd)
                 for what, fn in simt.items():
                     got = fn()
                     torch.cuda.synchronize()
                     if what == "fwd":
-                        err, tol = max_err(got[0], want), KERNEL_TOL[name]
+                        err, tol = max_err(got[0], want), fwd_tol
                     elif what == "dq":
                         err = max_err(got, wants[0])
-                        tol = GRAD_TOL[name] * scale
+                        tol = g_tol * scale
                     else:
                         err = max(max_err(g, w) for g, w in zip(got, wants[1:]))
-                        tol = GRAD_TOL[name] * scale
+                        tol = g_tol * scale
                     row[f"simt_{what}_max_abs_err"] = err
                     if not err <= tol:
                         raise AssertionError(f"phase 3 simt {what} {row}")
@@ -810,11 +999,11 @@ def check_training_kernels(report: dict) -> dict:
                     f"{fmt_ms(row['dq_device_ms'])}; K3 "
                     f"{row['dkv_variant']} {row['dkv_ms']:.4f}, "
                     f"{fmt_ms(row['dkv_device_ms'])}")
-                print(f"train kernels {site:16s} {name:8s} dropout {rate}: "
-                      f"fwd err {fwd_err:.3g} (tol {KERNEL_TOL[name]}), lse "
+                print(f"{key.replace('_', ' ')} {site:16s} {name:8s} dropout {rate}: "
+                      f"fwd err {fwd_err:.3g} (tol {fwd_tol:.3g}), lse "
                       f"err {lse_err:.3g} (tol {lse_tol:.3g}), dq/dk/dv err "
                       f"{errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g} (tol "
-                      f"{GRAD_TOL[name] * scale:.3g}); K1 "
+                      f"{g_tol * scale:.3g}); K1 "
                       f"{row['fwd_variant']} {row['fwd_ms']:.4f} ms host "
                       f"loop, {fmt_ms(row['fwd_device_ms'])} device; "
                       f"{bwd_times}"
@@ -831,18 +1020,19 @@ def check_training_kernels(report: dict) -> dict:
     dtypes = (("float32", torch.float32), ("bfloat16", torch.bfloat16))
     masks = {f"K1 {site} {name}": check_mask_exact(gen, site, DROPOUT,
                                                    0xC0FFEE, dt)
-             for site in CALL_SITES for name, dt in dtypes}
+             for site in sites for name, dt in dtypes}
     masks.update({f"K2 {site} {name}": check_dq_mask_exact(site, DROPOUT,
                                                            0xD0D0, dt)
-                  for site in CALL_SITES for name, dt in dtypes})
+                  for site in sites for name, dt in dtypes})
     masks.update({f"K3 {site} {name}": check_dv_mask_exact(site, DROPOUT,
                                                            0xDEC0, dt)
-                  for site in CALL_SITES for name, dt in dtypes})
-    print(f"train kernels: K1's, K2's and K3's dropout masks equal the "
+                  for site in sites for name, dt in dtypes})
+    print(f"{key.replace('_', ' ')}: K1's, K2's and K3's dropout masks equal the "
           f"plain Philox mask exactly on {sum(masks.values())} elements at "
           f"p > 0 ({masks})", flush=True)
-    report["train_kernels"] = rows
-    report["mask_elements_checked"] = masks
+    report[key] = rows
+    report["mask_elements_checked" if key == "train_kernels"
+           else f"{key}_mask_elements_checked"] = masks
     return report
 
 
@@ -1225,21 +1415,25 @@ def serve_requests(model, reqs, counters) -> tuple:
     return launches, n_batches, served_s
 
 
-def expected_launches(n: int, tc: str, backward: bool) -> dict:
+def expected_launches(n: int, tc: str, backward: bool,
+                      tc_per_forward=None, dec_per_forward=None) -> dict:
     """The counters (read_counts) after ``n`` forwards, or ``n`` train
-    steps (``backward``): ATTN_PER_FORWARD launches of K1 per forward, and
-    per step as many of K2 and K3; the decoder's DEC_PER_FORWARD of each
-    on the decode kernels, BERT's and the encoder's TC_PER_FORWARD on the
-    tensor-core variant ``tc``, "tc" (bf16) or "tf32x3" (float32). None
-    goes to SIMT or to the plain versions."""
+    steps (``backward``): ``tc_per_forward`` + ``dec_per_forward``
+    launches of K1 per forward, and per step as many of K2 and K3; the
+    decoder's single-query ones on the decode kernels (refcoco_det:
+    DEC_PER_FORWARD), the others on the tensor-core variant ``tc``, "tc"
+    (bf16) or "tf32x3" (float32) (refcoco_det: BERT's and the encoder's
+    TC_PER_FORWARD). None goes to SIMT or to the plain versions."""
+    if tc_per_forward is None:
+        tc_per_forward, dec_per_forward = TC_PER_FORWARD, DEC_PER_FORWARD
     per = {}
     for name in ("flash_attention", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
         live = name == "flash_attention" or backward
-        per[name] = {"": ATTN_PER_FORWARD if live else 0,
-                     "_tc": TC_PER_FORWARD if live and tc == "tc" else 0,
-                     "_tf32x3": (TC_PER_FORWARD if live and tc == "tf32x3"
+        per[name] = {"": tc_per_forward + dec_per_forward if live else 0,
+                     "_tc": tc_per_forward if live and tc == "tc" else 0,
+                     "_tf32x3": (tc_per_forward if live and tc == "tf32x3"
                                  else 0),
-                     "_dec": DEC_PER_FORWARD if live else 0, "_plain": 0}
+                     "_dec": dec_per_forward if live else 0, "_plain": 0}
     return {name + suffix: count * n for name, counts in per.items()
             for suffix, count in counts.items()}
 
@@ -1459,7 +1653,8 @@ def train_batch(rng: np.random.Generator, img: int, seq: int, vocab: int,
     return batch, targets
 
 
-def compare_train_paths(cfg, batch, targets, label: str = "train") -> dict:
+def compare_train_paths(cfg, batch, targets, label: str = "train",
+                        grad_tol: float = TRAIN_GRAD_TOL) -> dict:
     """One float32 step with dropout 0 from one set of seeded weights,
     through the kernels and through the plain attention: the loss and
     every trainable gradient, and for RES (``masks``) the forward's boxes
@@ -1513,14 +1708,14 @@ def compare_train_paths(cfg, batch, targets, label: str = "train") -> dict:
     print(f"{label}: f32 step, kernels vs plain attention: loss "
           f"{loss_k:.6f} vs {loss_p:.6f} (rel {loss_err:.3g}, tol "
           f"{TRAIN_LOSS_TOL}); worst gradient rel L2 {worst:.3g} at "
-          f"{worst_name} (tol {TRAIN_GRAD_TOL}) over {len(grads_p)} "
+          f"{worst_name} (tol {grad_tol}) over {len(grads_p)} "
           f"trainable tensors, {live} of them above the floor; global norm "
           f"{norm:.4g}", flush=True)
     if live < len(grads_p) // 2:
         raise AssertionError(f"only {live} of {len(grads_p)} gradients are "
                              f"above 1e-4 of the global norm: the check "
                              f"would compare nothing")
-    if not (loss_err <= TRAIN_LOSS_TOL and worst <= TRAIN_GRAD_TOL):
+    if not (loss_err <= TRAIN_LOSS_TOL and worst <= grad_tol):
         raise AssertionError(f"f32 kernel vs plain step: loss rel "
                              f"{loss_err:.3g}, gradient rel L2 {worst:.3g} "
                              f"at {worst_name}")
@@ -2248,6 +2443,396 @@ def train_res(report: dict, counters) -> dict:
     return report
 
 
+def multi_launches(steps: int, eval_batches: int, per_forward=None) -> dict:
+    """The counters after ``steps`` bf16 multi-phrase train steps and
+    ``eval_batches`` eval forwards: every attention on the bf16
+    tensor-core kernels, ``per_forward`` (MULTI_PER_FORWARD unless given)
+    of K1 a forward and of each of K1, K2 and K3 a step."""
+    per_forward = per_forward or MULTI_PER_FORWARD
+    train = expected_launches(steps, "tc", True, per_forward, 0)
+    evals = expected_launches(eval_batches, "tc", False, per_forward, 0)
+    return {k: train[k] + evals[k] for k in train}
+
+
+def check_cli_log(phase: str, out_dir: Path) -> dict:
+    """The one log line of a one-epoch run, every logged loss finite."""
+    with open(out_dir / "log.txt") as f:
+        log = [json.loads(line) for line in f]
+    if [e["epoch"] for e in log] != [0]:
+        raise AssertionError(f"{phase}: log.txt epochs "
+                             f"{[e['epoch'] for e in log]}, not [0]")
+    bad = {k: v for k, v in log[0].items()
+           if k.startswith(("train_loss", "test_val_loss"))
+           and not math.isfinite(v)}
+    if bad or "train_loss" not in log[0]:
+        raise AssertionError(f"{phase}: losses {log[0]}")
+    return log[0]
+
+
+def check_cli_runs(phase: str, runs: dict, wants: dict) -> dict:
+    """Exit codes 0 and the exact launches of each run; returns each run's
+    printed numbers (cli_report)."""
+    for name, run in runs.items():
+        if run["rc"] != 0:
+            raise AssertionError(f"{phase} {name}: exit code {run['rc']}")
+        if run["launches"] != wants[name]:
+            raise AssertionError(f"{phase} {name}: launches "
+                                 f"{run['launches']}, not {wants[name]}")
+    return {name: cli_report(run) for name, run in runs.items()}
+
+
+def print_cli_reports(tag: str, card: str, reports: dict) -> None:
+    for name, r in reports.items():
+        print(f"{tag} {name} ({card}): s per train step host to host "
+              f"{r['train_s_per_step']}, time:/data: {r['train']}; s per "
+              f"eval batch {r['eval_s_per_batch']}, time:/data: "
+              f"{r['eval']}; model built in {r['build_s']} s; checkpoints "
+              f"{r['checkpoints']}; {r['seconds']:.1f} s in all; peak "
+              f"device memory {r['peak_memory_gb']:.2f} GB", flush=True)
+
+
+def multi_cli(report: dict, counters) -> dict:
+    """Phase 8a: multi-phrase flickr at full width through the entry point
+    in bf16: one epoch of MULTI_STEPS steps and MULTI_EVAL_BATCHES eval
+    batches, then --eval --resume, whose accuracy must equal the log's;
+    42 launches of each kernel a step and of K1 an eval batch, all on
+    the bf16 tensor-core kernels. The checkpoints are deleted after."""
+    import shutil
+
+    shutil.rmtree(MULTI_OUT, ignore_errors=True)
+    try:
+        runs = {"train": run_cli(MULTI_TRAIN, counters),
+                "eval": run_cli(MULTI_EVAL, counters)}
+    finally:
+        for path in MULTI_OUT.glob("checkpoint*"):
+            path.unlink()
+    reports = check_cli_runs("phase 8a", runs, {
+        "train": multi_launches(MULTI_STEPS, MULTI_EVAL_BATCHES),
+        "eval": multi_launches(0, MULTI_EVAL_BATCHES)})
+    entry = check_cli_log("phase 8a", MULTI_OUT)
+    evals = [json.loads(m) for m in re.findall(
+        r"^\[val\] (\{.*\})$", runs["eval"]["out"], re.M)]
+    if len(evals) != 1:
+        raise AssertionError(f"phase 8a: {len(evals)} eval lines")
+    got = evals[0]
+    miou_err = abs(got["miou"] - entry["test_val_miou"])
+    if (got["accuracy_iou0.5"] != entry["test_val_accuracy_iou0.5"]
+            or not miou_err <= CLI_MIOU_TOL):
+        raise AssertionError(f"phase 8a: eval-only {got} against the log "
+                             f"{entry}")
+    with open(MULTI_OUT / "synthetic_multi_val_result.json") as f:
+        boxes = json.load(f)
+    if len(boxes) != 64 or any(len(b) != 2 for b in boxes.values()):
+        raise AssertionError("phase 8a: the result file does not hold two "
+                             "boxes for each of the 64 eval items")
+    print_cli_reports("multi", report["card"], reports)
+    print(f"multi: log {entry}; eval-only accuracy {got['accuracy_iou0.5']},"
+          f" miou {got['miou']} (|err| {miou_err:.2e}); launches "
+          f"{ {n: r['launches'] for n, r in runs.items()} }", flush=True)
+    report["multi"] = {
+        "argv_train": MULTI_TRAIN, "argv_eval": MULTI_EVAL, "log": entry,
+        "eval_only": got, "eval_only_miou_err": miou_err,
+        "launches": {n: r["launches"] for n, r in runs.items()},
+        "runs": reports}
+    return report
+
+
+def multi_batch(cfg, n: int, img: int):
+    """``n`` items of the multi-phrase fixture at the config's widths and
+    ``img`` px, collated into numpy batch dicts."""
+    import tempfile
+
+    from reftr_torch.data.datasets import (SyntheticMultiPhraseDataset,
+                                           write_synthetic_vocab)
+    from reftr_torch.data.loader import collate
+    from reftr_torch.data.native import WordPieceTokenizer
+
+    d = cfg.data
+    with tempfile.TemporaryDirectory() as tmp:
+        tok = WordPieceTokenizer(write_synthetic_vocab(f"{tmp}/vocab.txt"))
+    ds = SyntheticMultiPhraseDataset(
+        tok, n=n, img_size=img, max_sentence_len=d.max_sentence_len,
+        phrase_seq_len=d.phrase_seq_len, max_num_phrases=d.max_num_phrases)
+    return collate([ds[i] for i in range(n)])
+
+
+def multi_sites(report: dict) -> dict:
+    """Phase 8b: K1, K2 and K3 against their plain versions at the call
+    sites multi-phrase adds (NEW_SITES: BERT over the phrases, the decoder
+    at 16 queries, the encoder over 490 tokens) with their masks, in both
+    dtypes, without dropout and with 0.1, and the dropout masks exact
+    (phase 3's checks and tolerances; no SIMT "before"); then 8c, one
+    float32 multi-phrase step through the kernels and through the plain
+    attention at phase 5's rule (gradients at MULTI_TRAIN_GRAD_TOL), and
+    one profiled bf16 step (report only)."""
+    from reftr_torch.cli.presets import preset_config
+
+    check_training_kernels(report, MULTI_SITES, "multi_kernels",
+                           simt_before=False)
+    cfg = preset_config("flickr", dtype="float32")
+    batch, targets = multi_batch(cfg, cfg.data.batch_size, cfg.data.img_size)
+    report["multi"]["f32_kernel_vs_plain"] = compare_train_paths(
+        cfg, batch, targets, label="multi", grad_tol=MULTI_TRAIN_GRAD_TOL)
+    report["multi"]["profile"] = profile_train_step(
+        cfg, batch, targets, f"multi: bf16 batch {cfg.data.batch_size} "
+                             f"multi-phrase train step")
+    return report
+
+
+def long_encoder_times(report: dict) -> list:
+    """Phase 8d: the times of K1, K2 and K3 at the four-level encoder at
+    B=8 (vl_encoder_4_levels_b8), in both dtypes, without dropout and with
+    0.1, against SDPA and the bound; no plain version (its [B, H, S, S]
+    scores would hold 18.7 GB in float32). The kernels are timed by CUDA
+    events around back-to-back calls (cuda_ms): at 5-30 ms a call the
+    host's time between launches is hidden, and torch.profiler recorded
+    no device activity in most windows of these calls on the H100."""
+    import torch
+
+    from reftr_torch.kernels.attention import (dkv_variant, dq_variant,
+                                               flash_attention,
+                                               flash_attn_bwd_dkv,
+                                               flash_attn_bwd_dq, fwd_variant)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    site = "vl_encoder_4_levels_b8"
+    b, sq, sk, h, d = site_shape(site)
+    rows = []
+    for name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        q, k, v, valid = site_inputs(gen, site, dt)
+        do = torch.randn(q.shape, device="cuda", generator=gen).to(dt)
+        for rate in (0.0, DROPOUT):
+            seed = 0x8540 if rate else None
+            drop = dict(dropout_rate=rate, seed=seed)
+            out, lse = flash_attention(q, k, v, valid, True, **drop)
+            bwd = (q, k, v, valid, out, lse, do, rate, seed)
+            dq = flash_attn_bwd_dq(*bwd)
+            dk, dv = flash_attn_bwd_dkv(*bwd)
+            torch.cuda.synchronize()
+            if not all(bool(torch.isfinite(x).all())
+                       for x in (out, lse, dq, dk, dv)):
+                raise AssertionError(f"phase 8d {site} {name} {rate}: "
+                                     f"not finite")
+            row = {"site": site, "dtype": name, "dropout": rate, "B": b,
+                   "Sq": sq, "Sk": sk, "H": h, "D": d,
+                   "fwd_variant": fwd_variant(sq, dt, d),
+                   "dq_variant": dq_variant(sq, dt, d),
+                   "dkv_variant": dkv_variant(sq, sk, dt, d)}
+            for what, fn in (
+                    ("fwd", lambda: flash_attention(q, k, v, valid, **drop)),
+                    ("dq", lambda: flash_attn_bwd_dq(*bwd)),
+                    ("dkv", lambda: flash_attn_bwd_dkv(*bwd))):
+                row[f"{what}_ms"] = cuda_ms(fn, iters=10, warmup=2)
+            row.update(sdpa_times(q, k, v, valid, do, rate))
+            for kern in ("flash_attn_fwd", "flash_attn_bwd_dq",
+                         "flash_attn_bwd_dkv"):
+                row[f"{kern}_bound_ms"], row[f"{kern}_bound_by"] = \
+                    attention_bound_ms(b, sq, sk, h, d, valid, name, kern)
+            rows.append(row)
+            print(f"levels kernels {site} {name} dropout {rate}: K1 "
+                  f"{row['fwd_variant']} {row['fwd_ms']:.4f}, K2 "
+                  f"{row['dq_variant']} {row['dq_ms']:.4f}, K3 "
+                  f"{row['dkv_variant']} {row['dkv_ms']:.4f} ms (events, "
+                  f"back to back); sdpa fwd "
+                  f"{fmt_ms(row['sdpa_fwd_device_ms'])}, bwd "
+                  f"{fmt_ms(row['sdpa_bwd_device_ms'])} ms device; bounds "
+                  f"{row['flash_attn_fwd_bound_ms']:.4f} "
+                  f"({row['flash_attn_fwd_bound_by']})/"
+                  f"{row['flash_attn_bwd_dq_bound_ms']:.4f}/"
+                  f"{row['flash_attn_bwd_dkv_bound_ms']:.4f} ms", flush=True)
+            del out, lse, dq, dk, dv
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    return rows
+
+
+def profile_train_step(cfg, batch, targets, what: str) -> dict:
+    """Report only: one bf16 train step of ``cfg`` on one batch after a
+    warm-up, host to host (each step waiting for its metrics), its peak
+    device memory and its device time by kernel category with the
+    attention kernels' share."""
+    import torch
+
+    from reftr_torch.models.criterion import weight_dict
+    from reftr_torch.train.state import TrainState
+    from reftr_torch.train.steps import make_train_step
+
+    mc = dataclasses.replace(cfg.model, dtype="bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    state = TrainState.create(mc, cfg.train, 10, seed=0)
+    step = make_train_step(state.model, weight_dict(
+        cfg.loss, mc.dec_layers, mc.aux_loss), cfg.loss)
+    stamps = []
+    for _ in range(WARM_STEPS + 4):
+        state, metrics = step(state, batch, targets)
+        metrics.get()
+        stamps.append(time.perf_counter())
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps[WARM_STEPS - 1:-1],
+                                              stamps[WARM_STEPS:])]
+    med = statistics.median(step_ms)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    profile = profile_device(lambda: step(state, batch, targets), what, med,
+                             iters=3)
+    attn = attention_ms(profile)
+    share = None if attn is None else attn / profile["device_ms"]
+    print(f"{what}: median {med:.2f} ms (steps {ms_list(step_ms)} ms, each "
+          f"waiting for its metrics); peak device memory {peak_gb:.2f} GB; "
+          f"attention {fmt_ms(attn)} ms device, share "
+          f"{'not measured' if share is None else f'{share:.3f}'}",
+          flush=True)
+    del state, step
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "median_step_ms": med,
+            "peak_memory_gb": peak_gb, "profile": profile,
+            "attention_device_ms": attn, "attention_share": share}
+
+
+def train_levels(report: dict, counters) -> dict:
+    """Phase 8d: refcoco_det at four feature levels (the encoder over
+    8540 tokens): the bf16 CLI run (LEVELS_STEPS steps, LEVELS_EVAL_BATCHES
+    eval batches; 30 launches of each kernel a step and of K1 an eval
+    batch, 18 on the bf16 tensor-core kernels, 12 on the decode kernels),
+    a profiled step, K1, K2 and K3 against their plain versions at the
+    encoder at B=1 with the masks exact, the masks exact past an element
+    offset of 2^32 (the last batch row at B=8), and the B=8 times."""
+    import shutil
+
+    import torch
+
+    from reftr_torch.cli.presets import preset_config
+
+    shutil.rmtree(LEVELS_OUT, ignore_errors=True)
+    try:
+        runs = {"train": run_cli(LEVELS_TRAIN, counters)}
+    finally:
+        for path in LEVELS_OUT.glob("checkpoint*"):
+            path.unlink()
+    steps = expected_launches(LEVELS_STEPS, "tc", True)
+    evals = expected_launches(LEVELS_EVAL_BATCHES, "tc", False)
+    reports = check_cli_runs("phase 8d", runs, {
+        "train": {k: steps[k] + evals[k] for k in steps}})
+    entry = check_cli_log("phase 8d", LEVELS_OUT)
+    print_cli_reports("levels", report["card"], reports)
+    print(f"levels: log {entry}; launches {runs['train']['launches']}",
+          flush=True)
+    torch.cuda.empty_cache()
+    cfg = preset_config("refcoco_det", num_feature_levels=4)
+    batch, targets = train_batch(np.random.default_rng(8), cfg.data.img_size,
+                                 cfg.data.max_query_len,
+                                 cfg.model.bert.vocab_size, SERVE_BATCH)
+    report["levels"] = {
+        "argv_train": LEVELS_TRAIN, "log": entry,
+        "launches": {"train": runs["train"]["launches"]}, "runs": reports,
+        "profile": profile_train_step(
+            cfg, batch, targets, f"levels: bf16 batch {SERVE_BATCH} train "
+                                 f"step at 4 feature levels")}
+    check_training_kernels(report, ("vl_encoder_4_levels",), "levels_kernels",
+                           simt_before=False)
+    torch.cuda.empty_cache()
+    site = "vl_encoder_4_levels_b8"
+    b, sq, sk, h, _ = site_shape(site)
+    first = b - 1
+    if not (first * h * sq * sk < OFFSET_32 < b * h * sq * sk):
+        raise AssertionError(f"{site}: the last batch row does not cross "
+                             f"an offset of 2^32")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0x232)
+    past = {"K1": check_mask_exact(gen, site, DROPOUT, 0x2_0000_0001,
+                                   torch.bfloat16, first),
+            "K2": check_dq_mask_exact(site, DROPOUT, 0x2_0000_0002,
+                                      torch.bfloat16, first),
+            "K3": check_dv_mask_exact(site, DROPOUT, 0x2_0000_0003,
+                                      torch.bfloat16, first)}
+    print(f"levels kernels: K1's, K2's and K3's bf16 dropout masks equal the "
+          f"plain Philox mask exactly in batch row {first} of {b} at "
+          f"{site}, element offsets {first * h * sq * sk} to "
+          f"{b * h * sq * sk - 1} (past {OFFSET_32}): {past} elements",
+          flush=True)
+    torch.cuda.empty_cache()
+    report["levels"]["mask_past_2_32"] = {
+        "first_row": first, "first_offset": first * h * sq * sk,
+        "last_offset": b * h * sq * sk - 1, "compared": past}
+    report["levels"]["b8_times"] = long_encoder_times(report)
+    return report
+
+
+def bytes_to_unicode() -> dict:
+    """GPT-2's byte -> symbol table of byte-level BPE: printable bytes map
+    to themselves, the others to code points from 256 on."""
+    bs = (list(range(ord("!"), ord("~") + 1))
+          + list(range(ord("¡"), ord("¬") + 1))
+          + list(range(ord("®"), ord("ÿ") + 1)))
+    cs = list(bs)
+    n = 0
+    for byte in range(256):
+        if byte not in bs:
+            bs.append(byte)
+            cs.append(256 + n)
+            n += 1
+    return {b: chr(c) for b, c in zip(bs, cs)}
+
+
+def train_roberta(report: dict, counters) -> dict:
+    """Phase 8e: flickr_roberta (RoBERTa-base's widths: vocabulary 50265,
+    514 positions, pad id 1) on the multi-phrase fixture through the
+    entry point in bf16, over a byte-level vocabulary written here (the
+    256 byte symbols after <s> <pad> </s> <unk>, no merges): ROBERTA_STEPS
+    steps and ROBERTA_EVAL_BATCHES eval batches, 42 launches of each
+    kernel a step and of K1 an eval batch, every loss finite."""
+    import shutil
+
+    from reftr_torch.cli.presets import preset_config
+    from reftr_torch.data.native import ByteLevelBPETokenizer
+
+    shutil.rmtree(ROBERTA_OUT, ignore_errors=True)
+    vocab_dir = ROBERTA_OUT / "data" / "roberta-base"
+    vocab_dir.mkdir(parents=True)
+    symbols = ["<s>", "<pad>", "</s>", "<unk>"] + sorted(
+        set(bytes_to_unicode().values()))
+    (vocab_dir / "vocab.json").write_text(json.dumps(
+        {tok: i for i, tok in enumerate(symbols)}))
+    (vocab_dir / "merges.txt").write_text("#version: 0.2\n")
+    tok = ByteLevelBPETokenizer(str(vocab_dir / "vocab.json"),
+                                str(vocab_dir / "merges.txt"))
+    bert = preset_config("flickr_roberta").model.bert
+    if not (tok.pad_id == bert.pad_token_id == 1 and bert.is_roberta
+            and (bert.vocab_size, bert.max_position_embeddings)
+            == (50265, 514)):
+        raise AssertionError(f"phase 8e: pad id {tok.pad_id}, {bert}")
+    try:
+        runs = {"train": run_cli(ROBERTA_TRAIN, counters)}
+    finally:
+        for path in ROBERTA_OUT.glob("checkpoint*"):
+            path.unlink()
+    reports = check_cli_runs("phase 8e", runs, {"train": multi_launches(
+        ROBERTA_STEPS, ROBERTA_EVAL_BATCHES, ROBERTA_PER_FORWARD)})
+    entry = check_cli_log("phase 8e", ROBERTA_OUT)
+    print_cli_reports("roberta", report["card"], reports)
+    print(f"roberta: pad id {tok.pad_id}, vocabulary {bert.vocab_size}, "
+          f"{bert.max_position_embeddings} positions; log {entry}; launches "
+          f"{runs['train']['launches']}", flush=True)
+    report["roberta"] = {"argv_train": ROBERTA_TRAIN, "log": entry,
+                         "pad_id": tok.pad_id,
+                         "launches": {"train": runs["train"]["launches"]},
+                         "runs": reports}
+    return report
+
+
+def phase8(report: dict, counters) -> dict:
+    """Phase 8: multi-phrase, four feature levels and RoBERTa."""
+    import torch
+
+    multi_cli(report, counters)
+    torch.cuda.empty_cache()
+    multi_sites(report)
+    torch.cuda.empty_cache()
+    train_levels(report, counters)
+    torch.cuda.empty_cache()
+    train_roberta(report, counters)
+    return report
+
+
 def kernel_line(report: dict) -> list:
     """Every variant of each kernel at the call site and dtype where the
     main path launches it (MAIN_SITE, MAIN_DTYPE; bfloat16 but for the
@@ -2259,10 +2844,12 @@ def kernel_line(report: dict) -> list:
     SIMT kernel's device time at its site beside it (the same-run
     "before"). ``launches`` counts the main path's runs: both serving runs
     (bf16 and float32), both training runs (the bf16 steps and the
-    float32 steps), the trainer's entry point (phase 6's three runs) and
-    RES (phase 7's fine-tune, eval-only pass, freeze_reftr steps and
-    serving), split in ``launches_serve``, ``launches_train``,
-    ``launches_cli`` and ``launches_res``.
+    float32 steps), the trainer's entry point (phase 6's three runs), RES
+    (phase 7's fine-tune, eval-only pass, freeze_reftr steps and
+    serving) and phase 8's runs of the entry point (multi-phrase and its
+    eval-only pass, four feature levels, RoBERTa), split in
+    ``launches_serve``, ``launches_train``, ``launches_cli``,
+    ``launches_res`` and ``launches_multi``.
     The decode backward has one row for K2 and K3, whose launches it is
     counted in. Every site's numbers are in the JSON report written before
     it."""
@@ -2280,6 +2867,7 @@ def kernel_line(report: dict) -> list:
     res_runs = [*res["launches"].values(), res["freeze"]["launches"],
                 *(v["launches"] for v in res["serve"].values())]
     res_n = {k: sum(n[k] for n in res_runs) for k in train_n}
+    multi_n = phase8_launches(report)
     shorts = {"flash_attn_fwd": "fwd", "flash_attn_bwd_dq": "dq",
               "flash_attn_bwd_dkv": "dkv"}
     grads_of = {"fwd": ("fwd",), "dq": ("dq",), "dkv": ("dk", "dv")}
@@ -2287,7 +2875,8 @@ def kernel_line(report: dict) -> list:
     for name, (source, replaces, variant) in KERNELS.items():
         if name == "flash_attn_bwd_dec":
             out.append(bwd_dec_entry(report, name, source, replaces,
-                                     train_n, serve_n, cli_n, res_n))
+                                     train_n, serve_n, cli_n, res_n,
+                                     multi_n))
             continue
         base = name
         for suffix in ("_f32tc", "_tc", "_dec"):
@@ -2329,12 +2918,14 @@ def kernel_line(report: dict) -> list:
                  "source": f"reftr_torch/kernels/csrc/{source}",
                  "replaces": replaces,
                  "launches": (count(train_n) + count(serve_n)
-                              + count(cli_n) + count(res_n)),
+                              + count(cli_n) + count(res_n)
+                              + count(multi_n)),
                  "launches_train": count(train_n),
                  "launches_train_f32": count(report["train_f32"]["launches"]),
                  "launches_serve": count(serve_n),
                  "launches_cli": count(cli_n),
                  "launches_res": count(res_n),
+                 "launches_multi": count(multi_n),
                  "max_abs_err": max(e for e, _ in errs), "site": site}
         if short == "fwd":
             sv = next(r for r in sites
@@ -2387,9 +2978,17 @@ def kernel_line(report: dict) -> list:
     return out
 
 
+def phase8_launches(report: dict) -> dict:
+    """The launches of phase 8's runs of the entry point, summed."""
+    runs = [*report["multi"]["launches"].values(),
+            report["levels"]["launches"]["train"],
+            report["roberta"]["launches"]["train"]]
+    return {k: sum(n[k] for n in runs) for k in runs[0]}
+
+
 def bwd_dec_entry(report: dict, name: str, source: str, replaces: str,
                   train_n: dict, serve_n: dict, cli_n: dict,
-                  res_n: dict) -> dict:
+                  res_n: dict, multi_n: dict) -> dict:
     """The kernels line's row of the decode backward, which replaces K2 and
     K3 below 16 queries: its launches (each counted on K2 and on K3, so
     K2's count), its errors over every call of phase 3 that the rule sent
@@ -2407,12 +3006,14 @@ def bwd_dec_entry(report: dict, name: str, source: str, replaces: str,
         "name": name, "route": "cuda", "variant": "dec",
         "source": f"reftr_torch/kernels/csrc/{source}",
         "replaces": replaces, "also_replaces": BWD_DEC_ALSO,
-        "launches": train_n[key] + serve_n[key] + cli_n[key] + res_n[key],
+        "launches": (train_n[key] + serve_n[key] + cli_n[key] + res_n[key]
+                     + multi_n[key]),
         "launches_train": train_n[key],
         "launches_train_f32": report["train_f32"]["launches"][key],
         "launches_serve": serve_n[key],
         "launches_cli": cli_n[key],
         "launches_res": res_n[key],
+        "launches_multi": multi_n[key],
         "max_abs_err": max(e for e, _ in errs),
         "max_rel_err": max(e / s for e, s in errs),
         "site": "decoder_cross",
@@ -2488,6 +3089,8 @@ def main() -> int:
     train_cli(report, counters)
     torch.cuda.empty_cache()
     train_res(report, counters)
+    torch.cuda.empty_cache()
+    phase8(report, counters)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

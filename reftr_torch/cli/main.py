@@ -6,8 +6,11 @@ main_vg.py:26-164), plus ``--device``, "cuda" unless "cpu" is asked for:
   python -m reftr_torch.cli.main --preset refcoco_det --dataset synthetic \\
       --test_split val --dtype float32 --output_dir exps/smoke
   python -m reftr_torch.cli.main --preset synthetic_smoke --device cpu
+  python -m reftr_torch.cli.main --preset flickr --dataset synthetic_multi \
+      --test_split val --output_dir exps/multi
 
-Every flag parses as in the JAX package. A flag of a feature the port does
+Every flag parses as in the JAX package; ``--dataset synthetic_multi`` is
+the port's own (``data/build.py``). A flag of a feature the port does
 not have yet raises NotImplementedError, naming its ROADMAP.md item, when
 it is given anything but its default (``NOT_PORTED``); none is ignored.
 """
@@ -23,9 +26,6 @@ from reftr_torch.core.config import BertConfig, RefTRConfig
 _ITEM = "ROADMAP.md queue 1 item"
 # dest -> what it needs, for the flags of features not ported yet
 NOT_PORTED = {
-    "set_cost_class": f"the matcher ({_ITEM} 4)",
-    "set_cost_bbox": f"the matcher ({_ITEM} 4)",
-    "set_cost_giou": f"the matcher ({_ITEM} 4)",
     "mesh_data": f"multi-GPU ({_ITEM} 6)",
     "mesh_model": f"multi-GPU ({_ITEM} 6)",
     "mesh_model_spans_processes": f"multi-GPU ({_ITEM} 6)",
@@ -197,22 +197,10 @@ def refuse_not_ported(args: argparse.Namespace) -> None:
         if value != getattr(defaults, dest):
             raise NotImplementedError(
                 f"--{dest} {value}: {what} is not ported yet")
-    checks = (
-        (args.num_feature_levels != 1,
-         f"more than one feature level ({_ITEM} 4); every preset sets 1"),
-        (args.dataset == "flickr30k",
-         f"multi-phrase flickr30k ({_ITEM} 4)"),
-        (args.bert_model.split("-")[0] == "roberta",
-         f"RoBERTa ({_ITEM} 4)"),
-        (args.reftr_type != "transformer_single_phrase",
-         "reftr_types but transformer_single_phrase"),
-        (args.no_decoder,
-         "--no_decoder (the JAX package refuses it too: the reference has "
-         "no forward without the decoder)"),
-    )
-    for bad, what in checks:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported")
+    if args.no_decoder:
+        raise NotImplementedError(
+            "--no_decoder (the JAX package refuses it too: the reference has "
+            "no forward without the decoder) is not ported")
 
 
 def args_to_config(args: argparse.Namespace) -> RefTRConfig:
@@ -222,6 +210,7 @@ def args_to_config(args: argparse.Namespace) -> RefTRConfig:
     cfg = RefTRConfig()
     m, t, d, loss = cfg.model, cfg.train, cfg.data, cfg.loss
     # model
+    m.reftr_type = args.reftr_type
     m.backbone = args.backbone
     m.dilation = args.dilation
     m.position_embedding = args.position_embedding
@@ -239,8 +228,12 @@ def args_to_config(args: argparse.Namespace) -> RefTRConfig:
     m.ablation = args.ablation
     m.freeze_bert = args.freeze_bert
     m.bert_model = args.bert_model
+    roberta = args.bert_model.split("-")[0] == "roberta"
     if args.bert_size == "tiny":
         m.bert = BertConfig.tiny()
+    elif roberta:
+        m.bert = BertConfig.roberta_base()
+    m.bert.is_roberta = roberta
     m.max_lang_seq = args.max_lang_seq
     m.num_queries_per_phrase = args.num_queries_per_phrase
     m.aux_loss = args.aux_loss
@@ -252,6 +245,9 @@ def args_to_config(args: argparse.Namespace) -> RefTRConfig:
     loss.mask_loss_coef = args.mask_loss_coef
     loss.dice_loss_coef = args.dice_loss_coef
     loss.focal_alpha = args.focal_alpha
+    loss.set_cost_class = args.set_cost_class
+    loss.set_cost_bbox = args.set_cost_bbox
+    loss.set_cost_giou = args.set_cost_giou
     # data
     d.dataset = args.dataset
     d.train_split = args.train_split
@@ -264,7 +260,9 @@ def args_to_config(args: argparse.Namespace) -> RefTRConfig:
     d.cache_mode = args.cache_mode
     d.synthetic_box_frac = tuple(args.synthetic_box_frac)
     d.synthetic_n = args.synthetic_n
-    d.multi_phrase = args.dataset == "flickr30k"
+    # synthetic_multi: the port's name of the JAX package's multi-phrase
+    # fixture (data/build.py)
+    d.multi_phrase = args.dataset in ("flickr30k", "synthetic_multi")
     # train
     t.lr = args.lr
     t.lr_backbone = args.lr_backbone

@@ -1,8 +1,8 @@
 """Weights for the port: the bridge from a Flax param tree, and a seeded init.
 
 ``from_flax`` maps each leaf of a reftr_tpu RefTR or RefTRSeg param tree
-(numpy arrays)
-onto the port's parameters and buffers. Module paths map one to one, with
+(numpy arrays), of any feature levels and of BERT or RoBERTa, onto the
+port's parameters and buffers. Module paths map one to one, with
 a trailing ``_<n>`` index becoming a ``.<n>`` child (``layer1_0`` ->
 ``layer1.0``, ``layers_2`` -> ``layers.2``), and leaves map as:
 
@@ -18,10 +18,11 @@ unfilled.
 
 ``init_params`` fills a model from a ``torch.Generator`` the way the JAX
 package's initialisers do: xavier-uniform for the transformer, heads and
-projections, normal(0.02) for BERT's embeddings and dense layers,
-lecun-normal for the backbone convolutions, normal(1.0) for
-``level_embed``, a zero final layer of ``bbox_embed``, and torch's
-kaiming-uniform (a=1) with zero bias for the mask head's convolutions.
+projections (the extra levels' 3x3 ones too), normal(0.02) for BERT's
+embeddings and dense layers, lecun-normal for the backbone convolutions,
+normal(1.0) for ``level_embed``, a zero final layer of ``bbox_embed``,
+and torch's kaiming-uniform (a=1) with zero bias for the mask head's
+convolutions.
 
 ``build_model`` makes the model of a config on its device with either:
 RefTRSeg with ``masks``, else RefTR (reftr_tpu/models/build.py:55-64). It
@@ -83,7 +84,11 @@ def flax_leaf_to_torch(path: Tuple[str, ...], leaf: np.ndarray
 
 def model_class(cfg: ModelConfig) -> type:
     """RefTRSeg with ``masks``, else RefTR, after the JAX factory's checks
-    of the heads (reftr_tpu/models/build.py:20-64)."""
+    of the type and the heads (reftr_tpu/models/build.py:18-64): any
+    reftr_type that starts with "transformer" builds them."""
+    if not cfg.reftr_type.startswith("transformer"):
+        raise NotImplementedError(
+            f"reftr_type {cfg.reftr_type!r} is not implemented")
     if cfg.heatmap_box:
         if not cfg.vision_aux:
             raise ValueError("heatmap_box decodes the vision_aux heatmap; "

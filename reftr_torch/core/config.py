@@ -5,10 +5,9 @@ A copy of the matching fields of reftr_tpu/core/config.py (``BertConfig``
 :24-67, ``ModelConfig`` :70-176, ``LossConfig`` :232-249, ``DataConfig``
 :251-287, ``TrainConfig`` :302-343), kept here because the port imports
 nothing of reftr_tpu. Options of the JAX package that the port does not run
-yet (multi-phrase, the from-scratch flags, the TPU reparameterisations and
-int8, the mesh) are left out rather than accepted and ignored; the CLI
-refuses them (``cli/main.py``), and they come back with the slice that
-runs them.
+yet (the from-scratch flags, the TPU reparameterisations and int8, the
+mesh) are left out rather than accepted and ignored; the CLI refuses them
+(``cli/main.py``), and they come back with the slice that runs them.
 """
 
 from __future__ import annotations
@@ -32,6 +31,15 @@ class BertConfig:
     attention_dropout: float = 0.1
     layer_norm_eps: float = 1e-12
     pad_token_id: int = 0
+    # RoBERTa: position ids count the real tokens from pad_token_id + 1
+    is_roberta: bool = False
+
+    @classmethod
+    def roberta_base(cls) -> "BertConfig":
+        """roberta-base: the byte-level BPE vocabulary, pad id 1, the
+        offset position table and LayerNorm eps 1e-5."""
+        return cls(vocab_size=50265, max_position_embeddings=514,
+                   pad_token_id=1, layer_norm_eps=1e-5, is_roberta=True)
 
     @classmethod
     def tiny(cls) -> "BertConfig":
@@ -43,8 +51,12 @@ class BertConfig:
 
 @dataclass
 class ModelConfig:
-    """RefTR architecture: single-phrase REC, and RES with ``masks``."""
+    """RefTR architecture: REC over one or many phrases per sentence, and
+    RES with ``masks``."""
 
+    # any value that starts with "transformer" builds RefTR (RefTRSeg with
+    # masks); the factory refuses anything else (convert.model_class)
+    reftr_type: str = "transformer_single_phrase"
     backbone: str = "resnet50"  # resnet50 | resnet101
     dilation: bool = False  # DC5: dilate the last stage instead of striding
     position_embedding: str = "sine"  # sine | learned
@@ -89,8 +101,8 @@ class ModelConfig:
 @dataclass
 class LossConfig:
     """Loss coefficients (main_vg.py:119-134); the focal terms are RES's
-    mask loss. The matcher's costs are not here: with one query per
-    phrase the criterion is matcher-free."""
+    mask loss. The matcher's costs (``models/matcher.py``) are kept for
+    capability: with one query per phrase the criterion is matcher-free."""
 
     bbox_loss_coef: float = 1.0
     giou_loss_coef: float = 1.0
@@ -99,6 +111,9 @@ class LossConfig:
     cem_loss_coef: float = 1.0
     focal_alpha: float = 0.25
     focal_gamma: float = 2.0
+    set_cost_class: float = 1.0
+    set_cost_bbox: float = 5.0
+    set_cost_giou: float = 2.0
 
 
 @dataclass
@@ -143,7 +158,9 @@ class DataConfig:
 
     Images land on a fixed ``max_img_size`` canvas with a validity mask
     (their short side resized to ``img_size``, the long side capped at
-    ``max_img_size``), sentences pad to ``max_query_len``. A server reads
+    ``max_img_size``), sentences pad to ``max_query_len`` (single phrase)
+    or ``max_sentence_len`` (multi-phrase), whose phrases pad to
+    ``max_num_phrases`` slots of ``phrase_seq_len`` tokens. A server reads
     ``img_size`` as its canvas."""
 
     dataset: str = "refcoco_unc"
@@ -153,6 +170,9 @@ class DataConfig:
     img_size: int = 640
     max_img_size: int = 640
     max_query_len: int = 40
+    max_sentence_len: int = 90
+    max_num_phrases: int = 16
+    phrase_seq_len: int = 22
     multi_phrase: bool = False
     batch_size: int = 8
     num_workers: int = 2

@@ -1,21 +1,27 @@
-"""Grounding datasets of the single-phrase REC and RES paths (port of
-reftr_tpu/data/datasets.py:27-172, 310-482).
+"""Grounding datasets (port of reftr_tpu/data/datasets.py:27-544).
 
   * ReferDatasetResc: single-phrase REC over resc-format annotations
     (resc_refer_dataset.py of the reference RefTR): refcoco/+/g (boxes
     xywh -> xyxy), referit, flickr single-phrase, visual genome.
+  * FlickrMultiPhraseDataset: Flickr30k Entities, one sentence and up to
+    ``max_num_phrases`` phrases (refer_dataset.py:53-211): the sentence and
+    each phrase tokenised alone, each phrase's token span in the sentence
+    from its characters, empty phrase slots padded.
   * ReferSegDataset: REC + RES over refcoco's segmentation annotations,
     each mask a .npy file under ``mask_dir`` (refer_dataset.py:213-318).
   * SyntheticGroundingDataset: an in-memory fixture (no files) of coloured
     rectangles and template phrases, made from the item's index; with
     ``with_masks`` each mask is its box's rectangle.
+  * SyntheticMultiPhraseDataset: the multi-phrase fixture, one sentence
+    naming two rectangles, each phrase grounded to its own box.
 
 Every item is a pair of numpy dicts of static shapes, ready to stack:
 image [S, S, 3] uint8, image_valid [S, S] bool, sentence and
-sentence_valid [L] int32; boxes [1, 4] normalised cxcywh, box_valid [1],
-orig_size [2], size [2], image_id; with masks, masks [S, S] float32 {0, 1}
-and mask_valid (a bool scalar). The multi-phrase dataset comes with a
-later slice (ROADMAP.md queue 1 item 4).
+sentence_valid [L] int32; boxes [P, 4] normalised cxcywh, box_valid [P]
+(P = 1 for one phrase), orig_size [2], size [2], image_id (but the
+multi-phrase fixture's); multi-phrase adds phrases and phrase_valid
+[P, Sp] int32 and phrase_pos_l / phrase_pos_r [P] int32; with masks,
+masks [S, S] float32 {0, 1} and mask_valid (a bool scalar).
 """
 
 from __future__ import annotations
@@ -159,6 +165,112 @@ class ReferDatasetResc:
         return _single_phrase_item(ts, ids, mask, self.max_img_size, idx)
 
 
+def pack_language(tokenizer, sentence: str, phrases, phrase_pos, ts,
+                  max_sentence_len: int, phrase_seq_len: int,
+                  max_num_phrases: int, canvas: int):
+    """The (sample, target) dicts of a multi-phrase item: the sentence and
+    each of its first ``max_num_phrases`` phrases tokenised (lower-cased),
+    each phrase's token span [l, r) in the sentence from its characters,
+    a phrase's start alone (the reference's .pth records) or its (start,
+    end) pair; the empty slots "[CLS] [SEP]" with the span (0, 1) and an
+    invalid box (refer_dataset.py:160-183)."""
+    sent_ids, sent_mask, sent_offsets = tokenizer.encode(sentence.lower(),
+                                                         max_sentence_len)
+    n_ph, sp = max_num_phrases, phrase_seq_len
+    ph_ids = np.zeros((n_ph, sp), np.int32)
+    ph_mask = np.zeros((n_ph, sp), np.int32)
+    pos_l = np.zeros(n_ph, np.int32)
+    pos_r = np.zeros(n_ph, np.int32)
+    n = min(len(phrases), n_ph)
+    for j in range(n_ph):
+        text = str(phrases[j]).lower() if j < n else ""
+        ph_ids[j], ph_mask[j], _ = tokenizer.encode(text, sp)
+        if j >= n:
+            pos_l[j], pos_r[j] = 0, 1
+            continue
+        pp = phrase_pos[j]
+        if np.ndim(pp) == 0:
+            c_l = int(pp)
+            c_r = c_l + len(str(phrases[j]))
+        else:
+            c_l, c_r = int(pp[0]), int(pp[1])
+        t_l = tokenizer.char_to_token(sent_offsets, sent_mask, c_l)
+        t_r = tokenizer.char_to_token(sent_offsets, sent_mask,
+                                      max(c_r - 1, c_l))
+        pos_l[j] = 0 if t_l is None else t_l
+        pos_r[j] = (int(sent_mask.sum()) - 1 if t_r is None else t_r) + 1
+    boxes = np.zeros((n_ph, 4), np.float32)
+    boxes[:n] = ts.boxes_cxcywh[:n]
+    box_valid = np.zeros(n_ph, bool)
+    box_valid[:n] = True
+    oh, ow = ts.valid_hw
+    valid = np.zeros((canvas, canvas), bool)
+    valid[:oh, :ow] = True
+    sample = {"image": ts.canvas, "image_valid": valid,
+              "sentence": sent_ids, "sentence_valid": sent_mask,
+              "phrases": ph_ids, "phrase_valid": ph_mask,
+              "phrase_pos_l": pos_l, "phrase_pos_r": pos_r}
+    target = {"boxes": boxes, "box_valid": box_valid,
+              "orig_size": np.array(ts.orig_hw, np.int32),
+              "size": np.array(ts.valid_hw, np.int32)}
+    return sample, target
+
+
+class FlickrMultiPhraseDataset:
+    """Flickr30k Entities: one sentence, up to max_num_phrases phrases.
+    Records (img_file, phrase_pos, boxes xyxy, phrases, _, sentence) are
+    read from <data_root>/<dataset>/<dataset>_<split>.json, else from the
+    reference's .pth pickle."""
+
+    def __init__(self, data_root: str, im_dir: str, split: str, tokenizer,
+                 img_size: int = 640, max_img_size: int = 640,
+                 max_sentence_len: int = 90, phrase_seq_len: int = 22,
+                 max_num_phrases: int = 16, train: bool = False,
+                 hsv_fraction: float = 0.5, seed: int = 0,
+                 dataset: str = "flickr30k_entities"):
+        path = osp.join(data_root, dataset, f"{dataset}_{split}")
+        if osp.exists(path + ".json"):
+            with open(path + ".json") as f:
+                self.records = [tuple(r) for r in json.load(f)]
+        else:
+            import torch
+
+            self.records = torch.load(path + ".pth", weights_only=False)
+        self.im_dir = im_dir
+        self.tokenizer = tokenizer
+        self.img_size = img_size
+        self.max_img_size = max_img_size
+        self.max_sentence_len = max_sentence_len
+        self.phrase_seq_len = phrase_seq_len
+        self.max_num_phrases = max_num_phrases
+        self.train = train
+        self.hsv_fraction = hsv_fraction
+        self.seed = seed
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def __len__(self):
+        return len(self.records)
+
+    def __getitem__(self, idx: int) -> Tuple[Dict, Dict]:
+        img_file, phrase_pos, bboxes, phrases, _, sentence = \
+            self.records[idx][:6]
+        img = _load_image(osp.join(self.im_dir, img_file))
+        ts = transform_sample(
+            img, np.array(bboxes, np.float32).reshape(-1, 4), self.img_size,
+            self.max_img_size, self.train,
+            np.random.default_rng((self.seed, self.epoch, idx)),
+            self.hsv_fraction)
+        sample, target = pack_language(
+            self.tokenizer, str(sentence), list(phrases), list(phrase_pos),
+            ts, self.max_sentence_len, self.phrase_seq_len,
+            self.max_num_phrases, self.max_img_size)
+        target["image_id"] = np.asarray(idx, np.int32)
+        return sample, target
+
+
 class ReferSegDataset(ReferDatasetResc):
     """REC + RES: each record (img_file, seg_file, bbox xyxy, phrase) adds
     the mask in <mask_dir>/<seg_file>, a .npy array over the image."""
@@ -287,3 +399,52 @@ def write_synthetic_vocab(path: str) -> str:
     with open(path, "w") as f:
         f.write("\n".join(SYNTHETIC_VOCAB) + "\n")
     return path
+
+
+class SyntheticMultiPhraseDataset:
+    """The multi-phrase fixture (flickr30k-entities-shaped): one sentence
+    names both rectangles ("the red box on the left and the green box on
+    the right"), each phrase grounded to its own box. Item i is a function
+    of i alone."""
+
+    def __init__(self, tokenizer, n: int = 128, img_size: int = 64,
+                 max_sentence_len: int = 20, phrase_seq_len: int = 8,
+                 max_num_phrases: int = 4, canvas: Optional[int] = None,
+                 box_frac: Tuple[float, float] = (1 / 6, 1 / 3)):
+        self.tokenizer = tokenizer
+        self.n = n
+        self.img_size = img_size
+        self.canvas = canvas or img_size
+        self.max_sentence_len = max_sentence_len
+        self.phrase_seq_len = phrase_seq_len
+        self.max_num_phrases = max_num_phrases
+        self.box_frac = box_frac
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, idx: int):
+        rng = np.random.default_rng(5000 + idx)
+        s = self.img_size
+        img = np.full((s, s, 3), 128, np.uint8)
+        c_left = list(_COLORS)[rng.integers(len(_COLORS))]
+        c_right = [c for c in _COLORS if c != c_left][rng.integers(2)]
+        boxes = []
+        for side, color in (("left", c_left), ("right", c_right)):
+            lo, hi = (max(2, int(s * f)) for f in self.box_frac)
+            w = int(rng.integers(lo, hi))
+            h = int(rng.integers(lo, hi))
+            x0 = int(rng.integers(0, s // 2 - w)) if side == "left" else int(
+                rng.integers(s // 2, s - w))
+            y0 = int(rng.integers(0, s - h))
+            img[y0:y0 + h, x0:x0 + w] = _COLORS[color]
+            boxes.append([x0, y0, x0 + w, y0 + h])
+        ph1, ph2 = f"the {c_left} box", f"the {c_right} box"
+        sentence = f"{ph1} on the left and {ph2} on the right"
+        p2 = sentence.index(ph2, len(ph1))
+        ts = transform_sample(img, np.array(boxes, np.float32),
+                              self.img_size, self.canvas, False)
+        return pack_language(self.tokenizer, sentence, [ph1, ph2],
+                             [(0, len(ph1)), (p2, p2 + len(ph2))], ts,
+                             self.max_sentence_len, self.phrase_seq_len,
+                             self.max_num_phrases, self.canvas)

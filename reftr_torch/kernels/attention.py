@@ -151,21 +151,26 @@ def philox4x32(counter: torch.Tensor, key: Tuple[int, int]) -> torch.Tensor:
 
 
 def philox_keep_plain(seed: int, b: int, h: int, sq: int, sk: int,
-                      rate: float, device=None) -> torch.Tensor:
+                      rate: float, device=None,
+                      first_row: int = 0) -> torch.Tensor:
     """The kernels' dropout mask in plain PyTorch: bool [B, H, Sq, Sk], True
     where element n = ((b * H + h) * Sq + i) * Sk + j is kept. Element n
     takes word n % 4 of Philox4x32-10 at counter (n / 4, 0, 0) under key
     ``seed`` (low word first), and is kept iff word >> 8 >=
-    ``dropout_threshold(rate)``."""
+    ``dropout_threshold(rate)``. With ``first_row``, the batch rows from
+    it on alone ([B - first_row, H, Sq, Sk]): their offsets, past 2^32 in
+    a large batch, without the rows before."""
     if not 0 <= seed < (1 << 64):
         raise ValueError(f"seed must be a 64-bit unsigned int, got {seed}")
-    n = b * h * sq * sk
-    ctr = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
+    n0, n = first_row * h * sq * sk, b * h * sq * sk
+    ctr = torch.arange(n0 // 4, (n + 3) // 4, dtype=torch.int64,
+                       device=device)
     counter = torch.stack([ctr & _MASK32, ctr >> 32,
                            torch.zeros_like(ctr), torch.zeros_like(ctr)], -1)
-    words = philox4x32(counter, (seed & _MASK32, seed >> 32)).reshape(-1)[:n]
+    words = philox4x32(counter, (seed & _MASK32, seed >> 32)).reshape(-1)
+    words = words[n0 % 4:n0 % 4 + n - n0]
     keep = (words >> 8) >= dropout_threshold(rate)
-    return keep.reshape(b, h, sq, sk)
+    return keep.reshape(b - first_row, h, sq, sk)
 
 
 def _scale(q: torch.Tensor, scale: Optional[float]) -> float:

@@ -1,17 +1,28 @@
-"""RefTR, single-phrase REC (port of reftr_tpu/models/reftr.py:53-376).
+"""RefTR, REC over one or many phrases per sentence (port of
+reftr_tpu/models/reftr.py:53-376).
 
-  image [B,H,W,3] -> ResNet (FrozenBN) -> 1x1 proj + GroupNorm(32) ->
+  image [B,H,W,3] -> ResNet (FrozenBN) -> 1x1 proj + GroupNorm(32) per
+  level (+ 3x3/stride-2 extras) ->
   sentence [B,S]  -> BERT -> MLP map ->
   VL encoder over [lang; img] -> QueryEncoder -> decoder -> 3-layer MLP ->
   sigmoid cxcywh boxes per (phrase, query).
 
 Batch dict (validity masks True = real): image [B,H,W,3] uint8 canvases
 (normalised on the device) or normalised float, image_valid [B,H,W] bool,
-sentence [B,S] int token ids, sentence_valid [B,S].
+sentence [B,S] int token ids, sentence_valid [B,S]. Multi-phrase adds
+phrases [B,P,Sp] and phrase_valid [B,P,Sp], each phrase tokenised alone,
+and phrase_pos_l / phrase_pos_r [B,P], its token span [l, r) in the
+sentence; the ``phrases`` key selects that path, as in the JAX package.
 
-Outputs: pred_boxes [B,1,nq,4] sigmoid cxcywh, phrase_mask [B,nq],
-aux_outputs (per decoder layer but the last, with aux_loss) and, with
-return_internals, the encoder memory and decoder states.
+Outputs: pred_boxes [B,P,nq,4] sigmoid cxcywh (P = 1 for one phrase),
+phrase_mask [B,P*nq] (True = a real phrase's query), aux_outputs (per
+decoder layer but the last, with aux_loss) and, with return_internals,
+the encoder memory and decoder states.
+
+Feature levels: one (layer4) or, with ``num_feature_levels`` > 1, the
+last min(nfl, 3) backbone stages each through its own 1x1 projection,
+then 3x3/stride-2 projections of the previous level up to nfl (the JAX
+package's deformable-DETR scheme, reftr_tpu/models/reftr.py:27-31).
 
 Training (``model.train()``) keeps the parameters float32 and runs the
 compute dtype through ``torch.autocast`` (``train/steps.py``); dropout is
@@ -19,15 +30,15 @@ compute dtype through ``torch.autocast`` (``train/steps.py``); dropout is
 BERT. The ResNet stem and layer1 never train (every stage with
 ``freeze_backbone``), nor BERT with ``freeze_bert``
 (reftr_tpu/models/reftr.py:94-104, 226-227, 252): their parameters get
-``requires_grad=False`` and they run without a graph.
+``requires_grad=False`` and they run without a graph, over the sentence
+and over the phrases.
 
 RES (``masks``) is ``models/reftr_seg.py::RefTRSeg``, which runs this
 trunk; ``freeze_reftr`` belongs to it and is refused without ``masks``.
 
-Not in this slice: multi-phrase inputs, more than one feature level,
-``vision_aux`` and ``heatmap_box`` raise NotImplementedError; the other
-from-scratch options (img_pos_in_stream, pos_in_value) have no config
-field yet.
+Not in this slice: ``vision_aux`` and ``heatmap_box`` raise
+NotImplementedError; the other from-scratch options (img_pos_in_stream,
+pos_in_value) have no config field yet.
 """
 
 from __future__ import annotations
@@ -48,14 +59,18 @@ from reftr_torch.nn.resnet import FrozenBatchNorm, ResNet, downsample_mask
 from reftr_torch.ops.image import normalize_images
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# output channels of the backbone's stages C1-C4 (ResNet-50 and -101)
+STAGE_CHANNELS = (256, 512, 1024, 2048)
 
 
 class InputProj(nn.Module):
-    """1x1 conv + GroupNorm(32), on NCHW."""
+    """1x1 (or 3x3, stride 2) conv + GroupNorm(32), on NCHW."""
 
-    def __init__(self, in_channels: int, hidden_dim: int):
+    def __init__(self, in_channels: int, hidden_dim: int, kernel: int = 1,
+                 stride: int = 1):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, hidden_dim, 1)
+        self.conv = nn.Conv2d(in_channels, hidden_dim, kernel, stride,
+                              padding=(kernel - 1) // 2)
         self.norm = nn.GroupNorm(32, hidden_dim, eps=1e-5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -63,15 +78,9 @@ class InputProj(nn.Module):
 
 
 class RefTR(nn.Module):
-    # the backbone's four stages (RES's mask head) or layer4 alone
-    return_interm_layers = False
-
     def __init__(self, config: ModelConfig):
         super().__init__()
         mc = config
-        if mc.num_feature_levels != 1:
-            raise NotImplementedError(
-                "the port serves one feature level; multi-level comes later")
         if mc.vision_aux or mc.heatmap_box:
             raise NotImplementedError(
                 "vision_aux and heatmap_box come with a later slice")
@@ -80,8 +89,11 @@ class RefTR(nn.Module):
                              "mask head: it needs masks")
         self.config = mc
         self.dtype = _DTYPES[mc.dtype]
-        self.img_backbone = ResNet(mc.backbone, mc.dilation,
-                                   self.return_interm_layers)
+        # the backbone's four stages (RES's mask head, more than one
+        # feature level) or layer4 alone
+        self.img_backbone = ResNet(
+            mc.backbone, mc.dilation,
+            mc.masks or mc.num_feature_levels > 1)
         self.img_backbone.freeze(
             4 if mc.freeze_backbone or mc.freeze_reftr else 1)
         self.lang_backbone = BertModel(mc.bert)
@@ -105,7 +117,12 @@ class RefTR(nn.Module):
                               final_zero_init=True)
         self.pos_embedding = ImagePositionEmbedding(mc.hidden_dim,
                                                     mc.position_embedding)
-        self.input_proj = nn.ModuleList([InputProj(2048, mc.hidden_dim)])
+        nfl = mc.num_feature_levels
+        n_base = min(nfl, 3)
+        self.input_proj = nn.ModuleList(
+            [InputProj(c, mc.hidden_dim) for c in STAGE_CHANNELS[-n_base:]]
+            + [InputProj(mc.hidden_dim, mc.hidden_dim, 3, 2)
+               for _ in range(n_base, nfl)])
 
     def cast_to_compute_dtype(self) -> "RefTR":
         """Cast parameters and buffers to the compute dtype, except the
@@ -129,48 +146,79 @@ class RefTR(nn.Module):
 
     def run_backbone(self, image: torch.Tensor):
         """The backbone on uint8 canvases (normalised here) or normalised
-        float images: layer4, or the four stages with
-        ``return_interm_layers``, NHWC."""
+        float images: layer4, or the four stages with masks or more than
+        one feature level, NHWC."""
         if image.dtype == torch.uint8:
             image = normalize_images(image, self.dtype)
         return self.img_backbone(image.to(self.dtype))
 
-    def project_features(self, feat: torch.Tensor,
-                         image_valid: torch.Tensor):
-        """Projection, mask and sine position of the layer4 map ``feat``.
-        Returns (srcs, valids, poss), lists per level, NHWC."""
+    def project_features(self, feats, image_valid: torch.Tensor):
+        """Projections, masks and sine positions of the backbone's output
+        ``feats`` (layer4, or the four stages): the last min(nfl, 3) maps
+        each through its projection, then each extra level from the one
+        before. Returns (srcs, valids, poss), lists per level, NHWC."""
+        if isinstance(feats, torch.Tensor):
+            feats = (feats,)
+        n_base = min(self.config.num_feature_levels, 3)
         # backbone features are the NHWC view of NCHW channels-last memory
-        src = self.input_proj[0](feat.permute(0, 3, 1, 2))
-        src = src.permute(0, 2, 3, 1)
-        valid = downsample_mask(image_valid.bool(), tuple(src.shape[1:3]))
-        pos = self.pos_embedding(valid).to(src.dtype)
-        return [src], [valid], [pos]
+        srcs = [proj(f.permute(0, 3, 1, 2)) for proj, f in
+                zip(self.input_proj, feats[-n_base:])]
+        for proj in self.input_proj[n_base:]:
+            srcs.append(proj(srcs[-1]))
+        srcs = [src.permute(0, 2, 3, 1) for src in srcs]
+        valids, poss = [], []
+        for src in srcs:
+            valid = downsample_mask(image_valid.bool(),
+                                    tuple(src.shape[1:3]))
+            valids.append(valid)
+            poss.append(self.pos_embedding(valid).to(src.dtype))
+        return srcs, valids, poss
+
+    def run_bert(self, ids, valid):
+        """BERT's (sequence, pooled) output, without a graph under
+        freeze_bert."""
+        with torch.no_grad() if self.config.freeze_bert else nullcontext():
+            return self.lang_backbone(ids, valid)
 
     def encode_language(self, sentence, sentence_valid):
-        frozen = self.config.freeze_bert
-        with torch.no_grad() if frozen else nullcontext():
-            seq, pooled = self.lang_backbone(sentence, sentence_valid)
+        seq, pooled = self.run_bert(sentence, sentence_valid)
         return self.map_sentence(seq), pooled
 
     def phrase_inputs(self, batch: Dict[str, torch.Tensor],
                       pooled_sentence: torch.Tensor):
-        """Single phrase: the pooled sentence feature, a context mask that
+        """Per-phrase pooled features, context validity and query validity
+        (reftr_tpu/models/reftr.py:231-266).
+
+        Multi-phrase (a ``phrases`` key): BERT's pooled output over the
+        B*P phrases, the context inside each phrase's token span
+        [phrase_pos_l, phrase_pos_r), and a phrase's queries valid where
+        its third token is real (an empty phrase is "[CLS] [SEP]").
+        Single phrase: the pooled sentence feature, a context mask that
         excludes [CLS], the final [SEP] and padding, and all queries valid.
-        Returns (phrase_pooled [B,1,D], context_valid [B,1,S],
-        query_valid [B,nq])."""
-        if "phrases" in batch:
-            raise NotImplementedError("multi-phrase inputs come later")
+        Returns (phrase_pooled [B,P,D], context_valid [B,P,S],
+        query_valid [B,P*nq])."""
+        n_q = self.config.num_queries_per_phrase
         sentence_valid = batch["sentence_valid"].bool()
         b, s = sentence_valid.shape
-        lengths = sentence_valid.long().sum(-1)
-        t = torch.arange(s, device=sentence_valid.device)[None, :]
-        context_valid = (sentence_valid & (t != 0)
-                         & (t != (lengths - 1)[:, None]))[:, None, :]
-        query_valid = torch.ones(b, self.config.num_queries_per_phrase,
-                                 dtype=torch.bool,
-                                 device=sentence_valid.device)
-        phrase_pooled = self.map_phrase(pooled_sentence[:, None, :])
-        return phrase_pooled, context_valid, query_valid
+        t = torch.arange(s, device=sentence_valid.device)
+        if "phrases" in batch:
+            phrase_valid = batch["phrase_valid"]
+            _, n_ph, sp = batch["phrases"].shape
+            _, pooled = self.run_bert(batch["phrases"].reshape(b * n_ph, sp),
+                                      phrase_valid.reshape(b * n_ph, sp))
+            phrase_pooled = pooled.reshape(b, n_ph, -1)
+            context_valid = ((t >= batch["phrase_pos_l"][:, :, None])
+                             & (t < batch["phrase_pos_r"][:, :, None]))
+            query_valid = phrase_valid[:, :, 2].bool()[:, :, None].expand(
+                b, n_ph, n_q).reshape(b, n_ph * n_q)
+        else:
+            lengths = sentence_valid.long().sum(-1)
+            context_valid = (sentence_valid & (t != 0)
+                             & (t != (lengths - 1)[:, None]))[:, None, :]
+            query_valid = torch.ones(b, n_q, dtype=torch.bool,
+                                     device=sentence_valid.device)
+            phrase_pooled = pooled_sentence[:, None, :]
+        return self.map_phrase(phrase_pooled), context_valid, query_valid
 
     def forward(self, batch: Dict[str, torch.Tensor],
                 return_internals: bool = False) -> Dict[str, Any]:

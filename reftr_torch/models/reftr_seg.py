@@ -1,8 +1,10 @@
 """RefTRSeg: REC + referring expression segmentation (port of
 reftr_tpu/models/reftr_seg.py:35-141).
 
-  * the REC trunk of RefTR, one feature level and one phrase; the box head
-    on the last decoder layer only, with no aux outputs;
+  * the REC trunk of RefTR, one feature level (another number is
+    refused, as the JAX package asserts) and one phrase (a batch's phrase
+    keys are left out); the box head on the last decoder layer only, with
+    no aux outputs;
   * the encoder's visual memory reshaped back to the [h, w] map and
     concatenated with the projected backbone features (2 * hidden
     channels), the per-head query -> pixel attention (MHAttentionMap),
@@ -32,14 +34,16 @@ from reftr_torch.nn.seg_heads import CEM, MaskHeadSmallConv, MHAttentionMap
 
 # channels of the backbone's C3, C2 and C1 (ResNet-50 and -101)
 FPN_DIMS = (1024, 512, 256)
+PHRASE_KEYS = ("phrases", "phrase_valid", "phrase_pos_l", "phrase_pos_r")
 
 
 class RefTRSeg(RefTR):
-    return_interm_layers = True
-
     def __init__(self, config: ModelConfig):
-        super().__init__(config)
         mc = config
+        if mc.num_feature_levels != 1:
+            raise ValueError("RefTRSeg supports a single feature level "
+                             "(reference :83-84)")
+        super().__init__(config)
         if mc.freeze_reftr:
             self.requires_grad_(False)
         self.bbox_attention = MHAttentionMap(mc.hidden_dim, mc.nheads)
@@ -58,12 +62,13 @@ class RefTRSeg(RefTR):
         with torch.no_grad() if mc.freeze_reftr else nullcontext():
             feats = self.run_backbone(batch["image"])
             srcs, img_valids, img_poss = self.project_features(
-                feats[-1], batch["image_valid"])
+                feats, batch["image_valid"])
             sentence_feat, pooled = self.encode_language(batch["sentence"],
                                                          sentence_valid)
             # RES is single-phrase (reference :96-106)
             phrase_pooled, context_valid, query_valid = self.phrase_inputs(
-                batch, pooled)
+                {k: v for k, v in batch.items() if k not in PHRASE_KEYS},
+                pooled)
             memory, memory_valid, memory_pos = self.vl_transformer.encode(
                 srcs, img_valids, img_poss, sentence_feat, sentence_valid)
             query, query_pos = self.query_encoder(memory[:, :s],

@@ -1,12 +1,13 @@
-"""BERT language backbone, batch-first (port of reftr_tpu/nn/bert.py).
+"""BERT and RoBERTa language backbone, batch-first (port of
+reftr_tpu/nn/bert.py).
 
-Embeddings, the post-norm encoder stack with exact GELU, and the tanh
+Embeddings (RoBERTa's position ids start past the pad id and skip
+padding), the post-norm encoder stack with exact GELU, and the tanh
 pooler; the model reads ``(sequence_output, pooled_output)``. Attention
 masks are validity masks (True = real token) applied as an additive -1e9
 through ``MultiHeadAttention``. Dropout as in the JAX package
 (reftr_tpu/nn/bert.py:54, 75, 79, 96): after the embeddings' LayerNorm, on
 the attention weights, and on both residual branches; training mode only.
-The RoBERTa position offset comes with a later slice.
 """
 
 from __future__ import annotations
@@ -31,15 +32,21 @@ class BertEmbeddings(nn.Module):
                                                   c.hidden_size)
         self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
         self.dropout = nn.Dropout(c.hidden_dropout)
+        self.is_roberta = c.is_roberta
+        self.pad_token_id = c.pad_token_id
 
     def forward(self, input_ids: torch.Tensor,
                 token_type_ids: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
-        s = input_ids.shape[1]
+        if self.is_roberta:
+            real = (input_ids != self.pad_token_id).long()
+            pos = self.position_embeddings(
+                real.cumsum(1) * real + self.pad_token_id)
+        else:
+            pos = self.position_embeddings.weight[:input_ids.shape[1]]
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        x = (self.word_embeddings(input_ids)
-             + self.position_embeddings.weight[:s]
+        x = (self.word_embeddings(input_ids) + pos
              + self.token_type_embeddings(token_type_ids))
         return self.dropout(self.LayerNorm(x))
 

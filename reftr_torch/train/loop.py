@@ -38,7 +38,7 @@ from reftr_torch.core.logging import log_stats, master_print
 from reftr_torch.data.build import build_refer_dataset
 from reftr_torch.data.datasets import write_synthetic_vocab
 from reftr_torch.data.loader import DataLoader
-from reftr_torch.data.native import WordPieceTokenizer
+from reftr_torch.data.native import ByteLevelBPETokenizer, WordPieceTokenizer
 from reftr_torch.data.samplers import NodeShardedSampler, ShardedSampler
 from reftr_torch.models.criterion import weight_dict as build_weight_dict
 from reftr_torch.train.engine import evaluate, train_one_epoch
@@ -48,13 +48,22 @@ from reftr_torch.train.steps import make_eval_step, make_train_step
 _NOT_PORTED_CHECKPOINTS = (".pth", ".pt", ".bin")
 
 
-def build_tokenizer(cfg: RefTRConfig) -> WordPieceTokenizer:
-    """The WordPiece vocabulary of ``bert_model``: the file it names, or
+def build_tokenizer(cfg: RefTRConfig):
+    """roberta-*: the byte-level BPE of vocab.json and merges.txt under
+    <data_root>/<bert_model>, or <bert_model>, or <data_root>. Else the
+    WordPiece vocabulary of ``bert_model``: the file it names, or
     <data_root>/<bert_model>/vocab.txt, or <data_root>/vocab.txt; for the
-    synthetic dataset without one, the fixture's own vocabulary."""
+    synthetic fixtures without one, their own vocabulary."""
     if cfg.model.bert_model.split("-")[0] == "roberta":
-        raise NotImplementedError(
-            "RoBERTa is not ported yet: ROADMAP.md queue 1 item 4")
+        root = os.path.join(cfg.data.data_root, cfg.model.bert_model)
+        for base in (root, cfg.model.bert_model, cfg.data.data_root):
+            vocab = os.path.join(base, "vocab.json")
+            merges = os.path.join(base, "merges.txt")
+            if os.path.isfile(vocab) and os.path.isfile(merges):
+                return ByteLevelBPETokenizer(vocab, merges)
+        raise FileNotFoundError(
+            f"no vocab.json/merges.txt for {cfg.model.bert_model} under "
+            f"{cfg.data.data_root}")
     candidates = [
         cfg.model.bert_model,
         os.path.join(cfg.data.data_root, cfg.model.bert_model, "vocab.txt"),
@@ -63,7 +72,7 @@ def build_tokenizer(cfg: RefTRConfig) -> WordPieceTokenizer:
     for c in candidates:
         if os.path.isfile(c):
             return WordPieceTokenizer(c)
-    if cfg.data.dataset == "synthetic":
+    if cfg.data.dataset in ("synthetic", "synthetic_multi"):
         # the tokenizer reads the file when it is made
         with tempfile.TemporaryDirectory() as d:
             return WordPieceTokenizer(

@@ -151,6 +151,16 @@ def test_philox_mask_words_follow_the_element_offset():
     assert torch.equal(keep, (words >> 8) >= (1 << 23))
 
 
+@pytest.mark.parametrize("shape", [(3, 2, 5, 7, 1), (4, 3, 1, 3, 3)])
+def test_philox_mask_from_a_batch_row_is_the_mask_slice(shape):
+    """first_row gives the batch rows from it on, counted from their own
+    offsets (also where a row starts inside a block of 4 words)."""
+    b, h, sq, sk, first = shape
+    want = philox_keep_plain(11, b, h, sq, sk, 0.3)[first:]
+    got = philox_keep_plain(11, b, h, sq, sk, 0.3, first_row=first)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("rate", [0.1, 0.5])
 def test_keep_rate_within_binomial_bound(rate):
     keep = philox_keep_plain(2024, 4, 8, 40, 40, rate)

@@ -1,11 +1,15 @@
 """reftr_torch's command line against reftr_tpu's, on the CPU: the same
 flags parse to the same config values, presets agree, a flag of a feature
 the port does not have yet raises, and ``main`` trains the synthetic smoke
-preset for an epoch on the CPU, for REC and with ``--masks`` for RES."""
+preset for an epoch on the CPU, for REC and with ``--masks`` for RES, and
+the flickr preset at smoke sizes on the multi-phrase fixture and on a
+Flickr30k written here."""
 
 import dataclasses
 import json
+import re
 
+import numpy as np
 import pytest
 import torch
 
@@ -34,6 +38,11 @@ def test_every_preset_key_is_a_parser_dest():
 @pytest.mark.parametrize("name", sorted(presets.PRESETS))
 def test_presets_are_the_jax_presets(name):
     assert presets.PRESETS[name] == jax_presets.PRESETS[name]
+
+
+def test_the_presets_table_is_the_jax_table():
+    assert presets.PRESETS == jax_presets.PRESETS
+    assert len(presets.PRESETS) == 22
 
 
 def test_parsers_have_the_same_flags_and_defaults():
@@ -70,6 +79,18 @@ ARGVS = [
      "--focal_alpha", "0.5", "--lr_mask_branch_names", "mask_head"],
     ["--preset", "synthetic_smoke", "--masks", "--nheads", "8",
      "--hidden_dim", "128"],
+    # the JAX command line's defaults: multi-phrase flickr30k, 4 levels
+    [],
+    ["--preset", "flickr"],
+    ["--preset", "flickr_roberta", "--freeze_bert", "--test_split", "val"],
+    ["--preset", "flickr_roberta", "--bert_size", "tiny"],
+    ["--preset", "flickr_pt_101", "--set_cost_class", "2",
+     "--set_cost_bbox", "3", "--set_cost_giou", "4"],
+    ["--preset", "vg_pretrain", "--num_queries_per_phrase", "3"],
+    ["--preset", "referit_pt_101", "--resume", "vg/checkpoint"],
+    ["--preset", "refcoco_det", "--num_feature_levels", "4"],
+    ["--preset", "refcoco_det", "--num_feature_levels", "2",
+     "--reftr_type", "transformer_multi"],
 ]
 
 
@@ -107,9 +128,6 @@ def test_preset_config_is_the_cli_config(name):
 
 
 NOT_PORTED_ARGVS = {
-    "set_cost_class": ["--set_cost_class", "2"],
-    "set_cost_bbox": ["--set_cost_bbox", "2"],
-    "set_cost_giou": ["--set_cost_giou", "3"],
     "mesh_data": ["--mesh_data", "2"], "mesh_model": ["--mesh_model", "2"],
     "mesh_model_spans_processes": ["--mesh_model_spans_processes"],
     "train_stem": ["--train_stem"],
@@ -174,15 +192,48 @@ def test_a_flag_of_a_missing_feature_raises(dest):
 
 
 @pytest.mark.parametrize("argv,item", [
-    ([], "item 4"), (["--preset", "refcoco_det", "--dataset", "flickr30k"],
-                     "item 4"),
-    (["--preset", "refcoco_det", "--bert_model", "roberta-base"], "item 4"),
-    (["--preset", "refcoco_det", "--reftr_type", "transformer_multi"],
-     "transformer_single_phrase"),
     (["--preset", "refcoco_det", "--no_decoder"], "no_decoder")])
 def test_other_missing_features_raise(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         cli.args_to_config(parse(cli, argv))
+
+
+@pytest.mark.parametrize("reftr_type", ["transformer_multi", "lstm"])
+def test_reftr_type_agrees_with_jax(reftr_type):
+    """Any type that starts with "transformer" builds RefTR in both
+    packages; another is refused by both model factories, with JAX's
+    message."""
+    from reftr_tpu.models.build import build_model as jax_build_model
+    from reftr_torch.convert import model_class
+    from reftr_torch.models.reftr import RefTR
+
+    argv = ["--preset", "refcoco_det", "--reftr_type", reftr_type]
+    got = cli.args_to_config(parse(cli, argv))
+    want = jax_main.args_to_config(parse(jax_main, argv))
+    assert got.model.reftr_type == want.model.reftr_type == reftr_type
+    if reftr_type.startswith("transformer"):
+        assert model_class(got.model) is RefTR
+        assert type(jax_build_model(want)[0]).__name__ == "RefTR"
+        return
+    message = f"reftr_type {reftr_type!r} is not implemented"
+    with pytest.raises(NotImplementedError) as theirs:
+        jax_build_model(want)
+    with pytest.raises(NotImplementedError) as ours:
+        model_class(got.model)
+    assert str(ours.value) == str(theirs.value) == message
+
+
+def test_synthetic_multi_is_a_multi_phrase_dataset():
+    """--dataset synthetic_multi (the port's name of the JAX package's
+    multi-phrase fixture) parses as JAX parses it but for multi_phrase."""
+    argv = ["--preset", "flickr", "--dataset", "synthetic_multi"]
+    got = cli.args_to_config(parse(cli, argv))
+    want = jax_main.args_to_config(parse(jax_main, argv))
+    assert got.data.multi_phrase and not want.data.multi_phrase
+    got.data.multi_phrase = False
+    assert dataclasses.asdict(got.data) == {
+        k: v for k, v in dataclasses.asdict(want.data).items()
+        if k in dataclasses.asdict(got.data)}
 
 
 def test_main_trains_the_smoke_preset_on_the_cpu(tmp_path, capsys):
@@ -232,3 +283,69 @@ def test_main_needs_a_card_by_default(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["--preset", "synthetic_smoke", "--output_dir",
                   str(tmp_path)])
+
+
+SMOKE_FLICKR = ["--preset", "flickr", "--device", "cpu", "--bert_size",
+                "tiny", "--enc_layers", "1", "--dec_layers", "2",
+                "--hidden_dim", "64", "--nheads", "4", "--dim_feedforward",
+                "64", "--img_size", "64", "--max_img_size", "64",
+                "--epochs", "1", "--batch_size", "4", "--num_workers", "2",
+                "--test_split", "val"]
+
+
+def test_main_trains_flickr_on_the_multi_phrase_fixture(tmp_path, capsys):
+    """The flickr preset at smoke sizes on synthetic_multi: an epoch of
+    multi-phrase training (16 phrase slots of 22 tokens, 90 sentence
+    tokens), an eval, then --eval --resume, whose accuracy is the log's."""
+    base = SMOKE_FLICKR + ["--dataset", "synthetic_multi", "--synthetic_n",
+                           "8"]
+    out_dir = tmp_path / "out"
+    assert cli.main(base + ["--output_dir", str(out_dir)]) == 0
+    with open(out_dir / "log.txt") as f:
+        (entry,) = [json.loads(x) for x in f]
+    assert entry["train_loss"] > 0 and entry["test_val_loss_giou"] > 0
+    out = capsys.readouterr().out
+    assert "Steps per training epoch: 2" in out
+    assert cli.main(base + ["--eval", "--resume",
+                            str(out_dir / "checkpoint")]) == 0
+    (line,) = [json.loads(x) for x in re.findall(
+        r"^\[val\] (\{.*\})$", capsys.readouterr().out, re.M)]
+    assert line["accuracy_iou0.5"] == entry["test_val_accuracy_iou0.5"]
+    with open(out_dir / "synthetic_multi_val_result.json") as f:
+        boxes = json.load(f)
+    assert len(boxes) == 64 and all(len(b) == 2 for b in boxes.values())
+
+
+def test_main_trains_flickr_on_flickr30k_files(tmp_path):
+    """--dataset flickr30k (the preset's) on annotations and PNGs written
+    here, with the tokenizer's vocabulary given as a file."""
+    from PIL import Image
+
+    from test_torch_data import WORDPIECE_VOCAB, write_lines
+
+    root = tmp_path / "data"
+    im_dir = root / "flickr30k" / "f30k_images"
+    ann = root / "annotations" / "flickr30k_entities"
+    im_dir.mkdir(parents=True)
+    ann.mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    records = []
+    for i in range(4):
+        Image.fromarray(rng.integers(0, 256, (60, 48 + 4 * i, 3),
+                                     dtype=np.uint8)).save(im_dir / f"{i}.png")
+        records.append([f"{i}.png", [0, 11], [[2, 3, 30, 20],
+                                              [10, 12, 40, 44]],
+                        ["the man", "the red shirt"], None,
+                        "the man in the red shirt is walking"])
+    for split in ("trainval", "val"):
+        (ann / f"flickr30k_entities_{split}.json").write_text(
+            json.dumps(records))
+    vocab = write_lines(tmp_path / "vocab.txt", WORDPIECE_VOCAB)
+    argv = SMOKE_FLICKR + ["--data_root", str(root), "--bert_model", vocab,
+                           "--output_dir", str(tmp_path / "out")]
+    assert cli.main(argv) == 0
+    with open(tmp_path / "out" / "log.txt") as f:
+        (entry,) = [json.loads(x) for x in f]
+    assert entry["train_loss"] > 0
+    with open(tmp_path / "out" / "flickr30k_val_result.json") as f:
+        assert len(json.load(f)) == 4

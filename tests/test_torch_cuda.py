@@ -13,6 +13,9 @@ Function), as a share of the largest magnitude among the call's plain
 dq, dk and dv (a gradient can be zero in exact arithmetic, as dq and dk
 are with a single key): 1e-4 in float32 (sums of up to 440 terms in
 another order), 1e-2 in bfloat16 (rounding of the output to bf16, 2^-9).
+At the multi-phrase and four-level sites (``long_tol``) the float32
+tolerances grow as the square root of the terms summed beyond 440, and
+K1's bf16 tolerance to one bf16 ulp of the largest output beyond 4.
 
 The wrappers pick each kernel's variant by shape, dtype and head dim
 (16 or more rows: the tensor-core kernels, in bf16 and in float32 by
@@ -23,6 +26,8 @@ tensor-core kernels alone launch them at the edges of their 64-row and
 64-key tiles, those of the decode kernels at the edges of their key
 steps, and every route runs at head dims that pad to an instance.
 """
+
+import math
 
 import pytest
 import torch
@@ -987,3 +992,187 @@ def test_res_kernel_path_matches_the_plain_path(gen, monkeypatch):
         err = float((gk[name] - g).norm()) / max(float(g.norm()),
                                                  1e-4 * norm)
         assert err <= 1e-3, name
+
+
+# ---------------------------------------------------------------------------
+# the multi-phrase path's call sites and the four-level encoder
+# ---------------------------------------------------------------------------
+
+# (B, Sq, Sk, H, D) of the flickr preset's new call sites (batch 16, 16
+# phrase slots, 90 sentence tokens, 640 px): BERT over the 256 phrases of
+# 22 tokens, the decoder's self- and cross-attention at 16 queries, the
+# encoder over 90 + 20 x 20 tokens
+MULTI_SHAPES = [(256, 22, 22, 12, 64), (16, 16, 16, 8, 32),
+                (16, 16, 490, 8, 32), (16, 490, 490, 8, 32)]
+# the VL encoder at four feature levels: 40 + 80^2 + 40^2 + 20^2 + 10^2
+LONG_S = 8540
+
+
+def multi_valid(gen, b, sq, sk):
+    """The key masks these sites see: BERT over phrases, "[CLS] [SEP]" (2
+    keys) in 14 of each image's 16 phrase rows and 3-9 keys in the other
+    2; the decoder's self-attention, the 2 real phrases' queries of 16;
+    over the encoder's memory, 10-20 real tokens of the sentence (90, or
+    40 at four levels) and every image token."""
+    ar = torch.arange(sk, device="cuda")[None]
+    if sk == 22:
+        lens = torch.randint(3, 10, (b,), device="cuda", generator=gen)
+        lens = torch.where(torch.arange(b, device="cuda") % 16 < 2, lens, 2)
+        return ar < lens[:, None]
+    if sk == 16:
+        return (ar < 2).expand(b, sk).clone()
+    n_lang = 40 if sk == LONG_S else 90
+    lens = torch.randint(10, 21, (b,), device="cuda", generator=gen)
+    return (ar < lens[:, None]) | (ar >= n_lang)
+
+
+def long_tol(dtype, terms, want):
+    """K1's tolerance against the plain version in float32, and the
+    factor on GRAD_TOL, for sums over ``terms`` keys (queries): TOL and
+    GRAD_TOL hold sums of up to 440 terms and bf16 outputs up to 4. In
+    float32 both grow as the square root of the terms beyond that (the
+    kernels' order-dependent rounding: 3.7e-6 against float64 at 440 keys,
+    9e-6 to 1.3e-5 at 8540); in bf16 K1's grows to one bf16 ulp of the
+    largest output (phrase rows of 2 keys with dropout reach 4.8, where
+    the output's and P's roundings to bf16 add to 0.025)."""
+    if dtype == torch.float32:
+        f = max(1.0, (terms / 440) ** 0.5)
+        return TOL[dtype] * f, f
+    top = want.float().abs().max().item()
+    return max(TOL[dtype], 2.0 ** (math.floor(math.log2(top)) - 7)), 1.0
+
+
+def multi_inputs(gen, b, sq, sk, h, d, dtype):
+    q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=gen)
+               .to(dtype) for s in (sq, sk, sk))
+    return q, k, v, multi_valid(gen, b, sq, sk)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", MULTI_SHAPES + [(1, LONG_S, LONG_S, 8, 32)])
+def test_multi_phrase_and_long_sites_match_plain(gen, shape, dtype, rate):
+    """K1 with its lse, K2 and K3 at the new sites, each through the
+    tensor-core kernels (16 or more queries and keys), against the plain
+    versions (K1's in float32, as test_kernel_matches_plain's: two
+    roundings to bf16 of one value may part by an ulp), at ``long_tol``;
+    the four-level encoder at B=1, where the plain version's [B, H, S, S]
+    scores fit."""
+    b, sq, sk, h, d = shape
+    assert fwd_variant(sq, dtype, d) == dq_variant(sq, dtype, d) == \
+        dkv_variant(sq, sk, dtype, d) == (
+            "tc" if dtype == torch.bfloat16 else "tf32x3")
+    q, k, v, valid = multi_inputs(gen, b, sq, sk, h, d, dtype)
+    seed = 0xABCD_0123_4567 if rate else None
+    out, lse = flash_attention(q, k, v, valid, return_lse=True,
+                               dropout_rate=rate, seed=seed)
+    want, want_lse = attention_plain(q.float(), k.float(), v.float(), valid,
+                                     return_lse=True, dropout_rate=rate,
+                                     seed=seed)
+    tol, grad_factor = long_tol(dtype, max(sq, sk), want)
+    torch.testing.assert_close(out.float(), want, atol=tol, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-6)
+    do = torch.randn(out.shape, device="cuda", generator=gen).to(dtype)
+    wants = attention_bwd_plain(q, k, v, valid, out, lse, do, rate, seed)
+    dq = flash_attn_bwd_dq(q, k, v, valid, out, lse, do, rate, seed)
+    dk, dv = flash_attn_bwd_dkv(q, k, v, valid, out, lse, do, rate, seed)
+    torch.cuda.synchronize()
+    scale = max(w.float().abs().max().item() for w in wants)
+    for got, w in zip((dq, dk, dv), wants):
+        rel_close(got, w, GRAD_TOL[dtype] * grad_factor, floor=scale)
+
+
+def k1_kept(q, k, valid, rate, seed, first_row=0):
+    """K1's kept set [B - first_row, H, Sq, Sk] read off its output with v
+    one-hot over the head dim (D keys at a time), and where it is
+    readable (p > 0: the valid keys, or every key of a row with none)."""
+    b, sk, h, d = k.shape
+    kept, live = [], []
+    live_keys = torch.where(valid.any(-1, keepdim=True), valid, True)
+    for k0 in range(0, sk, d):
+        n = min(d, sk - k0)
+        v = torch.zeros(b, sk, h, d, device="cuda", dtype=q.dtype)
+        v[:, k0:k0 + n, :, :n] = torch.eye(n, device="cuda")[:, None, :]
+        out = flash_attention(q, k, v, valid, dropout_rate=rate, seed=seed)
+        kept.append((out[first_row:, ..., :n] != 0).permute(0, 2, 1, 3))
+    kept = torch.cat(kept, -1)
+    return kept, live_keys[first_row:, None, None, :].expand_as(kept)
+
+
+@pytest.mark.parametrize("shape", MULTI_SHAPES + [(1, LONG_S, LONG_S, 8, 32)])
+def test_dropout_mask_is_exact_at_the_new_sites(gen, shape):
+    """Through the bf16 tensor-core K1 (the multi-phrase path's dtype):
+    its kept set equals the plain Philox mask on every readable key."""
+    b, sq, sk, h, d = shape
+    q, k, _, valid = multi_inputs(gen, b, sq, sk, h, d, torch.bfloat16)
+    rate, seed = 0.1, 0xFEED
+    kept, live = k1_kept(q, k, valid, rate, seed)
+    keep = philox_keep_plain(seed, b, h, sq, sk, rate, "cuda")
+    assert torch.equal(kept & live, keep & live)
+
+
+def test_dropout_mask_is_exact_past_2_to_the_32(gen):
+    """The four-level encoder at B=8: B * H * S^2 = 4.67e9 elements, so
+    the last batch row's offsets run past 2^32 (from head 3 on). Its kept
+    set equals the plain mask of that row, drawn from its own offsets."""
+    b, s, h, d = 8, LONG_S, 8, 32
+    q, k, _, valid = multi_inputs(gen, b, s, s, h, d, torch.bfloat16)
+    rate, seed = 0.1, 0x2_0000_0001
+    assert (b - 1) * h * s * s < 2 ** 32 < b * h * s * s
+    kept, live = k1_kept(q, k, valid, rate, seed, first_row=b - 1)
+    keep = philox_keep_plain(seed, b, h, s, s, rate, "cuda",
+                             first_row=b - 1)
+    assert torch.equal(kept & live, keep & live)
+    assert live.sum().item() > 0.9 * live.numel()
+
+
+def test_multi_phrase_step_launches_42_on_the_tensor_cores(gen, tmp_path):
+    """One bf16 train step and one eval forward of the flickr preset's
+    attention stacks at full depth (BERT-base over the sentence and over
+    the 16 phrase slots, 6 + 6 VL layers) on two multi-phrase fixture
+    items at 64 px: 12 + 12 + 6 + 6 + 6 = 42 launches of each of K1, K2
+    and K3 in the step and of K1 in the forward, every one on the bf16
+    tensor-core kernels (16 phrase queries fill a tile)."""
+    from reftr_torch.cli.presets import preset_config
+    from reftr_torch.data.datasets import (SyntheticMultiPhraseDataset,
+                                           write_synthetic_vocab)
+    from reftr_torch.data.loader import collate
+    from reftr_torch.data.native import WordPieceTokenizer
+    from reftr_torch.models.criterion import weight_dict
+    from reftr_torch.train.state import TrainState
+    from reftr_torch.train.steps import make_eval_step, make_train_step
+
+    cfg = preset_config("flickr", dtype="bfloat16")
+    mc, d = cfg.model, cfg.data
+    tok = WordPieceTokenizer(write_synthetic_vocab(str(tmp_path / "v.txt")))
+    ds = SyntheticMultiPhraseDataset(
+        tok, n=2, img_size=64, max_sentence_len=d.max_sentence_len,
+        phrase_seq_len=d.phrase_seq_len, max_num_phrases=d.max_num_phrases)
+    batch, targets = collate([ds[0], ds[1]])
+    assert batch["phrases"].shape == (2, 16, 22)
+    state = TrainState.create(mc, cfg.train, 1, seed=0)
+    wd = weight_dict(cfg.loss, mc.dec_layers, mc.aux_loss)
+    wrappers = (flash_attention, flash_attn_bwd_dq, flash_attn_bwd_dkv)
+    variants = ("launches", "launches_tc", "launches_tf32x3",
+                "launches_dec", "launches_plain")
+
+    def counts():
+        return {(w.__name__, v): getattr(w, v) for w in wrappers
+                for v in variants}
+
+    before = counts()
+    state, metrics = make_train_step(state.model, wd, cfg.loss)(
+        state, batch, targets)
+    assert all(torch.isfinite(torch.tensor(x))
+               for x in metrics.get().values())
+    after = counts()
+    for (name, v), n in after.items():
+        want = 42 if v in ("launches", "launches_tc") else 0
+        assert n - before[(name, v)] == want, (name, v)
+    out, _, _ = make_eval_step(state.model, cfg.loss)(batch, targets)
+    assert out["pred_boxes"].shape == (2, 16, 1, 4)
+    final = counts()
+    for (name, v), n in final.items():
+        want = (42 if name == "flash_attention"
+                and v in ("launches", "launches_tc") else 0)
+        assert n - after[(name, v)] == want, (name, v)

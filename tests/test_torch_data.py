@@ -395,12 +395,6 @@ def test_build_refer_dataset_agrees(toks, vocab_files, resc_root, split,
             assert_trees_equal(g, w)
 
 
-def test_build_refuses_what_is_not_ported(toks):
-    with pytest.raises(NotImplementedError, match="item 4"):
-        build.build_refer_dataset("train", DataConfig(dataset="flickr30k"),
-                                  toks[1], True)
-
-
 @pytest.mark.parametrize("split,train", [("train", True), ("val", False)])
 def test_build_refer_dataset_with_masks_agrees(toks, vocab_files, resc_root,
                                                split, train):

@@ -151,16 +151,7 @@ def test_init_params_is_seeded_and_follows_the_jax_initialisers():
 
 
 @pytest.mark.parametrize("change", [{"vision_aux": True},
-                                    {"heatmap_box": True},
-                                    {"num_feature_levels": 4}])
+                                    {"heatmap_box": True}])
 def test_unported_options_raise(change):
     with pytest.raises(NotImplementedError):
         RefTR(ModelConfig(bert=BertConfig.tiny(), **dict(TINY, **change)))
-
-
-def test_multi_phrase_batch_raises():
-    cfg = ModelConfig(bert=BertConfig.tiny(), **TINY)
-    batch = {k: t(v) for k, v in tiny_batch().items()}
-    batch["phrases"] = torch.zeros(2, 1, 4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError), torch.no_grad():
-        RefTR(cfg).eval()(batch)
