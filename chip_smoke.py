@@ -38,7 +38,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    more, the tensor-core kernels, in float32 the 3xTF32 ones), and the
    SIMT kernels beside the others: K1 with dropout and its lse against
    attention_plain in float32 with the same seed (tolerances as in phase
-   2, kernel_tol; lse 1e-5 abs plus 1e-6 relative), and the backward
+   2; lse 1e-5 abs plus 1e-6 relative), and the backward
    kernels K2 (dq) and K3 (dk, dv) each against attention_bwd_plain on
    the same O, lse and dO. Every
    variant, K1's and the backward's, is called twice on the same inputs
@@ -46,10 +46,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    Gradient tolerance, as a share of the largest magnitude among the plain
    dq, dk and dv: 1e-4 in float32 (sums of up to 440 terms in another
    order, at most 2.6e-5 of the largest term), 1e-2 in bfloat16 (the
-   kernels round their output to bf16, 2^-9 = 2e-3). Beyond 440 terms
-   (phase 8's sites) the float32 tolerances grow as the square root of
-   the terms, and K1's bf16 tolerance is one bf16 ulp of the largest
-   output where that exceeds 2e-2 (kernel_tol, grad_tol). Then exact mask
+   kernels round their output to bf16, 2^-9 = 2e-3). Phase 8 holds its
+   sites to the same, but for K1 at phrase BERT in bf16: one bf16 ulp of
+   the largest output where that exceeds 2e-2 (kernel_tol). Then exact mask
    checks in float32 and in bfloat16 at every site (so through every
    variant of K1, K2 and K3): v one-hot over the head dim makes K1's
    output p * keep for D keys at a time; q = 0, lse = 0, O = 0 and dO, v
@@ -201,9 +200,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    encoder 490 x 490), in both dtypes, with and without dropout, with
    phase 3's tolerances, exact dropout masks and times (no SIMT
    "before"). c) One float32 multi-phrase step (batch 16 of the fixture)
-   through the kernels and through the plain attention, phase 5's rule
-   but for the gradients' bound, 2e-3 relative L2 (MULTI_TRAIN_GRAD_TOL);
-   one bf16 step timed and profiled by kernel category (report only).
+   through the kernels and through the plain attention at phase 5's rule,
+   and (report only) each path's distance from the plain attention in
+   float64; one bf16 step timed and profiled by kernel category (report
+   only).
    d) refcoco_det at four feature levels (the encoder over 40 + 80^2 +
    40^2 + 20^2 + 10^2 = 8540 tokens) through the entry point in bf16: 4
    steps and 8 eval batches, 30 launches of each kernel a step and of K1
@@ -217,7 +217,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    50265, 514 positions, pad id 1) on the fixture through the entry point
    over a byte-level vocabulary the script writes: 2 steps and 4 eval
    batches, 42 launches of each kernel a step, every loss finite. The
-   checkpoints are deleted.
+   checkpoints are deleted. f) Report only (float64_gap): the float32
+   kernels' and the plain float32 version's distance from float64 at 440,
+   2000 and 8540 keys, K1's sum alone (q = 0) there, and phrase BERT's
+   bf16 outputs against float64.
 9. Print one JSON line listing each kernel (each variant on a row of its
    own; the decode backward on one row for K2 and K3) with its launches
    on the main paths (phase 8's runs included, also on their own), its
@@ -262,9 +265,6 @@ CALL_SITES = {
 KERNEL_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 LSE_TOL = (1e-5, 1e-6)  # abs, rel: both variants sum in f32
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
-# the terms a tolerance above was set for: sums over up to 440 keys or
-# queries (refcoco_det's encoder)
-TOL_TERMS = 440
 MODEL_TOL_F32_ABS = 1e-4
 MODEL_TOL_BF16_REL = 5e-2
 DROPOUT = 0.1  # the preset's rate: attention and hidden dropout
@@ -272,12 +272,6 @@ TRAIN_STEPS = 20
 WARM_STEPS = 3
 TRAIN_LOSS_TOL = 1e-5  # f32 kernel path vs plain path, relative
 TRAIN_GRAD_TOL = 1e-3  # relative L2 per trainable gradient
-# the same for phase 8c's multi-phrase step: its kernel path's worst
-# gradient is 1.09e-3 from the plain path's in float64, where the plain
-# path's own is 2.8e-4 (the 3xTF32 kernels round each product to 2^-21,
-# float32 to 2^-24; the 16 x 16 decoder turns the difference into ReLU
-# flips); measured on the H100
-MULTI_TRAIN_GRAD_TOL = 2e-3
 # kernels of the main paths: the C entry point, its source, the Pallas
 # function it replaces, its variant
 KERNELS = {
@@ -432,6 +426,10 @@ ROBERTA_PER_FORWARD = MULTI_PER_FORWARD
 # the element offset the kernels count in 64 bits: the masks are checked
 # past it
 OFFSET_32 = 2 ** 32
+# phase 8f (report only): the key counts at which the float32 kernels and
+# the plain float32 version are held to float64 (B=1, H=8, D=32):
+# refcoco_det's encoder, one between, the encoder at four feature levels
+GAP_KEYS = (440, 2000, LONG_S)
 # NVIDIA H100 SXM data sheet: HBM rate, bf16 dense tensor-core rate, and
 # float32-accurate products: 3xTF32 gets a third of the 495 TFLOP/s of TF32
 # (the f32 FMA rate outside the tensor cores, 67 TFLOP/s, is lower)
@@ -550,29 +548,18 @@ def attention_bound_ms(b, sq, sk, h, d, valid, dtype_name,
                                  "operations")
 
 
-def kernel_tol(name: str, terms: int, want) -> float:
+def kernel_tol(name: str, site: str, want) -> float:
     """K1's tolerance against the plain version in float32 on the same
-    inputs. KERNEL_TOL holds sums over up to TOL_TERMS keys and, in bf16,
-    the rounding of the output and of P to bf16 at magnitudes up to 4 (at
-    most 2^-9 of 4 each). Beyond that, in float32 it grows as the square
-    root of the keys summed (the kernels' order-dependent rounding: 3.7e-6
-    against float64 at 440 keys, 7.7e-6 at 2000, 9.0e-6 to 1.3e-5 at 8540
-    on the H100), and in bf16 to one bf16 ulp of the largest output (both
-    roundings grow with its power of two: phrase BERT's rows of 2 keys
-    with dropout reach 4.8)."""
-    if name == "float32":
-        return KERNEL_TOL[name] * max(1.0, math.sqrt(terms / TOL_TERMS))
+    inputs at ``site``: KERNEL_TOL, which in bf16 holds the roundings of
+    the output and of P to bf16 at magnitudes below 4 (2^-9 of 4 each). At
+    phrase BERT in bf16 it is one bf16 ulp of the largest output where
+    that is more: rows of 2 keys with dropout reach 4.8 there, where the
+    output's half ulp alone is 0.0156 and P's rounding adds to it."""
+    if name == "float32" or site != "phrase_bert_self":
+        return KERNEL_TOL[name]
     top = want.float().abs().max().item()
     ulp = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
     return max(KERNEL_TOL[name], ulp)
-
-
-def grad_tol(name: str, terms: int) -> float:
-    """GRAD_TOL for sums over ``terms`` keys or queries: in float32 it
-    grows as the square root of the terms beyond TOL_TERMS, as K1's."""
-    if name == "float32":
-        return GRAD_TOL[name] * max(1.0, math.sqrt(terms / TOL_TERMS))
-    return GRAD_TOL[name]
 
 
 def site_shape(site: str) -> tuple:
@@ -900,8 +887,7 @@ def check_training_kernels(report: dict, sites=tuple(CALL_SITES),
                 want, want_lse = attention_plain(q.float(), k.float(),
                                                  v.float(), valid, True,
                                                  **drop)
-                fwd_tol = kernel_tol(name, sk, want)
-                g_tol = grad_tol(name, max(sq, sk))
+                fwd_tol = kernel_tol(name, site, want)
                 bwd = (q, k, v, valid, out, lse, do, rate, seed)
                 wants = attention_bwd_plain(*bwd)
                 dq = flash_attn_bwd_dq(*bwd)
@@ -928,7 +914,7 @@ def check_training_kernels(report: dict, sites=tuple(CALL_SITES),
                        or fwd_err > fwd_tol
                        or not lse_err <= lse_tol
                        or not all(math.isfinite(e) and
-                                  e <= g_tol * scale for e in errs))
+                                  e <= GRAD_TOL[name] * scale for e in errs))
                 row = {"site": site, "dtype": name, "dropout": rate,
                        "B": b, "Sq": sq, "Sk": sk, "H": h, "D": d,
                        "fwd_max_abs_err": fwd_err,
@@ -936,7 +922,7 @@ def check_training_kernels(report: dict, sites=tuple(CALL_SITES),
                        "lse_max_abs_err": lse_err, "lse_tol": lse_tol,
                        "dq_max_abs_err": errs[0], "dk_max_abs_err": errs[1],
                        "dv_max_abs_err": errs[2], "grad_scale": scale,
-                       "grad_tol": g_tol * scale,
+                       "grad_tol": GRAD_TOL[name] * scale,
                        "fwd_variant": fwd_variant(sq, dt, d),
                        "dq_variant": dq_variant(sq, dt, d),
                        "dkv_variant": dkv_variant(sq, sk, dt, d),
@@ -967,10 +953,10 @@ def check_training_kernels(report: dict, sites=tuple(CALL_SITES),
                         err, tol = max_err(got[0], want), fwd_tol
                     elif what == "dq":
                         err = max_err(got, wants[0])
-                        tol = g_tol * scale
+                        tol = GRAD_TOL[name] * scale
                     else:
                         err = max(max_err(g, w) for g, w in zip(got, wants[1:]))
-                        tol = g_tol * scale
+                        tol = GRAD_TOL[name] * scale
                     row[f"simt_{what}_max_abs_err"] = err
                     if not err <= tol:
                         raise AssertionError(f"phase 3 simt {what} {row}")
@@ -1003,7 +989,7 @@ def check_training_kernels(report: dict, sites=tuple(CALL_SITES),
                       f"fwd err {fwd_err:.3g} (tol {fwd_tol:.3g}), lse "
                       f"err {lse_err:.3g} (tol {lse_tol:.3g}), dq/dk/dv err "
                       f"{errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g} (tol "
-                      f"{g_tol * scale:.3g}); K1 "
+                      f"{GRAD_TOL[name] * scale:.3g}); K1 "
                       f"{row['fwd_variant']} {row['fwd_ms']:.4f} ms host "
                       f"loop, {fmt_ms(row['fwd_device_ms'])} device; "
                       f"{bwd_times}"
@@ -1653,13 +1639,31 @@ def train_batch(rng: np.random.Generator, img: int, seq: int, vocab: int,
     return batch, targets
 
 
+def grad_gap(grads: dict, want: dict, norm: float) -> tuple:
+    """The worst relative L2 distance of ``grads`` from ``want`` over the
+    trainable tensors, against the larger of the tensor's norm and 1e-4
+    of the global ``norm``, and the tensor's name."""
+    worst, worst_name = 0.0, ""
+    for name, w in want.items():
+        err = float((grads[name].double() - w.double()).norm()) / max(
+            float(w.norm()), 1e-4 * norm)
+        if not math.isfinite(err) or err > worst:
+            worst, worst_name = err, name
+    return worst, worst_name
+
+
 def compare_train_paths(cfg, batch, targets, label: str = "train",
-                        grad_tol: float = TRAIN_GRAD_TOL) -> dict:
+                        float64: bool = False, check: bool = True) -> dict:
     """One float32 step with dropout 0 from one set of seeded weights,
     through the kernels and through the plain attention: the loss and
     every trainable gradient, and for RES (``masks``) the forward's boxes
     and mask logits. The last layer of bbox_embed, zero at init (no
-    gradient would reach the attentions), is drawn like the others."""
+    gradient would reach the attentions), is drawn like the others. With
+    ``float64``, report only: the step once more through the plain
+    attention in float64, each float32 path's distance from it, and the
+    decoder's FFN pre-activations (linear1's outputs) whose sign differs
+    from float64's: one such ReLU flip moves every gradient behind it by
+    a whole row's share. ``check`` False reports without the checks."""
     import torch
 
     from reftr_torch.convert import build_model
@@ -1682,7 +1686,13 @@ def compare_train_paths(cfg, batch, targets, label: str = "train",
                      with_masks=mc.masks)
     dev_batch = to_device(batch, torch.device("cuda"))
     dev_targets = to_device(targets, torch.device("cuda"))
-    runs, outs = {}, {}
+    pre = {}  # the decoder's FFN pre-activations of the last run
+    hooks = [mod.register_forward_hook(
+        lambda m, i, o, name=name: pre.__setitem__(name, o.detach().clone()))
+        for name, mod in model.named_modules()
+        if float64 and name.startswith("vl_transformer.decoder")
+        and name.endswith("ffn.linear1")]
+    runs, outs, pres = {}, {}, {}
     for plain in (False, True):
         set_plain_attention(model, plain)
         model.zero_grad(set_to_none=True)
@@ -1690,6 +1700,7 @@ def compare_train_paths(cfg, batch, targets, label: str = "train",
         loss = total_loss(criterion(out, dev_targets, LossConfig(),
                                     mc.masks), wd)
         loss.backward()
+        pres[plain] = dict(pre)
         outs[plain] = {k: out[k].detach().float() for k in
                        ("pred_boxes", "pred_masks") if k in out}
         runs[plain] = (loss.item(), {n: p.grad.clone() for n, p in
@@ -1698,24 +1709,55 @@ def compare_train_paths(cfg, batch, targets, label: str = "train",
     (loss_k, grads_k), (loss_p, grads_p) = runs[False], runs[True]
     norm = math.sqrt(sum(float(g.square().sum()) for g in grads_p.values()))
     loss_err = abs(loss_k - loss_p) / abs(loss_p)
-    worst, worst_name, live = 0.0, "", 0
-    for name, gp in grads_p.items():
-        live += float(gp.norm()) > 1e-4 * norm
-        err = float((grads_k[name] - gp).norm()) / max(float(gp.norm()),
-                                                       1e-4 * norm)
-        if not math.isfinite(err) or err > worst:
-            worst, worst_name = err, name
+    live = sum(float(gp.norm()) > 1e-4 * norm for gp in grads_p.values())
+    worst, worst_name = grad_gap(grads_k, grads_p, norm)
     print(f"{label}: f32 step, kernels vs plain attention: loss "
           f"{loss_k:.6f} vs {loss_p:.6f} (rel {loss_err:.3g}, tol "
           f"{TRAIN_LOSS_TOL}); worst gradient rel L2 {worst:.3g} at "
-          f"{worst_name} (tol {grad_tol}) over {len(grads_p)} "
+          f"{worst_name} (tol {TRAIN_GRAD_TOL}) over {len(grads_p)} "
           f"trainable tensors, {live} of them above the floor; global norm "
           f"{norm:.4g}", flush=True)
+    gap = None
+    if float64:
+        model.double()
+        model.dtype = torch.float64  # uint8 canvases normalise to it
+        set_plain_attention(model, True)
+        model.zero_grad(set_to_none=True)
+        b64, t64 = ({k: v.double() if v.is_floating_point() else v
+                     for k, v in x.items()} for x in (dev_batch, dev_targets))
+        loss64 = total_loss(criterion(model(b64), t64, LossConfig(),
+                                      mc.masks), wd)
+        loss64.backward()
+        grads64 = {n: p.grad for n, p in model.named_parameters()
+                   if p.requires_grad}
+        gap = {}
+        for path, plain in (("kernels", False), ("plain", True)):
+            loss, grads = runs[plain]
+            g, g_name = grad_gap(grads, grads64, norm)
+            flips = {n: (pres[plain][n] > 0) != (h > 0)
+                     for n, h in pre.items()}
+            gap[path] = {"loss_rel": abs(loss - loss64.item())
+                         / abs(loss64.item()), "worst_grad_rel_l2": g,
+                         "worst_grad_name": g_name,
+                         "decoder_relu_flips": {
+                             n: int(f.sum()) for n, f in flips.items()
+                             if f.any()},
+                         "flipped_min_abs_float64": min(
+                             (float(pre[n][f].abs().min())
+                              for n, f in flips.items() if f.any()),
+                             default=None)}
+        print(f"{label}: from the plain attention in float64 (report "
+              f"only): {gap}", flush=True)
+    for hook in hooks:
+        hook.remove()
+    if not check:
+        return {"loss_rel_err": loss_err, "worst_grad_rel_l2": worst,
+                "worst_grad_name": worst_name, "from_float64": gap}
     if live < len(grads_p) // 2:
         raise AssertionError(f"only {live} of {len(grads_p)} gradients are "
                              f"above 1e-4 of the global norm: the check "
                              f"would compare nothing")
-    if not (loss_err <= TRAIN_LOSS_TOL and worst <= grad_tol):
+    if not (loss_err <= TRAIN_LOSS_TOL and worst <= TRAIN_GRAD_TOL):
         raise AssertionError(f"f32 kernel vs plain step: loss rel "
                              f"{loss_err:.3g}, gradient rel L2 {worst:.3g} "
                              f"at {worst_name}")
@@ -1723,6 +1765,8 @@ def compare_train_paths(cfg, batch, targets, label: str = "train",
               "loss_rel_err": loss_err, "worst_grad_rel_l2": worst,
               "worst_grad_name": worst_name, "grad_norm": norm,
               "n_trainable": len(grads_p), "n_above_floor": live}
+    if gap is not None:
+        result["from_float64"] = gap
     if mc.masks:
         box_err = (outs[False]["pred_boxes"]
                    - outs[True]["pred_boxes"]).abs().max().item()
@@ -2563,8 +2607,9 @@ def multi_sites(report: dict) -> dict:
     dtypes, without dropout and with 0.1, and the dropout masks exact
     (phase 3's checks and tolerances; no SIMT "before"); then 8c, one
     float32 multi-phrase step through the kernels and through the plain
-    attention at phase 5's rule (gradients at MULTI_TRAIN_GRAD_TOL), and
-    one profiled bf16 step (report only)."""
+    attention at phase 5's rule, with each path's distance from the plain
+    attention in float64 (report only), and one profiled bf16 step (report
+    only)."""
     from reftr_torch.cli.presets import preset_config
 
     check_training_kernels(report, MULTI_SITES, "multi_kernels",
@@ -2572,7 +2617,7 @@ def multi_sites(report: dict) -> dict:
     cfg = preset_config("flickr", dtype="float32")
     batch, targets = multi_batch(cfg, cfg.data.batch_size, cfg.data.img_size)
     report["multi"]["f32_kernel_vs_plain"] = compare_train_paths(
-        cfg, batch, targets, label="multi", grad_tol=MULTI_TRAIN_GRAD_TOL)
+        cfg, batch, targets, label="multi", float64=True)
     report["multi"]["profile"] = profile_train_step(
         cfg, batch, targets, f"multi: bf16 batch {cfg.data.batch_size} "
                              f"multi-phrase train step")
@@ -2757,6 +2802,140 @@ def train_levels(report: dict, counters) -> dict:
     return report
 
 
+def float64_gap(report: dict) -> dict:
+    """Phase 8f, report only: how far the float32 kernels (3xTF32) and
+    the plain float32 version are from the plain version in float64 on
+    the same inputs, as the keys grow (GAP_KEYS).
+
+    a) K1's output and K2's and K3's gradients (as a share of the largest
+    float64 gradient) at B=1, H=8, D=32 with the encoder's key masks
+    (new_site_valid), without dropout and with 0.1.
+    b) K1's sum alone: q = 0 makes every p exactly 1, so the output is the
+    mean of v over the keys, and the kernel's only error is how its
+    products are added up (with v exact in tf32, 3xTF32's split of it is
+    exact too) or also how v is split (v in float32). v = |randn| makes
+    every term positive, so the mean signed error shows a rounding that
+    leans one way.
+    c) phrase BERT in bf16 (the ulp rule of kernel_tol): the kernel's and
+    the plain bf16 version's distance from float64, and how many outputs
+    reach 4.
+    d) phase 5's float32 refcoco_det step (compare_train_paths) on its
+    batch (seed 2) and on another (seed 5), each path against float64,
+    with the decoder's ReLU flips: how near a flip brings phase 5's rule
+    with 8 decoder rows behind each FFN gradient."""
+    import torch
+
+    from reftr_torch.kernels.attention import (attention_bwd_plain,
+                                               attention_plain,
+                                               flash_attention,
+                                               flash_attn_bwd_dkv,
+                                               flash_attn_bwd_dq)
+
+    def err(a, b) -> float:
+        return (a.double() - b.double()).abs().max().item()
+
+    def gap_list(values) -> str:
+        return ", ".join(f"{x:.3g}" for x in values)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0xF64)
+    rows = []
+    for sk in GAP_KEYS:
+        q, k, v = (torch.randn(1, sk, 8, 32, device="cuda", generator=gen)
+                   for _ in range(3))
+        valid = new_site_valid(gen, 1, sk)
+        do = torch.randn(q.shape, device="cuda", generator=gen)
+        for rate in (0.0, DROPOUT):
+            seed = 0xF64 + sk if rate else None
+            drop = dict(dropout_rate=rate, seed=seed)
+            out, lse = flash_attention(q, k, v, valid, True, **drop)
+            bwd = (q, k, v, valid, out, lse, do, rate, seed)
+            kern = (flash_attn_bwd_dq(*bwd), *flash_attn_bwd_dkv(*bwd))
+            p32 = attention_plain(q, k, v, valid, **drop)
+            g32 = attention_bwd_plain(*bwd)
+            p64 = attention_plain(q.double(), k.double(), v.double(), valid,
+                                  **drop)
+            g64 = attention_bwd_plain(q.double(), k.double(), v.double(),
+                                      valid, out.double(), lse.double(),
+                                      do.double(), rate, seed)
+            scale = max(g.abs().max().item() for g in g64)
+            row = {"what": "calls", "Sk": sk, "dropout": rate,
+                   "out_max_abs": p64.abs().max().item(),
+                   "kernel_out": err(out, p64), "plain_out": err(p32, p64),
+                   "grad_scale": scale,
+                   "kernel_grads": [err(g, w) / scale
+                                    for g, w in zip(kern, g64)],
+                   "plain_grads": [err(g, w) / scale
+                                   for g, w in zip(g32, g64)]}
+            rows.append(row)
+            print(f"float64 gap, K1-K3 float32 at S={sk} dropout {rate}: "
+                  f"out (max {row['out_max_abs']:.3f}) kernel "
+                  f"{row['kernel_out']:.3g}, plain "
+                  f"{row['plain_out']:.3g}; dq, dk, dv / {scale:.3g}: "
+                  f"kernel {gap_list(row['kernel_grads'])}, plain "
+                  f"{gap_list(row['plain_grads'])}", flush=True)
+            del p64, g64, p32, g32
+            torch.cuda.empty_cache()
+        zero = torch.zeros_like(q)
+        pos = torch.randn(1, sk, 8, 32, device="cuda", generator=gen).abs()
+        exact_v = (pos.view(torch.int32) & ~0x1FFF).view(torch.float32)
+        for v_kind, vv in (("tf32-exact", exact_v), ("float32", pos)):
+            want = vv.double().mean(1, keepdim=True)
+            rel = {}
+            for path, got in (
+                    ("kernel", flash_attention(zero, k, vv)),
+                    ("plain", attention_plain(zero, k, vv))):
+                r = (got.double() - want) / want
+                rel[path] = (r.mean().item(), r.abs().max().item())
+            row = {"what": "sum", "Sk": sk, "v": v_kind,
+                   "kernel_mean_rel": rel["kernel"][0],
+                   "kernel_max_rel": rel["kernel"][1],
+                   "plain_mean_rel": rel["plain"][0],
+                   "plain_max_rel": rel["plain"][1]}
+            rows.append(row)
+            print(f"float64 gap, K1 float32 sum alone (q = 0, v = |randn| "
+                  f"{v_kind}) at S={sk}: relative error mean "
+                  f"{row['kernel_mean_rel']:.3g}, max "
+                  f"{row['kernel_max_rel']:.3g} (plain "
+                  f"{row['plain_mean_rel']:.3g}, "
+                  f"{row['plain_max_rel']:.3g})", flush=True)
+    b, sq, sk, h, d = site_shape("phrase_bert_self")
+    q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=gen)
+               .to(torch.bfloat16) for s in (sq, sk, sk))
+    valid = new_site_valid(gen, b, sk)
+    for rate in (0.0, DROPOUT):
+        drop = dict(dropout_rate=rate, seed=5 if rate else None)
+        out = flash_attention(q, k, v, valid, **drop)
+        pb = attention_plain(q, k, v, valid, **drop)
+        p64 = attention_plain(q.double(), k.double(), v.double(), valid,
+                              **drop)
+        row = {"what": "phrase_bert_bf16", "dropout": rate,
+               "out_max_abs": p64.abs().max().item(),
+               "n_at_4_or_more": int((p64.abs() >= 4).sum()),
+               "kernel_out": err(out, p64), "plain_bf16_out": err(pb, p64)}
+        rows.append(row)
+        print(f"float64 gap, phrase BERT bf16 dropout {rate}: max |out| "
+              f"{row['out_max_abs']:.3f} ({row['n_at_4_or_more']} at 4 or "
+              f"more); kernel {row['kernel_out']:.4g}, plain bf16 "
+              f"{row['plain_bf16_out']:.4g} from float64", flush=True)
+    from reftr_torch.cli.presets import preset_config
+
+    cfg = preset_config("refcoco_det", dtype="float32")
+    for batch_seed in (2, 5):
+        batch, targets = train_batch(
+            np.random.default_rng(batch_seed), cfg.data.img_size,
+            cfg.data.max_query_len, cfg.model.bert.vocab_size, SERVE_BATCH)
+        row = compare_train_paths(
+            cfg, batch, targets, label=f"float64 gap, refcoco_det step, "
+                                       f"batch seed {batch_seed}",
+            float64=True, check=False)
+        rows.append({"what": "refcoco_det_step", "batch_seed": batch_seed,
+                     **row})
+        torch.cuda.empty_cache()
+    report["float64_gap"] = rows
+    return rows
+
+
 def bytes_to_unicode() -> dict:
     """GPT-2's byte -> symbol table of byte-level BPE: printable bytes map
     to themselves, the others to code points from 256 on."""
@@ -2830,6 +3009,8 @@ def phase8(report: dict, counters) -> dict:
     train_levels(report, counters)
     torch.cuda.empty_cache()
     train_roberta(report, counters)
+    torch.cuda.empty_cache()
+    float64_gap(report)
     return report
 
 

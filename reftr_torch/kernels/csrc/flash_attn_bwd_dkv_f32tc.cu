@@ -243,19 +243,28 @@ flash_bwd_dkv_f32tc_kernel(const float* __restrict__ q,
         }
       }
       // dV += (P^T o keep) dO and dK += dS^T Q: each n-tile is the A
-      // fragment of one 8-query k-step
+      // fragment of one 8-query k-step; the chunk's 16 queries are summed
+      // from zero and added to dV and dK in f32 (flash_tf32.cuh,
+      // "Accumulation")
+      FragA pa[kNT], sa[kNT];
 #pragma unroll
       for (int n = 0; n < kNT; ++n) {
-        const FragA pa = flash_tf32::acc_as_a(st[n]);
-        const FragA sa = flash_tf32::acc_as_a(dpt[n]);
+        pa[n] = flash_tf32::acc_as_a(st[n]);
+        sa[n] = flash_tf32::acc_as_a(dpt[n]);
+      }
 #pragma unroll
-        for (int nd = 0; nd < kN; ++nd) {
+      for (int nd = 0; nd < kN; ++nd) {
+        float pv[4] = {0.f, 0.f, 0.f, 0.f}, pk[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int n = 0; n < kNT; ++n) {
           const FragB bo =
               flash_tf32::load_b_cols<D>(dot, c0 + n * 8, nd * 8);
-          flash_tf32::mma3(dva[nd], pa, bo);
+          flash_tf32::mma3(pv, pa[n], bo);
           const FragB bq = flash_tf32::load_b_cols<D>(qt, c0 + n * 8, nd * 8);
-          flash_tf32::mma3(dka[nd], sa, bq);
+          flash_tf32::mma3(pk, sa[n], bq);
         }
+        flash_tf32::add(dva[nd], pv);
+        flash_tf32::add(dka[nd], pk);
       }
     }
     __syncthreads();  // every warp is done with buffer t & 1

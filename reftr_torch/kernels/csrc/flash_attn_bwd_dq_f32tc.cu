@@ -234,16 +234,22 @@ flash_bwd_dq_f32tc_kernel(const float* __restrict__ q,
           s[n][e] = p * (dpk - di[e >> 1]);
         }
       }
-      // dQ += dS K: each n-tile of dS is the A fragment of one 8-key k-step
+      // dQ += dS K: each n-tile of dS is the A fragment of one 8-key
+      // k-step; the part's 16 keys are summed from zero and added to dQ in
+      // f32 (flash_tf32.cuh, "Accumulation")
+      FragA sa[kNT];
 #pragma unroll
-      for (int n = 0; n < kNT; ++n) {
-        const FragA sa = flash_tf32::acc_as_a(s[n]);
+      for (int n = 0; n < kNT; ++n) sa[n] = flash_tf32::acc_as_a(s[n]);
 #pragma unroll
-        for (int nd = 0; nd < kN; ++nd) {
+      for (int nd = 0; nd < kN; ++nd) {
+        float pq[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int n = 0; n < kNT; ++n) {
           const FragB bk =
               flash_tf32::load_b_cols<D>(kt_s, j0 + n * 8, nd * 8);
-          flash_tf32::mma3(acc[nd], sa, bk);
+          flash_tf32::mma3(pq, sa[n], bk);
         }
+        flash_tf32::add(acc[nd], pq);
       }
     }
     if (next && tid < kTileK) bs[((t + 1) & 1) * kTileK + tid] = next_bias;

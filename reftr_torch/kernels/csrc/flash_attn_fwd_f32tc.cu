@@ -263,20 +263,27 @@ flash_fwd_f32tc_kernel(const float* __restrict__ q,
           s[n][e] = (keep >> (n * 4 + e)) & 1u ? s[n][e] * dr.inv_keep : 0.f;
     }
 
-    // O += P V: each n-tile of P is the A fragment of one 8-key k-step
+    // O += P V: each n-tile of P is the A fragment of one 8-key k-step;
+    // each part's 16 keys are summed from zero and added to O in f32
+    // (flash_tf32.cuh, "Accumulation")
 #pragma unroll
     for (int part = 0; part < kParts; ++part) {
       const int j0 = part * kPart;
       if (t * kTileK + j0 >= Sk) continue;  // p = 0 on every key
+      FragA pa[kNT];
 #pragma unroll
-      for (int n = 0; n < kNT; ++n) {
-        const FragA pa = flash_tf32::acc_as_a(s[part * kNT + n]);
+      for (int n = 0; n < kNT; ++n)
+        pa[n] = flash_tf32::acc_as_a(s[part * kNT + n]);
 #pragma unroll
-        for (int nd = 0; nd < kN; ++nd) {
+      for (int nd = 0; nd < kN; ++nd) {
+        float po[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int n = 0; n < kNT; ++n) {
           const FragB bv =
               flash_tf32::load_b_cols<D>(vt_s, j0 + n * 8, nd * 8);
-          flash_tf32::mma3(o[nd], pa, bv);
+          flash_tf32::mma3(po, pa[n], bv);
         }
+        flash_tf32::add(o[nd], po);
       }
     }
     if (next && tid < kTileK) bs[((t + 1) & 1) * kTileK + tid] = next_bias;

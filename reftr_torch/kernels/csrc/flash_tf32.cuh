@@ -20,6 +20,17 @@
 // fragment element. The card does 495 / 3 = 165 TFLOP/s of such products,
 // against 67 TFLOP/s of float32 FMA outside the tensor cores.
 //
+// Accumulation. mma.sync adds its products into the f32 accumulator with
+// truncation, not rounding to nearest, so an accumulator carried over a
+// whole key (or query) sweep loses up to an ulp of its own size at every
+// mma, always toward zero: the error grows in step with the sweep's
+// length (3 mmas per 8 keys), not as its square root (at 8540 keys K1's
+// sum of positive terms fell 1.7e-5 to 7.7e-5 short of float64; PERF.md).
+// The kernels therefore sum each part of 16 keys (queries) from zero on the
+// tensor cores, 6 mmas, and add the part to the running sum with an f32
+// add (add below), rounded to nearest: the truncation stays within the
+// part, and the running sums round as float32's do.
+//
 // Fragment layouts of mma.m16n8k8 .tf32 (PTX ISA, "Matrix Fragments for
 // mma.m16n8k8"), for lane l, g = l / 4 and t = l % 4:
 //   A (16 x 8, row): a0 = (row g, col t), a1 = (g + 8, t), a2 = (g, t + 4),
@@ -115,6 +126,14 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += x in f32 (rounded to nearest): a part's sum into a running one.
+__device__ __forceinline__ void add(float (&d)[4], const float (&x)[4]) {
+  d[0] += x[0];
+  d[1] += x[1];
+  d[2] += x[2];
+  d[3] += x[3];
 }
 
 // d += a b to float32 accuracy: the two cross terms, then big by big.

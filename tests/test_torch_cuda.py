@@ -13,9 +13,9 @@ Function), as a share of the largest magnitude among the call's plain
 dq, dk and dv (a gradient can be zero in exact arithmetic, as dq and dk
 are with a single key): 1e-4 in float32 (sums of up to 440 terms in
 another order), 1e-2 in bfloat16 (rounding of the output to bf16, 2^-9).
-At the multi-phrase and four-level sites (``long_tol``) the float32
-tolerances grow as the square root of the terms summed beyond 440, and
-K1's bf16 tolerance to one bf16 ulp of the largest output beyond 4.
+At the multi-phrase and four-level sites the same, but for K1 at phrase
+BERT in bf16: one bf16 ulp of the largest output where that is more
+(``chip_smoke.kernel_tol``).
 
 The wrappers pick each kernel's variant by shape, dtype and head dim
 (16 or more rows: the tensor-core kernels, in bf16 and in float32 by
@@ -27,11 +27,10 @@ tensor-core kernels alone launch them at the edges of their 64-row and
 steps, and every route runs at head dims that pad to an instance.
 """
 
-import math
-
 import pytest
 import torch
 
+import chip_smoke
 from reftr_torch.kernels.attention import (FlashAttentionFn,
                                            _launch_bwd_dec, _launch_dkv,
                                            _launch_dq, _launch_fwd,
@@ -998,78 +997,39 @@ def test_res_kernel_path_matches_the_plain_path(gen, monkeypatch):
 # the multi-phrase path's call sites and the four-level encoder
 # ---------------------------------------------------------------------------
 
-# (B, Sq, Sk, H, D) of the flickr preset's new call sites (batch 16, 16
-# phrase slots, 90 sentence tokens, 640 px): BERT over the 256 phrases of
-# 22 tokens, the decoder's self- and cross-attention at 16 queries, the
-# encoder over 90 + 20 x 20 tokens
-MULTI_SHAPES = [(256, 22, 22, 12, 64), (16, 16, 16, 8, 32),
-                (16, 16, 490, 8, 32), (16, 490, 490, 8, 32)]
-# the VL encoder at four feature levels: 40 + 80^2 + 40^2 + 20^2 + 10^2
-LONG_S = 8540
-
-
-def multi_valid(gen, b, sq, sk):
-    """The key masks these sites see: BERT over phrases, "[CLS] [SEP]" (2
-    keys) in 14 of each image's 16 phrase rows and 3-9 keys in the other
-    2; the decoder's self-attention, the 2 real phrases' queries of 16;
-    over the encoder's memory, 10-20 real tokens of the sentence (90, or
-    40 at four levels) and every image token."""
-    ar = torch.arange(sk, device="cuda")[None]
-    if sk == 22:
-        lens = torch.randint(3, 10, (b,), device="cuda", generator=gen)
-        lens = torch.where(torch.arange(b, device="cuda") % 16 < 2, lens, 2)
-        return ar < lens[:, None]
-    if sk == 16:
-        return (ar < 2).expand(b, sk).clone()
-    n_lang = 40 if sk == LONG_S else 90
-    lens = torch.randint(10, 21, (b,), device="cuda", generator=gen)
-    return (ar < lens[:, None]) | (ar >= n_lang)
-
-
-def long_tol(dtype, terms, want):
-    """K1's tolerance against the plain version in float32, and the
-    factor on GRAD_TOL, for sums over ``terms`` keys (queries): TOL and
-    GRAD_TOL hold sums of up to 440 terms and bf16 outputs up to 4. In
-    float32 both grow as the square root of the terms beyond that (the
-    kernels' order-dependent rounding: 3.7e-6 against float64 at 440 keys,
-    9e-6 to 1.3e-5 at 8540); in bf16 K1's grows to one bf16 ulp of the
-    largest output (phrase rows of 2 keys with dropout reach 4.8, where
-    the output's and P's roundings to bf16 add to 0.025)."""
-    if dtype == torch.float32:
-        f = max(1.0, (terms / 440) ** 0.5)
-        return TOL[dtype] * f, f
-    top = want.float().abs().max().item()
-    return max(TOL[dtype], 2.0 ** (math.floor(math.log2(top)) - 7)), 1.0
-
-
-def multi_inputs(gen, b, sq, sk, h, d, dtype):
-    q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=gen)
-               .to(dtype) for s in (sq, sk, sk))
-    return q, k, v, multi_valid(gen, b, sq, sk)
+# the flickr preset's new call sites (batch 16, 16 phrase slots, 90
+# sentence tokens, 640 px: BERT over the 256 phrases of 22 tokens, the
+# decoder's self- and cross-attention at 16 queries, the encoder over 90 +
+# 20 x 20 tokens) and the VL encoder at four feature levels (40 + 80^2 +
+# 40^2 + 20^2 + 10^2 tokens) at B=1: their shapes, key masks and K1's
+# tolerance are chip_smoke.py's (site_inputs, kernel_tol), so the smoke's
+# phase 8 and these tests hold the kernels to one rule
+NEW_SITES = list(chip_smoke.MULTI_SITES) + ["vl_encoder_4_levels"]
+DTYPE_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", MULTI_SHAPES + [(1, LONG_S, LONG_S, 8, 32)])
-def test_multi_phrase_and_long_sites_match_plain(gen, shape, dtype, rate):
+@pytest.mark.parametrize("site", NEW_SITES)
+def test_multi_phrase_and_long_sites_match_plain(gen, site, dtype, rate):
     """K1 with its lse, K2 and K3 at the new sites, each through the
     tensor-core kernels (16 or more queries and keys), against the plain
     versions (K1's in float32, as test_kernel_matches_plain's: two
-    roundings to bf16 of one value may part by an ulp), at ``long_tol``;
-    the four-level encoder at B=1, where the plain version's [B, H, S, S]
-    scores fit."""
-    b, sq, sk, h, d = shape
+    roundings to bf16 of one value may part by an ulp), at
+    chip_smoke.kernel_tol and GRAD_TOL; the four-level encoder at B=1,
+    where the plain version's [B, H, S, S] scores fit."""
+    b, sq, sk, h, d = chip_smoke.site_shape(site)
     assert fwd_variant(sq, dtype, d) == dq_variant(sq, dtype, d) == \
         dkv_variant(sq, sk, dtype, d) == (
             "tc" if dtype == torch.bfloat16 else "tf32x3")
-    q, k, v, valid = multi_inputs(gen, b, sq, sk, h, d, dtype)
+    q, k, v, valid = chip_smoke.site_inputs(gen, site, dtype)
     seed = 0xABCD_0123_4567 if rate else None
     out, lse = flash_attention(q, k, v, valid, return_lse=True,
                                dropout_rate=rate, seed=seed)
     want, want_lse = attention_plain(q.float(), k.float(), v.float(), valid,
                                      return_lse=True, dropout_rate=rate,
                                      seed=seed)
-    tol, grad_factor = long_tol(dtype, max(sq, sk), want)
+    tol = chip_smoke.kernel_tol(DTYPE_NAME[dtype], site, want)
     torch.testing.assert_close(out.float(), want, atol=tol, rtol=0)
     torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-6)
     do = torch.randn(out.shape, device="cuda", generator=gen).to(dtype)
@@ -1079,7 +1039,7 @@ def test_multi_phrase_and_long_sites_match_plain(gen, shape, dtype, rate):
     torch.cuda.synchronize()
     scale = max(w.float().abs().max().item() for w in wants)
     for got, w in zip((dq, dk, dv), wants):
-        rel_close(got, w, GRAD_TOL[dtype] * grad_factor, floor=scale)
+        rel_close(got, w, GRAD_TOL[dtype], floor=scale)
 
 
 def k1_kept(q, k, valid, rate, seed, first_row=0):
@@ -1099,12 +1059,12 @@ def k1_kept(q, k, valid, rate, seed, first_row=0):
     return kept, live_keys[first_row:, None, None, :].expand_as(kept)
 
 
-@pytest.mark.parametrize("shape", MULTI_SHAPES + [(1, LONG_S, LONG_S, 8, 32)])
-def test_dropout_mask_is_exact_at_the_new_sites(gen, shape):
+@pytest.mark.parametrize("site", NEW_SITES)
+def test_dropout_mask_is_exact_at_the_new_sites(gen, site):
     """Through the bf16 tensor-core K1 (the multi-phrase path's dtype):
     its kept set equals the plain Philox mask on every readable key."""
-    b, sq, sk, h, d = shape
-    q, k, _, valid = multi_inputs(gen, b, sq, sk, h, d, torch.bfloat16)
+    b, sq, sk, h, d = chip_smoke.site_shape(site)
+    q, k, _, valid = chip_smoke.site_inputs(gen, site, torch.bfloat16)
     rate, seed = 0.1, 0xFEED
     kept, live = k1_kept(q, k, valid, rate, seed)
     keep = philox_keep_plain(seed, b, h, sq, sk, rate, "cuda")
@@ -1115,8 +1075,9 @@ def test_dropout_mask_is_exact_past_2_to_the_32(gen):
     """The four-level encoder at B=8: B * H * S^2 = 4.67e9 elements, so
     the last batch row's offsets run past 2^32 (from head 3 on). Its kept
     set equals the plain mask of that row, drawn from its own offsets."""
-    b, s, h, d = 8, LONG_S, 8, 32
-    q, k, _, valid = multi_inputs(gen, b, s, s, h, d, torch.bfloat16)
+    site = "vl_encoder_4_levels_b8"
+    b, s, _, h, d = chip_smoke.site_shape(site)
+    q, k, _, valid = chip_smoke.site_inputs(gen, site, torch.bfloat16)
     rate, seed = 0.1, 0x2_0000_0001
     assert (b - 1) * h * s * s < 2 ** 32 < b * h * s * s
     kept, live = k1_kept(q, k, valid, rate, seed, first_row=b - 1)
