@@ -7,14 +7,17 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. Print the card's name and power limit, then build every kernel of the
    serving and training paths from the sources in this checkout
    (reftr_torch/kernels/csrc/flash_attn_fwd.cu, flash_attn_fwd_tc.cu,
-   flash_attn_fwd_f32tc.cu, flash_attn_fwd_dec.cu, flash_attn_bwd.cu,
-   flash_attn_bwd_dq_tc.cu, flash_attn_bwd_dkv_tc.cu,
-   flash_attn_bwd_dq_f32tc.cu, flash_attn_bwd_dkv_f32tc.cu and
-   flash_attn_bwd_dec.cu, one nvcc each for sm_90a, started together with
-   one g++ of the data pipeline's C++ under reftr_torch/data/csrc/), and
-   count the tensor-core products (HMMA) in the machine code of the
-   six tensor-core kernels, bf16 and 3xTF32 (cuobjdump -sass): none fails
-   the run.
+   flash_attn_fwd_wg.cu, flash_attn_fwd_f32tc.cu, flash_attn_fwd_dec.cu,
+   flash_attn_bwd.cu, flash_attn_bwd_dq_tc.cu, flash_attn_bwd_dkv_tc.cu,
+   flash_attn_bwd_dkv_wg.cu, flash_attn_bwd_dq_f32tc.cu,
+   flash_attn_bwd_dkv_f32tc.cu and flash_attn_bwd_dec.cu, one nvcc each
+   for sm_90a, started together with one g++ of the data pipeline's C++
+   under reftr_torch/data/csrc/), and count the tensor-core products in
+   the machine code (cuobjdump -sass): HMMA in the six mma.sync kernels,
+   bf16 and 3xTF32, HGMMA (wgmma) in the two warpgroup kernels; none fails
+   the run. Read what the bound needs: the SM count, the SM clock
+   nvidia-smi gives as its maximum, and the IMADs of a Philox call in
+   K1-wg's machine code.
 2. The forward kernel (K1) against its plain PyTorch version on the card,
    at the four call sites of the refcoco_det forward (B=8), with random key
    padding and one row whose keys are all masked, in float32 and bfloat16,
@@ -46,9 +49,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    Gradient tolerance, as a share of the largest magnitude among the plain
    dq, dk and dv: 1e-4 in float32 (sums of up to 440 terms in another
    order, at most 2.6e-5 of the largest term), 1e-2 in bfloat16 (the
-   kernels round their output to bf16, 2^-9 = 2e-3). Phase 8 holds its
-   sites to the same, but for K1 at phrase BERT in bf16: one bf16 ulp of
-   the largest output where that exceeds 2e-2 (kernel_tol). Then exact mask
+   kernels round their output to bf16, 2^-9 = 2e-3). K1 in bf16 here and
+   in phase 8: 2e-2 of the largest plain output, at most 2e-2, and at
+   phrase BERT one bf16 ulp of the largest output where that is more
+   (kernel_tol). Then exact mask
    checks in float32 and in bfloat16 at every site (so through every
    variant of K1, K2 and K3): v one-hot over the head dim makes K1's
    output p * keep for D keys at a time; q = 0, lse = 0, O = 0 and dO, v
@@ -61,7 +65,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    each kernel, its plain version, its bound and the yardsticks: SDPA's
    forward, and its backward, which covers K2 and K3 together. The bound
    reckons float32 products at the 165 TFLOP/s of float32-accurate
-   products that 3xTF32 gets from the tensor cores.
+   products that 3xTF32 gets from the tensor cores, and takes the largest
+   of the bytes, the products, one MUFU.EX2 a (query, key) pair at 16 a
+   clock per SM and, with dropout, a quarter of a Philox call a pair at 64
+   IMADs a clock per SM (attention_bound_terms). Where the rule sends K1
+   or K3 to a warpgroup kernel ("wg"), the mma.sync kernel ("tc") is
+   checked and timed beside it, the same-run "before"; K3-wg alone
+   computes di = rowsum(dO * O) in its wrapper (K2-TC gives it in a
+   step), and is timed on a di computed before the timed calls.
    Then head dims off the kernels' instances (HEAD_DIM_SWEEP: 8, 24, 48
    and 96 pad to the next of 16, 32, 64, 128; 160 and 256 take the plain
    versions by the rule), in both dtypes with and without dropout, K1, K2
@@ -72,6 +83,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    reaches: B=8, Sq=440, Sk=8, H=8, D=32 in both dtypes, with and without
    dropout, against attention_bwd_plain, with its bound, the plain time
    and SDPA's backward.
+   3d. The warpgroup kernels against the mma.sync ones and SDPA in one
+   process (wg_times), in bf16 without dropout and with 0.1, at the VL
+   encoder at 1-4 feature levels (440^2, 2040^2, 8440^2 and 8540^2, B=8;
+   at four levels also with each image padded), flickr's at 1 and 2
+   (490^2 and 2090^2, B=16) and flickr's decoder over 490 keys: K1 "tc",
+   "wg" and SDPA's forward; K2-TC and K3 "tc" and "wg" against SDPA's
+   backward; CUDA events, in turns, the median of three. "wg" is checked
+   against the plain version at phase 3's tolerances: on all the inputs
+   where its scores fit, else on batch row 0 (B=1).
 4. The serving path at full width: refcoco_det (ResNet-50, BERT-base,
    6+6 VL layers, d=256) at 640x640 with seeded random weights, bfloat16,
    behind a MicroBatcher with serve batch 8. Six requests of 1-3 phrases
@@ -103,12 +123,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    Every loss and gradient norm must be finite, the mean loss of the last
    3 steps below that of the first 3 (a memorised batch), and each of K1,
    K2 and K3 launched exactly 30 times per step, 18 of each (BERT and
-   encoder) through the tensor-core kernels and the other 12 of each (the
-   decoder) through the decode kernels (K2's and K3's 12 are the decode
+   encoder) through the tensor-core kernels (the encoder's 6 of K3 on its
+   warpgroup kernel, by the rule) and the other 12 of each (the decoder)
+   through the decode kernels (K2's and K3's 12 are the decode
    backward's 12 launches, each counted on both): none through the SIMT
    kernels. It reports the median
    host-to-host step time after 3 warm-up steps, the peak device memory
-   and one step's device time by kernel category. Then one float32 step
+   and one step's device time by kernel category, and the step time by
+   the rule and with the encoder's K3 on "tc", in turns (k3_route_steps).
+   Then one float32 step
    with dropout 0 from one set of weights through the kernels and through
    the plain attention: the loss within 1e-5 relative, and every trainable
    gradient within 1e-3 relative L2 of the plain path's, measured against
@@ -207,27 +230,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    d) refcoco_det at four feature levels (the encoder over 40 + 80^2 +
    40^2 + 20^2 + 10^2 = 8540 tokens) through the entry point in bf16: 4
    steps and 8 eval batches, 30 launches of each kernel a step and of K1
-   an eval batch (18 on the tensor cores, 12 on the decode kernels); one
-   profiled bf16 step with its attention share; K1, K2 and K3 against
+   an eval batch (18 on the tensor cores, of which the encoder's 6 of K1
+   and of K3 on the warpgroup kernels, 12 on the decode kernels); one
+   profiled bf16 step with its device time and attention share, and the
+   same step with K1 and K3 on the mma.sync kernels (the same-run
+   "before"); K1, K2 and K3 against
    their plain versions at the encoder at B=1 (the plain version's
    [B, H, S, S] scores fit there) in both dtypes with exact masks; the
    masks of K1, K2 and K3 exact in the last batch row at B=8, whose
-   element offsets run past 2^32; the kernels' times at B=8 against SDPA
-   and the bound. e) flickr_roberta (RoBERTa-base's widths: vocabulary
-   50265, 514 positions, pad id 1) on the fixture through the entry point
-   over a byte-level vocabulary the script writes: 2 steps and 4 eval
-   batches, 42 launches of each kernel a step, every loss finite. The
-   checkpoints are deleted. f) Report only (float64_gap): the float32
-   kernels' and the plain float32 version's distance from float64 at 440,
-   2000 and 8540 keys, K1's sum alone (q = 0) there, and phrase BERT's
-   bf16 outputs against float64.
+   element offsets run past 2^32; the float32 kernels' times at B=8
+   against SDPA and the bound (bf16's are phase 3d's). e) flickr_roberta
+   (RoBERTa-base's widths: vocabulary 50265, 514 positions, pad id 1) on
+   the fixture through the entry point over a byte-level vocabulary the
+   script writes: 2 steps and 4 eval batches, 42 launches of each kernel
+   a step, every loss finite. The checkpoints are deleted. f) Report only
+   (float64_gap): the float32 kernels' and the plain float32 version's
+   distance from float64 at 440, 2000 and 8540 keys, K1's sum alone
+   (q = 0) there, the bf16 kernels' sums there (K1's sum alone and K3's
+   dV sum, "tc" and "wg" beside the plain bf16 version), and phrase
+   BERT's bf16 outputs against float64.
 9. Print one JSON line listing each kernel (each variant on a row of its
    own; the decode backward on one row for K2 and K3) with its launches
    on the main paths (phase 8's runs included, also on their own), its
    error, and its times and bound at the call site
    where the main path launches it (the decoder's cross-attention for the
    decode and SIMT kernels, the VL encoder for the tensor-core kernels, in
-   float32 for the 3xTF32 ones) on this card.
+   float32 for the 3xTF32 ones, the four-level encoder at B=8 for the
+   warpgroup kernels, from phase 3d) on this card.
 10. Print {"ok": true, "device": {...}} as the last line.
 
 It needs a CUDA card and the reftr_torch package beside it; without
@@ -270,6 +299,10 @@ MODEL_TOL_BF16_REL = 5e-2
 DROPOUT = 0.1  # the preset's rate: attention and hidden dropout
 TRAIN_STEPS = 20
 WARM_STEPS = 3
+# phase 5's step by the rule and with K3 on "tc": turns of each, steps a
+# turn
+K3_AB_TURNS = 4
+K3_AB_STEPS = 5
 TRAIN_LOSS_TOL = 1e-5  # f32 kernel path vs plain path, relative
 TRAIN_GRAD_TOL = 1e-3  # relative L2 per trainable gradient
 # kernels of the main paths: the C entry point, its source, the Pallas
@@ -279,6 +312,8 @@ KERNELS = {
                        "reftr_tpu/kernels/attention.py:86", "simt"),
     "flash_attn_fwd_tc": ("flash_attn_fwd_tc.cu",
                           "reftr_tpu/kernels/attention.py:86", "tc"),
+    "flash_attn_fwd_wg": ("flash_attn_fwd_wg.cu",
+                          "reftr_tpu/kernels/attention.py:86", "wg"),
     "flash_attn_fwd_f32tc": ("flash_attn_fwd_f32tc.cu",
                              "reftr_tpu/kernels/attention.py:86", "tf32x3"),
     "flash_attn_fwd_dec": ("flash_attn_fwd_dec.cu",
@@ -294,6 +329,8 @@ KERNELS = {
                            "reftr_tpu/kernels/attention.py:287", "simt"),
     "flash_attn_bwd_dkv_tc": ("flash_attn_bwd_dkv_tc.cu",
                               "reftr_tpu/kernels/attention.py:287", "tc"),
+    "flash_attn_bwd_dkv_wg": ("flash_attn_bwd_dkv_wg.cu",
+                              "reftr_tpu/kernels/attention.py:287", "wg"),
     "flash_attn_bwd_dkv_f32tc": ("flash_attn_bwd_dkv_f32tc.cu",
                                  "reftr_tpu/kernels/attention.py:287",
                                  "tf32x3"),
@@ -312,14 +349,19 @@ PRODUCTS = {"flash_attn_fwd": 2, "flash_attn_bwd_dq": 3,
 # + 6 encoder (in float32 to the 3xTF32 ones); the decoder's 12
 # single-query calls take K1's decode kernel and the decode backward
 TC_PER_FORWARD = 18
-DEC_PER_FORWARD = 12
+# (calls per forward, Sq, Sk, D) of refcoco_det's attention sites at 640 px:
+# BERT-base over 40 tokens, the VL encoder over 440, the decoder's self-
+# and cross-attention of its single query
+REC_SITES = ((12, 40, 40, 64), (6, 440, 440, 32), (6, 1, 1, 32),
+             (6, 1, 440, 32))
 F32_TRAIN_STEPS = 8  # the timed float32 training run
 # the call site and dtype where the main path launches each variant, for
 # the kernels line: the SIMT kernels have no launch on the main paths and
 # stand at the decoder's site, where they ran before the decode kernels;
 # the 3xTF32 kernels run in the float32 forward and step
 MAIN_SITE = {"tc": "vl_encoder_self", "dec": "decoder_cross",
-             "simt": "decoder_cross", "tf32x3": "vl_encoder_self"}
+             "simt": "decoder_cross", "tf32x3": "vl_encoder_self",
+             "wg": "vl_encoder_4_levels_b8"}
 MAIN_DTYPE = {"tf32x3": "float32"}
 # (B, Sq, Sk, H, D) where the rule sends K3 to SIMT: 16 or more queries and
 # fewer than 16 keys, which no call site of the model reaches
@@ -380,10 +422,6 @@ MULTI_EVAL = MULTI_MODEL_DATA + ["--eval", "--resume",
                                  str(MULTI_OUT / "checkpoint")]
 MULTI_STEPS = 8
 MULTI_EVAL_BATCHES = 4
-# attention calls per multi-phrase forward: 12 BERT over the sentence, 12
-# BERT over the B * 16 phrases, 6 encoder, 6 + 6 decoder layers at 16
-# phrase queries: every one fills a tensor-core tile
-MULTI_PER_FORWARD = 42
 # (B, Sq, Sk, H, D) of the call sites phase 8 adds: flickr's BERT over the
 # phrases, its decoder at 16 queries and its encoder over 90 + 20^2
 # tokens; the VL encoder at four feature levels (40 + 80^2 + 40^2 + 20^2 +
@@ -397,9 +435,28 @@ NEW_SITES = {
     "multi_vl_encoder_self": (16, 490, 490, 8, 32),
     "vl_encoder_4_levels": (1, LONG_S, LONG_S, 8, 32),
     "vl_encoder_4_levels_b8": (SERVE_BATCH, LONG_S, LONG_S, 8, 32),
+    # the same with each image padded on the canvas, as a batch of images
+    # of unequal sizes has it: masked keys in nearly every key tile
+    "vl_encoder_4_levels_b8_padded": (SERVE_BATCH, LONG_S, LONG_S, 8, 32),
+    # the VL encoders at 2 and 3 feature levels (phase 3d): refcoco_det's
+    # 40 + 40^2 + 20^2 and 40 + 80^2 + 40^2 + 20^2 tokens, flickr's 90 +
+    # 40^2 + 20^2
+    "vl_encoder_2_levels_b8": (SERVE_BATCH, 2040, 2040, 8, 32),
+    "vl_encoder_3_levels_b8": (SERVE_BATCH, 8440, 8440, 8, 32),
+    "multi_vl_encoder_2_levels": (16, 2090, 2090, 8, 32),
 }
+# the image tokens of the 640 px canvas at 1-4 feature levels: the last
+# min(n, 3) backbone stages, 20^2, 40^2 and 80^2, and a 10^2 extra
+IMAGE_TOKENS = (400, 2000, 8400, 8500)
+# the four levels' feature maps of the 640 px canvas (strides 8-64)
+LEVEL_SIDES = (80, 40, 20, 10)
 MULTI_SITES = ("phrase_bert_self", "multi_decoder_self",
                "multi_decoder_cross", "multi_vl_encoder_self")
+# (calls per forward, Sq, Sk, D) of flickr's and flickr_roberta's sites:
+# BERT (or RoBERTa) over the 90-token sentence and the 22-token phrases,
+# the encoder over 490, the decoder at 16 phrase queries
+MULTI_FORWARD_SITES = ((12, 90, 90, 64), (12, 22, 22, 64),
+                       (6, 490, 490, 32), (6, 16, 16, 32), (6, 16, 490, 32))
 # refcoco_det at four feature levels through the entry point in bf16: 32
 # train items in batches of 8 (4 steps), the fixture's 64 eval items (8
 # eval batches)
@@ -410,6 +467,9 @@ LEVELS_TRAIN = ["--preset", "refcoco_det", "--num_feature_levels", "4",
                 "4", "--epochs", "1", "--output_dir", str(LEVELS_OUT)]
 LEVELS_STEPS = 4
 LEVELS_EVAL_BATCHES = 8
+# (calls per forward, Sq, Sk, D) of refcoco_det at four feature levels
+LEVELS_SITES = ((12, 40, 40, 64), (6, LONG_S, LONG_S, 32), (6, 1, 1, 32),
+                (6, 1, LONG_S, 32))
 # flickr_roberta on the multi-phrase fixture: RoBERTa-base's widths over a
 # byte-level vocabulary written under --data_root (the 256 byte symbols
 # and <s> <pad> </s> <unk>, no merges); 32 items in batches of 16
@@ -421,11 +481,16 @@ ROBERTA_TRAIN = ["--preset", "flickr_roberta", "--dataset",
                  str(ROBERTA_OUT)]
 ROBERTA_STEPS = 2
 ROBERTA_EVAL_BATCHES = 4
-# RoBERTa-base has BERT-base's 12 layers of 12 heads of 64
-ROBERTA_PER_FORWARD = MULTI_PER_FORWARD
 # the element offset the kernels count in 64 bits: the masks are checked
 # past it
 OFFSET_32 = 2 ** 32
+# phase 3d: the sites where the warpgroup kernels are timed against the
+# mma.sync ones and SDPA, and the turns of each
+WG_TIME_SITES = ("vl_encoder_self", "multi_vl_encoder_self",
+                 "vl_encoder_2_levels_b8", "multi_vl_encoder_2_levels",
+                 "vl_encoder_3_levels_b8", "vl_encoder_4_levels_b8",
+                 "vl_encoder_4_levels_b8_padded", "multi_decoder_cross")
+WG_TIME_TURNS = 3
 # phase 8f (report only): the key counts at which the float32 kernels and
 # the plain float32 version are held to float64 (B=1, H=8, D=32):
 # refcoco_det's encoder, one between, the encoder at four feature levels
@@ -435,6 +500,16 @@ GAP_KEYS = (440, 2000, LONG_S)
 # (the f32 FMA rate outside the tensor cores, 67 TFLOP/s, is lower)
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
+# per SM and clock: MUFU.EX2 results (the special-function units; 3.9
+# TFLOP/s of special functions on the H100 SXM, FlashAttention-3's figure)
+# and 32-bit integer multiply-adds (IMAD, half the FP32 rate)
+EX2_PER_CLOCK = 16
+IMAD_PER_CLOCK = 64
+# the Philox4x32-10 multipliers (flash_common.cuh::philox4)
+PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+# this card, for the bound: SMs, the SM clock nvidia-smi gives as its
+# maximum, and the IMADs of one Philox call in the built K1-wg (phase 1)
+CARD = {}
 
 
 def card_line() -> str:
@@ -508,30 +583,122 @@ def sum_ms(*values):
     return None if None in values else sum(values)
 
 
-def sass_count(so: Path, opcode: str) -> int:
-    """Instructions of ``opcode`` in a built library's machine code
-    (cuobjdump -sass, beside nvcc in the toolkit)."""
+def sass_text(so: Path) -> str:
+    """A built library's machine code (cuobjdump -sass, beside nvcc in the
+    toolkit)."""
     from reftr_torch.kernels import _nvcc
 
     tool = Path(_nvcc.nvcc_path()).with_name("cuobjdump")
-    out = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
-                         text=True, check=True, timeout=300)
+    return subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+
+
+def sass_count(so: Path, opcode: str, text: str = None) -> int:
+    """Instructions of ``opcode`` in a built library's machine code."""
     pattern = re.compile(rf"\*/\s+(@!?P\w+\s+)?{opcode}\b")
-    return sum(bool(pattern.search(line)) for line in out.stdout.splitlines())
+    return sum(bool(pattern.search(line))
+               for line in (text or sass_text(so)).splitlines())
 
 
-def attention_bound_ms(b, sq, sk, h, d, valid, dtype_name,
-                       kernel="flash_attn_fwd") -> tuple:
-    """Least time for one call of ``kernel`` on this card: each input read
-    once and each output written once, against its products over the keys
-    this data needs (the valid keys; all sk keys for a row with none
-    valid). The forward reads q, k, v and writes out; the backward
-    kernels read q, k, v, O, dO and lse and write dq, or dk and dv, or (the
-    decode backward, flash_attn_bwd) all three."""
+# the opcodes counted in the bf16 kernels' machine code (phase 1)
+SASS_OPCODES = ("HMMA", "HGMMA", "MUFU.EX2", "FFMA", "FMUL", "FADD",
+                "FMNMX", "F2FP", "IMAD", "LOP3", "SHFL", "LDS", "LDG")
+
+
+def function_sass(text: str, marker: str) -> str:
+    """The machine code of the one function whose name holds ``marker``
+    (cuobjdump -sass prints a "Function : <mangled name>" line before
+    each)."""
+    parts = re.split(r"\n\s*Function : ", text)
+    found = [p for p in parts[1:] if marker in p.split("\n", 1)[0]]
+    return found[0] if len(found) == 1 else ""
+
+
+def sass_profile(libs: dict) -> dict:
+    """Per bf16 kernel at D = 32 (a "tc" kernel's instance whose mangled
+    name holds ILi32E; a "wg" kernel has that one instance, named
+    *_wg_kernel), the static count of each of SASS_OPCODES in its machine
+    code (the whole function: its unrolled loop, prologue and epilogue, the
+    dropout path and the path without), and ptxas's lines for it
+    (registers, spills; -Xptxas -v, kept beside the library)."""
+    out = {}
+    for src, _, variant in KERNELS.values():
+        if variant not in ("tc", "wg") or src in out:
+            continue
+        marker = "ILi32E" if variant == "tc" else "wg_kernel"
+        code = function_sass(sass_text(libs[src]), marker)
+        log = libs[src].with_suffix(".log").read_text().split("\n")
+        # the lines after the D = 32 instance's "Compiling entry" line
+        at = next((i for i, line in enumerate(log)
+                   if "Compiling entry" in line and marker in line), None)
+        ptxas = ([] if at is None else
+                 [line.split(":", 1)[-1].strip() for line in log[at + 1:at + 4]
+                  if "spill" in line or "registers" in line
+                  or "C7514" in line])
+        out[src] = {"ptxas": ptxas, "sass": {
+            op: sass_count(None, op, code) for op in SASS_OPCODES}}
+    return out
+
+
+def philox_imad_per_call(text: str):
+    """The integer multiply-adds one Philox4x32-10 call issues, counted in
+    machine code: the IMAD instructions that take a Philox multiplier (as
+    an immediate, or its negative), over the calls. Every round multiplies
+    counter word 0 by the first multiplier, so a call has 10 such products,
+    one instruction each where the compiler forms the 64-bit product in
+    one IMAD.WIDE, two (.HI and the low word) otherwise. None where the
+    code holds no such instruction."""
+    forms = {m: (f"0x{m:x}", f"-0x{(1 << 32) - m:x}") for m in PHILOX_M}
+    count = {m: 0 for m in PHILOX_M}
+    wide = 0
+    for line in text.splitlines():
+        if "IMAD" not in line:
+            continue
+        for m, (pos, neg) in forms.items():
+            if re.search(rf"(?<![\w-]){pos}\b|{neg}\b", line):
+                count[m] += 1
+                wide += m == PHILOX_M[0] and ".WIDE" in line
+    first = count[PHILOX_M[0]]
+    if first == 0:
+        return None
+    calls = first / (10 * (1 if wide == first else 2))
+    return sum(count.values()) / calls
+
+
+def card_numbers(libs: dict) -> dict:
+    """CARD: the SM count, the SM clock nvidia-smi gives as its maximum
+    (clocks.max.sm, MHz) and the IMADs of a Philox call in K1-wg's
+    machine code."""
+    import torch
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60)
+    CARD.update({
+        "sms": torch.cuda.get_device_properties(0).multi_processor_count,
+        "sm_clock_hz": float(out.stdout.strip().splitlines()[0]) * 1e6,
+        "philox_imad_per_call": philox_imad_per_call(
+            sass_text(libs["flash_attn_fwd_wg.cu"]))})
+    return CARD
+
+
+def attention_bound_terms(b, sq, sk, h, d, valid, dtype_name,
+                          kernel="flash_attn_fwd", dropout=0.0) -> dict:
+    """The least time (ms) one call of ``kernel`` could take on this card,
+    by what limits it: "bytes", each input read once and each output
+    written once (the forward reads q, k, v and writes out; the backward
+    kernels read q, k, v, O, dO and lse and write dq, or dk and dv, or, the
+    decode backward, flash_attn_bwd, all three); "tensor", its products
+    over the (query, key) pairs this data needs (the valid keys; all sk
+    keys for a row with none valid) at the tensor cores' peak; "exp", one
+    MUFU.EX2 a pair at EX2_PER_CLOCK a clock per SM; with dropout
+    "philox", a quarter of a Philox call a pair (one call gives four
+    decisions) at CARD's IMADs per call, IMAD_PER_CLOCK a clock per SM."""
     import torch
 
     # every variant of a kernel does the same work
-    for suffix in ("_f32tc", "_tc", "_dec"):
+    for suffix in ("_f32tc", "_tc", "_wg", "_dec"):
         kernel = kernel.removesuffix(suffix)
     es = 4 if dtype_name == "float32" else 2
     qs, ks = b * sq * h * d * es, b * sk * h * d * es
@@ -541,25 +708,47 @@ def attention_bound_ms(b, sq, sk, h, d, valid, dtype_name,
               "flash_attn_bwd_dkv": 3 * qs + 4 * ks + lse,
               "flash_attn_bwd": 4 * qs + 4 * ks + lse}[kernel] + b * sk
     keys = torch.where(valid.any(-1), valid.sum(-1), sk)
-    flops = 2.0 * PRODUCTS[kernel] * h * d * sq * float(keys.sum())
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
-                                 "operations")
+    pairs = h * sq * float(keys.sum())
+    sm_rate = CARD["sms"] * CARD["sm_clock_hz"]
+    terms = {"bytes": nbytes / PEAK_BYTES_S * 1e3,
+             "tensor": (2.0 * PRODUCTS[kernel] * d * pairs
+                        / PEAK_FLOPS[dtype_name] * 1e3),
+             "exp": pairs / (EX2_PER_CLOCK * sm_rate) * 1e3}
+    if dropout > 0.0 and CARD.get("philox_imad_per_call"):
+        terms["philox"] = (pairs / 4 * CARD["philox_imad_per_call"]
+                           / (IMAD_PER_CLOCK * sm_rate) * 1e3)
+    return terms
+
+
+def attention_bound_ms(b, sq, sk, h, d, valid, dtype_name,
+                       kernel="flash_attn_fwd", dropout=0.0) -> tuple:
+    """The largest of attention_bound_terms, and what it is: "bytes" or
+    "operations" (tensor products, exponentials or Philox's multiplies)."""
+    terms = attention_bound_terms(b, sq, sk, h, d, valid, dtype_name, kernel,
+                                  dropout)
+    top = max(terms, key=terms.get)
+    return terms[top], "bytes" if top == "bytes" else "operations"
 
 
 def kernel_tol(name: str, site: str, want) -> float:
     """K1's tolerance against the plain version in float32 on the same
-    inputs at ``site``: KERNEL_TOL, which in bf16 holds the roundings of
-    the output and of P to bf16 at magnitudes below 4 (2^-9 of 4 each). At
-    phrase BERT in bf16 it is one bf16 ulp of the largest output where
-    that is more: rows of 2 keys with dropout reach 4.8 there, where the
-    output's half ulp alone is 0.0156 and P's rounding adds to it."""
-    if name == "float32" or site != "phrase_bert_self":
+    inputs at ``site``. In float32, KERNEL_TOL. In bf16, KERNEL_TOL of the
+    largest output, and never more than KERNEL_TOL: the roundings of the
+    output and of P to bf16 are each 2^-9 of what they round, so the error
+    follows the output's size. Where every row has thousands of live keys
+    (the encoder at 2-4 feature levels) the output is about
+    sqrt(e / keys) = 0.02 and an absolute 2e-2 would pass a P V that is
+    partly wrong. At phrase BERT it is one bf16 ulp of the largest output
+    where that is more: rows of 2 keys with dropout reach 4.8 there, where
+    the output's half ulp alone is 0.0156 and P's rounding adds to it."""
+    if name == "float32":
         return KERNEL_TOL[name]
     top = want.float().abs().max().item()
+    tol = KERNEL_TOL[name] * min(1.0, top)
+    if site != "phrase_bert_self":
+        return tol
     ulp = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
-    return max(KERNEL_TOL[name], ulp)
+    return max(tol, ulp)
 
 
 def site_shape(site: str) -> tuple:
@@ -574,9 +763,10 @@ def new_site_valid(gen, b: int, sk: int):
     """The key masks phase 8's sites see: BERT over phrases, "[CLS] [SEP]"
     (2 keys) in 14 of each image's 16 phrase rows and 3-9 keys in the
     other 2; the decoder's self-attention, the 2 real phrases' queries of
-    16; over the encoder's memory, 10-20 real tokens of the sentence (90,
-    or 40 at four feature levels) and every image token (the fixture's
-    square images fill the canvas)."""
+    16; over the encoder's memory, 10-20 real tokens of the sentence
+    (flickr's 90 or refcoco_det's 40: the keys before the image tokens)
+    and every image token (the fixture's square images fill the
+    canvas)."""
     import torch
 
     ar = torch.arange(sk, device="cuda")[None]
@@ -586,9 +776,29 @@ def new_site_valid(gen, b: int, sk: int):
         return ar < lens[:, None]
     if sk == NEW_SITES["multi_decoder_self"][2]:
         return (ar < 2).expand(b, sk).clone()
-    n_lang = 40 if sk == LONG_S else 90
+    n_lang = sk - max(n for n in IMAGE_TOKENS if n < sk)
     lens = torch.randint(10, 21, (b,), device="cuda", generator=gen)
     return (ar < lens[:, None]) | (ar >= n_lang)
+
+
+def padded_levels_valid(gen, b: int):
+    """The key masks of the four-level encoder over images of unequal
+    sizes: 10-20 real tokens of the 40-token sentence, then each level's
+    map (LEVEL_SIDES) valid over the image's part of the canvas, an image
+    of 320-640 px on each side (the serving path's pad_batch)."""
+    import torch
+
+    n_lang = LONG_S - sum(side * side for side in LEVEL_SIDES)
+    lens = torch.randint(10, 21, (b,), device="cuda", generator=gen)
+    rows = [torch.arange(n_lang, device="cuda")[None] < lens[:, None]]
+    hw = torch.randint(320, 641, (b, 2), device="cuda", generator=gen)
+    for side in LEVEL_SIDES:
+        cells = -(-hw * side // 640)  # the image's cells, rounded up
+        ar = torch.arange(side, device="cuda")
+        live = ((ar[None, :, None] < cells[:, 0, None, None])
+                & (ar[None, None, :] < cells[:, 1, None, None]))
+        rows.append(live.reshape(b, side * side))
+    return torch.cat(rows, 1)
 
 
 def site_inputs(gen, site: str, dtype):
@@ -601,6 +811,8 @@ def site_inputs(gen, site: str, dtype):
     b, sq, sk, h, d = site_shape(site)
     q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=gen).to(dtype)
                for s in (sq, sk, sk))
+    if site == "vl_encoder_4_levels_b8_padded":
+        return q, k, v, padded_levels_valid(gen, b)
     if site not in CALL_SITES:
         return q, k, v, new_site_valid(gen, b, sk)
     lens = torch.randint(1, sk + 1, (b,), device="cuda", generator=gen)
@@ -639,7 +851,7 @@ def check_kernel(report: dict) -> dict:
                          ("bfloat16", torch.bfloat16)):
             q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
             want = attention_plain(q.float(), k.float(), v.float(), valid)
-            variant = fwd_variant(sq, dt, d)
+            variant = fwd_variant(sq, sk, dt, d)
             err = check(site, flash_attention(q, k, v, valid), want, name)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             bias_dt = bias.to(dt)
@@ -855,16 +1067,20 @@ def check_training_kernels(report: dict, sites=tuple(CALL_SITES),
                            key: str = "train_kernels",
                            simt_before: bool = True) -> dict:
     """Phase 3: K1 with dropout, K2 and K3 against their plain versions at
-    ``sites``, with the SIMT kernels beside the others (``simt_before``),
-    and the exact dropout masks; the rows go to report[key] (phase 8
-    checks its own sites so)."""
+    ``sites``, with the SIMT kernels beside the others (``simt_before``)
+    and, where the rule sends K1 or K3 to a warpgroup kernel, the mma.sync
+    kernel beside it, and the exact dropout masks; the rows go to
+    report[key] (phase 8 checks its own sites so). K3-wg alone computes di
+    = rowsum(dO * O) in its wrapper, which K2-TC gives it in a step; its
+    timed calls take di computed before them."""
     import torch
 
     from reftr_torch.kernels.attention import (_launch_bwd_dec, _launch_dkv,
                                                _launch_dq, _launch_fwd,
                                                attention_bwd_plain,
-                                               attention_plain, dkv_variant,
-                                               dq_variant, flash_attention,
+                                               attention_plain, di_plain,
+                                               dkv_variant, dq_variant,
+                                               flash_attention,
                                                flash_attn_bwd_dkv,
                                                flash_attn_bwd_dq, fwd_variant)
 
@@ -923,7 +1139,7 @@ def check_training_kernels(report: dict, sites=tuple(CALL_SITES),
                        "dq_max_abs_err": errs[0], "dk_max_abs_err": errs[1],
                        "dv_max_abs_err": errs[2], "grad_scale": scale,
                        "grad_tol": GRAD_TOL[name] * scale,
-                       "fwd_variant": fwd_variant(sq, dt, d),
+                       "fwd_variant": fwd_variant(sq, sk, dt, d),
                        "dq_variant": dq_variant(sq, dt, d),
                        "dkv_variant": dkv_variant(sq, sk, dt, d),
                        "bitwise_repeatable": True}
@@ -935,18 +1151,28 @@ def check_training_kernels(report: dict, sites=tuple(CALL_SITES),
                     timed["bwd"] = lambda: _launch_bwd_dec(*bwd)
                 else:
                     timed["dq"] = lambda: flash_attn_bwd_dq(*bwd)
-                    timed["dkv"] = lambda: flash_attn_bwd_dkv(*bwd)
+                    # di outside the timed call, as K2-TC hands it to
+                    # K3-wg in a step (the other variants ignore it)
+                    di = di_plain(out, do)
+                    timed["dkv"] = lambda: flash_attn_bwd_dkv(*bwd, di=di)
                 # the same-run "before": the SIMT kernel of each kernel that
-                # the rule sends elsewhere at this site
-                simt = {}
+                # the rule sends elsewhere at this site, and the mma.sync
+                # kernel of K1 and K3 where the rule sends them to "wg"
+                before = {}
                 if simt_before and row["fwd_variant"] != "simt":
-                    simt["fwd"] = lambda: _launch_fwd(
+                    before["simt_fwd"] = lambda: _launch_fwd(
                         "simt", q, k, v, valid, rate, seed, False)
                 if simt_before and row["dq_variant"] != "simt":
-                    simt["dq"] = lambda: _launch_dq("simt", *bwd)
+                    before["simt_dq"] = lambda: _launch_dq("simt", *bwd)
                 if simt_before and row["dkv_variant"] != "simt":
-                    simt["dkv"] = lambda: _launch_dkv("simt", *bwd)
-                for what, fn in simt.items():
+                    before["simt_dkv"] = lambda: _launch_dkv("simt", *bwd)
+                if row["fwd_variant"] == "wg":
+                    before["tc_fwd"] = lambda: _launch_fwd(
+                        "tc", q, k, v, valid, rate, seed, False)
+                if row["dkv_variant"] == "wg":
+                    before["tc_dkv"] = lambda: _launch_dkv("tc", *bwd)
+                for tag, fn in before.items():
+                    what = tag.split("_")[1]
                     got = fn()
                     torch.cuda.synchronize()
                     if what == "fwd":
@@ -957,10 +1183,10 @@ def check_training_kernels(report: dict, sites=tuple(CALL_SITES),
                     else:
                         err = max(max_err(g, w) for g, w in zip(got, wants[1:]))
                         tol = GRAD_TOL[name] * scale
-                    row[f"simt_{what}_max_abs_err"] = err
+                    row[f"{tag}_max_abs_err"] = err
                     if not err <= tol:
-                        raise AssertionError(f"phase 3 simt {what} {row}")
-                    timed[f"simt_{what}"] = fn
+                        raise AssertionError(f"phase 3 {tag} {row}")
+                    timed[tag] = fn
                 for what, fn in timed.items():
                     row[f"{what}_ms"] = cuda_ms(fn)
                     row[f"{what}_device_ms"] = device_ms(fn)
@@ -972,11 +1198,12 @@ def check_training_kernels(report: dict, sites=tuple(CALL_SITES),
                 row.update(sdpa_times(q, k, v, valid, do, rate))
                 for kern in PRODUCTS:
                     row[f"{kern}_bound_ms"], row[f"{kern}_bound_by"] = \
-                        attention_bound_ms(b, sq, sk, h, d, valid, name, kern)
+                        attention_bound_ms(b, sq, sk, h, d, valid, name, kern,
+                                           rate)
                 rows.append(row)
-                before = "".join(
-                    f"; simt {what} {fmt_ms(row[f'simt_{what}_device_ms'])}"
-                    for what in simt)
+                before_ms = "".join(
+                    f"; {tag.replace('_', ' ')} "
+                    f"{fmt_ms(row[f'{tag}_device_ms'])}" for tag in before)
                 bwd_times = (
                     f"K2+K3 dec {row['bwd_ms']:.4f}, "
                     f"{fmt_ms(row['bwd_device_ms'])}"
@@ -1002,7 +1229,8 @@ def check_training_kernels(report: dict, sites=tuple(CALL_SITES),
                       f"{row['flash_attn_bwd_dq_bound_ms']:.5f}/"
                       f"{row['flash_attn_bwd_dkv_bound_ms']:.5f}/"
                       f"{row['flash_attn_bwd_bound_ms']:.5f} ms"
-                      f"{before} ms device; bitwise repeatable", flush=True)
+                      f"{before_ms} ms device; bitwise repeatable",
+                      flush=True)
     dtypes = (("float32", torch.float32), ("bfloat16", torch.bfloat16))
     masks = {f"K1 {site} {name}": check_mask_exact(gen, site, DROPOUT,
                                                    0xC0FFEE, dt)
@@ -1061,7 +1289,8 @@ def check_head_dims(report: dict) -> dict:
                 before = [(c.launches, c.launches_plain) for c in counters]
                 out, lse = flash_attention(q, k, v, valid, True, **drop)
                 bwd = (q, k, v, valid, out, lse, do, rate, seed)
-                grads = (flash_attn_bwd_dq(*bwd), *flash_attn_bwd_dkv(*bwd))
+                grads = (flash_attn_bwd_dq(*bwd),
+                         *flash_attn_bwd_dkv(*bwd))
                 torch.cuda.synchronize()
                 moved = [(c.launches - n, c.launches_plain - m)
                          for c, (n, m) in zip(counters, before)]
@@ -1075,7 +1304,7 @@ def check_head_dims(report: dict) -> dict:
                 row = {"B": b, "Sq": sq, "Sk": sk, "H": h, "D": d,
                        "padded_to": None if plain else padded_head_dim(d),
                        "dtype": name, "dropout": rate,
-                       "fwd_variant": fwd_variant(sq, dt, d),
+                       "fwd_variant": fwd_variant(sq, sk, dt, d),
                        "dq_variant": dq_variant(sq, dt, d),
                        "dkv_variant": dkv_variant(sq, sk, dt, d),
                        "fwd_max_abs_err": fwd_err, "lse_max_abs_err": lse_err,
@@ -1165,7 +1394,7 @@ def check_simt_dkv(report: dict) -> dict:
                 return flash_attn_bwd_dkv(*bwd)
 
             bound, bound_by = attention_bound_ms(
-                b, sq, sk, h, d, valid, name, "flash_attn_bwd_dkv")
+                b, sq, sk, h, d, valid, name, "flash_attn_bwd_dkv", rate)
             row = {"dtype": name, "dropout": rate, "B": b, "Sq": sq,
                    "Sk": sk, "H": h, "D": d, "max_abs_err": err,
                    "grad_scale": scale, "ms": cuda_ms(kern),
@@ -1184,6 +1413,132 @@ def check_simt_dkv(report: dict) -> dict:
                   f"{bound:.5f} ms ({bound_by})", flush=True)
     report["simt_dkv"] = rows
     return report
+
+
+def wg_times(report: dict) -> list:
+    """Phase 3d: the warpgroup kernels against the mma.sync ones and SDPA
+    in one process, in bf16 at WG_TIME_SITES (the VL encoder at 1-4
+    feature levels, B=8, at four with the sentence padded and also with
+    each image padded on the canvas; flickr's encoder at 1 and 2 levels,
+    B=16; flickr's decoder over 490 keys), without dropout and with 0.1.
+    K1: "tc", "wg" and SDPA's forward; the backward: K2-TC (writing di),
+    K3 "tc" and "wg", and SDPA's backward, which covers K2 and K3
+    together. Each in WG_TIME_TURNS turns of CUDA events around
+    back-to-back calls (cuda_ms); the median is reported. "wg" is checked
+    against the plain version at phase 3's tolerances: on all the inputs
+    where the plain version's scores fit (B * H * Sq * Sk * 4 bytes under
+    4 GB), else on batch row 0, whose dropout offsets are the same at
+    B=1."""
+    import torch
+    import torch.nn.functional as F
+
+    from reftr_torch.kernels.attention import (_launch_dkv, _launch_dq,
+                                               _launch_fwd,
+                                               attention_bwd_plain,
+                                               attention_plain, dkv_variant,
+                                               fwd_variant)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0x3D)
+    rows = []
+    for site in WG_TIME_SITES:
+        b, sq, sk, h, d = site_shape(site)
+        q, k, v, valid = site_inputs(gen, site, torch.bfloat16)
+        do = torch.randn(q.shape, device="cuda",
+                         generator=gen).to(torch.bfloat16)
+        bias = torch.where(valid, 0.0, -1e9)[:, None, None, :].to(q.dtype)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        dot = do.transpose(1, 2)
+        fits = b * h * sq * sk * 4 < 4e9
+        iters = 10 if sq * sk > 1e7 else 50
+        for rate in (0.0, DROPOUT):
+            seed = 0x3D00 + len(rows) if rate else None
+            out, lse = _launch_fwd("wg", q, k, v, valid, rate, seed, True)
+            bwd = (q, k, v, valid, out, lse, do, rate, seed)
+            di = torch.empty_like(lse)
+            got = {"fwd": out, "dq": _launch_dq("tc", *bwd, di_out=di)}
+            got["dk"], got["dv"] = _launch_dkv("wg", *bwd, di)
+            against, ref = "plain", bwd
+            if not fits:  # batch row 0 alone
+                against = "plain, batch row 0"
+                ref = tuple(x[:1] if torch.is_tensor(x) else x for x in bwd)
+                got = {g: x[:1] for g, x in got.items()}
+            want = {"fwd": attention_plain(*(x.float() for x in ref[:3]),
+                                           ref[3], dropout_rate=rate,
+                                           seed=seed)}
+            want["dq"], want["dk"], want["dv"] = attention_bwd_plain(*ref)
+            torch.cuda.synchronize()
+            scale = max(want[g].float().abs().max().item()
+                        for g in ("dk", "dv"))
+            errs = {g: max_err(got[g], want[g]) for g in want if g != "dq"}
+            tols = {"fwd": kernel_tol("bfloat16", site, want["fwd"]),
+                    "dk": GRAD_TOL["bfloat16"] * scale,
+                    "dv": GRAD_TOL["bfloat16"] * scale}
+            if not all(errs[g] <= tols[g] for g in errs):
+                raise AssertionError(f"phase 3d {site} dropout {rate}: wg "
+                                     f"against {against}: {errs}, tolerances "
+                                     f"{tols}")
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=bias, dropout_p=rate)
+
+            held = sdpa()
+            fns = {
+                "k1_tc": lambda: _launch_fwd("tc", q, k, v, valid, rate, seed,
+                                             False),
+                "k1_wg": lambda: _launch_fwd("wg", q, k, v, valid, rate, seed,
+                                             False),
+                "sdpa_fwd": sdpa,
+                "k2_tc": lambda: _launch_dq("tc", *bwd, di_out=di),
+                "k3_tc": lambda: _launch_dkv("tc", *bwd),
+                "k3_wg": lambda: _launch_dkv("wg", *bwd, di),
+                "sdpa_bwd": lambda: torch.autograd.grad(
+                    held, (qt, kt, vt), dot, retain_graph=True)}
+            turns = {name: [] for name in fns}
+            for _ in range(WG_TIME_TURNS):
+                for name, fn in fns.items():
+                    turns[name].append(cuda_ms(fn, iters=iters, warmup=2))
+            ms = {name: statistics.median(t) for name, t in turns.items()}
+            row = {"site": site, "B": b, "Sq": sq, "Sk": sk, "H": h, "D": d,
+                   "dropout": rate, "checked_against": against,
+                   "max_abs_err": errs, "tol": tols, "grad_scale": scale,
+                   "fwd_scale": want["fwd"].abs().max().item(),
+                   "ms": ms,
+                   "turns": turns,
+                   "k2_tc_k3_wg_ms": ms["k2_tc"] + ms["k3_wg"],
+                   "k2_tc_k3_tc_ms": ms["k2_tc"] + ms["k3_tc"],
+                   "fwd_variant": fwd_variant(sq, sk, torch.bfloat16, d),
+                   "dkv_variant": dkv_variant(sq, sk, torch.bfloat16, d),
+                   "bounds": {kern: attention_bound_terms(
+                       b, sq, sk, h, d, valid, "bfloat16", kern, rate)
+                       for kern in ("flash_attn_fwd", "flash_attn_bwd_dq",
+                                    "flash_attn_bwd_dkv")}}
+            rows.append(row)
+            bounds = "; ".join(
+                f"{kern.removeprefix('flash_attn_')} " + ", ".join(
+                    f"{t} {v:.4f}" for t, v in terms.items())
+                for kern, terms in row["bounds"].items())
+            print(f"wg times {site} B={b} Sq={sq} Sk={sk} bf16 dropout {rate} "
+                  f"({report['card']}; CUDA events, median of "
+                  f"{WG_TIME_TURNS} turns): K1 tc {ms['k1_tc']:.4f}, wg "
+                  f"{ms['k1_wg']:.4f}, sdpa fwd {ms['sdpa_fwd']:.4f} ms; K2 "
+                  f"tc {ms['k2_tc']:.4f} + K3 tc {ms['k3_tc']:.4f} = "
+                  f"{row['k2_tc_k3_tc_ms']:.4f}, + K3 wg {ms['k3_wg']:.4f} = "
+                  f"{row['k2_tc_k3_wg_ms']:.4f}, sdpa bwd "
+                  f"{ms['sdpa_bwd']:.4f} ms; the rule: K1 "
+                  f"{row['fwd_variant']}, K3 {row['dkv_variant']}; wg "
+                  f"against {against}: fwd {errs['fwd']:.3g} (largest "
+                  f"output {row['fwd_scale']:.3g}, tol {tols['fwd']:.3g}), "
+                  f"dk {errs['dk']:.3g}, dv {errs['dv']:.3g} (tol "
+                  f"{tols['dk']:.3g}); bounds (ms) "
+                  f"{bounds}", flush=True)
+            del out, lse, got, want, held
+        del q, k, v, do, qt, kt, vt
+        torch.cuda.empty_cache()
+    report["wg_times"] = rows
+    return rows
 
 
 def make_requests(rng: np.random.Generator, img: int, seq: int, vocab: int):
@@ -1235,6 +1590,10 @@ def kernel_category(name: str) -> str:
     low = name.lower()
     if "flash_fwd_tc_kernel" in name:
         return "flash_attn_fwd_tc"
+    if "flash_fwd_wg_kernel" in name:
+        return "flash_attn_fwd_wg"
+    if "flash_bwd_dkv_wg_kernel" in name:
+        return "flash_attn_bwd_dkv_wg"
     if "flash_fwd_f32tc_kernel" in name:
         return "flash_attn_fwd_f32tc"
     if "flash_fwd_dec_kernel" in name:
@@ -1334,8 +1693,8 @@ def profile_device(run, what: str, step_ms: float, iters: int = 5,
             "top_host_ops_ms": {name: ms for name, ms, _ in host}}
 
 
-VARIANT_COUNTS = ("launches_tc", "launches_tf32x3", "launches_dec",
-                  "launches_plain")
+VARIANT_COUNTS = ("launches_tc", "launches_wg", "launches_tf32x3",
+                  "launches_dec", "launches_plain")
 
 
 def reset_counts(counters) -> None:
@@ -1347,10 +1706,10 @@ def reset_counts(counters) -> None:
 
 
 def read_counts(counters) -> dict:
-    """Launches per wrapper, and those of its tensor-core, 3xTF32 and
-    decode variants under ``<wrapper>_tc``, ``<wrapper>_tf32x3`` and
-    ``<wrapper>_dec``; its calls sent to the plain version under
-    ``<wrapper>_plain``."""
+    """Launches per wrapper, and those of its tensor-core, warpgroup,
+    3xTF32 and decode variants under ``<wrapper>_tc``, ``<wrapper>_wg``,
+    ``<wrapper>_tf32x3`` and ``<wrapper>_dec``; its calls sent to the
+    plain version under ``<wrapper>_plain``."""
     out = {}
     for c in counters:
         out[c.__name__] = c.launches
@@ -1401,27 +1760,35 @@ def serve_requests(model, reqs, counters) -> tuple:
     return launches, n_batches, served_s
 
 
-def expected_launches(n: int, tc: str, backward: bool,
-                      tc_per_forward=None, dec_per_forward=None) -> dict:
+def expected_launches(n: int, dtype_name: str, backward: bool,
+                      sites=None) -> dict:
     """The counters (read_counts) after ``n`` forwards, or ``n`` train
-    steps (``backward``): ``tc_per_forward`` + ``dec_per_forward``
-    launches of K1 per forward, and per step as many of K2 and K3; the
-    decoder's single-query ones on the decode kernels (refcoco_det:
-    DEC_PER_FORWARD), the others on the tensor-core variant ``tc``, "tc"
-    (bf16) or "tf32x3" (float32) (refcoco_det: BERT's and the encoder's
-    TC_PER_FORWARD). None goes to SIMT or to the plain versions."""
-    if tc_per_forward is None:
-        tc_per_forward, dec_per_forward = TC_PER_FORWARD, DEC_PER_FORWARD
-    per = {}
-    for name in ("flash_attention", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
-        live = name == "flash_attention" or backward
-        per[name] = {"": tc_per_forward + dec_per_forward if live else 0,
-                     "_tc": tc_per_forward if live and tc == "tc" else 0,
-                     "_tf32x3": (tc_per_forward if live and tc == "tf32x3"
-                                 else 0),
-                     "_dec": dec_per_forward if live else 0, "_plain": 0}
-    return {name + suffix: count * n for name, counts in per.items()
-            for suffix, count in counts.items()}
+    steps (``backward``), of a model whose forward makes the attention
+    calls ``sites`` ((calls, Sq, Sk, D) each; refcoco_det's REC_SITES
+    unless given) in ``dtype_name``: each call counted on the variant the
+    dispatch rule picks for it (fwd_variant for K1, dq_variant and
+    dkv_variant for K2 and K3 in a step; one decode backward counts on
+    both)."""
+    import torch
+
+    from reftr_torch.kernels.attention import (dkv_variant, dq_variant,
+                                               fwd_variant)
+
+    dt = getattr(torch, dtype_name)
+    names = ("flash_attention", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
+    want = {name + attr.removeprefix("launches"): 0 for name in names
+            for attr in ("launches",) + VARIANT_COUNTS}
+    for calls, sq, sk, d in REC_SITES if sites is None else sites:
+        picks = {"flash_attention": fwd_variant(sq, sk, dt, d)}
+        if backward:
+            picks["flash_attn_bwd_dq"] = dq_variant(sq, dt, d)
+            picks["flash_attn_bwd_dkv"] = dkv_variant(sq, sk, dt, d)
+        for name, variant in picks.items():
+            if variant != "plain":
+                want[name] += calls * n
+            if variant != "simt":
+                want[f"{name}_{variant}"] += calls * n
+    return want
 
 
 def serve(report: dict, counters) -> dict:
@@ -1452,7 +1819,7 @@ def serve(report: dict, counters) -> dict:
     reqs = make_requests(rng, img, seq, vocab)
     launches, n_batches, served_s = serve_requests(model, reqs, counters)
     rows = sum(r.k for r in reqs)
-    want = expected_launches(n_batches, "tc", False)
+    want = expected_launches(n_batches, "bfloat16", False)
     if launches != want:
         raise AssertionError(
             f"launches {launches} for {n_batches} batch forwards, not "
@@ -1492,7 +1859,7 @@ def serve(report: dict, counters) -> dict:
     launches32, n_batches32, served32_s = serve_requests(
         f32, make_requests(np.random.default_rng(0), img, seq, vocab),
         counters)
-    want = expected_launches(n_batches32, "tf32x3", False)
+    want = expected_launches(n_batches32, "float32", False)
     if launches32 != want:
         raise AssertionError(
             f"float32: launches {launches32} for {n_batches32} batch "
@@ -1548,20 +1915,20 @@ def serve(report: dict, counters) -> dict:
     return report
 
 
-def route_to_simt(kernels) -> dict:
-    """Send the dispatch rule's "tf32x3" calls of ``kernels`` (of "fwd",
-    "dq", "dkv") to the SIMT kernels, as the rule sent float32 before the
-    3xTF32 kernels (the same-run "before"). Returns the rule's functions,
-    for restore_rule."""
+def reroute(kernels, old: str, new: str) -> dict:
+    """Send the dispatch rule's ``old`` calls of ``kernels`` (of "fwd",
+    "dq", "dkv") to ``new`` (a same-run "before"). Returns the rule's
+    functions, for restore_rule."""
     import reftr_torch.kernels.attention as attn
 
-    def simt(rule):
-        return lambda *a: "simt" if rule(*a) == "tf32x3" else rule(*a)
+    def moved(rule):
+        return lambda *a: new if rule(*a) == old else rule(*a)
 
     rule = {k: getattr(attn, f"{k}_variant") for k in kernels}
     for k, fn in rule.items():
-        setattr(attn, f"{k}_variant", simt(fn))
+        setattr(attn, f"{k}_variant", moved(fn))
     return rule
+
 
 
 def restore_rule(rule: dict) -> None:
@@ -1581,7 +1948,8 @@ def time_f32_forward(model, full, counters) -> dict:
     runs = {"tf32x3": [], "simt": []}
     launches = {}
     for mode in ("tf32x3", "simt", "simt", "tf32x3") * 2:
-        rule = route_to_simt(["fwd"]) if mode == "simt" else {}
+        rule = (reroute(["fwd"], "tf32x3", "simt") if mode == "simt"
+                else {})
         runs[mode].append(forward_ms(model, full))
         if mode not in launches:
             reset_counts(counters)
@@ -1603,7 +1971,8 @@ def time_f32_forward(model, full, counters) -> dict:
         print(f"serve: f32 batch {SERVE_BATCH} forward + fetch, K1 on "
               f"{mode}: median {med:.2f} ms = {SERVE_BATCH / med * 1e3:.1f} "
               f"img/s (runs {ms_list(ms)} ms)", flush=True)
-        rule = route_to_simt(["fwd"]) if mode == "simt" else {}
+        rule = (reroute(["fwd"], "tf32x3", "simt") if mode == "simt"
+                else {})
         profile = profile_device(
             lambda: model(full),
             f"f32 batch {SERVE_BATCH} forward, K1 on {mode}", med)
@@ -1843,7 +2212,7 @@ def train(report: dict, counters) -> dict:
         raise AssertionError(f"the loss on the memorised batch did not fall:"
                              f" first 3 {first:.5f}, last 3 {last:.5f}")
     # 18 + 12 of each wrapper's 30: none left for the SIMT kernels
-    want = expected_launches(TRAIN_STEPS, "tc", True)
+    want = expected_launches(TRAIN_STEPS, "bfloat16", True)
     if launches != want:
         raise AssertionError(f"launches {launches} in {TRAIN_STEPS} steps, "
                              f"not {want}")
@@ -1860,6 +2229,7 @@ def train(report: dict, counters) -> dict:
     profile = profile_device(
         lambda: step(state, batch, targets),
         f"bf16 batch {SERVE_BATCH} train step", med, iters=3)
+    k3_ab = k3_route_steps(step, state, batch, targets)
     del state, model, step
     torch.cuda.empty_cache()
     paths = compare_train_paths(cfg, batch, targets)
@@ -1869,8 +2239,41 @@ def train(report: dict, counters) -> dict:
         "stats": stats, "step_ms": step_ms, "median_step_ms": med,
         "img_per_s": SERVE_BATCH / med * 1e3, "peak_memory_gb": peak_gb,
         "trainable_params": n_params, "profile": profile,
-        "f32_kernel_vs_plain": paths}
+        "k3_route_steps": k3_ab, "f32_kernel_vs_plain": paths}
     return report
+
+
+def k3_route_steps(step, state, batch, targets) -> dict:
+    """Phase 5's bf16 step by the rule (K3 on "wg" at the 440-token
+    encoder) and with K3 sent to "tc" there, in K3_AB_TURNS turns of each
+    (rule, tc, tc, rule, ...), K3_AB_STEPS steps a turn: ms a step on the
+    host's clock, from a synchronize before the turn's first step to one
+    after its last. The step is host-bound, so this is what "wg"'s host
+    work (its tensor maps and function attribute) costs or saves."""
+    import torch
+
+    times = {"rule": [], "tc": []}
+    for turn in range(2 * K3_AB_TURNS):
+        route = ("rule", "tc", "tc", "rule")[turn % 4]
+        rule = reroute(("dkv",), "wg", "tc") if route == "tc" else {}
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(K3_AB_STEPS):
+                state, _ = step(state, batch, targets)
+            torch.cuda.synchronize()
+            times[route].append((time.perf_counter() - t0) * 1e3
+                                / K3_AB_STEPS)
+        finally:
+            restore_rule(rule)
+    out = {route: {"turn_ms": t, "median_ms": statistics.median(t)}
+           for route, t in times.items()}
+    print(f"train: bf16 step, K3 at the encoder by the rule (wg) "
+          f"{out['rule']['median_ms']:.2f} ms, on tc "
+          f"{out['tc']['median_ms']:.2f} ms (median of {K3_AB_TURNS} turns "
+          f"of {K3_AB_STEPS} steps, in turns: rule {ms_list(times['rule'])};"
+          f" tc {ms_list(times['tc'])} ms a step)", flush=True)
+    return out
 
 
 def attention_ms(profile: dict):
@@ -1933,7 +2336,7 @@ def train_f32(report: dict, counters) -> dict:
     if not all(math.isfinite(v) for m in per_step for v in m.values()):
         raise AssertionError(f"float32: a loss or gradient norm is not "
                              f"finite: {per_step}")
-    want = expected_launches(F32_TRAIN_STEPS, "tf32x3", True)
+    want = expected_launches(F32_TRAIN_STEPS, "float32", True)
     if launches != want:
         raise AssertionError(f"float32: launches {launches} in "
                              f"{F32_TRAIN_STEPS} steps, not {want}")
@@ -1952,7 +2355,7 @@ def train_f32(report: dict, counters) -> dict:
                              iters=3)
     # the same step with K1, K2 and K3 on the SIMT kernels, as the rule
     # sent float32 before the 3xTF32 kernels
-    rule = route_to_simt(["fwd", "dq", "dkv"])
+    rule = reroute(["fwd", "dq", "dkv"], "tf32x3", "simt")
     reset_counts(counters)
     before = profile_device(
         lambda: step(state, batch, targets),
@@ -2076,8 +2479,8 @@ def cli_launches(steps: int, eval_batches: int) -> dict:
     """The counters after ``steps`` float32 train steps and
     ``eval_batches`` eval forwards: K1 30 a forward, K2 and K3 30 a step,
     18 of each on the 3xTF32 kernels and 12 on the decode kernels."""
-    train = expected_launches(steps, "tf32x3", True)
-    evals = expected_launches(eval_batches, "tf32x3", False)
+    train = expected_launches(steps, "float32", True)
+    evals = expected_launches(eval_batches, "float32", False)
     return {k: train[k] + evals[k] for k in train}
 
 
@@ -2203,8 +2606,8 @@ def res_cli_launches(steps: int, eval_batches: int) -> dict:
     ``eval_batches`` eval forwards: the REC trunk's 30 of K1 a forward and
     of K2 and K3 a step, 18 of each on the bf16 tensor-core kernels and 12
     on the decode kernels; the heads run no attention kernel."""
-    train = expected_launches(steps, "tc", True)
-    evals = expected_launches(eval_batches, "tc", False)
+    train = expected_launches(steps, "bfloat16", True)
+    evals = expected_launches(eval_batches, "bfloat16", False)
     return {k: train[k] + evals[k] for k in train}
 
 
@@ -2336,7 +2739,7 @@ def res_freeze(report: dict, counters, state_dict) -> dict:
     if not all(math.isfinite(v) and "loss_cem" in m
                for m in per_step for v in m.values()):
         raise AssertionError(f"phase 7 freeze: metrics {per_step}")
-    want = expected_launches(RES_FREEZE_STEPS, "tf32x3", False)
+    want = expected_launches(RES_FREEZE_STEPS, "float32", False)
     if launches != want:
         raise AssertionError(f"phase 7 freeze: launches {launches}, not "
                              f"{want}")
@@ -2422,14 +2825,14 @@ def res_serve(report: dict, counters, state_dict) -> dict:
     from reftr_torch.serve import ServingModel
 
     out = {}
-    for dtype, tc in (("bfloat16", "tc"), ("float32", "tf32x3")):
+    for dtype in ("bfloat16", "float32"):
         cfg = preset_config("refcoco_seg", dtype=dtype)
         model = ServingModel(cfg, SERVE_BATCH, state_dict=state_dict)
         reqs = make_requests(np.random.default_rng(0), cfg.data.img_size,
                              cfg.data.max_query_len,
                              cfg.model.bert.vocab_size)
         launches, n_batches, served_s = serve_requests(model, reqs, counters)
-        want = expected_launches(n_batches, tc, False)
+        want = expected_launches(n_batches, dtype, False)
         if launches != want:
             raise AssertionError(f"phase 7 serve {dtype}: launches "
                                  f"{launches}, not {want}")
@@ -2487,14 +2890,14 @@ def train_res(report: dict, counters) -> dict:
     return report
 
 
-def multi_launches(steps: int, eval_batches: int, per_forward=None) -> dict:
+def multi_launches(steps: int, eval_batches: int) -> dict:
     """The counters after ``steps`` bf16 multi-phrase train steps and
-    ``eval_batches`` eval forwards: every attention on the bf16
-    tensor-core kernels, ``per_forward`` (MULTI_PER_FORWARD unless given)
-    of K1 a forward and of each of K1, K2 and K3 a step."""
-    per_forward = per_forward or MULTI_PER_FORWARD
-    train = expected_launches(steps, "tc", True, per_forward, 0)
-    evals = expected_launches(eval_batches, "tc", False, per_forward, 0)
+    ``eval_batches`` eval forwards of flickr or flickr_roberta
+    (MULTI_FORWARD_SITES: 42 of K1 a forward and of each of K1, K2 and K3
+    a step, every one on a bf16 tensor-core kernel by the rule)."""
+    train = expected_launches(steps, "bfloat16", True, MULTI_FORWARD_SITES)
+    evals = expected_launches(eval_batches, "bfloat16", False,
+                              MULTI_FORWARD_SITES)
     return {k: train[k] + evals[k] for k in train}
 
 
@@ -2625,13 +3028,14 @@ def multi_sites(report: dict) -> dict:
 
 
 def long_encoder_times(report: dict) -> list:
-    """Phase 8d: the times of K1, K2 and K3 at the four-level encoder at
-    B=8 (vl_encoder_4_levels_b8), in both dtypes, without dropout and with
-    0.1, against SDPA and the bound; no plain version (its [B, H, S, S]
-    scores would hold 18.7 GB in float32). The kernels are timed by CUDA
-    events around back-to-back calls (cuda_ms): at 5-30 ms a call the
-    host's time between launches is hidden, and torch.profiler recorded
-    no device activity in most windows of these calls on the H100."""
+    """Phase 8d: the times of the float32 K1, K2 and K3 at the four-level
+    encoder at B=8 (vl_encoder_4_levels_b8), without dropout and with
+    0.1, against SDPA and the bound (bf16's are phase 3d's); no plain
+    version (its [B, H, S, S] scores would hold 18.7 GB in float32). The
+    kernels are timed by CUDA events around back-to-back calls (cuda_ms):
+    at 5-30 ms a call the host's time between launches is hidden, and
+    torch.profiler recorded no device activity in most windows of these
+    calls on the H100."""
     import torch
 
     from reftr_torch.kernels.attention import (dkv_variant, dq_variant,
@@ -2641,54 +3045,53 @@ def long_encoder_times(report: dict) -> list:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(8)
-    site = "vl_encoder_4_levels_b8"
+    site, name, dt = "vl_encoder_4_levels_b8", "float32", torch.float32
     b, sq, sk, h, d = site_shape(site)
+    q, k, v, valid = site_inputs(gen, site, dt)
+    do = torch.randn(q.shape, device="cuda", generator=gen).to(dt)
     rows = []
-    for name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
-        q, k, v, valid = site_inputs(gen, site, dt)
-        do = torch.randn(q.shape, device="cuda", generator=gen).to(dt)
-        for rate in (0.0, DROPOUT):
-            seed = 0x8540 if rate else None
-            drop = dict(dropout_rate=rate, seed=seed)
-            out, lse = flash_attention(q, k, v, valid, True, **drop)
-            bwd = (q, k, v, valid, out, lse, do, rate, seed)
-            dq = flash_attn_bwd_dq(*bwd)
-            dk, dv = flash_attn_bwd_dkv(*bwd)
-            torch.cuda.synchronize()
-            if not all(bool(torch.isfinite(x).all())
-                       for x in (out, lse, dq, dk, dv)):
-                raise AssertionError(f"phase 8d {site} {name} {rate}: "
-                                     f"not finite")
-            row = {"site": site, "dtype": name, "dropout": rate, "B": b,
-                   "Sq": sq, "Sk": sk, "H": h, "D": d,
-                   "fwd_variant": fwd_variant(sq, dt, d),
-                   "dq_variant": dq_variant(sq, dt, d),
-                   "dkv_variant": dkv_variant(sq, sk, dt, d)}
-            for what, fn in (
-                    ("fwd", lambda: flash_attention(q, k, v, valid, **drop)),
-                    ("dq", lambda: flash_attn_bwd_dq(*bwd)),
-                    ("dkv", lambda: flash_attn_bwd_dkv(*bwd))):
-                row[f"{what}_ms"] = cuda_ms(fn, iters=10, warmup=2)
-            row.update(sdpa_times(q, k, v, valid, do, rate))
-            for kern in ("flash_attn_fwd", "flash_attn_bwd_dq",
-                         "flash_attn_bwd_dkv"):
-                row[f"{kern}_bound_ms"], row[f"{kern}_bound_by"] = \
-                    attention_bound_ms(b, sq, sk, h, d, valid, name, kern)
-            rows.append(row)
-            print(f"levels kernels {site} {name} dropout {rate}: K1 "
-                  f"{row['fwd_variant']} {row['fwd_ms']:.4f}, K2 "
-                  f"{row['dq_variant']} {row['dq_ms']:.4f}, K3 "
-                  f"{row['dkv_variant']} {row['dkv_ms']:.4f} ms (events, "
-                  f"back to back); sdpa fwd "
-                  f"{fmt_ms(row['sdpa_fwd_device_ms'])}, bwd "
-                  f"{fmt_ms(row['sdpa_bwd_device_ms'])} ms device; bounds "
-                  f"{row['flash_attn_fwd_bound_ms']:.4f} "
-                  f"({row['flash_attn_fwd_bound_by']})/"
-                  f"{row['flash_attn_bwd_dq_bound_ms']:.4f}/"
-                  f"{row['flash_attn_bwd_dkv_bound_ms']:.4f} ms", flush=True)
-            del out, lse, dq, dk, dv
-        del q, k, v, do
-        torch.cuda.empty_cache()
+    for rate in (0.0, DROPOUT):
+        seed = 0x8540 if rate else None
+        drop = dict(dropout_rate=rate, seed=seed)
+        out, lse = flash_attention(q, k, v, valid, True, **drop)
+        bwd = (q, k, v, valid, out, lse, do, rate, seed)
+        dq = flash_attn_bwd_dq(*bwd)
+        dk, dv = flash_attn_bwd_dkv(*bwd)
+        torch.cuda.synchronize()
+        if not all(bool(torch.isfinite(x).all())
+                   for x in (out, lse, dq, dk, dv)):
+            raise AssertionError(f"phase 8d {site} {name} {rate}: "
+                                 f"not finite")
+        row = {"site": site, "dtype": name, "dropout": rate, "B": b,
+               "Sq": sq, "Sk": sk, "H": h, "D": d,
+               "fwd_variant": fwd_variant(sq, sk, dt, d),
+               "dq_variant": dq_variant(sq, dt, d),
+               "dkv_variant": dkv_variant(sq, sk, dt, d)}
+        for what, fn in (
+                ("fwd", lambda: flash_attention(q, k, v, valid, **drop)),
+                ("dq", lambda: flash_attn_bwd_dq(*bwd)),
+                ("dkv", lambda: flash_attn_bwd_dkv(*bwd))):
+            row[f"{what}_ms"] = cuda_ms(fn, iters=10, warmup=2)
+        row.update(sdpa_times(q, k, v, valid, do, rate))
+        for kern in ("flash_attn_fwd", "flash_attn_bwd_dq",
+                     "flash_attn_bwd_dkv"):
+            row[f"{kern}_bound_ms"], row[f"{kern}_bound_by"] = \
+                attention_bound_ms(b, sq, sk, h, d, valid, name, kern, rate)
+        rows.append(row)
+        print(f"levels kernels {site} {name} dropout {rate}: K1 "
+              f"{row['fwd_variant']} {row['fwd_ms']:.4f}, K2 "
+              f"{row['dq_variant']} {row['dq_ms']:.4f}, K3 "
+              f"{row['dkv_variant']} {row['dkv_ms']:.4f} ms (events, "
+              f"back to back); sdpa fwd "
+              f"{fmt_ms(row['sdpa_fwd_device_ms'])}, bwd "
+              f"{fmt_ms(row['sdpa_bwd_device_ms'])} ms device; bounds "
+              f"{row['flash_attn_fwd_bound_ms']:.4f} "
+              f"({row['flash_attn_fwd_bound_by']})/"
+              f"{row['flash_attn_bwd_dq_bound_ms']:.4f}/"
+              f"{row['flash_attn_bwd_dkv_bound_ms']:.4f} ms", flush=True)
+        del out, lse, dq, dk, dv
+    del q, k, v, do
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -2753,8 +3156,9 @@ def train_levels(report: dict, counters) -> dict:
     finally:
         for path in LEVELS_OUT.glob("checkpoint*"):
             path.unlink()
-    steps = expected_launches(LEVELS_STEPS, "tc", True)
-    evals = expected_launches(LEVELS_EVAL_BATCHES, "tc", False)
+    steps = expected_launches(LEVELS_STEPS, "bfloat16", True, LEVELS_SITES)
+    evals = expected_launches(LEVELS_EVAL_BATCHES, "bfloat16", False,
+                              LEVELS_SITES)
     reports = check_cli_runs("phase 8d", runs, {
         "train": {k: steps[k] + evals[k] for k in steps}})
     entry = check_cli_log("phase 8d", LEVELS_OUT)
@@ -2772,6 +3176,16 @@ def train_levels(report: dict, counters) -> dict:
         "profile": profile_train_step(
             cfg, batch, targets, f"levels: bf16 batch {SERVE_BATCH} train "
                                  f"step at 4 feature levels")}
+    # the same-run "before": the step with K1 and K3 on the mma.sync
+    # kernels, as the rule sent them before the warpgroup kernels
+    rule = reroute(("fwd", "dkv"), "wg", "tc")
+    try:
+        report["levels"]["profile_tc"] = profile_train_step(
+            cfg, batch, targets, f"levels: bf16 batch {SERVE_BATCH} train "
+                                 f"step at 4 feature levels, K1 and K3 on "
+                                 f"tc (the same-run before)")
+    finally:
+        restore_rule(rule)
     check_training_kernels(report, ("vl_encoder_4_levels",), "levels_kernels",
                            simt_before=False)
     torch.cuda.empty_cache()
@@ -2819,6 +3233,8 @@ def float64_gap(report: dict) -> dict:
     c) phrase BERT in bf16 (the ulp rule of kernel_tol): the kernel's and
     the plain bf16 version's distance from float64, and how many outputs
     reach 4.
+    c') the bf16 tensor-core kernels' sums (bf16_sum_gap): K1's sum alone
+    and K3's dV sum, "tc" and "wg" beside the plain bf16 version.
     d) phase 5's float32 refcoco_det step (compare_train_paths) on its
     batch (seed 2) and on another (seed 5), each path against float64,
     with the decoder's ReLU flips: how near a flip brings phase 5's rule
@@ -2899,6 +3315,7 @@ def float64_gap(report: dict) -> dict:
                   f"{row['kernel_max_rel']:.3g} (plain "
                   f"{row['plain_mean_rel']:.3g}, "
                   f"{row['plain_max_rel']:.3g})", flush=True)
+    rows += bf16_sum_gap(gen)
     b, sq, sk, h, d = site_shape("phrase_bert_self")
     q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=gen)
                .to(torch.bfloat16) for s in (sq, sk, sk))
@@ -2933,6 +3350,60 @@ def float64_gap(report: dict) -> dict:
                      **row})
         torch.cuda.empty_cache()
     report["float64_gap"] = rows
+    return rows
+
+
+def bf16_sum_gap(gen) -> list:
+    """Phase 8f c', report only: whether the bf16 tensor-core kernels' sums
+    lean one way, against float64, at GAP_KEYS (B=1, H=8, D=32, the first
+    n keys valid, n the largest power of 2 up to Sk, so p = 1 / n is exact
+    in bf16). K1's sum alone: q = 0 makes every live p 1, so the output is
+    the mean of v = |randn| (exact in bf16) over the live keys. K3's dV
+    sum: q = 0, lse = log n and O = 0 (di = 0) make dv_j the sum of dO =
+    |randn| over the queries, over n, for each live key. Each by "tc",
+    "wg" and the plain version in bf16 (f32 sums, rounded to bf16): the
+    mean signed relative error shows a lean, the largest its spread."""
+    import torch
+
+    from reftr_torch.kernels.attention import (_launch_dkv, _launch_fwd,
+                                               attention_bwd_plain,
+                                               attention_plain)
+
+    bf16 = torch.bfloat16
+    rows = []
+    for sk in GAP_KEYS:
+        n = 2 ** int(math.log2(sk))
+        valid = torch.arange(sk, device="cuda")[None] < n
+        k = torch.randn(1, sk, 8, 32, device="cuda", generator=gen).to(bf16)
+        zero = torch.zeros_like(k)
+        v, do = (torch.randn(1, sk, 8, 32, device="cuda", generator=gen)
+                 .abs().to(bf16) for _ in range(2))
+        lse = torch.full((1, 8, sk), math.log(n), device="cuda")
+        wants = {"K1 sum": v[:, :n].double().mean(1, keepdim=True),
+                 "K3 dV sum": do.double().sum(1, keepdim=True) / n}
+        gots = {"K1 sum": {
+            "tc": _launch_fwd("tc", zero, k, v, valid, 0.0, None, False)[0],
+            "wg": _launch_fwd("wg", zero, k, v, valid, 0.0, None, False)[0],
+            "plain": attention_plain(zero, k, v, valid)},
+            "K3 dV sum": {
+            "tc": _launch_dkv("tc", zero, k, v, valid, zero, lse, do, 0.0,
+                              None)[1][:, :n],
+            "wg": _launch_dkv("wg", zero, k, v, valid, zero, lse, do, 0.0,
+                              None, torch.zeros_like(lse))[1][:, :n],
+            "plain": attention_bwd_plain(zero, k, v, valid, zero, lse,
+                                         do)[2][:, :n]}}
+        for what, paths in gots.items():
+            row = {"what": "bf16 " + what, "Sk": sk, "live_keys": n}
+            for path, got in paths.items():
+                r = (got.double() - wants[what]) / wants[what]
+                row[f"{path}_mean_rel"] = r.mean().item()
+                row[f"{path}_max_rel"] = r.abs().max().item()
+            rows.append(row)
+            print(f"float64 gap, {what} bf16 at S={sk} ({n} live keys): "
+                  f"relative error mean / max: " + "; ".join(
+                      f"{path} {row[f'{path}_mean_rel']:.3g} / "
+                      f"{row[f'{path}_max_rel']:.3g}" for path in paths),
+                  flush=True)
     return rows
 
 
@@ -2985,7 +3456,7 @@ def train_roberta(report: dict, counters) -> dict:
         for path in ROBERTA_OUT.glob("checkpoint*"):
             path.unlink()
     reports = check_cli_runs("phase 8e", runs, {"train": multi_launches(
-        ROBERTA_STEPS, ROBERTA_EVAL_BATCHES, ROBERTA_PER_FORWARD)})
+        ROBERTA_STEPS, ROBERTA_EVAL_BATCHES)})
     entry = check_cli_log("phase 8e", ROBERTA_OUT)
     print_cli_reports("roberta", report["card"], reports)
     print(f"roberta: pad id {tok.pad_id}, vocabulary {bert.vocab_size}, "
@@ -3059,8 +3530,12 @@ def kernel_line(report: dict) -> list:
                                      train_n, serve_n, cli_n, res_n,
                                      multi_n))
             continue
+        if variant == "wg":
+            out.append(wg_entry(report, name, source, replaces, train_n,
+                                serve_n, cli_n, res_n, multi_n))
+            continue
         base = name
-        for suffix in ("_f32tc", "_tc", "_dec"):
+        for suffix in ("_f32tc", "_tc", "_wg", "_dec"):
             base = base.removesuffix(suffix)
         short = shorts[base]
         wrapper = "flash_attention" if short == "fwd" else base
@@ -3071,18 +3546,18 @@ def kernel_line(report: dict) -> list:
             if variant != "simt":
                 return n[f"{wrapper}_{variant}"]
             return n[wrapper] - sum(n.get(f"{wrapper}_{v}", 0)
-                                    for v in ("tc", "tf32x3", "dec"))
+                                    for v in ("tc", "wg", "tf32x3", "dec"))
 
         # the errors of every call of this variant: as the rule picked it,
-        # or as the SIMT "before" beside another variant
+        # or as the same-run "before" beside another variant
         errs = []
         for r in rows:
             scale = 1.0 if short == "fwd" else r["grad_scale"]
             if r[f"{short}_variant"] == variant:
                 errs += [(r[f"{g}_max_abs_err"], scale)
                          for g in grads_of[short]]
-            elif variant == "simt" and f"simt_{short}_max_abs_err" in r:
-                errs.append((r[f"simt_{short}_max_abs_err"], scale))
+            elif f"{variant}_{short}_max_abs_err" in r:
+                errs.append((r[f"{variant}_{short}_max_abs_err"], scale))
         if short == "fwd":
             errs += [(r["max_abs_err"], 1.0) for r in sites
                      if r["variant"] == variant]
@@ -3092,7 +3567,8 @@ def kernel_line(report: dict) -> list:
         tr, tr0 = (next(r for r in rows if r["site"] == site
                         and r["dtype"] == dtype and r["dropout"] == rate)
                    for rate in (DROPOUT, 0.0))
-        key = short if tr[f"{short}_variant"] == variant else f"simt_{short}"
+        key = (short if tr[f"{short}_variant"] == variant
+               else f"{variant}_{short}")
         shape = (f"{site} {dtype} B={tr['B']} Sq={tr['Sq']} Sk={tr['Sk']} "
                  f"H={tr['H']} D={tr['D']}")
         entry = {"name": name, "route": "cuda", "variant": variant,
@@ -3157,6 +3633,69 @@ def kernel_line(report: dict) -> list:
                     for r in report["simt_dkv"]]
         out.append(entry)
     return out
+
+
+def wg_entry(report: dict, name: str, source: str, replaces: str,
+             train_n: dict, serve_n: dict, cli_n: dict, res_n: dict,
+             multi_n: dict) -> dict:
+    """The kernels line's row of a warpgroup kernel (K1-wg or K3-wg): its
+    launches on the main paths, its errors over every check that ran it
+    (phases 3, 8b and 8d through the rule, 3d's), and its times at the
+    four-level encoder at B=8 from phase 3d: K1 as served (no dropout,
+    with 0.1 beside), K3 as trained (dropout 0.1, without beside), each
+    beside the mma.sync kernel and SDPA of the same turns. The plain
+    version runs at B=1 (phase 8d): its scores at B=8 would hold 18.7 GB."""
+    short = "fwd" if "fwd" in name else "dkv"
+    wrapper = "flash_attention" if short == "fwd" else "flash_attn_bwd_dkv"
+    kernel = "flash_attn_fwd" if short == "fwd" else "flash_attn_bwd_dkv"
+    grads = ("fwd",) if short == "fwd" else ("dk", "dv")
+    rows = [r for key in ("train_kernels", "multi_kernels", "levels_kernels")
+            for r in report.get(key, ())]
+    errs = [(r[f"{g}_max_abs_err"], 1.0 if short == "fwd" else
+             r["grad_scale"]) for r in rows if r[f"{short}_variant"] == "wg"
+            for g in grads]
+    errs += [(t["max_abs_err"][g], 1.0 if short == "fwd" else
+              t["grad_scale"]) for t in report["wg_times"] for g in grads]
+    rate = 0.0 if short == "fwd" else DROPOUT
+    t, t_other = (next(r for r in report["wg_times"]
+                       if r["site"] == MAIN_SITE["wg"] and r["dropout"] == x)
+                  for x in (rate, DROPOUT - rate))
+    plain = next(r for r in report["levels_kernels"]
+                 if r["dtype"] == "bfloat16" and r["dropout"] == rate)
+    mine, tc, lib = (("k1_wg", "k1_tc", "sdpa_fwd") if short == "fwd" else
+                     ("k3_wg", "k3_tc", "sdpa_bwd"))
+    bound = t["bounds"][kernel]
+    top = max(bound, key=bound.get)
+
+    def count(n):
+        return n[f"{wrapper}_wg"]
+
+    return {
+        "name": name, "route": "cuda", "variant": "wg",
+        "source": f"reftr_torch/kernels/csrc/{source}", "replaces": replaces,
+        "launches": (count(train_n) + count(serve_n) + count(cli_n)
+                     + count(res_n) + count(multi_n)),
+        "launches_train": count(train_n),
+        "launches_train_f32": count(report["train_f32"]["launches"]),
+        "launches_serve": count(serve_n), "launches_cli": count(cli_n),
+        "launches_res": count(res_n), "launches_multi": count(multi_n),
+        "max_abs_err": max(e for e, _ in errs),
+        "max_rel_err": max(e / s for e, s in errs),
+        "site": MAIN_SITE["wg"],
+        "shape": (f"{t['site']} bfloat16 B={t['B']} Sq={t['Sq']} "
+                  f"Sk={t['Sk']} H={t['H']} D={t['D']}, dropout {rate}"),
+        "ms": t["ms"][mine], f"ms_dropout_{DROPOUT - rate}":
+            t_other["ms"][mine],
+        "tc_ms": t["ms"][tc], "library_ms": t["ms"][lib],
+        "library_covers": ("SDPA forward" if short == "fwd" else
+                           "SDPA backward: K2 and K3 together"),
+        "k2_tc_ms": t["ms"]["k2_tc"],
+        "plain_ms": (plain["fwd_plain_ms"] if short == "fwd"
+                     else plain["bwd_plain_ms"]),
+        "plain_shape": "vl_encoder_4_levels B=1 (phase 8d)",
+        "bound_ms": bound[top],
+        "bound_by": "bytes" if top == "bytes" else "operations",
+        "bound_terms_ms": bound}
 
 
 def phase8_launches(report: dict) -> dict:
@@ -3244,25 +3783,41 @@ def main() -> int:
     print(f"built {', '.join(sources)} and the data pipeline's "
           f"{data_lib.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    # the tensor-core kernels' machine code (bf16 and 3xTF32) must hold
-    # tensor-core products
+    # the tensor-core kernels' machine code must hold tensor-core products:
+    # mma.sync's HMMA in the bf16 and 3xTF32 ones, wgmma's HGMMA in the
+    # warpgroup ones
     hmma = {src: sass_count(libs[src], "HMMA")
             for src, _, variant in KERNELS.values()
             if variant in ("tc", "tf32x3")}
-    print(f"cuobjdump -sass: HMMA instructions {hmma}", flush=True)
-    if not all(hmma.values()):
-        raise AssertionError(f"a tensor-core kernel has no HMMA: {hmma}")
+    hgmma = {src: sass_count(libs[src], "HGMMA")
+             for src, _, variant in KERNELS.values() if variant == "wg"}
+    print(f"cuobjdump -sass: HMMA instructions {hmma}; HGMMA instructions "
+          f"{hgmma}", flush=True)
+    if not all(hmma.values()) or not all(hgmma.values()):
+        raise AssertionError(f"a tensor-core kernel has no tensor-core "
+                             f"product: HMMA {hmma}, HGMMA {hgmma}")
+    sass = sass_profile(libs)
+    for src, got in sass.items():
+        print(f"sass {src} (D=32 function, static counts): {got['sass']}; "
+              f"ptxas: {'; '.join(got['ptxas'])}", flush=True)
+    card_numbers(libs)
+    print(f"bound: {CARD['sms']} SMs at {CARD['sm_clock_hz'] / 1e6:.0f} MHz "
+          f"(clocks.max.sm); a Philox call is "
+          f"{CARD['philox_imad_per_call']} IMADs in K1-wg's machine code",
+          flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
           f"cudnn {torch.backends.cudnn.allow_tf32}", flush=True)
 
     counters = [flash_attention, flash_attn_bwd_dq, flash_attn_bwd_dkv]
-    report = {"card": card, "hmma": hmma}
+    report = {"card": card, "hmma": hmma, "hgmma": hgmma,
+              "bound_card": dict(CARD), "sass": sass}
     check_kernel(report)
     check_training_kernels(report)
     check_head_dims(report)
     check_simt_dkv(report)
+    wg_times(report)
     serve(report, counters)
     torch.cuda.empty_cache()
     train(report, counters)

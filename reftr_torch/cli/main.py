@@ -36,7 +36,7 @@ NOT_PORTED = {
     "img_pos_in_stream": f"the from-scratch flags ({_ITEM} 8)",
     "decoder_pos_in_value": f"the from-scratch flags ({_ITEM} 8)",
     "heatmap_box": f"the from-scratch flags ({_ITEM} 8)",
-    "fold_bn": f"fold_bn ({_ITEM} 3)",
+    "fold_bn": f"fold_bn ({_ITEM} 9)",
     "space_to_depth_stem": f"the TPU reparameterisations ({_ITEM} 9)",
     "fold_normalize": f"the TPU reparameterisations ({_ITEM} 9)",
     "block_layer1": f"the TPU reparameterisations ({_ITEM} 9)",

@@ -7,7 +7,9 @@ autograd contract:
   K1 ``flash_attention``    <- ``_flash_kernel`` / ``_fwd``
                                (``csrc/flash_attn_fwd_dec.cu`` for short
                                query sides, on tensor cores
-                               ``csrc/flash_attn_fwd_tc.cu`` in bf16 and
+                               ``csrc/flash_attn_fwd_tc.cu`` (mma.sync) and
+                               ``csrc/flash_attn_fwd_wg.cu`` (wgmma and
+                               TMA) in bf16 and
                                ``csrc/flash_attn_fwd_f32tc.cu`` in float32
                                by 3xTF32; ``csrc/flash_attn_fwd.cu`` on
                                SIMT, which the rule no longer picks)
@@ -21,7 +23,8 @@ autograd contract:
   K3 ``flash_attn_bwd_dkv`` <- ``_bwd_dkv_kernel``
                                (``csrc/flash_attn_bwd_dec.cu`` for short
                                query sides, on tensor cores
-                               ``csrc/flash_attn_bwd_dkv_tc.cu`` in bf16 and
+                               ``csrc/flash_attn_bwd_dkv_tc.cu`` and
+                               ``csrc/flash_attn_bwd_dkv_wg.cu`` in bf16,
                                ``csrc/flash_attn_bwd_dkv_f32tc.cu`` in
                                float32, ``csrc/flash_attn_bwd.cu`` on SIMT
                                for fewer than 16 keys)
@@ -33,10 +36,14 @@ alone (``fwd_variant``, ``dq_variant``, ``dkv_variant``): fewer than 16
 query rows, the decoder's single query, take the decode kernels ("dec") in
 either dtype, where one launch of ``flash_attn_bwd_dec.cu`` gives K2's and
 K3's gradients together; with 16 or more (and, for K3, 16 or more keys)
-bf16 takes the tensor-core kernels ("tc") and float32 the 3xTF32
-tensor-core kernels ("tf32x3"), which split each float32 operand into two
-tf32 halves and keep float32's accuracy; K3 with fewer than 16 keys takes
-the SIMT kernel ("simt"). A head dim above ``MAX_HEAD_DIM`` takes the
+bf16 takes the tensor-core kernels, for K1 and K3 the warpgroup ones
+("wg": wgmma, TMA, a producer and two consumer warpgroups) at the
+shapes where they measured faster on the H100 and the mma.sync ones ("tc")
+elsewhere, and float32 the 3xTF32 tensor-core kernels ("tf32x3"), which
+split each float32 operand into two tf32 halves and keep float32's
+accuracy; K3 with fewer than 16 keys takes the SIMT kernel ("simt"). K3's
+"wg" kernel reads di = rowsum(dO * O) from K2-TC, which writes it beside
+dq, instead of O. A head dim above ``MAX_HEAD_DIM`` takes the
 plain versions on the card ("plain"), a rule of the dispatch that no
 error reaches. A kernel that fails to build or launch raises; no variant
 stands in for another.
@@ -60,12 +67,12 @@ version for a tensor on the CPU, and for a CUDA tensor launches its kernel
 or raises (or, for a head dim above 128, runs the plain version by the
 rule). Each wrapper counts its kernel's launches in ``<wrapper>.launches``
 (K1's in ``flash_attention.launches``, also when ``FlashAttentionFn``
-launches it), those of the tensor-core, 3xTF32 and decode variants among
-them in ``<wrapper>.launches_tc``, ``<wrapper>.launches_tf32x3`` and
-``<wrapper>.launches_dec``, and the CUDA calls that the rule sent to the
-plain version, which launch no kernel of this module, in
-``<wrapper>.launches_plain``. One launch of
-the decode backward, or one plain backward, counts on K2 and on K3.
+launches it), those of the tensor-core, warpgroup, 3xTF32 and decode variants
+among them in ``<wrapper>.launches_tc``, ``<wrapper>.launches_wg``,
+``<wrapper>.launches_tf32x3`` and ``<wrapper>.launches_dec``, and the CUDA
+calls that the rule sent to the plain version, which launch no kernel of this
+module, in ``<wrapper>.launches_plain``. One launch of the decode backward, or
+one plain backward, counts on K2 and on K3.
 
 Attention dropout follows the TPU kernel: the softmax denominator sums the
 un-dropped weights and only the weights applied to v are dropped and
@@ -98,6 +105,16 @@ TC_MIN_ROWS = 16
 # to the next, one above the last takes the plain versions ("plain")
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_HEAD_DIM = HEAD_DIMS[-1]
+# the warpgroup kernels' one instance (flash_attn_fwd_wg.cu,
+# flash_attn_bwd_dkv_wg.cu): the padded head dim they take, and the least
+# (queries, keys) at which the rule sends bf16 calls of K1 ("fwd") and K3
+# ("dkv") there (the readings behind them in fwd_variant and dkv_variant)
+WG_HEAD_DIM = 32
+WG_MIN = {"fwd": (2040, 2040), "dkv": (256, 256)}
+# from this many keys the rule sends "wg" only a key count that is a
+# multiple of 4: elsewhere both kernels draw dropout's Philox per element,
+# and "wg" was measured the slower there (fwd_variant)
+WG_ALIGNED_FROM = 2040
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MASK32 = 0xFFFFFFFF
 # Philox4x32-10 multipliers and Weyl key increments (Salmon et al., SC'11)
@@ -338,25 +355,57 @@ def _threads_per_row(sq: int) -> int:
     return 4
 
 
-def fwd_variant(sq: int, dtype: torch.dtype, d: int) -> str:
-    """K1's kernel on the card for sq queries of head dim d: "plain"
-    (``attention_plain`` on the card, counted in
+def _wg(kernel: str, sq: int, sk: int, dtype: torch.dtype, d: int) -> bool:
+    """Whether a bf16 call of K1 ("fwd") or K3 ("dkv") takes its warpgroup
+    kernel: a head dim that pads to WG_HEAD_DIM, at least WG_MIN[kernel]
+    queries and keys, and from WG_ALIGNED_FROM keys up a key count that is
+    a multiple of 4."""
+    least_sq, least_sk = WG_MIN[kernel]
+    return (dtype == torch.bfloat16 and d <= MAX_HEAD_DIM
+            and padded_head_dim(d) == WG_HEAD_DIM and sq >= least_sq
+            and sk >= least_sk and (sk < WG_ALIGNED_FROM or sk % 4 == 0))
+
+
+def fwd_variant(sq: int, sk: int, dtype: torch.dtype, d: int) -> str:
+    """K1's kernel on the card for sq queries, sk keys and head dim d:
+    "plain" (``attention_plain`` on the card, counted in
     ``flash_attention.launches_plain``) for d above MAX_HEAD_DIM, where no
     kernel is instantiated; else "dec" (flash_attn_fwd_dec.cu) for fewer
     than TC_MIN_ROWS queries in either dtype, the decoder's single query,
     where a 64-row tile would be 63 rows of zeros and the call is bound by
-    reading K and V once; with more, the VL encoder's 440 and BERT's 40
-    (keys are the N side of the tensor-core kernels, so any Sk), "tc"
-    (flash_attn_fwd_tc.cu) for bf16 and "tf32x3"
-    (flash_attn_fwd_f32tc.cu) for float32: its products on the tensor
+    reading K and V once; with more, in bf16 "wg" (flash_attn_fwd_wg.cu)
+    where ``_wg`` holds and "tc" (flash_attn_fwd_tc.cu) elsewhere, and in
+    float32 "tf32x3" (flash_attn_fwd_f32tc.cu): its products on the tensor
     cores as three TF32 products of split operands, which keeps the
     float32 tolerance that plain TF32 would break. The SIMT kernel
-    (flash_attn_fwd.cu) has no route left."""
+    (flash_attn_fwd.cu) has no route left.
+
+    "wg" takes WG_MIN["fwd"] = 2040 queries and keys and up where Sk is a
+    multiple of 4: the sites where it was no slower than "tc" both without
+    dropout and with it (chip_smoke.py phase 3d on an NVIDIA H100 80GB
+    HBM3 at 700 W: ms a call, CUDA events, median of three turns, "tc" /
+    "wg" without dropout, then with 0.1):
+      the VL encoder at four levels, 8540^2, B=8: 4.772 / 2.586, 9.498 /
+        8.361; each image padded on the canvas: 4.762 / 3.718, 9.498 /
+        9.445; at three, 8440^2: 4.635 / 2.494, 9.215 / 7.789; at two,
+        2040^2: 0.2985 / 0.1815, 0.5856 / 0.5329;
+      flickr's encoder at two levels, 2090^2, B=16: 0.6060 / 0.3932,
+        2.559 / 3.488; at one, 490^2: 0.0444 / 0.0378, 0.1701 / 0.2330;
+      the VL encoder at one level, 440^2, B=8: 0.0363 / 0.0312, 0.0390 /
+        0.0534; flickr's decoder, 16 x 490: 0.0565 / 0.0577, 0.0703 /
+        0.0580.
+    One block of 128 query rows fills an SM, so a short sequence gives
+    "wg" few blocks, and with dropout the Philox work of its 128-key
+    tiles does not hide under its products; where Sk % 4 != 0 both
+    kernels draw Philox per element, not once per 4 keys, and "wg" is
+    1.36x slower with dropout (2090^2, 490^2). "tc" keeps those sites."""
     if d > MAX_HEAD_DIM:
         return "plain"
     if sq < TC_MIN_ROWS:
         return "dec"
-    return "tc" if dtype == torch.bfloat16 else "tf32x3"
+    if dtype != torch.bfloat16:
+        return "tf32x3"
+    return "wg" if _wg("fwd", sq, sk, dtype, d) else "tc"
 
 
 def dq_variant(sq: int, dtype: torch.dtype, d: int) -> str:
@@ -380,18 +429,40 @@ def dq_variant(sq: int, dtype: torch.dtype, d: int) -> str:
 def dkv_variant(sq: int, sk: int, dtype: torch.dtype, d: int) -> str:
     """K3's kernel on the card for sq queries, sk keys and head dim d:
     "plain" and "dec" as for ``dq_variant``; with at least TC_MIN_ROWS
-    queries and keys (the VL encoder and BERT) "tc"
-    (flash_attn_bwd_dkv_tc.cu) for bf16 and "tf32x3"
-    (flash_attn_bwd_dkv_f32tc.cu) for float32; else "simt"
+    queries and keys (the VL encoder and BERT) in bf16 "wg"
+    (flash_attn_bwd_dkv_wg.cu, which takes di from K2-TC) where ``_wg``
+    holds (``fwd_variant``) and "tc" (flash_attn_bwd_dkv_tc.cu) elsewhere,
+    and "tf32x3" (flash_attn_bwd_dkv_f32tc.cu) for float32; else "simt"
     (flash_attn_bwd.cu): fewer than TC_MIN_ROWS keys in either dtype, where
-    each 64-key tile of a tensor-core kernel would be mostly empty."""
+    each 64-key tile of a tensor-core kernel would be mostly empty.
+
+    "wg" takes WG_MIN["dkv"] = 256 queries and keys and up, and from
+    WG_ALIGNED_FROM keys only where Sk is a multiple of 4 (readings as in
+    fwd_variant, "tc" / "wg", without dropout, then with 0.1):
+      the VL encoder at four levels, 8540^2, B=8: 10.036 / 3.526, 14.804 /
+        11.021; each image padded: 10.045 / 3.486, 14.804 / 10.924; at
+        three, 8440^2: 9.742 / 3.384, 14.384 / 10.694; at two, 2040^2:
+        0.6172 / 0.2318, 0.9050 / 0.6828; at one, 440^2: 0.0418 /
+        0.0454, 0.0571 / 0.0445 (the host loop at 440^2 is launch-bound;
+        torch.profiler's device time, phase 3: 0.0399 / 0.0193, 0.0571 /
+        0.0440);
+      flickr's encoder at two levels, 2090^2, B=16: 1.249 / 0.4947,
+        3.186 / 3.223 (Philox per element, as in fwd_variant); at one,
+        490^2: 0.0865 / 0.0499, 0.2115 / 0.1906;
+      flickr's decoder, 16 x 490: 0.0706 / 0.0729, 0.0492 / 0.0577.
+    At 16 queries one 64-query tile is a quarter full. K3 runs in
+    training, with dropout, so its reading with dropout decides; REC's
+    bf16 step (chip_smoke.py phase 5) is no slower by the rule than with
+    K3 on "tc" at 440^2 (208.03 against 215.89 ms a step, in turns)."""
     if d > MAX_HEAD_DIM:
         return "plain"
     if sq < TC_MIN_ROWS:
         return "dec"
     if sk < TC_MIN_ROWS:
         return "simt"
-    return "tc" if dtype == torch.bfloat16 else "tf32x3"
+    if dtype != torch.bfloat16:
+        return "tf32x3"
+    return "wg" if _wg("dkv", sq, sk, dtype, d) else "tc"
 
 
 _PTR = ctypes.c_void_p
@@ -408,6 +479,8 @@ _ARGTYPES = {
                        + _DROPOUT_ARGS),
     "flash_attn_fwd_tc": ("flash_attn_fwd_tc.cu",
                           [_PTR] * 6 + [_INT] * 5 + [_FLOAT] + _DROPOUT_ARGS),
+    "flash_attn_fwd_wg": ("flash_attn_fwd_wg.cu",
+                          [_PTR] * 6 + [_INT] * 5 + [_FLOAT] + _DROPOUT_ARGS),
     "flash_attn_fwd_f32tc": ("flash_attn_fwd_f32tc.cu",
                              [_PTR] * 6 + [_INT] * 5 + [_FLOAT]
                              + _DROPOUT_ARGS),
@@ -418,7 +491,7 @@ _ARGTYPES = {
                           [_PTR] * 8 + [_INT] * 5 + [_FLOAT] + [_INT] * 2
                           + _DROPOUT_ARGS),
     "flash_attn_bwd_dq_tc": ("flash_attn_bwd_dq_tc.cu",
-                             [_PTR] * 8 + [_INT] * 5 + [_FLOAT]
+                             [_PTR] * 9 + [_INT] * 5 + [_FLOAT]
                              + _DROPOUT_ARGS),
     "flash_attn_bwd_dq_f32tc": ("flash_attn_bwd_dq_f32tc.cu",
                                 [_PTR] * 8 + [_INT] * 5 + [_FLOAT]
@@ -427,6 +500,9 @@ _ARGTYPES = {
                            [_PTR] * 9 + [_INT] * 5 + [_FLOAT, _INT]
                            + _DROPOUT_ARGS),
     "flash_attn_bwd_dkv_tc": ("flash_attn_bwd_dkv_tc.cu",
+                              [_PTR] * 9 + [_INT] * 5 + [_FLOAT]
+                              + _DROPOUT_ARGS),
+    "flash_attn_bwd_dkv_wg": ("flash_attn_bwd_dkv_wg.cu",
                               [_PTR] * 9 + [_INT] * 5 + [_FLOAT]
                               + _DROPOUT_ARGS),
     "flash_attn_bwd_dkv_f32tc": ("flash_attn_bwd_dkv_f32tc.cu",
@@ -495,8 +571,9 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    dropout_rate=dropout_rate, seed=seed)
         return attention_plain(q, k, v, valid_mask, dropout_rate=dropout_rate,
                                seed=seed), None
-    return _launch_fwd(fwd_variant(q.shape[1], q.dtype, q.shape[-1]), q, k,
-                       v, valid_mask, dropout_rate, seed, return_lse)
+    return _launch_fwd(fwd_variant(q.shape[1], k.shape[1], q.dtype,
+                                   q.shape[-1]),
+                       q, k, v, valid_mask, dropout_rate, seed, return_lse)
 
 
 def _check_aligned(what: str, *tensors: Optional[torch.Tensor]) -> None:
@@ -519,9 +596,19 @@ def _check_tc(*tensors: Optional[torch.Tensor],
     _check_aligned("tensor-core", *tensors)
 
 
+def _check_wg(*tensors: Optional[torch.Tensor]) -> None:
+    """What the warpgroup kernels take beyond ``_check_tc``: a head dim
+    that pads to their instance's (their TMA tiles are one swizzle row of
+    D bf16)."""
+    _check_tc(*tensors)
+    if padded_head_dim(tensors[0].shape[-1]) != WG_HEAD_DIM:
+        raise ValueError(f"the warpgroup kernels take head dims padded to "
+                         f"{WG_HEAD_DIM}, not {tensors[0].shape[-1]}")
+
+
 def _launch_fwd(variant: str, q, k, v, valid_mask, dropout_rate: float,
                 seed: Optional[int], return_lse: bool = True):
-    """Launch K1's ``variant`` ("dec", "tc", "tf32x3" or "simt"; "plain"
+    """Launch K1's ``variant`` ("dec", "tc", "wg", "tf32x3" or "simt"; "plain"
     runs ``attention_plain``) on CUDA tensors: (out, lse or None). A head dim
     between the instances is zero-padded to the next one."""
     if variant == "plain":
@@ -550,6 +637,10 @@ def _launch_fwd(variant: str, q, k, v, valid_mask, dropout_rate: float,
         _check_tc(q, k, v)
         _launch("flash_attn_fwd_tc", q.device, *ptrs, *shape, *drop)
         flash_attention.launches_tc += 1
+    elif variant == "wg":
+        _check_wg(q, k, v)
+        _launch("flash_attn_fwd_wg", q.device, *ptrs, *shape, *drop)
+        flash_attention.launches_wg += 1
     elif variant == "tf32x3":
         _check_tc(q, k, v, dtype=torch.float32)
         _launch("flash_attn_fwd_f32tc", q.device, *ptrs, *shape, *drop)
@@ -587,9 +678,12 @@ def _bwd_inputs(q, k, v, valid_mask, o, lse, do):
 
 
 def _launch_dq(variant: str, q, k, v, valid_mask, o, lse, do,
-               dropout_rate: float, seed: Optional[int]) -> torch.Tensor:
+               dropout_rate: float, seed: Optional[int],
+               di_out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch K2's ``variant`` ("dec", "tc", "tf32x3" or "simt"; "plain"
-    runs ``attention_bwd_plain``) on CUDA tensors: dq."""
+    runs ``attention_bwd_plain``) on CUDA tensors: dq. With ``di_out``
+    ([B, H, Sq] f32, "tc" only) K2-TC also writes di = rowsum(dO * O)
+    there, for K3's "wg" kernel."""
     if variant in ("dec", "plain"):
         return _bwd_shared(variant, q, k, v, valid_mask, o, lse, do,
                            dropout_rate, seed)[0]
@@ -598,9 +692,15 @@ def _launch_dq(variant: str, q, k, v, valid_mask, o, lse, do,
     ptrs = (_ptr(q), _ptr(k), _ptr(v), _ptr(valid_mask), _ptr(o), _ptr(do),
             _ptr(lse), _ptr(dq))
     drop = _dropout_args(dropout_rate, seed)
+    if di_out is not None and (variant != "tc" or di_out.dtype
+                               != torch.float32 or di_out.shape
+                               != lse.shape or not di_out.is_contiguous()):
+        raise ValueError(f"di_out is K2-TC's: float32 {tuple(lse.shape)}, "
+                         f"contiguous, for variant tc, not {variant}")
     if variant == "tc":
         _check_tc(q, k, v, o, do)
-        _launch("flash_attn_bwd_dq_tc", q.device, *ptrs, *shape, *drop)
+        _launch("flash_attn_bwd_dq_tc", q.device, *ptrs, _ptr(di_out),
+                *shape, *drop)
         flash_attn_bwd_dq.launches_tc += 1
     elif variant == "tf32x3":
         _check_tc(q, k, v, o, do, dtype=torch.float32)
@@ -616,26 +716,41 @@ def _launch_dq(variant: str, q, k, v, valid_mask, o, lse, do,
 
 
 def flash_attn_bwd_dkv(q, k, v, valid_mask, o, lse, do,
-                       dropout_rate: float = 0.0, seed: Optional[int] = None
+                       dropout_rate: float = 0.0, seed: Optional[int] = None,
+                       di: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3: (dk, dv) [B, Sk, H, D] in the input dtype. The plain version on
-    a CPU tensor."""
+    a CPU tensor. The "wg" kernel reads di = rowsum(dO * O) [B, H, Sq]
+    float32: ``di`` where given (K2-TC's ``di_out``), else ``di_plain``;
+    the other variants ignore it."""
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, valid_mask, o, lse, do,
                                    dropout_rate, seed)[1:]
     return _launch_dkv(dkv_variant(q.shape[1], k.shape[1], q.dtype,
                                    q.shape[-1]),
-                       q, k, v, valid_mask, o, lse, do, dropout_rate, seed)
+                       q, k, v, valid_mask, o, lse, do, dropout_rate, seed,
+                       di)
+
+
+def di_plain(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """di = rowsum(dO * O) [B, H, Sq] in float32: K3-wg's input where K2-TC
+    has not written it."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
 
 
 def _launch_dkv(variant: str, q, k, v, valid_mask, o, lse, do,
-                dropout_rate: float, seed: Optional[int]
+                dropout_rate: float, seed: Optional[int],
+                di: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K3's ``variant`` ("dec", "tc", "tf32x3" or "simt"; "plain"
-    runs ``attention_bwd_plain``) on CUDA tensors: (dk, dv)."""
+    """Launch K3's ``variant`` ("dec", "tc", "wg", "tf32x3" or "simt";
+    "plain" runs ``attention_bwd_plain``) on CUDA tensors: (dk, dv). "wg"
+    reads ``di`` (``_launch_dkv_wg``)."""
     if variant in ("dec", "plain"):
         return _bwd_shared(variant, q, k, v, valid_mask, o, lse, do,
                            dropout_rate, seed)[1:]
+    if variant == "wg":
+        return _launch_dkv_wg(q, k, v, valid_mask, o, lse, do, dropout_rate,
+                              seed, di)
     q, k, v, o, do, d, shape = _bwd_inputs(q, k, v, valid_mask, o, lse, do)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -655,6 +770,30 @@ def _launch_dkv(variant: str, q, k, v, valid_mask, o, lse, do,
                 _DTYPES[q.dtype], *drop)
     else:
         raise ValueError(f"unknown variant {variant!r}")
+    flash_attn_bwd_dkv.launches += 1
+    return _unpad(dk, d), _unpad(dv, d)
+
+
+def _launch_dkv_wg(q, k, v, valid_mask, o, lse, do, dropout_rate: float,
+                   seed: Optional[int], di: Optional[torch.Tensor]
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K3-wg (flash_attn_bwd_dkv_wg.cu) on CUDA tensors: (dk, dv).
+    The kernel reads di = rowsum(dO * O) and never O: ``di`` where the
+    caller has it (K2-TC's ``di_out``), else ``di_plain(o, do)``."""
+    q, k, v, o, do, d, shape = _bwd_inputs(q, k, v, valid_mask, o, lse, do)
+    if di is None:
+        di = di_plain(o, do)
+    if (di.dtype != torch.float32 or di.shape != lse.shape
+            or di.device != q.device or not di.is_contiguous()):
+        raise ValueError(f"di must be float32 {tuple(lse.shape)}, contiguous, "
+                         f"on {q.device}, got {di.dtype} {tuple(di.shape)}")
+    _check_wg(q, k, v, do)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _launch("flash_attn_bwd_dkv_wg", q.device, _ptr(q), _ptr(k), _ptr(v),
+            _ptr(valid_mask), _ptr(do), _ptr(lse), _ptr(di), _ptr(dk),
+            _ptr(dv), *shape, *_dropout_args(dropout_rate, seed))
+    flash_attn_bwd_dkv.launches_wg += 1
     flash_attn_bwd_dkv.launches += 1
     return _unpad(dk, d), _unpad(dv, d)
 
@@ -708,6 +847,7 @@ def _launch_bwd_dec(q, k, v, valid_mask, o, lse, do, dropout_rate: float,
 for _wrapper in (flash_attn_bwd_dq, flash_attn_bwd_dkv):
     _wrapper.launches = 0
     _wrapper.launches_tc = 0
+    _wrapper.launches_wg = 0
     _wrapper.launches_tf32x3 = 0
     _wrapper.launches_dec = 0
     _wrapper.launches_plain = 0
@@ -719,8 +859,8 @@ class FlashAttentionFn(torch.autograd.Function):
     lse and the dropout seed; the backward runs K2 and K3 (one launch of the
     decode backward for fewer than TC_MIN_ROWS queries, one call of
     ``attention_bwd_plain`` for a head dim above MAX_HEAD_DIM; their plain
-    versions on the CPU) and gives no gradient for the mask, the rate or
-    the seed."""
+    versions on the CPU; where K3 takes "wg", K2-TC writes di for it) and gives
+    no gradient for the mask, the rate or the seed."""
 
     @staticmethod
     def forward(ctx, q, k, v, valid_mask, dropout_rate, seed):
@@ -740,6 +880,14 @@ class FlashAttentionFn(torch.autograd.Function):
         elif variant in ("dec", "plain"):
             dq, dk, dv = _bwd_shared(variant, q, k, v, valid_mask, out, lse,
                                      do, *ctx.dropout)
+        elif dkv_variant(q.shape[1], k.shape[1], q.dtype,
+                         q.shape[-1]) == "wg":
+            # K2-TC hands K3-wg each query's di = rowsum(dO * O)
+            di = torch.empty_like(lse)
+            dq = _launch_dq(variant, q, k, v, valid_mask, out, lse, do,
+                            *ctx.dropout, di_out=di)
+            dk, dv = _launch_dkv("wg", q, k, v, valid_mask, out, lse, do,
+                                 *ctx.dropout, di)
         else:
             dq = flash_attn_bwd_dq(q, k, v, valid_mask, out, lse, do,
                                    *ctx.dropout)
@@ -778,6 +926,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention.launches = 0
 flash_attention.launches_tc = 0
+flash_attention.launches_wg = 0
 flash_attention.launches_tf32x3 = 0
 flash_attention.launches_dec = 0
 flash_attention.launches_plain = 0

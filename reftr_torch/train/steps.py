@@ -20,7 +20,7 @@ and ``lr``, copied to the host without waiting, so a loop can read step
 i-1's while step i runs. ``grad_norm`` is the norm the clip sees, over the
 trainable parameters; JAX's reported ``grad_norm`` (:87) also counts the
 FrozenBN leaves of layer2-4, which are Flax params there and buffers here
-(ROADMAP.md section 4).
+(ROADMAP.md queue 3, "Differences that are not port faults").
 """
 
 from __future__ import annotations

@@ -158,35 +158,54 @@ CALL_SITES = {"vl_encoder_self": (440, 440, 32), "decoder_self": (1, 1, 32),
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("site", sorted(CALL_SITES))
 def test_variant_rule_at_the_call_sites(site, dtype):
-    """bf16 BERT and encoder calls on the tensor cores; float32 ones on
-    the 3xTF32 tensor-core kernels (K1, K2 and K3); the decoder's single
-    query on the decode kernels (K1's, and the one backward kernel for K2
-    and K3) in either dtype."""
+    """bf16 BERT and encoder calls on the tensor cores, K3 at the encoder
+    on its warpgroup kernel; float32 ones on the 3xTF32 tensor-core
+    kernels (K1, K2 and K3); the decoder's single query on the decode
+    kernels (K1's, and the one backward kernel for K2 and K3) in either
+    dtype."""
     sq, sk, d = CALL_SITES[site]
     dec = site.startswith("decoder")
     bf16 = dtype == torch.bfloat16
     want = "dec" if dec else "tc" if bf16 else "tf32x3"
-    assert fwd_variant(sq, dtype, d) == want
+    assert fwd_variant(sq, sk, dtype, d) == want
     assert dq_variant(sq, dtype, d) == want
-    assert dkv_variant(sq, sk, dtype, d) == want
+    assert dkv_variant(sq, sk, dtype, d) == (
+        "wg" if bf16 and site == "vl_encoder_self" else want)
 
 
 def test_variant_rule_boundary():
     bf16, f32 = torch.bfloat16, torch.float32
     assert TC_MIN_ROWS == 16
-    assert fwd_variant(15, bf16, 32) == "dec"
-    assert fwd_variant(16, bf16, 32) == "tc"
-    assert fwd_variant(16, f32, 32) == "tf32x3"
-    assert fwd_variant(15, f32, 32) == "dec"
-    assert fwd_variant(8540, f32, 32) == "tf32x3"
+    assert fwd_variant(15, 15, bf16, 32) == "dec"
+    assert fwd_variant(16, 16, bf16, 32) == "tc"
+    assert fwd_variant(16, 16, f32, 32) == "tf32x3"
+    assert fwd_variant(15, 15, f32, 32) == "dec"
+    assert fwd_variant(8540, 8540, f32, 32) == "tf32x3"
+    # bf16 K1 and K3 on the warpgroup kernels from WG_MIN queries and keys
+    # at a head dim padding to 32, from 2040 keys at a multiple of 4
+    assert fwd_variant(2040, 2040, bf16, 32) == "wg"
+    assert fwd_variant(2039, 2040, bf16, 32) == "tc"
+    assert fwd_variant(2040, 2039, bf16, 32) == "tc"
+    assert fwd_variant(2090, 2090, bf16, 32) == "tc"
+    assert fwd_variant(2092, 2092, bf16, 32) == "wg"
+    assert fwd_variant(8540, 8540, bf16, 24) == "wg"
+    assert fwd_variant(8540, 8540, bf16, 64) == "tc"
+    assert dkv_variant(256, 256, bf16, 32) == "wg"
+    assert dkv_variant(255, 256, bf16, 32) == "tc"
+    assert dkv_variant(256, 255, bf16, 32) == "tc"
+    assert dkv_variant(490, 490, bf16, 32) == "wg"
+    assert dkv_variant(2090, 2090, bf16, 32) == "tc"
+    assert dkv_variant(2040, 2040, bf16, 32) == "wg"
+    assert dkv_variant(440, 440, bf16, 16) == "tc"
+    assert dq_variant(8540, bf16, 32) == "tc"
     assert dkv_variant(16, 16, bf16, 32) == "tc"
     assert dkv_variant(15, 440, bf16, 32) == "dec"
     assert dkv_variant(15, 15, f32, 32) == "dec"
     assert dkv_variant(440, 15, bf16, 32) == "simt"
     assert dkv_variant(440, 440, f32, 32) == "tf32x3"
     assert MAX_HEAD_DIM == 128
-    assert fwd_variant(440, f32, 128) == "tf32x3"
-    assert fwd_variant(440, f32, 129) == "plain"
+    assert fwd_variant(440, 440, f32, 128) == "tf32x3"
+    assert fwd_variant(440, 440, f32, 129) == "plain"
 
 
 @pytest.mark.parametrize("sq,dtype,fwd,dq", [
@@ -198,9 +217,11 @@ def test_variant_rule_boundary():
     (8540, torch.bfloat16, "tc", "tc")])
 def test_dec_and_dq_variant_rules(sq, dtype, fwd, dq):
     """K1 and K2 take their decode kernels below TC_MIN_ROWS queries in
-    either dtype; both take the tensor cores from TC_MIN_ROWS queries,
-    whatever Sk: bf16 products in bf16, float32 ones by 3xTF32."""
-    assert fwd_variant(sq, dtype, 32) == fwd
+    either dtype; both take the tensor cores from TC_MIN_ROWS queries, K2
+    whatever Sk and K1 at BERT's 40 keys, below the warpgroup kernel's
+    least (test_variant_rule_boundary): bf16 products in bf16, float32
+    ones by 3xTF32."""
+    assert fwd_variant(sq, 40, dtype, 32) == fwd
     assert dq_variant(sq, dtype, 32) == dq
 
 
@@ -229,6 +250,9 @@ def _rule(kernel, sq, sk, dtype, d):
     bf16 = dtype == torch.bfloat16
     if kernel == "dkv" and sk < 16:
         return "simt"
+    least = {"fwd": 2048, "dkv": 256}.get(kernel)
+    if bf16 and least and 16 < d <= 32 and min(sq, sk) >= least:
+        return "wg"
     return "tc" if bf16 else "tf32x3"
 
 
@@ -240,7 +264,7 @@ def test_variant_rule_at_every_corner(dtype, sq, sk, d):
     """Every (dtype, Sq, Sk, D) corner of the rule: the edges of
     TC_MIN_ROWS on both sides, a head dim that pads, the largest instance
     and one above it."""
-    assert fwd_variant(sq, dtype, d) == _rule("fwd", sq, sk, dtype, d)
+    assert fwd_variant(sq, sk, dtype, d) == _rule("fwd", sq, sk, dtype, d)
     assert dq_variant(sq, dtype, d) == _rule("dq", sq, sk, dtype, d)
     assert dkv_variant(sq, sk, dtype, d) == _rule("dkv", sq, sk, dtype, d)
 
@@ -328,9 +352,9 @@ def test_cpu_tensors_take_the_plain_version_whatever_the_variant(sq, dtype):
     q, k, v, valid = (t(a) for a in make_qkv(8, 2, sq, 20, 2, 32))
     q, k, v = (x.to(dtype).requires_grad_() for x in (q, k, v))
     counters = (flash_attention, flash_attn_bwd_dq, flash_attn_bwd_dkv)
-    assert fwd_variant(sq, dtype, 32) == ("dec" if sq == 1 else "tf32x3"
-                                          if dtype == torch.float32
-                                          else "tc")
+    assert fwd_variant(sq, 20, dtype, 32) == ("dec" if sq == 1 else "tf32x3"
+                                              if dtype == torch.float32
+                                              else "tc")
 
     def counts():
         return [(c.launches, c.launches_tc, c.launches_tf32x3,
@@ -353,7 +377,8 @@ def test_cpu_tensors_take_the_plain_version_whatever_the_variant(sq, dtype):
     (_launch_fwd, "dec"), (_launch_fwd, "tc"), (_launch_fwd, "tf32x3"),
     (_launch_fwd, "simt"), (_launch_dq, "tc"), (_launch_dq, "tf32x3"),
     (_launch_dq, "simt"), (_launch_dq, "dec"), (_launch_dkv, "tc"),
-    (_launch_dkv, "tf32x3"), (_launch_dkv, "simt")])
+    (_launch_dkv, "tf32x3"), (_launch_dkv, "simt"), (_launch_fwd, "wg"),
+    (_launch_dkv, "wg")])
 def test_launchers_refuse_cpu_tensors(launch, variant):
     """Each launcher, called with CPU tensors for any of its kernel
     variants, raises before it pads, allocates or launches, and no launch
@@ -361,7 +386,7 @@ def test_launchers_refuse_cpu_tensors(launch, variant):
     versions."""
     sq = 1 if variant == "dec" else 16
     q, k, v, valid = (t(a) for a in make_qkv(10, 2, sq, 20, 2, 32))
-    if variant == "tc":
+    if variant in ("tc", "wg"):
         q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
     args = (q, k, v, valid)
     if launch is not _launch_fwd:

@@ -4,10 +4,10 @@ The plain versions of the backward kernels (``attention_bwd_plain``) and
 the autograd Function's CPU path against ``jax.vjp`` of the XLA attention
 (with a batch row whose keys are all masked) and of the Pallas kernel in
 interpret mode (rows with a valid key: the Pallas kernel pads keys, see
-ROADMAP.md section 4). The dropout mask: Philox4x32-10 against the
-published Random123 known answers, its keep rate against a binomial bound,
-and the port's mask injected into a JAX computation whose output and
-gradients must match the port's.
+ROADMAP.md queue 3, "Differences that are not port faults"). The dropout
+mask: Philox4x32-10 against the published Random123 known answers, its
+keep rate against a binomial bound, and the port's mask injected into a
+JAX computation whose output and gradients must match the port's.
 
 Tolerances: 1e-5 in float32 (sums in another order); gradcheck in float64
 at its defaults.

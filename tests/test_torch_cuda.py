@@ -35,7 +35,8 @@ from reftr_torch.kernels.attention import (FlashAttentionFn,
                                            _launch_bwd_dec, _launch_dkv,
                                            _launch_dq, _launch_fwd,
                                            attention_bwd_plain,
-                                           attention_plain, dkv_variant,
+                                           attention_plain, di_plain,
+                                           dkv_variant,
                                            dq_variant, flash_attention,
                                            flash_attn_bwd_dkv,
                                            flash_attn_bwd_dq, fwd_variant,
@@ -297,23 +298,25 @@ def test_dropout_mask_is_exact_through_the_tensor_core_kernel(gen, shape):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_tensor_core_counters_count_only_bf16_calls(gen, dtype):
-    """An encoder-shaped bf16 call goes through K1-TC, K2-TC and K3-TC, a
-    float32 one through the 3xTF32 K1, K2 and K3; the totals count
-    both."""
+    """An encoder-shaped bf16 call goes through K1-TC, K2-TC and K3's
+    warpgroup kernel (K2-TC writes it di), a float32 one through the
+    3xTF32 K1, K2 and K3; the totals count both."""
     q, k, v, valid = inputs(gen, 2, 440, 440, 8, 32, dtype)
     q.requires_grad_()
     counters = (flash_attention, flash_attn_bwd_dq, flash_attn_bwd_dkv)
 
     def counts():
-        return [(c.launches, c.launches_tc, getattr(c, "launches_tf32x3", 0))
-                for c in counters]
+        return [(c.launches, c.launches_tc, c.launches_wg,
+                 c.launches_tf32x3) for c in counters]
 
     before = counts()
     flash_attention(q, k, v, valid).float().sum().backward()
     torch.cuda.synchronize()
-    tc = 1 if dtype == torch.bfloat16 else 0
+    bf16 = int(dtype == torch.bfloat16)
     assert [tuple(a - b for a, b in zip(x, y))
-            for x, y in zip(counts(), before)] == [(1, tc, 1 - tc)] * 3
+            for x, y in zip(counts(), before)] == [
+        (1, bf16, 0, 1 - bf16), (1, bf16, 0, 1 - bf16),
+        (1, 0, bf16, 1 - bf16)]
 
 
 def test_tensor_core_kernels_refuse_what_they_do_not_take(gen):
@@ -790,7 +793,8 @@ def test_every_route_takes_odd_head_dims(gen, d, shape, dtype, rate):
                                      True, dropout_rate=rate, seed=seed)
     do = torch.randn(out.shape, device="cuda", generator=gen).to(dtype)
     args = (q, k, v, valid, out, lse, do, rate, seed)
-    grads = (flash_attn_bwd_dq(*args), *flash_attn_bwd_dkv(*args))
+    grads = (flash_attn_bwd_dq(*args),
+             *flash_attn_bwd_dkv(*args))
     wants = attention_bwd_plain(*args)
     torch.cuda.synchronize()
     moved = [(c.launches - n, c.launches_plain - m)
@@ -798,8 +802,8 @@ def test_every_route_takes_odd_head_dims(gen, d, shape, dtype, rate):
     plain = d > 128
     assert all((n == 0) == plain and (m > 0) == plain for n, m in moved)
     assert flash_attention.launches_tf32x3 - tf32x3 == (
-        fwd_variant(sq, dtype, d) == "tf32x3")
-    assert {fwd_variant(sq, dtype, d), dq_variant(sq, dtype, d),
+        fwd_variant(sq, sk, dtype, d) == "tf32x3")
+    assert {fwd_variant(sq, sk, dtype, d), dq_variant(sq, dtype, d),
             dkv_variant(sq, sk, dtype, d)} >= ({"plain"} if plain else set())
     assert out.shape == q.shape and out.dtype == dtype
     torch.testing.assert_close(out.float(), want, atol=TOL[dtype], rtol=0)
@@ -1013,15 +1017,17 @@ DTYPE_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 @pytest.mark.parametrize("site", NEW_SITES)
 def test_multi_phrase_and_long_sites_match_plain(gen, site, dtype, rate):
     """K1 with its lse, K2 and K3 at the new sites, each through the
-    tensor-core kernels (16 or more queries and keys), against the plain
+    tensor-core kernels (16 or more queries and keys; in bf16 K1 and K3
+    where the rule says so on the warpgroup kernels), against the plain
     versions (K1's in float32, as test_kernel_matches_plain's: two
     roundings to bf16 of one value may part by an ulp), at
     chip_smoke.kernel_tol and GRAD_TOL; the four-level encoder at B=1,
     where the plain version's [B, H, S, S] scores fit."""
     b, sq, sk, h, d = chip_smoke.site_shape(site)
-    assert fwd_variant(sq, dtype, d) == dq_variant(sq, dtype, d) == \
-        dkv_variant(sq, sk, dtype, d) == (
-            "tc" if dtype == torch.bfloat16 else "tf32x3")
+    tc = "tc" if dtype == torch.bfloat16 else "tf32x3"
+    assert dq_variant(sq, dtype, d) == tc
+    assert {fwd_variant(sq, sk, dtype, d),
+            dkv_variant(sq, sk, dtype, d)} <= {tc, "wg"}
     q, k, v, valid = chip_smoke.site_inputs(gen, site, dtype)
     seed = 0xABCD_0123_4567 if rate else None
     out, lse = flash_attention(q, k, v, valid, return_lse=True,
@@ -1137,3 +1143,184 @@ def test_multi_phrase_step_launches_42_on_the_tensor_cores(gen, tmp_path):
         want = (42 if name == "flash_attention"
                 and v in ("launches", "launches_tc") else 0)
         assert n - after[(name, v)] == want, (name, v)
+
+
+# the warpgroup kernels launched directly at the edges of their 128-row,
+# 128-key and 64-query tiles, a head dim that pads to 32, and the
+# encoder's shape
+WG_SHAPES = [(2, 16, 17, 2, 32), (2, 127, 129, 2, 32), (2, 128, 128, 2, 32),
+             (2, 129, 300, 3, 32), (2, 200, 1, 2, 32), (2, 65, 385, 2, 24),
+             (8, 440, 440, 8, 32)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("shape", WG_SHAPES)
+def test_warpgroup_kernels_match_plain(gen, shape, rate):
+    """K1-wg (out and lse) and K3-wg, its di from K2-TC's di_out, against
+    the plain versions in float32 on the same bf16 inputs, batch row 0
+    with every key masked (the uniform average); each launch counted on
+    launches_wg, and a second call gives the same bits."""
+    b, sq, sk, h, d = shape
+    q, k, v, valid = inputs(gen, b, sq, sk, h, d, torch.bfloat16)
+    seed = 0x6E0_0000_0001 if rate else None
+    before = (flash_attention.launches_wg, flash_attn_bwd_dkv.launches_wg)
+    out, lse = _launch_fwd("wg", q, k, v, valid, rate, seed)
+    want, want_lse = attention_plain(q.float(), k.float(), v.float(), valid,
+                                     True, dropout_rate=rate, seed=seed)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    torch.testing.assert_close(out.float(), want, atol=TOL[torch.bfloat16],
+                               rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-6)
+    do = torch.randn(out.shape, device="cuda", generator=gen).to(q.dtype)
+    args = (q, k, v, valid, out, lse, do, rate, seed)
+    di = torch.empty_like(lse)
+    _launch_dq("tc", *args, di_out=di)
+    torch.testing.assert_close(di, di_plain(out, do), atol=1e-5, rtol=1e-5)
+    dk, dv = _launch_dkv("wg", *args, di)
+    wants = attention_bwd_plain(*args)
+    torch.cuda.synchronize()
+    scale = max(w.float().abs().max().item() for w in wants)
+    for got, w in ((dk, wants[1]), (dv, wants[2])):
+        assert got.dtype == torch.bfloat16 and got.shape == w.shape
+        rel_close(got, w, GRAD_TOL[torch.bfloat16], floor=scale)
+    again = (*_launch_fwd("wg", q, k, v, valid, rate, seed),
+             *_launch_dkv("wg", *args, di))
+    for x, y in zip((out, lse, dk, dv), again):
+        assert chip_smoke.same_bits(x, y)
+    assert (flash_attention.launches_wg - before[0],
+            flash_attn_bwd_dkv.launches_wg - before[1]) == (2, 2)
+
+
+WG_SITES = ["vl_encoder_self", "multi_vl_encoder_self", "vl_encoder_4_levels"]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("site", WG_SITES)
+def test_warpgroup_kernels_match_plain_at_their_sites(gen, site, rate):
+    """At the sites where the rule sends K3 (and at four levels K1) to the
+    warpgroup kernels, with the smoke's inputs and tolerances: K1-wg and
+    K3-wg against the plain versions, whatever the rule picks there."""
+    b, sq, sk, h, d = chip_smoke.site_shape(site)
+    assert dkv_variant(sq, sk, torch.bfloat16, d) == "wg"
+    q, k, v, valid = chip_smoke.site_inputs(gen, site, torch.bfloat16)
+    seed = 0x517E if rate else None
+    out, lse = _launch_fwd("wg", q, k, v, valid, rate, seed)
+    want, want_lse = attention_plain(q.float(), k.float(), v.float(), valid,
+                                     True, dropout_rate=rate, seed=seed)
+    tol = chip_smoke.kernel_tol("bfloat16", site, want)
+    torch.testing.assert_close(out.float(), want, atol=tol, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-6)
+    do = torch.randn(out.shape, device="cuda", generator=gen).to(q.dtype)
+    args = (q, k, v, valid, out, lse, do, rate, seed)
+    dk, dv = _launch_dkv("wg", *args)
+    wants = attention_bwd_plain(*args)
+    torch.cuda.synchronize()
+    scale = max(w.float().abs().max().item() for w in wants)
+    for got, w in ((dk, wants[1]), (dv, wants[2])):
+        rel_close(got, w, GRAD_TOL[torch.bfloat16], floor=scale)
+
+
+@pytest.mark.parametrize("shape", [(8, 440, 440, 8, 32), (2, 70, 130, 2, 32),
+                                   (2, 65, 17, 2, 32)])
+def test_dropout_mask_is_exact_through_the_warpgroup_kernels(gen, shape):
+    """K1-wg's kept set read off its output with v one-hot over the head
+    dim (D keys at a time), and K3-wg's off dv with q = 0 (p uniform over
+    the live keys, lse the log of their count, di = 0) and dO one-hot for
+    D queries at a time: each equals the plain Philox mask on every live
+    key, where Sk % 4 == 0 (one Philox call per 4 decisions) and where
+    not."""
+    b, sq, sk, h, d = shape
+    q, k, v, valid = inputs(gen, b, sq, sk, h, d, torch.bfloat16)
+    rate, seed = 0.1, 0x6E6E
+    keep = philox_keep_plain(seed, b, h, sq, sk, rate, "cuda")
+    live_keys = torch.where(valid.any(-1, keepdim=True), valid, True)
+    for k0 in range(0, sk, d):
+        n = min(d, sk - k0)
+        onehot = torch.zeros_like(v)
+        onehot[:, k0:k0 + n, :, :n] = torch.eye(n, device="cuda")[:, None, :]
+        out, _ = _launch_fwd("wg", q, k, onehot, valid, rate, seed, False)
+        kept = out[..., :n].permute(0, 2, 1, 3) != 0
+        live = live_keys[:, None, None, k0:k0 + n].expand_as(kept)
+        assert torch.equal(kept[live], keep[..., k0:k0 + n][live])
+    zero = torch.zeros_like(q)
+    lse = live_keys.sum(-1).float().log()[:, None, None].expand(
+        b, h, sq).contiguous()
+    di = torch.zeros_like(lse)
+    for i0 in range(0, sq, d):
+        n = min(d, sq - i0)
+        do = torch.zeros_like(q)
+        do[:, i0:i0 + n, :, :n] = torch.eye(n, device="cuda")[:, None, :]
+        _, dv = _launch_dkv("wg", zero, k, v, valid, zero, lse, do, rate,
+                            seed, di)
+        kept = dv[..., :n].permute(0, 2, 3, 1) != 0
+        live = live_keys[:, None, None, :].expand_as(kept)
+        assert torch.equal(kept[live], keep[:, :, i0:i0 + n][live])
+
+
+def test_k3_mask_is_exact_past_2_to_the_32(gen):
+    """K3 through the rule (its warpgroup kernel) at the four-level encoder
+    at B=8, in the last batch row, whose offsets run past 2^32: its kept
+    set equals that row's plain mask (chip_smoke.check_dv_mask_exact, as
+    phase 8d)."""
+    site = "vl_encoder_4_levels_b8"
+    b, sq, sk, h, d = chip_smoke.site_shape(site)
+    assert dkv_variant(sq, sk, torch.bfloat16, d) == "wg"
+    assert chip_smoke.check_dv_mask_exact(site, 0.1, 0x2_0000_0003,
+                                          torch.bfloat16, b - 1) > 0
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_function_gradients_through_the_warpgroup_kernel(gen, rate):
+    """FlashAttentionFn at a shape where the rule sends K3 to its
+    warpgroup kernel: K2-TC hands it di, and the gradients match the
+    plain path's; the backward counts one K2-TC and one K3-wg launch."""
+    q, k, v, valid = inputs(gen, 2, 300, 300, 4, 32, torch.bfloat16)
+    assert dkv_variant(300, 300, torch.bfloat16, 32) == "wg"
+    seed = 91 if rate else None
+    do = torch.randn(q.shape, device="cuda", generator=gen).to(q.dtype)
+    grads = {}
+    before = (flash_attn_bwd_dq.launches_tc, flash_attn_bwd_dkv.launches_wg)
+    for name, fn in (("kernel", FlashAttentionFn.apply),
+                     ("plain", lambda *a: attention_plain(
+                         *a[:4], dropout_rate=a[4], seed=a[5]))):
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        fn(*leaves, valid, rate, seed).backward(do)
+        grads[name] = [x.grad for x in leaves]
+    assert (flash_attn_bwd_dq.launches_tc - before[0],
+            flash_attn_bwd_dkv.launches_wg - before[1]) == (1, 1)
+    scale = max(w.float().abs().max().item() for w in grads["plain"])
+    for got, want in zip(grads["kernel"], grads["plain"]):
+        rel_close(got, want, GRAD_TOL[torch.bfloat16], floor=scale)
+
+
+def test_warpgroup_kernels_refuse_what_they_do_not_take(gen):
+    q, k, v, valid = inputs(gen, 2, 64, 64, 2, 32, torch.float32)
+    with pytest.raises(TypeError, match="bfloat16"):
+        _launch_fwd("wg", q, k, v, valid, 0.0, None)
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    for d in (64, 128):
+        wide = [torch.zeros(2, 64, 2, d, device="cuda", dtype=torch.bfloat16)
+                for _ in range(3)]
+        with pytest.raises(ValueError, match="head dims"):
+            _launch_fwd("wg", *wide, valid, 0.0, None)
+    shifted = torch.empty(qb.numel() + 1, device="cuda",
+                          dtype=torch.bfloat16)[1:].view(qb.shape)
+    shifted.copy_(qb)
+    with pytest.raises(ValueError, match="aligned"):
+        _launch_fwd("wg", shifted, kb, vb, valid, 0.0, None)
+    out, lse = _launch_fwd("wg", qb, kb, vb, valid, 0.0, None)
+    args = (qb, kb, vb, valid, out, lse, out, 0.0, None)
+    with pytest.raises(ValueError, match="di"):
+        _launch_dkv("wg", *args, lse.double())
+    # without di, K3-wg computes it in its wrapper (di_plain), also through
+    # the wrapper where the rule sends K3 to "wg"
+    q2, k2, v2, valid2 = inputs(gen, 2, 256, 256, 2, 32, torch.bfloat16)
+    out2, lse2 = _launch_fwd("wg", q2, k2, v2, valid2, 0.0, None)
+    args2 = (q2, k2, v2, valid2, out2, lse2, out2, 0.0, None)
+    want = _launch_dkv("wg", *args2, di_plain(out2, out2))
+    for got in (_launch_dkv("wg", *args2), flash_attn_bwd_dkv(*args2)):
+        assert all(chip_smoke.same_bits(x, y) for x, y in zip(got, want))
+    with pytest.raises(ValueError, match="di_out"):
+        _launch_dq("tf32x3", q, k, v, valid, q, lse, q, 0.0, None,
+                   di_out=torch.empty_like(lse))
