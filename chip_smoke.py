@@ -8,16 +8,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    serving and training paths from the sources in this checkout
    (reftr_torch/kernels/csrc/flash_attn_fwd.cu, flash_attn_fwd_tc.cu,
    flash_attn_fwd_wg.cu, flash_attn_fwd_f32tc.cu, flash_attn_fwd_dec.cu,
-   flash_attn_bwd.cu, flash_attn_bwd_dq_tc.cu, flash_attn_bwd_dkv_tc.cu,
-   flash_attn_bwd_dkv_wg.cu, flash_attn_bwd_dq_f32tc.cu,
-   flash_attn_bwd_dkv_f32tc.cu and flash_attn_bwd_dec.cu, one nvcc each
-   for sm_90a, started together with one g++ of the data pipeline's C++
-   under reftr_torch/data/csrc/), and count the tensor-core products in
-   the machine code (cuobjdump -sass): HMMA in the six mma.sync kernels,
-   bf16 and 3xTF32, HGMMA (wgmma) in the two warpgroup kernels; none fails
-   the run. Read what the bound needs: the SM count, the SM clock
-   nvidia-smi gives as its maximum, and the IMADs of a Philox call in
-   K1-wg's machine code.
+   flash_attn_bwd.cu, flash_attn_bwd_dq_tc.cu, flash_attn_bwd_dq_wg.cu,
+   flash_attn_bwd_dkv_tc.cu, flash_attn_bwd_dkv_wg.cu,
+   flash_attn_bwd_dq_f32tc.cu, flash_attn_bwd_dkv_f32tc.cu and
+   flash_attn_bwd_dec.cu, one nvcc each for sm_90a, started together with
+   one g++ of the data pipeline's C++ under reftr_torch/data/csrc/), and
+   count the tensor-core products in the machine code (cuobjdump -sass):
+   HMMA in the six mma.sync kernels, bf16 and 3xTF32, HGMMA (wgmma) in
+   the three warpgroup kernels; none fails the run. Print the D=32
+   function's opcode counts and ptxas lines (registers, spills) of every
+   tensor-core kernel, the dropout draw's callers among them. Read what
+   the bound needs: the SM count, the SM clock nvidia-smi gives as its
+   maximum, and the IMADs of a Philox call in K1-wg's machine code.
 2. The forward kernel (K1) against its plain PyTorch version on the card,
    at the four call sites of the refcoco_det forward (B=8), with random key
    padding and one row whose keys are all masked, in float32 and bfloat16,
@@ -68,11 +70,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    products that 3xTF32 gets from the tensor cores, and takes the largest
    of the bytes, the products, one MUFU.EX2 a (query, key) pair at 16 a
    clock per SM and, with dropout, a quarter of a Philox call a pair at 64
-   IMADs a clock per SM (attention_bound_terms). Where the rule sends K1
-   or K3 to a warpgroup kernel ("wg"), the mma.sync kernel ("tc") is
+   IMADs a clock per SM (attention_bound_terms). Where the rule sends K1,
+   K2 or K3 to a warpgroup kernel ("wg"), the mma.sync kernel ("tc") is
    checked and timed beside it, the same-run "before"; K3-wg alone
-   computes di = rowsum(dO * O) in its wrapper (K2-TC gives it in a
-   step), and is timed on a di computed before the timed calls.
+   computes di = rowsum(dO * O) in its wrapper (K2 gives it in a step),
+   and is timed on a di computed before the timed calls.
    Then head dims off the kernels' instances (HEAD_DIM_SWEEP: 8, 24, 48
    and 96 pad to the next of 16, 32, 64, 128; 160 and 256 take the plain
    versions by the rule), in both dtypes with and without dropout, K1, K2
@@ -88,10 +90,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    encoder at 1-4 feature levels (440^2, 2040^2, 8440^2 and 8540^2, B=8;
    at four levels also with each image padded), flickr's at 1 and 2
    (490^2 and 2090^2, B=16) and flickr's decoder over 490 keys: K1 "tc",
-   "wg" and SDPA's forward; K2-TC and K3 "tc" and "wg" against SDPA's
-   backward; CUDA events, in turns, the median of three. "wg" is checked
-   against the plain version at phase 3's tolerances: on all the inputs
-   where its scores fit, else on batch row 0 (B=1).
+   "wg" and SDPA's forward; K2 "tc" and "wg", K3 "tc" and "wg" against
+   SDPA's backward; CUDA events, in turns, the median of three. "wg" is
+   checked against the plain version at phase 3's tolerances (K2-wg's dq
+   at 1e-2 of the largest plain gradient in bf16, its di against
+   di_plain, its bits on a repeated call): on all the inputs where its
+   scores fit, else on batch row 0 (B=1).
+   3e. The dropout draw of K1 and K2 (flash_tc::keep_bits) exact in every
+   kernel that calls it, K1 "tc", "wg", "tf32x3" and K2 "tc", "wg",
+   "tf32x3", each launched directly (check_keep_bits): at key counts that
+   are not a multiple of 4, even (22, 90, 490, 2090: row phases 0 and 2)
+   and odd (17, 131, 385: every phase), and in bf16 in the last batch row
+   of B=8 at 8539^2, whose element offsets run past 2^32.
 4. The serving path at full width: refcoco_det (ResNet-50, BERT-base,
    6+6 VL layers, d=256) at 640x640 with seeded random weights, bfloat16,
    behind a MicroBatcher with serve batch 8. Six requests of 1-3 phrases
@@ -230,11 +240,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    d) refcoco_det at four feature levels (the encoder over 40 + 80^2 +
    40^2 + 20^2 + 10^2 = 8540 tokens) through the entry point in bf16: 4
    steps and 8 eval batches, 30 launches of each kernel a step and of K1
-   an eval batch (18 on the tensor cores, of which the encoder's 6 of K1
-   and of K3 on the warpgroup kernels, 12 on the decode kernels); one
+   an eval batch (18 on the tensor cores, of which the encoder's 6 of
+   K1, K2 and K3 on the warpgroup kernels, 12 on the decode kernels); one
    profiled bf16 step with its device time and attention share, and the
-   same step with K1 and K3 on the mma.sync kernels (the same-run
-   "before"); K1, K2 and K3 against
+   same step with K2 on its mma.sync kernel and with K1, K2 and K3 on
+   theirs (the same-run "before"s); K1, K2 and K3 against
    their plain versions at the encoder at B=1 (the plain version's
    [B, H, S, S] scores fit there) in both dtypes with exact masks; the
    masks of K1, K2 and K3 exact in the last batch row at B=8, whose
@@ -246,9 +256,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    a step, every loss finite. The checkpoints are deleted. f) Report only
    (float64_gap): the float32 kernels' and the plain float32 version's
    distance from float64 at 440, 2000 and 8540 keys, K1's sum alone
-   (q = 0) there, the bf16 kernels' sums there (K1's sum alone and K3's
-   dV sum, "tc" and "wg" beside the plain bf16 version), and phrase
-   BERT's bf16 outputs against float64.
+   (q = 0) there, the bf16 kernels' sums there (K1's sum alone, K2's dq
+   sum and K3's dV sum, "tc" and "wg" beside the plain bf16 version), and
+   phrase BERT's bf16 outputs against float64.
 9. Print one JSON line listing each kernel (each variant on a row of its
    own; the decode backward on one row for K2 and K3) with its launches
    on the main paths (phase 8's runs included, also on their own), its
@@ -322,6 +332,8 @@ KERNELS = {
                           "reftr_tpu/kernels/attention.py:242", "simt"),
     "flash_attn_bwd_dq_tc": ("flash_attn_bwd_dq_tc.cu",
                              "reftr_tpu/kernels/attention.py:242", "tc"),
+    "flash_attn_bwd_dq_wg": ("flash_attn_bwd_dq_wg.cu",
+                             "reftr_tpu/kernels/attention.py:242", "wg"),
     "flash_attn_bwd_dq_f32tc": ("flash_attn_bwd_dq_f32tc.cu",
                                 "reftr_tpu/kernels/attention.py:242",
                                 "tf32x3"),
@@ -491,6 +503,18 @@ WG_TIME_SITES = ("vl_encoder_self", "multi_vl_encoder_self",
                  "vl_encoder_3_levels_b8", "vl_encoder_4_levels_b8",
                  "vl_encoder_4_levels_b8_padded", "multi_decoder_cross")
 WG_TIME_TURNS = 3
+# phase 3e: the shapes (B, Sq, Sk, H, D) at which the dropout draw of K1
+# and K2 (flash_tc::keep_bits) is checked exact in every kernel that calls
+# it: key counts that are not a multiple of 4, those of the model's sites
+# (22, 90, 490, 2090: row offsets at phases 0 and 2 of a Philox counter)
+# and odd ones (every phase), 16-130 queries (several 16-row warp tiles)
+KEEP_SHAPES = ((2, 40, 22, 2, 32), (2, 40, 90, 2, 32), (2, 130, 490, 2, 32),
+               (1, 70, 2090, 2, 32), (2, 70, 17, 2, 32), (2, 70, 131, 2, 32),
+               (2, 130, 385, 3, 32))
+# and past an element offset of 2^32 at a key count that is not a
+# multiple of 4: the last batch row of B=8 at 8539^2 (no model site)
+KEEP_SHAPE_PAST_2_32 = (8, 8539, 8539, 8, 32)
+KEEP_VARIANTS = {"K1": ("tc", "wg", "tf32x3"), "K2": ("tc", "wg", "tf32x3")}
 # phase 8f (report only): the key counts at which the float32 kernels and
 # the plain float32 version are held to float64 (B=1, H=8, D=32):
 # refcoco_det's encoder, one between, the encoder at four feature levels
@@ -596,8 +620,8 @@ def sass_text(so: Path) -> str:
 def sass_count(so: Path, opcode: str, text: str = None) -> int:
     """Instructions of ``opcode`` in a built library's machine code."""
     pattern = re.compile(rf"\*/\s+(@!?P\w+\s+)?{opcode}\b")
-    return sum(bool(pattern.search(line))
-               for line in (text or sass_text(so)).splitlines())
+    return sum(bool(pattern.search(line)) for line in (
+        text if text is not None else sass_text(so)).splitlines())
 
 
 # the opcodes counted in the bf16 kernels' machine code (phase 1)
@@ -614,29 +638,55 @@ def function_sass(text: str, marker: str) -> str:
     return found[0] if len(found) == 1 else ""
 
 
+# the sources whose kernels draw dropout by flash_tc::keep_bits: each is
+# instantiated for Sk % 4 == 0's path and the general one
+KEEP_CALLERS = ("flash_attn_fwd_tc.cu", "flash_attn_fwd_wg.cu",
+                "flash_attn_fwd_f32tc.cu", "flash_attn_bwd_dq_tc.cu",
+                "flash_attn_bwd_dq_wg.cu", "flash_attn_bwd_dq_f32tc.cu")
+
+
+def instance_markers(src: str, variant: str) -> dict:
+    """The part of the D=32 instance's mangled name that picks it in the
+    machine code and in ptxas's log: a "tc" or "tf32x3" kernel's holds
+    ILi32E, a "wg" kernel has that one instance, named *_wg_kernel; a
+    keep_bits caller's two instances add Lb1E (Sk % 4 == 0) or Lb0E."""
+    base = "wg_kernel" if variant == "wg" else "ILi32E"
+    if src not in KEEP_CALLERS:
+        return {"": base}
+    sep = "I" if variant == "wg" else ""
+    return {"Sk % 4 == 0": f"{base}{sep}Lb1E",
+            "Sk % 4 != 0": f"{base}{sep}Lb0E"}
+
+
+def ptxas_lines(log: list, marker: str) -> list:
+    """ptxas's lines (registers, spills, C7514) of the function whose
+    "Compiling entry" line holds ``marker``."""
+    at = next((i for i, line in enumerate(log)
+               if "Compiling entry" in line and marker in line), None)
+    return ([] if at is None else
+            [line.split(":", 1)[-1].strip() for line in log[at + 1:at + 4]
+             if "spill" in line or "registers" in line or "C7514" in line])
+
+
 def sass_profile(libs: dict) -> dict:
-    """Per bf16 kernel at D = 32 (a "tc" kernel's instance whose mangled
-    name holds ILi32E; a "wg" kernel has that one instance, named
-    *_wg_kernel), the static count of each of SASS_OPCODES in its machine
-    code (the whole function: its unrolled loop, prologue and epilogue, the
-    dropout path and the path without), and ptxas's lines for it
-    (registers, spills; -Xptxas -v, kept beside the library)."""
+    """Per tensor-core kernel at D = 32 (each instance of a keep_bits
+    caller: instance_markers), the static count of each of SASS_OPCODES in
+    its machine code (the whole function: its unrolled loop, prologue and
+    epilogue, the dropout path and the path without), and ptxas's lines
+    for it (registers, spills; -Xptxas -v, kept beside the library)."""
     out = {}
     for src, _, variant in KERNELS.values():
-        if variant not in ("tc", "wg") or src in out:
+        if variant not in ("tc", "wg", "tf32x3") or src in out:
             continue
-        marker = "ILi32E" if variant == "tc" else "wg_kernel"
-        code = function_sass(sass_text(libs[src]), marker)
+        text = sass_text(libs[src])
         log = libs[src].with_suffix(".log").read_text().split("\n")
-        # the lines after the D = 32 instance's "Compiling entry" line
-        at = next((i for i, line in enumerate(log)
-                   if "Compiling entry" in line and marker in line), None)
-        ptxas = ([] if at is None else
-                 [line.split(":", 1)[-1].strip() for line in log[at + 1:at + 4]
-                  if "spill" in line or "registers" in line
-                  or "C7514" in line])
-        out[src] = {"ptxas": ptxas, "sass": {
-            op: sass_count(None, op, code) for op in SASS_OPCODES}}
+        for path, marker in instance_markers(src, variant).items():
+            code = function_sass(text, marker)
+            # None where the machine code does not hold one such function
+            out[f"{src} {path}".strip()] = {
+                "ptxas": ptxas_lines(log, marker),
+                "sass": {op: sass_count(None, op, code)
+                         for op in SASS_OPCODES} if code else None}
     return out
 
 
@@ -751,9 +801,12 @@ def kernel_tol(name: str, site: str, want) -> float:
     return max(tol, ulp)
 
 
-def site_shape(site: str) -> tuple:
+def site_shape(site) -> tuple:
     """(B, Sq, Sk, H, D) of a call site: refcoco_det's (CALL_SITES) at the
-    serve batch, or a site of phase 8 (NEW_SITES)."""
+    serve batch, a site of phase 8 (NEW_SITES), or the shape itself where
+    ``site`` is a tuple (phase 3e's)."""
+    if isinstance(site, tuple):
+        return site
     if site in CALL_SITES:
         return (SERVE_BATCH, *CALL_SITES[site])
     return NEW_SITES[site]
@@ -801,11 +854,11 @@ def padded_levels_valid(gen, b: int):
     return torch.cat(rows, 1)
 
 
-def site_inputs(gen, site: str, dtype):
+def site_inputs(gen, site, dtype):
     """q, k, v [B, S, H, D] in ``dtype`` and valid [B, Sk] at a call
-    site's shape: for refcoco_det's sites random padding and batch row 0
-    fully masked, for phase 8's the masks of their path
-    (``new_site_valid``)."""
+    site's shape: for refcoco_det's sites and a shape given as a tuple
+    random padding and batch row 0 fully masked, for phase 8's the masks
+    of their path (``new_site_valid``)."""
     import torch
 
     b, sq, sk, h, d = site_shape(site)
@@ -813,7 +866,7 @@ def site_inputs(gen, site: str, dtype):
                for s in (sq, sk, sk))
     if site == "vl_encoder_4_levels_b8_padded":
         return q, k, v, padded_levels_valid(gen, b)
-    if site not in CALL_SITES:
+    if not isinstance(site, tuple) and site not in CALL_SITES:
         return q, k, v, new_site_valid(gen, b, sk)
     lens = torch.randint(1, sk + 1, (b,), device="cuda", generator=gen)
     valid = torch.arange(sk, device="cuda")[None] < lens[:, None]
@@ -927,19 +980,20 @@ def sdpa_times(q, k, v, valid, do, rate: float) -> dict:
                 out, (qt, kt, vt), dot, retain_graph=True))}
 
 
-def check_mask_exact(gen, site: str, rate: float, seed: int, dtype,
-                     first_row: int = 0) -> int:
+def check_mask_exact(gen, site, rate: float, seed: int, dtype,
+                     first_row: int = 0, variant: str = None) -> int:
     """K1 with v one-hot over the head dim: out = p * keep / l for D keys
     at a time, so the kept set is read off exactly and must equal the
     plain Philox mask on every key with p > 0 (valid keys, or all keys of
     a fully masked row). The call goes to the variant the rule picks for
     the site and dtype, and in bf16 p of a live key stays far above bf16's
     smallest normal. With ``first_row`` the batch rows from it on are
-    compared, against the plain mask drawn from their own offsets.
+    compared, against the plain mask drawn from their own offsets. With
+    ``variant`` that kernel is launched directly instead.
     Returns the number of elements compared."""
     import torch
 
-    from reftr_torch.kernels.attention import (flash_attention,
+    from reftr_torch.kernels.attention import (_launch_fwd, flash_attention,
                                                philox_keep_plain)
 
     q, k, _, valid = site_inputs(gen, site, dtype)
@@ -953,31 +1007,35 @@ def check_mask_exact(gen, site: str, rate: float, seed: int, dtype,
         n = min(d, sk - k0)
         v = torch.zeros(b, sk, h, d, device="cuda", dtype=dtype)
         v[:, k0:k0 + n, :, :n] = torch.eye(n, device="cuda")[:, None, :]
-        out = flash_attention(q, k, v, valid, dropout_rate=rate, seed=seed)
+        out = (flash_attention(q, k, v, valid, dropout_rate=rate, seed=seed)
+               if variant is None else
+               _launch_fwd(variant, q, k, v, valid, rate, seed, False)[0])
         # [B - first_row, H, Sq, n]
         kept = out[first_row:, ..., :n].permute(0, 2, 1, 3) != 0
         live = live_keys[:, None, None, k0:k0 + n].expand_as(kept)
         if not torch.equal(kept[live], keep[..., k0:k0 + n][live]):
-            raise AssertionError(f"{site}: K1's dropout mask differs from "
+            raise AssertionError(f"{site}: K1's dropout mask "
+                                 f"({variant or 'the rule'}) differs from "
                                  f"the plain Philox mask at keys {k0}+")
         compared += int(live.sum())
     return compared
 
 
-def check_dq_mask_exact(site: str, rate: float, seed: int, dtype,
-                        first_row: int = 0) -> int:
+def check_dq_mask_exact(site, rate: float, seed: int, dtype,
+                        first_row: int = 0, variant: str = None) -> int:
     """K2 on inputs whose dq reveals each keep decision: q = 0 and lse = 0
     give p = 1 on every live key (0 on a masked one), dO and v one-hot on
     head dim 0 give dP = 1, and O = 0 gives di = 0, so ds is the keep
     multiplier itself; with k one-hot over the head dim for D keys at a
     time, dq = scale * ds for those keys. The kept set must equal the plain
     Philox mask on every live key (of the batch rows from ``first_row``
-    on). The call goes to the variant the rule picks (K2-TC in bf16 at the
-    encoder and BERT sites, the decode backward at the decoder's). Returns
-    the number of elements compared."""
+    on). The call goes to the variant the rule picks (K2 "tc" or "wg" in
+    bf16 at the encoder and BERT sites, the decode backward at the
+    decoder's), or to ``variant`` launched directly. Returns the number of
+    elements compared."""
     import torch
 
-    from reftr_torch.kernels.attention import (flash_attn_bwd_dq,
+    from reftr_torch.kernels.attention import (_launch_dq, flash_attn_bwd_dq,
                                                philox_keep_plain)
 
     gen = torch.Generator(device="cuda")
@@ -999,11 +1057,14 @@ def check_dq_mask_exact(site: str, rate: float, seed: int, dtype,
         n = min(d, sk - k0)
         k = torch.zeros(b, sk, h, d, device="cuda", dtype=dtype)
         k[:, k0:k0 + n, :, :n] = torch.eye(n, device="cuda")[:, None, :]
-        dq = flash_attn_bwd_dq(q, k, v, valid, o, lse, do, rate, seed)
+        args = (q, k, v, valid, o, lse, do, rate, seed)
+        dq = (flash_attn_bwd_dq(*args) if variant is None
+              else _launch_dq(variant, *args))
         kept = dq[first_row:, ..., :n].permute(0, 2, 1, 3) != 0
         live = live_keys[:, None, None, k0:k0 + n].expand_as(kept)
         if not torch.equal(kept[live], keep[..., k0:k0 + n][live]):
-            raise AssertionError(f"{site}: K2's dropout mask differs from "
+            raise AssertionError(f"{site}: K2's dropout mask "
+                                 f"({variant or 'the rule'}) differs from "
                                  f"the plain Philox mask at keys {k0}+")
         compared += int(live.sum())
     return compared
@@ -1068,10 +1129,10 @@ def check_training_kernels(report: dict, sites=tuple(CALL_SITES),
                            simt_before: bool = True) -> dict:
     """Phase 3: K1 with dropout, K2 and K3 against their plain versions at
     ``sites``, with the SIMT kernels beside the others (``simt_before``)
-    and, where the rule sends K1 or K3 to a warpgroup kernel, the mma.sync
-    kernel beside it, and the exact dropout masks; the rows go to
+    and, where the rule sends K1, K2 or K3 to a warpgroup kernel, the
+    mma.sync kernel beside it, and the exact dropout masks; the rows go to
     report[key] (phase 8 checks its own sites so). K3-wg alone computes di
-    = rowsum(dO * O) in its wrapper, which K2-TC gives it in a step; its
+    = rowsum(dO * O) in its wrapper, which K2 gives it in a step; its
     timed calls take di computed before them."""
     import torch
 
@@ -1108,7 +1169,7 @@ def check_training_kernels(report: dict, sites=tuple(CALL_SITES),
                 wants = attention_bwd_plain(*bwd)
                 dq = flash_attn_bwd_dq(*bwd)
                 dk, dv = flash_attn_bwd_dkv(*bwd)
-                dec = dq_variant(sq, dt, d) == "dec"
+                dec = dq_variant(sq, sk, dt, d) == "dec"
                 # no variant sums with atomics: a second call on the same
                 # inputs gives the same bits
                 again = (*flash_attention(q, k, v, valid, True, **drop),
@@ -1140,7 +1201,7 @@ def check_training_kernels(report: dict, sites=tuple(CALL_SITES),
                        "dv_max_abs_err": errs[2], "grad_scale": scale,
                        "grad_tol": GRAD_TOL[name] * scale,
                        "fwd_variant": fwd_variant(sq, sk, dt, d),
-                       "dq_variant": dq_variant(sq, dt, d),
+                       "dq_variant": dq_variant(sq, sk, dt, d),
                        "dkv_variant": dkv_variant(sq, sk, dt, d),
                        "bitwise_repeatable": True}
                 if bad:
@@ -1151,13 +1212,13 @@ def check_training_kernels(report: dict, sites=tuple(CALL_SITES),
                     timed["bwd"] = lambda: _launch_bwd_dec(*bwd)
                 else:
                     timed["dq"] = lambda: flash_attn_bwd_dq(*bwd)
-                    # di outside the timed call, as K2-TC hands it to
-                    # K3-wg in a step (the other variants ignore it)
+                    # di outside the timed call, as K2 hands it to K3-wg
+                    # in a step (the other variants ignore it)
                     di = di_plain(out, do)
                     timed["dkv"] = lambda: flash_attn_bwd_dkv(*bwd, di=di)
                 # the same-run "before": the SIMT kernel of each kernel that
                 # the rule sends elsewhere at this site, and the mma.sync
-                # kernel of K1 and K3 where the rule sends them to "wg"
+                # kernel of K1, K2 and K3 where the rule sends them to "wg"
                 before = {}
                 if simt_before and row["fwd_variant"] != "simt":
                     before["simt_fwd"] = lambda: _launch_fwd(
@@ -1169,6 +1230,8 @@ def check_training_kernels(report: dict, sites=tuple(CALL_SITES),
                 if row["fwd_variant"] == "wg":
                     before["tc_fwd"] = lambda: _launch_fwd(
                         "tc", q, k, v, valid, rate, seed, False)
+                if row["dq_variant"] == "wg":
+                    before["tc_dq"] = lambda: _launch_dq("tc", *bwd)
                 if row["dkv_variant"] == "wg":
                     before["tc_dkv"] = lambda: _launch_dkv("tc", *bwd)
                 for tag, fn in before.items():
@@ -1305,7 +1368,7 @@ def check_head_dims(report: dict) -> dict:
                        "padded_to": None if plain else padded_head_dim(d),
                        "dtype": name, "dropout": rate,
                        "fwd_variant": fwd_variant(sq, sk, dt, d),
-                       "dq_variant": dq_variant(sq, dt, d),
+                       "dq_variant": dq_variant(sq, sk, dt, d),
                        "dkv_variant": dkv_variant(sq, sk, dt, d),
                        "fwd_max_abs_err": fwd_err, "lse_max_abs_err": lse_err,
                        "dq_max_abs_err": errs[0], "dk_max_abs_err": errs[1],
@@ -1421,21 +1484,25 @@ def wg_times(report: dict) -> list:
     feature levels, B=8, at four with the sentence padded and also with
     each image padded on the canvas; flickr's encoder at 1 and 2 levels,
     B=16; flickr's decoder over 490 keys), without dropout and with 0.1.
-    K1: "tc", "wg" and SDPA's forward; the backward: K2-TC (writing di),
-    K3 "tc" and "wg", and SDPA's backward, which covers K2 and K3
-    together. Each in WG_TIME_TURNS turns of CUDA events around
+    K1: "tc", "wg" and SDPA's forward; the backward: K2 "tc" and "wg"
+    (each writing di), K3 "tc" and "wg", and SDPA's backward, which covers
+    K2 and K3 together. Each in WG_TIME_TURNS turns of CUDA events around
     back-to-back calls (cuda_ms); the median is reported. "wg" is checked
-    against the plain version at phase 3's tolerances: on all the inputs
-    where the plain version's scores fit (B * H * Sq * Sk * 4 bytes under
-    4 GB), else on batch row 0, whose dropout offsets are the same at
-    B=1."""
+    against the plain version at phase 3's tolerances (K2-wg's dq at
+    GRAD_TOL of the largest plain gradient, K3-wg's dk and dv at GRAD_TOL
+    of the larger of dk's and dv's), K2-wg's di against di_plain (1e-5
+    plus 1e-5 relative) and K2-wg's bits on a repeated call: on all the
+    inputs where the plain version's scores fit (B * H * Sq * Sk * 4 bytes
+    under 4 GB), else on batch row 0, whose dropout offsets are the same
+    at B=1. K3-wg takes di from K2-wg."""
     import torch
     import torch.nn.functional as F
 
     from reftr_torch.kernels.attention import (_launch_dkv, _launch_dq,
                                                _launch_fwd,
                                                attention_bwd_plain,
-                                               attention_plain, dkv_variant,
+                                               attention_plain, di_plain,
+                                               dkv_variant, dq_variant,
                                                fwd_variant)
 
     gen = torch.Generator(device="cuda")
@@ -1457,8 +1524,17 @@ def wg_times(report: dict) -> list:
             out, lse = _launch_fwd("wg", q, k, v, valid, rate, seed, True)
             bwd = (q, k, v, valid, out, lse, do, rate, seed)
             di = torch.empty_like(lse)
-            got = {"fwd": out, "dq": _launch_dq("tc", *bwd, di_out=di)}
+            got = {"fwd": out, "dq": _launch_dq("wg", *bwd, di_out=di)}
             got["dk"], got["dv"] = _launch_dkv("wg", *bwd, di)
+            di_want = di_plain(out, do)
+            di_err = max_err(di, di_want)
+            di_tol = 1e-5 + 1e-5 * di_want.abs().max().item()
+            if not (di_err <= di_tol and same_bits(
+                    got["dq"], _launch_dq("wg", *bwd))):
+                raise AssertionError(f"phase 3d {site} dropout {rate}: "
+                                     f"K2-wg's di error {di_err:.3g} (tol "
+                                     f"{di_tol:.3g}) or a repeated call's "
+                                     f"bits differ")
             against, ref = "plain", bwd
             if not fits:  # batch row 0 alone
                 against = "plain, batch row 0"
@@ -1471,8 +1547,10 @@ def wg_times(report: dict) -> list:
             torch.cuda.synchronize()
             scale = max(want[g].float().abs().max().item()
                         for g in ("dk", "dv"))
-            errs = {g: max_err(got[g], want[g]) for g in want if g != "dq"}
+            scale_dq = max(scale, want["dq"].float().abs().max().item())
+            errs = {g: max_err(got[g], want[g]) for g in want}
             tols = {"fwd": kernel_tol("bfloat16", site, want["fwd"]),
+                    "dq": GRAD_TOL["bfloat16"] * scale_dq,
                     "dk": GRAD_TOL["bfloat16"] * scale,
                     "dv": GRAD_TOL["bfloat16"] * scale}
             if not all(errs[g] <= tols[g] for g in errs):
@@ -1492,6 +1570,7 @@ def wg_times(report: dict) -> list:
                                              False),
                 "sdpa_fwd": sdpa,
                 "k2_tc": lambda: _launch_dq("tc", *bwd, di_out=di),
+                "k2_wg": lambda: _launch_dq("wg", *bwd, di_out=di),
                 "k3_tc": lambda: _launch_dkv("tc", *bwd),
                 "k3_wg": lambda: _launch_dkv("wg", *bwd, di),
                 "sdpa_bwd": lambda: torch.autograd.grad(
@@ -1504,12 +1583,15 @@ def wg_times(report: dict) -> list:
             row = {"site": site, "B": b, "Sq": sq, "Sk": sk, "H": h, "D": d,
                    "dropout": rate, "checked_against": against,
                    "max_abs_err": errs, "tol": tols, "grad_scale": scale,
-                   "fwd_scale": want["fwd"].abs().max().item(),
+                   "grad_scale_dq": scale_dq, "di_max_abs_err": di_err,
+                   "di_tol": di_tol, "fwd_scale": want["fwd"].abs().max().item(),
                    "ms": ms,
                    "turns": turns,
+                   "k2_wg_k3_wg_ms": ms["k2_wg"] + ms["k3_wg"],
                    "k2_tc_k3_wg_ms": ms["k2_tc"] + ms["k3_wg"],
                    "k2_tc_k3_tc_ms": ms["k2_tc"] + ms["k3_tc"],
                    "fwd_variant": fwd_variant(sq, sk, torch.bfloat16, d),
+                   "dq_variant": dq_variant(sq, sk, torch.bfloat16, d),
                    "dkv_variant": dkv_variant(sq, sk, torch.bfloat16, d),
                    "bounds": {kern: attention_bound_terms(
                        b, sq, sk, h, d, valid, "bfloat16", kern, rate)
@@ -1524,21 +1606,81 @@ def wg_times(report: dict) -> list:
                   f"({report['card']}; CUDA events, median of "
                   f"{WG_TIME_TURNS} turns): K1 tc {ms['k1_tc']:.4f}, wg "
                   f"{ms['k1_wg']:.4f}, sdpa fwd {ms['sdpa_fwd']:.4f} ms; K2 "
-                  f"tc {ms['k2_tc']:.4f} + K3 tc {ms['k3_tc']:.4f} = "
-                  f"{row['k2_tc_k3_tc_ms']:.4f}, + K3 wg {ms['k3_wg']:.4f} = "
-                  f"{row['k2_tc_k3_wg_ms']:.4f}, sdpa bwd "
+                  f"tc {ms['k2_tc']:.4f}, wg {ms['k2_wg']:.4f}; K3 tc "
+                  f"{ms['k3_tc']:.4f}, wg {ms['k3_wg']:.4f}; K2 + K3 tc + tc "
+                  f"{row['k2_tc_k3_tc_ms']:.4f}, tc + wg "
+                  f"{row['k2_tc_k3_wg_ms']:.4f}, wg + wg "
+                  f"{row['k2_wg_k3_wg_ms']:.4f}, sdpa bwd "
                   f"{ms['sdpa_bwd']:.4f} ms; the rule: K1 "
-                  f"{row['fwd_variant']}, K3 {row['dkv_variant']}; wg "
-                  f"against {against}: fwd {errs['fwd']:.3g} (largest "
-                  f"output {row['fwd_scale']:.3g}, tol {tols['fwd']:.3g}), "
-                  f"dk {errs['dk']:.3g}, dv {errs['dv']:.3g} (tol "
-                  f"{tols['dk']:.3g}); bounds (ms) "
+                  f"{row['fwd_variant']}, K2 {row['dq_variant']}, K3 "
+                  f"{row['dkv_variant']}; wg against {against}: fwd "
+                  f"{errs['fwd']:.3g} (largest output "
+                  f"{row['fwd_scale']:.3g}, tol {tols['fwd']:.3g}), dq "
+                  f"{errs['dq']:.3g} (tol {tols['dq']:.3g}), dk "
+                  f"{errs['dk']:.3g}, dv {errs['dv']:.3g} (tol "
+                  f"{tols['dk']:.3g}), di {di_err:.3g}; bounds (ms) "
                   f"{bounds}", flush=True)
-            del out, lse, got, want, held
+            del out, lse, got, want, held, di_want
         del q, k, v, do, qt, kt, vt
         torch.cuda.empty_cache()
     report["wg_times"] = rows
     return rows
+
+
+def check_keep_bits(report: dict) -> dict:
+    """Phase 3e: the dropout draw of K1 and K2 (flash_tc::keep_bits) exact
+    in every kernel that calls it (KEEP_VARIANTS), each launched directly,
+    at KEEP_SHAPES in its dtype (bf16 for "tc" and "wg", float32 for
+    "tf32x3"), and in bf16 in the last batch row of KEEP_SHAPE_PAST_2_32,
+    whose element offsets run past 2^32 at a key count that is not a
+    multiple of 4: the kept set read off K1's output (check_mask_exact)
+    and off K2's dq (check_dq_mask_exact) equals the plain Philox mask on
+    every live key."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0x3E)
+    compared = {}
+
+    def check(kernel, variant, shape, dtype, seed, first_row=0):
+        if kernel == "K1":
+            return check_mask_exact(gen, shape, DROPOUT, seed, dtype,
+                                    first_row, variant)
+        return check_dq_mask_exact(shape, DROPOUT, seed, dtype, first_row,
+                                   variant)
+
+    for shape in KEEP_SHAPES:
+        for kernel, variants in KEEP_VARIANTS.items():
+            for variant in variants:
+                dt = torch.float32 if variant == "tf32x3" else torch.bfloat16
+                compared[f"{kernel} {variant} {shape}"] = check(
+                    kernel, variant, shape, dt, 0x3E00 + len(compared))
+    b, sq, sk, h, _ = KEEP_SHAPE_PAST_2_32
+    first = b - 1
+    if not (first * h * sq * sk < OFFSET_32 < b * h * sq * sk and sk % 4):
+        raise AssertionError(f"phase 3e: {KEEP_SHAPE_PAST_2_32} does not "
+                             f"cross 2^32 in its last batch row at a key "
+                             f"count off a multiple of 4")
+    for kernel, variants in KEEP_VARIANTS.items():
+        for variant in variants:
+            if variant == "tf32x3":
+                continue
+            tag = f"{kernel} {variant} {KEEP_SHAPE_PAST_2_32} row {first}"
+            compared[tag] = check(kernel, variant, KEEP_SHAPE_PAST_2_32,
+                                  torch.bfloat16,
+                                  0x2_0000_3E00 + len(compared), first)
+            torch.cuda.empty_cache()
+    if not all(compared.values()):
+        raise AssertionError(f"phase 3e: no element compared: {compared}")
+    print(f"keep bits: the dropout masks of K1 and K2 through "
+          f"{KEEP_VARIANTS} equal the plain Philox mask exactly on "
+          f"{sum(compared.values())} elements at p > 0, at Sk "
+          f"{sorted({x[2] for x in KEEP_SHAPES})} and in batch row {first} "
+          f"of {KEEP_SHAPE_PAST_2_32} (element offsets "
+          f"{first * h * sq * sk} to {b * h * sq * sk - 1}, past "
+          f"{OFFSET_32}): {compared}", flush=True)
+    report["keep_bits_masks"] = compared
+    return report
 
 
 def make_requests(rng: np.random.Generator, img: int, seq: int, vocab: int):
@@ -1594,6 +1736,8 @@ def kernel_category(name: str) -> str:
         return "flash_attn_fwd_wg"
     if "flash_bwd_dkv_wg_kernel" in name:
         return "flash_attn_bwd_dkv_wg"
+    if "flash_bwd_dq_wg_kernel" in name:
+        return "flash_attn_bwd_dq_wg"
     if "flash_fwd_f32tc_kernel" in name:
         return "flash_attn_fwd_f32tc"
     if "flash_fwd_dec_kernel" in name:
@@ -1781,7 +1925,7 @@ def expected_launches(n: int, dtype_name: str, backward: bool,
     for calls, sq, sk, d in REC_SITES if sites is None else sites:
         picks = {"flash_attention": fwd_variant(sq, sk, dt, d)}
         if backward:
-            picks["flash_attn_bwd_dq"] = dq_variant(sq, dt, d)
+            picks["flash_attn_bwd_dq"] = dq_variant(sq, sk, dt, d)
             picks["flash_attn_bwd_dkv"] = dkv_variant(sq, sk, dt, d)
         for name, variant in picks.items():
             if variant != "plain":
@@ -3065,7 +3209,7 @@ def long_encoder_times(report: dict) -> list:
         row = {"site": site, "dtype": name, "dropout": rate, "B": b,
                "Sq": sq, "Sk": sk, "H": h, "D": d,
                "fwd_variant": fwd_variant(sq, sk, dt, d),
-               "dq_variant": dq_variant(sq, dt, d),
+               "dq_variant": dq_variant(sq, sk, dt, d),
                "dkv_variant": dkv_variant(sq, sk, dt, d)}
         for what, fn in (
                 ("fwd", lambda: flash_attention(q, k, v, valid, **drop)),
@@ -3176,16 +3320,20 @@ def train_levels(report: dict, counters) -> dict:
         "profile": profile_train_step(
             cfg, batch, targets, f"levels: bf16 batch {SERVE_BATCH} train "
                                  f"step at 4 feature levels")}
-    # the same-run "before": the step with K1 and K3 on the mma.sync
-    # kernels, as the rule sent them before the warpgroup kernels
-    rule = reroute(("fwd", "dkv"), "wg", "tc")
-    try:
-        report["levels"]["profile_tc"] = profile_train_step(
-            cfg, batch, targets, f"levels: bf16 batch {SERVE_BATCH} train "
-                                 f"step at 4 feature levels, K1 and K3 on "
-                                 f"tc (the same-run before)")
-    finally:
-        restore_rule(rule)
+    # the same-run "before": the step with K2 on the mma.sync kernel, as
+    # the rule sent it before K2-wg, and with K1, K2 and K3 on it, as
+    # before the warpgroup kernels
+    for key, kernels, which in (("profile_k2_tc", ("dq",), "K2"),
+                                ("profile_tc", ("fwd", "dq", "dkv"),
+                                 "K1, K2 and K3")):
+        rule = reroute(kernels, "wg", "tc")
+        try:
+            report["levels"][key] = profile_train_step(
+                cfg, batch, targets, f"levels: bf16 batch {SERVE_BATCH} "
+                                     f"train step at 4 feature levels, "
+                                     f"{which} on tc (the same-run before)")
+        finally:
+            restore_rule(rule)
     check_training_kernels(report, ("vl_encoder_4_levels",), "levels_kernels",
                            simt_before=False)
     torch.cuda.empty_cache()
@@ -3358,14 +3506,21 @@ def bf16_sum_gap(gen) -> list:
     lean one way, against float64, at GAP_KEYS (B=1, H=8, D=32, the first
     n keys valid, n the largest power of 2 up to Sk, so p = 1 / n is exact
     in bf16). K1's sum alone: q = 0 makes every live p 1, so the output is
-    the mean of v = |randn| (exact in bf16) over the live keys. K3's dV
-    sum: q = 0, lse = log n and O = 0 (di = 0) make dv_j the sum of dO =
-    |randn| over the queries, over n, for each live key. Each by "tc",
-    "wg" and the plain version in bf16 (f32 sums, rounded to bf16): the
-    mean signed relative error shows a lean, the largest its spread."""
+    the mean of v = |randn| (exact in bf16) over the live keys. K2's dq
+    sum: q = 0 and lse = log n make every live p 1 / n, dO and v one-hot
+    on head dim 0 make dP = 1 and O = 0 makes di = 0, so ds = 1 / n
+    (exact in bf16) and dq_i = scale * the mean of k = |randn| over the
+    live keys: one sum over the key sweep, which K2-TC keeps in one
+    mma.sync accumulator and K2-wg folds tile by tile with a rounded add.
+    K3's dV sum: q = 0, lse = log n and O = 0 (di = 0) make dv_j the sum
+    of dO = |randn| over the queries, over n, for each live key. Each by
+    "tc", "wg" and the plain version in bf16 (f32 sums, rounded to bf16):
+    the mean signed relative error shows a lean, the largest its
+    spread."""
     import torch
 
-    from reftr_torch.kernels.attention import (_launch_dkv, _launch_fwd,
+    from reftr_torch.kernels.attention import (_launch_dkv, _launch_dq,
+                                               _launch_fwd,
                                                attention_bwd_plain,
                                                attention_plain)
 
@@ -3379,12 +3534,24 @@ def bf16_sum_gap(gen) -> list:
         v, do = (torch.randn(1, sk, 8, 32, device="cuda", generator=gen)
                  .abs().to(bf16) for _ in range(2))
         lse = torch.full((1, 8, sk), math.log(n), device="cuda")
+        kp = torch.randn(1, sk, 8, 32, device="cuda",
+                         generator=gen).abs().to(bf16)
+        one = torch.zeros_like(k)
+        one[..., 0] = 1
+        scale = 1.0 / math.sqrt(32)
+        dq_args = (zero, kp, one, valid, zero, lse, one, 0.0, None)
         wants = {"K1 sum": v[:, :n].double().mean(1, keepdim=True),
+                 "K2 dq sum": kp[:, :n].double().mean(1, keepdim=True)
+                 * scale,
                  "K3 dV sum": do.double().sum(1, keepdim=True) / n}
         gots = {"K1 sum": {
             "tc": _launch_fwd("tc", zero, k, v, valid, 0.0, None, False)[0],
             "wg": _launch_fwd("wg", zero, k, v, valid, 0.0, None, False)[0],
             "plain": attention_plain(zero, k, v, valid)},
+            "K2 dq sum": {
+            "tc": _launch_dq("tc", *dq_args),
+            "wg": _launch_dq("wg", *dq_args),
+            "plain": attention_bwd_plain(*dq_args)[0]},
             "K3 dV sum": {
             "tc": _launch_dkv("tc", zero, k, v, valid, zero, lse, do, 0.0,
                               None)[1][:, :n],
@@ -3638,32 +3805,38 @@ def kernel_line(report: dict) -> list:
 def wg_entry(report: dict, name: str, source: str, replaces: str,
              train_n: dict, serve_n: dict, cli_n: dict, res_n: dict,
              multi_n: dict) -> dict:
-    """The kernels line's row of a warpgroup kernel (K1-wg or K3-wg): its
-    launches on the main paths, its errors over every check that ran it
-    (phases 3, 8b and 8d through the rule, 3d's), and its times at the
-    four-level encoder at B=8 from phase 3d: K1 as served (no dropout,
-    with 0.1 beside), K3 as trained (dropout 0.1, without beside), each
-    beside the mma.sync kernel and SDPA of the same turns. The plain
-    version runs at B=1 (phase 8d): its scores at B=8 would hold 18.7 GB."""
-    short = "fwd" if "fwd" in name else "dkv"
-    wrapper = "flash_attention" if short == "fwd" else "flash_attn_bwd_dkv"
-    kernel = "flash_attn_fwd" if short == "fwd" else "flash_attn_bwd_dkv"
-    grads = ("fwd",) if short == "fwd" else ("dk", "dv")
+    """The kernels line's row of a warpgroup kernel (K1-wg, K2-wg or
+    K3-wg): its launches on the main paths, its errors over every check
+    that ran it (phases 3, 8b and 8d through the rule, 3d's), and its times
+    at the four-level encoder at B=8 from phase 3d: K1 as served (no
+    dropout, with 0.1 beside), K2 and K3 as trained (dropout 0.1, without
+    beside), each beside the mma.sync kernel and SDPA of the same turns.
+    The plain version runs at B=1 (phase 8d): its scores at B=8 would hold
+    18.7 GB."""
+    short = next(x for x in ("fwd", "dq", "dkv") if f"_{x}_" in name)
+    wrapper = {"fwd": "flash_attention", "dq": "flash_attn_bwd_dq",
+               "dkv": "flash_attn_bwd_dkv"}[short]
+    kernel = {"fwd": "flash_attn_fwd", "dq": "flash_attn_bwd_dq",
+              "dkv": "flash_attn_bwd_dkv"}[short]
+    grads = {"fwd": ("fwd",), "dq": ("dq",), "dkv": ("dk", "dv")}[short]
+    scale_key = {"fwd": None, "dq": "grad_scale_dq",
+                 "dkv": "grad_scale"}[short]
     rows = [r for key in ("train_kernels", "multi_kernels", "levels_kernels")
             for r in report.get(key, ())]
     errs = [(r[f"{g}_max_abs_err"], 1.0 if short == "fwd" else
              r["grad_scale"]) for r in rows if r[f"{short}_variant"] == "wg"
             for g in grads]
     errs += [(t["max_abs_err"][g], 1.0 if short == "fwd" else
-              t["grad_scale"]) for t in report["wg_times"] for g in grads]
+              t[scale_key]) for t in report["wg_times"] for g in grads]
     rate = 0.0 if short == "fwd" else DROPOUT
     t, t_other = (next(r for r in report["wg_times"]
                        if r["site"] == MAIN_SITE["wg"] and r["dropout"] == x)
                   for x in (rate, DROPOUT - rate))
     plain = next(r for r in report["levels_kernels"]
                  if r["dtype"] == "bfloat16" and r["dropout"] == rate)
-    mine, tc, lib = (("k1_wg", "k1_tc", "sdpa_fwd") if short == "fwd" else
-                     ("k3_wg", "k3_tc", "sdpa_bwd"))
+    mine, tc, lib = {"fwd": ("k1_wg", "k1_tc", "sdpa_fwd"),
+                     "dq": ("k2_wg", "k2_tc", "sdpa_bwd"),
+                     "dkv": ("k3_wg", "k3_tc", "sdpa_bwd")}[short]
     bound = t["bounds"][kernel]
     top = max(bound, key=bound.get)
 
@@ -3689,7 +3862,8 @@ def wg_entry(report: dict, name: str, source: str, replaces: str,
         "tc_ms": t["ms"][tc], "library_ms": t["ms"][lib],
         "library_covers": ("SDPA forward" if short == "fwd" else
                            "SDPA backward: K2 and K3 together"),
-        "k2_tc_ms": t["ms"]["k2_tc"],
+        "k2_tc_ms": t["ms"]["k2_tc"], "k2_wg_ms": t["ms"]["k2_wg"],
+        "k3_wg_ms": t["ms"]["k3_wg"],
         "plain_ms": (plain["fwd_plain_ms"] if short == "fwd"
                      else plain["bwd_plain_ms"]),
         "plain_shape": "vl_encoder_4_levels B=1 (phase 8d)",
@@ -3818,6 +3992,7 @@ def main() -> int:
     check_head_dims(report)
     check_simt_dkv(report)
     wg_times(report)
+    check_keep_bits(report)
     serve(report, counters)
     torch.cuda.empty_cache()
     train(report, counters)

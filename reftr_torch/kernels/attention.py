@@ -16,7 +16,9 @@ autograd contract:
   K2 ``flash_attn_bwd_dq``  <- ``_bwd_dq_kernel``
                                (``csrc/flash_attn_bwd_dec.cu`` for short
                                query sides, on tensor cores
-                               ``csrc/flash_attn_bwd_dq_tc.cu`` in bf16 and
+                               ``csrc/flash_attn_bwd_dq_tc.cu`` (mma.sync)
+                               and ``csrc/flash_attn_bwd_dq_wg.cu`` (wgmma
+                               and TMA) in bf16 and
                                ``csrc/flash_attn_bwd_dq_f32tc.cu`` in
                                float32 by 3xTF32; ``csrc/flash_attn_bwd.cu``
                                on SIMT, which the rule no longer picks)
@@ -36,14 +38,14 @@ alone (``fwd_variant``, ``dq_variant``, ``dkv_variant``): fewer than 16
 query rows, the decoder's single query, take the decode kernels ("dec") in
 either dtype, where one launch of ``flash_attn_bwd_dec.cu`` gives K2's and
 K3's gradients together; with 16 or more (and, for K3, 16 or more keys)
-bf16 takes the tensor-core kernels, for K1 and K3 the warpgroup ones
-("wg": wgmma, TMA, a producer and two consumer warpgroups) at the
-shapes where they measured faster on the H100 and the mma.sync ones ("tc")
-elsewhere, and float32 the 3xTF32 tensor-core kernels ("tf32x3"), which
-split each float32 operand into two tf32 halves and keep float32's
-accuracy; K3 with fewer than 16 keys takes the SIMT kernel ("simt"). K3's
-"wg" kernel reads di = rowsum(dO * O) from K2-TC, which writes it beside
-dq, instead of O. A head dim above ``MAX_HEAD_DIM`` takes the
+bf16 takes the tensor-core kernels, the warpgroup ones ("wg": wgmma,
+TMA, a producer and two consumer warpgroups) at the shapes where they
+measured faster on the H100 and the mma.sync ones ("tc") elsewhere, and
+float32 the 3xTF32 tensor-core kernels ("tf32x3"), which split each
+float32 operand into two tf32 halves and keep float32's accuracy; K3 with
+fewer than 16 keys takes the SIMT kernel ("simt"). K3's "wg" kernel reads
+di = rowsum(dO * O) from K2 ("tc" or "wg"), which writes it beside dq,
+instead of O. A head dim above ``MAX_HEAD_DIM`` takes the
 plain versions on the card ("plain"), a rule of the dispatch that no
 error reaches. A kernel that fails to build or launch raises; no variant
 stands in for another.
@@ -106,14 +108,17 @@ TC_MIN_ROWS = 16
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_HEAD_DIM = HEAD_DIMS[-1]
 # the warpgroup kernels' one instance (flash_attn_fwd_wg.cu,
-# flash_attn_bwd_dkv_wg.cu): the padded head dim they take, and the least
-# (queries, keys) at which the rule sends bf16 calls of K1 ("fwd") and K3
-# ("dkv") there (the readings behind them in fwd_variant and dkv_variant)
+# flash_attn_bwd_dq_wg.cu, flash_attn_bwd_dkv_wg.cu): the padded head dim
+# they take, and the least (queries, keys) at which the rule sends bf16
+# calls of K1 ("fwd"), K2 ("dq") and K3 ("dkv") there (the readings behind
+# them in fwd_variant, dq_variant and dkv_variant)
 WG_HEAD_DIM = 32
-WG_MIN = {"fwd": (2040, 2040), "dkv": (256, 256)}
-# from this many keys the rule sends "wg" only a key count that is a
-# multiple of 4: elsewhere both kernels draw dropout's Philox per element,
-# and "wg" was measured the slower there (fwd_variant)
+WG_MIN = {"fwd": (2040, 2040), "dq": (490, 490), "dkv": (256, 256)}
+# from this many keys the rule sends K3 to "wg" only at a key count that
+# is a multiple of 4: elsewhere K3's draw (flash_tc::chunk_keep) makes one
+# Philox call per element, and "wg" was measured the slower there
+# (dkv_variant); K1's and K2's draw (flash_tc::keep_bits) makes one per 4
+# at any key count
 WG_ALIGNED_FROM = 2040
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MASK32 = 0xFFFFFFFF
@@ -356,14 +361,15 @@ def _threads_per_row(sq: int) -> int:
 
 
 def _wg(kernel: str, sq: int, sk: int, dtype: torch.dtype, d: int) -> bool:
-    """Whether a bf16 call of K1 ("fwd") or K3 ("dkv") takes its warpgroup
-    kernel: a head dim that pads to WG_HEAD_DIM, at least WG_MIN[kernel]
-    queries and keys, and from WG_ALIGNED_FROM keys up a key count that is
-    a multiple of 4."""
+    """Whether a bf16 call of K1 ("fwd"), K2 ("dq") or K3 ("dkv") takes
+    its warpgroup kernel: a head dim that pads to WG_HEAD_DIM, at least
+    WG_MIN[kernel] queries and keys, and for K3 from WG_ALIGNED_FROM keys
+    up a key count that is a multiple of 4."""
     least_sq, least_sk = WG_MIN[kernel]
+    aligned = kernel != "dkv" or sk < WG_ALIGNED_FROM or sk % 4 == 0
     return (dtype == torch.bfloat16 and d <= MAX_HEAD_DIM
             and padded_head_dim(d) == WG_HEAD_DIM and sq >= least_sq
-            and sk >= least_sk and (sk < WG_ALIGNED_FROM or sk % 4 == 0))
+            and sk >= least_sk and aligned)
 
 
 def fwd_variant(sq: int, sk: int, dtype: torch.dtype, d: int) -> str:
@@ -380,25 +386,26 @@ def fwd_variant(sq: int, sk: int, dtype: torch.dtype, d: int) -> str:
     float32 tolerance that plain TF32 would break. The SIMT kernel
     (flash_attn_fwd.cu) has no route left.
 
-    "wg" takes WG_MIN["fwd"] = 2040 queries and keys and up where Sk is a
-    multiple of 4: the sites where it was no slower than "tc" both without
+    "wg" takes WG_MIN["fwd"] = 2040 queries and keys and up, at any key
+    count: the sites where it was no slower than "tc" both without
     dropout and with it (chip_smoke.py phase 3d on an NVIDIA H100 80GB
     HBM3 at 700 W: ms a call, CUDA events, median of three turns, "tc" /
     "wg" without dropout, then with 0.1):
-      the VL encoder at four levels, 8540^2, B=8: 4.772 / 2.586, 9.498 /
-        8.361; each image padded on the canvas: 4.762 / 3.718, 9.498 /
-        9.445; at three, 8440^2: 4.635 / 2.494, 9.215 / 7.789; at two,
-        2040^2: 0.2985 / 0.1815, 0.5856 / 0.5329;
-      flickr's encoder at two levels, 2090^2, B=16: 0.6060 / 0.3932,
-        2.559 / 3.488; at one, 490^2: 0.0444 / 0.0378, 0.1701 / 0.2330;
-      the VL encoder at one level, 440^2, B=8: 0.0363 / 0.0312, 0.0390 /
-        0.0534; flickr's decoder, 16 x 490: 0.0565 / 0.0577, 0.0703 /
-        0.0580.
+      the VL encoder at four levels, 8540^2, B=8: 4.675 / 2.580, 9.441 /
+        7.938; each image padded on the canvas: 4.668 / 3.777, 9.440 /
+        9.026; at three, 8440^2: 4.540 / 2.504, 9.159 / 7.692; at two,
+        2040^2: 0.2905 / 0.1762, 0.5764 / 0.4840;
+      flickr's encoder at two levels, 2090^2, B=16: 0.6164 / 0.3822,
+        1.287 / 1.180; at one, 490^2: 0.0461 / 0.0459, 0.0886 / 0.0975;
+      the VL encoder at one level, 440^2, B=8: 0.0368 / 0.0369, 0.0385 /
+        0.0386 (launch-bound); flickr's decoder, 16 x 490: 0.0431 /
+        0.0466, 0.0293 / 0.0327.
     One block of 128 query rows fills an SM, so a short sequence gives
     "wg" few blocks, and with dropout the Philox work of its 128-key
-    tiles does not hide under its products; where Sk % 4 != 0 both
-    kernels draw Philox per element, not once per 4 keys, and "wg" is
-    1.36x slower with dropout (2090^2, 490^2). "tc" keeps those sites."""
+    tiles does not hide under its products. K1's draw makes one Philox
+    call per 4 decisions at any key count (flash_tc::keep_bits), so the
+    rule no longer asks for Sk % 4 == 0 (before the draw, "wg" was
+    1.36x slower with dropout at 2090^2)."""
     if d > MAX_HEAD_DIM:
         return "plain"
     if sq < TC_MIN_ROWS:
@@ -408,29 +415,50 @@ def fwd_variant(sq: int, sk: int, dtype: torch.dtype, d: int) -> str:
     return "wg" if _wg("fwd", sq, sk, dtype, d) else "tc"
 
 
-def dq_variant(sq: int, dtype: torch.dtype, d: int) -> str:
-    """K2's kernel on the card for sq queries of head dim d: "plain"
-    (``attention_bwd_plain`` on the card) for d above MAX_HEAD_DIM; else
-    "dec" (flash_attn_bwd_dec.cu, which gives dk and dv in the same launch)
-    for fewer than TC_MIN_ROWS queries in either dtype, the decoder's single
-    query, bound by reading K and V once; with more (keys are the N side of
-    the tensor-core kernels, so any Sk) "tc" (flash_attn_bwd_dq_tc.cu) for
-    bf16 and "tf32x3" (flash_attn_bwd_dq_f32tc.cu) for float32: its
-    products on the tensor cores as three TF32 products of split operands,
-    which keeps float32's accuracy. The SIMT kernel (flash_attn_bwd.cu) has
-    no route left."""
+def dq_variant(sq: int, sk: int, dtype: torch.dtype, d: int) -> str:
+    """K2's kernel on the card for sq queries, sk keys and head dim d:
+    "plain" (``attention_bwd_plain`` on the card) for d above MAX_HEAD_DIM;
+    else "dec" (flash_attn_bwd_dec.cu, which gives dk and dv in the same
+    launch) for fewer than TC_MIN_ROWS queries in either dtype, the
+    decoder's single query, bound by reading K and V once; with more (keys
+    are the N side of the tensor-core kernels, so any Sk) in bf16 "wg"
+    (flash_attn_bwd_dq_wg.cu) where ``_wg`` holds and "tc"
+    (flash_attn_bwd_dq_tc.cu) elsewhere, and in float32 "tf32x3"
+    (flash_attn_bwd_dq_f32tc.cu): its products on the tensor cores as
+    three TF32 products of split operands, which keeps float32's accuracy.
+    The SIMT kernel (flash_attn_bwd.cu) has no route left.
+
+    "wg" takes WG_MIN["dq"] = 490 queries and keys and up, at any key
+    count: the sites where it was no slower than "tc" with dropout 0.1,
+    training's case (readings as in fwd_variant, "tc" / "wg", without
+    dropout, then with 0.1):
+      the VL encoder at four levels, 8540^2, B=8: 5.206 / 3.389, 10.227 /
+        8.074; each image padded: 5.213 / 3.400, 10.242 / 8.075; at
+        three, 8440^2: 5.070 / 3.253, 9.938 / 7.730; at two, 2040^2:
+        0.3295 / 0.2183, 0.6266 / 0.4923;
+      flickr's encoder at two levels, 2090^2, B=16: 0.6642 / 0.4931,
+        1.323 / 1.198; at one, 490^2: 0.0537 / 0.0582, 0.0935 / 0.0842;
+      the VL encoder at one level, 440^2, B=8: 0.0348 / 0.0371, 0.0517 /
+        0.0565, so "tc" keeps it: the host loop is launch-bound there,
+        and K2-wg's launch encodes four tensor maps on the host (device
+        time, torch.profiler, phase 3: 0.0238 / 0.0168, 0.0406 / 0.0335),
+        which REC's host-bound bf16 step would pay;
+      flickr's decoder, 16 x 490: 0.0530 / 0.0563, 0.0369 / 0.0439, so
+        16 queries (a tile of 128 an eighth full) keep "tc"."""
     if d > MAX_HEAD_DIM:
         return "plain"
     if sq < TC_MIN_ROWS:
         return "dec"
-    return "tc" if dtype == torch.bfloat16 else "tf32x3"
+    if dtype != torch.bfloat16:
+        return "tf32x3"
+    return "wg" if _wg("dq", sq, sk, dtype, d) else "tc"
 
 
 def dkv_variant(sq: int, sk: int, dtype: torch.dtype, d: int) -> str:
     """K3's kernel on the card for sq queries, sk keys and head dim d:
     "plain" and "dec" as for ``dq_variant``; with at least TC_MIN_ROWS
     queries and keys (the VL encoder and BERT) in bf16 "wg"
-    (flash_attn_bwd_dkv_wg.cu, which takes di from K2-TC) where ``_wg``
+    (flash_attn_bwd_dkv_wg.cu, which takes di from K2) where ``_wg``
     holds (``fwd_variant``) and "tc" (flash_attn_bwd_dkv_tc.cu) elsewhere,
     and "tf32x3" (flash_attn_bwd_dkv_f32tc.cu) for float32; else "simt"
     (flash_attn_bwd.cu): fewer than TC_MIN_ROWS keys in either dtype, where
@@ -438,7 +466,8 @@ def dkv_variant(sq: int, sk: int, dtype: torch.dtype, d: int) -> str:
 
     "wg" takes WG_MIN["dkv"] = 256 queries and keys and up, and from
     WG_ALIGNED_FROM keys only where Sk is a multiple of 4 (readings as in
-    fwd_variant, "tc" / "wg", without dropout, then with 0.1):
+    fwd_variant, "tc" / "wg", without dropout, then with 0.1, before K1's
+    and K2's draw was changed):
       the VL encoder at four levels, 8540^2, B=8: 10.036 / 3.526, 14.804 /
         11.021; each image padded: 10.045 / 3.486, 14.804 / 10.924; at
         three, 8440^2: 9.742 / 3.384, 14.384 / 10.694; at two, 2040^2:
@@ -447,7 +476,7 @@ def dkv_variant(sq: int, sk: int, dtype: torch.dtype, d: int) -> str:
         torch.profiler's device time, phase 3: 0.0399 / 0.0193, 0.0571 /
         0.0440);
       flickr's encoder at two levels, 2090^2, B=16: 1.249 / 0.4947,
-        3.186 / 3.223 (Philox per element, as in fwd_variant); at one,
+        3.186 / 3.223 (K3 draws Philox per element there); at one,
         490^2: 0.0865 / 0.0499, 0.2115 / 0.1906;
       flickr's decoder, 16 x 490: 0.0706 / 0.0729, 0.0492 / 0.0577.
     At 16 queries one 64-query tile is a quarter full. K3 runs in
@@ -491,6 +520,9 @@ _ARGTYPES = {
                           [_PTR] * 8 + [_INT] * 5 + [_FLOAT] + [_INT] * 2
                           + _DROPOUT_ARGS),
     "flash_attn_bwd_dq_tc": ("flash_attn_bwd_dq_tc.cu",
+                             [_PTR] * 9 + [_INT] * 5 + [_FLOAT]
+                             + _DROPOUT_ARGS),
+    "flash_attn_bwd_dq_wg": ("flash_attn_bwd_dq_wg.cu",
                              [_PTR] * 9 + [_INT] * 5 + [_FLOAT]
                              + _DROPOUT_ARGS),
     "flash_attn_bwd_dq_f32tc": ("flash_attn_bwd_dq_f32tc.cu",
@@ -662,8 +694,9 @@ def flash_attn_bwd_dq(q, k, v, valid_mask, o, lse, do,
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, valid_mask, o, lse, do,
                                    dropout_rate, seed)[0]
-    return _launch_dq(dq_variant(q.shape[1], q.dtype, q.shape[-1]), q, k, v,
-                      valid_mask, o, lse, do, dropout_rate, seed)
+    return _launch_dq(dq_variant(q.shape[1], k.shape[1], q.dtype,
+                                 q.shape[-1]),
+                      q, k, v, valid_mask, o, lse, do, dropout_rate, seed)
 
 
 def _bwd_inputs(q, k, v, valid_mask, o, lse, do):
@@ -680,10 +713,10 @@ def _bwd_inputs(q, k, v, valid_mask, o, lse, do):
 def _launch_dq(variant: str, q, k, v, valid_mask, o, lse, do,
                dropout_rate: float, seed: Optional[int],
                di_out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch K2's ``variant`` ("dec", "tc", "tf32x3" or "simt"; "plain"
-    runs ``attention_bwd_plain``) on CUDA tensors: dq. With ``di_out``
-    ([B, H, Sq] f32, "tc" only) K2-TC also writes di = rowsum(dO * O)
-    there, for K3's "wg" kernel."""
+    """Launch K2's ``variant`` ("dec", "tc", "wg", "tf32x3" or "simt";
+    "plain" runs ``attention_bwd_plain``) on CUDA tensors: dq. With
+    ``di_out`` ([B, H, Sq] f32, "tc" and "wg" only) K2 also writes di =
+    rowsum(dO * O) there, for K3's "wg" kernel."""
     if variant in ("dec", "plain"):
         return _bwd_shared(variant, q, k, v, valid_mask, o, lse, do,
                            dropout_rate, seed)[0]
@@ -692,16 +725,23 @@ def _launch_dq(variant: str, q, k, v, valid_mask, o, lse, do,
     ptrs = (_ptr(q), _ptr(k), _ptr(v), _ptr(valid_mask), _ptr(o), _ptr(do),
             _ptr(lse), _ptr(dq))
     drop = _dropout_args(dropout_rate, seed)
-    if di_out is not None and (variant != "tc" or di_out.dtype
+    if di_out is not None and (variant not in ("tc", "wg") or di_out.dtype
                                != torch.float32 or di_out.shape
-                               != lse.shape or not di_out.is_contiguous()):
-        raise ValueError(f"di_out is K2-TC's: float32 {tuple(lse.shape)}, "
-                         f"contiguous, for variant tc, not {variant}")
+                               != lse.shape or di_out.device != q.device
+                               or not di_out.is_contiguous()):
+        raise ValueError(f"di_out is K2-TC's and K2-wg's: float32 "
+                         f"{tuple(lse.shape)}, contiguous, on {q.device}, "
+                         f"not for variant {variant}")
     if variant == "tc":
         _check_tc(q, k, v, o, do)
         _launch("flash_attn_bwd_dq_tc", q.device, *ptrs, _ptr(di_out),
                 *shape, *drop)
         flash_attn_bwd_dq.launches_tc += 1
+    elif variant == "wg":
+        _check_wg(q, k, v, o, do)
+        _launch("flash_attn_bwd_dq_wg", q.device, *ptrs, _ptr(di_out),
+                *shape, *drop)
+        flash_attn_bwd_dq.launches_wg += 1
     elif variant == "tf32x3":
         _check_tc(q, k, v, o, do, dtype=torch.float32)
         _launch("flash_attn_bwd_dq_f32tc", q.device, *ptrs, *shape, *drop)
@@ -721,7 +761,7 @@ def flash_attn_bwd_dkv(q, k, v, valid_mask, o, lse, do,
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3: (dk, dv) [B, Sk, H, D] in the input dtype. The plain version on
     a CPU tensor. The "wg" kernel reads di = rowsum(dO * O) [B, H, Sq]
-    float32: ``di`` where given (K2-TC's ``di_out``), else ``di_plain``;
+    float32: ``di`` where given (K2's ``di_out``), else ``di_plain``;
     the other variants ignore it."""
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, valid_mask, o, lse, do,
@@ -733,7 +773,7 @@ def flash_attn_bwd_dkv(q, k, v, valid_mask, o, lse, do,
 
 
 def di_plain(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
-    """di = rowsum(dO * O) [B, H, Sq] in float32: K3-wg's input where K2-TC
+    """di = rowsum(dO * O) [B, H, Sq] in float32: K3-wg's input where K2
     has not written it."""
     return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
 
@@ -779,7 +819,7 @@ def _launch_dkv_wg(q, k, v, valid_mask, o, lse, do, dropout_rate: float,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K3-wg (flash_attn_bwd_dkv_wg.cu) on CUDA tensors: (dk, dv).
     The kernel reads di = rowsum(dO * O) and never O: ``di`` where the
-    caller has it (K2-TC's ``di_out``), else ``di_plain(o, do)``."""
+    caller has it (K2's ``di_out``), else ``di_plain(o, do)``."""
     q, k, v, o, do, d, shape = _bwd_inputs(q, k, v, valid_mask, o, lse, do)
     if di is None:
         di = di_plain(o, do)
@@ -859,8 +899,8 @@ class FlashAttentionFn(torch.autograd.Function):
     lse and the dropout seed; the backward runs K2 and K3 (one launch of the
     decode backward for fewer than TC_MIN_ROWS queries, one call of
     ``attention_bwd_plain`` for a head dim above MAX_HEAD_DIM; their plain
-    versions on the CPU; where K3 takes "wg", K2-TC writes di for it) and gives
-    no gradient for the mask, the rate or the seed."""
+    versions on the CPU; where K3 takes "wg", K2 ("tc" or "wg") writes di
+    for it) and gives no gradient for the mask, the rate or the seed."""
 
     @staticmethod
     def forward(ctx, q, k, v, valid_mask, dropout_rate, seed):
@@ -873,7 +913,7 @@ class FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, valid_mask, out, lse = ctx.saved_tensors
         do = do.to(out.dtype).contiguous()
-        variant = dq_variant(q.shape[1], q.dtype, q.shape[-1])
+        variant = dq_variant(q.shape[1], k.shape[1], q.dtype, q.shape[-1])
         if q.device.type == "cpu":
             dq, dk, dv = attention_bwd_plain(q, k, v, valid_mask, out, lse,
                                              do, *ctx.dropout)
@@ -882,7 +922,7 @@ class FlashAttentionFn(torch.autograd.Function):
                                      do, *ctx.dropout)
         elif dkv_variant(q.shape[1], k.shape[1], q.dtype,
                          q.shape[-1]) == "wg":
-            # K2-TC hands K3-wg each query's di = rowsum(dO * O)
+            # K2 hands K3-wg each query's di = rowsum(dO * O)
             di = torch.empty_like(lse)
             dq = _launch_dq(variant, q, k, v, valid_mask, out, lse, do,
                             *ctx.dropout, di_out=di)

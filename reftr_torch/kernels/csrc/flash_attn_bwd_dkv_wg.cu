@@ -314,6 +314,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    int Sk, float scale, Dropout dr, cudaStream_t stream) {
   const int n_kt = (Sk + kKeys - 1) / kKeys;
   if ((long)B * H > 65535) return cudaErrorInvalidConfiguration;
+  const cudaError_t bound = flash_wg::bind_device(q);
+  if (bound != cudaSuccess) return bound;
   CUtensorMap map_q, map_k, map_v, map_do;
   if (!flash_wg::make_map(&map_q, q, B, Sq, H, kTileQ) ||
       !flash_wg::make_map(&map_k, k, B, Sk, H, kKeys) ||

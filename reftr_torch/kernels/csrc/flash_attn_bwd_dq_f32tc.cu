@@ -46,8 +46,8 @@
 // - Dropout: the accumulator layout is m16n8k16's (queries as M, keys as
 //   N), so the decisions of a key tile come from flash_tc::keep_bits, drawn
 //   at the top of the tile with no lane-dependent branch: one Philox call
-//   per 4 elements where Sk % 4 == 0, one per element elsewhere; the mask is
-//   philox_keep_plain's bit for bit.
+//   per 4 elements at any Sk (the launcher picks the instance of Sk's
+//   path); the mask is philox_keep_plain's bit for bit.
 //
 // Bound on an NVIDIA H100 80GB HBM3 at its 700 W power limit (data sheet):
 // at the VL encoder's shape (B=8, H=8, S=440, D=32) with every key valid the
@@ -90,7 +90,7 @@ constexpr int smem_bytes() {
 template <int D>
 constexpr int kMinBlocks = D <= 32 ? 4 : D <= 64 ? 2 : 1;
 
-template <int D>
+template <int D, bool kAligned>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<D>)
 flash_bwd_dq_f32tc_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
@@ -175,7 +175,8 @@ flash_bwd_dq_f32tc_kernel(const float* __restrict__ q,
     flash_tc::cp_async_commit();  // (possibly empty) group of tile t + 1
     const uint32_t keep =
         dr.threshold != 0u
-            ? flash_tc::keep_bits<kTileK / 8>(n_row, t * kTileK, c, Sk, dr)
+            ? flash_tc::keep_bits<kTileK / 8, kAligned>(n_row, t * kTileK,
+                                                        c, dr)
             : 0u;
     flash_tc::cp_async_wait<1>();  // tile t (and Q, dO) arrived
     __syncthreads();
@@ -267,27 +268,42 @@ flash_bwd_dq_f32tc_kernel(const float* __restrict__ q,
   }
 }
 
-template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const uint8_t* valid, const void* o, const void* dout,
-                   const float* lse, void* dq, int B, int H, int Sq, int Sk,
-                   float scale, Dropout dr, cudaStream_t stream) {
+template <int D, bool kAligned>
+cudaError_t launch_as(const void* q, const void* k, const void* v,
+                      const uint8_t* valid, const void* o, const void* dout,
+                      const float* lse, void* dq, int B, int H, int Sq, int Sk,
+                      float scale, Dropout dr, cudaStream_t stream) {
   const int n_qt = (Sq + kRows - 1) / kRows;
   const long blocks = (long)B * H * n_qt;
   if (blocks > 0x7fffffffL) return cudaErrorInvalidConfiguration;
   constexpr int bytes = smem_bytes<D>();
   if (bytes > 48 * 1024) {  // above 48 KB only by opting in
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dq_f32tc_kernel<D>,
+        flash_bwd_dq_f32tc_kernel<D, kAligned>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
   }
-  flash_bwd_dq_f32tc_kernel<D><<<(unsigned)blocks, kThreads, bytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), valid, static_cast<const float*>(o),
-      static_cast<const float*>(dout), lse, static_cast<float*>(dq), H, Sq,
-      Sk, n_qt, scale, dr);
+  flash_bwd_dq_f32tc_kernel<D, kAligned>
+      <<<(unsigned)blocks, kThreads, bytes, stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), valid, static_cast<const float*>(o),
+          static_cast<const float*>(dout), lse, static_cast<float*>(dq), H, Sq,
+          Sk, n_qt, scale, dr);
   return cudaGetLastError();
+}
+
+// the instance of the kernel whose dropout draw takes Sk % 4 == 0's
+// path or the general one (flash_tc::keep_bits)
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const uint8_t* valid, const void* o, const void* dout,
+                   const float* lse, void* dq, int B, int H, int Sq, int Sk,
+                   float scale, Dropout dr, cudaStream_t stream) {
+  if ((Sk & 3) == 0)
+    return launch_as<D, true>(q, k, v, valid, o, dout, lse, dq, B, H, Sq, Sk,
+                              scale, dr, stream);
+  return launch_as<D, false>(q, k, v, valid, o, dout, lse, dq, B, H, Sq, Sk,
+                             scale, dr, stream);
 }
 
 }  // namespace

@@ -41,7 +41,7 @@
 // - Dropout: the accumulator layout is K1-TC's (queries as M, keys as N),
 //   so the decisions of a key tile come from flash_tc::keep_bits, drawn at
 //   the top of the tile with no lane-dependent branch: one Philox call per
-//   4 elements where Sk % 4 == 0, one per element elsewhere.
+//   4 elements at any Sk (the launcher picks the instance of Sk's path).
 // - Occupancy: at D <= 32 the kernel is held to 128 registers, so 4 blocks
 //   fit an SM and the VL encoder's 448 blocks run in one wave on 132 SMs.
 // - Precision: dS enters the dQ product rounded to bf16 (relative 2^-9 per
@@ -79,7 +79,7 @@ constexpr int smem_bytes() {
   return (3 * kRows + 4 * kTileK) * Tile<D>::kStride * 2 + 2 * kTileK * 4;
 }
 
-template <int D>
+template <int D, bool kAligned>
 __global__ void __launch_bounds__(kThreads, D <= 32 ? 4 : 2)
 flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v,
@@ -165,7 +165,8 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     flash_tc::cp_async_commit();  // (possibly empty) group of tile t + 1
     const uint32_t keep =
         dr.threshold != 0u
-            ? flash_tc::keep_bits<kTileK / 8>(n_row, t * kTileK, c, Sk, dr)
+            ? flash_tc::keep_bits<kTileK / 8, kAligned>(n_row, t * kTileK,
+                                                        c, dr)
             : 0u;
     flash_tc::cp_async_wait<1>();  // tile t (and Q, dO, O) arrived
     __syncthreads();
@@ -267,28 +268,44 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const uint8_t* valid, const void* o, const void* dout,
-                   const float* lse, void* dq, float* di_out, int B, int H,
-                   int Sq, int Sk, float scale, Dropout dr,
-                   cudaStream_t stream) {
+template <int D, bool kAligned>
+cudaError_t launch_as(const void* q, const void* k, const void* v,
+                      const uint8_t* valid, const void* o, const void* dout,
+                      const float* lse, void* dq, float* di_out, int B, int H,
+                      int Sq, int Sk, float scale, Dropout dr,
+                      cudaStream_t stream) {
   const int n_qt = (Sq + kRows - 1) / kRows;
   const long blocks = (long)B * H * n_qt;
   if (blocks > 0x7fffffffL) return cudaErrorInvalidConfiguration;
   constexpr int bytes = smem_bytes<D>();
   if (bytes > 48 * 1024) {  // above 48 KB only by opting in
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dq_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
+        flash_bwd_dq_tc_kernel<D, kAligned>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
   }
-  flash_bwd_dq_tc_kernel<D><<<(unsigned)blocks, kThreads, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), valid, static_cast<const bf16*>(o),
-      static_cast<const bf16*>(dout), lse, static_cast<bf16*>(dq), di_out, H,
-      Sq, Sk, n_qt, scale, dr);
+  flash_bwd_dq_tc_kernel<D, kAligned>
+      <<<(unsigned)blocks, kThreads, bytes, stream>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), valid, static_cast<const bf16*>(o),
+          static_cast<const bf16*>(dout), lse, static_cast<bf16*>(dq), di_out,
+          H, Sq, Sk, n_qt, scale, dr);
   return cudaGetLastError();
+}
+
+// the instance of the kernel whose dropout draw takes Sk % 4 == 0's
+// path or the general one (flash_tc::keep_bits)
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const uint8_t* valid, const void* o, const void* dout,
+                   const float* lse, void* dq, float* di_out, int B, int H,
+                   int Sq, int Sk, float scale, Dropout dr,
+                   cudaStream_t stream) {
+  if ((Sk & 3) == 0)
+    return launch_as<D, true>(q, k, v, valid, o, dout, lse, dq, di_out, B, H,
+                              Sq, Sk, scale, dr, stream);
+  return launch_as<D, false>(q, k, v, valid, o, dout, lse, dq, di_out, B, H,
+                             Sq, Sk, scale, dr, stream);
 }
 
 }  // namespace

@@ -38,13 +38,14 @@
 //   max, the rescale of the accumulator and the denominator go once per
 //   64-key tile. The denominator sums the un-dropped p in f32; the
 //   numerator takes p * keep. One Philox call gives the words of 4
-//   neighbouring keys of a row, which two lanes hold as two pairs: where
-//   Sk % 4 == 0 the two share each call through a shuffle (keep_bits), one
-//   call per 4 elements; elsewhere one per element. The decisions need no
-//   data, so they are drawn as a bit mask at the top of each tile, with no
-//   branch that depends on the lane: mma.sync and ldmatrix are .aligned,
-//   and a per-lane branch there (one Philox call or two, by counter) gave
-//   wrong masks on the card.
+//   neighbouring keys of a row, and the lanes of a quad share each call
+//   through shuffles (flash_tc::keep_bits): one call per 4 elements at any
+//   Sk, the path for Sk % 4 == 0 or the general one instantiated apart and
+//   picked by the launcher. The decisions need no data, so they are drawn
+//   as a bit mask at the top of each tile, with no branch that depends on
+//   the lane: mma.sync and ldmatrix are .aligned, and a per-lane branch
+//   there (one Philox call or two, by counter) gave wrong masks on the
+//   card.
 // - Occupancy: at D <= 32 the kernel is held to 128 registers, so 4 blocks
 //   fit an SM and the VL encoder's 448 blocks run in one wave on 132 SMs.
 // - The key bias row (0 or -1e9) is read a tile ahead into a register and
@@ -82,7 +83,7 @@ constexpr int smem_bytes() {
   return (kRows + 4 * kTileK) * Tile<D>::kStride * 2 + 2 * kTileK * 4;
 }
 
-template <int D>
+template <int D, bool kAligned>
 __global__ void __launch_bounds__(kThreads, D <= 32 ? 4 : 2)
 flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v,
@@ -160,7 +161,8 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     flash_tc::cp_async_commit();  // (possibly empty) group of tile t + 1
     const uint32_t keep =
         dr.threshold != 0u
-            ? flash_tc::keep_bits<kTileK / 8>(n_row, t * kTileK, c, Sk, dr)
+            ? flash_tc::keep_bits<kTileK / 8, kAligned>(n_row, t * kTileK,
+                                                        c, dr)
             : 0u;
     flash_tc::cp_async_wait<1>();  // tile t (and Q) arrived
     __syncthreads();
@@ -268,26 +270,41 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const uint8_t* valid, void* out, float* lse, int B, int H,
-                   int Sq, int Sk, float scale, Dropout dr,
-                   cudaStream_t stream) {
+template <int D, bool kAligned>
+cudaError_t launch_as(const void* q, const void* k, const void* v,
+                      const uint8_t* valid, void* out, float* lse, int B, int H,
+                      int Sq, int Sk, float scale, Dropout dr,
+                      cudaStream_t stream) {
   const int n_qt = (Sq + kRows - 1) / kRows;
   const long blocks = (long)B * H * n_qt;
   if (blocks > 0x7fffffffL) return cudaErrorInvalidConfiguration;
   constexpr int bytes = smem_bytes<D>();
   if (bytes > 48 * 1024) {  // above 48 KB only by opting in
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
+        flash_fwd_tc_kernel<D, kAligned>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
   }
-  flash_fwd_tc_kernel<D><<<(unsigned)blocks, kThreads, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), valid, static_cast<bf16*>(out), lse, H, Sq,
-      Sk, n_qt, scale, dr);
+  flash_fwd_tc_kernel<D, kAligned>
+      <<<(unsigned)blocks, kThreads, bytes, stream>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), valid, static_cast<bf16*>(out), lse, H,
+          Sq, Sk, n_qt, scale, dr);
   return cudaGetLastError();
+}
+
+// the instance of the kernel whose dropout draw takes Sk % 4 == 0's
+// path or the general one (flash_tc::keep_bits)
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const uint8_t* valid, void* out, float* lse, int B, int H,
+                   int Sq, int Sk, float scale, Dropout dr,
+                   cudaStream_t stream) {
+  if ((Sk & 3) == 0)
+    return launch_as<D, true>(q, k, v, valid, out, lse, B, H, Sq, Sk, scale,
+                              dr, stream);
+  return launch_as<D, false>(q, k, v, valid, out, lse, B, H, Sq, Sk, scale, dr,
+                             stream);
 }
 
 }  // namespace

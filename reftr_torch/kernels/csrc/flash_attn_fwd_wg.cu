@@ -112,7 +112,9 @@ __device__ __forceinline__ bool key_live(const uint8_t* valid, int b, int Sk,
 
 // A consumer warpgroup's state over the key sweep and its steps. Every
 // member function is inlined and every array index is a constant after
-// inlining, so the state stays in registers.
+// inlining, so the state stays in registers. kAligned (Sk % 4 == 0) picks
+// the dropout draw's path (flash_tc::keep_bits).
+template <bool kAligned>
 struct Consumer {
   using L = Layout;
   unsigned char* smem;
@@ -176,8 +178,9 @@ struct Consumer {
   __device__ __forceinline__ void keep_of(int t) {
     keep[0] = keep[1] = 0u;
     if (dr.threshold != 0u) {
-      keep[0] = flash_tc::keep_bits<8>(n_row, t * kTileK, c, Sk, dr);
-      keep[1] = flash_tc::keep_bits<8>(n_row, t * kTileK + 64, c, Sk, dr);
+      keep[0] = flash_tc::keep_bits<8, kAligned>(n_row, t * kTileK, c, dr);
+      keep[1] =
+          flash_tc::keep_bits<8, kAligned>(n_row, t * kTileK + 64, c, dr);
     }
   }
 
@@ -279,6 +282,7 @@ struct Consumer {
   }
 };
 
+template <bool kAligned>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wg_kernel(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_k,
@@ -356,7 +360,7 @@ flash_fwd_wg_kernel(const __grid_constant__ CUtensorMap map_q,
   // a consumer: warpgroup wg owns query rows q0 + wg * 64 .. + 63, and
   // this lane rows[0] = .. + (warp % 4) * 16 + lane / 4 and rows[1] 8 below
   const int wg = warp / 4;
-  Consumer w;
+  Consumer<kAligned> w;
   w.smem = smem;
   w.full_k = full_k;
   w.full_v = full_v;
@@ -385,18 +389,18 @@ flash_fwd_wg_kernel(const __grid_constant__ CUtensorMap map_q,
   w.keep_of(0);
   flash_wg::wg_wait<0>();
   flash_wg::fence_operands(w.sc);
-  w.softmax<0>(0);
+  w.template softmax<0>(0);
   // two tiles a turn, so the fragment set of each step is a constant
   int t = 0;
   for (; t + 2 < n_kt; t += 2) {
-    w.step<0>(t);
-    w.step<1>(t + 1);
+    w.template step<0>(t);
+    w.template step<1>(t + 1);
   }
   if (t + 1 < n_kt) {
-    w.step<0>(t);
-    w.last<1>(t + 1);
+    w.template step<0>(t);
+    w.template last<1>(t + 1);
   } else {
-    w.last<0>(t);
+    w.template last<0>(t);
   }
   float* o = w.o;
   float* m = w.m;
@@ -426,20 +430,24 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    cudaStream_t stream) {
   const int n_qt = (Sq + kRows - 1) / kRows;
   if ((long)B * H > 65535) return cudaErrorInvalidConfiguration;
+  const cudaError_t bound = flash_wg::bind_device(q);
+  if (bound != cudaSuccess) return bound;
   CUtensorMap map_q, map_k, map_v;
   if (!flash_wg::make_map(&map_q, q, B, Sq, H, kRows) ||
       !flash_wg::make_map(&map_k, k, B, Sk, H, kTileK) ||
       !flash_wg::make_map(&map_v, v, B, Sk, H, kTileK))
     return cudaErrorInvalidValue;
   constexpr int bytes = Layout::kAlloc;
+  // the instance whose dropout draw takes Sk % 4 == 0's path or the
+  // general one (flash_tc::keep_bits)
+  auto kernel = (Sk & 3) == 0 ? flash_fwd_wg_kernel<true>
+                              : flash_fwd_wg_kernel<false>;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  flash_fwd_wg_kernel
-      <<<dim3(n_qt, B * H), kThreads, bytes, stream>>>(
-          map_q, map_k, map_v, valid, static_cast<bf16*>(out), lse, H, Sq,
-          Sk, scale, dr);
+  kernel<<<dim3(n_qt, B * H), kThreads, bytes, stream>>>(
+      map_q, map_k, map_v, valid, static_cast<bf16*>(out), lse, H, Sq, Sk,
+      scale, dr);
   return cudaGetLastError();
 }
 

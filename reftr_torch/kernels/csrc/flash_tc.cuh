@@ -31,6 +31,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "flash_common.cuh"
 
 namespace flash_tc {
@@ -162,23 +164,46 @@ __device__ __forceinline__ void load_b_cols(uint32_t (&b)[4],
 
 // The keep decisions of this lane's elements of one tile of NT * 8 keys in
 // the layout of an accumulator with queries as M and keys as N (K1-TC's S,
-// K2-TC's S and dP): bit n * 4 + e for element e of n-tile n, which is row
-// n_row[e / 2] (the dropout offset of (b, h, query, key 0)) and key
-// k0 + n * 8 + c + e % 2, c = (lane % 4) * 2. They depend on no data, so a
-// kernel draws them at the top of the tile, where the integer work overlaps
-// the copies and the products. Where Sk % 4 == 0, keys 4a..4a+3 of a row
-// share one Philox counter, and lanes l and l ^ 1 of a quad hold them as two
-// pairs: each lane draws the counters of every other n-tile and one shuffle
-// of their decisions hands its partner the partner's pairs, one Philox call
-// per 4 elements. Elsewhere one call per element. No branch depends on the
-// lane: mma.sync and ldmatrix are .aligned, and a per-lane branch near them
-// (one Philox call or two, by counter) gave wrong masks on the card.
-template <int NT>
+// K2-TC's S and dP, K1-wg's and K2-wg's per warp): bit n * 4 + e for
+// element e of n-tile n, which is row n_row[e / 2] (the dropout offset of
+// (b, h, query, key 0)) and key k0 + n * 8 + c + e % 2, c = (lane % 4) * 2.
+// They depend on no data, so a kernel draws them at the top of the tile,
+// where the integer work overlaps the copies and the products. One Philox
+// call per 4 elements at any Sk:
+// - Sk % 4 == 0: keys 4a..4a+3 of a row share one Philox counter, and
+//   lanes l and l ^ 1 of a quad hold them as two pairs: each lane draws
+//   the counters of every other n-tile and one shuffle of their decisions
+//   hands its partner the partner's pairs (NT calls a lane).
+// - Elsewhere a row's offset base_r = n_row[r] + k0 has a phase
+//   ph_r = base_r % 4, and the quad's NT * 8 keys of the row span the
+//   counters base_r / 4 + j, j = 0..2NT (the last only where ph_r > 0).
+//   Lane q of the quad draws for row q / 2 the counters of parity q % 2,
+//   j = 2i + q % 2 for i = 0..NT (NT + 1 calls on every lane), their four
+//   decisions at nibble i of `own`. The element at position
+//   P = ph_r + t of its row (t its key in the tile) takes word P % 4 of
+//   counter P / 4, which lane 2r + (P / 4) % 2 of the quad holds at bit
+//   4 (P / 8) + P % 4; with u = ph_r + c + e % 2, P = u + 8n, so one
+//   shuffle from that lane and one shift by 4 (u / 8) + u % 4 give the
+//   element's bits of all NT n-tiles at every fourth bit (4 shuffles).
+// kAligned (Sk % 4 == 0) picks the path at compile time: a kernel is
+// instantiated for both and its launcher picks one by Sk, so each instance
+// holds one path (with both behind a branch on Sk, K1-wg ran 6 % slower
+// with dropout at Sk % 4 == 0; PERF.md). No branch depends on the lane:
+// every lane makes the same Philox calls and shuffles, and picks rows and
+// words by select. mma.sync and ldmatrix are .aligned, and a per-lane
+// branch near them (one Philox call or two, by counter) gave wrong masks
+// on the card.
+template <int NT, bool kAligned>
 __device__ __forceinline__ uint32_t keep_bits(const uint64_t (&n_row)[2],
-                                              int k0, int c, int Sk,
+                                              int k0, int c,
                                               const flash::Dropout& dr) {
   uint32_t bits = 0u;
-  if ((Sk & 3) == 0) {
+  // the seed through an empty asm: Philox's 20 round keys derive from it,
+  // and without this the compiler kept them in registers over a kernel's
+  // whole key loop, which made K2-TC spill (PERF.md)
+  uint64_t seed = dr.seed;
+  asm volatile("" : "+l"(seed));
+  if constexpr (kAligned) {
     const int odd = threadIdx.x & 1;  // this lane holds words 2 and 3
     // this lane's counters, of n-tiles 2t + odd: their 4 decisions at bit
     // (t * 2 + r) * 4 + word of `own`; one shuffle gives the partner's
@@ -188,7 +213,7 @@ __device__ __forceinline__ uint32_t keep_bits(const uint64_t (&n_row)[2],
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const uint64_t n = n_row[r] + k0 + (2 * t + odd) * 8 + (c & ~3);
-        const uint4 w = flash::philox4(dr.seed, n >> 2);
+        const uint4 w = flash::philox4(seed, n >> 2);
         own |= (flash::kept(w.x, dr) | flash::kept(w.y, dr) << 1 |
                 flash::kept(w.z, dr) << 2 | flash::kept(w.w, dr) << 3)
                << ((t * 2 + r) * 4);
@@ -204,13 +229,42 @@ __device__ __forceinline__ uint32_t keep_bits(const uint64_t (&n_row)[2],
                 << (n * 4 + 2 * r);
     }
   } else {
+    // the decisions of nibble i in a word of 4 (NT + 1) bits
+    using Word = typename std::conditional<(4 * (NT + 1) > 32), uint64_t,
+                                           uint32_t>::type;
+    constexpr uint32_t kEvery4 =
+        (uint32_t)(((uint64_t{1} << (4 * NT)) - 1) / 15);  // bits 0, 4, ..
+    const int lane = threadIdx.x & 31;
+    const int q = lane & 3;
+    const uint64_t first = ((q & 2) ? n_row[1] : n_row[0]) + k0;
+    Word own = 0;
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+    for (int i = 0; i <= NT; ++i) {
+      const uint4 w = flash::philox4(seed, (first >> 2) + 2 * i + (q & 1));
+      own |= (Word)(flash::kept(w.x, dr) | flash::kept(w.y, dr) << 1 |
+                    flash::kept(w.z, dr) << 2 | flash::kept(w.w, dr) << 3)
+             << (4 * i);
+    }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const uint64_t el = n_row[e >> 1] + k0 + n * 8 + c + (e & 1);
-        bits |= flash::kept(flash::philox_word(dr.seed, el), dr) << (n * 4 + e);
+    for (int r = 0; r < 2; ++r) {
+      const int ph = (int)(((uint32_t)n_row[r] + (uint32_t)k0) & 3u);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int u = ph + c + e;  // 0..10
+        const int src = (lane & ~3) | (2 * r) | ((u >> 2) & 1);
+        Word got;
+        if constexpr (sizeof(Word) == 8) {
+          const uint32_t lo = __shfl_sync(0xffffffffu, (uint32_t)own, src);
+          const uint32_t hi =
+              __shfl_sync(0xffffffffu, (uint32_t)(own >> 32), src);
+          got = (uint64_t)hi << 32 | lo;
+        } else {
+          got = __shfl_sync(0xffffffffu, own, src);
+        }
+        bits |= ((uint32_t)(got >> (4 * (u >> 3) + (u & 3))) & kEvery4)
+                << (2 * r + e);
       }
+    }
   }
   return bits;
 }

@@ -275,6 +275,17 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// Makes the primary context of the device that holds `p` current on the
+// calling thread. cuTensorMapEncodeTiled needs a current context, and a
+// thread that has made no CUDA call yet (autograd's device thread, whose
+// first call of a backward may be K2-wg's) has none: there every encoding
+// was refused.
+inline cudaError_t bind_device(const void* p) {
+  cudaPointerAttributes attr;
+  const cudaError_t err = cudaPointerGetAttributes(&attr, p);
+  return err != cudaSuccess ? err : cudaSetDevice(attr.device);
+}
+
 // The tensor map of a contiguous bf16 [B, S, H, kHeadDim] tensor whose box
 // is `rows` rows of one (batch, head): dims innermost first (D, H, S, B),
 // the 64-byte swizzle of its 64-byte rows, zeros past S (so a tile never

@@ -168,7 +168,7 @@ def test_variant_rule_at_the_call_sites(site, dtype):
     bf16 = dtype == torch.bfloat16
     want = "dec" if dec else "tc" if bf16 else "tf32x3"
     assert fwd_variant(sq, sk, dtype, d) == want
-    assert dq_variant(sq, dtype, d) == want
+    assert dq_variant(sq, sk, dtype, d) == want
     assert dkv_variant(sq, sk, dtype, d) == (
         "wg" if bf16 and site == "vl_encoder_self" else want)
 
@@ -181,12 +181,13 @@ def test_variant_rule_boundary():
     assert fwd_variant(16, 16, f32, 32) == "tf32x3"
     assert fwd_variant(15, 15, f32, 32) == "dec"
     assert fwd_variant(8540, 8540, f32, 32) == "tf32x3"
-    # bf16 K1 and K3 on the warpgroup kernels from WG_MIN queries and keys
-    # at a head dim padding to 32, from 2040 keys at a multiple of 4
+    # bf16 K1, K2 and K3 on the warpgroup kernels from WG_MIN queries and
+    # keys at a head dim padding to 32, K3 from 2040 keys at a multiple of
+    # 4
     assert fwd_variant(2040, 2040, bf16, 32) == "wg"
     assert fwd_variant(2039, 2040, bf16, 32) == "tc"
     assert fwd_variant(2040, 2039, bf16, 32) == "tc"
-    assert fwd_variant(2090, 2090, bf16, 32) == "tc"
+    assert fwd_variant(2090, 2090, bf16, 32) == "wg"
     assert fwd_variant(2092, 2092, bf16, 32) == "wg"
     assert fwd_variant(8540, 8540, bf16, 24) == "wg"
     assert fwd_variant(8540, 8540, bf16, 64) == "tc"
@@ -197,7 +198,15 @@ def test_variant_rule_boundary():
     assert dkv_variant(2090, 2090, bf16, 32) == "tc"
     assert dkv_variant(2040, 2040, bf16, 32) == "wg"
     assert dkv_variant(440, 440, bf16, 16) == "tc"
-    assert dq_variant(8540, bf16, 32) == "tc"
+    # K2 on its warpgroup kernel from WG_MIN["dq"], at any key count
+    assert dq_variant(8540, 8540, bf16, 32) == "wg"
+    assert dq_variant(2090, 2090, bf16, 32) == "wg"
+    assert dq_variant(490, 490, bf16, 32) == "wg"
+    assert dq_variant(489, 490, bf16, 32) == "tc"
+    assert dq_variant(490, 489, bf16, 32) == "tc"
+    assert dq_variant(440, 440, bf16, 32) == "tc"
+    assert dq_variant(8540, 8540, bf16, 64) == "tc"
+    assert dq_variant(8540, 8540, f32, 32) == "tf32x3"
     assert dkv_variant(16, 16, bf16, 32) == "tc"
     assert dkv_variant(15, 440, bf16, 32) == "dec"
     assert dkv_variant(15, 15, f32, 32) == "dec"
@@ -222,7 +231,7 @@ def test_dec_and_dq_variant_rules(sq, dtype, fwd, dq):
     least (test_variant_rule_boundary): bf16 products in bf16, float32
     ones by 3xTF32."""
     assert fwd_variant(sq, 40, dtype, 32) == fwd
-    assert dq_variant(sq, dtype, 32) == dq
+    assert dq_variant(sq, 40, dtype, 32) == dq
 
 
 @pytest.mark.parametrize("sq,sk,dtype,want", [
@@ -238,7 +247,7 @@ def test_dkv_variant_rule(sq, sk, dtype, want):
     K2 and K3 agree, as one kernel computes both."""
     assert dkv_variant(sq, sk, dtype, 32) == want
     if sq < TC_MIN_ROWS:
-        assert dq_variant(sq, dtype, 32) == want
+        assert dq_variant(sq, sk, dtype, 32) == want
 
 
 def _rule(kernel, sq, sk, dtype, d):
@@ -250,7 +259,7 @@ def _rule(kernel, sq, sk, dtype, d):
     bf16 = dtype == torch.bfloat16
     if kernel == "dkv" and sk < 16:
         return "simt"
-    least = {"fwd": 2048, "dkv": 256}.get(kernel)
+    least = {"fwd": 2048, "dq": 490, "dkv": 256}.get(kernel)
     if bf16 and least and 16 < d <= 32 and min(sq, sk) >= least:
         return "wg"
     return "tc" if bf16 else "tf32x3"
@@ -265,7 +274,7 @@ def test_variant_rule_at_every_corner(dtype, sq, sk, d):
     TC_MIN_ROWS on both sides, a head dim that pads, the largest instance
     and one above it."""
     assert fwd_variant(sq, sk, dtype, d) == _rule("fwd", sq, sk, dtype, d)
-    assert dq_variant(sq, dtype, d) == _rule("dq", sq, sk, dtype, d)
+    assert dq_variant(sq, sk, dtype, d) == _rule("dq", sq, sk, dtype, d)
     assert dkv_variant(sq, sk, dtype, d) == _rule("dkv", sq, sk, dtype, d)
 
 

@@ -803,7 +803,7 @@ def test_every_route_takes_odd_head_dims(gen, d, shape, dtype, rate):
     assert all((n == 0) == plain and (m > 0) == plain for n, m in moved)
     assert flash_attention.launches_tf32x3 - tf32x3 == (
         fwd_variant(sq, sk, dtype, d) == "tf32x3")
-    assert {fwd_variant(sq, sk, dtype, d), dq_variant(sq, dtype, d),
+    assert {fwd_variant(sq, sk, dtype, d), dq_variant(sq, sk, dtype, d),
             dkv_variant(sq, sk, dtype, d)} >= ({"plain"} if plain else set())
     assert out.shape == q.shape and out.dtype == dtype
     torch.testing.assert_close(out.float(), want, atol=TOL[dtype], rtol=0)
@@ -1017,16 +1017,15 @@ DTYPE_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 @pytest.mark.parametrize("site", NEW_SITES)
 def test_multi_phrase_and_long_sites_match_plain(gen, site, dtype, rate):
     """K1 with its lse, K2 and K3 at the new sites, each through the
-    tensor-core kernels (16 or more queries and keys; in bf16 K1 and K3
-    where the rule says so on the warpgroup kernels), against the plain
+    tensor-core kernels (16 or more queries and keys; in bf16 K1, K2 and
+    K3 where the rule says so on the warpgroup kernels), against the plain
     versions (K1's in float32, as test_kernel_matches_plain's: two
     roundings to bf16 of one value may part by an ulp), at
     chip_smoke.kernel_tol and GRAD_TOL; the four-level encoder at B=1,
     where the plain version's [B, H, S, S] scores fit."""
     b, sq, sk, h, d = chip_smoke.site_shape(site)
     tc = "tc" if dtype == torch.bfloat16 else "tf32x3"
-    assert dq_variant(sq, dtype, d) == tc
-    assert {fwd_variant(sq, sk, dtype, d),
+    assert {fwd_variant(sq, sk, dtype, d), dq_variant(sq, sk, dtype, d),
             dkv_variant(sq, sk, dtype, d)} <= {tc, "wg"}
     q, k, v, valid = chip_smoke.site_inputs(gen, site, dtype)
     seed = 0xABCD_0123_4567 if rate else None
@@ -1324,3 +1323,162 @@ def test_warpgroup_kernels_refuse_what_they_do_not_take(gen):
     with pytest.raises(ValueError, match="di_out"):
         _launch_dq("tf32x3", q, k, v, valid, q, lse, q, 0.0, None,
                    di_out=torch.empty_like(lse))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("shape", WG_SHAPES)
+def test_dq_warpgroup_kernel_matches_plain(gen, shape, rate):
+    """K2-wg launched directly at the edges of its 128-query and 64-key
+    tiles: dq against attention_bwd_plain at GRAD_TOL of the largest plain
+    gradient, batch row 0 with every key masked; its di_out equals
+    di_plain; a second call gives the same bits; each launch counted on
+    launches_wg."""
+    b, sq, sk, h, d = shape
+    q, k, v, valid = inputs(gen, b, sq, sk, h, d, torch.bfloat16)
+    seed = 0x6E0_0000_0002 if rate else None
+    out, lse = _launch_fwd("tc", q, k, v, valid, rate, seed)
+    do = torch.randn(out.shape, device="cuda", generator=gen).to(q.dtype)
+    args = (q, k, v, valid, out, lse, do, rate, seed)
+    before = flash_attn_bwd_dq.launches_wg
+    di = torch.full_like(lse, float("nan"))
+    dq = _launch_dq("wg", *args, di_out=di)
+    wants = attention_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert dq.dtype == torch.bfloat16 and dq.shape == q.shape
+    torch.testing.assert_close(di, di_plain(out, do), atol=1e-5, rtol=1e-5)
+    scale = max(w.float().abs().max().item() for w in wants)
+    rel_close(dq, wants[0], GRAD_TOL[torch.bfloat16], floor=scale)
+    assert chip_smoke.same_bits(dq, _launch_dq("wg", *args))
+    assert flash_attn_bwd_dq.launches_wg - before == 2
+
+
+LONG_SITES = ["vl_encoder_2_levels_b8", "multi_vl_encoder_2_levels",
+              "vl_encoder_3_levels_b8", "vl_encoder_4_levels_b8"]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("site", LONG_SITES)
+def test_dq_warpgroup_kernel_matches_plain_at_the_long_sites(gen, site,
+                                                             rate):
+    """K2-wg at the encoders of 2-4 feature levels with the smoke's
+    inputs, the whole batch launched and batch row 0 (whose dropout
+    offsets are those of B=1) held to attention_bwd_plain at B=1, where
+    its [H, S, S] scores fit: dq at GRAD_TOL of the largest plain
+    gradient, di against di_plain."""
+    b, sq, sk, h, d = chip_smoke.site_shape(site)
+    assert dq_variant(sq, sk, torch.bfloat16, d) == "wg"
+    q, k, v, valid = chip_smoke.site_inputs(gen, site, torch.bfloat16)
+    seed = 0x10_0000_0002 if rate else None
+    out, lse = flash_attention(q, k, v, valid, return_lse=True,
+                               dropout_rate=rate, seed=seed)
+    do = torch.randn(out.shape, device="cuda", generator=gen).to(q.dtype)
+    args = (q, k, v, valid, out, lse, do, rate, seed)
+    di = torch.empty_like(lse)
+    dq = _launch_dq("wg", *args, di_out=di)
+    row0 = tuple(x[:1] if torch.is_tensor(x) else x for x in args)
+    wants = attention_bwd_plain(*row0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(di[:1], di_plain(out[:1], do[:1]), atol=1e-5,
+                               rtol=1e-5)
+    scale = max(w.float().abs().max().item() for w in wants)
+    rel_close(dq[:1], wants[0], GRAD_TOL[torch.bfloat16], floor=scale)
+
+
+@pytest.mark.parametrize("variant", ["tc", "wg", "tf32x3"])
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+@pytest.mark.parametrize("shape", chip_smoke.KEEP_SHAPES)
+def test_keep_bits_masks_are_exact_at_every_row_phase(gen, shape, kernel,
+                                                      variant):
+    """Every kernel that draws its dropout by flash_tc::keep_bits (K1 and
+    K2, "tc", "wg" and "tf32x3"), launched directly at key counts that are
+    not a multiple of 4 (22, 90, 490, 2090: row phases 0 and 2; 17, 131,
+    385: every phase): its kept set, read off K1's output or K2's dq,
+    equals the plain Philox mask on every live key
+    (chip_smoke.check_mask_exact, check_dq_mask_exact, as phase 3e)."""
+    dt = torch.float32 if variant == "tf32x3" else torch.bfloat16
+    if kernel == "K1":
+        n = chip_smoke.check_mask_exact(gen, shape, 0.1, 0x3E3E, dt,
+                                        variant=variant)
+    else:
+        n = chip_smoke.check_dq_mask_exact(shape, 0.1, 0x3E3E, dt,
+                                           variant=variant)
+    assert n > 0
+
+
+@pytest.mark.parametrize("variant", ["tc", "wg"])
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def test_keep_bits_masks_are_exact_past_2_to_the_32_off_a_multiple_of_4(
+        gen, kernel, variant):
+    """The last batch row of B=8 at 8539^2 (a key count off a multiple of
+    4, rows starting at every phase of a Philox counter), whose element
+    offsets run past 2^32: K1's and K2's kept sets in bf16 equal that
+    row's plain mask."""
+    shape = chip_smoke.KEEP_SHAPE_PAST_2_32
+    b, sq, sk, h, _ = shape
+    assert sk % 4 and (b - 1) * h * sq * sk < 2 ** 32 < b * h * sq * sk
+    if kernel == "K1":
+        n = chip_smoke.check_mask_exact(gen, shape, 0.1, 0x2_0000_3E3E,
+                                        torch.bfloat16, b - 1, variant)
+    else:
+        n = chip_smoke.check_dq_mask_exact(shape, 0.1, 0x2_0000_3E3E,
+                                           torch.bfloat16, b - 1, variant)
+    assert n > 0
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_function_gradients_through_the_dq_warpgroup_kernel(gen, rate):
+    """FlashAttentionFn where the rule sends K2 and K3 to their warpgroup
+    kernels: K2-wg hands K3-wg di, and the gradients match the plain
+    path's; the backward counts one K2-wg and one K3-wg launch."""
+    q, k, v, valid = inputs(gen, 2, 2048, 2048, 2, 32, torch.bfloat16)
+    assert dq_variant(2048, 2048, torch.bfloat16, 32) == "wg"
+    assert dkv_variant(2048, 2048, torch.bfloat16, 32) == "wg"
+    seed = 93 if rate else None
+    do = torch.randn(q.shape, device="cuda", generator=gen).to(q.dtype)
+    grads = {}
+    before = (flash_attn_bwd_dq.launches_wg, flash_attn_bwd_dkv.launches_wg)
+    for name, fn in (("kernel", FlashAttentionFn.apply),
+                     ("plain", lambda *a: attention_plain(
+                         *a[:4], dropout_rate=a[4], seed=a[5]))):
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        fn(*leaves, valid, rate, seed).backward(do)
+        grads[name] = [x.grad for x in leaves]
+    assert (flash_attn_bwd_dq.launches_wg - before[0],
+            flash_attn_bwd_dkv.launches_wg - before[1]) == (1, 1)
+    scale = max(w.float().abs().max().item() for w in grads["plain"])
+    for got, want in zip(grads["kernel"], grads["plain"]):
+        rel_close(got, want, GRAD_TOL[torch.bfloat16], floor=scale)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
+def test_warpgroup_kernels_launch_from_a_thread_without_cuda_calls(
+        gen, kernel):
+    """Each warpgroup kernel launched as the first CUDA call of a new
+    thread, as K2-wg is in autograd's device thread when it starts a
+    backward: its tensor maps are encoded (they need a current context,
+    which the launcher binds) and the result equals the main thread's
+    bits."""
+    import threading
+
+    q, k, v, valid = inputs(gen, 2, 256, 256, 2, 32, torch.bfloat16)
+    out, lse = _launch_fwd("tc", q, k, v, valid, 0.0, None)
+    do = torch.randn(out.shape, device="cuda", generator=gen).to(q.dtype)
+    args = (q, k, v, valid, out, lse, do, 0.0, None)
+    di = di_plain(out, do)
+    call = {"K1": lambda: _launch_fwd("wg", q, k, v, valid, 0.0, None)[0],
+            "K2": lambda: _launch_dq("wg", *args),
+            "K3": lambda: _launch_dkv("wg", *args, di)[0]}[kernel]
+    got = {}
+
+    def run():
+        try:
+            got["out"] = call()
+            torch.cuda.synchronize()
+        except Exception as err:  # reported below, in the test's thread
+            got["error"] = err
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join()
+    assert "error" not in got, got.get("error")
+    assert chip_smoke.same_bits(got["out"], call())

@@ -5,10 +5,10 @@ bound.
 
 The rule (kernels/attention.py: fwd_variant, dq_variant, dkv_variant) is
 written out here as a table, apart from the code: below 16 queries the
-decode kernels; bf16 K1 and K3 on their warpgroup kernels ("wg") at a head
-dim padding to 32 from WG_MIN's queries and keys (from 2040 keys only a
-multiple of 4), on the mma.sync tensor-core kernels ("tc") elsewhere;
-float32 on the 3xTF32 kernels. It is checked at every attention site of
+decode kernels; bf16 K1, K2 and K3 on their warpgroup kernels ("wg") at a
+head dim padding to 32 from WG_MIN's queries and keys (for K3 from 2040
+keys only a multiple of 4), on the mma.sync tensor-core kernels ("tc")
+elsewhere; float32 on the 3xTF32 kernels. It is checked at every attention site of
 refcoco_det (one to four feature levels), flickr (one and two) and the
 decoder, in both dtypes, at the shapes chip_smoke.py uses on the card
 (CALL_SITES, NEW_SITES). Nothing here needs a card.
@@ -41,9 +41,9 @@ def want_variant(kernel: str, sq: int, sk: int, dtype_name: str,
         return "simt"
     if dtype_name == "float32":
         return "tf32x3"
-    least = {"fwd": 2040, "dkv": 256}.get(kernel)
-    if (least and 16 < d <= 32 and sq >= least and sk >= least
-            and (sk < 2040 or sk % 4 == 0)):
+    least = {"fwd": 2040, "dq": 490, "dkv": 256}[kernel]
+    aligned = kernel != "dkv" or sk < 2040 or sk % 4 == 0
+    if 16 < d <= 32 and sq >= least and sk >= least and aligned:
         return "wg"
     return "tc"
 
@@ -56,35 +56,39 @@ def test_rule_at_every_model_site(site, dtype_name):
     dt = DTYPES[dtype_name]
     assert attn.fwd_variant(sq, sk, dt, d) == want_variant(
         "fwd", sq, sk, dtype_name, d)
-    assert attn.dq_variant(sq, dt, d) == want_variant(
+    assert attn.dq_variant(sq, sk, dt, d) == want_variant(
         "dq", sq, sk, dtype_name, d)
     assert attn.dkv_variant(sq, sk, dt, d) == want_variant(
         "dkv", sq, sk, dtype_name, d)
 
 
 def test_warpgroup_kernels_take_the_sites_they_measured_faster_at():
-    """The sites the rule gives "wg" in bf16: K1 refcoco_det's encoder at
-    two to four levels (2040, 8440, 8540 tokens), K3 those and the
-    encoders at one level, refcoco_det's and flickr's; flickr's encoder at
-    two levels (2090 tokens, not a multiple of 4) and the short sites
-    (BERT, the decoder at 16 queries) keep "tc", and float32 never takes
-    "wg"."""
+    """The sites the rule gives "wg" in bf16: K1 the encoders at two to
+    four levels (refcoco_det's 2040, 8440, 8540 tokens, flickr's 2090), K2
+    those and flickr's encoder at one level (490), K3 refcoco_det's at two
+    to four levels and both encoders at one level (440, 490), not
+    flickr's at two levels (2090 tokens, not a multiple of 4: K3 draws
+    Philox per element there); the short sites (BERT, the decoder at 16
+    queries) keep "tc", and float32 never takes "wg"."""
     bf16 = torch.bfloat16
-    wg = {(kernel, site) for site in SITES for kernel in ("fwd", "dkv")
-          if (attn.fwd_variant if kernel == "fwd" else attn.dkv_variant)(
-              *chip_smoke.site_shape(site)[1:3], bf16,
-              chip_smoke.site_shape(site)[4]) == "wg"}
+    rules = {"fwd": attn.fwd_variant, "dkv": attn.dkv_variant,
+             "dq": attn.dq_variant}
+    wg = {(kernel, site) for site in SITES for kernel, rule in rules.items()
+          if rule(*chip_smoke.site_shape(site)[1:3], bf16,
+                  chip_smoke.site_shape(site)[4]) == "wg"}
     levels = ("vl_encoder_4_levels", "vl_encoder_4_levels_b8",
               "vl_encoder_4_levels_b8_padded", "vl_encoder_3_levels_b8",
               "vl_encoder_2_levels_b8")
-    assert wg == ({(kernel, site) for kernel in ("fwd", "dkv")
-                   for site in levels}
-                  | {("dkv", "vl_encoder_self"),
-                     ("dkv", "multi_vl_encoder_self")})
+    assert wg == ({(kernel, site) for kernel in rules
+                   for site in levels + ("multi_vl_encoder_2_levels",)}
+                  | {("dq", "multi_vl_encoder_self"),
+                     ("dkv", "multi_vl_encoder_self"),
+                     ("dkv", "vl_encoder_self")}) - {
+                         ("dkv", "multi_vl_encoder_2_levels")}
     for site in SITES:
         _, sq, sk, _, d = chip_smoke.site_shape(site)
-        assert "wg" not in (attn.fwd_variant(sq, sk, torch.float32, d),
-                            attn.dkv_variant(sq, sk, torch.float32, d))
+        assert "wg" not in (rule(sq, sk, torch.float32, d)
+                            for rule in rules.values())
 
 
 def test_every_source_is_built_by_the_smoke():
@@ -99,7 +103,8 @@ def test_every_source_is_built_by_the_smoke():
 
 
 @pytest.mark.parametrize("name",
-                         ["flash_attn_fwd_wg", "flash_attn_bwd_dkv_wg"])
+                         ["flash_attn_fwd_wg", "flash_attn_bwd_dq_wg",
+                          "flash_attn_bwd_dkv_wg"])
 def test_warpgroup_sources_use_wgmma_tma_and_mbarriers(name):
     """The warpgroup kernels' sources (with their header) issue wgmma,
     TMA tile loads and mbarrier waits, and include no library kernel."""
@@ -140,15 +145,15 @@ def test_smoke_launch_expectations_follow_the_rule(sites, per_step,
 
 
 def test_four_level_bf16_step_runs_k1_and_k3_on_the_warpgroup_kernels():
-    """At four feature levels a bf16 step launches 6 encoder calls of K1
-    and of K3 on "wg", K2 on "tc", BERT's on "tc", the decoder's on the
-    decode kernels."""
+    """At four feature levels a bf16 step launches 6 encoder calls of K1,
+    of K2 and of K3 on "wg", BERT's on "tc", the decoder's on the decode
+    kernels."""
     want = chip_smoke.expected_launches(1, "bfloat16", True,
                                         chip_smoke.LEVELS_SITES)
     assert (want["flash_attention_wg"], want["flash_attention_tc"],
             want["flash_attention_dec"]) == (6, 12, 12)
-    assert (want["flash_attn_bwd_dq_tc"], want["flash_attn_bwd_dq_wg"]) == (
-        18, 0)
+    assert (want["flash_attn_bwd_dq_wg"], want["flash_attn_bwd_dq_tc"],
+            want["flash_attn_bwd_dq_dec"]) == (6, 12, 12)
     assert (want["flash_attn_bwd_dkv_wg"], want["flash_attn_bwd_dkv_tc"],
             want["flash_attn_bwd_dkv_dec"]) == (6, 12, 12)
 
