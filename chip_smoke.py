@@ -259,7 +259,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    (q = 0) there, the bf16 kernels' sums there (K1's sum alone, K2's dq
    sum and K3's dV sum, "tc" and "wg" beside the plain bf16 version), and
    phrase BERT's bf16 outputs against float64.
-9. Print one JSON line listing each kernel (each variant on a row of its
+9. Data-parallel training (DDP), each part in processes that
+   ``python -m reftr_torch.tools.launch`` starts, which run this script
+   with a child's name (``CHILDREN``): a) refcoco_det at full width in
+   bf16 (dropout 0.1) through ``reftr_torch.cli.main`` under the launcher,
+   one rank on cuda:0 over NCCL (a group of one): 8 steps and one eval of
+   8 batches; the rank reports torch.distributed's backend and world
+   size, every logged loss finite, the launches of each kernel (counts
+   set to 0 just before and read just after the run, in the rank) as
+   phase 5's rule counts them, 30 a step and 30 of K1 an eval batch, and
+   log.txt and the checkpoint written once (the checkpoint is deleted).
+   b) Two gloo ranks on the one card (NCCL refuses two ranks on one
+   device; each starts its group itself, which ``initialize`` leaves
+   alone), float32: at dropout 0 one DDP step of the ranks on the two
+   halves of phase 5's batch against one process on the whole batch (the
+   loss, the mean of the ranks', and the gradient norm within 1e-5
+   relative, every gradient within 1e-3 relative L2, phase 5's rule; the
+   updated parameters as tests/test_torch_train.py holds them: 1e-6
+   absolute where the clipped gradient is above 100 Adam eps, elsewhere
+   2 lr, since Adam's first update follows the sign of a gradient at
+   rounding level); at dropout 0.1 both ranks on the same
+   half: every K1 output over more than one key differs between the
+   ranks, and rank 0's equal bit for bit those of one process drawing
+   from the same generator state. c) Report only: one NCCL rank times
+   phase 5's bf16 step without DDP and under DDP in turns (host ms with
+   the metrics read back each step), profiles each once (device ms, the
+   NCCL all-reduce's device ms) and reads the peak memory.
+10. Print one JSON line listing each kernel (each variant on a row of its
    own; the decode backward on one row for K2 and K3) with its launches
    on the main paths (phase 8's runs included, also on their own), its
    error, and its times and bound at the call site
@@ -267,7 +293,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    decode and SIMT kernels, the VL encoder for the tensor-core kernels, in
    float32 for the 3xTF32 ones, the four-level encoder at B=8 for the
    warpgroup kernels, from phase 3d) on this card.
-10. Print {"ok": true, "device": {...}} as the last line.
+11. Print {"ok": true, "device": {...}} as the last line.
 
 It needs a CUDA card and the reftr_torch package beside it; without
 either it fails before it prints any result.
@@ -1730,6 +1756,8 @@ def ms_list(values) -> str:
 
 def kernel_category(name: str) -> str:
     low = name.lower()
+    if "nccl" in low:
+        return "nccl"
     if "flash_fwd_tc_kernel" in name:
         return "flash_attn_fwd_tc"
     if "flash_fwd_wg_kernel" in name:
@@ -3652,6 +3680,500 @@ def phase8(report: dict, counters) -> dict:
     return report
 
 
+# phase 9: data-parallel training (DDP) of refcoco_det at full width.
+# 9a: the entry point under the launcher, one NCCL rank, bf16 (the CLI's
+# default), 8 steps and one eval of the 64-item val split
+DDP_OUT = ROOT / "chiprun_out" / "ddp"
+DDP_STEPS = 8
+DDP_EVAL_BATCHES = 8
+DDP_TRAIN = ["--preset", "refcoco_det", "--dataset", "synthetic",
+             "--test_split", "val", "--synthetic_n", "64", "--batch_size",
+             "8", "--num_workers", "4", "--epochs", "1", "--output_dir",
+             str(DDP_OUT / "cli")]
+# 9b: two gloo ranks on the one card, float32, phase 5's batch of 8 halved
+DDP_WORLD = 2
+# 9c: turns of the bf16 step without and with DDP, steps a turn
+DDP_TURNS = 3
+DDP_TURN_STEPS = 4
+DDP_TIMEOUT = 600  # s, each launch
+ADAM_EPS = 1e-8
+UPDATE_TOL = 1e-6  # 9b: an update where the gradient is above 100 eps
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch_child(kind: str, nproc: int, args: list, log: Path) -> int:
+    """``python chip_smoke.py KIND ARGS`` in ``nproc`` ranks through
+    ``python -m reftr_torch.tools.launch``, in a session of its own, so
+    that a launch cut at DDP_TIMEOUT is stopped with every rank; its
+    output goes to ``log``. Returns the launcher's exit code."""
+    import os
+    import signal
+
+    cmd = [sys.executable, "-m", "reftr_torch.tools.launch",
+           "--nproc_per_node", str(nproc), "--coordinator_port",
+           str(free_port()), "--", sys.executable,
+           str(ROOT / "chip_smoke.py"), kind] + [str(a) for a in args]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    log.parent.mkdir(parents=True, exist_ok=True)
+    with open(log, "w") as out:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            return proc.wait(timeout=DDP_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            raise AssertionError(f"phase 9 {kind}: no end in "
+                                 f"{DDP_TIMEOUT} s; {log}")
+
+
+def child_cli(out_json: str, *argv) -> int:
+    """9a's rank: reftr_torch.cli.main.main(argv) with the launch counts
+    set to 0 just before and read just after, written to ``out_json``
+    with the group's backend and world size."""
+    import torch
+
+    from reftr_torch.cli.main import main as cli_main
+    from reftr_torch.kernels.attention import (flash_attention,
+                                               flash_attn_bwd_dkv,
+                                               flash_attn_bwd_dq)
+
+    counters = [flash_attention, flash_attn_bwd_dq, flash_attn_bwd_dkv]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reset_counts(counters)
+    rc = cli_main(list(argv))
+    torch.cuda.synchronize()
+    dist = torch.distributed
+    Path(out_json).write_text(json.dumps({
+        "rc": rc, "launches": read_counts(counters),
+        "backend": dist.get_backend() if dist.is_initialized() else None,
+        "world": dist.get_world_size() if dist.is_initialized() else None,
+        "device": torch.cuda.current_device(),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}))
+    return rc
+
+
+def ddp_cli(report: dict) -> dict:
+    """9a: refcoco_det at full width (bf16, dropout 0.1) under DDP over
+    NCCL through the launcher, one rank: 8 steps and one eval."""
+    import shutil
+
+    shutil.rmtree(DDP_OUT / "cli", ignore_errors=True)
+    child_json = DDP_OUT / "cli_child.json"
+    log = DDP_OUT / "cli.log"
+    t0 = time.perf_counter()
+    rc = launch_child("child-cli", 1, [child_json, *DDP_TRAIN], log)
+    seconds = time.perf_counter() - t0
+    out = log.read_text()
+    if rc != 0:
+        raise AssertionError(f"phase 9a: exit code {rc}: {out[-3000:]}")
+    child = json.loads(child_json.read_text())
+    line = "torch.distributed: backend nccl, world size 1, rank 0 on cuda:0"
+    if line not in out or (child["backend"], child["world"]) != ("nccl", 1):
+        raise AssertionError(f"phase 9a: no NCCL group of one: {child}")
+    with open(DDP_OUT / "cli" / "log.txt") as f:
+        log_lines = [json.loads(x) for x in f]
+    saves = re.findall(r"^checkpoint checkpoint: (\d+) bytes", out, re.M)
+    if len(log_lines) != 1 or len(saves) != 1 or not (
+            DDP_OUT / "cli" / "checkpoint").is_file():
+        raise AssertionError(f"phase 9a: {len(log_lines)} log lines, "
+                             f"{len(saves)} checkpoint saves")
+    bad = {k: v for k, v in log_lines[0].items()
+           if k.startswith(("train_loss", "test_val_loss"))
+           and not math.isfinite(v)}
+    step_losses = _floats(r"^Epoch: \[0\] \[\d+/\d+\].*?  loss: ([\d.eE+-]+|"
+                          r"nan|inf)", out)
+    if bad or not all(math.isfinite(v) for v in step_losses):
+        raise AssertionError(f"phase 9a: losses not finite: {bad} "
+                             f"{step_losses}")
+    train = expected_launches(DDP_STEPS, "bfloat16", True)
+    evals = expected_launches(DDP_EVAL_BATCHES, "bfloat16", False)
+    want = {k: train[k] + evals[k] for k in train}
+    if child["launches"] != want:
+        raise AssertionError(f"phase 9a: launches {child['launches']}, "
+                             f"not {want}")
+    run = cli_report({"out": out, "seconds": seconds,
+                      "peak_memory_gb": child["peak_memory_gb"]})
+    keys = ("train_loss", "train_grad_norm", "test_val_loss",
+            "test_val_accuracy_iou0.5", "test_val_miou", "epoch_time")
+    logged = [{k: e[k] for k in keys} for e in log_lines]
+    print(f"ddp 9a ({report['card']}): NCCL, world 1, cuda:"
+          f"{child['device']}; log {logged}; launches "
+          f"{child['launches']}; s per train step "
+          f"{run['train_s_per_step']}, time:/data: {run['train']}; s per "
+          f"eval batch {run['eval_s_per_batch']}; checkpoints "
+          f"{run['checkpoints']}; {seconds:.1f} s in all (the launch "
+          f"included); peak device memory {child['peak_memory_gb']:.2f} GB",
+          flush=True)
+    shutil.rmtree(DDP_OUT / "cli")  # the checkpoint: GBs
+    report["ddp_cli"] = {"argv": DDP_TRAIN, "log": log_lines,
+                         "launches": child["launches"], "run": run}
+    return report
+
+
+def ddp_model(cfg, seed_bbox: bool = True):
+    """refcoco_det's model on the card from seed 0, with the last layer of
+    bbox_embed drawn as in compare_train_paths (zero at init, it would
+    hold every other gradient at zero on a first step)."""
+    import torch
+
+    from reftr_torch.core.config import TrainConfig
+    from reftr_torch.train.state import TrainState
+
+    state = TrainState.create(cfg.model, TrainConfig(epochs=1), 1, seed=0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    with torch.no_grad():
+        torch.nn.init.xavier_uniform_(
+            state.model.bbox_embed.layers[-1].weight, generator=gen)
+    return state
+
+
+def k1_digests(run) -> list:
+    """``run()`` with every K1 output of the attention modules recorded:
+    (Sk, sha256 of its bytes) per call, in order."""
+    import hashlib
+
+    from reftr_torch.nn import attention as nn_attention
+
+    calls, flash = [], nn_attention.flash_attention
+
+    def recorded(q, k, v, *args, **kwargs):
+        out = flash(q, k, v, *args, **kwargs)
+        calls.append((k.shape[1], hashlib.sha256(
+            out.detach().float().cpu().numpy().tobytes()).hexdigest()))
+        return out
+
+    nn_attention.flash_attention = recorded
+    try:
+        run()
+    finally:
+        nn_attention.flash_attention = flash
+    return calls
+
+
+def one_step(cfg, batch, targets, record: bool = False) -> dict:
+    """One float32 train step of ``ddp_model`` (DDP's under a process
+    group): metrics, the clipped gradients, the update, K1's digests."""
+    from reftr_torch.core.config import LossConfig
+    from reftr_torch.models.criterion import weight_dict
+    from reftr_torch.train.steps import make_train_step
+
+    state = ddp_model(cfg)
+    model = state.model
+    before = {n: p.detach().clone() for n, p in model.named_parameters()
+              if p.requires_grad}
+    step = make_train_step(model, weight_dict(
+        LossConfig(), cfg.model.dec_layers, cfg.model.aux_loss),
+        LossConfig())
+    got = {}
+
+    def run():
+        got["metrics"] = step(state, batch, targets)[1].get()
+
+    got["k1"] = k1_digests(run) if record else run()
+    got["grads"] = {n: p.grad.clone() for n, p in model.named_parameters()
+                    if p.requires_grad}
+    got["update"] = {n: p.detach() - before[n]
+                     for n, p in model.named_parameters() if p.requires_grad}
+    return got
+
+
+def child_pair(out_json: str) -> int:
+    """9b's rank: gloo started here on cuda:0 (NCCL refuses two ranks on
+    one card), then ``initialize`` leaves it alone. At dropout 0 one DDP
+    step on this rank's half of phase 5's batch; at dropout 0.1 one on the
+    first half, on both ranks. Rank 0 then leaves the group and checks
+    the two ranks against one process: the whole batch at dropout 0, its
+    own half at 0.1 from the same generator state."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from reftr_torch.cli.presets import preset_config
+    from reftr_torch.core import distributed
+    from reftr_torch.core.config import TrainConfig
+
+    rank = int(os.environ["RANK"])
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{os.environ['MASTER_PORT']}",
+        rank=rank, world_size=DDP_WORLD)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    assert distributed.initialize(torch.device("cuda", 0))
+    assert dist.get_backend() == "gloo"
+    cfg = {rate: preset_config("refcoco_det", dtype="float32", dropout=rate)
+           for rate in (0.0, DROPOUT)}
+    for rate, c in cfg.items():
+        c.model.bert.hidden_dropout = c.model.bert.attention_dropout = rate
+    mc = cfg[0.0].model
+    batch, targets = train_batch(np.random.default_rng(2),
+                                 cfg[0.0].data.img_size,
+                                 cfg[0.0].data.max_query_len,
+                                 mc.bert.vocab_size, SERVE_BATCH)
+    half = SERVE_BATCH // DDP_WORLD
+
+    def rows(tree, r):
+        return {k: v[r * half:(r + 1) * half] for k, v in tree.items()}
+
+    t0 = time.perf_counter()
+    ddp = one_step(cfg[0.0], rows(batch, rank), rows(targets, rank))
+    ddp_s = time.perf_counter() - t0
+    masked = one_step(cfg[DROPOUT], rows(batch, 0), rows(targets, 0),
+                      record=True)
+    losses = [None] * DDP_WORLD
+    dist.all_gather_object(losses, ddp["metrics"])
+    digests = [None] * DDP_WORLD
+    dist.all_gather_object(digests, masked["k1"])
+    dist.destroy_process_group()
+    if rank != 0:
+        return 0
+    assert not distributed.is_initialized()
+    one = one_step(cfg[0.0], batch, targets)
+    alone = one_step(cfg[DROPOUT], rows(batch, 0), rows(targets, 0),
+                     record=True)
+    want = one["metrics"]
+    loss = sum(m["loss"] for m in losses) / DDP_WORLD
+    loss_err = abs(loss - want["loss"]) / abs(want["loss"])
+    norm_err = abs(ddp["metrics"]["grad_norm"] - want["grad_norm"]) / abs(
+        want["grad_norm"])
+    gnorm = math.sqrt(sum(float(g.square().sum())
+                          for g in one["grads"].values()))
+    grad_err, grad_name = grad_gap(ddp["grads"], one["grads"], gnorm)
+    # Adam's first update is lr * g / (|g| + eps): about lr times the
+    # gradient's sign, which rounding picks where a gradient is at
+    # rounding level (the decoder's one-key self-attention's k_proj is
+    # zero in exact arithmetic). So, as tests/test_torch_train.py holds an
+    # update: 1e-6 absolute where the clipped gradient is above 100 Adam
+    # eps, elsewhere Adam's bound of a step, 2 lr
+    live = sum(float(g.norm()) > 1e-4 * gnorm for g in one["grads"].values())
+    lr = TrainConfig().lr
+    upd_big, upd_all, upd_name = 0.0, 0.0, ""
+    for n, g in one["grads"].items():
+        diff = (ddp["update"][n] - one["update"][n]).abs()
+        big = g.abs() > 100 * ADAM_EPS
+        err = float(diff[big].max()) if big.any() else 0.0
+        if err > upd_big:
+            upd_big, upd_name = err, n
+        upd_all = max(upd_all, float(diff.max()))
+    k1 = digests
+    differ = [a != b for a, b in zip(k1[0], k1[1])]
+    must_differ = [sk > 1 for sk, _ in k1[0]]
+    result = {
+        "loss_ranks": [m["loss"] for m in losses], "loss_mean": loss,
+        "loss_one": want["loss"], "loss_rel_err": loss_err,
+        "grad_norm_ddp": ddp["metrics"]["grad_norm"],
+        "grad_norm_one": want["grad_norm"], "grad_norm_rel_err": norm_err,
+        "worst_grad_rel_l2": grad_err, "worst_grad_name": grad_name,
+        "update_max_abs_err": upd_big, "update_worst_name": upd_name,
+        "update_max_abs_err_all": upd_all, "lr": lr,
+        "n_trainable": len(one["grads"]), "n_above_floor": live,
+        "k1_calls": len(k1[0]), "k1_differ": sum(differ),
+        "k1_rank0_equals_one_process": k1[0] == alone["k1"],
+        "ddp_step_s_first": ddp_s}
+    result["ok"] = bool(
+        loss_err <= TRAIN_LOSS_TOL and norm_err <= TRAIN_LOSS_TOL
+        and grad_err <= TRAIN_GRAD_TOL and upd_big <= UPDATE_TOL
+        and upd_all <= 2 * lr and live >= len(one["grads"]) // 2
+        and len(k1[0]) == len(k1[1])
+        == ATTN_PER_FORWARD and all(d for d, m in zip(differ, must_differ)
+                                    if m)
+        and result["k1_rank0_equals_one_process"])
+    Path(out_json).write_text(json.dumps(result))
+    return 0
+
+
+def ddp_pair(report: dict) -> dict:
+    """9b: two gloo ranks on the one card against one process."""
+    out = DDP_OUT / "pair.json"
+    out.unlink(missing_ok=True)
+    log = DDP_OUT / "pair.log"
+    rc = launch_child("child-pair", DDP_WORLD, [out], log)
+    if rc != 0:
+        raise AssertionError(f"phase 9b: exit code {rc}: "
+                             f"{log.read_text()[-3000:]}")
+    got = json.loads(out.read_text())
+    print(f"ddp 9b ({report['card']}): 2 gloo ranks on cuda:0, float32, "
+          f"batch {SERVE_BATCH // DDP_WORLD} a rank against one process on "
+          f"{SERVE_BATCH}: loss {got['loss_mean']:.7f} (ranks "
+          f"{got['loss_ranks']}) vs {got['loss_one']:.7f}, rel "
+          f"{got['loss_rel_err']:.3g} (tol {TRAIN_LOSS_TOL}); grad norm "
+          f"{got['grad_norm_ddp']:.6g} vs {got['grad_norm_one']:.6g}, rel "
+          f"{got['grad_norm_rel_err']:.3g} (tol {TRAIN_LOSS_TOL}); worst "
+          f"gradient rel L2 {got['worst_grad_rel_l2']:.3g} at "
+          f"{got['worst_grad_name']} (tol {TRAIN_GRAD_TOL}; "
+          f"{got['n_above_floor']} of {got['n_trainable']} gradients above "
+          f"the floor); update max abs {got['update_max_abs_err']:.3g} at "
+          f"{got['update_worst_name']} where the gradient is above 100 "
+          f"eps (tol {UPDATE_TOL}), {got['update_max_abs_err_all']:.3g} "
+          f"over all (tol 2 lr = {2 * got['lr']:.3g}); dropout "
+          f"{DROPOUT} on one half-batch: {got['k1_differ']} of "
+          f"{got['k1_calls']} K1 outputs differ between the ranks, rank 0's "
+          f"equal one process's bit for bit: "
+          f"{got['k1_rank0_equals_one_process']}", flush=True)
+    if not got["ok"]:
+        raise AssertionError(f"phase 9b: {got}")
+    report["ddp_pair"] = got
+    return report
+
+
+def child_times(out_json: str) -> int:
+    """9c (report only): in one NCCL rank, phase 5's bf16 step without
+    DDP (made before the group exists) and under DDP, in turns: host ms a
+    step (the metrics read back), one profile of each (device ms, NCCL's
+    all-reduce), peak memory."""
+    import torch
+
+    from reftr_torch.cli.presets import preset_config
+    from reftr_torch.core import distributed
+    from reftr_torch.core.config import LossConfig, TrainConfig
+    from reftr_torch.models.criterion import weight_dict
+    from reftr_torch.train.loop import train_device
+    from reftr_torch.train.state import TrainState
+    from reftr_torch.train.steps import make_train_step
+
+    dev = train_device("cuda")
+    cfg = preset_config("refcoco_det", dtype="bfloat16")
+    mc = cfg.model
+    batch, targets = train_batch(np.random.default_rng(2), cfg.data.img_size,
+                                 cfg.data.max_query_len, mc.bert.vocab_size,
+                                 SERVE_BATCH)
+    wd = weight_dict(LossConfig(), mc.dec_layers, mc.aux_loss)
+    paths = {}
+    for name in ("plain", "ddp"):
+        if name == "ddp":
+            assert distributed.initialize(dev)
+            assert torch.distributed.get_backend() == "nccl"
+        state = TrainState.create(mc, TrainConfig(epochs=1), 100, seed=0)
+        paths[name] = (state, make_train_step(state.model, wd, LossConfig()))
+    torch.cuda.synchronize()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+
+    def one(name):
+        state, step = paths[name]
+        step(state, batch, targets)[1].get()
+
+    for name in paths:
+        for _ in range(WARM_STEPS):
+            one(name)
+    host = {name: [] for name in paths}
+    peak = {name: 0.0 for name in paths}
+    for _ in range(DDP_TURNS):
+        for name in paths:
+            for other, (state, _) in paths.items():
+                if other != name:  # its gradients out of this turn's peak
+                    state.model.zero_grad(set_to_none=True)
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(DDP_TURN_STEPS):
+                t0 = time.perf_counter()
+                one(name)
+                host[name].append((time.perf_counter() - t0) * 1e3)
+            peak[name] = max(peak[name],
+                             torch.cuda.max_memory_allocated() / 1e9)
+    result = {"resident_gb_both_states": resident_gb, "host_ms": host,
+              "median_host_ms": {n: statistics.median(v)
+                                 for n, v in host.items()},
+              "peak_memory_gb": peak, "profile": {}}
+    for name in paths:
+        prof = profile_device(lambda: one(name), f"9c bf16 step, {name}",
+                              result["median_host_ms"][name], iters=3)
+        result["profile"][name] = prof
+    result["ddp_comm"] = ddp_comm_profile(lambda: one("ddp"), 3)
+    Path(out_json).write_text(json.dumps(result))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def ddp_comm_profile(run, iters: int) -> dict:
+    """What DDP's communication costs a step, from one profile: the NCCL
+    kernels' device ms and count (an all-reduce over one rank may launch
+    none), the ``nccl:*`` host ops (count and host ms) and the
+    device-to-device copies (count and device ms), a call each."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+    out = {"nccl_kernels": 0, "nccl_device_ms": 0.0, "dtod_copies": 0,
+           "dtod_device_ms": 0.0}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA or ev.device_time_total <= 0:
+            continue
+        if "nccl" in ev.name.lower():
+            out["nccl_kernels"] += 1
+            out["nccl_device_ms"] += ev.device_time_total / 1e3
+        elif "Memcpy DtoD" in ev.name:
+            out["dtod_copies"] += 1
+            out["dtod_device_ms"] += ev.device_time_total / 1e3
+    out = {k: v / iters for k, v in out.items()}
+    out["nccl_host_ops"] = {
+        e.key: {"calls": e.count / iters,
+                "host_ms": e.cpu_time_total / 1e3 / iters}
+        for e in prof.key_averages() if e.key.startswith("nccl:")}
+    return out
+
+
+def ddp_times(report: dict) -> dict:
+    """9c (report only): the bf16 step under DDP at world size 1 (NCCL)
+    against the step without DDP."""
+    out = DDP_OUT / "times.json"
+    log = DDP_OUT / "times.log"
+    rc = launch_child("child-times", 1, [out], log)
+    if rc != 0:
+        raise AssertionError(f"phase 9c: exit code {rc}: "
+                             f"{log.read_text()[-3000:]}")
+    got = json.loads(out.read_text())
+    prof = got["profile"]
+    dev_ms = {n: p.get("device_ms") for n, p in prof.items()}
+    comm = got["ddp_comm"]
+    print(f"ddp 9c ({report['card']}): bf16 batch {SERVE_BATCH} step, host "
+          f"ms median (turns of {DDP_TURN_STEPS} steps, metrics read back "
+          f"each step): without DDP "
+          f"{got['median_host_ms']['plain']:.2f}, DDP over NCCL at world 1 "
+          f"{got['median_host_ms']['ddp']:.2f}; device ms {dev_ms}; a DDP "
+          f"step's NCCL kernels {comm['nccl_kernels']:.0f}, "
+          f"{comm['nccl_device_ms']:.4f} ms device, its nccl host ops "
+          f"{comm['nccl_host_ops']}, device-to-device copies "
+          f"{comm['dtod_copies']:.0f}, {comm['dtod_device_ms']:.4f} ms; "
+          f"peak memory GB {got['peak_memory_gb']} (both states resident: "
+          f"{got['resident_gb_both_states']:.2f}; the other path's "
+          f"gradients freed before each turn)", flush=True)
+    report["ddp_times"] = got
+    return report
+
+
+def phase9(report: dict) -> dict:
+    """Phase 9: data-parallel training (DDP)."""
+    import torch
+
+    torch.cuda.empty_cache()
+    ddp_cli(report)
+    ddp_pair(report)
+    ddp_times(report)
+    return report
+
+
+CHILDREN = {"child-cli": child_cli, "child-pair": child_pair,
+            "child-times": child_times}
+
+
 def kernel_line(report: dict) -> list:
     """Every variant of each kernel at the call site and dtype where the
     main path launches it (MAIN_SITE, MAIN_DTYPE; bfloat16 but for the
@@ -3666,9 +4188,10 @@ def kernel_line(report: dict) -> list:
     float32 steps), the trainer's entry point (phase 6's three runs), RES
     (phase 7's fine-tune, eval-only pass, freeze_reftr steps and
     serving) and phase 8's runs of the entry point (multi-phrase and its
-    eval-only pass, four feature levels, RoBERTa), split in
-    ``launches_serve``, ``launches_train``, ``launches_cli``,
-    ``launches_res`` and ``launches_multi``.
+    eval-only pass, four feature levels, RoBERTa) and phase 9a's DDP run
+    of the entry point, split in ``launches_serve``, ``launches_train``,
+    ``launches_cli``, ``launches_res``, ``launches_multi`` and
+    ``launches_ddp``.
     The decode backward has one row for K2 and K3, whose launches it is
     counted in. Every site's numbers are in the JSON report written before
     it."""
@@ -3687,6 +4210,7 @@ def kernel_line(report: dict) -> list:
                 *(v["launches"] for v in res["serve"].values())]
     res_n = {k: sum(n[k] for n in res_runs) for k in train_n}
     multi_n = phase8_launches(report)
+    ddp_n = report["ddp_cli"]["launches"]
     shorts = {"flash_attn_fwd": "fwd", "flash_attn_bwd_dq": "dq",
               "flash_attn_bwd_dkv": "dkv"}
     grads_of = {"fwd": ("fwd",), "dq": ("dq",), "dkv": ("dk", "dv")}
@@ -3743,13 +4267,14 @@ def kernel_line(report: dict) -> list:
                  "replaces": replaces,
                  "launches": (count(train_n) + count(serve_n)
                               + count(cli_n) + count(res_n)
-                              + count(multi_n)),
+                              + count(multi_n) + count(ddp_n)),
                  "launches_train": count(train_n),
                  "launches_train_f32": count(report["train_f32"]["launches"]),
                  "launches_serve": count(serve_n),
                  "launches_cli": count(cli_n),
                  "launches_res": count(res_n),
                  "launches_multi": count(multi_n),
+                 "launches_ddp": count(ddp_n),
                  "max_abs_err": max(e for e, _ in errs), "site": site}
         if short == "fwd":
             sv = next(r for r in sites
@@ -3843,15 +4368,17 @@ def wg_entry(report: dict, name: str, source: str, replaces: str,
     def count(n):
         return n[f"{wrapper}_wg"]
 
+    ddp_n = report["ddp_cli"]["launches"]
     return {
         "name": name, "route": "cuda", "variant": "wg",
         "source": f"reftr_torch/kernels/csrc/{source}", "replaces": replaces,
         "launches": (count(train_n) + count(serve_n) + count(cli_n)
-                     + count(res_n) + count(multi_n)),
+                     + count(res_n) + count(multi_n) + count(ddp_n)),
         "launches_train": count(train_n),
         "launches_train_f32": count(report["train_f32"]["launches"]),
         "launches_serve": count(serve_n), "launches_cli": count(cli_n),
         "launches_res": count(res_n), "launches_multi": count(multi_n),
+        "launches_ddp": count(ddp_n),
         "max_abs_err": max(e for e, _ in errs),
         "max_rel_err": max(e / s for e, s in errs),
         "site": MAIN_SITE["wg"],
@@ -3896,18 +4423,20 @@ def bwd_dec_entry(report: dict, name: str, source: str, replaces: str,
                     and r["dtype"] == "bfloat16" and r["dropout"] == rate)
                for rate in (DROPOUT, 0.0))
     key = "flash_attn_bwd_dq_dec"
+    ddp_n = report["ddp_cli"]["launches"]
     return {
         "name": name, "route": "cuda", "variant": "dec",
         "source": f"reftr_torch/kernels/csrc/{source}",
         "replaces": replaces, "also_replaces": BWD_DEC_ALSO,
         "launches": (train_n[key] + serve_n[key] + cli_n[key] + res_n[key]
-                     + multi_n[key]),
+                     + multi_n[key] + ddp_n[key]),
         "launches_train": train_n[key],
         "launches_train_f32": report["train_f32"]["launches"][key],
         "launches_serve": serve_n[key],
         "launches_cli": cli_n[key],
         "launches_res": res_n[key],
         "launches_multi": multi_n[key],
+        "launches_ddp": ddp_n[key],
         "max_abs_err": max(e for e, _ in errs),
         "max_rel_err": max(e / s for e, s in errs),
         "site": "decoder_cross",
@@ -4002,6 +4531,7 @@ def main() -> int:
     train_res(report, counters)
     torch.cuda.empty_cache()
     phase8(report, counters)
+    phase9(report)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -4014,4 +4544,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1:  # a rank of phase 9, under the launcher
+        sys.exit(CHILDREN[sys.argv[1]](*sys.argv[2:]))
     sys.exit(main())

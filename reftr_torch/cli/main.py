@@ -9,6 +9,15 @@ main_vg.py:26-164), plus ``--device``, "cuda" unless "cpu" is asked for:
   python -m reftr_torch.cli.main --preset flickr --dataset synthetic_multi \
       --test_split val --output_dir exps/multi
 
+On several cards, one process each (DDP over NCCL; ``--device cpu``: gloo
+processes on the host), through the launcher:
+
+  python -m reftr_torch.tools.launch --nproc_per_node 4 -- \
+      python -m reftr_torch.cli.main --preset refcoco_det ...
+
+``--mesh_data`` is -1 or the launcher's world size; ``--batch_size`` is
+per process, as in the reference.
+
 Every flag parses as in the JAX package; ``--dataset synthetic_multi`` is
 the port's own (``data/build.py``). A flag of a feature the port does
 not have yet raises NotImplementedError, naming its ROADMAP.md item, when
@@ -22,13 +31,15 @@ import sys
 
 from reftr_torch.cli.presets import PRESETS, apply_preset
 from reftr_torch.core.config import BertConfig, RefTRConfig
+from reftr_torch.core.distributed import env_world_size
+from reftr_torch.core.logging import master_print
+from reftr_torch.parallel.sharding import TP_ITEM, check_data_axis
 
 _ITEM = "ROADMAP.md queue 1 item"
 # dest -> what it needs, for the flags of features not ported yet
 NOT_PORTED = {
-    "mesh_data": f"multi-GPU ({_ITEM} 6)",
-    "mesh_model": f"multi-GPU ({_ITEM} 6)",
-    "mesh_model_spans_processes": f"multi-GPU ({_ITEM} 6)",
+    "mesh_model": TP_ITEM,
+    "mesh_model_spans_processes": TP_ITEM,
     "train_stem": f"the from-scratch flags ({_ITEM} 8)",
     "backbone_norm": f"the from-scratch flags ({_ITEM} 8)",
     "vision_aux_loss": f"the from-scratch flags ({_ITEM} 8)",
@@ -208,6 +219,10 @@ def args_to_config(args: argparse.Namespace) -> RefTRConfig:
     gives it for the flags the port has."""
     refuse_not_ported(args)
     cfg = RefTRConfig()
+    # the data axis against the world the launcher announced (run_training
+    # checks it again against the process group)
+    check_data_axis(args.mesh_data, env_world_size())
+    cfg.mesh.data = args.mesh_data
     m, t, d, loss = cfg.model, cfg.train, cfg.data, cfg.loss
     # model
     m.reftr_type = args.reftr_type
@@ -306,7 +321,7 @@ def main(argv=None) -> int:
 
     result = run_training(cfg, device=args.device)
     if "best_val_acc" in result:
-        print(f"best accuracy_iou0.5: {result['best_val_acc']:.4f}")
+        master_print(f"best accuracy_iou0.5: {result['best_val_acc']:.4f}")
     return 0
 
 

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Union
 
 import torch
 
@@ -52,9 +52,12 @@ def save_checkpoint(output_dir: str, name: str, state,
     return path
 
 
-def load_checkpoint(path: str) -> Dict[str, Any]:
-    """The payload of a checkpoint file, its tensors on the host."""
-    return torch.load(path, map_location="cpu", weights_only=False)
+def load_checkpoint(path: str,
+                    map_location: Union[str, torch.device] = "cpu"
+                    ) -> Dict[str, Any]:
+    """The payload of a checkpoint file, its tensors on ``map_location``
+    (the host unless the caller names a device)."""
+    return torch.load(path, map_location=map_location, weights_only=False)
 
 
 def checkpoint_exists(output_dir: str, name: str = "checkpoint") -> bool:

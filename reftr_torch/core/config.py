@@ -6,8 +6,9 @@ A copy of the matching fields of reftr_tpu/core/config.py (``BertConfig``
 :251-287, ``TrainConfig`` :302-343), kept here because the port imports
 nothing of reftr_tpu. Options of the JAX package that the port does not run
 yet (the from-scratch flags, the TPU reparameterisations and int8, the
-mesh) are left out rather than accepted and ignored; the CLI refuses them
-(``cli/main.py``), and they come back with the slice that runs them.
+mesh's model axis) are left out rather than accepted and ignored; the CLI
+refuses them (``cli/main.py``), and they come back with the slice that
+runs them.
 """
 
 from __future__ import annotations
@@ -187,8 +188,19 @@ class DataConfig:
 
 
 @dataclass
+class MeshConfig:
+    """The data-parallel layout (reftr_tpu/core/config.py:289-299's data
+    axis): one process per card, ``data`` -1 (all of them) or the world
+    size. The model axis (tensor parallelism) is not ported; the CLI
+    refuses it."""
+
+    data: int = -1
+
+
+@dataclass
 class RefTRConfig:
     model: ModelConfig = field(default_factory=ModelConfig)
     loss: LossConfig = field(default_factory=LossConfig)
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)

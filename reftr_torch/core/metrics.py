@@ -1,8 +1,12 @@
 """Training metrics: smoothed meters and a progress logger (port of
-reftr_tpu/core/metrics.py:21-137, without the multi-host sync).
+reftr_tpu/core/metrics.py:21-137).
 
 Windowed medians and averages, iteration and data timing, ETA and periodic
 printing; the peak device memory is torch.cuda.max_memory_allocated.
+Under a process group ``synchronize_between_processes`` sums each meter's
+total and count over the ranks, so that its global average is the
+average over every rank's updates (the median and window stay the
+rank's own).
 """
 
 from __future__ import annotations
@@ -14,6 +18,8 @@ from typing import Dict, Iterable, Optional
 
 import numpy as np
 import torch
+
+from reftr_torch.core.distributed import allreduce_sum_host
 
 
 class SmoothedValue:
@@ -30,6 +36,12 @@ class SmoothedValue:
         self.deque.append(value)
         self.count += n
         self.total += value * n
+
+    def synchronize_between_processes(self):
+        s = allreduce_sum_host({"count": float(self.count),
+                                "total": self.total})
+        self.count = int(s["count"])
+        self.total = s["total"]
 
     @property
     def median(self) -> float:
@@ -80,6 +92,10 @@ class MetricLogger:
 
     def add_meter(self, name: str, meter: SmoothedValue):
         self.meters[name] = meter
+
+    def synchronize_between_processes(self):
+        for meter in self.meters.values():
+            meter.synchronize_between_processes()
 
     def __str__(self):
         return self.delimiter.join(

@@ -126,6 +126,39 @@ _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 SEED_BITS = 63  # seeds are drawn in [0, 2^63): a non-negative int64
+_MASK64 = (1 << 64) - 1
+
+
+def _mix64(x: int) -> int:
+    """SplitMix64's finalizer (Steele et al., OOPSLA'14): a bijection of
+    64-bit words."""
+    x &= _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
+
+
+def shard_seed(seed: int, shard: int, local_batch: int) -> int:
+    """The dropout seed of one shard's kernel calls: the counterpart of
+    ``fused_attention_sharded`` (reftr_tpu/kernels/attention.py:587-651),
+    which runs K1-K3 on each (data, model) shard under ``shard_map`` and
+    folds the shard's index into the dropout key (:628-634), so that the
+    shards draw independent masks. Under DDP a rank calls the kernels on
+    its own batch, so the shard is the rank, and the fold is made where a
+    seed is drawn (``nn/attention.py::_draw_seed``).
+
+    Shard 0's fold is the identity: one process draws the seeds it drew
+    before there were shards. Any other shard maps (seed, shard) through
+    SplitMix64's finalizer into [0, 2^SEED_BITS). The local batch must not
+    be empty, as ``mesh_compatible`` (:575-584) asks that the batch divide
+    over the data axis."""
+    if local_batch <= 0:
+        raise ValueError(f"shard {shard} has an empty local batch "
+                         f"({local_batch}): give every rank a batch")
+    if shard == 0:
+        return seed
+    return _mix64(seed ^ _mix64(shard * 0x9E3779B97F4A7C15)) >> (
+        64 - SEED_BITS)
 
 
 def dropout_threshold(rate: float) -> int:

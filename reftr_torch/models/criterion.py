@@ -2,7 +2,8 @@
 34-83, 125-185).
 
 L1 and GIoU box losses over padded phrases weighted by their validity,
-normalised by the batch's box count clamped at one, with the
+normalised by the box count (``compute_num_boxes``: under DDP the global
+count over the world size, clamped at one), with the
 auxiliary decoder layers' losses under ``_<i>`` suffixes; with masks, the
 focal and DICE mask losses on logits upsampled to the target, and the CEM
 loss when the model gives one. The matcher is not on this path: with one
@@ -18,8 +19,10 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from reftr_torch.core import distributed
 from reftr_torch.core.config import LossConfig
 from reftr_torch.ops.boxes import (box_cxcywh_to_xyxy,
                                    generalized_box_iou_aligned)
@@ -71,8 +74,23 @@ def loss_vision(*args, **kwargs):
 
 
 def compute_num_boxes(box_valid: torch.Tensor) -> torch.Tensor:
-    """The batch's box count, clamped at 1 as the reference clamps it."""
-    return box_valid.to(torch.float32).sum().clamp(min=1.0)
+    """The count each rank divides its box losses by: the reference's DDP
+    count, the batch's boxes summed over the ranks (all_reduce), divided
+    by the world size and clamped at 1; one process: the batch's count,
+    clamped at 1.
+
+    DDP averages the ranks' gradients, so a rank's loss over this count
+    gives the gradient of the global batch's loss over max(global count,
+    world size), which is JAX's ``compute_num_boxes(box_valid, world_size)``
+    (reftr_tpu/models/criterion.py:125-128) over the global batch. A rank
+    that divided by its own count would be wrong by the spread of the
+    counts across ranks."""
+    n = box_valid.to(torch.float32).sum()
+    world = distributed.world_size()
+    if world > 1:
+        dist.all_reduce(n)
+        n = n / world
+    return n.clamp(min=1.0)
 
 
 def criterion(outputs: Dict[str, Any], targets: Dict[str, torch.Tensor],

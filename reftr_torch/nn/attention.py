@@ -19,7 +19,10 @@ Attention-weight dropout (training mode, ``dropout > 0``) runs inside the
 kernels. Each call draws its 64-bit seed from the host ``torch.Generator``
 bound by ``attention_rng`` (the counterpart of the ``rngs={"dropout": ...}``
 that the JAX train step passes, reftr_tpu/train/steps.py:74): a draw on the
-host, so the call never waits for the device.
+host, so the call never waits for the device. Under DDP every rank holds
+the same generator state, and the draw folds in the rank bound with it
+(``shard_seed``, the per-shard key of JAX's ``fused_attention_sharded``),
+so the ranks drop different weights; rank 0 draws what one process draws.
 """
 
 from __future__ import annotations
@@ -31,33 +34,39 @@ import torch
 from torch import nn
 
 from reftr_torch.kernels.attention import (NEG_INF, SEED_BITS,
-                                           attention_plain, flash_attention)
+                                           attention_plain, flash_attention,
+                                           shard_seed)
 
 __all__ = ["MultiHeadAttention", "NEG_INF", "attention_rng",
            "set_plain_attention"]
 
 _RNG: Optional[torch.Generator] = None
+_SHARD = 0
 
 
 @contextmanager
-def attention_rng(generator: torch.Generator) -> Iterator[None]:
+def attention_rng(generator: torch.Generator,
+                  shard: int = 0) -> Iterator[None]:
     """Bind the host generator that attention dropout draws its seeds from,
-    for the calls made inside the block."""
-    global _RNG
+    and the shard (the DDP rank) folded into each draw, for the calls made
+    inside the block."""
+    global _RNG, _SHARD
     if generator.device.type != "cpu":
         raise ValueError("attention seeds come from a CPU generator")
-    outer, _RNG = _RNG, generator
+    outer = (_RNG, _SHARD)
+    _RNG, _SHARD = generator, shard
     try:
         yield
     finally:
-        _RNG = outer
+        _RNG, _SHARD = outer
 
 
-def _draw_seed() -> int:
+def _draw_seed(local_batch: int) -> int:
     if _RNG is None:
         raise RuntimeError("attention dropout in training mode needs a "
                            "generator: run the forward inside attention_rng")
-    return int(torch.randint(0, 2 ** SEED_BITS - 1, (), generator=_RNG))
+    seed = int(torch.randint(0, 2 ** SEED_BITS - 1, (), generator=_RNG))
+    return shard_seed(seed, _SHARD, local_batch)
 
 
 class MultiHeadAttention(nn.Module):
@@ -84,7 +93,7 @@ class MultiHeadAttention(nn.Module):
         k = self.k_proj(key).view(b, sk, h, d // h)
         v = self.v_proj(value).view(b, sk, h, d // h)
         rate = self.dropout if self.training else 0.0
-        seed = _draw_seed() if rate > 0.0 else None
+        seed = _draw_seed(b) if rate > 0.0 else None
         attend = attention_plain if self.plain else flash_attention
         out = attend(q, k, v, key_valid, dropout_rate=rate, seed=seed)
         return self.out_proj(out.reshape(b, sq, d))

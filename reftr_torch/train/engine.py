@@ -3,17 +3,22 @@
 
 ``train_one_epoch`` runs one train step per batch and logs each step's
 metrics one step late: step i-1's are read while step i runs on the
-device, so the host never waits on the step it just launched. The NaN
-tripwire of the reference (engine_vg.py:55-58) is kept, on that late read.
+device, so the host never waits on the step it just launched. At the end
+of the epoch the meters are averaged over the ranks (JAX's
+``synchronize_between_processes``). The NaN tripwire of the reference
+(engine_vg.py:55-58) is kept, on that late read.
 Loss terms are logged scaled by their weight under their own names, as the
 reference logs them; terms outside the weight dict are dropped.
 
 ``evaluate`` runs the eval step over a loader and gives P@0.5, mIoU (and,
 when the step gives the seg sums, the seg mIoU) and the mean of each
 scaled loss term over the batches, and the boxes in the original image's
-pixels by image id. Its sums stay on the device and are
-read once per pass. There is no profiler hook and no visual dump
-(``visualize_dir`` needs PIL; ROADMAP.md queue 1 item 10).
+pixels by image id. Its sums stay on the device and are read once per
+pass; under a process group they are summed over the ranks first (JAX's
+``allreduce_sum_host``, reftr_tpu/train/engine.py:212-213), so every rank
+reports the global stats, and the ranks' boxes are gathered, so that every
+rank holds the whole split's. There is no profiler hook and no visual
+dump (``visualize_dir`` needs PIL; ROADMAP.md queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -24,7 +29,9 @@ from typing import Any, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from reftr_torch.core import distributed
 from reftr_torch.core.metrics import MetricLogger, SmoothedValue
 from reftr_torch.models.postprocess import decode_boxes
 from reftr_torch.train.state import TrainState
@@ -65,6 +72,7 @@ def train_one_epoch(train_step, state: TrainState, loader: Iterable,
         prev_metrics = metrics
     if prev_metrics is not None:
         _log_train_metrics(prev_metrics, weight_dict, logger, print_fn)
+    logger.synchronize_between_processes()
     return state, {k: m.global_avg for k, m in logger.meters.items()}
 
 
@@ -105,6 +113,14 @@ def evaluate(eval_step, loader: Iterable,
             ids = targets.get("image_id", np.arange(n_rows, n_rows + b))
             rows.append((ids, targets["box_valid"]))
             n_rows += b
+    if totals is not None and distributed.world_size() > 1:
+        # every rank runs as many batches (the test sampler pads the split
+        # to a multiple of the world size, and the padded rows count, as
+        # in JAX and the reference): the sums add up and the losses'
+        # means over the batches are the global ones
+        totals = totals.to(distributed.collective_device())
+        dist.all_reduce(totals)
+        n_batches *= distributed.world_size()
     host = dict(zip(names, totals.tolist())) if totals is not None else {}
     sum_keys = ("sum_accu", "sum_iou", "cnt", "sum_seg_iou", "cnt_seg")
     stats = {k: host[k] / n_batches for k in names if k not in sum_keys}
@@ -124,4 +140,8 @@ def evaluate(eval_step, loader: Iterable,
         for i in range(arr.shape[0]):
             if valid[i].any():
                 results[int(ids[i])] = arr[i][valid[i]].tolist()
+    if collect_results and distributed.world_size() > 1:
+        gathered: list = [None] * distributed.world_size()
+        dist.all_gather_object(gathered, results)
+        results = {k: v for part in gathered for k, v in part.items()}
     return stats, results

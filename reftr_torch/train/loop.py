@@ -1,19 +1,26 @@
-"""The training driver (port of reftr_tpu/train/loop.py:48-395), for one
-process on one card.
+"""The training driver (port of reftr_tpu/train/loop.py:48-395), on one
+card or on many under DDP, one process each.
 
 ``run_training`` is main_vg.py:167-431 of the reference RefTR:
 
-  * the host seed np.random.seed(seed + rank) (:174-177), rank 0 here;
+  * the process group of ``core/distributed.py::initialize`` when the
+    launcher (``reftr_torch.tools.launch``) or Slurm announced one, on
+    ``cuda:LOCAL_RANK`` (an explicit ``cuda:N`` stays as given) or, with
+    ``device="cpu"``, over gloo on the host;
+  * the host seed np.random.seed(seed + rank) (:174-177), and loaders
+    that give each rank its own shard (``parallel/sharding.py``);
   * the tokenizer, the loaders, the model and optimizer (``TrainState``);
   * a pretrained init from a checkpoint of the port, merged non-strictly
     with a report of missing and unexpected keys (:298-349);
   * resume, or auto-resume from <output_dir>/checkpoint (:299-303), or
-    the weights alone (resume_model_only);
+    the weights alone (resume_model_only), read by every rank onto its own
+    card;
   * epochs of training with an eval of every test split after each, the
     best checkpoint on the first split's accuracy_iou0.5 (:399-412), the
     periodic checkpoint{epoch:04d} on lr_drop and ckpt_cycle boundaries
     (:373-376), one JSON line per epoch in log.txt (:419-421), and
-    <dataset>_<split>_result.json with each split's boxes;
+    <dataset>_<split>_result.json with each split's boxes; every file is
+    written by rank 0, with the stats of all ranks;
   * eval only (:351-361), and run_epoch chunks for time-limited queues.
 
 It runs on "cuda" unless the caller passes ``device="cpu"``; without a
@@ -32,6 +39,7 @@ import numpy as np
 import torch
 
 from reftr_torch.core import checkpoint as ckpt_lib
+from reftr_torch.core import distributed
 from reftr_torch.core.config import RefTRConfig
 from reftr_torch.core.device import resolve_device
 from reftr_torch.core.logging import log_stats, master_print
@@ -41,6 +49,7 @@ from reftr_torch.data.loader import DataLoader
 from reftr_torch.data.native import ByteLevelBPETokenizer, WordPieceTokenizer
 from reftr_torch.data.samplers import NodeShardedSampler, ShardedSampler
 from reftr_torch.models.criterion import weight_dict as build_weight_dict
+from reftr_torch.parallel.sharding import check_data_axis, loader_shards
 from reftr_torch.train.engine import evaluate, train_one_epoch
 from reftr_torch.train.state import TrainState
 from reftr_torch.train.steps import make_eval_step, make_train_step
@@ -82,17 +91,23 @@ def build_tokenizer(cfg: RefTRConfig):
         f"under the data root or pass an explicit file path as bert_model")
 
 
-def build_loaders(cfg: RefTRConfig, tokenizer):
+def build_loaders(cfg: RefTRConfig, tokenizer, num_shards: int = 1,
+                  shard_rank: int = 0):
     """The train loader (shuffled, drop_last) and one loader per test
-    split (in order, the last batch padded), for one process."""
+    split (in order, padded to a multiple of the shards), for shard
+    ``shard_rank`` of ``num_shards`` (run_training: the rank of the world,
+    ``sharding.loader_shards``); ``batch_size`` items a shard."""
     d, seed, masks = cfg.data, cfg.train.seed, cfg.model.masks
     train_ds = build_refer_dataset(d.train_split, d, tokenizer, train=True,
                                    masks=masks, seed=seed)
+    shards = dict(num_replicas=num_shards, rank=shard_rank)
     if d.cache_mode:
         sampler = NodeShardedSampler(len(train_ds), local_rank=0,
-                                     local_size=1, shuffle=True, seed=seed)
+                                     local_size=1, shuffle=True, seed=seed,
+                                     **shards)
     else:
-        sampler = ShardedSampler(len(train_ds), shuffle=True, seed=seed)
+        sampler = ShardedSampler(len(train_ds), shuffle=True, seed=seed,
+                                 **shards)
     train_loader = DataLoader(train_ds, d.batch_size, sampler=sampler,
                               num_workers=d.num_workers, drop_last=True)
     test_loaders = {}
@@ -100,7 +115,8 @@ def build_loaders(cfg: RefTRConfig, tokenizer):
         ds = build_refer_dataset(split, d, tokenizer, train=False,
                                  masks=masks, seed=seed)
         test_loaders[split] = DataLoader(
-            ds, d.batch_size, sampler=ShardedSampler(len(ds), shuffle=False),
+            ds, d.batch_size,
+            sampler=ShardedSampler(len(ds), shuffle=False, **shards),
             num_workers=d.num_workers, drop_last=False)
     return train_loader, test_loaders
 
@@ -115,6 +131,8 @@ def _refuse_foreign(path: str) -> None:
 
 def _save(out_dir: str, name: str, state: TrainState, full: bool,
           epoch: int, best: float, cfg: RefTRConfig) -> None:
+    if not distributed.is_main_process():
+        return
     t0 = time.perf_counter()
     path = ckpt_lib.save_checkpoint(out_dir, name, state, full=full,
                                     epoch=epoch, best_val_acc=best,
@@ -123,15 +141,40 @@ def _save(out_dir: str, name: str, state: TrainState, full: bool,
                  f"in {time.perf_counter() - t0:.3f} s")
 
 
+def train_device(device: Union[str, torch.device]) -> torch.device:
+    """The device of this process: a bare "cuda" under the launcher is
+    ``cuda:LOCAL_RANK``, an explicit ``cuda:N`` stays; a CUDA device is
+    made current before anything touches the card (the kernels' build and
+    their tensor maps, and DDP's reducer in autograd's thread, use the
+    current device)."""
+    dev = torch.device(device)
+    if (dev.type == "cuda" and dev.index is None
+            and distributed.launch_env() is not None):
+        dev = torch.device("cuda", distributed.local_rank())
+    dev = resolve_device(dev)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return dev
+
+
 def run_training(cfg: RefTRConfig,
                  device: Union[str, torch.device] = "cuda") -> Dict:
     """Train (or with ``eval_only`` evaluate) as ``cfg`` says on ``device``.
     Returns {"history": the log entries, "best_val_acc"} or, eval only,
-    {"test": {split: stats}}."""
-    dev = resolve_device(device)
-    np.random.seed(cfg.train.seed)  # seed + rank, rank 0
+    {"test": {split: stats}}; under DDP every rank returns the global
+    stats."""
+    dev = train_device(device)
+    distributed.initialize(dev)
+    check_data_axis(cfg.mesh.data, distributed.world_size())
+    n_shards, shard_rank = loader_shards()
+    if distributed.is_initialized():
+        master_print(f"torch.distributed: backend "
+                     f"{torch.distributed.get_backend()}, world size "
+                     f"{n_shards}, rank {shard_rank} on {dev}")
+    np.random.seed(cfg.train.seed + shard_rank)
     tokenizer = build_tokenizer(cfg)
-    train_loader, test_loaders = build_loaders(cfg, tokenizer)
+    train_loader, test_loaders = build_loaders(cfg, tokenizer, n_shards,
+                                               shard_rank)
     steps_per_epoch = len(train_loader)
     master_print(f"Steps per training epoch: {steps_per_epoch}")
 
@@ -154,14 +197,17 @@ def run_training(cfg: RefTRConfig,
     start_epoch = cfg.train.start_epoch
     best_val_acc = 0.0
     resume = cfg.train.resume
+    # rank 0 writes the checkpoints: no rank reads one before all arrive
+    distributed.barrier()
     if (not resume and cfg.train.auto_resume and out_dir
             and ckpt_lib.checkpoint_exists(out_dir, "checkpoint")):
         resume = os.path.join(out_dir, "checkpoint")
     if resume:
         _refuse_foreign(resume)
-        # on the host: load_state_dict copies each tensor to its
-        # parameter's device, and the generator's state stays a CPU tensor
-        payload = ckpt_lib.load_checkpoint(resume)
+        # every rank onto its own device; the checkpoint holds rank 0's
+        # generator, which is every rank's (the rank is folded in at each
+        # draw, train/steps.py)
+        payload = ckpt_lib.load_checkpoint(resume, map_location=dev)
         state.model.load_state_dict(payload["model"])
         if not cfg.train.resume_model_only:
             if "optimizer" not in payload:
@@ -187,7 +233,7 @@ def run_training(cfg: RefTRConfig,
                                       print_fn=master_print)
             # unrounded, so a log can be checked against it
             master_print(f"[{split}] " + json.dumps(stats))
-            if out_dir:
+            if out_dir and distributed.is_main_process():
                 os.makedirs(out_dir, exist_ok=True)
                 name = f"{cfg.data.dataset}_{split}_result.json"
                 with open(os.path.join(out_dir, name), "w") as f:

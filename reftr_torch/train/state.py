@@ -21,13 +21,18 @@ class TrainState:
     """``generator`` is the host generator the train step draws every
     dropout seed from, so two runs from one seed draw the same masks (the
     counterpart of the JAX state's rng). ``clip_max_norm`` is the global
-    gradient-norm clip the step applies (0: none)."""
+    gradient-norm clip the step applies (0: none). ``base_lr`` is the
+    config's LR, which the step logs times the schedule, as JAX's
+    ``lr_fn`` (reftr_tpu/train/loop.py:301): a run may have no parameter
+    in the "base" group (RES under ``freeze_reftr`` without the CEM
+    block)."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
     scheduler: LambdaLR
     generator: torch.Generator
     clip_max_norm: float
+    base_lr: float
     step: int = 0
 
     @classmethod
@@ -48,7 +53,8 @@ class TrainState:
                    scheduler=lr_scheduler(optimizer, train_cfg,
                                           steps_per_epoch),
                    generator=generator,
-                   clip_max_norm=train_cfg.clip_max_norm)
+                   clip_max_norm=train_cfg.clip_max_norm,
+                   base_lr=train_cfg.lr)
 
     def trainable(self):
         """The parameters the optimizer updates."""
@@ -81,7 +87,7 @@ class TrainState:
         self.optimizer.load_state_dict({"state": state,
                                         "param_groups": hyper})
         self.step = int(payload["step"])
-        self.generator.set_state(payload["generator"])
+        self.generator.set_state(payload["generator"].cpu())
         sched, groups = self.scheduler, self.optimizer.param_groups
         sched.last_epoch = self.step
         for g, fn in zip(groups, sched.lr_lambdas):

@@ -15,12 +15,26 @@ caller's stays as it was) and every attention draws its own seed
 (``attention_rng``), the counterpart of
 ``jax.random.fold_in(state.rng, state.step)`` (:74).
 
+Under a process group (``core/distributed.py``) the train step is DDP's:
+the model is wrapped in ``DistributedDataParallel``, each rank runs its
+own shard of the global batch, its box losses are divided by the global
+count over the world size (``criterion.compute_num_boxes``), and DDP's
+average of the gradients is then JAX's gradient of the global batch
+(``make_train_step(..., world_size)``). Every rank holds the same
+generator and folds its rank into each draw, the elementwise dropouts'
+seed included (``kernels/attention.py::shard_seed``): the ranks drop
+different elements, rank 0 as one process would. The logged losses are
+the rank's; their mean over the ranks, which ``MetricLogger`` takes at
+the end of an epoch, is the global batch's.
+
 The step returns ``StepMetrics``: every loss term, ``loss``, ``grad_norm``
 and ``lr``, copied to the host without waiting, so a loop can read step
 i-1's while step i runs. ``grad_norm`` is the norm the clip sees, over the
-trainable parameters; JAX's reported ``grad_norm`` (:87) also counts the
-FrozenBN leaves of layer2-4, which are Flax params there and buffers here
-(ROADMAP.md queue 3, "Differences that are not port faults").
+trainable parameters (under DDP of the averaged gradients, so the same on
+every rank and that of one process on the global batch); JAX's reported
+``grad_norm`` (:87) also counts the FrozenBN leaves of layer2-4, which are
+Flax params there and buffers here (ROADMAP.md queue 3, "Differences that
+are not port faults").
 """
 
 from __future__ import annotations
@@ -30,10 +44,12 @@ from typing import Callable, Dict, Mapping, Tuple, Union
 import numpy as np
 import torch
 from torch import nn
+from torch.nn.parallel import DistributedDataParallel
 
+from reftr_torch.core import distributed
 from reftr_torch.core.config import LossConfig
 from reftr_torch.core.device import resolve_device
-from reftr_torch.kernels.attention import SEED_BITS
+from reftr_torch.kernels.attention import SEED_BITS, shard_seed
 from reftr_torch.models.criterion import criterion, total_loss
 from reftr_torch.models.postprocess import rec_metrics, segm_metrics
 from reftr_torch.nn.attention import attention_rng
@@ -43,6 +59,10 @@ from reftr_torch.train.state import TrainState
 
 def to_device(tree: Mapping[str, np.ndarray],
               device: torch.device) -> Dict[str, torch.Tensor]:
+    """A batch's numpy arrays as tensors on ``device``. Under DDP each
+    rank's loader yields its own shard of the global batch (the samplers'
+    (world size, rank) blocks), so JAX's ``shard_batch``
+    (reftr_tpu/train/steps.py:138-157) has no counterpart."""
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
         device, non_blocking=True) for k, v in tree.items()}
 
@@ -99,10 +119,25 @@ def make_train_step(model: nn.Module, weight_dict: Dict[str, float],
     """step(state, batch, targets) -> (state, metrics) on ``device``
     ("cuda" unless the caller passes the CPU), where ``model`` must lie
     (``TrainState.create`` builds it there); batch and targets are numpy
-    dicts."""
+    dicts.
+
+    Under a process group the forward runs through
+    ``DistributedDataParallel`` (on a card with ``device_ids=[index]``),
+    with ``broadcast_buffers=False``: the model's only buffers are
+    FrozenBatchNorm's statistics, which no forward changes. It keeps
+    ``find_unused_parameters`` off: every trainable parameter of
+    ``refcoco_det``, ``refcoco_seg`` (with ``freeze_reftr`` too, whose trunk
+    has requires_grad off) and ``flickr`` receives a gradient every step
+    (tests/test_torch_distributed.py)."""
     device = model_device(model, device)
     with_masks = model.config.masks
     rng_devices = [device.index] if device.type == "cuda" else []
+    shard = distributed.rank()
+    forward = model
+    if distributed.is_initialized():
+        forward = DistributedDataParallel(
+            model, device_ids=[device.index] if device.type == "cuda"
+            else None, broadcast_buffers=False)
 
     def step_fn(state: TrainState, batch: Mapping, targets: Mapping):
         model.train()
@@ -110,10 +145,12 @@ def make_train_step(model: nn.Module, weight_dict: Dict[str, float],
         targets = to_device(targets, device)
         seed = int(torch.randint(0, 2 ** SEED_BITS - 1, (),
                                  generator=state.generator))
+        local = len(batch["image"])
         with torch.random.fork_rng(devices=rng_devices):
-            torch.manual_seed(seed)
-            with _autocast(model, device), attention_rng(state.generator):
-                out = model(batch)
+            torch.manual_seed(shard_seed(seed, shard, local))
+            with _autocast(model, device), attention_rng(state.generator,
+                                                         shard):
+                out = forward(batch)
         losses = criterion(out, targets, loss_cfg, with_masks)
         loss = total_loss(losses, weight_dict)
         # the model's, not the optimizer's: a parameter with a gradient
@@ -122,8 +159,7 @@ def make_train_step(model: nn.Module, weight_dict: Dict[str, float],
         loss.backward()
         grad_norm = clip_by_global_norm(state.trainable(),
                                         state.clip_max_norm)
-        lr = next(g["lr"] for g in state.optimizer.param_groups
-                  if g["name"] == "base")
+        lr = state.base_lr * state.scheduler.lr_lambdas[0](state.step)
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1

@@ -128,7 +128,7 @@ def test_preset_config_is_the_cli_config(name):
 
 
 NOT_PORTED_ARGVS = {
-    "mesh_data": ["--mesh_data", "2"], "mesh_model": ["--mesh_model", "2"],
+    "mesh_model": ["--mesh_model", "2"],
     "mesh_model_spans_processes": ["--mesh_model_spans_processes"],
     "train_stem": ["--train_stem"],
     "backbone_norm": ["--backbone_norm", "group"],
@@ -189,6 +189,52 @@ def test_a_flag_of_a_missing_feature_raises(dest):
     with pytest.raises(NotImplementedError,
                        match=f"--{dest} .*ROADMAP.md queue 1 item"):
         cli.args_to_config(args)
+
+
+@pytest.mark.parametrize("argv", [["--mesh_model", "2"],
+                                  ["--mesh_model_spans_processes"]])
+def test_tensor_parallelism_is_refused_under_its_item(argv):
+    """The model axis stays refused (the reference has DDP only), naming
+    its own ROADMAP item, not multi-GPU's."""
+    args = parse(cli, ["--preset", "refcoco_det", "--mesh_data", "-1"]
+                 + argv)
+    with pytest.raises(NotImplementedError,
+                       match=r"tensor parallelism \(ROADMAP.md queue 1 "
+                             r"item 12\) is not ported"):
+        cli.args_to_config(args)
+
+
+RANK_VARS = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
+             "SLURM_PROCID", "SLURM_NTASKS")
+
+
+@pytest.mark.parametrize("world,mesh_data", [(1, "-1"), (1, "1"),
+                                             (2, "-1"), (2, "2")])
+def test_mesh_data_is_all_or_the_world(monkeypatch, world, mesh_data):
+    """--mesh_data is accepted as -1 or the world size the launcher set,
+    and parses to the JAX config's mesh.data."""
+    for k in RANK_VARS:
+        monkeypatch.delenv(k, raising=False)
+    if world > 1:
+        monkeypatch.setenv("RANK", "0")
+        monkeypatch.setenv("WORLD_SIZE", str(world))
+    argv = ["--preset", "refcoco_det", "--mesh_data", mesh_data]
+    got = cli.args_to_config(parse(cli, argv))
+    want = jax_main.args_to_config(parse(jax_main, argv))
+    assert got.mesh.data == want.mesh.data == int(mesh_data)
+    assert "mesh_data" not in cli.NOT_PORTED
+
+
+@pytest.mark.parametrize("world,mesh_data", [(2, "3"), (2, "1"), (1, "2")])
+def test_mesh_data_off_the_world_raises(monkeypatch, world, mesh_data):
+    for k in RANK_VARS:
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", str(world))
+    argv = ["--preset", "refcoco_det", "--mesh_data", mesh_data]
+    with pytest.raises(ValueError, match=f"--mesh_data {mesh_data} does "
+                                         f"not match the {world} processes"):
+        cli.args_to_config(parse(cli, argv))
 
 
 @pytest.mark.parametrize("argv,item", [

@@ -1482,3 +1482,73 @@ def test_warpgroup_kernels_launch_from_a_thread_without_cuda_calls(
     thread.join()
     assert "error" not in got, got.get("error")
     assert chip_smoke.same_bits(got["out"], call())
+
+
+RANK_CHILD = """
+import json, sys
+import torch
+sys.path.insert(0, {repo!r})
+from reftr_torch.cli.presets import preset_config
+from reftr_torch.core import distributed
+from reftr_torch.kernels.attention import (flash_attention,
+                                           flash_attn_bwd_dkv,
+                                           flash_attn_bwd_dq)
+from reftr_torch.models.criterion import weight_dict
+from reftr_torch.train.loop import (build_loaders, build_tokenizer,
+                                    train_device)
+from reftr_torch.train.state import TrainState
+from reftr_torch.train.steps import make_train_step
+
+dev = train_device("cuda")
+assert distributed.initialize(dev)
+cfg = preset_config("synthetic_smoke", dtype="bfloat16", batch_size=2,
+                    synthetic_n=4, num_workers=1)
+loader, _ = build_loaders(cfg, build_tokenizer(cfg), 1, 0)
+batch, targets = next(iter(loader))
+targets = {{k: targets[k] for k in ("boxes", "box_valid")}}
+state = TrainState.create(cfg.model, cfg.train, 1, device=dev)
+step = make_train_step(state.model, weight_dict(
+    cfg.loss, cfg.model.dec_layers, cfg.model.aux_loss), cfg.loss,
+    device=dev)
+state, metrics = step(state, batch, targets)
+torch.cuda.synchronize()
+json.dump({{"device": str(dev), "current": torch.cuda.current_device(),
+           "backend": torch.distributed.get_backend(),
+           "world": distributed.world_size(),
+           "loss": metrics.get()["loss"],
+           "launches": [w.launches for w in (
+               flash_attention, flash_attn_bwd_dq, flash_attn_bwd_dkv)]}},
+          open({out!r}, "w"))
+torch.distributed.destroy_process_group()
+"""
+
+
+def test_a_launched_rank_runs_the_kernels_on_its_local_card(gen, tmp_path):
+    """One rank through the launcher (LOCAL_RANK 0): its device is
+    cuda:LOCAL_RANK, made current before any CUDA call; the process
+    group is NCCL's; one DDP bf16 train step of the smoke preset
+    launches K1, K2 and K3 (on DDP's reducer thread too) with a finite
+    loss."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = tmp_path / "rank.json"
+    script = tmp_path / "rank.py"
+    script.write_text(RANK_CHILD.format(repo=repo, out=str(out)))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    port = chip_smoke.free_port()
+    proc = subprocess.run(
+        [sys.executable, "-m", "reftr_torch.tools.launch",
+         "--nproc_per_node", "1", "--coordinator_port", str(port), "--",
+         sys.executable, str(script)], cwd=repo, env=env,
+        capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    got = json.loads(out.read_text())
+    assert got["device"] == "cuda:0" and got["current"] == 0
+    assert (got["backend"], got["world"]) == ("nccl", 1)
+    assert all(n > 0 for n in got["launches"]), got
+    assert torch.isfinite(torch.tensor(got["loss"]))
