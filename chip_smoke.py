@@ -285,15 +285,36 @@ Phases, in order; any failure raises and the script exits non-zero:
    phase 5's bf16 step without DDP and under DDP in turns (host ms with
    the metrics read back each step), profiles each once (device ms, the
    NCCL all-reduce's device ms) and reads the peak memory.
-10. Print one JSON line listing each kernel (each variant on a row of its
+10. The repo's from-scratch recipe (exps/run_gn_flagship3.sh without its
+   TPU stem): refcoco_det's geometry at full width with BERT-tiny,
+   GroupNorm in the backbone, the stem and layer1 trained, pre-norm, the
+   vision probe and its loss, lr 3e-3. a) Through
+   ``reftr_torch.cli.main`` in bf16: two epochs of 8 steps (batch 16) of
+   its 120-epoch schedule, then --eval --resume, whose accuracy must
+   equal the log's; every logged loss finite; 20 launches of each kernel
+   a step and of K1 an eval batch (8 on the tensor-core kernels, 12 on
+   the decode kernels); a profiled step (host and device ms, busy share,
+   peak memory, the copy kernels' ms) with GroupNorm and with FrozenBN.
+   b) The overflow guard: 20 bf16 steps on one repeated batch at the
+   recipe's LR held constant: every loss finite, phase 5's health rule,
+   layer4's largest magnitude below 1e4 at every step; with FrozenBN
+   beside it, report only. c) One float32 step with all seven options
+   (also --img_pos_in_stream, --decoder_pos_in_value, --heatmap_box),
+   kernels against the plain attention at phase 5's rule over every
+   trainable tensor, the stem's, layer1's, the GroupNorms' and the
+   probe's among them. d) Phase 4's six requests served from a's
+   checkpoint with --heatmap_box in bf16: no error, every box a cxcywh
+   inside [0, 1] of its image, 20 launches of K1 a batch.
+11. Print one JSON line listing each kernel (each variant on a row of its
    own; the decode backward on one row for K2 and K3) with its launches
-   on the main paths (phase 8's runs included, also on their own), its
+   on the main paths (phase 8's and 10's runs included, also on their
+   own), its
    error, and its times and bound at the call site
    where the main path launches it (the decoder's cross-attention for the
    decode and SIMT kernels, the VL encoder for the tensor-core kernels, in
    float32 for the 3xTF32 ones, the four-level encoder at B=8 for the
    warpgroup kernels, from phase 3d) on this card.
-11. Print {"ok": true, "device": {...}} as the last line.
+12. Print {"ok": true, "device": {...}} as the last line.
 
 It needs a CUDA card and the reftr_torch package beside it; without
 either it fails before it prints any result.
@@ -482,6 +503,10 @@ NEW_SITES = {
     "vl_encoder_2_levels_b8": (SERVE_BATCH, 2040, 2040, 8, 32),
     "vl_encoder_3_levels_b8": (SERVE_BATCH, 8440, 8440, 8, 32),
     "multi_vl_encoder_2_levels": (16, 2090, 2090, 8, 32),
+    # the from-scratch recipe's (phase 10): BERT-tiny over refcoco_det's
+    # 40 tokens (4 heads of 16) and the encoder over 440 at its batch of 16
+    "scratch_bert_self": (16, 40, 40, 4, 16),
+    "scratch_vl_encoder_self": (16, 440, 440, 8, 32),
 }
 # the image tokens of the 640 px canvas at 1-4 feature levels: the last
 # min(n, 3) backbone stages, 20^2, 40^2 and 80^2, and a 10^2 extra
@@ -839,7 +864,8 @@ def site_shape(site) -> tuple:
 
 
 def new_site_valid(gen, b: int, sk: int):
-    """The key masks phase 8's sites see: BERT over phrases, "[CLS] [SEP]"
+    """The key masks phase 8's and 10's sites see: BERT over the 40-token
+    sentence, 10-20 real tokens; BERT over phrases, "[CLS] [SEP]"
     (2 keys) in 14 of each image's 16 phrase rows and 3-9 keys in the
     other 2; the decoder's self-attention, the 2 real phrases' queries of
     16; over the encoder's memory, 10-20 real tokens of the sentence
@@ -849,6 +875,10 @@ def new_site_valid(gen, b: int, sk: int):
     import torch
 
     ar = torch.arange(sk, device="cuda")[None]
+    if sk == NEW_SITES["scratch_bert_self"][2]:
+        # BERT over refcoco_det's sentence: the encoder's 10-20 real tokens
+        lens = torch.randint(10, 21, (b,), device="cuda", generator=gen)
+        return ar < lens[:, None]
     if sk == NEW_SITES["phrase_bert_self"][2]:
         lens = torch.randint(3, 10, (b,), device="cuda", generator=gen)
         lens = torch.where(torch.arange(b, device="cuda") % 16 < 2, lens, 2)
@@ -1152,12 +1182,14 @@ def max_err(got, want) -> float:
 
 def check_training_kernels(report: dict, sites=tuple(CALL_SITES),
                            key: str = "train_kernels",
-                           simt_before: bool = True) -> dict:
+                           simt_before: bool = True,
+                           timed_dtypes=("float32", "bfloat16")) -> dict:
     """Phase 3: K1 with dropout, K2 and K3 against their plain versions at
     ``sites``, with the SIMT kernels beside the others (``simt_before``)
     and, where the rule sends K1, K2 or K3 to a warpgroup kernel, the
     mma.sync kernel beside it, and the exact dropout masks; the rows go to
-    report[key] (phase 8 checks its own sites so). K3-wg alone computes di
+    report[key] (phases 8 and 10 check their own sites so). Each call is
+    timed in ``timed_dtypes``. K3-wg alone computes di
     = rowsum(dO * O) in its wrapper, which K2 gives it in a step; its
     timed calls take di computed before them."""
     import torch
@@ -1260,6 +1292,7 @@ def check_training_kernels(report: dict, sites=tuple(CALL_SITES),
                     before["tc_dq"] = lambda: _launch_dq("tc", *bwd)
                 if row["dkv_variant"] == "wg":
                     before["tc_dkv"] = lambda: _launch_dkv("tc", *bwd)
+                timed_here = name in timed_dtypes
                 for tag, fn in before.items():
                     what = tag.split("_")[1]
                     got = fn()
@@ -1276,6 +1309,21 @@ def check_training_kernels(report: dict, sites=tuple(CALL_SITES),
                     if not err <= tol:
                         raise AssertionError(f"phase 3 {tag} {row}")
                     timed[tag] = fn
+                if not timed_here:
+                    rows.append(row)
+                    print(f"{key.replace('_', ' ')} {site:16s} {name:8s} "
+                          f"dropout {rate}: fwd err {fwd_err:.3g} (tol "
+                          f"{fwd_tol:.3g}), lse err {lse_err:.3g} (tol "
+                          f"{lse_tol:.3g}), dq/dk/dv err {errs[0]:.3g}/"
+                          f"{errs[1]:.3g}/{errs[2]:.3g} (tol "
+                          f"{GRAD_TOL[name] * scale:.3g}); K1/K2/K3 "
+                          f"{row['fwd_variant']}/{row['dq_variant']}/"
+                          f"{row['dkv_variant']}"
+                          + "".join(f"; {tag.replace('_', ' ')} err "
+                                    f"{row[f'{tag}_max_abs_err']:.3g}"
+                                    for tag in before)
+                          + "; bitwise repeatable", flush=True)
+                    continue
                 for what, fn in timed.items():
                     row[f"{what}_ms"] = cuda_ms(fn)
                     row[f"{what}_device_ms"] = device_ms(fn)
@@ -1859,8 +1907,13 @@ def profile_device(run, what: str, step_ms: float, iters: int = 5,
     for name, ms, calls in host:
         print(f"profile:   host {ms:8.3f} ms in {calls:6.0f} calls  "
               f"{name[:70]}", flush=True)
+    # casts and layout copies (direct_copy_kernel), in "elementwise" above
+    copies = sum(ms for name, ms in by_name.items() if "copy_kernel" in name)
+    print(f"profile:   copy kernels (casts, layout) {copies:8.3f} ms",
+          flush=True)
     return {"device_ms": device_ms, "kernels_per_call": n_kernels / iters,
             "host_ms": step_ms, "busy_share": busy, "by_category_ms": by_cat,
+            "copy_kernels_ms": copies,
             "top_kernels_ms": dict(top),
             "top_host_ops_ms": {name: ms for name, ms, _ in host}}
 
@@ -1892,11 +1945,12 @@ def read_counts(counters) -> dict:
     return out
 
 
-def serve_requests(model, reqs, counters) -> tuple:
+def serve_requests(model, reqs, counters, inside: bool = True) -> tuple:
     """Serve ``reqs`` through a MicroBatcher over ``model``, the launch
     counts set to 0 just before and read just after; every request must
-    come back without error, with finite boxes inside its image. Returns
-    (launches, batches, seconds)."""
+    come back without error, with finite boxes inside its image (with
+    ``inside`` False, finite only: a heatmap box's extent may pass its
+    image's edge). Returns (launches, batches, seconds)."""
     from reftr_torch.serve import MicroBatcher
 
     reset_counts(counters)
@@ -1923,7 +1977,7 @@ def serve_requests(model, reqs, counters) -> tuple:
             x0, y0, x1, y1 = res["box_xyxy"]
             if not all(math.isfinite(v) for v in (x0, y0, x1, y1)):
                 raise AssertionError(f"request {i}: box {res['box_xyxy']}")
-            if not (0 <= x0 <= x1 <= w0 and 0 <= y0 <= y1 <= h0):
+            if inside and not (0 <= x0 <= x1 <= w0 and 0 <= y0 <= y1 <= h0):
                 raise AssertionError(f"request {i}: box {res['box_xyxy']} "
                                      f"outside its {w0}x{h0} image")
     n_batches = batcher.stats["batches"]
@@ -2156,6 +2210,16 @@ def time_f32_forward(model, full, counters) -> dict:
     return out
 
 
+def model_weights(loss_cfg, mc) -> dict:
+    """The loss weights of the model config ``mc``, as run_training takes
+    them."""
+    from reftr_torch.models.criterion import weight_dict
+
+    return weight_dict(loss_cfg, mc.dec_layers, mc.aux_loss,
+                       with_masks=mc.masks, vision_aux=mc.vision_aux,
+                       heatmap_box=mc.heatmap_box)
+
+
 def train_batch(rng: np.random.Generator, img: int, seq: int, vocab: int,
                 b: int):
     """A seeded batch of random canvases with ragged valid regions, token
@@ -2194,7 +2258,8 @@ def grad_gap(grads: dict, want: dict, norm: float) -> tuple:
 
 
 def compare_train_paths(cfg, batch, targets, label: str = "train",
-                        float64: bool = False, check: bool = True) -> dict:
+                        float64: bool = False, check: bool = True,
+                        loss_cfg=None) -> dict:
     """One float32 step with dropout 0 from one set of seeded weights,
     through the kernels and through the plain attention: the loss and
     every trainable gradient, and for RES (``masks``) the forward's boxes
@@ -2204,12 +2269,14 @@ def compare_train_paths(cfg, batch, targets, label: str = "train",
     attention in float64, each float32 path's distance from it, and the
     decoder's FFN pre-activations (linear1's outputs) whose sign differs
     from float64's: one such ReLU flip moves every gradient behind it by
-    a whole row's share. ``check`` False reports without the checks."""
+    a whole row's share. ``check`` False reports without the checks.
+    ``loss_cfg``: the losses' coefficients (LossConfig's defaults unless
+    given); the weights are the model config's (``model_weights``)."""
     import torch
 
     from reftr_torch.convert import build_model
     from reftr_torch.core.config import LossConfig
-    from reftr_torch.models.criterion import criterion, total_loss, weight_dict
+    from reftr_torch.models.criterion import criterion, total_loss
     from reftr_torch.nn.attention import set_plain_attention
     from reftr_torch.train.steps import to_device
 
@@ -2223,8 +2290,8 @@ def compare_train_paths(cfg, batch, targets, label: str = "train",
     with torch.no_grad():
         torch.nn.init.xavier_uniform_(model.bbox_embed.layers[-1].weight,
                                       generator=gen)
-    wd = weight_dict(LossConfig(), mc.dec_layers, mc.aux_loss,
-                     with_masks=mc.masks)
+    loss_cfg = LossConfig() if loss_cfg is None else loss_cfg
+    wd = model_weights(loss_cfg, mc)
     dev_batch = to_device(batch, torch.device("cuda"))
     dev_targets = to_device(targets, torch.device("cuda"))
     pre = {}  # the decoder's FFN pre-activations of the last run
@@ -2238,7 +2305,7 @@ def compare_train_paths(cfg, batch, targets, label: str = "train",
         set_plain_attention(model, plain)
         model.zero_grad(set_to_none=True)
         out = model(dev_batch)
-        loss = total_loss(criterion(out, dev_targets, LossConfig(),
+        loss = total_loss(criterion(out, dev_targets, loss_cfg,
                                     mc.masks), wd)
         loss.backward()
         pres[plain] = dict(pre)
@@ -2266,7 +2333,7 @@ def compare_train_paths(cfg, batch, targets, label: str = "train",
         model.zero_grad(set_to_none=True)
         b64, t64 = ({k: v.double() if v.is_floating_point() else v
                      for k, v in x.items()} for x in (dev_batch, dev_targets))
-        loss64 = total_loss(criterion(model(b64), t64, LossConfig(),
+        loss64 = total_loss(criterion(model(b64), t64, loss_cfg,
                                       mc.masks), wd)
         loss64.backward()
         grads64 = {n: p.grad for n, p in model.named_parameters()
@@ -2305,7 +2372,8 @@ def compare_train_paths(cfg, batch, targets, label: str = "train",
     result = {"loss_kernel": loss_k, "loss_plain": loss_p,
               "loss_rel_err": loss_err, "worst_grad_rel_l2": worst,
               "worst_grad_name": worst_name, "grad_norm": norm,
-              "n_trainable": len(grads_p), "n_above_floor": live}
+              "n_trainable": len(grads_p), "n_above_floor": live,
+              "trainable": sorted(grads_p)}
     if gap is not None:
         result["from_float64"] = gap
     if mc.masks:
@@ -3267,22 +3335,25 @@ def long_encoder_times(report: dict) -> list:
     return rows
 
 
-def profile_train_step(cfg, batch, targets, what: str) -> dict:
+def profile_train_step(cfg, batch, targets, what: str,
+                       prepare=None) -> dict:
     """Report only: one bf16 train step of ``cfg`` on one batch after a
     warm-up, host to host (each step waiting for its metrics), its peak
     device memory and its device time by kernel category with the
-    attention kernels' share."""
+    attention kernels' share. ``prepare(model)`` runs on the model
+    first."""
     import torch
 
-    from reftr_torch.models.criterion import weight_dict
     from reftr_torch.train.state import TrainState
     from reftr_torch.train.steps import make_train_step
 
     mc = dataclasses.replace(cfg.model, dtype="bfloat16")
     torch.cuda.reset_peak_memory_stats()
     state = TrainState.create(mc, cfg.train, 10, seed=0)
-    step = make_train_step(state.model, weight_dict(
-        cfg.loss, mc.dec_layers, mc.aux_loss), cfg.loss)
+    if prepare is not None:
+        prepare(state.model)
+    step = make_train_step(state.model, model_weights(cfg.loss, mc),
+                           cfg.loss)
     stamps = []
     for _ in range(WARM_STEPS + 4):
         state, metrics = step(state, batch, targets)
@@ -4170,6 +4241,287 @@ def phase9(report: dict) -> dict:
     return report
 
 
+# phase 10: the repo's from-scratch recipe (exps/run_gn_flagship3.sh but its
+# TPU stem, --space_to_depth_stem) at full width: refcoco_det's geometry
+# (640 px, one level, d=256, 6+6 VL layers, 8 heads, ResNet-50) with
+# BERT-tiny, GroupNorm in the backbone, the stem and layer1 trained,
+# pre-norm, the vision probe and its loss; bf16 through the entry point
+SCRATCH_OUT = ROOT / "chiprun_out" / "scratch"
+SCRATCH_MODEL = ["--num_feature_levels", "1", "--dataset", "synthetic",
+                 "--train_split", "train", "--test_split", "val",
+                 "--synthetic_box_frac", "0.25", "0.5", "--bert_size", "tiny",
+                 "--backbone_norm", "group", "--train_stem", "--pre_norm",
+                 "--aux_loss", "--bbox_loss_coef", "5", "--vision_aux_loss",
+                 "--vision_aux_loss_coef", "2", "--lr", "3e-3",
+                 "--lr_backbone", "3e-3", "--lr_schedule", "CosineWarmupLR",
+                 "--warm_up_epoch", "5", "--clip_max_norm", "1.0",
+                 "--epochs", "120", "--batch_size", "16", "--num_workers", "4",
+                 "--seed", "0", "--output_dir", str(SCRATCH_OUT)]
+# 10a: the recipe's first 2 epochs of 8 steps (128 items), then --eval
+SCRATCH_TRAIN = SCRATCH_MODEL + ["--synthetic_n", "128", "--run_epoch", "2"]
+SCRATCH_EVAL = SCRATCH_MODEL + ["--eval", "--resume",
+                                str(SCRATCH_OUT / "checkpoint")]
+SCRATCH_STEPS = 16
+SCRATCH_EVAL_BATCHES = 4  # the 64-item val split at batch 16
+# (calls, Sq, Sk, D) of the recipe's attention: BERT-tiny's 2 layers over
+# 40 tokens (4 heads of 16), the encoder over 440, the decoder's 6 + 6
+SCRATCH_SITES = ((2, 40, 40, 16), (6, 440, 440, 32), (6, 1, 1, 32),
+                 (6, 1, 440, 32))
+# 10: K1, K2 and K3 against their plain versions at the recipe's sites
+# that no earlier phase checks at its batch and head width (NEW_SITES)
+SCRATCH_KERNEL_SITES = ("scratch_bert_self", "scratch_vl_encoder_self")
+# 10b: steps on one repeated batch of phase 5's 8 rows at a constant LR
+SCRATCH_GUARD_STEPS = 20
+FEAT_ABSMAX = 1e4  # tests/test_from_scratch.py:111
+
+
+def scratch_config(*flags):
+    """The recipe's RefTRConfig, as the entry point parses it, with more
+    ``flags``."""
+    from reftr_torch.cli import main as cli
+
+    parser = cli.get_args_parser()
+    return cli.args_to_config(parser.parse_args(SCRATCH_MODEL + list(flags)))
+
+
+def scratch_cli(report: dict, counters) -> dict:
+    """Phase 10a: the recipe through the entry point in bf16, two epochs of
+    8 steps of its 120, then --eval --resume, whose accuracy must equal the
+    log's; 20 launches of each kernel a step and of K1 an eval batch (8 on
+    the tensor-core kernels, 12 on the decode kernels); then one step of
+    the recipe and of the same with FrozenBN, profiled (the GroupNorms'
+    casts), the former also with the backbone channels-last."""
+    import shutil
+
+    shutil.rmtree(SCRATCH_OUT, ignore_errors=True)
+    runs = {"train": run_cli(SCRATCH_TRAIN, counters),
+            "eval": run_cli(SCRATCH_EVAL, counters)}
+    train = expected_launches(SCRATCH_STEPS, "bfloat16", True, SCRATCH_SITES)
+    evals = expected_launches(2 * SCRATCH_EVAL_BATCHES, "bfloat16", False,
+                              SCRATCH_SITES)
+    reports = check_cli_runs("phase 10a", runs, {
+        "train": {k: train[k] + evals[k] for k in train},
+        "eval": expected_launches(SCRATCH_EVAL_BATCHES, "bfloat16", False,
+                                  SCRATCH_SITES)})
+    # what each step launched, by route: check_cli_runs held the runs to it
+    per_step = {k: v for k, v in expected_launches(
+        1, "bfloat16", True, SCRATCH_SITES).items() if v}
+    with open(SCRATCH_OUT / "log.txt") as f:
+        log = [json.loads(line) for line in f]
+    if [e["epoch"] for e in log] != [0, 1]:
+        raise AssertionError(f"phase 10a: log.txt epochs "
+                             f"{[e['epoch'] for e in log]}, not [0, 1]")
+    bad = {k: v for e in log for k, v in e.items()
+           if k.startswith(("train_loss", "test_val_loss"))
+           and not math.isfinite(v)}
+    if bad or "train_loss_vision" not in log[0]:
+        raise AssertionError(f"phase 10a: losses {log}")
+    evals = [json.loads(m) for m in re.findall(
+        r"^\[val\] (\{.*\})$", runs["eval"]["out"], re.M)]
+    if len(evals) != 1:
+        raise AssertionError(f"phase 10a: {len(evals)} eval lines")
+    got, want = evals[0], log[-1]
+    miou_err = abs(got["miou"] - want["test_val_miou"])
+    if (got["accuracy_iou0.5"] != want["test_val_accuracy_iou0.5"]
+            or not miou_err <= CLI_MIOU_TOL):
+        raise AssertionError(f"phase 10a: eval-only {got} against the log "
+                             f"{want}")
+    print_cli_reports("scratch", report["card"], reports)
+    keys = ("epoch", "train_loss", "train_loss_vision", "train_loss_bbox",
+            "test_val_loss", "test_val_accuracy_iou0.5", "test_val_miou")
+    print(f"scratch: log {[{k: e.get(k) for k in keys} for e in log]}; "
+          f"eval-only accuracy {got['accuracy_iou0.5']}, miou {got['miou']}"
+          f" (|err| {miou_err:.2e}); launches a step by route {per_step}; "
+          f"launches {({n: r['launches'] for n, r in runs.items()})}",
+          flush=True)
+    cfg = scratch_config()
+    batch, targets = train_batch(np.random.default_rng(3), cfg.data.img_size,
+                                 cfg.data.max_query_len,
+                                 cfg.model.bert.vocab_size,
+                                 cfg.data.batch_size)
+    profiles = {}
+    # the GroupNorm backbone in both layouts: contiguous NCHW (the
+    # port's), and channels-last convolutions, where each GroupNorm's copy
+    # in and out also changes the layout (ResNet.channels_last)
+    for tag, norm, channels_last in (("group", "group", False),
+                                     ("group_channels_last", "group", True),
+                                     ("frozen", "frozen", True)):
+        def prepare(model, channels_last=channels_last):
+            model.img_backbone.channels_last = channels_last
+
+        profiles[tag] = profile_train_step(
+            scratch_config("--backbone_norm", norm), batch, targets,
+            f"scratch recipe bf16 batch {cfg.data.batch_size} step, "
+            f"backbone_norm {norm}, "
+            f"{'channels-last' if channels_last else 'NCHW'}", prepare)
+    nchw, last = profiles["group"], profiles["group_channels_last"]
+    print(f"scratch: GroupNorm backbone, device ms a step NCHW "
+          f"{nchw['profile']['device_ms']:.3f} (copy kernels "
+          f"{nchw['profile']['copy_kernels_ms']:.3f}), channels-last "
+          f"{last['profile']['device_ms']:.3f} (copy kernels "
+          f"{last['profile']['copy_kernels_ms']:.3f})", flush=True)
+    report["scratch"] = {
+        "argv_train": SCRATCH_TRAIN, "argv_eval": SCRATCH_EVAL, "log": log,
+        "eval_only": got, "eval_only_miou_err": miou_err,
+        "launches": {n: r["launches"] for n, r in runs.items()},
+        "runs": reports, "profiles": profiles,
+        "launches_per_step": per_step}
+    return report
+
+
+def scratch_guard(report: dict) -> dict:
+    """Phase 10b: the overflow guard. SCRATCH_GUARD_STEPS bf16 steps of the
+    recipe on one repeated batch at its LR held constant: every loss
+    finite, the mean loss of the last 3 below that of the first 3 (phase
+    5's rule), and the backbone's output (layer4) below FEAT_ABSMAX in
+    magnitude at every step; the same with FrozenBN beside it, report
+    only (its losses may go non-finite: the reason for the flags)."""
+    import torch
+
+    from reftr_torch.core.config import TrainConfig
+    from reftr_torch.train.state import TrainState
+    from reftr_torch.train.steps import make_train_step
+
+    out = {}
+    for norm in ("group", "frozen"):
+        cfg = scratch_config("--backbone_norm", norm)
+        mc = dataclasses.replace(cfg.model, dtype="bfloat16")
+        batch, targets = train_batch(np.random.default_rng(2),
+                                     cfg.data.img_size,
+                                     cfg.data.max_query_len,
+                                     mc.bert.vocab_size, SERVE_BATCH)
+        tc = TrainConfig(lr=cfg.train.lr, lr_backbone=cfg.train.lr_backbone,
+                         lr_bert=cfg.train.lr_bert, clip_max_norm=1.0,
+                         epochs=1, lr_schedule="StepLR", lr_drop=1000)
+        state = TrainState.create(mc, tc, SCRATCH_GUARD_STEPS, seed=0)
+        feats = []
+        hook = state.model.img_backbone.register_forward_hook(
+            lambda m, i, o: feats.append(o.detach().abs().amax().float()))
+        step = make_train_step(state.model, model_weights(cfg.loss, mc),
+                               cfg.loss)
+        seen = []
+        for _ in range(SCRATCH_GUARD_STEPS):
+            state, metrics = step(state, batch, targets)
+            seen.append(metrics)
+        hook.remove()
+        per_step = [m.get() for m in seen]
+        losses = [m["loss"] for m in per_step]
+        absmax = [float(f) for f in feats]
+        first, last = (statistics.mean(losses[:3]),
+                       statistics.mean(losses[-3:]))
+        out[norm] = {"losses": losses, "first3_mean": first,
+                     "last3_mean": last, "layer4_absmax": absmax,
+                     "grad_norms": [m["grad_norm"] for m in per_step]}
+        print(f"scratch guard {norm} ({report['card']}): "
+              f"{SCRATCH_GUARD_STEPS} bf16 steps at lr {tc.lr}, batch "
+              f"{SERVE_BATCH}; loss {ms_list(losses)}; first 3 mean "
+              f"{first:.4f}, last 3 mean {last:.4f}; layer4 absmax "
+              f"{ms_list(absmax)}", flush=True)
+        del state, step
+        torch.cuda.empty_cache()
+    g = out["group"]
+    if not all(math.isfinite(v) for v in g["losses"] + g["grad_norms"]):
+        raise AssertionError(f"phase 10b: a loss or norm is not finite: {g}")
+    if not g["last3_mean"] < g["first3_mean"]:
+        raise AssertionError(f"phase 10b: the loss did not fall: {g}")
+    if not max(g["layer4_absmax"]) < FEAT_ABSMAX:
+        raise AssertionError(f"phase 10b: layer4 absmax "
+                             f"{max(g['layer4_absmax'])}")
+    report["scratch_guard"] = out
+    return report
+
+
+def scratch_paths(report: dict) -> dict:
+    """Phase 10c: one float32 step of the recipe with all seven options
+    (also --img_pos_in_stream, --decoder_pos_in_value, --heatmap_box) from
+    seeded weights, through the kernels and the plain attention, at phase
+    5's rule, over every trainable tensor: the stem's, layer1's, every
+    GroupNorm's affine and the probe's among them."""
+    cfg = scratch_config("--img_pos_in_stream", "--decoder_pos_in_value",
+                         "--heatmap_box")
+    batch, targets = train_batch(np.random.default_rng(2), cfg.data.img_size,
+                                 cfg.data.max_query_len,
+                                 cfg.model.bert.vocab_size, SERVE_BATCH)
+    paths = compare_train_paths(cfg, batch, targets, label="scratch",
+                                loss_cfg=cfg.loss)
+    names = set(paths["trainable"])
+    for must in ("img_backbone.conv1.weight", "img_backbone.bn1.weight",
+                 "img_backbone.layer1.0.conv1.weight",
+                 "img_backbone.layer1.0.bn1.bias",
+                 "img_backbone.layer4.2.bn3.weight", "vision_probe.weight"):
+        if must not in names:
+            raise AssertionError(f"phase 10c: {must} was not compared")
+    report["scratch_paths"] = paths
+    return report
+
+
+def scratch_serve(report: dict, counters) -> dict:
+    """Phase 10d: phase 4's six requests through a MicroBatcher over 10a's
+    checkpoint with --heatmap_box, in bf16: none with ``error`` set, each
+    box (the soft-argmax of the probe's heatmap) a cxcywh inside [0, 1] of
+    its image; 20 launches of K1 a batch."""
+    from reftr_torch.core.checkpoint import load_checkpoint
+    from reftr_torch.serve import ServingModel
+
+    cfg = scratch_config("--heatmap_box")
+    payload = load_checkpoint(str(SCRATCH_OUT / "checkpoint"),
+                              map_location="cuda")
+    model = ServingModel(cfg, SERVE_BATCH, state_dict=payload["model"])
+    del payload
+    reqs = make_requests(np.random.default_rng(0), cfg.data.img_size,
+                         cfg.data.max_query_len, cfg.model.bert.vocab_size)
+    launches, n_batches, served_s = serve_requests(model, reqs, counters,
+                                                   inside=False)
+    want = expected_launches(n_batches, "bfloat16", False, SCRATCH_SITES)
+    if launches != want:
+        raise AssertionError(f"phase 10d: launches {launches}, not {want}")
+    boxes = []
+    for i, r in enumerate(reqs):
+        h0, w0 = r.orig_hw
+        for res in r.result:
+            x0, y0, x1, y1 = res["box_xyxy"]
+            # the server rounds pixels to 2 decimals
+            box = ((x0 + x1) / 2 / w0, (y0 + y1) / 2 / h0, (x1 - x0) / w0,
+                   (y1 - y0) / h0)
+            slack = 0.01 / min(h0, w0)
+            if not all(-slack <= v <= 1 + slack for v in box):
+                raise AssertionError(f"phase 10d: request {i} box {box}")
+            boxes.append(box)
+    print(f"scratch serve ({report['card']}): {len(reqs)} requests, "
+          f"{len(boxes)} phrases in {n_batches} batches, {served_s:.3f} s, "
+          f"0 errors; heatmap boxes cxcywh "
+          f"{[tuple(round(v, 3) for v in b) for b in boxes]}; launches "
+          f"{launches}", flush=True)
+    report["scratch_serve"] = {"batches": n_batches, "launches": launches,
+                               "served_s": served_s, "boxes": boxes}
+    return report
+
+
+def phase10(report: dict, counters) -> dict:
+    """Phase 10: the from-scratch recipe. First K1 (out and lse), K2 and
+    K3 against their plain versions at the recipe's BERT-tiny and encoder
+    sites (SCRATCH_KERNEL_SITES) in both dtypes, without dropout and with
+    0.1, at phase 3's tolerances, the dropout masks exact, the bf16 calls
+    timed; then 10a-d. The checkpoints are deleted after, as in phase 6."""
+    import torch
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    check_training_kernels(report, SCRATCH_KERNEL_SITES, "scratch_kernels",
+                           simt_before=False, timed_dtypes=("bfloat16",))
+    try:
+        scratch_cli(report, counters)
+        scratch_guard(report)
+        scratch_paths(report)
+        scratch_serve(report, counters)
+    finally:
+        for path in SCRATCH_OUT.glob("checkpoint*"):
+            path.unlink()
+    print(f"scratch: phase 10 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return report
+
+
 CHILDREN = {"child-cli": child_cli, "child-pair": child_pair,
             "child-times": child_times}
 
@@ -4188,10 +4540,12 @@ def kernel_line(report: dict) -> list:
     float32 steps), the trainer's entry point (phase 6's three runs), RES
     (phase 7's fine-tune, eval-only pass, freeze_reftr steps and
     serving) and phase 8's runs of the entry point (multi-phrase and its
-    eval-only pass, four feature levels, RoBERTa) and phase 9a's DDP run
-    of the entry point, split in ``launches_serve``, ``launches_train``,
-    ``launches_cli``, ``launches_res``, ``launches_multi`` and
-    ``launches_ddp``.
+    eval-only pass, four feature levels, RoBERTa), phase 9a's DDP run
+    of the entry point and phase 10's runs (the from-scratch recipe through
+    the entry point, its eval-only pass and its serving), split in
+    ``launches_serve``, ``launches_train``, ``launches_cli``,
+    ``launches_res``, ``launches_multi``, ``launches_ddp`` and
+    ``launches_scratch``.
     The decode backward has one row for K2 and K3, whose launches it is
     counted in. Every site's numbers are in the JSON report written before
     it."""
@@ -4229,20 +4583,16 @@ def kernel_line(report: dict) -> list:
         for suffix in ("_f32tc", "_tc", "_wg", "_dec"):
             base = base.removesuffix(suffix)
         short = shorts[base]
-        wrapper = "flash_attention" if short == "fwd" else base
         site = MAIN_SITE[variant]
         dtype = MAIN_DTYPE.get(variant, "bfloat16")
 
         def count(n):
-            if variant != "simt":
-                return n[f"{wrapper}_{variant}"]
-            return n[wrapper] - sum(n.get(f"{wrapper}_{v}", 0)
-                                    for v in ("tc", "wg", "tf32x3", "dec"))
+            return row_launches({"name": name, "variant": variant}, n)
 
         # the errors of every call of this variant: as the rule picked it,
         # or as the same-run "before" beside another variant
         errs = []
-        for r in rows:
+        for r in rows + report["scratch_kernels"]:
             scale = 1.0 if short == "fwd" else r["grad_scale"]
             if r[f"{short}_variant"] == variant:
                 errs += [(r[f"{g}_max_abs_err"], scale)
@@ -4324,7 +4674,68 @@ def kernel_line(report: dict) -> list:
                         "sdpa_bwd_device_ms", "max_abs_err")}
                     for r in report["simt_dkv"]]
         out.append(entry)
+    # phase 10's runs of the entry point and its serving, and the largest
+    # error of each variant at the recipe's sites (its max_abs_err
+    # includes them)
+    scratch_n = scratch_launches(report)
+    for entry in out:
+        entry["launches_scratch"] = row_launches(entry, scratch_n)
+        entry["launches"] += entry["launches_scratch"]
+        entry.update(scratch_err(report, entry))
     return out
+
+
+def scratch_err(report: dict, entry: dict) -> dict:
+    """The largest errors of a kernels line row's variant over phase 10's
+    checks at the recipe's sites (K1's out and lse, K2's dq, K3's dk and
+    dv), as the rule sent calls to it or as the same-run "before"; None
+    where it did not run there."""
+    base = entry["name"]
+    for suffix in ("_f32tc", "_tc", "_wg", "_dec"):
+        base = base.removesuffix(suffix)
+    short = {"flash_attn_fwd": "fwd", "flash_attn_bwd_dq": "dq",
+             "flash_attn_bwd_dkv": "dkv"}.get(base)
+    parts = {"fwd": ("fwd", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
+    errs = {}
+    for r in report["scratch_kernels"]:
+        if short is None:
+            break
+        if r[f"{short}_variant"] == entry["variant"]:
+            for g in parts[short]:
+                errs.setdefault(g, []).append(r[f"{g}_max_abs_err"])
+        elif f"{entry['variant']}_{short}_max_abs_err" in r:
+            errs.setdefault(short, []).append(
+                r[f"{entry['variant']}_{short}_max_abs_err"])
+    out = {"scratch_max_abs_err": max(
+        (e for g, v in errs.items() if g != "lse" for e in v), default=None)}
+    if short == "fwd":
+        out["scratch_lse_max_abs_err"] = max(errs.get("lse", ()),
+                                             default=None)
+    return out
+
+
+def scratch_launches(report: dict) -> dict:
+    """The launches of phase 10's runs (10a's two, 10d's serving),
+    summed."""
+    runs = [*report["scratch"]["launches"].values(),
+            report["scratch_serve"]["launches"]]
+    return {k: sum(n[k] for n in runs) for k in runs[0]}
+
+
+def row_launches(entry: dict, n: dict) -> int:
+    """A kernels line row's launches among the counters ``n``: its
+    variant's count on its wrapper (the decode backward's on K2's), the
+    SIMT kernel's what no other variant took."""
+    if entry["name"] == "flash_attn_bwd_dec":
+        return n["flash_attn_bwd_dq_dec"]
+    base = entry["name"]
+    for suffix in ("_f32tc", "_tc", "_wg", "_dec"):
+        base = base.removesuffix(suffix)
+    wrapper = "flash_attention" if base == "flash_attn_fwd" else base
+    if entry["variant"] != "simt":
+        return n[f"{wrapper}_{entry['variant']}"]
+    return n[wrapper] - sum(n.get(f"{wrapper}_{v}", 0)
+                            for v in ("tc", "wg", "tf32x3", "dec"))
 
 
 def wg_entry(report: dict, name: str, source: str, replaces: str,
@@ -4346,7 +4757,8 @@ def wg_entry(report: dict, name: str, source: str, replaces: str,
     grads = {"fwd": ("fwd",), "dq": ("dq",), "dkv": ("dk", "dv")}[short]
     scale_key = {"fwd": None, "dq": "grad_scale_dq",
                  "dkv": "grad_scale"}[short]
-    rows = [r for key in ("train_kernels", "multi_kernels", "levels_kernels")
+    rows = [r for key in ("train_kernels", "multi_kernels", "levels_kernels",
+                          "scratch_kernels")
             for r in report.get(key, ())]
     errs = [(r[f"{g}_max_abs_err"], 1.0 if short == "fwd" else
              r["grad_scale"]) for r in rows if r[f"{short}_variant"] == "wg"
@@ -4532,6 +4944,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase8(report, counters)
     phase9(report)
+    phase10(report, counters)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

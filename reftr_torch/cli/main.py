@@ -9,6 +9,22 @@ main_vg.py:26-164), plus ``--device``, "cuda" unless "cpu" is asked for:
   python -m reftr_torch.cli.main --preset flickr --dataset synthetic_multi \
       --test_split val --output_dir exps/multi
 
+From scratch (the repo holds no pretrained weights), the flags of
+exps/run_gn_flagship3.sh but its TPU stem (--space_to_depth_stem):
+
+  python -m reftr_torch.cli.main --num_feature_levels 1 \
+      --dataset synthetic --train_split train --test_split val \
+      --synthetic_box_frac 0.25 0.5 --bert_size tiny \
+      --backbone_norm group --train_stem --pre_norm \
+      --aux_loss --bbox_loss_coef 5 --vision_aux_loss \
+      --vision_aux_loss_coef 2 --lr 3e-3 --lr_backbone 3e-3 \
+      --lr_schedule CosineWarmupLR --warm_up_epoch 5 --clip_max_norm 1.0 \
+      --epochs 120 --batch_size 16 --seed 0 --output_dir exps/scratch
+
+``--img_pos_in_stream``, ``--decoder_pos_in_value`` and ``--heatmap_box``
+(which needs ``--vision_aux_loss``) join it as in run_gn_flagship4.sh and
+run_gn_flagship5.sh.
+
 On several cards, one process each (DDP over NCCL; ``--device cpu``: gloo
 processes on the host), through the launcher:
 
@@ -40,13 +56,6 @@ _ITEM = "ROADMAP.md queue 1 item"
 NOT_PORTED = {
     "mesh_model": TP_ITEM,
     "mesh_model_spans_processes": TP_ITEM,
-    "train_stem": f"the from-scratch flags ({_ITEM} 8)",
-    "backbone_norm": f"the from-scratch flags ({_ITEM} 8)",
-    "vision_aux_loss": f"the from-scratch flags ({_ITEM} 8)",
-    "vision_aux_loss_coef": f"the from-scratch flags ({_ITEM} 8)",
-    "img_pos_in_stream": f"the from-scratch flags ({_ITEM} 8)",
-    "decoder_pos_in_value": f"the from-scratch flags ({_ITEM} 8)",
-    "heatmap_box": f"the from-scratch flags ({_ITEM} 8)",
     "fold_bn": f"fold_bn ({_ITEM} 9)",
     "space_to_depth_stem": f"the TPU reparameterisations ({_ITEM} 9)",
     "fold_normalize": f"the TPU reparameterisations ({_ITEM} 9)",
@@ -216,7 +225,17 @@ def refuse_not_ported(args: argparse.Namespace) -> None:
 
 def args_to_config(args: argparse.Namespace) -> RefTRConfig:
     """The RefTRConfig of the parsed flags, as reftr_tpu's args_to_config
-    gives it for the flags the port has."""
+    gives it for the flags the port has. ``--backbone_norm group`` with a
+    flag that folds or quantizes FrozenBN's statistics raises the JAX
+    factory's ValueError before that flag's refusal
+    (reftr_tpu/models/build.py:25-31)."""
+    if args.backbone_norm != "frozen" and (
+            args.fold_bn or args.fold_normalize or args.quantize_int8
+            or args.quantize_train_prefix):
+        raise ValueError(
+            "backbone_norm='group' has no frozen statistics to fold or "
+            "quantize: drop fold_bn/fold_normalize/quantize_int8/"
+            "quantize_train_prefix")
     refuse_not_ported(args)
     cfg = RefTRConfig()
     # the data axis against the world the launcher announced (run_training
@@ -238,6 +257,14 @@ def args_to_config(args: argparse.Namespace) -> RefTRConfig:
     m.nheads = args.nheads
     # lr_backbone <= 0 freezes layer2-4 too (backbone.py:85-89)
     m.freeze_backbone = args.freeze_backbone or args.lr_backbone <= 0
+    # the from-scratch flags; a frozen backbone keeps its stem frozen, and
+    # RES's mask loss takes the vision probe's place
+    m.train_stem = args.train_stem and not m.freeze_backbone
+    m.backbone_norm = args.backbone_norm
+    m.vision_aux = args.vision_aux_loss and not args.masks
+    m.img_pos_in_stream = args.img_pos_in_stream
+    m.decoder_pos_in_value = args.decoder_pos_in_value
+    m.heatmap_box = args.heatmap_box
     m.masks = args.masks
     m.freeze_reftr = args.freeze_reftr
     m.ablation = args.ablation
@@ -255,6 +282,7 @@ def args_to_config(args: argparse.Namespace) -> RefTRConfig:
     m.normalize_before = args.pre_norm
     m.dtype = args.dtype
     # loss
+    loss.vision_aux_coef = args.vision_aux_loss_coef
     loss.bbox_loss_coef = args.bbox_loss_coef
     loss.giou_loss_coef = args.giou_loss_coef
     loss.mask_loss_coef = args.mask_loss_coef

@@ -8,7 +8,9 @@ a trailing ``_<n>`` index becoming a ``.<n>`` child (``layer1_0`` ->
 
   Dense ``kernel`` [in, out]          -> Linear ``weight`` [out, in]
   Conv ``kernel`` [kh, kw, I, O]      -> Conv2d ``weight`` [O, I, kh, kw]
-  LayerNorm / GroupNorm ``scale``     -> ``weight``
+  LayerNorm / GroupNorm ``scale``     -> ``weight`` (the backbone's
+                                         GroupNorms under the names of
+                                         FrozenBN: ``bn1``, ...)
   Embed ``embedding``                 -> ``weight``
   everything else (biases, FrozenBN statistics, level_embed,
   query_embed)                        -> as it is
@@ -18,8 +20,9 @@ unfilled.
 
 ``init_params`` fills a model from a ``torch.Generator`` the way the JAX
 package's initialisers do: xavier-uniform for the transformer, heads and
-projections (the extra levels' 3x3 ones too), normal(0.02) for BERT's
-embeddings and dense layers, lecun-normal for the backbone convolutions,
+projections (the extra levels' 3x3 ones too) and the vision probe,
+normal(0.02) for BERT's embeddings and dense layers, lecun-normal for the
+backbone convolutions, ones and zeros for every norm's affine,
 normal(1.0) for ``level_embed``, a zero final layer of ``bbox_embed``,
 and torch's kaiming-uniform (a=1) with zero bias for the mask head's
 convolutions.
@@ -84,11 +87,17 @@ def flax_leaf_to_torch(path: Tuple[str, ...], leaf: np.ndarray
 
 def model_class(cfg: ModelConfig) -> type:
     """RefTRSeg with ``masks``, else RefTR, after the JAX factory's checks
-    of the type and the heads (reftr_tpu/models/build.py:18-64): any
-    reftr_type that starts with "transformer" builds them."""
+    of the type, the backbone's norm and the heads
+    (reftr_tpu/models/build.py:18-64): any reftr_type that starts with
+    "transformer" builds them; vision_aux with masks, whose probe's loss
+    the JAX factory drops, is refused. The port has no fold_bn or int8 for
+    backbone_norm="group" to exclude: the CLI refuses those flags, and
+    says why with "group" first (``cli/main.py``)."""
     if not cfg.reftr_type.startswith("transformer"):
         raise NotImplementedError(
             f"reftr_type {cfg.reftr_type!r} is not implemented")
+    if cfg.backbone_norm not in ("frozen", "group"):
+        raise ValueError(f"backbone_norm {cfg.backbone_norm!r}")
     if cfg.heatmap_box:
         if not cfg.vision_aux:
             raise ValueError("heatmap_box decodes the vision_aux heatmap; "
@@ -96,6 +105,14 @@ def model_class(cfg: ModelConfig) -> type:
         if cfg.masks:
             raise ValueError("heatmap_box is a REC head; the RES path "
                              "decodes masks instead")
+        if cfg.num_queries_per_phrase != 1 or "multi" in cfg.reftr_type:
+            raise ValueError("heatmap_box supports single-phrase REC with "
+                             "one query per phrase only")
+    if cfg.vision_aux and cfg.masks:
+        # the JAX package drops the probe's loss under masks (build.py:63)
+        # and its CLI maps the flag off there, as the port's CLI does
+        raise ValueError("vision_aux is a REC probe: RES's mask loss "
+                         "supervises the image; drop vision_aux with masks")
     return RefTRSeg if cfg.masks else RefTR
 
 

@@ -5,10 +5,9 @@ A copy of the matching fields of reftr_tpu/core/config.py (``BertConfig``
 :24-67, ``ModelConfig`` :70-176, ``LossConfig`` :232-249, ``DataConfig``
 :251-287, ``TrainConfig`` :302-343), kept here because the port imports
 nothing of reftr_tpu. Options of the JAX package that the port does not run
-yet (the from-scratch flags, the TPU reparameterisations and int8, the
-mesh's model axis) are left out rather than accepted and ignored; the CLI
-refuses them (``cli/main.py``), and they come back with the slice that
-runs them.
+yet (the TPU reparameterisations and int8, the mesh's model axis) are left
+out rather than accepted and ignored; the CLI refuses them
+(``cli/main.py``), and they come back with the slice that runs them.
 """
 
 from __future__ import annotations
@@ -76,6 +75,30 @@ class ModelConfig:
     freeze_reftr: bool = False
     freeze_bert: bool = False
     freeze_backbone: bool = False
+    # From-scratch training (reftr_tpu/core/config.py:103-167): the repo
+    # holds no pretrained backbone, and FrozenBN at its initial statistics
+    # normalises nothing, so the residual stream overflows float32.
+    # train_stem trains the stem and layer1 (at lr_backbone) instead of
+    # the reference's freeze of them;
+    train_stem: bool = False
+    # the backbone's norm: "frozen" (FrozenBatchNorm, the reference's) or
+    # "group" (a live GroupNorm(32) with float32 statistics and a trainable
+    # affine);
+    backbone_norm: str = "frozen"
+    # vision_aux: a linear probe on the VL encoder's image tokens predicting
+    # "this cell lies inside the target box" (criterion.loss_vision), REC
+    # only;
+    vision_aux: bool = False
+    # img_pos_in_stream: the sine position added into the projected image
+    # features at the encoder's input (q/k positions stay as they are);
+    img_pos_in_stream: bool = False
+    # decoder_pos_in_value: the decoder's cross-attention values are
+    # memory + pos (the keys as before);
+    decoder_pos_in_value: bool = False
+    # heatmap_box: the final box is the soft-argmax of vision_aux's level-0
+    # heatmap; the decoder's last layer moves into aux_outputs. Needs
+    # vision_aux; single-phrase REC with one query.
+    heatmap_box: bool = False
     # the tokenizer's vocabulary: <data_root>/<bert_model>/vocab.txt, or a
     # vocabulary file's path
     bert_model: str = "bert-base-uncased"
@@ -84,10 +107,6 @@ class ModelConfig:
     num_queries_per_phrase: int = 1
     aux_loss: bool = False
     ablation: str = "none"  # 'cem_loss' adds RES's CEM energy loss
-    # from-scratch heads of the JAX package; RefTR raises on them until the
-    # slice that runs them
-    vision_aux: bool = False
-    heatmap_box: bool = False
     # compute dtype: float32 | bfloat16. The JAX ModelConfig defaults to
     # float32 while its CLI defaults to bfloat16 (cli/main.py:149). Serving
     # casts the weights to it; training keeps them float32 and computes
@@ -110,6 +129,7 @@ class LossConfig:
     mask_loss_coef: float = 1.0
     dice_loss_coef: float = 1.0
     cem_loss_coef: float = 1.0
+    vision_aux_coef: float = 1.0  # loss_vision's weight
     focal_alpha: float = 0.25
     focal_gamma: float = 2.0
     set_cost_class: float = 1.0

@@ -1,12 +1,13 @@
 """Training losses of REC and RES (port of reftr_tpu/models/criterion.py:
-34-83, 125-185).
+34-185).
 
 L1 and GIoU box losses over padded phrases weighted by their validity,
 normalised by the box count (``compute_num_boxes``: under DDP the global
 count over the world size, clamped at one), with the
 auxiliary decoder layers' losses under ``_<i>`` suffixes; with masks, the
 focal and DICE mask losses on logits upsampled to the target, and the CEM
-loss when the model gives one. The matcher is not on this path: with one
+loss when the model gives one; with the vision probe's logits
+(``vision_aux``), ``loss_vision``. The matcher is not on this path: with one
 query per phrase the criterion is matcher-free
 (reftr_tpu/core/config.py:244-248).
 
@@ -25,7 +26,8 @@ import torch.nn.functional as F
 from reftr_torch.core import distributed
 from reftr_torch.core.config import LossConfig
 from reftr_torch.ops.boxes import (box_cxcywh_to_xyxy,
-                                   generalized_box_iou_aligned)
+                                   generalized_box_iou_aligned,
+                                   valid_cell_centres)
 from reftr_torch.ops.losses import dice_loss, sigmoid_focal_loss
 
 
@@ -69,8 +71,31 @@ def loss_masks(pred_masks: torch.Tensor, target_masks: torch.Tensor,
     }
 
 
-def loss_vision(*args, **kwargs):
-    raise NotImplementedError("vision_aux comes with a later slice")
+def loss_vision(outputs: Dict[str, Any], targets: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+    """The vision probe's in-box BCE (vision_aux; port of
+    reftr_tpu/models/criterion.py:86-122): a cell is positive where its
+    centre (``valid_cell_centres``, the boxes' frame) lies inside any valid
+    target box, edges included; the BCE of the logits, in float32, is
+    averaged over the valid cells of each level, then over the levels."""
+    boxes = targets["boxes"].float()  # [B, P, 4] cxcywh
+    bval = targets["box_valid"].bool()  # [B, P]
+    total = 0.0
+    levels = outputs["vision_logits"]
+    for logits, valid in zip(levels, outputs["vision_valid"]):
+        cx, cy = valid_cell_centres(valid)
+        inx = ((cx[:, None] - boxes[..., 0:1]).abs()
+               <= boxes[..., 2:3] / 2)  # [B, P, w]
+        iny = ((cy[:, None] - boxes[..., 1:2]).abs()
+               <= boxes[..., 3:4] / 2)  # [B, P, h]
+        inside = (iny[:, :, :, None] & inx[:, :, None, :]
+                  & bval[:, :, None, None]).any(1)  # [B, h, w]
+        lg = logits.float()
+        bce = (lg.clamp(min=0.0) - lg * inside.float()
+               + torch.log1p(torch.exp(-lg.abs())))
+        vw = valid.float()
+        total = total + (bce * vw).sum() / vw.sum().clamp(min=1.0)
+    return {"loss_vision": total / len(levels)}
 
 
 def compute_num_boxes(box_valid: torch.Tensor) -> torch.Tensor:
@@ -100,6 +125,8 @@ def criterion(outputs: Dict[str, Any], targets: Dict[str, torch.Tensor],
     num_boxes = compute_num_boxes(targets["box_valid"])
     losses = loss_boxes(outputs["pred_boxes"], outputs["phrase_mask"],
                         targets["boxes"], num_boxes)
+    if "vision_logits" in outputs:
+        losses.update(loss_vision(outputs, targets))
     if with_masks and "pred_masks" in outputs:
         losses.update(loss_masks(outputs["pred_masks"], targets["masks"],
                                  targets["mask_valid"], cfg))
@@ -113,10 +140,17 @@ def criterion(outputs: Dict[str, Any], targets: Dict[str, torch.Tensor],
 
 
 def weight_dict(cfg: LossConfig, dec_layers: int, aux_loss: bool,
-                with_masks: bool = False) -> Dict[str, float]:
+                with_masks: bool = False, vision_aux: bool = False,
+                heatmap_box: bool = False) -> Dict[str, float]:
     """Loss weights (reftr_transformer.py:320-329, reftr_segmentation.py:
-    349-360), aux layers included; the mask terms get no aux copies."""
+    349-360), aux layers included; the mask terms and loss_vision get no
+    aux copies. With heatmap_box the decoder's last layer is one more aux
+    entry (``RefTR.forward``). A model's are those of its config's
+    ``masks``, ``vision_aux`` and ``heatmap_box``, as the JAX factory
+    passes them (reftr_tpu/models/build.py:60-63)."""
     wd = {"loss_giou": cfg.giou_loss_coef, "loss_bbox": cfg.bbox_loss_coef}
+    if vision_aux:
+        wd["loss_vision"] = cfg.vision_aux_coef
     if with_masks:
         wd.update({"loss_dice": cfg.dice_loss_coef,
                    "loss_mask": cfg.mask_loss_coef,
@@ -124,7 +158,8 @@ def weight_dict(cfg: LossConfig, dec_layers: int, aux_loss: bool,
     if aux_loss:
         base = {k: v for k, v in wd.items()
                 if k in ("loss_giou", "loss_bbox")}
-        for i in range(dec_layers - 1):
+        n_aux = dec_layers if vision_aux and heatmap_box else dec_layers - 1
+        for i in range(n_aux):
             wd.update({f"{k}_{i}": v for k, v in base.items()})
     return wd
 

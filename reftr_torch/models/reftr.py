@@ -27,18 +27,27 @@ package's deformable-DETR scheme, reftr_tpu/models/reftr.py:27-31).
 Training (``model.train()``) keeps the parameters float32 and runs the
 compute dtype through ``torch.autocast`` (``train/steps.py``); dropout is
 ``ModelConfig.dropout`` in the VL modules and the BERT config's rates in
-BERT. The ResNet stem and layer1 never train (every stage with
-``freeze_backbone``), nor BERT with ``freeze_bert``
+BERT. The ResNet stem and layer1 never train unless ``train_stem`` (every
+stage with ``freeze_backbone``), nor BERT with ``freeze_bert``
 (reftr_tpu/models/reftr.py:94-104, 226-227, 252): their parameters get
 ``requires_grad=False`` and they run without a graph, over the sentence
 and over the phrases.
 
-RES (``masks``) is ``models/reftr_seg.py::RefTRSeg``, which runs this
-trunk; ``freeze_reftr`` belongs to it and is refused without ``masks``.
+The from-scratch options (reftr_tpu/core/config.py:103-167):
+``backbone_norm="group"`` and ``train_stem`` act in the backbone;
+``img_pos_in_stream`` adds each level's sine position into its projected
+features before the encoder (q/k positions as before);
+``decoder_pos_in_value`` adds the memory's position into the decoder's
+cross-attention values; ``vision_aux`` runs ``vision_probe``, a Linear(d,
+1) in float32, on the encoder's image tokens of each level and returns
+``vision_logits`` and ``vision_valid`` (per level [B, h, w]); with
+``heatmap_box`` the final box is ``heatmap_box`` of level 0's logits and
+the decoder's last layer joins aux_outputs.
 
-Not in this slice: ``vision_aux`` and ``heatmap_box`` raise
-NotImplementedError; the other from-scratch options (img_pos_in_stream,
-pos_in_value) have no config field yet.
+RES (``masks``) is ``models/reftr_seg.py::RefTRSeg``, which runs this
+trunk; ``freeze_reftr`` belongs to it and is refused without ``masks``,
+and ``vision_aux`` with ``masks`` by ``convert.model_class`` (RES's mask
+loss supervises the image; the CLI turns the flag off under masks).
 """
 
 from __future__ import annotations
@@ -55,7 +64,8 @@ from reftr_torch.nn.bert import BertModel
 from reftr_torch.nn.mlp import MLP, MLPMapping
 from reftr_torch.nn.posembed import ImagePositionEmbedding
 from reftr_torch.nn.query_encoder import QueryEncoder
-from reftr_torch.nn.resnet import FrozenBatchNorm, ResNet, downsample_mask
+from reftr_torch.nn.resnet import NORMS, ResNet, downsample_mask
+from reftr_torch.ops.boxes import valid_cell_centres
 from reftr_torch.ops.image import normalize_images
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -81,9 +91,6 @@ class RefTR(nn.Module):
     def __init__(self, config: ModelConfig):
         super().__init__()
         mc = config
-        if mc.vision_aux or mc.heatmap_box:
-            raise NotImplementedError(
-                "vision_aux and heatmap_box come with a later slice")
         if mc.freeze_reftr and not mc.masks:
             raise ValueError("freeze_reftr freezes the REC trunk under RES's "
                              "mask head: it needs masks")
@@ -93,9 +100,10 @@ class RefTR(nn.Module):
         # feature level) or layer4 alone
         self.img_backbone = ResNet(
             mc.backbone, mc.dilation,
-            mc.masks or mc.num_feature_levels > 1)
+            mc.masks or mc.num_feature_levels > 1, mc.backbone_norm)
         self.img_backbone.freeze(
-            4 if mc.freeze_backbone or mc.freeze_reftr else 1)
+            4 if mc.freeze_backbone or mc.freeze_reftr
+            else 0 if mc.train_stem else 1)
         self.lang_backbone = BertModel(mc.bert)
         if mc.freeze_bert:
             self.lang_backbone.requires_grad_(False)
@@ -108,13 +116,17 @@ class RefTR(nn.Module):
             dim_feedforward=mc.dim_feedforward, activation=mc.activation,
             normalize_before=mc.normalize_before,
             num_feature_levels=mc.num_feature_levels,
-            max_lang_seq=mc.max_lang_seq, dropout=mc.dropout)
+            max_lang_seq=mc.max_lang_seq, dropout=mc.dropout,
+            pos_in_value=mc.decoder_pos_in_value)
         self.map_phrase = MLPMapping(mc.bert.hidden_size, mc.hidden_dim,
                                      mc.dropout)
         self.query_encoder = QueryEncoder(mc.num_queries_per_phrase,
                                           mc.hidden_dim, mc.dropout)
         self.bbox_embed = MLP(mc.hidden_dim, mc.hidden_dim, 4, 3,
                               final_zero_init=True)
+        self.vision_aux = mc.vision_aux
+        if self.vision_aux:
+            self.vision_probe = nn.Linear(mc.hidden_dim, 1)
         self.pos_embedding = ImagePositionEmbedding(mc.hidden_dim,
                                                     mc.position_embedding)
         nfl = mc.num_feature_levels
@@ -126,15 +138,21 @@ class RefTR(nn.Module):
 
     def cast_to_compute_dtype(self) -> "RefTR":
         """Cast parameters and buffers to the compute dtype, except the
-        FrozenBatchNorm statistics, which stay float32 (the JAX package
-        keeps all parameters f32 and computes the BN scale in f32).
+        backbone norms' (FrozenBatchNorm's statistics, GroupNorm's affine)
+        and the vision probe's, which stay float32 (the JAX package keeps
+        all parameters f32, computes the norms in f32 and runs the probe in
+        f32).
 
         For serving only: training keeps every parameter float32 and runs
         the compute dtype through ``torch.autocast``."""
-        frozen = {id(t) for m in self.modules()
-                  if isinstance(m, FrozenBatchNorm) for t in m.buffers()}
+        keep = [m for m in self.modules()
+                if isinstance(m, tuple(NORMS.values()))]
+        if self.vision_aux:
+            keep.append(self.vision_probe)
+        kept = {id(t) for m in keep
+                for t in [*m.buffers(), *m.parameters()]}
         for t in list(self.parameters()) + list(self.buffers()):
-            if id(t) not in frozen and t.is_floating_point():
+            if id(t) not in kept and t.is_floating_point():
                 t.data = t.data.to(self.dtype)
         return self
 
@@ -220,6 +238,28 @@ class RefTR(nn.Module):
             phrase_pooled = pooled_sentence[:, None, :]
         return self.map_phrase(phrase_pooled), context_valid, query_valid
 
+    def in_stream(self, srcs, poss):
+        """The encoder's image input: the projected features, plus their
+        sine position with ``img_pos_in_stream``."""
+        if not self.config.img_pos_in_stream:
+            return srcs
+        return [src + pos for src, pos in zip(srcs, poss)]
+
+    def vision_logits(self, memory: torch.Tensor, srcs, lang_len: int):
+        """vision_probe over the encoder's image tokens of each level
+        (memory is [B, S + sum(h * w), D], levels in ``srcs``' order), in
+        float32 whatever the compute dtype (its parameters stay float32):
+        per level [B, h, w] logits."""
+        b = memory.shape[0]
+        logits, off = [], lang_len
+        with torch.autocast(memory.device.type, enabled=False):
+            for src in srcs:
+                h, w = src.shape[1:3]
+                tok = memory[:, off:off + h * w].float()
+                off += h * w
+                logits.append(self.vision_probe(tok).reshape(b, h, w))
+        return logits
+
     def forward(self, batch: Dict[str, torch.Tensor],
                 return_internals: bool = False) -> Dict[str, Any]:
         mc = self.config
@@ -229,6 +269,7 @@ class RefTR(nn.Module):
 
         srcs, img_valids, img_poss = self.extract_image_features(
             batch["image"], batch["image_valid"])
+        srcs = self.in_stream(srcs, img_poss)
         sentence_feat, pooled = self.encode_language(batch["sentence"],
                                                      sentence_valid)
         phrase_pooled, context_valid, query_valid = self.phrase_inputs(
@@ -246,10 +287,26 @@ class RefTR(nn.Module):
 
         out: Dict[str, Any] = {"pred_boxes": coords[-1],
                                "phrase_mask": query_valid}
+        if self.vision_aux:
+            logits = self.vision_logits(memory, srcs, s)
+            out["vision_logits"] = logits
+            out["vision_valid"] = img_valids
+            if mc.heatmap_box:
+                if "phrases" in batch or n_q != 1:
+                    raise ValueError(
+                        "heatmap_box supports single-phrase REC only (one "
+                        "query, one box per image)")
+                out["pred_boxes"] = heatmap_box(
+                    logits[0], img_valids[0]).reshape(b, 1, 1, 4)
+        # with heatmap_box the decoder's last layer moves into the aux list,
+        # so the query path keeps training end to end; without aux_loss
+        # nothing supervises the decoder then, as in the JAX package
+        n_aux = n_layers if self.vision_aux and mc.heatmap_box \
+            else n_layers - 1
         if mc.aux_loss:
             out["aux_outputs"] = [
                 {"pred_boxes": coords[i], "phrase_mask": query_valid}
-                for i in range(n_layers - 1)]
+                for i in range(n_aux)]
         if return_internals:
             out["internals"] = {
                 "memory": memory,
@@ -260,3 +317,21 @@ class RefTR(nn.Module):
                 "lang_len": s,
             }
         return out
+
+
+def heatmap_box(logits: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The soft-argmax box of a vision_aux heatmap (heatmap_box; port of
+    reftr_tpu/models/reftr.py:273-296): logits [B, h, w], valid [B, h, w]
+    -> [B, 4] cxcywh in the boxes' frame (``valid_cell_centres``). The
+    centre is the centroid of sigmoid(logits) over the valid cells,
+    normalised to sum 1; the extent sqrt(12 * variance) of each marginal,
+    exact for a filled axis-aligned rectangle; clipped to [1e-4, 1]."""
+    xs, ys = valid_cell_centres(valid)
+    q = torch.sigmoid(logits.float()) * valid.float()
+    q = q / q.sum((1, 2), keepdim=True).clamp(min=1e-6)
+    qx, qy = q.sum(1), q.sum(2)  # [B, w], [B, h] marginals
+    cx = (qx * xs).sum(-1)
+    cy = (qy * ys).sum(-1)
+    bw = torch.sqrt(12.0 * (qx * (xs - cx[:, None]) ** 2).sum(-1) + 1e-12)
+    bh = torch.sqrt(12.0 * (qy * (ys - cy[:, None]) ** 2).sum(-1) + 1e-12)
+    return torch.stack([cx, cy, bw, bh], dim=-1).clamp(1e-4, 1.0)

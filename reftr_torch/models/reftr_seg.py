@@ -11,6 +11,9 @@ reftr_tpu/models/reftr_seg.py:35-141).
     then the FPN mask head over the backbone's C3, C2 and C1, giving mask
     logits at 1/4 of the canvas;
   * with ``ablation="cem_loss"`` the CEM energy loss;
+  * the trunk's from-scratch options as in RefTR (``img_pos_in_stream``
+    enters the encoder's input only: the mask head takes the projected
+    features without it, reftr_tpu/models/reftr_seg.py:83-86, 117);
   * ``freeze_reftr``: the trunk's parameters get requires_grad=False (the
     reference freezes them before it builds the mask branch and CEM) and
     the trunk runs without a graph, where the JAX package puts
@@ -70,7 +73,8 @@ class RefTRSeg(RefTR):
                 {k: v for k, v in batch.items() if k not in PHRASE_KEYS},
                 pooled)
             memory, memory_valid, memory_pos = self.vl_transformer.encode(
-                srcs, img_valids, img_poss, sentence_feat, sentence_valid)
+                self.in_stream(srcs, img_poss), img_valids, img_poss,
+                sentence_feat, sentence_valid)
             query, query_pos = self.query_encoder(memory[:, :s],
                                                   phrase_pooled,
                                                   context_valid)

@@ -6,7 +6,8 @@ Learned language position and 2-way token-type embeddings, a per-level
 ``level_embed`` added to the image position encoding, image levels
 flattened and concatenated after the language tokens (so
 ``memory[:, :S_lang]`` is the language memory). Batch-first; masks are
-validity masks (True = real token).
+validity masks (True = real token). ``pos_in_value``: the decoder's
+cross-attention values carry the memory's position (``nn/transformer.py``).
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ class VLTransformer(nn.Module):
                  num_encoder_layers: int = 6, num_decoder_layers: int = 6,
                  dim_feedforward: int = 2048, activation: str = "relu",
                  normalize_before: bool = False, num_feature_levels: int = 1,
-                 max_lang_seq: int = 128, dropout: float = 0.1):
+                 max_lang_seq: int = 128, dropout: float = 0.1,
+                 pos_in_value: bool = False):
         super().__init__()
         if num_decoder_layers <= 0:
             raise NotImplementedError("the serving path needs a decoder")
@@ -38,7 +40,7 @@ class VLTransformer(nn.Module):
             normalize_before, dropout=dropout)
         self.decoder = TransformerDecoder(
             num_decoder_layers, d_model, nhead, dim_feedforward, activation,
-            normalize_before, dropout=dropout)
+            normalize_before, dropout=dropout, pos_in_value=pos_in_value)
 
     def process_img_feat(self, img_srcs: Sequence[torch.Tensor],
                          img_valids: Sequence[torch.Tensor],

@@ -8,6 +8,9 @@ not PyTorch's 1e-5. Masks are validity masks (True = real token).
 Dropout sits where the JAX package has it (reftr_tpu/nn/transformer.py:65,
 101-114, 202-222): after the FFN's activation, on each residual branch and,
 inside the kernels, on the attention weights; it acts in training mode only.
+With ``pos_in_value`` (the from-scratch option ``decoder_pos_in_value``,
+reftr_tpu/nn/transformer.py:166-183) the decoder's cross-attention values
+are memory + pos, its keys as before.
 """
 
 from __future__ import annotations
@@ -93,8 +96,9 @@ class TransformerEncoder(nn.Module):
 class TransformerDecoderLayer(nn.Module):
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
                  activation: str = "relu", normalize_before: bool = False,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, pos_in_value: bool = False):
         super().__init__()
+        self.pos_in_value = pos_in_value
         self.self_attn = MultiHeadAttention(d_model, nhead, dropout)
         self.multihead_attn = MultiHeadAttention(d_model, nhead, dropout)
         self.ffn = FFN(d_model, dim_feedforward, activation, dropout)
@@ -110,6 +114,7 @@ class TransformerDecoderLayer(nn.Module):
                 pos: Optional[torch.Tensor] = None,
                 query_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
         mem_k = with_pos(memory, pos)
+        mem_v = mem_k if self.pos_in_value else memory
         drop = self.drop
         if self.normalize_before:
             t2 = self.norm1(tgt)
@@ -117,13 +122,13 @@ class TransformerDecoderLayer(nn.Module):
             tgt = tgt + drop(self.self_attn(qk, qk, t2, tgt_valid_mask))
             t2 = self.norm2(tgt)
             tgt = tgt + drop(self.multihead_attn(
-                with_pos(t2, query_pos), mem_k, memory, memory_valid_mask))
+                with_pos(t2, query_pos), mem_k, mem_v, memory_valid_mask))
             return tgt + drop(self.ffn(self.norm3(tgt)))
         qk = with_pos(tgt, query_pos)
         tgt = self.norm1(tgt + drop(self.self_attn(qk, qk, tgt,
                                                    tgt_valid_mask)))
         tgt = self.norm2(tgt + drop(self.multihead_attn(
-            with_pos(tgt, query_pos), mem_k, memory, memory_valid_mask)))
+            with_pos(tgt, query_pos), mem_k, mem_v, memory_valid_mask)))
         return self.norm3(tgt + drop(self.ffn(tgt)))
 
 
@@ -134,11 +139,13 @@ class TransformerDecoder(nn.Module):
     def __init__(self, num_layers: int, d_model: int, nhead: int,
                  dim_feedforward: int = 2048, activation: str = "relu",
                  normalize_before: bool = False,
-                 return_intermediate: bool = True, dropout: float = 0.1):
+                 return_intermediate: bool = True, dropout: float = 0.1,
+                 pos_in_value: bool = False):
         super().__init__()
         self.layers = nn.ModuleList(
             TransformerDecoderLayer(d_model, nhead, dim_feedforward,
-                                    activation, normalize_before, dropout)
+                                    activation, normalize_before, dropout,
+                                    pos_in_value)
             for _ in range(num_layers))
         self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
         self.return_intermediate = return_intermediate

@@ -50,3 +50,22 @@ def generalized_box_iou_aligned(boxes1: torch.Tensor,
     wh = (rb - lt).clamp(min=0)
     area = wh[..., 0] * wh[..., 1]
     return iou - (area - union) / area
+
+
+def valid_cell_centres(valid: torch.Tensor) -> Tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """valid [B, h, w] bool -> the cell centres (xs [B, w], ys [B, h]) in
+    the boxes' normalised frame, the valid extent of each image: (j + 0.5)
+    over its count of valid columns (rows), at least 1. Cells past the
+    extent get centres above 1. The JAX package's frame of the vision
+    probe's target and of the heatmap box (reftr_tpu/models/criterion.py:
+    103-107, models/reftr.py:283-286), whose centres skew where the valid
+    extent is not a whole number of cells (a quirk kept as it is)."""
+    _, h, w = valid.shape
+    ncol = valid.any(1).sum(-1).clamp(min=1).float()
+    nrow = valid.any(2).sum(-1).clamp(min=1).float()
+    xs = ((torch.arange(w, dtype=torch.float32, device=valid.device) + 0.5)
+          [None] / ncol[:, None])
+    ys = ((torch.arange(h, dtype=torch.float32, device=valid.device) + 0.5)
+          [None] / nrow[:, None])
+    return xs, ys

@@ -219,9 +219,10 @@ def run_training(cfg: RefTRConfig,
         master_print(f"Resumed from {resume} at epoch {start_epoch}, step "
                      f"{state.step}")
 
-    masks = cfg.model.masks
-    wdict = build_weight_dict(cfg.loss, cfg.model.dec_layers,
-                              cfg.model.aux_loss, with_masks=masks)
+    m = cfg.model
+    wdict = build_weight_dict(cfg.loss, m.dec_layers, m.aux_loss,
+                              with_masks=m.masks, vision_aux=m.vision_aux,
+                              heatmap_box=m.heatmap_box)
     train_step = make_train_step(state.model, wdict, cfg.loss, device=dev)
     eval_step = make_eval_step(state.model, cfg.loss, device=dev)
 

@@ -8,11 +8,13 @@ reftr_tpu/train/optimizer.py:42-90, 93-146).
   frozen      : never updated: left out of the optimizer
 
 Groups are chosen by substring rules on parameter names, as ``label_fn``
-does on Flax paths. Frozen are the ResNet stem and layer1 always, the
-backbone when lr_backbone <= 0 or with freeze_backbone, BERT with
-freeze_bert, and with freeze_reftr the rest of the REC trunk; cem_block
-then stays at the base LR (reftr_tpu/train/optimizer.py:80-84). FrozenBN
-statistics are buffers in the port, so no rule is needed for them.
+does on Flax paths. Frozen are the ResNet stem and layer1 unless
+train_stem (then they train in the backbone group), the backbone when
+lr_backbone <= 0 or with freeze_backbone, BERT with freeze_bert, and with
+freeze_reftr the rest of the REC trunk; cem_block then stays at the base
+LR (reftr_tpu/train/optimizer.py:80-84). FrozenBN statistics are buffers
+in the port, so no rule is needed for them; under backbone_norm="group"
+the GroupNorms' affines are parameters of the backbone group.
 
 What gets no gradient at all is the model's to decide (``RefTR`` sets
 requires_grad=False on the stem and layer1, on the backbone with
@@ -48,9 +50,9 @@ def param_label(name: str, model_cfg: ModelConfig,
     train_backbone = (train_cfg.lr_backbone > 0
                       and not model_cfg.freeze_backbone)
     parts = name.split(".")
-    if "img_backbone" in parts:
+    if "img_backbone" in parts and not model_cfg.train_stem:
         # the stem (the module directly under img_backbone, not a
-        # bottleneck's conv1) and layer1 never train
+        # bottleneck's conv1) and layer1 train with train_stem only
         child = parts[parts.index("img_backbone") + 1]
         if child in ("conv1", "bn1", "layer1"):
             return "frozen"

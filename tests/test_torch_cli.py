@@ -130,13 +130,7 @@ def test_preset_config_is_the_cli_config(name):
 NOT_PORTED_ARGVS = {
     "mesh_model": ["--mesh_model", "2"],
     "mesh_model_spans_processes": ["--mesh_model_spans_processes"],
-    "train_stem": ["--train_stem"],
-    "backbone_norm": ["--backbone_norm", "group"],
-    "vision_aux_loss": ["--vision_aux_loss"],
-    "vision_aux_loss_coef": ["--vision_aux_loss_coef", "2"],
-    "img_pos_in_stream": ["--img_pos_in_stream"],
-    "decoder_pos_in_value": ["--decoder_pos_in_value"],
-    "heatmap_box": ["--heatmap_box"], "fold_bn": ["--fold_bn"],
+    "fold_bn": ["--fold_bn"],
     "space_to_depth_stem": ["--space_to_depth_stem"],
     "fold_normalize": ["--fold_normalize"],
     "block_layer1": ["--block_layer1"],
@@ -181,6 +175,65 @@ def test_a_res_flag_parses_to_the_jax_config(dest):
             if f.name != "bert":
                 assert getattr(ours, f.name) == getattr(theirs, f.name)
     assert dest not in cli.NOT_PORTED
+
+
+# flag: (argv, the config field it sets, its value there)
+SCRATCH_ARGVS = {
+    "train_stem": (["--train_stem"], "model.train_stem", True),
+    "backbone_norm": (["--backbone_norm", "group"], "model.backbone_norm",
+                      "group"),
+    "vision_aux_loss": (["--vision_aux_loss"], "model.vision_aux", True),
+    "vision_aux_loss_coef": (["--vision_aux_loss_coef", "2"],
+                             "loss.vision_aux_coef", 2.0),
+    "img_pos_in_stream": (["--img_pos_in_stream"], "model.img_pos_in_stream",
+                          True),
+    "decoder_pos_in_value": (["--decoder_pos_in_value"],
+                             "model.decoder_pos_in_value", True),
+    "heatmap_box": (["--vision_aux_loss", "--heatmap_box"],
+                    "model.heatmap_box", True),
+}
+# the JAX mapping's two rules: a frozen backbone keeps the stem frozen, and
+# RES turns the vision probe off
+SCRATCH_RULES = {
+    "train_stem_frozen_backbone": (["--train_stem", "--freeze_backbone"],
+                                   "model.train_stem", False),
+    "train_stem_lr_backbone_0": (["--train_stem", "--lr_backbone", "0"],
+                                 "model.train_stem", False),
+    "vision_aux_loss_masks": (["--vision_aux_loss", "--masks"],
+                              "model.vision_aux", False),
+}
+
+
+@pytest.mark.parametrize("dest", sorted(SCRATCH_ARGVS) + sorted(
+    SCRATCH_RULES))
+def test_a_from_scratch_flag_parses_to_the_jax_config(dest):
+    """The from-scratch flags, which the port refused before their slice,
+    map onto the model and loss configs as reftr_tpu's args_to_config maps
+    them (cli/main.py:232-267), and leave NOT_PORTED."""
+    flags, field, value = {**SCRATCH_ARGVS, **SCRATCH_RULES}[dest]
+    argv = ["--preset", "refcoco_det"] + flags
+    got = cli.args_to_config(parse(cli, argv))
+    want = jax_main.args_to_config(parse(jax_main, argv))
+    for section in ("model", "loss"):
+        ours, theirs = getattr(got, section), getattr(want, section)
+        for f in dataclasses.fields(ours):
+            if f.name != "bert":
+                assert getattr(ours, f.name) == getattr(theirs, f.name), (
+                    section, f.name)
+    section, name = field.split(".")
+    assert getattr(getattr(got, section), name) == value
+    assert dest not in cli.NOT_PORTED
+
+
+@pytest.mark.parametrize("argv", [["--fold_bn"], ["--quantize_int8"]])
+def test_group_norm_refuses_folding_as_jax(argv):
+    """--backbone_norm group with a flag that folds or quantizes FrozenBN's
+    statistics raises the JAX factory's ValueError before the flag's own
+    refusal (reftr_tpu/models/build.py:25-31)."""
+    args = parse(cli, ["--preset", "refcoco_det", "--backbone_norm",
+                       "group"] + argv)
+    with pytest.raises(ValueError, match="no frozen statistics"):
+        cli.args_to_config(args)
 
 
 @pytest.mark.parametrize("dest", sorted(NOT_PORTED_ARGVS))

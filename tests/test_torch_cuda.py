@@ -1008,7 +1008,8 @@ def test_res_kernel_path_matches_the_plain_path(gen, monkeypatch):
 # 40^2 + 20^2 + 10^2 tokens) at B=1: their shapes, key masks and K1's
 # tolerance are chip_smoke.py's (site_inputs, kernel_tol), so the smoke's
 # phase 8 and these tests hold the kernels to one rule
-NEW_SITES = list(chip_smoke.MULTI_SITES) + ["vl_encoder_4_levels"]
+NEW_SITES = (list(chip_smoke.MULTI_SITES) + ["vl_encoder_4_levels"]
+             + list(chip_smoke.SCRATCH_KERNEL_SITES))
 DTYPE_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
 
@@ -1552,3 +1553,96 @@ def test_a_launched_rank_runs_the_kernels_on_its_local_card(gen, tmp_path):
     assert (got["backend"], got["world"]) == ("nccl", 1)
     assert all(n > 0 for n in got["launches"]), got
     assert torch.isfinite(torch.tensor(got["loss"]))
+
+
+def test_from_scratch_recipe_trains_healthy(gen, tmp_path, monkeypatch):
+    """tests/test_from_scratch.py's reduced from-scratch recipe (:38-57:
+    3+3 VL layers, d=128, 8 heads, bert tiny, 64 px, batch 16 of 128
+    synthetic items, float32, GroupNorm, the stem trained, pre-norm, lr
+    3e-3 with CosineWarmupLR over 20 epochs, clip 1.0, seed 0) without
+    its TPU stem (space_to_depth_stem), through run_training on the card.
+    cuDNN runs its deterministic algorithms and no TF32, so the run is
+    one trajectory, as the JAX test's on the CPU is (without them the
+    convolutions' backward sums in no fixed order, and of five runs two
+    left the language-only basin before their best epoch, two after it
+    and one not at all). Asserted: every logged loss finite; on a val
+    batch at the last epoch's checkpoint, the encoder's output carries
+    the image: the pairwise distance of two images' outputs over their
+    spread (:109) above 0.1, a healthy init's reading by the JAX test's
+    note, where a run left in the basin reads 0.01-0.03 and the runs that
+    left it 0.47-0.84; the backbone's output below 1e4 in magnitude at
+    ``checkpoint_best`` and at the last (:111). Printed beside them, not
+    asserted (ROADMAP.md queue 3): the distance at ``checkpoint_best``,
+    which the JAX test holds above 0.02 (this trajectory's best epoch
+    lies inside the basin), and the JAX test's bars for the capability
+    (best accuracy 0.3, last loss 3.8, :78-79), calibrated with its stem
+    on its trajectory; the JAX package's own reading without the stem is
+    ``test_jax_recipe_without_its_stem`` in
+    tests/test_torch_from_scratch.py."""
+    import math
+
+    import numpy as np
+
+    from reftr_torch.convert import build_model
+    from reftr_torch.core.checkpoint import load_checkpoint
+    from reftr_torch.core.config import (BertConfig, DataConfig, ModelConfig,
+                                         RefTRConfig, TrainConfig)
+    from reftr_torch.train.loop import (build_loaders, build_tokenizer,
+                                        run_training)
+
+    # float32 as the JAX test computes it: no TF32 in cuDNN's convolutions,
+    # and one trajectory: cuDNN's deterministic algorithms
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    out = str(tmp_path / "scratch")
+    cfg = RefTRConfig(
+        model=ModelConfig(
+            enc_layers=3, dec_layers=3, hidden_dim=128, dim_feedforward=256,
+            nheads=8, bert=BertConfig.tiny(), aux_loss=True, dtype="float32",
+            backbone_norm="group", train_stem=True, normalize_before=True),
+        data=DataConfig(
+            dataset="synthetic", train_split="train", test_splits=("val",),
+            img_size=64, max_img_size=64, max_query_len=12, batch_size=16,
+            num_workers=2, synthetic_n=128, synthetic_box_frac=(0.25, 0.5)),
+        train=TrainConfig(
+            lr=3e-3, lr_backbone=3e-3, epochs=20,
+            warm_up_epoch=2, clip_max_norm=1.0, lr_schedule="CosineWarmupLR",
+            output_dir=out, seed=0))
+    result = run_training(cfg)
+    losses = [h["train_loss"] for h in result["history"]]
+    accs = [h["test_val_accuracy_iou0.5"] for h in result["history"]]
+    assert all(math.isfinite(v) for v in losses), losses
+
+    _, loaders = build_loaders(cfg, build_tokenizer(cfg))
+    batch, _ = next(iter(loaders["val"]))
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+             for k, v in batch.items()}
+    probes = {}
+    for name in ("checkpoint_best", "checkpoint"):
+        model = build_model(cfg.model)
+        model.load_state_dict(load_checkpoint(f"{out}/{name}",
+                                              map_location="cuda")["model"])
+        seen = {}
+        hooks = [model.vl_transformer.encoder.register_forward_hook(
+                     lambda m, i, o: seen.__setitem__("enc", o)),
+                 model.img_backbone.register_forward_hook(
+                     lambda m, i, o: seen.__setitem__("feat", o))]
+        with torch.no_grad():
+            model.eval()(batch)
+        for h in hooks:
+            h.remove()
+        flat = seen["enc"].reshape(seen["enc"].shape[0], -1).float()
+        d01 = (flat[0] - flat[1]).abs().mean()
+        d23 = (flat[2] - flat[3]).abs().mean()
+        within = flat.std(dim=1).mean()
+        probes[name] = (float((d01 + d23) / (2 * within + 1e-9)),
+                        float(seen["feat"].float().abs().max()))
+    print(f"from-scratch recipe (reduced, no s2d stem), "
+          f"{cfg.train.epochs} epochs: best_val_acc "
+          f"{result['best_val_acc']:.4f} (JAX's bar 0.3), last train_loss "
+          f"{losses[-1]:.4f} (JAX's bar 3.8); losses "
+          f"{[round(v, 4) for v in losses]}; val accuracy {accs}; "
+          f"(relpairdist, layer4 absmax) {probes}")
+    assert probes["checkpoint"][0] > 0.1, probes
+    assert all(f < 1e4 for _, f in probes.values()), probes

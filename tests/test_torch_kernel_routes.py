@@ -26,7 +26,8 @@ from reftr_torch.kernels import attention as attn
 CSRC = Path(attn.__file__).parent / "csrc"
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # every attention site of the model the smoke runs: refcoco_det's at the
-# serve batch, the multi-phrase and four-level sites of phase 8
+# serve batch, the multi-phrase and four-level sites of phase 8 and the
+# from-scratch recipe's of phase 10
 SITES = sorted(chip_smoke.CALL_SITES) + sorted(chip_smoke.NEW_SITES)
 
 
@@ -66,7 +67,8 @@ def test_warpgroup_kernels_take_the_sites_they_measured_faster_at():
     """The sites the rule gives "wg" in bf16: K1 the encoders at two to
     four levels (refcoco_det's 2040, 8440, 8540 tokens, flickr's 2090), K2
     those and flickr's encoder at one level (490), K3 refcoco_det's at two
-    to four levels and both encoders at one level (440, 490), not
+    to four levels and both encoders at one level (440, at B=8 and at the
+    from-scratch recipe's 16, and 490), not
     flickr's at two levels (2090 tokens, not a multiple of 4: K3 draws
     Philox per element there); the short sites (BERT, the decoder at 16
     queries) keep "tc", and float32 never takes "wg"."""
@@ -83,7 +85,8 @@ def test_warpgroup_kernels_take_the_sites_they_measured_faster_at():
                    for site in levels + ("multi_vl_encoder_2_levels",)}
                   | {("dq", "multi_vl_encoder_self"),
                      ("dkv", "multi_vl_encoder_self"),
-                     ("dkv", "vl_encoder_self")}) - {
+                     ("dkv", "vl_encoder_self"),
+                     ("dkv", "scratch_vl_encoder_self")}) - {
                          ("dkv", "multi_vl_encoder_2_levels")}
     for site in SITES:
         _, sq, sk, _, d = chip_smoke.site_shape(site)
