@@ -305,7 +305,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    probe's among them. d) Phase 4's six requests served from a's
    checkpoint with --heatmap_box in bf16: no error, every box a cxcywh
    inside [0, 1] of its image, 20 launches of K1 a batch.
-11. Print one JSON line listing each kernel (each variant on a row of its
+11. A reference checkpoint served over HTTP. a) refcoco_det's seeded
+   weights at full width (the box head's last layer drawn, so the boxes
+   move with the input) written under the reference's names as a float32
+   .pth (main_vg.py's {"model", "optimizer", "lr_scheduler", "epoch",
+   "args"}, module.-prefixed; nn/convert.py::save_reference_checkpoint,
+   the one copy of the name map the CPU tests share), named with its
+   sha256 fragment, served by a http.server on 127.0.0.1 and loaded by
+   URL through core/hub.py (REFTR_CACHE_DIR a temporary directory) into a
+   fresh model, then again from the cache: every tensor equal to the
+   source bit for bit, nothing missing or unexpected, one download;
+   bytes, download, sha256 and convert-and-load seconds printed.
+   b) tools/serve.build_server in this process, serve batch 16, 5 ms,
+   weights from that URL, bf16: 64 POST /predict of 1-3 phrases on random
+   images of 480x640, 427x640, 640x480 and 375x500, from one client in
+   sequence and then from 16 at once, and 16 to a float32 server. Every
+   answer 200 with finite boxes inside their image, each within 2e-2
+   (bf16) or 1e-4 (float32) of the image's side of the same rows run
+   straight through the server's ServingModel on canvases the smoke
+   builds; /healthz and /stats (requests and rows as sent); K1 exactly 30
+   launches a batch (18 tc or tf32x3, 12 dec), K2 and K3 none; 17
+   phrases answer 500, none 400, an unknown path 404. Per load: requests
+   and rows a second, p50 and p99 latency, mean_batch_fill, batches and
+   the host ms of Frontend.preprocess a request. Images travel as .npy
+   bytes: tools/serve.decode_image is swapped for a .npy reader (the
+   card's machine has no PIL or cv2), and nothing else. c)
+   reftr_torch.cli.predict.main with the .pth path on two of b)'s images
+   (data/datasets._load_image a .npy reader): each phrase's box within
+   2e-2 of the side of b)'s answer, 30 launches of K1 a call.
+12. Print one JSON line listing each kernel (each variant on a row of its
    own; the decode backward on one row for K2 and K3) with its launches
    on the main paths (phase 8's and 10's runs included, also on their
    own), its
@@ -314,7 +342,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    decode and SIMT kernels, the VL encoder for the tensor-core kernels, in
    float32 for the 3xTF32 ones, the four-level encoder at B=8 for the
    warpgroup kernels, from phase 3d) on this card.
-12. Print {"ok": true, "device": {...}} as the last line.
+13. Print {"ok": true, "device": {...}} as the last line.
 
 It needs a CUDA card and the reftr_torch package beside it; without
 either it fails before it prints any result.
@@ -4522,6 +4550,541 @@ def phase10(report: dict, counters) -> dict:
     return report
 
 
+HTTP_BATCH = 16  # the server's static batch (tools/serve.py's default)
+HTTP_TIMEOUT_MS = 5.0
+HTTP_REQUESTS = 64
+HTTP_CLIENTS = 16
+HTTP_F32_REQUESTS = 16
+# COCO-like image sizes (h, w), cycled over the requests
+HTTP_SIZES = ((480, 640), (427, 640), (640, 480), (375, 500))
+# a served box against the same rows run straight through ServingModel,
+# as a share of the image's side: bf16 rounds every activation (and a
+# batch of other rows may take other GEMM tiles); float32 sums alone
+HTTP_BOX_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# the box head's last layer, drawn for phase 11 (at init it is zero and
+# every box would be the same): logits of this scale keep each box
+# inside its image and still move it with the input
+BOX_LOGIT_STD = 0.15
+
+
+def npy_decode(data: bytes) -> np.ndarray:
+    """The card's machine has no PIL or cv2: phase 11 sends images as
+    .npy bytes, read back here (in place of tools/serve.decode_image)."""
+    import io
+
+    return np.load(io.BytesIO(data), allow_pickle=False)
+
+
+def npy_b64(img: np.ndarray) -> str:
+    import base64
+    import io
+
+    buf = io.BytesIO()
+    np.save(buf, img, allow_pickle=False)
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+class _FileServer:
+    """A http.server on 127.0.0.1 over one directory, counting the paths
+    it was asked for; ``close`` stops its thread."""
+
+    def __init__(self, root: Path):
+        import http.server
+        import threading
+
+        asked = self.asked = []
+
+        class Handler(http.server.SimpleHTTPRequestHandler):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, directory=str(root), **kw)
+
+            def log_message(self, *args):
+                pass
+
+            def do_GET(self):
+                asked.append(self.path)
+                super().do_GET()
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                      Handler)
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=10)
+
+
+def reference_weights(cfg):
+    """refcoco_det's seeded init on the card with the box head's last layer
+    drawn (BOX_LOGIT_STD): its state dict."""
+    import torch
+
+    from reftr_torch.convert import build_model
+
+    model = build_model(cfg.model, "cuda", seed=0)
+    last = model.bbox_embed.layers[-1]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(11)
+    with torch.no_grad():
+        last.weight.normal_(0.0, BOX_LOGIT_STD / math.sqrt(
+            last.weight.shape[1]), generator=g)
+    sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model
+    return sd
+
+
+def pth_round_trip(report: dict, tmp: Path) -> dict:
+    """Phase 11a: refcoco_det's weights written under the reference's names
+    as a float32 .pth (main_vg.py's wrapper, module.-prefixed; one copy of
+    the name map: nn/convert.py::reference_state_dict), served from a
+    http.server on 127.0.0.1 and loaded by URL through the hub into a
+    fresh model, then again from the cache: every tensor equal to the
+    source bit for bit, nothing missing or unexpected, one download."""
+    import hashlib
+    import os
+
+    import torch
+
+    from reftr_torch.cli.presets import preset_config
+    from reftr_torch.convert import build_model
+    from reftr_torch.core import hub
+    from reftr_torch.nn.convert import save_reference_checkpoint
+    from reftr_torch.train.loop import load_pretrained
+
+    cfg = preset_config("refcoco_det", dtype="bfloat16")
+    src = reference_weights(cfg)
+    www = tmp / "www"
+    www.mkdir()
+    t0 = time.perf_counter()
+    staged = save_reference_checkpoint(str(www / "staged.pth"), src,
+                                       cfg.model)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    h = hashlib.sha256()
+    with open(staged, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    sha_s = time.perf_counter() - t0
+    # a torch.hub-style name: the hub checks the hash fragment on download
+    # and again on every cache hit
+    name = f"reftr_refcoco_det-{h.hexdigest()[:10]}.pth"
+    os.replace(staged, www / name)
+    n_bytes = (www / name).stat().st_size
+    os.environ["REFTR_CACHE_DIR"] = str(tmp / "cache")
+    files = _FileServer(www)
+    url = f"{files.url}/{name}"
+    logged = []
+    runs = {}
+    try:
+        t0 = time.perf_counter()
+        cached = hub.download_checkpoint(url, logged.append)
+        download_s = time.perf_counter() - t0
+        for run in ("download", "cache"):
+            model = build_model(cfg.model, "cuda", seed=1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = load_pretrained(model, url, cfg, log=logged.append)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            got = model.state_dict()
+            diff = [k for k, v in src.items() if not torch.equal(got[k], v)]
+            runs[run] = {"report": rep, "load_s": load_s,
+                         "unequal": diff, "tensors": len(src)}
+            del model, got
+            if diff or any(rep.values()):
+                raise AssertionError(f"phase 11a ({run}): unequal {diff[:5]}"
+                                     f", report {rep}")
+    finally:
+        files.close()
+    if files.asked != [f"/{name}"]:
+        raise AssertionError(f"phase 11a: the file server was asked for "
+                             f"{files.asked}, not one download")
+    print(f"pth ({report['card']}): {name}, {n_bytes} bytes, {len(src)} "
+          f"tensors; written in {write_s:.2f} s, sha256 {sha_s:.2f} s, "
+          f"download (and its sha256 check) {download_s:.2f} s; convert "
+          f"and load from the cache {runs['download']['load_s']:.2f} s, "
+          f"again {runs['cache']['load_s']:.2f} s (the hash checked each "
+          f"time); every tensor equal bit for bit, nothing missing or "
+          f"unexpected; one download ({files.asked})", flush=True)
+    report["pth"] = {"name": name, "bytes": n_bytes, "write_s": write_s,
+                     "sha256_s": sha_s, "download_s": download_s,
+                     "runs": runs, "asked": files.asked,
+                     "hub_log": [m for m in logged if "sha256" in m]}
+    return {"url": url, "path": cached, "files": www / name}
+
+
+def http_requests(rng: np.random.Generator, n: int) -> list:
+    """``n`` requests of 1-3 phrases over the synthetic vocabulary (and a
+    word outside it), on random images of HTTP_SIZES: (image, phrases)."""
+    from reftr_torch.data.datasets import SYNTHETIC_VOCAB
+
+    words = SYNTHETIC_VOCAB[4:] + ["zebra"]
+    out = []
+    for i in range(n):
+        h, w = HTTP_SIZES[i % len(HTTP_SIZES)]
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        phrases = [" ".join(rng.choice(words, int(rng.integers(2, 7))))
+                   for _ in range(int(rng.integers(1, 4)))]
+        out.append((img, phrases))
+    return out
+
+
+def http_call(url: str, payload=None, method: str = "POST") -> tuple:
+    """(status, JSON body, seconds) of one request."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, method=method, headers={
+        "Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            code, body = r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        code, body = e.code, json.loads(e.read())
+    return code, body, time.perf_counter() - t0
+
+
+def direct_boxes(model, frontend, reqs) -> list:
+    """The same rows run straight through ``model`` (a ServingModel) on
+    canvases the smoke builds (the eval transform and the tokenizer, as
+    the front end uses them), packed greedily into batches of the serve
+    batch: per request, its boxes in the original image's pixels."""
+    import torch
+
+    from reftr_torch.data.transforms import transform_sample
+    from reftr_torch.models.postprocess import decode_boxes
+    from reftr_torch.serve import Request, pad_batch
+
+    d = frontend.cfg.data
+    rows = []
+    for img, phrases in reqs:
+        ts = transform_sample(img, np.zeros((0, 4), np.float32), d.img_size,
+                              d.max_img_size, train=False)
+        oh, ow = ts.valid_hw
+        valid = np.zeros((d.max_img_size, d.max_img_size), bool)
+        valid[:oh, :ow] = True
+        for ph in phrases:
+            ids, mask, _ = frontend.tokenizer.encode(ph.lower(),
+                                                     d.max_query_len)
+            rows.append((ts, valid, ids, mask))
+    boxes = []
+    for i in range(0, len(rows), model.batch_size):
+        chunk = rows[i:i + model.batch_size]
+        group = [Request(rows={
+            "image": ts.canvas[None], "image_valid": valid[None],
+            "sentence": ids[None].astype(np.int32),
+            "sentence_valid": mask[None].astype(np.int32)}, k=1,
+            orig_hw=ts.orig_hw, valid_hw=ts.valid_hw)
+            for ts, valid, ids, mask in chunk]
+        out = model(pad_batch(group, model.batch_size))
+        b = decode_boxes(torch.from_numpy(out["pred_boxes"].astype(
+            np.float32)))[:, 0].numpy()
+        for j, (ts, _, _, _) in enumerate(chunk):
+            h0, w0 = ts.orig_hw
+            boxes.append(b[j] * np.array([w0, h0, w0, h0], np.float32))
+    out, i = [], 0
+    for _, phrases in reqs:
+        out.append(boxes[i:i + len(phrases)])
+        i += len(phrases)
+    return out
+
+
+def check_answers(label: str, reqs, answers, want, tol: float) -> float:
+    """Every answer 200 with one finite box a phrase inside its image,
+    within ``tol`` of the image's side of ``want``. Returns the largest
+    error as a share of the side."""
+    worst = 0.0
+    for i, ((img, phrases), (code, body, _), wboxes) in enumerate(
+            zip(reqs, answers, want)):
+        if code != 200:
+            raise AssertionError(f"{label}: request {i} answered {code}: "
+                                 f"{body}")
+        res = body["results"]
+        if [r["phrase"] for r in res] != phrases:
+            raise AssertionError(f"{label}: request {i}: {res}")
+        h, w = img.shape[:2]
+        for r, wb in zip(res, wboxes):
+            x0, y0, x1, y1 = r["box_xyxy"]
+            if not all(math.isfinite(v) for v in (x0, y0, x1, y1)):
+                raise AssertionError(f"{label}: request {i} box {r}")
+            if not (0 <= x0 <= x1 <= w and 0 <= y0 <= y1 <= h):
+                raise AssertionError(f"{label}: request {i}: box "
+                                     f"{r['box_xyxy']} outside {w}x{h}")
+            err = float(np.abs(np.array(r["box_xyxy"]) - wb).max())
+            worst = max(worst, err / max(h, w))
+    if not worst <= tol:
+        raise AssertionError(f"{label}: a served box is {worst:.3g} of its "
+                             f"image's side from the direct forward's "
+                             f"(tol {tol})")
+    return worst
+
+
+def http_load(base: str, reqs, clients: int, counters, batcher) -> dict:
+    """Post ``reqs`` to /predict from ``clients`` threads (each its share
+    in order), the launch counts set to 0 just before and read just
+    after. Returns the answers and the load's numbers."""
+    from concurrent.futures import ThreadPoolExecutor as Pool
+
+    before = dict(batcher.stats)
+    payloads = [{"image_b64": npy_b64(img), "phrases": phrases}
+                for img, phrases in reqs]
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    with Pool(clients) as pool:
+        answers = list(pool.map(lambda p: http_call(base + "/predict", p),
+                                payloads))
+    wall = time.perf_counter() - t0
+    launches = read_counts(counters)
+    stats = {k: batcher.stats[k] - before[k] for k in before}
+    lat = sorted(a[2] for a in answers)
+    rows = sum(len(p) for _, p in reqs)
+    return {"answers": answers, "launches": launches,
+            "batches": stats["batches"], "requests": stats["requests"],
+            "rows": stats["rows"], "sent_requests": len(reqs),
+            "sent_rows": rows, "wall_s": wall,
+            "requests_per_s": len(reqs) / wall, "rows_per_s": rows / wall,
+            "p50_ms": 1e3 * lat[len(lat) // 2],
+            "p99_ms": 1e3 * lat[min(len(lat) - 1,
+                                    math.ceil(0.99 * len(lat)) - 1)],
+            "mean_batch_fill": stats["rows"] / max(1,
+                                                   stats["rows_in_batches"])}
+
+
+def http_serve(report: dict, counters, pth: dict) -> dict:
+    """Phase 11b: ``tools/serve.build_server`` in this process on the card,
+    refcoco_det at full width with the URL checkpoint, serve batch 16, 5
+    ms: 64 requests from one client in sequence, then from 16 clients at
+    once; then 16 requests to a float32 server. Checks: every answer 200,
+    boxes finite, inside their image and within HTTP_BOX_TOL of the direct
+    forward's; /healthz, /stats (requests and rows as sent); K1 30 a batch
+    (18 tc, 12 dec in bf16; 18 tf32x3 in float32), K2 and K3 never; 17
+    phrases 500, no phrases 400."""
+    import threading
+
+    import torch
+
+    from reftr_torch.cli.presets import preset_config
+    from reftr_torch.tools import serve as serve_tools
+    from reftr_torch.train.loop import build_tokenizer
+
+    decode = serve_tools.decode_image
+    serve_tools.decode_image = npy_decode
+    print("http: tools/serve.decode_image is a .npy reader in this phase "
+          "(no PIL on this machine); the rest of the HTTP path is the "
+          "package's", flush=True)
+    rng = np.random.default_rng(0)
+    reqs = http_requests(rng, HTTP_REQUESTS)
+    out = {}
+    try:
+        for dtype, loads in (("bfloat16", (("sequential", 1, reqs),
+                                           ("concurrent", HTTP_CLIENTS,
+                                            reqs))),
+                             ("float32", (("concurrent", HTTP_CLIENTS,
+                                           reqs[:HTTP_F32_REQUESTS]),))):
+            cfg = preset_config("refcoco_det", dtype=dtype,
+                                dataset="synthetic", resume=pth["url"])
+            t0 = time.perf_counter()
+            server, batcher = serve_tools.build_server(
+                cfg, "127.0.0.1", 0, HTTP_BATCH, HTTP_TIMEOUT_MS)
+            th = threading.Thread(target=server.serve_forever, daemon=True)
+            th.start()
+            base = f"http://127.0.0.1:{server.server_address[1]}"
+            try:
+                code, warm, _ = http_call(base + "/predict", {
+                    "image_b64": npy_b64(reqs[0][0]),
+                    "phrases": reqs[0][1]})
+                if code != 200:
+                    raise AssertionError(f"http: warm-up {code} {warm}")
+                torch.cuda.synchronize()
+                build_s = time.perf_counter() - t0
+                res = {"build_and_warm_s": build_s, "loads": {}}
+                sent = {"requests": 1, "rows": len(reqs[0][1])}
+                for label, clients, batch in loads:
+                    run = http_load(base, batch, clients, counters, batcher)
+                    want_n = expected_launches(run["batches"], dtype, False)
+                    if run["launches"] != want_n:
+                        raise AssertionError(
+                            f"http {dtype} {label}: launches "
+                            f"{run['launches']} for {run['batches']} "
+                            f"batches, not {want_n}")
+                    sent["requests"] += len(batch)
+                    sent["rows"] += run["sent_rows"]
+                    res["loads"][label] = run
+                code, health, _ = http_call(base + "/healthz", method="GET")
+                code2, stats, _ = http_call(base + "/stats", method="GET")
+                if (code, code2) != (200, 200) or health != {
+                        "ok": True, "batch_size": HTTP_BATCH, "masks": False}:
+                    raise AssertionError(f"http: healthz {code} {health}")
+                if (stats["requests"], stats["rows"]) != (
+                        sent["requests"], sent["rows"]):
+                    raise AssertionError(f"http: stats {stats}, sent {sent}")
+                img = npy_b64(reqs[1][0])
+                errors = {
+                    "17_phrases": http_call(base + "/predict", {
+                        "image_b64": img,
+                        "phrases": ["the box"] * (HTTP_BATCH + 1)})[0],
+                    "no_phrases": http_call(base + "/predict", {
+                        "image_b64": img})[0],
+                    "unknown_path": http_call(base + "/nowhere",
+                                              method="GET")[0]}
+                if errors != {"17_phrases": 500, "no_phrases": 400,
+                              "unknown_path": 404}:
+                    raise AssertionError(f"http: error codes {errors}")
+                # the same rows straight through the server's model, here
+                # (the server is idle)
+                fe = serve_tools.Frontend(cfg, build_tokenizer(cfg))
+                for label, _, batch in loads:
+                    want = direct_boxes(batcher.model, fe, batch)
+                    run = res["loads"][label]
+                    run["preprocess_ms"] = preprocess_ms(fe, batch)
+                    run["box_err"] = check_answers(
+                        f"http {dtype} {label}", batch, run["answers"], want,
+                        HTTP_BOX_TOL[dtype])
+                    if label == "sequential":
+                        res["answers"] = [a[1]["results"]
+                                          for a in run["answers"]]
+                    del run["answers"]
+                res.update(stats=stats, errors=errors)
+            finally:
+                server.shutdown()
+                batcher.stop()
+                server.server_close()
+                th.join(timeout=10)
+            del server, batcher
+            torch.cuda.empty_cache()
+            for label, run in res["loads"].items():
+                print(f"http {dtype} {label} ({report['card']}): "
+                      f"{run['sent_requests']} requests, {run['sent_rows']} "
+                      f"rows in "
+                      f"{run['batches']} batches, {run['wall_s']:.3f} s: "
+                      f"{run['requests_per_s']:.2f} requests/s, "
+                      f"{run['rows_per_s']:.2f} rows/s, p50 "
+                      f"{run['p50_ms']:.2f} ms, p99 {run['p99_ms']:.2f} ms, "
+                      f"mean_batch_fill {run['mean_batch_fill']:.4f}, "
+                      f"Frontend.preprocess {run['preprocess_ms']:.2f} ms "
+                      f"a request (alone, after the load); largest box "
+                      f"error {run['box_err']:.3g} "
+                      f"of the side (tol {HTTP_BOX_TOL[dtype]}); launches "
+                      f"{run['launches']}", flush=True)
+            print(f"http {dtype}: server built, weights loaded by URL and "
+                  f"warmed in {res['build_and_warm_s']:.1f} s; /stats "
+                  f"{res['stats']}; error codes {res['errors']}",
+                  flush=True)
+            out[dtype] = res
+    finally:
+        serve_tools.decode_image = decode
+    report["http"] = {k: {kk: vv for kk, vv in v.items() if kk != "answers"}
+                      for k, v in out.items()}
+    return {"reqs": reqs, "answers": out["bfloat16"]["answers"]}
+
+
+def preprocess_ms(frontend, reqs) -> float:
+    """Host ms a request spends in ``frontend.preprocess`` (decode,
+    transform, tokenizer), each of ``reqs`` timed alone."""
+    payloads = [{"image_b64": npy_b64(img), "phrases": phrases}
+                for img, phrases in reqs]
+    t0 = time.perf_counter()
+    for p in payloads:
+        frontend.preprocess(p)
+    return 1e3 * (time.perf_counter() - t0) / len(payloads)
+
+
+def http_predict(report: dict, counters, pth: dict, served: dict,
+                 tmp: Path) -> dict:
+    """Phase 11c: ``reftr_torch.cli.predict.main`` on the card with the
+    .pth path (bf16, the command line's default dtype), on two of 11b's
+    images and their phrases: each phrase's box within 2e-2 of the side of
+    11b's answer; 30 launches of K1 a call. data/datasets._load_image is a
+    .npy reader here (no cv2 or PIL on this machine)."""
+    import contextlib
+    import io
+
+    from reftr_torch.cli import predict
+    from reftr_torch.data import datasets
+
+    load = datasets._load_image
+    datasets._load_image = lambda path: np.load(path, allow_pickle=False)
+    runs = []
+    try:
+        for i in (0, 2):
+            img, phrases = served["reqs"][i]
+            path = tmp / f"image{i}.npy"
+            np.save(path, img)
+            argv = ["--preset", "refcoco_det", "--dataset", "synthetic",
+                    "--resume", pth["path"], "--image", str(path)]
+            for ph in phrases:
+                argv += ["--phrase", ph]
+            buf = io.StringIO()
+            reset_counts(counters)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = predict.main(argv)
+            secs = time.perf_counter() - t0
+            launches = read_counts(counters)
+            lines = [json.loads(x) for x in buf.getvalue().splitlines()
+                     if x.startswith("{")]
+            want = expected_launches(1, "bfloat16", False)
+            if rc != 0 or launches != want:
+                raise AssertionError(f"predict: rc {rc}, launches "
+                                     f"{launches}, not {want}")
+            side = max(img.shape[:2])
+            errs = [float(np.abs(np.array(g["box_xyxy"])
+                                 - np.array(w["box_xyxy"])).max()) / side
+                    for g, w in zip(lines, served["answers"][i])]
+            if ([g["phrase"] for g in lines] != phrases
+                    or not max(errs) <= HTTP_BOX_TOL["bfloat16"]):
+                raise AssertionError(f"predict: {lines} against 11b's "
+                                     f"{served['answers'][i]}")
+            runs.append({"request": i, "phrases": len(phrases), "s": secs,
+                         "box_err": max(errs), "launches": launches,
+                         "lines": lines})
+            print(f"predict ({report['card']}): image {img.shape[:2]}, "
+                  f"{len(phrases)} phrases in {secs:.2f} s (model build and "
+                  f".pth load included); largest error against 11b "
+                  f"{max(errs):.3g} of the side; {lines}", flush=True)
+    finally:
+        datasets._load_image = load
+    report["predict"] = runs
+    return report
+
+
+def phase11(report: dict, counters) -> dict:
+    """Phase 11: a reference .pth at full width over HTTP (11a-c). The
+    files live in a temporary directory, deleted after."""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    cache = os.environ.get("REFTR_CACHE_DIR")
+    with tempfile.TemporaryDirectory() as d:
+        try:
+            pth = pth_round_trip(report, Path(d))
+            served = http_serve(report, counters, pth)
+            http_predict(report, counters, pth, served, Path(d))
+        finally:
+            if cache is None:
+                os.environ.pop("REFTR_CACHE_DIR", None)
+            else:
+                os.environ["REFTR_CACHE_DIR"] = cache
+    print(f"http: phase 11 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return report
+
+
+def http_launches(report: dict) -> dict:
+    """The launches of phase 11's loads (11b) and predict calls (11c),
+    summed."""
+    runs = [run["launches"] for res in report["http"].values()
+            for run in res["loads"].values()]
+    runs += [r["launches"] for r in report["predict"]]
+    return {k: sum(n[k] for n in runs) for k in runs[0]}
+
+
 CHILDREN = {"child-cli": child_cli, "child-pair": child_pair,
             "child-times": child_times}
 
@@ -4542,10 +5105,11 @@ def kernel_line(report: dict) -> list:
     serving) and phase 8's runs of the entry point (multi-phrase and its
     eval-only pass, four feature levels, RoBERTa), phase 9a's DDP run
     of the entry point and phase 10's runs (the from-scratch recipe through
-    the entry point, its eval-only pass and its serving), split in
+    the entry point, its eval-only pass and its serving) and phase 11's
+    (the HTTP server's loads and predict), split in
     ``launches_serve``, ``launches_train``, ``launches_cli``,
-    ``launches_res``, ``launches_multi``, ``launches_ddp`` and
-    ``launches_scratch``.
+    ``launches_res``, ``launches_multi``, ``launches_ddp``,
+    ``launches_scratch`` and ``launches_http``.
     The decode backward has one row for K2 and K3, whose launches it is
     counted in. Every site's numbers are in the JSON report written before
     it."""
@@ -4678,9 +5242,12 @@ def kernel_line(report: dict) -> list:
     # error of each variant at the recipe's sites (its max_abs_err
     # includes them)
     scratch_n = scratch_launches(report)
+    http_n = http_launches(report)
     for entry in out:
         entry["launches_scratch"] = row_launches(entry, scratch_n)
-        entry["launches"] += entry["launches_scratch"]
+        entry["launches_http"] = row_launches(entry, http_n)
+        entry["launches"] += (entry["launches_scratch"]
+                              + entry["launches_http"])
         entry.update(scratch_err(report, entry))
     return out
 
@@ -4945,6 +5512,8 @@ def main() -> int:
     phase8(report, counters)
     phase9(report)
     phase10(report, counters)
+    torch.cuda.empty_cache()
+    phase11(report, counters)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -72,7 +72,6 @@ NOT_PORTED = {
     "no_donate_state": f"the JAX step's knobs ({_ITEM} 9)",
     "debug_nans": f"the JAX step's knobs ({_ITEM} 9)",
     "profile_dir": f"the profiler tools ({_ITEM} 10)",
-    "visualize": f"the visual dump ({_ITEM} 10)",
 }
 
 
@@ -333,6 +332,7 @@ def args_to_config(args: argparse.Namespace) -> RefTRConfig:
     t.start_epoch = args.start_epoch
     t.run_epoch = args.run_epoch
     t.eval_only = args.eval
+    t.visualize = args.visualize
     t.pretrained_model = args.pretrained_model
     return cfg
 

@@ -169,8 +169,10 @@ class TrainConfig:
     resume: str = ""
     auto_resume: bool = False
     resume_model_only: bool = False
-    pretrained_model: Optional[str] = None  # a checkpoint of the port
+    # a URL, a reference .pth or a checkpoint of the port
+    pretrained_model: Optional[str] = None
     eval_only: bool = False
+    visualize: bool = False  # visual dumps under output_dir/vis with --eval
 
 
 @dataclass

@@ -12,13 +12,16 @@ as ``mask_area_px`` and ``mask_shape`` (reftr_tpu/tools/serve.py:
 246-255). ``MicroBatcher``
 collects request rows into such batches: a batch runs when it is full or
 ``timeout_ms`` after its first row arrived, and while batch N computes the
-host collects and dispatches batch N+1 before it fetches N. An exception
-in a batch is reported on each of its requests (``Request.error``), never
-raised in the batcher's thread.
+host collects and dispatches batch N+1 before it fetches N (with
+``pipeline=False`` each batch is fetched before the next is dispatched).
+The model runs in the batcher's thread only. An exception in a batch is
+reported on each of its requests (``Request.error``), never raised in the
+batcher's thread.
 
-A request arrives as model rows: canvases and token ids. The HTTP
-frontend, image decoding and the tokenizer (reftr_tpu's ``Frontend``) come
-with a later slice.
+A request arrives here as model rows: canvases and token ids.
+``tools/serve.py`` is the HTTP front end that makes them from an encoded
+image and phrases (``Frontend``), and ``cli/predict.py`` the one-image
+command line.
 
 Usage::
 
@@ -102,17 +105,24 @@ class ServingModel:
 
     Weights come from ``state_dict`` (for example ``convert.from_flax`` of
     a reftr_tpu checkpoint) or, without one, from ``init_params`` with a
-    generator seeded by ``seed``."""
+    generator seeded by ``seed``; then ``resume`` (a URL, a reference
+    ``.pth`` or a checkpoint of the port) is merged in non-strictly by
+    ``train.loop.load_pretrained``, as the JAX server loads its weights
+    (reftr_tpu/tools/export_model.py:147-176)."""
 
     def __init__(self, cfg: RefTRConfig, batch_size: int,
                  device: Union[str, torch.device] = "cuda",
                  state_dict: Optional[Mapping[str, torch.Tensor]] = None,
-                 seed: int = 0):
+                 seed: int = 0, resume: str = ""):
         self.cfg = cfg
         self.batch_size = batch_size
         self.device = resolve_device(device)
-        self.model = build_model(cfg.model, self.device, state_dict,
-                                 seed).eval().cast_to_compute_dtype()
+        model = build_model(cfg.model, self.device, state_dict, seed)
+        if resume:
+            from reftr_torch.train.loop import load_pretrained
+
+            load_pretrained(model, resume, cfg)
+        self.model = model.eval().cast_to_compute_dtype()
 
     def to_device(self, batch: Mapping[str, np.ndarray]
                   ) -> Dict[str, torch.Tensor]:
@@ -146,11 +156,14 @@ class MicroBatcher:
     """Collects request rows into static-shape batches and runs the model.
 
     Flush policy: the batch runs when it is full or ``timeout_ms`` after
-    its first row arrived."""
+    its first row arrived. ``pipeline=False`` fetches each batch before
+    the next dispatch."""
 
-    def __init__(self, model: ServingModel, timeout_ms: float = 5.0):
+    def __init__(self, model: ServingModel, timeout_ms: float = 5.0,
+                 pipeline: bool = True):
         self.model = model
         self.timeout_s = timeout_ms / 1e3
+        self.pipeline = pipeline
         self.q: "queue.Queue[Request]" = queue.Queue()
         self.stats = {"requests": 0, "rows": 0, "batches": 0,
                       "rows_in_batches": 0, "dispatch_overlaps": 0}
@@ -213,7 +226,10 @@ class MicroBatcher:
             if inflight is not None:
                 self.stats["dispatch_overlaps"] += 1
                 self._finish(*inflight)  # overlaps `group` on the device
-            inflight = (group, out)
+            if self.pipeline:
+                inflight = (group, out)
+            else:
+                self._finish(group, out)
         if inflight is not None:
             self._finish(*inflight)
 

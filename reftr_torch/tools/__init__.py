@@ -1,2 +1,2 @@
 """reftr_torch.tools (port of reftr_tpu.tools): the multi-process
-launcher."""
+launcher, the HTTP server and the visual dumps."""

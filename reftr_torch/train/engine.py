@@ -17,8 +17,10 @@ pixels by image id. Its sums stay on the device and are read once per
 pass; under a process group they are summed over the ranks first (JAX's
 ``allreduce_sum_host``, reftr_tpu/train/engine.py:212-213), so every rank
 reports the global stats, and the ranks' boxes are gathered, so that every
-rank holds the whole split's. There is no profiler hook and no visual
-dump (``visualize_dir`` needs PIL; ROADMAP.md queue 1 item 10).
+rank holds the whole split's. With ``visualize_dir`` it writes the
+reference's qualitative dumps of the first VISUALIZE_LIMIT (64) samples
+(engine_vg.py:86-197; ``tools/visualize.py``, PIL) on rank 0. There is no
+profiler hook (``--profile_dir``, ROADMAP.md queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -33,11 +35,14 @@ import torch.distributed as dist
 
 from reftr_torch.core import distributed
 from reftr_torch.core.metrics import MetricLogger, SmoothedValue
-from reftr_torch.models.postprocess import decode_boxes
+from reftr_torch.models.postprocess import decode_boxes, segm_masks
+from reftr_torch.ops.boxes import box_cxcywh_to_xyxy
 from reftr_torch.train.state import TrainState
 
 # target keys the steps do not read: kept on the host
 HOST_TARGET_KEYS = ("orig_size", "size", "image_id")
+# samples with visual dumps under --visualize (engine_vg.py's eval)
+VISUALIZE_LIMIT = 64
 
 
 def _strip_target(t: Dict) -> Dict:
@@ -76,21 +81,56 @@ def train_one_epoch(train_step, state: TrainState, loader: Iterable,
     return state, {k: m.global_avg for k, m in logger.meters.items()}
 
 
+def _dump_visuals(out_dir: str, idx_base: int, samples, targets,
+                  out) -> None:
+    """Per-sample dumps (reftr_tpu/train/engine.py:111-148): the first
+    query's box and the true box at the canvas' scale, the mask (logits
+    upsampled to the canvas, sigmoid > 0.5), the true mask and the
+    attention maps of each head."""
+    from reftr_torch.tools.visualize import dump_eval_visuals
+
+    images = np.asarray(samples["image"])  # uint8 canvases
+    sizes = np.asarray(targets["size"]).astype(np.float32)  # resized (h, w)
+    pred = decode_boxes(out["pred_boxes"].float()).cpu().numpy()
+    gt = box_cxcywh_to_xyxy(torch.as_tensor(
+        np.asarray(targets["boxes"]))).numpy()
+    masks = out.get("pred_masks")
+    if masks is not None:
+        masks = segm_masks(masks[:, :1], images.shape[1:3])[:, 0]
+        masks = masks.cpu().numpy()
+    att = out.get("mask_att")
+    if att is not None:
+        att = att.float().cpu().numpy()
+    for i in range(images.shape[0]):
+        h, w = sizes[i]
+        scale = np.array([w, h, w, h], np.float32)
+        dump_eval_visuals(
+            out_dir, idx_base + i, images[i], pred[i, 0] * scale,
+            gt[i, 0] * scale,
+            pred_mask=None if masks is None else masks[i],
+            gt_mask=(np.asarray(targets["masks"])[i] if "masks" in targets
+                     else None),
+            attention=None if att is None else att[i])
+
+
 def evaluate(eval_step, loader: Iterable,
              weight_dict: Optional[Dict[str, float]] = None,
              print_freq: int = 50, collect_results: bool = False,
-             print_fn=print) -> Tuple[Dict[str, float], Dict[int, Any]]:
+             print_fn=print, visualize_dir: str = ""
+             ) -> Tuple[Dict[str, float], Dict[int, Any]]:
     """Returns (stats, results). stats: accuracy_iou0.5, miou, seg_miou
     when the step gives sum_seg_iou and cnt_seg (RES) and, with a
     ``weight_dict``, the batches' mean of the total loss and of each
     scaled term but the auxiliary layers' (engine_vg.py:221-222). results
     (with ``collect_results``): image id -> the valid rows' boxes, xyxy in
     the original image's pixels. Rows of a padded batch whose boxes are
-    all invalid are skipped, so they cannot overwrite a real entry."""
+    all invalid are skipped, so they cannot overwrite a real entry. With
+    ``visualize_dir``, rank 0 writes the visual dumps of the first
+    VISUALIZE_LIMIT samples under <visualize_dir>/vis/."""
     logger = MetricLogger(print_fn=print_fn)
     totals = None  # device float64: scaled losses, then the metric sums
     names: list = []
-    n_batches = n_rows = 0
+    n_batches = n_rows = n_dumped = 0
     boxes, rows = [], []
     for samples, targets in logger.log_every(loader, print_freq, "Test:"):
         out, losses, sums = eval_step(samples, _strip_target(targets))
@@ -104,6 +144,10 @@ def evaluate(eval_step, loader: Iterable,
         vec = torch.stack([v.detach().double() for v in values.values()])
         totals = vec if totals is None else totals + vec
         n_batches += 1
+        if (visualize_dir and n_dumped < VISUALIZE_LIMIT
+                and distributed.is_main_process()):
+            _dump_visuals(visualize_dir, n_dumped, samples, targets, out)
+        n_dumped += len(samples["image"])
         if collect_results:
             sizes = torch.from_numpy(targets["orig_size"]).to(
                 out["pred_boxes"].device, torch.float32)

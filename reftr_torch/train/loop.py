@@ -10,11 +10,12 @@ card or on many under DDP, one process each.
   * the host seed np.random.seed(seed + rank) (:174-177), and loaders
     that give each rank its own shard (``parallel/sharding.py``);
   * the tokenizer, the loaders, the model and optimizer (``TrainState``);
-  * a pretrained init from a checkpoint of the port, merged non-strictly
-    with a report of missing and unexpected keys (:298-349);
+  * a pretrained init (``load_pretrained``: a URL, a reference ``.pth``
+    by ``nn/convert.py``, or a checkpoint of the port), merged
+    non-strictly with a report of missing and unexpected keys (:298-349);
   * resume, or auto-resume from <output_dir>/checkpoint (:299-303), or
     the weights alone (resume_model_only), read by every rank onto its own
-    card;
+    card; a URL resume (:307-309) restores the model's weights only;
   * epochs of training with an eval of every test split after each, the
     best checkpoint on the first split's accuracy_iou0.5 (:399-412), the
     periodic checkpoint{epoch:04d} on lr_drop and ckpt_cycle boundaries
@@ -39,7 +40,7 @@ import numpy as np
 import torch
 
 from reftr_torch.core import checkpoint as ckpt_lib
-from reftr_torch.core import distributed
+from reftr_torch.core import distributed, hub
 from reftr_torch.core.config import RefTRConfig
 from reftr_torch.core.device import resolve_device
 from reftr_torch.core.logging import log_stats, master_print
@@ -49,12 +50,13 @@ from reftr_torch.data.loader import DataLoader
 from reftr_torch.data.native import ByteLevelBPETokenizer, WordPieceTokenizer
 from reftr_torch.data.samplers import NodeShardedSampler, ShardedSampler
 from reftr_torch.models.criterion import weight_dict as build_weight_dict
+from reftr_torch.nn.convert import convert_for, load_torch_checkpoint
 from reftr_torch.parallel.sharding import check_data_axis, loader_shards
 from reftr_torch.train.engine import evaluate, train_one_epoch
 from reftr_torch.train.state import TrainState
 from reftr_torch.train.steps import make_eval_step, make_train_step
 
-_NOT_PORTED_CHECKPOINTS = (".pth", ".pt", ".bin")
+_TORCH_CHECKPOINTS = (".pth", ".pt", ".bin")
 
 
 def build_tokenizer(cfg: RefTRConfig):
@@ -121,12 +123,23 @@ def build_loaders(cfg: RefTRConfig, tokenizer, num_shards: int = 1,
     return train_loader, test_loaders
 
 
-def _refuse_foreign(path: str) -> None:
-    if "://" in path or path.endswith(_NOT_PORTED_CHECKPOINTS):
-        raise NotImplementedError(
-            f"{path}: URL and .pth checkpoints of the reference are not "
-            f"ported yet (ROADMAP.md queue 1 item 11); give a checkpoint of "
-            f"this port")
+def load_pretrained(model: torch.nn.Module, path: str, cfg: RefTRConfig,
+                    log=master_print) -> Dict[str, list]:
+    """Merge the weights of ``path`` into ``model`` non-strictly and
+    return the report of missing, unexpected and shape-skipped keys
+    (reftr_tpu/train/loop.py:120-154). ``path`` is a URL (fetched into the
+    cache by ``core/hub.py``), a reference ``.pth``/``.pt``/``.bin``
+    (converted by ``nn/convert.py``; a DETR checkpoint gives the backbone
+    and the encoder), or a checkpoint of the port. The JAX package then
+    folds the backbone for its TPU flags (``optimize_backbone_in_tree``);
+    without them that is the identity, and the port's CLI refuses them."""
+    if hub.is_url(path):
+        path = hub.download_checkpoint(path, progress_fn=log)
+    if path.endswith(_TORCH_CHECKPOINTS):
+        pretrained = convert_for(load_torch_checkpoint(path), cfg.model)
+    else:
+        pretrained = ckpt_lib.load_checkpoint(path)["model"]
+    return ckpt_lib.load_pretrained_nonstrict(model, pretrained, log=log)
 
 
 def _save(out_dir: str, name: str, state: TrainState, full: bool,
@@ -188,10 +201,7 @@ def run_training(cfg: RefTRConfig,
                  f"{time.perf_counter() - t0:.3f} s")
 
     if cfg.train.pretrained_model:
-        _refuse_foreign(cfg.train.pretrained_model)
-        payload = ckpt_lib.load_checkpoint(cfg.train.pretrained_model)
-        ckpt_lib.load_pretrained_nonstrict(state.model, payload["model"],
-                                           log=master_print)
+        load_pretrained(state.model, cfg.train.pretrained_model, cfg)
 
     out_dir = cfg.train.output_dir
     start_epoch = cfg.train.start_epoch
@@ -202,8 +212,18 @@ def run_training(cfg: RefTRConfig,
     if (not resume and cfg.train.auto_resume and out_dir
             and ckpt_lib.checkpoint_exists(out_dir, "checkpoint")):
         resume = os.path.join(out_dir, "checkpoint")
+    if resume and hub.is_url(resume):
+        # the reference's URL checkpoints hold a torch optimizer of their
+        # own module order: the weights alone are restored, as in JAX
+        load_pretrained(state.model, resume, cfg)
+        master_print(f"Resumed model weights from URL {resume}")
+        resume = ""
+    if resume and resume.endswith(_TORCH_CHECKPOINTS):
+        raise ValueError(
+            f"--resume {resume}: a reference .pth holds no state of this "
+            f"port to resume; load its weights with --pretrained_model, or "
+            f"give it to --resume as a URL")
     if resume:
-        _refuse_foreign(resume)
         # every rank onto its own device; the checkpoint holds rank 0's
         # generator, which is every rank's (the rank is folded in at each
         # draw, train/steps.py)
@@ -229,9 +249,12 @@ def run_training(cfg: RefTRConfig,
     def run_eval() -> Dict[str, Dict]:
         all_stats = {}
         for split, loader in test_loaders.items():
+            vis_dir = (out_dir if cfg.train.eval_only and cfg.train.visualize
+                       else "")
             stats, results = evaluate(eval_step, loader, weight_dict=wdict,
                                       collect_results=bool(out_dir),
-                                      print_fn=master_print)
+                                      print_fn=master_print,
+                                      visualize_dir=vis_dir)
             # unrounded, so a log can be checked against it
             master_print(f"[{split}] " + json.dumps(stats))
             if out_dir and distributed.is_main_process():

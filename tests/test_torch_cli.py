@@ -144,12 +144,21 @@ NOT_PORTED_ARGVS = {
     "use_pallas_attention": ["--use_pallas_attention", "on"],
     "no_donate_state": ["--no_donate_state"],
     "debug_nans": ["--debug_nans"], "profile_dir": ["--profile_dir", "p"],
-    "visualize": ["--visualize"],
 }
 
 
 def test_every_not_ported_flag_is_tested():
     assert set(NOT_PORTED_ARGVS) == set(cli.NOT_PORTED)
+
+
+def test_visualize_parses_to_the_jax_config():
+    """--visualize, refused before the visual dump was ported, sets what
+    JAX's sets (tests/test_torch_serve_http.py runs the dump)."""
+    argv = ["--preset", "refcoco_det", "--eval", "--visualize"]
+    got = cli.args_to_config(parse(cli, argv))
+    want = jax_main.args_to_config(parse(jax_main, argv))
+    assert got.train.visualize is want.train.visualize is True
+    assert got.train.eval_only is want.train.eval_only is True
 
 
 RES_ARGVS = {

@@ -1646,3 +1646,61 @@ def test_from_scratch_recipe_trains_healthy(gen, tmp_path, monkeypatch):
           f"(relpairdist, layer4 absmax) {probes}")
     assert probes["checkpoint"][0] > 0.1, probes
     assert all(f < 1e4 for _, f in probes.values()), probes
+
+
+def test_http_server_serves_on_the_card(gen, monkeypatch):
+    """tools/serve.build_server on the card at a tiny size (d=32, 2+2 VL
+    layers, BERT-tiny, 64 px, float32, seeded init): a 200 round trip that
+    launched K1, whose boxes equal the same rows run straight through the
+    server's model within 1e-4 of the image's side (the same float32
+    forward in another batch), and 400, 404 and 500 as the JAX server
+    answers them. Images go as .npy bytes, as in chip_smoke.py phase 11
+    (the card's machine has no PIL)."""
+    import threading
+
+    import numpy as np
+
+    from reftr_torch.core.config import (BertConfig, DataConfig,
+                                         ModelConfig, RefTRConfig)
+    from reftr_torch.tools import serve as serve_tools
+    from reftr_torch.train.loop import build_tokenizer
+
+    monkeypatch.setattr(serve_tools, "decode_image", chip_smoke.npy_decode)
+    cfg = RefTRConfig(
+        model=ModelConfig(bert=BertConfig.tiny(), enc_layers=2, dec_layers=2,
+                          dim_feedforward=64, hidden_dim=32, nheads=4),
+        data=DataConfig(dataset="synthetic", img_size=64, max_img_size=64,
+                        max_query_len=12))
+    server, batcher = serve_tools.build_server(cfg, "127.0.0.1", 0, 4, 5.0)
+    with torch.no_grad():  # at init the box head's last layer is zero
+        batcher.model.model.bbox_embed.layers[-1].weight.normal_(
+            0.0, 0.02, generator=gen)
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    rng = np.random.default_rng(0)
+    reqs = [(rng.integers(0, 256, (48, 64, 3), dtype=np.uint8),
+             ["the red box", "left"]),
+            (rng.integers(0, 256, (80, 56, 3), dtype=np.uint8),
+             ["green block on the right"])]
+    try:
+        before = flash_attention.launches
+        answers = [chip_smoke.http_call(base + "/predict", {
+            "image_b64": chip_smoke.npy_b64(img), "phrases": phrases})
+            for img, phrases in reqs]
+        assert flash_attention.launches > before
+        img = chip_smoke.npy_b64(reqs[0][0])
+        codes = [chip_smoke.http_call(base + "/predict",
+                                      {"image_b64": img})[0],
+                 chip_smoke.http_call(base + "/nowhere", method="GET")[0],
+                 chip_smoke.http_call(base + "/predict", {
+                     "image_b64": img,
+                     "phrases": [f"p{i}" for i in range(5)]})[0]]
+        assert codes == [400, 404, 500]
+        fe = serve_tools.Frontend(cfg, build_tokenizer(cfg))
+        want = chip_smoke.direct_boxes(batcher.model, fe, reqs)
+        chip_smoke.check_answers("card http", reqs, answers, want, 1e-4)
+    finally:
+        server.shutdown()
+        batcher.stop()
+        server.server_close()

@@ -19,8 +19,9 @@ optimizer state and logged numbers, bit for bit, as one epoch, a stop and
 an auto-resumed second epoch (the checkpoint carries the dropout
 generator, and the sampler's epoch comes from the restored epoch); an LR
 overridden on resume takes effect, as in tests/test_loop.py; eval-only on
-the saved checkpoint gives the last epoch's test stats; and without a card
-``run_training`` refuses the default device.
+the saved checkpoint gives the last epoch's test stats; a local reference
+``.pth`` given to resume is refused; and without a card ``run_training``
+refuses the default device.
 """
 
 import dataclasses
@@ -218,10 +219,15 @@ def test_resume_refuses_a_weights_only_checkpoint(trained, tmp_path):
         run_training(cfg, device="cpu")
 
 
-@pytest.mark.parametrize("path", ["model.pth", "https://host/ckpt.pth"])
+@pytest.mark.parametrize("path", ["model.pth", "model.bin"])
 def test_foreign_checkpoints_are_refused(tmp_path, path):
-    cfg = port_config(tmp_path, pretrained_model=path)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    """A reference checkpoint holds no state of the port to resume: a
+    local one given to --resume is refused, naming the flags that load its
+    weights (--pretrained_model, or a URL --resume; those are
+    tests/test_torch_checkpoint_interchange.py's)."""
+    torch.save({"model": {}}, tmp_path / path)
+    cfg = port_config(tmp_path, resume=str(tmp_path / path))
+    with pytest.raises(ValueError, match="--pretrained_model"):
         run_training(cfg, device="cpu")
 
 
