@@ -21,9 +21,6 @@ import json
 import sys
 from typing import List
 
-import numpy as np
-import torch
-
 
 def get_args_parser() -> argparse.ArgumentParser:
     from reftr_torch.cli.main import get_args_parser as base_parser
@@ -41,62 +38,26 @@ def get_args_parser() -> argparse.ArgumentParser:
 def predict(args: argparse.Namespace) -> List[dict]:
     from reftr_torch.cli.main import args_to_config
     from reftr_torch.data.datasets import _load_image
-    from reftr_torch.data.transforms import transform_sample
-    from reftr_torch.models.postprocess import decode_boxes
-    from reftr_torch.serve import ServingModel, mask_to_original
+    from reftr_torch.serve import ServingModel, answer, box_pixels
+    from reftr_torch.tools.serve import Frontend
     from reftr_torch.train.loop import build_tokenizer
 
     cfg = args_to_config(args)
-    d = cfg.data
-    tokenizer = build_tokenizer(cfg)
     img = _load_image(args.image)
-    ts = transform_sample(img, np.zeros((0, 4), np.float32), d.img_size,
-                          d.max_img_size, train=False)
-    oh, ow = ts.valid_hw
-    valid = np.zeros((d.max_img_size, d.max_img_size), bool)
-    valid[:oh, :ow] = True
-
-    phrases = list(args.phrase)
-    b = len(phrases)
-    ids = np.zeros((b, d.max_query_len), np.int32)
-    svalid = np.zeros((b, d.max_query_len), bool)
-    for i, ph in enumerate(phrases):
-        ii, mm, _ = tokenizer.encode(ph.lower(), d.max_query_len)
-        ids[i], svalid[i] = ii, mm
-    batch = {
-        "image": np.broadcast_to(ts.canvas, (b,) + ts.canvas.shape).copy(),
-        "image_valid": np.broadcast_to(valid, (b,) + valid.shape).copy(),
-        "sentence": ids,
-        "sentence_valid": svalid,
-    }
-
+    # the server's rows: one per phrase over the same canvas
+    req = Frontend(cfg, build_tokenizer(cfg)).rows(img, list(args.phrase))
     if not cfg.train.resume:
         print("WARNING: no --resume checkpoint; predicting with random "
               "weights", file=sys.stderr)
-    model = ServingModel(cfg, b, device=args.device, resume=cfg.train.resume)
-    out = model(batch)
-    # normalised cxcywh on the image's extent -> the original's pixels: the
-    # extent is the original resized (data/transforms.py)
-    boxes = decode_boxes(torch.from_numpy(
-        out["pred_boxes"].astype(np.float32)))[:, 0].numpy()  # [b, 4] xyxy
-    h0, w0 = ts.orig_hw
-    boxes_px = boxes * np.array([w0, h0, w0, h0], np.float32)
-
-    results = []
-    for i, ph in enumerate(phrases):
-        r = {"phrase": ph,
-             "box_xyxy": [round(float(v), 2) for v in boxes_px[i]]}
-        if "masks" in out:
-            m = mask_to_original(out["masks"][i], ts.valid_hw, ts.orig_hw)
-            r["mask_area_px"] = int(m.sum())
-            r["mask_shape"] = list(m.shape)
-        results.append(r)
-
+    model = ServingModel(cfg, req.k, device=args.device,
+                         resume=cfg.train.resume)
+    out = model(req.rows)
     if args.output:
         from reftr_torch.tools.visualize import draw_boxes
 
-        draw_boxes(img, boxes_px).save(args.output, quality=92)
-    return results
+        draw_boxes(img, box_pixels(out["pred_boxes"], req.orig_hw)).save(
+            args.output, quality=92)
+    return answer(req, out)
 
 
 def main(argv=None) -> int:

@@ -99,6 +99,36 @@ def mask_to_original(mask: np.ndarray, valid_hw, orig_hw) -> np.ndarray:
     return m[ys][:, xs]
 
 
+def box_pixels(pred_boxes: np.ndarray, orig_hw) -> np.ndarray:
+    """Rows' boxes [k, Q, 4], normalised cxcywh on the image's extent ->
+    query 0's xyxy in the original image's pixels [k, 4]: the extent is
+    the original resized (data/transforms.py)."""
+    boxes = decode_boxes(torch.from_numpy(
+        pred_boxes.astype(np.float32)))[:, 0].numpy()
+    h0, w0 = orig_hw
+    return boxes * np.array([w0, h0, w0, h0], np.float32)
+
+
+def answer(req: Request, out: Mapping[str, np.ndarray],
+           row: int = 0) -> List[dict]:
+    """The answer to ``req`` from a fetched batch ``out`` whose rows
+    ``row`` to ``row + req.k`` are its own: per phrase the box in the
+    original image's pixels to 2 decimals and, for RES, the mask's area
+    and shape (``mask_to_original``)."""
+    boxes = box_pixels(out["pred_boxes"][row:row + req.k], req.orig_hw)
+    results = []
+    for i, ph in enumerate(req.phrases or [""] * req.k):
+        r = {"phrase": ph, "box_xyxy": [round(float(v), 2)
+                                        for v in boxes[i]]}
+        if "masks" in out:
+            m = mask_to_original(out["masks"][row + i], req.valid_hw,
+                                 req.orig_hw)
+            r["mask_area_px"] = int(m.sum())
+            r["mask_shape"] = list(m.shape)
+        results.append(r)
+    return results
+
+
 class ServingModel:
     """RefTR (RefTRSeg with ``masks``) on its device at a static batch
     size.
@@ -245,24 +275,9 @@ class MicroBatcher:
     def _postprocess(self, group: List[Request], out) -> None:
         self.stats["batches"] += 1
         self.stats["rows_in_batches"] += self.model.batch_size
-        boxes = decode_boxes(torch.from_numpy(
-            out["pred_boxes"].astype(np.float32)))[:, 0].numpy()  # [B, 4]
         row = 0
         for g in group:
-            h0, w0 = g.orig_hw
-            scale = np.array([w0, h0, w0, h0], np.float32)
-            phrases = g.phrases or [""] * g.k
-            g.result = []
-            for i, ph in enumerate(phrases):
-                r = {"phrase": ph,
-                     "box_xyxy": [round(float(v), 2)
-                                  for v in boxes[row + i] * scale]}
-                if "masks" in out:
-                    m = mask_to_original(out["masks"][row + i], g.valid_hw,
-                                         g.orig_hw)
-                    r["mask_area_px"] = int(m.sum())
-                    r["mask_shape"] = list(m.shape)
-                g.result.append(r)
+            g.result = answer(g, out, row)
             self.stats["requests"] += 1
             self.stats["rows"] += g.k
             row += g.k

@@ -62,14 +62,20 @@ class Frontend:
         self.tokenizer = tokenizer
 
     def preprocess(self, payload: dict) -> Request:
-        from reftr_torch.data.transforms import transform_sample
-
         phrases = payload.get("phrases") or []
         if not phrases or not isinstance(phrases, list):
             raise ValueError("payload needs a non-empty 'phrases' list")
         if "image_b64" not in payload:
             raise ValueError("payload needs 'image_b64'")
-        img = decode_image(base64.b64decode(payload["image_b64"]))
+        return self.rows(decode_image(base64.b64decode(payload["image_b64"])),
+                         phrases)
+
+    def rows(self, img: np.ndarray, phrases) -> Request:
+        """An [H, W, 3] uint8 image and its phrases -> a Request of one
+        row per phrase: the image's canvas and validity mask, each
+        phrase's token ids."""
+        from reftr_torch.data.transforms import transform_sample
+
         d = self.cfg.data
         ts = transform_sample(img, np.zeros((0, 4), np.float32),
                               d.img_size, d.max_img_size, train=False)
