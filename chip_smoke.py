@@ -341,16 +341,46 @@ Phases, in order; any failure raises and the script exits non-zero:
    reftr_torch.cli.predict.main with the .pth path on two of b)'s images
    (data/datasets._load_image a .npy reader): each phrase's box within
    1e-3 of the side of b)'s answer, 30 launches of K1 a call.
-12. Print one JSON line listing each kernel (each variant on a row of its
+12. The exported serving forward (reftr_torch/tools/export_model.py), on
+   phase 11's .pth and in its temporary directory. a) refcoco_det at full
+   width exported at the server's batch of 16 on the card, in bf16 and in
+   float32: the model built and the .pth loaded, torch.export, save
+   and load seconds and the artefact's bytes. b) The loaded program in a
+   ServingModel (``exported_dir``) against the live ServingModel of the
+   same .pth on two serve batches of 11b's requests: pred_boxes within
+   1e-5 max abs in float32 (JAX's --selfcheck limit) and 1e-3 in bf16
+   (phase 11's); K1 exactly 30 launches a batch through the program by
+   the rule (18 tc or tf32x3, 12 dec), K2, K3 and plain none; every call
+   of the op (torch.ops.reftr.flash_attention_fwd) in one batch recorded
+   by a dispatch mode, and its outputs' shapes, strides and dtypes equal
+   to the op's fake's on the same inputs. c) tools/serve.build_server
+   with ``exported_dir`` on the bf16 artefact, asked for batch 8 (the
+   manifest's 16 must win): 16 of 11b's requests from 16 clients, every
+   answer 200 and each box within 1e-3 of the image's side of 11b's
+   answer; /healthz, /stats as sent; K1 30 a batch. d) The op's host
+   cost: 50 back-to-back K1 calls through the op, through its
+   implementation (attention._fwd_op_cuda) and through the same
+   implementation as a torch.library.custom_op, at BERT-base 40^2 (B=16) and
+   the encoder's 440^2 (B=8), bf16, in turns; the bf16 batch-8 serving
+   forward's host ms with flash_attention through the op and through the
+   implementation, in turns; K1 at phase 11's sites of the server's batch
+   (BERT-base 40^2, the decoder's 1x1 and 1x440, B=16, bf16) and SDPA on
+   the same inputs: device ms by CUDA events with the calls queued behind
+   a sleep kernel (the host kept out), beside the bound. e) tools/op_profile.profile("rec") (its
+   table must name K1's tc and dec kernels), tools/conv_profile.profile()
+   (B=32, 640 px) and phase 6's entry point with --profile_dir over 12
+   steps (steps 10-11 traced): a trace written that names a K1 kernel, 30
+   launches of each kernel a step and of K1 an eval batch.
+13. Print one JSON line listing each kernel (each variant on a row of its
    own; the decode backward on one row for K2 and K3) with its launches
-   on the main paths (phase 8's, 10's and 11's runs included, also on
-   their own), its error (phase 10's and 11's checks at their own sites
+   on the main paths (phase 8's, 10's, 11's and 12's runs included, also
+   on their own), its error (phase 10's and 11's checks at their own sites
    also on their own), and its times and bound at the call site where
    the main path launches it (the decoder's cross-attention for the
    decode and SIMT kernels, the VL encoder for the tensor-core kernels, in
    float32 for the 3xTF32 ones, the four-level encoder at B=8 for the
    warpgroup kernels, from phase 3d) on this card.
-13. Print {"ok": true, "device": {...}} as the last line.
+14. Print {"ok": true, "device": {...}} as the last line.
 
 It needs a CUDA card and the reftr_torch package beside it; without
 either it fails before it prints any result.
@@ -1848,122 +1878,6 @@ def ms_list(values) -> str:
     return ", ".join(f"{v:.2f}" for v in values)
 
 
-def kernel_category(name: str) -> str:
-    low = name.lower()
-    if "nccl" in low:
-        return "nccl"
-    if "flash_fwd_tc_kernel" in name:
-        return "flash_attn_fwd_tc"
-    if "flash_fwd_wg_kernel" in name:
-        return "flash_attn_fwd_wg"
-    if "flash_bwd_dkv_wg_kernel" in name:
-        return "flash_attn_bwd_dkv_wg"
-    if "flash_bwd_dq_wg_kernel" in name:
-        return "flash_attn_bwd_dq_wg"
-    if "flash_fwd_f32tc_kernel" in name:
-        return "flash_attn_fwd_f32tc"
-    if "flash_fwd_dec_kernel" in name:
-        return "flash_attn_fwd_dec"
-    if "flash_bwd_dq_tc_kernel" in name:
-        return "flash_attn_bwd_dq_tc"
-    if "flash_bwd_dkv_tc_kernel" in name:
-        return "flash_attn_bwd_dkv_tc"
-    if "flash_bwd_dq_f32tc_kernel" in name:
-        return "flash_attn_bwd_dq_f32tc"
-    if "flash_bwd_dkv_f32tc_kernel" in name:
-        return "flash_attn_bwd_dkv_f32tc"
-    if "flash_bwd_dec_kernel" in name:
-        return "flash_attn_bwd_dec"
-    if "flash_fwd_kernel" in name:
-        return "flash_attn_fwd"
-    if "flash_bwd_dq_kernel" in name:
-        return "flash_attn_bwd_dq"
-    if "flash_bwd_dkv_kernel" in name:
-        return "flash_attn_bwd_dkv"
-    if ("conv" in low or "fprop" in low or "dgrad" in low or "wgrad" in low
-            or "cudnn" in low):
-        return "convolution"
-    if "multi_tensor" in low or "foreach" in low or "adam" in low:
-        return "optimizer"
-    if "gemm" in low or "nvjet" in low or "cublas" in low:
-        return "gemm"
-    if "norm" in low:
-        return "normalization"
-    if "softmax" in low or "reduce" in low:
-        return "reduction"
-    if "elementwise" in low:
-        return "elementwise"
-    if "copy" in low or "memcpy" in low or "memset" in low:
-        return "copy"
-    return "other"
-
-
-def profile_device(run, what: str, step_ms: float, iters: int = 5,
-                   split=None) -> dict:
-    """Device time of ``iters`` calls of ``run`` by kernel category
-    (torch.profiler's device events), the kernels launched per call, and
-    the device's busy share of one call's unprofiled host time
-    ``step_ms``. ``split(prof, iters)`` -> {row: (category, ms per call)}
-    moves part of a category to a row of its own (the profile then
-    records the ops' input shapes)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=split is not None) as prof:
-        for _ in range(iters):
-            run()
-        torch.cuda.synchronize()
-    by_cat: dict = {}
-    by_name: dict = {}
-    n_kernels = 0
-    for ev in prof.events():
-        # a GPU user annotation (Optimizer.step#AdamW.step) spans kernels
-        # that are counted on their own
-        if (ev.device_type != DeviceType.CUDA or ev.device_time_total <= 0
-                or getattr(ev, "is_user_annotation", False)):
-            continue
-        ms = ev.device_time_total / 1e3 / iters
-        n_kernels += 1
-        cat = kernel_category(ev.name)
-        by_cat[cat] = by_cat.get(cat, 0.0) + ms
-        by_name[ev.name] = by_name.get(ev.name, 0.0) + ms
-    device_ms = sum(by_cat.values())
-    if device_ms == 0:
-        print("profile: torch.profiler saw no device time: not measured",
-              flush=True)
-        return {"device_ms": None}
-    for row, (cat, ms) in (split(prof, iters) if split else {}).items():
-        by_cat[cat] = by_cat.get(cat, 0.0) - ms
-        by_cat[row] = ms
-    busy = device_ms / step_ms
-    print(f"profile: {what}: device {device_ms:.3f}"
-          f" ms in {n_kernels / iters:.0f} kernels, of {step_ms:.3f} ms host"
-          f" time unprofiled: busy share {busy:.3f}", flush=True)
-    for cat, ms in sorted(by_cat.items(), key=lambda x: -x[1]):
-        print(f"profile:   {cat:14s} {ms:8.3f} ms {ms / device_ms:6.1%}",
-              flush=True)
-    top = sorted(by_name.items(), key=lambda x: -x[1])[:8]
-    for name, ms in top:
-        print(f"profile:   top {ms:8.3f} ms  {name[:90]}", flush=True)
-    host = sorted(((e.key, e.self_cpu_time_total / 1e3 / iters, e.count
-                    / iters) for e in prof.key_averages()),
-                  key=lambda x: -x[1])[:10]
-    for name, ms, calls in host:
-        print(f"profile:   host {ms:8.3f} ms in {calls:6.0f} calls  "
-              f"{name[:70]}", flush=True)
-    # casts and layout copies (direct_copy_kernel), in "elementwise" above
-    copies = sum(ms for name, ms in by_name.items() if "copy_kernel" in name)
-    print(f"profile:   copy kernels (casts, layout) {copies:8.3f} ms",
-          flush=True)
-    return {"device_ms": device_ms, "kernels_per_call": n_kernels / iters,
-            "host_ms": step_ms, "busy_share": busy, "by_category_ms": by_cat,
-            "copy_kernels_ms": copies,
-            "top_kernels_ms": dict(top),
-            "top_host_ops_ms": {name: ms for name, ms, _ in host}}
-
-
 VARIANT_COUNTS = ("launches_tc", "launches_wg", "launches_tf32x3",
                   "launches_dec", "launches_plain")
 
@@ -2071,6 +1985,7 @@ def serve(report: dict, counters) -> dict:
     from reftr_torch.kernels.attention import flash_attention
     from reftr_torch.nn.attention import set_plain_attention
     from reftr_torch.serve import ServingModel, pad_batch
+    from reftr_torch.tools.op_profile import profile_device
 
     cfg = {name: preset_config("refcoco_det", dtype=name)
            for name in ("float32", "bfloat16")}
@@ -2216,6 +2131,8 @@ def time_f32_forward(model, full, counters) -> dict:
     kernel and with K1 sent to SIMT (the same-run "before"), median of four
     turns each; one forward of each mode counted (18 of K1's 30 launches on
     the mode's kernel) and profiled."""
+    from reftr_torch.tools.op_profile import profile_device
+
     forward_ms(model, full, iters=20)
     runs = {"tf32x3": [], "simt": []}
     launches = {}
@@ -2446,6 +2363,7 @@ def train(report: dict, counters) -> dict:
     from reftr_torch.cli.presets import preset_config
     from reftr_torch.core.config import LossConfig, TrainConfig
     from reftr_torch.models.criterion import weight_dict
+    from reftr_torch.tools.op_profile import profile_device
     from reftr_torch.train.engine import train_one_epoch
     from reftr_torch.train.state import TrainState
     from reftr_torch.train.steps import make_train_step
@@ -2587,6 +2505,7 @@ def train_f32(report: dict, counters) -> dict:
     from reftr_torch.cli.presets import preset_config
     from reftr_torch.core.config import LossConfig, TrainConfig
     from reftr_torch.models.criterion import weight_dict
+    from reftr_torch.tools.op_profile import profile_device
     from reftr_torch.train.engine import train_one_epoch
     from reftr_torch.train.state import TrainState
     from reftr_torch.train.steps import make_train_step
@@ -3068,6 +2987,7 @@ def res_profile(report: dict, state_dict) -> dict:
 
     from reftr_torch.cli.presets import preset_config
     from reftr_torch.models.criterion import weight_dict
+    from reftr_torch.tools.op_profile import profile_device
     from reftr_torch.train.state import TrainState
     from reftr_torch.train.steps import make_train_step
 
@@ -3390,6 +3310,7 @@ def profile_train_step(cfg, batch, targets, what: str,
     first."""
     import torch
 
+    from reftr_torch.tools.op_profile import profile_device
     from reftr_torch.train.state import TrainState
     from reftr_torch.train.steps import make_train_step
 
@@ -4158,6 +4079,7 @@ def child_times(out_json: str) -> int:
     from reftr_torch.core import distributed
     from reftr_torch.core.config import LossConfig, TrainConfig
     from reftr_torch.models.criterion import weight_dict
+    from reftr_torch.tools.op_profile import profile_device
     from reftr_torch.train.loop import train_device
     from reftr_torch.train.state import TrainState
     from reftr_torch.train.steps import make_train_step
@@ -5114,8 +5036,8 @@ def phase11(report: dict, counters) -> dict:
     at the server's batch (HTTP_KERNEL_SITES) in both dtypes, without
     dropout and with 0.1, at phase 3's tolerances, the dropout masks
     exact, the bf16 calls timed; then a reference .pth at full width over
-    HTTP (11a-c). The files live in a temporary directory, deleted
-    after."""
+    HTTP (11a-c); then phase 12 on that .pth and 11b's answers. The files
+    live in a temporary directory, deleted after."""
     import os
     import tempfile
 
@@ -5128,12 +5050,489 @@ def phase11(report: dict, counters) -> dict:
             pth = pth_round_trip(report, Path(d))
             served = http_serve(report, counters, pth)
             http_predict(report, counters, pth, served, Path(d))
+            print(f"http: phase 11 in {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            phase12(report, counters, pth, served, Path(d))
         finally:
             if cache is None:
                 os.environ.pop("REFTR_CACHE_DIR", None)
             else:
                 os.environ["REFTR_CACHE_DIR"] = cache
-    print(f"http: phase 11 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return report
+
+
+# 12: the exported serving forward (tools/export_model.py) on the card
+EXPORT_BATCH = HTTP_BATCH
+# the loaded program against the live ServingModel, pred_boxes max abs:
+# JAX's selfcheck limit in float32, phase 11's bf16 limit
+EXPORT_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
+EXPORT_BATCHES = 2  # counted batches of 12b, each dtype
+EXPORT_HTTP_REQUESTS = 16
+# 12d: K1 called back to back through the op and through its
+# implementation, at BERT-base over 40 tokens at the server's batch and at
+# the encoder's 440 at batch 8 (bf16, no dropout), in turns
+OP_HOST_SITES = {"bert_base_40": (16, 40, 40, 12, 64),
+                 "encoder_440": (8, 440, 440, 8, 32)}
+OP_HOST_CALLS = 50
+OP_HOST_TURNS = 3
+# 12e: --profile_dir on phase 6's entry point: steps 10-14 of epoch 0 are
+# traced (train_one_epoch's default), so the epoch has 12 steps
+PROFILE_CLI = CLI_MODEL_DATA + ["--synthetic_n", "96", "--epochs", "1"]
+PROFILE_CLI_STEPS = 12
+
+
+def export_batches(reqs, cfg, n: int) -> list:
+    """``n`` serve batches of ``reqs``' rows (the front end's canvases and
+    token ids, packed greedily and padded to EXPORT_BATCH)."""
+    from reftr_torch.serve import pad_batch
+    from reftr_torch.tools.serve import Frontend
+    from reftr_torch.train.loop import build_tokenizer
+
+    fe = Frontend(cfg, build_tokenizer(cfg))
+    batches, group, used = [], [], 0
+    for img, phrases in reqs:
+        r = fe.rows(img, phrases)
+        if used + r.k > EXPORT_BATCH:
+            batches.append(pad_batch(group, EXPORT_BATCH))
+            group, used = [], 0
+            if len(batches) == n:
+                break
+        group.append(r)
+        used += r.k
+    return batches
+
+
+def op_call_recorder():
+    """A dispatch mode that keeps, for each call of the K1 op (as the
+    loaded program makes it), the inputs' shapes, strides and dtypes and
+    the outputs' (``calls``)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    op = torch.ops.reftr.flash_attention_fwd.default
+
+    def meta(x):
+        return ((tuple(x.shape), x.stride(), x.dtype)
+                if isinstance(x, torch.Tensor) else x)
+
+    class Recorder(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.calls = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func is op:
+                self.calls.append(([meta(a) for a in args],
+                                   [meta(t) for t in out]))
+            return out
+
+    return Recorder()
+
+
+def fake_check(calls) -> dict:
+    """Each recorded call's outputs against the op's fake (its meta
+    kernel) on meta tensors of the same inputs: shape, strides and dtype
+    equal. Returns the sites seen, with their calls."""
+    import torch
+
+    op = torch.ops.reftr.flash_attention_fwd.default
+    sites = {}
+    for args, real in calls:
+        fake = op(*(torch.empty_strided(a[0], a[1], dtype=a[2],
+                                        device="meta")
+                    if isinstance(a, tuple) else a for a in args))
+        want = [(tuple(t.shape), t.stride(), t.dtype) for t in fake]
+        if real != want:
+            raise AssertionError(f"export: the op's outputs {real} are not "
+                                 f"its fake's {want}")
+        (q, _, _), (k, _, _) = args[0], args[1]
+        site = (f"Sq={q[1]} Sk={k[1]} H={q[2]} D={q[3]} "
+                f"{str(args[0][2]).removeprefix('torch.')}")
+        sites[site] = sites.get(site, 0) + 1
+    return sites
+
+
+def export_model_phase(report: dict, counters, pth: dict, tmp: Path,
+                       reqs) -> dict:
+    """Phase 12a-b: refcoco_det exported from phase 11's .pth at the
+    server's batch on the card, bf16 and float32 (export, save and load
+    seconds, artefact bytes); the loaded program against the live
+    ServingModel on the same batches (EXPORT_TOL), K1 exactly 30 a batch
+    through it by the rule and K2, K3 and plain none, and at every site
+    the op's outputs as its fake gives them."""
+    import torch
+
+    from reftr_torch.cli.presets import preset_config
+    from reftr_torch.serve import ServingModel, serving_module
+    from reftr_torch.tools import export_model
+
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = preset_config("refcoco_det", dtype=dtype, dataset="synthetic")
+        spec = export_model.serving_batch_spec(cfg, EXPORT_BATCH)
+        t0 = time.perf_counter()
+        model = serving_module(cfg, "cuda", resume=pth["path"])
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        program = export_model.export_serving(model, spec,
+                                              torch.device("cuda"))
+        export_s = time.perf_counter() - t0
+        d = tmp / f"exported_{dtype}"
+        t0 = time.perf_counter()
+        manifest = export_model.save_exported(
+            program, str(d), export_model.model_manifest(
+                cfg, model, EXPORT_BATCH, pth["path"]))
+        save_s = time.perf_counter() - t0
+        del model, program
+        t0 = time.perf_counter()
+        exported = ServingModel(cfg, EXPORT_BATCH, exported_dir=str(d))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        live = ServingModel(cfg, EXPORT_BATCH, resume=pth["path"])
+        batches = export_batches(reqs, cfg, EXPORT_BATCHES)
+        for b in batches:  # warm-up: the kernels' first calls
+            exported(b)
+        reset_counts(counters)
+        got = [exported(b)["pred_boxes"] for b in batches]
+        torch.cuda.synchronize()
+        launches = read_counts(counters)
+        want_n = expected_launches(len(batches), dtype, False)
+        if launches != want_n:
+            raise AssertionError(f"export {dtype}: launches {launches} for "
+                                 f"{len(batches)} batches, not {want_n}")
+        want = [live(b)["pred_boxes"] for b in batches]
+        err = max(float(np.abs(g.astype(np.float32)
+                               - w.astype(np.float32)).max())
+                  for g, w in zip(got, want))
+        if not err <= EXPORT_TOL[dtype]:
+            raise AssertionError(f"export {dtype}: pred_boxes {err:.3g} "
+                                 f"from the live ServingModel's (tol "
+                                 f"{EXPORT_TOL[dtype]})")
+        mode = op_call_recorder()
+        with mode:
+            exported(batches[0])
+        torch.cuda.synchronize()
+        if len(mode.calls) != ATTN_PER_FORWARD:
+            raise AssertionError(f"export {dtype}: {len(mode.calls)} op "
+                                 f"calls a batch, not {ATTN_PER_FORWARD}")
+        sites = fake_check(mode.calls)
+        res = {"manifest": {k: manifest[k] for k in (
+                   "artifact_bytes", "platforms", "torch_version", "format",
+                   "batch_size", "requires", "inputs", "outputs")},
+               "build_s": build_s, "export_s": export_s, "save_s": save_s,
+               "load_s": load_s, "batches": len(batches),
+               "launches": launches, "max_abs_err": err,
+               "fake_sites": sites, "dir": str(d)}
+        print(f"export {dtype} ({report['card']}): model built and .pth "
+              f"loaded in {build_s:.2f} s, torch.export {export_s:.2f} s, "
+              f"save {save_s:.2f} s ({manifest['artifact_bytes']} bytes), "
+              f"load {load_s:.2f} s; {len(batches)} batches of "
+              f"{EXPORT_BATCH}: pred_boxes max abs {err:.3g} from the live "
+              f"ServingModel (tol {EXPORT_TOL[dtype]}), launches "
+              f"{launches}; the op's outputs as its fake gives them at "
+              f"{sites}", flush=True)
+        out[dtype] = res
+        del exported, live
+        torch.cuda.empty_cache()
+    report["export"] = out
+    return out
+
+
+def export_http(report: dict, counters, exported: dict, served: dict
+                ) -> dict:
+    """Phase 12c: ``tools/serve.build_server(exported_dir=...)`` on the
+    bf16 artefact, asked for serve batch 8 (the manifest's 16 must win):
+    EXPORT_HTTP_REQUESTS requests from HTTP_CLIENTS clients, every answer
+    200 and each box within HTTP_BOX_TOL (bf16) of the image's side of
+    phase 11's live server's answer to the same request; /healthz and
+    /stats as sent; K1 30 a batch by the rule."""
+    import threading
+
+    from reftr_torch.cli.presets import preset_config
+    from reftr_torch.tools import serve as serve_tools
+
+    reqs = served["reqs"][:EXPORT_HTTP_REQUESTS]
+    want = [[np.array(r["box_xyxy"], np.float32) for r in ans]
+            for ans in served["answers"][:EXPORT_HTTP_REQUESTS]]
+    cfg = preset_config("refcoco_det", dtype="bfloat16",
+                        dataset="synthetic")
+    decode = serve_tools.decode_image
+    serve_tools.decode_image = npy_decode
+    try:
+        t0 = time.perf_counter()
+        server, batcher = serve_tools.build_server(
+            cfg, "127.0.0.1", 0, 8, HTTP_TIMEOUT_MS,
+            exported_dir=exported["bfloat16"]["dir"])
+        build_s = time.perf_counter() - t0
+        th = threading.Thread(target=server.serve_forever, daemon=True)
+        th.start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            run = http_load(base, reqs, HTTP_CLIENTS, counters, batcher)
+            code, health, _ = http_call(base + "/healthz", method="GET")
+            code2, stats, _ = http_call(base + "/stats", method="GET")
+        finally:
+            server.shutdown()
+            batcher.stop()
+            server.server_close()
+            th.join(timeout=10)
+    finally:
+        serve_tools.decode_image = decode
+    want_n = expected_launches(run["batches"], "bfloat16", False)
+    if run["launches"] != want_n:
+        raise AssertionError(f"export http: launches {run['launches']} for "
+                             f"{run['batches']} batches, not {want_n}")
+    if (code, code2) != (200, 200) or health != {
+            "ok": True, "batch_size": EXPORT_BATCH, "masks": False}:
+        raise AssertionError(f"export http: healthz {code} {health}")
+    if (stats["requests"], stats["rows"]) != (len(reqs), run["sent_rows"]):
+        raise AssertionError(f"export http: stats {stats}, sent "
+                             f"{len(reqs)} requests, {run['sent_rows']} rows")
+    run["box_err"] = check_answers("export http", reqs, run.pop("answers"),
+                                   want, HTTP_BOX_TOL["bfloat16"])
+    run["build_s"] = build_s
+    print(f"export http bf16 ({report['card']}): server on the exported "
+          f"program built in {build_s:.2f} s, batch {health['batch_size']} "
+          f"from the manifest; {run['sent_requests']} requests from "
+          f"{HTTP_CLIENTS} clients, {run['batches']} batches in "
+          f"{run['wall_s']:.3f} s: {run['requests_per_s']:.2f} requests/s, "
+          f"p50 {run['p50_ms']:.2f} ms, p99 {run['p99_ms']:.2f} ms; largest "
+          f"box error against phase 11's live server {run['box_err']:.3g} "
+          f"of the side; /stats {stats}; launches {run['launches']}",
+          flush=True)
+    report["export_http"] = run
+    return run
+
+
+def op_host_costs(report: dict, reqs) -> dict:
+    """Phase 12d: K1's host time a call through the op
+    (torch.ops.reftr.flash_attention_fwd), through its implementation
+    called directly (attention._fwd_op_cuda) and through the same
+    implementation defined with torch.library.custom_op (the form the op
+    does not take), OP_HOST_CALLS back to back, in turns (op, direct,
+    custom_op, custom_op, direct, op) OP_HOST_TURNS times: the host's time
+    to issue a call and the wall time a call to the last kernel's end;
+    then the bf16 batch-8 serving forward's host ms (ServingModel call,
+    upload to fetch) with flash_attention on the op and on the direct
+    implementation, in turns."""
+    import torch
+
+    from reftr_torch.cli.presets import preset_config
+    from reftr_torch.kernels import attention
+    from reftr_torch.serve import ServingModel, pad_batch
+    from reftr_torch.tools.serve import Frontend
+    from reftr_torch.train.loop import build_tokenizer
+
+    op = torch.ops.reftr.flash_attention_fwd
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    # the other form torch.library offers, timed beside the op: the same
+    # implementation behind custom_op's Python wrapper
+    custom = torch.library.custom_op(
+        "reftr_smoke::flash_attention_fwd", attention._fwd_op_cuda,
+        mutates_args=(), device_types="cuda",
+        schema="(Tensor q, Tensor k, Tensor v, Tensor? valid_mask, "
+               "float dropout_rate, int? seed, bool return_lse) -> "
+               "(Tensor, Tensor)")
+    custom.register_fake(attention._fwd_op_fake)
+    routes = {"op": op, "direct": attention._fwd_op_cuda,
+              "custom_op": custom}
+
+    def issue(fn, args) -> tuple:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(OP_HOST_CALLS):
+            fn(*args)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return (1e6 * (t1 - t0) / OP_HOST_CALLS,
+                1e6 * (t2 - t0) / OP_HOST_CALLS)
+
+    out = {"calls": {}}
+    for site, (b, sq, sk, h, d) in OP_HOST_SITES.items():
+        q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=gen,
+                               dtype=torch.bfloat16) for s in (sq, sk, sk))
+        valid = torch.ones(b, sk, dtype=torch.bool, device="cuda")
+        args = (q, k, v, valid, 0.0, None, False)
+        for fn in routes.values():
+            issue(fn, args)
+        runs = {name: [] for name in routes}
+        for _ in range(OP_HOST_TURNS):
+            for name in ("op", "direct", "custom_op", "custom_op", "direct",
+                         "op"):
+                runs[name].append(issue(routes[name], args))
+        res = {name: {"issue_us": statistics.median(r[0] for r in rs),
+                      "wall_us": statistics.median(r[1] for r in rs)}
+               for name, rs in runs.items()}
+        res["op_cost_us"] = res["op"]["issue_us"] - res["direct"]["issue_us"]
+        out["calls"][site] = res
+        print(f"op host ({report['card']}): K1 at {site} (B={b}, {sq}x{sk}, "
+              f"H={h}, D={d}, bf16), {OP_HOST_CALLS} calls, median of "
+              f"{2 * OP_HOST_TURNS} turns each: through the op issue "
+              f"{res['op']['issue_us']:.2f} us, wall {res['op']['wall_us']:.2f}"
+              f" us a call; the implementation directly issue "
+              f"{res['direct']['issue_us']:.2f} us, wall "
+              f"{res['direct']['wall_us']:.2f} us; custom_op's form issue "
+              f"{res['custom_op']['issue_us']:.2f} us; the op adds "
+              f"{res['op_cost_us']:.2f} us a call", flush=True)
+    cfg = preset_config("refcoco_det", dtype="bfloat16", dataset="synthetic")
+    model = ServingModel(cfg, SERVE_BATCH)
+    fe = Frontend(cfg, build_tokenizer(cfg))
+    batch = pad_batch([fe.rows(img, phrases[:1])
+                       for img, phrases in reqs[:SERVE_BATCH]], SERVE_BATCH)
+    forward = attention._forward
+
+    def direct_forward(q, k, v, valid_mask, dropout_rate, seed,
+                       return_lse=True):
+        o, lse = attention._fwd_op_cuda(q, k, v, valid_mask, dropout_rate,
+                                        seed, return_lse)
+        return o, (lse if return_lse else None)
+
+    fwd = {"op": [], "direct": []}
+    try:
+        forward_ms(model, batch, iters=10)
+        for _ in range(OP_HOST_TURNS):
+            for name in ("op", "direct", "direct", "op"):
+                attention._forward = (forward if name == "op"
+                                      else direct_forward)
+                fwd[name].append(forward_ms(model, batch, iters=10))
+    finally:
+        attention._forward = forward
+    out["forward_ms"] = {k: statistics.median(v) for k, v in fwd.items()}
+    out["forward_runs_ms"] = fwd
+    print(f"op host ({report['card']}): bf16 batch-{SERVE_BATCH} serving "
+          f"forward, host to host, median of {2 * OP_HOST_TURNS} turns of "
+          f"10: K1 through the op {out['forward_ms']['op']:.3f} ms, through "
+          f"the implementation directly {out['forward_ms']['direct']:.3f} "
+          f"ms (op {ms_list(fwd['op'])}; direct {ms_list(fwd['direct'])})",
+          flush=True)
+    report["op_host"] = out
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def queued_ms(fn, iters: int = 50) -> float:
+    """Device ms a call of ``fn`` by CUDA events, with the host kept out:
+    the events and ``iters`` calls are queued behind a sleep kernel long
+    enough for the host to queue them all, so the card runs the calls back
+    to back (``cuda_ms`` times the host loop where the host is the
+    slower)."""
+    import torch
+
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    # about 20 ms at 1980 MHz: more than the host takes to queue the calls
+    torch.cuda._sleep(40_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def k1_serving_device(report: dict) -> list:
+    """Phase 12d: K1 at the server's batch of 16 (HTTP_KERNEL_SITES, bf16,
+    no dropout), through flash_attention (the op, its variant by the rule)
+    and SDPA on the same inputs and mask: device ms a call by CUDA events
+    (``queued_ms``), beside the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from reftr_torch.kernels.attention import flash_attention, fwd_variant
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = []
+    for site in HTTP_KERNEL_SITES:
+        b, sq, sk, h, d = site_shape(site)
+        q, k, v, valid = site_inputs(gen, site, torch.bfloat16)
+        bias = torch.where(valid, 0.0, -1e9)[:, None, None, :].to(q.dtype)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        with torch.no_grad():
+            k1 = queued_ms(lambda: flash_attention(q, k, v, valid))
+            sdpa = queued_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=bias))
+        bound, by = attention_bound_ms(b, sq, sk, h, d, valid, "bfloat16")
+        row = {"site": site, "B": b, "Sq": sq, "Sk": sk, "H": h, "D": d,
+               "variant": fwd_variant(sq, sk, torch.bfloat16, d),
+               "device_ms": k1, "sdpa_device_ms": sdpa, "bound_ms": bound,
+               "bound_by": by}
+        rows.append(row)
+        print(f"op host ({report['card']}): K1 {row['variant']} at {site} "
+              f"(B={b}, {sq}x{sk}, H={h}, D={d}, bf16): device "
+              f"{k1:.4f} ms a call by CUDA events behind a sleep, SDPA "
+              f"{sdpa:.4f} ms, bound {bound:.5f} ms ({by})", flush=True)
+    report["k1_serving_device"] = rows
+    return rows
+
+
+def profile_tools(report: dict, counters, tmp: Path) -> dict:
+    """Phase 12e: op_profile.profile("rec") (its table must name K1's
+    kernels), conv_profile.profile()'s stage table, and phase 6's entry
+    point once with --profile_dir: a trace written that names a K1
+    kernel, 30 launches of each kernel a step and of K1 an eval batch."""
+    import glob
+
+    import torch
+
+    from reftr_torch.tools import conv_profile, op_profile
+
+    t0 = time.perf_counter()
+    rows = op_profile.profile("rec", topk=15, steps=3)
+    k1 = {r["category"]: r for r in rows
+          if r["category"].startswith("flash_attn_fwd")}
+    if not {"flash_attn_fwd_tc", "flash_attn_fwd_dec"} <= set(k1):
+        raise AssertionError(f"op_profile rec: no K1 kernel among "
+                             f"{[r['name'][:60] for r in rows[:40]]}")
+    op_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    stages = conv_profile.profile()
+    conv_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    prof_dir = tmp / "profile_dir"
+    run = run_cli(PROFILE_CLI + ["--profile_dir", str(prof_dir)], counters)
+    want = cli_launches(PROFILE_CLI_STEPS, CLI_EVAL_BATCHES)
+    if run["rc"] != 0 or run["launches"] != want:
+        raise AssertionError(f"--profile_dir: rc {run['rc']}, launches "
+                             f"{run['launches']}, not {want}")
+    traces = glob.glob(str(prof_dir / "*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"--profile_dir wrote {traces}")
+    text = Path(traces[0]).read_text()
+    named = sorted({m for m in re.findall(r"flash_fwd_\w+_kernel", text)})
+    if not named:
+        raise AssertionError("--profile_dir: the trace names no K1 kernel")
+    res = {"op_profile_rows": rows[:15],
+           "op_profile_k1": {c: {k: r[k] for k in ("name", "ms", "calls")}
+                             for c, r in k1.items()},
+           "op_profile_s": op_s, "conv_profile": stages, "conv_s": conv_s,
+           "profile_dir_trace_bytes": len(text), "profile_dir_k1": named,
+           "profile_dir_run_s": run["seconds"]}
+    print(f"profile tools ({report['card']}): op_profile rec in {op_s:.1f} s"
+          f" (K1: {res['op_profile_k1']}); conv_profile in {conv_s:.1f} s; "
+          f"--profile_dir run {run['seconds']:.1f} s wrote "
+          f"{len(text)} bytes naming {named}", flush=True)
+    report["profile_tools"] = res
+    return res
+
+
+def phase12(report: dict, counters, pth: dict, served: dict,
+            tmp: Path) -> dict:
+    """Phase 12: export (12a-c), the op's host cost (12d), the profiler
+    tools (12e), in phase 11's temporary directory."""
+    t0 = time.perf_counter()
+    exported = export_model_phase(report, counters, pth, tmp, served["reqs"])
+    export_http(report, counters, exported, served)
+    op_host_costs(report, served["reqs"])
+    k1_serving_device(report)
+    profile_tools(report, counters, tmp)
+    report["phase12_s"] = time.perf_counter() - t0
+    print(f"export: phase 12 in {report['phase12_s']:.1f} s", flush=True)
     return report
 
 
@@ -5143,6 +5542,14 @@ def http_launches(report: dict) -> dict:
     runs = [run["launches"] for res in report["http"].values()
             for run in res["loads"].values()]
     runs += [r["launches"] for r in report["predict"]]
+    return {k: sum(n[k] for n in runs) for k in runs[0]}
+
+
+def export_launches(report: dict) -> dict:
+    """The launches of phase 12's runs of the exported program (12b's
+    counted batches in both dtypes, 12c's HTTP load), summed."""
+    runs = [res["launches"] for res in report["export"].values()]
+    runs.append(report["export_http"]["launches"])
     return {k: sum(n[k] for n in runs) for k in runs[0]}
 
 
@@ -5167,10 +5574,11 @@ def kernel_line(report: dict) -> list:
     eval-only pass, four feature levels, RoBERTa), phase 9a's DDP run
     of the entry point and phase 10's runs (the from-scratch recipe through
     the entry point, its eval-only pass and its serving) and phase 11's
-    (the HTTP server's loads and predict), split in
+    (the HTTP server's loads and predict) and phase 12's (the exported
+    program's batches and its HTTP load), split in
     ``launches_serve``, ``launches_train``, ``launches_cli``,
     ``launches_res``, ``launches_multi``, ``launches_ddp``,
-    ``launches_scratch`` and ``launches_http``.
+    ``launches_scratch``, ``launches_http`` and ``launches_export``.
     The decode backward has one row for K2 and K3, whose launches it is
     counted in. Every site's numbers are in the JSON report written before
     it."""
@@ -5304,11 +5712,14 @@ def kernel_line(report: dict) -> list:
     # the server's batch (its max_abs_err includes them)
     scratch_n = scratch_launches(report)
     http_n = http_launches(report)
+    export_n = export_launches(report)
     for entry in out:
         entry["launches_scratch"] = row_launches(entry, scratch_n)
         entry["launches_http"] = row_launches(entry, http_n)
+        entry["launches_export"] = row_launches(entry, export_n)
         entry["launches"] += (entry["launches_scratch"]
-                              + entry["launches_http"])
+                              + entry["launches_http"]
+                              + entry["launches_export"])
         entry.update(phase_err(report, entry, "scratch"))
         entry.update(phase_err(report, entry, "http"))
     return out

@@ -71,7 +71,6 @@ NOT_PORTED = {
     "use_pallas_attention": f"the JAX step's knobs ({_ITEM} 9)",
     "no_donate_state": f"the JAX step's knobs ({_ITEM} 9)",
     "debug_nans": f"the JAX step's knobs ({_ITEM} 9)",
-    "profile_dir": f"the profiler tools ({_ITEM} 10)",
 }
 
 
@@ -196,7 +195,9 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--backbone_remat", action="store_true")
     p.add_argument("--backbone_remat_stages", default=[], type=int,
                    nargs="*")
-    p.add_argument("--profile_dir", default="", type=str)
+    p.add_argument("--profile_dir", default="", type=str,
+                   help="capture a torch.profiler trace of early steps "
+                        "(10-14 of epoch 0) into this directory")
     p.add_argument("--debug_nans", action="store_true")
     p.add_argument("--no_donate_state", action="store_true")
     p.add_argument("--bert_size", default="base", choices=("base", "tiny"),
@@ -333,6 +334,7 @@ def args_to_config(args: argparse.Namespace) -> RefTRConfig:
     t.run_epoch = args.run_epoch
     t.eval_only = args.eval
     t.visualize = args.visualize
+    t.profile_dir = args.profile_dir
     t.pretrained_model = args.pretrained_model
     return cfg
 

@@ -173,6 +173,7 @@ class TrainConfig:
     pretrained_model: Optional[str] = None
     eval_only: bool = False
     visualize: bool = False  # visual dumps under output_dir/vis with --eval
+    profile_dir: str = ""  # torch.profiler trace of a few early steps
 
 
 @dataclass

@@ -628,17 +628,41 @@ def _unpad(t: torch.Tensor, d: int) -> torch.Tensor:
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              valid_mask: Optional[torch.Tensor], dropout_rate: float,
              seed: Optional[int], return_lse: bool = True):
-    """K1 without autograd, on checked inputs: (out [B, Sq, H, D], lse
-    [B, H, Sq] f32 or None). The plain version on a CPU tensor."""
-    if q.device.type == "cpu":
-        if return_lse:
-            return attention_plain(q, k, v, valid_mask, True,
+    """K1 without autograd, on checked inputs, through the registered op
+    ``torch.ops.reftr.flash_attention_fwd``: (out [B, Sq, H, D], lse
+    [B, H, Sq] f32 or None)."""
+    out, lse = torch.ops.reftr.flash_attention_fwd(
+        q, k, v, valid_mask, dropout_rate, seed, return_lse)
+    return out, (lse if return_lse else None)
+
+
+def _contiguous_strides(shape) -> Tuple[int, ...]:
+    strides, n = [], 1
+    for size in reversed(shape):
+        strides.append(n)
+        n *= max(size, 1)
+    return tuple(reversed(strides))
+
+
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """t with the row-major strides of its shape (the op's fake gives
+    those): t itself where it has them, else a copy. A permuted einsum
+    result, or a size-1 dim with another stride, has others."""
+    if t.stride() == _contiguous_strides(t.shape):
+        return t
+    return torch.empty(t.shape, dtype=t.dtype, device=t.device).copy_(t)
+
+
+def _plain_fwd(q, k, v, valid_mask, dropout_rate: float,
+               seed: Optional[int], return_lse: bool):
+    """``attention_plain`` as K1's launchers return it: (out, lse or
+    None), row-major."""
+    if return_lse:
+        out, lse = attention_plain(q, k, v, valid_mask, True,
                                    dropout_rate=dropout_rate, seed=seed)
-        return attention_plain(q, k, v, valid_mask, dropout_rate=dropout_rate,
-                               seed=seed), None
-    return _launch_fwd(fwd_variant(q.shape[1], k.shape[1], q.dtype,
-                                   q.shape[-1]),
-                       q, k, v, valid_mask, dropout_rate, seed, return_lse)
+        return _dense(out), _dense(lse)
+    return _dense(attention_plain(q, k, v, valid_mask,
+                                  dropout_rate=dropout_rate, seed=seed)), None
 
 
 def _check_aligned(what: str, *tensors: Optional[torch.Tensor]) -> None:
@@ -674,20 +698,19 @@ def _check_wg(*tensors: Optional[torch.Tensor]) -> None:
 def _launch_fwd(variant: str, q, k, v, valid_mask, dropout_rate: float,
                 seed: Optional[int], return_lse: bool = True):
     """Launch K1's ``variant`` ("dec", "tc", "wg", "tf32x3" or "simt"; "plain"
-    runs ``attention_plain``) on CUDA tensors: (out, lse or None). A head dim
-    between the instances is zero-padded to the next one."""
+    runs ``attention_plain``) on CUDA tensors: (out, lse or None), both
+    row-major. A head dim between the instances is zero-padded to the next
+    one."""
     if variant == "plain":
         flash_attention.launches_plain += 1
-        if return_lse:
-            return attention_plain(q, k, v, valid_mask, True,
-                                   dropout_rate=dropout_rate, seed=seed)
-        return attention_plain(q, k, v, valid_mask, dropout_rate=dropout_rate,
-                               seed=seed), None
+        return _plain_fwd(q, k, v, valid_mask, dropout_rate, seed, return_lse)
     _check_cuda(q, k, v, valid_mask)
     b, sq, h, d = q.shape
     dp = padded_head_dim(d)
     q, k, v = (_pad(x, dp) for x in (q, k, v))
-    out = torch.empty_like(q)
+    # row-major, as the op's fake gives it (empty_like would copy a size-1
+    # dim's stride from q)
+    out = q.new_empty(q.shape)
     lse = (torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
            if return_lse else None)
     ptrs = (_ptr(q), _ptr(k), _ptr(v), _ptr(valid_mask), _ptr(out), _ptr(lse))
@@ -1003,3 +1026,52 @@ flash_attention.launches_wg = 0
 flash_attention.launches_tf32x3 = 0
 flash_attention.launches_dec = 0
 flash_attention.launches_plain = 0
+
+
+# K1 as an operator of the dispatcher, so that a traced program
+# (torch.export) holds it as one node and runs the kernel when it is
+# called; flash_attention and FlashAttentionFn reach K1 through it alone.
+# Defined with torch.library.Library and not custom_op: the dispatcher
+# calls the Python implementation directly, where custom_op's wrapper adds
+# Python work to each of a forward's 30 calls (PERF.md §6, phase 12d).
+# lse is an empty float32 tensor without return_lse (the schema has no
+# optional output), and the launchers then write none. K2 and K3 are not
+# ops: no traced program runs the backward.
+_LIB = torch.library.Library("reftr", "DEF")
+_LIB.define("flash_attention_fwd(Tensor q, Tensor k, Tensor v, "
+            "Tensor? valid_mask, float dropout_rate, int? seed, "
+            "bool return_lse) -> (Tensor, Tensor)")
+
+
+def _no_lse(q: torch.Tensor) -> torch.Tensor:
+    return q.new_empty((0,), dtype=torch.float32)
+
+
+def _fwd_op_cpu(q, k, v, valid_mask, dropout_rate, seed, return_lse):
+    """The op on CPU tensors: the plain version."""
+    out, lse = _plain_fwd(q, k, v, valid_mask, dropout_rate, seed,
+                          return_lse)
+    return out, _no_lse(q) if lse is None else lse
+
+
+def _fwd_op_cuda(q, k, v, valid_mask, dropout_rate, seed, return_lse):
+    """The op on CUDA tensors: K1's variant by the rule (fwd_variant)."""
+    out, lse = _launch_fwd(fwd_variant(q.shape[1], k.shape[1], q.dtype,
+                                       q.shape[-1]),
+                           q, k, v, valid_mask, dropout_rate, seed,
+                           return_lse)
+    return out, _no_lse(q) if lse is None else lse
+
+
+def _fwd_op_fake(q, k, v, valid_mask, dropout_rate, seed, return_lse):
+    """The op's outputs as both implementations give them: out [B, Sq, H,
+    D] in q's dtype, lse [B, H, Sq] float32 (or [0]), row-major."""
+    b, sq, h, _ = q.shape
+    lse_shape = (b, h, sq) if return_lse else (0,)
+    return q.new_empty(q.shape), q.new_empty(lse_shape, dtype=torch.float32)
+
+
+_LIB.impl("flash_attention_fwd", _fwd_op_cpu, "CPU")
+_LIB.impl("flash_attention_fwd", _fwd_op_cuda, "CUDA")
+torch.library.register_fake("reftr::flash_attention_fwd", _fwd_op_fake,
+                            lib=_LIB)

@@ -129,30 +129,58 @@ def answer(req: Request, out: Mapping[str, np.ndarray],
     return results
 
 
-class ServingModel:
-    """RefTR (RefTRSeg with ``masks``) on its device at a static batch
-    size.
-
-    Weights come from ``state_dict`` (for example ``convert.from_flax`` of
-    a reftr_tpu checkpoint) or, without one, from ``init_params`` with a
-    generator seeded by ``seed``; then ``resume`` (a URL, a reference
-    ``.pth`` or a checkpoint of the port) is merged in non-strictly by
+def serving_module(cfg: RefTRConfig,
+                   device: Union[str, torch.device] = "cuda",
+                   state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+                   seed: int = 0, resume: str = "") -> torch.nn.Module:
+    """The serving model of ``cfg`` on ``device``, in eval mode and cast to
+    its compute dtype (``cast_to_compute_dtype``). Weights come from
+    ``state_dict`` (for example ``convert.from_flax`` of a reftr_tpu
+    checkpoint) or, without one, from ``init_params`` with a generator
+    seeded by ``seed``; then ``resume`` (a URL, a reference ``.pth`` or a
+    checkpoint of the port) is merged in non-strictly by
     ``train.loop.load_pretrained``, as the JAX server loads its weights
     (reftr_tpu/tools/export_model.py:147-176)."""
+    model = build_model(cfg.model, resolve_device(device), state_dict, seed)
+    if resume:
+        from reftr_torch.train.loop import load_pretrained
+
+        load_pretrained(model, resume, cfg)
+    return model.eval().cast_to_compute_dtype()
+
+
+class ServingModel:
+    """RefTR (RefTRSeg with ``masks``) on its device at a static batch
+    size: the live model of ``serving_module`` or, with ``exported_dir``,
+    the program ``tools/export_model.py`` saved there, whose manifest
+    gives the batch size and ``masks`` (as in
+    reftr_tpu/tools/serve.py:68-95) and whose device must be ``device``
+    (an exported program runs on the device it was traced on)."""
 
     def __init__(self, cfg: RefTRConfig, batch_size: int,
                  device: Union[str, torch.device] = "cuda",
                  state_dict: Optional[Mapping[str, torch.Tensor]] = None,
-                 seed: int = 0, resume: str = ""):
+                 seed: int = 0, resume: str = "", exported_dir: str = ""):
         self.cfg = cfg
         self.batch_size = batch_size
+        self.masks = bool(cfg.model.masks)
         self.device = resolve_device(device)
-        model = build_model(cfg.model, self.device, state_dict, seed)
-        if resume:
-            from reftr_torch.train.loop import load_pretrained
+        if exported_dir:
+            from reftr_torch.tools.export_model import (load_exported,
+                                                        read_manifest)
 
-            load_pretrained(model, resume, cfg)
-        self.model = model.eval().cast_to_compute_dtype()
+            platforms = read_manifest(exported_dir)["platforms"]
+            if platforms != [self.device.type]:
+                raise ValueError(
+                    f"{exported_dir} was exported for {platforms}, not "
+                    f"{self.device.type}: an exported program runs on the "
+                    f"device it was traced on")
+            self.model, manifest = load_exported(exported_dir)
+            self.batch_size = int(manifest["batch_size"])
+            self.masks = bool(manifest["model"]["masks"])
+        else:
+            self.model = serving_module(cfg, self.device, state_dict, seed,
+                                        resume)
 
     def to_device(self, batch: Mapping[str, np.ndarray]
                   ) -> Dict[str, torch.Tensor]:
@@ -167,7 +195,7 @@ class ServingModel:
         canvas ([B, S, S] bool, query 0)."""
         out = self.model(self.to_device(batch))
         kept = {"pred_boxes": out["pred_boxes"]}
-        if self.cfg.model.masks:
+        if self.masks:
             # the canvas the batch came on (max_img_size in a server)
             canvas = tuple(batch["image"].shape[1:3])
             kept["masks"] = segm_masks(out["pred_masks"][:, :1], canvas)[:, 0]

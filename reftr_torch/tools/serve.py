@@ -28,8 +28,13 @@ Usage::
         --device cpu --port 8080
 
 The weights come from ``--resume`` through ``train.loop.load_pretrained``;
-without it the server warns and serves a seeded init. ``--exported`` (an
-exported program, reftr_tpu/tools/export_model.py) is not ported.
+without it the server warns and serves a seeded init. ``--exported DIR``
+serves the program ``tools/export_model.py`` saved in DIR instead, at the
+batch size of its manifest (``--serve_batch`` is not read), on the device
+it was exported for::
+
+    python -m reftr_torch.tools.serve --preset refcoco_det \
+        --exported exported/ --port 8080
 """
 
 from __future__ import annotations
@@ -119,7 +124,7 @@ def make_handler(frontend: Frontend, batcher: MicroBatcher,
             if self.path == "/healthz":
                 self._send(200, {"ok": True,
                                  "batch_size": batcher.model.batch_size,
-                                 "masks": bool(batcher.model.cfg.model.masks)})
+                                 "masks": batcher.model.masks})
             elif self.path == "/stats":
                 s = dict(batcher.stats)
                 s["mean_batch_fill"] = round(
@@ -154,19 +159,17 @@ def build_server(cfg, host: str = "127.0.0.1", port: int = 8080,
                  serve_batch: int = 16, batch_timeout_ms: float = 5.0,
                  exported_dir: str = "", device: str = "cuda"):
     """(server, batcher) serving ``cfg`` with the weights of
-    ``cfg.train.resume`` on ``device``; the caller runs
-    ``server.serve_forever()`` and stops the batcher after."""
+    ``cfg.train.resume`` on ``device``, or the exported program in
+    ``exported_dir`` at its manifest's batch size; the caller runs
+    ``server.serve_forever()`` and stops the batcher after. The front end
+    (the eval transform and the tokenizer) follows ``cfg`` either way."""
     from reftr_torch.train.loop import build_tokenizer
 
-    if exported_dir:
-        raise NotImplementedError(
-            f"--exported {exported_dir}: export is not ported yet (ROADMAP.md "
-            f"queue 1 item 10); serve a checkpoint with --resume")
-    if not cfg.train.resume:
+    if not cfg.train.resume and not exported_dir:
         print("WARNING: no --resume checkpoint; serving random weights "
               "(a smoke run)", file=sys.stderr)
     model = ServingModel(cfg, serve_batch, device=device,
-                         resume=cfg.train.resume)
+                         resume=cfg.train.resume, exported_dir=exported_dir)
     batcher = MicroBatcher(model, batch_timeout_ms)
     frontend = Frontend(cfg, build_tokenizer(cfg))
     server = ThreadingHTTPServer((host, port), make_handler(frontend,
@@ -187,8 +190,9 @@ def get_args_parser() -> argparse.ArgumentParser:
                    help="flush a partial batch this long after its first "
                         "row arrives")
     p.add_argument("--exported", default="",
-                   help="an exported program (not ported: ROADMAP.md queue "
-                        "1 item 10)")
+                   help="serve the program tools/export_model.py saved in "
+                        "this directory (its batch size and device) instead "
+                        "of the --resume weights")
     return p
 
 
@@ -206,7 +210,9 @@ def main(argv=None) -> int:
     host, port = server.server_address[:2]
     print(json.dumps({"serving": f"http://{host}:{port}",
                       "batch_size": batcher.model.batch_size,
-                      "device": str(batcher.model.device)}), flush=True)
+                      "device": str(batcher.model.device),
+                      "backend": "exported" if args.exported else "live"}),
+          flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

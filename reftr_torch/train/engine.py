@@ -19,8 +19,13 @@ pass; under a process group they are summed over the ranks first (JAX's
 reports the global stats, and the ranks' boxes are gathered, so that every
 rank holds the whole split's. With ``visualize_dir`` it writes the
 reference's qualitative dumps of the first VISUALIZE_LIMIT (64) samples
-(engine_vg.py:86-197; ``tools/visualize.py``, PIL) on rank 0. There is no
-profiler hook (``--profile_dir``, ROADMAP.md queue 1 item 10).
+(engine_vg.py:86-197; ``tools/visualize.py``, PIL) on rank 0.
+
+``train_one_epoch``'s ``profile_dir`` (``--profile_dir``) captures a
+torch.profiler trace of steps ``profile_steps`` of epoch 0 into that
+directory (JAX's jax.profiler hook, reftr_tpu/train/engine.py:66-104):
+the card's kernels with the host's ops where there is a card, one Chrome
+trace file per process (``tensorboard_trace_handler``).
 """
 
 from __future__ import annotations
@@ -60,21 +65,54 @@ def _log_train_metrics(metrics, weight_dict, logger, print_fn) -> None:
     logger.update(**host)
 
 
+def _start_trace(profile_dir: str):
+    """A started torch.profiler session that writes its trace into
+    ``profile_dir`` when it stops."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities,
+                   on_trace_ready=tensorboard_trace_handler(profile_dir))
+    prof.start()
+    return prof
+
+
 def train_one_epoch(train_step, state: TrainState, loader: Iterable,
                     epoch: int, print_freq: int = 50, *,
                     weight_dict: Dict[str, float],
-                    print_fn=print) -> Tuple[TrainState, Dict[str, float]]:
+                    print_fn=print, profile_dir: str = "",
+                    profile_steps: Tuple[int, int] = (10, 15)
+                    ) -> Tuple[TrainState, Dict[str, float]]:
     """Train over ``loader``, an iterable of numpy (batch, targets) pairs.
-    Returns (state, the epoch's average of each logged metric)."""
+    Returns (state, the epoch's average of each logged metric). With
+    ``profile_dir``, epoch 0's steps [profile_steps) are traced into it
+    (to the epoch's end where it has fewer steps)."""
     logger = MetricLogger(print_fn=print_fn)
     logger.add_meter("lr", SmoothedValue(window_size=1, fmt="{value:.6f}"))
     header = f"Epoch: [{epoch}]"
     prev_metrics = None
-    for samples, targets in logger.log_every(loader, print_freq, header):
-        state, metrics = train_step(state, samples, _strip_target(targets))
-        if prev_metrics is not None:
-            _log_train_metrics(prev_metrics, weight_dict, logger, print_fn)
-        prev_metrics = metrics
+    prof = None
+    try:
+        for i, (samples, targets) in enumerate(
+                logger.log_every(loader, print_freq, header)):
+            if profile_dir and epoch == 0:
+                if i == profile_steps[0]:
+                    prof = _start_trace(profile_dir)
+                elif i == profile_steps[1] and prof is not None:
+                    prof.stop()
+                    prof = None
+            state, metrics = train_step(state, samples,
+                                        _strip_target(targets))
+            if prev_metrics is not None:
+                _log_train_metrics(prev_metrics, weight_dict, logger,
+                                   print_fn)
+            prev_metrics = metrics
+    finally:
+        if prof is not None:
+            prof.stop()
     if prev_metrics is not None:
         _log_train_metrics(prev_metrics, weight_dict, logger, print_fn)
     logger.synchronize_between_processes()

@@ -275,7 +275,7 @@ def run_training(cfg: RefTRConfig,
         t0 = time.time()
         state, train_stats = train_one_epoch(
             train_step, state, train_loader, epoch, weight_dict=wdict,
-            print_fn=master_print)
+            print_fn=master_print, profile_dir=cfg.train.profile_dir)
         test_stats = run_eval()
 
         # the best first, so the epoch's checkpoint carries it (else an

@@ -143,7 +143,7 @@ NOT_PORTED_ARGVS = {
     "backbone_remat_stages": ["--backbone_remat_stages", "2"],
     "use_pallas_attention": ["--use_pallas_attention", "on"],
     "no_donate_state": ["--no_donate_state"],
-    "debug_nans": ["--debug_nans"], "profile_dir": ["--profile_dir", "p"],
+    "debug_nans": ["--debug_nans"],
 }
 
 

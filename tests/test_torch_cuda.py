@@ -1704,3 +1704,58 @@ def test_http_server_serves_on_the_card(gen, monkeypatch):
         server.shutdown()
         batcher.stop()
         server.server_close()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_exported_program_runs_the_kernels(gen, tmp_path, dtype):
+    """A small RefTR exported on the card (tools/export_model.py) and
+    loaded: its boxes against the live model's (1e-5 in float32, JAX's
+    --selfcheck limit; 1e-3 in bf16), K1 launched once for each attention
+    by the rule (torch.ops.reftr.flash_attention_fwd, one node each), K2
+    and K3 never, and every call's outputs as the op's fake gives them."""
+    import numpy as np
+
+    from reftr_torch.core.config import (BertConfig, DataConfig, ModelConfig,
+                                         RefTRConfig)
+    from reftr_torch.tools import export_model
+
+    cfg = RefTRConfig(
+        model=ModelConfig(bert=BertConfig.tiny(), enc_layers=1, dec_layers=1,
+                          dim_feedforward=64, hidden_dim=32, nheads=4,
+                          aux_loss=False, dtype=dtype),
+        data=DataConfig(img_size=64, max_img_size=64))
+    model, _, manifest = export_model.export_with_config(
+        cfg, "", str(tmp_path), 2, ("cuda",), print_fn=lambda *a: None)
+    assert manifest["platforms"] == ["cuda"]
+    call, _ = export_model.load_exported(str(tmp_path))
+    spec = export_model.serving_batch_spec(cfg, 2)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in export_model.random_batch(spec).items()}
+    dt = getattr(torch, dtype)
+    sites = []
+    for m in model.modules():
+        if isinstance(m, MultiHeadAttention):
+            m.register_forward_pre_hook(
+                lambda mod, args: sites.append(
+                    (args[0].shape[1], args[1].shape[1],
+                     args[0].shape[2] // mod.num_heads)))
+    with torch.no_grad():
+        want = model(batch)["pred_boxes"]
+        chip_smoke.reset_counts([flash_attention, flash_attn_bwd_dq,
+                                 flash_attn_bwd_dkv])
+        got = call(batch)["pred_boxes"]
+        torch.cuda.synchronize()
+    variants = [fwd_variant(sq, sk, dt, d) for sq, sk, d in sites]
+    assert flash_attention.launches == len(sites) > 0
+    for v in ("tc", "tf32x3", "dec"):
+        assert getattr(flash_attention, f"launches_{v}") == variants.count(v)
+    assert flash_attention.launches_plain == 0
+    assert flash_attn_bwd_dq.launches == flash_attn_bwd_dkv.launches == 0
+    tol = 1e-5 if dtype == "float32" else 1e-3
+    assert float((got - want).abs().max()) <= tol
+    recorder = chip_smoke.op_call_recorder()
+    with torch.no_grad(), recorder:
+        call(batch)
+    assert len(recorder.calls) == len(sites)
+    chip_smoke.fake_check(recorder.calls)
+    assert np.isfinite(got.cpu().numpy()).all()

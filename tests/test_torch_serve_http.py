@@ -208,13 +208,6 @@ def test_decode_image_reads_what_pil_wrote():
     assert gray.shape == (21, 34, 3)
 
 
-def test_exported_is_not_ported(pths):
-    _, pcfg = parse_both(MODELS["rec"], serve.get_args_parser,
-                         jax_serve.get_args_parser)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        serve.build_server(pcfg, exported_dir="exported/", device="cpu")
-
-
 def test_predict_prints_what_jax_prints(pths, tmp_path, capsys,
                                         monkeypatch):
     """Both packages' predict.main on one JPEG and the same .pth: the same
