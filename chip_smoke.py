@@ -27,7 +27,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    the variant the dispatch rule picks (attention.fwd_variant: fewer than
    16 queries on the decode kernel; with more, the tensor cores, bf16 in
    bf16 and float32 by 3xTF32). The SIMT kernel, which the rule no longer
-   picks, is checked and timed beside each as the same-run "before".
+   picks, is checked beside each, and timed as the same-run "before" at
+   the decoder's cross-attention in bf16 alone (simt_timed), where the
+   kernels line reads it.
    Tolerances: 1e-5 max abs in float32 (the sums run in another order),
    2e-2 in bfloat16 (the kernel rounds its output to bf16: half a bf16
    ulp is 7.8e-3 at magnitudes up to 4). Times of the kernel, the plain version and
@@ -64,7 +66,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    over the head dim for D queries at a time (zero for the others) makes
    K3's dv_j[d] = p * keep(i0 + d, j). The kept set must equal the plain
    Philox mask on every key with p > 0. Times (host loop and device) of
-   each kernel, its plain version, its bound and the yardsticks: SDPA's
+   each kernel (the SIMT K1 and K2 as in phase 2: at the decoder's
+   cross-attention in bf16 alone), its plain version, its bound and the
+   yardsticks: SDPA's
    forward, and its backward, which covers K2 and K3 together. The bound
    reckons float32 products at the 165 TFLOP/s of float32-accurate
    products that 3xTF32 gets from the tensor cores, and takes the largest
@@ -242,9 +246,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    steps and 8 eval batches, 30 launches of each kernel a step and of K1
    an eval batch (18 on the tensor cores, of which the encoder's 6 of
    K1, K2 and K3 on the warpgroup kernels, 12 on the decode kernels); one
-   profiled bf16 step with its device time and attention share, and the
-   same step with K2 on its mma.sync kernel and with K1, K2 and K3 on
-   theirs (the same-run "before"s); K1, K2 and K3 against
+   profiled bf16 step with its device time and attention share (the step
+   with K2, or K1-K3, on their mma.sync kernels, the warpgroup kernels'
+   old same-run "before"s, is not timed); K1, K2 and K3 against
    their plain versions at the encoder at B=1 (the plain version's
    [B, H, S, S] scores fit there) in both dtypes with exact masks; the
    masks of K1, K2 and K3 exact in the last batch row at B=8, whose
@@ -370,17 +374,45 @@ Phases, in order; any failure raises and the script exits non-zero:
    table must name K1's tc and dec kernels), tools/conv_profile.profile()
    (B=32, 640 px) and phase 6's entry point with --profile_dir over 12
    steps (steps 10-11 traced): a trace written that names a K1 kernel, 30
-   launches of each kernel a step and of K1 an eval batch.
-13. Print one JSON line listing each kernel (each variant on a row of its
+   launches of each kernel a step and of K1 an eval batch. 12e's
+   op_profile runs the folded model, as the JAX tool does.
+13. The backbone's folds and the JAX step's knobs, on phase 11's .pth
+   and in its temporary directory. a) tools/serve.build_server with
+   --fold_bn --fold_normalize (the .pth by URL, folded as it loads; serve
+   batch 16), 16 of 11b's requests in bf16 and 8 in float32 from 8
+   clients: every answer 200 and within 1e-3 (bf16) or 1e-4 (float32) of
+   the image's side of the server's own model run directly on the same
+   rows; K1 30 a batch, K2 and K3 none; the same rows through the
+   unfolded model and the fold_bn-only model: the fold_bn-only boxes
+   within those limits of the unfolded one's, the --fold_normalize
+   model's within 1e-3 in bf16; in float32 its boxes' distance is
+   reported (its padding taps beyond the canvas mean black pixels, the
+   unfolded model's zero in normalised space: nn/fold.py) and layer1's
+   output inside its edge ring is held within 2e-4 of its largest
+   magnitude, where the fold is exact. b) The folded bf16 model
+   exported and loaded as in 12a-b (the manifest's fold_bn and
+   fold_normalize true). c) op_profile rec (bf16, batch 64) unfolded and
+   folded, in turns, report only: device ms, the elementwise kernels' ms
+   and share. d) REC's bf16 batch-8 step with --space_to_depth_stem
+   --fold_bn against the standard backbone, in turns: device ms, host ms,
+   peak memory; 30 launches of each kernel a counted step. e) The
+   four-level bf16 step (8540 tokens), batch 8, with --remat
+   --backbone_remat against without, on one model: one forward and
+   backward each way at dropout 0.1 from the same seeds, loss within
+   1e-5 relative and every gradient within 1e-3 rel L2 (phase 5's rule);
+   then in turns peak memory and device ms, and the launches of a counted
+   step: 30 of each kernel, and with remat 6 more of K1 (each recomputed
+   encoder layer's).
+14. Print one JSON line listing each kernel (each variant on a row of its
    own; the decode backward on one row for K2 and K3) with its launches
-   on the main paths (phase 8's, 10's, 11's and 12's runs included, also
-   on their own), its error (phase 10's and 11's checks at their own sites
+   on the main paths (phase 8's, 10's, 11's, 12's and 13's runs included,
+   also on their own), its error (phase 10's and 11's checks at their own sites
    also on their own), and its times and bound at the call site where
    the main path launches it (the decoder's cross-attention for the
    decode and SIMT kernels, the VL encoder for the tensor-core kernels, in
    float32 for the 3xTF32 ones, the four-level encoder at B=8 for the
    warpgroup kernels, from phase 3d) on this card.
-14. Print {"ok": true, "device": {...}} as the last line.
+15. Print {"ok": true, "device": {...}} as the last line.
 
 It needs a CUDA card and the reftr_torch package beside it; without
 either it fails before it prints any result.
@@ -1006,6 +1038,15 @@ def site_inputs(gen, site, dtype):
     return q, k, v, valid
 
 
+def simt_timed(site: str, dtype_name: str) -> bool:
+    """Whether phases 2 and 3 time the SIMT K1 and K2 beside the rule's
+    variant at ``site`` in ``dtype_name``: only where the kernels line
+    reads them (MAIN_SITE["simt"], bf16). The rule sends no call to
+    them; elsewhere they are checked against the plain version and not
+    timed."""
+    return (site, dtype_name) == (MAIN_SITE["simt"], "bfloat16")
+
+
 def check_kernel(report: dict) -> dict:
     """Phase 2: the flash kernel against its plain version per call site."""
     import torch
@@ -1068,11 +1109,13 @@ def check_kernel(report: dict) -> dict:
                     return _launch_fwd("simt", q, k, v, valid, 0.0, None,
                                        False)
 
-                row.update({"simt_max_abs_err": simt_err,
-                            "simt_ms": cuda_ms(simt),
-                            "simt_device_ms": device_ms(simt)})
-                before = (f"; simt {row['simt_ms']:.4f} ms host loop, "
-                          f"{fmt_ms(row['simt_device_ms'])} ms device")
+                row["simt_max_abs_err"] = simt_err
+                before = f"; simt err {simt_err:.3g}"
+                if simt_timed(site, name):
+                    row.update({"simt_ms": cuda_ms(simt),
+                                "simt_device_ms": device_ms(simt)})
+                    before += (f", {row['simt_ms']:.4f} ms host loop, "
+                               f"{fmt_ms(row['simt_device_ms'])} ms device")
             rows.append(row)
             print(f"kernel {site:16s} {name:8s} {variant:4s} B={b} Sq={sq} "
                   f"Sk={sk} H={h} D={d}: max_abs_err {err:.3g} (tol "
@@ -1384,7 +1427,9 @@ def check_training_kernels(report: dict, sites=tuple(CALL_SITES),
                     row[f"{tag}_max_abs_err"] = err
                     if not err <= tol:
                         raise AssertionError(f"phase 3 {tag} {row}")
-                    timed[tag] = fn
+                    if tag not in ("simt_fwd", "simt_dq") or simt_timed(
+                            site, name):
+                        timed[tag] = fn
                 if not timed_here:
                     rows.append(row)
                     print(f"{key.replace('_', ' ')} {site:16s} {name:8s} "
@@ -1416,7 +1461,8 @@ def check_training_kernels(report: dict, sites=tuple(CALL_SITES),
                 rows.append(row)
                 before_ms = "".join(
                     f"; {tag.replace('_', ' ')} "
-                    f"{fmt_ms(row[f'{tag}_device_ms'])}" for tag in before)
+                    f"{fmt_ms(row[f'{tag}_device_ms'])}" for tag in before
+                    if tag in timed)
                 bwd_times = (
                     f"K2+K3 dec {row['bwd_ms']:.4f}, "
                     f"{fmt_ms(row['bwd_device_ms'])}"
@@ -3386,20 +3432,6 @@ def train_levels(report: dict, counters) -> dict:
         "profile": profile_train_step(
             cfg, batch, targets, f"levels: bf16 batch {SERVE_BATCH} train "
                                  f"step at 4 feature levels")}
-    # the same-run "before": the step with K2 on the mma.sync kernel, as
-    # the rule sent it before K2-wg, and with K1, K2 and K3 on it, as
-    # before the warpgroup kernels
-    for key, kernels, which in (("profile_k2_tc", ("dq",), "K2"),
-                                ("profile_tc", ("fwd", "dq", "dkv"),
-                                 "K1, K2 and K3")):
-        rule = reroute(kernels, "wg", "tc")
-        try:
-            report["levels"][key] = profile_train_step(
-                cfg, batch, targets, f"levels: bf16 batch {SERVE_BATCH} "
-                                     f"train step at 4 feature levels, "
-                                     f"{which} on tc (the same-run before)")
-        finally:
-            restore_rule(rule)
     check_training_kernels(report, ("vl_encoder_4_levels",), "levels_kernels",
                            simt_before=False)
     torch.cuda.empty_cache()
@@ -5036,8 +5068,8 @@ def phase11(report: dict, counters) -> dict:
     at the server's batch (HTTP_KERNEL_SITES) in both dtypes, without
     dropout and with 0.1, at phase 3's tolerances, the dropout masks
     exact, the bf16 calls timed; then a reference .pth at full width over
-    HTTP (11a-c); then phase 12 on that .pth and 11b's answers. The files
-    live in a temporary directory, deleted after."""
+    HTTP (11a-c); then phases 12 and 13 on that .pth and 11b's answers.
+    The files live in a temporary directory, deleted after."""
     import os
     import tempfile
 
@@ -5053,6 +5085,7 @@ def phase11(report: dict, counters) -> dict:
             print(f"http: phase 11 in {time.perf_counter() - t0:.1f} s",
                   flush=True)
             phase12(report, counters, pth, served, Path(d))
+            phase13(report, counters, pth, served, Path(d))
         finally:
             if cache is None:
                 os.environ.pop("REFTR_CACHE_DIR", None)
@@ -5154,13 +5187,16 @@ def fake_check(calls) -> dict:
 
 
 def export_model_phase(report: dict, counters, pth: dict, tmp: Path,
-                       reqs) -> dict:
+                       reqs, flags=None, dtypes=("bfloat16", "float32"),
+                       key: str = "export") -> dict:
     """Phase 12a-b: refcoco_det exported from phase 11's .pth at the
     server's batch on the card, bf16 and float32 (export, save and load
     seconds, artefact bytes); the loaded program against the live
     ServingModel on the same batches (EXPORT_TOL), K1 exactly 30 a batch
     through it by the rule and K2, K3 and plain none, and at every site
-    the op's outputs as its fake gives them."""
+    the op's outputs as its fake gives them. ``flags``: the model config's
+    (phase 13b: the folds, whose manifest must say so), under
+    report[key]."""
     import torch
 
     from reftr_torch.cli.presets import preset_config
@@ -5168,8 +5204,10 @@ def export_model_phase(report: dict, counters, pth: dict, tmp: Path,
     from reftr_torch.tools import export_model
 
     out = {}
-    for dtype in ("bfloat16", "float32"):
-        cfg = preset_config("refcoco_det", dtype=dtype, dataset="synthetic")
+    flags = flags or {}
+    for dtype in dtypes:
+        cfg = preset_config("refcoco_det", dtype=dtype, dataset="synthetic",
+                            **flags)
         spec = export_model.serving_batch_spec(cfg, EXPORT_BATCH)
         t0 = time.perf_counter()
         model = serving_module(cfg, "cuda", resume=pth["path"])
@@ -5178,12 +5216,15 @@ def export_model_phase(report: dict, counters, pth: dict, tmp: Path,
         program = export_model.export_serving(model, spec,
                                               torch.device("cuda"))
         export_s = time.perf_counter() - t0
-        d = tmp / f"exported_{dtype}"
+        d = tmp / f"{key}_{dtype}"
         t0 = time.perf_counter()
         manifest = export_model.save_exported(
             program, str(d), export_model.model_manifest(
                 cfg, model, EXPORT_BATCH, pth["path"]))
         save_s = time.perf_counter() - t0
+        if any(manifest["model"].get(k) != v for k, v in flags.items()):
+            raise AssertionError(f"{key} {dtype}: manifest "
+                                 f"{manifest['model']}, flags {flags}")
         del model, program
         t0 = time.perf_counter()
         exported = ServingModel(cfg, EXPORT_BATCH, exported_dir=str(d))
@@ -5199,14 +5240,14 @@ def export_model_phase(report: dict, counters, pth: dict, tmp: Path,
         launches = read_counts(counters)
         want_n = expected_launches(len(batches), dtype, False)
         if launches != want_n:
-            raise AssertionError(f"export {dtype}: launches {launches} for "
+            raise AssertionError(f"{key} {dtype}: launches {launches} for "
                                  f"{len(batches)} batches, not {want_n}")
         want = [live(b)["pred_boxes"] for b in batches]
         err = max(float(np.abs(g.astype(np.float32)
                                - w.astype(np.float32)).max())
                   for g, w in zip(got, want))
         if not err <= EXPORT_TOL[dtype]:
-            raise AssertionError(f"export {dtype}: pred_boxes {err:.3g} "
+            raise AssertionError(f"{key} {dtype}: pred_boxes {err:.3g} "
                                  f"from the live ServingModel's (tol "
                                  f"{EXPORT_TOL[dtype]})")
         mode = op_call_recorder()
@@ -5214,7 +5255,7 @@ def export_model_phase(report: dict, counters, pth: dict, tmp: Path,
             exported(batches[0])
         torch.cuda.synchronize()
         if len(mode.calls) != ATTN_PER_FORWARD:
-            raise AssertionError(f"export {dtype}: {len(mode.calls)} op "
+            raise AssertionError(f"{key} {dtype}: {len(mode.calls)} op "
                                  f"calls a batch, not {ATTN_PER_FORWARD}")
         sites = fake_check(mode.calls)
         res = {"manifest": {k: manifest[k] for k in (
@@ -5224,7 +5265,7 @@ def export_model_phase(report: dict, counters, pth: dict, tmp: Path,
                "load_s": load_s, "batches": len(batches),
                "launches": launches, "max_abs_err": err,
                "fake_sites": sites, "dir": str(d)}
-        print(f"export {dtype} ({report['card']}): model built and .pth "
+        print(f"{key} {dtype} ({report['card']}): model built and .pth "
               f"loaded in {build_s:.2f} s, torch.export {export_s:.2f} s, "
               f"save {save_s:.2f} s ({manifest['artifact_bytes']} bytes), "
               f"load {load_s:.2f} s; {len(batches)} batches of "
@@ -5235,7 +5276,7 @@ def export_model_phase(report: dict, counters, pth: dict, tmp: Path,
         out[dtype] = res
         del exported, live
         torch.cuda.empty_cache()
-    report["export"] = out
+    report[key] = out
     return out
 
 
@@ -5536,6 +5577,459 @@ def phase12(report: dict, counters, pth: dict, served: dict,
     return report
 
 
+# 13: the backbone's folds, the space-to-depth stem and remat on the card
+# (the JAX package's serving flags and step knobs), in phase 11's
+# temporary directory on its .pth
+FOLDS = {"fold_bn": True, "fold_normalize": True}
+FOLD_REQUESTS = {"bfloat16": 16, "float32": 8}
+FOLD_CLIENTS = 8
+# 13a: fold_normalize is exact inside the edge ring its padding taps
+# reach: layer1's output HALO pixels in, against the unfolded model's, at
+# JAX's fold tolerance (tests/test_resnet.py:248) of the largest magnitude
+HALO = 6
+FOLD_INTERIOR_TOL = 2e-4
+STEP_TURNS = 1  # 13c-e: each configuration's readings, in turns
+STEP_ITERS = 2  # profiled steps a turn
+STEP_WARM = 2  # steps of each configuration before its readings
+S2D = {"space_to_depth_stem": True, "fold_bn": True}
+REMAT = {"remat": True, "backbone_remat": True}
+
+
+def box_gap(reqs, got, want) -> float:
+    """The largest coordinate distance between two direct forwards' boxes
+    of the same rows, as a share of the image's side."""
+    return max(float(np.abs(g - w).max()) / max(img.shape[:2])
+               for (img, _), gs, ws in zip(reqs, got, want)
+               for g, w in zip(gs, ws))
+
+
+def interior_gap(folded, unfolded, batch) -> float:
+    """layer1's output of two float32 ServingModels' backbones on the same
+    uint8 canvases, the folded one (fold_bn, fold_normalize) on them as
+    they are and the unfolded one normalising them, HALO pixels in from
+    the edge: the largest difference over the unfolded output's largest
+    magnitude (at least 1), as tests/test_resnet.py:248 holds it."""
+    import torch
+
+    from reftr_torch.ops.image import normalize_images
+
+    img = torch.from_numpy(batch["image"]).cuda()
+    fb, ub = folded.model.img_backbone, unfolded.model.img_backbone
+    with torch.inference_mode():
+        got = fb.run_stage(1, fb.stem(img.float()))
+        want = ub.run_stage(1, ub.stem(normalize_images(img)))
+    inner = (slice(None), slice(None), slice(HALO, -HALO),
+             slice(HALO, -HALO))
+    err = (got[inner] - want[inner]).abs().max()
+    return float(err / want[inner].abs().max().clamp(min=1.0))
+
+
+def fold_http(report: dict, counters, pth: dict, served: dict) -> dict:
+    """Phase 13a: phase 11's .pth by URL through tools/serve.build_server
+    with --fold_bn --fold_normalize (serve batch 16, FOLD_REQUESTS of 11b's
+    requests from FOLD_CLIENTS clients), bf16 and float32. Checks: every
+    answer 200, inside its image and within HTTP_BOX_TOL of the server's
+    own model run directly on the same rows; K1 30 a batch by the rule,
+    K2 and K3 never; the same rows through the unfolded model and the
+    fold_bn-only model (both loading the .pth): the fold_bn-only boxes
+    within HTTP_BOX_TOL of the unfolded model's (fold_bn is exact). The
+    folded model's boxes against the unfolded model's: within HTTP_BOX_TOL
+    in bf16, and in float32 reported: fold_normalize's padding taps beyond
+    the canvas mean black pixels, the unfolded model's zero in normalised
+    space (nn/fold.py), and that edge ring moves a float32 box by more than
+    1e-4 of the side. In float32 the fold is held where it is exact
+    instead: layer1's output inside its edge ring (``interior_gap``) within
+    FOLD_INTERIOR_TOL."""
+    import threading
+
+    import torch
+
+    from reftr_torch.cli.presets import preset_config
+    from reftr_torch.serve import ServingModel
+    from reftr_torch.tools import serve as serve_tools
+    from reftr_torch.train.loop import build_tokenizer
+
+    decode = serve_tools.decode_image
+    serve_tools.decode_image = npy_decode
+    out = {}
+    try:
+        for dtype, n in FOLD_REQUESTS.items():
+            reqs = served["reqs"][:n]
+            cfg = preset_config("refcoco_det", dtype=dtype,
+                                dataset="synthetic", resume=pth["url"],
+                                **FOLDS)
+            t0 = time.perf_counter()
+            server, batcher = serve_tools.build_server(
+                cfg, "127.0.0.1", 0, HTTP_BATCH, HTTP_TIMEOUT_MS)
+            th = threading.Thread(target=server.serve_forever, daemon=True)
+            th.start()
+            base = f"http://127.0.0.1:{server.server_address[1]}"
+            fe = serve_tools.Frontend(cfg, build_tokenizer(cfg))
+            try:
+                code, warm, _ = http_call(base + "/predict", {
+                    "image_b64": npy_b64(reqs[0][0]),
+                    "phrases": reqs[0][1]})
+                if code != 200:
+                    raise AssertionError(f"fold http: warm-up {code} {warm}")
+                torch.cuda.synchronize()
+                build_s = time.perf_counter() - t0
+                run = http_load(base, reqs, FOLD_CLIENTS, counters, batcher)
+            finally:
+                server.shutdown()
+                batcher.stop()
+                server.server_close()
+                th.join(timeout=10)
+            folded = batcher.model
+            del server, batcher
+            if not (folded.model.img_backbone.bn1.folded
+                    and folded.model.config.fold_normalize):
+                raise AssertionError("fold http: the server's model is not "
+                                     "folded")
+            want_n = expected_launches(run["batches"], dtype, False)
+            if run["launches"] != want_n:
+                raise AssertionError(f"fold http {dtype}: launches "
+                                     f"{run['launches']} for "
+                                     f"{run['batches']} batches, not "
+                                     f"{want_n}")
+            tol = HTTP_BOX_TOL[dtype]
+            boxes = {"folded": direct_boxes(folded, fe, reqs)}
+            run["box_err"] = check_answers(f"fold http {dtype}", reqs,
+                                           run.pop("answers"),
+                                           boxes["folded"], tol)
+            models = {"folded": folded}
+            for label, flags in (("unfolded", {}),
+                                 ("fold_bn", {"fold_bn": True})):
+                c = preset_config("refcoco_det", dtype=dtype,
+                                  dataset="synthetic", **flags)
+                models[label] = ServingModel(c, HTTP_BATCH,
+                                             resume=pth["path"])
+                boxes[label] = direct_boxes(models[label], fe, reqs)
+            run["fold_bn_from_unfolded"] = box_gap(reqs, boxes["fold_bn"],
+                                                   boxes["unfolded"])
+            run["folded_from_unfolded"] = box_gap(reqs, boxes["folded"],
+                                                  boxes["unfolded"])
+            run["folded_from_fold_bn"] = box_gap(reqs, boxes["folded"],
+                                                 boxes["fold_bn"])
+            held = ["fold_bn_from_unfolded"]
+            if dtype == "float32":
+                run["layer1_interior_gap"] = interior_gap(
+                    folded, models["unfolded"],
+                    export_batches(served["reqs"], cfg, 1)[0])
+            else:
+                held.append("folded_from_unfolded")
+            del models, folded
+            torch.cuda.empty_cache()
+            run["build_and_warm_s"] = build_s
+            print(f"fold http {dtype} ({report['card']}): --fold_bn "
+                  f"--fold_normalize server built, .pth loaded by URL and "
+                  f"folded, warmed in {build_s:.1f} s; "
+                  f"{run['sent_requests']} requests from {FOLD_CLIENTS} "
+                  f"clients, {run['batches']} batches: "
+                  f"{run['requests_per_s']:.2f} requests/s, p50 "
+                  f"{run['p50_ms']:.2f} ms; largest box error against its "
+                  f"own model's direct forward {run['box_err']:.3g} of the "
+                  f"side (tol {tol}); direct forwards: fold_bn alone from "
+                  f"the unfolded model {run['fold_bn_from_unfolded']:.3g}, "
+                  f"fold_bn + fold_normalize from the unfolded "
+                  f"{run['folded_from_unfolded']:.3g} and from fold_bn "
+                  f"alone {run['folded_from_fold_bn']:.3g} (held at {tol}: "
+                  f"{held}); layer1 inside its edge ring, folded from "
+                  f"unfolded, float32: "
+                  f"{run.get('layer1_interior_gap', 'not run (bf16)')} "
+                  f"(tol {FOLD_INTERIOR_TOL}); launches {run['launches']}",
+                  flush=True)
+            for what in held:
+                if not run[what] <= tol:
+                    raise AssertionError(f"fold http {dtype}: {what} "
+                                         f"{run[what]:.3g} of the side "
+                                         f"(tol {tol})")
+            if not run.get("layer1_interior_gap", 0.0) <= FOLD_INTERIOR_TOL:
+                raise AssertionError(f"fold http {dtype}: layer1 interior "
+                                     f"{run['layer1_interior_gap']:.3g} "
+                                     f"(tol {FOLD_INTERIOR_TOL})")
+            out[dtype] = run
+    finally:
+        serve_tools.decode_image = decode
+    report["fold_http"] = out
+    return out
+
+
+def fold_profile(report: dict) -> dict:
+    """Phase 13c, report only: ``op_profile rec`` (the bf16 serving forward
+    at batch 64) unfolded and folded (fold_bn, fold_normalize), in turns:
+    device ms a forward, the elementwise kernels' ms and share. Both must
+    name K1's kernels."""
+    import torch
+
+    from reftr_torch.tools import op_profile
+
+    out = {"unfolded": [], "folded": []}
+    for _ in range(STEP_TURNS):
+        for label in out:
+            rows = op_profile.profile("rec", topk=8, steps=3,
+                                      unfolded=label == "unfolded")
+            cats = {r["category"] for r in rows}
+            if not {"flash_attn_fwd_tc", "flash_attn_fwd_dec"} <= cats:
+                raise AssertionError(f"op_profile rec {label}: no K1 "
+                                     f"kernel among {sorted(cats)}")
+            total = sum(r["ms"] for r in rows)
+            elem = sum(r["ms"] for r in rows
+                       if r["category"] == "elementwise")
+            out[label].append({
+                "device_ms": total, "elementwise_ms": elem,
+                "elementwise_share": elem / total, "kernels": len(rows),
+                "top": [{k: r[k] for k in ("name", "category", "ms",
+                                           "calls")} for r in rows[:6]]})
+            torch.cuda.empty_cache()
+    for label, runs in out.items():
+        print(f"fold profile ({report['card']}): op_profile rec {label}: "
+              f"device {ms_list(r['device_ms'] for r in runs)} ms a forward "
+              f"at batch 64; elementwise "
+              f"{ms_list(r['elementwise_ms'] for r in runs)} ms, share "
+              f"{', '.join(f'{r['elementwise_share']:.3f}' for r in runs)}",
+              flush=True)
+    report["fold_profile"] = out
+    return out
+
+
+def step_turns(report: dict, counters, variants: dict, batch, targets,
+               what: str, sites=REC_SITES, extra=None) -> dict:
+    """Report only, but for the launches: bf16 train steps of each of
+    ``variants`` (label -> (TrainState, its step, a function that sets the
+    model up for the label or None)), in turns STEP_TURNS times after
+    STEP_WARM steps each: host ms, peak device memory of one step above
+    the memory held before it, device ms by torch.profiler (STEP_ITERS
+    steps), and the launches of that one counted step, which must be the
+    rule's for ``sites`` plus ``extra(label)``."""
+    import torch
+
+    from reftr_torch.tools.op_profile import profile_device
+
+    holders = {label: {"state": state, "step": step, "setup": setup}
+               for label, (state, step, setup) in variants.items()}
+
+    def run(h) -> None:
+        if h["setup"] is not None:
+            h["setup"](h["state"].model)
+        h["state"], metrics = h["step"](h["state"], batch, targets)
+        metrics.get()
+
+    for h in holders.values():
+        for _ in range(STEP_WARM):
+            run(h)
+    readings = {label: [] for label in holders}
+    for turn in range(STEP_TURNS):
+        for label, h in holders.items():
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(counters)
+            t0 = time.perf_counter()
+            run(h)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            launches = read_counts(counters)
+            peak = torch.cuda.max_memory_allocated()
+            want = expected_launches(1, "bfloat16", True, sites)
+            for k, v in (extra(label) if extra else {}).items():
+                want[k] += v
+            if launches != want:
+                raise AssertionError(f"{what} {label}: launches {launches}, "
+                                     f"not {want}")
+            prof = profile_device(lambda h=h: run(h),
+                                  f"{what} {label} (turn {turn})", host_ms,
+                                  iters=STEP_ITERS)
+            readings[label].append({
+                "host_ms": host_ms, "device_ms": prof["device_ms"],
+                "peak_gb": peak / 1e9, "step_peak_gb": (peak - held) / 1e9,
+                "held_gb": held / 1e9, "launches": launches,
+                "by_category_ms": prof.get("by_category_ms")})
+    for label, runs in readings.items():
+        print(f"{what} {label} ({report['card']}): device "
+              f"{', '.join(fmt_ms(r['device_ms']) for r in runs)} ms a step "
+              f"(turns); host {ms_list(r['host_ms'] for r in runs)} ms; "
+              f"peak {', '.join(f'{r['peak_gb']:.2f}' for r in runs)} GB "
+              f"({', '.join(f'{r['step_peak_gb']:.2f}' for r in runs)} GB "
+              f"above the {runs[0]['held_gb']:.2f} GB held); launches "
+              f"{runs[0]['launches']}", flush=True)
+    return readings
+
+
+def bf16_state(cfg, **flags) -> tuple:
+    """(TrainState, its train step) of ``cfg``'s model with ``flags``, in
+    bf16, from seed 0, on the card."""
+    from reftr_torch.train.state import TrainState
+    from reftr_torch.train.steps import make_train_step
+
+    mc = dataclasses.replace(cfg.model, dtype="bfloat16", **flags)
+    state = TrainState.create(mc, cfg.train, 10, seed=0)
+    return state, make_train_step(state.model, model_weights(cfg.loss, mc),
+                                  cfg.loss)
+
+
+def s2d_step(report: dict, counters) -> dict:
+    """Phase 13d: REC's bf16 batch-8 train step with the standard stem and
+    FrozenBN against --space_to_depth_stem --fold_bn (each model's seeded
+    init, folded for the second), in turns (``step_turns``)."""
+    import torch
+
+    from reftr_torch.cli.presets import preset_config
+
+    cfg = preset_config("refcoco_det")
+    batch, targets = train_batch(np.random.default_rng(13), cfg.data.img_size,
+                                 cfg.data.max_query_len,
+                                 cfg.model.bert.vocab_size, SERVE_BATCH)
+    variants = {"standard": (*bf16_state(cfg), None),
+                "s2d_fold_bn": (*bf16_state(cfg, **S2D), None)}
+    report["s2d_step"] = step_turns(
+        report, counters, variants, batch, targets,
+        f"s2d: bf16 batch {SERVE_BATCH} REC step")
+    del variants
+    torch.cuda.empty_cache()
+    return report["s2d_step"]
+
+
+def set_remat(on: bool):
+    """A model setup for ``step_turns``: the VL encoder's layers and every
+    bottleneck recomputed in the backward (--remat --backbone_remat) or
+    kept."""
+    def setup(model) -> None:
+        model.vl_transformer.encoder.remat = on
+        model.img_backbone.remat_stages = frozenset(range(1, 5) if on
+                                                    else ())
+    return setup
+
+
+def remat_grads(model, batch, targets, loss_cfg, wd) -> tuple:
+    """One bf16-autocast forward and backward of ``model`` in training
+    mode at the preset's dropout, from fixed seeds: (loss, the trainable
+    gradients)."""
+    import torch
+
+    from reftr_torch.models.criterion import criterion, total_loss
+    from reftr_torch.nn.attention import attention_rng
+    from reftr_torch.train.steps import to_device
+
+    model.train()
+    model.zero_grad(set_to_none=True)
+    dev = torch.device("cuda")
+    b, tg = to_device(batch, dev), to_device(targets, dev)
+    gen = torch.Generator()
+    gen.manual_seed(17)
+    with torch.random.fork_rng(devices=[dev.index or 0]):
+        torch.manual_seed(17)
+        with torch.autocast("cuda", dtype=torch.bfloat16), attention_rng(gen):
+            out = model(b)
+        loss = total_loss(criterion(out, tg, loss_cfg), wd)
+        loss.backward()
+    return loss.item(), {n: p.grad.float().clone()
+                         for n, p in model.named_parameters()
+                         if p.grad is not None}
+
+
+def remat_step(report: dict, counters) -> dict:
+    """Phase 13e: refcoco_det's bf16 step at four feature levels (the
+    encoder over 8540 tokens), batch 8, with --remat --backbone_remat and
+    without, on one model. First one forward and backward each way at
+    dropout 0.1 from the same seeds: the recompute must draw the
+    forward's masks, so the loss within TRAIN_LOSS_TOL and every
+    gradient within TRAIN_GRAD_TOL rel L2 (phase 5's rule); then the
+    steps in turns (``step_turns``): peak memory and device ms, and the
+    launches: the rule's 30 of each kernel, and with remat K1 again in
+    each of the encoder's 6 recomputed layers."""
+    import torch
+
+    from reftr_torch.cli.presets import preset_config
+
+    cfg = preset_config("refcoco_det", num_feature_levels=4, **REMAT)
+    batch, targets = train_batch(np.random.default_rng(18), cfg.data.img_size,
+                                 cfg.data.max_query_len,
+                                 cfg.model.bert.vocab_size, SERVE_BATCH)
+    state, step = bf16_state(cfg)
+    model = state.model
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    with torch.no_grad():  # gradients reach the attentions
+        torch.nn.init.xavier_uniform_(model.bbox_embed.layers[-1].weight,
+                                      generator=gen)
+    wd = model_weights(cfg.loss, model.config)
+    runs = {}
+    for on in (False, True):
+        set_remat(on)(model)
+        runs[on] = remat_grads(model, batch, targets, cfg.loss, wd)
+    (loss_p, g_p), (loss_r, g_r) = runs[False], runs[True]
+    norm = math.sqrt(sum(float(g.square().sum()) for g in g_p.values()))
+    worst, worst_name = grad_gap(g_r, g_p, norm)
+    loss_err = abs(loss_r - loss_p) / abs(loss_p)
+    check = {"loss_plain": loss_p, "loss_remat": loss_r,
+             "loss_rel_err": loss_err, "worst_grad_rel_l2": worst,
+             "worst_grad_name": worst_name, "n_trainable": len(g_p),
+             "grad_norm": norm}
+    print(f"remat ({report['card']}): four-level bf16 step at dropout "
+          f"{DROPOUT}, recomputed against kept: loss {loss_r:.6f} vs "
+          f"{loss_p:.6f} (rel {loss_err:.3g}, tol {TRAIN_LOSS_TOL}); worst "
+          f"gradient rel L2 {worst:.3g} at {worst_name} (tol "
+          f"{TRAIN_GRAD_TOL}) over {len(g_p)} tensors", flush=True)
+    if not (loss_err <= TRAIN_LOSS_TOL and worst <= TRAIN_GRAD_TOL):
+        raise AssertionError(f"remat: loss rel {loss_err:.3g}, gradient "
+                             f"rel L2 {worst:.3g} at {worst_name}")
+    del runs, g_p, g_r
+    encoder = ((6, LONG_S, LONG_S, 32),)
+
+    def extra(label):
+        if label == "kept":
+            return {}
+        return expected_launches(1, "bfloat16", False, encoder)
+
+    readings = step_turns(
+        report, counters, {"kept": (state, step, set_remat(False)),
+                           "remat": (state, step, set_remat(True))},
+        batch, targets,
+        f"remat: bf16 batch {SERVE_BATCH} step at 4 feature levels",
+        sites=LEVELS_SITES, extra=extra)
+    del state, step, model
+    torch.cuda.empty_cache()
+    report["remat_step"] = {"grads": check, "turns": readings}
+    return report["remat_step"]
+
+
+def phase13(report: dict, counters, pth: dict, served: dict,
+            tmp: Path) -> dict:
+    """Phase 13: the folded server (13a) and its export (13b), the folded
+    forward's profile (13c), the s2d stem's step (13d) and remat's (13e),
+    in phase 11's temporary directory."""
+    t0 = time.perf_counter()
+    parts = {}
+    for part, run in (
+            ("a", lambda: fold_http(report, counters, pth, served)),
+            ("b", lambda: export_model_phase(
+                report, counters, pth, tmp, served["reqs"], flags=FOLDS,
+                dtypes=("bfloat16",), key="fold_export")),
+            ("c", lambda: fold_profile(report)),
+            ("d", lambda: s2d_step(report, counters)),
+            ("e", lambda: remat_step(report, counters))):
+        t = time.perf_counter()
+        run()
+        parts[part] = time.perf_counter() - t
+    report["phase13_s"] = time.perf_counter() - t0
+    print(f"folds: phase 13 in {report['phase13_s']:.1f} s ("
+          + ", ".join(f"13{k} {v:.1f} s" for k, v in parts.items()) + ")",
+          flush=True)
+    return report
+
+
+def fold_launches(report: dict) -> dict:
+    """The launches of phase 13's counted runs (13a's loads, 13b's
+    batches, 13d's and 13e's counted steps), summed."""
+    runs = [r["launches"] for r in report["fold_http"].values()]
+    runs += [r["launches"] for r in report["fold_export"].values()]
+    runs += [t["launches"] for key in ("s2d_step",)
+             for v in report[key].values() for t in v]
+    runs += [t["launches"] for v in report["remat_step"]["turns"].values()
+             for t in v]
+    return {k: sum(n[k] for n in runs) for k in runs[0]}
+
+
 def http_launches(report: dict) -> dict:
     """The launches of phase 11's loads (11b) and predict calls (11c),
     summed."""
@@ -5564,9 +6058,11 @@ def kernel_line(report: dict) -> list:
     dropout beside them), K2 and K3 as trained (dropout 0.1; without it
     beside). ``ms`` is the host loop's time per call (CUDA events around
     back-to-back wrapper calls), ``device_ms`` the card's time per call
-    (torch.profiler); a K2 or K3 row of another variant than SIMT has the
-    SIMT kernel's device time at its site beside it (the same-run
-    "before"). ``launches`` counts the main path's runs: both serving runs
+    (torch.profiler); a K3 row of another variant than SIMT has the SIMT
+    kernel's device time at its site beside it (the same-run "before"),
+    and a K1 or K2 row so where the SIMT K1 and K2 are timed
+    (``simt_timed``). ``launches`` counts the main path's runs: both
+    serving runs
     (bf16 and float32), both training runs (the bf16 steps and the
     float32 steps), the trainer's entry point (phase 6's three runs), RES
     (phase 7's fine-tune, eval-only pass, freeze_reftr steps and
@@ -5575,10 +6071,13 @@ def kernel_line(report: dict) -> list:
     of the entry point and phase 10's runs (the from-scratch recipe through
     the entry point, its eval-only pass and its serving) and phase 11's
     (the HTTP server's loads and predict) and phase 12's (the exported
-    program's batches and its HTTP load), split in
+    program's batches and its HTTP load) and phase 13's (the folded
+    server's loads and its export's batches, the counted s2d and remat
+    steps), split in
     ``launches_serve``, ``launches_train``, ``launches_cli``,
     ``launches_res``, ``launches_multi``, ``launches_ddp``,
-    ``launches_scratch``, ``launches_http`` and ``launches_export``.
+    ``launches_scratch``, ``launches_http``, ``launches_export`` and
+    ``launches_fold``.
     The decode backward has one row for K2 and K3, whose launches it is
     counted in. Every site's numbers are in the JSON report written before
     it."""
@@ -5673,7 +6172,7 @@ def kernel_line(report: dict) -> list:
                 "library_ms": sv["library_ms"],
                 "library_device_ms": sv["library_device_ms"],
                 "library_device_ms_dropout": tr["sdpa_fwd_device_ms"]})
-            if variant != "simt":
+            if variant != "simt" and simt_timed(site, dtype):
                 entry.update({
                     "simt_device_ms": sv["simt_device_ms"],
                     "simt_device_ms_dropout": tr["simt_fwd_device_ms"]})
@@ -5693,7 +6192,8 @@ def kernel_line(report: dict) -> list:
                                   "K2 and K3 together",
                 "device_ms_no_dropout": tr0[f"{key}_device_ms"],
                 "library_device_ms_no_dropout": tr0["sdpa_bwd_device_ms"]})
-            if variant != "simt":
+            if variant != "simt" and (short == "dkv"
+                                      or simt_timed(site, dtype)):
                 entry.update({
                     "simt_device_ms": tr[f"simt_{short}_device_ms"],
                     "simt_device_ms_no_dropout":
@@ -5713,13 +6213,16 @@ def kernel_line(report: dict) -> list:
     scratch_n = scratch_launches(report)
     http_n = http_launches(report)
     export_n = export_launches(report)
+    fold_n = fold_launches(report)
     for entry in out:
         entry["launches_scratch"] = row_launches(entry, scratch_n)
         entry["launches_http"] = row_launches(entry, http_n)
         entry["launches_export"] = row_launches(entry, export_n)
+        entry["launches_fold"] = row_launches(entry, fold_n)
         entry["launches"] += (entry["launches_scratch"]
                               + entry["launches_http"]
-                              + entry["launches_export"])
+                              + entry["launches_export"]
+                              + entry["launches_fold"])
         entry.update(phase_err(report, entry, "scratch"))
         entry.update(phase_err(report, entry, "http"))
     return out

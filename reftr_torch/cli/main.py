@@ -10,7 +10,7 @@ main_vg.py:26-164), plus ``--device``, "cuda" unless "cpu" is asked for:
       --test_split val --output_dir exps/multi
 
 From scratch (the repo holds no pretrained weights), the flags of
-exps/run_gn_flagship3.sh but its TPU stem (--space_to_depth_stem):
+exps/run_gn_flagship3.sh (add ``--space_to_depth_stem`` for its stem):
 
   python -m reftr_torch.cli.main --num_feature_levels 1 \
       --dataset synthetic --train_split train --test_split val \
@@ -34,6 +34,17 @@ processes on the host), through the launcher:
 ``--mesh_data`` is -1 or the launcher's world size; ``--batch_size`` is
 per process, as in the reference.
 
+The JAX step's knobs run as in the JAX package: the backbone's
+reparameterisations (``--space_to_depth_stem``, ``--fold_bn``,
+``--fold_normalize``, ``--backbone_pad_width``, ``--block_layer1``;
+``nn/fold.py`` folds a standard checkpoint or init at load), recompute in
+the backward (``--remat``, ``--backbone_remat``,
+``--backbone_remat_stages``), ``--use_pallas_attention`` (auto: the
+port's rule; on: the kernels, a head dim they lack raises; off: the plain
+version everywhere), ``--debug_nans`` (``train/steps.py``) and
+``--no_donate_state`` (accepted; the port's step updates in place either
+way, and the bits are the same).
+
 Every flag parses as in the JAX package; ``--dataset synthetic_multi`` is
 the port's own (``data/build.py``). A flag of a feature the port does
 not have yet raises NotImplementedError, naming its ROADMAP.md item, when
@@ -56,22 +67,13 @@ _ITEM = "ROADMAP.md queue 1 item"
 NOT_PORTED = {
     "mesh_model": TP_ITEM,
     "mesh_model_spans_processes": TP_ITEM,
-    "fold_bn": f"fold_bn ({_ITEM} 9)",
-    "space_to_depth_stem": f"the TPU reparameterisations ({_ITEM} 9)",
-    "fold_normalize": f"the TPU reparameterisations ({_ITEM} 9)",
-    "block_layer1": f"the TPU reparameterisations ({_ITEM} 9)",
-    "backbone_pad_width": f"the TPU reparameterisations ({_ITEM} 9)",
     "quantize_int8": f"int8 ({_ITEM} 9)",
     "quantize_train_prefix": f"int8 ({_ITEM} 9)",
     "quant_calib_batches": f"int8 ({_ITEM} 9)",
     "quantize_scope": f"int8 ({_ITEM} 9)",
-    "remat": f"the JAX step's knobs ({_ITEM} 9)",
-    "backbone_remat": f"the JAX step's knobs ({_ITEM} 9)",
-    "backbone_remat_stages": f"the JAX step's knobs ({_ITEM} 9)",
-    "use_pallas_attention": f"the JAX step's knobs ({_ITEM} 9)",
-    "no_donate_state": f"the JAX step's knobs ({_ITEM} 9)",
-    "debug_nans": f"the JAX step's knobs ({_ITEM} 9)",
 }
+# --use_pallas_attention's values and ModelConfig's
+PALLAS_ATTENTION = {None: None, "auto": None, "on": True, "off": False}
 
 
 def get_args_parser() -> argparse.ArgumentParser:
@@ -180,26 +182,47 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh_model", default=1, type=int)
     p.add_argument("--mesh_model_spans_processes", action="store_true")
     p.add_argument("--use_pallas_attention", default=None,
-                   choices=("auto", "on", "off"))
-    p.add_argument("--remat", action="store_true")
-    p.add_argument("--space_to_depth_stem", action="store_true")
-    p.add_argument("--fold_bn", action="store_true")
-    p.add_argument("--fold_normalize", action="store_true")
-    p.add_argument("--block_layer1", action="store_true")
-    p.add_argument("--backbone_pad_width", default=0, type=int)
+                   choices=("auto", "on", "off"),
+                   help="the attention kernels: auto (the default) by the "
+                        "port's rule, on at every site (a head dim above "
+                        "128 raises), off: the plain version everywhere")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each VL encoder layer in the backward "
+                        "(torch.utils.checkpoint), with its dropout masks")
+    p.add_argument("--space_to_depth_stem", action="store_true",
+                   help="stem as 2x2 space-to-depth + 4x4/s1 conv"
+                        " (exact fold of the 7x7/s2 stem)")
+    p.add_argument("--fold_bn", action="store_true",
+                   help="fold FrozenBN scales into conv kernels at load")
+    p.add_argument("--fold_normalize", action="store_true",
+                   help="fold /255 + ImageNet normalize into the stem conv"
+                        " (uint8 input path; requires --fold_bn)")
+    p.add_argument("--block_layer1", action="store_true",
+                   help="run layer1 on the 2x2 space-to-depth grid (exact"
+                        " reparameterization)")
+    p.add_argument("--backbone_pad_width", default=0, type=int,
+                   help="zero-pad bottleneck inner widths below this to it"
+                        " (exact)")
     p.add_argument("--quantize_int8", action="store_true")
     p.add_argument("--quantize_train_prefix", action="store_true")
     p.add_argument("--quant_calib_batches", default=4, type=int)
     p.add_argument("--quantize_scope", default=["backbone", "bert", "vl"],
                    nargs="+", choices=["backbone", "bert", "vl"])
-    p.add_argument("--backbone_remat", action="store_true")
+    p.add_argument("--backbone_remat", action="store_true",
+                   help="recompute each backbone bottleneck in the backward"
+                        " (torch.utils.checkpoint)")
     p.add_argument("--backbone_remat_stages", default=[], type=int,
-                   nargs="*")
+                   nargs="*", help="remat only these backbone stages (1-4)")
     p.add_argument("--profile_dir", default="", type=str,
                    help="capture a torch.profiler trace of early steps "
                         "(10-14 of epoch 0) into this directory")
-    p.add_argument("--debug_nans", action="store_true")
-    p.add_argument("--no_donate_state", action="store_true")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="raise at the first non-finite value of a step, "
+                        "forward or backward, naming the module or op")
+    p.add_argument("--no_donate_state", action="store_true",
+                   help="accepted for the JAX command line's sake: the "
+                        "port's step updates the state in place either "
+                        "way, with the same bits")
     p.add_argument("--bert_size", default="base", choices=("base", "tiny"),
                    help="tiny: a small random-init language encoder "
                         "(smoke tests)")
@@ -212,8 +235,6 @@ def refuse_not_ported(args: argparse.Namespace) -> None:
     defaults = get_args_parser().parse_args([])
     for dest, what in NOT_PORTED.items():
         value = getattr(args, dest)
-        if dest == "use_pallas_attention" and value == "auto":
-            continue  # the default's other name
         if value != getattr(defaults, dest):
             raise NotImplementedError(
                 f"--{dest} {value}: {what} is not ported yet")
@@ -227,7 +248,7 @@ def args_to_config(args: argparse.Namespace) -> RefTRConfig:
     """The RefTRConfig of the parsed flags, as reftr_tpu's args_to_config
     gives it for the flags the port has. ``--backbone_norm group`` with a
     flag that folds or quantizes FrozenBN's statistics raises the JAX
-    factory's ValueError before that flag's refusal
+    factory's ValueError before int8's refusal
     (reftr_tpu/models/build.py:25-31)."""
     if args.backbone_norm != "frozen" and (
             args.fold_bn or args.fold_normalize or args.quantize_int8
@@ -281,6 +302,16 @@ def args_to_config(args: argparse.Namespace) -> RefTRConfig:
     m.aux_loss = args.aux_loss
     m.normalize_before = args.pre_norm
     m.dtype = args.dtype
+    # the JAX step's knobs
+    m.use_pallas_attention = PALLAS_ATTENTION[args.use_pallas_attention]
+    m.remat = args.remat
+    m.space_to_depth_stem = args.space_to_depth_stem
+    m.fold_bn = args.fold_bn
+    m.fold_normalize = args.fold_normalize
+    m.backbone_pad_width = args.backbone_pad_width
+    m.block_layer1 = args.block_layer1
+    m.backbone_remat = args.backbone_remat
+    m.backbone_remat_stages = tuple(args.backbone_remat_stages)
     # loss
     loss.vision_aux_coef = args.vision_aux_loss_coef
     loss.bbox_loss_coef = args.bbox_loss_coef
@@ -336,6 +367,7 @@ def args_to_config(args: argparse.Namespace) -> RefTRConfig:
     t.visualize = args.visualize
     t.profile_dir = args.profile_dir
     t.pretrained_model = args.pretrained_model
+    t.donate_state = not args.no_donate_state
     return cfg
 
 
@@ -347,6 +379,10 @@ def main(argv=None) -> int:
     if args.preset:
         apply_preset(args, args.preset, argv)
     cfg = args_to_config(args)
+    if args.debug_nans:
+        from reftr_torch.train.steps import set_debug_nans
+
+        set_debug_nans(True)
     from reftr_torch.train.loop import run_training
 
     result = run_training(cfg, device=args.device)

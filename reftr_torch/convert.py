@@ -16,7 +16,10 @@ a trailing ``_<n>`` index becoming a ``.<n>`` child (``layer1_0`` ->
   query_embed)                        -> as it is
 
 It raises on any leaf it leaves unused and on any port tensor it leaves
-unfilled.
+unfilled. A tree that reftr_tpu's ``optimize_backbone_in_tree`` folded
+maps onto the model of the same flags by the same rules: ``conv1_s2d``'s
+[4, 4, 12, 64] kernel, a folded FrozenBN's lone ``bias``, and layer1's
+block kernels [1, 1, 4cin, 4cout] and [3, 3, 4cin, 4cout].
 
 ``init_params`` fills a model from a ``torch.Generator`` the way the JAX
 package's initialisers do: xavier-uniform for the transformer, heads and
@@ -30,11 +33,15 @@ convolutions.
 ``build_model`` makes the model of a config on its device with either:
 RefTRSeg with ``masks``, else RefTR (reftr_tpu/models/build.py:55-64). It
 is the one place where serving (``serve.ServingModel``) and training
-(``train.TrainState.create``) get their model.
+(``train.TrainState.create``) get their model. With a backbone
+reparameterisation in the config (``nn/fold.py``) and no weights, it
+initialises the standard backbone and folds it, as JAX's ``run_training``
+does (reftr_tpu/train/loop.py:206-226).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import re
 from typing import Any, Dict, Mapping, Optional, Tuple, Union
@@ -49,6 +56,7 @@ from reftr_torch.models.reftr import RefTR
 from reftr_torch.models.reftr_seg import RefTRSeg
 from reftr_torch.models.vl_transformer import VLTransformer
 from reftr_torch.nn.bert import BertEmbeddings, BertLayer, BertModel
+from reftr_torch.nn.fold import folds_backbone, optimize_backbone_in_tree
 from reftr_torch.nn.mlp import MLP
 from reftr_torch.nn.posembed import ImagePositionEmbedding
 from reftr_torch.nn.query_encoder import QueryEncoder
@@ -87,17 +95,23 @@ def flax_leaf_to_torch(path: Tuple[str, ...], leaf: np.ndarray
 
 def model_class(cfg: ModelConfig) -> type:
     """RefTRSeg with ``masks``, else RefTR, after the JAX factory's checks
-    of the type, the backbone's norm and the heads
+    of the type, the backbone's norm and its folds, and the heads
     (reftr_tpu/models/build.py:18-64): any reftr_type that starts with
-    "transformer" builds them; vision_aux with masks, whose probe's loss
-    the JAX factory drops, is refused. The port has no fold_bn or int8 for
-    backbone_norm="group" to exclude: the CLI refuses those flags, and
-    says why with "group" first (``cli/main.py``)."""
+    "transformer" builds them; a GroupNorm backbone has no statistics to
+    fold; fold_normalize needs fold_bn (bn1 holds its shift); vision_aux
+    with masks, whose probe's loss the JAX factory drops, is refused."""
     if not cfg.reftr_type.startswith("transformer"):
         raise NotImplementedError(
             f"reftr_type {cfg.reftr_type!r} is not implemented")
     if cfg.backbone_norm not in ("frozen", "group"):
         raise ValueError(f"backbone_norm {cfg.backbone_norm!r}")
+    if cfg.backbone_norm != "frozen" and (cfg.fold_bn or cfg.fold_normalize):
+        raise ValueError(
+            "backbone_norm='group' has no frozen statistics to fold or "
+            "quantize: drop fold_bn/fold_normalize/quantize_int8/"
+            "quantize_train_prefix")
+    if cfg.fold_normalize and not cfg.fold_bn:
+        raise ValueError("fold_normalize requires fold_bn (bias-only bn1)")
     if cfg.heatmap_box:
         if not cfg.vision_aux:
             raise ValueError("heatmap_box decodes the vision_aux heatmap; "
@@ -179,7 +193,8 @@ def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(mod, FrozenBatchNorm):
             for name, fill in (("weight", 1.0), ("bias", 0.0),
                                ("running_mean", 0.0), ("running_var", 1.0)):
-                getattr(mod, name).fill_(fill)
+                if hasattr(mod, name):
+                    getattr(mod, name).fill_(fill)
     # module-specific initialisers
     for mod in model.modules():
         if isinstance(mod, BertEmbeddings):
@@ -216,12 +231,19 @@ def build_model(cfg: ModelConfig, device: Union[str, torch.device] = "cuda",
     """The model of ``cfg`` (``model_class``: RefTRSeg with ``masks``,
     else RefTR) built on ``device`` ("cuda" unless the caller passes the
     CPU) with the weights of ``state_dict`` or, without one, from
-    ``init_params`` with a generator on the device seeded by ``seed``. On
-    a card the convolutions run NHWC (channels_last), the layout the
-    images arrive in."""
+    ``init_params`` with a generator on the device seeded by ``seed``; a
+    config with backbone folds (``nn/fold.py``) takes ``state_dict`` as
+    folded, and without one initialises the standard model and folds its
+    backbone. On a card the convolutions run NHWC (channels_last), the
+    layout the images arrive in."""
     dev = resolve_device(device)
+    cls = model_class(cfg)
+    if state_dict is None and folds_backbone(cfg):
+        standard = build_model(unfolded(cfg), dev, seed=seed)
+        state_dict = optimize_backbone_in_tree(standard.state_dict(), cfg)
+        del standard
     with torch.device(dev):
-        model = model_class(cfg)(cfg)
+        model = cls(cfg)
     if state_dict is None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -231,3 +253,11 @@ def build_model(cfg: ModelConfig, device: Union[str, torch.device] = "cuda",
     if dev.type == "cuda":
         model.to(memory_format=torch.channels_last)
     return model
+
+
+def unfolded(cfg: ModelConfig) -> ModelConfig:
+    """``cfg`` without its backbone reparameterisations: the standard
+    model whose weights ``nn/fold.py`` rewrites."""
+    return dataclasses.replace(cfg, space_to_depth_stem=False, fold_bn=False,
+                               fold_normalize=False, backbone_pad_width=0,
+                               block_layer1=False)

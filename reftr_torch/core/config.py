@@ -5,9 +5,9 @@ A copy of the matching fields of reftr_tpu/core/config.py (``BertConfig``
 :24-67, ``ModelConfig`` :70-176, ``LossConfig`` :232-249, ``DataConfig``
 :251-287, ``TrainConfig`` :302-343), kept here because the port imports
 nothing of reftr_tpu. Options of the JAX package that the port does not run
-yet (the TPU reparameterisations and int8, the mesh's model axis) are left
-out rather than accepted and ignored; the CLI refuses them
-(``cli/main.py``), and they come back with the slice that runs them.
+yet (int8, the mesh's model axis) are left out rather than accepted and
+ignored; the CLI refuses them (``cli/main.py``), and they come back with
+the slice that runs them.
 """
 
 from __future__ import annotations
@@ -112,6 +112,30 @@ class ModelConfig:
     # casts the weights to it; training keeps them float32 and computes
     # under torch.autocast in it.
     dtype: str = "float32"
+    # The JAX step's knobs (reftr_tpu/core/config.py:177-201).
+    # use_pallas_attention: None (auto) = the port's rule, every attention
+    # on a kernel (nn/attention.py); True = the kernels, and a head dim
+    # they do not cover raises; False = the plain version everywhere
+    use_pallas_attention: Optional[bool] = None
+    # recompute each VL encoder layer in the backward (torch.utils.checkpoint)
+    remat: bool = False
+    # the stem as a 4x4/stride-1 conv on the input's 2x2 space-to-depth
+    # (nn/fold.py folds a standard stem's kernel)
+    space_to_depth_stem: bool = False
+    # FrozenBN's scale folded into the conv kernels at load, a bias left
+    fold_bn: bool = False
+    # /255 and the ImageNet mean/std folded into the stem: the model takes
+    # uint8 canvases only; requires fold_bn
+    fold_normalize: bool = False
+    # zero-pad bottleneck inner widths below this to it (0: off)
+    backbone_pad_width: int = 0
+    # recompute each backbone bottleneck in the backward; _stages: only
+    # those of the listed stages (1-4)
+    backbone_remat: bool = False
+    backbone_remat_stages: Tuple[int, ...] = ()
+    # layer1 on the 2x2 space-to-depth grid (exclusive with
+    # backbone_pad_width)
+    block_layer1: bool = False
 
     @property
     def cem_loss(self) -> bool:
@@ -172,6 +196,10 @@ class TrainConfig:
     # a URL, a reference .pth or a checkpoint of the port
     pretrained_model: Optional[str] = None
     eval_only: bool = False
+    # JAX donates the train state's buffers to its step (reftr_tpu/train/
+    # steps.py:96); the port's step updates the parameters in place either
+    # way, so the flag changes no bit
+    donate_state: bool = True
     visualize: bool = False  # visual dumps under output_dir/vis with --eval
     profile_dir: str = ""  # torch.profiler trace of a few early steps
 

@@ -33,6 +33,12 @@ stage with ``freeze_backbone``), nor BERT with ``freeze_bert``
 ``requires_grad=False`` and they run without a graph, over the sentence
 and over the phrases.
 
+The JAX step's knobs (reftr_tpu/core/config.py:177-201): the backbone's
+reparameterisations and ``backbone_remat`` act in ``nn/resnet.py`` (under
+``fold_normalize`` a uint8 canvas is only cast, its normalisation being
+in the stem, and a float image raises), ``remat`` in the VL encoder, and
+``use_pallas_attention`` routes every attention (``nn/attention.py``).
+
 The from-scratch options (reftr_tpu/core/config.py:103-167):
 ``backbone_norm="group"`` and ``train_stem`` act in the backbone;
 ``img_pos_in_stream`` adds each level's sine position into its projected
@@ -60,6 +66,7 @@ from torch import nn
 
 from reftr_torch.core.config import ModelConfig
 from reftr_torch.models.vl_transformer import VLTransformer
+from reftr_torch.nn.attention import set_attention_route
 from reftr_torch.nn.bert import BertModel
 from reftr_torch.nn.mlp import MLP, MLPMapping
 from reftr_torch.nn.posembed import ImagePositionEmbedding
@@ -100,7 +107,11 @@ class RefTR(nn.Module):
         # feature level) or layer4 alone
         self.img_backbone = ResNet(
             mc.backbone, mc.dilation,
-            mc.masks or mc.num_feature_levels > 1, mc.backbone_norm)
+            mc.masks or mc.num_feature_levels > 1, mc.backbone_norm,
+            space_to_depth=mc.space_to_depth_stem, fold_bn=mc.fold_bn,
+            min_inner_width=mc.backbone_pad_width,
+            block_layer1=mc.block_layer1, remat_blocks=mc.backbone_remat,
+            remat_stages=tuple(mc.backbone_remat_stages))
         self.img_backbone.freeze(
             4 if mc.freeze_backbone or mc.freeze_reftr
             else 0 if mc.train_stem else 1)
@@ -117,7 +128,7 @@ class RefTR(nn.Module):
             normalize_before=mc.normalize_before,
             num_feature_levels=mc.num_feature_levels,
             max_lang_seq=mc.max_lang_seq, dropout=mc.dropout,
-            pos_in_value=mc.decoder_pos_in_value)
+            pos_in_value=mc.decoder_pos_in_value, remat=mc.remat)
         self.map_phrase = MLPMapping(mc.bert.hidden_size, mc.hidden_dim,
                                      mc.dropout)
         self.query_encoder = QueryEncoder(mc.num_queries_per_phrase,
@@ -135,6 +146,7 @@ class RefTR(nn.Module):
             [InputProj(c, mc.hidden_dim) for c in STAGE_CHANNELS[-n_base:]]
             + [InputProj(mc.hidden_dim, mc.hidden_dim, 3, 2)
                for _ in range(n_base, nfl)])
+        set_attention_route(self, mc.use_pallas_attention)
 
     def cast_to_compute_dtype(self) -> "RefTR":
         """Cast parameters and buffers to the compute dtype, except the
@@ -165,9 +177,18 @@ class RefTR(nn.Module):
     def run_backbone(self, image: torch.Tensor):
         """The backbone on uint8 canvases (normalised here) or normalised
         float images: layer4, or the four stages with masks or more than
-        one feature level, NHWC."""
+        one feature level, NHWC. Under ``fold_normalize`` the stem holds
+        the normalisation, so a uint8 canvas is only cast to the compute
+        dtype and a float image raises (reftr_tpu/models/reftr.py:
+        182-193)."""
         if image.dtype == torch.uint8:
-            image = normalize_images(image, self.dtype)
+            if not self.config.fold_normalize:
+                image = normalize_images(image, self.dtype)
+        elif self.config.fold_normalize:
+            raise ValueError(
+                "fold_normalize expects uint8 image inputs (the affine is "
+                "in the stem weights; float inputs would be normalized "
+                "twice)")
         return self.img_backbone(image.to(self.dtype))
 
     def project_features(self, feats, image_valid: torch.Tensor):

@@ -8,6 +8,8 @@ flattened and concatenated after the language tokens (so
 ``memory[:, :S_lang]`` is the language memory). Batch-first; masks are
 validity masks (True = real token). ``pos_in_value``: the decoder's
 cross-attention values carry the memory's position (``nn/transformer.py``).
+``remat``: the encoder's layers are recomputed in the backward, the
+decoder's kept, as in reftr_tpu/models/vl_transformer.py:39, 64.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ class VLTransformer(nn.Module):
                  dim_feedforward: int = 2048, activation: str = "relu",
                  normalize_before: bool = False, num_feature_levels: int = 1,
                  max_lang_seq: int = 128, dropout: float = 0.1,
-                 pos_in_value: bool = False):
+                 pos_in_value: bool = False, remat: bool = False):
         super().__init__()
         if num_decoder_layers <= 0:
             raise NotImplementedError("the serving path needs a decoder")
@@ -37,7 +39,7 @@ class VLTransformer(nn.Module):
                                                     d_model))
         self.encoder = TransformerEncoder(
             num_encoder_layers, d_model, nhead, dim_feedforward, activation,
-            normalize_before, dropout=dropout)
+            normalize_before, dropout=dropout, remat=remat)
         self.decoder = TransformerDecoder(
             num_decoder_layers, d_model, nhead, dim_feedforward, activation,
             normalize_before, dropout=dropout, pos_in_value=pos_in_value)

@@ -10,7 +10,11 @@ Dropout sits where the JAX package has it (reftr_tpu/nn/transformer.py:65,
 inside the kernels, on the attention weights; it acts in training mode only.
 With ``pos_in_value`` (the from-scratch option ``decoder_pos_in_value``,
 reftr_tpu/nn/transformer.py:166-183) the decoder's cross-attention values
-are memory + pos, its keys as before.
+are memory + pos, its keys as before. With ``remat`` the encoder's layers
+are recomputed in the backward (``torch.utils.checkpoint``, as JAX's
+``nn.remat``, reftr_tpu/nn/transformer.py:141-142) with the dropout masks
+of their forward: checkpoint restores the default generators for the
+elementwise dropouts, ``seed_replay`` the attention seeds.
 """
 
 from __future__ import annotations
@@ -20,8 +24,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from reftr_torch.nn.attention import MultiHeadAttention
+from reftr_torch.nn.attention import MultiHeadAttention, seed_replay
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default
 
@@ -76,7 +81,8 @@ class TransformerEncoderLayer(nn.Module):
 class TransformerEncoder(nn.Module):
     def __init__(self, num_layers: int, d_model: int, nhead: int,
                  dim_feedforward: int = 2048, activation: str = "relu",
-                 normalize_before: bool = False, dropout: float = 0.1):
+                 normalize_before: bool = False, dropout: float = 0.1,
+                 remat: bool = False):
         super().__init__()
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(d_model, nhead, dim_feedforward,
@@ -84,12 +90,18 @@ class TransformerEncoder(nn.Module):
             for _ in range(num_layers))
         self.norm = (nn.LayerNorm(d_model, eps=LN_EPS) if normalize_before
                      else None)
+        self.remat = remat
 
     def forward(self, src: torch.Tensor, pos: Optional[torch.Tensor] = None,
                 valid_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         out = src
+        remat = self.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            out = layer(out, pos, valid_mask)
+            if remat:
+                out = checkpoint(layer, out, pos, valid_mask,
+                                 use_reentrant=False, context_fn=seed_replay)
+            else:
+                out = layer(out, pos, valid_mask)
         return out if self.norm is None else self.norm(out)
 
 

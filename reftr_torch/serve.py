@@ -140,7 +140,9 @@ def serving_module(cfg: RefTRConfig,
     seeded by ``seed``; then ``resume`` (a URL, a reference ``.pth`` or a
     checkpoint of the port) is merged in non-strictly by
     ``train.loop.load_pretrained``, as the JAX server loads its weights
-    (reftr_tpu/tools/export_model.py:147-176)."""
+    (reftr_tpu/tools/export_model.py:147-176). With the config's backbone
+    folds (``--fold_bn``, ``--fold_normalize``, ...) the model is the
+    folded one and a standard checkpoint is folded as it loads."""
     model = build_model(cfg.model, resolve_device(device), state_dict, seed)
     if resume:
         from reftr_torch.train.loop import load_pretrained

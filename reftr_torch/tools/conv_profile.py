@@ -12,14 +12,16 @@ Each program is the port's backbone (``nn/resnet.py``, FrozenBN, the
 convolutions channels-last on the card) under bf16 autocast, as the train
 step runs it, summing its stages' outputs in float32; forward + backward
 takes the gradient of that sum with respect to every weight (the JAX
-tool's ``jax.grad``; no stage frozen). The JAX tool's space-to-depth stem
-and folded FrozenBN are ROADMAP.md queue 1 item 9, so neither is here.
-Times: CUDA events around ``steps`` back-to-back calls after ``warmup``,
-each call on inputs perturbed for it and made before the timed calls.
+tool's ``jax.grad``; no stage frozen). As in the JAX tool, the stem is
+the space-to-depth one (``s2d``) and FrozenBN is folded (``fold``) unless
+asked otherwise (reftr_tpu/tools/conv_profile.py:36-45). Times: CUDA
+events around ``steps`` back-to-back calls after ``warmup``, each call on
+inputs perturbed for it and made before the timed calls.
 
 Usage (on the card)::
 
-    python -m reftr_torch.tools.conv_profile [batch] [--hw 640]
+    python -m reftr_torch.tools.conv_profile [batch] [--hw 640] \
+        [--no_s2d] [--no_fold]
 """
 
 from __future__ import annotations
@@ -30,7 +32,6 @@ import time
 from typing import Callable, List, Sequence
 
 import torch
-import torch.nn.functional as F
 
 STAGES = ["stem", "layer1", "layer2", "layer3", "layer4"]
 
@@ -39,13 +40,10 @@ def prefix_sum(net, x: torch.Tensor, k: int) -> torch.Tensor:
     """The stem and layers 1..k+1 of ``net`` (a ``nn.resnet.ResNet``) on
     NHWC ``x``, as ``ResNet.forward`` runs them: the float32 sum of their
     outputs."""
-    x = x.permute(0, 3, 1, 2)
-    if not net.channels_last:
-        x = x.contiguous()
-    x = F.max_pool2d(F.relu(net.bn1(net.conv1(x))), 3, stride=2, padding=1)
+    x = net.stem(x)
     total = x.new_zeros((), dtype=torch.float32)
-    for stage in (net.layer1, net.layer2, net.layer3, net.layer4)[:k + 1]:
-        x = stage(x)
+    for stage in range(1, k + 2):
+        x = net.run_stage(stage, x)
         total = total + x.float().sum()
     return total
 
@@ -75,16 +73,19 @@ def time_ms(fn: Callable[[torch.Tensor], object],
 
 
 def profile(batch: int = 32, hw: int = 640, device="cuda", steps: int = 10,
-            warmup: int = 2, print_fn=print) -> List[dict]:
-    """Time the four cumulative programs at ``batch`` x ``hw``^2; returns
-    a row each (program, fwd_ms, fwd_delta_ms, fwd_bwd_ms,
-    fwd_bwd_delta_ms) and prints them."""
+            warmup: int = 2, print_fn=print, s2d: bool = True,
+            fold: bool = True) -> List[dict]:
+    """Time the four cumulative programs at ``batch`` x ``hw``^2, with the
+    space-to-depth stem (``s2d``) and folded FrozenBN (``fold``) or
+    without; returns a row each (program, fwd_ms, fwd_delta_ms,
+    fwd_bwd_ms, fwd_bwd_delta_ms) and prints them."""
     from reftr_torch.core.device import resolve_device
     from reftr_torch.nn.resnet import ResNet
     from reftr_torch.ops.image import normalize_images
 
     dev = resolve_device(device)
-    net = ResNet("resnet50", return_interm_layers=True).to(dev)
+    net = ResNet("resnet50", return_interm_layers=True, space_to_depth=s2d,
+                 fold_bn=fold).to(dev)
     if dev.type == "cuda":
         net = net.to(memory_format=torch.channels_last)
     params = [p for p in net.parameters()]
@@ -95,7 +96,7 @@ def profile(batch: int = 32, hw: int = 640, device="cuda", steps: int = 10,
     inputs = [x0 + i * 1e-3 for i in range(warmup + steps)]
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print_fn(f"# cumulative programs, B={batch} {hw}px bf16 autocast, "
-             f"no s2d stem or folds, on {where}: ms a call")
+             f"s2d={s2d} fold={fold}, on {where}: ms a call")
     rows: List[dict] = []
     prev_f = prev_t = 0.0
     for k in range(4):
@@ -127,8 +128,13 @@ def main(argv=None) -> int:
     p.add_argument("--hw", type=int, default=640)
     p.add_argument("--device", default="cuda")
     p.add_argument("--steps", type=int, default=10)
+    p.add_argument("--no_s2d", action="store_true",
+                   help="the 7x7/stride-2 stem")
+    p.add_argument("--no_fold", action="store_true",
+                   help="FrozenBN's scale and shift applied, not folded")
     a = p.parse_args(argv)
-    profile(a.batch, a.hw, a.device, a.steps)
+    profile(a.batch, a.hw, a.device, a.steps, s2d=not a.no_s2d,
+            fold=not a.no_fold)
     return 0
 
 

@@ -32,8 +32,12 @@ CLI (every flag of ``cli.main`` plus the export's)::
         --resume <checkpoint, reference .pth, or URL> --out exported/ \\
         [--export_batch 16] [--export_platforms cuda|cpu] [--selfcheck]
 
-``--fold_bn``, ``--fold_normalize`` and ``--quantize_int8`` are refused as
-the trainer refuses them (ROADMAP.md queue 1 item 9).
+With ``--fold_bn`` and ``--fold_normalize`` (and the other backbone
+folds) the program holds the folded weights (``nn/fold.py``; a standard
+checkpoint is folded as it loads), and under ``--fold_normalize`` it takes
+the uint8 canvases as they are; the manifest says which, under JAX's keys
+``fold_bn`` and ``fold_normalize``. ``--quantize_int8`` is refused as the
+trainer refuses it (ROADMAP.md queue 1 item 9).
 
 Loading (deployment side)::
 
@@ -248,15 +252,18 @@ def export_with_config(cfg, resume: str, out_dir: str, batch_size: int,
 
 def model_manifest(cfg, model: torch.nn.Module, batch_size: int,
                    resume: str) -> Dict:
-    """The manifest's keys of the model (JAX's, but the folds and int8 of
-    item 9): its flags, the batch size, the parameter count, the
-    weights' source."""
+    """The manifest's keys of the model (JAX's,
+    reftr_tpu/tools/export_model.py:205-217): its flags, the folds among
+    them (int8 is not ported, so ``quantize_int8`` is false), the batch
+    size, the parameter count, the weights' source."""
     mc = cfg.model
     return {
         "model": {
             "backbone": mc.backbone, "hidden_dim": mc.hidden_dim,
             "enc_layers": mc.enc_layers, "dec_layers": mc.dec_layers,
             "masks": mc.masks, "dtype": mc.dtype,
+            "fold_bn": mc.fold_bn, "fold_normalize": mc.fold_normalize,
+            "quantize_int8": False,
         },
         "batch_size": batch_size,
         "n_parameters": sum(p.numel() for p in model.parameters()),

@@ -13,9 +13,13 @@ rows are the device's kernels (CUDA activity); on the CPU (the tests, and
          float32: the tests' mode
   rec_int8 refused: int8 is ROADMAP.md queue 1 item 9
 
-``rec`` and ``train`` run the unfolded model: the JAX tool folds
-FrozenBN and the normalisation into the convolutions, which is item 9
-too. Inputs are perturbed on every call. The module also holds the
+``rec`` and ``train`` run the JAX tool's folded model
+(reftr_tpu/tools/op_profile.py:85-86): FrozenBN and the normalisation
+folded into the convolutions (``fold_bn``, ``fold_normalize``;
+``nn/fold.py``), the uint8 canvases cast as they come; ``unfolded=True``
+(``--unfolded``) runs the standard model, which normalises on the device
+and applies each FrozenBN's scale and shift. Inputs are perturbed on
+every call. The module also holds the
 smoke's per-category breakdown (``kernel_category``, ``profile_device``),
 so that one reader of the profiler's events serves both.
 
@@ -188,7 +192,7 @@ def make_batch(rng: np.random.Generator, b: int, hw: int, seq: int,
             "sentence_valid": sentence_valid}
 
 
-def _config(mode: str):
+def _config(mode: str, unfolded: bool = False):
     from reftr_torch.cli.presets import preset_config
     from reftr_torch.core.config import (BertConfig, DataConfig, ModelConfig,
                                          RefTRConfig)
@@ -200,16 +204,17 @@ def _config(mode: str):
                               aux_loss=False),
             data=DataConfig(img_size=64, max_img_size=64))
     return preset_config("refcoco_det", dtype="bfloat16",
-                         aux_loss=mode == "train")
+                         aux_loss=mode == "train", fold_bn=not unfolded,
+                         fold_normalize=not unfolded)
 
 
-def _build_step(mode: str, device: torch.device, batch_size: int
-                ) -> Callable[[int], None]:
+def _build_step(mode: str, device: torch.device, batch_size: int,
+                unfolded: bool = False) -> Callable[[int], None]:
     """run(i): one call of ``mode`` on inputs perturbed by i, ending in a
     read of its result on the host."""
     from reftr_torch.serve import serving_module
 
-    cfg = _config(mode)
+    cfg = _config(mode, unfolded)
     mc, d = cfg.model, cfg.data
     rng = np.random.default_rng(0)
     batch = make_batch(rng, batch_size, d.img_size, d.max_query_len,
@@ -259,12 +264,12 @@ def rank_rows(prof, steps: int, device: bool) -> List[dict]:
 
 
 def profile(mode: str = "rec", topk: int = 25, steps: int = 3,
-            device="cuda", trace_dir: str = "", print_fn=print
-            ) -> List[dict]:
+            device="cuda", trace_dir: str = "", print_fn=print,
+            unfolded: bool = False) -> List[dict]:
     """Profile ``steps`` calls of ``mode`` after two warm-up calls and
     print the ``topk`` rows of ``rank_rows``; returns every row. With
     ``trace_dir`` the Chrome trace goes there too (the JAX tool's raw
-    trace)."""
+    trace). ``unfolded``: ``rec`` and ``train`` without the folds."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -278,7 +283,7 @@ def profile(mode: str = "rec", topk: int = 25, steps: int = 3,
         raise ValueError(f"mode must be one of {MODES}, not {mode!r}")
     dev = resolve_device(device)
     b = BATCH[mode]
-    run = _build_step(mode, dev, b)
+    run = _build_step(mode, dev, b, unfolded)
     for i in range(2):  # the kernels' build, cuDNN's plans, warm caches
         run(i)
     on_card = dev.type == "cuda"
@@ -297,7 +302,10 @@ def profile(mode: str = "rec", topk: int = 25, steps: int = 3,
         raise RuntimeError("torch.profiler recorded no device time")
     total = sum(r["ms"] for r in rows)
     where = torch.cuda.get_device_name(dev) if on_card else "the CPU"
-    print_fn(f"mode={mode}  batch={b}  {'device' if on_card else 'host'} "
+    folds = ("" if mode == "tiny" else
+             "  unfolded" if unfolded else "  fold_bn fold_normalize")
+    print_fn(f"mode={mode}{folds}  batch={b}  "
+             f"{'device' if on_card else 'host'} "
              f"ops={len(rows)} on {where}  total self time={total:.3f} ms a "
              f"step ({steps} steps)")
     print_fn(f"{'self ms':>9} {'%':>6} {'calls':>6} {'category':>22}  "
@@ -316,8 +324,11 @@ def main(argv=None) -> int:
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--device", default="cuda")
     p.add_argument("--trace_dir", default="")
+    p.add_argument("--unfolded", action="store_true",
+                   help="rec and train without fold_bn and fold_normalize")
     a = p.parse_args(argv)
-    profile(a.mode, a.topk, a.steps, a.device, a.trace_dir)
+    profile(a.mode, a.topk, a.steps, a.device, a.trace_dir,
+            unfolded=a.unfolded)
     return 0
 
 

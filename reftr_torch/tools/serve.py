@@ -35,6 +35,10 @@ it was exported for::
 
     python -m reftr_torch.tools.serve --preset refcoco_det \
         --exported exported/ --port 8080
+
+With ``--fold_bn --fold_normalize`` (the JAX package's serving command,
+reftr_tpu/tools/serve.py:28) the live model loads the checkpoint folded
+(``nn/fold.py``) and takes the uint8 canvases as they are.
 """
 
 from __future__ import annotations
@@ -77,9 +81,17 @@ class Frontend:
 
     def rows(self, img: np.ndarray, phrases) -> Request:
         """An [H, W, 3] uint8 image and its phrases -> a Request of one
-        row per phrase: the image's canvas and validity mask, each
-        phrase's token ids."""
+        row per phrase: the image's uint8 canvas and validity mask, each
+        phrase's token ids. Any other image raises (a 400): the model
+        normalises uint8 canvases on the device, or under
+        ``fold_normalize`` takes them as they are, and would read a float
+        image as normalised already (or, folded, refuse it)."""
         from reftr_torch.data.transforms import transform_sample
+
+        img = np.asarray(img)
+        if img.dtype != np.uint8 or img.ndim != 3 or img.shape[-1] != 3:
+            raise ValueError(f"an image must be [H, W, 3] uint8 RGB, not "
+                             f"{img.dtype} of shape {img.shape}")
 
         d = self.cfg.data
         ts = transform_sample(img, np.zeros((0, 4), np.float32),

@@ -51,6 +51,7 @@ from reftr_torch.data.native import ByteLevelBPETokenizer, WordPieceTokenizer
 from reftr_torch.data.samplers import NodeShardedSampler, ShardedSampler
 from reftr_torch.models.criterion import weight_dict as build_weight_dict
 from reftr_torch.nn.convert import convert_for, load_torch_checkpoint
+from reftr_torch.nn.fold import optimize_backbone_in_tree
 from reftr_torch.parallel.sharding import check_data_axis, loader_shards
 from reftr_torch.train.engine import evaluate, train_one_epoch
 from reftr_torch.train.state import TrainState
@@ -130,13 +131,16 @@ def load_pretrained(model: torch.nn.Module, path: str, cfg: RefTRConfig,
     (reftr_tpu/train/loop.py:120-154). ``path`` is a URL (fetched into the
     cache by ``core/hub.py``), a reference ``.pth``/``.pt``/``.bin``
     (converted by ``nn/convert.py``; a DETR checkpoint gives the backbone
-    and the encoder), or a checkpoint of the port. The JAX package then
-    folds the backbone for its TPU flags (``optimize_backbone_in_tree``);
-    without them that is the identity, and the port's CLI refuses them."""
+    and the encoder), or a checkpoint of the port. A converted checkpoint
+    is standard, and its backbone is folded for the config's
+    reparameterisations (``nn/fold.py::optimize_backbone_in_tree``, as
+    reftr_tpu/train/loop.py:144-146); a checkpoint of the port holds the
+    weights of the model that wrote it, folded already."""
     if hub.is_url(path):
         path = hub.download_checkpoint(path, progress_fn=log)
     if path.endswith(_TORCH_CHECKPOINTS):
-        pretrained = convert_for(load_torch_checkpoint(path), cfg.model)
+        pretrained = optimize_backbone_in_tree(
+            convert_for(load_torch_checkpoint(path), cfg.model), cfg.model)
     else:
         pretrained = ckpt_lib.load_checkpoint(path)["model"]
     return ckpt_lib.load_pretrained_nonstrict(model, pretrained, log=log)
@@ -191,7 +195,16 @@ def run_training(cfg: RefTRConfig,
     steps_per_epoch = len(train_loader)
     master_print(f"Steps per training epoch: {steps_per_epoch}")
 
+    if cfg.model.fold_normalize and not cfg.train.eval_only:
+        # the JAX package's warning (reftr_tpu/train/loop.py:206-214)
+        master_print(
+            "WARNING: --fold_normalize degrades TRAINING convergence "
+            "(measured); use it for --eval/serving only and train with "
+            "--space_to_depth_stem --fold_bn instead")
     t0 = time.perf_counter()
+    # with backbone folds, the standard backbone's seeded init folded
+    # (convert.build_model), and n_parameters that model's; a pretrained
+    # load below replaces its weights
     state = TrainState.create(cfg.model, cfg.train, steps_per_epoch,
                               device=dev, seed=cfg.train.seed)
     if dev.type == "cuda":

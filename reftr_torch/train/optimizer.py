@@ -13,8 +13,12 @@ train_stem (then they train in the backbone group), the backbone when
 lr_backbone <= 0 or with freeze_backbone, BERT with freeze_bert, and with
 freeze_reftr the rest of the REC trunk; cem_block then stays at the base
 LR (reftr_tpu/train/optimizer.py:80-84). FrozenBN statistics are buffers
-in the port, so no rule is needed for them; under backbone_norm="group"
-the GroupNorms' affines are parameters of the backbone group.
+in the port, so no rule is needed for them (JAX's ``_FROZEN_BN_LEAVES``,
+:39), and so is a folded FrozenBN's bias (``fold_bn``): it never trains,
+while the conv kernel that holds its scale trains where its stage
+trains; the space-to-depth stem's ``conv1_s2d`` is the stem. Under
+backbone_norm="group" the GroupNorms' affines are parameters of the
+backbone group.
 
 What gets no gradient at all is the model's to decide (``RefTR`` sets
 requires_grad=False on the stem and layer1, on the backbone with
@@ -54,7 +58,7 @@ def param_label(name: str, model_cfg: ModelConfig,
         # the stem (the module directly under img_backbone, not a
         # bottleneck's conv1) and layer1 train with train_stem only
         child = parts[parts.index("img_backbone") + 1]
-        if child in ("conv1", "bn1", "layer1"):
+        if child in ("conv1", "conv1_s2d", "bn1", "layer1"):
             return "frozen"
     if any(k in name for k in train_cfg.lr_backbone_names):
         return "backbone" if train_backbone else "frozen"

@@ -35,11 +35,26 @@ every rank and that of one process on the global batch); JAX's reported
 ``grad_norm`` (:87) also counts the FrozenBN leaves of layer2-4, which are
 Flax params there and buffers here (ROADMAP.md queue 3, "Differences that
 are not port faults").
+
+``set_debug_nans(True)`` (``--debug_nans``, the counterpart of
+``jax_debug_nans``, reftr_tpu/cli/main.py:333-336) makes every step raise
+at the first non-finite value: ``FloatingPointError`` in the forward,
+naming the innermost module whose output holds one; autograd's anomaly
+mode's ``RuntimeError`` in the backward, naming the function that
+returned a NaN; ``FloatingPointError`` at a gradient that is not finite,
+naming its parameter. It synchronises with the device after every
+module, so it is a debugging aid.
+
+JAX's step donates the state's buffers (``donate_state``, :37-39, 96):
+its update reuses their memory. The port's optimizer updates the
+parameters in place at every step, so ``TrainConfig.donate_state`` (and
+``--no_donate_state``) changes neither the memory nor a bit.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Tuple, Union
+from contextlib import contextmanager
+from typing import Callable, Dict, Iterator, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -55,6 +70,63 @@ from reftr_torch.models.postprocess import rec_metrics, segm_metrics
 from reftr_torch.nn.attention import attention_rng
 from reftr_torch.train.optimizer import clip_by_global_norm
 from reftr_torch.train.state import TrainState
+
+
+_DEBUG_NANS = False
+
+
+def set_debug_nans(on: bool) -> None:
+    """Raise at the first non-finite value in every later step, forward
+    or backward (``--debug_nans``)."""
+    global _DEBUG_NANS
+    _DEBUG_NANS = bool(on)
+
+
+def _tensors(value) -> Iterator[torch.Tensor]:
+    if isinstance(value, torch.Tensor):
+        yield value
+    elif isinstance(value, (tuple, list)):
+        for v in value:
+            yield from _tensors(v)
+    elif isinstance(value, Mapping):
+        for v in value.values():
+            yield from _tensors(v)
+
+
+@contextmanager
+def nan_checks(model: nn.Module, enabled: bool) -> Iterator[None]:
+    """With ``enabled``: a forward hook on every module of ``model`` that
+    raises at a non-finite floating output, naming the module, and
+    autograd's anomaly mode over the block, which raises at the backward
+    function that returns a NaN."""
+    if not enabled:
+        yield
+        return
+    names = {id(m): name or type(model).__name__
+             for name, m in model.named_modules()}
+
+    def check(mod, _inputs, output):
+        for t in _tensors(output):
+            if t.is_floating_point() and not bool(torch.isfinite(t).all()):
+                raise FloatingPointError(
+                    f"debug_nans: a non-finite value in the output of "
+                    f"{names[id(mod)]} ({type(mod).__name__})")
+
+    handles = [m.register_forward_hook(check) for m in model.modules()]
+    try:
+        with torch.autograd.detect_anomaly(check_nan=True):
+            yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def check_grads_finite(model: nn.Module) -> None:
+    """Raise at the first parameter whose gradient is not finite."""
+    for name, p in model.named_parameters():
+        if p.grad is not None and not bool(torch.isfinite(p.grad).all()):
+            raise FloatingPointError(f"debug_nans: a non-finite gradient "
+                                     f"of {name}")
 
 
 def to_device(tree: Mapping[str, np.ndarray],
@@ -146,17 +218,22 @@ def make_train_step(model: nn.Module, weight_dict: Dict[str, float],
         seed = int(torch.randint(0, 2 ** SEED_BITS - 1, (),
                                  generator=state.generator))
         local = len(batch["image"])
-        with torch.random.fork_rng(devices=rng_devices):
-            torch.manual_seed(shard_seed(seed, shard, local))
-            with _autocast(model, device), attention_rng(state.generator,
-                                                         shard):
-                out = forward(batch)
-        losses = criterion(out, targets, loss_cfg, with_masks)
-        loss = total_loss(losses, weight_dict)
-        # the model's, not the optimizer's: a parameter with a gradient
-        # may stay out of the optimizer (the backbone at lr_backbone <= 0)
-        model.zero_grad(set_to_none=True)
-        loss.backward()
+        debug = _DEBUG_NANS
+        with nan_checks(model, debug):
+            with torch.random.fork_rng(devices=rng_devices):
+                torch.manual_seed(shard_seed(seed, shard, local))
+                with _autocast(model, device), attention_rng(state.generator,
+                                                             shard):
+                    out = forward(batch)
+            losses = criterion(out, targets, loss_cfg, with_masks)
+            loss = total_loss(losses, weight_dict)
+            # the model's, not the optimizer's: a parameter with a
+            # gradient may stay out of the optimizer (the backbone at
+            # lr_backbone <= 0)
+            model.zero_grad(set_to_none=True)
+            loss.backward()
+        if debug:
+            check_grads_finite(model)
         grad_norm = clip_by_global_norm(state.trainable(),
                                         state.clip_max_norm)
         lr = state.base_lr * state.scheduler.lr_lambdas[0](state.step)
@@ -184,7 +261,7 @@ def make_eval_step(model: nn.Module, loss_cfg: LossConfig,
         model.eval()
         batch = to_device(batch, device)
         targets = to_device(targets, device)
-        with _autocast(model, device):
+        with nan_checks(model, _DEBUG_NANS), _autocast(model, device):
             out = model(batch)
         losses = criterion(out, targets, loss_cfg, with_masks)
         sums = rec_metrics(out["pred_boxes"], targets["boxes"],

@@ -130,25 +130,108 @@ def test_preset_config_is_the_cli_config(name):
 NOT_PORTED_ARGVS = {
     "mesh_model": ["--mesh_model", "2"],
     "mesh_model_spans_processes": ["--mesh_model_spans_processes"],
-    "fold_bn": ["--fold_bn"],
-    "space_to_depth_stem": ["--space_to_depth_stem"],
-    "fold_normalize": ["--fold_normalize"],
-    "block_layer1": ["--block_layer1"],
-    "backbone_pad_width": ["--backbone_pad_width", "128"],
     "quantize_int8": ["--quantize_int8"],
     "quantize_train_prefix": ["--quantize_train_prefix"],
     "quant_calib_batches": ["--quant_calib_batches", "2"],
     "quantize_scope": ["--quantize_scope", "bert"],
-    "remat": ["--remat"], "backbone_remat": ["--backbone_remat"],
-    "backbone_remat_stages": ["--backbone_remat_stages", "2"],
-    "use_pallas_attention": ["--use_pallas_attention", "on"],
-    "no_donate_state": ["--no_donate_state"],
-    "debug_nans": ["--debug_nans"],
 }
 
 
 def test_every_not_ported_flag_is_tested():
     assert set(NOT_PORTED_ARGVS) == set(cli.NOT_PORTED)
+
+
+# the JAX step's knobs, refused before their slice: flag -> (argv, the
+# config field it sets, its value there)
+KNOB_ARGVS = {
+    "fold_bn": (["--fold_bn"], "model.fold_bn", True),
+    "space_to_depth_stem": (["--space_to_depth_stem"],
+                            "model.space_to_depth_stem", True),
+    "fold_normalize": (["--fold_bn", "--fold_normalize"],
+                       "model.fold_normalize", True),
+    "block_layer1": (["--block_layer1"], "model.block_layer1", True),
+    "backbone_pad_width": (["--backbone_pad_width", "128"],
+                           "model.backbone_pad_width", 128),
+    "remat": (["--remat"], "model.remat", True),
+    "backbone_remat": (["--backbone_remat"], "model.backbone_remat", True),
+    "backbone_remat_stages": (["--backbone_remat_stages", "1", "2"],
+                              "model.backbone_remat_stages", (1, 2)),
+    "use_pallas_attention_on": (["--use_pallas_attention", "on"],
+                                "model.use_pallas_attention", True),
+    "use_pallas_attention_off": (["--use_pallas_attention", "off"],
+                                 "model.use_pallas_attention", False),
+    "use_pallas_attention_auto": (["--use_pallas_attention", "auto"],
+                                  "model.use_pallas_attention", None),
+    "no_donate_state": (["--no_donate_state"], "train.donate_state", False),
+}
+
+
+@pytest.mark.parametrize("dest", sorted(KNOB_ARGVS))
+def test_a_knob_parses_to_the_jax_config_and_builds(dest):
+    """Each of the JAX step's knobs maps onto the config as reftr_tpu's
+    args_to_config maps it (cli/main.py:249-261, 317), leaves NOT_PORTED,
+    and the refcoco_det model it names builds (on the meta device)."""
+    flags, field, value = KNOB_ARGVS[dest]
+    argv = ["--preset", "refcoco_det"] + flags
+    got = cli.args_to_config(parse(cli, argv))
+    want = jax_main.args_to_config(parse(jax_main, argv))
+    for section in ("model", "train"):
+        ours, theirs = getattr(got, section), getattr(want, section)
+        for f in dataclasses.fields(ours):
+            if f.name != "bert":
+                assert getattr(ours, f.name) == getattr(theirs, f.name), (
+                    section, f.name)
+    section, name = field.split(".")
+    assert getattr(getattr(got, section), name) == value
+    assert dest.removesuffix("_on").removesuffix("_off").removesuffix(
+        "_auto") not in cli.NOT_PORTED
+    from reftr_torch.convert import model_class
+
+    with torch.device("meta"):
+        model = model_class(got.model)(got.model)
+    if got.model.fold_bn:
+        assert model.img_backbone.bn1.folded
+
+
+def test_the_jax_cli_mapping_test_parses_and_builds():
+    """tests/test_cli.py:62-72's flags on refcoco_seg: the same config
+    values as JAX's, and the RES model with the s2d stem, the folds, the
+    padded widths and the recomputed bottlenecks builds."""
+    argv = ["--preset", "refcoco_seg", "--dtype", "bfloat16",
+            "--space_to_depth_stem", "--fold_bn", "--fold_normalize",
+            "--backbone_pad_width", "128", "--backbone_remat",
+            "--lr_bert_names", "a", "b"]
+    got = cli.args_to_config(parse(cli, argv))
+    want = jax_main.args_to_config(parse(jax_main, argv))
+    for section in ("model", "loss", "data", "train"):
+        ours, theirs = getattr(got, section), getattr(want, section)
+        for f in dataclasses.fields(ours):
+            if f.name != "bert":
+                assert getattr(ours, f.name) == getattr(theirs, f.name), (
+                    section, f.name)
+    from reftr_torch.convert import model_class
+
+    with torch.device("meta"):
+        model = model_class(got.model)(got.model)
+    backbone = model.img_backbone
+    assert backbone.space_to_depth and backbone.remat_stages == {1, 2, 3, 4}
+    assert backbone.layer1[0].conv2.weight.shape == (128, 128, 3, 3)
+
+
+def test_debug_nans_turns_the_step_checks_on(monkeypatch):
+    """main's --debug_nans sets the steps' switch before training, as
+    JAX's main sets jax_debug_nans (cli/main.py:333-336)."""
+    from reftr_torch.train import loop, steps
+
+    seen = {}
+    monkeypatch.setattr(loop, "run_training", lambda cfg, device: seen.update(
+        on=steps._DEBUG_NANS) or {})
+    try:
+        assert cli.main(["--preset", "synthetic_smoke", "--device", "cpu",
+                         "--debug_nans"]) == 0
+    finally:
+        steps.set_debug_nans(False)
+    assert seen == {"on": True}
 
 
 def test_visualize_parses_to_the_jax_config():
@@ -237,8 +320,8 @@ def test_a_from_scratch_flag_parses_to_the_jax_config(dest):
 @pytest.mark.parametrize("argv", [["--fold_bn"], ["--quantize_int8"]])
 def test_group_norm_refuses_folding_as_jax(argv):
     """--backbone_norm group with a flag that folds or quantizes FrozenBN's
-    statistics raises the JAX factory's ValueError before the flag's own
-    refusal (reftr_tpu/models/build.py:25-31)."""
+    statistics raises the JAX factory's ValueError (for int8, before the
+    flag's own refusal; reftr_tpu/models/build.py:25-31)."""
     args = parse(cli, ["--preset", "refcoco_det", "--backbone_norm",
                        "group"] + argv)
     with pytest.raises(ValueError, match="no frozen statistics"):

@@ -1555,32 +1555,11 @@ def test_a_launched_rank_runs_the_kernels_on_its_local_card(gen, tmp_path):
     assert torch.isfinite(torch.tensor(got["loss"]))
 
 
-def test_from_scratch_recipe_trains_healthy(gen, tmp_path, monkeypatch):
-    """tests/test_from_scratch.py's reduced from-scratch recipe (:38-57:
-    3+3 VL layers, d=128, 8 heads, bert tiny, 64 px, batch 16 of 128
-    synthetic items, float32, GroupNorm, the stem trained, pre-norm, lr
-    3e-3 with CosineWarmupLR over 20 epochs, clip 1.0, seed 0) without
-    its TPU stem (space_to_depth_stem), through run_training on the card.
-    cuDNN runs its deterministic algorithms and no TF32, so the run is
-    one trajectory, as the JAX test's on the CPU is (without them the
-    convolutions' backward sums in no fixed order, and of five runs two
-    left the language-only basin before their best epoch, two after it
-    and one not at all). Asserted: every logged loss finite; on a val
-    batch at the last epoch's checkpoint, the encoder's output carries
-    the image: the pairwise distance of two images' outputs over their
-    spread (:109) above 0.1, a healthy init's reading by the JAX test's
-    note, where a run left in the basin reads 0.01-0.03 and the runs that
-    left it 0.47-0.84; the backbone's output below 1e4 in magnitude at
-    ``checkpoint_best`` and at the last (:111). Printed beside them, not
-    asserted (ROADMAP.md queue 3): the distance at ``checkpoint_best``,
-    which the JAX test holds above 0.02 (this trajectory's best epoch
-    lies inside the basin), and the JAX test's bars for the capability
-    (best accuracy 0.3, last loss 3.8, :78-79), calibrated with its stem
-    on its trajectory; the JAX package's own reading without the stem is
-    ``test_jax_recipe_without_its_stem`` in
-    tests/test_torch_from_scratch.py."""
-    import math
-
+def run_scratch_recipe(tmp_path, monkeypatch, s2d: bool):
+    """tests/test_from_scratch.py's reduced recipe through run_training on
+    the card, with its space-to-depth stem or without, float32, cuDNN's
+    deterministic algorithms and no TF32: (result, losses, val accuracy
+    by epoch, {checkpoint: (relpairdist, layer4 absmax)})."""
     import numpy as np
 
     from reftr_torch.convert import build_model
@@ -1600,7 +1579,8 @@ def test_from_scratch_recipe_trains_healthy(gen, tmp_path, monkeypatch):
         model=ModelConfig(
             enc_layers=3, dec_layers=3, hidden_dim=128, dim_feedforward=256,
             nheads=8, bert=BertConfig.tiny(), aux_loss=True, dtype="float32",
-            backbone_norm="group", train_stem=True, normalize_before=True),
+            backbone_norm="group", train_stem=True, normalize_before=True,
+            space_to_depth_stem=s2d),
         data=DataConfig(
             dataset="synthetic", train_split="train", test_splits=("val",),
             img_size=64, max_img_size=64, max_query_len=12, batch_size=16,
@@ -1612,7 +1592,6 @@ def test_from_scratch_recipe_trains_healthy(gen, tmp_path, monkeypatch):
     result = run_training(cfg)
     losses = [h["train_loss"] for h in result["history"]]
     accs = [h["test_val_accuracy_iou0.5"] for h in result["history"]]
-    assert all(math.isfinite(v) for v in losses), losses
 
     _, loaders = build_loaders(cfg, build_tokenizer(cfg))
     batch, _ = next(iter(loaders["val"]))
@@ -1638,14 +1617,73 @@ def test_from_scratch_recipe_trains_healthy(gen, tmp_path, monkeypatch):
         within = flat.std(dim=1).mean()
         probes[name] = (float((d01 + d23) / (2 * within + 1e-9)),
                         float(seen["feat"].float().abs().max()))
-    print(f"from-scratch recipe (reduced, no s2d stem), "
+    print(f"from-scratch recipe (reduced, "
+          f"{'with' if s2d else 'no'} s2d stem), "
           f"{cfg.train.epochs} epochs: best_val_acc "
           f"{result['best_val_acc']:.4f} (JAX's bar 0.3), last train_loss "
-          f"{losses[-1]:.4f} (JAX's bar 3.8); losses "
-          f"{[round(v, 4) for v in losses]}; val accuracy {accs}; "
+          f"{losses[-1]:.4f} (JAX's bar 3.8); relpairdist at the best "
+          f"checkpoint {probes['checkpoint_best'][0]:.4f} (JAX's bar 0.02); "
+          f"losses {[round(v, 4) for v in losses]}; val accuracy {accs}; "
           f"(relpairdist, layer4 absmax) {probes}")
+    return result, losses, accs, probes
+
+
+def test_from_scratch_recipe_trains_healthy(gen, tmp_path, monkeypatch):
+    """tests/test_from_scratch.py's reduced from-scratch recipe (:38-57:
+    3+3 VL layers, d=128, 8 heads, bert tiny, 64 px, batch 16 of 128
+    synthetic items, float32, GroupNorm, the stem trained, pre-norm, lr
+    3e-3 with CosineWarmupLR over 20 epochs, clip 1.0, seed 0) without
+    its space-to-depth stem (space_to_depth_stem), through run_training on
+    the card. cuDNN runs its deterministic algorithms and no TF32, so the
+    run is one trajectory, as the JAX test's on the CPU is (without them
+    the convolutions' backward sums in no fixed order, and of five runs
+    two left the language-only basin before their best epoch, two after
+    it and one not at all). Asserted: every logged loss finite; on a val
+    batch at the last epoch's checkpoint, the encoder's output carries
+    the image: the pairwise distance of two images' outputs over their
+    spread (:109) above 0.1, a healthy init's reading by the JAX test's
+    note, where a run left in the basin reads 0.01-0.03 and the runs that
+    left it 0.47-0.84; the backbone's output below 1e4 in magnitude at
+    ``checkpoint_best`` and at the last (:111). Printed beside them, not
+    asserted (ROADMAP.md queue 3): the distance at ``checkpoint_best``,
+    which the JAX test holds above 0.02 (this trajectory's best epoch
+    lies inside the basin), and the JAX test's bars for the capability
+    (best accuracy 0.3, last loss 3.8, :78-79), calibrated with its stem
+    on its trajectory; the JAX package's own reading without the stem is
+    ``test_jax_recipe_without_its_stem`` in
+    tests/test_torch_from_scratch.py; the recipe with its stem is
+    ``test_from_scratch_recipe_with_its_stem``."""
+    import math
+
+    _, losses, _, probes = run_scratch_recipe(tmp_path, monkeypatch,
+                                              s2d=False)
+    assert all(math.isfinite(v) for v in losses), losses
     assert probes["checkpoint"][0] > 0.1, probes
     assert all(f < 1e4 for _, f in probes.values()), probes
+
+
+def test_from_scratch_recipe_with_its_stem(gen, tmp_path, monkeypatch):
+    """The same reduced recipe with its space-to-depth stem
+    (--space_to_depth_stem, as tests/test_from_scratch.py:46 runs it; the
+    GroupNorm backbone's stem conv1_s2d initialised as the standard
+    stem's kernel folded, nn/fold.py): the same assertions as the recipe
+    without the stem, and the JAX test's capability bars (best accuracy
+    0.3, last loss 3.8, the distance at the best checkpoint 0.02) printed
+    with their readings, not asserted: they were calibrated on the JAX
+    package's trajectory (ROADMAP.md queue 3)."""
+    import math
+
+    result, losses, _, probes = run_scratch_recipe(tmp_path, monkeypatch,
+                                                   s2d=True)
+    assert all(math.isfinite(v) for v in losses), losses
+    assert probes["checkpoint"][0] > 0.1, probes
+    assert all(f < 1e4 for _, f in probes.values()), probes
+    bars = {"best_val_acc >= 0.3": result["best_val_acc"] >= 0.3,
+            "last loss < 3.8": losses[-1] < 3.8,
+            "relpairdist at best > 0.02": probes["checkpoint_best"][0]
+            > 0.02}
+    print(f"from-scratch recipe with its stem against the JAX test's bars: "
+          f"{bars}")
 
 
 def test_http_server_serves_on_the_card(gen, monkeypatch):
@@ -1759,3 +1797,40 @@ def test_exported_program_runs_the_kernels(gen, tmp_path, dtype):
     assert len(recorder.calls) == len(sites)
     chip_smoke.fake_check(recorder.calls)
     assert np.isfinite(got.cpu().numpy()).all()
+
+
+@pytest.mark.parametrize("setting,kernels", [(None, True), (True, True),
+                                             (False, False)],
+                         ids=["auto", "on", "off"])
+def test_use_pallas_attention_launches(gen, setting, kernels):
+    """--use_pallas_attention on the card: auto and on launch K1 once for
+    each attention of a small RefTR's forward and K2 and K3 once each in
+    a training step's backward; off launches nothing (the plain version
+    everywhere)."""
+    import numpy as np
+
+    from reftr_torch.convert import build_model
+    from reftr_torch.core.config import BertConfig, ModelConfig
+
+    cfg = ModelConfig(bert=BertConfig.tiny(), enc_layers=1, dec_layers=1,
+                      dim_feedforward=64, hidden_dim=32, nheads=4,
+                      aux_loss=False, use_pallas_attention=setting)
+    model = build_model(cfg)
+    n_attn = sum(isinstance(m, MultiHeadAttention) for m in model.modules())
+    rng = np.random.default_rng(0)
+    batch = {"image": torch.from_numpy(rng.integers(
+                 0, 256, (2, 64, 64, 3)).astype(np.uint8)).cuda(),
+             "image_valid": torch.ones(2, 64, 64, dtype=torch.bool).cuda(),
+             "sentence": torch.randint(1, 500, (2, 12)).cuda(),
+             "sentence_valid": torch.ones(2, 12, dtype=torch.int32).cuda()}
+    wrappers = (flash_attention, flash_attn_bwd_dq, flash_attn_bwd_dkv)
+    chip_smoke.reset_counts(wrappers)
+    model.train()
+    with attention_rng(torch.Generator().manual_seed(0)):
+        out = model(batch)
+    out["pred_boxes"].float().sum().backward()
+    torch.cuda.synchronize()
+    got = chip_smoke.read_counts(wrappers)
+    want = n_attn if kernels else 0
+    assert (got["flash_attention"], got["flash_attn_bwd_dq"],
+            got["flash_attn_bwd_dkv"]) == (want, want, want), got

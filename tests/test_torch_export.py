@@ -300,8 +300,7 @@ def test_export_platforms_refuse_all_but_one_device(platforms):
         export_model.export_device(platforms)
 
 
-@pytest.mark.parametrize("flag", ["--fold_bn", "--fold_normalize",
-                                  "--quantize_int8"])
+@pytest.mark.parametrize("flag", ["--quantize_int8"])
 def test_export_refuses_item_9_flags(flag, tmp_path):
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         export_model.main(["--preset", "synthetic_smoke", "--out",
