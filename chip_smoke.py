@@ -6,8 +6,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. Print the card's name and power limit, then build every kernel of the
    serving and training paths from the sources in this checkout
-   (reftr_torch/kernels/csrc/flash_attn_fwd.cu, flash_attn_fwd_tc.cu,
-   flash_attn_fwd_wg.cu, flash_attn_fwd_f32tc.cu, flash_attn_fwd_dec.cu,
+   (reftr_torch/kernels/csrc/flash_attn_fwd_tc.cu, flash_attn_fwd_wg.cu, flash_attn_fwd_f32tc.cu, flash_attn_fwd_dec.cu,
    flash_attn_bwd.cu, flash_attn_bwd_dq_tc.cu, flash_attn_bwd_dq_wg.cu,
    flash_attn_bwd_dkv_tc.cu, flash_attn_bwd_dkv_wg.cu,
    flash_attn_bwd_dq_f32tc.cu, flash_attn_bwd_dkv_f32tc.cu and
@@ -26,15 +25,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    each against the plain version in float32 on the same inputs, through
    the variant the dispatch rule picks (attention.fwd_variant: fewer than
    16 queries on the decode kernel; with more, the tensor cores, bf16 in
-   bf16 and float32 by 3xTF32). The SIMT kernel, which the rule no longer
-   picks, is checked beside each, and timed as the same-run "before" at
-   the decoder's cross-attention in bf16 alone (simt_timed), where the
-   kernels line reads it.
+   bf16 and float32 by 3xTF32).
    Tolerances: 1e-5 max abs in float32 (the sums run in another order),
    2e-2 in bfloat16 (the kernel rounds its output to bf16: half a bf16
    ulp is 7.8e-3 at magnitudes up to 4). Times of the kernel, the plain version and
    F.scaled_dot_product_attention (a yardstick only; the port never calls
-   it): "ms" with CUDA events around 50 back-to-back calls after a warm-up
+   it), at the sites and dtypes whose times the kernels line reads
+   (MAIN_TIMED): "ms" with CUDA events around 50 back-to-back calls after a warm-up
    (which includes the host's time per call where that exceeds the
    kernel's), "device_ms" as the device activities torch.profiler records
    per call.
@@ -42,14 +39,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    bfloat16, without dropout and with rate 0.1, each through the variant
    the rule picks (attention.dq_variant for K2, dkv_variant for K3: below
    16 queries one launch of the decode backward gives dq, dk and dv; with
-   more, the tensor-core kernels, in float32 the 3xTF32 ones), and the
-   SIMT kernels beside the others: K1 with dropout and its lse against
+   more, the tensor-core kernels, in float32 the 3xTF32 ones, K2 and K3
+   on "wg" together, K3-wg reading the di and keep bits K2-wg writes), and
+   the SIMT K3 beside the others: K1 with dropout and its lse against
    attention_plain in float32 with the same seed (tolerances as in phase
    2; lse 1e-5 abs plus 1e-6 relative), and the backward
    kernels K2 (dq) and K3 (dk, dv) each against attention_bwd_plain on
-   the same O, lse and dO. Every
-   variant, K1's and the backward's, is called twice on the same inputs
-   and must give the same bits.
+   the same O, lse and dO; K2-wg's keep bits equal to keep_bits_plain's.
+   Every variant, K1's and the backward's, is called twice on the same
+   inputs and must give the same bits, K2-wg's keep bits too.
    Gradient tolerance, as a share of the largest magnitude among the plain
    dq, dk and dv: 1e-4 in float32 (sums of up to 440 terms in another
    order, at most 2.6e-5 of the largest term), 1e-2 in bfloat16 (the
@@ -64,11 +62,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    valid key, and k one-hot over the head dim reads it off dq for D keys
    at a time; q = 0 makes p uniform over the valid keys, and dO one-hot
    over the head dim for D queries at a time (zero for the others) makes
-   K3's dv_j[d] = p * keep(i0 + d, j). The kept set must equal the plain
-   Philox mask on every key with p > 0. Times (host loop and device) of
-   each kernel (the SIMT K1 and K2 as in phase 2: at the decoder's
-   cross-attention in bf16 alone), its plain version, its bound and the
-   yardsticks: SDPA's
+   K3's dv_j[d] = p * keep(i0 + d, j) (K3-wg reading the bits K2-wg
+   writes on the same inputs). The kept set must equal the plain
+   Philox mask on every key with p > 0. Times (host loop and device), at
+   the sites and dtypes the kernels line reads (MAIN_TIMED), of
+   each kernel, its plain version, its bound and the yardsticks: SDPA's
    forward, and its backward, which covers K2 and K3 together. The bound
    reckons float32 products at the 165 TFLOP/s of float32-accurate
    products that 3xTF32 gets from the tensor cores, and takes the largest
@@ -76,9 +74,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    clock per SM and, with dropout, a quarter of a Philox call a pair at 64
    IMADs a clock per SM (attention_bound_terms). Where the rule sends K1,
    K2 or K3 to a warpgroup kernel ("wg"), the mma.sync kernel ("tc") is
-   checked and timed beside it, the same-run "before"; K3-wg alone
-   computes di = rowsum(dO * O) in its wrapper (K2 gives it in a step),
-   and is timed on a di computed before the timed calls.
+   checked and timed beside it, the same-run "before"; K3-wg is timed on
+   the di and keep bits of a K2-wg call before the timed calls.
    Then head dims off the kernels' instances (HEAD_DIM_SWEEP: 8, 24, 48
    and 96 pad to the next of 16, 32, 64, 128; 160 and 256 take the plain
    versions by the rule), in both dtypes with and without dropout, K1, K2
@@ -90,22 +87,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    dropout, against attention_bwd_plain, with its bound, the plain time
    and SDPA's backward.
    3d. The warpgroup kernels against the mma.sync ones and SDPA in one
-   process (wg_times), in bf16 without dropout and with 0.1, at the VL
-   encoder at 1-4 feature levels (440^2, 2040^2, 8440^2 and 8540^2, B=8;
-   at four levels also with each image padded), flickr's at 1 and 2
-   (490^2 and 2090^2, B=16) and flickr's decoder over 490 keys: K1 "tc",
-   "wg" and SDPA's forward; K2 "tc" and "wg", K3 "tc" and "wg" against
-   SDPA's backward; CUDA events, in turns, the median of three. "wg" is
-   checked against the plain version at phase 3's tolerances (K2-wg's dq
-   at 1e-2 of the largest plain gradient in bf16, its di against
-   di_plain, its bits on a repeated call): on all the inputs where its
-   scores fit, else on batch row 0 (B=1).
-   3e. The dropout draw of K1 and K2 (flash_tc::keep_bits) exact in every
-   kernel that calls it, K1 "tc", "wg", "tf32x3" and K2 "tc", "wg",
-   "tf32x3", each launched directly (check_keep_bits): at key counts that
-   are not a multiple of 4, even (22, 90, 490, 2090: row phases 0 and 2)
-   and odd (17, 131, 385: every phase), and in bf16 in the last batch row
-   of B=8 at 8539^2, whose element offsets run past 2^32.
+   process (wg_times), in bf16 without dropout and with 0.1, at 256^2
+   (B=8, the rule's least for K2 and K3), the VL encoder at 1, 2 and 4
+   feature levels (440^2, 2040^2 and 8540^2, B=8), the from-scratch
+   recipe's at 440^2 (B=16),
+   flickr's at 1 and 2 (490^2 and 2090^2, B=16) and flickr's decoder over
+   490 keys: K1 "tc", "wg" and SDPA's forward; K2 "tc" and "wg" (writing
+   di and the keep bits), K3 "tc" and "wg" (reading them) against SDPA's
+   backward; device ms (CUDA events around calls queued behind a sleep
+   kernel), in turns, the median of three. "wg" is checked
+   against the plain version at phase 3's tolerances (K2-wg's dq at 1e-2
+   of the largest plain gradient in bf16, its di against di_plain, its
+   keep bits against keep_bits_plain on every row, its dq and bits on a
+   repeated call): on all the inputs where its scores fit, else on batch
+   row 0 (B=1).
+   3e. The dropout draw of K1 and K2 exact in every kernel that draws
+   it, K1 "tc", "wg", "tf32x3" and K2 "tc", "tf32x3" (flash_tc::keep_bits)
+   and "wg" (its producer warpgroup's draw, whose keep bits must also
+   equal keep_bits_plain's), each launched directly (check_keep_bits): at
+   key counts that are not a multiple of 4, even (22, 90, 490, 2090: row
+   phases 0 and 2) and odd (17, 131, 385: every phase), and in bf16 in
+   the last batch row of B=8 at 8539^2, whose element offsets run past
+   2^32.
 4. The serving path at full width: refcoco_det (ResNet-50, BERT-base,
    6+6 VL layers, d=256) at 640x640 with seeded random weights, bfloat16,
    behind a MicroBatcher with serve batch 8. Six requests of 1-3 phrases
@@ -120,9 +123,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    torch.profiler splits one forward's device time by kernel category.
    The same six requests are then served by the float32 model (30 K1
    launches per forward again: 18 on the 3xTF32 kernel, 12 on the decode
-   kernel), full float32 batches time the forward as the bf16 ones, in
-   turns with K1 on the 3xTF32 kernel and with K1 sent to SIMT (the
-   same-run "before"), and torch.profiler profiles one forward of each;
+   kernel), full float32 batches time the forward as the bf16 ones, and
+   torch.profiler profiles one forward;
    then one padded batch runs through the kernel
    and through the plain attention on the card and the encoder memory and
    decoder states are compared: float32 kernel against float32 plain at
@@ -137,14 +139,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    Every loss and gradient norm must be finite, the mean loss of the last
    3 steps below that of the first 3 (a memorised batch), and each of K1,
    K2 and K3 launched exactly 30 times per step, 18 of each (BERT and
-   encoder) through the tensor-core kernels (the encoder's 6 of K3 on its
-   warpgroup kernel, by the rule) and the other 12 of each (the decoder)
-   through the decode kernels (K2's and K3's 12 are the decode
+   encoder) through the tensor-core kernels (the encoder's 6 of K2 and K3
+   on their warpgroup kernels, by the rule) and the other 12 of each (the
+   decoder) through the decode kernels (K2's and K3's 12 are the decode
    backward's 12 launches, each counted on both): none through the SIMT
-   kernels. It reports the median
-   host-to-host step time after 3 warm-up steps, the peak device memory
-   and one step's device time by kernel category, and the step time by
-   the rule and with the encoder's K3 on "tc", in turns (k3_route_steps).
+   K3, and no K3-wg call on keep bits from keep_bits_plain (every counted
+   run of the smoke holds flash_attn_bwd_dkv.bits_plain to 0). It reports
+   the median host-to-host step time after 3 warm-up steps, the peak
+   device memory and one step's device time by kernel category, and the
+   step time by the rule and with the encoder's K2 and K3 on "tc", in
+   turns (bwd_route_steps).
    Then one float32 step
    with dropout 0 from one set of weights through the kernels and through
    the plain attention: the loss within 1e-5 relative, and every trainable
@@ -160,10 +164,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    dropout 0.1, 8 steps through train_one_epoch: finite losses, 30
    launches of each of K1, K2 and K3 per step, 18 of each on the 3xTF32
    kernels and 12 on the decode kernels, none on SIMT; the median host
-   step after 3 warm-up steps, one step's device time by category with
-   the attention kernels' share, and the same step profiled with K1, K2
-   and K3 on the SIMT kernels, as the rule sent them before the 3xTF32
-   kernels (the same-run "before").
+   step after 3 warm-up steps and one step's device time by category with
+   the attention kernels' share.
 6. The trainer's entry point: reftr_torch.cli.main.main(argv), called in
    this process, on refcoco_det at full width and depth in float32 (the
    preset has no dtype; the command line's default is bfloat16, so
@@ -421,6 +423,7 @@ either it fails before it prints any result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import re
@@ -454,17 +457,15 @@ MODEL_TOL_BF16_REL = 5e-2
 DROPOUT = 0.1  # the preset's rate: attention and hidden dropout
 TRAIN_STEPS = 20
 WARM_STEPS = 3
-# phase 5's step by the rule and with K3 on "tc": turns of each, steps a
-# turn
-K3_AB_TURNS = 4
-K3_AB_STEPS = 5
+# phase 5's step by the rule and with K2 and K3 on "tc": turns of each,
+# steps a turn
+BWD_AB_TURNS = 2
+BWD_AB_STEPS = 5
 TRAIN_LOSS_TOL = 1e-5  # f32 kernel path vs plain path, relative
 TRAIN_GRAD_TOL = 1e-3  # relative L2 per trainable gradient
 # kernels of the main paths: the C entry point, its source, the Pallas
 # function it replaces, its variant
 KERNELS = {
-    "flash_attn_fwd": ("flash_attn_fwd.cu",
-                       "reftr_tpu/kernels/attention.py:86", "simt"),
     "flash_attn_fwd_tc": ("flash_attn_fwd_tc.cu",
                           "reftr_tpu/kernels/attention.py:86", "tc"),
     "flash_attn_fwd_wg": ("flash_attn_fwd_wg.cu",
@@ -473,8 +474,6 @@ KERNELS = {
                              "reftr_tpu/kernels/attention.py:86", "tf32x3"),
     "flash_attn_fwd_dec": ("flash_attn_fwd_dec.cu",
                            "reftr_tpu/kernels/attention.py:86", "dec"),
-    "flash_attn_bwd_dq": ("flash_attn_bwd.cu",
-                          "reftr_tpu/kernels/attention.py:242", "simt"),
     "flash_attn_bwd_dq_tc": ("flash_attn_bwd_dq_tc.cu",
                              "reftr_tpu/kernels/attention.py:242", "tc"),
     "flash_attn_bwd_dq_wg": ("flash_attn_bwd_dq_wg.cu",
@@ -513,13 +512,17 @@ REC_SITES = ((12, 40, 40, 64), (6, 440, 440, 32), (6, 1, 1, 32),
              (6, 1, 440, 32))
 F32_TRAIN_STEPS = 8  # the timed float32 training run
 # the call site and dtype where the main path launches each variant, for
-# the kernels line: the SIMT kernels have no launch on the main paths and
-# stand at the decoder's site, where they ran before the decode kernels;
-# the 3xTF32 kernels run in the float32 forward and step
+# the kernels line: the SIMT K3 has no launch on the main paths and stands
+# at the decoder's site, where it ran before the decode backward; the
+# 3xTF32 kernels run in the float32 forward and step
 MAIN_SITE = {"tc": "vl_encoder_self", "dec": "decoder_cross",
              "simt": "decoder_cross", "tf32x3": "vl_encoder_self",
              "wg": "vl_encoder_4_levels_b8"}
 MAIN_DTYPE = {"tf32x3": "float32"}
+# the (site, dtype) pairs whose times the kernels line reads: phases 2 and
+# 3 time these alone and check every pair
+MAIN_TIMED = {(site, MAIN_DTYPE.get(variant, "bfloat16"))
+              for variant, site in MAIN_SITE.items()}
 # (B, Sq, Sk, H, D) where the rule sends K3 to SIMT: 16 or more queries and
 # fewer than 16 keys, which no call site of the model reaches
 SIMT_DKV_SITE = (SERVE_BATCH, 440, 8, 8, 32)
@@ -653,11 +656,12 @@ ROBERTA_EVAL_BATCHES = 4
 # past it
 OFFSET_32 = 2 ** 32
 # phase 3d: the sites where the warpgroup kernels are timed against the
-# mma.sync ones and SDPA, and the turns of each
-WG_TIME_SITES = ("vl_encoder_self", "multi_vl_encoder_self",
+# mma.sync ones and SDPA, and the turns of each: the model's from 440 keys
+# up and the rule's least for K2 and K3 (256^2, as a shape: no model site)
+WG_TIME_SITES = ((SERVE_BATCH, 256, 256, 8, 32), "vl_encoder_self",
+                 "scratch_vl_encoder_self", "multi_vl_encoder_self",
                  "vl_encoder_2_levels_b8", "multi_vl_encoder_2_levels",
-                 "vl_encoder_3_levels_b8", "vl_encoder_4_levels_b8",
-                 "vl_encoder_4_levels_b8_padded", "multi_decoder_cross")
+                 "vl_encoder_4_levels_b8", "multi_decoder_cross")
 WG_TIME_TURNS = 3
 # phase 3e: the shapes (B, Sq, Sk, H, D) at which the dropout draw of K1
 # and K2 (flash_tc::keep_bits) is checked exact in every kernel that calls
@@ -758,14 +762,10 @@ def fmt_ms(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f}"
 
 
-def sum_ms(*values):
-    """The sum of times, None if any is not measured."""
-    return None if None in values else sum(values)
-
-
+@functools.lru_cache(maxsize=None)
 def sass_text(so: Path) -> str:
     """A built library's machine code (cuobjdump -sass, beside nvcc in the
-    toolkit)."""
+    toolkit), dumped once per library."""
     from reftr_torch.kernels import _nvcc
 
     tool = Path(_nvcc.nvcc_path()).with_name("cuobjdump")
@@ -795,17 +795,21 @@ def function_sass(text: str, marker: str) -> str:
 
 
 # the sources whose kernels draw dropout by flash_tc::keep_bits: each is
-# instantiated for Sk % 4 == 0's path and the general one
+# instantiated for Sk % 4 == 0's path and the general one (K2-wg draws in
+# its producer warpgroup, one instance for every Sk)
 KEEP_CALLERS = ("flash_attn_fwd_tc.cu", "flash_attn_fwd_wg.cu",
                 "flash_attn_fwd_f32tc.cu", "flash_attn_bwd_dq_tc.cu",
-                "flash_attn_bwd_dq_wg.cu", "flash_attn_bwd_dq_f32tc.cu")
+                "flash_attn_bwd_dq_f32tc.cu")
 
 
 def instance_markers(src: str, variant: str) -> dict:
     """The part of the D=32 instance's mangled name that picks it in the
     machine code and in ptxas's log: a "tc" or "tf32x3" kernel's holds
-    ILi32E, a "wg" kernel has that one instance, named *_wg_kernel; a
-    keep_bits caller's two instances add Lb1E (Sk % 4 == 0) or Lb0E."""
+    ILi32E, a "wg" kernel has that one instance, named *_wg_kernel (K2-wg
+    two, without dropout and with it: ILb0E, ILb1E); a keep_bits caller's
+    two instances add Lb1E (Sk % 4 == 0) or Lb0E."""
+    if src == "flash_attn_bwd_dq_wg.cu":
+        return {"no dropout": "wg_kernelILb0E", "dropout": "wg_kernelILb1E"}
     base = "wg_kernel" if variant == "wg" else "ILi32E"
     if src not in KEEP_CALLERS:
         return {"": base}
@@ -900,10 +904,17 @@ def attention_bound_terms(b, sq, sk, h, d, valid, dtype_name,
     keys for a row with none valid) at the tensor cores' peak; "exp", one
     MUFU.EX2 a pair at EX2_PER_CLOCK a clock per SM; with dropout
     "philox", a quarter of a Philox call a pair (one call gives four
-    decisions) at CARD's IMADs per call, IMAD_PER_CLOCK a clock per SM."""
+    decisions) at CARD's IMADs per call, IMAD_PER_CLOCK a clock per SM.
+    Every variant of a kernel does the same work but the warpgroup
+    backward pair with dropout: K2-wg ("flash_attn_bwd_dq_wg") also writes
+    the keep bits, 4 bytes a 32 keys of a row padded to 128, and K3-wg
+    ("flash_attn_bwd_dkv_wg") reads them and draws nothing (no "philox"
+    term)."""
     import torch
 
-    # every variant of a kernel does the same work
+    bits = (dropout > 0.0 and kernel in ("flash_attn_bwd_dq_wg",
+                                         "flash_attn_bwd_dkv_wg"))
+    draws = not (bits and kernel.endswith("dkv_wg"))
     for suffix in ("_f32tc", "_tc", "_wg", "_dec"):
         kernel = kernel.removesuffix(suffix)
     es = 4 if dtype_name == "float32" else 2
@@ -913,6 +924,8 @@ def attention_bound_terms(b, sq, sk, h, d, valid, dtype_name,
               "flash_attn_bwd_dq": 4 * qs + 2 * ks + lse,
               "flash_attn_bwd_dkv": 3 * qs + 4 * ks + lse,
               "flash_attn_bwd": 4 * qs + 4 * ks + lse}[kernel] + b * sk
+    if bits:
+        nbytes += b * h * sq * 4 * -(-sk // 128) * 4
     keys = torch.where(valid.any(-1), valid.sum(-1), sk)
     pairs = h * sq * float(keys.sum())
     sm_rate = CARD["sms"] * CARD["sm_clock_hz"]
@@ -920,7 +933,7 @@ def attention_bound_terms(b, sq, sk, h, d, valid, dtype_name,
              "tensor": (2.0 * PRODUCTS[kernel] * d * pairs
                         / PEAK_FLOPS[dtype_name] * 1e3),
              "exp": pairs / (EX2_PER_CLOCK * sm_rate) * 1e3}
-    if dropout > 0.0 and CARD.get("philox_imad_per_call"):
+    if dropout > 0.0 and draws and CARD.get("philox_imad_per_call"):
         terms["philox"] = (pairs / 4 * CARD["philox_imad_per_call"]
                            / (IMAD_PER_CLOCK * sm_rate) * 1e3)
     return terms
@@ -1038,21 +1051,12 @@ def site_inputs(gen, site, dtype):
     return q, k, v, valid
 
 
-def simt_timed(site: str, dtype_name: str) -> bool:
-    """Whether phases 2 and 3 time the SIMT K1 and K2 beside the rule's
-    variant at ``site`` in ``dtype_name``: only where the kernels line
-    reads them (MAIN_SITE["simt"], bf16). The rule sends no call to
-    them; elsewhere they are checked against the plain version and not
-    timed."""
-    return (site, dtype_name) == (MAIN_SITE["simt"], "bfloat16")
-
-
 def check_kernel(report: dict) -> dict:
     """Phase 2: the flash kernel against its plain version per call site."""
     import torch
     import torch.nn.functional as F
 
-    from reftr_torch.kernels.attention import (_launch_fwd, attention_plain,
+    from reftr_torch.kernels.attention import (attention_plain,
                                                flash_attention, fwd_variant)
 
     gen = torch.Generator(device="cuda")
@@ -1089,40 +1093,29 @@ def check_kernel(report: dict) -> dict:
                 return F.scaled_dot_product_attention(qt, kt, vt,
                                                       attn_mask=bias_dt)
 
-            ms, dev = cuda_ms(kern), device_ms(kern)
-            plain_ms = cuda_ms(lambda: attention_plain(q, k, v, valid))
-            lib_ms, lib_dev = cuda_ms(sdpa), device_ms(sdpa)
             bound, bound_by = attention_bound_ms(b, sq, sk, h, d, valid, name)
             row = {"site": site, "dtype": name, "variant": variant, "B": b,
                    "Sq": sq, "Sk": sk, "H": h, "D": d, "max_abs_err": err,
-                   "tol": KERNEL_TOL[name], "ms": ms, "device_ms": dev,
-                   "plain_ms": plain_ms, "library_ms": lib_ms,
-                   "library_device_ms": lib_dev, "bound_ms": bound,
+                   "tol": KERNEL_TOL[name], "bound_ms": bound,
                    "bound_by": bound_by}
-            before = ""
-            if variant != "simt":
-                # the same-run "before": the SIMT kernel at this call site
-                simt_err = check(f"{site} simt", _launch_fwd(
-                    "simt", q, k, v, valid, 0.0, None, False)[0], want, name)
-
-                def simt():
-                    return _launch_fwd("simt", q, k, v, valid, 0.0, None,
-                                       False)
-
-                row["simt_max_abs_err"] = simt_err
-                before = f"; simt err {simt_err:.3g}"
-                if simt_timed(site, name):
-                    row.update({"simt_ms": cuda_ms(simt),
-                                "simt_device_ms": device_ms(simt)})
-                    before += (f", {row['simt_ms']:.4f} ms host loop, "
-                               f"{fmt_ms(row['simt_device_ms'])} ms device")
             rows.append(row)
+            times = "not timed"
+            if (site, name) in MAIN_TIMED:
+                row.update({
+                    "ms": cuda_ms(kern), "device_ms": device_ms(kern),
+                    "plain_ms": cuda_ms(lambda: attention_plain(q, k, v,
+                                                                valid)),
+                    "library_ms": cuda_ms(sdpa),
+                    "library_device_ms": device_ms(sdpa)})
+                times = (f"kernel {row['ms']:.4f} ms host loop, "
+                         f"{fmt_ms(row['device_ms'])} ms device; plain "
+                         f"{row['plain_ms']:.4f} ms, sdpa "
+                         f"{row['library_ms']:.4f} ms host loop, "
+                         f"{fmt_ms(row['library_device_ms'])} ms device")
             print(f"kernel {site:16s} {name:8s} {variant:4s} B={b} Sq={sq} "
                   f"Sk={sk} H={h} D={d}: max_abs_err {err:.3g} (tol "
-                  f"{KERNEL_TOL[name]}) kernel {ms:.4f} ms host loop, "
-                  f"{fmt_ms(dev)} ms device; plain {plain_ms:.4f} ms, sdpa "
-                  f"{lib_ms:.4f} ms host loop, {fmt_ms(lib_dev)} ms device; "
-                  f"bound {bound:.5f} ms ({bound_by}){before}", flush=True)
+                  f"{KERNEL_TOL[name]}) {times}; bound {bound:.5f} ms "
+                  f"({bound_by})", flush=True)
     report["call_sites"] = rows
     report["max_abs_err"] = worst
     return report
@@ -1206,11 +1199,14 @@ def check_dq_mask_exact(site, rate: float, seed: int, dtype,
     Philox mask on every live key (of the batch rows from ``first_row``
     on). The call goes to the variant the rule picks (K2 "tc" or "wg" in
     bf16 at the encoder and BERT sites, the decode backward at the
-    decoder's), or to ``variant`` launched directly. Returns the number of
-    elements compared."""
+    decoder's), or to ``variant`` launched directly; K2-wg's first call
+    also writes its keep bits, which must equal keep_bits_plain's. Returns
+    the number of elements compared."""
     import torch
 
-    from reftr_torch.kernels.attention import (_launch_dq, flash_attn_bwd_dq,
+    from reftr_torch.kernels.attention import (_launch_dq, dq_variant,
+                                               flash_attn_bwd_dq,
+                                               new_keep_bits,
                                                philox_keep_plain)
 
     gen = torch.Generator(device="cuda")
@@ -1233,8 +1229,15 @@ def check_dq_mask_exact(site, rate: float, seed: int, dtype,
         k = torch.zeros(b, sk, h, d, device="cuda", dtype=dtype)
         k[:, k0:k0 + n, :, :n] = torch.eye(n, device="cuda")[:, None, :]
         args = (q, k, v, valid, o, lse, do, rate, seed)
-        dq = (flash_attn_bwd_dq(*args) if variant is None
-              else _launch_dq(variant, *args))
+        if k0 == 0 and (variant or dq_variant(sq, sk, dtype, d)) == "wg":
+            # K2-wg's keep bits, the mask it hands K3-wg, and its dq
+            bits = new_keep_bits(q, k)
+            dq = _launch_dq("wg", *args, bits_out=bits)
+            check_bits(f"{site} K2-wg", bits, seed, rate,
+                       (b, sq, sk, h, d), first_row)
+        else:
+            dq = (flash_attn_bwd_dq(*args) if variant is None
+                  else _launch_dq(variant, *args))
         kept = dq[first_row:, ..., :n].permute(0, 2, 1, 3) != 0
         live = live_keys[:, None, None, k0:k0 + n].expand_as(kept)
         if not torch.equal(kept[live], keep[..., k0:k0 + n][live]):
@@ -1253,12 +1256,15 @@ def check_dv_mask_exact(site: str, rate: float, seed: int, dtype,
     queries at a time, from query i0, and zero for the others, gives
     dv_j[d] = p * keep(i0 + d, j). The kept set must equal the plain
     Philox mask on every live key (of the batch rows from ``first_row``
-    on). The call goes to the variant the rule picks (K3-TC in bf16 at the
-    encoder and BERT sites, the decode backward at the decoder's). Returns
-    the number of elements compared."""
+    on). The call goes to the variant the rule picks (K3 "tc" or "wg" in
+    bf16 at the encoder and BERT sites, the decode backward at the
+    decoder's); "wg" reads the keep bits that K2-wg writes on the same
+    inputs, as in a step (wg_pair). Returns the number of elements
+    compared."""
     import torch
 
-    from reftr_torch.kernels.attention import (flash_attn_bwd_dkv,
+    from reftr_torch.kernels.attention import (dkv_variant,
+                                               flash_attn_bwd_dkv,
                                                philox_keep_plain)
 
     gen = torch.Generator(device="cuda")
@@ -1277,7 +1283,11 @@ def check_dv_mask_exact(site: str, rate: float, seed: int, dtype,
         n = min(d, sq - i0)
         do = torch.zeros_like(q)
         do[:, i0:i0 + n, :, :n] = torch.eye(n, device="cuda")[:, None, :]
-        _, dv = flash_attn_bwd_dkv(q, k, v, valid, o, lse, do, rate, seed)
+        args = (q, k, v, valid, o, lse, do, rate, seed)
+        if dkv_variant(sq, sk, dtype, d) == "wg":
+            _, _, dv, _ = wg_pair(args)
+        else:
+            _, dv = flash_attn_bwd_dkv(*args)
         kept = dv[first_row:, ..., :n].permute(0, 2, 3, 1) != 0
         live = live_keys[:, None, None, :].expand_as(kept)
         if not torch.equal(kept[live], keep[:, :, i0:i0 + n][live]):
@@ -1299,24 +1309,64 @@ def max_err(got, want) -> float:
     return (got.float() - want.float()).abs().max().item()
 
 
+def wg_pair(bwd) -> tuple:
+    """K2-wg then K3-wg as the backward runs them (FlashAttentionFn): K2
+    writes di and, with dropout, the keep bits, and K3 reads both. Returns
+    (dq, dk, dv, bits); bits None without dropout."""
+    import torch
+
+    from reftr_torch.kernels.attention import (_launch_dkv, _launch_dq,
+                                               new_keep_bits)
+
+    q, k, _, _, _, lse, _, rate, _ = bwd
+    di = torch.empty_like(lse)
+    bits = new_keep_bits(q, k) if rate else None
+    dq = _launch_dq("wg", *bwd, di_out=di, bits_out=bits)
+    dk, dv = _launch_dkv("wg", *bwd, di, bits)
+    return dq, dk, dv, bits
+
+
+def check_bits(what: str, bits, seed: int, rate: float, shape: tuple,
+               first_row: int = 0) -> int:
+    """K2-wg's keep bits (of the batch rows from ``first_row`` on) equal to
+    keep_bits_plain's, bit for bit. Returns the number of words
+    compared."""
+    import torch
+
+    from reftr_torch.kernels.attention import keep_bits_plain
+
+    b, sq, sk, h, _ = shape
+    want = keep_bits_plain(seed, b, h, sq, sk, rate, "cuda", first_row)
+    got = bits[first_row:].view(torch.int32)
+    if not torch.equal(got, want.view(torch.int32)):
+        wrong = int((got != want.view(torch.int32)).sum())
+        raise AssertionError(f"{what}: K2-wg's keep bits differ from "
+                             f"keep_bits_plain in {wrong} of {got.numel()} "
+                             f"words")
+    return got.numel()
+
+
 def check_training_kernels(report: dict, sites=tuple(CALL_SITES),
                            key: str = "train_kernels",
                            simt_before: bool = True,
-                           timed_dtypes=("float32", "bfloat16")) -> dict:
+                           timed_dtypes=("float32", "bfloat16"),
+                           timed_sites=None) -> dict:
     """Phase 3: K1 with dropout, K2 and K3 against their plain versions at
-    ``sites``, with the SIMT kernels beside the others (``simt_before``)
-    and, where the rule sends K1, K2 or K3 to a warpgroup kernel, the
-    mma.sync kernel beside it, and the exact dropout masks; the rows go to
-    report[key] (phases 8 and 10 check their own sites so). Each call is
-    timed in ``timed_dtypes``. K3-wg alone computes di
-    = rowsum(dO * O) in its wrapper, which K2 gives it in a step; its
-    timed calls take di computed before them."""
+    ``sites``, with the SIMT K3 beside the others (``simt_before``) and,
+    where the rule sends K1, K2 or K3 to a warpgroup kernel, the mma.sync
+    kernel beside it, and the exact dropout masks; the rows go to
+    report[key] (phases 8, 10 and 11 check their own sites so). Each call
+    is timed in ``timed_dtypes``, and where ``timed_sites`` is given only
+    at its (site, dtype) pairs. Where K2 and K3 take "wg", K3-wg reads
+    the di and keep bits K2-wg writes (wg_pair), and with dropout the
+    bits must equal keep_bits_plain's and a repeated K2-wg call's; the
+    timed K3-wg calls read those of a K2-wg call before them."""
     import torch
 
     from reftr_torch.kernels.attention import (_launch_bwd_dec, _launch_dkv,
                                                _launch_dq, _launch_fwd,
                                                attention_bwd_plain,
-                                               attention_plain, di_plain,
+                                               attention_plain,
                                                dkv_variant, dq_variant,
                                                flash_attention,
                                                flash_attn_bwd_dkv,
@@ -1344,17 +1394,31 @@ def check_training_kernels(report: dict, sites=tuple(CALL_SITES),
                 fwd_tol = kernel_tol(name, site, want)
                 bwd = (q, k, v, valid, out, lse, do, rate, seed)
                 wants = attention_bwd_plain(*bwd)
-                dq = flash_attn_bwd_dq(*bwd)
-                dk, dv = flash_attn_bwd_dkv(*bwd)
                 dec = dq_variant(sq, sk, dt, d) == "dec"
+                # K3-wg only after K2-wg, fed its di and keep bits
+                pair = dkv_variant(sq, sk, dt, d) == "wg"
+
+                def backward():
+                    if pair:
+                        return wg_pair(bwd)
+                    if dec:
+                        return (*_launch_bwd_dec(*bwd), None)
+                    return (flash_attn_bwd_dq(*bwd),
+                            *flash_attn_bwd_dkv(*bwd), None)
+
+                dq, dk, dv, bits = backward()
+                bits_words = (check_bits(f"phase 3 {site} {name}", bits, seed,
+                                         rate, (b, sq, sk, h, d))
+                              if bits is not None else 0)
                 # no variant sums with atomics: a second call on the same
-                # inputs gives the same bits
+                # inputs gives the same bits, K2-wg's keep bits too
                 again = (*flash_attention(q, k, v, valid, True, **drop),
-                         *(_launch_bwd_dec(*bwd) if dec else
-                           (flash_attn_bwd_dq(*bwd),
-                            *flash_attn_bwd_dkv(*bwd))))
-                if not all(same_bits(x, y) for x, y in
-                           zip((out, lse, dq, dk, dv), again)):
+                         *backward())
+                if not (all(same_bits(x, y) for x, y in
+                            zip((out, lse, dq, dk, dv), again))
+                        and (bits is None or torch.equal(
+                            bits.view(torch.int32),
+                            again[-1].view(torch.int32)))):
                     raise AssertionError(f"phase 3 {site} {name} dropout "
                                          f"{rate}: two calls of the "
                                          f"kernels differ")
@@ -1380,6 +1444,7 @@ def check_training_kernels(report: dict, sites=tuple(CALL_SITES),
                        "fwd_variant": fwd_variant(sq, sk, dt, d),
                        "dq_variant": dq_variant(sq, sk, dt, d),
                        "dkv_variant": dkv_variant(sq, sk, dt, d),
+                       "keep_bits_words_checked": bits_words,
                        "bitwise_repeatable": True}
                 if bad:
                     raise AssertionError(f"phase 3 {row}")
@@ -1387,21 +1452,19 @@ def check_training_kernels(report: dict, sites=tuple(CALL_SITES),
                     "fwd": lambda: flash_attention(q, k, v, valid, **drop)}
                 if dec:  # one launch gives K2's and K3's gradients
                     timed["bwd"] = lambda: _launch_bwd_dec(*bwd)
+                elif pair:  # as a step runs them: K2-wg writes di and bits
+                    di = torch.empty_like(lse)
+                    timed["dq"] = lambda: _launch_dq(
+                        "wg", *bwd, di_out=di, bits_out=bits)
+                    timed["dkv"] = lambda: flash_attn_bwd_dkv(
+                        *bwd, di=di, keep_bits=bits)
                 else:
                     timed["dq"] = lambda: flash_attn_bwd_dq(*bwd)
-                    # di outside the timed call, as K2 hands it to K3-wg
-                    # in a step (the other variants ignore it)
-                    di = di_plain(out, do)
-                    timed["dkv"] = lambda: flash_attn_bwd_dkv(*bwd, di=di)
-                # the same-run "before": the SIMT kernel of each kernel that
-                # the rule sends elsewhere at this site, and the mma.sync
-                # kernel of K1, K2 and K3 where the rule sends them to "wg"
+                    timed["dkv"] = lambda: flash_attn_bwd_dkv(*bwd)
+                # the same-run "before": the SIMT K3 where the rule sends K3
+                # elsewhere, and the mma.sync kernel of K1, K2 and K3 where
+                # the rule sends them to "wg"
                 before = {}
-                if simt_before and row["fwd_variant"] != "simt":
-                    before["simt_fwd"] = lambda: _launch_fwd(
-                        "simt", q, k, v, valid, rate, seed, False)
-                if simt_before and row["dq_variant"] != "simt":
-                    before["simt_dq"] = lambda: _launch_dq("simt", *bwd)
                 if simt_before and row["dkv_variant"] != "simt":
                     before["simt_dkv"] = lambda: _launch_dkv("simt", *bwd)
                 if row["fwd_variant"] == "wg":
@@ -1411,7 +1474,8 @@ def check_training_kernels(report: dict, sites=tuple(CALL_SITES),
                     before["tc_dq"] = lambda: _launch_dq("tc", *bwd)
                 if row["dkv_variant"] == "wg":
                     before["tc_dkv"] = lambda: _launch_dkv("tc", *bwd)
-                timed_here = name in timed_dtypes
+                timed_here = name in timed_dtypes and (
+                    timed_sites is None or (site, name) in timed_sites)
                 for tag, fn in before.items():
                     what = tag.split("_")[1]
                     got = fn()
@@ -1427,9 +1491,7 @@ def check_training_kernels(report: dict, sites=tuple(CALL_SITES),
                     row[f"{tag}_max_abs_err"] = err
                     if not err <= tol:
                         raise AssertionError(f"phase 3 {tag} {row}")
-                    if tag not in ("simt_fwd", "simt_dq") or simt_timed(
-                            site, name):
-                        timed[tag] = fn
+                    timed[tag] = fn
                 if not timed_here:
                     rows.append(row)
                     print(f"{key.replace('_', ' ')} {site:16s} {name:8s} "
@@ -1443,6 +1505,8 @@ def check_training_kernels(report: dict, sites=tuple(CALL_SITES),
                           + "".join(f"; {tag.replace('_', ' ')} err "
                                     f"{row[f'{tag}_max_abs_err']:.3g}"
                                     for tag in before)
+                          + (f"; K2-wg's keep bits equal to keep_bits_plain "
+                             f"on {bits_words} words" if bits_words else "")
                           + "; bitwise repeatable", flush=True)
                     continue
                 for what, fn in timed.items():
@@ -1488,8 +1552,10 @@ def check_training_kernels(report: dict, sites=tuple(CALL_SITES),
                       f"{row['flash_attn_bwd_dq_bound_ms']:.5f}/"
                       f"{row['flash_attn_bwd_dkv_bound_ms']:.5f}/"
                       f"{row['flash_attn_bwd_bound_ms']:.5f} ms"
-                      f"{before_ms} ms device; bitwise repeatable",
-                      flush=True)
+                      f"{before_ms} ms device"
+                      + (f"; K2-wg's keep bits equal to keep_bits_plain on "
+                         f"{bits_words} words" if bits_words else "")
+                      + "; bitwise repeatable", flush=True)
     dtypes = (("float32", torch.float32), ("bfloat16", torch.bfloat16))
     masks = {f"K1 {site} {name}": check_mask_exact(gen, site, DROPOUT,
                                                    0xC0FFEE, dt)
@@ -1676,21 +1742,24 @@ def check_simt_dkv(report: dict) -> dict:
 
 def wg_times(report: dict) -> list:
     """Phase 3d: the warpgroup kernels against the mma.sync ones and SDPA
-    in one process, in bf16 at WG_TIME_SITES (the VL encoder at 1-4
-    feature levels, B=8, at four with the sentence padded and also with
-    each image padded on the canvas; flickr's encoder at 1 and 2 levels,
-    B=16; flickr's decoder over 490 keys), without dropout and with 0.1.
+    in one process, in bf16 at WG_TIME_SITES (256^2 and the VL encoder at
+    1, 2 and 4 feature levels, B=8, the sentence padded; the from-scratch
+    recipe's encoder at B=16; flickr's encoder at 1 and 2 levels, B=16;
+    flickr's decoder over 490 keys), without dropout and with 0.1.
     K1: "tc", "wg" and SDPA's forward; the backward: K2 "tc" and "wg"
-    (each writing di), K3 "tc" and "wg", and SDPA's backward, which covers
-    K2 and K3 together. Each in WG_TIME_TURNS turns of CUDA events around
-    back-to-back calls (cuda_ms); the median is reported. "wg" is checked
+    (K2-wg writing di and, with dropout, the keep bits), K3 "tc" and "wg"
+    (K3-wg reading them), and SDPA's backward, which covers K2 and K3
+    together. Each in WG_TIME_TURNS turns of CUDA events around
+    back-to-back calls queued behind a sleep kernel (queued_ms: device
+    ms, the host's launch time kept out); the median is reported. "wg" is checked
     against the plain version at phase 3's tolerances (K2-wg's dq at
     GRAD_TOL of the largest plain gradient, K3-wg's dk and dv at GRAD_TOL
     of the larger of dk's and dv's), K2-wg's di against di_plain (1e-5
-    plus 1e-5 relative) and K2-wg's bits on a repeated call: on all the
+    plus 1e-5 relative), K2-wg's keep bits against keep_bits_plain on
+    every row, and K2-wg's dq and keep bits on a repeated call: on all the
     inputs where the plain version's scores fit (B * H * Sq * Sk * 4 bytes
     under 4 GB), else on batch row 0, whose dropout offsets are the same
-    at B=1. K3-wg takes di from K2-wg."""
+    at B=1. K3-wg takes di and the keep bits from K2-wg."""
     import torch
     import torch.nn.functional as F
 
@@ -1699,7 +1768,7 @@ def wg_times(report: dict) -> list:
                                                attention_bwd_plain,
                                                attention_plain, di_plain,
                                                dkv_variant, dq_variant,
-                                               fwd_variant)
+                                               fwd_variant, new_keep_bits)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0x3D)
@@ -1720,17 +1789,27 @@ def wg_times(report: dict) -> list:
             out, lse = _launch_fwd("wg", q, k, v, valid, rate, seed, True)
             bwd = (q, k, v, valid, out, lse, do, rate, seed)
             di = torch.empty_like(lse)
-            got = {"fwd": out, "dq": _launch_dq("wg", *bwd, di_out=di)}
-            got["dk"], got["dv"] = _launch_dkv("wg", *bwd, di)
+            bits = new_keep_bits(q, k) if rate else None
+            got = {"fwd": out,
+                   "dq": _launch_dq("wg", *bwd, di_out=di, bits_out=bits)}
+            got["dk"], got["dv"] = _launch_dkv("wg", *bwd, di, bits)
             di_want = di_plain(out, do)
             di_err = max_err(di, di_want)
             di_tol = 1e-5 + 1e-5 * di_want.abs().max().item()
+            # a repeated call: the same dq and keep bits
+            bits2 = new_keep_bits(q, k) if rate else None
             if not (di_err <= di_tol and same_bits(
-                    got["dq"], _launch_dq("wg", *bwd))):
+                    got["dq"], _launch_dq("wg", *bwd, bits_out=bits2))
+                    and (bits is None or torch.equal(
+                        bits.view(torch.int32), bits2.view(torch.int32)))):
                 raise AssertionError(f"phase 3d {site} dropout {rate}: "
                                      f"K2-wg's di error {di_err:.3g} (tol "
                                      f"{di_tol:.3g}) or a repeated call's "
                                      f"bits differ")
+            del bits2
+            bits_words = (check_bits(f"phase 3d {site}", bits, seed, rate,
+                                     (b, sq, sk, h, d))
+                          if rate else 0)
             against, ref = "plain", bwd
             if not fits:  # batch row 0 alone
                 against = "plain, batch row 0"
@@ -1765,22 +1844,23 @@ def wg_times(report: dict) -> list:
                 "k1_wg": lambda: _launch_fwd("wg", q, k, v, valid, rate, seed,
                                              False),
                 "sdpa_fwd": sdpa,
-                "k2_tc": lambda: _launch_dq("tc", *bwd, di_out=di),
-                "k2_wg": lambda: _launch_dq("wg", *bwd, di_out=di),
+                "k2_tc": lambda: _launch_dq("tc", *bwd),
+                "k2_wg": lambda: _launch_dq("wg", *bwd, di_out=di,
+                                            bits_out=bits),
                 "k3_tc": lambda: _launch_dkv("tc", *bwd),
-                "k3_wg": lambda: _launch_dkv("wg", *bwd, di),
+                "k3_wg": lambda: _launch_dkv("wg", *bwd, di, bits),
                 "sdpa_bwd": lambda: torch.autograd.grad(
                     held, (qt, kt, vt), dot, retain_graph=True)}
             turns = {name: [] for name in fns}
             for _ in range(WG_TIME_TURNS):
                 for name, fn in fns.items():
-                    turns[name].append(cuda_ms(fn, iters=iters, warmup=2))
+                    turns[name].append(queued_ms(fn, iters=iters))
             ms = {name: statistics.median(t) for name, t in turns.items()}
             row = {"site": site, "B": b, "Sq": sq, "Sk": sk, "H": h, "D": d,
                    "dropout": rate, "checked_against": against,
                    "max_abs_err": errs, "tol": tols, "grad_scale": scale,
                    "grad_scale_dq": scale_dq, "di_max_abs_err": di_err,
-                   "di_tol": di_tol, "fwd_scale": want["fwd"].abs().max().item(),
+                   "di_tol": di_tol, "keep_bits_words_checked": bits_words, "fwd_scale": want["fwd"].abs().max().item(),
                    "ms": ms,
                    "turns": turns,
                    "k2_wg_k3_wg_ms": ms["k2_wg"] + ms["k3_wg"],
@@ -1790,7 +1870,7 @@ def wg_times(report: dict) -> list:
                    "dq_variant": dq_variant(sq, sk, torch.bfloat16, d),
                    "dkv_variant": dkv_variant(sq, sk, torch.bfloat16, d),
                    "bounds": {kern: attention_bound_terms(
-                       b, sq, sk, h, d, valid, "bfloat16", kern, rate)
+                       b, sq, sk, h, d, valid, "bfloat16", f"{kern}_wg", rate)
                        for kern in ("flash_attn_fwd", "flash_attn_bwd_dq",
                                     "flash_attn_bwd_dkv")}}
             rows.append(row)
@@ -1799,8 +1879,8 @@ def wg_times(report: dict) -> list:
                     f"{t} {v:.4f}" for t, v in terms.items())
                 for kern, terms in row["bounds"].items())
             print(f"wg times {site} B={b} Sq={sq} Sk={sk} bf16 dropout {rate} "
-                  f"({report['card']}; CUDA events, median of "
-                  f"{WG_TIME_TURNS} turns): K1 tc {ms['k1_tc']:.4f}, wg "
+                  f"({report['card']}; device ms, CUDA events behind a sleep "
+                  f"kernel, median of {WG_TIME_TURNS} turns): K1 tc {ms['k1_tc']:.4f}, wg "
                   f"{ms['k1_wg']:.4f}, sdpa fwd {ms['sdpa_fwd']:.4f} ms; K2 "
                   f"tc {ms['k2_tc']:.4f}, wg {ms['k2_wg']:.4f}; K3 tc "
                   f"{ms['k3_tc']:.4f}, wg {ms['k3_wg']:.4f}; K2 + K3 tc + tc "
@@ -1814,9 +1894,10 @@ def wg_times(report: dict) -> list:
                   f"{row['fwd_scale']:.3g}, tol {tols['fwd']:.3g}), dq "
                   f"{errs['dq']:.3g} (tol {tols['dq']:.3g}), dk "
                   f"{errs['dk']:.3g}, dv {errs['dv']:.3g} (tol "
-                  f"{tols['dk']:.3g}), di {di_err:.3g}; bounds (ms) "
+                  f"{tols['dk']:.3g}), di {di_err:.3g}, keep bits equal to "
+                  f"keep_bits_plain on {bits_words} words; bounds (ms) "
                   f"{bounds}", flush=True)
-            del out, lse, got, want, held, di_want
+            del out, lse, got, want, held, di_want, bits
         del q, k, v, do, qt, kt, vt
         torch.cuda.empty_cache()
     report["wg_times"] = rows
@@ -1924,8 +2005,10 @@ def ms_list(values) -> str:
     return ", ".join(f"{v:.2f}" for v in values)
 
 
+# K3-wg's calls that built their keep bits by keep_bits_plain (no K2-wg
+# before them) count in bits_plain, which every counted run holds to 0
 VARIANT_COUNTS = ("launches_tc", "launches_wg", "launches_tf32x3",
-                  "launches_dec", "launches_plain")
+                  "launches_dec", "launches_plain", "bits_plain")
 
 
 def reset_counts(counters) -> None:
@@ -1940,14 +2023,15 @@ def read_counts(counters) -> dict:
     """Launches per wrapper, and those of its tensor-core, warpgroup,
     3xTF32 and decode variants under ``<wrapper>_tc``, ``<wrapper>_wg``,
     ``<wrapper>_tf32x3`` and ``<wrapper>_dec``; its calls sent to the
-    plain version under ``<wrapper>_plain``."""
+    plain version under ``<wrapper>_plain``; K3's calls whose keep bits
+    came from keep_bits_plain under ``flash_attn_bwd_dkv_bits_plain``."""
     out = {}
     for c in counters:
         out[c.__name__] = c.launches
         for attr in VARIANT_COUNTS:
             if hasattr(c, attr):
-                out[c.__name__ + attr.removeprefix("launches")] = getattr(
-                    c, attr)
+                out[f"{c.__name__}_{attr.removeprefix('launches_')}"] = \
+                    getattr(c, attr)
     return out
 
 
@@ -2000,16 +2084,19 @@ def expected_launches(n: int, dtype_name: str, backward: bool,
     unless given) in ``dtype_name``: each call counted on the variant the
     dispatch rule picks for it (fwd_variant for K1, dq_variant and
     dkv_variant for K2 and K3 in a step; one decode backward counts on
-    both)."""
+    both), and K3-wg never on keep bits from keep_bits_plain: every K3-wg
+    call of a step reads K2-wg's."""
     import torch
 
     from reftr_torch.kernels.attention import (dkv_variant, dq_variant,
+                                               flash_attention,
+                                               flash_attn_bwd_dkv,
+                                               flash_attn_bwd_dq,
                                                fwd_variant)
 
     dt = getattr(torch, dtype_name)
-    names = ("flash_attention", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
-    want = {name + attr.removeprefix("launches"): 0 for name in names
-            for attr in ("launches",) + VARIANT_COUNTS}
+    want = {key: 0 for key in read_counts(
+        [flash_attention, flash_attn_bwd_dq, flash_attn_bwd_dkv])}
     for calls, sq, sk, d in REC_SITES if sites is None else sites:
         picks = {"flash_attention": fwd_variant(sq, sk, dt, d)}
         if backward:
@@ -2173,50 +2260,28 @@ def restore_rule(rule: dict) -> None:
 
 def time_f32_forward(model, full, counters) -> dict:
     """Phase 4's float32 timing: full batches through ServingModel, host to
-    host, after the bf16 timing's warm-up, in turns with K1 on the 3xTF32
-    kernel and with K1 sent to SIMT (the same-run "before"), median of four
-    turns each; one forward of each mode counted (18 of K1's 30 launches on
-    the mode's kernel) and profiled."""
+    host, after the bf16 timing's warm-up, median of four runs; one forward
+    counted (18 of K1's 30 launches on the 3xTF32 kernel) and profiled."""
     from reftr_torch.tools.op_profile import profile_device
 
     forward_ms(model, full, iters=20)
-    runs = {"tf32x3": [], "simt": []}
-    launches = {}
-    for mode in ("tf32x3", "simt", "simt", "tf32x3") * 2:
-        rule = (reroute(["fwd"], "tf32x3", "simt") if mode == "simt"
-                else {})
-        runs[mode].append(forward_ms(model, full))
-        if mode not in launches:
-            reset_counts(counters)
-            model(full)
-            launches[mode] = read_counts(counters)
-        restore_rule(rule)
-    for mode in runs:
-        n = launches[mode]
-        on_mode = (n["flash_attention_tf32x3"] if mode == "tf32x3" else
-                   n["flash_attention"] - n["flash_attention_dec"]
-                   - n["flash_attention_tf32x3"] - n["flash_attention_tc"])
-        if (n["flash_attention"] != ATTN_PER_FORWARD
-                or on_mode != TC_PER_FORWARD):
-            raise AssertionError(f"float32 forward with K1 on {mode}: "
-                                 f"launches {n}")
-    out = {}
-    for mode, ms in runs.items():
-        med = statistics.median(ms)
-        print(f"serve: f32 batch {SERVE_BATCH} forward + fetch, K1 on "
-              f"{mode}: median {med:.2f} ms = {SERVE_BATCH / med * 1e3:.1f} "
-              f"img/s (runs {ms_list(ms)} ms)", flush=True)
-        rule = (reroute(["fwd"], "tf32x3", "simt") if mode == "simt"
-                else {})
-        profile = profile_device(
-            lambda: model(full),
-            f"f32 batch {SERVE_BATCH} forward, K1 on {mode}", med)
-        restore_rule(rule)
-        out[mode] = {"forward_ms": med, "img_per_s": SERVE_BATCH / med * 1e3,
-                     "runs_ms": ms, "launches": launches[mode],
-                     "profile": profile,
-                     "attention_device_ms": attention_ms(profile)}
-    return out
+    runs = [forward_ms(model, full) for _ in range(4)]
+    reset_counts(counters)
+    model(full)
+    n = read_counts(counters)
+    if (n["flash_attention"] != ATTN_PER_FORWARD
+            or n["flash_attention_tf32x3"] != TC_PER_FORWARD):
+        raise AssertionError(f"float32 forward: launches {n}")
+    med = statistics.median(runs)
+    print(f"serve: f32 batch {SERVE_BATCH} forward + fetch, K1 on tf32x3: "
+          f"median {med:.2f} ms = {SERVE_BATCH / med * 1e3:.1f} img/s (runs "
+          f"{ms_list(runs)} ms)", flush=True)
+    profile = profile_device(lambda: model(full),
+                             f"f32 batch {SERVE_BATCH} forward, K1 on tf32x3",
+                             med)
+    return {"tf32x3": {"forward_ms": med, "img_per_s": SERVE_BATCH / med * 1e3,
+                       "runs_ms": runs, "launches": n, "profile": profile,
+                       "attention_device_ms": attention_ms(profile)}}
 
 
 def model_weights(loss_cfg, mc) -> dict:
@@ -2479,7 +2544,7 @@ def train(report: dict, counters) -> dict:
     profile = profile_device(
         lambda: step(state, batch, targets),
         f"bf16 batch {SERVE_BATCH} train step", med, iters=3)
-    k3_ab = k3_route_steps(step, state, batch, targets)
+    bwd_ab = bwd_route_steps(step, state, batch, targets)
     del state, model, step
     torch.cuda.empty_cache()
     paths = compare_train_paths(cfg, batch, targets)
@@ -2489,39 +2554,40 @@ def train(report: dict, counters) -> dict:
         "stats": stats, "step_ms": step_ms, "median_step_ms": med,
         "img_per_s": SERVE_BATCH / med * 1e3, "peak_memory_gb": peak_gb,
         "trainable_params": n_params, "profile": profile,
-        "k3_route_steps": k3_ab, "f32_kernel_vs_plain": paths}
+        "bwd_route_steps": bwd_ab, "f32_kernel_vs_plain": paths}
     return report
 
 
-def k3_route_steps(step, state, batch, targets) -> dict:
-    """Phase 5's bf16 step by the rule (K3 on "wg" at the 440-token
-    encoder) and with K3 sent to "tc" there, in K3_AB_TURNS turns of each
-    (rule, tc, tc, rule, ...), K3_AB_STEPS steps a turn: ms a step on the
-    host's clock, from a synchronize before the turn's first step to one
-    after its last. The step is host-bound, so this is what "wg"'s host
-    work (its tensor maps and function attribute) costs or saves."""
+def bwd_route_steps(step, state, batch, targets) -> dict:
+    """Phase 5's bf16 step by the rule (K2 and K3 on "wg" at the 440-token
+    encoder) and with both sent to "tc" there, in BWD_AB_TURNS turns of
+    each (rule, tc, tc, rule, ...), BWD_AB_STEPS steps a turn: ms a step on
+    the host's clock, from a synchronize before the turn's first step to
+    one after its last. The step is host-bound, so this is what "wg"'s
+    host work (its tensor maps and function attributes) costs or saves."""
     import torch
 
     times = {"rule": [], "tc": []}
-    for turn in range(2 * K3_AB_TURNS):
+    for turn in range(2 * BWD_AB_TURNS):
         route = ("rule", "tc", "tc", "rule")[turn % 4]
-        rule = reroute(("dkv",), "wg", "tc") if route == "tc" else {}
+        rule = (reroute(("dq", "dkv"), "wg", "tc") if route == "tc"
+                else {})
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            for _ in range(K3_AB_STEPS):
+            for _ in range(BWD_AB_STEPS):
                 state, _ = step(state, batch, targets)
             torch.cuda.synchronize()
             times[route].append((time.perf_counter() - t0) * 1e3
-                                / K3_AB_STEPS)
+                                / BWD_AB_STEPS)
         finally:
             restore_rule(rule)
     out = {route: {"turn_ms": t, "median_ms": statistics.median(t)}
            for route, t in times.items()}
-    print(f"train: bf16 step, K3 at the encoder by the rule (wg) "
+    print(f"train: bf16 step, K2 and K3 at the encoder by the rule (wg) "
           f"{out['rule']['median_ms']:.2f} ms, on tc "
-          f"{out['tc']['median_ms']:.2f} ms (median of {K3_AB_TURNS} turns "
-          f"of {K3_AB_STEPS} steps, in turns: rule {ms_list(times['rule'])};"
+          f"{out['tc']['median_ms']:.2f} ms (median of {BWD_AB_TURNS} turns "
+          f"of {BWD_AB_STEPS} steps, in turns: rule {ms_list(times['rule'])};"
           f" tc {ms_list(times['tc'])} ms a step)", flush=True)
     return out
 
@@ -2543,9 +2609,7 @@ def train_f32(report: dict, counters) -> dict:
     step each, 18 of each (BERT and encoder) on the 3xTF32 kernels and 12
     on the decode kernels, none on SIMT. Reports the median host step
     after WARM_STEPS, one step's device time by category with the
-    attention kernels' share, and the same step profiled with K1, K2 and
-    K3 sent to the SIMT kernels as before the 3xTF32 kernels (the
-    same-run "before")."""
+    attention kernels' share."""
     import torch
 
     from reftr_torch.cli.presets import preset_config
@@ -2604,29 +2668,11 @@ def train_f32(report: dict, counters) -> dict:
     profile = profile_device(lambda: step(state, batch, targets),
                              f"f32 batch {SERVE_BATCH} train step", med,
                              iters=3)
-    # the same step with K1, K2 and K3 on the SIMT kernels, as the rule
-    # sent float32 before the 3xTF32 kernels
-    rule = reroute(["fwd", "dq", "dkv"], "tf32x3", "simt")
-    reset_counts(counters)
-    before = profile_device(
-        lambda: step(state, batch, targets),
-        f"f32 batch {SERVE_BATCH} train step, K1, K2 and K3 on SIMT", med,
-        iters=3)
-    restore_rule(rule)
-    simt_n = read_counts(counters)
-    if (any(simt_n[f"{c.__name__}_tf32x3"] for c in counters)
-            or any(simt_n[c.__name__] == simt_n[f"{c.__name__}_dec"]
-                   for c in counters)):
-        raise AssertionError(f"the SIMT-rule step did not run K1, K2 and K3 "
-                             f"on SIMT: launches {simt_n}")
-    att, att_before = attention_ms(profile), attention_ms(before)
-    k1 = {name: (prof.get("by_category_ms") or {}).get(cat)
-          for name, prof, cat in (("tf32x3", profile, "flash_attn_fwd_f32tc"),
-                                  ("simt", before, "flash_attn_fwd"))}
+    att = attention_ms(profile)
+    k1 = (profile.get("by_category_ms") or {}).get("flash_attn_fwd_f32tc")
     print(f"train f32: attention kernels {att} ms of the step's device time"
-          f" {profile.get('device_ms')} ms (K1 on 3xTF32 {k1['tf32x3']} ms);"
-          f" with K1, K2 and K3 on SIMT {att_before} of "
-          f"{before.get('device_ms')} ms (K1 {k1['simt']} ms)", flush=True)
+          f" {profile.get('device_ms')} ms (K1 on 3xTF32 {k1} ms)",
+          flush=True)
     del state, step
     torch.cuda.empty_cache()
     report["train_f32"] = {
@@ -2634,9 +2680,7 @@ def train_f32(report: dict, counters) -> dict:
         "step_ms": step_ms, "median_step_ms": med,
         "img_per_s": SERVE_BATCH / med * 1e3, "peak_memory_gb": peak_gb,
         "profile": profile, "attention_device_ms": att,
-        "k1_device_ms": k1["tf32x3"], "profile_simt": before,
-        "attention_device_ms_simt": att_before,
-        "k1_device_ms_simt": k1["simt"]}
+        "k1_device_ms": k1}
     return report
 
 
@@ -3268,7 +3312,7 @@ def multi_sites(report: dict) -> dict:
     from reftr_torch.cli.presets import preset_config
 
     check_training_kernels(report, MULTI_SITES, "multi_kernels",
-                           simt_before=False)
+                           simt_before=False, timed_dtypes=("bfloat16",))
     cfg = preset_config("flickr", dtype="float32")
     batch, targets = multi_batch(cfg, cfg.data.batch_size, cfg.data.img_size)
     report["multi"]["f32_kernel_vs_plain"] = compare_train_paths(
@@ -3433,7 +3477,7 @@ def train_levels(report: dict, counters) -> dict:
             cfg, batch, targets, f"levels: bf16 batch {SERVE_BATCH} train "
                                  f"step at 4 feature levels")}
     check_training_kernels(report, ("vl_encoder_4_levels",), "levels_kernels",
-                           simt_before=False)
+                           simt_before=False, timed_dtypes=("bfloat16",))
     torch.cuda.empty_cache()
     site = "vl_encoder_4_levels_b8"
     b, sq, sk, h, _ = site_shape(site)
@@ -3763,7 +3807,7 @@ DDP_TRAIN = ["--preset", "refcoco_det", "--dataset", "synthetic",
 # 9b: two gloo ranks on the one card, float32, phase 5's batch of 8 halved
 DDP_WORLD = 2
 # 9c: turns of the bf16 step without and with DDP, steps a turn
-DDP_TURNS = 3
+DDP_TURNS = 2
 DDP_TURN_STEPS = 4
 DDP_TIMEOUT = 600  # s, each launch
 ADAM_EPS = 1e-8
@@ -6059,9 +6103,8 @@ def kernel_line(report: dict) -> list:
     beside). ``ms`` is the host loop's time per call (CUDA events around
     back-to-back wrapper calls), ``device_ms`` the card's time per call
     (torch.profiler); a K3 row of another variant than SIMT has the SIMT
-    kernel's device time at its site beside it (the same-run "before"),
-    and a K1 or K2 row so where the SIMT K1 and K2 are timed
-    (``simt_timed``). ``launches`` counts the main path's runs: both
+    kernel's device time at its site beside it (the same-run "before").
+    ``launches`` counts the main path's runs: both
     serving runs
     (bf16 and float32), both training runs (the bf16 steps and the
     float32 steps), the trainer's entry point (phase 6's three runs), RES
@@ -6134,9 +6177,6 @@ def kernel_line(report: dict) -> list:
         if short == "fwd":
             errs += [(r["max_abs_err"], 1.0) for r in sites
                      if r["variant"] == variant]
-            if variant == "simt":
-                errs += [(r["simt_max_abs_err"], 1.0) for r in sites
-                         if "simt_max_abs_err" in r]
         tr, tr0 = (next(r for r in rows if r["site"] == site
                         and r["dtype"] == dtype and r["dropout"] == rate)
                    for rate in (DROPOUT, 0.0))
@@ -6161,10 +6201,9 @@ def kernel_line(report: dict) -> list:
         if short == "fwd":
             sv = next(r for r in sites
                       if r["site"] == site and r["dtype"] == dtype)
-            pre = "" if sv["variant"] == variant else "simt_"
             entry.update({
                 "shape": f"{shape}, no dropout",
-                "ms": sv[f"{pre}ms"], "device_ms": sv[f"{pre}device_ms"],
+                "ms": sv["ms"], "device_ms": sv["device_ms"],
                 "ms_dropout": tr[f"{key}_ms"],
                 "device_ms_dropout": tr[f"{key}_device_ms"],
                 "plain_ms": sv["plain_ms"], "bound_ms": sv["bound_ms"],
@@ -6172,10 +6211,6 @@ def kernel_line(report: dict) -> list:
                 "library_ms": sv["library_ms"],
                 "library_device_ms": sv["library_device_ms"],
                 "library_device_ms_dropout": tr["sdpa_fwd_device_ms"]})
-            if variant != "simt" and simt_timed(site, dtype):
-                entry.update({
-                    "simt_device_ms": sv["simt_device_ms"],
-                    "simt_device_ms_dropout": tr["simt_fwd_device_ms"]})
         else:
             entry.update({
                 "max_rel_err": max(e / s for e, s in errs),
@@ -6192,8 +6227,7 @@ def kernel_line(report: dict) -> list:
                                   "K2 and K3 together",
                 "device_ms_no_dropout": tr0[f"{key}_device_ms"],
                 "library_device_ms_no_dropout": tr0["sdpa_bwd_device_ms"]})
-            if variant != "simt" and (short == "dkv"
-                                      or simt_timed(site, dtype)):
+            if variant != "simt" and short == "dkv":
                 entry.update({
                     "simt_device_ms": tr[f"simt_{short}_device_ms"],
                     "simt_device_ms_no_dropout":
@@ -6370,8 +6404,8 @@ def bwd_dec_entry(report: dict, name: str, source: str, replaces: str,
     K3 below 16 queries: its launches (each counted on K2 and on K3, so
     K2's count), its errors over every call of phase 3 that the rule sent
     to it, and its times at the decoder's cross-attention in bf16 with
-    dropout 0.1 (and without), beside the SIMT K2 + K3 pair of the same
-    run and SDPA's whole backward."""
+    dropout 0.1 (and without), beside the SIMT K3 of the same run and
+    SDPA's whole backward."""
     rows = report["train_kernels"]
     errs = [(r[f"{g}_max_abs_err"], r["grad_scale"])
             for r in rows + report["http_kernels"]
@@ -6403,10 +6437,8 @@ def bwd_dec_entry(report: dict, name: str, source: str, replaces: str,
         "ms": tr["bwd_ms"], "device_ms": tr["bwd_device_ms"],
         "ms_no_dropout": tr0["bwd_ms"],
         "device_ms_no_dropout": tr0["bwd_device_ms"],
-        "simt_pair_device_ms": sum_ms(tr["simt_dq_device_ms"],
-                                      tr["simt_dkv_device_ms"]),
-        "simt_pair_device_ms_no_dropout": sum_ms(tr0["simt_dq_device_ms"],
-                                                 tr0["simt_dkv_device_ms"]),
+        "simt_dkv_device_ms": tr["simt_dkv_device_ms"],
+        "simt_dkv_device_ms_no_dropout": tr0["simt_dkv_device_ms"],
         "plain_ms": tr["bwd_plain_ms"],
         "plain_covers": "attention_bwd_plain: dq, dk and dv",
         "bound_ms": tr["flash_attn_bwd_bound_ms"],
@@ -6445,7 +6477,11 @@ def main() -> int:
           flush=True)
     # the tensor-core kernels' machine code must hold tensor-core products:
     # mma.sync's HMMA in the bf16 and 3xTF32 ones, wgmma's HGMMA in the
-    # warpgroup ones
+    # warpgroup ones (each library dumped once, all at a time)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(sass_text, [libs[src] for src, _, variant in
+                                  KERNELS.values()
+                                  if variant in ("tc", "tf32x3", "wg")]))
     hmma = {src: sass_count(libs[src], "HMMA")
             for src, _, variant in KERNELS.values()
             if variant in ("tc", "tf32x3")}
@@ -6473,25 +6509,30 @@ def main() -> int:
     counters = [flash_attention, flash_attn_bwd_dq, flash_attn_bwd_dkv]
     report = {"card": card, "hmma": hmma, "hgmma": hgmma,
               "bound_card": dict(CARD), "sass": sass}
-    check_kernel(report)
-    check_training_kernels(report)
-    check_head_dims(report)
-    check_simt_dkv(report)
-    wg_times(report)
-    check_keep_bits(report)
-    serve(report, counters)
-    torch.cuda.empty_cache()
-    train(report, counters)
-    train_f32(report, counters)
-    train_cli(report, counters)
-    torch.cuda.empty_cache()
-    train_res(report, counters)
-    torch.cuda.empty_cache()
-    phase8(report, counters)
-    phase9(report)
-    phase10(report, counters)
-    torch.cuda.empty_cache()
-    phase11(report, counters)
+    phases = (
+        ("2", lambda: check_kernel(report)),
+        ("3", lambda: check_training_kernels(report, timed_sites=MAIN_TIMED)),
+        ("3b", lambda: check_head_dims(report)),
+        ("3c", lambda: check_simt_dkv(report)),
+        ("3d", lambda: wg_times(report)),
+        ("3e", lambda: check_keep_bits(report)),
+        ("4", lambda: serve(report, counters)),
+        ("5", lambda: train(report, counters)),
+        ("5b", lambda: train_f32(report, counters)),
+        ("6", lambda: train_cli(report, counters)),
+        ("7", lambda: train_res(report, counters)),
+        ("8", lambda: phase8(report, counters)),
+        ("9", lambda: phase9(report)),
+        ("10", lambda: phase10(report, counters)),
+        ("11-13", lambda: phase11(report, counters)))
+    report["phase_s"] = {}
+    for name, run in phases:
+        t = time.perf_counter()
+        run()
+        torch.cuda.empty_cache()
+        report["phase_s"][name] = time.perf_counter() - t
+        print(f"phase {name} took {report['phase_s'][name]:.1f} s (since the "
+              f"start {time.perf_counter() - t0:.1f} s)", flush=True)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

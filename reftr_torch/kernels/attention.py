@@ -11,8 +11,7 @@ autograd contract:
                                ``csrc/flash_attn_fwd_wg.cu`` (wgmma and
                                TMA) in bf16 and
                                ``csrc/flash_attn_fwd_f32tc.cu`` in float32
-                               by 3xTF32; ``csrc/flash_attn_fwd.cu`` on
-                               SIMT, which the rule no longer picks)
+                               by 3xTF32)
   K2 ``flash_attn_bwd_dq``  <- ``_bwd_dq_kernel``
                                (``csrc/flash_attn_bwd_dec.cu`` for short
                                query sides, on tensor cores
@@ -20,8 +19,7 @@ autograd contract:
                                and ``csrc/flash_attn_bwd_dq_wg.cu`` (wgmma
                                and TMA) in bf16 and
                                ``csrc/flash_attn_bwd_dq_f32tc.cu`` in
-                               float32 by 3xTF32; ``csrc/flash_attn_bwd.cu``
-                               on SIMT, which the rule no longer picks)
+                               float32 by 3xTF32)
   K3 ``flash_attn_bwd_dkv`` <- ``_bwd_dkv_kernel``
                                (``csrc/flash_attn_bwd_dec.cu`` for short
                                query sides, on tensor cores
@@ -43,9 +41,14 @@ TMA, a producer and two consumer warpgroups) at the shapes where they
 measured faster on the H100 and the mma.sync ones ("tc") elsewhere, and
 float32 the 3xTF32 tensor-core kernels ("tf32x3"), which split each
 float32 operand into two tf32 halves and keep float32's accuracy; K3 with
-fewer than 16 keys takes the SIMT kernel ("simt"). K3's "wg" kernel reads
-di = rowsum(dO * O) from K2 ("tc" or "wg"), which writes it beside dq,
-instead of O. A head dim above ``MAX_HEAD_DIM`` takes the
+fewer than 16 keys takes the SIMT kernel ("simt"). K3 takes "wg" only
+where K2 does, and K2-wg hands K3-wg two things it computes anyway: di =
+rowsum(dO * O), which it writes beside dq (``di_out``), so K3-wg never
+reads O; and, with dropout, the mask it drew, as keep bits (``bits_out``:
+uint32 [B, H, Sq, W], W = 4 * ceil(Sk / 128), bit j % 32 of word j / 32
+of row (b, h, i) the keep decision of key j, ``keep_bits_plain``), so
+K3-wg draws nothing. The bits live from K2's launch to K3's return
+(``FlashAttentionFn.backward``). A head dim above ``MAX_HEAD_DIM`` takes the
 plain versions on the card ("plain"), a rule of the dispatch that no
 error reaches. A kernel that fails to build or launch raises; no variant
 stands in for another.
@@ -64,7 +67,8 @@ q [B, Sq, H, D], k and v [B, Sk, H, D], and a validity mask [B, Sk]
 row; lse is [B, H, Sq] f32.
 
 Every kernel has its plain PyTorch version here (``attention_plain``,
-``attention_bwd_plain``, ``philox_keep_plain``). A wrapper runs the plain
+``attention_bwd_plain``, ``philox_keep_plain``, ``keep_bits_plain``,
+``di_plain``). A wrapper runs the plain
 version for a tensor on the CPU, and for a CUDA tensor launches its kernel
 or raises (or, for a head dim above 128, runs the plain version by the
 rule). Each wrapper counts its kernel's launches in ``<wrapper>.launches``
@@ -74,7 +78,9 @@ among them in ``<wrapper>.launches_tc``, ``<wrapper>.launches_wg``,
 ``<wrapper>.launches_tf32x3`` and ``<wrapper>.launches_dec``, and the CUDA
 calls that the rule sent to the plain version, which launch no kernel of this
 module, in ``<wrapper>.launches_plain``. One launch of the decode backward, or
-one plain backward, counts on K2 and on K3.
+one plain backward, counts on K2 and on K3. K3-wg called alone with dropout
+and no keep bits takes them from ``keep_bits_plain``, counted in
+``flash_attn_bwd_dkv.bits_plain``: a training step leaves it at 0.
 
 Attention dropout follows the TPU kernel: the softmax denominator sums the
 un-dropped weights and only the weights applied to v are dropped and
@@ -111,15 +117,10 @@ MAX_HEAD_DIM = HEAD_DIMS[-1]
 # flash_attn_bwd_dq_wg.cu, flash_attn_bwd_dkv_wg.cu): the padded head dim
 # they take, and the least (queries, keys) at which the rule sends bf16
 # calls of K1 ("fwd"), K2 ("dq") and K3 ("dkv") there (the readings behind
-# them in fwd_variant, dq_variant and dkv_variant)
+# them in fwd_variant, dq_variant and dkv_variant). K2 and K3 share one:
+# K3-wg reads the keep bits that only K2-wg writes
 WG_HEAD_DIM = 32
-WG_MIN = {"fwd": (2040, 2040), "dq": (490, 490), "dkv": (256, 256)}
-# from this many keys the rule sends K3 to "wg" only at a key count that
-# is a multiple of 4: elsewhere K3's draw (flash_tc::chunk_keep) makes one
-# Philox call per element, and "wg" was measured the slower there
-# (dkv_variant); K1's and K2's draw (flash_tc::keep_bits) makes one per 4
-# at any key count
-WG_ALIGNED_FROM = 2040
+WG_MIN = {"fwd": (2040, 2040), "dq": (256, 256), "dkv": (256, 256)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MASK32 = 0xFFFFFFFF
 # Philox4x32-10 multipliers and Weyl key increments (Salmon et al., SC'11)
@@ -228,6 +229,41 @@ def philox_keep_plain(seed: int, b: int, h: int, sq: int, sk: int,
     return keep.reshape(b - first_row, h, sq, sk)
 
 
+def keep_words(sk: int) -> int:
+    """Words of a keep-bits row over sk keys: 4 per 128 keys, so a row is
+    a whole number of 16-byte pieces."""
+    return 4 * -(-sk // 128)
+
+
+def keep_bits_plain(seed: int, b: int, h: int, sq: int, sk: int,
+                    rate: float, device=None,
+                    first_row: int = 0) -> torch.Tensor:
+    """``philox_keep_plain``'s mask packed as K2-wg writes it for K3-wg:
+    uint32 [B, H, Sq, keep_words(Sk)], bit j % 32 of word j / 32 of row
+    (b, h, i) set where element ((b * H + h) * Sq + i) * Sk + j is kept
+    (masked keys and fully masked rows included), every bit past Sk 0.
+    With ``first_row``, the batch rows from it on alone. Drawn one
+    (batch, head) at a time, so memory follows Sq * Sk and not the whole
+    mask."""
+    w = keep_words(sk)
+    out = torch.empty((b - first_row, h, sq, w), dtype=torch.int32,
+                      device=device)
+    weights = 2 ** torch.arange(32, dtype=torch.int64, device=device)
+    keep = torch.zeros((sq, w * 32), dtype=torch.int64, device=device)
+    for i in range(first_row, b):
+        for j in range(h):
+            # (i, j) is batch row i * h + j of a call with one head: the
+            # same element offsets
+            bh = i * h + j
+            keep[:, :sk] = philox_keep_plain(seed, bh + 1, 1, sq, sk, rate,
+                                             device, first_row=bh)[0, 0]
+            words = (keep.view(sq, w, 32) * weights).sum(-1)
+            # [0, 2^32) as the int32 of the same bits
+            out[i - first_row, j] = torch.where(words >= 1 << 31,
+                                                words - (1 << 32), words)
+    return out.view(torch.uint32)
+
+
 def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
     """The softmax scale: 1 / sqrt(D) of q's head dim unless given (a head
     dim zero-padded from D keeps D's)."""
@@ -326,6 +362,49 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def unpack_keep_bits(keep_bits: torch.Tensor, sk: int) -> torch.Tensor:
+    """The mask of ``keep_bits_plain``'s layout: bool [B, H, Sq, sk]."""
+    words = keep_bits.view(torch.int32).to(torch.int64) & _MASK32
+    shifts = torch.arange(32, dtype=torch.int64, device=words.device)
+    bits = (words[..., None] >> shifts) & 1
+    return bits.flatten(-2)[..., :sk].bool()
+
+
+def dkv_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              valid_mask: Optional[torch.Tensor], lse: torch.Tensor,
+              do: torch.Tensor, di: torch.Tensor,
+              keep_bits: Optional[torch.Tensor], dropout_rate: float = 0.0,
+              scale: Optional[float] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3-wg's function in plain PyTorch, on what the kernel reads: di =
+    rowsum(dO * O) [B, H, Sq] in place of O, and the dropout mask as keep
+    bits (``keep_bits_plain``'s layout; None without dropout) in place of
+    the seed. ``attention_bwd_plain``'s dk and dv, in the same order of
+    operations: from the same mask and the same di it gives the same
+    bits. Computes in f32 (f64 for f64 inputs); returns (dk, dv) in the
+    input dtype."""
+    dropout_threshold(dropout_rate)
+    if (keep_bits is None) != (dropout_rate == 0.0):
+        raise ValueError("keep_bits go with a dropout rate above 0 and only "
+                         "with one")
+    acc = _plain_precision(q, do)
+    scale = _scale(q, scale)
+    with _no_autocast(q.device):
+        p = torch.exp(_logits(q, k, valid_mask, acc, scale)
+                      - lse.to(acc)[..., None])  # [B, H, Sq, Sk]
+        dp = torch.einsum("bqhd,bkhd->bhqk", do.to(acc), v.to(acc))
+        pk = p
+        if dropout_rate > 0.0:
+            keep = (unpack_keep_bits(keep_bits, k.shape[1]).to(acc)
+                    * (1.0 / (1.0 - dropout_rate)))
+            pk = p * keep
+            dp = dp * keep
+        ds = p * (dp - di.to(acc)[..., None])
+        dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.to(acc)) * scale
+        dv = torch.einsum("bhqk,bqhd->bkhd", pk, do.to(acc))
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _check_dropout(rate: float, seed: Optional[int]) -> None:
     dropout_threshold(rate)
     if rate > 0.0 and seed is None:
@@ -383,26 +462,14 @@ def _check_bwd(q, o, lse, do) -> None:
                         f"{o.dtype}, {do.dtype}, {lse.dtype}")
 
 
-def _threads_per_row(sq: int) -> int:
-    """Threads that share one query row in the forward and dq kernels: a
-    short query side (the decoder's single query) spreads its keys over up
-    to a warp."""
-    for g, most in ((32, 4), (16, 8), (8, 16)):
-        if sq <= most:
-            return g
-    return 4
-
-
 def _wg(kernel: str, sq: int, sk: int, dtype: torch.dtype, d: int) -> bool:
     """Whether a bf16 call of K1 ("fwd"), K2 ("dq") or K3 ("dkv") takes
-    its warpgroup kernel: a head dim that pads to WG_HEAD_DIM, at least
-    WG_MIN[kernel] queries and keys, and for K3 from WG_ALIGNED_FROM keys
-    up a key count that is a multiple of 4."""
+    its warpgroup kernel: a head dim that pads to WG_HEAD_DIM and at least
+    WG_MIN[kernel] queries and keys, at any key count."""
     least_sq, least_sk = WG_MIN[kernel]
-    aligned = kernel != "dkv" or sk < WG_ALIGNED_FROM or sk % 4 == 0
     return (dtype == torch.bfloat16 and d <= MAX_HEAD_DIM
             and padded_head_dim(d) == WG_HEAD_DIM and sq >= least_sq
-            and sk >= least_sk and aligned)
+            and sk >= least_sk)
 
 
 def fwd_variant(sq: int, sk: int, dtype: torch.dtype, d: int) -> str:
@@ -416,8 +483,7 @@ def fwd_variant(sq: int, sk: int, dtype: torch.dtype, d: int) -> str:
     where ``_wg`` holds and "tc" (flash_attn_fwd_tc.cu) elsewhere, and in
     float32 "tf32x3" (flash_attn_fwd_f32tc.cu): its products on the tensor
     cores as three TF32 products of split operands, which keeps the
-    float32 tolerance that plain TF32 would break. The SIMT kernel
-    (flash_attn_fwd.cu) has no route left.
+    float32 tolerance that plain TF32 would break.
 
     "wg" takes WG_MIN["fwd"] = 2040 queries and keys and up, at any key
     count: the sites where it was no slower than "tc" both without
@@ -459,25 +525,28 @@ def dq_variant(sq: int, sk: int, dtype: torch.dtype, d: int) -> str:
     (flash_attn_bwd_dq_tc.cu) elsewhere, and in float32 "tf32x3"
     (flash_attn_bwd_dq_f32tc.cu): its products on the tensor cores as
     three TF32 products of split operands, which keeps float32's accuracy.
-    The SIMT kernel (flash_attn_bwd.cu) has no route left.
 
-    "wg" takes WG_MIN["dq"] = 490 queries and keys and up, at any key
-    count: the sites where it was no slower than "tc" with dropout 0.1,
-    training's case (readings as in fwd_variant, "tc" / "wg", without
-    dropout, then with 0.1):
-      the VL encoder at four levels, 8540^2, B=8: 5.206 / 3.389, 10.227 /
-        8.074; each image padded: 5.213 / 3.400, 10.242 / 8.075; at
-        three, 8440^2: 5.070 / 3.253, 9.938 / 7.730; at two, 2040^2:
-        0.3295 / 0.2183, 0.6266 / 0.4923;
-      flickr's encoder at two levels, 2090^2, B=16: 0.6642 / 0.4931,
-        1.323 / 1.198; at one, 490^2: 0.0537 / 0.0582, 0.0935 / 0.0842;
-      the VL encoder at one level, 440^2, B=8: 0.0348 / 0.0371, 0.0517 /
-        0.0565, so "tc" keeps it: the host loop is launch-bound there,
-        and K2-wg's launch encodes four tensor maps on the host (device
-        time, torch.profiler, phase 3: 0.0238 / 0.0168, 0.0406 / 0.0335),
-        which REC's host-bound bf16 step would pay;
-      flickr's decoder, 16 x 490: 0.0530 / 0.0563, 0.0369 / 0.0439, so
-        16 queries (a tile of 128 an eighth full) keep "tc"."""
+    "wg" takes WG_MIN["dq"] = 256 queries and keys and up, at any key
+    count, with K3 (``dkv_variant``): K3-wg reads the keep bits that K2-wg
+    writes, so the pair moves together, and the pair was the faster at
+    every site from 256 up, without dropout and with 0.1 (chip_smoke.py
+    phase 3d on an NVIDIA H100 80GB HBM3 at 700 W: device ms, CUDA events
+    around calls queued behind a sleep kernel, median of three turns; K2 +
+    K3, "tc" + "tc" / "wg" + "wg", without dropout, then with 0.1; SDPA's
+    backward beside):
+      256^2, B=8: 0.0306 / 0.0154, 0.0412 / 0.0221 (SDPA 0.0230, 0.0262);
+      the VL encoder at one level, 440^2, B=8: 0.0638 / 0.0340, 0.0980 /
+        0.0579 (SDPA 0.0549, 0.0637); at the from-scratch recipe's B=16:
+        0.1105 / 0.0644, 0.1676 / 0.1118 (SDPA 0.1016, 0.1172);
+      flickr's encoder at one level, 490^2, B=16: 0.1361 / 0.0731,
+        0.3044 / 0.1305 (SDPA 0.1134, 0.1344); at two, 2090^2: 1.8925 /
+        0.9354, 4.5304 / 1.9152 (SDPA 1.5143, 1.8242);
+      the VL encoder at four levels, 8540^2, B=8: 14.994 / 6.500, 24.764
+        / 13.782 (SDPA 11.294, 13.732).
+    K2 alone at 8540^2 with dropout: "tc" 9.966, "wg" 9.277 (its draw of
+    the mask bounds it; flash_attn_bwd_dq_wg.cu). Below 256 queries and
+    keys the model has no site, and the decoder's 16 queries (a tile of
+    128 an eighth full) keep "tc"."""
     if d > MAX_HEAD_DIM:
         return "plain"
     if sq < TC_MIN_ROWS:
@@ -491,31 +560,18 @@ def dkv_variant(sq: int, sk: int, dtype: torch.dtype, d: int) -> str:
     """K3's kernel on the card for sq queries, sk keys and head dim d:
     "plain" and "dec" as for ``dq_variant``; with at least TC_MIN_ROWS
     queries and keys (the VL encoder and BERT) in bf16 "wg"
-    (flash_attn_bwd_dkv_wg.cu, which takes di from K2) where ``_wg``
-    holds (``fwd_variant``) and "tc" (flash_attn_bwd_dkv_tc.cu) elsewhere,
+    (flash_attn_bwd_dkv_wg.cu, which takes di and the keep bits from
+    K2-wg) where ``_wg`` holds and "tc" (flash_attn_bwd_dkv_tc.cu) elsewhere,
     and "tf32x3" (flash_attn_bwd_dkv_f32tc.cu) for float32; else "simt"
     (flash_attn_bwd.cu): fewer than TC_MIN_ROWS keys in either dtype, where
     each 64-key tile of a tensor-core kernel would be mostly empty.
 
-    "wg" takes WG_MIN["dkv"] = 256 queries and keys and up, and from
-    WG_ALIGNED_FROM keys only where Sk is a multiple of 4 (readings as in
-    fwd_variant, "tc" / "wg", without dropout, then with 0.1, before K1's
-    and K2's draw was changed):
-      the VL encoder at four levels, 8540^2, B=8: 10.036 / 3.526, 14.804 /
-        11.021; each image padded: 10.045 / 3.486, 14.804 / 10.924; at
-        three, 8440^2: 9.742 / 3.384, 14.384 / 10.694; at two, 2040^2:
-        0.6172 / 0.2318, 0.9050 / 0.6828; at one, 440^2: 0.0418 /
-        0.0454, 0.0571 / 0.0445 (the host loop at 440^2 is launch-bound;
-        torch.profiler's device time, phase 3: 0.0399 / 0.0193, 0.0571 /
-        0.0440);
-      flickr's encoder at two levels, 2090^2, B=16: 1.249 / 0.4947,
-        3.186 / 3.223 (K3 draws Philox per element there); at one,
-        490^2: 0.0865 / 0.0499, 0.2115 / 0.1906;
-      flickr's decoder, 16 x 490: 0.0706 / 0.0729, 0.0492 / 0.0577.
-    At 16 queries one 64-query tile is a quarter full. K3 runs in
-    training, with dropout, so its reading with dropout decides; REC's
-    bf16 step (chip_smoke.py phase 5) is no slower by the rule than with
-    K3 on "tc" at 440^2 (208.03 against 215.89 ms a step, in turns)."""
+    "wg" takes WG_MIN["dkv"] = 256 queries and keys and up, at any key
+    count: K2's ("dq_variant", with the pair's readings), so that K3-wg
+    always follows a K2-wg that hands it di and the keep bits (with them
+    K3-wg draws no random number: at 8540^2, B=8 it reads 4.505 ms with
+    dropout, chip_smoke.py phase 3d; 11.02 when it drew the mask itself,
+    time_keep_ab.py on the parent checkout in the same call)."""
     if d > MAX_HEAD_DIM:
         return "plain"
     if sq < TC_MIN_ROWS:
@@ -536,9 +592,6 @@ _DROPOUT_ARGS = [ctypes.c_uint64, ctypes.c_uint32, ctypes.c_float]
 # D, the softmax scale, then the dtype and threads per row where the kernel
 # takes them, then the dropout
 _ARGTYPES = {
-    "flash_attn_fwd": ("flash_attn_fwd.cu",
-                       [_PTR] * 6 + [_INT] * 5 + [_FLOAT] + [_INT] * 2
-                       + _DROPOUT_ARGS),
     "flash_attn_fwd_tc": ("flash_attn_fwd_tc.cu",
                           [_PTR] * 6 + [_INT] * 5 + [_FLOAT] + _DROPOUT_ARGS),
     "flash_attn_fwd_wg": ("flash_attn_fwd_wg.cu",
@@ -549,14 +602,11 @@ _ARGTYPES = {
     "flash_attn_fwd_dec": ("flash_attn_fwd_dec.cu",
                            [_PTR] * 6 + [_INT] * 5 + [_FLOAT, _INT]
                            + _DROPOUT_ARGS),
-    "flash_attn_bwd_dq": ("flash_attn_bwd.cu",
-                          [_PTR] * 8 + [_INT] * 5 + [_FLOAT] + [_INT] * 2
-                          + _DROPOUT_ARGS),
     "flash_attn_bwd_dq_tc": ("flash_attn_bwd_dq_tc.cu",
-                             [_PTR] * 9 + [_INT] * 5 + [_FLOAT]
+                             [_PTR] * 8 + [_INT] * 5 + [_FLOAT]
                              + _DROPOUT_ARGS),
     "flash_attn_bwd_dq_wg": ("flash_attn_bwd_dq_wg.cu",
-                             [_PTR] * 9 + [_INT] * 5 + [_FLOAT]
+                             [_PTR] * 10 + [_INT] * 5 + [_FLOAT]
                              + _DROPOUT_ARGS),
     "flash_attn_bwd_dq_f32tc": ("flash_attn_bwd_dq_f32tc.cu",
                                 [_PTR] * 8 + [_INT] * 5 + [_FLOAT]
@@ -567,9 +617,9 @@ _ARGTYPES = {
     "flash_attn_bwd_dkv_tc": ("flash_attn_bwd_dkv_tc.cu",
                               [_PTR] * 9 + [_INT] * 5 + [_FLOAT]
                               + _DROPOUT_ARGS),
+    # no seed: it reads the keep bits (or none), and the keep scale
     "flash_attn_bwd_dkv_wg": ("flash_attn_bwd_dkv_wg.cu",
-                              [_PTR] * 9 + [_INT] * 5 + [_FLOAT]
-                              + _DROPOUT_ARGS),
+                              [_PTR] * 10 + [_INT] * 5 + [_FLOAT] * 2),
     "flash_attn_bwd_dkv_f32tc": ("flash_attn_bwd_dkv_f32tc.cu",
                                  [_PTR] * 9 + [_INT] * 5 + [_FLOAT]
                                  + _DROPOUT_ARGS),
@@ -697,8 +747,8 @@ def _check_wg(*tensors: Optional[torch.Tensor]) -> None:
 
 def _launch_fwd(variant: str, q, k, v, valid_mask, dropout_rate: float,
                 seed: Optional[int], return_lse: bool = True):
-    """Launch K1's ``variant`` ("dec", "tc", "wg", "tf32x3" or "simt"; "plain"
-    runs ``attention_plain``) on CUDA tensors: (out, lse or None), both
+    """Launch K1's ``variant`` ("dec", "tc", "wg" or "tf32x3"; "plain" runs
+    ``attention_plain``) on CUDA tensors: (out, lse or None), both
     row-major. A head dim between the instances is zero-padded to the next
     one."""
     if variant == "plain":
@@ -733,9 +783,6 @@ def _launch_fwd(variant: str, q, k, v, valid_mask, dropout_rate: float,
         _check_tc(q, k, v, dtype=torch.float32)
         _launch("flash_attn_fwd_f32tc", q.device, *ptrs, *shape, *drop)
         flash_attention.launches_tf32x3 += 1
-    elif variant == "simt":
-        _launch("flash_attn_fwd", q.device, *ptrs, *shape, _DTYPES[q.dtype],
-                _threads_per_row(sq), *drop)
     else:
         raise ValueError(f"unknown variant {variant!r}")
     flash_attention.launches += 1
@@ -766,13 +813,48 @@ def _bwd_inputs(q, k, v, valid_mask, o, lse, do):
     return q, k, v, o, do, d, (b, h, sq, k.shape[1], dp, 1.0 / math.sqrt(d))
 
 
+def _check_keep_bits(what: str, bits: Optional[torch.Tensor], q, k,
+                     dropout_rate: float) -> None:
+    """What K2-wg's ``bits_out`` and K3-wg's ``keep_bits`` must be: with
+    dropout only, uint32 [B, H, Sq, keep_words(Sk)] (q [B, Sq, H, D], k
+    [B, Sk, H, D]), contiguous, 16-byte aligned, on q's device."""
+    if bits is None:
+        return
+    b, sq, h, _ = q.shape
+    want = (b, h, sq, keep_words(k.shape[1]))
+    if dropout_rate == 0.0:
+        raise ValueError(f"{what} is the dropout mask: there is none at "
+                         f"rate 0")
+    if bits.dtype != torch.uint32:
+        raise TypeError(f"{what} must be uint32, not {bits.dtype}")
+    if (tuple(bits.shape) != want or not bits.is_contiguous()
+            or bits.device != q.device or bits.data_ptr() % 16):
+        raise ValueError(f"{what} must be uint32 {want}, contiguous and "
+                         f"16-byte aligned on {q.device}, got "
+                         f"{tuple(bits.shape)} on {bits.device}")
+
+
+def new_keep_bits(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Room for the keep bits of a call on q [B, Sq, H, D] and k
+    [B, Sk, H, D], for K2-wg's ``bits_out``."""
+    b, sq, h, _ = q.shape
+    return torch.empty((b, h, sq, keep_words(k.shape[1])),
+                       dtype=torch.uint32, device=q.device)
+
+
 def _launch_dq(variant: str, q, k, v, valid_mask, o, lse, do,
                dropout_rate: float, seed: Optional[int],
-               di_out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch K2's ``variant`` ("dec", "tc", "wg", "tf32x3" or "simt";
-    "plain" runs ``attention_bwd_plain``) on CUDA tensors: dq. With
-    ``di_out`` ([B, H, Sq] f32, "tc" and "wg" only) K2 also writes di =
-    rowsum(dO * O) there, for K3's "wg" kernel."""
+               di_out: Optional[torch.Tensor] = None,
+               bits_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch K2's ``variant`` ("dec", "tc", "wg" or "tf32x3"; "plain" runs
+    ``attention_bwd_plain``) on CUDA tensors: dq. "wg" alone takes
+    ``di_out`` ([B, H, Sq] f32), where it also writes di = rowsum(dO * O),
+    and, with dropout, ``bits_out`` (``new_keep_bits``), where it writes
+    the mask it drew: both for K3-wg."""
+    if (di_out is not None or bits_out is not None) and variant != "wg":
+        raise ValueError(f"di_out and bits_out are K2-wg's, not for "
+                         f"variant {variant}")
+    _check_keep_bits("bits_out", bits_out, q, k, dropout_rate)
     if variant in ("dec", "plain"):
         return _bwd_shared(variant, q, k, v, valid_mask, o, lse, do,
                            dropout_rate, seed)[0]
@@ -781,30 +863,25 @@ def _launch_dq(variant: str, q, k, v, valid_mask, o, lse, do,
     ptrs = (_ptr(q), _ptr(k), _ptr(v), _ptr(valid_mask), _ptr(o), _ptr(do),
             _ptr(lse), _ptr(dq))
     drop = _dropout_args(dropout_rate, seed)
-    if di_out is not None and (variant not in ("tc", "wg") or di_out.dtype
-                               != torch.float32 or di_out.shape
-                               != lse.shape or di_out.device != q.device
+    if di_out is not None and (di_out.dtype != torch.float32
+                               or di_out.shape != lse.shape
+                               or di_out.device != q.device
                                or not di_out.is_contiguous()):
-        raise ValueError(f"di_out is K2-TC's and K2-wg's: float32 "
-                         f"{tuple(lse.shape)}, contiguous, on {q.device}, "
-                         f"not for variant {variant}")
+        raise ValueError(f"di_out must be float32 {tuple(lse.shape)}, "
+                         f"contiguous, on {q.device}")
     if variant == "tc":
         _check_tc(q, k, v, o, do)
-        _launch("flash_attn_bwd_dq_tc", q.device, *ptrs, _ptr(di_out),
-                *shape, *drop)
+        _launch("flash_attn_bwd_dq_tc", q.device, *ptrs, *shape, *drop)
         flash_attn_bwd_dq.launches_tc += 1
     elif variant == "wg":
         _check_wg(q, k, v, o, do)
         _launch("flash_attn_bwd_dq_wg", q.device, *ptrs, _ptr(di_out),
-                *shape, *drop)
+                _ptr(bits_out), *shape, *drop)
         flash_attn_bwd_dq.launches_wg += 1
     elif variant == "tf32x3":
         _check_tc(q, k, v, o, do, dtype=torch.float32)
         _launch("flash_attn_bwd_dq_f32tc", q.device, *ptrs, *shape, *drop)
         flash_attn_bwd_dq.launches_tf32x3 += 1
-    elif variant == "simt":
-        _launch("flash_attn_bwd_dq", q.device, *ptrs, *shape,
-                _DTYPES[q.dtype], _threads_per_row(shape[2]), *drop)
     else:
         raise ValueError(f"unknown variant {variant!r}")
     flash_attn_bwd_dq.launches += 1
@@ -813,19 +890,23 @@ def _launch_dq(variant: str, q, k, v, valid_mask, o, lse, do,
 
 def flash_attn_bwd_dkv(q, k, v, valid_mask, o, lse, do,
                        dropout_rate: float = 0.0, seed: Optional[int] = None,
-                       di: Optional[torch.Tensor] = None
+                       di: Optional[torch.Tensor] = None,
+                       keep_bits: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3: (dk, dv) [B, Sk, H, D] in the input dtype. The plain version on
     a CPU tensor. The "wg" kernel reads di = rowsum(dO * O) [B, H, Sq]
-    float32: ``di`` where given (K2's ``di_out``), else ``di_plain``;
-    the other variants ignore it."""
+    float32, ``di`` where given (K2-wg's ``di_out``), else ``di_plain``;
+    and with dropout the keep bits, ``keep_bits`` where given (K2-wg's
+    ``bits_out``), else ``keep_bits_plain`` (counted in
+    ``flash_attn_bwd_dkv.bits_plain``). The other variants draw the mask
+    themselves and ignore both."""
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, valid_mask, o, lse, do,
                                    dropout_rate, seed)[1:]
     return _launch_dkv(dkv_variant(q.shape[1], k.shape[1], q.dtype,
                                    q.shape[-1]),
                        q, k, v, valid_mask, o, lse, do, dropout_rate, seed,
-                       di)
+                       di, keep_bits)
 
 
 def di_plain(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -836,17 +917,18 @@ def di_plain(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 def _launch_dkv(variant: str, q, k, v, valid_mask, o, lse, do,
                 dropout_rate: float, seed: Optional[int],
-                di: Optional[torch.Tensor] = None
+                di: Optional[torch.Tensor] = None,
+                keep_bits: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K3's ``variant`` ("dec", "tc", "wg", "tf32x3" or "simt";
     "plain" runs ``attention_bwd_plain``) on CUDA tensors: (dk, dv). "wg"
-    reads ``di`` (``_launch_dkv_wg``)."""
+    reads ``di`` and ``keep_bits`` (``_launch_dkv_wg``)."""
     if variant in ("dec", "plain"):
         return _bwd_shared(variant, q, k, v, valid_mask, o, lse, do,
                            dropout_rate, seed)[1:]
     if variant == "wg":
         return _launch_dkv_wg(q, k, v, valid_mask, o, lse, do, dropout_rate,
-                              seed, di)
+                              seed, di, keep_bits)
     q, k, v, o, do, d, shape = _bwd_inputs(q, k, v, valid_mask, o, lse, do)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -871,11 +953,17 @@ def _launch_dkv(variant: str, q, k, v, valid_mask, o, lse, do,
 
 
 def _launch_dkv_wg(q, k, v, valid_mask, o, lse, do, dropout_rate: float,
-                   seed: Optional[int], di: Optional[torch.Tensor]
+                   seed: Optional[int], di: Optional[torch.Tensor],
+                   keep_bits: Optional[torch.Tensor]
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K3-wg (flash_attn_bwd_dkv_wg.cu) on CUDA tensors: (dk, dv).
     The kernel reads di = rowsum(dO * O) and never O: ``di`` where the
-    caller has it (K2's ``di_out``), else ``di_plain(o, do)``."""
+    caller has it (K2-wg's ``di_out``), else ``di_plain(o, do)``. It draws
+    no random number: with dropout it reads ``keep_bits`` where the caller
+    has them (K2-wg's ``bits_out``), else ``keep_bits_plain``'s, counted in
+    ``flash_attn_bwd_dkv.bits_plain``."""
+    _check_keep_bits("keep_bits", keep_bits, q, k, dropout_rate)
+    _check_dropout(dropout_rate, seed)
     q, k, v, o, do, d, shape = _bwd_inputs(q, k, v, valid_mask, o, lse, do)
     if di is None:
         di = di_plain(o, do)
@@ -884,11 +972,16 @@ def _launch_dkv_wg(q, k, v, valid_mask, o, lse, do, dropout_rate: float,
         raise ValueError(f"di must be float32 {tuple(lse.shape)}, contiguous, "
                          f"on {q.device}, got {di.dtype} {tuple(di.shape)}")
     _check_wg(q, k, v, do)
+    if dropout_rate > 0.0 and keep_bits is None:
+        b, sq, h, _ = q.shape
+        keep_bits = keep_bits_plain(seed, b, h, sq, k.shape[1], dropout_rate,
+                                    q.device)
+        flash_attn_bwd_dkv.bits_plain += 1
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _launch("flash_attn_bwd_dkv_wg", q.device, _ptr(q), _ptr(k), _ptr(v),
-            _ptr(valid_mask), _ptr(do), _ptr(lse), _ptr(di), _ptr(dk),
-            _ptr(dv), *shape, *_dropout_args(dropout_rate, seed))
+            _ptr(valid_mask), _ptr(do), _ptr(lse), _ptr(di), _ptr(keep_bits),
+            _ptr(dk), _ptr(dv), *shape, _dropout_args(dropout_rate, seed)[2])
     flash_attn_bwd_dkv.launches_wg += 1
     flash_attn_bwd_dkv.launches += 1
     return _unpad(dk, d), _unpad(dv, d)
@@ -947,6 +1040,9 @@ for _wrapper in (flash_attn_bwd_dq, flash_attn_bwd_dkv):
     _wrapper.launches_tf32x3 = 0
     _wrapper.launches_dec = 0
     _wrapper.launches_plain = 0
+# K3-wg calls that took their keep bits from keep_bits_plain (no K2-wg
+# before them): 0 over a training step
+flash_attn_bwd_dkv.bits_plain = 0
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -955,8 +1051,9 @@ class FlashAttentionFn(torch.autograd.Function):
     lse and the dropout seed; the backward runs K2 and K3 (one launch of the
     decode backward for fewer than TC_MIN_ROWS queries, one call of
     ``attention_bwd_plain`` for a head dim above MAX_HEAD_DIM; their plain
-    versions on the CPU; where K3 takes "wg", K2 ("tc" or "wg") writes di
-    for it) and gives no gradient for the mask, the rate or the seed."""
+    versions on the CPU; where K3 takes "wg", so does K2, which writes di
+    and, with dropout, the keep bits for it) and gives no gradient for the
+    mask, the rate or the seed."""
 
     @staticmethod
     def forward(ctx, q, k, v, valid_mask, dropout_rate, seed):
@@ -978,12 +1075,14 @@ class FlashAttentionFn(torch.autograd.Function):
                                      do, *ctx.dropout)
         elif dkv_variant(q.shape[1], k.shape[1], q.dtype,
                          q.shape[-1]) == "wg":
-            # K2 hands K3-wg each query's di = rowsum(dO * O)
+            # K2-wg hands K3-wg each query's di = rowsum(dO * O) and, with
+            # dropout, the mask it drew; the bits are freed as K3 returns
             di = torch.empty_like(lse)
+            bits = new_keep_bits(q, k) if ctx.dropout[0] > 0.0 else None
             dq = _launch_dq(variant, q, k, v, valid_mask, out, lse, do,
-                            *ctx.dropout, di_out=di)
+                            *ctx.dropout, di_out=di, bits_out=bits)
             dk, dv = _launch_dkv("wg", q, k, v, valid_mask, out, lse, do,
-                                 *ctx.dropout, di)
+                                 *ctx.dropout, di, bits)
         else:
             dq = flash_attn_bwd_dq(q, k, v, valid_mask, out, lse, do,
                                    *ctx.dropout)

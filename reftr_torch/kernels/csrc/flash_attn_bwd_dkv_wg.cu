@@ -9,39 +9,56 @@
 //   S^T = K Q^T, P^T = exp(S^T * scale + bias + shift - lse),
 //   dP^T = V dO^T, dS^T = P^T o (dP^T o keep - di),
 //   dV = sum over queries of (P^T o keep) dO, dK = scale * dS^T Q,
-// with keep the forward's Philox dropout multiplier (flash_common.cuh) and
-// di = rowsum(dO o O) given by the caller ([B, H, Sq] f32: K2-TC writes
-// it where it computes it, so this kernel never reads O). Layout q, dO
-// [B, Sq, H, D]; k, v, dk, dv [B, Sk, H, D], bf16, contiguous and 16-byte
-// aligned; valid [B, Sk] bool (nullable); lse, di [B, H, Sq] f32; D =
-// 32. A key of a batch row whose keys are all masked has the
-// logit 0 (the plain version's -1e9 + 1e9), so p = exp(-lse) there.
+// with keep the forward's dropout multiplier and di = rowsum(dO o O)
+// given by the caller ([B, H, Sq] f32: K2-wg writes it where it computes
+// it, so this kernel never reads O). Layout q, dO [B, Sq, H, D]; k, v, dk,
+// dv [B, Sk, H, D], bf16, contiguous and 16-byte aligned; valid [B, Sk]
+// bool (nullable); lse, di [B, H, Sq] f32; D = 32. A key of a batch row
+// whose keys are all masked has the logit 0 (the plain version's -1e9 +
+// 1e9), so p = exp(-lse) there.
+//
+// The keep bits. This kernel draws no random number: with dropout it
+// reads the forward's mask as K2-wg (flash_attn_bwd_dq_wg.cu) wrote it,
+// keep_bits uint32 [B, H, Sq, W], W = 4 * ceil(Sk / 128): bit j % 32 of
+// word j / 32 of row (b, h, i) is the keep decision of element
+// ((b * H + h) * Sq + i) * Sk + j (kernels/attention.py::keep_bits_plain),
+// masked keys and fully masked rows included, bits past Sk 0; keep is
+// then inv_keep = 1 / (1 - rate) where the bit is set and 0 where not.
+// keep_bits null: no dropout. A block's 128 keys are 4 words of each
+// row, one 16-byte piece: a query tile's 64 rows of it are one TMA box.
 //
 // What bounds it. At the four-level encoder (B=8, H=8, 8540^2, D=32) the
-// four products are 1.2 ms at 989 TFLOP/s, the bytes 0.05 ms; per score
-// it takes one exponential on the special-function unit, the dP and dS
-// arithmetic and, with dropout, a quarter of a Philox call. K3-TC stages
-// Q, dO and O per query tile and recomputes di = rowsum(dO o O) for every
-// query in every one of its key blocks (134 at 8540 keys), and runs its
-// four products and its arithmetic in turn in one warpgroup.
+// four products are 1.2 ms at 989 TFLOP/s, the bytes 0.05 ms and, with
+// dropout, the keep bits 586 MB more, 0.17 ms at 3.35 TB/s; per score it
+// takes one exponential on the special-function unit (1.11 ms) and the
+// dP and dS arithmetic. When this kernel drew the mask again from the
+// seed (flash_tc::chunk_keep, a quarter of a Philox call a score, 1.32 ms
+// of integer multiplies at best) it ran 11.00 ms a call with dropout 0.1
+// against 3.51 without (PERF.md §6). K3-TC stages Q, dO and O per query
+// tile and recomputes di = rowsum(dO o O) for every query in every one of
+// its key blocks (134 at 8540 keys), and runs its four products and its
+// arithmetic in turn in one warpgroup.
 //
 // Design.
 // - One block per (batch * head, 128 keys): a producer warpgroup (one
 //   warp works; the warpgroup gives its registers to the consumers,
-//   setmaxnreg 40 and 232) and two consumer warpgroups of 64 keys (384
-//   threads, one block an SM). Each warpgroup holds dK and dV of its keys
-//   in f32 registers over the whole query sweep: no atomics, and dq stays
-//   in K2.
+//   setmaxnreg 40 and 232: with no draw the producer needs no more) and
+//   two consumer warpgroups of 64 keys (384 threads, one block an SM).
+//   Each warpgroup holds dK and dV of its keys in f32 registers over the
+//   whole query sweep: no atomics, and dq stays in K2.
 // - The producer warp loads K and V once by TMA and keeps a ring of
 //   kStages query tiles (64 queries of Q and dO by TMA through rank-4
-//   tensor maps, zero past Sq) in flight, with the tile's lse * log2 e and
-//   di, which its 32 lanes copy (lse = +inf and di = 0 past Sq, so p = 0
-//   there); the stage's mbarrier completes on the 32 lanes' arrivals and
-//   the TMA bytes.
+//   tensor maps, zero past Sq; with dropout the tile's 64 x 16 bytes of
+//   keep bits through a rank-3 map over [B * H, Sq, W]) in flight, with
+//   the tile's lse * log2 e and di, which its 32 lanes copy (lse = +inf and
+//   di = 0 past Sq, so p = 0 there); the stage's mbarrier completes on the
+//   32 lanes' arrivals and the TMA bytes.
 // - S^T = K Q^T and dP^T = V dO^T: wgmma m64n64k16 with A (K, V) and B
 //   (Q, dO) K-major in shared memory, issued together; while they run the
-//   warpgroup draws the tile's dropout decisions (flash_tc::chunk_keep, in
-//   this layout).
+//   warpgroup reads its keep bits from the stage: a lane's two keys lie in
+//   one word of a query's row (keys kl and kl + 8, kl % 16 < 8), so one
+//   load and one shift a query give both, and each accumulator element
+//   picks its bit with a shift.
 // - P^T = 2^(s * scale * log2 e - lse * log2 e): one FFMA and one MUFU.EX2
 //   (ex2.approx); the key bias is per accumulator row (the key), so a
 //   masked or out-of-range key is p = 0 and a fully masked row's key takes
@@ -61,13 +78,11 @@
 #include <stdint.h>
 
 #include "flash_common.cuh"
-#include "flash_tc.cuh"
 #include "flash_wg.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using flash::Dropout;
 
 constexpr int kConsumers = 2;                    // warpgroups of 64 keys
 constexpr int kKeys = 64 * kConsumers;           // keys per block
@@ -87,7 +102,10 @@ struct Layout {
   static constexpr int kV = kKeys * D * 2;
   static constexpr int kQ = 2 * kKeys * D * 2;
   static constexpr int kDo = kQ + kStages * kTile;
-  static constexpr int kLse = kDo + kStages * kTile;  // [kStages][kTileQ]
+  // per stage, the tile's keep bits: kTileQ rows of the block's 4 words
+  static constexpr int kKeep = kDo + kStages * kTile;
+  // [kStages][kTileQ] each
+  static constexpr int kLse = kKeep + kStages * kTileQ * 16;
   static constexpr int kDi = kLse + kStages * kTileQ * 4;
   static constexpr int kBars = kDi + kStages * kTileQ * 4;
   // full_kv, then full and empty per stage
@@ -100,17 +118,19 @@ flash_bwd_dkv_wg_kernel(const __grid_constant__ CUtensorMap map_q,
                         const __grid_constant__ CUtensorMap map_k,
                         const __grid_constant__ CUtensorMap map_v,
                         const __grid_constant__ CUtensorMap map_do,
+                        const __grid_constant__ CUtensorMap map_keep,
                         const uint8_t* __restrict__ valid,
                         const float* __restrict__ lse,
                         const float* __restrict__ di, bf16* __restrict__ dk,
                         bf16* __restrict__ dv, int H, int Sq, int Sk,
-                        float scale, Dropout dr) {
+                        float scale, bool drop, float inv_keep) {
   using L = Layout;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
   float* lse_s = reinterpret_cast<float*>(smem + L::kLse);
   float* di_s = reinterpret_cast<float*>(smem + L::kDi);
+  const uint32_t* keep_s = reinterpret_cast<const uint32_t*>(smem + L::kKeep);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);
   uint64_t* full_kv = bars;
   uint64_t* full = bars + 1;
@@ -141,6 +161,7 @@ flash_bwd_dkv_wg_kernel(const __grid_constant__ CUtensorMap map_q,
     if (lane == 0) {
       flash_wg::prefetch_map(&map_q);
       flash_wg::prefetch_map(&map_do);
+      if (drop) flash_wg::prefetch_map(&map_keep);
       flash_wg::bar_arrive_tx(full_kv, 2 * kKeys * D * 2);
       flash_wg::tma_load_4d(smem + L::kK, &map_k, full_kv, 0, h, k0, b);
       flash_wg::tma_load_4d(smem + L::kV, &map_v, full_kv, 0, h, k0, b);
@@ -157,11 +178,16 @@ flash_bwd_dkv_wg_kernel(const __grid_constant__ CUtensorMap map_q,
         di_s[s * kTileQ + i] = qi < Sq ? di[at] : 0.f;
       }
       if (lane == 0) {
-        flash_wg::bar_arrive_tx(full + s, 2 * L::kTile);
+        flash_wg::bar_arrive_tx(full + s,
+                                2 * L::kTile + (drop ? kTileQ * 16 : 0));
         flash_wg::tma_load_4d(smem + L::kQ + s * L::kTile, &map_q, full + s,
                               0, h, t * kTileQ, b);
         flash_wg::tma_load_4d(smem + L::kDo + s * L::kTile, &map_do,
                               full + s, 0, h, t * kTileQ, b);
+        if (drop)  // words 4 * blockIdx.x .. + 3 of the tile's query rows
+          flash_wg::tma_load_3d(smem + L::kKeep + s * kTileQ * 16,
+                                &map_keep, full + s, 4 * blockIdx.x,
+                                t * kTileQ, bh);
       } else {
         flash_wg::bar_arrive(full + s);
       }
@@ -174,6 +200,10 @@ flash_bwd_dkv_wg_kernel(const __grid_constant__ CUtensorMap map_q,
   // keys[0] = .. + (warp % 4) * 16 + lane / 4 and keys[1] 8 below it
   const int wg = warp / 4;
   const int c = (lane % 4) * 2;  // this lane's first query in a chunk
+  // keys[0]'s place in the block's keep words: word kw, bit kb (keys[1]
+  // at kb + 8 in the same word)
+  const int kl = wg * 64 + (warp % 4) * 16 + lane / 4;
+  const int kw = kl / 32, kb = kl % 32;
   int keys[2];
   bool live[2];  // in range, and valid or in a fully masked row
 #pragma unroll
@@ -214,17 +244,15 @@ flash_bwd_dkv_wg_kernel(const __grid_constant__ CUtensorMap map_q,
                            flash_wg::desc_add(desc_do, kk * 32), kk > 0);
     }
     flash_wg::wg_commit();
-    // with the products in flight: the dropout decisions of the tile, bit
-    // cq * 8 + n * 4 + e for chunk 2 cq + n (they need no data)
-    uint32_t keep = 0u;
-    if (dr.threshold != 0u) {
+    // with the products in flight: the keep bits of this lane's keys at
+    // query n * 8 + c + s of the tile, keys[r]'s at bit 8 r of keep[n][s]
+    uint32_t keep[kTileQ / 8][2];
 #pragma unroll
-      for (int cq = 0; cq < kTileQ / 16; ++cq)
-        keep |= flash_tc::chunk_keep(
-                    dr, (uint64_t)bh * Sq + t * kTileQ + cq * 16 + c, Sk,
-                    keys)
-                << (cq * 8);
-    }
+    for (int n = 0; n < kTileQ / 8; ++n)
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+        keep[n][q] =
+            drop ? keep_s[(s * kTileQ + n * 8 + c + q) * 4 + kw] >> kb : 0u;
     float lse2[kTileQ / 4], dit[kTileQ / 4];  // query n * 8 + c + (i % 2)
 #pragma unroll
     for (int n = 0; n < kTileQ / 8; ++n) {
@@ -253,10 +281,9 @@ flash_bwd_dkv_wg_kernel(const __grid_constant__ CUtensorMap map_q,
                 ? flash_wg::exp2_approx(fmaf(st[i], scale_log2, -lse2[qi]))
                 : 0.f;
         float dp = dpt[i], pk = p;
-        if (dr.threshold != 0u) {
-          const float kp = (keep >> (((n / 2) * 8) + (n % 2) * 4 + e)) & 1u
-                               ? dr.inv_keep
-                               : 0.f;
+        if (drop) {
+          const float kp =
+              (keep[n][e & 1] >> (8 * (e >> 1))) & 1u ? inv_keep : 0.f;
           pk = p * kp;
           dp *= kp;
         }
@@ -310,8 +337,9 @@ flash_bwd_dkv_wg_kernel(const __grid_constant__ CUtensorMap map_q,
 
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const uint8_t* valid, const void* dout, const float* lse,
-                   const float* di, void* dk, void* dv, int B, int H, int Sq,
-                   int Sk, float scale, Dropout dr, cudaStream_t stream) {
+                   const float* di, const uint32_t* keep_bits, void* dk,
+                   void* dv, int B, int H, int Sq, int Sk, float scale,
+                   float inv_keep, cudaStream_t stream) {
   const int n_kt = (Sk + kKeys - 1) / kKeys;
   if ((long)B * H > 65535) return cudaErrorInvalidConfiguration;
   const cudaError_t bound = flash_wg::bind_device(q);
@@ -322,37 +350,44 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       !flash_wg::make_map(&map_v, v, B, Sk, H, kKeys) ||
       !flash_wg::make_map(&map_do, dout, B, Sq, H, kTileQ))
     return cudaErrorInvalidValue;
+  // with no keep bits the map is not read: it stays zeroed
+  CUtensorMap map_keep = {};
+  if (keep_bits != nullptr &&
+      !flash_wg::make_keep_map(&map_keep, keep_bits, B * H, Sq,
+                               4 * ((Sk + 127) / 128), kTileQ))
+    return cudaErrorInvalidValue;
   constexpr int bytes = Layout::kAlloc;
   const cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkv_wg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return err;
   flash_bwd_dkv_wg_kernel<<<dim3(n_kt, B * H), kThreads, bytes, stream>>>(
-      map_q, map_k, map_v, map_do, valid, lse, di, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), H, Sq, Sk, scale, dr);
+      map_q, map_k, map_v, map_do, map_keep, valid, lse, di,
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Sq, Sk, scale,
+      keep_bits != nullptr, inv_keep);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // bf16 only; q, k, v, dO, dk, dv 16-byte aligned; head_dim = 32; scale =
-// 1 / sqrt(the caller's head dim); di = rowsum(dO o O) [B, H, Sq] f32.
-// Dropout as in flash_attn_fwd, with the forward's seed. Returns a
-// cudaError_t (0 = launched).
+// 1 / sqrt(the caller's head dim); di = rowsum(dO o O) [B, H, Sq] f32;
+// keep_bits [B, H, Sq, 4 * ceil(Sk / 128)] uint32, 16-byte aligned, or
+// null for no dropout; inv_keep = 1 / (1 - rate). Returns a cudaError_t
+// (0 = launched).
 extern "C" int flash_attn_bwd_dkv_wg(const void* q, const void* k,
                                      const void* v, const uint8_t* valid,
                                      const void* dout, const float* lse,
-                                     const float* di, void* dk, void* dv,
-                                     int B, int H, int Sq, int Sk,
-                                     int head_dim, float scale, uint64_t seed,
-                                     uint32_t threshold, float inv_keep,
-                                     void* stream) {
-  if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || threshold > (1u << 24) ||
-      di == nullptr || lse == nullptr)
+                                     const float* di,
+                                     const uint32_t* keep_bits, void* dk,
+                                     void* dv, int B, int H, int Sq, int Sk,
+                                     int head_dim, float scale,
+                                     float inv_keep, void* stream) {
+  if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || di == nullptr ||
+      lse == nullptr || reinterpret_cast<uintptr_t>(keep_bits) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Dropout dr{seed, threshold, inv_keep};
   if (head_dim != D) return (int)cudaErrorInvalidValue;
-  return (int)launch(q, k, v, valid, dout, lse, di, dk, dv, B, H, Sq, Sk,
-                     scale, dr, s);
+  return (int)launch(q, k, v, valid, dout, lse, di, keep_bits, dk, dv, B, H,
+                     Sq, Sk, scale, inv_keep, s);
 }

@@ -14,9 +14,7 @@
 // valid [B, Sk] bool (nullable); lse [B, H, Sq] f32; D in {16, 32, 64,
 // 128}.
 // Keys past Sk get p = 0; query rows past Sq are computed (on zeros) and
-// not written. With di_out (nullable, [B, H, Sq] f32) each query's di is
-// also stored there, for K3-wg (flash_attn_bwd_dkv_wg.cu), which reads it
-// instead of O.
+// not written.
 //
 // Design. K1-TC's structure (flash_attn_fwd_tc.cu) with its S product done
 // twice and its P V product applied to K. One block of one warpgroup (4
@@ -87,7 +85,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ o,
                        const bf16* __restrict__ dout,
                        const float* __restrict__ lse, bf16* __restrict__ dq,
-                       float* __restrict__ di_out, int H, int Sq, int Sk,
+                       int H, int Sq, int Sk,
                        int n_qt, float scale, Dropout dr) {
   constexpr int kS = Tile<D>::kStride;
   constexpr int kTile = kTileK * kS;  // elements of one staged key tile
@@ -189,8 +187,6 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         sum += __shfl_xor_sync(0xffffffffu, sum, 1);
         sum += __shfl_xor_sync(0xffffffffu, sum, 2);
         di[r] = sum;
-        if (di_out != nullptr && lane % 4 == 0 && rows[r] < Sq)
-          di_out[(long)bh * Sq + rows[r]] = sum;
       }
     }
     const int buf = t & 1;
@@ -271,7 +267,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int D, bool kAligned>
 cudaError_t launch_as(const void* q, const void* k, const void* v,
                       const uint8_t* valid, const void* o, const void* dout,
-                      const float* lse, void* dq, float* di_out, int B, int H,
+                      const float* lse, void* dq, int B, int H,
                       int Sq, int Sk, float scale, Dropout dr,
                       cudaStream_t stream) {
   const int n_qt = (Sq + kRows - 1) / kRows;
@@ -288,7 +284,7 @@ cudaError_t launch_as(const void* q, const void* k, const void* v,
       <<<(unsigned)blocks, kThreads, bytes, stream>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
           static_cast<const bf16*>(v), valid, static_cast<const bf16*>(o),
-          static_cast<const bf16*>(dout), lse, static_cast<bf16*>(dq), di_out,
+          static_cast<const bf16*>(dout), lse, static_cast<bf16*>(dq),
           H, Sq, Sk, n_qt, scale, dr);
   return cudaGetLastError();
 }
@@ -298,20 +294,20 @@ cudaError_t launch_as(const void* q, const void* k, const void* v,
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const uint8_t* valid, const void* o, const void* dout,
-                   const float* lse, void* dq, float* di_out, int B, int H,
+                   const float* lse, void* dq, int B, int H,
                    int Sq, int Sk, float scale, Dropout dr,
                    cudaStream_t stream) {
   if ((Sk & 3) == 0)
-    return launch_as<D, true>(q, k, v, valid, o, dout, lse, dq, di_out, B, H,
+    return launch_as<D, true>(q, k, v, valid, o, dout, lse, dq, B, H,
                               Sq, Sk, scale, dr, stream);
-  return launch_as<D, false>(q, k, v, valid, o, dout, lse, dq, di_out, B, H,
+  return launch_as<D, false>(q, k, v, valid, o, dout, lse, dq, B, H,
                              Sq, Sk, scale, dr, stream);
 }
 
 }  // namespace
 
 // bf16 only; q, k, v, O, dO, dq 16-byte aligned; D in {16, 32, 64, 128};
-// di_out nullable; scale = 1 / sqrt(the caller's head dim), which is below
+// scale = 1 / sqrt(the caller's head dim), which is below
 // D where the caller zero-pads the head dim up to D. Dropout as in
 // flash_attn_fwd, with the forward's seed. Returns a cudaError_t (0 =
 // launched).
@@ -319,7 +315,7 @@ extern "C" int flash_attn_bwd_dq_tc(const void* q, const void* k,
                                     const void* v, const uint8_t* valid,
                                     const void* o, const void* dout,
                                     const float* lse, void* dq,
-                                    float* di_out, int B, int H,
+                                    int B, int H,
                                     int Sq, int Sk, int D, float scale,
                                     uint64_t seed, uint32_t threshold,
                                     float inv_keep, void* stream) {
@@ -329,16 +325,16 @@ extern "C" int flash_attn_bwd_dq_tc(const void* q, const void* k,
   const Dropout dr{seed, threshold, inv_keep};
   switch (D) {
     case 16:
-      return (int)launch<16>(q, k, v, valid, o, dout, lse, dq, di_out, B, H,
+      return (int)launch<16>(q, k, v, valid, o, dout, lse, dq, B, H,
                              Sq, Sk, scale, dr, s);
     case 32:
-      return (int)launch<32>(q, k, v, valid, o, dout, lse, dq, di_out, B, H,
+      return (int)launch<32>(q, k, v, valid, o, dout, lse, dq, B, H,
                              Sq, Sk, scale, dr, s);
     case 64:
-      return (int)launch<64>(q, k, v, valid, o, dout, lse, dq, di_out, B, H,
+      return (int)launch<64>(q, k, v, valid, o, dout, lse, dq, B, H,
                              Sq, Sk, scale, dr, s);
     case 128:
-      return (int)launch<128>(q, k, v, valid, o, dout, lse, dq, di_out, B, H,
+      return (int)launch<128>(q, k, v, valid, o, dout, lse, dq, B, H,
                               Sq, Sk, scale, dr, s);
     default:
       return (int)cudaErrorInvalidValue;

@@ -16,46 +16,83 @@
 // stored there, for K3-wg (flash_attn_bwd_dkv_wg.cu), which reads it
 // instead of O.
 //
+// The keep bits. With dropout and bits_out (nullable) the kernel also
+// writes the mask it drew, for K3-wg, which then draws nothing:
+// keep_bits uint32 [B, H, Sq, W], W = 4 * ceil(Sk / 128), so a row is a
+// whole number of 16-byte pieces; bit j % 32 of word j / 32 of row
+// (b, h, i) is the keep decision of element ((b * H + h) * Sq + i) * Sk +
+// j (kernels/attention.py::keep_bits_plain), masked keys and fully masked
+// rows included; bits past Sk are 0. Each 128-key piece of a row (two key
+// tiles) is one 16-byte store.
+//
 // What bounds it. At the four-level encoder (B=8, H=8, 8540^2, D=32) the
-// three products are 0.91 ms at 989 TFLOP/s and the bytes 0.04 ms; per
-// score it takes one exponential on the special-function unit (1.1 ms at
-// 16 a clock per SM and 1.98 GHz), a few FP32 instructions for ds and,
-// with dropout, a quarter of a Philox call. K2-TC runs its three products
-// by mma.sync and its arithmetic in turn in one warpgroup per 64 queries,
-// and keeps dq in one f32 accumulator over the whole key sweep.
+// three products are 0.91 ms at 989 TFLOP/s and the bytes 0.04 ms, with
+// dropout 0.22 ms with the keep bits (586 MB); per score it takes one
+// exponential on the special-function unit (1.11 ms at 16 a clock per SM
+// and 1.98 GHz), a few FP32 instructions for ds and, with dropout, a
+// quarter of a Philox call (1.17e9 calls: 1.32 ms of multiplies at 64 a
+// clock per SM, chip_smoke.py's bound). Measured on an H100 (PERF.md §6),
+// the draw is what bounds it with dropout: 1.17e9 Philox calls take about
+// 9.2 ms here on 8 warps an SM, against 3.1 ms for the rest of the
+// kernel; more warps drawing or more counters in flight a thread moved it
+// little, so the multiplies' issue rate (IMAD.WIDE, 19 a call) is the
+// likely limit, well below the 64 a clock the bound assumes.
 //
 // Design (K1-wg's, flash_attn_fwd_wg.cu, with flash_wg.cuh's pieces).
-// - One block per (batch * head, 128 queries): a producer warpgroup
-//   (setmaxnreg 40) and two consumer warpgroups of 64 query rows
-//   (setmaxnreg 232), 384 threads, one block an SM.
-// - The producer warp loads Q and dO once by TMA (they stay resident) and
-//   keeps a ring of kStages K and V tiles of 64 keys in flight through the
-//   rank-4 tensor maps over [B, S, H, D] (zeros past Sk), one mbarrier a
-//   stage; the consumers give a stage back on an "empty" mbarrier. Its 32
-//   lanes ballot the tile's live keys (valid and in range; in a fully
-//   masked row every key in range) into 64 bits beside the stage.
+// - One block per (batch * head, 128 queries): two producer warpgroups
+//   and two consumer warpgroups of 64 query rows, 512 threads, one block
+//   an SM.
+// - The first producer warp loads Q and dO once by TMA (they stay
+//   resident) and keeps a ring of kStages K and V tiles of 64 keys in
+//   flight through the rank-4 tensor maps over [B, S, H, D] (zeros past
+//   Sk), one mbarrier a stage; the consumers give a stage back on an
+//   "empty" mbarrier. Its 32 lanes ballot the tile's live keys (valid and
+//   in range; in a fully masked row every key in range), read a tile
+//   ahead, into 64 bits beside the stage.
+// - The draw. With dropout all 256 producer threads draw the mask, lanes
+//   2r and 2r + 1 of a warp the two halves of query row r's 64 decisions
+//   a key tile (8 Philox counters each, 9 where the row's element offset
+//   is not a multiple of 4: a funnel shift by that phase aligns the
+//   counters' words to the keys), into a ring of bit tiles beside the K/V
+//   stages, and each warp arrives once on the stage's "full" mbarrier,
+//   which so completes on the TMA bytes and the 8 warps' draws. Each
+//   thread keeps 4 Philox chains in flight, written round by round (left
+//   to the compiler, one unrolled call after another issued as one chain),
+//   with the round keys as adds to the seed and the decisions as the carry
+//   of word + 2^32 - threshold * 256 (no predicates). The draw runs up to
+//   kStages tiles ahead of the consumers, off their path; they read their
+//   fragment's bits from shared memory (one 8-byte load a row a tile).
+// - Register split, by measurement at 8540^2, B=8 (PERF.md §6): 512
+//   threads leave 128 registers a thread at launch; the producers keep 64
+//   (at 40, and at 56 with one drawing warpgroup, the draw spilled and ran
+//   far slower) and the consumers take 192 (the consumer's state is 112
+//   registers of accumulators and fragments; 232 to 192 measured alike).
+//   One drawing warpgroup instead of two (384 threads, producers at 104,
+//   consumers at 200) ran about an eighth slower with dropout. The
+//   consumers drew the mask themselves before this design
+//   (flash_tc::keep_bits while S and dP ran): faster alone with dropout,
+//   slower without, and K3-wg then drew it again (PERF.md §6).
+// - The kernel has an instance with dropout and one without: a branch on
+//   the rate inside the element loop cost about a tenth without dropout.
 // - di = rowsum(dO o O) once per row: dO from the resident tile, O read
 //   once from device memory, the row's quad of lanes summing 8 columns
 //   each.
 // - Per tile: S = Q K^T and dP = dO V^T by wgmma m64n64k16 from shared
-//   memory, issued together; while they run the warpgroup draws the
-//   tile's dropout decisions (flash_tc::keep_bits: the accumulator's
-//   per-warp layout is mma.sync's). p = 2^(s * scale * log2 e - lse *
-//   log2 e) is one FFMA and one MUFU.EX2 (ex2.approx); a dead key's p is
-//   0, selected only in a tile whose bits show one. dS = p o (dP o keep -
-//   di) is rounded to bf16 in registers as the A fragments of dq_part =
-//   dS K, wgmma m64n32k16 in the RS form with K as the MN-major B operand
-//   (as K1-wg takes V for P V).
+//   memory, issued together. p = 2^(s * scale * log2 e - lse * log2 e) is
+//   one FFMA and one MUFU.EX2 (ex2.approx); a dead key's p is 0, selected
+//   only in a tile whose bits show one. dS = p o (dP o keep - di) is
+//   rounded to bf16 in registers as the A fragments of dq_part = dS K,
+//   wgmma m64n32k16 in the RS form with K as the MN-major B operand (as
+//   K1-wg takes V for P V).
 // - dq_part goes into a fresh accumulator and is folded into dq with a
 //   rounded add once its product is done (mma.sync's truncating
 //   accumulation leaned the 3xTF32 kernels' long sums one way; PERF.md),
 //   so no accumulator runs through the tensor cores over the sweep. The
 //   fold of tile t waits at the top of tile t + 1, after S and dP of t + 1
-//   are issued: dq_part_t, S_{t+1} and dP_{t+1} run while the decisions of
-//   t + 1 are drawn, and the two consumer warpgroups' arithmetic
-//   interleaves with each other's products.
-// - No atomics and no fusion into K3: dq is deterministic, as the TPU
-//   kernel's is.
+//   are issued, so the two consumer warpgroups' arithmetic interleaves
+//   with each other's products.
+// - No atomics and no fusion into K3: dq and the keep bits are
+//   deterministic, as the TPU kernel's dq is.
 //
 // Bound: PERF.md §6 holds the measured times beside chip_smoke.py's bound.
 
@@ -66,7 +103,6 @@
 #include <stdint.h>
 
 #include "flash_common.cuh"
-#include "flash_tc.cuh"
 #include "flash_wg.cuh"
 
 namespace {
@@ -78,11 +114,25 @@ constexpr int kConsumers = 2;           // warpgroups of 64 query rows
 constexpr int kRows = 64 * kConsumers;  // query rows per block
 constexpr int kTileK = 64;              // keys per tile
 constexpr int kStages = 6;              // K/V tiles in flight
-// + the producer warpgroup, which hands its registers to the consumers
-// (register allocation is per warpgroup; flash_attn_fwd_wg.cu)
-constexpr int kThreads = 128 * (kConsumers + 1);
-constexpr int kProducerRegs = 40;
-constexpr int kConsumerRegs = 232;
+// + the producer warpgroups, which draw the dropout mask (the first also
+// loads by TMA) and hand registers to the consumers (register allocation
+// is per warpgroup; flash_attn_fwd_wg.cu)
+constexpr int kDrawGroups = 2;
+constexpr int kThreads = 128 * (kConsumers + kDrawGroups);
+// registers a thread at launch: the most 65536 leaves kThreads
+constexpr int kLaunchRegs = 65536 / kThreads / 8 * 8;
+// registers a producer thread, and what the block's allocation at launch
+// leaves a consumer thread beside them (64 and 192)
+constexpr int kProducerRegs = 64;
+constexpr int kConsumerRegs =
+    (kLaunchRegs * kThreads - 128 * kDrawGroups * kProducerRegs) / 256 / 8 *
+    8;
+// keys of a tile row one drawing thread draws: a row's keys split over
+// kDrawGroups threads (lanes 2r and 2r + 1 of a warp for two)
+constexpr int kPartKeys = kTileK / kDrawGroups;
+constexpr int kPartWords = kPartKeys / 32;
+// Philox counters a drawing thread keeps in flight (1, 2, 4 or 8)
+constexpr int kInFlight = 4;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int D = flash_wg::kHeadDim;
 
@@ -95,27 +145,115 @@ struct Layout {
   // per stage, the tile's 64 live-key bits (2 words, key 32w + i at bit i
   // of word w)
   static constexpr int kLive = kV + kStages * kTile;
-  static constexpr int kBars = kLive + kStages * 8;
+  // per stage, the tile's keep bits: kRows rows of 2 words, the same order
+  static constexpr int kKeep = kLive + kStages * 8;
+  static constexpr int kBars = kKeep + kStages * kRows * 8;
   // full_q, then full and empty per stage
   static constexpr int kBytes = kBars + (1 + 2 * kStages) * 8;
   static constexpr int kAlloc = kBytes + 1024;  // slack to align the base
 };
 
+// What the drawing threads need of the dropout: the seed's two words, and
+// 2^32 - threshold * 256, which a word that is kept ((word >> 8) >=
+// threshold) carries past 2^32 when added.
+struct Draw {
+  uint32_t seed_lo, seed_hi;
+  uint32_t carry;
+};
+
+// Philox4x32-10 (flash::philox4) at counters ctr .. ctr + N - 1, written
+// round by round across the counters: their independent chains of
+// multiplies are interleaved in the code as issued, so one thread keeps N
+// of them in flight (left to the compiler, the calls of an unrolled loop
+// were issued one chain after another). Returns the four decisions of
+// counter j at bits 4 j .. 4 j + 3 (word w at bit 4 j + w).
+template <int N>
+__device__ __forceinline__ uint32_t kept_n(uint64_t ctr, const Draw& draw) {
+  uint32_t c0[N], c1[N], c2[N], c3[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    c0[j] = (uint32_t)(ctr + j);
+    c1[j] = (uint32_t)((ctr + j) >> 32);
+    c2[j] = c3[j] = 0u;
+  }
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    // the round keys as adds to the seed, which the compiler keeps in
+    // uniform registers (read from the constant bank instead, each round's
+    // keys took a load and the draw ran 10 % slower)
+    const uint32_t k0 = draw.seed_lo + (uint32_t)r * 0x9E3779B9u;
+    const uint32_t k1 = draw.seed_hi + (uint32_t)r * 0xBB67AE85u;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const uint32_t hi0 = __umulhi(0xD2511F53u, c0[j]);
+      const uint32_t lo0 = 0xD2511F53u * c0[j];
+      const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2[j]);
+      const uint32_t lo1 = 0xCD9E8D57u * c2[j];
+      c0[j] = hi1 ^ c1[j] ^ k0;
+      c2[j] = hi0 ^ c3[j] ^ k1;
+      c1[j] = lo1;
+      c3[j] = lo0;
+    }
+  }
+  // a kept word carries: the decision as an integer, with no predicate
+  auto kept = [&](uint32_t w) {
+    return (uint32_t)(((uint64_t)w + draw.carry) >> 32);
+  };
+  uint32_t bits = 0u;
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    bits |= (kept(c0[j]) | kept(c1[j]) << 1 | kept(c2[j]) << 2 |
+             kept(c3[j]) << 3)
+            << (4 * j);
+  return bits;
+}
+
+// The keep decisions of keys key0..key0 + kPartKeys - 1 of one query row,
+// key j at bit (j - key0) % 32 of word (j - key0) / 32: `ctr` is the first
+// counter the keys touch, (n_row + key0) / 4 for the row's element offset
+// n_row, and `ph` = n_row % 4 the position of key0 among that counter's
+// four words. Decisions of keys from Sk on are 0.
+__device__ __forceinline__ void draw_part(uint64_t ctr, uint32_t ph,
+                                          int key0, int Sk, const Draw& draw,
+                                          uint32_t (&bits)[kPartWords]) {
+  // the stream of decisions from word 0 of counter ctr: 32 of them a word
+  uint32_t w[kPartWords + 1];
+#pragma unroll
+  for (int half = 0; half < kPartWords; ++half) {
+    uint32_t acc = 0u;
+#pragma unroll 1
+    for (int i = 0; i < 8; i += kInFlight)
+      acc |= kept_n<kInFlight>(ctr + half * 8 + i, draw) << (4 * i);
+    w[half] = acc;
+  }
+  // a row whose element offset is not a multiple of 4 reaches one counter
+  // further
+  w[kPartWords] = ph != 0u ? kept_n<1>(ctr + kPartKeys / 4, draw) : 0u;
+#pragma unroll
+  for (int i = 0; i < kPartWords; ++i) {
+    bits[i] = __funnelshift_r(w[i], w[i + 1], ph);
+    const int n = Sk - key0 - 32 * i;  // keys of the word in range
+    if (n < 32) bits[i] &= n <= 0 ? 0u : (1u << n) - 1u;
+  }
+}
+
 // A consumer warpgroup's state over the key sweep and its steps. Every
 // member function is inlined and every array index is a constant after
-// inlining, so the state stays in registers. kAligned (Sk % 4 == 0) picks
-// the dropout draw's path (flash_tc::keep_bits).
-template <bool kAligned>
+// inlining, so the state stays in registers. kDrop: with dropout (one
+// instance each: a branch on the rate inside the element loop cost the
+// kernel about a tenth of its time without dropout).
+template <bool kDrop>
 struct Consumer {
   using L = Layout;
   unsigned char* smem;
   uint64_t* full;
   uint64_t* empty;
   const uint32_t* live_bits;
+  const uint2* keep_tiles;  // the keep bits' ring: kRows rows a stage
   int c, lane;
+  int local[2];  // this lane's rows in the block's tile
   float scale_log2;
   uint64_t desc_q, desc_do;
-  uint64_t n_row[2];  // dropout offset of (b, h, row, key 0)
   Dropout dr;
   float lse2[2];  // lse * log2 e; +inf past Sq (p = 0)
   float di[2];
@@ -124,9 +262,9 @@ struct Consumer {
   float sc[kTileK / 2];  // S, then P: chunk n (8 keys) at sc[4n..4n+3]
   float dp[kTileK / 2];  // dP, the same layout
   uint32_t pa[kTileK / 16][4];  // dS as A fragments
-  uint32_t keep;
 
-  // S = Q K_t^T and dP = dO V_t^T (asynchronous)
+  // S = Q K_t^T and dP = dO V_t^T (asynchronous), once stage t holds K, V
+  // and, with dropout, the tile's keep bits
   __device__ __forceinline__ void issue_sdp(int t) {
     const int st = t % kStages;
     const uint64_t desc_k =
@@ -158,14 +296,6 @@ struct Consumer {
     flash_wg::wg_commit();
   }
 
-  // tile t's dropout decisions: bit n * 4 + e for element e of chunk n
-  // (they need no data)
-  __device__ __forceinline__ void keep_of(int t) {
-    keep = dr.threshold != 0u ? flash_tc::keep_bits<kTileK / 8, kAligned>(
-                                    n_row, t * kTileK, c, dr)
-                              : 0u;
-  }
-
   // every product issued so far is done: fold part into dq and give back
   // the stage of tile t - 1, whose K the last dS K read
   __device__ __forceinline__ void settle(int t) {
@@ -181,10 +311,21 @@ struct Consumer {
 
   // dS of tile t from sc and dp into the A fragments pa
   __device__ __forceinline__ void ds(int t) {
-    const uint2 live =
-        *reinterpret_cast<const uint2*>(live_bits + (t % kStages) * 2);
+    const int st = t % kStages;
+    const uint2 live = *reinterpret_cast<const uint2*>(live_bits + st * 2);
     const bool dead = (live.x & live.y) != ~0u;  // a masked or padded key
     const uint32_t words[2] = {live.x, live.y};
+    // this lane's keep bits, shifted so that key n * 8 + c + e of row r
+    // is bit (n % 4) * 8 + e of keep[r][n / 4]
+    uint32_t keep[2][2] = {{0u, 0u}, {0u, 0u}};
+    if constexpr (kDrop) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const uint2 m = keep_tiles[st * kRows + local[r]];
+        keep[r][0] = m.x >> c;
+        keep[r][1] = m.y >> c;
+      }
+    }
 #pragma unroll
     for (int n = 0; n < kTileK / 8; ++n)
 #pragma unroll
@@ -194,8 +335,10 @@ struct Consumer {
             fmaf(sc[i], scale_log2, -lse2[e >> 1]));
         if (dead) p = (words[key / 32] >> (key % 32)) & 1u ? p : 0.f;
         float dpk = dp[i];
-        if (dr.threshold != 0u)
-          dpk = (keep >> i) & 1u ? dpk * dr.inv_keep : 0.f;
+        if constexpr (kDrop)
+          dpk = (keep[e >> 1][n / 4] >> ((n % 4) * 8 + (e & 1))) & 1u
+                    ? dpk * dr.inv_keep
+                    : 0.f;
         sc[i] = p * (dpk - di[e >> 1]);
       }
 #pragma unroll
@@ -203,7 +346,7 @@ struct Consumer {
   }
 };
 
-template <bool kAligned>
+template <bool kDrop>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_k,
@@ -212,13 +355,16 @@ flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap map_q,
                        const uint8_t* __restrict__ valid,
                        const bf16* __restrict__ o,
                        const float* __restrict__ lse, bf16* __restrict__ dq,
-                       float* __restrict__ di_out, int H, int Sq, int Sk,
-                       float scale, Dropout dr) {
+                       float* __restrict__ di_out,
+                       uint32_t* __restrict__ bits_out, int H, int Sq,
+                       int Sk, float scale, Dropout dr,
+                       const __grid_constant__ Draw keys) {
   using L = Layout;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
   uint32_t* live_bits = reinterpret_cast<uint32_t*>(smem + L::kLive);
+  uint2* keep_tiles = reinterpret_cast<uint2*>(smem + L::kKeep);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);
   uint64_t* full_q = bars;
   uint64_t* full = bars + 1;
@@ -234,7 +380,8 @@ flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap map_q,
   if (threadIdx.x == 0) {
     flash_wg::bar_init(full_q, 1);
     for (int s = 0; s < kStages; ++s) {
-      flash_wg::bar_init(full + s, 1);
+      // the TMA's arrival and, with dropout, one per drawing warp
+      flash_wg::bar_init(full + s, 1 + (kDrop ? 4 * kDrawGroups : 0));
       flash_wg::bar_init(empty + s, 4 * kConsumers);  // one per warp
     }
     flash_wg::bar_fence_init();
@@ -245,8 +392,9 @@ flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap map_q,
 
   if (warp >= 4 * kConsumers) {  // the producer warpgroup
     flash_wg::regs_release<kProducerRegs>();
-    if (warp > 4 * kConsumers) return;
-    if (lane == 0) {
+    const bool loads = warp == 4 * kConsumers;  // the TMA warp
+    if (!loads && !kDrop) return;
+    if (loads && lane == 0) {
       flash_wg::prefetch_map(&map_q);
       flash_wg::prefetch_map(&map_do);
       flash_wg::prefetch_map(&map_k);
@@ -255,29 +403,77 @@ flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap map_q,
       flash_wg::tma_load_4d(smem + L::kQ, &map_q, full_q, 0, h, q0, b);
       flash_wg::tma_load_4d(smem + L::kDo, &map_do, full_q, 0, h, q0, b);
     }
+    // the row this thread draws (row p of the block, its part-th
+    // kPartKeys keys of a tile): its element offset, and where its 16-byte
+    // pieces of keep bits go (none past Sq; part 0 stores the row's)
+    const int p = (threadIdx.x - 128 * kConsumers) / kDrawGroups;
+    const int part = (threadIdx.x - 128 * kConsumers) % kDrawGroups;
+    const uint64_t n_row = ((uint64_t)bh * Sq + q0 + p) * Sk;
+    const uint32_t ph = (uint32_t)n_row & 3u;
+    const int W = 4 * ((Sk + 127) / 128);
+    uint4* out = bits_out != nullptr && q0 + p < Sq && part == 0
+                     ? reinterpret_cast<uint4*>(
+                           bits_out + ((long)bh * Sq + q0 + p) * W)
+                     : nullptr;
+    uint2 held = make_uint2(0u, 0u);  // the even tile's bits of a piece
+    // the TMA warp's lanes' live keys of tile t (keys 32 w + lane): in
+    // range, and valid or in a fully masked row (whose logits are all 0),
+    // read a tile ahead so the loads run under the draw
+    auto live_of = [&](int t, int w) {
+      const int j = t * kTileK + w * 32 + lane;
+      return j < Sk && (masked_row || valid == nullptr ||
+                        valid[(long)b * Sk + j] != 0);
+    };
+    bool live[2] = {false, false};
+    if (loads) live[0] = live_of(0, 0), live[1] = live_of(0, 1);
     for (int t = 0; t < n_kt; ++t) {
       const int s = t % kStages;
       if (t >= kStages)  // the consumers gave back tile t - kStages
         flash_wg::bar_wait(empty + s, ((t / kStages) & 1) ^ 1);
-      // the tile's live keys as 2 words of bits, one ballot of 32
-      // neighbouring keys each: in range, and valid or in a fully masked
-      // row (whose logits are all 0)
-      uint32_t words[2];
+      if (loads) {
+        // the tile's live keys as 2 words of bits, one ballot of 32
+        // neighbouring keys each
+        uint32_t words[2];
 #pragma unroll
-      for (int w = 0; w < 2; ++w) {
-        const int j = t * kTileK + w * 32 + lane;
-        words[w] = __ballot_sync(
-            0xffffffffu, j < Sk && (masked_row || valid == nullptr ||
-                                    valid[(long)b * Sk + j] != 0));
+        for (int w = 0; w < 2; ++w) {
+          words[w] = __ballot_sync(0xffffffffu, live[w]);
+          live[w] = t + 1 < n_kt && live_of(t + 1, w);
+        }
+        if (lane == 0) {
+          *reinterpret_cast<uint2*>(live_bits + s * 2) =
+              make_uint2(words[0], words[1]);
+          flash_wg::bar_arrive_tx(full + s, 2 * L::kTile);
+          flash_wg::tma_load_4d(smem + L::kK + s * L::kTile, &map_k,
+                                full + s, 0, h, t * kTileK, b);
+          flash_wg::tma_load_4d(smem + L::kV + s * L::kTile, &map_v,
+                                full + s, 0, h, t * kTileK, b);
+        }
       }
-      if (lane == 0) {
-        *reinterpret_cast<uint2*>(live_bits + s * 2) =
-            make_uint2(words[0], words[1]);
-        flash_wg::bar_arrive_tx(full + s, 2 * L::kTile);
-        flash_wg::tma_load_4d(smem + L::kK + s * L::kTile, &map_k, full + s,
-                              0, h, t * kTileK, b);
-        flash_wg::tma_load_4d(smem + L::kV + s * L::kTile, &map_v, full + s,
-                              0, h, t * kTileK, b);
+      if (kDrop) {
+        const int key0 = t * kTileK + part * kPartKeys;
+        uint32_t mine[kPartWords];
+        draw_part((n_row + key0) >> 2, ph, key0, Sk, keys, mine);
+        uint32_t* row = reinterpret_cast<uint32_t*>(keep_tiles) +
+                        (s * kRows + p) * 2 + part * kPartWords;
+#pragma unroll
+        for (int i = 0; i < kPartWords; ++i) row[i] = mine[i];
+        __syncwarp();  // the warp's words are in: one arrival for them
+        if (lane == 0) flash_wg::bar_arrive(full + s);
+        // the tile's two words of the row, in lane 2r's hands for two
+        // drawing threads a row
+        uint2 bits;
+        if constexpr (kDrawGroups == 2)
+          bits = make_uint2(mine[0],
+                            __shfl_xor_sync(0xffffffffu, mine[0], 1));
+        else
+          bits = make_uint2(mine[0], mine[kPartWords - 1]);
+        if (out != nullptr) {
+          if (t & 1)
+            out[t / 2] = make_uint4(held.x, held.y, bits.x, bits.y);
+          else if (t == n_kt - 1)
+            out[t / 2] = make_uint4(bits.x, bits.y, 0u, 0u);
+          held = bits;
+        }
       }
     }
     return;
@@ -287,11 +483,12 @@ flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap map_q,
   // a consumer: warpgroup wg owns query rows q0 + wg * 64 .. + 63, and
   // this lane rows[0] = .. + (warp % 4) * 16 + lane / 4 and rows[1] 8 below
   const int wg = warp / 4;
-  Consumer<kAligned> w;
+  Consumer<kDrop> w;
   w.smem = smem;
   w.full = full;
   w.empty = empty;
   w.live_bits = live_bits;
+  w.keep_tiles = keep_tiles;
   w.c = (lane % 4) * 2;  // this lane's first column in a chunk
   w.lane = lane;
   // a fully masked row's logits are 0: the scores get scale 0
@@ -299,12 +496,11 @@ flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap map_q,
   w.desc_q = flash_wg::make_desc(smem + L::kQ + wg * 64 * D * 2);
   w.desc_do = flash_wg::make_desc(smem + L::kDo + wg * 64 * D * 2);
   w.dr = dr;
-  w.keep = 0u;
   int rows[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    rows[r] = q0 + wg * 64 + (warp % 4) * 16 + lane / 4 + r * 8;
-    w.n_row[r] = ((uint64_t)bh * Sq + rows[r]) * Sk;
+    w.local[r] = wg * 64 + (warp % 4) * 16 + lane / 4 + r * 8;
+    rows[r] = q0 + w.local[r];
     w.lse2[r] =
         rows[r] < Sq ? lse[(long)bh * Sq + rows[r]] * kLog2e : INFINITY;
   }
@@ -320,7 +516,7 @@ flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap map_q,
   // row's bits 1-2) and of O (device memory, read once)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = rows[r] - q0;  // in the block's tile
+    const int row = w.local[r];  // in the block's tile
     const int q = lane % 4;
     const uint4 dv = *reinterpret_cast<const uint4*>(
         smem + L::kDo + row * D * 2 + ((q ^ ((row >> 1) & 3)) * 16));
@@ -349,7 +545,6 @@ flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap map_q,
   // and dP go out while dq_part of t - 1 may still run
   for (int t = 0; t < n_kt; ++t) {
     w.issue_sdp(t);
-    w.keep_of(t);
     w.settle(t);
     w.ds(t);
     w.issue_dq(t);
@@ -370,9 +565,14 @@ flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap map_q,
 
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const uint8_t* valid, const void* o, const void* dout,
-                   const float* lse, void* dq, float* di_out, int B, int H,
-                   int Sq, int Sk, float scale, Dropout dr,
-                   cudaStream_t stream) {
+                   const float* lse, void* dq, float* di_out,
+                   uint32_t* bits_out, int B, int H, int Sq, int Sk,
+                   float scale, Dropout dr, cudaStream_t stream) {
+  // threshold in [1, 2^24]: kept iff word >= threshold * 256, iff word +
+  // 2^32 - threshold * 256 carries
+  const Draw keys{
+      (uint32_t)dr.seed, (uint32_t)(dr.seed >> 32),
+      (uint32_t)((uint64_t{1} << 32) - (uint64_t)dr.threshold * 256u)};
   const int n_qt = (Sq + kRows - 1) / kRows;
   if ((long)B * H > 65535) return cudaErrorInvalidConfiguration;
   const cudaError_t bound = flash_wg::bind_device(q);
@@ -384,39 +584,47 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       !flash_wg::make_map(&map_v, v, B, Sk, H, kTileK))
     return cudaErrorInvalidValue;
   constexpr int bytes = Layout::kAlloc;
-  // the instance whose dropout draw takes Sk % 4 == 0's path or the
-  // general one (flash_tc::keep_bits)
-  auto kernel = (Sk & 3) == 0 ? flash_bwd_dq_wg_kernel<true>
-                              : flash_bwd_dq_wg_kernel<false>;
-  const cudaError_t err = cudaFuncSetAttribute(
+  auto kernel = dr.threshold != 0u ? flash_bwd_dq_wg_kernel<true>
+                                   : flash_bwd_dq_wg_kernel<false>;
+  // the consumers take registers the producers give back from the block's
+  // allocation at launch: refuse a build that allocates fewer than the
+  // split assumes, where setmaxnreg.inc would wait for ever
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  if (attr.numRegs < kLaunchRegs) return cudaErrorInvalidConfiguration;
+  err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(n_qt, B * H), kThreads, bytes, stream>>>(
       map_q, map_k, map_v, map_do, valid, static_cast<const bf16*>(o), lse,
-      static_cast<bf16*>(dq), di_out, H, Sq, Sk, scale, dr);
+      static_cast<bf16*>(dq), di_out, bits_out, H, Sq, Sk, scale, dr, keys);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // bf16 only; q, k, v, O, dO, dq 16-byte aligned; head_dim = 32; di_out
-// nullable; scale = 1 / sqrt(the caller's head dim). Dropout as in
-// flash_attn_fwd, with the forward's seed. Returns a cudaError_t (0 =
-// launched).
+// nullable; bits_out nullable, 16-byte aligned, [B, H, Sq, 4 * ceil(Sk /
+// 128)] uint32, and only with dropout; scale = 1 / sqrt(the caller's head
+// dim). Dropout as in the forward kernels, with the forward's seed.
+// Returns a cudaError_t (0 = launched).
 extern "C" int flash_attn_bwd_dq_wg(const void* q, const void* k,
                                     const void* v, const uint8_t* valid,
                                     const void* o, const void* dout,
                                     const float* lse, void* dq,
-                                    float* di_out, int B, int H, int Sq,
-                                    int Sk, int head_dim, float scale,
-                                    uint64_t seed, uint32_t threshold,
-                                    float inv_keep, void* stream) {
+                                    float* di_out, uint32_t* bits_out, int B,
+                                    int H, int Sq, int Sk, int head_dim,
+                                    float scale, uint64_t seed,
+                                    uint32_t threshold, float inv_keep,
+                                    void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || threshold > (1u << 24) ||
-      lse == nullptr)
+      lse == nullptr || (bits_out != nullptr && threshold == 0u) ||
+      reinterpret_cast<uintptr_t>(bits_out) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout dr{seed, threshold, inv_keep};
   if (head_dim != D) return (int)cudaErrorInvalidValue;
-  return (int)launch(q, k, v, valid, o, dout, lse, dq, di_out, B, H, Sq, Sk,
-                     scale, dr, s);
+  return (int)launch(q, k, v, valid, o, dout, lse, dq, di_out, bits_out, B,
+                     H, Sq, Sk, scale, dr, s);
 }

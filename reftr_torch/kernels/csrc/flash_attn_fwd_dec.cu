@@ -5,11 +5,11 @@
 // bf16 (kernels/attention.py::fwd_variant): the decoder's single query,
 // whose self-attention sees 1 key and whose cross-attention sees the 440
 // tokens of the VL memory. Calls with 16 or more queries take
-// flash_attn_fwd_tc.cu (bf16) or flash_attn_fwd.cu (float32).
+// flash_attn_fwd_tc.cu (bf16) or flash_attn_fwd_f32tc.cu (float32).
 //
 // Replaces, for those calls, the TPU kernel `_flash_kernel` of
 // reftr_tpu/kernels/attention.py (:86-132, driven by `_fwd` :135-228,
-// pallas_call at :210). The contract is flash_attn_fwd.cu's: out =
+// pallas_call at :210). The contract is flash_attn_fwd_tc.cu's: out =
 // softmax(q k^T / sqrt(D) + bias) v per (batch, head) with an f32 running
 // max, denominator and accumulator (q, k, v upcast on load), the logit and
 // the fully masked row's shift of flash_common.cuh, attention dropout after

@@ -4,7 +4,7 @@
 // Replaces, for float32 inputs with at least 16 queries, the TPU kernel
 // `_flash_kernel` of reftr_tpu/kernels/attention.py (:86-132, driven by
 // `_fwd` :135-228, pallas_call at :210). The same function and contract as
-// the SIMT flash_attn_fwd.cu and the bf16 flash_attn_fwd_tc.cu:
+// the bf16 flash_attn_fwd_tc.cu:
 // out = softmax(q k^T * scale + bias) v per (batch, head) with an f32
 // running max, denominator and accumulator, attention dropout after the
 // denominator (the denominator sums the un-dropped p, the numerator takes

@@ -4,9 +4,10 @@
 // Replaces, for bf16 inputs with at least 16 queries, the TPU kernel
 // `_flash_kernel` of reftr_tpu/kernels/attention.py (:86-132, driven by
 // `_fwd`, pallas_call at :210). The same function and contract as
-// flash_attn_fwd.cu: out = softmax(q k^T / sqrt(D) + bias) v per (batch,
-// head) with an f32 running max, denominator and accumulator, attention
-// dropout after the denominator, the row logsumexp on request; layout q
+// kernels/attention.py::attention_plain: out = softmax(q k^T / sqrt(D) +
+// bias) v per (batch, head) with an f32 running max, denominator and
+// accumulator, attention dropout after the denominator, the row
+// logsumexp on request; layout q
 // [B, Sq, H, D], k/v [B, Sk, H, D], out [B, Sq, H, D] bf16 and contiguous;
 // valid [B, Sk] bool (nullable); lse [B, H, Sq] f32 (nullable); D in
 // {16, 32, 64, 128}. The logit, the masked-row shift and the Philox

@@ -164,7 +164,7 @@ __device__ __forceinline__ void load_b_cols(uint32_t (&b)[4],
 
 // The keep decisions of this lane's elements of one tile of NT * 8 keys in
 // the layout of an accumulator with queries as M and keys as N (K1-TC's S,
-// K2-TC's S and dP, K1-wg's and K2-wg's per warp): bit n * 4 + e for
+// K2-TC's S and dP, K1-wg's per warp): bit n * 4 + e for
 // element e of n-tile n, which is row n_row[e / 2] (the dropout offset of
 // (b, h, query, key 0)) and key k0 + n * 8 + c + e % 2, c = (lane % 4) * 2.
 // They depend on no data, so a kernel draws them at the top of the tile,

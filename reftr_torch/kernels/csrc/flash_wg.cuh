@@ -1,7 +1,8 @@
 // Hopper building blocks of the warpgroup flash-attention kernels
-// (flash_attn_fwd_wg.cu, flash_attn_bwd_dkv_wg.cu): TMA tile loads through
-// a tensor map, mbarriers, and the warpgroup product wgmma (bf16 -> f32),
-// all as inline PTX for sm_90a, so a build stays a few seconds.
+// (flash_attn_fwd_wg.cu, flash_attn_bwd_dq_wg.cu, flash_attn_bwd_dkv_wg.cu):
+// TMA tile loads through a tensor map, mbarriers, and the warpgroup product
+// wgmma (bf16 -> f32), all as inline PTX for sm_90a, so a build stays a
+// few seconds.
 //
 // Head dim. The kernels are written for D = kHeadDim = 32, the four-level
 // encoder's (the dispatch rule sends no other head dim here).
@@ -34,8 +35,8 @@
 // 16w + lane / 4 + 8 (e / 2), column 8n + (lane % 4) * 2 + e % 2. Its A
 // operand from registers takes mma.sync's A layout per warp. So two column
 // chunks of an accumulator, packed to bf16 pairs, are the A fragment of one
-// 16-deep k-step of the next product (pack_a), and flash_tc::keep_bits and
-// flash_tc::chunk_keep give the dropout decisions in this layout.
+// 16-deep k-step of the next product (pack_a), and flash_tc::keep_bits
+// gives K1-wg's dropout decisions in this layout.
 //
 // Asynchrony. wgmma.mma_async runs after the instruction issues; its
 // accumulator registers may be read only after wgmma.wait_group, and its A
@@ -134,6 +135,19 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// the box of `map` at coordinates (c0, c1, c2), innermost first: as
+// tma_load_4d for a rank-3 map
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -304,6 +318,25 @@ inline bool make_map(CUtensorMap* map, const void* base, int B, int S, int H,
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(base), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The tensor map of the keep bits, uint32 [BH, S, W] (W a multiple of 4),
+// whose box is `rows` rows of 4 words (16 bytes) of one (batch * head):
+// dims innermost first (W, S, BH), no swizzle, zeros past S. Returns false
+// where the encoding is refused.
+inline bool make_keep_map(CUtensorMap* map, const void* base, int BH, int S,
+                          int W, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)W, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)W * 4, (cuuint64_t)S * W * 4};
+  const cuuint32_t box[3] = {4u, (cuuint32_t)rows, 1u};
+  const cuuint32_t unit[3] = {1u, 1u, 1u};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT32, 3,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

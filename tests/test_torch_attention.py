@@ -15,7 +15,7 @@ import torch
 from reftr_tpu.kernels.attention import _xla_attention, fused_attention
 from reftr_tpu.nn.attention import MultiHeadAttention as JaxMHA
 from reftr_torch.kernels.attention import (_ARGTYPES, HEAD_DIMS,
-                                           MAX_HEAD_DIM, TC_MIN_ROWS,
+                                           MAX_HEAD_DIM, TC_MIN_ROWS, WG_MIN,
                                            _launch_dkv, _launch_dq,
                                            _launch_fwd,
                                            attention_bwd_plain,
@@ -158,19 +158,19 @@ CALL_SITES = {"vl_encoder_self": (440, 440, 32), "decoder_self": (1, 1, 32),
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("site", sorted(CALL_SITES))
 def test_variant_rule_at_the_call_sites(site, dtype):
-    """bf16 BERT and encoder calls on the tensor cores, K3 at the encoder
-    on its warpgroup kernel; float32 ones on the 3xTF32 tensor-core
-    kernels (K1, K2 and K3); the decoder's single query on the decode
-    kernels (K1's, and the one backward kernel for K2 and K3) in either
-    dtype."""
+    """bf16 BERT and encoder calls on the tensor cores, K2 and K3 at the
+    encoder on their warpgroup kernels; float32 ones on the 3xTF32
+    tensor-core kernels (K1, K2 and K3); the decoder's single query on the
+    decode kernels (K1's, and the one backward kernel for K2 and K3) in
+    either dtype."""
     sq, sk, d = CALL_SITES[site]
     dec = site.startswith("decoder")
     bf16 = dtype == torch.bfloat16
     want = "dec" if dec else "tc" if bf16 else "tf32x3"
     assert fwd_variant(sq, sk, dtype, d) == want
-    assert dq_variant(sq, sk, dtype, d) == want
-    assert dkv_variant(sq, sk, dtype, d) == (
-        "wg" if bf16 and site == "vl_encoder_self" else want)
+    wg = bf16 and site == "vl_encoder_self"
+    assert dq_variant(sq, sk, dtype, d) == ("wg" if wg else want)
+    assert dkv_variant(sq, sk, dtype, d) == ("wg" if wg else want)
 
 
 def test_variant_rule_boundary():
@@ -182,8 +182,7 @@ def test_variant_rule_boundary():
     assert fwd_variant(15, 15, f32, 32) == "dec"
     assert fwd_variant(8540, 8540, f32, 32) == "tf32x3"
     # bf16 K1, K2 and K3 on the warpgroup kernels from WG_MIN queries and
-    # keys at a head dim padding to 32, K3 from 2040 keys at a multiple of
-    # 4
+    # keys at a head dim padding to 32, at any key count
     assert fwd_variant(2040, 2040, bf16, 32) == "wg"
     assert fwd_variant(2039, 2040, bf16, 32) == "tc"
     assert fwd_variant(2040, 2039, bf16, 32) == "tc"
@@ -195,16 +194,19 @@ def test_variant_rule_boundary():
     assert dkv_variant(255, 256, bf16, 32) == "tc"
     assert dkv_variant(256, 255, bf16, 32) == "tc"
     assert dkv_variant(490, 490, bf16, 32) == "wg"
-    assert dkv_variant(2090, 2090, bf16, 32) == "tc"
+    assert dkv_variant(2090, 2090, bf16, 32) == "wg"
     assert dkv_variant(2040, 2040, bf16, 32) == "wg"
     assert dkv_variant(440, 440, bf16, 16) == "tc"
-    # K2 on its warpgroup kernel from WG_MIN["dq"], at any key count
+    # K2 on its warpgroup kernel from WG_MIN["dq"], K3's least, at any key
+    # count: K3-wg reads the keep bits K2-wg writes
+    assert WG_MIN["dq"] == WG_MIN["dkv"]
     assert dq_variant(8540, 8540, bf16, 32) == "wg"
     assert dq_variant(2090, 2090, bf16, 32) == "wg"
     assert dq_variant(490, 490, bf16, 32) == "wg"
-    assert dq_variant(489, 490, bf16, 32) == "tc"
-    assert dq_variant(490, 489, bf16, 32) == "tc"
-    assert dq_variant(440, 440, bf16, 32) == "tc"
+    assert dq_variant(256, 256, bf16, 32) == "wg"
+    assert dq_variant(255, 256, bf16, 32) == "tc"
+    assert dq_variant(256, 255, bf16, 32) == "tc"
+    assert dq_variant(440, 440, bf16, 32) == "wg"
     assert dq_variant(8540, 8540, bf16, 64) == "tc"
     assert dq_variant(8540, 8540, f32, 32) == "tf32x3"
     assert dkv_variant(16, 16, bf16, 32) == "tc"
@@ -259,7 +261,7 @@ def _rule(kernel, sq, sk, dtype, d):
     bf16 = dtype == torch.bfloat16
     if kernel == "dkv" and sk < 16:
         return "simt"
-    least = {"fwd": 2048, "dq": 490, "dkv": 256}.get(kernel)
+    least = {"fwd": 2048, "dq": 256, "dkv": 256}.get(kernel)
     if bf16 and least and 16 < d <= 32 and min(sq, sk) >= least:
         return "wg"
     return "tc" if bf16 else "tf32x3"
@@ -384,8 +386,8 @@ def test_cpu_tensors_take_the_plain_version_whatever_the_variant(sq, dtype):
 
 @pytest.mark.parametrize("launch,variant", [
     (_launch_fwd, "dec"), (_launch_fwd, "tc"), (_launch_fwd, "tf32x3"),
-    (_launch_fwd, "simt"), (_launch_dq, "tc"), (_launch_dq, "tf32x3"),
-    (_launch_dq, "simt"), (_launch_dq, "dec"), (_launch_dkv, "tc"),
+    (_launch_dq, "tc"), (_launch_dq, "tf32x3"),
+    (_launch_dq, "dec"), (_launch_dkv, "tc"),
     (_launch_dkv, "tf32x3"), (_launch_dkv, "simt"), (_launch_fwd, "wg"),
     (_launch_dkv, "wg")])
 def test_launchers_refuse_cpu_tensors(launch, variant):

@@ -40,6 +40,7 @@ from reftr_torch.kernels.attention import (FlashAttentionFn,
                                            dq_variant, flash_attention,
                                            flash_attn_bwd_dkv,
                                            flash_attn_bwd_dq, fwd_variant,
+                                           keep_bits_plain, new_keep_bits,
                                            philox_keep_plain)
 from reftr_torch.nn.attention import (MultiHeadAttention, attention_rng,
                                       set_plain_attention)
@@ -117,7 +118,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(gen):
                         valid)
     with pytest.raises(ValueError, match="head_dim"):
         w = torch.zeros(2, 8, 2, 160, device="cuda")
-        _launch_fwd("simt", w, w, w, valid, 0.0, None)
+        _launch_fwd("tc", w, w, w, valid, 0.0, None)
     with pytest.raises(ValueError, match="one device"):
         flash_attention(q, k, v, valid.cpu())
 
@@ -298,8 +299,8 @@ def test_dropout_mask_is_exact_through_the_tensor_core_kernel(gen, shape):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_tensor_core_counters_count_only_bf16_calls(gen, dtype):
-    """An encoder-shaped bf16 call goes through K1-TC, K2-TC and K3's
-    warpgroup kernel (K2-TC writes it di), a float32 one through the
+    """An encoder-shaped bf16 call goes through K1-TC and the warpgroup
+    K2 and K3 (K2-wg writes K3-wg its di), a float32 one through the
     3xTF32 K1, K2 and K3; the totals count both."""
     q, k, v, valid = inputs(gen, 2, 440, 440, 8, 32, dtype)
     q.requires_grad_()
@@ -315,7 +316,7 @@ def test_tensor_core_counters_count_only_bf16_calls(gen, dtype):
     bf16 = int(dtype == torch.bfloat16)
     assert [tuple(a - b for a, b in zip(x, y))
             for x, y in zip(counts(), before)] == [
-        (1, bf16, 0, 1 - bf16), (1, bf16, 0, 1 - bf16),
+        (1, bf16, 0, 1 - bf16), (1, 0, bf16, 1 - bf16),
         (1, 0, bf16, 1 - bf16)]
 
 
@@ -1156,9 +1157,10 @@ WG_SHAPES = [(2, 16, 17, 2, 32), (2, 127, 129, 2, 32), (2, 128, 128, 2, 32),
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("shape", WG_SHAPES)
 def test_warpgroup_kernels_match_plain(gen, shape, rate):
-    """K1-wg (out and lse) and K3-wg, its di from K2-TC's di_out, against
-    the plain versions in float32 on the same bf16 inputs, batch row 0
-    with every key masked (the uniform average); each launch counted on
+    """K1-wg (out and lse) and K3-wg, its di and keep bits from K2-wg's
+    di_out and bits_out, against the plain versions in float32 on the same
+    bf16 inputs, batch row 0 with every key masked (the uniform average);
+    the keep bits equal keep_bits_plain's; each launch counted on
     launches_wg, and a second call gives the same bits."""
     b, sq, sk, h, d = shape
     q, k, v, valid = inputs(gen, b, sq, sk, h, d, torch.bfloat16)
@@ -1175,9 +1177,12 @@ def test_warpgroup_kernels_match_plain(gen, shape, rate):
     do = torch.randn(out.shape, device="cuda", generator=gen).to(q.dtype)
     args = (q, k, v, valid, out, lse, do, rate, seed)
     di = torch.empty_like(lse)
-    _launch_dq("tc", *args, di_out=di)
+    bits = new_keep_bits(q, k) if rate else None
+    _launch_dq("wg", *args, di_out=di, bits_out=bits)
     torch.testing.assert_close(di, di_plain(out, do), atol=1e-5, rtol=1e-5)
-    dk, dv = _launch_dkv("wg", *args, di)
+    if rate:
+        assert chip_smoke.check_bits("K2-wg", bits, seed, rate, shape) > 0
+    dk, dv = _launch_dkv("wg", *args, di, bits)
     wants = attention_bwd_plain(*args)
     torch.cuda.synchronize()
     scale = max(w.float().abs().max().item() for w in wants)
@@ -1185,7 +1190,7 @@ def test_warpgroup_kernels_match_plain(gen, shape, rate):
         assert got.dtype == torch.bfloat16 and got.shape == w.shape
         rel_close(got, w, GRAD_TOL[torch.bfloat16], floor=scale)
     again = (*_launch_fwd("wg", q, k, v, valid, rate, seed),
-             *_launch_dkv("wg", *args, di))
+             *_launch_dkv("wg", *args, di, bits))
     for x, y in zip((out, lse, dk, dv), again):
         assert chip_smoke.same_bits(x, y)
     assert (flash_attention.launches_wg - before[0],
@@ -1198,11 +1203,13 @@ WG_SITES = ["vl_encoder_self", "multi_vl_encoder_self", "vl_encoder_4_levels"]
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("site", WG_SITES)
 def test_warpgroup_kernels_match_plain_at_their_sites(gen, site, rate):
-    """At the sites where the rule sends K3 (and at four levels K1) to the
-    warpgroup kernels, with the smoke's inputs and tolerances: K1-wg and
-    K3-wg against the plain versions, whatever the rule picks there."""
+    """At the sites where the rule sends K2 and K3 (and at four levels K1)
+    to the warpgroup kernels, with the smoke's inputs and tolerances:
+    K1-wg, and K2-wg then K3-wg on its di and keep bits, against the plain
+    versions, whatever the rule picks there for K1."""
     b, sq, sk, h, d = chip_smoke.site_shape(site)
     assert dkv_variant(sq, sk, torch.bfloat16, d) == "wg"
+    assert dq_variant(sq, sk, torch.bfloat16, d) == "wg"
     q, k, v, valid = chip_smoke.site_inputs(gen, site, torch.bfloat16)
     seed = 0x517E if rate else None
     out, lse = _launch_fwd("wg", q, k, v, valid, rate, seed)
@@ -1213,11 +1220,13 @@ def test_warpgroup_kernels_match_plain_at_their_sites(gen, site, rate):
     torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-6)
     do = torch.randn(out.shape, device="cuda", generator=gen).to(q.dtype)
     args = (q, k, v, valid, out, lse, do, rate, seed)
-    dk, dv = _launch_dkv("wg", *args)
+    dq, dk, dv, bits = chip_smoke.wg_pair(args)
+    if rate:
+        chip_smoke.check_bits(site, bits, seed, rate, (b, sq, sk, h, d))
     wants = attention_bwd_plain(*args)
     torch.cuda.synchronize()
     scale = max(w.float().abs().max().item() for w in wants)
-    for got, w in ((dk, wants[1]), (dv, wants[2])):
+    for got, w in ((dq, wants[0]), (dk, wants[1]), (dv, wants[2])):
         rel_close(got, w, GRAD_TOL[torch.bfloat16], floor=scale)
 
 
@@ -1226,10 +1235,10 @@ def test_warpgroup_kernels_match_plain_at_their_sites(gen, site, rate):
 def test_dropout_mask_is_exact_through_the_warpgroup_kernels(gen, shape):
     """K1-wg's kept set read off its output with v one-hot over the head
     dim (D keys at a time), and K3-wg's off dv with q = 0 (p uniform over
-    the live keys, lse the log of their count, di = 0) and dO one-hot for
-    D queries at a time: each equals the plain Philox mask on every live
-    key, where Sk % 4 == 0 (one Philox call per 4 decisions) and where
-    not."""
+    the live keys, lse the log of their count, O = 0, so K2-wg's di = 0)
+    and dO one-hot for D queries at a time, K3-wg reading the keep bits
+    K2-wg wrote on the same inputs: each equals the plain Philox mask on
+    every live key, where Sk % 4 == 0 and where not."""
     b, sq, sk, h, d = shape
     q, k, v, valid = inputs(gen, b, sq, sk, h, d, torch.bfloat16)
     rate, seed = 0.1, 0x6E6E
@@ -1246,13 +1255,12 @@ def test_dropout_mask_is_exact_through_the_warpgroup_kernels(gen, shape):
     zero = torch.zeros_like(q)
     lse = live_keys.sum(-1).float().log()[:, None, None].expand(
         b, h, sq).contiguous()
-    di = torch.zeros_like(lse)
     for i0 in range(0, sq, d):
         n = min(d, sq - i0)
         do = torch.zeros_like(q)
         do[:, i0:i0 + n, :, :n] = torch.eye(n, device="cuda")[:, None, :]
-        _, dv = _launch_dkv("wg", zero, k, v, valid, zero, lse, do, rate,
-                            seed, di)
+        _, _, dv, _ = chip_smoke.wg_pair((zero, k, v, valid, zero, lse, do,
+                                          rate, seed))
         kept = dv[..., :n].permute(0, 2, 3, 1) != 0
         live = live_keys[:, None, None, :].expand_as(kept)
         assert torch.equal(kept[live], keep[:, :, i0:i0 + n][live])
@@ -1272,23 +1280,26 @@ def test_k3_mask_is_exact_past_2_to_the_32(gen):
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_function_gradients_through_the_warpgroup_kernel(gen, rate):
-    """FlashAttentionFn at a shape where the rule sends K3 to its
-    warpgroup kernel: K2-TC hands it di, and the gradients match the
-    plain path's; the backward counts one K2-TC and one K3-wg launch."""
+    """FlashAttentionFn at a shape where the rule sends K2 and K3 to their
+    warpgroup kernels: K2-wg hands K3-wg di and the keep bits, and the
+    gradients match the plain path's; the backward counts one K2-wg and
+    one K3-wg launch, and no keep bits from keep_bits_plain."""
     q, k, v, valid = inputs(gen, 2, 300, 300, 4, 32, torch.bfloat16)
     assert dkv_variant(300, 300, torch.bfloat16, 32) == "wg"
     seed = 91 if rate else None
     do = torch.randn(q.shape, device="cuda", generator=gen).to(q.dtype)
     grads = {}
-    before = (flash_attn_bwd_dq.launches_tc, flash_attn_bwd_dkv.launches_wg)
+    before = (flash_attn_bwd_dq.launches_wg, flash_attn_bwd_dkv.launches_wg,
+              flash_attn_bwd_dkv.bits_plain)
     for name, fn in (("kernel", FlashAttentionFn.apply),
                      ("plain", lambda *a: attention_plain(
                          *a[:4], dropout_rate=a[4], seed=a[5]))):
         leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
         fn(*leaves, valid, rate, seed).backward(do)
         grads[name] = [x.grad for x in leaves]
-    assert (flash_attn_bwd_dq.launches_tc - before[0],
-            flash_attn_bwd_dkv.launches_wg - before[1]) == (1, 1)
+    assert (flash_attn_bwd_dq.launches_wg - before[0],
+            flash_attn_bwd_dkv.launches_wg - before[1],
+            flash_attn_bwd_dkv.bits_plain - before[2]) == (1, 1, 0)
     scale = max(w.float().abs().max().item() for w in grads["plain"])
     for got, want in zip(grads["kernel"], grads["plain"]):
         rel_close(got, want, GRAD_TOL[torch.bfloat16], floor=scale)
@@ -1313,17 +1324,41 @@ def test_warpgroup_kernels_refuse_what_they_do_not_take(gen):
     args = (qb, kb, vb, valid, out, lse, out, 0.0, None)
     with pytest.raises(ValueError, match="di"):
         _launch_dkv("wg", *args, lse.double())
-    # without di, K3-wg computes it in its wrapper (di_plain), also through
-    # the wrapper where the rule sends K3 to "wg"
+    # without di, K3-wg computes it in its wrapper (di_plain), and without
+    # keep bits it takes keep_bits_plain's (counted in bits_plain), also
+    # through the wrapper where the rule sends K3 to "wg"
     q2, k2, v2, valid2 = inputs(gen, 2, 256, 256, 2, 32, torch.bfloat16)
-    out2, lse2 = _launch_fwd("wg", q2, k2, v2, valid2, 0.0, None)
-    args2 = (q2, k2, v2, valid2, out2, lse2, out2, 0.0, None)
-    want = _launch_dkv("wg", *args2, di_plain(out2, out2))
-    for got in (_launch_dkv("wg", *args2), flash_attn_bwd_dkv(*args2)):
-        assert all(chip_smoke.same_bits(x, y) for x, y in zip(got, want))
+    for rate, seed in ((0.0, None), (0.1, 0xB175)):
+        out2, lse2 = _launch_fwd("wg", q2, k2, v2, valid2, rate, seed)
+        args2 = (q2, k2, v2, valid2, out2, lse2, out2, rate, seed)
+        bits = (keep_bits_plain(seed, 2, 2, 256, 256, rate, "cuda")
+                if rate else None)
+        want = _launch_dkv("wg", *args2, di_plain(out2, out2), bits)
+        plain_before = flash_attn_bwd_dkv.bits_plain
+        for got in (_launch_dkv("wg", *args2), flash_attn_bwd_dkv(*args2)):
+            assert all(chip_smoke.same_bits(x, y) for x, y in zip(got, want))
+        assert flash_attn_bwd_dkv.bits_plain - plain_before == (
+            2 if rate else 0)
     with pytest.raises(ValueError, match="di_out"):
         _launch_dq("tf32x3", q, k, v, valid, q, lse, q, 0.0, None,
                    di_out=torch.empty_like(lse))
+    # keep bits: uint32 [B, H, Sq, 4 ceil(Sk / 128)], with dropout only,
+    # refused before any launch
+    outd, lsed = _launch_fwd("wg", qb, kb, vb, valid, 0.1, 3)
+    argsd = (qb, kb, vb, valid, outd, lsed, outd, 0.1, 3)
+    counts = lambda: (flash_attn_bwd_dq.launches,  # noqa: E731
+                      flash_attn_bwd_dkv.launches)
+    before = counts()
+    good = new_keep_bits(qb, kb)
+    with pytest.raises(TypeError, match="uint32"):
+        _launch_dkv("wg", *argsd, keep_bits=good.view(torch.int32))
+    with pytest.raises(ValueError, match="bits_out"):
+        _launch_dq("wg", *argsd, bits_out=good[:, :, :-1])
+    with pytest.raises(ValueError, match="rate 0"):
+        _launch_dq("wg", *args, bits_out=good)
+    with pytest.raises(ValueError, match="K2-wg"):
+        _launch_dq("tc", *argsd, bits_out=good)
+    assert counts() == before
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
@@ -1332,8 +1367,9 @@ def test_dq_warpgroup_kernel_matches_plain(gen, shape, rate):
     """K2-wg launched directly at the edges of its 128-query and 64-key
     tiles: dq against attention_bwd_plain at GRAD_TOL of the largest plain
     gradient, batch row 0 with every key masked; its di_out equals
-    di_plain; a second call gives the same bits; each launch counted on
-    launches_wg."""
+    di_plain, and with dropout its bits_out keep_bits_plain's; a second
+    call gives the same bits, dq's and the keep bits; each launch counted
+    on launches_wg."""
     b, sq, sk, h, d = shape
     q, k, v, valid = inputs(gen, b, sq, sk, h, d, torch.bfloat16)
     seed = 0x6E0_0000_0002 if rate else None
@@ -1342,14 +1378,19 @@ def test_dq_warpgroup_kernel_matches_plain(gen, shape, rate):
     args = (q, k, v, valid, out, lse, do, rate, seed)
     before = flash_attn_bwd_dq.launches_wg
     di = torch.full_like(lse, float("nan"))
-    dq = _launch_dq("wg", *args, di_out=di)
+    bits = new_keep_bits(q, k) if rate else None
+    dq = _launch_dq("wg", *args, di_out=di, bits_out=bits)
     wants = attention_bwd_plain(*args)
     torch.cuda.synchronize()
     assert dq.dtype == torch.bfloat16 and dq.shape == q.shape
     torch.testing.assert_close(di, di_plain(out, do), atol=1e-5, rtol=1e-5)
     scale = max(w.float().abs().max().item() for w in wants)
     rel_close(dq, wants[0], GRAD_TOL[torch.bfloat16], floor=scale)
-    assert chip_smoke.same_bits(dq, _launch_dq("wg", *args))
+    bits2 = new_keep_bits(q, k) if rate else None
+    assert chip_smoke.same_bits(dq, _launch_dq("wg", *args, bits_out=bits2))
+    if rate:
+        chip_smoke.check_bits("K2-wg", bits, seed, rate, shape)
+        assert torch.equal(bits.view(torch.int32), bits2.view(torch.int32))
     assert flash_attn_bwd_dq.launches_wg - before == 2
 
 
@@ -1365,7 +1406,8 @@ def test_dq_warpgroup_kernel_matches_plain_at_the_long_sites(gen, site,
     inputs, the whole batch launched and batch row 0 (whose dropout
     offsets are those of B=1) held to attention_bwd_plain at B=1, where
     its [H, S, S] scores fit: dq at GRAD_TOL of the largest plain
-    gradient, di against di_plain."""
+    gradient, di against di_plain; with dropout the whole batch's keep
+    bits against keep_bits_plain."""
     b, sq, sk, h, d = chip_smoke.site_shape(site)
     assert dq_variant(sq, sk, torch.bfloat16, d) == "wg"
     q, k, v, valid = chip_smoke.site_inputs(gen, site, torch.bfloat16)
@@ -1375,7 +1417,10 @@ def test_dq_warpgroup_kernel_matches_plain_at_the_long_sites(gen, site,
     do = torch.randn(out.shape, device="cuda", generator=gen).to(q.dtype)
     args = (q, k, v, valid, out, lse, do, rate, seed)
     di = torch.empty_like(lse)
-    dq = _launch_dq("wg", *args, di_out=di)
+    bits = new_keep_bits(q, k) if rate else None
+    dq = _launch_dq("wg", *args, di_out=di, bits_out=bits)
+    if rate:
+        chip_smoke.check_bits(site, bits, seed, rate, (b, sq, sk, h, d))
     row0 = tuple(x[:1] if torch.is_tensor(x) else x for x in args)
     wants = attention_bwd_plain(*row0)
     torch.cuda.synchronize()
@@ -1390,11 +1435,12 @@ def test_dq_warpgroup_kernel_matches_plain_at_the_long_sites(gen, site,
 @pytest.mark.parametrize("shape", chip_smoke.KEEP_SHAPES)
 def test_keep_bits_masks_are_exact_at_every_row_phase(gen, shape, kernel,
                                                       variant):
-    """Every kernel that draws its dropout by flash_tc::keep_bits (K1 and
-    K2, "tc", "wg" and "tf32x3"), launched directly at key counts that are
-    not a multiple of 4 (22, 90, 490, 2090: row phases 0 and 2; 17, 131,
-    385: every phase): its kept set, read off K1's output or K2's dq,
-    equals the plain Philox mask on every live key
+    """Every kernel that draws its dropout mask (K1 and K2, "tc", "wg" and
+    "tf32x3": flash_tc::keep_bits, and K2-wg's producer warpgroup),
+    launched directly at key counts that are not a multiple of 4 (22, 90,
+    490, 2090: row phases 0 and 2; 17, 131, 385: every phase): its kept
+    set, read off K1's output or K2's dq, equals the plain Philox mask on
+    every live key, and K2-wg's keep bits equal keep_bits_plain's
     (chip_smoke.check_mask_exact, check_dq_mask_exact, as phase 3e)."""
     dt = torch.float32 if variant == "tf32x3" else torch.bfloat16
     if kernel == "K1":
@@ -1429,15 +1475,17 @@ def test_keep_bits_masks_are_exact_past_2_to_the_32_off_a_multiple_of_4(
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_function_gradients_through_the_dq_warpgroup_kernel(gen, rate):
     """FlashAttentionFn where the rule sends K2 and K3 to their warpgroup
-    kernels: K2-wg hands K3-wg di, and the gradients match the plain
-    path's; the backward counts one K2-wg and one K3-wg launch."""
+    kernels: K2-wg hands K3-wg di and the keep bits, and the gradients
+    match the plain path's; the backward counts one K2-wg and one K3-wg
+    launch, and K3-wg takes no keep bits from keep_bits_plain."""
     q, k, v, valid = inputs(gen, 2, 2048, 2048, 2, 32, torch.bfloat16)
     assert dq_variant(2048, 2048, torch.bfloat16, 32) == "wg"
     assert dkv_variant(2048, 2048, torch.bfloat16, 32) == "wg"
     seed = 93 if rate else None
     do = torch.randn(q.shape, device="cuda", generator=gen).to(q.dtype)
     grads = {}
-    before = (flash_attn_bwd_dq.launches_wg, flash_attn_bwd_dkv.launches_wg)
+    before = (flash_attn_bwd_dq.launches_wg, flash_attn_bwd_dkv.launches_wg,
+              flash_attn_bwd_dkv.bits_plain)
     for name, fn in (("kernel", FlashAttentionFn.apply),
                      ("plain", lambda *a: attention_plain(
                          *a[:4], dropout_rate=a[4], seed=a[5]))):
@@ -1445,7 +1493,8 @@ def test_function_gradients_through_the_dq_warpgroup_kernel(gen, rate):
         fn(*leaves, valid, rate, seed).backward(do)
         grads[name] = [x.grad for x in leaves]
     assert (flash_attn_bwd_dq.launches_wg - before[0],
-            flash_attn_bwd_dkv.launches_wg - before[1]) == (1, 1)
+            flash_attn_bwd_dkv.launches_wg - before[1],
+            flash_attn_bwd_dkv.bits_plain - before[2]) == (1, 1, 0)
     scale = max(w.float().abs().max().item() for w in grads["plain"])
     for got, want in zip(grads["kernel"], grads["plain"]):
         rel_close(got, want, GRAD_TOL[torch.bfloat16], floor=scale)

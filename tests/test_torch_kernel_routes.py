@@ -6,9 +6,9 @@ bound.
 The rule (kernels/attention.py: fwd_variant, dq_variant, dkv_variant) is
 written out here as a table, apart from the code: below 16 queries the
 decode kernels; bf16 K1, K2 and K3 on their warpgroup kernels ("wg") at a
-head dim padding to 32 from WG_MIN's queries and keys (for K3 from 2040
-keys only a multiple of 4), on the mma.sync tensor-core kernels ("tc")
-elsewhere; float32 on the 3xTF32 kernels. It is checked at every attention site of
+head dim padding to 32 from WG_MIN's queries and keys (K2's and K3's the
+same: K3-wg reads K2-wg's keep bits), on the mma.sync tensor-core kernels
+("tc") elsewhere; float32 on the 3xTF32 kernels. It is checked at every attention site of
 refcoco_det (one to four feature levels), flickr (one and two) and the
 decoder, in both dtypes, at the shapes chip_smoke.py uses on the card
 (CALL_SITES, NEW_SITES). Nothing here needs a card.
@@ -42,9 +42,8 @@ def want_variant(kernel: str, sq: int, sk: int, dtype_name: str,
         return "simt"
     if dtype_name == "float32":
         return "tf32x3"
-    least = {"fwd": 2040, "dq": 490, "dkv": 256}[kernel]
-    aligned = kernel != "dkv" or sk < 2040 or sk % 4 == 0
-    if 16 < d <= 32 and sq >= least and sk >= least and aligned:
+    least = {"fwd": 2040, "dq": 256, "dkv": 256}[kernel]
+    if 16 < d <= 32 and sq >= least and sk >= least:
         return "wg"
     return "tc"
 
@@ -66,11 +65,9 @@ def test_rule_at_every_model_site(site, dtype_name):
 def test_warpgroup_kernels_take_the_sites_they_measured_faster_at():
     """The sites the rule gives "wg" in bf16: K1 the encoders at two to
     four levels (refcoco_det's 2040, 8440, 8540 tokens, flickr's 2090), K2
-    those and flickr's encoder at one level (490), K3 refcoco_det's at two
-    to four levels and both encoders at one level (440, at B=8 and at the
-    from-scratch recipe's 16, and 490), not
-    flickr's at two levels (2090 tokens, not a multiple of 4: K3 draws
-    Philox per element there); the short sites (BERT, the decoder at 16
+    and K3 those and both encoders at one level (440, at B=8 and at the
+    from-scratch recipe's 16, and 490), together at every site, as K3-wg
+    reads K2-wg's keep bits; the short sites (BERT, the decoder at 16
     queries) keep "tc", and float32 never takes "wg"."""
     bf16 = torch.bfloat16
     rules = {"fwd": attn.fwd_variant, "dkv": attn.dkv_variant,
@@ -81,13 +78,12 @@ def test_warpgroup_kernels_take_the_sites_they_measured_faster_at():
     levels = ("vl_encoder_4_levels", "vl_encoder_4_levels_b8",
               "vl_encoder_4_levels_b8_padded", "vl_encoder_3_levels_b8",
               "vl_encoder_2_levels_b8")
+    one_level = ("multi_vl_encoder_self", "vl_encoder_self",
+                 "scratch_vl_encoder_self")
     assert wg == ({(kernel, site) for kernel in rules
                    for site in levels + ("multi_vl_encoder_2_levels",)}
-                  | {("dq", "multi_vl_encoder_self"),
-                     ("dkv", "multi_vl_encoder_self"),
-                     ("dkv", "vl_encoder_self"),
-                     ("dkv", "scratch_vl_encoder_self")}) - {
-                         ("dkv", "multi_vl_encoder_2_levels")}
+                  | {(kernel, site) for kernel in ("dq", "dkv")
+                     for site in one_level})
     for site in SITES:
         _, sq, sk, _, d = chip_smoke.site_shape(site)
         assert "wg" not in (rule(sq, sk, torch.float32, d)
@@ -166,7 +162,9 @@ def test_bound_takes_the_largest_of_its_terms(monkeypatch):
     D=32, every key valid) on an H100's numbers: the exponentials (one
     MUFU.EX2 a pair at 16 a clock per SM) bound K1 above its tensor
     products, Philox's multiplies with dropout above both, and every
-    variant of a kernel has one bound."""
+    variant of a kernel has one bound but the warpgroup backward pair with
+    dropout, whose K2 writes the keep bits and whose K3 reads them and
+    draws nothing."""
     monkeypatch.setattr(chip_smoke, "CARD", {
         "sms": 132, "sm_clock_hz": 1.98e9, "philox_imad_per_call": 20.0})
     b, sq, sk, h, d = 8, 8540, 8540, 8, 32
@@ -189,10 +187,27 @@ def test_bound_takes_the_largest_of_its_terms(monkeypatch):
     for kernel in ("flash_attn_fwd", "flash_attn_bwd_dkv"):
         base = chip_smoke.attention_bound_ms(b, sq, sk, h, d, valid,
                                              "bfloat16", kernel, 0.1)
-        for suffix in ("_tc", "_wg"):
-            assert chip_smoke.attention_bound_ms(
-                b, sq, sk, h, d, valid, "bfloat16", kernel + suffix,
-                0.1) == base
+        assert chip_smoke.attention_bound_ms(
+            b, sq, sk, h, d, valid, "bfloat16", kernel + "_tc", 0.1) == base
+    assert chip_smoke.attention_bound_ms(
+        b, sq, sk, h, d, valid, "bfloat16", "flash_attn_fwd_wg",
+        0.1) == chip_smoke.attention_bound_ms(b, sq, sk, h, d, valid,
+                                              "bfloat16", "flash_attn_fwd", 0.1)
+    # the warpgroup backward pair with dropout: K2-wg writes the keep bits
+    # (4 ceil(Sk / 128) words a row), K3-wg reads them and draws nothing
+    words = b * h * sq * 4 * -(-sk // 128)
+    for kernel in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+        plain = chip_smoke.attention_bound_terms(b, sq, sk, h, d, valid,
+                                                 "bfloat16", kernel, 0.1)
+        wg = chip_smoke.attention_bound_terms(b, sq, sk, h, d, valid,
+                                              "bfloat16", kernel + "_wg", 0.1)
+        assert wg["bytes"] == pytest.approx(
+            plain["bytes"] + words * 4 / 3.35e12 * 1e3)
+        assert ("philox" in wg) == (kernel == "flash_attn_bwd_dq")
+        assert chip_smoke.attention_bound_terms(
+            b, sq, sk, h, d, valid, "bfloat16", kernel + "_wg",
+            0.0) == chip_smoke.attention_bound_terms(
+                b, sq, sk, h, d, valid, "bfloat16", kernel, 0.0)
 
 
 @pytest.mark.parametrize("form,per_product", [

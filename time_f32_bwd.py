@@ -10,10 +10,9 @@ call to the card, in turns (base, change, change, base), to compare two
 versions of the kernels. For each site (B=8 with random key padding and
 batch row 0 fully masked; encoder 440×440, H=8, D=32; BERT 40×40, H=12,
 D=64), without dropout and at 0.1, it prints one JSON line: the device
-ms per call of K1 (``_launch_fwd("tf32x3")``) and, in the same process,
-of the SIMT K1 (``_launch_fwd("simt")``), K2 (``_launch_dq("tf32x3")``)
-and K3 (``_launch_dkv``) by torch.profiler over 20 calls after 3 warm-up
-calls, K2's and K3's sum, K1's largest error of out and lse against
+ms per call of K1 (``_launch_fwd("tf32x3")``), K2
+(``_launch_dq("tf32x3")``) and K3 (``_launch_dkv``) by torch.profiler
+over 20 calls after 3 warm-up calls, K2's and K3's sum, K1's largest error of out and lse against
 ``attention_plain``, and the largest error of dq, dk and dv against
 ``attention_bwd_plain`` as a share of the largest plain gradient.
 """
@@ -75,7 +74,6 @@ def main():
             fwd_err = (got_out - out).abs().max().item()
             lse_err = (got_lse - lse).abs().max().item()
             k1 = device_ms(lambda: _launch_fwd("tf32x3", *fwd))
-            k1_simt = device_ms(lambda: _launch_fwd("simt", *fwd))
             args = (q, k, v, valid, out, lse, do, rate, seed)
             wants = attention_bwd_plain(*args)
             got = (_launch_dq("tf32x3", *args), *_launch_dkv("tf32x3", *args))
@@ -86,7 +84,6 @@ def main():
             dkv = device_ms(lambda: _launch_dkv("tf32x3", *args))
             print(json.dumps({"label": label, "site": site, "dropout": rate,
                               "fwd_device_ms": k1,
-                              "simt_fwd_device_ms": k1_simt,
                               "fwd_max_abs_err": fwd_err,
                               "lse_max_abs_err": lse_err,
                               "dq_device_ms": dq, "dkv_device_ms": dkv,
