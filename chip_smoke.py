@@ -100,11 +100,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    of the largest plain gradient in bf16, its di against di_plain, its
    keep bits against keep_bits_plain on every row, its dq and bits on a
    repeated call): on all the inputs where its scores fit, else on batch
-   row 0 (B=1).
+   row 0 (B=1). The same checks, untimed, at the four-level encoder with
+   each image padded on the canvas (masked keys in nearly every key tile).
    3e. The dropout draw of K1 and K2 exact in every kernel that draws
-   it, K1 "tc", "wg", "tf32x3" and K2 "tc", "tf32x3" (flash_tc::keep_bits)
-   and "wg" (its producer warpgroup's draw, whose keep bits must also
-   equal keep_bits_plain's), each launched directly (check_keep_bits): at
+   it, K1 "tc", "wg", "tf32x3" and K2 "tc", "wg", "tf32x3"
+   (flash_tc::keep_bits; K2-wg's keep bits must also equal
+   keep_bits_plain's), each launched directly (check_keep_bits): at
    key counts that are not a multiple of 4, even (22, 90, 490, 2090: row
    phases 0 and 2) and odd (17, 131, 385: every phase), and in bf16 in
    the last batch row of B=8 at 8539^2, whose element offsets run past
@@ -459,7 +460,7 @@ TRAIN_STEPS = 20
 WARM_STEPS = 3
 # phase 5's step by the rule and with K2 and K3 on "tc": turns of each,
 # steps a turn
-BWD_AB_TURNS = 2
+BWD_AB_TURNS = 4
 BWD_AB_STEPS = 5
 TRAIN_LOSS_TOL = 1e-5  # f32 kernel path vs plain path, relative
 TRAIN_GRAD_TOL = 1e-3  # relative L2 per trainable gradient
@@ -663,6 +664,10 @@ WG_TIME_SITES = ((SERVE_BATCH, 256, 256, 8, 32), "vl_encoder_self",
                  "vl_encoder_2_levels_b8", "multi_vl_encoder_2_levels",
                  "vl_encoder_4_levels_b8", "multi_decoder_cross")
 WG_TIME_TURNS = 3
+# and the sites phase 3d checks without timing them: the four-level
+# encoder with each image padded on the canvas (masked keys in nearly
+# every key tile)
+WG_CHECK_SITES = ("vl_encoder_4_levels_b8_padded",)
 # phase 3e: the shapes (B, Sq, Sk, H, D) at which the dropout draw of K1
 # and K2 (flash_tc::keep_bits) is checked exact in every kernel that calls
 # it: key counts that are not a multiple of 4, those of the model's sites
@@ -795,21 +800,24 @@ def function_sass(text: str, marker: str) -> str:
 
 
 # the sources whose kernels draw dropout by flash_tc::keep_bits: each is
-# instantiated for Sk % 4 == 0's path and the general one (K2-wg draws in
-# its producer warpgroup, one instance for every Sk)
+# instantiated for Sk % 4 == 0's path and the general one (K2-wg also for
+# no dropout)
 KEEP_CALLERS = ("flash_attn_fwd_tc.cu", "flash_attn_fwd_wg.cu",
                 "flash_attn_fwd_f32tc.cu", "flash_attn_bwd_dq_tc.cu",
-                "flash_attn_bwd_dq_f32tc.cu")
+                "flash_attn_bwd_dq_wg.cu", "flash_attn_bwd_dq_f32tc.cu")
 
 
 def instance_markers(src: str, variant: str) -> dict:
     """The part of the D=32 instance's mangled name that picks it in the
     machine code and in ptxas's log: a "tc" or "tf32x3" kernel's holds
-    ILi32E, a "wg" kernel has that one instance, named *_wg_kernel (K2-wg
-    two, without dropout and with it: ILb0E, ILb1E); a keep_bits caller's
-    two instances add Lb1E (Sk % 4 == 0) or Lb0E."""
+    ILi32E, a "wg" kernel has that one instance, named *_wg_kernel; a
+    keep_bits caller's two instances add Lb1E (Sk % 4 == 0) or Lb0E (K2-wg
+    three, <with dropout, Sk % 4 == 0>: ILb0ELb1E without dropout, ILb1ELb1E
+    and ILb1ELb0E with)."""
     if src == "flash_attn_bwd_dq_wg.cu":
-        return {"no dropout": "wg_kernelILb0E", "dropout": "wg_kernelILb1E"}
+        return {"no dropout": "wg_kernelILb0ELb1E",
+                "Sk % 4 == 0": "wg_kernelILb1ELb1E",
+                "Sk % 4 != 0": "wg_kernelILb1ELb0E"}
     base = "wg_kernel" if variant == "wg" else "ILi32E"
     if src not in KEEP_CALLERS:
         return {"": base}
@@ -1759,7 +1767,8 @@ def wg_times(report: dict) -> list:
     every row, and K2-wg's dq and keep bits on a repeated call: on all the
     inputs where the plain version's scores fit (B * H * Sq * Sk * 4 bytes
     under 4 GB), else on batch row 0, whose dropout offsets are the same
-    at B=1. K3-wg takes di and the keep bits from K2-wg."""
+    at B=1. K3-wg takes di and the keep bits from K2-wg. At WG_CHECK_SITES
+    the same checks, without the times."""
     import torch
     import torch.nn.functional as F
 
@@ -1773,7 +1782,8 @@ def wg_times(report: dict) -> list:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0x3D)
     rows = []
-    for site in WG_TIME_SITES:
+    for site in WG_TIME_SITES + WG_CHECK_SITES:
+        timed = site in WG_TIME_SITES
         b, sq, sk, h, d = site_shape(site)
         q, k, v, valid = site_inputs(gen, site, torch.bfloat16)
         do = torch.randn(q.shape, device="cuda",
@@ -1832,6 +1842,20 @@ def wg_times(report: dict) -> list:
                 raise AssertionError(f"phase 3d {site} dropout {rate}: wg "
                                      f"against {against}: {errs}, tolerances "
                                      f"{tols}")
+            if not timed:
+                rows.append({
+                    "site": site, "B": b, "Sq": sq, "Sk": sk, "H": h, "D": d,
+                    "dropout": rate, "checked_against": against,
+                    "max_abs_err": errs, "tol": tols, "grad_scale": scale,
+                    "grad_scale_dq": scale_dq, "di_max_abs_err": di_err,
+                    "di_tol": di_tol, "keep_bits_words_checked": bits_words})
+                print(f"wg check {site} B={b} Sq={sq} Sk={sk} bf16 dropout "
+                      f"{rate} (not timed): wg against {against}: {errs} "
+                      f"(tolerances {tols}), di {di_err:.3g}, keep bits "
+                      f"equal to keep_bits_plain on {bits_words} words, a "
+                      f"repeated call's dq and bits the same", flush=True)
+                del out, lse, got, want, di_want, bits
+                continue
 
             def sdpa():
                 return F.scaled_dot_product_attention(

@@ -326,7 +326,8 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         valid_mask: Optional[torch.Tensor], o: torch.Tensor,
                         lse: torch.Tensor, do: torch.Tensor,
                         dropout_rate: float = 0.0, seed: Optional[int] = None,
-                        scale: Optional[float] = None
+                        scale: Optional[float] = None,
+                        keep_bits: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernels' function in plain PyTorch, the flash-2
     formulas of ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel`` written out:
@@ -337,10 +338,15 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     with x the forward's logits and keep its dropout multiplier; scale is
     1 / sqrt(D) unless given. o and lse are the forward's outputs, do the
-    gradient of o. Computes in f32 (f64 for f64 inputs); returns (dq, dk,
-    dv) in the input dtype.
+    gradient of o. With ``keep_bits`` (``keep_bits_plain``'s layout, as
+    K2-wg hands them to K3-wg; only with dropout) the mask is read from
+    them in place of the seed. Computes in f32 (f64 for f64 inputs);
+    returns (dq, dk, dv) in the input dtype.
     """
-    _check_dropout(dropout_rate, seed)
+    if keep_bits is None:
+        _check_dropout(dropout_rate, seed)
+    elif dropout_threshold(dropout_rate) == 0:
+        raise ValueError("keep_bits go with a dropout rate above 0")
     acc = _plain_precision(q, do)
     scale = _scale(q, scale)
     with _no_autocast(q.device):
@@ -350,8 +356,12 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         pk = p
         if dropout_rate > 0.0:
             b, h, sq, sk = p.shape
-            keep = _keep_scale(dropout_rate, seed, b, h, sq, sk, acc,
-                               q.device)
+            if keep_bits is None:
+                keep = _keep_scale(dropout_rate, seed, b, h, sq, sk, acc,
+                                   q.device)
+            else:
+                keep = (unpack_keep_bits(keep_bits, sk).to(acc)
+                        * (1.0 / (1.0 - dropout_rate)))
             pk = p * keep
             dp = dp * keep
         di = (do.to(acc) * o.to(acc)).sum(-1).transpose(1, 2)  # [B, H, Sq]
@@ -368,41 +378,6 @@ def unpack_keep_bits(keep_bits: torch.Tensor, sk: int) -> torch.Tensor:
     shifts = torch.arange(32, dtype=torch.int64, device=words.device)
     bits = (words[..., None] >> shifts) & 1
     return bits.flatten(-2)[..., :sk].bool()
-
-
-def dkv_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              valid_mask: Optional[torch.Tensor], lse: torch.Tensor,
-              do: torch.Tensor, di: torch.Tensor,
-              keep_bits: Optional[torch.Tensor], dropout_rate: float = 0.0,
-              scale: Optional[float] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3-wg's function in plain PyTorch, on what the kernel reads: di =
-    rowsum(dO * O) [B, H, Sq] in place of O, and the dropout mask as keep
-    bits (``keep_bits_plain``'s layout; None without dropout) in place of
-    the seed. ``attention_bwd_plain``'s dk and dv, in the same order of
-    operations: from the same mask and the same di it gives the same
-    bits. Computes in f32 (f64 for f64 inputs); returns (dk, dv) in the
-    input dtype."""
-    dropout_threshold(dropout_rate)
-    if (keep_bits is None) != (dropout_rate == 0.0):
-        raise ValueError("keep_bits go with a dropout rate above 0 and only "
-                         "with one")
-    acc = _plain_precision(q, do)
-    scale = _scale(q, scale)
-    with _no_autocast(q.device):
-        p = torch.exp(_logits(q, k, valid_mask, acc, scale)
-                      - lse.to(acc)[..., None])  # [B, H, Sq, Sk]
-        dp = torch.einsum("bqhd,bkhd->bhqk", do.to(acc), v.to(acc))
-        pk = p
-        if dropout_rate > 0.0:
-            keep = (unpack_keep_bits(keep_bits, k.shape[1]).to(acc)
-                    * (1.0 / (1.0 - dropout_rate)))
-            pk = p * keep
-            dp = dp * keep
-        ds = p * (dp - di.to(acc)[..., None])
-        dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.to(acc)) * scale
-        dv = torch.einsum("bhqk,bqhd->bkhd", pk, do.to(acc))
-    return dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check_dropout(rate: float, seed: Optional[int]) -> None:
@@ -543,10 +518,17 @@ def dq_variant(sq: int, sk: int, dtype: torch.dtype, d: int) -> str:
         0.9354, 4.5304 / 1.9152 (SDPA 1.5143, 1.8242);
       the VL encoder at four levels, 8540^2, B=8: 14.994 / 6.500, 24.764
         / 13.782 (SDPA 11.294, 13.732).
-    K2 alone at 8540^2 with dropout: "tc" 9.966, "wg" 9.277 (its draw of
-    the mask bounds it; flash_attn_bwd_dq_wg.cu). Below 256 queries and
-    keys the model has no site, and the decoder's 16 queries (a tile of
-    128 an eighth full) keep "tc"."""
+    K2 alone with dropout, "tc" / "wg" (the consumers' draw with the keep
+    bits, time_keep_ab.py in turns): 8540^2, B=8: 9.985 / 8.912; 2090^2,
+    B=16: 1.345 / 1.322; 440^2, B=8: 0.0404 / 0.0375 (its draw of the
+    mask bounds it; flash_attn_bwd_dq_wg.cu). At 440^2 the host queues a
+    "wg" pair in 132.5 us against 113.3 for "tc" (its tensor maps), 0.11
+    ms more in a refcoco_det step of six pairs, which is host-bound at
+    about 170 ms: by the rule 170.51 ms a step against 174.83 with the
+    pair on "tc" (time_keep_ab.py rec, medians of four turns in turns),
+    so the pair keeps "wg" there. Below 256 queries and keys the model has
+    no site, and the decoder's 16 queries (a tile of 128 an eighth full)
+    keep "tc"."""
     if d > MAX_HEAD_DIM:
         return "plain"
     if sq < TC_MIN_ROWS:

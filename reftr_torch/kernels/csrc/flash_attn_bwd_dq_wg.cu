@@ -22,8 +22,12 @@
 // whole number of 16-byte pieces; bit j % 32 of word j / 32 of row
 // (b, h, i) is the keep decision of element ((b * H + h) * Sq + i) * Sk +
 // j (kernels/attention.py::keep_bits_plain), masked keys and fully masked
-// rows included; bits past Sk are 0. Each 128-key piece of a row (two key
-// tiles) is one 16-byte store.
+// rows included; bits past Sk are 0. Each row's 16-byte piece of two key
+// tiles is one store from the lane that holds the row (a warp's 16 rows
+// lie W * 4 bytes apart). Measured at 8540^2, B=8 (PERF.md §6): the
+// stores cost 0.06 ms (8.91 ms against 8.85 without bits_out); a TMA
+// store of each consumer warpgroup's 64 rows through a shared-memory tile
+// cost 1.2 ms, for the warpgroup barrier it needs every two tiles.
 //
 // What bounds it. At the four-level encoder (B=8, H=8, 8540^2, D=32) the
 // three products are 0.91 ms at 989 TFLOP/s and the bytes 0.04 ms, with
@@ -31,66 +35,66 @@
 // exponential on the special-function unit (1.11 ms at 16 a clock per SM
 // and 1.98 GHz), a few FP32 instructions for ds and, with dropout, a
 // quarter of a Philox call (1.17e9 calls: 1.32 ms of multiplies at 64 a
-// clock per SM, chip_smoke.py's bound). Measured on an H100 (PERF.md §6),
-// the draw is what bounds it with dropout: 1.17e9 Philox calls take about
-// 9.2 ms here on 8 warps an SM, against 3.1 ms for the rest of the
-// kernel; more warps drawing or more counters in flight a thread moved it
-// little, so the multiplies' issue rate (IMAD.WIDE, 19 a call) is the
-// likely limit, well below the 64 a clock the bound assumes.
+// clock per SM, chip_smoke.py's bound). Measured on an H100 (PERF.md §6)
+// the draw is what bounds it with dropout, at about a quarter of that
+// rate (IMAD.WIDE's issue rate, 19 a call, the likely limit).
+//
+// Where the draw runs, by measurement (time_keep_ab.py, this kernel and
+// the alternative in turns on one H100; device ms with dropout 0.1,
+// 8540^2 B=8 / 2090^2 B=16 / 440^2 B=16 / 440^2 B=8):
+// - in the consumer warpgroups while S and dP run, then gathered into
+//   each row's words by three shuffles in the quad (this design): 8.91 /
+//   1.322 / 0.0700 / 0.0375;
+// - in the producer warpgroups, off the consumers' path, into a ring of
+//   bit tiles beside the K/V stages (two drawing warpgroups, 512 threads,
+//   producers at setmaxnreg 64, consumers 192, 4 Philox chains a thread):
+//   9.27 / 1.297 / 0.0682 / 0.0359; one drawing warpgroup spilled at
+//   setmaxnreg 40 and ran slower still. The producers' draw is the
+//   consumers' critical path once it is slower than they are, since each
+//   stage waits for its bits; in the consumers it fills the issue slots
+//   their waits on the products leave. Where the time goes (8540^2, six
+//   calls a four-level step) the consumers' draw is the faster, and it
+//   shares flash_tc::keep_bits, bit for bit, with K1 and K2-TC.
+// Without dropout both read 3.08 ms at 8540^2.
 //
 // Design (K1-wg's, flash_attn_fwd_wg.cu, with flash_wg.cuh's pieces).
-// - One block per (batch * head, 128 queries): two producer warpgroups
-//   and two consumer warpgroups of 64 query rows, 512 threads, one block
-//   an SM.
-// - The first producer warp loads Q and dO once by TMA (they stay
-//   resident) and keeps a ring of kStages K and V tiles of 64 keys in
-//   flight through the rank-4 tensor maps over [B, S, H, D] (zeros past
-//   Sk), one mbarrier a stage; the consumers give a stage back on an
-//   "empty" mbarrier. Its 32 lanes ballot the tile's live keys (valid and
-//   in range; in a fully masked row every key in range), read a tile
-//   ahead, into 64 bits beside the stage.
-// - The draw. With dropout all 256 producer threads draw the mask, lanes
-//   2r and 2r + 1 of a warp the two halves of query row r's 64 decisions
-//   a key tile (8 Philox counters each, 9 where the row's element offset
-//   is not a multiple of 4: a funnel shift by that phase aligns the
-//   counters' words to the keys), into a ring of bit tiles beside the K/V
-//   stages, and each warp arrives once on the stage's "full" mbarrier,
-//   which so completes on the TMA bytes and the 8 warps' draws. Each
-//   thread keeps 4 Philox chains in flight, written round by round (left
-//   to the compiler, one unrolled call after another issued as one chain),
-//   with the round keys as adds to the seed and the decisions as the carry
-//   of word + 2^32 - threshold * 256 (no predicates). The draw runs up to
-//   kStages tiles ahead of the consumers, off their path; they read their
-//   fragment's bits from shared memory (one 8-byte load a row a tile).
-// - Register split, by measurement at 8540^2, B=8 (PERF.md §6): 512
-//   threads leave 128 registers a thread at launch; the producers keep 64
-//   (at 40, and at 56 with one drawing warpgroup, the draw spilled and ran
-//   far slower) and the consumers take 192 (the consumer's state is 112
-//   registers of accumulators and fragments; 232 to 192 measured alike).
-//   One drawing warpgroup instead of two (384 threads, producers at 104,
-//   consumers at 200) ran about an eighth slower with dropout. The
-//   consumers drew the mask themselves before this design
-//   (flash_tc::keep_bits while S and dP ran): faster alone with dropout,
-//   slower without, and K3-wg then drew it again (PERF.md §6).
-// - The kernel has an instance with dropout and one without: a branch on
-//   the rate inside the element loop cost about a tenth without dropout.
+// - One block per (batch * head, 128 queries): a producer warpgroup
+//   (setmaxnreg 40) and two consumer warpgroups of 64 query rows
+//   (setmaxnreg 232; the consumer's state is 112 registers of
+//   accumulators and fragments, and the draw's Philox calls take the
+//   rest), 384 threads, one block an SM.
+// - The producer warp loads Q and dO once by TMA (they stay resident) and
+//   keeps a ring of kStages K and V tiles of 64 keys in flight through the
+//   rank-4 tensor maps over [B, S, H, D] (zeros past Sk), one mbarrier a
+//   stage; the consumers give a stage back on an "empty" mbarrier. Its 32
+//   lanes ballot the tile's live keys (valid and in range; in a fully
+//   masked row every key in range), read a tile ahead, into 64 bits beside
+//   the stage.
+// - The kernel has an instance without dropout and two with (the draw's
+//   path for Sk % 4 == 0 and the general one): a branch on the rate inside
+//   the element loop cost about a tenth of the time without dropout.
 // - di = rowsum(dO o O) once per row: dO from the resident tile, O read
 //   once from device memory, the row's quad of lanes summing 8 columns
 //   each.
 // - Per tile: S = Q K^T and dP = dO V^T by wgmma m64n64k16 from shared
-//   memory, issued together. p = 2^(s * scale * log2 e - lse * log2 e) is
-//   one FFMA and one MUFU.EX2 (ex2.approx); a dead key's p is 0, selected
-//   only in a tile whose bits show one. dS = p o (dP o keep - di) is
-//   rounded to bf16 in registers as the A fragments of dq_part = dS K,
-//   wgmma m64n32k16 in the RS form with K as the MN-major B operand (as
-//   K1-wg takes V for P V).
+//   memory, issued together; while they run the warpgroup draws the
+//   tile's dropout decisions (flash_tc::keep_bits: the accumulator's
+//   per-warp layout is mma.sync's). p = 2^(s * scale * log2 e - lse *
+//   log2 e) is one FFMA and one MUFU.EX2 (ex2.approx); a dead key's p is
+//   0, selected only in a tile whose bits show one. dS = p o (dP o keep -
+//   di) is rounded to bf16 in registers as the A fragments of dq_part =
+//   dS K, wgmma m64n32k16 in the RS form with K as the MN-major B operand
+//   (as K1-wg takes V for P V). While dq_part runs, three shuffles in each
+//   quad turn the tile's decisions into its rows' words of keep bits, and
+//   every two tiles two more and one 16-byte store a row write them out.
 // - dq_part goes into a fresh accumulator and is folded into dq with a
 //   rounded add once its product is done (mma.sync's truncating
 //   accumulation leaned the 3xTF32 kernels' long sums one way; PERF.md),
 //   so no accumulator runs through the tensor cores over the sweep. The
 //   fold of tile t waits at the top of tile t + 1, after S and dP of t + 1
-//   are issued, so the two consumer warpgroups' arithmetic interleaves
-//   with each other's products.
+//   are issued: dq_part_t, S_{t+1} and dP_{t+1} run while the decisions of
+//   t + 1 are drawn, and the two consumer warpgroups' arithmetic
+//   interleaves with each other's products.
 // - No atomics and no fusion into K3: dq and the keep bits are
 //   deterministic, as the TPU kernel's dq is.
 //
@@ -103,6 +107,7 @@
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "flash_tc.cuh"
 #include "flash_wg.cuh"
 
 namespace {
@@ -114,25 +119,11 @@ constexpr int kConsumers = 2;           // warpgroups of 64 query rows
 constexpr int kRows = 64 * kConsumers;  // query rows per block
 constexpr int kTileK = 64;              // keys per tile
 constexpr int kStages = 6;              // K/V tiles in flight
-// + the producer warpgroups, which draw the dropout mask (the first also
-// loads by TMA) and hand registers to the consumers (register allocation
-// is per warpgroup; flash_attn_fwd_wg.cu)
-constexpr int kDrawGroups = 2;
-constexpr int kThreads = 128 * (kConsumers + kDrawGroups);
-// registers a thread at launch: the most 65536 leaves kThreads
-constexpr int kLaunchRegs = 65536 / kThreads / 8 * 8;
-// registers a producer thread, and what the block's allocation at launch
-// leaves a consumer thread beside them (64 and 192)
-constexpr int kProducerRegs = 64;
-constexpr int kConsumerRegs =
-    (kLaunchRegs * kThreads - 128 * kDrawGroups * kProducerRegs) / 256 / 8 *
-    8;
-// keys of a tile row one drawing thread draws: a row's keys split over
-// kDrawGroups threads (lanes 2r and 2r + 1 of a warp for two)
-constexpr int kPartKeys = kTileK / kDrawGroups;
-constexpr int kPartWords = kPartKeys / 32;
-// Philox counters a drawing thread keeps in flight (1, 2, 4 or 8)
-constexpr int kInFlight = 4;
+// + the producer warpgroup, which hands its registers to the consumers
+// (register allocation is per warpgroup; flash_attn_fwd_wg.cu)
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int D = flash_wg::kHeadDim;
 
@@ -145,115 +136,32 @@ struct Layout {
   // per stage, the tile's 64 live-key bits (2 words, key 32w + i at bit i
   // of word w)
   static constexpr int kLive = kV + kStages * kTile;
-  // per stage, the tile's keep bits: kRows rows of 2 words, the same order
-  static constexpr int kKeep = kLive + kStages * 8;
-  static constexpr int kBars = kKeep + kStages * kRows * 8;
+  static constexpr int kBars = kLive + kStages * 8;
   // full_q, then full and empty per stage
   static constexpr int kBytes = kBars + (1 + 2 * kStages) * 8;
   static constexpr int kAlloc = kBytes + 1024;  // slack to align the base
 };
 
-// What the drawing threads need of the dropout: the seed's two words, and
-// 2^32 - threshold * 256, which a word that is kept ((word >> 8) >=
-// threshold) carries past 2^32 when added.
-struct Draw {
-  uint32_t seed_lo, seed_hi;
-  uint32_t carry;
-};
-
-// Philox4x32-10 (flash::philox4) at counters ctr .. ctr + N - 1, written
-// round by round across the counters: their independent chains of
-// multiplies are interleaved in the code as issued, so one thread keeps N
-// of them in flight (left to the compiler, the calls of an unrolled loop
-// were issued one chain after another). Returns the four decisions of
-// counter j at bits 4 j .. 4 j + 3 (word w at bit 4 j + w).
-template <int N>
-__device__ __forceinline__ uint32_t kept_n(uint64_t ctr, const Draw& draw) {
-  uint32_t c0[N], c1[N], c2[N], c3[N];
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    c0[j] = (uint32_t)(ctr + j);
-    c1[j] = (uint32_t)((ctr + j) >> 32);
-    c2[j] = c3[j] = 0u;
-  }
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    // the round keys as adds to the seed, which the compiler keeps in
-    // uniform registers (read from the constant bank instead, each round's
-    // keys took a load and the draw ran 10 % slower)
-    const uint32_t k0 = draw.seed_lo + (uint32_t)r * 0x9E3779B9u;
-    const uint32_t k1 = draw.seed_hi + (uint32_t)r * 0xBB67AE85u;
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      const uint32_t hi0 = __umulhi(0xD2511F53u, c0[j]);
-      const uint32_t lo0 = 0xD2511F53u * c0[j];
-      const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2[j]);
-      const uint32_t lo1 = 0xCD9E8D57u * c2[j];
-      c0[j] = hi1 ^ c1[j] ^ k0;
-      c2[j] = hi0 ^ c3[j] ^ k1;
-      c1[j] = lo1;
-      c3[j] = lo0;
-    }
-  }
-  // a kept word carries: the decision as an integer, with no predicate
-  auto kept = [&](uint32_t w) {
-    return (uint32_t)(((uint64_t)w + draw.carry) >> 32);
-  };
-  uint32_t bits = 0u;
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-    bits |= (kept(c0[j]) | kept(c1[j]) << 1 | kept(c2[j]) << 2 |
-             kept(c3[j]) << 3)
-            << (4 * j);
-  return bits;
-}
-
-// The keep decisions of keys key0..key0 + kPartKeys - 1 of one query row,
-// key j at bit (j - key0) % 32 of word (j - key0) / 32: `ctr` is the first
-// counter the keys touch, (n_row + key0) / 4 for the row's element offset
-// n_row, and `ph` = n_row % 4 the position of key0 among that counter's
-// four words. Decisions of keys from Sk on are 0.
-__device__ __forceinline__ void draw_part(uint64_t ctr, uint32_t ph,
-                                          int key0, int Sk, const Draw& draw,
-                                          uint32_t (&bits)[kPartWords]) {
-  // the stream of decisions from word 0 of counter ctr: 32 of them a word
-  uint32_t w[kPartWords + 1];
-#pragma unroll
-  for (int half = 0; half < kPartWords; ++half) {
-    uint32_t acc = 0u;
-#pragma unroll 1
-    for (int i = 0; i < 8; i += kInFlight)
-      acc |= kept_n<kInFlight>(ctr + half * 8 + i, draw) << (4 * i);
-    w[half] = acc;
-  }
-  // a row whose element offset is not a multiple of 4 reaches one counter
-  // further
-  w[kPartWords] = ph != 0u ? kept_n<1>(ctr + kPartKeys / 4, draw) : 0u;
-#pragma unroll
-  for (int i = 0; i < kPartWords; ++i) {
-    bits[i] = __funnelshift_r(w[i], w[i + 1], ph);
-    const int n = Sk - key0 - 32 * i;  // keys of the word in range
-    if (n < 32) bits[i] &= n <= 0 ? 0u : (1u << n) - 1u;
-  }
-}
-
 // A consumer warpgroup's state over the key sweep and its steps. Every
 // member function is inlined and every array index is a constant after
 // inlining, so the state stays in registers. kDrop: with dropout (one
 // instance each: a branch on the rate inside the element loop cost the
-// kernel about a tenth of its time without dropout).
-template <bool kDrop>
+// kernel about a tenth of its time without dropout); kAligned (Sk % 4 ==
+// 0) picks the draw's path (flash_tc::keep_bits).
+template <bool kDrop, bool kAligned>
 struct Consumer {
   using L = Layout;
   unsigned char* smem;
   uint64_t* full;
   uint64_t* empty;
   const uint32_t* live_bits;
-  const uint2* keep_tiles;  // the keep bits' ring: kRows rows a stage
-  int c, lane;
-  int local[2];  // this lane's rows in the block's tile
+  // this lane's keep-bits row (that of rows[q / 2] for quad lane q), or
+  // null: no bits out, or past Sq, or an odd lane of the quad
+  uint4* bits_row;
+  int c, lane, Sk, n_kt;
   float scale_log2;
   uint64_t desc_q, desc_do;
+  uint64_t n_row[2];  // dropout offset of (b, h, row, key 0)
   Dropout dr;
   float lse2[2];  // lse * log2 e; +inf past Sq (p = 0)
   float di[2];
@@ -262,9 +170,10 @@ struct Consumer {
   float sc[kTileK / 2];  // S, then P: chunk n (8 keys) at sc[4n..4n+3]
   float dp[kTileK / 2];  // dP, the same layout
   uint32_t pa[kTileK / 16][4];  // dS as A fragments
+  uint32_t keep;  // the tile's keep decisions: bit n * 4 + e of sc[4n + e]
+  uint32_t held;  // this lane's word of the keep bits of the last even tile
 
-  // S = Q K_t^T and dP = dO V_t^T (asynchronous), once stage t holds K, V
-  // and, with dropout, the tile's keep bits
+  // S = Q K_t^T and dP = dO V_t^T (asynchronous)
   __device__ __forceinline__ void issue_sdp(int t) {
     const int st = t % kStages;
     const uint64_t desc_k =
@@ -296,6 +205,14 @@ struct Consumer {
     flash_wg::wg_commit();
   }
 
+  // tile t's dropout decisions (they need no data: drawn while S and dP
+  // run)
+  __device__ __forceinline__ void keep_of(int t) {
+    if constexpr (kDrop)
+      keep = flash_tc::keep_bits<kTileK / 8, kAligned>(n_row, t * kTileK, c,
+                                                       dr);
+  }
+
   // every product issued so far is done: fold part into dq and give back
   // the stage of tile t - 1, whose K the last dS K read
   __device__ __forceinline__ void settle(int t) {
@@ -311,21 +228,10 @@ struct Consumer {
 
   // dS of tile t from sc and dp into the A fragments pa
   __device__ __forceinline__ void ds(int t) {
-    const int st = t % kStages;
-    const uint2 live = *reinterpret_cast<const uint2*>(live_bits + st * 2);
+    const uint2 live =
+        *reinterpret_cast<const uint2*>(live_bits + (t % kStages) * 2);
     const bool dead = (live.x & live.y) != ~0u;  // a masked or padded key
     const uint32_t words[2] = {live.x, live.y};
-    // this lane's keep bits, shifted so that key n * 8 + c + e of row r
-    // is bit (n % 4) * 8 + e of keep[r][n / 4]
-    uint32_t keep[2][2] = {{0u, 0u}, {0u, 0u}};
-    if constexpr (kDrop) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const uint2 m = keep_tiles[st * kRows + local[r]];
-        keep[r][0] = m.x >> c;
-        keep[r][1] = m.y >> c;
-      }
-    }
 #pragma unroll
     for (int n = 0; n < kTileK / 8; ++n)
 #pragma unroll
@@ -335,18 +241,69 @@ struct Consumer {
             fmaf(sc[i], scale_log2, -lse2[e >> 1]));
         if (dead) p = (words[key / 32] >> (key % 32)) & 1u ? p : 0.f;
         float dpk = dp[i];
-        if constexpr (kDrop)
-          dpk = (keep[e >> 1][n / 4] >> ((n % 4) * 8 + (e & 1))) & 1u
-                    ? dpk * dr.inv_keep
-                    : 0.f;
+        if constexpr (kDrop) dpk = (keep >> i) & 1u ? dpk * dr.inv_keep : 0.f;
         sc[i] = p * (dpk - di[e >> 1]);
       }
 #pragma unroll
     for (int kt = 0; kt < kTileK / 16; ++kt) flash_wg::pack_a(pa[kt], sc, kt);
   }
+
+  // tile t's keep bits out to bits_out: the quad's decisions of its two
+  // rows gathered into words (lane q of a quad holds word q % 2 of row
+  // q / 2: key 32 (q % 2) + i at bit i, none from Sk on), and after an
+  // odd tile or the last one lanes 0 and 2 of the quad store their row's
+  // 16-byte piece of the two tiles (words 2 (t % 2) .. + 1 the tile's)
+  __device__ __forceinline__ void store_bits(int t) {
+    if constexpr (kDrop) {
+      // this lane's part of word w of row r: keys 32w + 8m + c + e at bit
+      // 8m + c + e, from bit (4w + m) * 4 + 2r + e of keep (the pairs of
+      // the row at every fourth bit, spread to every eighth)
+      uint32_t mine[2][2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const uint32_t x = (keep >> (2 * r)) & 0x33333333u;
+#pragma unroll
+        for (int w = 0; w < 2; ++w) {
+          uint32_t y = (x >> (16 * w)) & 0x3333u;  // pair m at bit 4m
+          y = (y & 0x33u) | ((y & 0x3300u) << 8);   // 2, 3 at 16, 20
+          y = (y & 0x30003u) | ((y & 0x300030u) << 4);  // 1, 3 at 8, 24
+          mine[r][w] = y << c;
+        }
+      }
+      // the quad's parts are disjoint: lanes q and q ^ 2 swap the row the
+      // other keeps (q / 2), then q and q ^ 1 the word (q % 2)
+      const int q = lane & 3;
+      const bool hi_row = q & 2, hi_word = q & 1;
+      uint32_t row[2];
+#pragma unroll
+      for (int w = 0; w < 2; ++w) {
+        const uint32_t give = hi_row ? mine[0][w] : mine[1][w];
+        row[w] = (hi_row ? mine[1][w] : mine[0][w]) |
+                 __shfl_xor_sync(0xffffffffu, give, 2);
+      }
+      uint32_t word = (hi_word ? row[1] : row[0]) |
+                      __shfl_xor_sync(0xffffffffu, hi_word ? row[0] : row[1],
+                                      1);
+      const int n = Sk - t * kTileK - 32 * (q & 1);  // its keys in range
+      if (n < 32) word &= n <= 0 ? 0u : (1u << n) - 1u;
+      const bool last = t == n_kt - 1;
+      if (t & 1) {
+        // the row's word 1 of both tiles from lane q + 1
+        const uint32_t prev1 = __shfl_xor_sync(0xffffffffu, held, 1);
+        const uint32_t cur1 = __shfl_xor_sync(0xffffffffu, word, 1);
+        if (bits_row != nullptr)
+          bits_row[t >> 1] = make_uint4(held, prev1, word, cur1);
+      } else if (last) {
+        const uint32_t cur1 = __shfl_xor_sync(0xffffffffu, word, 1);
+        if (bits_row != nullptr)
+          bits_row[t >> 1] = make_uint4(word, cur1, 0u, 0u);
+      }
+      held = word;
+    }
+  }
 };
 
-template <bool kDrop>
+template <bool kDrop, bool kAligned>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_k,
@@ -357,14 +314,12 @@ flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap map_q,
                        const float* __restrict__ lse, bf16* __restrict__ dq,
                        float* __restrict__ di_out,
                        uint32_t* __restrict__ bits_out, int H, int Sq,
-                       int Sk, float scale, Dropout dr,
-                       const __grid_constant__ Draw keys) {
+                       int Sk, float scale, Dropout dr) {
   using L = Layout;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
   uint32_t* live_bits = reinterpret_cast<uint32_t*>(smem + L::kLive);
-  uint2* keep_tiles = reinterpret_cast<uint2*>(smem + L::kKeep);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);
   uint64_t* full_q = bars;
   uint64_t* full = bars + 1;
@@ -380,8 +335,7 @@ flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap map_q,
   if (threadIdx.x == 0) {
     flash_wg::bar_init(full_q, 1);
     for (int s = 0; s < kStages; ++s) {
-      // the TMA's arrival and, with dropout, one per drawing warp
-      flash_wg::bar_init(full + s, 1 + (kDrop ? 4 * kDrawGroups : 0));
+      flash_wg::bar_init(full + s, 1);
       flash_wg::bar_init(empty + s, 4 * kConsumers);  // one per warp
     }
     flash_wg::bar_fence_init();
@@ -392,9 +346,8 @@ flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap map_q,
 
   if (warp >= 4 * kConsumers) {  // the producer warpgroup
     flash_wg::regs_release<kProducerRegs>();
-    const bool loads = warp == 4 * kConsumers;  // the TMA warp
-    if (!loads && !kDrop) return;
-    if (loads && lane == 0) {
+    if (warp > 4 * kConsumers) return;
+    if (lane == 0) {
       flash_wg::prefetch_map(&map_q);
       flash_wg::prefetch_map(&map_do);
       flash_wg::prefetch_map(&map_k);
@@ -403,77 +356,35 @@ flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap map_q,
       flash_wg::tma_load_4d(smem + L::kQ, &map_q, full_q, 0, h, q0, b);
       flash_wg::tma_load_4d(smem + L::kDo, &map_do, full_q, 0, h, q0, b);
     }
-    // the row this thread draws (row p of the block, its part-th
-    // kPartKeys keys of a tile): its element offset, and where its 16-byte
-    // pieces of keep bits go (none past Sq; part 0 stores the row's)
-    const int p = (threadIdx.x - 128 * kConsumers) / kDrawGroups;
-    const int part = (threadIdx.x - 128 * kConsumers) % kDrawGroups;
-    const uint64_t n_row = ((uint64_t)bh * Sq + q0 + p) * Sk;
-    const uint32_t ph = (uint32_t)n_row & 3u;
-    const int W = 4 * ((Sk + 127) / 128);
-    uint4* out = bits_out != nullptr && q0 + p < Sq && part == 0
-                     ? reinterpret_cast<uint4*>(
-                           bits_out + ((long)bh * Sq + q0 + p) * W)
-                     : nullptr;
-    uint2 held = make_uint2(0u, 0u);  // the even tile's bits of a piece
-    // the TMA warp's lanes' live keys of tile t (keys 32 w + lane): in
-    // range, and valid or in a fully masked row (whose logits are all 0),
-    // read a tile ahead so the loads run under the draw
+    // the lanes' live keys of tile t (keys 32 w + lane): in range, and
+    // valid or in a fully masked row (whose logits are all 0), read a tile
+    // ahead so the loads run under the wait for a free stage
     auto live_of = [&](int t, int w) {
       const int j = t * kTileK + w * 32 + lane;
       return j < Sk && (masked_row || valid == nullptr ||
                         valid[(long)b * Sk + j] != 0);
     };
-    bool live[2] = {false, false};
-    if (loads) live[0] = live_of(0, 0), live[1] = live_of(0, 1);
+    bool live[2] = {live_of(0, 0), live_of(0, 1)};
     for (int t = 0; t < n_kt; ++t) {
       const int s = t % kStages;
       if (t >= kStages)  // the consumers gave back tile t - kStages
         flash_wg::bar_wait(empty + s, ((t / kStages) & 1) ^ 1);
-      if (loads) {
-        // the tile's live keys as 2 words of bits, one ballot of 32
-        // neighbouring keys each
-        uint32_t words[2];
+      // the tile's live keys as 2 words of bits, one ballot of 32
+      // neighbouring keys each
+      uint32_t words[2];
 #pragma unroll
-        for (int w = 0; w < 2; ++w) {
-          words[w] = __ballot_sync(0xffffffffu, live[w]);
-          live[w] = t + 1 < n_kt && live_of(t + 1, w);
-        }
-        if (lane == 0) {
-          *reinterpret_cast<uint2*>(live_bits + s * 2) =
-              make_uint2(words[0], words[1]);
-          flash_wg::bar_arrive_tx(full + s, 2 * L::kTile);
-          flash_wg::tma_load_4d(smem + L::kK + s * L::kTile, &map_k,
-                                full + s, 0, h, t * kTileK, b);
-          flash_wg::tma_load_4d(smem + L::kV + s * L::kTile, &map_v,
-                                full + s, 0, h, t * kTileK, b);
-        }
+      for (int w = 0; w < 2; ++w) {
+        words[w] = __ballot_sync(0xffffffffu, live[w]);
+        live[w] = t + 1 < n_kt && live_of(t + 1, w);
       }
-      if (kDrop) {
-        const int key0 = t * kTileK + part * kPartKeys;
-        uint32_t mine[kPartWords];
-        draw_part((n_row + key0) >> 2, ph, key0, Sk, keys, mine);
-        uint32_t* row = reinterpret_cast<uint32_t*>(keep_tiles) +
-                        (s * kRows + p) * 2 + part * kPartWords;
-#pragma unroll
-        for (int i = 0; i < kPartWords; ++i) row[i] = mine[i];
-        __syncwarp();  // the warp's words are in: one arrival for them
-        if (lane == 0) flash_wg::bar_arrive(full + s);
-        // the tile's two words of the row, in lane 2r's hands for two
-        // drawing threads a row
-        uint2 bits;
-        if constexpr (kDrawGroups == 2)
-          bits = make_uint2(mine[0],
-                            __shfl_xor_sync(0xffffffffu, mine[0], 1));
-        else
-          bits = make_uint2(mine[0], mine[kPartWords - 1]);
-        if (out != nullptr) {
-          if (t & 1)
-            out[t / 2] = make_uint4(held.x, held.y, bits.x, bits.y);
-          else if (t == n_kt - 1)
-            out[t / 2] = make_uint4(bits.x, bits.y, 0u, 0u);
-          held = bits;
-        }
+      if (lane == 0) {
+        *reinterpret_cast<uint2*>(live_bits + s * 2) =
+            make_uint2(words[0], words[1]);
+        flash_wg::bar_arrive_tx(full + s, 2 * L::kTile);
+        flash_wg::tma_load_4d(smem + L::kK + s * L::kTile, &map_k, full + s,
+                              0, h, t * kTileK, b);
+        flash_wg::tma_load_4d(smem + L::kV + s * L::kTile, &map_v, full + s,
+                              0, h, t * kTileK, b);
       }
     }
     return;
@@ -483,24 +394,26 @@ flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap map_q,
   // a consumer: warpgroup wg owns query rows q0 + wg * 64 .. + 63, and
   // this lane rows[0] = .. + (warp % 4) * 16 + lane / 4 and rows[1] 8 below
   const int wg = warp / 4;
-  Consumer<kDrop> w;
+  Consumer<kDrop, kAligned> w;
   w.smem = smem;
   w.full = full;
   w.empty = empty;
   w.live_bits = live_bits;
-  w.keep_tiles = keep_tiles;
   w.c = (lane % 4) * 2;  // this lane's first column in a chunk
   w.lane = lane;
+  w.Sk = Sk;
+  w.n_kt = n_kt;
   // a fully masked row's logits are 0: the scores get scale 0
   w.scale_log2 = masked_row ? 0.f : scale * kLog2e;
   w.desc_q = flash_wg::make_desc(smem + L::kQ + wg * 64 * D * 2);
   w.desc_do = flash_wg::make_desc(smem + L::kDo + wg * 64 * D * 2);
   w.dr = dr;
+  w.keep = w.held = 0u;
   int rows[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    w.local[r] = wg * 64 + (warp % 4) * 16 + lane / 4 + r * 8;
-    rows[r] = q0 + w.local[r];
+    rows[r] = q0 + wg * 64 + (warp % 4) * 16 + lane / 4 + r * 8;
+    w.n_row[r] = ((uint64_t)bh * Sq + rows[r]) * Sk;
     w.lse2[r] =
         rows[r] < Sq ? lse[(long)bh * Sq + rows[r]] * kLog2e : INFINITY;
   }
@@ -509,6 +422,14 @@ flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
   for (int kt = 0; kt < kTileK / 16; ++kt)
     w.pa[kt][0] = w.pa[kt][1] = w.pa[kt][2] = w.pa[kt][3] = 0u;
+  {
+    const int mine = rows[(lane & 2) >> 1];
+    w.bits_row = bits_out != nullptr && (lane & 1) == 0 && mine < Sq
+                     ? reinterpret_cast<uint4*>(
+                           bits_out + ((long)bh * Sq + mine) * 4 *
+                                          ((Sk + 127) / 128))
+                     : nullptr;
+  }
 
   flash_wg::bar_wait(full_q, 0);
   // di of this lane's rows: lane q of the row's quad sums columns 8q..8q+7
@@ -516,7 +437,7 @@ flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap map_q,
   // row's bits 1-2) and of O (device memory, read once)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = w.local[r];  // in the block's tile
+    const int row = rows[r] - q0;  // in the block's tile
     const int q = lane % 4;
     const uint4 dv = *reinterpret_cast<const uint4*>(
         smem + L::kDo + row * D * 2 + ((q ^ ((row >> 1) & 3)) * 16));
@@ -542,12 +463,15 @@ flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 
   // the same step every tile, no branch around the products: tile t's S
-  // and dP go out while dq_part of t - 1 may still run
+  // and dP go out while dq_part of t - 1 may still run and tile t's
+  // decisions are drawn; its keep bits go out while dq_part of t runs
   for (int t = 0; t < n_kt; ++t) {
     w.issue_sdp(t);
+    w.keep_of(t);
     w.settle(t);
     w.ds(t);
     w.issue_dq(t);
+    w.store_bits(t);
   }
   w.settle(n_kt);
 
@@ -568,11 +492,6 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* lse, void* dq, float* di_out,
                    uint32_t* bits_out, int B, int H, int Sq, int Sk,
                    float scale, Dropout dr, cudaStream_t stream) {
-  // threshold in [1, 2^24]: kept iff word >= threshold * 256, iff word +
-  // 2^32 - threshold * 256 carries
-  const Draw keys{
-      (uint32_t)dr.seed, (uint32_t)(dr.seed >> 32),
-      (uint32_t)((uint64_t{1} << 32) - (uint64_t)dr.threshold * 256u)};
   const int n_qt = (Sq + kRows - 1) / kRows;
   if ((long)B * H > 65535) return cudaErrorInvalidConfiguration;
   const cudaError_t bound = flash_wg::bind_device(q);
@@ -584,21 +503,17 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       !flash_wg::make_map(&map_v, v, B, Sk, H, kTileK))
     return cudaErrorInvalidValue;
   constexpr int bytes = Layout::kAlloc;
-  auto kernel = dr.threshold != 0u ? flash_bwd_dq_wg_kernel<true>
-                                   : flash_bwd_dq_wg_kernel<false>;
-  // the consumers take registers the producers give back from the block's
-  // allocation at launch: refuse a build that allocates fewer than the
-  // split assumes, where setmaxnreg.inc would wait for ever
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return err;
-  if (attr.numRegs < kLaunchRegs) return cudaErrorInvalidConfiguration;
-  err = cudaFuncSetAttribute(
+  // the instance without dropout, or the one whose draw takes Sk % 4 ==
+  // 0's path or the general one (flash_tc::keep_bits)
+  auto kernel = dr.threshold == 0u ? flash_bwd_dq_wg_kernel<false, true>
+                : (Sk & 3) == 0    ? flash_bwd_dq_wg_kernel<true, true>
+                                   : flash_bwd_dq_wg_kernel<true, false>;
+  const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(n_qt, B * H), kThreads, bytes, stream>>>(
       map_q, map_k, map_v, map_do, valid, static_cast<const bf16*>(o), lse,
-      static_cast<bf16*>(dq), di_out, bits_out, H, Sq, Sk, scale, dr, keys);
+      static_cast<bf16*>(dq), di_out, bits_out, H, Sq, Sk, scale, dr);
   return cudaGetLastError();
 }
 

@@ -36,7 +36,7 @@
 // operand from registers takes mma.sync's A layout per warp. So two column
 // chunks of an accumulator, packed to bf16 pairs, are the A fragment of one
 // 16-deep k-step of the next product (pack_a), and flash_tc::keep_bits
-// gives K1-wg's dropout decisions in this layout.
+// gives K1-wg's and K2-wg's dropout decisions in this layout.
 //
 // Asynchrony. wgmma.mma_async runs after the instruction issues; its
 // accumulator registers may be read only after wgmma.wait_group, and its A

@@ -1395,7 +1395,8 @@ def test_dq_warpgroup_kernel_matches_plain(gen, shape, rate):
 
 
 LONG_SITES = ["vl_encoder_2_levels_b8", "multi_vl_encoder_2_levels",
-              "vl_encoder_3_levels_b8", "vl_encoder_4_levels_b8"]
+              "vl_encoder_3_levels_b8", "vl_encoder_4_levels_b8",
+              "vl_encoder_4_levels_b8_padded"]
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
@@ -1403,7 +1404,7 @@ LONG_SITES = ["vl_encoder_2_levels_b8", "multi_vl_encoder_2_levels",
 def test_dq_warpgroup_kernel_matches_plain_at_the_long_sites(gen, site,
                                                              rate):
     """K2-wg at the encoders of 2-4 feature levels with the smoke's
-    inputs, the whole batch launched and batch row 0 (whose dropout
+    inputs (at four levels also with each image padded), the whole batch launched and batch row 0 (whose dropout
     offsets are those of B=1) held to attention_bwd_plain at B=1, where
     its [H, S, S] scores fit: dq at GRAD_TOL of the largest plain
     gradient, di against di_plain; with dropout the whole batch's keep
@@ -1436,7 +1437,7 @@ def test_dq_warpgroup_kernel_matches_plain_at_the_long_sites(gen, site,
 def test_keep_bits_masks_are_exact_at_every_row_phase(gen, shape, kernel,
                                                       variant):
     """Every kernel that draws its dropout mask (K1 and K2, "tc", "wg" and
-    "tf32x3": flash_tc::keep_bits, and K2-wg's producer warpgroup),
+    "tf32x3": flash_tc::keep_bits),
     launched directly at key counts that are not a multiple of 4 (22, 90,
     490, 2090: row phases 0 and 2; 17, 131, 385: every phase): its kept
     set, read off K1's output or K2's dq, equals the plain Philox mask on

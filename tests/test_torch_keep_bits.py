@@ -4,8 +4,8 @@ With dropout K2-wg (csrc/flash_attn_bwd_dq_wg.cu) writes the mask it drew
 as keep bits, uint32 [B, H, Sq, 4 * ceil(Sk / 128)], and K3-wg
 (csrc/flash_attn_bwd_dkv_wg.cu) reads them instead of drawing the mask
 again. Here: ``keep_bits_plain`` packs ``philox_keep_plain``'s mask exactly
-(zeros past Sk); K3-wg's plain version on those bits (``dkv_plain``) gives
-``attention_bwd_plain``'s dk and dv bit for bit; at rate 0 the backward
+(zeros past Sk); ``attention_bwd_plain`` on those bits gives its gradients
+from the seed bit for bit; at rate 0 the backward
 matches the JAX package's Pallas backward (``_bwd``, interpret mode, as
 the JAX package's own tests run it on the CPU) to 1e-5; the rule never
 sends K3 to "wg" without K2; and the launchers refuse CPU tensors and
@@ -22,7 +22,7 @@ from hypothesis import strategies as st
 from reftr_tpu.kernels.attention import BWD_BLOCK_K, BWD_BLOCK_Q, _bwd, _fwd
 from reftr_torch.kernels.attention import (HEAD_DIMS, _launch_dkv,
                                            _launch_dq, attention_bwd_plain,
-                                           attention_plain, dkv_plain,
+                                           attention_plain,
                                            dkv_variant, dq_variant,
                                            flash_attn_bwd_dkv,
                                            flash_attn_bwd_dq, flash_attention,
@@ -90,19 +90,20 @@ def make_inputs(seed, b, sq, sk, h, d, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("shape", [(2, 9, 37, 3, 16), (3, 13, 131, 2, 32)])
 def test_k3_on_keep_bits_is_the_seeded_backward(shape, dtype, rate):
-    """K3-wg's plain version, on keep_bits_plain's bits and di = rowsum(dO
-    * O), gives attention_bwd_plain's dk and dv from the seed bit for bit:
-    the bits carry the whole mask, and nothing else differs."""
+    """The plain backward on keep_bits_plain's bits, as K3-wg reads the
+    mask, gives attention_bwd_plain's dq, dk and dv from the seed bit for
+    bit: the bits carry the whole mask, and nothing else differs."""
     b, sq, sk, h, d = shape
     q, k, v, valid, do = make_inputs(sk, b, sq, sk, h, d, dtype)
     seed = 0xFACE + sk
     o, lse = attention_plain(q, k, v, valid, True, dropout_rate=rate,
                              seed=seed)
-    _, dk, dv = attention_bwd_plain(q, k, v, valid, o, lse, do, rate, seed)
-    di = (do * o).sum(-1).transpose(1, 2)
+    want = attention_bwd_plain(q, k, v, valid, o, lse, do, rate, seed)
     bits = keep_bits_plain(seed, b, h, sq, sk, rate)
-    got = dkv_plain(q, k, v, valid, lse, do, di, bits, rate)
-    assert torch.equal(got[0], dk) and torch.equal(got[1], dv)
+    got = attention_bwd_plain(q, k, v, valid, o, lse, do, rate,
+                              keep_bits=bits)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_k3_plain_takes_bits_with_dropout_only():
@@ -110,9 +111,9 @@ def test_k3_plain_takes_bits_with_dropout_only():
     lse = torch.zeros(2, 2, 5)
     bits = keep_bits_plain(1, 2, 2, 5, 9, 0.1)
     with pytest.raises(ValueError, match="keep_bits"):
-        dkv_plain(q, k, v, valid, lse, do, lse, bits, 0.0)
-    with pytest.raises(ValueError, match="keep_bits"):
-        dkv_plain(q, k, v, valid, lse, do, lse, None, 0.1)
+        attention_bwd_plain(q, k, v, valid, q, lse, do, 0.0, keep_bits=bits)
+    with pytest.raises(ValueError, match="seed"):
+        attention_bwd_plain(q, k, v, valid, q, lse, do, 0.1)
 
 
 def jax_backward(q, k, v, valid, do):
@@ -131,21 +132,17 @@ def jax_backward(q, k, v, valid, do):
 @pytest.mark.parametrize("shape", [(2, 13, 13, 4, 32), (2, 20, 131, 2, 32),
                                    (1, 7, 300, 2, 16)])
 def test_backward_at_rate_0_matches_the_pallas_backward(shape):
-    """At rate 0, the port's backward as K2-wg and K3-wg compute it (dq of
-    attention_bwd_plain, dk and dv of dkv_plain on di and no bits) and
-    attention_bwd_plain's whole against the JAX package's _bwd, to 1e-5;
-    every row keeps a valid key (the Pallas kernel pads keys)."""
+    """At rate 0, the port's plain backward (the function of K2-wg and
+    K3-wg) against the JAX package's _bwd, to 1e-5; every row keeps a
+    valid key (the Pallas kernel pads keys)."""
     b, sq, sk, h, d = shape
     q, k, v, valid, do = make_inputs(sq, b, sq, sk, h, d, torch.float32)
     valid[:, 0] = True
     want = jax_backward(*(x.numpy() for x in (q, k, v, valid, do)))
     o, lse = attention_plain(q, k, v, valid, True)
     grads = attention_bwd_plain(q, k, v, valid, o, lse, do)
-    di = (do * o).sum(-1).transpose(1, 2)
-    pair = (grads[0], *dkv_plain(q, k, v, valid, lse, do, di, None))
-    for got in (grads, pair):
-        for g, w in zip(got, want):
-            np.testing.assert_allclose(g.numpy(), w, atol=ATOL, rtol=0)
+    for g, w in zip(grads, want):
+        np.testing.assert_allclose(g.numpy(), w, atol=ATOL, rtol=0)
 
 
 @settings(max_examples=300, deadline=None, database=None)

@@ -4,7 +4,7 @@ draws the mask, and the times of K1, K2 and K3 on their bf16 and 3xTF32
 variants at the model's sites, without dropout and with 0.1, with a digest
 of every output.
 
-    python3 time_keep_ab.py ROOT LABEL [step]
+    python3 time_keep_ab.py ROOT LABEL [step | rec | SITE,SITE,...]
 
 ROOT is a checkout holding ``reftr_torch/`` (its kernels are built from
 that checkout's sources on first use). Run it once per checkout in one
@@ -21,7 +21,9 @@ checkouts that draw the same mask give alike. K2 and K3 take O and lse
 from K1-TC of the same checkout; K3-wg takes di and, where the checkout's
 K2-wg writes them (``new_keep_bits``), the keep bits from a K2-wg call
 before the timed calls, as a training step hands them over, and K2-wg is
-timed writing them. Sites (B, Sq, Sk, H, D): flickr's encoder at one and
+timed writing them, and with dropout also without them ("wg-nobits"),
+which prices the store. Sites (B, Sq, Sk, H, D), or those named in the
+third argument: flickr's encoder at one and
 two feature levels (490^2, 2090^2, B=16), its phrase BERT (22 keys,
 B=256) and sentence BERT (90 keys), its decoder over 490 keys at 16
 queries, refcoco_det's encoder at one, two and four levels (440^2,
@@ -34,6 +36,15 @@ With ``step``, instead: refcoco_det's bf16 train step at four feature
 levels (batch 8, dropout 0.1), as the checkout's chip_smoke.py phase 13e
 times it (its ``step_turns``, three turns): device ms by torch.profiler,
 peak device memory and the attention kernels' device ms, one JSON line.
+
+With ``rec``, instead: refcoco_det's bf16 step at one feature level (the
+checkout's phase 5 step, batch 8, dropout 0.1), whose encoder's K2 and K3
+take "wg" by the rule at 440^2 from PR 18 on, by the rule and with both
+sent to "tc" (chip_smoke.bwd_route_steps: host ms a step, in turns), and
+the host's microseconds to queue one K2 and one K3 call at that site
+(B=8, 440^2, dropout 0.1) on each route, in turns (the mean over 200
+calls queued without a synchronize, so the card's time is kept out), one
+JSON line.
 """
 
 import json
@@ -92,9 +103,11 @@ def ptxas_lines(source: str, so: Path) -> dict:
     sep = "I" if "_wg" in source else ""
     out = {path: lines(f"{base}{sep}{flag}") for path, flag in (
         ("Sk % 4 == 0", "Lb1E"), ("Sk % 4 != 0", "Lb0E"))}
-    if source == "flash_attn_bwd_dq_wg.cu":  # an instance with dropout
+    if source == "flash_attn_bwd_dq_wg.cu":  # instances per dropout path
         out = {path: lines(f"wg_kernelI{flag}") for path, flag in (
-            ("no dropout", "Lb0E"), ("dropout", "Lb1E"))}
+            ("no dropout", "Lb0E"), ("dropout", "Lb1E"),
+            ("dropout, Sk % 4 == 0", "Lb1ELb1E"),
+            ("dropout, Sk % 4 != 0", "Lb1ELb0E"))}
     out = {path: got for path, got in out.items() if got is not None}
     return out or {"": lines(base)}
 
@@ -129,7 +142,8 @@ def main():
         s: ptxas_lines(s, so) for s, so in libs.items()}}), flush=True)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(12)
-    for site, ((b, sq, sk, h, d), dt) in SITES.items():
+    names = sys.argv[3].split(",") if sys.argv[3:] else list(SITES)
+    for site, ((b, sq, sk, h, d), dt) in ((n, SITES[n]) for n in names):
         q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen)
                        .to(dt) for s in (sq, sk, sk, sq))
         keep = sk - (torch.arange(b, device="cuda") * 7) % max(1, sk // 2)
@@ -162,6 +176,9 @@ def main():
                     _launch_dq("wg", *bwd, **wg_out)
                     fns[("K2", "wg")] = lambda: _launch_dq("wg", *bwd,
                                                            **wg_out)
+                    if bits is not None:
+                        fns[("K2", "wg-nobits")] = lambda: _launch_dq(
+                            "wg", *bwd, di_out=di)
                     fns[("K3", "wg")] = lambda: _launch_dkv(
                         "wg", *bwd, di, *(() if bits is None else (bits,)))[1]
                 else:
@@ -232,5 +249,71 @@ def step():
         "launches": runs[0]["launches"]}), flush=True)
 
 
+def rec():
+    """REC's bf16 step with K2 and K3 at the encoder on "wg" (the rule)
+    and on "tc", and the host's time to queue them there."""
+    import time
+
+    import numpy as np
+
+    import chip_smoke
+    from reftr_torch.cli.presets import preset_config
+
+    assert Path(chip_smoke.__file__).resolve().is_relative_to(
+        Path(root).resolve()), chip_smoke.__file__
+    sources = sorted({src for src, _, _ in chip_smoke.KERNELS.values()})
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(_nvcc.build, sources))
+    cfg = preset_config("refcoco_det", dtype="bfloat16")
+    batch, targets = chip_smoke.train_batch(
+        np.random.default_rng(2), cfg.data.img_size, cfg.data.max_query_len,
+        cfg.model.bert.vocab_size, chip_smoke.SERVE_BATCH)
+    state, train_step = chip_smoke.bf16_state(cfg)
+    for _ in range(3):
+        state, _ = train_step(state, batch, targets)
+    steps = chip_smoke.bwd_route_steps(train_step, state, batch, targets)
+    del state, train_step
+    torch.cuda.empty_cache()
+
+    (b, sq, sk, h, d), dt = SITES["encoder_440"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen)
+                   .to(dt) for s in (sq, sk, sk, sq))
+    valid = torch.arange(sk, device="cuda")[None] < (
+        sk - (torch.arange(b, device="cuda") * 7) % (sk // 2))[:, None]
+    rate, seed = 0.1, 0xAB0440
+    out, lse = _launch_fwd("tc", q, k, v, valid, rate, seed)
+    bwd = (q, k, v, valid, out, lse, do, rate, seed)
+    di = torch.empty_like(lse)
+    bits = attention.new_keep_bits(q, k)
+
+    def pair(route):
+        if route == "wg":
+            _launch_dq("wg", *bwd, di_out=di, bits_out=bits)
+            _launch_dkv("wg", *bwd, di, bits)
+        else:
+            _launch_dq("tc", *bwd)
+            _launch_dkv("tc", *bwd)
+
+    host = {"wg": [], "tc": []}
+    for turn in range(8):
+        route = ("wg", "tc", "tc", "wg")[turn % 4]
+        for _ in range(5):
+            pair(route)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            pair(route)
+        host[route].append((time.perf_counter() - t0) / 200 * 1e6)
+        torch.cuda.synchronize()
+    print(json.dumps({
+        "label": label, "rec_step_host_ms": steps,
+        "queue_us_k2_k3_440": {r: {"turns": t, "median":
+                                   statistics.median(t)}
+                               for r, t in host.items()}}), flush=True)
+
+
 if __name__ == "__main__":
-    step() if sys.argv[3:] == ["step"] else main()
+    {"step": step, "rec": rec}.get(sys.argv[3] if sys.argv[3:] else "",
+                                   main)()
