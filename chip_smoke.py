@@ -9,12 +9,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    (reftr_torch/kernels/csrc/flash_attn_fwd_tc.cu, flash_attn_fwd_wg.cu, flash_attn_fwd_f32tc.cu, flash_attn_fwd_dec.cu,
    flash_attn_bwd.cu, flash_attn_bwd_dq_tc.cu, flash_attn_bwd_dq_wg.cu,
    flash_attn_bwd_dkv_tc.cu, flash_attn_bwd_dkv_wg.cu,
-   flash_attn_bwd_dq_f32tc.cu, flash_attn_bwd_dkv_f32tc.cu and
-   flash_attn_bwd_dec.cu, one nvcc each for sm_90a, started together with
-   one g++ of the data pipeline's C++ under reftr_torch/data/csrc/), and
-   count the tensor-core products in the machine code (cuobjdump -sass):
-   HMMA in the six mma.sync kernels, bf16 and 3xTF32, HGMMA (wgmma) in
-   the three warpgroup kernels; none fails the run. Print the D=32
+   flash_attn_bwd_dq_f32tc.cu, flash_attn_bwd_dkv_f32tc.cu,
+   flash_attn_bwd_dec.cu, int8_conv.cu and int8_quantize.cu, one nvcc
+   each for sm_90a, started together with one g++ of the data pipeline's
+   C++ under reftr_torch/data/csrc/), and count the tensor-core products
+   in the machine code (cuobjdump -sass): HMMA in the six mma.sync
+   kernels, bf16 and 3xTF32, HGMMA (wgmma) in the three warpgroup
+   kernels, IMMA in int8_conv; none fails the run. Print the D=32
    function's opcode counts and ptxas lines (registers, spills) of every
    tensor-core kernel, the dropout draw's callers among them. Read what
    the bound needs: the SM count, the SM clock nvidia-smi gives as its
@@ -88,11 +89,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    and SDPA's backward.
    3d. The warpgroup kernels against the mma.sync ones and SDPA in one
    process (wg_times), in bf16 without dropout and with 0.1, at 256^2
-   (B=8, the rule's least for K2 and K3), the VL encoder at 1, 2 and 4
-   feature levels (440^2, 2040^2 and 8540^2, B=8), the from-scratch
-   recipe's at 440^2 (B=16),
-   flickr's at 1 and 2 (490^2 and 2090^2, B=16) and flickr's decoder over
-   490 keys: K1 "tc", "wg" and SDPA's forward; K2 "tc" and "wg" (writing
+   (B=8, the rule's least for K2 and K3) and the VL encoder at 1, 2 and 4
+   feature levels (440^2, 2040^2 and 8540^2, B=8): K1 "tc", "wg" and
+   SDPA's forward; K2 "tc" and "wg" (writing
    di and the keep bits), K3 "tc" and "wg" (reading them) against SDPA's
    backward; device ms (CUDA events around calls queued behind a sleep
    kernel), in turns, the median of three. "wg" is checked
@@ -100,8 +99,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    of the largest plain gradient in bf16, its di against di_plain, its
    keep bits against keep_bits_plain on every row, its dq and bits on a
    repeated call): on all the inputs where its scores fit, else on batch
-   row 0 (B=1). The same checks, untimed, at the four-level encoder with
-   each image padded on the canvas (masked keys in nearly every key tile).
+   row 0 (B=1). The same checks, untimed, at the from-scratch recipe's
+   encoder (440^2, B=16), flickr's at 1 and 2 levels (490^2 and 2090^2,
+   B=16) and its decoder over 490 keys (timed before phase 14 took their
+   time), and at the four-level encoder with each image padded
+   on the canvas (masked keys in nearly every key tile).
    3e. The dropout draw of K1 and K2 exact in every kernel that draws
    it, K1 "tc", "wg", "tf32x3" and K2 "tc", "wg", "tf32x3"
    (flash_tc::keep_bits; K2-wg's keep bits must also equal
@@ -406,7 +408,39 @@ Phases, in order; any failure raises and the script exits non-zero:
    then in turns peak memory and device ms, and the launches of a counted
    step: 30 of each kernel, and with remat 6 more of K1 (each recomputed
    encoder layer's).
-14. Print one JSON line listing each kernel (each variant on a row of its
+14. Int8 post-training quantization (nn/quant.py) of refcoco_det at full
+   width, bf16, folded (fold_bn, fold_normalize), at the JAX default
+   scope (backbone, bert, vl): 220 int8 products a forward on the two
+   int8 kernels (kernels/quant.py: csrc/int8_quantize.cu and
+   csrc/int8_conv.cu, an implicit GEMM on the int8 tensor cores). a)
+   Every product shape of the model (found by hooks on the fp twin's
+   forward: 22 convolutions, 9 denses), at B=8 and B=64: int8_conv and
+   int8_quantize bit-equal to their plain versions (the conv's output in
+   bf16, at B=8 in float32 too; the quantize pass's input in bf16, at B=8
+   in float32 too); report only, each one's device ms (CUDA
+   events behind a sleep kernel), its bound (int8 operations at 1979
+   TOP/s, bytes at 3.35 TB/s) and the yardstick: torch._int_mm (the int32
+   product alone) at the dense shapes it takes, cuDNN's bf16 convolution
+   (another function) at the conv shapes. b) calibrate_and_quantize on 4
+   batches of 8 through ServingModel, then 6 requests behind the
+   MicroBatcher: exactly 220 launches of each int8 kernel and K1's 30 a
+   batch, finite boxes inside the images; the int8 boxes within 0.05 of
+   the side of the fp folded model's (JAX's bar). c) The int8
+   model exported at batch 16 and served --exported behind the
+   MicroBatcher (launches exact): boxes within 1e-3 of the side of the
+   live int8 model's, the artefact under 0.8 of phase 13b's bf16 fp
+   program. d) op_profile rec and rec_int8 at batch 64, report only:
+   device ms a forward, the int8 kernels' share. e) The trainer's entry
+   point in bf16 on 14b's seeded weights (as a reference .pth): --eval
+   --fold_bn --fold_normalize with and without --quantize_int8 (4
+   calibration batches under the eval step's autocast), launches exact,
+   the int8 eval held to the fp one at JAX's bars (loss within 5 %, mIoU
+   within 0.03, every box within 0.05 of the side); one epoch of
+   --quantize_train_prefix --fold_bn (8 steps, its eval), launches exact
+   (layer1's 10 convolutions in int8 a step and an eval batch), finite
+   losses, its checkpoint's layer1 in int8 and layer1's output within
+   JAX's bar of the fp model's (cosine above 0.99).
+15. Print one JSON line listing each kernel (each variant on a row of its
    own; the decode backward on one row for K2 and K3) with its launches
    on the main paths (phase 8's, 10's, 11's, 12's and 13's runs included,
    also on their own), its error (phase 10's and 11's checks at their own sites
@@ -414,8 +448,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    the main path launches it (the decoder's cross-attention for the
    decode and SIMT kernels, the VL encoder for the tensor-core kernels, in
    float32 for the 3xTF32 ones, the four-level encoder at B=8 for the
-   warpgroup kernels, from phase 3d) on this card.
-15. Print {"ok": true, "device": {...}} as the last line.
+   warpgroup kernels, from phase 3d) on this card; the two int8 kernels
+   with phase 14's launches (14b, 14c, 14e) and their times at B=64 (14a:
+   int8_conv at the VL encoder's first FFN dense, int8_quantize at
+   layer1's 256-channel activations), every shape's beside.
+16. Print {"ok": true, "device": {...}} as the last line.
 
 It needs a CUDA card and the reftr_torch package beside it; without
 either it fails before it prints any result.
@@ -660,14 +697,15 @@ OFFSET_32 = 2 ** 32
 # mma.sync ones and SDPA, and the turns of each: the model's from 440 keys
 # up and the rule's least for K2 and K3 (256^2, as a shape: no model site)
 WG_TIME_SITES = ((SERVE_BATCH, 256, 256, 8, 32), "vl_encoder_self",
-                 "scratch_vl_encoder_self", "multi_vl_encoder_self",
-                 "vl_encoder_2_levels_b8", "multi_vl_encoder_2_levels",
-                 "vl_encoder_4_levels_b8", "multi_decoder_cross")
+                 "vl_encoder_2_levels_b8", "vl_encoder_4_levels_b8")
 WG_TIME_TURNS = 3
-# and the sites phase 3d checks without timing them: the four-level
-# encoder with each image padded on the canvas (masked keys in nearly
-# every key tile)
-WG_CHECK_SITES = ("vl_encoder_4_levels_b8_padded",)
+# and the sites phase 3d checks without timing them: the from-scratch
+# recipe's encoder, flickr's at 1 and 2 levels and its decoder (timed
+# until phase 14 took their time), and the four-level encoder with each
+# image padded on the canvas (masked keys in nearly every key tile)
+WG_CHECK_SITES = ("scratch_vl_encoder_self", "multi_vl_encoder_self",
+                  "multi_vl_encoder_2_levels", "multi_decoder_cross",
+                  "vl_encoder_4_levels_b8_padded")
 # phase 3e: the shapes (B, Sq, Sk, H, D) at which the dropout draw of K1
 # and K2 (flash_tc::keep_bits) is checked exact in every kernel that calls
 # it: key counts that are not a multiple of 4, those of the model's sites
@@ -1751,9 +1789,8 @@ def check_simt_dkv(report: dict) -> dict:
 def wg_times(report: dict) -> list:
     """Phase 3d: the warpgroup kernels against the mma.sync ones and SDPA
     in one process, in bf16 at WG_TIME_SITES (256^2 and the VL encoder at
-    1, 2 and 4 feature levels, B=8, the sentence padded; the from-scratch
-    recipe's encoder at B=16; flickr's encoder at 1 and 2 levels, B=16;
-    flickr's decoder over 490 keys), without dropout and with 0.1.
+    1, 2 and 4 feature levels, B=8, the sentence padded), without dropout
+    and with 0.1.
     K1: "tc", "wg" and SDPA's forward; the backward: K2 "tc" and "wg"
     (K2-wg writing di and, with dropout, the keep bits), K3 "tc" and "wg"
     (K3-wg reading them), and SDPA's backward, which covers K2 and K3
@@ -6115,6 +6152,712 @@ def export_launches(report: dict) -> dict:
     return {k: sum(n[k] for n in runs) for k in runs[0]}
 
 
+# 14: int8 post-training quantization (nn/quant.py) of refcoco_det at full
+# width, folded (fold_bn, fold_normalize) at the JAX default scope
+# (backbone, bert, vl), on the two int8 kernels (kernels/quant.py). Each
+# kernel: its source, the XLA op of the JAX package it replaces (no Pallas
+# kernel: reftr_tpu/nn/quant.py's conv_general_dilated and dot_general on
+# int8, and the quantize chain before them)
+INT8_KERNELS = {
+    "int8_conv": ("int8_conv.cu", "reftr_tpu/nn/quant.py:79"),
+    "int8_quantize": ("int8_quantize.cu", "reftr_tpu/nn/quant.py:75"),
+}
+INT8_ALSO = {"int8_conv": "reftr_tpu/nn/quant.py:118",
+             "int8_quantize": "reftr_tpu/nn/quant.py:116"}
+INT8_CALIB_BATCHES = 4  # 14b: calibration batches of SERVE_BATCH rows
+# products a refcoco_det forward runs in int8: 52 bottleneck convs,
+# BERT-base's 12 layers of 6 denses, the encoder's 6 layers of 6, the
+# decoder's 6 of 10 (self- and cross-attention, FFN)
+INT8_PRODUCTS = 52 + 12 * 6 + 6 * 6 + 6 * 10
+# 14a: the batch sizes each product shape is checked and timed at
+INT8_BATCHES = (SERVE_BATCH, 64)
+# 14b, 14e: the int8 boxes against the fp folded model's: JAX's bar
+# (tests/test_quantize.py:131-133), of the side
+INT8_BOX_TOL = 0.05
+# 14c: the exported int8 program against the live int8 model (of the
+# side), and its bytes against the bf16 fp program's (JAX's bar,
+# tests/test_export.py:155-156)
+INT8_EXPORT_TOL = 1e-3
+INT8_BYTES_SHARE = 0.8
+INT8_TIME_ITERS = 20
+# the int8 tensor cores' dense rate (NVIDIA H100 SXM data sheet), and the
+# float32 rate outside the tensor cores, which the quantize pass's one
+# multiply an element runs at
+PEAK_INT8_OPS = 1979e12
+PEAK_F32_FLOPS = 67e12
+# the shapes the kernels line reads each kernel's times at: the VL
+# encoder's first FFN dense and layer1's 256-channel activations, at B=64
+INT8_MAIN_SITE = {"int8_conv": "vl_transformer.encoder.layers.ffn.linear1",
+                  "int8_quantize": "img_backbone.layer1.conv1 (256 in)"}
+# 14e: the int8 routes of the trainer's entry point, at full width in bf16
+# (autocast, as the eval and train steps run) on 14b's seeded weights
+# written as a reference .pth (folded as it loads): --eval --quantize_int8
+# against the same --eval in fp, and one --quantize_train_prefix epoch
+INT8_CLI = CLI_MODEL_DATA + ["--dtype", "bfloat16", "--fold_bn"]
+INT8_CLI_CALIB = 4  # --quant_calib_batches of --eval --quantize_int8
+INT8_PREFIX_CALIB = 2  # and of --quantize_train_prefix
+# the train prefix's int8 products: layer1's 3 bottlenecks' 3 convs and
+# its downsample
+INT8_PREFIX_CONVS = 10
+# JAX's bars of the eval route (tests/test_quantize.py:211-213): the loss
+# within 5 % and mIoU within 0.03 of the fp eval's; of the train prefix
+# (tests/test_quantize.py:290-293): layer1's output against the fp one's,
+# cosine above 0.99
+INT8_LOSS_RTOL = 0.05
+INT8_MIOU_TOL = 0.03
+INT8_PREFIX_COS = 0.99
+
+
+def product_shapes(model, names, batch) -> list:
+    """Every int8 product of one forward of the fp ``model`` on ``batch``
+    (the modules ``names``, which the int8 twin quantizes), by distinct
+    shape: a conv's (N, H, W, Cin, Cout, k, stride, dilation), a dense's
+    (M, K, N), the modules of each and its calls a forward."""
+    import torch
+
+    found, hooks = {}, []
+    for name in names:
+        mod = model.get_submodule(name)
+
+        def record(m, args, name=name):
+            x = args[0]
+            if isinstance(m, torch.nn.Conv2d):
+                n, c, h, w = x.shape
+                key = ("conv", n, h, w, c, m.out_channels, m.kernel_size[0],
+                       m.stride[0], m.dilation[0])
+            else:
+                key = ("dense", x.numel() // x.shape[-1], x.shape[-1],
+                       m.out_features)
+            entry = found.setdefault(key, {"modules": [], "calls": 0})
+            entry["calls"] += 1
+            entry["modules"].append(name)
+        hooks.append(mod.register_forward_pre_hook(record))
+    with torch.inference_mode():
+        model({k: torch.from_numpy(v).cuda() for k, v in batch.items()})
+    for h in hooks:
+        h.remove()
+    return [{"shape": key, **v} for key, v in found.items()]
+
+
+def scaled(shape: tuple, factor: int) -> tuple:
+    """A product shape at ``factor`` times the batch: a conv's N, a
+    dense's M (every dense's rows are the batch times its tokens)."""
+    return (shape[0], shape[1] * factor) + shape[2:]
+
+
+def shape_label(entry: dict) -> str:
+    """A product shape's site, named by its first module with the layer
+    and block indices dropped."""
+    name = re.sub(r"\.\d+", "", entry["modules"][0])
+    if entry["shape"][0] == "conv":
+        stride = entry["shape"][7]
+        return (f"{name} ({entry['shape'][4]} in"
+                + (f", stride {stride})" if stride > 1 else ")"))
+    return name
+
+
+def int8_conv_bound(shape: tuple, out_bytes: int = 2) -> dict:
+    """The int8 product's least time: its int8 operations (2 M N K) at
+    PEAK_INT8_OPS, and the bytes it must move (the int8 input and weight
+    read once, the output written once, the float32 scales and bias) at
+    PEAK_BYTES_S, in ms."""
+    if shape[0] == "conv":
+        _, n, h, w, c, cout, k, s, d = shape
+        pad = d * (k - 1) // 2
+        ho = (h + 2 * pad - d * (k - 1) - 1) // s + 1
+        wo = (w + 2 * pad - d * (k - 1) - 1) // s + 1
+        m, kk, nn_ = n * ho * wo, k * k * c, cout
+        in_bytes = n * h * w * c
+        bias = 0
+    else:
+        _, m, kk, nn_ = shape
+        in_bytes = m * kk
+        bias = 4 * nn_
+    ops = 2 * m * nn_ * kk
+    moved = in_bytes + nn_ * kk + m * nn_ * out_bytes + 4 * nn_ + 4 + bias
+    return {"operations": ops / PEAK_INT8_OPS * 1e3,
+            "bytes": moved / PEAK_BYTES_S * 1e3}
+
+
+def quantize_bound(n: int, in_bytes: int = 2) -> dict:
+    """The quantize pass's least time: n elements read (bf16) and written
+    (int8) at PEAK_BYTES_S, one float32 multiply each at PEAK_F32_FLOPS."""
+    return {"operations": n / PEAK_F32_FLOPS * 1e3,
+            "bytes": n * (in_bytes + 1) / PEAK_BYTES_S * 1e3}
+
+
+def bound_pick(terms: dict) -> tuple:
+    top = max(terms, key=terms.get)
+    return terms[top], "bytes" if top == "bytes" else "operations"
+
+
+def int8_inputs(gen, shape: tuple, dtype):
+    """Random int8 operands of a product shape on the card: x, w, w_scale,
+    in_scale, bias (a dense's), the geometry (k, stride, dilation),
+    and a bf16 activation of the product's input shape for the quantize
+    pass."""
+    import torch
+
+    if shape[0] == "conv":
+        _, n, h, w, c, cout, k, s, d = shape
+        xshape, wshape, geo = (n, h, w, c), (cout, k * k * c), (k, s, d)
+        ashape, bias = xshape, None
+    else:
+        _, m, kk, cout = shape
+        xshape, wshape, geo = (m, 1, 1, kk), (cout, kk), (1, 1, 1)
+        ashape = (m, kk)
+        bias = torch.randn(cout, device="cuda", generator=gen) * 0.1
+    x = torch.randint(-127, 128, xshape, dtype=torch.int8, device="cuda",
+                      generator=gen)
+    w = torch.randint(-127, 128, wshape, dtype=torch.int8, device="cuda",
+                      generator=gen)
+    ws = torch.rand(cout, device="cuda", generator=gen) * 1e-3
+    scale = torch.tensor(0.0213, device="cuda")
+    act = (torch.randn(ashape, device="cuda", generator=gen) * 2).to(dtype)
+    return x, w, ws, scale, bias, geo, act
+
+
+def check_int8_shapes(report: dict, shapes: list) -> list:
+    """14a: each product shape at B=8 and B=64: int8_conv and
+    int8_quantize (on the product's bf16 input) bit-equal to their plain
+    versions, the conv's output in bf16 (as served) and at B=8 in float32
+    too, and at B=8 int8_quantize on a float32 input (a LayerNorm's
+    output under the eval step's autocast, 14e); then, report only, each one's device ms (CUDA events around
+    INT8_TIME_ITERS calls queued behind a sleep kernel), its bound, and
+    the yardstick: torch._int_mm (the int32 product alone, which the port
+    never calls) at the dense shapes it takes (more than 16 rows), cuDNN's
+    bf16 convolution (another function) at the conv shapes; the plain
+    versions' ms at the kernels line's shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from reftr_torch.kernels import quant as kq
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0x14A)
+    rows = []
+    for factor in (b // SERVE_BATCH for b in INT8_BATCHES):
+        for entry in shapes:
+            shape = scaled(entry["shape"], factor)
+            site = shape_label(entry)
+            x, w, ws, scale, bias, geo, act = int8_inputs(
+                gen, shape, torch.bfloat16)
+            dtypes = ((torch.bfloat16, torch.float32) if factor == 1
+                      else (torch.bfloat16,))
+            errs = []
+            for dt in dtypes:
+                got = kq.int8_conv(x, w, ws, scale, bias, *geo, dt)
+                want = kq.int8_conv_plain(x, w, ws, scale, bias, *geo, dt)
+                errs.append(max_err(got, want))
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"phase 14a: int8_conv at {site} {shape} {dt}: "
+                        f"{errs[-1]:.3g} from its plain version")
+            for a in (act, act.float()) if factor == 1 else (act,):
+                qgot = kq.quantize_int8(a, scale)
+                if not torch.equal(qgot, kq.quantize_plain(a, scale)):
+                    raise AssertionError(f"phase 14a: int8_quantize at "
+                                         f"{site} {tuple(a.shape)} "
+                                         f"{a.dtype} differs from its plain"
+                                         f" version")
+            del got, want, qgot
+            conv_ms = queued_ms(lambda: kq.int8_conv(
+                x, w, ws, scale, bias, *geo, torch.bfloat16),
+                iters=INT8_TIME_ITERS)
+            quant_ms = queued_ms(lambda: kq.quantize_int8(act, scale),
+                                 iters=INT8_TIME_ITERS)
+            bound, bound_by = bound_pick(int8_conv_bound(shape))
+            qbound, qbound_by = bound_pick(quantize_bound(act.numel()))
+            lib, lib_ms = None, None
+            if shape[0] == "dense" and shape[1] > 16:
+                lib = "torch._int_mm"
+                a2, wt = x.view(shape[1], shape[2]), w.t()
+                lib_ms = queued_ms(lambda: torch._int_mm(a2, wt),
+                                   iters=INT8_TIME_ITERS)
+            elif shape[0] == "conv":
+                lib = "cuDNN bf16 conv2d (another function)"
+                k, s, d = geo
+                xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)
+                wb = w.view(shape[5], k, k, shape[4]).permute(
+                    0, 3, 1, 2).to(torch.bfloat16)
+                pad = d * (k - 1) // 2
+                lib_ms = queued_ms(lambda: F.conv2d(
+                    xb, wb, stride=s, padding=pad, dilation=d),
+                    iters=INT8_TIME_ITERS)
+                del xb, wb
+            row = {"site": site, "shape": list(shape),
+                   "batch": SERVE_BATCH * factor,
+                   "calls_per_forward": entry["calls"],
+                   "max_abs_err": max(errs), "ms": conv_ms,
+                   "bound_ms": bound,
+                   "bound_by": bound_by, "library": lib,
+                   "library_ms": lib_ms,
+                   "quantize_shape": list(act.shape),
+                   "quantize_ms": quant_ms, "quantize_bound_ms": qbound,
+                   "quantize_bound_by": qbound_by}
+            main = factor > 1 and site in INT8_MAIN_SITE.values()
+            if main:
+                row["plain_ms"] = cuda_ms(lambda: kq.int8_conv_plain(
+                    x, w, ws, scale, bias, *geo, torch.bfloat16),
+                    iters=3, warmup=1)
+                row["quantize_plain_ms"] = cuda_ms(
+                    lambda: kq.quantize_plain(act, scale), iters=3,
+                    warmup=1)
+            rows.append(row)
+            del x, w, act
+        torch.cuda.empty_cache()
+    for b in INT8_BATCHES:
+        mine = [r for r in rows if r["batch"] == b]
+        fwd = sum(r["calls_per_forward"] * r["ms"] for r in mine)
+        qfwd = sum(r["calls_per_forward"] * r["quantize_ms"] for r in mine)
+        bnd = sum(r["calls_per_forward"] * r["bound_ms"] for r in mine)
+        print(f"int8 14a ({report['card']}): B={b}, {len(mine)} product "
+              f"shapes bit-equal to the plain versions (int8_conv in bf16"
+              f"{' and float32' if b == SERVE_BATCH else ''}, "
+              f"int8_quantize on bf16"
+              f"{' and float32' if b == SERVE_BATCH else ''}); a forward's {INT8_PRODUCTS} products: "
+              f"int8_conv {fwd:.3f} ms (bound {bnd:.3f} ms), int8_quantize "
+              f"{qfwd:.3f} ms (device ms, CUDA events behind a sleep "
+              f"kernel)", flush=True)
+        for r in mine:
+            print(f"int8 14a B={b} {r['site']:46s} {str(r['shape'][1:]):28s}"
+                  f" x{r['calls_per_forward']:2d}: conv {r['ms']:.4f} ms "
+                  f"(bound {r['bound_ms']:.4f} {r['bound_by']}; "
+                  + (f"{r['library']} {r['library_ms']:.4f}"
+                     if r["library"] else "no library call")
+                  + f"), quantize "
+                  f"{r['quantize_ms']:.4f} ms (bound "
+                  f"{r['quantize_bound_ms']:.4f})", flush=True)
+    report["int8_shapes"] = rows
+    return rows
+
+
+def int8_boxes(model, batches) -> list:
+    """pred_boxes of ``model`` (a module) on each batch, float32."""
+    import torch
+
+    with torch.inference_mode():
+        return [model({k: torch.from_numpy(v).cuda()
+                       for k, v in b.items()})["pred_boxes"].float()
+                for b in batches]
+
+
+def group_batches(reqs, size: int) -> list:
+    """``reqs`` packed greedily, in order, into padded batches of ``size``
+    rows, and each batch's real rows."""
+    from reftr_torch.serve import pad_batch
+
+    out, group = [], []
+    for r in reqs + [None]:
+        if r is None or sum(g.k for g in group) + r.k > size:
+            if group:
+                out.append((pad_batch(group, size),
+                            sum(g.k for g in group)))
+            group = []
+        if r is not None:
+            group.append(r)
+    return out
+
+
+def int8_launches(n: int, steps: int = 0, products: int = None) -> dict:
+    """The counters after ``n`` forwards and ``steps`` train steps of
+    refcoco_det in bf16: K1's (and in the steps K2's and K3's) by the rule,
+    and ``products`` launches of each int8 kernel (by default one quantize
+    and one int8 product for each of INT8_PRODUCTS a forward)."""
+    want = expected_launches(n, "bfloat16", False)
+    if steps:
+        for k, v in expected_launches(steps, "bfloat16", True).items():
+            want[k] += v
+    products = INT8_PRODUCTS * n if products is None else products
+    want.update({"quantize_int8": products, "int8_conv": products})
+    return want
+
+
+def val_stats(run: dict) -> dict:
+    """The eval stats that train/loop.py printed as ``[val] {...}``."""
+    found = re.findall(r"^\[val\] (\{.*\})$", run["out"], re.M)
+    if not found:
+        raise AssertionError(f"no [val] stats in: {run['out'][-2000:]}")
+    return json.loads(found[-1])
+
+
+def int8_cli(report: dict, int8_counters, tmp: Path, sd: dict) -> dict:
+    """14e: the int8 routes of the trainer's entry point at full width in
+    bf16, on refcoco_det's seeded weights ``sd`` (reference_weights of the
+    standard model) written as a reference .pth in ``tmp``
+    (--pretrained_model, folded as it loads). --eval --fold_normalize
+    in fp and with --quantize_int8 (calibrated under the eval step's
+    autocast on INT8_CLI_CALIB val batches, the next one probing drift):
+    exit 0, exact launches (K1 for the calibration, probe and eval
+    forwards; INT8_PRODUCTS of each int8 kernel an eval batch, none in
+    fp), JAX's bars against the fp eval (the loss within INT8_LOSS_RTOL,
+    mIoU within INT8_MIOU_TOL, every box of the results file within
+    INT8_BOX_TOL of the side). --quantize_train_prefix, one epoch of
+    CLI_STEPS steps and its eval: exit 0, exact launches (the bf16 step's
+    K1-K3, K1 for the calibration and eval forwards, INT8_PREFIX_CONVS of
+    each int8 kernel a step and an eval batch), finite losses, its
+    checkpoint's layer1 in int8, and layer1's output of that checkpoint
+    against the fp folded model's on train images under autocast: cosine
+    above INT8_PREFIX_COS (JAX's bar)."""
+    import torch
+
+    from reftr_torch.cli.main import args_to_config, get_args_parser
+    from reftr_torch.cli.presets import apply_preset, preset_config
+    from reftr_torch.convert import build_model
+    from reftr_torch.core import checkpoint as ckpt_lib
+    from reftr_torch.data.build import build_refer_dataset
+    from reftr_torch.nn.convert import save_reference_checkpoint
+    from reftr_torch.ops.image import normalize_images
+    from reftr_torch.train.loop import build_tokenizer, load_pretrained
+
+    pth = tmp / "cli.pth"
+    save_reference_checkpoint(str(pth), sd,
+                              preset_config("refcoco_det").model)
+    evals = INT8_CLI + ["--fold_normalize", "--eval", "--pretrained_model",
+                        str(pth)]
+    res = {}
+    for key, extra, want in (
+            ("fp", [], int8_launches(CLI_EVAL_BATCHES, products=0)),
+            ("int8", ["--quantize_int8", "--quant_calib_batches",
+                      str(INT8_CLI_CALIB)],
+             int8_launches(INT8_CLI_CALIB + 1 + CLI_EVAL_BATCHES,
+                           products=INT8_PRODUCTS * CLI_EVAL_BATCHES))):
+        out = tmp / key
+        run = run_cli(evals + extra + ["--output_dir", str(out)],
+                      int8_counters)
+        if run["rc"] != 0 or run["launches"] != want:
+            raise AssertionError(f"phase 14e {key} eval: exit {run['rc']}, "
+                                 f"launches {run['launches']}, not {want}: "
+                                 f"{run['out'][-2000:]}")
+        res[key] = {"launches": run["launches"], "seconds": run["seconds"],
+                    "stats": val_stats(run), "boxes": json.loads(
+                        (out / "synthetic_val_result.json").read_text())}
+    fp, q = res["fp"], res["int8"]
+    side = float(preset_config("refcoco_det").data.img_size)
+    if set(fp["boxes"]) != set(q["boxes"]):
+        raise AssertionError("phase 14e: the int8 eval's results file has "
+                             "other images than the fp eval's")
+    box_err = max(float(np.abs(np.asarray(q["boxes"][k])
+                               - np.asarray(fp["boxes"][k])).max())
+                  for k in fp["boxes"]) / side
+    loss_rel = abs(q["stats"]["loss"] - fp["stats"]["loss"]) / fp[
+        "stats"]["loss"]
+    miou_err = abs(q["stats"]["miou"] - fp["stats"]["miou"])
+    if not (np.isfinite(q["stats"]["loss"]) and loss_rel < INT8_LOSS_RTOL
+            and miou_err < INT8_MIOU_TOL and box_err <= INT8_BOX_TOL):
+        raise AssertionError(f"phase 14e: int8 eval against fp: loss "
+                             f"{loss_rel:.3g} rel (tol {INT8_LOSS_RTOL}), "
+                             f"mIoU {miou_err:.3g} (tol {INT8_MIOU_TOL}), "
+                             f"boxes {box_err:.3g} of the side (tol "
+                             f"{INT8_BOX_TOL})")
+    eval_res = {"launches": q["launches"], "fp_launches": fp["launches"],
+                "seconds": q["seconds"], "fp_seconds": fp["seconds"],
+                "loss": q["stats"]["loss"], "fp_loss": fp["stats"]["loss"],
+                "miou": q["stats"]["miou"], "fp_miou": fp["stats"]["miou"],
+                "loss_rel_err": loss_rel, "miou_err": miou_err,
+                "box_err_vs_fp": box_err}
+    print(f"int8 14e ({report['card']}): --eval --quantize_int8 --fold_bn "
+          f"--fold_normalize in bf16, {CLI_EVAL_BATCHES} batches of 8 after "
+          f"{INT8_CLI_CALIB} calibration batches, {q['seconds']:.1f} s "
+          f"(fp {fp['seconds']:.1f} s), launches "
+          f"{ {k: v for k, v in q['launches'].items() if v} }; against "
+          f"the fp eval: loss {q['stats']['loss']:.6g} / "
+          f"{fp['stats']['loss']:.6g} ({loss_rel:.3g} rel), mIoU "
+          f"{q['stats']['miou']:.6g} / {fp['stats']['miou']:.6g}, boxes "
+          f"{box_err:.3g} of the side", flush=True)
+
+    out = tmp / "prefix"
+    argv = INT8_CLI + ["--epochs", "1", "--quantize_train_prefix",
+                       "--quant_calib_batches", str(INT8_PREFIX_CALIB),
+                       "--pretrained_model", str(pth), "--output_dir",
+                       str(out)]
+    run = run_cli(argv, int8_counters)
+    want = int8_launches(INT8_PREFIX_CALIB + CLI_EVAL_BATCHES, CLI_STEPS,
+                         INT8_PREFIX_CONVS * (CLI_STEPS + CLI_EVAL_BATCHES))
+    calibrated = (f"int8 train-prefix: calibrated layer1 on "
+                  f"{INT8_PREFIX_CALIB} batches")
+    if run["rc"] != 0 or run["launches"] != want or \
+            calibrated not in run["out"]:
+        raise AssertionError(f"phase 14e prefix: exit {run['rc']}, launches "
+                             f"{run['launches']}, not {want}: "
+                             f"{run['out'][-2000:]}")
+    with open(out / "log.txt") as f:
+        log = [json.loads(x) for x in f]
+    step_losses = _floats(r"(?m)^Epoch: \[0\] \[\d+/\d+\].*?  loss: "
+                          r"([\d.eE+-]+|nan|inf)", run["out"])
+    if len(log) != 1 or not step_losses or not all(
+            math.isfinite(v) for v in step_losses + [
+                log[0]["train_loss"], log[0]["test_val_loss"]]):
+        raise AssertionError(f"phase 14e prefix: log {log}, step losses "
+                             f"{step_losses}")
+    trained = ckpt_lib.load_checkpoint(str(out / "checkpoint"))["model"]
+    if trained["img_backbone.layer1.0.conv2.kernel_q"].dtype != \
+            torch.int8 or "img_backbone.layer2.0.conv2.weight" not in trained:
+        raise AssertionError("phase 14e prefix: the checkpoint's layer1 is "
+                             "not int8")
+    args = get_args_parser().parse_args(argv)
+    apply_preset(args, args.preset, argv)
+    cfg = args_to_config(args)
+    fp_mc = dataclasses.replace(cfg.model, quantize_train_prefix=False)
+    qmodel = build_model(cfg.model, "cuda", state_dict=trained).eval()
+    fmodel = build_model(fp_mc, "cuda").eval()
+    load_pretrained(fmodel, str(pth), cfg, log=lambda *a: None)
+    ds = build_refer_dataset("train", cfg.data, build_tokenizer(cfg),
+                             train=True)
+    images = torch.from_numpy(np.stack(
+        [ds[i][0]["image"] for i in range(SERVE_BATCH)])).cuda()
+    x = normalize_images(images, torch.float32)
+    feats = []
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        for m in (fmodel, qmodel):
+            bb = m.img_backbone
+            feats.append(bb.run_stage(1, bb.stem(x)).float())
+    a, b = feats
+    cos = float((a * b).sum() / (a.norm() * b.norm()))
+    if not cos > INT8_PREFIX_COS:
+        raise AssertionError(f"phase 14e prefix: layer1's output cosine "
+                             f"{cos:.6f} to the fp one's (bar "
+                             f"{INT8_PREFIX_COS})")
+    prefix_res = {"launches": run["launches"], "seconds": run["seconds"],
+                  "step_losses": step_losses, "log": log[0],
+                  "layer1_cosine": cos,
+                  "cli": cli_report(run)}
+    print(f"int8 14e ({report['card']}): --quantize_train_prefix --fold_bn "
+          f"in bf16, {CLI_STEPS} steps and {CLI_EVAL_BATCHES} eval batches "
+          f"in {run['seconds']:.1f} s, launches "
+          f"{ {k: v for k, v in run['launches'].items() if v} }; step "
+          f"losses {step_losses[0]:.4f} .. {step_losses[-1]:.4f}, layer1's "
+          f"output cosine {cos:.6f} to the fp one's", flush=True)
+    del qmodel, fmodel, feats, a, b, x, images, trained
+    return {"eval": eval_res, "prefix": prefix_res}
+
+
+def phase14(report: dict, counters) -> dict:
+    """Phase 14: int8 PTQ of refcoco_det at full width, bf16, folded, at
+    the JAX default scope. 14a: each product shape against the plain
+    versions at B=8 and B=64 (check_int8_shapes). 14b: calibrated on
+    INT8_CALIB_BATCHES batches of SERVE_BATCH (calibrate_and_quantize
+    through ServingModel) and serving N_REQUESTS requests behind the
+    MicroBatcher: exact launches (INT8_PRODUCTS of each int8 kernel and
+    K1's 30 a batch), finite boxes inside the images, the int8 boxes within
+    INT8_BOX_TOL of the fp folded model's. 14c: the
+    int8 model exported at EXPORT_BATCH and served --exported behind the
+    MicroBatcher (launches exact), its boxes within INT8_EXPORT_TOL of the
+    live int8 model's, its bytes under INT8_BYTES_SHARE of phase 13b's
+    bf16 fp program. 14d: op_profile rec and rec_int8 at batch 64 in
+    turns: device ms a forward, the int8 kernels' share. 14e: the
+    trainer's entry point with --eval --quantize_int8 and
+    --quantize_train_prefix (int8_cli)."""
+    import tempfile
+
+    import torch
+
+    from reftr_torch.cli.presets import preset_config
+    from reftr_torch.convert import model_class
+    from reftr_torch.kernels import quant as kq
+    from reftr_torch.nn import quant as nq
+    from reftr_torch.serve import ServingModel, pad_batch
+    from reftr_torch.tools import export_model, op_profile
+
+    t_all = time.perf_counter()
+    parts = {}
+    cfg_fp = preset_config("refcoco_det", dtype="bfloat16", **FOLDS)
+    cfg_q = preset_config("refcoco_det", dtype="bfloat16",
+                          quantize_int8=True, **FOLDS)
+    d = cfg_fp.data
+    img, seq, vocab = d.img_size, d.max_query_len, cfg_fp.model.bert.vocab_size
+    sd = reference_weights(cfg_fp)
+    rng = np.random.default_rng(0x14)
+    calib = [(op_profile.make_batch(rng, SERVE_BATCH, img, seq, vocab), None)
+             for _ in range(INT8_CALIB_BATCHES)]
+    fp = ServingModel(cfg_fp, SERVE_BATCH, state_dict=sd)
+    names = nq.quant_targets(model_class(cfg_q.model), cfg_q.model)
+    shapes = product_shapes(fp.model, names, calib[0][0])
+    if sum(e["calls"] for e in shapes) != INT8_PRODUCTS:
+        raise AssertionError(f"phase 14: {sum(e['calls'] for e in shapes)} "
+                             f"products a forward, not {INT8_PRODUCTS}")
+
+    t = time.perf_counter()
+    check_int8_shapes(report, shapes)
+    parts["a"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    int8_counters = list(counters) + [kq.quantize_int8, kq.int8_conv]
+    q = ServingModel(cfg_q, SERVE_BATCH, state_dict=sd, calib_batches=calib)
+    built_s = time.perf_counter() - t
+    reqs = make_requests(rng, img, seq, vocab)
+    q(pad_batch(reqs[:1], SERVE_BATCH))  # the kernels' first calls
+    launches, n_batches, served_s = serve_requests(q, reqs, int8_counters)
+    if launches != int8_launches(n_batches):
+        raise AssertionError(f"phase 14b: launches {launches} for "
+                             f"{n_batches} batches, not "
+                             f"{int8_launches(n_batches)}")
+    batches = group_batches(reqs, SERVE_BATCH)
+    want = int8_boxes(fp.model, [b for b, _ in batches])
+    got = int8_boxes(q.model, [b for b, _ in batches])
+    fp_err = max(float((g[:n] - w[:n]).abs().max())
+                 for (_, n), g, w in zip(batches, got, want))
+    if not fp_err <= INT8_BOX_TOL:
+        raise AssertionError(f"phase 14b: int8 boxes {fp_err:.3g} from the "
+                             f"fp model's (tol {INT8_BOX_TOL})")
+    serve_res = {"launches": launches, "batches": n_batches,
+                 "served_s": served_s, "built_s": built_s,
+                 "box_err_vs_fp": fp_err}
+    print(f"int8 14b ({report['card']}): calibrated on "
+          f"{INT8_CALIB_BATCHES} batches of {SERVE_BATCH} and built in "
+          f"{built_s:.1f} s; {len(reqs)} requests in {n_batches} batches, "
+          f"{served_s:.3f} s, launches {launches}; pred_boxes max |int8 - "
+          f"fp| {fp_err:.3g} (tol {INT8_BOX_TOL})", flush=True)
+    del fp, q, want, got
+    torch.cuda.empty_cache()
+    parts["b"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        live = ServingModel(cfg_q, EXPORT_BATCH, state_dict=sd,
+                            calib_batches=calib)
+        spec = export_model.serving_batch_spec(cfg_q, EXPORT_BATCH)
+        t0 = time.perf_counter()
+        program = export_model.export_serving(live.model, spec,
+                                              torch.device("cuda"))
+        manifest = export_model.save_exported(
+            program, tmp, export_model.model_manifest(cfg_q, live.model,
+                                                      EXPORT_BATCH, ""))
+        export_s = time.perf_counter() - t0
+        del program
+        exported = ServingModel(cfg_q, EXPORT_BATCH, exported_dir=tmp)
+        reqs = make_requests(rng, img, seq, vocab)
+        exported(pad_batch(reqs[:1], EXPORT_BATCH))
+        elaunches, e_batches, _ = serve_requests(exported, reqs,
+                                                 int8_counters)
+        if elaunches != int8_launches(e_batches):
+            raise AssertionError(f"phase 14c: launches {elaunches} for "
+                                 f"{e_batches} batches, not "
+                                 f"{int8_launches(e_batches)}")
+        batches = group_batches(reqs, EXPORT_BATCH)
+        got = int8_boxes(exported.model, [b for b, _ in batches])
+        want = int8_boxes(live.model, [b for b, _ in batches])
+        exp_err = max(float((g[:n] - w[:n]).abs().max())
+                      for (_, n), g, w in zip(batches, got, want))
+    fp_bytes = report["fold_export"]["bfloat16"]["manifest"][
+        "artifact_bytes"]
+    share = manifest["artifact_bytes"] / fp_bytes
+    if not (exp_err <= INT8_EXPORT_TOL and share < INT8_BYTES_SHARE
+            and manifest["model"]["quantize_int8"]
+            and "reftr_torch.kernels.quant" in manifest["requires"]):
+        raise AssertionError(f"phase 14c: exported boxes {exp_err:.3g} from "
+                             f"the live model's (tol {INT8_EXPORT_TOL}), "
+                             f"{manifest['artifact_bytes']} bytes = "
+                             f"{share:.3f}"
+                             f" of the bf16 program's, manifest "
+                             f"{manifest['model']}, {manifest['requires']}")
+    export_res = {"launches": elaunches, "batches": e_batches,
+                  "artifact_bytes": manifest["artifact_bytes"],
+                  "fp_artifact_bytes": fp_bytes, "bytes_share": share,
+                  "export_s": export_s, "box_err_vs_live": exp_err}
+    print(f"int8 14c ({report['card']}): exported at batch {EXPORT_BATCH} "
+          f"in {export_s:.1f} s, {manifest['artifact_bytes']} bytes = "
+          f"{share:.3f} of the bf16 fp program's {fp_bytes}; served "
+          f"--exported: {e_batches} batches, launches {elaunches}; "
+          f"pred_boxes max |exported - live| {exp_err:.3g} (tol "
+          f"{INT8_EXPORT_TOL})", flush=True)
+    del live, exported, got, want
+    torch.cuda.empty_cache()
+    parts["c"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    prof = {}
+    for mode in ("rec", "rec_int8"):
+        rows = op_profile.profile(mode, topk=8, steps=3)
+        total = sum(r["ms"] for r in rows)
+        by_cat = {}
+        for r in rows:
+            by_cat[r["category"]] = by_cat.get(r["category"], 0.0) + r["ms"]
+        int8_ms = by_cat.get("int8_conv", 0.0) + by_cat.get(
+            "quantize_int8", 0.0)
+        prof[mode] = {"device_ms": total, "int8_ms": int8_ms,
+                      "int8_share": int8_ms / total,
+                      "by_category_ms": by_cat}
+        torch.cuda.empty_cache()
+    print(f"int8 14d ({report['card']}): op_profile at batch 64, device ms "
+          f"a forward: rec {prof['rec']['device_ms']:.3f}, rec_int8 "
+          f"{prof['rec_int8']['device_ms']:.3f} (int8_conv "
+          f"{prof['rec_int8']['by_category_ms'].get('int8_conv', 0):.3f}, "
+          f"quantize_int8 "
+          f"{prof['rec_int8']['by_category_ms'].get('quantize_int8', 0):.3f}"
+          f", share {prof['rec_int8']['int8_share']:.3f})", flush=True)
+    parts["d"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = int8_cli(report, int8_counters, Path(tmp), reference_weights(
+            preset_config("refcoco_det")))
+    torch.cuda.empty_cache()
+    parts["e"] = time.perf_counter() - t
+    report["int8"] = {"serve": serve_res, "export": export_res,
+                      "cli_eval": cli["eval"], "prefix": cli["prefix"],
+                      "op_profile": prof, "parts_s": parts,
+                      "phase_s": time.perf_counter() - t_all}
+    print(f"int8: phase 14 in {report['int8']['phase_s']:.1f} s ("
+          + ", ".join(f"14{k} {v:.1f} s" for k, v in parts.items()) + ")",
+          flush=True)
+    return report
+
+
+def int8_entries(report: dict) -> list:
+    """The kernels line's rows of the two int8 kernels: their launches in
+    phase 14's runs of the main path (14b's serving, 14c's --exported, 14e's
+    --eval --quantize_int8 and --quantize_train_prefix), their largest error
+    against the plain versions (14a's shapes, bit-equal: 0), and their
+    times at INT8_MAIN_SITE at B=64 (14a), with the bound, the plain
+    version's and the library yardstick's; every shape's row beside."""
+    res = report["int8"]
+    shapes = report["int8_shapes"]
+    out = []
+    for name, (source, replaces) in INT8_KERNELS.items():
+        counter = "int8_conv" if name == "int8_conv" else "quantize_int8"
+        launches = {k: res[k]["launches"][counter]
+                    for k in ("serve", "export", "cli_eval", "prefix")}
+        row = next(r for r in shapes if r["batch"] == INT8_BATCHES[-1]
+                   and r["site"] == INT8_MAIN_SITE[name])
+        entry = {"name": name, "route": "cuda",
+                 "source": f"reftr_torch/kernels/csrc/{source}",
+                 "replaces": replaces,
+                 "launches": sum(launches.values()),
+                 "launches_serve": launches["serve"],
+                 "launches_export": launches["export"],
+                 "launches_cli_eval": launches["cli_eval"],
+                 "launches_prefix": launches["prefix"],
+                 "max_abs_err": max(r["max_abs_err"] for r in shapes),
+                 "site": row["site"]}
+        entry["also_replaces"] = INT8_ALSO[name]
+        if name == "int8_conv":
+            entry.update({
+                "shape": f"{row['site']} bf16 {row['shape']}",
+                "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"],
+                "library_covers": "torch._int_mm: the int32 product "
+                                  "without the dequantizing epilogue",
+                "per_shape": [{k: r[k] for k in (
+                    "site", "shape", "batch", "calls_per_forward", "ms",
+                    "bound_ms", "bound_by", "library", "library_ms")}
+                    for r in shapes]})
+        else:
+            entry.update({
+                "shape": f"{row['site']} bf16 {row['quantize_shape']}",
+                "ms": row["quantize_ms"],
+                "plain_ms": row["quantize_plain_ms"],
+                "bound_ms": row["quantize_bound_ms"],
+                "bound_by": row["quantize_bound_by"],
+                "library_ms": None,
+                "per_shape": [{k: r[k] for k in (
+                    "site", "quantize_shape", "batch", "calls_per_forward",
+                    "quantize_ms", "quantize_bound_ms")} for r in shapes]})
+        out.append(entry)
+    return out
+
+
 CHILDREN = {"child-cli": child_cli, "child-pair": child_pair,
             "child-times": child_times}
 
@@ -6283,7 +7026,7 @@ def kernel_line(report: dict) -> list:
                               + entry["launches_fold"])
         entry.update(phase_err(report, entry, "scratch"))
         entry.update(phase_err(report, entry, "http"))
-    return out
+    return out + int8_entries(report)
 
 
 def phase_err(report: dict, entry: dict, phase: str) -> dict:
@@ -6491,7 +7234,8 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
     t0 = time.perf_counter()
-    sources = sorted({src for src, _, _ in KERNELS.values()})
+    sources = sorted({src for src, _, _ in KERNELS.values()}
+                     | {src for src, _ in INT8_KERNELS.values()})
     with ThreadPoolExecutor(len(sources) + 1) as pool:
         data_lib = pool.submit(native.build)
         libs = dict(zip(sources, pool.map(_nvcc.build, sources)))
@@ -6505,17 +7249,21 @@ def main() -> int:
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(sass_text, [libs[src] for src, _, variant in
                                   KERNELS.values()
-                                  if variant in ("tc", "tf32x3", "wg")]))
+                                  if variant in ("tc", "tf32x3", "wg")]
+                      + [libs[INT8_KERNELS["int8_conv"][0]]]))
     hmma = {src: sass_count(libs[src], "HMMA")
             for src, _, variant in KERNELS.values()
             if variant in ("tc", "tf32x3")}
     hgmma = {src: sass_count(libs[src], "HGMMA")
              for src, _, variant in KERNELS.values() if variant == "wg"}
+    # and the int8 product's, mma.sync's int8 IMMA
+    imma = sass_count(libs[INT8_KERNELS["int8_conv"][0]], "IMMA")
     print(f"cuobjdump -sass: HMMA instructions {hmma}; HGMMA instructions "
-          f"{hgmma}", flush=True)
-    if not all(hmma.values()) or not all(hgmma.values()):
+          f"{hgmma}; IMMA instructions in int8_conv {imma}", flush=True)
+    if not all(hmma.values()) or not all(hgmma.values()) or not imma:
         raise AssertionError(f"a tensor-core kernel has no tensor-core "
-                             f"product: HMMA {hmma}, HGMMA {hgmma}")
+                             f"product: HMMA {hmma}, HGMMA {hgmma}, IMMA "
+                             f"{imma}")
     sass = sass_profile(libs)
     for src, got in sass.items():
         print(f"sass {src} (D=32 function, static counts): {got['sass']}; "
@@ -6531,7 +7279,7 @@ def main() -> int:
           f"cudnn {torch.backends.cudnn.allow_tf32}", flush=True)
 
     counters = [flash_attention, flash_attn_bwd_dq, flash_attn_bwd_dkv]
-    report = {"card": card, "hmma": hmma, "hgmma": hgmma,
+    report = {"card": card, "hmma": hmma, "hgmma": hgmma, "imma": imma,
               "bound_card": dict(CARD), "sass": sass}
     phases = (
         ("2", lambda: check_kernel(report)),
@@ -6548,7 +7296,8 @@ def main() -> int:
         ("8", lambda: phase8(report, counters)),
         ("9", lambda: phase9(report)),
         ("10", lambda: phase10(report, counters)),
-        ("11-13", lambda: phase11(report, counters)))
+        ("11-13", lambda: phase11(report, counters)),
+        ("14", lambda: phase14(report, counters)))
     report["phase_s"] = {}
     for name, run in phases:
         t = time.perf_counter()

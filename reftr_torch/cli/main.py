@@ -45,6 +45,13 @@ version everywhere), ``--debug_nans`` (``train/steps.py``) and
 ``--no_donate_state`` (accepted; the port's step updates in place either
 way, and the bits are the same).
 
+Int8 (``nn/quant.py``): ``--eval --quantize_int8 --fold_bn`` calibrates
+the input scales on ``--quant_calib_batches`` batches of the first test
+split and evaluates the int8 model of ``--quantize_scope`` (default
+backbone bert vl); ``--quantize_train_prefix --fold_bn`` trains with the
+frozen layer1's convolutions in int8, calibrated on the first train
+batches.
+
 Every flag parses as in the JAX package; ``--dataset synthetic_multi`` is
 the port's own (``data/build.py``). A flag of a feature the port does
 not have yet raises NotImplementedError, naming its ROADMAP.md item, when
@@ -67,10 +74,6 @@ _ITEM = "ROADMAP.md queue 1 item"
 NOT_PORTED = {
     "mesh_model": TP_ITEM,
     "mesh_model_spans_processes": TP_ITEM,
-    "quantize_int8": f"int8 ({_ITEM} 9)",
-    "quantize_train_prefix": f"int8 ({_ITEM} 9)",
-    "quant_calib_batches": f"int8 ({_ITEM} 9)",
-    "quantize_scope": f"int8 ({_ITEM} 9)",
 }
 # --use_pallas_attention's values and ModelConfig's
 PALLAS_ATTENTION = {None: None, "auto": None, "on": True, "off": False}
@@ -203,11 +206,21 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--backbone_pad_width", default=0, type=int,
                    help="zero-pad bottleneck inner widths below this to it"
                         " (exact)")
-    p.add_argument("--quantize_int8", action="store_true")
-    p.add_argument("--quantize_train_prefix", action="store_true")
-    p.add_argument("--quant_calib_batches", default=4, type=int)
+    p.add_argument("--quantize_int8", action="store_true",
+                   help="int8 PTQ of the backbone's bottleneck convs and the"
+                        " BERT/VL-transformer projections and FFNs for"
+                        " --eval (requires --fold_bn; calibrates the input"
+                        " scales on the first eval batches)")
+    p.add_argument("--quantize_train_prefix", action="store_true",
+                   help="train with the frozen layer1's convs in int8"
+                        " (calibrated on the first train batches; requires"
+                        " --fold_bn; excludes --train_stem/--quantize_int8)")
+    p.add_argument("--quant_calib_batches", default=4, type=int,
+                   help="batches that calibrate the int8 input scales")
     p.add_argument("--quantize_scope", default=["backbone", "bert", "vl"],
-                   nargs="+", choices=["backbone", "bert", "vl"])
+                   nargs="+", choices=["backbone", "bert", "vl"],
+                   help="what --quantize_int8 lowers to int8 (vl: the VL"
+                        " encoder's and decoder's projections and FFNs)")
     p.add_argument("--backbone_remat", action="store_true",
                    help="recompute each backbone bottleneck in the backward"
                         " (torch.utils.checkpoint)")
@@ -248,8 +261,7 @@ def args_to_config(args: argparse.Namespace) -> RefTRConfig:
     """The RefTRConfig of the parsed flags, as reftr_tpu's args_to_config
     gives it for the flags the port has. ``--backbone_norm group`` with a
     flag that folds or quantizes FrozenBN's statistics raises the JAX
-    factory's ValueError before int8's refusal
-    (reftr_tpu/models/build.py:25-31)."""
+    factory's ValueError (reftr_tpu/models/build.py:25-31)."""
     if args.backbone_norm != "frozen" and (
             args.fold_bn or args.fold_normalize or args.quantize_int8
             or args.quantize_train_prefix):
@@ -312,6 +324,10 @@ def args_to_config(args: argparse.Namespace) -> RefTRConfig:
     m.block_layer1 = args.block_layer1
     m.backbone_remat = args.backbone_remat
     m.backbone_remat_stages = tuple(args.backbone_remat_stages)
+    # int8 (nn/quant.py)
+    m.quantize_int8 = args.quantize_int8
+    m.quantize_scope = tuple(args.quantize_scope)
+    m.quantize_train_prefix = args.quantize_train_prefix
     # loss
     loss.vision_aux_coef = args.vision_aux_loss_coef
     loss.bbox_loss_coef = args.bbox_loss_coef
@@ -368,6 +384,7 @@ def args_to_config(args: argparse.Namespace) -> RefTRConfig:
     t.profile_dir = args.profile_dir
     t.pretrained_model = args.pretrained_model
     t.donate_state = not args.no_donate_state
+    t.quant_calib_batches = args.quant_calib_batches
     return cfg
 
 

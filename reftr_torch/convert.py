@@ -12,6 +12,10 @@ a trailing ``_<n>`` index becoming a ``.<n>`` child (``layer1_0`` ->
                                          GroupNorms under the names of
                                          FrozenBN: ``bn1``, ...)
   Embed ``embedding``                 -> ``weight``
+  QuantConv ``kernel_q`` [kh, kw, I, O] -> ``kernel_q`` [O, kh * kw * I]
+                                         (int8; the train prefix's
+                                         float-stored integers too)
+  QuantDense ``kernel_q`` [in, out]   -> ``kernel_q`` [out, in]
   everything else (biases, FrozenBN statistics, level_embed,
   query_embed)                        -> as it is
 
@@ -88,28 +92,63 @@ def flax_leaf_to_torch(path: Tuple[str, ...], leaf: np.ndarray
         else:
             raise ValueError(f"{'/'.join(path)}: kernel of rank {leaf.ndim}")
         name = "weight"
+    elif name == "kernel_q":
+        if leaf.ndim == 2:
+            leaf = leaf.T
+        elif leaf.ndim == 4:
+            leaf = leaf.transpose(3, 0, 1, 2).reshape(leaf.shape[3], -1)
+        else:
+            raise ValueError(f"{'/'.join(path)}: kernel_q of rank "
+                             f"{leaf.ndim}")
     elif name in ("scale", "embedding"):
         name = "weight"
-    return ".".join(modules + [name]), np.ascontiguousarray(leaf)
+    # (ascontiguousarray makes a 0-d leaf, an in_scale, 1-d)
+    return ".".join(modules + [name]), np.ascontiguousarray(leaf).reshape(
+        leaf.shape)
 
 
 def model_class(cfg: ModelConfig) -> type:
     """RefTRSeg with ``masks``, else RefTR, after the JAX factory's checks
-    of the type, the backbone's norm and its folds, and the heads
+    of the type, the backbone's norm and its folds, int8 and the heads
     (reftr_tpu/models/build.py:18-64): any reftr_type that starts with
     "transformer" builds them; a GroupNorm backbone has no statistics to
-    fold; fold_normalize needs fold_bn (bn1 holds its shift); vision_aux
-    with masks, whose probe's loss the JAX factory drops, is refused."""
+    fold or quantize; fold_normalize needs fold_bn (bn1 holds its shift),
+    and so do both int8 modes, which exclude each other (the train prefix
+    also excludes train_stem); vision_aux with masks, whose probe's loss
+    the JAX factory drops, is refused."""
     if not cfg.reftr_type.startswith("transformer"):
         raise NotImplementedError(
             f"reftr_type {cfg.reftr_type!r} is not implemented")
     if cfg.backbone_norm not in ("frozen", "group"):
         raise ValueError(f"backbone_norm {cfg.backbone_norm!r}")
-    if cfg.backbone_norm != "frozen" and (cfg.fold_bn or cfg.fold_normalize):
+    if cfg.backbone_norm != "frozen" and (
+            cfg.fold_bn or cfg.fold_normalize or cfg.quantize_int8
+            or cfg.quantize_train_prefix):
         raise ValueError(
             "backbone_norm='group' has no frozen statistics to fold or "
             "quantize: drop fold_bn/fold_normalize/quantize_int8/"
             "quantize_train_prefix")
+    if cfg.quantize_train_prefix:
+        if not cfg.fold_bn:
+            raise ValueError("quantize_train_prefix requires fold_bn (the "
+                             "BN scale must fold into the conv kernel)")
+        if cfg.train_stem:
+            raise ValueError("quantize_train_prefix quantizes the FROZEN "
+                             "stem+layer1; it cannot combine with "
+                             "train_stem")
+        if cfg.quantize_int8:
+            raise ValueError("quantize_train_prefix and quantize_int8 are "
+                             "mutually exclusive (serving PTQ expects an "
+                             "fp layer1; serve prefix-trained checkpoints "
+                             "with quantize_train_prefix instead)")
+    if cfg.quantize_int8:
+        if not cfg.fold_bn:
+            raise ValueError("quantize_int8 requires fold_bn (the BN scale "
+                             "must fold into the conv kernel)")
+        unknown = set(cfg.quantize_scope) - {"backbone", "bert", "vl"}
+        if unknown:
+            raise ValueError(f"quantize_scope: unknown {sorted(unknown)}; "
+                             f"choose from backbone, bert, vl")
     if cfg.fold_normalize and not cfg.fold_bn:
         raise ValueError("fold_normalize requires fold_bn (bias-only bn1)")
     if cfg.heatmap_box:
@@ -234,10 +273,18 @@ def build_model(cfg: ModelConfig, device: Union[str, torch.device] = "cuda",
     ``init_params`` with a generator on the device seeded by ``seed``; a
     config with backbone folds (``nn/fold.py``) takes ``state_dict`` as
     folded, and without one initialises the standard model and folds its
-    backbone. On a card the convolutions run NHWC (channels_last), the
-    layout the images arrive in."""
+    backbone; an int8 config (``quantize_int8``,
+    ``quantize_train_prefix``) takes the state_dict that ``nn/quant.py``
+    quantized and raises without one. On a card the convolutions run NHWC
+    (channels_last), the layout the images arrive in."""
     dev = resolve_device(device)
     cls = model_class(cfg)
+    if state_dict is None and (cfg.quantize_int8
+                               or cfg.quantize_train_prefix):
+        raise ValueError(
+            "an int8 model is built from its quantized weights: build the "
+            "fp model and calibrate it (nn/quant.py::calibrate_and_quantize,"
+            " calibrate_train_prefix)")
     if state_dict is None and folds_backbone(cfg):
         standard = build_model(unfolded(cfg), dev, seed=seed)
         state_dict = optimize_backbone_in_tree(standard.state_dict(), cfg)
@@ -260,4 +307,5 @@ def unfolded(cfg: ModelConfig) -> ModelConfig:
     model whose weights ``nn/fold.py`` rewrites."""
     return dataclasses.replace(cfg, space_to_depth_stem=False, fold_bn=False,
                                fold_normalize=False, backbone_pad_width=0,
-                               block_layer1=False)
+                               block_layer1=False, quantize_int8=False,
+                               quantize_train_prefix=False)

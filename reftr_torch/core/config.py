@@ -136,6 +136,16 @@ class ModelConfig:
     # layer1 on the 2x2 space-to-depth grid (exclusive with
     # backbone_pad_width)
     block_layer1: bool = False
+    # Int8 (nn/quant.py; reftr_tpu/core/config.py:202-221). quantize_int8:
+    # post-training quantization for eval and serving of the scopes in
+    # quantize_scope ("backbone": the bottleneck convs; "bert", "vl": the
+    # BERT and VL-transformer projections and FFNs); requires fold_bn.
+    # quantize_train_prefix: the frozen layer1's convs in int8 during
+    # training, calibrated on the first train batches; requires fold_bn,
+    # excludes train_stem and quantize_int8.
+    quantize_int8: bool = False
+    quantize_train_prefix: bool = False
+    quantize_scope: Tuple[str, ...] = ("backbone", "bert", "vl")
 
     @property
     def cem_loss(self) -> bool:
@@ -202,6 +212,9 @@ class TrainConfig:
     donate_state: bool = True
     visualize: bool = False  # visual dumps under output_dir/vis with --eval
     profile_dir: str = ""  # torch.profiler trace of a few early steps
+    # batches that calibrate the int8 input scales (quantize_int8: the
+    # first test split's; quantize_train_prefix: the train loader's)
+    quant_calib_batches: int = 4
 
 
 @dataclass

@@ -79,3 +79,28 @@ def load(source: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(source)))
         _loaded[source] = lib
     return lib
+
+
+def entry(source: str, name: str, argtypes):
+    """The C entry point ``name`` of ``csrc/<source>``, built and loaded on
+    first use: its arguments ``argtypes`` and then the CUDA stream, its
+    result the launch's cudaError_t."""
+    fn = getattr(load(source), name)
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes) + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(table, name: str, device, *args) -> None:
+    """Launch the C entry point ``name``, whose source and arguments
+    ``table[name]`` gives (``entry``), with ``args`` on the current stream
+    of the CUDA ``device``; raise if the launch failed."""
+    import torch
+
+    source, argtypes = table[name]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = entry(source, name, argtypes)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")

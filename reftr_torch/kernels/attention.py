@@ -100,10 +100,13 @@ such a row is therefore the logsumexp of the shifted logits.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple, Union
 
 import torch
+
+from reftr_torch.kernels import _nvcc
 
 NEG_INF = -1e9
 # the tensor-core kernels tile 64 rows as 4 warps of 16: a side shorter
@@ -611,24 +614,9 @@ _ARGTYPES = {
 }
 
 
-def _entry(name: str):
-    """The C entry point ``name``, built from its source on first use."""
-    from reftr_torch.kernels import _nvcc
-
-    source, argtypes = _ARGTYPES[name]
-    fn = getattr(_nvcc.load(source), name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes + [_PTR]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _launch(name: str, device: torch.device, *args) -> None:
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _entry(name)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+# _launch(name, device, *args): the entry point ``name`` on the device's
+# current stream, built from its source on first use
+_launch = functools.partial(_nvcc.launch, _ARGTYPES)
 
 
 def _ptr(t: Optional[torch.Tensor]):

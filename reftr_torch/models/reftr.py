@@ -38,6 +38,9 @@ reparameterisations and ``backbone_remat`` act in ``nn/resnet.py`` (under
 ``fold_normalize`` a uint8 canvas is only cast, its normalisation being
 in the stem, and a float image raises), ``remat`` in the VL encoder, and
 ``use_pallas_attention`` routes every attention (``nn/attention.py``).
+Int8 (``nn/quant.py``): ``quantize_int8`` lowers each scope of
+``quantize_scope`` to int8 products, ``quantize_train_prefix`` the frozen
+layer1's convolutions (``quantized``).
 
 The from-scratch options (reftr_tpu/core/config.py:103-167):
 ``backbone_norm="group"`` and ``train_stem`` act in the backbone;
@@ -70,6 +73,7 @@ from reftr_torch.nn.attention import set_attention_route
 from reftr_torch.nn.bert import BertModel
 from reftr_torch.nn.mlp import MLP, MLPMapping
 from reftr_torch.nn.posembed import ImagePositionEmbedding
+from reftr_torch.nn.quant import QUANT_MODULES
 from reftr_torch.nn.query_encoder import QueryEncoder
 from reftr_torch.nn.resnet import NORMS, ResNet, downsample_mask
 from reftr_torch.ops.boxes import valid_cell_centres
@@ -111,11 +115,13 @@ class RefTR(nn.Module):
             space_to_depth=mc.space_to_depth_stem, fold_bn=mc.fold_bn,
             min_inner_width=mc.backbone_pad_width,
             block_layer1=mc.block_layer1, remat_blocks=mc.backbone_remat,
-            remat_stages=tuple(mc.backbone_remat_stages))
+            remat_stages=tuple(mc.backbone_remat_stages),
+            quantize=self.quantized("backbone"),
+            quantize_stages=(1,) if mc.quantize_train_prefix else ())
         self.img_backbone.freeze(
             4 if mc.freeze_backbone or mc.freeze_reftr
             else 0 if mc.train_stem else 1)
-        self.lang_backbone = BertModel(mc.bert)
+        self.lang_backbone = BertModel(mc.bert, self.quantized("bert"))
         if mc.freeze_bert:
             self.lang_backbone.requires_grad_(False)
         self.map_sentence = MLPMapping(mc.bert.hidden_size, mc.hidden_dim,
@@ -128,7 +134,8 @@ class RefTR(nn.Module):
             normalize_before=mc.normalize_before,
             num_feature_levels=mc.num_feature_levels,
             max_lang_seq=mc.max_lang_seq, dropout=mc.dropout,
-            pos_in_value=mc.decoder_pos_in_value, remat=mc.remat)
+            pos_in_value=mc.decoder_pos_in_value, remat=mc.remat,
+            quantize=self.quantized("vl"))
         self.map_phrase = MLPMapping(mc.bert.hidden_size, mc.hidden_dim,
                                      mc.dropout)
         self.query_encoder = QueryEncoder(mc.num_queries_per_phrase,
@@ -148,17 +155,24 @@ class RefTR(nn.Module):
                for _ in range(n_base, nfl)])
         set_attention_route(self, mc.use_pallas_attention)
 
+    def quantized(self, scope: str) -> bool:
+        """Whether ``quantize_int8`` lowers ``scope`` ("backbone", "bert"
+        or "vl") to int8 (reftr_tpu/models/reftr.py:112-135)."""
+        return (self.config.quantize_int8
+                and scope in self.config.quantize_scope)
+
     def cast_to_compute_dtype(self) -> "RefTR":
         """Cast parameters and buffers to the compute dtype, except the
-        backbone norms' (FrozenBatchNorm's statistics, GroupNorm's affine)
-        and the vision probe's, which stay float32 (the JAX package keeps
-        all parameters f32, computes the norms in f32 and runs the probe in
-        f32).
+        backbone norms' (FrozenBatchNorm's statistics, GroupNorm's affine),
+        the vision probe's and the int8 products' float32 scales and
+        biases, which stay float32 (the JAX package keeps all parameters
+        f32, computes the norms in f32, runs the probe in f32 and
+        dequantizes in f32).
 
         For serving only: training keeps every parameter float32 and runs
         the compute dtype through ``torch.autocast``."""
         keep = [m for m in self.modules()
-                if isinstance(m, tuple(NORMS.values()))]
+                if isinstance(m, tuple(NORMS.values()) + QUANT_MODULES)]
         if self.vision_aux:
             keep.append(self.vision_probe)
         kept = {id(t) for m in keep

@@ -10,6 +10,8 @@ validity masks (True = real token). ``pos_in_value``: the decoder's
 cross-attention values carry the memory's position (``nn/transformer.py``).
 ``remat``: the encoder's layers are recomputed in the backward, the
 decoder's kept, as in reftr_tpu/models/vl_transformer.py:39, 64.
+``quantize``: the encoder's and decoder's projections and FFNs run as int8
+products (reftr_tpu/models/vl_transformer.py:41, 65, 72).
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ class VLTransformer(nn.Module):
                  dim_feedforward: int = 2048, activation: str = "relu",
                  normalize_before: bool = False, num_feature_levels: int = 1,
                  max_lang_seq: int = 128, dropout: float = 0.1,
-                 pos_in_value: bool = False, remat: bool = False):
+                 pos_in_value: bool = False, remat: bool = False,
+                 quantize: bool = False):
         super().__init__()
         if num_decoder_layers <= 0:
             raise NotImplementedError("the serving path needs a decoder")
@@ -39,10 +42,12 @@ class VLTransformer(nn.Module):
                                                     d_model))
         self.encoder = TransformerEncoder(
             num_encoder_layers, d_model, nhead, dim_feedforward, activation,
-            normalize_before, dropout=dropout, remat=remat)
+            normalize_before, dropout=dropout, remat=remat,
+            quantize=quantize)
         self.decoder = TransformerDecoder(
             num_decoder_layers, d_model, nhead, dim_feedforward, activation,
-            normalize_before, dropout=dropout, pos_in_value=pos_in_value)
+            normalize_before, dropout=dropout, pos_in_value=pos_in_value,
+            quantize=quantize)
 
     def process_img_feat(self, img_srcs: Sequence[torch.Tensor],
                          img_valids: Sequence[torch.Tensor],

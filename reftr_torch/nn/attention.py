@@ -47,6 +47,7 @@ from torch import nn
 from reftr_torch.kernels.attention import (MAX_HEAD_DIM, NEG_INF, SEED_BITS,
                                            attention_plain, flash_attention,
                                            shard_seed)
+from reftr_torch.nn.quant import dense
 
 __all__ = ["MultiHeadAttention", "NEG_INF", "attention_rng", "seed_replay",
            "set_attention_route", "set_plain_attention"]
@@ -112,16 +113,20 @@ def _draw_seed(local_batch: int) -> int:
 
 
 class MultiHeadAttention(nn.Module):
-    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0):
+    """``quantize``: the q, k, v and out projections run as int8 products
+    (``nn/quant.py::QuantDense``), as reftr_tpu/nn/attention.py:62-77."""
+
+    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0,
+                 quantize: bool = False):
         super().__init__()
         if d_model % num_heads:
             raise ValueError("d_model must be divisible by num_heads")
         self.num_heads = num_heads
         self.dropout = dropout
-        self.q_proj = nn.Linear(d_model, d_model)
-        self.k_proj = nn.Linear(d_model, d_model)
-        self.v_proj = nn.Linear(d_model, d_model)
-        self.out_proj = nn.Linear(d_model, d_model)
+        self.q_proj = dense(d_model, d_model, quantize)
+        self.k_proj = dense(d_model, d_model, quantize)
+        self.v_proj = dense(d_model, d_model, quantize)
+        self.out_proj = dense(d_model, d_model, quantize)
         self.plain = False
         # use_pallas_attention on: a head dim without a kernel raises
         self.kernel_only = False

@@ -20,6 +20,7 @@ from torch import nn
 
 from reftr_torch.core.config import BertConfig
 from reftr_torch.nn.attention import MultiHeadAttention
+from reftr_torch.nn.quant import dense
 
 
 class BertEmbeddings(nn.Module):
@@ -52,15 +53,19 @@ class BertEmbeddings(nn.Module):
 
 
 class BertLayer(nn.Module):
-    def __init__(self, c: BertConfig):
+    """``quantize``: the attention's projections and the intermediate and
+    output denses run as int8 products (reftr_tpu/nn/bert.py:61-86)."""
+
+    def __init__(self, c: BertConfig, quantize: bool = False):
         super().__init__()
         self.attention = MultiHeadAttention(c.hidden_size,
                                             c.num_attention_heads,
-                                            c.attention_dropout)
+                                            c.attention_dropout, quantize)
         self.attention_norm = nn.LayerNorm(c.hidden_size,
                                            eps=c.layer_norm_eps)
-        self.intermediate = nn.Linear(c.hidden_size, c.intermediate_size)
-        self.output = nn.Linear(c.intermediate_size, c.hidden_size)
+        self.intermediate = dense(c.hidden_size, c.intermediate_size,
+                                  quantize)
+        self.output = dense(c.intermediate_size, c.hidden_size, quantize)
         self.output_norm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
         self.dropout = nn.Dropout(c.hidden_dropout)
 
@@ -73,10 +78,13 @@ class BertLayer(nn.Module):
 
 
 class BertModel(nn.Module):
-    def __init__(self, c: BertConfig):
+    """``quantize``: every layer's denses in int8; the embeddings and the
+    pooler stay fp."""
+
+    def __init__(self, c: BertConfig, quantize: bool = False):
         super().__init__()
         self.embeddings = BertEmbeddings(c)
-        self.layer = nn.ModuleList(BertLayer(c)
+        self.layer = nn.ModuleList(BertLayer(c, quantize)
                                    for _ in range(c.num_hidden_layers))
         self.pooler = nn.Linear(c.hidden_size, c.hidden_size)
 

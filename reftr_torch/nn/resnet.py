@@ -26,7 +26,14 @@ bottleneck's inner width padded with zero channels) and ``block_layer1``
 (layer1 on the 2x2 space-to-depth grid of its input, channel order
 (py, px, c), and back). ``remat_blocks`` / ``remat_stages`` recompute a
 bottleneck's activations in the backward (``torch.utils.checkpoint``)
-instead of keeping them. Left out: int8.
+instead of keeping them.
+
+Int8 (``nn/quant.py``, reftr_tpu/nn/resnet.py:85-110, 131-145, 240-252):
+under ``quantize`` (serving) every bottleneck convolution, and under
+``quantize_stages`` (training, frozen stages only) those of the listed
+stages, is a ``QuantConv``; the stem stays fp. Both need ``fold_bn`` (the
+BN scale lives in the kernel that per-channel quantization absorbs) and
+exclude each other.
 """
 
 from __future__ import annotations
@@ -38,6 +45,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from reftr_torch.nn.quant import QuantConv
 
 RESNET_LAYERS = {
     "resnet50": (3, 4, 6, 3),
@@ -137,7 +146,9 @@ def _nchw(x: torch.Tensor, channels_last: bool) -> torch.Tensor:
 
 
 def _conv(cin: int, cout: int, kernel: int, stride: int = 1,
-          dilation: int = 1) -> nn.Conv2d:
+          dilation: int = 1, quantize: bool = False) -> nn.Module:
+    if quantize:
+        return QuantConv(cin, cout, kernel, stride, dilation)
     pad = dilation * (kernel - 1) // 2
     return nn.Conv2d(cin, cout, kernel, stride=stride, padding=pad,
                      dilation=dilation, bias=False)
@@ -149,19 +160,20 @@ class Bottleneck(nn.Module):
     def __init__(self, cin: int, width: int, stride: int = 1,
                  dilation: int = 1, downsample: bool = False,
                  norm: str = "frozen", fold_bn: bool = False,
-                 pad_width: int = 0):
+                 pad_width: int = 0, quantize: bool = False):
         super().__init__()
         out_ch = width * 4
         # pad_width > width: zero inner channels (nn/fold.py pads weights)
         inner = max(width, pad_width)
-        self.conv1 = _conv(cin, inner, 1)
+        q = quantize
+        self.conv1 = _conv(cin, inner, 1, quantize=q)
         self.bn1 = _norm(norm, inner, fold_bn)
-        self.conv2 = _conv(inner, inner, 3, stride, dilation)
+        self.conv2 = _conv(inner, inner, 3, stride, dilation, quantize=q)
         self.bn2 = _norm(norm, inner, fold_bn)
-        self.conv3 = _conv(inner, out_ch, 1)
+        self.conv3 = _conv(inner, out_ch, 1, quantize=q)
         self.bn3 = _norm(norm, out_ch, fold_bn)
         if downsample:
-            self.downsample_conv = _conv(cin, out_ch, 1, stride)
+            self.downsample_conv = _conv(cin, out_ch, 1, stride, quantize=q)
             self.downsample_bn = _norm(norm, out_ch, fold_bn)
         else:
             self.downsample_conv = None
@@ -200,11 +212,19 @@ class ResNet(nn.Module):
                  space_to_depth: bool = False, fold_bn: bool = False,
                  min_inner_width: int = 0, block_layer1: bool = False,
                  remat_blocks: bool = False,
-                 remat_stages: Sequence[int] = ()):
+                 remat_stages: Sequence[int] = (), quantize: bool = False,
+                 quantize_stages: Sequence[int] = ()):
         super().__init__()
         if block_layer1 and min_inner_width:
             raise ValueError("backbone_pad_width and block_layer1 are "
                              "exclusive")
+        if (quantize or quantize_stages) and not fold_bn:
+            raise ValueError("quantize=True requires fold_bn (BN scale must "
+                             "be in the kernel)")
+        if quantize and quantize_stages:
+            raise ValueError("quantize_stages (training int8) and quantize "
+                             "(serving PTQ) are mutually exclusive")
+        self.quantize_stages = tuple(quantize_stages)
         self.return_interm_layers = return_interm_layers
         self.space_to_depth = space_to_depth
         if space_to_depth:
@@ -233,7 +253,9 @@ class ResNet(nn.Module):
                                          1 if b == 0 else dil,
                                          downsample=(b == 0), norm=norm,
                                          fold_bn=fold_bn,
-                                         pad_width=min_inner_width))
+                                         pad_width=min_inner_width,
+                                         quantize=(quantize or stage in
+                                                   self.quantize_stages)))
                 c = width * grid * 4
             cin = width * 4
             setattr(self, f"layer{stage}", nn.Sequential(*blocks))
@@ -248,6 +270,9 @@ class ResNet(nn.Module):
     def freeze(self, stages: int) -> None:
         """Freeze the stem and layers 1..``stages`` (none at 0): no
         gradient, no graph."""
+        if any(s > stages for s in self.quantize_stages):
+            raise ValueError("quantize_stages must be frozen: int8 convs "
+                             "are not differentiable")
         self.frozen_stages = stages
         frozen = [self.stem_conv(), self.bn1] if stages else []
         frozen += [getattr(self, f"layer{s}") for s in range(1, stages + 1)]

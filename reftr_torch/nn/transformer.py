@@ -14,7 +14,9 @@ are memory + pos, its keys as before. With ``remat`` the encoder's layers
 are recomputed in the backward (``torch.utils.checkpoint``, as JAX's
 ``nn.remat``, reftr_tpu/nn/transformer.py:141-142) with the dropout masks
 of their forward: checkpoint restores the default generators for the
-elementwise dropouts, ``seed_replay`` the attention seeds.
+elementwise dropouts, ``seed_replay`` the attention seeds. With
+``quantize`` every attention projection and FFN dense is an int8 product
+(``nn/quant.py``, reftr_tpu/nn/transformer.py:39-66).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from reftr_torch.nn.attention import MultiHeadAttention, seed_replay
+from reftr_torch.nn.quant import dense
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default
 
@@ -42,10 +45,11 @@ def with_pos(x: torch.Tensor, pos: Optional[torch.Tensor]) -> torch.Tensor:
 
 class FFN(nn.Module):
     def __init__(self, d_model: int, dim_feedforward: int,
-                 activation: str = "relu", dropout: float = 0.1):
+                 activation: str = "relu", dropout: float = 0.1,
+                 quantize: bool = False):
         super().__init__()
-        self.linear1 = nn.Linear(d_model, dim_feedforward)
-        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.linear1 = dense(d_model, dim_feedforward, quantize)
+        self.linear2 = dense(dim_feedforward, d_model, quantize)
         self.activation = _ACTIVATIONS[activation]
         self.dropout = nn.Dropout(dropout)
 
@@ -56,10 +60,12 @@ class FFN(nn.Module):
 class TransformerEncoderLayer(nn.Module):
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
                  activation: str = "relu", normalize_before: bool = False,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, quantize: bool = False):
         super().__init__()
-        self.self_attn = MultiHeadAttention(d_model, nhead, dropout)
-        self.ffn = FFN(d_model, dim_feedforward, activation, dropout)
+        self.self_attn = MultiHeadAttention(d_model, nhead, dropout,
+                                            quantize)
+        self.ffn = FFN(d_model, dim_feedforward, activation, dropout,
+                       quantize)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.drop = nn.Dropout(dropout)
@@ -82,11 +88,12 @@ class TransformerEncoder(nn.Module):
     def __init__(self, num_layers: int, d_model: int, nhead: int,
                  dim_feedforward: int = 2048, activation: str = "relu",
                  normalize_before: bool = False, dropout: float = 0.1,
-                 remat: bool = False):
+                 remat: bool = False, quantize: bool = False):
         super().__init__()
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(d_model, nhead, dim_feedforward,
-                                    activation, normalize_before, dropout)
+                                    activation, normalize_before, dropout,
+                                    quantize)
             for _ in range(num_layers))
         self.norm = (nn.LayerNorm(d_model, eps=LN_EPS) if normalize_before
                      else None)
@@ -108,12 +115,16 @@ class TransformerEncoder(nn.Module):
 class TransformerDecoderLayer(nn.Module):
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
                  activation: str = "relu", normalize_before: bool = False,
-                 dropout: float = 0.1, pos_in_value: bool = False):
+                 dropout: float = 0.1, pos_in_value: bool = False,
+                 quantize: bool = False):
         super().__init__()
         self.pos_in_value = pos_in_value
-        self.self_attn = MultiHeadAttention(d_model, nhead, dropout)
-        self.multihead_attn = MultiHeadAttention(d_model, nhead, dropout)
-        self.ffn = FFN(d_model, dim_feedforward, activation, dropout)
+        self.self_attn = MultiHeadAttention(d_model, nhead, dropout,
+                                            quantize)
+        self.multihead_attn = MultiHeadAttention(d_model, nhead, dropout,
+                                                 quantize)
+        self.ffn = FFN(d_model, dim_feedforward, activation, dropout,
+                       quantize)
         self.drop = nn.Dropout(dropout)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
@@ -152,12 +163,12 @@ class TransformerDecoder(nn.Module):
                  dim_feedforward: int = 2048, activation: str = "relu",
                  normalize_before: bool = False,
                  return_intermediate: bool = True, dropout: float = 0.1,
-                 pos_in_value: bool = False):
+                 pos_in_value: bool = False, quantize: bool = False):
         super().__init__()
         self.layers = nn.ModuleList(
             TransformerDecoderLayer(d_model, nhead, dim_feedforward,
                                     activation, normalize_before, dropout,
-                                    pos_in_value)
+                                    pos_in_value, quantize)
             for _ in range(num_layers))
         self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
         self.return_intermediate = return_intermediate

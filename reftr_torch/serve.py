@@ -34,11 +34,12 @@ Usage::
 
 from __future__ import annotations
 
+import dataclasses
 import queue
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Mapping, Optional, Union
+from typing import Dict, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -132,7 +133,9 @@ def answer(req: Request, out: Mapping[str, np.ndarray],
 def serving_module(cfg: RefTRConfig,
                    device: Union[str, torch.device] = "cuda",
                    state_dict: Optional[Mapping[str, torch.Tensor]] = None,
-                   seed: int = 0, resume: str = "") -> torch.nn.Module:
+                   seed: int = 0, resume: str = "",
+                   calib_batches: Optional[Sequence] = None,
+                   print_fn=print) -> torch.nn.Module:
     """The serving model of ``cfg`` on ``device``, in eval mode and cast to
     its compute dtype (``cast_to_compute_dtype``). Weights come from
     ``state_dict`` (for example ``convert.from_flax`` of a reftr_tpu
@@ -142,13 +145,77 @@ def serving_module(cfg: RefTRConfig,
     ``train.loop.load_pretrained``, as the JAX server loads its weights
     (reftr_tpu/tools/export_model.py:147-176). With the config's backbone
     folds (``--fold_bn``, ``--fold_normalize``, ...) the model is the
-    folded one and a standard checkpoint is folded as it loads."""
-    model = build_model(cfg.model, resolve_device(device), state_dict, seed)
+    folded one and a standard checkpoint is folded as it loads.
+
+    With ``quantize_int8`` the weights above are the fp twin's: it is cast
+    to the compute dtype, ``calib_batches`` ((batch, targets) pairs of
+    numpy arrays; by default JAX's one synthetic batch,
+    ``synthetic_calibration``) run through it, and the int8 model is built
+    from its float32 weights and the calibrated scales
+    (``nn/quant.py::calibrate_and_quantize``, as
+    reftr_tpu/tools/export_model.py:177-198).
+
+    With ``quantize_train_prefix`` and no ``state_dict`` the model is built
+    from the ``resume`` checkpoint of a prefix-trained run, which holds
+    its int8 layer1 (JAX builds the prefix model and loads the checkpoint
+    into it, reftr_tpu/tools/export_model.py:155-173); its names must be
+    the model's."""
+    mc = cfg.model
+    fp_mc = dataclasses.replace(mc, quantize_int8=False)
+    if mc.quantize_train_prefix and state_dict is None:
+        if not resume:
+            raise ValueError("a quantize_train_prefix model is served from "
+                             "the checkpoint of its training run: pass "
+                             "--resume")
+        from reftr_torch.core.checkpoint import load_checkpoint
+
+        state_dict, resume = load_checkpoint(resume)["model"], ""
+    model = build_model(fp_mc, resolve_device(device), state_dict, seed)
     if resume:
         from reftr_torch.train.loop import load_pretrained
 
         load_pretrained(model, resume, cfg)
-    return model.eval().cast_to_compute_dtype()
+    if not mc.quantize_int8:
+        return model.eval().cast_to_compute_dtype()
+    from reftr_torch.nn.quant import calibrate_and_quantize
+
+    weights = model.state_dict()  # float32: the cast below replaces them
+    model.eval().cast_to_compute_dtype()
+    if calib_batches is None:
+        calib_batches = [(synthetic_calibration(cfg), None)]
+        print_fn("int8 PTQ: no calibration batches supplied; calibrating "
+                 "on one synthetic batch")
+    qweights = calibrate_and_quantize(cfg, model, iter(calib_batches),
+                                      n_batches=len(calib_batches),
+                                      print_fn=print_fn, state_dict=weights)
+    del model, weights
+    return build_model(mc, resolve_device(device), qweights).eval(
+    ).cast_to_compute_dtype()
+
+
+def synthetic_calibration(cfg: RefTRConfig, seed: int = 0
+                          ) -> Dict[str, np.ndarray]:
+    """JAX's calibration batch when none is given (reftr_tpu/tools/
+    export_model.py:177-193): one row of random uint8 pixels, the whole
+    image valid, random token ids in [1, vocab) of which the first 8 are
+    valid; multi-phrase inputs all zero, as JAX leaves them."""
+    d = cfg.data
+    hw, s = d.max_img_size, (d.max_sentence_len if d.multi_phrase
+                             else d.max_query_len)
+    rng = np.random.default_rng(seed)
+    batch = {
+        "image": rng.integers(0, 255, size=(1, hw, hw, 3)).astype(np.uint8),
+        "image_valid": np.ones((1, hw, hw), bool),
+        "sentence": rng.integers(1, cfg.model.bert.vocab_size,
+                                 size=(1, s)).astype(np.int32),
+        "sentence_valid": np.zeros((1, s), np.int32)}
+    batch["sentence_valid"][:, :8] = 1
+    if d.multi_phrase:
+        p, sp = d.max_num_phrases, d.phrase_seq_len
+        batch.update({k: np.zeros(shape, np.int32) for k, shape in (
+            ("phrases", (1, p, sp)), ("phrase_valid", (1, p, sp)),
+            ("phrase_pos_l", (1, p)), ("phrase_pos_r", (1, p)))})
+    return batch
 
 
 class ServingModel:
@@ -157,12 +224,16 @@ class ServingModel:
     the program ``tools/export_model.py`` saved there, whose manifest
     gives the batch size and ``masks`` (as in
     reftr_tpu/tools/serve.py:68-95) and whose device must be ``device``
-    (an exported program runs on the device it was traced on)."""
+    (an exported program runs on the device it was traced on). With
+    ``quantize_int8`` in the config the live model is the int8 one that
+    ``calib_batches`` calibrate (``serving_module``); an int8 artefact
+    serves as any other."""
 
     def __init__(self, cfg: RefTRConfig, batch_size: int,
                  device: Union[str, torch.device] = "cuda",
                  state_dict: Optional[Mapping[str, torch.Tensor]] = None,
-                 seed: int = 0, resume: str = "", exported_dir: str = ""):
+                 seed: int = 0, resume: str = "", exported_dir: str = "",
+                 calib_batches: Optional[Sequence] = None):
         self.cfg = cfg
         self.batch_size = batch_size
         self.masks = bool(cfg.model.masks)
@@ -182,7 +253,7 @@ class ServingModel:
             self.masks = bool(manifest["model"]["masks"])
         else:
             self.model = serving_module(cfg, self.device, state_dict, seed,
-                                        resume)
+                                        resume, calib_batches)
 
     def to_device(self, batch: Mapping[str, np.ndarray]
                   ) -> Dict[str, torch.Tensor]:

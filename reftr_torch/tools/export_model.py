@@ -36,8 +36,13 @@ With ``--fold_bn`` and ``--fold_normalize`` (and the other backbone
 folds) the program holds the folded weights (``nn/fold.py``; a standard
 checkpoint is folded as it loads), and under ``--fold_normalize`` it takes
 the uint8 canvases as they are; the manifest says which, under JAX's keys
-``fold_bn`` and ``fold_normalize``. ``--quantize_int8`` is refused as the
-trainer refuses it (ROADMAP.md queue 1 item 9).
+``fold_bn`` and ``fold_normalize``. With ``--quantize_int8`` the program
+is the int8 model (``nn/quant.py``), calibrated as JAX's export
+calibrates it (one synthetic batch unless the caller gives batches,
+``serve.serving_module``): its products are nodes of
+``torch.ops.reftr.quantize_int8`` and ``torch.ops.reftr.int8_conv``
+(``kernels/quant.py``), the manifest says ``quantize_int8: true`` and its
+``requires`` adds that module.
 
 Loading (deployment side)::
 
@@ -57,11 +62,14 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from reftr_torch.nn.quant import QUANT_MODULES
+
 ARTIFACT_NAME = "serving_fn.pt2"
 MANIFEST_NAME = "manifest.json"
 # the modules a loader imports before torch.export.load: they register the
-# ops the program calls
+# ops the program calls (an int8 program's also INT8_REQUIRES)
 REQUIRES = ("reftr_torch.kernels.attention",)
+INT8_REQUIRES = ("reftr_torch.kernels.quant",)
 # --selfcheck: the loaded program's pred_boxes against the live model's
 # (JAX's limit)
 SELFCHECK_TOL = 1e-5
@@ -220,29 +228,35 @@ def export_device(platforms) -> torch.device:
 
 
 def _build_serving_model(cfg, resume: str, device: torch.device,
+                         calib_batches=None,
                          print_fn=print) -> torch.nn.Module:
     """The model as ``ServingModel`` builds and loads it
     (``serve.serving_module``): seeded init, then ``resume`` through
     ``train.loop.load_pretrained`` (a URL, a reference ``.pth`` or the
-    port's checkpoint), eval mode, the compute dtype."""
+    port's checkpoint), eval mode, the compute dtype; with
+    ``quantize_int8`` calibrated on ``calib_batches`` and quantized."""
     from reftr_torch.serve import serving_module
 
     if not resume:
         print_fn("WARNING: no --resume checkpoint; exporting random "
                  "weights (smoke/bench export)")
-    return serving_module(cfg, device, resume=resume)
+    return serving_module(cfg, device, resume=resume,
+                          calib_batches=calib_batches, print_fn=print_fn)
 
 
 def export_with_config(cfg, resume: str, out_dir: str, batch_size: int,
                        platforms: Sequence[str] = ("cuda",),
-                       print_fn=print
+                       calib_batches=None, print_fn=print
                        ) -> Tuple[torch.nn.Module,
                                   torch.export.ExportedProgram, Dict]:
-    """Build the serving model of ``cfg``, export it and save it. Returns
-    (model, ExportedProgram, manifest): the live model, so that a caller
-    can hold the artefact to it (JAX's returns the model and its params)."""
+    """Build the serving model of ``cfg`` (with ``quantize_int8``
+    calibrated on ``calib_batches``, (batch, targets) pairs of numpy
+    arrays), export it and save it. Returns (model, ExportedProgram,
+    manifest): the live model, so that a caller can hold the artefact to
+    it (JAX's returns the model and its params)."""
     device = export_device(platforms)
-    model = _build_serving_model(cfg, resume, device, print_fn=print_fn)
+    model = _build_serving_model(cfg, resume, device, calib_batches,
+                                 print_fn=print_fn)
     exported = export_serving(model, serving_batch_spec(cfg, batch_size),
                               device)
     manifest = save_exported(exported, out_dir, model_manifest(
@@ -253,9 +267,10 @@ def export_with_config(cfg, resume: str, out_dir: str, batch_size: int,
 def model_manifest(cfg, model: torch.nn.Module, batch_size: int,
                    resume: str) -> Dict:
     """The manifest's keys of the model (JAX's,
-    reftr_tpu/tools/export_model.py:205-217): its flags, the folds among
-    them (int8 is not ported, so ``quantize_int8`` is false), the batch
-    size, the parameter count, the weights' source."""
+    reftr_tpu/tools/export_model.py:205-217): its flags, the folds and
+    int8 among them, the batch size, the parameter count (an int8 model's
+    weights are buffers: counted too, as JAX's params hold them), the
+    weights' source, and the modules whose ops the program calls."""
     mc = cfg.model
     return {
         "model": {
@@ -263,11 +278,16 @@ def model_manifest(cfg, model: torch.nn.Module, batch_size: int,
             "enc_layers": mc.enc_layers, "dec_layers": mc.dec_layers,
             "masks": mc.masks, "dtype": mc.dtype,
             "fold_bn": mc.fold_bn, "fold_normalize": mc.fold_normalize,
-            "quantize_int8": False,
+            "quantize_int8": mc.quantize_int8,
         },
         "batch_size": batch_size,
-        "n_parameters": sum(p.numel() for p in model.parameters()),
+        "n_parameters": sum(p.numel() for p in model.parameters()) + sum(
+            b.numel() for m in model.modules() if isinstance(m, QUANT_MODULES)
+            for b in m.buffers()),
         "resume": resume or "",
+        "requires": list(REQUIRES + (
+            INT8_REQUIRES if mc.quantize_int8 or mc.quantize_train_prefix
+            else ())),
     }
 
 

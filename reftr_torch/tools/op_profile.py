@@ -9,9 +9,11 @@ rows are the device's kernels (CUDA activity); on the CPU (the tests, and
 
   rec    refcoco_det's serving forward in bf16 at batch 64, 640 px
   train  its bf16 autocast train step (aux losses) at batch 32
+  rec_int8  ``rec`` with int8 PTQ (``nn/quant.py``) at the JAX default
+         scope (backbone, bert, vl), calibrated on the profiled batch
+         itself (reftr_tpu/tools/op_profile.py:76-107)
   tiny   a micro model (BERT-tiny, 1+1 VL layers, d=32) at batch 2, 64 px,
          float32: the tests' mode
-  rec_int8 refused: int8 is ROADMAP.md queue 1 item 9
 
 ``rec`` and ``train`` run the JAX tool's folded model
 (reftr_tpu/tools/op_profile.py:85-86): FrozenBN and the normalisation
@@ -25,7 +27,7 @@ so that one reader of the profiler's events serves both.
 
 Usage (on the card)::
 
-    python -m reftr_torch.tools.op_profile [rec|train|tiny] [topk] \\
+    python -m reftr_torch.tools.op_profile [rec|rec_int8|train|tiny] [topk] \\
         [--steps 3] [--device cuda] [--trace_dir DIR]
 
 ``--trace_dir`` also writes the Chrome trace (``trace.json``) there.
@@ -41,9 +43,9 @@ from typing import Callable, Dict, List, Tuple
 import numpy as np
 import torch
 
-MODES = ("rec", "train", "tiny")
+MODES = ("rec", "rec_int8", "train", "tiny")
 # the JAX tool's batch sizes (reftr_tpu/tools/op_profile.py:52, 83-87)
-BATCH = {"rec": 64, "train": 32, "tiny": 2}
+BATCH = {"rec": 64, "rec_int8": 64, "train": 32, "tiny": 2}
 # the host's matrix-product ops, by their aten names (a CPU profile)
 HOST_GEMMS = ("mm", "addmm", "bmm", "baddbmm", "matmul", "linear")
 
@@ -57,6 +59,10 @@ def kernel_category(name: str) -> str:
         return "nccl"
     if name.startswith("reftr::"):
         return name.removeprefix("reftr::")
+    for kernel, category in (("int8_conv_kernel", "int8_conv"),
+                             ("int8_quantize_kernel", "quantize_int8")):
+        if kernel in name:
+            return category
     for kernel, category in (
             ("flash_fwd_tc_kernel", "flash_attn_fwd_tc"),
             ("flash_fwd_wg_kernel", "flash_attn_fwd_wg"),
@@ -205,7 +211,8 @@ def _config(mode: str, unfolded: bool = False):
             data=DataConfig(img_size=64, max_img_size=64))
     return preset_config("refcoco_det", dtype="bfloat16",
                          aux_loss=mode == "train", fold_bn=not unfolded,
-                         fold_normalize=not unfolded)
+                         fold_normalize=not unfolded,
+                         quantize_int8=mode == "rec_int8")
 
 
 def _build_step(mode: str, device: torch.device, batch_size: int,
@@ -242,7 +249,8 @@ def _build_step(mode: str, device: torch.device, batch_size: int,
             metrics.get()
         return run
 
-    model = serving_module(cfg, device)
+    # rec_int8: calibrated on the profiled batch, as JAX's tool does
+    model = serving_module(cfg, device, calib_batches=[(batch, None)])
     inputs = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
     @torch.inference_mode()
@@ -275,10 +283,6 @@ def profile(mode: str = "rec", topk: int = 25, steps: int = 3,
 
     from reftr_torch.core.device import resolve_device
 
-    if mode == "rec_int8":
-        raise NotImplementedError(
-            "op_profile rec_int8: int8 (ROADMAP.md queue 1 item 9) is not "
-            "ported yet")
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, not {mode!r}")
     dev = resolve_device(device)
@@ -303,7 +307,8 @@ def profile(mode: str = "rec", topk: int = 25, steps: int = 3,
     total = sum(r["ms"] for r in rows)
     where = torch.cuda.get_device_name(dev) if on_card else "the CPU"
     folds = ("" if mode == "tiny" else
-             "  unfolded" if unfolded else "  fold_bn fold_normalize")
+             "  unfolded" if unfolded else "  fold_bn fold_normalize"
+             + ("  quantize_int8" if mode == "rec_int8" else ""))
     print_fn(f"mode={mode}{folds}  batch={b}  "
              f"{'device' if on_card else 'host'} "
              f"ops={len(rows)} on {where}  total self time={total:.3f} ms a "
@@ -318,8 +323,7 @@ def profile(mode: str = "rec", topk: int = 25, steps: int = 3,
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser("op-level profile of the port")
-    p.add_argument("mode", nargs="?", default="rec",
-                   choices=MODES + ("rec_int8",))
+    p.add_argument("mode", nargs="?", default="rec", choices=MODES)
     p.add_argument("topk", nargs="?", type=int, default=25)
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--device", default="cuda")

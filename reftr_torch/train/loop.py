@@ -22,7 +22,14 @@ card or on many under DDP, one process each.
     (:373-376), one JSON line per epoch in log.txt (:419-421), and
     <dataset>_<split>_result.json with each split's boxes; every file is
     written by rank 0, with the stats of all ranks;
-  * eval only (:351-361), and run_epoch chunks for time-limited queues.
+  * eval only (:351-361), and run_epoch chunks for time-limited queues;
+  * int8 (``nn/quant.py``; reftr_tpu/train/loop.py:186-195, 238-246,
+    332-341): ``quantize_int8`` is for eval only and needs ``fold_bn``;
+    everything up to the eval runs on the fp twin, which the first test
+    split's first ``quant_calib_batches`` batches calibrate before the
+    int8 model evaluates. ``quantize_train_prefix`` calibrates the frozen
+    layer1 on the first train batches after the pretrained load and
+    before the state the run trains (and a resume loads into).
 
 It runs on "cuda" unless the caller passes ``device="cpu"``; without a
 card it raises.
@@ -30,6 +37,7 @@ card it raises.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import tempfile
@@ -43,6 +51,7 @@ from reftr_torch.core import checkpoint as ckpt_lib
 from reftr_torch.core import distributed, hub
 from reftr_torch.core.config import RefTRConfig
 from reftr_torch.core.device import resolve_device
+from reftr_torch.convert import build_model, model_class
 from reftr_torch.core.logging import log_stats, master_print
 from reftr_torch.data.build import build_refer_dataset
 from reftr_torch.data.datasets import write_synthetic_vocab
@@ -52,6 +61,7 @@ from reftr_torch.data.samplers import NodeShardedSampler, ShardedSampler
 from reftr_torch.models.criterion import weight_dict as build_weight_dict
 from reftr_torch.nn.convert import convert_for, load_torch_checkpoint
 from reftr_torch.nn.fold import optimize_backbone_in_tree
+from reftr_torch.nn.quant import calibrate_and_quantize, calibrate_train_prefix
 from reftr_torch.parallel.sharding import check_data_axis, loader_shards
 from reftr_torch.train.engine import evaluate, train_one_epoch
 from reftr_torch.train.state import TrainState
@@ -195,6 +205,18 @@ def run_training(cfg: RefTRConfig,
     steps_per_epoch = len(train_loader)
     master_print(f"Steps per training epoch: {steps_per_epoch}")
 
+    if cfg.model.quantize_int8:
+        if not cfg.train.eval_only:
+            raise ValueError(
+                "--quantize_int8 is a serving/eval optimization (PTQ needs "
+                "frozen weights); train without it, then --eval")
+        if not cfg.model.fold_bn:
+            raise ValueError("--quantize_int8 requires --fold_bn (the BN "
+                             "scale must fold into the conv kernel)")
+    # the fp twin: everything up to int8's calibration runs on it
+    fp_model_cfg = dataclasses.replace(cfg.model, quantize_int8=False,
+                                       quantize_train_prefix=False)
+    model_class(cfg.model)  # the int8 modes' checks, before any build
     if cfg.model.fold_normalize and not cfg.train.eval_only:
         # the JAX package's warning (reftr_tpu/train/loop.py:206-214)
         master_print(
@@ -205,7 +227,7 @@ def run_training(cfg: RefTRConfig,
     # with backbone folds, the standard backbone's seeded init folded
     # (convert.build_model), and n_parameters that model's; a pretrained
     # load below replaces its weights
-    state = TrainState.create(cfg.model, cfg.train, steps_per_epoch,
+    state = TrainState.create(fp_model_cfg, cfg.train, steps_per_epoch,
                               device=dev, seed=cfg.train.seed)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -215,6 +237,14 @@ def run_training(cfg: RefTRConfig,
 
     if cfg.train.pretrained_model:
         load_pretrained(state.model, cfg.train.pretrained_model, cfg)
+    if cfg.model.quantize_train_prefix:
+        # before the state the run trains, so that its optimizer and a
+        # resume below see the int8 layout
+        prefix = calibrate_train_prefix(
+            cfg, state.model, train_loader,
+            n_batches=cfg.train.quant_calib_batches, print_fn=master_print)
+        state = TrainState.create(cfg.model, cfg.train, steps_per_epoch,
+                                  device=dev, state_dict=prefix)
 
     out_dir = cfg.train.output_dir
     start_epoch = cfg.train.start_epoch
@@ -279,6 +309,14 @@ def run_training(cfg: RefTRConfig,
         return all_stats
 
     if cfg.train.eval_only:
+        if cfg.model.quantize_int8:
+            qweights = calibrate_and_quantize(
+                cfg, state.model, next(iter(test_loaders.values())),
+                n_batches=cfg.train.quant_calib_batches,
+                print_fn=master_print, autocast=True)
+            eval_step = make_eval_step(
+                build_model(cfg.model, dev, state_dict=qweights), cfg.loss,
+                device=dev)
         return {"test": run_eval()}
 
     end_epoch = min(cfg.train.epochs, start_epoch + cfg.train.run_epoch)

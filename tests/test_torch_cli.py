@@ -130,10 +130,6 @@ def test_preset_config_is_the_cli_config(name):
 NOT_PORTED_ARGVS = {
     "mesh_model": ["--mesh_model", "2"],
     "mesh_model_spans_processes": ["--mesh_model_spans_processes"],
-    "quantize_int8": ["--quantize_int8"],
-    "quantize_train_prefix": ["--quantize_train_prefix"],
-    "quant_calib_batches": ["--quant_calib_batches", "2"],
-    "quantize_scope": ["--quantize_scope", "bert"],
 }
 
 
@@ -320,8 +316,8 @@ def test_a_from_scratch_flag_parses_to_the_jax_config(dest):
 @pytest.mark.parametrize("argv", [["--fold_bn"], ["--quantize_int8"]])
 def test_group_norm_refuses_folding_as_jax(argv):
     """--backbone_norm group with a flag that folds or quantizes FrozenBN's
-    statistics raises the JAX factory's ValueError (for int8, before the
-    flag's own refusal; reftr_tpu/models/build.py:25-31)."""
+    statistics raises the JAX factory's ValueError
+    (reftr_tpu/models/build.py:25-31)."""
     args = parse(cli, ["--preset", "refcoco_det", "--backbone_norm",
                        "group"] + argv)
     with pytest.raises(ValueError, match="no frozen statistics"):
@@ -334,6 +330,48 @@ def test_a_flag_of_a_missing_feature_raises(dest):
     with pytest.raises(NotImplementedError,
                        match=f"--{dest} .*ROADMAP.md queue 1 item"):
         cli.args_to_config(args)
+
+
+# the int8 flags, refused before their slice: flag -> (argv, and the
+# QuantConv and QuantDense modules of the refcoco_det model it builds: 52
+# bottleneck convs; BERT-base's 12 layers of 6 denses, the encoder's 6 and
+# the decoder's 6 layers of 6 and 10)
+INT8_ARGVS = {
+    "quantize_int8": (["--quantize_int8", "--fold_bn"], 52, 72 + 36 + 60),
+    "quantize_train_prefix": (["--quantize_train_prefix", "--fold_bn"], 10,
+                              0),
+    "quant_calib_batches": (["--quant_calib_batches", "2"], 0, 0),
+    "quantize_scope": (["--quantize_int8", "--fold_bn", "--quantize_scope",
+                        "bert"], 0, 72),
+}
+
+
+@pytest.mark.parametrize("dest", sorted(INT8_ARGVS))
+def test_an_int8_flag_parses_to_the_jax_config_and_builds(dest):
+    """The int8 flags map onto the config as reftr_tpu's args_to_config
+    maps them (cli/main.py:176-190, 259-261, 319), leave NOT_PORTED, and
+    the refcoco_det model they name builds (on the meta device) with its
+    products in int8: the backbone's bottleneck convs (layer1's alone
+    under the train prefix) and the denses of the scopes."""
+    from reftr_torch.convert import model_class
+    from reftr_torch.nn.quant import QuantConv, QuantDense
+
+    flags, n_conv, n_dense = INT8_ARGVS[dest]
+    argv = ["--preset", "refcoco_det"] + flags
+    got = cli.args_to_config(parse(cli, argv))
+    want = jax_main.args_to_config(parse(jax_main, argv))
+    for section in ("model", "train"):
+        ours, theirs = getattr(got, section), getattr(want, section)
+        for f in dataclasses.fields(ours):
+            if f.name != "bert":
+                assert getattr(ours, f.name) == getattr(theirs, f.name), (
+                    section, f.name)
+    assert dest not in cli.NOT_PORTED
+    with torch.device("meta"):
+        model = model_class(got.model)(got.model)
+    mods = list(model.modules())
+    assert sum(isinstance(m, QuantConv) for m in mods) == n_conv
+    assert sum(isinstance(m, QuantDense) for m in mods) == n_dense
 
 
 @pytest.mark.parametrize("argv", [["--mesh_model", "2"],

@@ -1884,3 +1884,123 @@ def test_use_pallas_attention_launches(gen, setting, kernels):
     want = n_attn if kernels else 0
     assert (got["flash_attention"], got["flash_attn_bwd_dq"],
             got["flash_attn_bwd_dkv"]) == (want, want, want), got
+
+
+# int8 (kernels/quant.py): the quantize pass and the int8 implicit-GEMM
+# convolution, bit for bit against their plain versions
+INT8_QUANTIZE_SHAPES = [(8, 20, 20, 64), (3, 7, 11, 5), (1000, 768), (13,),
+                        (2, 40, 768)]
+# (N, H, W, Cin, Cout, k, stride, dilation): the backbone's kinds, the
+# ragged edges of the 128 x 128 output tile, a dense (1x1 over M rows)
+INT8_CONVS = [(2, 20, 20, 64, 64, 1, 1, 1), (2, 20, 20, 64, 64, 3, 1, 1),
+              (2, 21, 19, 128, 128, 3, 2, 1), (2, 20, 20, 512, 512, 3, 1, 2),
+              (2, 21, 21, 256, 512, 1, 2, 1), (3, 9, 13, 64, 10, 3, 2, 1),
+              (1, 1, 1, 64, 2, 1, 1, 1), (129, 1, 1, 256, 130, 1, 1, 1),
+              (8, 1, 1, 2048, 256, 1, 1, 1)]
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", INT8_QUANTIZE_SHAPES)
+def test_int8_quantize_kernel_matches_plain(gen, shape, dtype, aligned):
+    """Bit for bit, by 8-element vectors where aligned and element by
+    element from an offset of one."""
+    from reftr_torch.kernels import quant
+
+    n = 1
+    for s in shape:
+        n *= s
+    x = (torch.randn(n + 1, device="cuda", generator=gen) * 3).to(dtype)
+    x = x[:n].view(shape) if aligned else x[1:].view(shape)
+    scale = torch.tensor(0.0213, device="cuda")
+    before = quant.quantize_int8.launches
+    got = quant.quantize_int8(x, scale)
+    assert quant.quantize_int8.launches == before + 1
+    assert torch.equal(got, quant.quantize_plain(x, scale))
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("conv", INT8_CONVS)
+def test_int8_conv_kernel_matches_plain(gen, conv, dtype, bias):
+    """Bit for bit: exact int32 sums on the int8 tensor cores, the float32
+    epilogue rounded as the plain version rounds it."""
+    from reftr_torch.kernels import quant
+
+    n, h, w, c, cout, k, s, d = conv
+    x = torch.randint(-127, 128, (n, h, w, c), dtype=torch.int8,
+                      device="cuda", generator=gen)
+    wq = torch.randint(-127, 128, (cout, k * k * c), dtype=torch.int8,
+                       device="cuda", generator=gen)
+    ws = torch.rand(cout, device="cuda", generator=gen) * 0.01
+    scale = torch.tensor(0.05, device="cuda")
+    b = (torch.randn(cout, device="cuda", generator=gen) if bias else None)
+    before = quant.int8_conv.launches
+    got = quant.int8_conv(x, wq, ws, scale, b, k, s, d, dtype)
+    assert quant.int8_conv.launches == before + 1
+    want = quant.int8_conv_plain(x, wq, ws, scale, b, k, s, d, dtype)
+    assert torch.equal(got, want)
+
+
+def test_int8_conv_kernel_refuses_what_it_does_not_take(gen):
+    from reftr_torch.kernels import quant
+
+    x = torch.zeros(1, 4, 4, 32, dtype=torch.int8, device="cuda")
+    w = torch.zeros(8, 32, dtype=torch.int8, device="cuda")
+    ones, scale = torch.ones(8, device="cuda"), torch.ones((), device="cuda")
+    with pytest.raises(ValueError, match="Cin a multiple of 64"):
+        quant.int8_conv(x, w, ones, scale)
+    x = torch.zeros(1, 4, 4, 64, dtype=torch.int8, device="cuda")
+    w = torch.zeros(7, 64, dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="even Cout"):
+        quant.int8_conv(x, w, torch.ones(7, device="cuda"), scale)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_serving_and_export_launch_the_int8_kernels(gen, tmp_path,
+                                                        dtype):
+    """A small folded RefTR at every int8 scope on the card: calibrated and
+    served, one quantize and one int8 conv launch for each product and K1
+    for each attention; exported, its program launches the same and gives
+    the live model's boxes (1e-5 in float32, 1e-3 in bf16, as the fp
+    export); finite boxes."""
+    import numpy as np
+
+    from reftr_torch.core.config import (BertConfig, DataConfig, ModelConfig,
+                                         RefTRConfig)
+    from reftr_torch.kernels import quant
+    from reftr_torch.nn.quant import QUANT_MODULES
+    from reftr_torch.tools import export_model
+
+    cfg = RefTRConfig(
+        model=ModelConfig(bert=BertConfig.tiny(), enc_layers=1, dec_layers=1,
+                          dim_feedforward=128, hidden_dim=64, nheads=4,
+                          aux_loss=False, dtype=dtype, fold_bn=True,
+                          quantize_int8=True),
+        data=DataConfig(img_size=64, max_img_size=64))
+    spec = export_model.serving_batch_spec(cfg, 2)
+    calib = [(export_model.random_batch(spec, seed=i), None)
+             for i in range(2)]
+    model, _, manifest = export_model.export_with_config(
+        cfg, "", str(tmp_path), 2, ("cuda",), calib_batches=calib,
+        print_fn=lambda *a: None)
+    assert manifest["model"]["quantize_int8"] is True
+    n_products = sum(isinstance(m, QUANT_MODULES) for m in model.modules())
+    assert n_products == 52 + 12 + 6 + 10
+    call, _ = export_model.load_exported(str(tmp_path))
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in export_model.random_batch(spec, seed=7).items()}
+    counters = [flash_attention, quant.quantize_int8, quant.int8_conv]
+    outs = {}
+    for label, fn in (("live", model), ("exported", call)):
+        for c in counters:
+            c.launches = 0
+        with torch.no_grad():
+            outs[label] = fn(batch)["pred_boxes"]
+            torch.cuda.synchronize()
+        assert quant.quantize_int8.launches == n_products
+        assert quant.int8_conv.launches == n_products
+        assert flash_attention.launches == 2 + 1 + 2
+    tol = 1e-5 if dtype == "float32" else 1e-3
+    assert float((outs["live"] - outs["exported"]).abs().max()) <= tol
+    assert np.isfinite(outs["live"].float().cpu().numpy()).all()

@@ -33,6 +33,7 @@ from reftr_tpu.core.config import RefTRConfig as JaxRefTRConfig
 from reftr_tpu.kernels.attention import _xla_attention, fused_attention
 from reftr_tpu.models import build_model as jax_build_model
 from reftr_tpu.tools import export_model as jax_export
+from reftr_torch.cli.presets import preset_config
 from reftr_torch.convert import from_flax
 from reftr_torch.models.postprocess import segm_masks
 from reftr_torch.core.config import (BertConfig, DataConfig, ModelConfig,
@@ -300,12 +301,40 @@ def test_export_platforms_refuse_all_but_one_device(platforms):
         export_model.export_device(platforms)
 
 
-@pytest.mark.parametrize("flag", ["--quantize_int8"])
-def test_export_refuses_item_9_flags(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        export_model.main(["--preset", "synthetic_smoke", "--out",
-                           str(tmp_path / "x"), "--export_platforms", "cpu",
-                           flag])
+def test_export_cli_quantize_int8(tmp_path, capsys):
+    """--quantize_int8, refused before its slice: the command line exports
+    the int8 program of the smoke preset's widths (folded, calibrated on
+    JAX's synthetic batch), --selfcheck on. Its products are nodes of the
+    int8 ops, one quantize before each, its manifest says int8 and names
+    the ops' module, and it is under 0.8x the fp program's bytes (JAX's
+    bar, tests/test_export.py:155-156)."""
+    base = ["--preset", "synthetic_smoke", "--hidden_dim", "64",
+            "--dim_feedforward", "64", "--export_batch", "2",
+            "--export_platforms", "cpu", "--fold_bn"]
+    fp, q = str(tmp_path / "fp"), str(tmp_path / "q")
+    assert export_model.main(base + ["--out", fp]) == 0
+    assert export_model.main(base + ["--out", q, "--quantize_int8",
+                                     "--selfcheck"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert any(x.startswith("int8 PTQ: calibrated on 1 batches")
+               for x in lines)
+    assert any(x.startswith("selfcheck: max |exported - live|")
+               for x in lines)
+    manifest = export_model.read_manifest(q)
+    assert manifest["model"]["quantize_int8"] is True
+    assert "reftr_torch.kernels.quant" in manifest["requires"]
+    assert (manifest["artifact_bytes"]
+            < 0.8 * export_model.read_manifest(fp)["artifact_bytes"])
+    program = torch.export.load(os.path.join(q, export_model.ARTIFACT_NAME))
+    targets = [str(n.target) for n in program.graph.nodes
+               if n.op == "call_function"]
+    n_conv = targets.count("reftr.int8_conv.default")
+    # 52 bottleneck convs, 6 denses a BERT and encoder layer, 10 a decoder
+    # layer
+    mc = preset_config("synthetic_smoke").model
+    assert n_conv == (52 + 6 * (mc.bert.num_hidden_layers + mc.enc_layers)
+                      + 10 * mc.dec_layers)
+    assert targets.count("reftr.quantize_int8.default") == n_conv
 
 
 def test_export_cli_refuses_tpu_and_cuda_without_card(tmp_path,

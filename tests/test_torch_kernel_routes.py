@@ -22,6 +22,7 @@ import torch
 
 import chip_smoke
 from reftr_torch.kernels import attention as attn
+from reftr_torch.kernels import quant as kquant
 
 CSRC = Path(attn.__file__).parent / "csrc"
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -91,14 +92,36 @@ def test_warpgroup_kernels_take_the_sites_they_measured_faster_at():
 
 
 def test_every_source_is_built_by_the_smoke():
-    """Every .cu under csrc/ is a source of chip_smoke.KERNELS (phase 1
-    builds them all), and every entry point there has its argtypes in
-    kernels/attention.py with the same source."""
+    """Every .cu under csrc/ is a source of chip_smoke.KERNELS or
+    chip_smoke.INT8_KERNELS (phase 1 builds them all), and every entry
+    point there has its argtypes with the same source, in
+    kernels/attention.py or kernels/quant.py."""
+    from reftr_torch.kernels import quant
+
     sources = {p.name for p in CSRC.glob("*.cu")}
-    assert sources == {src for src, _, _ in chip_smoke.KERNELS.values()}
+    assert sources == ({src for src, _, _ in chip_smoke.KERNELS.values()}
+                       | {src for src, _ in chip_smoke.INT8_KERNELS.values()})
     for name, (source, _, _) in chip_smoke.KERNELS.items():
         assert attn._ARGTYPES[name][0] == source
     assert set(attn._ARGTYPES) == set(chip_smoke.KERNELS)
+    for name, (source, _) in chip_smoke.INT8_KERNELS.items():
+        assert quant._ARGTYPES[name][0] == source
+    assert set(quant._ARGTYPES) == set(chip_smoke.INT8_KERNELS)
+
+
+@pytest.mark.parametrize("name", sorted(kquant._ARGTYPES))
+def test_int8_ctypes_signatures_match_the_sources(name):
+    """The int8 entry points' ctypes arguments against their extern "C"
+    definitions: one parameter more (the stream); the conv takes one
+    kernel side, as its op does."""
+    source, argtypes = kquant._ARGTYPES[name]
+    found = re.search(rf'extern "C" int {name}\(([^)]*)\)',
+                      (CSRC / source).read_text())
+    params = [p.split()[-1] for p in found.group(1).split(",")]
+    assert len(params) == len(argtypes) + 1 and params[-1] == "stream"
+    if name == "int8_conv":
+        assert "KS" in params and not {"KH", "KW", "pad"} & set(params)
+        assert "int k," in str(torch.ops.reftr.int8_conv.default._schema)
 
 
 @pytest.mark.parametrize("name",
@@ -241,3 +264,83 @@ def test_di_plain_is_the_row_sum_the_backward_uses():
     torch.testing.assert_close(
         di, torch.einsum("bqhd,bqhd->bhq", o.float(), do.float()),
         rtol=1e-6, atol=1e-6)
+
+
+def test_int8_products_and_launches_are_the_models():
+    """Phase 14's count of int8 products a forward is the refcoco_det int8
+    model's (its QuantConv and QuantDense modules, built on the meta
+    device), and int8_launches adds one quantize and one int8 conv launch
+    for each to K1's forward launches."""
+    from reftr_torch.cli.presets import preset_config
+    from reftr_torch.convert import model_class
+    from reftr_torch.nn.quant import QUANT_MODULES, quant_targets
+
+    mc = preset_config("refcoco_det", dtype="bfloat16", quantize_int8=True,
+                       **chip_smoke.FOLDS).model
+    names = quant_targets(model_class(mc), mc)
+    assert len(names) == chip_smoke.INT8_PRODUCTS == 220
+    with torch.device("meta"):
+        model = model_class(mc)(mc)
+    assert sum(isinstance(m, QUANT_MODULES) for m in model.modules()) == 220
+    want = chip_smoke.int8_launches(3)
+    assert want["quantize_int8"] == want["int8_conv"] == 660
+    assert want["flash_attention"] == 3 * chip_smoke.ATTN_PER_FORWARD
+
+
+def test_int8_entry_point_routes_are_the_models():
+    """Phase 14e's command lines parse to the bf16 folded int8 configs, the
+    train prefix's count of int8 products is that model's, int8_launches
+    of forwards and steps adds their K1-K3 launches, and val_stats reads
+    the eval's last stats line."""
+    from reftr_torch.cli import main as cli
+    from reftr_torch.cli.presets import apply_preset
+    from reftr_torch.convert import model_class
+    from reftr_torch.nn.quant import QUANT_MODULES
+
+    def config(argv):
+        args = cli.get_args_parser().parse_args(argv)
+        apply_preset(args, args.preset, argv)
+        return cli.args_to_config(args)
+
+    q = config(chip_smoke.INT8_CLI + ["--eval", "--quantize_int8",
+                                      "--fold_normalize"])
+    assert (q.model.dtype, q.model.fold_bn, q.model.quantize_int8,
+            q.train.eval_only) == ("bfloat16", True, True, True)
+    p = config(chip_smoke.INT8_CLI + ["--quantize_train_prefix"]).model
+    with torch.device("meta"):
+        model = model_class(p)(p)
+    assert sum(isinstance(m, QUANT_MODULES) for m in model.modules()) \
+        == chip_smoke.INT8_PREFIX_CONVS == 10
+    fwd = chip_smoke.expected_launches(2, "bfloat16", False)
+    step = chip_smoke.expected_launches(3, "bfloat16", True)
+    assert chip_smoke.int8_launches(2, 3, 7) == {
+        **{k: fwd[k] + step[k] for k in fwd}, "quantize_int8": 7,
+        "int8_conv": 7}
+    out = '[val] {"loss": 2.5}\nx\n[val] {"loss": 1.5, "miou": 0.25}\n'
+    assert chip_smoke.val_stats({"out": out}) == {"loss": 1.5, "miou": 0.25}
+
+
+@pytest.mark.parametrize("shape,by", [
+    # layer1's 1x1 conv of 64 channels at B=64: bytes
+    (("conv", 64, 160, 160, 64, 64, 1, 1, 1), "bytes"),
+    # layer3's 3x3 conv at B=64: the int8 operations
+    (("conv", 64, 40, 40, 256, 256, 3, 1, 1), "operations"),
+    # BERT's intermediate dense at B=64: operations
+    (("dense", 2560, 768, 3072), "operations"),
+])
+def test_int8_conv_bound_counts_each_byte_and_operation_once(shape, by):
+    """The bound of an int8 product: 2 M N K int8 operations at 1979
+    TOP/s, or the int8 input and weight read once and the bf16 output
+    written once (and the float32 scales) at 3.35 TB/s, the larger."""
+    terms = chip_smoke.int8_conv_bound(shape)
+    if shape[0] == "conv":
+        _, n, h, w, c, cout, k, s, _ = shape
+        m, kk = n * h * w, k * k * c  # stride 1, same padding
+        moved = n * h * w * c + cout * kk + 2 * m * cout + 4 * cout + 4
+    else:
+        _, m, kk, cout = shape
+        moved = m * kk + cout * kk + 2 * m * cout + 8 * cout + 4
+    assert terms["operations"] == pytest.approx(2 * m * cout * kk / 1979e12
+                                                * 1e3)
+    assert terms["bytes"] == pytest.approx(moved / 3.35e12 * 1e3)
+    assert chip_smoke.bound_pick(terms)[1] == by

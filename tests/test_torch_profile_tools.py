@@ -5,6 +5,7 @@ tools/convert_annotations.py, each against reftr_tpu's where JAX's can run
 here (the converters, the flag's config). Times from these runs are the
 CPU's and are checked for sign and order only."""
 
+import dataclasses
 import glob
 import json
 import os
@@ -50,11 +51,30 @@ def test_op_profile_tiny_ranks_rows(capsys, tmp_path):
     assert "reftr::flash_attention_fwd" in names
 
 
-def test_op_profile_refuses_int8_and_unknown_modes():
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        op_profile.profile("rec_int8", device="cpu")
+def test_op_profile_refuses_unknown_modes():
     with pytest.raises(ValueError, match="mode must be one of"):
         op_profile.profile("fast", device="cpu")
+
+
+def test_op_profile_rec_int8_ranks_the_int8_ops(capsys, monkeypatch):
+    """rec_int8, refused before its slice, on the CPU at the tiny mode's
+    widths, folded: calibrated on its batch, the int8 model's ops rank
+    among the rows, one quantize before each of its products (52
+    bottleneck convs, BERT-tiny's 12 denses, the encoder layer's 6 and the
+    decoder layer's 10)."""
+    tiny = op_profile._config("tiny")
+    monkeypatch.setattr(op_profile, "_config", lambda mode, unfolded=False:
+                        dataclasses.replace(tiny, model=dataclasses.replace(
+                            tiny.model, fold_bn=True, quantize_int8=True)))
+    monkeypatch.setitem(op_profile.BATCH, "rec_int8", 2)
+    rows = op_profile.profile("rec_int8", topk=40, steps=1, device="cpu")
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("int8 PTQ: calibrated on 1 batches")
+    assert out[1].startswith("mode=rec_int8  fold_bn fold_normalize  "
+                             "quantize_int8  batch=2  host ops=")
+    calls = {r["name"]: (r["calls"], r["category"]) for r in rows}
+    assert calls["reftr::int8_conv"] == (52 + 12 + 6 + 10, "int8_conv")
+    assert calls["reftr::quantize_int8"] == (80, "quantize_int8")
 
 
 @pytest.mark.parametrize("name,category", [
@@ -66,6 +86,8 @@ def test_op_profile_refuses_int8_and_unknown_modes():
     ("sm90_xmma_fprop_implicit_gemm_bf16", "convolution"),
     ("nvjet_tst_128x64", "gemm"), ("aten::addmm", "gemm"),
     ("reftr::flash_attention_fwd", "flash_attention_fwd"),
+    ("void int8_conv_kernel<__nv_bfloat16>(Params)", "int8_conv"),
+    ("void int8_quantize_kernel<float, true>(...)", "quantize_int8"),
     ("void at::native::vectorized_elementwise_kernel<4>", "elementwise"),
     ("Memcpy HtoD (Pageable -> Device)", "copy"),
     ("aten::commit", "other"),
