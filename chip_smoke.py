@@ -6,19 +6,22 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. Print the card's name and power limit, then build every kernel of the
    serving and training paths from the sources in this checkout
-   (reftr_torch/kernels/csrc/flash_attn_fwd_tc.cu, flash_attn_fwd_wg.cu, flash_attn_fwd_f32tc.cu, flash_attn_fwd_dec.cu,
-   flash_attn_bwd.cu, flash_attn_bwd_dq_tc.cu, flash_attn_bwd_dq_wg.cu,
+   (reftr_torch/kernels/csrc/flash_attn_fwd_tc.cu, flash_attn_fwd_wg.cu,
+   flash_attn_fwd_f32tc.cu, flash_attn_fwd_dec.cu,
+   flash_attn_bwd_dq_tc.cu, flash_attn_bwd_dq_wg.cu,
    flash_attn_bwd_dkv_tc.cu, flash_attn_bwd_dkv_wg.cu,
    flash_attn_bwd_dq_f32tc.cu, flash_attn_bwd_dkv_f32tc.cu,
-   flash_attn_bwd_dec.cu, int8_conv.cu and int8_quantize.cu, one nvcc
-   each for sm_90a, started together with one g++ of the data pipeline's
-   C++ under reftr_torch/data/csrc/), and count the tensor-core products
-   in the machine code (cuobjdump -sass): HMMA in the six mma.sync
-   kernels, bf16 and 3xTF32, HGMMA (wgmma) in the three warpgroup
-   kernels, IMMA in int8_conv; none fails the run. Print the D=32
+   flash_attn_bwd_dec.cu, int8_conv.cu, int8_conv_wg.cu and
+   int8_quantize.cu, one nvcc each for sm_90a, started together with one
+   g++ of the data pipeline's C++ under reftr_torch/data/csrc/), and
+   count the tensor-core products in the machine code (cuobjdump -sass):
+   HMMA in the six mma.sync kernels, bf16 and 3xTF32, HGMMA (wgmma) in
+   the three warpgroup kernels, IMMA in int8_conv, IGMMA (wgmma's int8
+   products) in int8_conv_wg; none fails the run. Print the D=32
    function's opcode counts and ptxas lines (registers, spills) of every
-   tensor-core kernel, the dropout draw's callers among them. Read what
-   the bound needs: the SM count, the SM clock nvidia-smi gives as its
+   tensor-core kernel, the dropout draw's callers among them, and
+   int8_conv_wg's ptxas lines for each instance (a spill fails the run).
+   Read what the bound needs: the SM count, the SM clock nvidia-smi gives as its
    maximum, and the IMADs of a Philox call in K1-wg's machine code.
 2. The forward kernel (K1) against its plain PyTorch version on the card,
    at the four call sites of the refcoco_det forward (B=8), with random key
@@ -41,8 +44,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    the rule picks (attention.dq_variant for K2, dkv_variant for K3: below
    16 queries one launch of the decode backward gives dq, dk and dv; with
    more, the tensor-core kernels, in float32 the 3xTF32 ones, K2 and K3
-   on "wg" together, K3-wg reading the di and keep bits K2-wg writes), and
-   the SIMT K3 beside the others: K1 with dropout and its lse against
+   on "wg" together, K3-wg reading the di and keep bits K2-wg writes):
+   K1 with dropout and its lse against
    attention_plain in float32 with the same seed (tolerances as in phase
    2; lse 1e-5 abs plus 1e-6 relative), and the backward
    kernels K2 (dq) and K3 (dk, dv) each against attention_bwd_plain on
@@ -82,11 +85,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    versions by the rule), in both dtypes with and without dropout, K1, K2
    and K3 through the rule against the plain versions at the same
    tolerances; a plain call must launch nothing and count in
-   launches_plain, which is printed. Then K3's SIMT route, K3 with 16 or
-   more queries and fewer than 16 keys, which no call site of the model
-   reaches: B=8, Sq=440, Sk=8, H=8, D=32 in both dtypes, with and without
-   dropout, against attention_bwd_plain, with its bound, the plain time
-   and SDPA's backward.
+   launches_plain, which is printed.
+   3c. K3 with 16 or more queries and fewer than 16 keys, which no call
+   site of the model reaches, on the tensor cores ("tc" in bf16, "tf32x3"
+   in float32): B=8, Sq=440, H=8, D=32 at Sk = 1, 8 and 15, in both
+   dtypes, with and without dropout, against attention_bwd_plain at phase
+   3's tolerances, one launch on its variant a call, the same bits on a
+   repeated call, the dropout mask exact; at Sk = 8 its times, bound, the
+   plain time and SDPA's backward.
    3d. The warpgroup kernels against the mma.sync ones and SDPA in one
    process (wg_times), in bf16 without dropout and with 0.1, at 256^2
    (B=8, the rule's least for K2 and K3) and the VL encoder at 1, 2 and 4
@@ -145,8 +151,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    encoder) through the tensor-core kernels (the encoder's 6 of K2 and K3
    on their warpgroup kernels, by the rule) and the other 12 of each (the
    decoder) through the decode kernels (K2's and K3's 12 are the decode
-   backward's 12 launches, each counted on both): none through the SIMT
-   K3, and no K3-wg call on keep bits from keep_bits_plain (every counted
+   backward's 12 launches, each counted on both), and no K3-wg call on
+   keep bits from keep_bits_plain (every counted
    run of the smoke holds flash_attn_bwd_dkv.bits_plain to 0). It reports
    the median host-to-host step time after 3 warm-up steps, the peak
    device memory and one step's device time by kernel category, and the
@@ -166,7 +172,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    the same model with float32 parameters and compute (no autocast),
    dropout 0.1, 8 steps through train_one_epoch: finite losses, 30
    launches of each of K1, K2 and K3 per step, 18 of each on the 3xTF32
-   kernels and 12 on the decode kernels, none on SIMT; the median host
+   kernels and 12 on the decode kernels; the median host
    step after 3 warm-up steps and one step's device time by category with
    the attention kernels' share.
 6. The trainer's entry point: reftr_torch.cli.main.main(argv), called in
@@ -185,7 +191,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    the epoch-1 line's and its miou within 1e-5; each run's launches
    exactly 30 of each of K1, K2 and K3 per train step and 30 of K1 per
    eval batch (18 on the 3xTF32 kernels, 12 on the decode kernels, none
-   on SIMT or plain). Reports, beside the card's name and power limit,
+   on plain). Reports, beside the card's name and power limit,
    the seconds per train step and per eval batch host to host, the mean
    time: and data: of a step (core/metrics.py::log_every), the model's
    build time, each checkpoint's bytes and save time and the peak device
@@ -240,9 +246,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    [SEP]" in 14 of each image's 16 rows; the decoder's self-attention
    16 x 16 with 2 real phrases and its cross-attention 16 x 490; the
    encoder 490 x 490), in both dtypes, with and without dropout, with
-   phase 3's tolerances, exact dropout masks and times (no SIMT
-   "before"). c) One float32 multi-phrase step (batch 16 of the fixture)
-   through the kernels and through the plain attention at phase 5's rule,
+   phase 3's tolerances, exact dropout masks and times. c) One float32
+   multi-phrase step (batch 16 of the fixture) through the kernels and through the plain attention at phase 5's rule,
    and (report only) each path's distance from the plain attention in
    float64; one bf16 step timed and profiled by kernel category (report
    only).
@@ -410,21 +415,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    encoder layer's).
 14. Int8 post-training quantization (nn/quant.py) of refcoco_det at full
    width, bf16, folded (fold_bn, fold_normalize), at the JAX default
-   scope (backbone, bert, vl): 220 int8 products a forward on the two
-   int8 kernels (kernels/quant.py: csrc/int8_quantize.cu and
-   csrc/int8_conv.cu, an implicit GEMM on the int8 tensor cores). a)
-   Every product shape of the model (found by hooks on the fp twin's
-   forward: 22 convolutions, 9 denses), at B=8 and B=64: int8_conv and
+   scope (backbone, bert, vl): 220 int8 products a forward on the int8
+   kernels (kernels/quant.py: csrc/int8_quantize.cu, and the implicit
+   GEMM on the int8 tensor cores, csrc/int8_conv_wg.cu ("wg", wgmma) at
+   every shape of the model by int8_conv_variant, csrc/int8_conv.cu
+   ("tc", mma.sync) at none). a) Every product shape of the model (found
+   by hooks on the fp twin's forward: 22 convolutions, 9 denses, which
+   must be INT8_SHAPES), at B=8 and B=64: int8_conv through the route and
    int8_quantize bit-equal to their plain versions (the conv's output in
-   bf16, at B=8 in float32 too; the quantize pass's input in bf16, at B=8
-   in float32 too); report only, each one's device ms (CUDA
-   events behind a sleep kernel), its bound (int8 operations at 1979
+   bf16 and float32; the quantize pass's input in bf16, at B=8 in float32
+   too); report only, each one's device ms in bf16 (CUDA events behind a
+   sleep kernel), "tc" forced beside it at the VL encoder's FFN dense and
+   layer3's 3x3 (bit-equal too), its bound (int8 operations at 1979
    TOP/s, bytes at 3.35 TB/s) and the yardstick: torch._int_mm (the int32
    product alone) at the dense shapes it takes, cuDNN's bf16 convolution
-   (another function) at the conv shapes. b) calibrate_and_quantize on 4
-   batches of 8 through ServingModel, then 6 requests behind the
-   MicroBatcher: exactly 220 launches of each int8 kernel and K1's 30 a
-   batch, finite boxes inside the images; the int8 boxes within 0.05 of
+   (another function) at the conv shapes; the sums over a forward's 220
+   products. b) calibrate_and_quantize on 4 batches of 8 through
+   ServingModel, then 6 requests behind the MicroBatcher: exactly 220
+   launches of each int8 kernel ("wg" all 220 of the conv's) and K1's 30
+   a batch, finite boxes inside the images; the int8 boxes within 0.05 of
    the side of the fp folded model's (JAX's bar). c) The int8
    model exported at batch 16 and served --exported behind the
    MicroBatcher (launches exact): boxes within 1e-3 of the side of the
@@ -446,11 +455,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    also on their own), its error (phase 10's and 11's checks at their own sites
    also on their own), and its times and bound at the call site where
    the main path launches it (the decoder's cross-attention for the
-   decode and SIMT kernels, the VL encoder for the tensor-core kernels, in
+   decode kernels, the VL encoder for the tensor-core kernels, in
    float32 for the 3xTF32 ones, the four-level encoder at B=8 for the
-   warpgroup kernels, from phase 3d) on this card; the two int8 kernels
-   with phase 14's launches (14b, 14c, 14e) and their times at B=64 (14a:
-   int8_conv at the VL encoder's first FFN dense, int8_quantize at
+   warpgroup kernels, from phase 3d) on this card; K3's "tc" and
+   "tf32x3" rows with phase 3c's below 16 keys; the int8 kernels ("tc"
+   and "wg" of the conv on a row each) with phase 14's launches (14b,
+   14c, 14e) and their times at B=64 (14a: int8_conv at the VL encoder's
+   first FFN dense, "wg" also at layer3's 3x3 and BERT's intermediate
+   dense and summed over a forward at B=8 and 64, int8_quantize at
    layer1's 256-channel activations), every shape's beside.
 16. Print {"ok": true, "device": {...}} as the last line.
 
@@ -519,8 +531,6 @@ KERNELS = {
     "flash_attn_bwd_dq_f32tc": ("flash_attn_bwd_dq_f32tc.cu",
                                 "reftr_tpu/kernels/attention.py:242",
                                 "tf32x3"),
-    "flash_attn_bwd_dkv": ("flash_attn_bwd.cu",
-                           "reftr_tpu/kernels/attention.py:287", "simt"),
     "flash_attn_bwd_dkv_tc": ("flash_attn_bwd_dkv_tc.cu",
                               "reftr_tpu/kernels/attention.py:287", "tc"),
     "flash_attn_bwd_dkv_wg": ("flash_attn_bwd_dkv_wg.cu",
@@ -550,20 +560,20 @@ REC_SITES = ((12, 40, 40, 64), (6, 440, 440, 32), (6, 1, 1, 32),
              (6, 1, 440, 32))
 F32_TRAIN_STEPS = 8  # the timed float32 training run
 # the call site and dtype where the main path launches each variant, for
-# the kernels line: the SIMT K3 has no launch on the main paths and stands
-# at the decoder's site, where it ran before the decode backward; the
-# 3xTF32 kernels run in the float32 forward and step
+# the kernels line: the 3xTF32 kernels run in the float32 forward and step
 MAIN_SITE = {"tc": "vl_encoder_self", "dec": "decoder_cross",
-             "simt": "decoder_cross", "tf32x3": "vl_encoder_self",
-             "wg": "vl_encoder_4_levels_b8"}
+             "tf32x3": "vl_encoder_self", "wg": "vl_encoder_4_levels_b8"}
 MAIN_DTYPE = {"tf32x3": "float32"}
 # the (site, dtype) pairs whose times the kernels line reads: phases 2 and
 # 3 time these alone and check every pair
 MAIN_TIMED = {(site, MAIN_DTYPE.get(variant, "bfloat16"))
               for variant, site in MAIN_SITE.items()}
-# (B, Sq, Sk, H, D) where the rule sends K3 to SIMT: 16 or more queries and
-# fewer than 16 keys, which no call site of the model reaches
-SIMT_DKV_SITE = (SERVE_BATCH, 440, 8, 8, 32)
+# (B, Sq, Sk, H, D) of phase 3c: K3 with 16 or more queries and fewer than
+# 16 keys, which no call site of the model reaches (the tensor-core
+# kernels since the SIMT one went), timed at this Sk and checked also at
+# SHORT_DKV_KEYS
+SHORT_DKV_SITE = (SERVE_BATCH, 440, 8, 8, 32)
+SHORT_DKV_KEYS = (1, 8, 15)
 # head dims off the instances: (B, Sq, Sk, H, D), one that pads, ones
 # that pad in the decode kernels, the largest instance and two above it,
 # which the rule sends to the plain versions
@@ -872,6 +882,30 @@ def ptxas_lines(log: list, marker: str) -> list:
     return ([] if at is None else
             [line.split(":", 1)[-1].strip() for line in log[at + 1:at + 4]
              if "spill" in line or "registers" in line or "C7514" in line])
+
+
+def int8_wg_ptxas(so: Path) -> dict:
+    """ptxas's lines (registers, spills) of each instance of the "wg" int8
+    conv kernel, by its (BK, BN, output type), read from the build's log;
+    a spill fails the run."""
+    log = so.with_suffix(".log").read_text().split("\n")
+    out = {}
+    for line in log:
+        found = re.search(r"int8_conv_wg_kernelILi(\d+)ELi(\d+)E(\w+?)EEv",
+                          line)
+        if "Compiling entry" in line and found:
+            bk, bn, t = found.groups()
+            name = (f"BK={bk} BN={bn} "
+                    f"{'bf16' if 'bfloat16' in t else 'float32'}")
+            out[name] = ptxas_lines(log, found.group(0))
+    spills = {k: v for k, v in out.items()
+              if any("spill" in x and not x.startswith("0 bytes stack frame, "
+                                                       "0 bytes spill")
+                     for x in v)}
+    if not out or spills:
+        raise AssertionError(f"int8_conv_wg: ptxas lines {out}, spills "
+                             f"{spills}")
+    return out
 
 
 def sass_profile(libs: dict) -> dict:
@@ -1394,11 +1428,10 @@ def check_bits(what: str, bits, seed: int, rate: float, shape: tuple,
 
 def check_training_kernels(report: dict, sites=tuple(CALL_SITES),
                            key: str = "train_kernels",
-                           simt_before: bool = True,
                            timed_dtypes=("float32", "bfloat16"),
                            timed_sites=None) -> dict:
     """Phase 3: K1 with dropout, K2 and K3 against their plain versions at
-    ``sites``, with the SIMT K3 beside the others (``simt_before``) and,
+    ``sites``, and,
     where the rule sends K1, K2 or K3 to a warpgroup kernel, the mma.sync
     kernel beside it, and the exact dropout masks; the rows go to
     report[key] (phases 8, 10 and 11 check their own sites so). Each call
@@ -1507,12 +1540,9 @@ def check_training_kernels(report: dict, sites=tuple(CALL_SITES),
                 else:
                     timed["dq"] = lambda: flash_attn_bwd_dq(*bwd)
                     timed["dkv"] = lambda: flash_attn_bwd_dkv(*bwd)
-                # the same-run "before": the SIMT K3 where the rule sends K3
-                # elsewhere, and the mma.sync kernel of K1, K2 and K3 where
-                # the rule sends them to "wg"
+                # the same-run "before": the mma.sync kernel of K1, K2 and
+                # K3 where the rule sends them to "wg"
                 before = {}
-                if simt_before and row["dkv_variant"] != "simt":
-                    before["simt_dkv"] = lambda: _launch_dkv("simt", *bwd)
                 if row["fwd_variant"] == "wg":
                     before["tc_fwd"] = lambda: _launch_fwd(
                         "tc", q, k, v, valid, rate, seed, False)
@@ -1711,13 +1741,16 @@ def check_head_dims(report: dict) -> dict:
     return report
 
 
-def check_simt_dkv(report: dict) -> dict:
-    """Phase 3c: K3's SIMT route at SIMT_DKV_SITE (random key padding,
-    batch row 0 fully masked), in float32 and bfloat16, without dropout
-    and with rate 0.1: dk and dv through the rule against
-    attention_bwd_plain at phase 3's tolerance, one launch each, none of
-    another variant; its times, bound, the plain backward's time and
-    SDPA's (its backward covers dq, dk and dv)."""
+def check_short_dkv(report: dict) -> dict:
+    """Phase 3c: K3 with fewer than 16 keys at SHORT_DKV_SITE's B, Sq, H
+    and D and each of SHORT_DKV_KEYS (random key padding, batch row 0
+    fully masked), in float32 and bfloat16, without dropout and with rate
+    0.1: dk and dv through the rule ("tc" in bf16, "tf32x3" in float32)
+    against attention_bwd_plain at phase 3's tolerance, one launch a call
+    on that variant and none on another, the same bits on a repeated call,
+    and the dropout mask exact (check_dv_mask_exact); at SHORT_DKV_SITE's
+    Sk its times, bound, the plain backward's time and SDPA's (its
+    backward covers dq, dk and dv)."""
     import torch
 
     from reftr_torch.kernels.attention import (attention_bwd_plain,
@@ -1726,63 +1759,79 @@ def check_simt_dkv(report: dict) -> dict:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
-    b, sq, sk, h, d = SIMT_DKV_SITE
-    q32, do32 = (torch.randn(b, sq, h, d, device="cuda", generator=gen)
-                 for _ in range(2))
-    k32, v32 = (torch.randn(b, sk, h, d, device="cuda", generator=gen)
-                for _ in range(2))
-    lens = torch.randint(1, sk + 1, (b,), device="cuda", generator=gen)
-    valid = torch.arange(sk, device="cuda")[None] < lens[:, None]
-    valid[0] = False
-    rows = []
-    for name, dt in (("float32", torch.float32),
-                     ("bfloat16", torch.bfloat16)):
-        if dkv_variant(sq, sk, dt, d) != "simt":
-            raise AssertionError(f"the rule does not send K3 at {sq}x{sk} "
-                                 f"{name} to SIMT")
-        q, k, v, do = (x.to(dt) for x in (q32, k32, v32, do32))
-        for rate in (0.0, DROPOUT):
-            seed = 0x53DC_0000 + len(rows) if rate else None
-            out, lse = flash_attention(q, k, v, valid, True,
-                                       dropout_rate=rate, seed=seed)
-            bwd = (q, k, v, valid, out, lse, do, rate, seed)
-            wants = attention_bwd_plain(*bwd)
-            before = read_counts([flash_attn_bwd_dkv])
-            dk, dv = flash_attn_bwd_dkv(*bwd)
-            moved = {key: n - before[key] for key, n in
-                     read_counts([flash_attn_bwd_dkv]).items()}
-            torch.cuda.synchronize()
-            scale = max(w.float().abs().max().item() for w in wants)
-            err = max(max_err(g, w) for g, w in zip((dk, dv), wants[1:]))
-            others = [n for key, n in moved.items()
-                      if key != "flash_attn_bwd_dkv"]
-            if (not err <= GRAD_TOL[name] * scale
-                    or moved["flash_attn_bwd_dkv"] != 1 or any(others)):
-                raise AssertionError(f"phase 3c {name} dropout {rate}: err "
-                                     f"{err:.3g}, launches moved {moved}")
+    b, sq, timed_sk, h, d = SHORT_DKV_SITE
+    rows, masks = [], {}
+    for sk in SHORT_DKV_KEYS:
+        site = (b, sq, sk, h, d)
+        q32, k32, v32, valid = site_inputs(gen, site, torch.float32)
+        do32 = torch.randn(b, sq, h, d, device="cuda", generator=gen)
+        for name, dt in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+            variant = dkv_variant(sq, sk, dt, d)
+            if variant != ("tc" if name == "bfloat16" else "tf32x3"):
+                raise AssertionError(f"phase 3c: the rule sends K3 at "
+                                     f"{sq}x{sk} {name} to {variant}")
+            q, k, v, do = (x.to(dt) for x in (q32, k32, v32, do32))
+            for rate in (0.0, DROPOUT):
+                seed = 0x53DC_0000 + len(rows) if rate else None
+                out, lse = flash_attention(q, k, v, valid, True,
+                                           dropout_rate=rate, seed=seed)
+                bwd = (q, k, v, valid, out, lse, do, rate, seed)
+                wants = attention_bwd_plain(*bwd)
+                before = read_counts([flash_attn_bwd_dkv])
+                dk, dv = flash_attn_bwd_dkv(*bwd)
+                again = flash_attn_bwd_dkv(*bwd)
+                moved = {key: n - before[key] for key, n in
+                         read_counts([flash_attn_bwd_dkv]).items() if n
+                         != before[key]}
+                torch.cuda.synchronize()
+                scale = max(w.float().abs().max().item() for w in wants)
+                err = max(max_err(g, w) for g, w in zip((dk, dv), wants[1:]))
+                if (not err <= GRAD_TOL[name] * scale
+                        or moved != {"flash_attn_bwd_dkv": 2,
+                                     f"flash_attn_bwd_dkv_{variant}": 2}
+                        or not all(same_bits(x, y) for x, y in
+                                   zip((dk, dv), again))):
+                    raise AssertionError(
+                        f"phase 3c Sk={sk} {name} dropout {rate}: err "
+                        f"{err:.3g}, launches moved {moved}, the same bits "
+                        f"{[same_bits(x, y) for x, y in zip((dk, dv), again)]}"
+                    )
+                row = {"variant": variant, "dtype": name, "dropout": rate,
+                       "B": b, "Sq": sq, "Sk": sk, "H": h, "D": d,
+                       "max_abs_err": err, "grad_scale": scale,
+                       "grad_tol": GRAD_TOL[name] * scale,
+                       "bitwise_repeatable": True}
+                if sk == timed_sk:
+                    def kern():
+                        return flash_attn_bwd_dkv(*bwd)
 
-            def kern():
-                return flash_attn_bwd_dkv(*bwd)
-
-            bound, bound_by = attention_bound_ms(
-                b, sq, sk, h, d, valid, name, "flash_attn_bwd_dkv", rate)
-            row = {"dtype": name, "dropout": rate, "B": b, "Sq": sq,
-                   "Sk": sk, "H": h, "D": d, "max_abs_err": err,
-                   "grad_scale": scale, "ms": cuda_ms(kern),
-                   "device_ms": device_ms(kern),
-                   "plain_ms": cuda_ms(lambda: attention_bwd_plain(*bwd),
-                                       iters=10),
-                   "bound_ms": bound, "bound_by": bound_by,
-                   **sdpa_times(q, k, v, valid, do, rate)}
-            rows.append(row)
-            print(f"simt K3 B={b} Sq={sq} Sk={sk} H={h} D={d} {name} "
-                  f"dropout {rate}: dk/dv err {err:.3g} (tol "
-                  f"{GRAD_TOL[name] * scale:.3g}); {row['ms']:.4f} ms host "
-                  f"loop, {fmt_ms(row['device_ms'])} device; plain bwd "
-                  f"{row['plain_ms']:.4f} ms; sdpa bwd "
-                  f"{fmt_ms(row['sdpa_bwd_device_ms'])} ms device; bound "
-                  f"{bound:.5f} ms ({bound_by})", flush=True)
-    report["simt_dkv"] = rows
+                    bound, bound_by = attention_bound_ms(
+                        b, sq, sk, h, d, valid, name, "flash_attn_bwd_dkv",
+                        rate)
+                    row.update({
+                        "ms": cuda_ms(kern), "device_ms": device_ms(kern),
+                        "plain_ms": cuda_ms(
+                            lambda: attention_bwd_plain(*bwd), iters=10),
+                        "bound_ms": bound, "bound_by": bound_by,
+                        **sdpa_times(q, k, v, valid, do, rate)})
+                rows.append(row)
+                print(f"short K3 B={b} Sq={sq} Sk={sk} H={h} D={d} {name} "
+                      f"dropout {rate}: {variant}, dk/dv err {err:.3g} (tol "
+                      f"{GRAD_TOL[name] * scale:.3g}), bitwise repeatable"
+                      + (f"; {row['ms']:.4f} ms host loop, "
+                         f"{fmt_ms(row['device_ms'])} device; plain bwd "
+                         f"{row['plain_ms']:.4f} ms; sdpa bwd "
+                         f"{fmt_ms(row['sdpa_bwd_device_ms'])} ms device; "
+                         f"bound {row['bound_ms']:.5f} ms "
+                         f"({row['bound_by']})" if sk == timed_sk else ""),
+                      flush=True)
+            masks[f"K3 Sk={sk} {name}"] = check_dv_mask_exact(
+                site, DROPOUT, 0x3C0E, dt)
+    print(f"short K3: the dropout mask equal to the plain Philox mask on "
+          f"{sum(masks.values())} elements at p > 0 ({masks})", flush=True)
+    report["short_dkv"] = rows
+    report["short_dkv_mask_elements_checked"] = masks
     return report
 
 
@@ -2166,8 +2215,7 @@ def expected_launches(n: int, dtype_name: str, backward: bool,
         for name, variant in picks.items():
             if variant != "plain":
                 want[name] += calls * n
-            if variant != "simt":
-                want[f"{name}_{variant}"] += calls * n
+            want[f"{name}_{variant}"] += calls * n
     return want
 
 
@@ -2587,7 +2635,7 @@ def train(report: dict, counters) -> dict:
     if not last < first:
         raise AssertionError(f"the loss on the memorised batch did not fall:"
                              f" first 3 {first:.5f}, last 3 {last:.5f}")
-    # 18 + 12 of each wrapper's 30: none left for the SIMT kernels
+    # 18 + 12 of each wrapper's 30
     want = expected_launches(TRAIN_STEPS, "bfloat16", True)
     if launches != want:
         raise AssertionError(f"launches {launches} in {TRAIN_STEPS} steps, "
@@ -2668,7 +2716,7 @@ def train_f32(report: dict, counters) -> dict:
     F32_TRAIN_STEPS steps of phase 5's batch through train_one_epoch. Every
     loss and gradient norm finite; K1, K2 and K3 launched 30 times per
     step each, 18 of each (BERT and encoder) on the 3xTF32 kernels and 12
-    on the decode kernels, none on SIMT. Reports the median host step
+    on the decode kernels. Reports the median host step
     after WARM_STEPS, one step's device time by category with the
     attention kernels' share."""
     import torch
@@ -3365,7 +3413,7 @@ def multi_sites(report: dict) -> dict:
     sites multi-phrase adds (NEW_SITES: BERT over the phrases, the decoder
     at 16 queries, the encoder over 490 tokens) with their masks, in both
     dtypes, without dropout and with 0.1, and the dropout masks exact
-    (phase 3's checks and tolerances; no SIMT "before"); then 8c, one
+    (phase 3's checks and tolerances); then 8c, one
     float32 multi-phrase step through the kernels and through the plain
     attention at phase 5's rule, with each path's distance from the plain
     attention in float64 (report only), and one profiled bf16 step (report
@@ -3373,7 +3421,7 @@ def multi_sites(report: dict) -> dict:
     from reftr_torch.cli.presets import preset_config
 
     check_training_kernels(report, MULTI_SITES, "multi_kernels",
-                           simt_before=False, timed_dtypes=("bfloat16",))
+                           timed_dtypes=("bfloat16",))
     cfg = preset_config("flickr", dtype="float32")
     batch, targets = multi_batch(cfg, cfg.data.batch_size, cfg.data.img_size)
     report["multi"]["f32_kernel_vs_plain"] = compare_train_paths(
@@ -3538,7 +3586,7 @@ def train_levels(report: dict, counters) -> dict:
             cfg, batch, targets, f"levels: bf16 batch {SERVE_BATCH} train "
                                  f"step at 4 feature levels")}
     check_training_kernels(report, ("vl_encoder_4_levels",), "levels_kernels",
-                           simt_before=False, timed_dtypes=("bfloat16",))
+                           timed_dtypes=("bfloat16",))
     torch.cuda.empty_cache()
     site = "vl_encoder_4_levels_b8"
     b, sq, sk, h, _ = site_shape(site)
@@ -4613,7 +4661,7 @@ def phase10(report: dict, counters) -> dict:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     check_training_kernels(report, SCRATCH_KERNEL_SITES, "scratch_kernels",
-                           simt_before=False, timed_dtypes=("bfloat16",))
+                           timed_dtypes=("bfloat16",))
     try:
         scratch_cli(report, counters)
         scratch_guard(report)
@@ -5180,7 +5228,7 @@ def phase11(report: dict, counters) -> dict:
 
     t0 = time.perf_counter()
     check_training_kernels(report, HTTP_KERNEL_SITES, "http_kernels",
-                           simt_before=False, timed_dtypes=("bfloat16",))
+                           timed_dtypes=("bfloat16",))
     cache = os.environ.get("REFTR_CACHE_DIR")
     with tempfile.TemporaryDirectory() as d:
         try:
@@ -6160,10 +6208,59 @@ def export_launches(report: dict) -> dict:
 # int8, and the quantize chain before them)
 INT8_KERNELS = {
     "int8_conv": ("int8_conv.cu", "reftr_tpu/nn/quant.py:79"),
+    "int8_conv_wg": ("int8_conv_wg.cu", "reftr_tpu/nn/quant.py:79"),
     "int8_quantize": ("int8_quantize.cu", "reftr_tpu/nn/quant.py:75"),
 }
 INT8_ALSO = {"int8_conv": "reftr_tpu/nn/quant.py:118",
+             "int8_conv_wg": "reftr_tpu/nn/quant.py:118",
              "int8_quantize": "reftr_tpu/nn/quant.py:116"}
+# the 31 product shapes of a refcoco_det forward at SERVE_BATCH (640 px,
+# BERT-base over 40 tokens, the VL encoder over 440, the decoder's one
+# query a phrase) and each one's calls a forward: a conv's (N, H, W, Cin,
+# Cout, k, stride, dilation), a dense's (M, K, N); phase 14 checks that
+# product_shapes finds exactly these
+INT8_SHAPES = {
+    # layer1, 160 x 160
+    ("conv", 8, 160, 160, 64, 64, 1, 1, 1): 1,
+    ("conv", 8, 160, 160, 64, 64, 3, 1, 1): 3,
+    ("conv", 8, 160, 160, 64, 256, 1, 1, 1): 4,
+    ("conv", 8, 160, 160, 256, 64, 1, 1, 1): 2,
+    # layer2, 160 -> 80
+    ("conv", 8, 160, 160, 256, 128, 1, 1, 1): 1,
+    ("conv", 8, 160, 160, 128, 128, 3, 2, 1): 1,
+    ("conv", 8, 80, 80, 128, 512, 1, 1, 1): 4,
+    ("conv", 8, 160, 160, 256, 512, 1, 2, 1): 1,
+    ("conv", 8, 80, 80, 512, 128, 1, 1, 1): 3,
+    ("conv", 8, 80, 80, 128, 128, 3, 1, 1): 3,
+    # layer3, 80 -> 40
+    ("conv", 8, 80, 80, 512, 256, 1, 1, 1): 1,
+    ("conv", 8, 80, 80, 256, 256, 3, 2, 1): 1,
+    ("conv", 8, 40, 40, 256, 1024, 1, 1, 1): 6,
+    ("conv", 8, 80, 80, 512, 1024, 1, 2, 1): 1,
+    ("conv", 8, 40, 40, 1024, 256, 1, 1, 1): 5,
+    ("conv", 8, 40, 40, 256, 256, 3, 1, 1): 5,
+    # layer4, 40 -> 20
+    ("conv", 8, 40, 40, 1024, 512, 1, 1, 1): 1,
+    ("conv", 8, 40, 40, 512, 512, 3, 2, 1): 1,
+    ("conv", 8, 20, 20, 512, 2048, 1, 1, 1): 3,
+    ("conv", 8, 40, 40, 1024, 2048, 1, 2, 1): 1,
+    ("conv", 8, 20, 20, 2048, 512, 1, 1, 1): 2,
+    ("conv", 8, 20, 20, 512, 512, 3, 1, 1): 2,
+    # BERT-base: q, k, v, the attention's output; the FFN
+    ("dense", 320, 768, 768): 48,
+    ("dense", 320, 768, 3072): 12,
+    ("dense", 320, 3072, 768): 12,
+    # the VL encoder's q, k, v, output and the decoder's cross-attention
+    # keys and values over its 440 tokens; the encoder's FFN
+    ("dense", 3520, 256, 256): 36,
+    ("dense", 3520, 256, 2048): 6,
+    ("dense", 3520, 2048, 256): 6,
+    # the decoder's one query a phrase: self-attention, cross-attention's
+    # q and output; the FFN
+    ("dense", 8, 256, 256): 36,
+    ("dense", 8, 256, 2048): 6,
+    ("dense", 8, 2048, 256): 6,
+}
 INT8_CALIB_BATCHES = 4  # 14b: calibration batches of SERVE_BATCH rows
 # products a refcoco_det forward runs in int8: 52 bottleneck convs,
 # BERT-base's 12 layers of 6 denses, the encoder's 6 layers of 6, the
@@ -6189,6 +6286,13 @@ PEAK_F32_FLOPS = 67e12
 # encoder's first FFN dense and layer1's 256-channel activations, at B=64
 INT8_MAIN_SITE = {"int8_conv": "vl_transformer.encoder.layers.ffn.linear1",
                   "int8_quantize": "img_backbone.layer1.conv1 (256 in)"}
+# the int8 conv's shapes (at SERVE_BATCH) whose times the kernels line
+# names: the VL encoder's first FFN dense, layer3's 3x3 and BERT's
+# intermediate dense; "tc" is timed (beside "wg") at the first two only
+INT8_TIMED = {"vl_encoder_ffn1": ("dense", 3520, 256, 2048),
+              "layer3_3x3": ("conv", 8, 40, 40, 256, 256, 3, 1, 1),
+              "bert_intermediate": ("dense", 320, 768, 3072)}
+INT8_TC_TIMED = ("vl_encoder_ffn1", "layer3_3x3")
 # 14e: the int8 routes of the trainer's entry point, at full width in bf16
 # (autocast, as the eval and train steps run) on 14b's seeded weights
 # written as a reference .pth (folded as it loads): --eval --quantize_int8
@@ -6318,16 +6422,19 @@ def int8_inputs(gen, shape: tuple, dtype):
 
 
 def check_int8_shapes(report: dict, shapes: list) -> list:
-    """14a: each product shape at B=8 and B=64: int8_conv and
-    int8_quantize (on the product's bf16 input) bit-equal to their plain
-    versions, the conv's output in bf16 (as served) and at B=8 in float32
-    too, and at B=8 int8_quantize on a float32 input (a LayerNorm's
-    output under the eval step's autocast, 14e); then, report only, each one's device ms (CUDA events around
-    INT8_TIME_ITERS calls queued behind a sleep kernel), its bound, and
-    the yardstick: torch._int_mm (the int32 product alone, which the port
-    never calls) at the dense shapes it takes (more than 16 rows), cuDNN's
-    bf16 convolution (another function) at the conv shapes; the plain
-    versions' ms at the kernels line's shapes."""
+    """14a: each product shape at B=8 and B=64: int8_conv through the
+    route ("wg" at every shape of the model) bit-equal to its plain
+    version with its output in bf16 (as served) and in float32, and
+    int8_quantize (on the product's bf16 input, and at B=8 also on a
+    float32 one: a LayerNorm's output under the eval step's autocast,
+    14e) bit-equal to its plain version; then, report only, each one's
+    device ms in bf16 (CUDA events around INT8_TIME_ITERS calls queued
+    behind a sleep kernel), its bound, and the yardstick:
+    torch._int_mm (the int32 product alone, which the port never calls)
+    at the dense shapes it takes (more than 16 rows), cuDNN's bf16
+    convolution (another function) at the conv shapes; "tc" (int8_conv.cu)
+    forced at INT8_TC_TIMED's shapes, bit-equal too; the plain versions'
+    ms at the kernels line's shapes."""
     import torch
     import torch.nn.functional as F
 
@@ -6335,6 +6442,7 @@ def check_int8_shapes(report: dict, shapes: list) -> list:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0x14A)
+    tc_timed = {INT8_TIMED[name] for name in INT8_TC_TIMED}
     rows = []
     for factor in (b // SERVE_BATCH for b in INT8_BATCHES):
         for entry in shapes:
@@ -6342,10 +6450,13 @@ def check_int8_shapes(report: dict, shapes: list) -> list:
             site = shape_label(entry)
             x, w, ws, scale, bias, geo, act = int8_inputs(
                 gen, shape, torch.bfloat16)
-            dtypes = ((torch.bfloat16, torch.float32) if factor == 1
-                      else (torch.bfloat16,))
+            n, h, wd, c = x.shape
             errs = []
-            for dt in dtypes:
+            for dt in (torch.bfloat16, torch.float32):
+                if kq.int8_conv_variant(n, h, wd, c, w.shape[0], *geo,
+                                        dt) != "wg":
+                    raise AssertionError(f"phase 14a: {site} {shape} {dt} "
+                                         f"does not take \"wg\"")
                 got = kq.int8_conv(x, w, ws, scale, bias, *geo, dt)
                 want = kq.int8_conv_plain(x, w, ws, scale, bias, *geo, dt)
                 errs.append(max_err(got, want))
@@ -6353,6 +6464,7 @@ def check_int8_shapes(report: dict, shapes: list) -> list:
                     raise AssertionError(
                         f"phase 14a: int8_conv at {site} {shape} {dt}: "
                         f"{errs[-1]:.3g} from its plain version")
+                del got
             for a in (act, act.float()) if factor == 1 else (act,):
                 qgot = kq.quantize_int8(a, scale)
                 if not torch.equal(qgot, kq.quantize_plain(a, scale)):
@@ -6360,7 +6472,7 @@ def check_int8_shapes(report: dict, shapes: list) -> list:
                                          f"{site} {tuple(a.shape)} "
                                          f"{a.dtype} differs from its plain"
                                          f" version")
-            del got, want, qgot
+            del qgot
             conv_ms = queued_ms(lambda: kq.int8_conv(
                 x, w, ws, scale, bias, *geo, torch.bfloat16),
                 iters=INT8_TIME_ITERS)
@@ -6387,7 +6499,9 @@ def check_int8_shapes(report: dict, shapes: list) -> list:
                 del xb, wb
             row = {"site": site, "shape": list(shape),
                    "batch": SERVE_BATCH * factor,
-                   "calls_per_forward": entry["calls"],
+                   "calls_per_forward": entry["calls"], "variant": "wg",
+                   "tile": kq.int8_conv_tile(n, h, wd, c, w.shape[0], *geo,
+                                             torch.bfloat16),
                    "max_abs_err": max(errs), "ms": conv_ms,
                    "bound_ms": bound,
                    "bound_by": bound_by, "library": lib,
@@ -6395,6 +6509,17 @@ def check_int8_shapes(report: dict, shapes: list) -> list:
                    "quantize_shape": list(act.shape),
                    "quantize_ms": quant_ms, "quantize_bound_ms": qbound,
                    "quantize_bound_by": qbound_by}
+            if entry["shape"] in tc_timed:
+                def tc():
+                    return kq._launch_conv("tc", x, w, ws, scale, bias,
+                                           *geo, torch.bfloat16)
+
+                if not torch.equal(tc(), kq.int8_conv_plain(
+                        x, w, ws, scale, bias, *geo, torch.bfloat16)):
+                    raise AssertionError(f"phase 14a: \"tc\" at {site} "
+                                         f"{shape} differs from its plain "
+                                         f"version")
+                row["tc_ms"] = queued_ms(tc, iters=INT8_TIME_ITERS)
             main = factor > 1 and site in INT8_MAIN_SITE.values()
             if main:
                 row["plain_ms"] = cuda_ms(lambda: kq.int8_conv_plain(
@@ -6406,29 +6531,46 @@ def check_int8_shapes(report: dict, shapes: list) -> list:
             rows.append(row)
             del x, w, act
         torch.cuda.empty_cache()
+    sums = {}
     for b in INT8_BATCHES:
         mine = [r for r in rows if r["batch"] == b]
-        fwd = sum(r["calls_per_forward"] * r["ms"] for r in mine)
-        qfwd = sum(r["calls_per_forward"] * r["quantize_ms"] for r in mine)
-        bnd = sum(r["calls_per_forward"] * r["bound_ms"] for r in mine)
+        sums[b] = {key: sum(r["calls_per_forward"] * r[key] for r in mine)
+                   for key in ("ms", "quantize_ms", "bound_ms")}
+        for kind in ("conv", "dense"):
+            lib = [r for r in mine
+                   if r["shape"][0] == kind and r["library_ms"] is not None]
+            sums[b][f"{kind}_ms"] = sum(
+                r["calls_per_forward"] * r["ms"] for r in mine
+                if r["shape"][0] == kind)
+            sums[b][f"{kind}_library_ms"] = sum(
+                r["calls_per_forward"] * r["library_ms"] for r in lib)
+            sums[b][f"{kind}_ms_where_library"] = sum(
+                r["calls_per_forward"] * r["ms"] for r in lib)
         print(f"int8 14a ({report['card']}): B={b}, {len(mine)} product "
-              f"shapes bit-equal to the plain versions (int8_conv in bf16"
-              f"{' and float32' if b == SERVE_BATCH else ''}, "
-              f"int8_quantize on bf16"
-              f"{' and float32' if b == SERVE_BATCH else ''}); a forward's {INT8_PRODUCTS} products: "
-              f"int8_conv {fwd:.3f} ms (bound {bnd:.3f} ms), int8_quantize "
-              f"{qfwd:.3f} ms (device ms, CUDA events behind a sleep "
-              f"kernel)", flush=True)
+              f"shapes bit-equal to the plain versions (int8_conv \"wg\" "
+              f"in bf16 and float32, int8_quantize on bf16"
+              f"{' and float32' if b == SERVE_BATCH else ''}); a forward's "
+              f"{INT8_PRODUCTS} products: int8_conv {sums[b]['ms']:.3f} ms "
+              f"(bound {sums[b]['bound_ms']:.3f} ms; the convs "
+              f"{sums[b]['conv_ms']:.3f} against cuDNN's bf16 "
+              f"{sums[b]['conv_library_ms']:.3f}, the denses where "
+              f"_int_mm takes them {sums[b]['dense_ms_where_library']:.3f} "
+              f"against {sums[b]['dense_library_ms']:.3f}), int8_quantize "
+              f"{sums[b]['quantize_ms']:.3f} ms (device ms, CUDA events "
+              f"behind a sleep kernel)", flush=True)
         for r in mine:
             print(f"int8 14a B={b} {r['site']:46s} {str(r['shape'][1:]):28s}"
-                  f" x{r['calls_per_forward']:2d}: conv {r['ms']:.4f} ms "
-                  f"(bound {r['bound_ms']:.4f} {r['bound_by']}; "
+                  f" x{r['calls_per_forward']:2d}: conv wg/{r['tile']} "
+                  f"{r['ms']:.4f} ms"
+                  + (f" (tc {r['tc_ms']:.4f})" if "tc_ms" in r else "")
+                  + f" (bound {r['bound_ms']:.4f} {r['bound_by']}; "
                   + (f"{r['library']} {r['library_ms']:.4f}"
                      if r["library"] else "no library call")
                   + f"), quantize "
                   f"{r['quantize_ms']:.4f} ms (bound "
                   f"{r['quantize_bound_ms']:.4f})", flush=True)
     report["int8_shapes"] = rows
+    report["int8_sums"] = sums
     return rows
 
 
@@ -6463,13 +6605,16 @@ def int8_launches(n: int, steps: int = 0, products: int = None) -> dict:
     """The counters after ``n`` forwards and ``steps`` train steps of
     refcoco_det in bf16: K1's (and in the steps K2's and K3's) by the rule,
     and ``products`` launches of each int8 kernel (by default one quantize
-    and one int8 product for each of INT8_PRODUCTS a forward)."""
+    and one int8 product for each of INT8_PRODUCTS a forward), every int8
+    product on "wg" (int8_conv_variant picks it at each of the model's
+    shapes)."""
     want = expected_launches(n, "bfloat16", False)
     if steps:
         for k, v in expected_launches(steps, "bfloat16", True).items():
             want[k] += v
     products = INT8_PRODUCTS * n if products is None else products
-    want.update({"quantize_int8": products, "int8_conv": products})
+    want.update({"quantize_int8": products, "int8_conv": products,
+                 "int8_conv_wg": products, "int8_conv_tc": 0})
     return want
 
 
@@ -6673,9 +6818,10 @@ def phase14(report: dict, counters) -> dict:
     fp = ServingModel(cfg_fp, SERVE_BATCH, state_dict=sd)
     names = nq.quant_targets(model_class(cfg_q.model), cfg_q.model)
     shapes = product_shapes(fp.model, names, calib[0][0])
-    if sum(e["calls"] for e in shapes) != INT8_PRODUCTS:
-        raise AssertionError(f"phase 14: {sum(e['calls'] for e in shapes)} "
-                             f"products a forward, not {INT8_PRODUCTS}")
+    found = {e["shape"]: e["calls"] for e in shapes}
+    if found != INT8_SHAPES:
+        raise AssertionError(f"phase 14: the product shapes {found}, not "
+                             f"INT8_SHAPES")
 
     t = time.perf_counter()
     check_int8_shapes(report, shapes)
@@ -6805,21 +6951,27 @@ def phase14(report: dict, counters) -> dict:
 
 
 def int8_entries(report: dict) -> list:
-    """The kernels line's rows of the two int8 kernels: their launches in
+    """The kernels line's rows of the three int8 kernels: their launches in
     phase 14's runs of the main path (14b's serving, 14c's --exported, 14e's
     --eval --quantize_int8 and --quantize_train_prefix), their largest error
     against the plain versions (14a's shapes, bit-equal: 0), and their
     times at INT8_MAIN_SITE at B=64 (14a), with the bound, the plain
-    version's and the library yardstick's; every shape's row beside."""
+    version's and the library yardstick's; the int8 conv's "wg" also at
+    INT8_TIMED's other shapes and summed over a forward's products at
+    each batch, every shape's row beside; "tc" (no launch on the main
+    path: every shape of the model takes "wg") at INT8_TC_TIMED's."""
     res = report["int8"]
     shapes = report["int8_shapes"]
     out = []
     for name, (source, replaces) in INT8_KERNELS.items():
-        counter = "int8_conv" if name == "int8_conv" else "quantize_int8"
+        counter = {"int8_conv": "int8_conv_tc", "int8_conv_wg": "int8_conv_wg",
+                   "int8_quantize": "quantize_int8"}[name]
         launches = {k: res[k]["launches"][counter]
                     for k in ("serve", "export", "cli_eval", "prefix")}
+        site = INT8_MAIN_SITE["int8_quantize" if name == "int8_quantize"
+                              else "int8_conv"]
         row = next(r for r in shapes if r["batch"] == INT8_BATCHES[-1]
-                   and r["site"] == INT8_MAIN_SITE[name])
+                   and r["site"] == site)
         entry = {"name": name, "route": "cuda",
                  "source": f"reftr_torch/kernels/csrc/{source}",
                  "replaces": replaces,
@@ -6829,20 +6981,46 @@ def int8_entries(report: dict) -> list:
                  "launches_cli_eval": launches["cli_eval"],
                  "launches_prefix": launches["prefix"],
                  "max_abs_err": max(r["max_abs_err"] for r in shapes),
-                 "site": row["site"]}
-        entry["also_replaces"] = INT8_ALSO[name]
+                 "site": row["site"], "also_replaces": INT8_ALSO[name]}
+        timed = {key: next(r for r in shapes if r["batch"] == INT8_BATCHES[-1]
+                           and r["shape"] == list(scaled(
+                               shape, INT8_BATCHES[-1] // SERVE_BATCH)))
+                 for key, shape in INT8_TIMED.items()}
         if name == "int8_conv":
             entry.update({
+                "variant": "tc",
+                "shape": f"{row['site']} bf16 {row['shape']}",
+                "ms": row["tc_ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"],
+                "library_covers": "torch._int_mm: the int32 product "
+                                  "without the dequantizing epilogue",
+                "timed": {key: {"shape": r["shape"], "ms": r["tc_ms"],
+                                "wg_ms": r["ms"], "bound_ms": r["bound_ms"],
+                                "library": r["library"],
+                                "library_ms": r["library_ms"]}
+                          for key, r in timed.items() if "tc_ms" in r}})
+        elif name == "int8_conv_wg":
+            entry.update({
+                "variant": "wg",
                 "shape": f"{row['site']} bf16 {row['shape']}",
                 "ms": row["ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"],
                 "library_covers": "torch._int_mm: the int32 product "
                                   "without the dequantizing epilogue",
-                "per_shape": [{k: r[k] for k in (
-                    "site", "shape", "batch", "calls_per_forward", "ms",
-                    "bound_ms", "bound_by", "library", "library_ms")}
-                    for r in shapes]})
+                "igmma": report["igmma"],
+                "ptxas": report["int8_conv_wg_ptxas"],
+                "timed": {key: {"shape": r["shape"], "ms": r["ms"],
+                                "tile": r["tile"], "bound_ms": r["bound_ms"],
+                                "library": r["library"],
+                                "library_ms": r["library_ms"]}
+                          for key, r in timed.items()},
+                "forward_sums_ms": report["int8_sums"],
+                "per_shape": [{k: r.get(k) for k in (
+                    "site", "shape", "batch", "calls_per_forward", "tile",
+                    "ms", "tc_ms", "bound_ms", "bound_by", "library",
+                    "library_ms")} for r in shapes]})
         else:
             entry.update({
                 "shape": f"{row['site']} bf16 {row['quantize_shape']}",
@@ -6869,8 +7047,8 @@ def kernel_line(report: dict) -> list:
     dropout beside them), K2 and K3 as trained (dropout 0.1; without it
     beside). ``ms`` is the host loop's time per call (CUDA events around
     back-to-back wrapper calls), ``device_ms`` the card's time per call
-    (torch.profiler); a K3 row of another variant than SIMT has the SIMT
-    kernel's device time at its site beside it (the same-run "before").
+    (torch.profiler); K3's "tc" and "tf32x3" rows carry phase 3c's rows
+    (fewer than 16 keys) of their dtype as ``short_keys``.
     ``launches`` counts the main path's runs: both
     serving runs
     (bf16 and float32), both training runs (the bf16 steps and the
@@ -6994,19 +7172,14 @@ def kernel_line(report: dict) -> list:
                                   "K2 and K3 together",
                 "device_ms_no_dropout": tr0[f"{key}_device_ms"],
                 "library_device_ms_no_dropout": tr0["sdpa_bwd_device_ms"]})
-            if variant != "simt" and short == "dkv":
-                entry.update({
-                    "simt_device_ms": tr[f"simt_{short}_device_ms"],
-                    "simt_device_ms_no_dropout":
-                        tr0[f"simt_{short}_device_ms"]})
-            elif short == "dkv":
-                # where the rule sends K3 to SIMT (phase 3c)
-                entry["rule_site"] = [
-                    {key: r[key] for key in (
+            if short == "dkv":
+                # fewer than 16 keys (phase 3c), in this variant's dtype
+                entry["short_keys"] = [
+                    {key: r.get(key) for key in (
                         "dtype", "dropout", "B", "Sq", "Sk", "H", "D",
                         "device_ms", "bound_ms", "bound_by", "plain_ms",
-                        "sdpa_bwd_device_ms", "max_abs_err")}
-                    for r in report["simt_dkv"]]
+                        "sdpa_bwd_device_ms", "max_abs_err", "grad_tol")}
+                    for r in report["short_dkv"] if r["variant"] == variant]
         out.append(entry)
     # phase 10's runs of the entry point and its serving and phase 11's,
     # and the largest error of each variant at the recipe's sites and at
@@ -7069,18 +7242,14 @@ def scratch_launches(report: dict) -> dict:
 
 def row_launches(entry: dict, n: dict) -> int:
     """A kernels line row's launches among the counters ``n``: its
-    variant's count on its wrapper (the decode backward's on K2's), the
-    SIMT kernel's what no other variant took."""
+    variant's count on its wrapper (the decode backward's on K2's)."""
     if entry["name"] == "flash_attn_bwd_dec":
         return n["flash_attn_bwd_dq_dec"]
     base = entry["name"]
     for suffix in ("_f32tc", "_tc", "_wg", "_dec"):
         base = base.removesuffix(suffix)
     wrapper = "flash_attention" if base == "flash_attn_fwd" else base
-    if entry["variant"] != "simt":
-        return n[f"{wrapper}_{entry['variant']}"]
-    return n[wrapper] - sum(n.get(f"{wrapper}_{v}", 0)
-                            for v in ("tc", "wg", "tf32x3", "dec"))
+    return n[f"{wrapper}_{entry['variant']}"]
 
 
 def wg_entry(report: dict, name: str, source: str, replaces: str,
@@ -7171,8 +7340,7 @@ def bwd_dec_entry(report: dict, name: str, source: str, replaces: str,
     K3 below 16 queries: its launches (each counted on K2 and on K3, so
     K2's count), its errors over every call of phase 3 that the rule sent
     to it, and its times at the decoder's cross-attention in bf16 with
-    dropout 0.1 (and without), beside the SIMT K3 of the same run and
-    SDPA's whole backward."""
+    dropout 0.1 (and without), beside SDPA's whole backward."""
     rows = report["train_kernels"]
     errs = [(r[f"{g}_max_abs_err"], r["grad_scale"])
             for r in rows + report["http_kernels"]
@@ -7204,8 +7372,6 @@ def bwd_dec_entry(report: dict, name: str, source: str, replaces: str,
         "ms": tr["bwd_ms"], "device_ms": tr["bwd_device_ms"],
         "ms_no_dropout": tr0["bwd_ms"],
         "device_ms_no_dropout": tr0["bwd_device_ms"],
-        "simt_dkv_device_ms": tr["simt_dkv_device_ms"],
-        "simt_dkv_device_ms_no_dropout": tr0["simt_dkv_device_ms"],
         "plain_ms": tr["bwd_plain_ms"],
         "plain_covers": "attention_bwd_plain: dq, dk and dv",
         "bound_ms": tr["flash_attn_bwd_bound_ms"],
@@ -7250,20 +7416,29 @@ def main() -> int:
         list(pool.map(sass_text, [libs[src] for src, _, variant in
                                   KERNELS.values()
                                   if variant in ("tc", "tf32x3", "wg")]
-                      + [libs[INT8_KERNELS["int8_conv"][0]]]))
+                      + [libs[INT8_KERNELS[name][0]]
+                         for name in ("int8_conv", "int8_conv_wg")]))
     hmma = {src: sass_count(libs[src], "HMMA")
             for src, _, variant in KERNELS.values()
             if variant in ("tc", "tf32x3")}
     hgmma = {src: sass_count(libs[src], "HGMMA")
              for src, _, variant in KERNELS.values() if variant == "wg"}
-    # and the int8 product's, mma.sync's int8 IMMA
+    # and the int8 products': mma.sync's int8 IMMA in "tc", wgmma's int8
+    # IGMMA in "wg"
     imma = sass_count(libs[INT8_KERNELS["int8_conv"][0]], "IMMA")
+    igmma = sass_count(libs[INT8_KERNELS["int8_conv_wg"][0]], "IGMMA")
     print(f"cuobjdump -sass: HMMA instructions {hmma}; HGMMA instructions "
-          f"{hgmma}; IMMA instructions in int8_conv {imma}", flush=True)
-    if not all(hmma.values()) or not all(hgmma.values()) or not imma:
+          f"{hgmma}; IMMA instructions in int8_conv {imma}; IGMMA "
+          f"instructions in int8_conv_wg {igmma}", flush=True)
+    if (not all(hmma.values()) or not all(hgmma.values()) or not imma
+            or not igmma):
         raise AssertionError(f"a tensor-core kernel has no tensor-core "
                              f"product: HMMA {hmma}, HGMMA {hgmma}, IMMA "
-                             f"{imma}")
+                             f"{imma}, IGMMA {igmma}")
+    igmma_ptxas = int8_wg_ptxas(libs[INT8_KERNELS["int8_conv_wg"][0]])
+    for instance, lines in igmma_ptxas.items():
+        print(f"ptxas int8_conv_wg {instance}: {'; '.join(lines)}",
+              flush=True)
     sass = sass_profile(libs)
     for src, got in sass.items():
         print(f"sass {src} (D=32 function, static counts): {got['sass']}; "
@@ -7280,12 +7455,13 @@ def main() -> int:
 
     counters = [flash_attention, flash_attn_bwd_dq, flash_attn_bwd_dkv]
     report = {"card": card, "hmma": hmma, "hgmma": hgmma, "imma": imma,
+              "igmma": igmma, "int8_conv_wg_ptxas": igmma_ptxas,
               "bound_card": dict(CARD), "sass": sass}
     phases = (
         ("2", lambda: check_kernel(report)),
         ("3", lambda: check_training_kernels(report, timed_sites=MAIN_TIMED)),
         ("3b", lambda: check_head_dims(report)),
-        ("3c", lambda: check_simt_dkv(report)),
+        ("3c", lambda: check_short_dkv(report)),
         ("3d", lambda: wg_times(report)),
         ("3e", lambda: check_keep_bits(report)),
         ("4", lambda: serve(report, counters)),

@@ -26,32 +26,29 @@ autograd contract:
                                ``csrc/flash_attn_bwd_dkv_tc.cu`` and
                                ``csrc/flash_attn_bwd_dkv_wg.cu`` in bf16,
                                ``csrc/flash_attn_bwd_dkv_f32tc.cu`` in
-                               float32, ``csrc/flash_attn_bwd.cu`` on SIMT
-                               for fewer than 16 keys)
+                               float32, at any key count)
   ``FlashAttentionFn``      <- ``_attention``'s ``custom_vjp`` and
                                ``fused_attention``
 
-Each kernel has variants on the card, picked by shape, dtype and head dim
-alone (``fwd_variant``, ``dq_variant``, ``dkv_variant``): fewer than 16
-query rows, the decoder's single query, take the decode kernels ("dec") in
-either dtype, where one launch of ``flash_attn_bwd_dec.cu`` gives K2's and
-K3's gradients together; with 16 or more (and, for K3, 16 or more keys)
-bf16 takes the tensor-core kernels, the warpgroup ones ("wg": wgmma,
-TMA, a producer and two consumer warpgroups) at the shapes where they
-measured faster on the H100 and the mma.sync ones ("tc") elsewhere, and
-float32 the 3xTF32 tensor-core kernels ("tf32x3"), which split each
-float32 operand into two tf32 halves and keep float32's accuracy; K3 with
-fewer than 16 keys takes the SIMT kernel ("simt"). K3 takes "wg" only
-where K2 does, and K2-wg hands K3-wg two things it computes anyway: di =
-rowsum(dO * O), which it writes beside dq (``di_out``), so K3-wg never
-reads O; and, with dropout, the mask it drew, as keep bits (``bits_out``:
-uint32 [B, H, Sq, W], W = 4 * ceil(Sk / 128), bit j % 32 of word j / 32
-of row (b, h, i) the keep decision of key j, ``keep_bits_plain``), so
-K3-wg draws nothing. The bits live from K2's launch to K3's return
-(``FlashAttentionFn.backward``). A head dim above ``MAX_HEAD_DIM`` takes the
-plain versions on the card ("plain"), a rule of the dispatch that no
-error reaches. A kernel that fails to build or launch raises; no variant
-stands in for another.
+Each kernel has variants on the card, picked by shape, dtype and head dim alone
+(``fwd_variant``, ``dq_variant``, ``dkv_variant``): fewer than 16 query rows,
+the decoder's single query, take the decode kernels ("dec") in either dtype,
+where one launch of ``flash_attn_bwd_dec.cu`` gives K2's and K3's gradients
+together; with 16 or more, at any key count, bf16 takes the tensor-core
+kernels, the warpgroup ones ("wg": wgmma, TMA, a producer and two consumer
+warpgroups) at the shapes where they measured faster on the H100 and the
+mma.sync ones ("tc") elsewhere, and float32 the 3xTF32 tensor-core kernels
+("tf32x3"), which split each float32 operand into two tf32 halves and keep
+float32's accuracy. K3 takes "wg" only where K2 does, and K2-wg hands K3-wg two
+things it computes anyway: di = rowsum(dO * O), which it writes beside dq
+(``di_out``), so K3-wg never reads O; and, with dropout, the mask it drew, as
+keep bits (``bits_out``: uint32 [B, H, Sq, W], W = 4 * ceil(Sk / 128), bit j %
+32 of word j / 32 of row (b, h, i) the keep decision of key j,
+``keep_bits_plain``), so K3-wg draws nothing. The bits live from K2's launch to
+K3's return (``FlashAttentionFn.backward``). A head dim above ``MAX_HEAD_DIM``
+takes the plain versions on the card ("plain"), a rule of the dispatch that no
+error reaches. A kernel that fails to build or launch raises; no variant stands
+in for another.
 
 Head dims. The kernels are instantiated for ``HEAD_DIMS`` (16, 32, 64,
 128). A call with another head dim up to 128 is zero-padded to the next
@@ -547,9 +544,19 @@ def dkv_variant(sq: int, sk: int, dtype: torch.dtype, d: int) -> str:
     queries and keys (the VL encoder and BERT) in bf16 "wg"
     (flash_attn_bwd_dkv_wg.cu, which takes di and the keep bits from
     K2-wg) where ``_wg`` holds and "tc" (flash_attn_bwd_dkv_tc.cu) elsewhere,
-    and "tf32x3" (flash_attn_bwd_dkv_f32tc.cu) for float32; else "simt"
-    (flash_attn_bwd.cu): fewer than TC_MIN_ROWS keys in either dtype, where
-    each 64-key tile of a tensor-core kernel would be mostly empty.
+    and "tf32x3" (flash_attn_bwd_dkv_f32tc.cu) for float32, at any key
+    count: below 64 keys the warps of a 64-key block whose 16 keys all lie
+    past Sk skip their products. With fewer than 16 keys (no call site of
+    the model) these beat the SIMT kernel that took that shape before
+    (flash_attn_bwd.cu, gone since), at B=8, Sq=440, H=8, D=32
+    (time_k3_short.py, the parent checkout and this one in one call on an
+    NVIDIA H100 80GB HBM3 at 700 W; device ms, Sk = 8, without dropout /
+    with 0.1): bf16 "tc" 0.0261 / 0.0353 against SIMT 0.0808 / 0.1425 and
+    SDPA's whole backward 0.0334 / 0.0383; float32 "tf32x3" 0.0539 /
+    0.0629 against 0.0805 / 0.1424 (SDPA 0.1017 / 0.1109). At Sk = 1 and
+    15 with dropout the draw takes a Philox call per element (Sk % 4 !=
+    0): bf16 0.0522 and 0.0524 against SIMT 0.1362 and 0.1436 and SDPA
+    0.0498 and 0.0385.
 
     "wg" takes WG_MIN["dkv"] = 256 queries and keys and up, at any key
     count: K2's ("dq_variant", with the pair's readings), so that K3-wg
@@ -561,8 +568,6 @@ def dkv_variant(sq: int, sk: int, dtype: torch.dtype, d: int) -> str:
         return "plain"
     if sq < TC_MIN_ROWS:
         return "dec"
-    if sk < TC_MIN_ROWS:
-        return "simt"
     if dtype != torch.bfloat16:
         return "tf32x3"
     return "wg" if _wg("dkv", sq, sk, dtype, d) else "tc"
@@ -596,9 +601,6 @@ _ARGTYPES = {
     "flash_attn_bwd_dq_f32tc": ("flash_attn_bwd_dq_f32tc.cu",
                                 [_PTR] * 8 + [_INT] * 5 + [_FLOAT]
                                 + _DROPOUT_ARGS),
-    "flash_attn_bwd_dkv": ("flash_attn_bwd.cu",
-                           [_PTR] * 9 + [_INT] * 5 + [_FLOAT, _INT]
-                           + _DROPOUT_ARGS),
     "flash_attn_bwd_dkv_tc": ("flash_attn_bwd_dkv_tc.cu",
                               [_PTR] * 9 + [_INT] * 5 + [_FLOAT]
                               + _DROPOUT_ARGS),
@@ -890,7 +892,7 @@ def _launch_dkv(variant: str, q, k, v, valid_mask, o, lse, do,
                 di: Optional[torch.Tensor] = None,
                 keep_bits: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K3's ``variant`` ("dec", "tc", "wg", "tf32x3" or "simt";
+    """Launch K3's ``variant`` ("dec", "tc", "wg" or "tf32x3";
     "plain" runs ``attention_bwd_plain``) on CUDA tensors: (dk, dv). "wg"
     reads ``di`` and ``keep_bits`` (``_launch_dkv_wg``)."""
     if variant in ("dec", "plain"):
@@ -913,9 +915,6 @@ def _launch_dkv(variant: str, q, k, v, valid_mask, o, lse, do,
         _check_tc(q, k, v, o, do, dtype=torch.float32)
         _launch("flash_attn_bwd_dkv_f32tc", q.device, *ptrs, *shape, *drop)
         flash_attn_bwd_dkv.launches_tf32x3 += 1
-    elif variant == "simt":
-        _launch("flash_attn_bwd_dkv", q.device, *ptrs, *shape,
-                _DTYPES[q.dtype], *drop)
     else:
         raise ValueError(f"unknown variant {variant!r}")
     flash_attn_bwd_dkv.launches += 1
@@ -1000,8 +999,8 @@ def _launch_bwd_dec(q, k, v, valid_mask, o, lse, do, dropout_rate: float,
     return _unpad(dq, d), _unpad(dk, d), _unpad(dv, d)
 
 
-# kernel launches per wrapper, and among them those of each variant but the
-# SIMT kernels; launches_plain counts the CUDA calls that the rule sent to
+# kernel launches per wrapper, and among them those of each variant;
+# launches_plain counts the CUDA calls that the rule sent to
 # the plain versions, which launch no kernel of this module
 for _wrapper in (flash_attn_bwd_dq, flash_attn_bwd_dkv):
     _wrapper.launches = 0

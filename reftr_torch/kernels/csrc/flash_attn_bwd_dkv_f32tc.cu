@@ -1,11 +1,11 @@
 // Flash-attention dk/dv backward on Hopper's tensor cores in float32 by
 // 3xTF32 (sm_90a), plain C interface for ctypes: K3-f32tc.
 //
-// Replaces, for float32 inputs with at least 16 queries and 16 keys, the
-// TPU kernel `_bwd_dkv_kernel` of reftr_tpu/kernels/attention.py
-// (:287-339, pallas_call at :434). The same function and contract as
-// flash_attn_bwd.cu's flash_attn_bwd_dkv, in the transposed form the
-// tensor cores take, with keys as the M side and queries as N:
+// Replaces, for float32 inputs with at least 16 queries and any number of
+// keys, the TPU kernel `_bwd_dkv_kernel` of reftr_tpu/kernels/attention.py
+// (:287-339, pallas_call at :434). The same function and contract as dk
+// and dv of kernels/attention.py::attention_bwd_plain, in the transposed
+// form the tensor cores take, with keys as the M side and queries as N:
 //   S^T = K Q^T, P^T = exp(S^T * scale + bias + shift - lse),
 //   dP^T = V dO^T, dS^T = P^T o (dP^T o keep - di), di = rowsum(dO o O),
 //   dV = sum over queries of (P^T o keep) dO, dK = scale * dS^T Q,
@@ -48,6 +48,11 @@
 //   m16n8k16's layout. One Philox call per 4 elements where Sk % 4 == 0,
 //   drawn at the top of the tile with no lane-dependent branch; the mask is
 //   philox_keep_plain's bit for bit.
+// - Fewer than 64 keys (down to one): a warp whose 16 keys all lie past
+//   Sk skips its draw and its products (as K3-TC's); at 8 keys it
+//   measured 1.5x / 2.3x faster than the SIMT kernel that took fewer than
+//   16 keys before (without / with dropout; kernels/attention.py::
+//   dkv_variant).
 //
 // Bound on an NVIDIA H100 80GB HBM3 at its 700 W power limit (data sheet):
 // at the VL encoder's shape (B=8, H=8, S=440, D=32) with every key valid
@@ -149,7 +154,10 @@ flash_bwd_dkv_f32tc_kernel(const float* __restrict__ q,
   // with the first tiles in flight
   const float shift = flash::masked_row_shift(valid, b, Sk);
 
-  // this lane's two keys: warp * 16 + lane / 4 and 8 below it
+  // this lane's two keys: warp * 16 + lane / 4 and 8 below it; a warp
+  // whose 16 keys all lie past Sk (fewer than 64 keys, down to one) skips
+  // its draw and its products, and only helps stage the tiles and di
+  const bool live = k0 + warp * 16 < Sk;
   int keys[2];
   float bias[2];
 #pragma unroll
@@ -173,7 +181,7 @@ flash_bwd_dkv_f32tc_kernel(const float* __restrict__ q,
     // the tile's keep decisions, bit cq * 8 + n * 4 + e for 16-query chunk
     // cq: they need no data, so the integer work overlaps the copies
     uint32_t keep = 0u;
-    if (dr.threshold != 0u) {
+    if (dr.threshold != 0u && live) {
 #pragma unroll
       for (int cq = 0; cq < kTileQ / 16; ++cq)
         keep |= flash_tc::chunk_keep(
@@ -198,7 +206,8 @@ flash_bwd_dkv_f32tc_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int ch = 0; ch < kTileQ / kChunk; ++ch) {
       const int c0 = ch * kChunk;  // the chunk's first query in the tile
-      if (q0 + c0 >= Sq) continue;  // queries past Sq: p = 0
+      // queries past Sq (p = 0), or every key of the warp past Sk
+      if (q0 + c0 >= Sq || !live) continue;
       float st[kNT][4], dpt[kNT][4];
 #pragma unroll
       for (int n = 0; n < kNT; ++n)

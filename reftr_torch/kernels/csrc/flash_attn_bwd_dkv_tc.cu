@@ -1,11 +1,11 @@
 // Flash-attention dk/dv backward on Hopper's tensor cores, bf16 (sm_90a),
 // plain C interface for ctypes: K3-TC.
 //
-// Replaces, for bf16 inputs with at least 16 queries and 16 keys, the TPU
-// kernel `_bwd_dkv_kernel` of reftr_tpu/kernels/attention.py (:287-339,
-// pallas_call at :434). The same function and contract as
-// flash_attn_bwd.cu's flash_attn_bwd_dkv, in the transposed form the
-// tensor cores take, with keys as the M side and queries as N:
+// Replaces, for bf16 inputs with at least 16 queries and any number of
+// keys, the TPU kernel `_bwd_dkv_kernel` of reftr_tpu/kernels/attention.py
+// (:287-339, pallas_call at :434). The same function and contract as dk
+// and dv of kernels/attention.py::attention_bwd_plain, in the transposed
+// form the tensor cores take, with keys as the M side and queries as N:
 //   S^T = K Q^T, P^T = exp(S^T * scale + bias + shift - lse),
 //   dP^T = V dO^T, dS^T = P^T o (dP^T o keep - di), di = rowsum(dO o O),
 //   dV = sum over queries of (P^T o keep) dO, dK = scale * dS^T Q,
@@ -34,13 +34,18 @@
 //   mma.sync m16n8k16 bf16 -> f32 throughout (why not wgmma: see
 //   flash_attn_fwd_tc.cu; the same sizes apply).
 // - Redundancy: each (query, key) pair lives on exactly one lane, so its
-//   exp, ds and Philox word are computed once (the SIMT kernel computes
-//   them in all 4 threads of a key row). One Philox call gives the words
-//   of 4 neighbouring keys of one query, which sit on 4 lanes: where
+//   exp, ds and Philox word are computed once. One Philox call gives the
+//   words of 4 neighbouring keys of one query, which sit on 4 lanes: where
 //   Sk % 4 == 0 the 4 lanes share each call through shuffles
 //   (chunk_keep), one call per 4 elements.
 // - Occupancy: at D <= 32 the kernel is held to 128 registers, so 4 blocks
 //   fit an SM and the VL encoder's 448 blocks run in one wave on 132 SMs.
+// - Fewer than 64 keys (down to one): a warp whose 16 keys all lie past
+//   Sk skips its draw and its products and only helps stage the tiles and
+//   di; below 16 keys one warp a block computes. It measured 3.1x / 4.0x
+//   faster than the SIMT kernel that took fewer than 16 keys before (8
+//   keys, bf16, without / with dropout; kernels/attention.py::
+//   dkv_variant).
 // - Precision: dS^T enters the dK product rounded to bf16 (relative
 //   2^-9 per term), as P does in the forward; the tolerance, 1e-2 of the
 //   largest plain gradient, holds with that (PERF.md).
@@ -137,7 +142,10 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // with the first tiles in flight
   const float shift = flash::masked_row_shift(valid, b, Sk);
 
-  // this lane's two keys: warp * 16 + lane / 4 and 8 below it
+  // this lane's two keys: warp * 16 + lane / 4 and 8 below it; a warp
+  // whose 16 keys all lie past Sk (fewer than 64 keys, down to one) skips
+  // its draw and its products, and only helps stage the tiles and di
+  const bool live = k0 + warp * 16 < Sk;
   int keys[2];
   float bias[2];
 #pragma unroll
@@ -162,7 +170,7 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // the tile's keep decisions, bit cq * 8 + n * 4 + e: they need no data,
     // so the integer work overlaps the copies and the products
     uint32_t keep = 0u;
-    if (dr.threshold != 0u) {
+    if (dr.threshold != 0u && live) {
 #pragma unroll
       for (int cq = 0; cq < kTileQ / 16; ++cq)
         keep |= flash_tc::chunk_keep(
@@ -175,7 +183,7 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int buf = t & 1, q0 = t * kTileQ;
     const bf16* qt = qs + buf * kTile;
     const bf16* dot = dos + buf * kTile;
-    if (t == 0) {
+    if (t == 0 && live) {
 #pragma unroll
       for (int kk = 0; kk < kK; ++kk) {
         flash_tc::load_a<D>(ka[kk], ks, warp * 16, kk * 16);
@@ -199,6 +207,7 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 #pragma unroll
     for (int cq = 0; cq < kTileQ / 16; ++cq) {
+      if (!live) break;
       float st[2][4], dpt[2][4];
 #pragma unroll
       for (int n = 0; n < 2; ++n)

@@ -4,7 +4,7 @@
 // Replaces, for float32 inputs with at least 16 queries, the TPU kernel
 // `_bwd_dq_kernel` of reftr_tpu/kernels/attention.py (:242-284, driven by
 // `_bwd` :342-457, pallas_call at :420). The same function and contract as
-// flash_attn_bwd.cu's flash_attn_bwd_dq:
+// dq of kernels/attention.py::attention_bwd_plain:
 //   di = rowsum(dO o O), p = exp(q k^T * scale + bias + shift - lse),
 //   ds = p o (dO v^T o keep - di), dq = scale * ds k,
 // with keep the forward's dropout multiplier from the same Philox stream

@@ -1,6 +1,5 @@
 // Pieces shared by the flash-attention kernels (flash_attn_fwd_dec.cu,
-// flash_attn_bwd.cu, flash_attn_bwd_dec.cu and the tensor-core kernels,
-// bf16 and 3xTF32):
+// flash_attn_bwd_dec.cu and the tensor-core kernels, bf16 and 3xTF32):
 // dtype conversion, the logit of one (query, key) pair, and the
 // attention-dropout parameters and random numbers.
 //

@@ -39,8 +39,13 @@
 // Bound: at the model's shapes most calls are bound by bytes (layer1's
 // 1x1 convolutions: K = 64 or 256 with 64-256 outputs), the rest by the
 // int8 operations (layer3 and layer4's 3x3, BERT's and the encoder's
-// denses). This first version does not overlap the epilogue with the next
-// tile's loads, and uses mma.sync, not wgmma (wgmma s8 is later work).
+// denses). This kernel does not overlap the epilogue with the next tile's
+// loads and uses mma.sync: int8_conv_wg.cu ("wg": wgmma s8, a TMA ring,
+// the output stored by TMA) redesigns it for Hopper and takes every shape
+// of the model (2.3x faster summed over a forward's products at B=64,
+// PERF.md §6); this one ("tc") keeps the shapes "wg" does not take
+// (kernels/quant.py::int8_conv_variant: an output row not a multiple of
+// 16 bytes, or a convolution TMA's im2col map cannot describe).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -10,12 +10,19 @@ for Hopper:
 
   ``quantize_int8``  ``csrc/int8_quantize.cu``: clip(rint(x * (1 /
                      in_scale)), -127, 127) as int8, float32 or bf16 in
-  ``int8_conv``      ``csrc/int8_conv.cu``: int8 NHWC activations times an
-                     int8 [Cout, K * K * Cin] weight on the int8 tensor
-                     cores (mma.sync m16n8k32, int32 sums), then float(sum)
-                     * (w_scale * in_scale) (+ bias), in float32 or bf16;
-                     a QuantDense is a 1x1 convolution over [M, 1, 1, K]
-                     (``int8_dense``)
+  ``int8_conv``      int8 NHWC activations times an int8 [Cout, K * K *
+                     Cin] weight on the int8 tensor cores (int32 sums),
+                     then float(sum) * (w_scale * in_scale) (+ bias), in
+                     float32 or bf16; a QuantDense is a 1x1 convolution
+                     over [M, 1, 1, K] (``int8_dense``). Two variants,
+                     picked by shape (``int8_conv_variant``): "wg",
+                     ``csrc/int8_conv_wg.cu`` (wgmma s8, a TMA ring,
+                     persistent blocks, the output staged in shared memory
+                     and stored by TMA), and "tc", ``csrc/int8_conv.cu``
+                     (mma.sync m16n8k32), for an output whose rows are not
+                     a multiple of 16 bytes or a convolution TMA's im2col
+                     map cannot describe; every shape of the model takes
+                     "wg"
 
 Both are operators of the dispatcher, ``torch.ops.reftr.quantize_int8``
 and ``torch.ops.reftr.int8_conv``, registered with a CPU implementation
@@ -25,7 +32,8 @@ nodes and runs the kernels when it is called. The wrappers call the ops:
 a CPU tensor takes the plain version, a CUDA tensor launches the kernel or
 raises on what the kernel does not take; nothing falls back. Each CUDA
 implementation counts its launches in ``quantize_int8.launches`` and
-``int8_conv.launches``.
+``int8_conv.launches``, and the latter also by variant in
+``int8_conv.launches_wg`` and ``launches_tc``.
 
 The plain versions are the arithmetic the kernels must match bit for bit.
 ``int8_conv_plain`` sums the int8 products in float64 (``conv2d`` or a
@@ -53,6 +61,11 @@ QMAX = 127.0
 # spans two taps)
 CONV_K_STEP = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# "wg": the output tile's columns it is built for, and the least count of
+# 128-column tiles at which int8_conv_tile takes them: half the card's 132
+# SMs (NVIDIA H100 SXM), each a persistent block
+WG_TILES = (64, 128)
+WG_MIN_TILES = 66
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -62,6 +75,8 @@ _ARGTYPES = {
     "int8_quantize": ("int8_quantize.cu",
                       [_PTR] * 3 + [ctypes.c_longlong, _INT, _INT]),
     "int8_conv": ("int8_conv.cu", [_PTR] * 6 + [_INT] * 11),
+    # int8_conv's arguments and the output tile's columns
+    "int8_conv_wg": ("int8_conv_wg.cu", [_PTR] * 6 + [_INT] * 12),
 }
 # _launch(name, device, *args): the entry point ``name`` on the device's
 # current stream, built from its source on first use
@@ -108,6 +123,58 @@ def int8_conv_plain(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
     return out.to(out_dtype).contiguous()
 
 
+def im2col_takes(h: int, w: int, k: int, stride: int,
+                 dilation: int) -> bool:
+    """Whether TMA's im2col map over an NHWC input describes a k x k
+    convolution (csrc/int8_conv_wg.cu): its bounding box's corners (the
+    padding from the top left; (out - 1) * stride - padding - (side - 1)
+    from the bottom right) within [-128, 127], the taps' offsets within
+    255, a stride up to 8."""
+    pad = dilation * (k - 1) // 2
+    ho, wo = conv_out_hw(h, w, k, stride, dilation)
+    corners = [(out - 1) * stride - pad - (side - 1)
+               for out, side in ((ho, h), (wo, w))]
+    return (pad <= 128 and all(-128 <= c <= 127 for c in corners)
+            and dilation * (k - 1) <= 255 and stride <= 8)
+
+
+def int8_conv_variant(n: int, h: int, w: int, c: int, cout: int, k: int = 1,
+                      stride: int = 1, dilation: int = 1,
+                      out_dtype: torch.dtype = torch.bfloat16) -> str:
+    """The int8 conv kernel for a k x k convolution of an int8 [n, h, w, c]
+    input to ``cout`` channels in ``out_dtype``, by shape alone: "wg"
+    (csrc/int8_conv_wg.cu) wherever it takes the shape: an output row a
+    multiple of 16 bytes (its TMA store) and, for a convolution other than
+    a 1x1 at stride 1 (a dense), one ``im2col_takes``; else "tc"
+    (csrc/int8_conv.cu). At the model's 31 product shapes "wg" was the
+    faster at every one, in bf16 at B=8 and B=64 (time_int8_conv.py --tc
+    all on an NVIDIA H100 80GB HBM3 at 700 W: 2.760 against 5.915 and
+    11.344 against 27.570 ms over a forward's 220 products; PERF.md §6)."""
+    esize = 2 if out_dtype == torch.bfloat16 else 4
+    dense = k == 1 and stride == 1
+    takes = cout * esize % 16 == 0 and (
+        dense or im2col_takes(h, w, k, stride, dilation))
+    return "wg" if takes else "tc"
+
+
+def int8_conv_tile(n: int, h: int, w: int, c: int, cout: int, k: int = 1,
+                   stride: int = 1, dilation: int = 1,
+                   out_dtype: torch.dtype = torch.bfloat16) -> int:
+    """The output tile's columns of "wg" for that shape: 128 where Cout is
+    above 64 and there are at least WG_MIN_TILES tiles of 128 columns,
+    else 64. Over a forward's 220 products (time_int8_conv.py on an
+    NVIDIA H100 80GB HBM3 at 700 W, device ms in bf16 at B=8 / B=64) this
+    gives 2.773 / 11.358 ms, against 2.756 / 11.233 for the fastest width
+    at every shape, 2.985 / 13.425 for 64 everywhere and 3.224 / 11.762
+    for 128 everywhere; tiles of 256 columns (bf16 only, 3 ring stages)
+    were nowhere more than 5 % faster than 128 and up to 20 % slower, so
+    the kernel is no longer built for them. In float32: 3.185 / 14.862
+    against 3.143 / 14.661."""
+    ho, wo = conv_out_hw(h, w, k, stride, dilation)
+    tiles = -(-n * ho * wo // 128) * -(-cout // 128)
+    return 128 if cout > 64 and tiles >= WG_MIN_TILES else 64
+
+
 def _check_same_device(*tensors: Optional[torch.Tensor]) -> None:
     dev = tensors[0].device
     if any(t is not None and t.device != dev for t in tensors):
@@ -152,23 +219,36 @@ def _check_conv(x, w, w_scale, in_scale, bias, k: int, stride: int,
     _check_same_device(x, w, w_scale, in_scale, bias)
 
 
-def _check_cuda_conv(x, w, w_scale, in_scale, bias) -> None:
-    """What the kernel takes beyond ``_check_conv``: contiguous tensors,
-    Cin a multiple of its K step, an even Cout (its epilogue stores column
-    pairs) and 16-byte aligned activations and weights (its cp.async
-    copies)."""
+def _check_cuda_conv(variant: str, x, w, w_scale, in_scale, bias,
+                     out_dtype) -> None:
+    """What the kernel ``variant`` takes beyond ``_check_conv``: contiguous
+    tensors, Cin a multiple of the K step (a K tile never spans two taps),
+    fewer than 2^31 input elements and output pixels, 16-byte aligned
+    activations and weights (cp.async and TMA copies); "tc" an even Cout
+    (its epilogue stores column pairs), "wg" an output row that is a
+    multiple of 16 bytes (its TMA store) and 8-byte aligned scales and
+    bias (read as column pairs)."""
     if not all(t is None or t.is_contiguous()
                for t in (x, w, w_scale, in_scale, bias)):
         raise ValueError("the int8 conv kernel needs contiguous inputs")
     if x.shape[3] % CONV_K_STEP:
         raise ValueError(f"the int8 conv kernel takes Cin a multiple of "
                          f"{CONV_K_STEP}, not {x.shape[3]}")
-    if w.shape[0] % 2:
+    cout = w.shape[0]
+    if variant == "tc" and cout % 2:
         raise ValueError(f"the int8 conv kernel takes an even Cout, not "
-                         f"{w.shape[0]}")
+                         f"{cout}")
+    esize = 2 if out_dtype == torch.bfloat16 else 4
+    if variant == "wg" and cout * esize % 16:
+        raise ValueError(f"the int8 conv kernel \"wg\" takes output rows "
+                         f"of a multiple of 16 bytes, not {cout} x {esize}")
     if x.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("the int8 conv kernel needs 16-byte aligned "
                          "activations and weights")
+    if variant == "wg" and any(t is not None and t.data_ptr() % 8
+                               for t in (w_scale, bias)):
+        raise ValueError("the int8 conv kernel \"wg\" needs 8-byte "
+                         "aligned scales and bias")
     if x.numel() >= 2 ** 31 or x.shape[0] * x.shape[1] * x.shape[2] >= 2 ** 31:
         raise ValueError("the int8 conv kernel takes fewer than 2^31 "
                          "input elements")
@@ -212,21 +292,49 @@ def _conv_cpu(x, w, w_scale, in_scale, bias, k, stride, dilation,
                            dilation, out_dtype)
 
 
-def _conv_cuda(x, w, w_scale, in_scale, bias, k, stride, dilation,
-               out_dtype):
-    """The int8 conv kernel on CUDA tensors."""
-    _check_cuda_conv(x, w, w_scale, in_scale, bias)
+def _launch_conv(variant: str, x, w, w_scale, in_scale, bias, k, stride,
+                 dilation, out_dtype, bn: Optional[int] = None):
+    """The int8 conv kernel ``variant`` ("wg" or "tc") on CUDA tensors,
+    "wg" with ``bn`` columns a tile (by default ``int8_conv_tile``'s):
+    counted in ``int8_conv.launches`` and ``launches_<variant>``. CPU
+    tensors are refused: the op sends them to the plain version."""
+    if x.device.type != "cuda":
+        raise ValueError("the int8 conv kernels take CUDA tensors")
+    _check_cuda_conv(variant, x, w, w_scale, in_scale, bias, out_dtype)
     n, h, wd, c = x.shape
     cout = w.shape[0]
     ho, wo = conv_out_hw(h, wd, k, stride, dilation)
     out = torch.empty((n, ho, wo, cout), dtype=out_dtype, device=x.device)
-    _launch("int8_conv", x.device, x.data_ptr(), w.data_ptr(),
-            w_scale.data_ptr(), in_scale.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(),
-            n, h, wd, c, cout, k, stride, dilation, ho, wo,
+    args = (x.data_ptr(), w.data_ptr(), w_scale.data_ptr(),
+            in_scale.data_ptr(), None if bias is None else bias.data_ptr(),
+            out.data_ptr(), n, h, wd, c, cout, k, stride, dilation, ho, wo,
             _DTYPES[out_dtype])
+    if variant == "wg":
+        if bn is None:
+            bn = int8_conv_tile(n, h, wd, c, cout, k, stride, dilation,
+                                out_dtype)
+        if bn not in WG_TILES:
+            raise ValueError(f"int8 conv \"wg\" tiles of {bn} columns: "
+                             f"one of {WG_TILES}")
+        _launch("int8_conv_wg", x.device, *args, bn)
+        int8_conv.launches_wg += 1
+    elif variant == "tc":
+        _launch("int8_conv", x.device, *args)
+        int8_conv.launches_tc += 1
+    else:
+        raise ValueError(f"no int8 conv kernel {variant!r}")
     int8_conv.launches += 1
     return out
+
+
+def _conv_cuda(x, w, w_scale, in_scale, bias, k, stride, dilation,
+               out_dtype):
+    """The int8 conv kernel that ``int8_conv_variant`` picks for the shape,
+    on CUDA tensors."""
+    variant = int8_conv_variant(*x.shape, w.shape[0], k, stride, dilation,
+                                out_dtype)
+    return _launch_conv(variant, x, w, w_scale, in_scale, bias, k, stride,
+                        dilation, out_dtype)
 
 
 def _conv_fake(x, w, w_scale, in_scale, bias, k, stride, dilation,
@@ -280,3 +388,5 @@ def int8_dense(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
 
 quantize_int8.launches = 0
 int8_conv.launches = 0
+int8_conv.launches_wg = 0
+int8_conv.launches_tc = 0

@@ -60,6 +60,7 @@ def kernel_category(name: str) -> str:
     if name.startswith("reftr::"):
         return name.removeprefix("reftr::")
     for kernel, category in (("int8_conv_kernel", "int8_conv"),
+                             ("int8_conv_wg_kernel", "int8_conv"),
                              ("int8_quantize_kernel", "quantize_int8")):
         if kernel in name:
             return category

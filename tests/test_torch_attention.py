@@ -212,7 +212,7 @@ def test_variant_rule_boundary():
     assert dkv_variant(16, 16, bf16, 32) == "tc"
     assert dkv_variant(15, 440, bf16, 32) == "dec"
     assert dkv_variant(15, 15, f32, 32) == "dec"
-    assert dkv_variant(440, 15, bf16, 32) == "simt"
+    assert dkv_variant(440, 15, bf16, 32) == "tc"
     assert dkv_variant(440, 440, f32, 32) == "tf32x3"
     assert MAX_HEAD_DIM == 128
     assert fwd_variant(440, 440, f32, 128) == "tf32x3"
@@ -238,15 +238,15 @@ def test_dec_and_dq_variant_rules(sq, dtype, fwd, dq):
 
 @pytest.mark.parametrize("sq,sk,dtype,want", [
     (15, 440, torch.bfloat16, "dec"), (16, 440, torch.bfloat16, "tc"),
-    (15, 1, torch.float32, "dec"), (16, 1, torch.float32, "simt"),
-    (15, 15, torch.bfloat16, "dec"), (16, 15, torch.bfloat16, "simt"),
+    (15, 1, torch.float32, "dec"), (16, 1, torch.float32, "tf32x3"),
+    (15, 15, torch.bfloat16, "dec"), (16, 15, torch.bfloat16, "tc"),
     (16, 16, torch.bfloat16, "tc"), (16, 16, torch.float32, "tf32x3"),
-    (16, 15, torch.float32, "simt")])
+    (16, 15, torch.float32, "tf32x3")])
 def test_dkv_variant_rule(sq, sk, dtype, want):
     """K3 takes the decode backward below TC_MIN_ROWS queries whatever Sk
-    and dtype, the tensor cores from TC_MIN_ROWS queries and keys (bf16 in
-    bf16, float32 by 3xTF32), and SIMT otherwise; below TC_MIN_ROWS queries
-    K2 and K3 agree, as one kernel computes both."""
+    and dtype, and the tensor cores from TC_MIN_ROWS queries at any key
+    count, down to one (bf16 in bf16, float32 by 3xTF32); below
+    TC_MIN_ROWS queries K2 and K3 agree, as one kernel computes both."""
     assert dkv_variant(sq, sk, dtype, 32) == want
     if sq < TC_MIN_ROWS:
         assert dq_variant(sq, sk, dtype, 32) == want
@@ -259,8 +259,6 @@ def _rule(kernel, sq, sk, dtype, d):
     if sq < 16:
         return "dec"
     bf16 = dtype == torch.bfloat16
-    if kernel == "dkv" and sk < 16:
-        return "simt"
     least = {"fwd": 2048, "dq": 256, "dkv": 256}.get(kernel)
     if bf16 and least and 16 < d <= 32 and min(sq, sk) >= least:
         return "wg"
@@ -388,7 +386,7 @@ def test_cpu_tensors_take_the_plain_version_whatever_the_variant(sq, dtype):
     (_launch_fwd, "dec"), (_launch_fwd, "tc"), (_launch_fwd, "tf32x3"),
     (_launch_dq, "tc"), (_launch_dq, "tf32x3"),
     (_launch_dq, "dec"), (_launch_dkv, "tc"),
-    (_launch_dkv, "tf32x3"), (_launch_dkv, "simt"), (_launch_fwd, "wg"),
+    (_launch_dkv, "tf32x3"), (_launch_dkv, "dec"), (_launch_fwd, "wg"),
     (_launch_dkv, "wg")])
 def test_launchers_refuse_cpu_tensors(launch, variant):
     """Each launcher, called with CPU tensors for any of its kernel

@@ -767,9 +767,72 @@ def test_f32_forward_kernel_refuses_what_it_does_not_take(gen):
 
 
 # (B, Sq, Sk, H): the decode kernels (fewer than 16 queries), the
-# tensor-core kernels (both sides 16 or more), K3's SIMT kernel (fewer
-# than 16 keys)
+# tensor-core kernels (both sides 16 or more), and K3's with fewer than
+# 16 keys
 ROUTE_SHAPES = [(2, 3, 130, 2), (2, 70, 130, 2), (2, 70, 9, 2)]
+# K3 with 16 or more queries and fewer than 16 keys: phase 3c's site
+# (B=8, Sq=440, H=8, D=32) at these key counts
+SHORT_SK = (1, 8, 15)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sk", SHORT_SK)
+def test_k3_below_16_keys_runs_on_the_tensor_cores(gen, sk, dtype, rate):
+    """K3 with fewer than 16 keys takes the tensor cores through the rule
+    ("tc" in bf16, "tf32x3" in float32; the warps of a 64-key block whose
+    keys all lie past Sk skip their products): one launch on that counter
+    a call, dk and dv against attention_bwd_plain at phase 3's tolerances,
+    the same bits on a repeated call."""
+    b, sq, h, d = 8, 440, 8, 32
+    q, k, v, valid = inputs(gen, b, sq, sk, h, d, dtype)
+    seed = 0x3C_0001 + sk if rate else None
+    out, lse = attention_plain(q.float(), k.float(), v.float(), valid, True,
+                               dropout_rate=rate, seed=seed)
+    out, lse = out.to(dtype).contiguous(), lse.contiguous()
+    do = torch.randn(out.shape, device="cuda", generator=gen).to(dtype)
+    args = (q, k, v, valid, out, lse, do, rate, seed)
+    variant = "tc" if dtype == torch.bfloat16 else "tf32x3"
+    assert dkv_variant(sq, sk, dtype, d) == variant
+    c = flash_attn_bwd_dkv
+    before = (c.launches, getattr(c, f"launches_{variant}"))
+    first = flash_attn_bwd_dkv(*args)
+    second = flash_attn_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    assert (c.launches, getattr(c, f"launches_{variant}")) == (
+        before[0] + 2, before[1] + 2)
+    wants = attention_bwd_plain(*args)
+    scale = max(w.float().abs().max().item() for w in wants)
+    for got, w in zip(first, wants[1:]):
+        assert got.dtype == dtype and got.shape == w.shape
+        rel_close(got, w, GRAD_TOL[dtype], floor=scale)
+    assert all(same_bits(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sk", SHORT_SK)
+def test_k3_below_16_keys_mask_is_exact(gen, sk, dtype):
+    """The kept set of K3 with fewer than 16 keys equals the plain Philox
+    mask, read off dv as in test_dropout_mask_is_exact_through_the_f32_
+    tensor_core_kernels: q = 0 makes p uniform over the valid keys, dO
+    one-hot over the head dim for D queries at a time."""
+    b, sq, h, d = 2, 70, 2, 32
+    _, k, v, valid = inputs(gen, b, sq, sk, h, d, dtype)
+    rate, seed = 0.1, 0x3C_0E1F
+    keep = philox_keep_plain(seed, b, h, sq, sk, rate, "cuda")
+    live = keep_live(valid)
+    q = torch.zeros(b, sq, h, d, device="cuda", dtype=dtype)
+    o = torch.zeros_like(q)
+    lse = attention_plain(q.float(), k.float(), v.float(), valid,
+                          True)[1].contiguous()
+    for i0 in range(0, sq, d):
+        n = min(d, sq - i0)
+        do = torch.zeros_like(q)
+        do[:, i0:i0 + n, :, :n] = torch.eye(n, device="cuda")[:, None, :]
+        dv = flash_attn_bwd_dkv(q, k, v, valid, o, lse, do, rate, seed)[1]
+        got = dv[..., :n].permute(0, 2, 3, 1) != 0  # [B, H, n, Sk]
+        m = live.expand_as(got)
+        assert torch.equal(got[m], keep[:, :, i0:i0 + n][m])
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
@@ -1891,12 +1954,32 @@ def test_use_pallas_attention_launches(gen, setting, kernels):
 INT8_QUANTIZE_SHAPES = [(8, 20, 20, 64), (3, 7, 11, 5), (1000, 768), (13,),
                         (2, 40, 768)]
 # (N, H, W, Cin, Cout, k, stride, dilation): the backbone's kinds, the
-# ragged edges of the 128 x 128 output tile, a dense (1x1 over M rows)
+# ragged edges of "tc"'s 128 x 128 output tile, a dense (1x1 over M rows);
+# then the edges of "wg"'s tiles: Cout = 64 over an M not a multiple of
+# 128, Cin = 64 (the 64-byte K tile) 3x3 at stride 2 and at dilation 2,
+# Cin = 128 and 2048 (the 128-byte K tile), the VL encoder's FFN dense at
+# a ragged M; Cout = 2, 10 and 130 take only "tc"
 INT8_CONVS = [(2, 20, 20, 64, 64, 1, 1, 1), (2, 20, 20, 64, 64, 3, 1, 1),
               (2, 21, 19, 128, 128, 3, 2, 1), (2, 20, 20, 512, 512, 3, 1, 2),
               (2, 21, 21, 256, 512, 1, 2, 1), (3, 9, 13, 64, 10, 3, 2, 1),
               (1, 1, 1, 64, 2, 1, 1, 1), (129, 1, 1, 256, 130, 1, 1, 1),
-              (8, 1, 1, 2048, 256, 1, 1, 1)]
+              (8, 1, 1, 2048, 256, 1, 1, 1), (3, 13, 11, 64, 64, 1, 1, 1),
+              (3, 13, 11, 64, 64, 3, 1, 1), (2, 17, 15, 64, 128, 3, 2, 1),
+              (2, 11, 13, 64, 64, 3, 1, 2), (2, 9, 7, 128, 64, 3, 1, 1),
+              (1, 6, 6, 2048, 64, 3, 1, 1), (2, 10, 10, 2048, 256, 1, 1, 1),
+              (333, 1, 1, 256, 2048, 1, 1, 1)]
+
+
+def int8_variants(conv, dtype) -> list:
+    """Every (variant, tile) the route can pick for a shape: "tc" where it
+    takes the shape (an even Cout), "wg" at each tile width where it takes
+    it."""
+    from reftr_torch.kernels import quant
+
+    out = [("tc", None)] if conv[4] % 2 == 0 else []
+    if quant.int8_conv_variant(*conv, dtype) == "wg":
+        out += [("wg", bn) for bn in quant.WG_TILES]
+    return out
 
 
 @pytest.mark.parametrize("aligned", [True, False])
@@ -1924,7 +2007,9 @@ def test_int8_quantize_kernel_matches_plain(gen, shape, dtype, aligned):
 @pytest.mark.parametrize("conv", INT8_CONVS)
 def test_int8_conv_kernel_matches_plain(gen, conv, dtype, bias):
     """Bit for bit: exact int32 sums on the int8 tensor cores, the float32
-    epilogue rounded as the plain version rounds it."""
+    epilogue rounded as the plain version rounds it; through the wrapper
+    (the variant the route picks, one launch on its counter) and through
+    every variant and tile the route can pick for the shape, forced."""
     from reftr_torch.kernels import quant
 
     n, h, w, c, cout, k, s, d = conv
@@ -1935,11 +2020,21 @@ def test_int8_conv_kernel_matches_plain(gen, conv, dtype, bias):
     ws = torch.rand(cout, device="cuda", generator=gen) * 0.01
     scale = torch.tensor(0.05, device="cuda")
     b = (torch.randn(cout, device="cuda", generator=gen) if bias else None)
-    before = quant.int8_conv.launches
+    variant = quant.int8_conv_variant(*conv, dtype)
+    c = quant.int8_conv
+    before = (c.launches, c.launches_wg, c.launches_tc)
     got = quant.int8_conv(x, wq, ws, scale, b, k, s, d, dtype)
-    assert quant.int8_conv.launches == before + 1
+    assert (c.launches, c.launches_wg, c.launches_tc) == (
+        before[0] + 1, before[1] + (variant == "wg"),
+        before[2] + (variant == "tc"))
     want = quant.int8_conv_plain(x, wq, ws, scale, b, k, s, d, dtype)
     assert torch.equal(got, want)
+    for name, bn in int8_variants(conv, dtype):
+        forced = quant._launch_conv(name, x, wq, ws, scale, b, k, s, d,
+                                    dtype, bn=bn)
+        assert torch.equal(forced, want), (name, bn)
+    assert torch.equal(quant.int8_conv(x, wq, ws, scale, b, k, s, d, dtype),
+                       got)
 
 
 def test_int8_conv_kernel_refuses_what_it_does_not_take(gen):
@@ -1954,6 +2049,19 @@ def test_int8_conv_kernel_refuses_what_it_does_not_take(gen):
     w = torch.zeros(7, 64, dtype=torch.int8, device="cuda")
     with pytest.raises(ValueError, match="even Cout"):
         quant.int8_conv(x, w, torch.ones(7, device="cuda"), scale)
+    w = torch.zeros(10, 64, dtype=torch.int8, device="cuda")
+    ten = torch.ones(10, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        quant._launch_conv("wg", x, w, ten, scale, None, 1, 1, 1,
+                           torch.bfloat16)
+    w = torch.zeros(64, 64, dtype=torch.int8, device="cuda")
+    ones = torch.ones(64, device="cuda")
+    with pytest.raises(ValueError, match="tiles of 256 columns"):
+        quant._launch_conv("wg", x, w, ones, scale, None, 1, 1, 1,
+                           torch.float32, bn=256)
+    with pytest.raises(ValueError, match="no int8 conv kernel"):
+        quant._launch_conv("mma", x, w, ones, scale, None, 1, 1, 1,
+                           torch.float32)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -39,8 +39,6 @@ def want_variant(kernel: str, sq: int, sk: int, dtype_name: str,
         return "plain"
     if sq < 16:
         return "dec"
-    if kernel == "dkv" and sk < 16:
-        return "simt"
     if dtype_name == "float32":
         return "tf32x3"
     least = {"fwd": 2040, "dq": 256, "dkv": 256}[kernel]
@@ -290,8 +288,8 @@ def test_int8_products_and_launches_are_the_models():
 def test_int8_entry_point_routes_are_the_models():
     """Phase 14e's command lines parse to the bf16 folded int8 configs, the
     train prefix's count of int8 products is that model's, int8_launches
-    of forwards and steps adds their K1-K3 launches, and val_stats reads
-    the eval's last stats line."""
+    of forwards and steps adds their K1-K3 launches and counts every int8
+    product on "wg", and val_stats reads the eval's last stats line."""
     from reftr_torch.cli import main as cli
     from reftr_torch.cli.presets import apply_preset
     from reftr_torch.convert import model_class
@@ -315,7 +313,7 @@ def test_int8_entry_point_routes_are_the_models():
     step = chip_smoke.expected_launches(3, "bfloat16", True)
     assert chip_smoke.int8_launches(2, 3, 7) == {
         **{k: fwd[k] + step[k] for k in fwd}, "quantize_int8": 7,
-        "int8_conv": 7}
+        "int8_conv": 7, "int8_conv_wg": 7, "int8_conv_tc": 0}
     out = '[val] {"loss": 2.5}\nx\n[val] {"loss": 1.5, "miou": 0.25}\n'
     assert chip_smoke.val_stats({"out": out}) == {"loss": 1.5, "miou": 0.25}
 

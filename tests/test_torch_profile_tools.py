@@ -87,6 +87,8 @@ def test_op_profile_rec_int8_ranks_the_int8_ops(capsys, monkeypatch):
     ("nvjet_tst_128x64", "gemm"), ("aten::addmm", "gemm"),
     ("reftr::flash_attention_fwd", "flash_attention_fwd"),
     ("void int8_conv_kernel<__nv_bfloat16>(Params)", "int8_conv"),
+    ("void int8_conv_wg_kernel<128, 256, __nv_bfloat16>(CUtensorMap, "
+     "CUtensorMap, CUtensorMap, Params)", "int8_conv"),
     ("void int8_quantize_kernel<float, true>(...)", "quantize_int8"),
     ("void at::native::vectorized_elementwise_kernel<4>", "elementwise"),
     ("Memcpy HtoD (Pageable -> Device)", "copy"),
