@@ -295,10 +295,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    rounding level); at dropout 0.1 both ranks on the same
    half: every K1 output over more than one key differs between the
    ranks, and rank 0's equal bit for bit those of one process drawing
-   from the same generator state. c) Report only: one NCCL rank times
-   phase 5's bf16 step without DDP and under DDP in turns (host ms with
-   the metrics read back each step), profiles each once (device ms, the
-   NCCL all-reduce's device ms) and reads the peak memory.
+   from the same generator state.
 10. The repo's from-scratch recipe (exps/run_gn_flagship3.sh without its
    TPU stem): refcoco_det's geometry at full width with BERT-tiny,
    GroupNorm in the backbone, the stem and layer1 trained, pre-norm, the
@@ -426,7 +423,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    bf16 and float32; the quantize pass's input in bf16, at B=8 in float32
    too); report only, each one's device ms in bf16 (CUDA events behind a
    sleep kernel), "tc" forced beside it at the VL encoder's FFN dense and
-   layer3's 3x3 (bit-equal too), its bound (int8 operations at 1979
+   layer3's 3x3 (bit-equal too; timed at the FFN dense at B=64 alone),
+   its bound (int8 operations at 1979
    TOP/s, bytes at 3.35 TB/s) and the yardstick: torch._int_mm (the int32
    product alone) at the dense shapes it takes, cuDNN's bf16 convolution
    (another function) at the conv shapes; the sums over a forward's 220
@@ -449,11 +447,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    (layer1's 10 convolutions in int8 a step and an eval batch), finite
    losses, its checkpoint's layer1 in int8 and layer1's output within
    JAX's bar of the fp model's (cosine above 0.99).
-15. Print one JSON line listing each kernel (each variant on a row of its
+15. Tensor parallelism (--mesh_model 2) of refcoco_det at full width on a
+   (data 1, model 2) mesh: two gloo ranks on the one card, as 9b's. d)
+   First, in this process, K1-K3 at one rank's heads (BERT 40^2 at H=6,
+   D=64; the encoder's 440^2 at H=4, D=32, K2 and K3 on "wg"; the
+   decoder's 1 x 1 and 1 x 440 at H=4 on "dec") against their plain
+   versions at phase 3's tolerances and masks, both dtypes, dropout 0 and
+   0.1. Then the ranks: a) one float32 step at dropout 0 of 9b's weights
+   on phase 5's batch against one process: loss and gradient norm within
+   1e-5 relative, every gathered gradient within 1e-3 relative L2, the
+   gathered update by 9b's rule; at dropout 0.1 every K1 output of a
+   step equal bit for bit to K1 on the same heads with
+   shard_seed(draw, mesh.shard, batch); b) reftr_torch.cli.main with
+   --mesh_model 2 in bf16 (dropout 0.1): 8 steps and the val split's
+   eval, every loss finite, one log line and one checkpoint (rank 0
+   writes them) at one process's shapes, every replicated parameter
+   bit-identical across the ranks after the steps; a float32 --eval of
+   the checkpoint on the mesh and in one process: the same accuracy,
+   mIoU within 1e-5; c) the launches of each kernel on each rank, one
+   process's: 30 a step, 30 of K1 an eval batch; e) report only, gloo
+   over the host and not a TP speed: each rank's bf16 step ms (CUDA
+   events) and peak memory.
+16. Print one JSON line listing each kernel (each variant on a row of its
    own; the decode backward on one row for K2 and K3) with its launches
-   on the main paths (phase 8's, 10's, 11's, 12's and 13's runs included,
-   also on their own), its error (phase 10's and 11's checks at their own sites
-   also on their own), and its times and bound at the call site where
+   on the main paths (phase 8's, 10's, 11's, 12's, 13's and 15's runs
+   included, also on their own), its error (phase 10's, 11's and 15's
+   checks at their own sites also on their own), and its times and bound at the call site where
    the main path launches it (the decoder's cross-attention for the
    decode kernels, the VL encoder for the tensor-core kernels, in
    float32 for the 3xTF32 ones, the four-level encoder at B=8 for the
@@ -464,7 +483,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    first FFN dense, "wg" also at layer3's 3x3 and BERT's intermediate
    dense and summed over a forward at B=8 and 64, int8_quantize at
    layer1's 256-channel activations), every shape's beside.
-16. Print {"ok": true, "device": {...}} as the last line.
+17. Print {"ok": true, "device": {...}} as the last line.
 
 It needs a CUDA card and the reftr_torch package beside it; without
 either it fails before it prints any result.
@@ -663,6 +682,12 @@ NEW_SITES = {
     "serve_bert_self": (16, 40, 40, 12, 64),
     "serve_decoder_self": (16, 1, 1, 8, 32),
     "serve_decoder_cross": (16, 1, 440, 8, 32),
+    # phase 15's: refcoco_det's sites at one rank's heads of two (the
+    # model axis of --mesh_model 2) at the batch of phase 5's step
+    "tp_bert_self": (SERVE_BATCH, 40, 40, 6, 64),
+    "tp_vl_encoder_self": (SERVE_BATCH, 440, 440, 4, 32),
+    "tp_decoder_self": (SERVE_BATCH, 1, 1, 4, 32),
+    "tp_decoder_cross": (SERVE_BATCH, 1, 440, 4, 32),
 }
 # the image tokens of the 640 px canvas at 1-4 feature levels: the last
 # min(n, 3) backbone stages, 20^2, 40^2 and 80^2, and a 10^2 extra
@@ -3915,9 +3940,6 @@ DDP_TRAIN = ["--preset", "refcoco_det", "--dataset", "synthetic",
              str(DDP_OUT / "cli")]
 # 9b: two gloo ranks on the one card, float32, phase 5's batch of 8 halved
 DDP_WORLD = 2
-# 9c: turns of the bf16 step without and with DDP, steps a turn
-DDP_TURNS = 2
-DDP_TURN_STEPS = 4
 DDP_TIMEOUT = 600  # s, each launch
 ADAM_EPS = 1e-8
 UPDATE_TOL = 1e-6  # 9b: an update where the gradient is above 100 eps
@@ -3955,8 +3977,8 @@ def launch_child(kind: str, nproc: int, args: list, log: Path) -> int:
         except subprocess.TimeoutExpired:
             os.killpg(proc.pid, signal.SIGKILL)
             proc.wait()
-            raise AssertionError(f"phase 9 {kind}: no end in "
-                                 f"{DDP_TIMEOUT} s; {log}")
+            raise AssertionError(f"{kind}: no end in {DDP_TIMEOUT} s; "
+                                 f"{log}")
 
 
 def child_cli(out_json: str, *argv) -> int:
@@ -4253,136 +4275,6 @@ def ddp_pair(report: dict) -> dict:
     return report
 
 
-def child_times(out_json: str) -> int:
-    """9c (report only): in one NCCL rank, phase 5's bf16 step without
-    DDP (made before the group exists) and under DDP, in turns: host ms a
-    step (the metrics read back), one profile of each (device ms, NCCL's
-    all-reduce), peak memory."""
-    import torch
-
-    from reftr_torch.cli.presets import preset_config
-    from reftr_torch.core import distributed
-    from reftr_torch.core.config import LossConfig, TrainConfig
-    from reftr_torch.models.criterion import weight_dict
-    from reftr_torch.tools.op_profile import profile_device
-    from reftr_torch.train.loop import train_device
-    from reftr_torch.train.state import TrainState
-    from reftr_torch.train.steps import make_train_step
-
-    dev = train_device("cuda")
-    cfg = preset_config("refcoco_det", dtype="bfloat16")
-    mc = cfg.model
-    batch, targets = train_batch(np.random.default_rng(2), cfg.data.img_size,
-                                 cfg.data.max_query_len, mc.bert.vocab_size,
-                                 SERVE_BATCH)
-    wd = weight_dict(LossConfig(), mc.dec_layers, mc.aux_loss)
-    paths = {}
-    for name in ("plain", "ddp"):
-        if name == "ddp":
-            assert distributed.initialize(dev)
-            assert torch.distributed.get_backend() == "nccl"
-        state = TrainState.create(mc, TrainConfig(epochs=1), 100, seed=0)
-        paths[name] = (state, make_train_step(state.model, wd, LossConfig()))
-    torch.cuda.synchronize()
-    resident_gb = torch.cuda.memory_allocated() / 1e9
-
-    def one(name):
-        state, step = paths[name]
-        step(state, batch, targets)[1].get()
-
-    for name in paths:
-        for _ in range(WARM_STEPS):
-            one(name)
-    host = {name: [] for name in paths}
-    peak = {name: 0.0 for name in paths}
-    for _ in range(DDP_TURNS):
-        for name in paths:
-            for other, (state, _) in paths.items():
-                if other != name:  # its gradients out of this turn's peak
-                    state.model.zero_grad(set_to_none=True)
-            torch.cuda.reset_peak_memory_stats()
-            for _ in range(DDP_TURN_STEPS):
-                t0 = time.perf_counter()
-                one(name)
-                host[name].append((time.perf_counter() - t0) * 1e3)
-            peak[name] = max(peak[name],
-                             torch.cuda.max_memory_allocated() / 1e9)
-    result = {"resident_gb_both_states": resident_gb, "host_ms": host,
-              "median_host_ms": {n: statistics.median(v)
-                                 for n, v in host.items()},
-              "peak_memory_gb": peak, "profile": {}}
-    for name in paths:
-        prof = profile_device(lambda: one(name), f"9c bf16 step, {name}",
-                              result["median_host_ms"][name], iters=3)
-        result["profile"][name] = prof
-    result["ddp_comm"] = ddp_comm_profile(lambda: one("ddp"), 3)
-    Path(out_json).write_text(json.dumps(result))
-    torch.distributed.destroy_process_group()
-    return 0
-
-
-def ddp_comm_profile(run, iters: int) -> dict:
-    """What DDP's communication costs a step, from one profile: the NCCL
-    kernels' device ms and count (an all-reduce over one rank may launch
-    none), the ``nccl:*`` host ops (count and host ms) and the
-    device-to-device copies (count and device ms), a call each."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            run()
-        torch.cuda.synchronize()
-    out = {"nccl_kernels": 0, "nccl_device_ms": 0.0, "dtod_copies": 0,
-           "dtod_device_ms": 0.0}
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA or ev.device_time_total <= 0:
-            continue
-        if "nccl" in ev.name.lower():
-            out["nccl_kernels"] += 1
-            out["nccl_device_ms"] += ev.device_time_total / 1e3
-        elif "Memcpy DtoD" in ev.name:
-            out["dtod_copies"] += 1
-            out["dtod_device_ms"] += ev.device_time_total / 1e3
-    out = {k: v / iters for k, v in out.items()}
-    out["nccl_host_ops"] = {
-        e.key: {"calls": e.count / iters,
-                "host_ms": e.cpu_time_total / 1e3 / iters}
-        for e in prof.key_averages() if e.key.startswith("nccl:")}
-    return out
-
-
-def ddp_times(report: dict) -> dict:
-    """9c (report only): the bf16 step under DDP at world size 1 (NCCL)
-    against the step without DDP."""
-    out = DDP_OUT / "times.json"
-    log = DDP_OUT / "times.log"
-    rc = launch_child("child-times", 1, [out], log)
-    if rc != 0:
-        raise AssertionError(f"phase 9c: exit code {rc}: "
-                             f"{log.read_text()[-3000:]}")
-    got = json.loads(out.read_text())
-    prof = got["profile"]
-    dev_ms = {n: p.get("device_ms") for n, p in prof.items()}
-    comm = got["ddp_comm"]
-    print(f"ddp 9c ({report['card']}): bf16 batch {SERVE_BATCH} step, host "
-          f"ms median (turns of {DDP_TURN_STEPS} steps, metrics read back "
-          f"each step): without DDP "
-          f"{got['median_host_ms']['plain']:.2f}, DDP over NCCL at world 1 "
-          f"{got['median_host_ms']['ddp']:.2f}; device ms {dev_ms}; a DDP "
-          f"step's NCCL kernels {comm['nccl_kernels']:.0f}, "
-          f"{comm['nccl_device_ms']:.4f} ms device, its nccl host ops "
-          f"{comm['nccl_host_ops']}, device-to-device copies "
-          f"{comm['dtod_copies']:.0f}, {comm['dtod_device_ms']:.4f} ms; "
-          f"peak memory GB {got['peak_memory_gb']} (both states resident: "
-          f"{got['resident_gb_both_states']:.2f}; the other path's "
-          f"gradients freed before each turn)", flush=True)
-    report["ddp_times"] = got
-    return report
-
-
 def phase9(report: dict) -> dict:
     """Phase 9: data-parallel training (DDP)."""
     import torch
@@ -4390,7 +4282,394 @@ def phase9(report: dict) -> dict:
     torch.cuda.empty_cache()
     ddp_cli(report)
     ddp_pair(report)
-    ddp_times(report)
+    return report
+
+
+# phase 15: tensor parallelism (--mesh_model 2) of refcoco_det at full
+# width on a (data 1, model 2) mesh: two gloo ranks on the one card, as
+# 9b's (NCCL refuses two ranks on one device)
+TP_OUT = ROOT / "chiprun_out" / "tp"
+TP_WORLD = 2
+# 15d: the kernels at one rank's heads (NEW_SITES), before 15a-c use them
+TP_SITES = ("tp_bert_self", "tp_vl_encoder_self", "tp_decoder_self",
+            "tp_decoder_cross")
+# 15b: the entry point in bf16 (the CLI's default, dropout 0.1), 8 steps
+# and the 64-item val split; then float32 evals of its checkpoint on the
+# mesh and in one process
+TP_MODEL_DATA = ["--preset", "refcoco_det", "--dataset", "synthetic",
+                 "--test_split", "val", "--synthetic_n", "64",
+                 "--batch_size", "8", "--num_workers", "4", "--device",
+                 "cuda:0", "--output_dir", str(TP_OUT / "cli")]
+TP_TRAIN = TP_MODEL_DATA + ["--epochs", "1", "--mesh_model", "2"]
+TP_EVAL = TP_MODEL_DATA + ["--eval", "--dtype", "float32", "--resume",
+                           str(TP_OUT / "cli" / "checkpoint")]
+TP_STEPS = 8
+TP_EVAL_BATCHES = 8
+TP_MIOU_TOL = 1e-5
+# the local heads of refcoco_det's attention at model 2: the VL layers' 8
+# and BERT-base's 12 over two ranks
+TP_LOCAL_HEADS = [4, 6]
+# 15e (report only): bf16 steps timed a rank, after two to warm up
+TP_TIMED_STEPS = 4
+
+
+def cli_config(argv: list):
+    """The RefTRConfig that reftr_torch.cli.main.main(argv) runs."""
+    from reftr_torch.cli.main import args_to_config, get_args_parser
+    from reftr_torch.cli.presets import apply_preset
+
+    args = get_args_parser().parse_args(argv)
+    apply_preset(args, args.preset, argv)
+    return args_to_config(args)
+
+
+def tp_state(cfg, full: dict, mesh):
+    """A TrainState of ``cfg``'s model from one process's weights ``full``,
+    split over ``mesh``'s model axis, and its train step."""
+    from reftr_torch.core.config import LossConfig, TrainConfig
+    from reftr_torch.models.criterion import weight_dict
+    from reftr_torch.train.state import TrainState
+    from reftr_torch.train.steps import make_train_step
+
+    state = TrainState.create(cfg.model, TrainConfig(epochs=1), 1,
+                              state_dict=full, mesh=mesh)
+    return state, make_train_step(state.model, weight_dict(
+        LossConfig(), cfg.model.dec_layers, cfg.model.aux_loss),
+        LossConfig(), mesh=mesh)
+
+
+def replicated_digests(model) -> dict:
+    """sha256 of each replicated parameter's bytes."""
+    import hashlib
+
+    from reftr_torch.parallel.sharding import shard_dim
+
+    return {n: hashlib.sha256(p.detach().float().cpu().numpy().tobytes())
+            .hexdigest() for n, p in model.named_parameters()
+            if shard_dim(n) is None}
+
+
+def tp_k1_masks(cfg, full: dict, mesh, batch, targets) -> dict:
+    """15d's fold: one train step at dropout 0.1 with every K1 call of the
+    attention modules recorded (its inputs, seed and output) and every
+    fold of a drawn seed; each K1 output must equal, bit for bit, a call
+    of K1 on the same heads with shard_seed(draw, mesh.shard, batch)."""
+    import torch
+
+    from reftr_torch.kernels.attention import shard_seed
+    from reftr_torch.nn import attention as nn_attention
+
+    state, step = tp_state(cfg, full, mesh)
+    calls, folds = [], []
+    flash, fold = nn_attention.flash_attention, nn_attention.shard_seed
+
+    def folded(seed, shard, b):
+        folds.append((seed, shard, b, fold(seed, shard, b)))
+        return folds[-1][-1]
+
+    def recorded(q, k, v, valid, dropout_rate=0.0, seed=None):
+        out = flash(q, k, v, valid, dropout_rate=dropout_rate, seed=seed)
+        calls.append((q.detach(), k.detach(), v.detach(), valid,
+                      dropout_rate, seed, folds[-1], out.detach()))
+        return out
+
+    nn_attention.flash_attention, nn_attention.shard_seed = recorded, folded
+    try:
+        step(state, batch, targets)[1].get()
+    finally:
+        nn_attention.flash_attention, nn_attention.shard_seed = flash, fold
+    same, heads = 0, set()
+    for q, k, v, valid, rate, seed, (draw, shard, b, _), out in calls:
+        want = shard_seed(draw, mesh.shard, b)
+        # as the step called it: on inputs that need their gradients
+        q, k, v = (x.clone().requires_grad_() for x in (q, k, v))
+        again = flash(q, k, v, valid, dropout_rate=rate, seed=want)
+        same += int(seed == want and shard == mesh.shard
+                    and torch.equal(again.detach(), out))
+        heads.add(q.shape[2])
+    return {"calls": len(calls), "bit_equal": same, "heads": sorted(heads),
+            "shard": mesh.shard}
+
+
+def child_tp(out_json: str) -> int:
+    """Phase 15's rank: gloo started here on cuda:0, then ``initialize``
+    leaves it alone; the mesh data 1 x model 2. a) One float32 step at
+    dropout 0 of ddp_model's weights on phase 5's batch, counted, its
+    gradients and update gathered; 15d's fold check at dropout 0.1;
+    e) bf16 steps timed; b) the entry point's 8 bf16 steps and eval with
+    --mesh_model 2, then a float32 eval of its checkpoint on the mesh.
+    Rank 0 then leaves the group and holds it to one process: the same
+    step, the same eval."""
+    import os
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from reftr_torch.cli.main import main as cli_main
+    from reftr_torch.cli.presets import preset_config
+    from reftr_torch.core import distributed
+    from reftr_torch.core.config import MeshConfig, TrainConfig
+    from reftr_torch.kernels.attention import (flash_attention,
+                                               flash_attn_bwd_dkv,
+                                               flash_attn_bwd_dq)
+    from reftr_torch.parallel.sharding import create_mesh, gather_state_dict
+    from reftr_torch.train import loop as loop_mod
+    from reftr_torch.train.loop import run_training
+
+    rank = int(os.environ["RANK"])
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{os.environ['MASTER_PORT']}",
+        rank=rank, world_size=TP_WORLD)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    assert distributed.initialize(torch.device("cuda", 0))
+    assert dist.get_backend() == "gloo"
+    mesh = create_mesh(MeshConfig(model=TP_WORLD))
+    counters = [flash_attention, flash_attn_bwd_dq, flash_attn_bwd_dkv]
+    cfg = {rate: preset_config("refcoco_det", dtype="float32", dropout=rate)
+           for rate in (0.0, DROPOUT)}
+    for rate, c in cfg.items():
+        c.model.bert.hidden_dropout = c.model.bert.attention_dropout = rate
+    mc = cfg[0.0].model
+    batch, targets = train_batch(np.random.default_rng(2),
+                                 cfg[0.0].data.img_size,
+                                 cfg[0.0].data.max_query_len,
+                                 mc.bert.vocab_size, SERVE_BATCH)
+    full = ddp_model(cfg[0.0]).model.state_dict()
+    got = {"rank": rank, "shard": mesh.shard, "grid": mesh.grid}
+    # a)
+    state, step = tp_state(cfg[0.0], full, mesh)
+    # a replicated parameter's entry is the parameter itself: copy it
+    before = {n: t.clone() for n, t in state.full_model_state().items()}
+    reset_counts(counters)
+    got["metrics"] = step(state, batch, targets)[1].get()
+    torch.cuda.synchronize()
+    got["step_launches"] = read_counts(counters)
+    grads = gather_state_dict({n: p.grad for n, p in
+                               state.model.named_parameters()
+                               if p.requires_grad}, mesh)
+    after = state.full_model_state()
+    update = {n: after[n] - before[n] for n in grads}
+    got["local_heads"] = sorted({m.local_heads for m in state.model.modules()
+                                 if hasattr(m, "local_heads")})
+    del state, step, before, after
+    # d)'s fold
+    got["k1_fold"] = tp_k1_masks(cfg[DROPOUT], full, mesh, batch, targets)
+    # e)
+    state, step = tp_state(preset_config("refcoco_det", dtype="bfloat16"),
+                           full, mesh)
+    for _ in range(2):
+        step(state, batch, targets)[1].get()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(TP_TIMED_STEPS):
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        step(state, batch, targets)[1].get()
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1))
+    got["bf16_step_ms"] = times
+    got["bf16_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del state, step
+    torch.cuda.empty_cache()
+    # b)
+    shutil.rmtree(TP_OUT / "cli", ignore_errors=True)
+    dist.barrier()
+    trained, epoch = {}, loop_mod.train_one_epoch
+
+    def kept(step, state, *args, **kwargs):
+        out = epoch(step, state, *args, **kwargs)
+        trained["model"] = out[0].model
+        return out
+
+    loop_mod.train_one_epoch = kept
+    reset_counts(counters)
+    try:
+        got["cli_rc"] = cli_main(TP_TRAIN)
+    finally:
+        loop_mod.train_one_epoch = epoch
+    torch.cuda.synchronize()
+    got["cli_launches"] = read_counts(counters)
+    got["cli_digests"] = replicated_digests(trained.pop("model"))
+    torch.cuda.empty_cache()
+    reset_counts(counters)
+    got["tp_eval"] = run_training(cli_config(TP_EVAL + ["--mesh_model",
+                                                        str(TP_WORLD)]),
+                                  device="cuda:0")["test"]["val"]
+    torch.cuda.synchronize()
+    got["eval_launches"] = read_counts(counters)
+    ranks = [None] * TP_WORLD
+    dist.all_gather_object(ranks, got)
+    dist.destroy_process_group()
+    if rank != 0:
+        return 0
+    for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT"):
+        os.environ.pop(key, None)
+    assert not distributed.is_initialized()
+    one = one_step(cfg[0.0], batch, targets)
+    want = one["metrics"]
+    loss_err = abs(got["metrics"]["loss"] - want["loss"]) / abs(want["loss"])
+    norm_err = abs(got["metrics"]["grad_norm"] - want["grad_norm"]) / abs(
+        want["grad_norm"])
+    gnorm = math.sqrt(sum(float(g.square().sum())
+                          for g in one["grads"].values()))
+    grad_err, grad_name = grad_gap(grads, one["grads"], gnorm)
+    lr = TrainConfig().lr
+    upd_big, upd_all, upd_name = 0.0, 0.0, ""
+    for n, g in one["grads"].items():
+        diff = (update[n] - one["update"][n]).abs()
+        big = g.abs() > 100 * ADAM_EPS
+        err = float(diff[big].max()) if big.any() else 0.0
+        if err > upd_big:
+            upd_big, upd_name = err, n
+        upd_all = max(upd_all, float(diff.max()))
+    one_eval = run_training(cli_config(TP_EVAL), device="cuda:0")["test"][
+        "val"]
+    ckpt = torch.load(TP_OUT / "cli" / "checkpoint", map_location="cpu",
+                      weights_only=False)
+    shapes_ok = {n: tuple(t.shape) for n, t in ckpt["model"].items()} == {
+        n: tuple(t.shape) for n, t in full.items()}
+    with open(TP_OUT / "cli" / "log.txt") as f:
+        log_lines = [json.loads(x) for x in f]
+    files = sorted(os.listdir(TP_OUT / "cli"))
+    shutil.rmtree(TP_OUT / "cli")  # the checkpoint: GBs
+    result = {
+        "ranks": [{k: r[k] for k in (
+            "rank", "shard", "grid", "metrics", "step_launches",
+            "local_heads", "k1_fold", "bf16_step_ms", "bf16_peak_memory_gb",
+            "cli_rc", "cli_launches", "eval_launches", "tp_eval")}
+            for r in ranks],
+        "loss_tp": got["metrics"]["loss"], "loss_one": want["loss"],
+        "loss_rel_err": loss_err,
+        "grad_norm_tp": got["metrics"]["grad_norm"],
+        "grad_norm_one": want["grad_norm"], "grad_norm_rel_err": norm_err,
+        "worst_grad_rel_l2": grad_err, "worst_grad_name": grad_name,
+        "update_max_abs_err": upd_big, "update_worst_name": upd_name,
+        "update_max_abs_err_all": upd_all, "lr": lr,
+        "replicas_bit_identical": ranks[0]["cli_digests"]
+        == ranks[1]["cli_digests"],
+        "n_replicated": len(ranks[0]["cli_digests"]),
+        "checkpoint_full_shapes": shapes_ok, "cli_files": files,
+        "log_lines": log_lines, "one_eval": one_eval}
+    Path(out_json).write_text(json.dumps(result))
+    return 0
+
+
+def tp_launches(report: dict) -> dict:
+    """Phase 15's launches on the main path, both ranks: 15a's step, 15b's
+    entry point and its float32 eval on the mesh, summed."""
+    runs = [r[k] for r in report["tp"]["ranks"]
+            for k in ("step_launches", "cli_launches", "eval_launches")]
+    return {k: sum(n[k] for n in runs) for k in runs[0]}
+
+
+def phase15(report: dict) -> dict:
+    """Phase 15: tensor parallelism at (data 1, model 2) on the one card.
+    d) first: K1-K3 at one rank's heads against their plain versions (phase
+    3's checks and tolerances, both dtypes, dropout 0 and 0.1), then the
+    two ranks (child_tp): a) a float32 step against one process, the
+    gathered gradients and update by 9b's rules; b) the entry point;
+    c) the launches of each, a rank's as one process's; e) report only."""
+    import torch
+
+    t0 = time.perf_counter()
+    check_training_kernels(report, sites=TP_SITES, key="tp_kernels",
+                           timed_dtypes=())
+    torch.cuda.empty_cache()
+    out = TP_OUT / "tp.json"
+    out.unlink(missing_ok=True)
+    log = TP_OUT / "tp.log"
+    rc = launch_child("child-tp", TP_WORLD, [out], log)
+    text = log.read_text()
+    if rc != 0:
+        raise AssertionError(f"phase 15: exit code {rc}: {text[-3000:]}")
+    got = json.loads(out.read_text())
+    step = expected_launches(1, "float32", True)
+    cli = {k: v + w for (k, v), w in zip(
+        expected_launches(TP_STEPS, "bfloat16", True).items(),
+        expected_launches(TP_EVAL_BATCHES, "bfloat16", False).values())}
+    evals = expected_launches(TP_EVAL_BATCHES, "float32", False)
+    fails = []
+    for r in got["ranks"]:
+        for what, want in (("step_launches", step), ("cli_launches", cli),
+                           ("eval_launches", evals)):
+            if r[what] != want:
+                fails.append(f"rank {r['rank']} {what} {r[what]}, not "
+                             f"{want}")
+        fold = r["k1_fold"]
+        if not (fold["calls"] == ATTN_PER_FORWARD
+                and fold["bit_equal"] == fold["calls"]
+                and fold["heads"] == TP_LOCAL_HEADS):
+            fails.append(f"rank {r['rank']} K1 under the shard fold {fold}")
+        if r["local_heads"] != TP_LOCAL_HEADS or r["cli_rc"] != 0:
+            fails.append(f"rank {r['rank']} heads {r['local_heads']}, rc "
+                         f"{r['cli_rc']}")
+        if r["tp_eval"] != got["ranks"][0]["tp_eval"]:
+            fails.append(f"rank {r['rank']} eval {r['tp_eval']}")
+    if {r["shard"] for r in got["ranks"]} != {0, 1}:
+        fails.append(f"shards {[r['shard'] for r in got['ranks']]}")
+    tp_eval, one_eval = got["ranks"][0]["tp_eval"], got["one_eval"]
+    miou_err = abs(tp_eval["miou"] - one_eval["miou"])
+    log_lines = got["log_lines"]
+    losses = [v for e in log_lines for k, v in e.items()
+              if k.startswith(("train_loss", "test_val_loss"))]
+    step_losses = _floats(r"^Epoch: \[0\] \[\d+/\d+\].*?  loss: "
+                          r"([\d.eE+-]+|nan|inf)", text)
+    saves = re.findall(r"^checkpoint checkpoint: (\d+) bytes", text, re.M)
+    checks = {
+        "loss": got["loss_rel_err"] <= TRAIN_LOSS_TOL,
+        "grad_norm": got["grad_norm_rel_err"] <= TRAIN_LOSS_TOL,
+        "gradients": got["worst_grad_rel_l2"] <= TRAIN_GRAD_TOL,
+        "update": (got["update_max_abs_err"] <= UPDATE_TOL
+                   and got["update_max_abs_err_all"] <= 2 * got["lr"]),
+        "losses_finite": bool(losses) and all(
+            math.isfinite(v) for v in losses + step_losses),
+        "one_log_line_one_save": len(log_lines) == 1 and len(saves) == 1,
+        "files": got["cli_files"] == ["checkpoint", "log.txt",
+                                      "synthetic_val_result.json"],
+        "replicas_bit_identical": got["replicas_bit_identical"],
+        "checkpoint_full_shapes": got["checkpoint_full_shapes"],
+        "eval_accuracy": tp_eval["accuracy_iou0.5"]
+        == one_eval["accuracy_iou0.5"],
+        "eval_miou": miou_err <= TP_MIOU_TOL}
+    fails += [name for name, ok in checks.items() if not ok]
+    r0, r1 = got["ranks"]
+    print(f"tp 15 ({report['card']}): data 1 x model 2, two gloo ranks on "
+          f"cuda:0 (shards {r0['shard']}, {r1['shard']}; local heads "
+          f"{r0['local_heads']}); a) float32 step against one process: "
+          f"loss {got['loss_tp']:.7f} vs {got['loss_one']:.7f}, rel "
+          f"{got['loss_rel_err']:.3g} (tol {TRAIN_LOSS_TOL}); grad norm "
+          f"{got['grad_norm_tp']:.6g} vs {got['grad_norm_one']:.6g}, rel "
+          f"{got['grad_norm_rel_err']:.3g} (tol {TRAIN_LOSS_TOL}); worst "
+          f"gathered gradient rel L2 {got['worst_grad_rel_l2']:.3g} at "
+          f"{got['worst_grad_name']} (tol {TRAIN_GRAD_TOL}); update max abs "
+          f"{got['update_max_abs_err']:.3g} at {got['update_worst_name']} "
+          f"where the gradient is above 100 eps (tol {UPDATE_TOL}), "
+          f"{got['update_max_abs_err_all']:.3g} over all; b) the entry "
+          f"point, bf16, dropout {DROPOUT}, {TP_STEPS} steps: log "
+          f"{log_lines}; {got['n_replicated']} replicated parameters "
+          f"bit-identical across the ranks: "
+          f"{got['replicas_bit_identical']}; checkpoint at one process's "
+          f"shapes: {got['checkpoint_full_shapes']}; float32 eval of it on "
+          f"the mesh {tp_eval} vs one process {one_eval} (mIoU diff "
+          f"{miou_err:.3g}, tol {TP_MIOU_TOL}); c) launches a rank: step "
+          f"{r0['step_launches']}, entry point {r0['cli_launches']}, eval "
+          f"{r0['eval_launches']}; d) K1 under the shard fold bit-equal on "
+          f"{r0['k1_fold']['bit_equal']} and {r1['k1_fold']['bit_equal']} "
+          f"of {ATTN_PER_FORWARD} calls; e) report only, gloo over the "
+          f"host, not a TP speed: bf16 step ms (CUDA events, a rank) "
+          f"{[ms_list(r['bf16_step_ms']) for r in got['ranks']]}, peak "
+          f"memory GB {[round(r['bf16_peak_memory_gb'], 2) for r in got['ranks']]}"
+          f"; phase 15 in {time.perf_counter() - t0:.1f} s", flush=True)
+    if fails:
+        raise AssertionError(f"phase 15: {fails}")
+    report["tp"] = got
     return report
 
 
@@ -6288,7 +6567,8 @@ INT8_MAIN_SITE = {"int8_conv": "vl_transformer.encoder.layers.ffn.linear1",
                   "int8_quantize": "img_backbone.layer1.conv1 (256 in)"}
 # the int8 conv's shapes (at SERVE_BATCH) whose times the kernels line
 # names: the VL encoder's first FFN dense, layer3's 3x3 and BERT's
-# intermediate dense; "tc" is timed (beside "wg") at the first two only
+# intermediate dense; "tc" is checked (beside "wg") at the first two only
+# and timed at the first, at B=64
 INT8_TIMED = {"vl_encoder_ffn1": ("dense", 3520, 256, 2048),
               "layer3_3x3": ("conv", 8, 40, 40, 256, 256, 3, 1, 1),
               "bert_intermediate": ("dense", 320, 768, 3072)}
@@ -6433,8 +6713,9 @@ def check_int8_shapes(report: dict, shapes: list) -> list:
     torch._int_mm (the int32 product alone, which the port never calls)
     at the dense shapes it takes (more than 16 rows), cuDNN's bf16
     convolution (another function) at the conv shapes; "tc" (int8_conv.cu)
-    forced at INT8_TC_TIMED's shapes, bit-equal too; the plain versions'
-    ms at the kernels line's shapes."""
+    forced at INT8_TC_TIMED's shapes, bit-equal too, and timed at the
+    kernels line's shape alone; the plain versions' ms at the kernels
+    line's shapes."""
     import torch
     import torch.nn.functional as F
 
@@ -6519,8 +6800,11 @@ def check_int8_shapes(report: dict, shapes: list) -> list:
                     raise AssertionError(f"phase 14a: \"tc\" at {site} "
                                          f"{shape} differs from its plain "
                                          f"version")
-                row["tc_ms"] = queued_ms(tc, iters=INT8_TIME_ITERS)
             main = factor > 1 and site in INT8_MAIN_SITE.values()
+            if main and site == INT8_MAIN_SITE["int8_conv"]:
+                # the kernels line's "tc" row; time_int8_conv.py --tc all
+                # times it at every shape
+                row["tc_ms"] = queued_ms(tc, iters=INT8_TIME_ITERS)
             if main:
                 row["plain_ms"] = cuda_ms(lambda: kq.int8_conv_plain(
                     x, w, ws, scale, bias, *geo, torch.bfloat16),
@@ -6959,7 +7243,7 @@ def int8_entries(report: dict) -> list:
     version's and the library yardstick's; the int8 conv's "wg" also at
     INT8_TIMED's other shapes and summed over a forward's products at
     each batch, every shape's row beside; "tc" (no launch on the main
-    path: every shape of the model takes "wg") at INT8_TC_TIMED's."""
+    path: every shape of the model takes "wg") at INT8_MAIN_SITE's."""
     res = report["int8"]
     shapes = report["int8_shapes"]
     out = []
@@ -7037,7 +7321,7 @@ def int8_entries(report: dict) -> list:
 
 
 CHILDREN = {"child-cli": child_cli, "child-pair": child_pair,
-            "child-times": child_times}
+            "child-tp": child_tp}
 
 
 def kernel_line(report: dict) -> list:
@@ -7188,17 +7472,21 @@ def kernel_line(report: dict) -> list:
     http_n = http_launches(report)
     export_n = export_launches(report)
     fold_n = fold_launches(report)
+    tp_n = tp_launches(report)
     for entry in out:
         entry["launches_scratch"] = row_launches(entry, scratch_n)
         entry["launches_http"] = row_launches(entry, http_n)
         entry["launches_export"] = row_launches(entry, export_n)
         entry["launches_fold"] = row_launches(entry, fold_n)
+        entry["launches_tp"] = row_launches(entry, tp_n)
         entry["launches"] += (entry["launches_scratch"]
                               + entry["launches_http"]
                               + entry["launches_export"]
-                              + entry["launches_fold"])
+                              + entry["launches_fold"]
+                              + entry["launches_tp"])
         entry.update(phase_err(report, entry, "scratch"))
         entry.update(phase_err(report, entry, "http"))
+        entry.update(phase_err(report, entry, "tp"))
     return out + int8_entries(report)
 
 
@@ -7473,7 +7761,8 @@ def main() -> int:
         ("9", lambda: phase9(report)),
         ("10", lambda: phase10(report, counters)),
         ("11-13", lambda: phase11(report, counters)),
-        ("14", lambda: phase14(report, counters)))
+        ("14", lambda: phase14(report, counters)),
+        ("15", lambda: phase15(report)))
     report["phase_s"] = {}
     for name, run in phases:
         t = time.perf_counter()

@@ -32,7 +32,19 @@ processes on the host), through the launcher:
       python -m reftr_torch.cli.main --preset refcoco_det ...
 
 ``--mesh_data`` is -1 or the launcher's world size; ``--batch_size`` is
-per process, as in the reference.
+per process, as in the reference. ``--mesh_model N`` splits the attention
+heads and the FFN widths over each N ranks (tensor parallelism,
+``parallel/tensor_parallel.py``): the ranks of a model group load one
+batch shard, ``--batch_size`` is per data row, and ``--mesh_data`` is -1
+or world / N. ``--mesh_model_spans_processes`` lays the ranks out
+model-major (``parallel/sharding.py::mesh_grid``). On the CPU:
+
+  python -m reftr_torch.tools.launch --nproc_per_node 2 -- \
+      python -m reftr_torch.cli.main --device cpu --mesh_model 2 ...
+
+int8 (``--quantize_int8``, ``--quantize_train_prefix``) with
+``--mesh_model`` > 1 raises NotImplementedError (ROADMAP.md queue 1
+item 13).
 
 The JAX step's knobs run as in the JAX package: the backbone's
 reparameterisations (``--space_to_depth_stem``, ``--fold_bn``,
@@ -53,9 +65,7 @@ frozen layer1's convolutions in int8, calibrated on the first train
 batches.
 
 Every flag parses as in the JAX package; ``--dataset synthetic_multi`` is
-the port's own (``data/build.py``). A flag of a feature the port does
-not have yet raises NotImplementedError, naming its ROADMAP.md item, when
-it is given anything but its default (``NOT_PORTED``); none is ignored.
+the port's own (``data/build.py``). None is ignored.
 """
 
 from __future__ import annotations
@@ -67,14 +77,9 @@ from reftr_torch.cli.presets import PRESETS, apply_preset
 from reftr_torch.core.config import BertConfig, RefTRConfig
 from reftr_torch.core.distributed import env_world_size
 from reftr_torch.core.logging import master_print
-from reftr_torch.parallel.sharding import TP_ITEM, check_data_axis
+from reftr_torch.parallel.sharding import (check_data_axis,
+                                           refuse_int8_model_axis)
 
-_ITEM = "ROADMAP.md queue 1 item"
-# dest -> what it needs, for the flags of features not ported yet
-NOT_PORTED = {
-    "mesh_model": TP_ITEM,
-    "mesh_model_spans_processes": TP_ITEM,
-}
 # --use_pallas_attention's values and ModelConfig's
 PALLAS_ATTENTION = {None: None, "auto": None, "on": True, "off": False}
 
@@ -243,14 +248,11 @@ def get_args_parser() -> argparse.ArgumentParser:
 
 
 def refuse_not_ported(args: argparse.Namespace) -> None:
-    """Raise NotImplementedError for a flag of a feature the port does not
-    have yet, set to anything but its default."""
-    defaults = get_args_parser().parse_args([])
-    for dest, what in NOT_PORTED.items():
-        value = getattr(args, dest)
-        if value != getattr(defaults, dest):
-            raise NotImplementedError(
-                f"--{dest} {value}: {what} is not ported yet")
+    """Raise NotImplementedError for what the port does not run:
+    ``--no_decoder``, and int8 with a model axis (ROADMAP.md queue 1 item
+    13)."""
+    refuse_int8_model_axis(args.mesh_model, args.quantize_int8,
+                           args.quantize_train_prefix)
     if args.no_decoder:
         raise NotImplementedError(
             "--no_decoder (the JAX package refuses it too: the reference has "
@@ -271,10 +273,12 @@ def args_to_config(args: argparse.Namespace) -> RefTRConfig:
             "quantize_train_prefix")
     refuse_not_ported(args)
     cfg = RefTRConfig()
-    # the data axis against the world the launcher announced (run_training
+    # the mesh against the world the launcher announced (run_training
     # checks it again against the process group)
-    check_data_axis(args.mesh_data, env_world_size())
+    check_data_axis(args.mesh_data, env_world_size(), args.mesh_model)
     cfg.mesh.data = args.mesh_data
+    cfg.mesh.model = args.mesh_model
+    cfg.mesh.model_spans_processes = args.mesh_model_spans_processes
     m, t, d, loss = cfg.model, cfg.train, cfg.data, cfg.loss
     # model
     m.reftr_type = args.reftr_type

@@ -11,7 +11,9 @@ full checkpoint ``optimizer``, ``optimizer_params`` (the names of its
 parameters in its order, so a resume can match them by name),
 ``scheduler`` and ``generator`` (the state's dropout generator). It is
 written to a temporary name and renamed, so a run cut while saving leaves
-the last whole checkpoint.
+the last whole checkpoint. Under tensor parallelism it holds one
+process's full tensors, gathered from the ranks' slices, so it resumes
+at any ``--mesh_model`` (``TrainState.load_model_state``, ``restore``).
 """
 
 from __future__ import annotations
@@ -29,27 +31,45 @@ def checkpoint_path(output_dir: str, name: str) -> str:
     return os.path.join(os.path.abspath(output_dir), name)
 
 
+def checkpoint_payload(state, full: bool = True, epoch: int = 0,
+                       best_val_acc: float = 0.0,
+                       config: Optional[RefTRConfig] = None
+                       ) -> Dict[str, Any]:
+    """What a checkpoint of ``state`` (a ``TrainState``) holds: its model,
+    step and, with ``full``, its optimizer, scheduler and generator, at
+    one process's shapes (under tensor parallelism gathered over the
+    model group, so every rank of it must call)."""
+    payload: Dict[str, Any] = {
+        "model": state.full_model_state(), "step": int(state.step),
+        "epoch": int(epoch), "best_val_acc": float(best_val_acc),
+        "config": dataclasses.asdict(config) if config is not None else None}
+    if full:
+        payload.update(optimizer=state.full_optimizer_state(),
+                       optimizer_params=state.param_names(),
+                       scheduler=state.scheduler.state_dict(),
+                       generator=state.generator.get_state())
+    return payload
+
+
+def write_checkpoint(output_dir: str, name: str,
+                     payload: Mapping[str, Any]) -> str:
+    """Write ``payload`` under ``output_dir``/``name``; returns the path."""
+    path = checkpoint_path(output_dir, name)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(dict(payload), tmp)
+    os.replace(tmp, path)
+    return path
+
+
 def save_checkpoint(output_dir: str, name: str, state,
                     full: bool = True, epoch: int = 0,
                     best_val_acc: float = 0.0,
                     config: Optional[RefTRConfig] = None) -> str:
-    """Save ``state`` (a ``TrainState``): its model, step and, with
-    ``full``, its optimizer, scheduler and generator. Returns the path."""
-    payload: Dict[str, Any] = {
-        "model": state.model.state_dict(), "step": int(state.step),
-        "epoch": int(epoch), "best_val_acc": float(best_val_acc),
-        "config": dataclasses.asdict(config) if config is not None else None}
-    if full:
-        payload.update(optimizer=state.optimizer.state_dict(),
-                       optimizer_params=state.param_names(),
-                       scheduler=state.scheduler.state_dict(),
-                       generator=state.generator.get_state())
-    path = checkpoint_path(output_dir, name)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
-    return path
+    """Save ``state`` (a ``TrainState``) as ``checkpoint_payload`` gives
+    it. Returns the path."""
+    return write_checkpoint(output_dir, name, checkpoint_payload(
+        state, full, epoch, best_val_acc, config))
 
 
 def load_checkpoint(path: str,

@@ -4,10 +4,9 @@ read.
 A copy of the matching fields of reftr_tpu/core/config.py (``BertConfig``
 :24-67, ``ModelConfig`` :70-176, ``LossConfig`` :232-249, ``DataConfig``
 :251-287, ``TrainConfig`` :302-343), kept here because the port imports
-nothing of reftr_tpu. Options of the JAX package that the port does not run
-yet (int8, the mesh's model axis) are left out rather than accepted and
-ignored; the CLI refuses them (``cli/main.py``), and they come back with
-the slice that runs them.
+nothing of reftr_tpu. ``MeshConfig`` holds the mesh's model axis
+(tensor parallelism) too; the one combination the port does not run,
+int8 under tensor parallelism, raises (ROADMAP.md queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -253,12 +252,16 @@ class DataConfig:
 
 @dataclass
 class MeshConfig:
-    """The data-parallel layout (reftr_tpu/core/config.py:289-299's data
-    axis): one process per card, ``data`` -1 (all of them) or the world
-    size. The model axis (tensor parallelism) is not ported; the CLI
-    refuses it."""
+    """The (data, model) mesh of ranks (reftr_tpu/core/config.py:289-299),
+    one process per card: ``model`` > 1 splits the attention heads and the
+    FFN widths over that many ranks (tensor parallelism,
+    ``parallel/tensor_parallel.py``); ``data`` is -1 (the world over
+    ``model``) or world / model. ``model_spans_processes`` lays the ranks
+    out model-major (``parallel/sharding.py::mesh_grid``)."""
 
-    data: int = -1
+    data: int = -1  # -1: all the ranks over the model axis
+    model: int = 1
+    model_spans_processes: bool = False
 
 
 @dataclass

@@ -9,7 +9,8 @@ reftr_tpu/core/distributed.py), on ``torch.distributed``.
     gloo for the CPU.
   * ``rank``, ``world_size``, ``is_main_process``: 0, 1 and True without a
     process group.
-  * ``allreduce_sum_host`` sums a dict of floats over the ranks.
+  * ``allreduce_sum_host`` sums a dict of floats over the ranks, or over
+    a group of them (the mesh's data axis, ``parallel/context.py``).
 """
 
 from __future__ import annotations
@@ -120,14 +121,17 @@ def collective_device() -> torch.device:
     return torch.device("cpu")
 
 
-def allreduce_sum_host(values: Dict[str, float]) -> Dict[str, float]:
-    """Sum a dict of floats over the ranks, in float64 and in the order of
-    the sorted keys (one process: the identity). The eval accumulators'
-    all_reduce of the reference (engine_vg.py:207-219)."""
-    if world_size() == 1:
+def allreduce_sum_host(values: Dict[str, float], size: Optional[int] = None,
+                       group: Optional[dist.ProcessGroup] = None
+                       ) -> Dict[str, float]:
+    """Sum a dict of floats over the ranks (or over ``group``, of ``size``
+    ranks), in float64 and in the order of the sorted keys (one rank: the
+    identity). The eval accumulators' all_reduce of the reference
+    (engine_vg.py:207-219)."""
+    if (world_size() if size is None else size) == 1:
         return dict(values)
     keys = sorted(values)
     vec = torch.tensor([values[k] for k in keys], dtype=torch.float64,
                        device=collective_device())
-    dist.all_reduce(vec)
+    dist.all_reduce(vec, group=group)
     return {k: float(v) for k, v in zip(keys, vec.tolist())}

@@ -4,9 +4,10 @@ reftr_tpu/core/metrics.py:21-137).
 Windowed medians and averages, iteration and data timing, ETA and periodic
 printing; the peak device memory is torch.cuda.max_memory_allocated.
 Under a process group ``synchronize_between_processes`` sums each meter's
-total and count over the ranks, so that its global average is the
-average over every rank's updates (the median and window stay the
-rank's own).
+total and count over the ranks of the data axis (``parallel/context.py``:
+the world, or the mesh's data group, whose model replicas log the same
+values), so that its global average is the average over every data
+shard's updates (the median and window stay the rank's own).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from reftr_torch.core.distributed import allreduce_sum_host
+from reftr_torch.parallel.context import data_axis
 
 
 class SmoothedValue:
@@ -39,7 +41,7 @@ class SmoothedValue:
 
     def synchronize_between_processes(self):
         s = allreduce_sum_host({"count": float(self.count),
-                                "total": self.total})
+                                "total": self.total}, *data_axis())
         self.count = int(s["count"])
         self.total = s["total"]
 

@@ -144,9 +144,11 @@ def shard_seed(seed: int, shard: int, local_batch: int) -> int:
     ``fused_attention_sharded`` (reftr_tpu/kernels/attention.py:587-651),
     which runs K1-K3 on each (data, model) shard under ``shard_map`` and
     folds the shard's index into the dropout key (:628-634), so that the
-    shards draw independent masks. Under DDP a rank calls the kernels on
-    its own batch, so the shard is the rank, and the fold is made where a
-    seed is drawn (``nn/attention.py::_draw_seed``).
+    shards draw independent masks. A rank calls the kernels on its own
+    batch rows and heads, so the shard is the mesh's: the rank under DDP,
+    data_index * model + model_index with a model axis
+    (``parallel/context.py::Mesh.shard``); the fold is made where a seed
+    is drawn (``nn/attention.py::_draw_seed``).
 
     Shard 0's fold is the identity: one process draws the seeds it drew
     before there were shards. Any other shard maps (seed, shard) through

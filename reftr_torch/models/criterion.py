@@ -23,12 +23,12 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from reftr_torch.core import distributed
 from reftr_torch.core.config import LossConfig
 from reftr_torch.ops.boxes import (box_cxcywh_to_xyxy,
                                    generalized_box_iou_aligned,
                                    valid_cell_centres)
 from reftr_torch.ops.losses import dice_loss, sigmoid_focal_loss
+from reftr_torch.parallel.context import data_axis
 
 
 def loss_boxes(pred_boxes: torch.Tensor, phrase_mask: torch.Tensor,
@@ -100,9 +100,11 @@ def loss_vision(outputs: Dict[str, Any], targets: Dict[str, torch.Tensor]
 
 def compute_num_boxes(box_valid: torch.Tensor) -> torch.Tensor:
     """The count each rank divides its box losses by: the reference's DDP
-    count, the batch's boxes summed over the ranks (all_reduce), divided
-    by the world size and clamped at 1; one process: the batch's count,
-    clamped at 1.
+    count, the batch's boxes summed over the data axis (all_reduce over
+    the world, or over the mesh's data group: a model group's ranks hold
+    one batch, ``parallel/context.py::data_axis``), divided by the data
+    axis's size and clamped at 1; one shard: the batch's count, clamped
+    at 1.
 
     DDP averages the ranks' gradients, so a rank's loss over this count
     gives the gradient of the global batch's loss over max(global count,
@@ -111,10 +113,10 @@ def compute_num_boxes(box_valid: torch.Tensor) -> torch.Tensor:
     that divided by its own count would be wrong by the spread of the
     counts across ranks."""
     n = box_valid.to(torch.float32).sum()
-    world = distributed.world_size()
-    if world > 1:
-        dist.all_reduce(n)
-        n = n / world
+    size, group = data_axis()
+    if size > 1:
+        dist.all_reduce(n, group=group)
+        n = n / size
     return n.clamp(min=1.0)
 
 

@@ -28,6 +28,17 @@ the same generator state, and the draw folds in the rank bound with it
 (``shard_seed``, the per-shard key of JAX's ``fused_attention_sharded``),
 so the ranks drop different weights; rank 0 draws what one process draws.
 
+Under tensor parallelism (``--mesh_model``,
+``parallel/tensor_parallel.py``) a module holds a block of the heads: its
+q/k/v projections are column-parallel and run ``num_heads / model`` heads
+through the kernels, the counterpart of ``fused_attention_sharded``'s head
+axis (reftr_tpu/kernels/attention.py:587-651), and its out projection is
+row-parallel, summed over the model group before its bias. The fold of
+each seed is then the mesh's ``shard``, data_index * model + model_index
+(:628-634), so every (data, model) slot draws its own mask. A head count
+the model axis does not divide raises, naming the layer; JAX's module
+falls back to XLA there (reftr_tpu/nn/attention.py:93-99).
+
 A layer recomputed in the backward (``torch.utils.checkpoint``, the
 ``remat`` options) must drop the weights its forward dropped, or K2 and K3
 would run on a mask K1 never used. checkpoint restores the default CPU and
@@ -48,9 +59,12 @@ from reftr_torch.kernels.attention import (MAX_HEAD_DIM, NEG_INF, SEED_BITS,
                                            attention_plain, flash_attention,
                                            shard_seed)
 from reftr_torch.nn.quant import dense
+from reftr_torch.parallel.tensor_parallel import (CopyToModelRegion,
+                                                  ReduceFromModelRegion,
+                                                  row_parallel, split_layer)
 
 __all__ = ["MultiHeadAttention", "NEG_INF", "attention_rng", "seed_replay",
-           "set_attention_route", "set_plain_attention"]
+           "seeded_dropout", "set_attention_route", "set_plain_attention"]
 
 _RNG: Optional[torch.Generator] = None
 _SHARD = 0
@@ -63,8 +77,8 @@ _TAPE: Optional[Tuple[str, Any]] = None
 def attention_rng(generator: torch.Generator,
                   shard: int = 0) -> Iterator[None]:
     """Bind the host generator that attention dropout draws its seeds from,
-    and the shard (the DDP rank) folded into each draw, for the calls made
-    inside the block."""
+    and the shard (the mesh's ``shard``: the DDP rank at model 1) folded
+    into each draw, for the calls made inside the block."""
     global _RNG, _SHARD
     if generator.device.type != "cpu":
         raise ValueError("attention seeds come from a CPU generator")
@@ -112,9 +126,35 @@ def _draw_seed(local_batch: int) -> int:
     return seed
 
 
+def seeded_dropout(x: torch.Tensor, rate: float) -> torch.Tensor:
+    """Dropout of ``x`` at ``rate`` whose mask comes from a seed drawn as an
+    attention's (``_draw_seed``: the bound generator, folded with the
+    shard, recorded and replayed under remat): the dropout of a
+    tensor-parallel layer's hidden block, which must differ between the
+    model ranks while the replicated activations' dropouts agree."""
+    if rate == 0.0:
+        return x
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(_draw_seed(x.shape[0]))
+    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=gen)
+    return x * keep * (1.0 / (1.0 - rate))
+
+
+def _entered(enter: CopyToModelRegion, *xs: torch.Tensor) -> list:
+    """Each input through ``enter`` once: a tensor given as both query and
+    key takes one region operator, one all_reduce of its gradient."""
+    seen: dict = {}
+    for x in xs:
+        if id(x) not in seen:
+            seen[id(x)] = enter(x)
+    return [seen[id(x)] for x in xs]
+
+
 class MultiHeadAttention(nn.Module):
     """``quantize``: the q, k, v and out projections run as int8 products
-    (``nn/quant.py::QuantDense``), as reftr_tpu/nn/attention.py:62-77."""
+    (``nn/quant.py::QuantDense``), as reftr_tpu/nn/attention.py:62-77.
+    ``tensor_parallel`` splits the heads over the model axis (module
+    docstring)."""
 
     def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0,
                  quantize: bool = False):
@@ -130,6 +170,18 @@ class MultiHeadAttention(nn.Module):
         self.plain = False
         # use_pallas_attention on: a head dim without a kernel raises
         self.kernel_only = False
+        self.local_heads = num_heads
+        self.enter: Optional[CopyToModelRegion] = None
+        self.reduce: Optional[ReduceFromModelRegion] = None
+
+    def tensor_parallel(self, mesh, name: str) -> None:
+        """Hold ``num_heads / model`` heads of the mesh's model axis
+        (``parallel/tensor_parallel.py::shard_model`` slices the
+        weights)."""
+        self.local_heads, self.enter, self.reduce = split_layer(
+            f"{name or 'attention'} ({self.num_heads} heads)",
+            self.num_heads, mesh, self.q_proj, self.k_proj, self.v_proj,
+            self.out_proj)
 
     def forward(self, query: torch.Tensor, key: torch.Tensor,
                 value: torch.Tensor,
@@ -137,20 +189,25 @@ class MultiHeadAttention(nn.Module):
         """query [B, Sq, D]; key, value [B, Sk, D]; key_valid [B, Sk] bool."""
         b, sq, d = query.shape
         sk = key.shape[1]
-        h = self.num_heads
-        q = self.q_proj(query).view(b, sq, h, d // h)
-        k = self.k_proj(key).view(b, sk, h, d // h)
-        v = self.v_proj(value).view(b, sk, h, d // h)
-        if self.kernel_only and d // h > MAX_HEAD_DIM:
+        h, dh = self.local_heads, d // self.num_heads
+        if self.enter is not None:
+            query, key, value = _entered(self.enter, query, key, value)
+        q = self.q_proj(query).view(b, sq, h, dh)
+        k = self.k_proj(key).view(b, sk, h, dh)
+        v = self.v_proj(value).view(b, sk, h, dh)
+        if self.kernel_only and dh > MAX_HEAD_DIM:
             raise ValueError(
-                f"use_pallas_attention on: head dim {d // h} is above the "
+                f"use_pallas_attention on: head dim {dh} is above the "
                 f"kernels' largest instance {MAX_HEAD_DIM}; use auto for "
                 f"the plain version there")
         rate = self.dropout if self.training else 0.0
         seed = _draw_seed(b) if rate > 0.0 else None
         attend = attention_plain if self.plain else flash_attention
         out = attend(q, k, v, key_valid, dropout_rate=rate, seed=seed)
-        return self.out_proj(out.reshape(b, sq, d))
+        out = out.reshape(b, sq, h * dh)
+        if self.reduce is None:
+            return self.out_proj(out)
+        return row_parallel(self.out_proj, self.reduce, out)
 
 
 def set_plain_attention(model: nn.Module, plain: bool) -> None:

@@ -8,6 +8,9 @@ masks are validity masks (True = real token) applied as an additive -1e9
 through ``MultiHeadAttention``. Dropout as in the JAX package
 (reftr_tpu/nn/bert.py:54, 75, 79, 96): after the embeddings' LayerNorm, on
 the attention weights, and on both residual branches; training mode only.
+Under tensor parallelism (``parallel/tensor_parallel.py``) a layer's
+attention holds a block of the heads, ``intermediate`` is column-parallel
+and ``output`` row-parallel.
 """
 
 from __future__ import annotations
@@ -21,6 +24,9 @@ from torch import nn
 from reftr_torch.core.config import BertConfig
 from reftr_torch.nn.attention import MultiHeadAttention
 from reftr_torch.nn.quant import dense
+from reftr_torch.parallel.tensor_parallel import (CopyToModelRegion,
+                                                  ReduceFromModelRegion,
+                                                  row_parallel, split_layer)
 
 
 class BertEmbeddings(nn.Module):
@@ -68,12 +74,26 @@ class BertLayer(nn.Module):
         self.output = dense(c.intermediate_size, c.hidden_size, quantize)
         self.output_norm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
         self.dropout = nn.Dropout(c.hidden_dropout)
+        self.enter: Optional[CopyToModelRegion] = None
+        self.reduce: Optional[ReduceFromModelRegion] = None
+
+    def tensor_parallel(self, mesh, name: str) -> None:
+        """Hold a block of the intermediate width over the mesh's model
+        axis (the attention takes its own)."""
+        n = self.intermediate.out_features
+        _, self.enter, self.reduce = split_layer(
+            f"{name or 'layer'} ({n} intermediate)", n, mesh,
+            self.intermediate, self.output)
 
     def forward(self, x: torch.Tensor,
                 valid_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = self.attention_norm(
             x + self.dropout(self.attention(x, x, x, valid_mask)))
-        y = self.output(F.gelu(self.intermediate(x)))  # exact GELU
+        if self.enter is None:
+            y = self.output(F.gelu(self.intermediate(x)))  # exact GELU
+        else:
+            y = row_parallel(self.output, self.reduce,
+                             F.gelu(self.intermediate(self.enter(x))))
         return self.output_norm(x + self.dropout(y))
 
 

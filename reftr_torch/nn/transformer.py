@@ -16,7 +16,11 @@ are recomputed in the backward (``torch.utils.checkpoint``, as JAX's
 of their forward: checkpoint restores the default generators for the
 elementwise dropouts, ``seed_replay`` the attention seeds. With
 ``quantize`` every attention projection and FFN dense is an int8 product
-(``nn/quant.py``, reftr_tpu/nn/transformer.py:39-66).
+(``nn/quant.py``, reftr_tpu/nn/transformer.py:39-66). Under tensor
+parallelism (``parallel/tensor_parallel.py``) the FFN holds a block of
+its hidden width: ``linear1`` column-parallel, ``linear2`` row-parallel,
+and the hidden block's dropout draws a seed folded with the rank's shard
+(``nn/attention.py::seeded_dropout``).
 """
 
 from __future__ import annotations
@@ -28,8 +32,12 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from reftr_torch.nn.attention import MultiHeadAttention, seed_replay
+from reftr_torch.nn.attention import (MultiHeadAttention, seed_replay,
+                                      seeded_dropout)
 from reftr_torch.nn.quant import dense
+from reftr_torch.parallel.tensor_parallel import (CopyToModelRegion,
+                                                  ReduceFromModelRegion,
+                                                  row_parallel, split_layer)
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default
 
@@ -52,9 +60,24 @@ class FFN(nn.Module):
         self.linear2 = dense(dim_feedforward, d_model, quantize)
         self.activation = _ACTIVATIONS[activation]
         self.dropout = nn.Dropout(dropout)
+        self.enter: Optional[CopyToModelRegion] = None
+        self.reduce: Optional[ReduceFromModelRegion] = None
+
+    def tensor_parallel(self, mesh, name: str) -> None:
+        """Hold a block of the hidden width over the mesh's model axis."""
+        n = self.linear1.out_features
+        _, self.enter, self.reduce = split_layer(
+            f"{name or 'ffn'} ({n} hidden)", n, mesh, self.linear1,
+            self.linear2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.linear2(self.dropout(self.activation(self.linear1(x))))
+        if self.enter is None:
+            return self.linear2(self.dropout(self.activation(
+                self.linear1(x))))
+        hidden = self.activation(self.linear1(self.enter(x)))
+        if self.training:
+            hidden = seeded_dropout(hidden, self.dropout.p)
+        return row_parallel(self.linear2, self.reduce, hidden)
 
 
 class TransformerEncoderLayer(nn.Module):

@@ -1,2 +1,3 @@
-"""reftr_torch.parallel (port of reftr_tpu.parallel): the data-parallel
-layout of the input pipeline."""
+"""reftr_torch.parallel (port of reftr_tpu.parallel): the (data, model)
+mesh of ranks (``context``, ``sharding``) and tensor parallelism over its
+model axis (``tensor_parallel``)."""

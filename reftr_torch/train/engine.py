@@ -4,7 +4,7 @@
 ``train_one_epoch`` runs one train step per batch and logs each step's
 metrics one step late: step i-1's are read while step i runs on the
 device, so the host never waits on the step it just launched. At the end
-of the epoch the meters are averaged over the ranks (JAX's
+of the epoch the meters are averaged over the data shards (JAX's
 ``synchronize_between_processes``). The NaN tripwire of the reference
 (engine_vg.py:55-58) is kept, on that late read.
 Loss terms are logged scaled by their weight under their own names, as the
@@ -14,10 +14,11 @@ reference logs them; terms outside the weight dict are dropped.
 when the step gives the seg sums, the seg mIoU) and the mean of each
 scaled loss term over the batches, and the boxes in the original image's
 pixels by image id. Its sums stay on the device and are read once per
-pass; under a process group they are summed over the ranks first (JAX's
+pass; under a process group they are summed over the data axis first (the
+world, or the mesh's data group: ``parallel/context.py::data_axis``; JAX's
 ``allreduce_sum_host``, reftr_tpu/train/engine.py:212-213), so every rank
-reports the global stats, and the ranks' boxes are gathered, so that every
-rank holds the whole split's. With ``visualize_dir`` it writes the
+reports the global stats, and the shards' boxes are gathered, so that
+every rank holds the whole split's. With ``visualize_dir`` it writes the
 reference's qualitative dumps of the first VISUALIZE_LIMIT (64) samples
 (engine_vg.py:86-197; ``tools/visualize.py``, PIL) on rank 0.
 
@@ -42,6 +43,7 @@ from reftr_torch.core import distributed
 from reftr_torch.core.metrics import MetricLogger, SmoothedValue
 from reftr_torch.models.postprocess import decode_boxes, segm_masks
 from reftr_torch.ops.boxes import box_cxcywh_to_xyxy
+from reftr_torch.parallel.context import data_axis
 from reftr_torch.train.state import TrainState
 
 # target keys the steps do not read: kept on the host
@@ -195,14 +197,16 @@ def evaluate(eval_step, loader: Iterable,
             ids = targets.get("image_id", np.arange(n_rows, n_rows + b))
             rows.append((ids, targets["box_valid"]))
             n_rows += b
-    if totals is not None and distributed.world_size() > 1:
-        # every rank runs as many batches (the test sampler pads the split
-        # to a multiple of the world size, and the padded rows count, as
+    shards, group = data_axis()
+    if totals is not None and shards > 1:
+        # every data shard runs as many batches (the test sampler pads the
+        # split to a multiple of the shards, and the padded rows count, as
         # in JAX and the reference): the sums add up and the losses'
-        # means over the batches are the global ones
+        # means over the batches are the global ones; a model group's
+        # ranks hold one shard and count once (the data group)
         totals = totals.to(distributed.collective_device())
-        dist.all_reduce(totals)
-        n_batches *= distributed.world_size()
+        dist.all_reduce(totals, group=group)
+        n_batches *= shards
     host = dict(zip(names, totals.tolist())) if totals is not None else {}
     sum_keys = ("sum_accu", "sum_iou", "cnt", "sum_seg_iou", "cnt_seg")
     stats = {k: host[k] / n_batches for k in names if k not in sum_keys}
@@ -222,8 +226,8 @@ def evaluate(eval_step, loader: Iterable,
         for i in range(arr.shape[0]):
             if valid[i].any():
                 results[int(ids[i])] = arr[i][valid[i]].tolist()
-    if collect_results and distributed.world_size() > 1:
-        gathered: list = [None] * distributed.world_size()
-        dist.all_gather_object(gathered, results)
+    if collect_results and shards > 1:
+        gathered: list = [None] * shards
+        dist.all_gather_object(gathered, results, group=group)
         results = {k: v for part in gathered for k, v in part.items()}
     return stats, results

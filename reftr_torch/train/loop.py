@@ -7,8 +7,14 @@ card or on many under DDP, one process each.
     launcher (``reftr_torch.tools.launch``) or Slurm announced one, on
     ``cuda:LOCAL_RANK`` (an explicit ``cuda:N`` stays as given) or, with
     ``device="cpu"``, over gloo on the host;
-  * the host seed np.random.seed(seed + rank) (:174-177), and loaders
-    that give each rank its own shard (``parallel/sharding.py``);
+  * the (data, model) mesh of ``cfg.mesh`` over the ranks
+    (``parallel/sharding.py::create_mesh``), installed for the run
+    (``use_mesh``); with ``--mesh_model`` > 1 the model is split over each
+    model group (``parallel/tensor_parallel.py``), and int8 with it
+    raises (ROADMAP.md queue 1 item 13);
+  * the host seed np.random.seed(seed + shard) (:171-174), and loaders
+    that give each data row its own shard (``loader_shards``: the ranks
+    of a model group load the same one);
   * the tokenizer, the loaders, the model and optimizer (``TrainState``);
   * a pretrained init (``load_pretrained``: a URL, a reference ``.pth``
     by ``nn/convert.py``, or a checkpoint of the port), merged
@@ -21,7 +27,9 @@ card or on many under DDP, one process each.
     periodic checkpoint{epoch:04d} on lr_drop and ckpt_cycle boundaries
     (:373-376), one JSON line per epoch in log.txt (:419-421), and
     <dataset>_<split>_result.json with each split's boxes; every file is
-    written by rank 0, with the stats of all ranks;
+    written by rank 0, with the stats of all ranks; under tensor
+    parallelism a checkpoint is gathered to one process's shapes first,
+    and a resume or a pretrained load keeps each rank's slices;
   * eval only (:351-361), and run_epoch chunks for time-limited queues;
   * int8 (``nn/quant.py``; reftr_tpu/train/loop.py:186-195, 238-246,
     332-341): ``quantize_int8`` is for eval only and needs ``fold_bn``;
@@ -42,7 +50,7 @@ import json
 import os
 import tempfile
 import time
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -62,7 +70,11 @@ from reftr_torch.models.criterion import weight_dict as build_weight_dict
 from reftr_torch.nn.convert import convert_for, load_torch_checkpoint
 from reftr_torch.nn.fold import optimize_backbone_in_tree
 from reftr_torch.nn.quant import calibrate_and_quantize, calibrate_train_prefix
-from reftr_torch.parallel.sharding import check_data_axis, loader_shards
+from reftr_torch.parallel.context import Mesh, use_mesh
+from reftr_torch.parallel.sharding import (check_data_axis, create_mesh,
+                                           loader_shards,
+                                           refuse_int8_model_axis,
+                                           shard_state_dict)
 from reftr_torch.train.engine import evaluate, train_one_epoch
 from reftr_torch.train.state import TrainState
 from reftr_torch.train.steps import make_eval_step, make_train_step
@@ -135,7 +147,8 @@ def build_loaders(cfg: RefTRConfig, tokenizer, num_shards: int = 1,
 
 
 def load_pretrained(model: torch.nn.Module, path: str, cfg: RefTRConfig,
-                    log=master_print) -> Dict[str, list]:
+                    log=master_print, mesh: Optional[Mesh] = None
+                    ) -> Dict[str, list]:
     """Merge the weights of ``path`` into ``model`` non-strictly and
     return the report of missing, unexpected and shape-skipped keys
     (reftr_tpu/train/loop.py:120-154). ``path`` is a URL (fetched into the
@@ -145,7 +158,8 @@ def load_pretrained(model: torch.nn.Module, path: str, cfg: RefTRConfig,
     is standard, and its backbone is folded for the config's
     reparameterisations (``nn/fold.py::optimize_backbone_in_tree``, as
     reftr_tpu/train/loop.py:144-146); a checkpoint of the port holds the
-    weights of the model that wrote it, folded already."""
+    weights of the model that wrote it, folded already. A model split
+    over ``mesh``'s model axis takes its slices of each."""
     if hub.is_url(path):
         path = hub.download_checkpoint(path, progress_fn=log)
     if path.endswith(_TORCH_CHECKPOINTS):
@@ -153,17 +167,23 @@ def load_pretrained(model: torch.nn.Module, path: str, cfg: RefTRConfig,
             convert_for(load_torch_checkpoint(path), cfg.model), cfg.model)
     else:
         pretrained = ckpt_lib.load_checkpoint(path)["model"]
-    return ckpt_lib.load_pretrained_nonstrict(model, pretrained, log=log)
+    return ckpt_lib.load_pretrained_nonstrict(
+        model, shard_state_dict(pretrained, mesh), log=log)
 
 
 def _save(out_dir: str, name: str, state: TrainState, full: bool,
           epoch: int, best: float, cfg: RefTRConfig) -> None:
-    if not distributed.is_main_process():
+    """Rank 0 writes the checkpoint; under tensor parallelism every rank
+    gathers its slices into it first."""
+    main = distributed.is_main_process()
+    if not (main or (state.mesh and state.mesh.model > 1)):
         return
     t0 = time.perf_counter()
-    path = ckpt_lib.save_checkpoint(out_dir, name, state, full=full,
-                                    epoch=epoch, best_val_acc=best,
-                                    config=cfg)
+    payload = ckpt_lib.checkpoint_payload(state, full=full, epoch=epoch,
+                                          best_val_acc=best, config=cfg)
+    if not main:
+        return
+    path = ckpt_lib.write_checkpoint(out_dir, name, payload)
     master_print(f"checkpoint {name}: {os.path.getsize(path)} bytes saved "
                  f"in {time.perf_counter() - t0:.3f} s")
 
@@ -192,12 +212,28 @@ def run_training(cfg: RefTRConfig,
     stats."""
     dev = train_device(device)
     distributed.initialize(dev)
-    check_data_axis(cfg.mesh.data, distributed.world_size())
-    n_shards, shard_rank = loader_shards()
+    check_data_axis(cfg.mesh.data, distributed.world_size(), cfg.mesh.model)
+    refuse_int8_model_axis(cfg.mesh.model, cfg.model.quantize_int8,
+                           cfg.model.quantize_train_prefix)
+    mesh = create_mesh(cfg.mesh)
+    n_shards, shard_rank = loader_shards(mesh)
     if distributed.is_initialized():
         master_print(f"torch.distributed: backend "
                      f"{torch.distributed.get_backend()}, world size "
-                     f"{n_shards}, rank {shard_rank} on {dev}")
+                     f"{distributed.world_size()}, rank "
+                     f"{distributed.rank()} on {dev}")
+    if mesh.model > 1:
+        layout = ("model-major" if cfg.mesh.model_spans_processes
+                  else "data-major")
+        master_print(f"mesh: data {mesh.data} x model {mesh.model} "
+                     f"({layout}), ranks {mesh.grid}; {n_shards} loader "
+                     f"shards")
+    with use_mesh(mesh):
+        return _run(cfg, dev, mesh, n_shards, shard_rank)
+
+
+def _run(cfg: RefTRConfig, dev: torch.device, mesh: Mesh, n_shards: int,
+         shard_rank: int) -> Dict:
     np.random.seed(cfg.train.seed + shard_rank)
     tokenizer = build_tokenizer(cfg)
     train_loader, test_loaders = build_loaders(cfg, tokenizer, n_shards,
@@ -228,15 +264,18 @@ def run_training(cfg: RefTRConfig,
     # (convert.build_model), and n_parameters that model's; a pretrained
     # load below replaces its weights
     state = TrainState.create(fp_model_cfg, cfg.train, steps_per_epoch,
-                              device=dev, seed=cfg.train.seed)
+                              device=dev, seed=cfg.train.seed, mesh=mesh)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    n_params = sum(p.numel() for p in state.model.parameters())
+    # one process's count: a sharded parameter holds 1 / model of its own
+    n_params = sum(p.numel() * (mesh.model if hasattr(
+        p, "model_parallel_dim") else 1) for p in state.model.parameters())
     master_print(f"n_parameters: {n_params}; model built in "
                  f"{time.perf_counter() - t0:.3f} s")
 
     if cfg.train.pretrained_model:
-        load_pretrained(state.model, cfg.train.pretrained_model, cfg)
+        load_pretrained(state.model, cfg.train.pretrained_model, cfg,
+                        mesh=mesh)
     if cfg.model.quantize_train_prefix:
         # before the state the run trains, so that its optimizer and a
         # resume below see the int8 layout
@@ -244,7 +283,7 @@ def run_training(cfg: RefTRConfig,
             cfg, state.model, train_loader,
             n_batches=cfg.train.quant_calib_batches, print_fn=master_print)
         state = TrainState.create(cfg.model, cfg.train, steps_per_epoch,
-                                  device=dev, state_dict=prefix)
+                                  device=dev, state_dict=prefix, mesh=mesh)
 
     out_dir = cfg.train.output_dir
     start_epoch = cfg.train.start_epoch
@@ -258,7 +297,7 @@ def run_training(cfg: RefTRConfig,
     if resume and hub.is_url(resume):
         # the reference's URL checkpoints hold a torch optimizer of their
         # own module order: the weights alone are restored, as in JAX
-        load_pretrained(state.model, resume, cfg)
+        load_pretrained(state.model, resume, cfg, mesh=mesh)
         master_print(f"Resumed model weights from URL {resume}")
         resume = ""
     if resume and resume.endswith(_TORCH_CHECKPOINTS):
@@ -271,7 +310,7 @@ def run_training(cfg: RefTRConfig,
         # generator, which is every rank's (the rank is folded in at each
         # draw, train/steps.py)
         payload = ckpt_lib.load_checkpoint(resume, map_location=dev)
-        state.model.load_state_dict(payload["model"])
+        state.load_model_state(payload["model"])
         if not cfg.train.resume_model_only:
             if "optimizer" not in payload:
                 raise ValueError(f"{resume} holds the weights only; resume "
@@ -286,7 +325,8 @@ def run_training(cfg: RefTRConfig,
     wdict = build_weight_dict(cfg.loss, m.dec_layers, m.aux_loss,
                               with_masks=m.masks, vision_aux=m.vision_aux,
                               heatmap_box=m.heatmap_box)
-    train_step = make_train_step(state.model, wdict, cfg.loss, device=dev)
+    train_step = make_train_step(state.model, wdict, cfg.loss, device=dev,
+                                 mesh=mesh)
     eval_step = make_eval_step(state.model, cfg.loss, device=dev)
 
     def run_eval() -> Dict[str, Dict]:

@@ -40,12 +40,13 @@ trainable gradients as optax does, before the update.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
 
 from reftr_torch.core.config import ModelConfig, TrainConfig
+from reftr_torch.parallel.context import Mesh
 
 
 def param_label(name: str, model_cfg: ModelConfig,
@@ -106,15 +107,31 @@ def build_optimizer(model: nn.Module, model_cfg: ModelConfig,
                              eps=1e-8, weight_decay=train_cfg.weight_decay)
 
 
-def clip_by_global_norm(params: List[torch.Tensor],
-                        max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(params: List[torch.Tensor], max_norm: float,
+                        mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Scale the gradients of ``params`` in place by
     max_norm / max(norm, max_norm), norm being their global L2 norm, which
     is returned (a device scalar: nothing waits for it). This is optax's
-    clip_by_global_norm; torch's clip_grad_norm_ adds 1e-6 to the norm."""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(
-        torch.stack(torch._foreach_norm(grads)))
+    clip_by_global_norm; torch's clip_grad_norm_ adds 1e-6 to the norm.
+
+    Under tensor parallelism (a ``mesh`` with ``model > 1``) a sharded
+    parameter (``model_parallel_dim``) holds a block of its gradient: the
+    squares of those blocks are summed over the model group, and each
+    replicated gradient, the same on every rank of the group, counts once.
+    The norm is then one process's, on every rank."""
+    live = [p for p in params if p.grad is not None]
+    grads = [p.grad for p in live]
+    norms = torch._foreach_norm(grads)
+    if mesh is None or mesh.model == 1:
+        norm = torch.linalg.vector_norm(torch.stack(norms))
+    else:
+        split = {True: [], False: []}
+        for n, p in zip(norms, live):
+            split[hasattr(p, "model_parallel_dim")].append(n.square())
+        sums = [torch.stack(split[k]).sum() if split[k]
+                 else grads[0].new_zeros(()) for k in (True, False)]
+        mesh.all_reduce_model(sums[0])
+        norm = (sums[0] + sums[1]).sqrt()
     if max_norm > 0:
         torch._foreach_mul_(grads, max_norm / norm.clamp(min=max_norm))
     return norm

@@ -27,6 +27,20 @@ different elements, rank 0 as one process would. The logged losses are
 the rank's; their mean over the ranks, which ``MetricLogger`` takes at
 the end of an epoch, is the global batch's.
 
+Under a mesh with a model axis (``--mesh_model``, ``parallel/``) the model
+is split over the ranks of each model group (``TrainState.create(...,
+mesh=)``), DDP runs over the data group only (not at all at one data
+row), the loss's box count and the eval's sums reduce over the data
+group (``parallel/context.py::data_axis``, installed by the step), and
+the clip's norm sums the sharded gradients' squares over the model group.
+The ranks of a model group hold one batch, so the elementwise dropouts'
+seed is folded with the data index, the same on all of them, and the
+replicated activations drop the same elements: the replicated parameters
+stay bit-identical across the group. Attention and a sharded FFN
+hidden block fold the mesh's ``shard`` (data_index * model +
+model_index) into their seeds and draw their own masks. At model 1 the
+data index and the shard are the rank, as under DDP.
+
 The step returns ``StepMetrics``: every loss term, ``loss``, ``grad_norm``
 and ``lr``, copied to the host without waiting, so a loop can read step
 i-1's while step i runs. ``grad_norm`` is the norm the clip sees, over the
@@ -54,7 +68,8 @@ parameters in place at every step, so ``TrainConfig.donate_state`` (and
 from __future__ import annotations
 
 from contextlib import contextmanager
-from typing import Callable, Dict, Iterator, Mapping, Tuple, Union
+from typing import (Callable, Dict, Iterator, Mapping, Optional, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -68,6 +83,8 @@ from reftr_torch.kernels.attention import SEED_BITS, shard_seed
 from reftr_torch.models.criterion import criterion, total_loss
 from reftr_torch.models.postprocess import rec_metrics, segm_metrics
 from reftr_torch.nn.attention import attention_rng
+from reftr_torch.parallel.context import Mesh, use_mesh
+from reftr_torch.parallel.sharding import create_mesh
 from reftr_torch.train.optimizer import clip_by_global_norm
 from reftr_torch.train.state import TrainState
 
@@ -185,31 +202,39 @@ def _autocast(model: nn.Module, device: torch.device):
 
 def make_train_step(model: nn.Module, weight_dict: Dict[str, float],
                     loss_cfg: LossConfig,
-                    device: Union[str, torch.device] = "cuda"
+                    device: Union[str, torch.device] = "cuda",
+                    mesh: Optional[Mesh] = None
                     ) -> Callable[[TrainState, Mapping, Mapping],
                                   Tuple[TrainState, StepMetrics]]:
     """step(state, batch, targets) -> (state, metrics) on ``device``
     ("cuda" unless the caller passes the CPU), where ``model`` must lie
     (``TrainState.create`` builds it there); batch and targets are numpy
-    dicts.
+    dicts. ``mesh`` is the one ``model`` was split over (``state.mesh``);
+    without one, the DDP layout of the process group.
 
-    Under a process group the forward runs through
-    ``DistributedDataParallel`` (on a card with ``device_ids=[index]``),
-    with ``broadcast_buffers=False``: the model's only buffers are
-    FrozenBatchNorm's statistics, which no forward changes. It keeps
-    ``find_unused_parameters`` off: every trainable parameter of
-    ``refcoco_det``, ``refcoco_seg`` (with ``freeze_reftr`` too, whose trunk
-    has requires_grad off) and ``flickr`` receives a gradient every step
-    (tests/test_torch_distributed.py)."""
+    Under a process group at model 1, and over the data group where the
+    mesh has a model axis and more than one data row, the forward runs
+    through ``DistributedDataParallel`` (on a card with
+    ``device_ids=[index]``), with ``broadcast_buffers=False``: the model's
+    only buffers are FrozenBatchNorm's statistics, which no forward
+    changes. It keeps ``find_unused_parameters`` off: every trainable
+    parameter of ``refcoco_det``, ``refcoco_seg`` (with ``freeze_reftr``
+    too, whose trunk has requires_grad off) and ``flickr`` receives a
+    gradient every step (tests/test_torch_distributed.py)."""
     device = model_device(model, device)
     with_masks = model.config.masks
     rng_devices = [device.index] if device.type == "cuda" else []
-    shard = distributed.rank()
+    if mesh is None:
+        if any(hasattr(p, "model_parallel_dim") for p in model.parameters()):
+            raise ValueError("the model is split over a model axis: pass "
+                             "its mesh (TrainState.mesh)")
+        mesh = create_mesh()
     forward = model
-    if distributed.is_initialized():
+    if distributed.is_initialized() and (mesh.model == 1 or mesh.data > 1):
         forward = DistributedDataParallel(
             model, device_ids=[device.index] if device.type == "cuda"
-            else None, broadcast_buffers=False)
+            else None, broadcast_buffers=False,
+            process_group=mesh.data_group)
 
     def step_fn(state: TrainState, batch: Mapping, targets: Mapping):
         model.train()
@@ -219,11 +244,11 @@ def make_train_step(model: nn.Module, weight_dict: Dict[str, float],
                                  generator=state.generator))
         local = len(batch["image"])
         debug = _DEBUG_NANS
-        with nan_checks(model, debug):
+        with nan_checks(model, debug), use_mesh(mesh):
             with torch.random.fork_rng(devices=rng_devices):
-                torch.manual_seed(shard_seed(seed, shard, local))
+                torch.manual_seed(shard_seed(seed, mesh.data_index, local))
                 with _autocast(model, device), attention_rng(state.generator,
-                                                             shard):
+                                                             mesh.shard):
                     out = forward(batch)
             losses = criterion(out, targets, loss_cfg, with_masks)
             loss = total_loss(losses, weight_dict)
@@ -235,7 +260,7 @@ def make_train_step(model: nn.Module, weight_dict: Dict[str, float],
         if debug:
             check_grads_finite(model)
         grad_norm = clip_by_global_norm(state.trainable(),
-                                        state.clip_max_norm)
+                                        state.clip_max_norm, mesh)
         lr = state.base_lr * state.scheduler.lr_lambdas[0](state.step)
         state.optimizer.step()
         state.scheduler.step()

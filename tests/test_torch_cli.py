@@ -1,6 +1,6 @@
 """reftr_torch's command line against reftr_tpu's, on the CPU: the same
-flags parse to the same config values, presets agree, a flag of a feature
-the port does not have yet raises, and ``main`` trains the synthetic smoke
+flags parse to the same config values, presets agree, what the port does
+not run raises, and ``main`` trains the synthetic smoke
 preset for an epoch on the CPU, for REC and with ``--masks`` for RES, and
 the flickr preset at smoke sizes on the multi-phrase fixture and on a
 Flickr30k written here."""
@@ -127,16 +127,6 @@ def test_preset_config_is_the_cli_config(name):
     assert presets.preset_config(name, dtype=want.model.dtype) == want
 
 
-NOT_PORTED_ARGVS = {
-    "mesh_model": ["--mesh_model", "2"],
-    "mesh_model_spans_processes": ["--mesh_model_spans_processes"],
-}
-
-
-def test_every_not_ported_flag_is_tested():
-    assert set(NOT_PORTED_ARGVS) == set(cli.NOT_PORTED)
-
-
 # the JAX step's knobs, refused before their slice: flag -> (argv, the
 # config field it sets, its value there)
 KNOB_ARGVS = {
@@ -165,8 +155,8 @@ KNOB_ARGVS = {
 @pytest.mark.parametrize("dest", sorted(KNOB_ARGVS))
 def test_a_knob_parses_to_the_jax_config_and_builds(dest):
     """Each of the JAX step's knobs maps onto the config as reftr_tpu's
-    args_to_config maps it (cli/main.py:249-261, 317), leaves NOT_PORTED,
-    and the refcoco_det model it names builds (on the meta device)."""
+    args_to_config maps it (cli/main.py:249-261, 317), and the refcoco_det
+    model it names builds (on the meta device)."""
     flags, field, value = KNOB_ARGVS[dest]
     argv = ["--preset", "refcoco_det"] + flags
     got = cli.args_to_config(parse(cli, argv))
@@ -179,8 +169,6 @@ def test_a_knob_parses_to_the_jax_config_and_builds(dest):
                     section, f.name)
     section, name = field.split(".")
     assert getattr(getattr(got, section), name) == value
-    assert dest.removesuffix("_on").removesuffix("_off").removesuffix(
-        "_auto") not in cli.NOT_PORTED
     from reftr_torch.convert import model_class
 
     with torch.device("meta"):
@@ -262,7 +250,6 @@ def test_a_res_flag_parses_to_the_jax_config(dest):
         for f in dataclasses.fields(ours):
             if f.name != "bert":
                 assert getattr(ours, f.name) == getattr(theirs, f.name)
-    assert dest not in cli.NOT_PORTED
 
 
 # flag: (argv, the config field it sets, its value there)
@@ -297,7 +284,7 @@ SCRATCH_RULES = {
 def test_a_from_scratch_flag_parses_to_the_jax_config(dest):
     """The from-scratch flags, which the port refused before their slice,
     map onto the model and loss configs as reftr_tpu's args_to_config maps
-    them (cli/main.py:232-267), and leave NOT_PORTED."""
+    them (cli/main.py:232-267)."""
     flags, field, value = {**SCRATCH_ARGVS, **SCRATCH_RULES}[dest]
     argv = ["--preset", "refcoco_det"] + flags
     got = cli.args_to_config(parse(cli, argv))
@@ -310,7 +297,6 @@ def test_a_from_scratch_flag_parses_to_the_jax_config(dest):
                     section, f.name)
     section, name = field.split(".")
     assert getattr(getattr(got, section), name) == value
-    assert dest not in cli.NOT_PORTED
 
 
 @pytest.mark.parametrize("argv", [["--fold_bn"], ["--quantize_int8"]])
@@ -321,14 +307,6 @@ def test_group_norm_refuses_folding_as_jax(argv):
     args = parse(cli, ["--preset", "refcoco_det", "--backbone_norm",
                        "group"] + argv)
     with pytest.raises(ValueError, match="no frozen statistics"):
-        cli.args_to_config(args)
-
-
-@pytest.mark.parametrize("dest", sorted(NOT_PORTED_ARGVS))
-def test_a_flag_of_a_missing_feature_raises(dest):
-    args = parse(cli, ["--preset", "refcoco_det"] + NOT_PORTED_ARGVS[dest])
-    with pytest.raises(NotImplementedError,
-                       match=f"--{dest} .*ROADMAP.md queue 1 item"):
         cli.args_to_config(args)
 
 
@@ -349,8 +327,8 @@ INT8_ARGVS = {
 @pytest.mark.parametrize("dest", sorted(INT8_ARGVS))
 def test_an_int8_flag_parses_to_the_jax_config_and_builds(dest):
     """The int8 flags map onto the config as reftr_tpu's args_to_config
-    maps them (cli/main.py:176-190, 259-261, 319), leave NOT_PORTED, and
-    the refcoco_det model they name builds (on the meta device) with its
+    maps them (cli/main.py:176-190, 259-261, 319), and the refcoco_det
+    model they name builds (on the meta device) with its
     products in int8: the backbone's bottleneck convs (layer1's alone
     under the train prefix) and the denses of the scopes."""
     from reftr_torch.convert import model_class
@@ -366,7 +344,6 @@ def test_an_int8_flag_parses_to_the_jax_config_and_builds(dest):
             if f.name != "bert":
                 assert getattr(ours, f.name) == getattr(theirs, f.name), (
                     section, f.name)
-    assert dest not in cli.NOT_PORTED
     with torch.device("meta"):
         model = model_class(got.model)(got.model)
     mods = list(model.modules())
@@ -374,21 +351,32 @@ def test_an_int8_flag_parses_to_the_jax_config_and_builds(dest):
     assert sum(isinstance(m, QuantDense) for m in mods) == n_dense
 
 
-@pytest.mark.parametrize("argv", [["--mesh_model", "2"],
-                                  ["--mesh_model_spans_processes"]])
-def test_tensor_parallelism_is_refused_under_its_item(argv):
-    """The model axis stays refused (the reference has DDP only), naming
-    its own ROADMAP item, not multi-GPU's."""
-    args = parse(cli, ["--preset", "refcoco_det", "--mesh_data", "-1"]
-                 + argv)
-    with pytest.raises(NotImplementedError,
-                       match=r"tensor parallelism \(ROADMAP.md queue 1 "
-                             r"item 12\) is not ported"):
-        cli.args_to_config(args)
-
-
 RANK_VARS = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
              "SLURM_PROCID", "SLURM_NTASKS")
+
+
+@pytest.mark.parametrize("argv", [["--mesh_model", "2"],
+                                  ["--mesh_model", "2",
+                                   "--mesh_model_spans_processes"]])
+def test_tensor_parallel_flags_reach_the_mesh_config(monkeypatch, argv):
+    """--mesh_model and --mesh_model_spans_processes parse to the JAX
+    config's mesh (cli/main.py:320-323) under a launcher of two ranks, and
+    int8 with them raises under its own ROADMAP item."""
+    for k in RANK_VARS:
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    argv = ["--preset", "refcoco_det", "--mesh_data", "-1"] + argv
+    got = cli.args_to_config(parse(cli, argv))
+    want = jax_main.args_to_config(parse(jax_main, argv))
+    assert dataclasses.asdict(got.mesh) == dataclasses.asdict(want.mesh)
+    assert got.mesh.model == 2
+    assert got.mesh.model_spans_processes == ("--mesh_model_spans_processes"
+                                              in argv)
+    with pytest.raises(NotImplementedError, match=r"int8 under tensor "
+                       r"parallelism \(ROADMAP.md queue 1 item 13\)"):
+        cli.args_to_config(parse(cli, argv + ["--fold_bn",
+                                              "--quantize_train_prefix"]))
 
 
 @pytest.mark.parametrize("world,mesh_data", [(1, "-1"), (1, "1"),
@@ -405,7 +393,6 @@ def test_mesh_data_is_all_or_the_world(monkeypatch, world, mesh_data):
     got = cli.args_to_config(parse(cli, argv))
     want = jax_main.args_to_config(parse(jax_main, argv))
     assert got.mesh.data == want.mesh.data == int(mesh_data)
-    assert "mesh_data" not in cli.NOT_PORTED
 
 
 @pytest.mark.parametrize("world,mesh_data", [(2, "3"), (2, "1"), (1, "2")])

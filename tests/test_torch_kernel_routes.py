@@ -64,8 +64,9 @@ def test_rule_at_every_model_site(site, dtype_name):
 def test_warpgroup_kernels_take_the_sites_they_measured_faster_at():
     """The sites the rule gives "wg" in bf16: K1 the encoders at two to
     four levels (refcoco_det's 2040, 8440, 8540 tokens, flickr's 2090), K2
-    and K3 those and both encoders at one level (440, at B=8 and at the
-    from-scratch recipe's 16, and 490), together at every site, as K3-wg
+    and K3 those and both encoders at one level (440, at B=8, at the
+    from-scratch recipe's 16 and at one rank's 4 heads of 8 under
+    --mesh_model 2, and 490), together at every site, as K3-wg
     reads K2-wg's keep bits; the short sites (BERT, the decoder at 16
     queries) keep "tc", and float32 never takes "wg"."""
     bf16 = torch.bfloat16
@@ -78,7 +79,7 @@ def test_warpgroup_kernels_take_the_sites_they_measured_faster_at():
               "vl_encoder_4_levels_b8_padded", "vl_encoder_3_levels_b8",
               "vl_encoder_2_levels_b8")
     one_level = ("multi_vl_encoder_self", "vl_encoder_self",
-                 "scratch_vl_encoder_self")
+                 "scratch_vl_encoder_self", "tp_vl_encoder_self")
     assert wg == ({(kernel, site) for kernel in rules
                    for site in levels + ("multi_vl_encoder_2_levels",)}
                   | {(kernel, site) for kernel in ("dq", "dkv")
