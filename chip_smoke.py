@@ -94,19 +94,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    repeated call, the dropout mask exact; at Sk = 8 its times, bound, the
    plain time and SDPA's backward.
    3d. The warpgroup kernels against the mma.sync ones and SDPA in one
-   process (wg_times), in bf16 without dropout and with 0.1, at 256^2
-   (B=8, the rule's least for K2 and K3) and the VL encoder at 1, 2 and 4
-   feature levels (440^2, 2040^2 and 8540^2, B=8): K1 "tc", "wg" and
-   SDPA's forward; K2 "tc" and "wg" (writing
-   di and the keep bits), K3 "tc" and "wg" (reading them) against SDPA's
+   process (wg_times), in bf16 without dropout and with 0.1, at the VL
+   encoder at 4 feature levels (8540^2, B=8; 256^2, 440^2 and 2040^2 are
+   checked untimed): K1 "tc", "wg" and SDPA's forward; K2 "tc" and "wg"
+   (writing di and the keep bits), K3 "tc" and "wg" (reading them) against SDPA's
    backward; device ms (CUDA events around calls queued behind a sleep
    kernel), in turns, the median of three. "wg" is checked
    against the plain version at phase 3's tolerances (K2-wg's dq at 1e-2
    of the largest plain gradient in bf16, its di against di_plain, its
    keep bits against keep_bits_plain on every row, its dq and bits on a
    repeated call): on all the inputs where its scores fit, else on batch
-   row 0 (B=1). The same checks, untimed, at the from-scratch recipe's
-   encoder (440^2, B=16), flickr's at 1 and 2 levels (490^2 and 2090^2,
+   row 0 (B=1). The same checks, untimed, at 256^2 (B=8, the rule's least
+   for K2 and K3), the VL encoder at 1 and 2 levels, the from-scratch
+   recipe's encoder (440^2, B=16), flickr's at 1 and 2 levels (490^2 and 2090^2,
    B=16) and its decoder over 490 keys (timed before phase 14 took their
    time), and at the four-level encoder with each image padded
    on the canvas (masked keys in nearly every key tile).
@@ -118,6 +118,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    phases 0 and 2) and odd (17, 131, 385: every phase), and in bf16 in
    the last batch row of B=8 at 8539^2, whose element offsets run past
    2^32.
+   3f. K1, K2 and K3 in the mxu_bf16 mode (float32 in and out, bf16
+   products: reftr_tpu/kernels/attention.py's _mxu), which no model path
+   sets, through the rule ("tc" from 16 queries, "dec" below) at
+   refcoco_det's four float32 sites, K3 below 16 keys (B=8, Sq=440,
+   Sk = 1, 8, 15) and head dims 48 ("tc") and 24 ("dec"), without
+   dropout and with 0.1, against the plain versions with mxu_bf16 on the
+   same inputs: K1 within 5e-3, the gradients within 5e-3 of the largest
+   (MXU_TOL; each error beside the kernel's and the plain version's
+   distance to the plain version in float64), lse at phase 3's
+   tolerance, the same bits on a repeated call, the launches exact (also
+   in launches_mxu, which every counted run of the main path holds to
+   0), the dropout masks of K1, K2 and K3 exact; the float32 instances'
+   ptxas lines; at the encoder, BERT and the decoder's cross-attention
+   the times beside the float32 kernel the rule picks without the mode
+   and bf16 SDPA.
 4. The serving path at full width: refcoco_det (ResNet-50, BERT-base,
    6+6 VL layers, d=256) at 640x640 with seeded random weights, bfloat16,
    behind a MicroBatcher with serve batch 8. Six requests of 1-3 phrases
@@ -304,8 +319,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    its 120-epoch schedule, then --eval --resume, whose accuracy must
    equal the log's; every logged loss finite; 20 launches of each kernel
    a step and of K1 an eval batch (8 on the tensor-core kernels, 12 on
-   the decode kernels); a profiled step (host and device ms, busy share,
-   peak memory, the copy kernels' ms) with GroupNorm and with FrozenBN.
+   the decode kernels).
    b) The overflow guard: 20 bf16 steps on one repeated batch at the
    recipe's LR held constant: every loss finite, phase 5's health rule,
    layer4's largest magnitude below 1e4 at every step; with FrozenBN
@@ -418,7 +432,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    every shape of the model by int8_conv_variant, csrc/int8_conv.cu
    ("tc", mma.sync) at none). a) Every product shape of the model (found
    by hooks on the fp twin's forward: 22 convolutions, 9 denses, which
-   must be INT8_SHAPES), at B=8 and B=64: int8_conv through the route and
+   must be INT8_SHAPES), at B=8, 32 and 64: int8_conv through the route and
    int8_quantize bit-equal to their plain versions (the conv's output in
    bf16 and float32; the quantize pass's input in bf16, at B=8 in float32
    too); report only, each one's device ms in bf16 (CUDA events behind a
@@ -446,7 +460,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    --quantize_train_prefix --fold_bn (8 steps, its eval), launches exact
    (layer1's 10 convolutions in int8 a step and an eval batch), finite
    losses, its checkpoint's layer1 in int8 and layer1's output within
-   JAX's bar of the fp model's (cosine above 0.99).
+   JAX's bar of the fp model's (cosine above 0.99). f) int8 RES, JAX's
+   seg_int8: refcoco_seg in bf16, fold_bn, the mask head float,
+   calibrated on 4 batches of 8 and serving phase 4's six requests, each
+   phrase with a box and a mask: launches exact, the boxes within 0.05 of
+   the side of the fp model's (REC's bar), the mask IoU against the fp
+   model's reported; the 31 product shapes at B=32 bit-equal; report
+   only, the int8 forward and the bf16 fold_bn one at B=32 profiled
+   (device ms, the int8 kernels' share).
 15. Tensor parallelism (--mesh_model 2) of refcoco_det at full width on a
    (data 1, model 2) mesh: two gloo ranks on the one card, as 9b's. d)
    First, in this process, K1-K3 at one rank's heads (BERT 40^2 at H=6,
@@ -465,9 +486,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    bit-identical across the ranks after the steps; a float32 --eval of
    the checkpoint on the mesh and in one process: the same accuracy,
    mIoU within 1e-5; c) the launches of each kernel on each rank, one
-   process's: 30 a step, 30 of K1 an eval batch; e) report only, gloo
-   over the host and not a TP speed: each rank's bf16 step ms (CUDA
-   events) and peak memory.
+   process's: 30 a step, 30 of K1 an eval batch; f) the entry
+   point's --eval --quantize_int8 --fold_bn on the mesh in float32, of
+   a's weights as a reference .pth, as JAX runs it (calibrated on the
+   split fp model, the int8 model unsharded on each rank): the
+   calibration tree within 1e-5 relative of one process's, both ranks'
+   stats equal; against one process's eval with the mesh's calibration
+   tree the same accuracy and mIoU within 1e-5; against one process's
+   own, its accuracy and mIoU within 1e-3 (a sanity bound: a rounding
+   step of an in_scale flips int8 decisions); 220 int8 products an eval
+   batch a rank;
+   g) --quantize_train_prefix's calibration, gather and 2 float32 steps
+   on the mesh against one process: losses within 1e-5 and grad norms
+   within 1e-4 relative, layer1's int8 leaves bit-identical on both ranks
+   and one process, 10 int8 products a step.
 16. Print one JSON line listing each kernel (each variant on a row of its
    own; the decode backward on one row for K2 and K3) with its launches
    on the main paths (phase 8's, 10's, 11's, 12's, 13's and 15's runs
@@ -477,11 +509,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    decode kernels, the VL encoder for the tensor-core kernels, in
    float32 for the 3xTF32 ones, the four-level encoder at B=8 for the
    warpgroup kernels, from phase 3d) on this card; K3's "tc" and
-   "tf32x3" rows with phase 3c's below 16 keys; the int8 kernels ("tc"
+   "tf32x3" rows with phase 3c's below 16 keys; the mxu_bf16 mode's
+   "tc" and "dec" kernels on rows of their own (phase 3f: 0 launches on
+   the main paths, their times at the float32 sites beside the 3xTF32 or
+   float32 decode kernel and bf16 SDPA); the int8 kernels ("tc"
    and "wg" of the conv on a row each) with phase 14's launches (14b,
    14c, 14e) and their times at B=64 (14a: int8_conv at the VL encoder's
    first FFN dense, "wg" also at layer3's 3x3 and BERT's intermediate
-   dense and summed over a forward at B=8 and 64, int8_quantize at
+   dense and summed over a forward at B=8, 32 and 64, int8_quantize at
    layer1's 256-channel activations), every shape's beside.
 17. Print {"ok": true, "device": {...}} as the last line.
 
@@ -491,6 +526,7 @@ either it fails before it prints any result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -728,19 +764,21 @@ ROBERTA_EVAL_BATCHES = 4
 # the element offset the kernels count in 64 bits: the masks are checked
 # past it
 OFFSET_32 = 2 ** 32
-# phase 3d: the sites where the warpgroup kernels are timed against the
-# mma.sync ones and SDPA, and the turns of each: the model's from 440 keys
-# up and the rule's least for K2 and K3 (256^2, as a shape: no model site)
-WG_TIME_SITES = ((SERVE_BATCH, 256, 256, 8, 32), "vl_encoder_self",
-                 "vl_encoder_2_levels_b8", "vl_encoder_4_levels_b8")
+# phase 3d: the site where the warpgroup kernels are timed against the
+# mma.sync ones and SDPA (the kernels line's), and the turns: the
+# four-level encoder (256^2, 440^2 and 2040^2 are checked untimed: their
+# times are the benchmark's)
+WG_TIME_SITES = ("vl_encoder_4_levels_b8",)
 WG_TIME_TURNS = 3
-# and the sites phase 3d checks without timing them: the from-scratch
-# recipe's encoder, flickr's at 1 and 2 levels and its decoder (timed
-# until phase 14 took their time), and the four-level encoder with each
-# image padded on the canvas (masked keys in nearly every key tile)
-WG_CHECK_SITES = ("scratch_vl_encoder_self", "multi_vl_encoder_self",
-                  "multi_vl_encoder_2_levels", "multi_decoder_cross",
-                  "vl_encoder_4_levels_b8_padded")
+# and the sites phase 3d checks without timing them: the rule's least for
+# K2 and K3 (256^2, as a shape: no model site), the VL encoder at 1 and 2
+# levels, the from-scratch recipe's encoder, flickr's at 1 and 2 levels
+# and its decoder, and the four-level encoder with each image padded on
+# the canvas (masked keys in nearly every key tile)
+WG_CHECK_SITES = ((SERVE_BATCH, 256, 256, 8, 32), "vl_encoder_self",
+                  "vl_encoder_2_levels_b8", "scratch_vl_encoder_self",
+                  "multi_vl_encoder_self", "multi_vl_encoder_2_levels",
+                  "multi_decoder_cross", "vl_encoder_4_levels_b8_padded")
 # phase 3e: the shapes (B, Sq, Sk, H, D) at which the dropout draw of K1
 # and K2 (flash_tc::keep_bits) is checked exact in every kernel that calls
 # it: key counts that are not a multiple of 4, those of the model's sites
@@ -761,7 +799,8 @@ GAP_KEYS = (440, 2000, LONG_S)
 # float32-accurate products: 3xTF32 gets a third of the 495 TFLOP/s of TF32
 # (the f32 FMA rate outside the tensor cores, 67 TFLOP/s, is lower)
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12,
+              "mxu_bf16": 989e12}
 # per SM and clock: MUFU.EX2 results (the special-function units; 3.9
 # TFLOP/s of special functions on the H100 SXM, FlashAttention-3's figure)
 # and 32-bit integer multiply-adds (IMAD, half the FP32 rate)
@@ -880,18 +919,27 @@ KEEP_CALLERS = ("flash_attn_fwd_tc.cu", "flash_attn_fwd_wg.cu",
                 "flash_attn_bwd_dq_wg.cu", "flash_attn_bwd_dq_f32tc.cu")
 
 
-def instance_markers(src: str, variant: str) -> dict:
+# the "tc" sources whose kernels take the I/O type as their first
+# template argument: bf16, or float32 in the mxu_bf16 mode
+TYPED_TC = ("flash_attn_fwd_tc.cu", "flash_attn_bwd_dq_tc.cu",
+            "flash_attn_bwd_dkv_tc.cu")
+
+
+def instance_markers(src: str, variant: str, io: str = "bf16") -> dict:
     """The part of the D=32 instance's mangled name that picks it in the
-    machine code and in ptxas's log: a "tc" or "tf32x3" kernel's holds
-    ILi32E, a "wg" kernel has that one instance, named *_wg_kernel; a
-    keep_bits caller's two instances add Lb1E (Sk % 4 == 0) or Lb0E (K2-wg
-    three, <with dropout, Sk % 4 == 0>: ILb0ELb1E without dropout, ILb1ELb1E
-    and ILb1ELb0E with)."""
+    machine code and in ptxas's log: a "tf32x3" kernel's holds ILi32E, a
+    "tc" kernel's I13__nv_bfloat16Li32E (with ``io`` "f32", its mxu_bf16
+    instance's, IfLi32E), a "wg" kernel has that one instance, named
+    *_wg_kernel; a keep_bits caller's two instances add Lb1E (Sk % 4 ==
+    0) or Lb0E (K2-wg three, <with dropout, Sk % 4 == 0>: ILb0ELb1E
+    without dropout, ILb1ELb1E and ILb1ELb0E with)."""
     if src == "flash_attn_bwd_dq_wg.cu":
         return {"no dropout": "wg_kernelILb0ELb1E",
                 "Sk % 4 == 0": "wg_kernelILb1ELb1E",
                 "Sk % 4 != 0": "wg_kernelILb1ELb0E"}
-    base = "wg_kernel" if variant == "wg" else "ILi32E"
+    base = ("wg_kernel" if variant == "wg" else
+            ("IfLi32E" if io == "f32" else "I13__nv_bfloat16Li32E")
+            if src in TYPED_TC else "ILi32E")
     if src not in KEEP_CALLERS:
         return {"": base}
     sep = "I" if variant == "wg" else ""
@@ -1022,7 +1070,8 @@ def attention_bound_terms(b, sq, sk, h, d, valid, dtype_name,
     draws = not (bits and kernel.endswith("dkv_wg"))
     for suffix in ("_f32tc", "_tc", "_wg", "_dec"):
         kernel = kernel.removesuffix(suffix)
-    es = 4 if dtype_name == "float32" else 2
+    # "mxu_bf16": float32 in and out, the products at the bf16 rate
+    es = 2 if dtype_name == "bfloat16" else 4
     qs, ks = b * sq * h * d * es, b * sk * h * d * es
     lse = b * h * sq * 4
     nbytes = {"flash_attn_fwd": 2 * qs + 2 * ks,
@@ -1254,7 +1303,8 @@ def sdpa_times(q, k, v, valid, do, rate: float) -> dict:
 
 
 def check_mask_exact(gen, site, rate: float, seed: int, dtype,
-                     first_row: int = 0, variant: str = None) -> int:
+                     first_row: int = 0, variant: str = None,
+                     mxu: bool = False) -> int:
     """K1 with v one-hot over the head dim: out = p * keep / l for D keys
     at a time, so the kept set is read off exactly and must equal the
     plain Philox mask on every key with p > 0 (valid keys, or all keys of
@@ -1262,8 +1312,9 @@ def check_mask_exact(gen, site, rate: float, seed: int, dtype,
     the site and dtype, and in bf16 p of a live key stays far above bf16's
     smallest normal. With ``first_row`` the batch rows from it on are
     compared, against the plain mask drawn from their own offsets. With
-    ``variant`` that kernel is launched directly instead.
-    Returns the number of elements compared."""
+    ``variant`` that kernel is launched directly instead; ``mxu``: in the
+    mxu_bf16 mode (a float32 call), where p * keep is rounded to bf16, a
+    normal number still. Returns the number of elements compared."""
     import torch
 
     from reftr_torch.kernels.attention import (_launch_fwd, flash_attention,
@@ -1280,9 +1331,11 @@ def check_mask_exact(gen, site, rate: float, seed: int, dtype,
         n = min(d, sk - k0)
         v = torch.zeros(b, sk, h, d, device="cuda", dtype=dtype)
         v[:, k0:k0 + n, :, :n] = torch.eye(n, device="cuda")[:, None, :]
-        out = (flash_attention(q, k, v, valid, dropout_rate=rate, seed=seed)
+        out = (flash_attention(q, k, v, valid, dropout_rate=rate, seed=seed,
+                               mxu_bf16=mxu)
                if variant is None else
-               _launch_fwd(variant, q, k, v, valid, rate, seed, False)[0])
+               _launch_fwd(variant, q, k, v, valid, rate, seed, False,
+                           mxu)[0])
         # [B - first_row, H, Sq, n]
         kept = out[first_row:, ..., :n].permute(0, 2, 1, 3) != 0
         live = live_keys[:, None, None, k0:k0 + n].expand_as(kept)
@@ -1295,7 +1348,8 @@ def check_mask_exact(gen, site, rate: float, seed: int, dtype,
 
 
 def check_dq_mask_exact(site, rate: float, seed: int, dtype,
-                        first_row: int = 0, variant: str = None) -> int:
+                        first_row: int = 0, variant: str = None,
+                        mxu: bool = False) -> int:
     """K2 on inputs whose dq reveals each keep decision: q = 0 and lse = 0
     give p = 1 on every live key (0 on a masked one), dO and v one-hot on
     head dim 0 give dP = 1, and O = 0 gives di = 0, so ds is the keep
@@ -1305,8 +1359,10 @@ def check_dq_mask_exact(site, rate: float, seed: int, dtype,
     on). The call goes to the variant the rule picks (K2 "tc" or "wg" in
     bf16 at the encoder and BERT sites, the decode backward at the
     decoder's), or to ``variant`` launched directly; K2-wg's first call
-    also writes its keep bits, which must equal keep_bits_plain's. Returns
-    the number of elements compared."""
+    also writes its keep bits, which must equal keep_bits_plain's. ``mxu``:
+    in the mxu_bf16 mode (a float32 call: q, k, v, dO and ds rounded to
+    bf16, all exact here but the keep multiplier, which stays nonzero).
+    Returns the number of elements compared."""
     import torch
 
     from reftr_torch.kernels.attention import (_launch_dq, dq_variant,
@@ -1334,15 +1390,16 @@ def check_dq_mask_exact(site, rate: float, seed: int, dtype,
         k = torch.zeros(b, sk, h, d, device="cuda", dtype=dtype)
         k[:, k0:k0 + n, :, :n] = torch.eye(n, device="cuda")[:, None, :]
         args = (q, k, v, valid, o, lse, do, rate, seed)
-        if k0 == 0 and (variant or dq_variant(sq, sk, dtype, d)) == "wg":
+        if k0 == 0 and (variant or dq_variant(sq, sk, dtype, d,
+                                              mxu)) == "wg":
             # K2-wg's keep bits, the mask it hands K3-wg, and its dq
             bits = new_keep_bits(q, k)
             dq = _launch_dq("wg", *args, bits_out=bits)
             check_bits(f"{site} K2-wg", bits, seed, rate,
                        (b, sq, sk, h, d), first_row)
         else:
-            dq = (flash_attn_bwd_dq(*args) if variant is None
-                  else _launch_dq(variant, *args))
+            dq = (flash_attn_bwd_dq(*args, mxu_bf16=mxu) if variant is None
+                  else _launch_dq(variant, *args, mxu_bf16=mxu))
         kept = dq[first_row:, ..., :n].permute(0, 2, 1, 3) != 0
         live = live_keys[:, None, None, k0:k0 + n].expand_as(kept)
         if not torch.equal(kept[live], keep[..., k0:k0 + n][live]):
@@ -1354,7 +1411,7 @@ def check_dq_mask_exact(site, rate: float, seed: int, dtype,
 
 
 def check_dv_mask_exact(site: str, rate: float, seed: int, dtype,
-                        first_row: int = 0) -> int:
+                        first_row: int = 0, mxu: bool = False) -> int:
     """K3 on inputs whose dv reveals each keep decision: q = 0 makes p
     uniform over a row's valid keys (all keys of a fully masked row), so
     lse is the log of their count, and dO one-hot over the head dim for D
@@ -1364,8 +1421,9 @@ def check_dv_mask_exact(site: str, rate: float, seed: int, dtype,
     on). The call goes to the variant the rule picks (K3 "tc" or "wg" in
     bf16 at the encoder and BERT sites, the decode backward at the
     decoder's); "wg" reads the keep bits that K2-wg writes on the same
-    inputs, as in a step (wg_pair). Returns the number of elements
-    compared."""
+    inputs, as in a step (wg_pair). ``mxu``: in the mxu_bf16 mode (a
+    float32 call), where p * keep is rounded to bf16, a normal number
+    still. Returns the number of elements compared."""
     import torch
 
     from reftr_torch.kernels.attention import (dkv_variant,
@@ -1389,10 +1447,10 @@ def check_dv_mask_exact(site: str, rate: float, seed: int, dtype,
         do = torch.zeros_like(q)
         do[:, i0:i0 + n, :, :n] = torch.eye(n, device="cuda")[:, None, :]
         args = (q, k, v, valid, o, lse, do, rate, seed)
-        if dkv_variant(sq, sk, dtype, d) == "wg":
+        if dkv_variant(sq, sk, dtype, d, mxu) == "wg":
             _, _, dv, _ = wg_pair(args)
         else:
-            _, dv = flash_attn_bwd_dkv(*args)
+            _, dv = flash_attn_bwd_dkv(*args, mxu_bf16=mxu)
         kept = dv[first_row:, ..., :n].permute(0, 2, 3, 1) != 0
         live = live_keys[:, None, None, :].expand_as(kept)
         if not torch.equal(kept[live], keep[:, :, i0:i0 + n][live]):
@@ -1862,9 +1920,8 @@ def check_short_dkv(report: dict) -> dict:
 
 def wg_times(report: dict) -> list:
     """Phase 3d: the warpgroup kernels against the mma.sync ones and SDPA
-    in one process, in bf16 at WG_TIME_SITES (256^2 and the VL encoder at
-    1, 2 and 4 feature levels, B=8, the sentence padded), without dropout
-    and with 0.1.
+    in one process, in bf16 at WG_TIME_SITES (the VL encoder at 4 feature
+    levels, B=8, the sentence padded), without dropout and with 0.1.
     K1: "tc", "wg" and SDPA's forward; the backward: K2 "tc" and "wg"
     (K2-wg writing di and, with dropout, the keep bits), K3 "tc" and "wg"
     (K3-wg reading them), and SDPA's backward, which covers K2 and K3
@@ -2095,6 +2152,316 @@ def check_keep_bits(report: dict) -> dict:
     return report
 
 
+# phase 3f: K1-K3 in the mxu_bf16 mode (reftr_tpu/kernels/attention.py's
+# _mxu, :69-83: float32 in and out, bf16 dot operands, float32 sums and
+# softmax), which no model path sets, on the "tc" and "dec" kernels that
+# the rule sends it to: refcoco_det's four float32 sites, K3 below 16 keys
+# (phase 3c's shape at SHORT_DKV_KEYS) and two head dims off the
+# instances (48 padding to 64 in "tc", 24 to 32 in "dec")
+MXU_SITES = (tuple(CALL_SITES)
+             + tuple((*SHORT_DKV_SITE[:2], sk, *SHORT_DKV_SITE[3:])
+                     for sk in SHORT_DKV_KEYS)
+             + ((2, 70, 130, 4, 48), (2, 3, 130, 4, 24)))
+# its tolerances against the plain versions (attention_plain and
+# attention_bwd_plain with mxu_bf16, the forward rounding p against the
+# kernel's running max: mxu_key_blocks) on the same float32 inputs
+# (mxu_errors): K1's output, its largest error absolute (outputs of order
+# 1, as phase 3's) and its mean absolute error as a share of the plain
+# output's mean magnitude; each gradient, its largest error as a share of
+# the largest plain gradient of the call and its mean absolute error as
+# a share of the largest mean magnitude of a plain gradient. A sound
+# kernel differs from the plain version only where a float32 sum in
+# another order moves a value across a bf16 rounding: a few elements,
+# each by up to 2^-7 of the term that dominates it, so the largest errors
+# bound a flip and the mean errors hardly see one. A kernel that does the
+# mode wrong moves every element by a rounding's size, and the mean
+# errors see it. On the CPU at the card test's shapes
+# (tests/test_torch_mxu_bf16.py::mxu_check_readings), the plain versions
+# in float64 against float32 read at most 8.3e-4 on the output and 8.9e-4
+# of the largest gradient, 1.1e-5 in the mean; di from the rounded dO and
+# O at least 6.5e-4 of a gradient in the mean, no rounding at all 1.4e-3
+# on the output and 2.1e-3 on a gradient. The control,
+# the float32 kernel the rule picks without the mode (tf32x3, or float32
+# dec), held to the same plain version by the same checks, must fail the
+# mean checks of the output and of the gradients, or the phase fails.
+# The float64 reading (the plain
+# version in float64 with the same roundings) of each check is in the
+# report beside its error, over the batch rows with a live key (in
+# float64 a fully masked row's -1e9 bias and +1e9 shift cancel exactly,
+# where float32 rounds its logits to the uniform average)
+MXU_TOL = {"fwd": 5e-3, "grad": 5e-3, "mean": 1e-4}
+# the sites it is timed at: refcoco_det's float32 sites of "tc" (the
+# encoder, BERT) and of "dec" (the decoder's cross-attention), beside the
+# float32 kernel the rule picks there without the mode and bf16 SDPA
+MXU_TIMED = ("vl_encoder_self", "bert_self", "decoder_cross")
+
+
+def mean_abs(x) -> float:
+    return x.double().abs().mean().item()
+
+
+def mxu_errors(got, want) -> dict:
+    """MXU_TOL's readings of the mode's (out, dq, dk, dv) ``got`` against
+    the plain versions' ``want``: "out" and "out_mean", and per gradient g
+    "g" and "g_mean" (the comment at MXU_TOL)."""
+    scale = max(w.abs().max().item() for w in want[1:])
+    mean_scale = max(mean_abs(w) for w in want[1:])
+    errs = {"out": max_err(got[0], want[0]),
+            "out_mean": mean_abs(got[0] - want[0]) / mean_abs(want[0])}
+    for g, a, w in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+        errs[g] = max_err(a, w) / scale
+        errs[f"{g}_mean"] = mean_abs(a - w) / mean_scale
+    return errs
+
+
+def mxu_failures(errs: dict) -> list:
+    """The readings of ``errs`` (mxu_errors) above MXU_TOL."""
+    tol = {"out": MXU_TOL["fwd"], "dq": MXU_TOL["grad"],
+           "dk": MXU_TOL["grad"], "dv": MXU_TOL["grad"]}
+    tol.update({f"{key}_mean": MXU_TOL["mean"] for key in list(tol)})
+    return [key for key, limit in tol.items() if errs[key] > limit]
+
+
+def mxu_control_caught(failures: list) -> bool:
+    """Whether the control's ``failures`` (mxu_failures) hold the mean
+    checks of the output and of a gradient: the checks tell the mode from
+    no mode."""
+    return "out_mean" in failures and any(
+        f"{g}_mean" in failures for g in ("dq", "dk", "dv"))
+
+
+def mxu_plain(q, k, v, valid, out, lse, do, rate: float, seed,
+              variant: str, dtype=None):
+    """The plain versions in the mode on the inputs of a kernel call
+    (attention_plain rounding p as the forward ``variant`` does,
+    attention_bwd_plain on the kernel's out and lse), in ``dtype`` (the
+    inputs' by default): ((out, lse), (dq, dk, dv))."""
+    import torch
+
+    from reftr_torch.kernels.attention import (attention_bwd_plain,
+                                               attention_plain,
+                                               mxu_key_blocks)
+
+    dtype = dtype or q.dtype
+    q, k, v, out, lse, do = (x.to(dtype) for x in (q, k, v, out, lse, do))
+    with torch.no_grad():
+        fwd = attention_plain(q, k, v, valid, True, dropout_rate=rate,
+                              seed=seed, mxu_bf16=True,
+                              key_blocks=mxu_key_blocks(variant, k.shape[1]))
+        bwd = attention_bwd_plain(q, k, v, valid, out, lse, do, rate, seed,
+                                  mxu_bf16=True)
+    return fwd, bwd
+
+
+def mxu_control(q, k, v, valid, out, lse, do, rate: float, seed) -> tuple:
+    """The control of the mode's checks: (out, dq, dk, dv) of the float32
+    kernels the rule picks without the mode on the same inputs, the
+    backward on the mode's out and lse."""
+    import torch
+
+    from reftr_torch.kernels.attention import (flash_attention,
+                                               flash_attn_bwd_dkv,
+                                               flash_attn_bwd_dq)
+
+    args = (q, k, v, valid, out, lse, do, rate, seed)
+    with torch.no_grad():
+        out_c = flash_attention(q, k, v, valid, dropout_rate=rate, seed=seed)
+        return (out_c, flash_attn_bwd_dq(*args), *flash_attn_bwd_dkv(*args))
+
+
+def mxu_times(q, k, v, valid, out, lse, do, rate: float, seed) -> dict:
+    """3f's times at one site, in the mode and beside it: K1 at rate 0 (as
+    served), K2 and K3 at ``rate`` (as trained): device ms (torch.profiler)
+    and host-loop ms of the mode's kernel, the float32 kernel the rule
+    picks without the mode (device ms), bf16 SDPA (its forward, or its
+    whole backward), the plain version (host loop) and the bound, the
+    products reckoned at the bf16 rate and the float32 inputs' bytes."""
+    import torch
+    import torch.nn.functional as F
+
+    from reftr_torch.kernels.attention import (attention_bwd_plain,
+                                               attention_plain,
+                                               dq_variant, flash_attention,
+                                               flash_attn_bwd_dkv,
+                                               flash_attn_bwd_dq,
+                                               fwd_variant)
+
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    out_t = {}
+    if rate == 0.0:
+        qt, kt, vt = (x.to(torch.bfloat16).transpose(1, 2) for x in (q, k, v))
+        bias = torch.where(valid, 0.0, -1e9)[:, None, None, :].to(
+            torch.bfloat16)
+
+        def kern():
+            return flash_attention(q, k, v, valid, mxu_bf16=True)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias)
+
+        bound, by = attention_bound_ms(b, sq, sk, h, d, valid, "mxu_bf16")
+        out_t["fwd"] = {
+            "ms": cuda_ms(kern), "device_ms": device_ms(kern),
+            "f32_variant": fwd_variant(sq, sk, torch.float32, d),
+            "f32_device_ms": device_ms(lambda: flash_attention(q, k, v,
+                                                               valid)),
+            "library_ms": cuda_ms(sdpa), "library_device_ms": device_ms(sdpa),
+            "plain_ms": cuda_ms(lambda: attention_plain(
+                q, k, v, valid, mxu_bf16=True), iters=10, warmup=2),
+            "bound_ms": bound, "bound_by": by}
+        return out_t
+    args = (q, k, v, valid, out, lse, do, rate, seed)
+    sd = sdpa_times(*(x.to(torch.bfloat16) for x in (q, k, v)), valid,
+                    do.to(torch.bfloat16), rate)
+    plain_ms = cuda_ms(lambda: attention_bwd_plain(*args, mxu_bf16=True),
+                       iters=10, warmup=2)
+    dec = dq_variant(sq, sk, torch.float32, d, True) == "dec"
+    for short, wrapper, kernel in (
+            ("dq", flash_attn_bwd_dq, "flash_attn_bwd_dq"),
+            ("dkv", flash_attn_bwd_dkv, "flash_attn_bwd_dkv")):
+        bound, by = attention_bound_ms(
+            b, sq, sk, h, d, valid, "mxu_bf16",
+            "flash_attn_bwd" if dec else kernel, rate)
+        out_t[short] = {
+            "ms": cuda_ms(lambda: wrapper(*args, mxu_bf16=True)),
+            "device_ms": device_ms(lambda: wrapper(*args, mxu_bf16=True)),
+            "f32_device_ms": device_ms(lambda: wrapper(*args)),
+            "library_ms": sd["sdpa_bwd_ms"],
+            "library_device_ms": sd["sdpa_bwd_device_ms"],
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+    return out_t
+
+
+def check_mxu(report: dict) -> dict:
+    """Phase 3f: K1, K2 and K3 in the mxu_bf16 mode at MXU_SITES, without
+    dropout and with DROPOUT, through the rule ("tc" from 16 queries,
+    "dec" below; the decode backward gives dq, dk and dv in one launch),
+    against attention_plain and attention_bwd_plain with mxu_bf16 on the
+    same float32 inputs, the backward on the kernel's O and lse: within
+    MXU_TOL, the float64 reading of the kernel and of the plain version
+    beside each error, and the control (mxu_control) outside its mean
+    checks; lse at phase 3's LSE_TOL; every call twice with the same bits;
+    exactly the launches of those calls on their variants and in
+    launches_mxu, none anywhere else; with dropout, the masks of K1, K2
+    and K3 exact (check_mask_exact, check_dq_mask_exact,
+    check_dv_mask_exact). The ptxas lines of the "tc" kernels' float32
+    instances (D=32), and the times at MXU_TIMED (mxu_times). The
+    tolerance checks of every site are read before the phase fails on
+    one."""
+    import torch
+
+    from reftr_torch.kernels import _nvcc
+    from reftr_torch.kernels.attention import (dkv_variant, dq_variant,
+                                               flash_attention,
+                                               flash_attn_bwd_dkv,
+                                               flash_attn_bwd_dq, fwd_variant)
+
+    ptxas = {}
+    for src in TYPED_TC:
+        log = _nvcc.library_path(src).with_suffix(".log").read_text().split(
+            "\n")
+        for path, marker in instance_markers(src, "tc", "f32").items():
+            ptxas[f"{src} {path}".strip()] = ptxas_lines(log, marker)
+    counters = [flash_attention, flash_attn_bwd_dq, flash_attn_bwd_dkv]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0x3F)
+    f32 = torch.float32
+    rows, failed = [], []
+    for i, site in enumerate(MXU_SITES):
+        b, sq, sk, h, d = site_shape(site)
+        label = site if isinstance(site, str) else (
+            f"B={b} Sq={sq} Sk={sk} H={h} D={d}")
+        q, k, v, valid = site_inputs(gen, site, f32)
+        do = torch.randn(q.shape, device="cuda", generator=gen)
+        fv, qv, kv = (rule(sq, sk, f32, d, True)
+                      for rule in (fwd_variant, dq_variant, dkv_variant))
+        for rate in (0.0, DROPOUT):
+            seed = 0x3F00 + i if rate else None
+            reset_counts(counters)
+            calls = []
+            with torch.no_grad():
+                for _ in range(2):
+                    out, lse = flash_attention(q, k, v, valid, True,
+                                               dropout_rate=rate, seed=seed,
+                                               mxu_bf16=True)
+                    args = (q, k, v, valid, out, lse, do, rate, seed)
+                    dq = flash_attn_bwd_dq(*args, mxu_bf16=True)
+                    dk, dv = flash_attn_bwd_dkv(*args, mxu_bf16=True)
+                    calls.append((out, lse, dq, dk, dv))
+            torch.cuda.synchronize()
+            launches = read_counts(counters)
+            n_bwd = 4 if qv == "dec" else 2
+            want = {key: 0 for key in launches}
+            for name, variant, n in (("flash_attention", fv, 2),
+                                     ("flash_attn_bwd_dq", qv, n_bwd),
+                                     ("flash_attn_bwd_dkv", kv, n_bwd)):
+                want[name] = want[f"{name}_mxu"] = n
+                want[f"{name}_{variant}"] = n
+            if launches != want:
+                raise AssertionError(f"phase 3f {label}: launches "
+                                     f"{launches}, not {want}")
+            repeat = all(same_bits(a, c) for a, c in zip(*calls))
+            (w_out, w_lse), wants = mxu_plain(*args, fv)
+            (r_out, _), refs = mxu_plain(*args, fv, torch.float64)
+            live = valid.any(-1)  # the float64 reading's batch rows
+            got, plain = (out, dq, dk, dv), (w_out, *wants)
+            errs = mxu_errors(got, plain)
+            control = mxu_errors(mxu_control(*args), plain)
+            f64 = mxu_errors(*([x[live] for x in xs]
+                               for xs in (got, (r_out, *refs))))
+            plain_f64 = mxu_errors(*([x[live] for x in xs]
+                                     for xs in (plain, (r_out, *refs))))
+            lse_err = max_err(lse, w_lse)
+            lse_ok = bool(((lse - w_lse).abs() <= LSE_TOL[0] + LSE_TOL[1]
+                           * w_lse.abs()).all())
+            row = {"site": label, "B": b, "Sq": sq, "Sk": sk, "H": h, "D": d,
+                   "dropout": rate, "fwd_variant": fv, "dq_variant": qv,
+                   "dkv_variant": kv, "errors": errs, "f64_errors": f64,
+                   "plain_f64_errors": plain_f64, "control_errors": control,
+                   "fwd_max_abs_err": errs["out"],
+                   "lse_max_abs_err": lse_err,
+                   "grad_scale": max(w.abs().max().item() for w in wants),
+                   "bitwise_repeatable": repeat, "launches": launches}
+            if not (lse_ok and repeat):
+                raise AssertionError(f"phase 3f {label} dropout {rate}: "
+                                     f"{row}")
+            bad = mxu_failures(errs)
+            if bad or not mxu_control_caught(mxu_failures(control)):
+                failed.append((label, rate, bad, control))
+            if rate:
+                row["mask_compared"] = (
+                    check_mask_exact(gen, site, rate, seed, f32, mxu=True)
+                    + check_dq_mask_exact(site, rate, seed, f32, mxu=True)
+                    + check_dv_mask_exact(site, rate, seed, f32, mxu=True))
+            if site in MXU_TIMED:
+                row["times"] = mxu_times(q, k, v, valid, out, lse, do, rate,
+                                         seed)
+            rows.append(row)
+            print(f"mxu 3f {label} dropout {rate}: {fv}/{qv}/{kv}; "
+                  + "; ".join(f"{key} {errs[key]:.3g} (float64: kernel "
+                              f"{f64[key]:.3g}, plain {plain_f64[key]:.3g}; "
+                              f"control {control[key]:.3g})"
+                              for key in errs)
+                  + f" (tol {MXU_TOL}); lse {lse_err:.3g}; same bits on a "
+                  f"repeat {repeat}; masks exact on "
+                  f"{row.get('mask_compared', 0)} elements"
+                  + (f"; times {row['times']}" if "times" in row else ""),
+                  flush=True)
+            del calls, wants, refs
+        del q, k, v, valid, do
+        torch.cuda.empty_cache()
+    print(f"mxu 3f ({report['card']}): ptxas of the float32 instances "
+          f"(D=32): {ptxas}", flush=True)
+    report["mxu"] = {"rows": rows, "ptxas": ptxas, "tol": MXU_TOL}
+    if failed:
+        raise AssertionError(f"phase 3f: (site, dropout, the kernel's "
+                             f"readings above MXU_TOL, the control's "
+                             f"readings) where the kernel fails a check or "
+                             f"the control passes a mean check: {failed}")
+    return report
+
+
 def make_requests(rng: np.random.Generator, img: int, seq: int, vocab: int):
     from reftr_torch.serve import Request
 
@@ -2143,7 +2510,8 @@ def ms_list(values) -> str:
 # K3-wg's calls that built their keep bits by keep_bits_plain (no K2-wg
 # before them) count in bits_plain, which every counted run holds to 0
 VARIANT_COUNTS = ("launches_tc", "launches_wg", "launches_tf32x3",
-                  "launches_dec", "launches_plain", "bits_plain")
+                  "launches_dec", "launches_plain", "launches_mxu",
+                  "bits_plain")
 
 
 def reset_counts(counters) -> None:
@@ -2157,7 +2525,9 @@ def reset_counts(counters) -> None:
 def read_counts(counters) -> dict:
     """Launches per wrapper, and those of its tensor-core, warpgroup,
     3xTF32 and decode variants under ``<wrapper>_tc``, ``<wrapper>_wg``,
-    ``<wrapper>_tf32x3`` and ``<wrapper>_dec``; its calls sent to the
+    ``<wrapper>_tf32x3`` and ``<wrapper>_dec``, those among them of a
+    float32 call in the mxu_bf16 mode under ``<wrapper>_mxu`` (0 on every
+    model path: no model sets the mode); its calls sent to the
     plain version under ``<wrapper>_plain``; K3's calls whose keep bits
     came from keep_bits_plain under ``flash_attn_bwd_dkv_bits_plain``."""
     out = {}
@@ -4309,8 +4679,30 @@ TP_MIOU_TOL = 1e-5
 # the local heads of refcoco_det's attention at model 2: the VL layers' 8
 # and BERT-base's 12 over two ranks
 TP_LOCAL_HEADS = [4, 6]
-# 15e (report only): bf16 steps timed a rank, after two to warm up
-TP_TIMED_STEPS = 4
+# 15f: --eval --quantize_int8 --fold_bn on the mesh, as JAX runs it (the
+# fp model split, the int8 one not), float32, of 15a's weights written as
+# a reference .pth; calibrated on TP_INT8_CALIB val batches
+TP_INT8_CALIB = 4
+TP_INT8_EVAL = TP_MODEL_DATA + [
+    "--eval", "--dtype", "float32", "--fold_bn", "--quantize_int8",
+    "--quant_calib_batches", str(TP_INT8_CALIB), "--pretrained_model",
+    str(TP_OUT / "int8.pth"), "--output_dir", str(TP_OUT / "int8")]
+# 15f's bars against one process: the calibration tree's leaves relative
+# (the float32 forward on the mesh sums in other orders, as 15a's step);
+# the eval against one process's eval with the mesh's calibration tree
+# (calib_kept(given=)): the same accuracy, mIoU within 15b's TP_MIOU_TOL,
+# as the int8 model and its scales are then the same; and against one
+# process's own eval, a sanity bound on mIoU only: a leaf a rounding step
+# off moves its in_scale, and the int8 decisions that flip with it move
+# boxes by int8 noise (14f: 1.2e-3 of the side between int8 and fp)
+TP_INT8_CALIB_RTOL = 1e-5
+TP_INT8_MIOU_TOL = 1e-3
+# 15g: --quantize_train_prefix's calibration, gather and steps on the
+# mesh, float32 at dropout 0 on 15a's batch and folded weights; each
+# step's loss against one process's at TRAIN_LOSS_TOL, its grad norm at
+# tests/test_torch_train.py's clip-norm tolerance
+TP_PREFIX_STEPS = 2
+TP_PREFIX_NORM_TOL = 1e-4
 
 
 def cli_config(argv: list):
@@ -4391,15 +4783,88 @@ def tp_k1_masks(cfg, full: dict, mesh, batch, targets) -> dict:
             "shard": mesh.shard}
 
 
+@contextlib.contextmanager
+def calib_kept(given: dict = None):
+    """The calibration tree that int8 eval bakes in (nn/quant.py's
+    ``_calibrate``, after the max over the ranks), by leaf path, filled as
+    the context exits. With ``given`` (such a tree) each leaf is replaced
+    by given's first: the run bakes in another run's scales."""
+    from reftr_torch.nn import quant
+
+    tree, calibrate = {}, quant._calibrate
+
+    def kept(*args, **kwargs):
+        out = calibrate(*args, **kwargs)
+        stack = [((), out[0])]
+        while stack:
+            path, node = stack.pop()
+            for key, value in node.items():
+                name = "/".join(path + (key,))
+                if isinstance(value, dict):
+                    stack.append((path + (key,), value))
+                    continue
+                if given is not None:
+                    node[key] = np.float32(given[name])
+                tree[name] = float(node[key])
+        return out
+
+    quant._calibrate = kept
+    try:
+        yield tree
+    finally:
+        quant._calibrate = calibrate
+
+
+def prefix_steps(cfg, full: dict, mesh, batch, targets, counters) -> dict:
+    """15g: --quantize_train_prefix as train/loop.py runs it: layer1
+    calibrated on ``batch`` through the fp model of ``full`` folded
+    (fold_bn; split over ``mesh``'s model axis where given), the state
+    dict gathered to one process's shapes, the prefix model built from it
+    (and split again), then TP_PREFIX_STEPS steps of ``cfg`` on ``batch``,
+    each counted: losses, grad norms, launches, and the digest of each of
+    layer1's int8 leaves."""
+    import hashlib
+
+    import torch
+
+    from reftr_torch.nn.fold import optimize_backbone_in_tree
+    from reftr_torch.nn.quant import calibrate_train_prefix
+    from reftr_torch.parallel.sharding import gather_state_dict
+
+    mc = dataclasses.replace(cfg.model, fold_bn=True)
+    fp_cfg = dataclasses.replace(cfg, model=mc)
+    q_cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        mc, quantize_train_prefix=True))
+    state, _ = tp_state(fp_cfg, optimize_backbone_in_tree(full, mc), mesh)
+    sd = calibrate_train_prefix(q_cfg, state.model, [(batch, targets)],
+                                n_batches=1, print_fn=lambda *a: None)
+    del state
+    state, step = tp_state(q_cfg, gather_state_dict(sd, mesh), mesh)
+    out = {"losses": [], "grad_norms": [], "launches": []}
+    for _ in range(TP_PREFIX_STEPS):
+        reset_counts(counters)
+        metrics = step(state, batch, targets)[1].get()
+        torch.cuda.synchronize()
+        out["launches"].append(read_counts(counters))
+        out["losses"].append(metrics["loss"])
+        out["grad_norms"].append(metrics["grad_norm"])
+    out["layer1"] = {
+        n: hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()
+        for n, v in state.model.img_backbone.layer1.state_dict().items()}
+    return out
+
+
 def child_tp(out_json: str) -> int:
     """Phase 15's rank: gloo started here on cuda:0, then ``initialize``
     leaves it alone; the mesh data 1 x model 2. a) One float32 step at
     dropout 0 of ddp_model's weights on phase 5's batch, counted, its
     gradients and update gathered; 15d's fold check at dropout 0.1;
-    e) bf16 steps timed; b) the entry point's 8 bf16 steps and eval with
-    --mesh_model 2, then a float32 eval of its checkpoint on the mesh.
-    Rank 0 then leaves the group and holds it to one process: the same
-    step, the same eval."""
+    b) the entry point's 8 bf16 steps and eval with
+    --mesh_model 2, then a float32 eval of its checkpoint on the mesh;
+    f) the entry point's --eval --quantize_int8 --fold_bn on the mesh;
+    g) the int8 train prefix's steps on the mesh (prefix_steps). Rank 0
+    then leaves the group and holds it to one process: the same step, the
+    same evals, the same prefix steps."""
     import os
     import shutil
 
@@ -4410,9 +4875,11 @@ def child_tp(out_json: str) -> int:
     from reftr_torch.cli.presets import preset_config
     from reftr_torch.core import distributed
     from reftr_torch.core.config import MeshConfig, TrainConfig
+    from reftr_torch.kernels import quant as kq
     from reftr_torch.kernels.attention import (flash_attention,
                                                flash_attn_bwd_dkv,
                                                flash_attn_bwd_dq)
+    from reftr_torch.nn.convert import save_reference_checkpoint
     from reftr_torch.parallel.sharding import create_mesh, gather_state_dict
     from reftr_torch.train import loop as loop_mod
     from reftr_torch.train.loop import run_training
@@ -4458,25 +4925,6 @@ def child_tp(out_json: str) -> int:
     del state, step, before, after
     # d)'s fold
     got["k1_fold"] = tp_k1_masks(cfg[DROPOUT], full, mesh, batch, targets)
-    # e)
-    state, step = tp_state(preset_config("refcoco_det", dtype="bfloat16"),
-                           full, mesh)
-    for _ in range(2):
-        step(state, batch, targets)[1].get()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    for _ in range(TP_TIMED_STEPS):
-        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        t0.record()
-        step(state, batch, targets)[1].get()
-        t1.record()
-        t1.synchronize()
-        times.append(t0.elapsed_time(t1))
-    got["bf16_step_ms"] = times
-    got["bf16_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    del state, step
-    torch.cuda.empty_cache()
     # b)
     shutil.rmtree(TP_OUT / "cli", ignore_errors=True)
     dist.barrier()
@@ -4503,6 +4951,24 @@ def child_tp(out_json: str) -> int:
                                   device="cuda:0")["test"]["val"]
     torch.cuda.synchronize()
     got["eval_launches"] = read_counts(counters)
+    # f)
+    int8_counters = counters + [kq.quantize_int8, kq.int8_conv]
+    if rank == 0:
+        save_reference_checkpoint(str(TP_OUT / "int8.pth"), full, mc)
+    dist.barrier()
+    reset_counts(int8_counters)
+    with calib_kept() as tree:
+        got["int8_eval"] = run_training(cli_config(
+            TP_INT8_EVAL + ["--mesh_model", str(TP_WORLD)]),
+            device="cuda:0")["test"]["val"]
+    torch.cuda.synchronize()
+    got["int8_eval_launches"] = read_counts(int8_counters)
+    got["int8_calib"] = tree
+    torch.cuda.empty_cache()
+    # g)
+    got["prefix"] = prefix_steps(cfg[0.0], full, mesh, batch, targets,
+                                 int8_counters)
+    torch.cuda.empty_cache()
     ranks = [None] * TP_WORLD
     dist.all_gather_object(ranks, got)
     dist.destroy_process_group()
@@ -4531,6 +4997,16 @@ def child_tp(out_json: str) -> int:
         upd_all = max(upd_all, float(diff.max()))
     one_eval = run_training(cli_config(TP_EVAL), device="cuda:0")["test"][
         "val"]
+    with calib_kept() as one_tree:
+        one_int8 = run_training(cli_config(TP_INT8_EVAL), device="cuda:0")[
+            "test"]["val"]
+    with calib_kept(given=got["int8_calib"]):
+        one_int8_mesh_scales = run_training(cli_config(TP_INT8_EVAL),
+                                            device="cuda:0")["test"]["val"]
+    one_prefix = prefix_steps(cfg[0.0], full, None, batch, targets,
+                              int8_counters)
+    shutil.rmtree(TP_OUT / "int8")
+    (TP_OUT / "int8.pth").unlink()
     ckpt = torch.load(TP_OUT / "cli" / "checkpoint", map_location="cpu",
                       weights_only=False)
     shapes_ok = {n: tuple(t.shape) for n, t in ckpt["model"].items()} == {
@@ -4542,8 +5018,9 @@ def child_tp(out_json: str) -> int:
     result = {
         "ranks": [{k: r[k] for k in (
             "rank", "shard", "grid", "metrics", "step_launches",
-            "local_heads", "k1_fold", "bf16_step_ms", "bf16_peak_memory_gb",
-            "cli_rc", "cli_launches", "eval_launches", "tp_eval")}
+            "local_heads", "k1_fold",
+            "cli_rc", "cli_launches", "eval_launches", "tp_eval",
+            "int8_eval", "int8_eval_launches", "int8_calib", "prefix")}
             for r in ranks],
         "loss_tp": got["metrics"]["loss"], "loss_one": want["loss"],
         "loss_rel_err": loss_err,
@@ -4556,7 +5033,10 @@ def child_tp(out_json: str) -> int:
         == ranks[1]["cli_digests"],
         "n_replicated": len(ranks[0]["cli_digests"]),
         "checkpoint_full_shapes": shapes_ok, "cli_files": files,
-        "log_lines": log_lines, "one_eval": one_eval}
+        "log_lines": log_lines, "one_eval": one_eval,
+        "one_int8_eval": one_int8, "one_int8_calib": one_tree,
+        "one_int8_eval_mesh_scales": one_int8_mesh_scales,
+        "one_prefix": one_prefix}
     Path(out_json).write_text(json.dumps(result))
     return 0
 
@@ -4575,7 +5055,8 @@ def phase15(report: dict) -> dict:
     3's checks and tolerances, both dtypes, dropout 0 and 0.1), then the
     two ranks (child_tp): a) a float32 step against one process, the
     gathered gradients and update by 9b's rules; b) the entry point;
-    c) the launches of each, a rank's as one process's; e) report only."""
+    c) the launches of each, a rank's as one process's; f) the int8 eval
+    and g) the int8 train prefix on the mesh against one process."""
     import torch
 
     t0 = time.perf_counter()
@@ -4638,6 +5119,57 @@ def phase15(report: dict) -> dict:
         "eval_accuracy": tp_eval["accuracy_iou0.5"]
         == one_eval["accuracy_iou0.5"],
         "eval_miou": miou_err <= TP_MIOU_TOL}
+    # f) and g): a rank's launches as one process's, 220 int8 products an
+    # eval batch (none in the calibration and probe forwards) and 10 a
+    # prefix step
+    int8_want = expected_launches(TP_INT8_CALIB + 1 + TP_EVAL_BATCHES,
+                                  "float32", False)
+    prefix_want = expected_launches(1, "float32", True)
+    for want, n in ((int8_want, INT8_PRODUCTS * TP_EVAL_BATCHES),
+                    (prefix_want, INT8_PREFIX_CONVS)):
+        want.update({"quantize_int8": n, "int8_conv": n, "int8_conv_wg": n,
+                     "int8_conv_tc": 0})
+    one_int8, one_prefix = got["one_int8_eval"], got["one_prefix"]
+    for r in got["ranks"]:
+        if r["int8_eval_launches"] != int8_want or any(
+                n != prefix_want for n in r["prefix"]["launches"]):
+            fails.append(f"rank {r['rank']} int8 launches "
+                         f"{r['int8_eval_launches']}, prefix "
+                         f"{r['prefix']['launches']}, not {int8_want}, "
+                         f"{prefix_want}")
+    int8_eval = got["ranks"][0]["int8_eval"]
+    int8_miou_err = abs(int8_eval["miou"] - one_int8["miou"])
+    same_scales = got["one_int8_eval_mesh_scales"]
+    same_scales_miou_err = abs(int8_eval["miou"] - same_scales["miou"])
+    one_tree = got["one_int8_calib"]
+    calib_err = max((abs(r["int8_calib"][k] - v) / v
+                     for r in got["ranks"] for k, v in one_tree.items()),
+                    default=math.inf)
+    prefix_loss_err = max(
+        abs(a - b) / abs(b) for r in got["ranks"]
+        for a, b in zip(r["prefix"]["losses"], one_prefix["losses"]))
+    prefix_norm_err = max(
+        abs(a - b) / abs(b) for r in got["ranks"]
+        for a, b in zip(r["prefix"]["grad_norms"],
+                        one_prefix["grad_norms"]))
+    checks.update({
+        "int8_eval_ranks_equal": all(r["int8_eval"] == int8_eval
+                                     for r in got["ranks"]),
+        "int8_eval_accuracy": int8_eval["accuracy_iou0.5"]
+        == one_int8["accuracy_iou0.5"],
+        "int8_calibration": bool(one_tree) and all(
+            set(r["int8_calib"]) == set(one_tree) for r in got["ranks"])
+        and calib_err <= TP_INT8_CALIB_RTOL,
+        "int8_eval_miou": int8_miou_err <= TP_INT8_MIOU_TOL,
+        "int8_eval_same_scales_accuracy": int8_eval["accuracy_iou0.5"]
+        == same_scales["accuracy_iou0.5"],
+        "int8_eval_same_scales_miou": same_scales_miou_err <= TP_MIOU_TOL,
+        "int8_eval_loss_finite": math.isfinite(int8_eval["loss"]),
+        "prefix_layer1_bit_identical": all(
+            r["prefix"]["layer1"] == one_prefix["layer1"]
+            for r in got["ranks"]),
+        "prefix_losses": prefix_loss_err <= TRAIN_LOSS_TOL,
+        "prefix_grad_norms": prefix_norm_err <= TP_PREFIX_NORM_TOL})
     fails += [name for name, ok in checks.items() if not ok]
     r0, r1 = got["ranks"]
     print(f"tp 15 ({report['card']}): data 1 x model 2, two gloo ranks on "
@@ -4662,11 +5194,27 @@ def phase15(report: dict) -> dict:
           f"{r0['step_launches']}, entry point {r0['cli_launches']}, eval "
           f"{r0['eval_launches']}; d) K1 under the shard fold bit-equal on "
           f"{r0['k1_fold']['bit_equal']} and {r1['k1_fold']['bit_equal']} "
-          f"of {ATTN_PER_FORWARD} calls; e) report only, gloo over the "
-          f"host, not a TP speed: bf16 step ms (CUDA events, a rank) "
-          f"{[ms_list(r['bf16_step_ms']) for r in got['ranks']]}, peak "
-          f"memory GB {[round(r['bf16_peak_memory_gb'], 2) for r in got['ranks']]}"
-          f"; phase 15 in {time.perf_counter() - t0:.1f} s", flush=True)
+          f"of {ATTN_PER_FORWARD} calls; f) --eval --quantize_int8 "
+          f"--fold_bn on the mesh (float32, {TP_INT8_CALIB} calibration "
+          f"batches): the calibration tree's {len(one_tree)} leaves within "
+          f"{calib_err:.3g} relative of one process's (tol "
+          f"{TP_INT8_CALIB_RTOL}); {int8_eval} vs one process with the "
+          f"mesh's calibration tree {same_scales} (mIoU diff "
+          f"{same_scales_miou_err:.3g}, tol {TP_MIOU_TOL}) and with its own "
+          f"{one_int8} (mIoU diff {int8_miou_err:.3g}, sanity bound "
+          f"{TP_INT8_MIOU_TOL}), launches a rank "
+          f"{r0['int8_eval_launches']}; "
+          f"g) --quantize_train_prefix's {TP_PREFIX_STEPS} float32 steps: "
+          f"losses {r0['prefix']['losses']} and "
+          f"{r1['prefix']['losses']} vs one process "
+          f"{one_prefix['losses']} (worst rel {prefix_loss_err:.3g}, tol "
+          f"{TRAIN_LOSS_TOL}), grad norms worst rel {prefix_norm_err:.3g} "
+          f"(tol {TP_PREFIX_NORM_TOL}), layer1's "
+          f"{len(one_prefix['layer1'])} int8 leaves bit-identical on both "
+          f"ranks and one process: "
+          f"{checks['prefix_layer1_bit_identical']}, launches a step "
+          f"{r0['prefix']['launches'][0]}; phase 15 in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     if fails:
         raise AssertionError(f"phase 15: {fails}")
     report["tp"] = got
@@ -4720,9 +5268,7 @@ def scratch_cli(report: dict, counters) -> dict:
     """Phase 10a: the recipe through the entry point in bf16, two epochs of
     8 steps of its 120, then --eval --resume, whose accuracy must equal the
     log's; 20 launches of each kernel a step and of K1 an eval batch (8 on
-    the tensor-core kernels, 12 on the decode kernels); then one step of
-    the recipe and of the same with FrozenBN, profiled (the GroupNorms'
-    casts), the former also with the backbone channels-last."""
+    the tensor-core kernels, 12 on the decode kernels)."""
     import shutil
 
     shutil.rmtree(SCRATCH_OUT, ignore_errors=True)
@@ -4766,38 +5312,11 @@ def scratch_cli(report: dict, counters) -> dict:
           f" (|err| {miou_err:.2e}); launches a step by route {per_step}; "
           f"launches {({n: r['launches'] for n, r in runs.items()})}",
           flush=True)
-    cfg = scratch_config()
-    batch, targets = train_batch(np.random.default_rng(3), cfg.data.img_size,
-                                 cfg.data.max_query_len,
-                                 cfg.model.bert.vocab_size,
-                                 cfg.data.batch_size)
-    profiles = {}
-    # the GroupNorm backbone in both layouts: contiguous NCHW (the
-    # port's), and channels-last convolutions, where each GroupNorm's copy
-    # in and out also changes the layout (ResNet.channels_last)
-    for tag, norm, channels_last in (("group", "group", False),
-                                     ("group_channels_last", "group", True),
-                                     ("frozen", "frozen", True)):
-        def prepare(model, channels_last=channels_last):
-            model.img_backbone.channels_last = channels_last
-
-        profiles[tag] = profile_train_step(
-            scratch_config("--backbone_norm", norm), batch, targets,
-            f"scratch recipe bf16 batch {cfg.data.batch_size} step, "
-            f"backbone_norm {norm}, "
-            f"{'channels-last' if channels_last else 'NCHW'}", prepare)
-    nchw, last = profiles["group"], profiles["group_channels_last"]
-    print(f"scratch: GroupNorm backbone, device ms a step NCHW "
-          f"{nchw['profile']['device_ms']:.3f} (copy kernels "
-          f"{nchw['profile']['copy_kernels_ms']:.3f}), channels-last "
-          f"{last['profile']['device_ms']:.3f} (copy kernels "
-          f"{last['profile']['copy_kernels_ms']:.3f})", flush=True)
     report["scratch"] = {
         "argv_train": SCRATCH_TRAIN, "argv_eval": SCRATCH_EVAL, "log": log,
         "eval_only": got, "eval_only_miou_err": miou_err,
         "launches": {n: r["launches"] for n, r in runs.items()},
-        "runs": reports, "profiles": profiles,
-        "launches_per_step": per_step}
+        "runs": reports, "launches_per_step": per_step}
     return report
 
 
@@ -5805,8 +6324,8 @@ def op_host_costs(report: dict, reqs) -> dict:
         "reftr_smoke::flash_attention_fwd", attention._fwd_op_cuda,
         mutates_args=(), device_types="cuda",
         schema="(Tensor q, Tensor k, Tensor v, Tensor? valid_mask, "
-               "float dropout_rate, int? seed, bool return_lse) -> "
-               "(Tensor, Tensor)")
+               "float dropout_rate, int? seed, bool return_lse, "
+               "bool mxu_bf16=False) -> (Tensor, Tensor)")
     custom.register_fake(attention._fwd_op_fake)
     routes = {"op": op, "direct": attention._fwd_op_cuda,
               "custom_op": custom}
@@ -5857,9 +6376,9 @@ def op_host_costs(report: dict, reqs) -> dict:
     forward = attention._forward
 
     def direct_forward(q, k, v, valid_mask, dropout_rate, seed,
-                       return_lse=True):
+                       return_lse=True, mxu_bf16=False):
         o, lse = attention._fwd_op_cuda(q, k, v, valid_mask, dropout_rate,
-                                        seed, return_lse)
+                                        seed, return_lse, mxu_bf16)
         return o, (lse if return_lse else None)
 
     fwd = {"op": [], "direct": []}
@@ -6545,8 +7064,11 @@ INT8_CALIB_BATCHES = 4  # 14b: calibration batches of SERVE_BATCH rows
 # BERT-base's 12 layers of 6 denses, the encoder's 6 layers of 6, the
 # decoder's 6 of 10 (self- and cross-attention, FFN)
 INT8_PRODUCTS = 52 + 12 * 6 + 6 * 6 + 6 * 10
-# 14a: the batch sizes each product shape is checked and timed at
-INT8_BATCHES = (SERVE_BATCH, 64)
+# 14f: int8 RES's forward is profiled at bench_seg's batch
+INT8_RES_BATCH = 32
+# 14a: the batch sizes each product shape is checked and timed at: the
+# server's, 14f's and 64
+INT8_BATCHES = (SERVE_BATCH, INT8_RES_BATCH, 64)
 # 14b, 14e: the int8 boxes against the fp folded model's: JAX's bar
 # (tests/test_quantize.py:131-133), of the side
 INT8_BOX_TOL = 0.05
@@ -6702,7 +7224,7 @@ def int8_inputs(gen, shape: tuple, dtype):
 
 
 def check_int8_shapes(report: dict, shapes: list) -> list:
-    """14a: each product shape at B=8 and B=64: int8_conv through the
+    """14a: each product shape at INT8_BATCHES: int8_conv through the
     route ("wg" at every shape of the model) bit-equal to its plain
     version with its output in bf16 (as served) and in float32, and
     int8_quantize (on the product's bf16 input, and at B=8 also on a
@@ -7061,10 +7583,146 @@ def int8_cli(report: dict, int8_counters, tmp: Path, sd: dict) -> dict:
     return {"eval": eval_res, "prefix": prefix_res}
 
 
+# 14f: int8 RES, JAX's seg_int8 (bench.py:192-239): refcoco_seg at full
+# width in bf16, fold_bn, int8 at the JAX default scope (backbone, bert,
+# vl; the mask head stays float), on seeded weights (the box head's last
+# layer drawn), calibrated on INT8_CALIB_BATCHES batches and serving
+# N_REQUESTS requests that carry masks; its forward profiled at
+# INT8_RES_BATCH beside the bf16 folded fp one
+
+
+def res_outputs(model, batches) -> list:
+    """(pred_boxes, the first query's mask logits) of ``model`` (a
+    module) on each batch, float32."""
+    import torch
+
+    with torch.inference_mode():
+        outs = [model({k: torch.from_numpy(v).cuda() for k, v in b.items()})
+                for b in batches]
+        return [(o["pred_boxes"].float(), o["pred_masks"][:, 0].float())
+                for o in outs]
+
+
+def int8_res(report: dict, int8_counters) -> dict:
+    """14f: the int8 refcoco_seg row. Its product shapes are refcoco_det's
+    (INT8_SHAPES, which 14a checks at INT8_BATCHES, 14f's among them).
+    Calibrated through ServingModel and serving N_REQUESTS requests behind
+    the MicroBatcher: exact launches (INT8_PRODUCTS of each int8 kernel
+    and K1's 30 a batch), every phrase a finite box inside its image and a
+    mask of its image's size; against the fp folded model on the same
+    batches, the boxes within INT8_BOX_TOL of the side (REC's bar) and,
+    reported, the mask IoU (logits above 0 in each). Then, report only,
+    the int8 forward and the bf16 folded fp one at INT8_RES_BATCH
+    profiled (op_profile.profile_device: device ms, by category, the int8
+    kernels' share), each calibrated on and run over the profiled batch
+    perturbed, as op_profile's rec_int8."""
+    import torch
+
+    from reftr_torch.cli.presets import preset_config
+    from reftr_torch.convert import model_class
+    from reftr_torch.nn import quant as nq
+    from reftr_torch.serve import ServingModel, pad_batch, serving_module
+    from reftr_torch.tools import op_profile
+
+    cfg_fp = preset_config("refcoco_seg", dtype="bfloat16", aux_loss=False,
+                           fold_bn=True)
+    cfg_q = preset_config("refcoco_seg", dtype="bfloat16", aux_loss=False,
+                          fold_bn=True, quantize_int8=True)
+    d = cfg_fp.data
+    img, seq, vocab = d.img_size, d.max_query_len, cfg_fp.model.bert.vocab_size
+    sd = reference_weights(cfg_fp)
+    rng = np.random.default_rng(0x14F)
+    calib = [(op_profile.make_batch(rng, SERVE_BATCH, img, seq, vocab), None)
+             for _ in range(INT8_CALIB_BATCHES)]
+    fp = ServingModel(cfg_fp, SERVE_BATCH, state_dict=sd)
+    names = nq.quant_targets(model_class(cfg_q.model), cfg_q.model)
+    shapes = product_shapes(fp.model, names, calib[0][0])
+    if {e["shape"]: e["calls"] for e in shapes} != INT8_SHAPES:
+        raise AssertionError("phase 14f: refcoco_seg's int8 products are "
+                             "not refcoco_det's INT8_SHAPES")
+    q = ServingModel(cfg_q, SERVE_BATCH, state_dict=sd, calib_batches=calib)
+    reqs = make_requests(rng, img, seq, vocab)
+    q(pad_batch(reqs[:1], SERVE_BATCH))  # the kernels' first calls
+    launches, n_batches, served_s = serve_requests(q, reqs, int8_counters)
+    if launches != int8_launches(n_batches):
+        raise AssertionError(f"phase 14f: launches {launches} for "
+                             f"{n_batches} batches, not "
+                             f"{int8_launches(n_batches)}")
+    for i, r in enumerate(reqs):
+        h0, w0 = r.orig_hw
+        for res in r.result:
+            if (res.get("mask_shape") != [h0, w0]
+                    or not 0 <= res["mask_area_px"] <= h0 * w0):
+                raise AssertionError(f"phase 14f: request {i}: {res}")
+    batches = group_batches(reqs, SERVE_BATCH)
+    got = res_outputs(q.model, [b for b, _ in batches])
+    want = res_outputs(fp.model, [b for b, _ in batches])
+    box_err = max(float((g[0][:n] - w[0][:n]).abs().max())
+                  for (_, n), g, w in zip(batches, got, want))
+    ious = []
+    for (_, n), g, w in zip(batches, got, want):
+        a, b = g[1][:n] > 0, w[1][:n] > 0
+        inter = (a & b).flatten(1).sum(1).float()
+        union = (a | b).flatten(1).sum(1).float()
+        ious += torch.where(union > 0, inter / union.clamp(min=1),
+                            1.0).tolist()
+    if not (box_err <= INT8_BOX_TOL and all(math.isfinite(x) for x in ious)):
+        raise AssertionError(f"phase 14f: int8 boxes {box_err:.3g} from the "
+                             f"fp model's (tol {INT8_BOX_TOL}), mask IoU "
+                             f"{ious}")
+    del fp, q, got, want
+    torch.cuda.empty_cache()
+    big = op_profile.make_batch(rng, INT8_RES_BATCH, img, seq, vocab)
+    prof = {}
+    for label, cfg in (("seg_fold_bn", cfg_fp), ("seg_int8", cfg_q)):
+        model = serving_module(cfg, "cuda", state_dict=sd,
+                               calib_batches=[(big, None)],
+                               print_fn=lambda *a: None)
+        inputs = {k: torch.from_numpy(v).cuda() for k, v in big.items()}
+
+        @torch.inference_mode()
+        def run(i=0):
+            image = ((inputs["image"].int() + i) % 256).to(torch.uint8)
+            model(dict(inputs, image=image))["pred_boxes"].cpu()
+
+        for i in range(2):
+            run(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(2)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        got = op_profile.profile_device(run, f"14f {label} B="
+                                        f"{INT8_RES_BATCH}", host_ms)
+        cats = got.get("by_category_ms") or {}
+        int8_ms = cats.get("int8_conv", 0.0) + cats.get("quantize_int8", 0.0)
+        prof[label] = {"device_ms": got["device_ms"], "host_ms": host_ms,
+                       "int8_ms": int8_ms,
+                       "int8_share": (int8_ms / got["device_ms"]
+                                      if got["device_ms"] else None),
+                       "by_category_ms": cats}
+        del model, inputs
+        torch.cuda.empty_cache()
+    out = {"launches": launches, "batches": n_batches, "served_s": served_s,
+           "box_err_vs_fp": box_err, "mask_iou_vs_fp": ious,
+           "profile": prof}
+    print(f"int8 14f ({report['card']}): refcoco_seg int8 (fold_bn, bf16, "
+          f"the mask head float): {len(reqs)} requests with masks in "
+          f"{n_batches} batches, {served_s:.3f} s, launches {launches}; "
+          f"pred_boxes max |int8 - fp| {box_err:.3g} of the side (tol "
+          f"{INT8_BOX_TOL}); mask IoU against the fp model's: mean "
+          f"{statistics.mean(ious):.4f}, min {min(ious):.4f} over "
+          f"{len(ious)} phrases; profile at B={INT8_RES_BATCH}, device ms a "
+          f"forward: bf16 fold_bn {fmt_ms(prof['seg_fold_bn']['device_ms'])}"
+          f", int8 {fmt_ms(prof['seg_int8']['device_ms'])} (int8 kernels "
+          f"{prof['seg_int8']['int8_ms']:.3f} ms, share "
+          f"{prof['seg_int8']['int8_share']})", flush=True)
+    return out
+
+
 def phase14(report: dict, counters) -> dict:
     """Phase 14: int8 PTQ of refcoco_det at full width, bf16, folded, at
     the JAX default scope. 14a: each product shape against the plain
-    versions at B=8 and B=64 (check_int8_shapes). 14b: calibrated on
+    versions at INT8_BATCHES (check_int8_shapes). 14b: calibrated on
     INT8_CALIB_BATCHES batches of SERVE_BATCH (calibrate_and_quantize
     through ServingModel) and serving N_REQUESTS requests behind the
     MicroBatcher: exact launches (INT8_PRODUCTS of each int8 kernel and
@@ -7076,7 +7734,8 @@ def phase14(report: dict, counters) -> dict:
     bf16 fp program. 14d: op_profile rec and rec_int8 at batch 64 in
     turns: device ms a forward, the int8 kernels' share. 14e: the
     trainer's entry point with --eval --quantize_int8 and
-    --quantize_train_prefix (int8_cli)."""
+    --quantize_train_prefix (int8_cli). 14f: int8 refcoco_seg served, and
+    profiled at batch 32 (int8_res)."""
     import tempfile
 
     import torch
@@ -7224,9 +7883,13 @@ def phase14(report: dict, counters) -> dict:
             preset_config("refcoco_det")))
     torch.cuda.empty_cache()
     parts["e"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    res = int8_res(report, int8_counters)
+    parts["f"] = time.perf_counter() - t
     report["int8"] = {"serve": serve_res, "export": export_res,
                       "cli_eval": cli["eval"], "prefix": cli["prefix"],
-                      "op_profile": prof, "parts_s": parts,
+                      "op_profile": prof, "res": res, "parts_s": parts,
                       "phase_s": time.perf_counter() - t_all}
     print(f"int8: phase 14 in {report['int8']['phase_s']:.1f} s ("
           + ", ".join(f"14{k} {v:.1f} s" for k, v in parts.items()) + ")",
@@ -7487,7 +8150,80 @@ def kernel_line(report: dict) -> list:
         entry.update(phase_err(report, entry, "scratch"))
         entry.update(phase_err(report, entry, "http"))
         entry.update(phase_err(report, entry, "tp"))
-    return out + int8_entries(report)
+    main_runs = [train_n, serve_n, cli_n, res_n, multi_n, ddp_n, scratch_n,
+                 http_n, export_n, fold_n, tp_n]
+    return out + mxu_entries(report, main_runs) + int8_entries(report)
+
+
+# the kernels line's rows of the mxu_bf16 mode (phase 3f): (row name,
+# source, the Pallas kernel, the variant, the wrapper, the times' key and
+# site)
+MXU_ROWS = (
+    ("flash_attn_fwd_tc_mxu_bf16", "flash_attn_fwd_tc.cu", 86, "tc",
+     "flash_attention", "fwd", "vl_encoder_self"),
+    ("flash_attn_bwd_dq_tc_mxu_bf16", "flash_attn_bwd_dq_tc.cu", 242, "tc",
+     "flash_attn_bwd_dq", "dq", "vl_encoder_self"),
+    ("flash_attn_bwd_dkv_tc_mxu_bf16", "flash_attn_bwd_dkv_tc.cu", 287,
+     "tc", "flash_attn_bwd_dkv", "dkv", "vl_encoder_self"),
+    ("flash_attn_fwd_dec_mxu_bf16", "flash_attn_fwd_dec.cu", 86, "dec",
+     "flash_attention", "fwd", "decoder_cross"),
+    ("flash_attn_bwd_dec_mxu_bf16", "flash_attn_bwd_dec.cu", 242, "dec",
+     "flash_attn_bwd_dq", "dq", "decoder_cross"))
+
+
+def mxu_entries(report: dict, main_runs: list) -> list:
+    """The kernels line's rows of the mxu_bf16 mode's kernels ("tc" and
+    "dec" with float32 in and out and bf16 products; phase 3f): their
+    launches on the main paths (``main_runs``' counts in the mode, each
+    wrapper's "tc" and "dec" together: 0, as no model path sets the mode,
+    and every counted run holds them to 0), their largest errors over 3f's
+    checks of their variant (mxu_errors: max_rel_err the readings, a
+    gradient's a share of the largest), their largest mean reading and the
+    control's least (of its largest over the kernel's tensors, at a check
+    of the variant), and their times at refcoco_det's float32 site
+    of the variant: K1 without dropout, K2 and K3 with DROPOUT (the decode
+    backward's row its one launch), beside the float32 kernel that the
+    rule picks there without the mode and bf16 SDPA."""
+    rows = report["mxu"]["rows"]
+    out = []
+    for name, source, line, variant, wrapper, short, site in MXU_ROWS:
+        grads = {"fwd": ("fwd",), "dq": ("dq",), "dkv": ("dk", "dv")}[short]
+        if name == "flash_attn_bwd_dec_mxu_bf16":
+            grads = ("dq", "dk", "dv")
+        mine = [r for r in rows if r[f"{short}_variant"] == variant]
+        keys = ["out" if g == "fwd" else g for g in grads]
+        errs = [(r["errors"][key], 1.0 if key == "out" else r["grad_scale"])
+                for r in mine for key in keys]
+        rate = 0.0 if short == "fwd" else DROPOUT
+        timed = next(r for r in rows
+                     if r["site"] == site and r["dropout"] == rate)
+        t = timed["times"][short]
+        entry = {
+            "name": name, "route": "cuda", "variant": variant,
+            "mode": "mxu_bf16 (float32 in and out, bf16 products)",
+            "source": f"reftr_torch/kernels/csrc/{source}",
+            "replaces": f"reftr_tpu/kernels/attention.py:{line}",
+            "launches": sum(n[f"{wrapper}_mxu"] for n in main_runs),
+            "max_abs_err": max(e * s for e, s in errs),
+            "max_rel_err": max(e for e, _ in errs),
+            "max_mean_err": max(r["errors"][f"{key}_mean"] for r in mine
+                                for key in keys),
+            "control_least_mean_err": min(
+                max(r["control_errors"][f"{key}_mean"] for key in keys)
+                for r in mine),
+            "site": site,
+            "shape": (f"{site} float32 B={timed['B']} Sq={timed['Sq']} "
+                      f"Sk={timed['Sk']} H={timed['H']} D={timed['D']}, "
+                      f"dropout {rate}"),
+            **{key: t[key] for key in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_device_ms", "f32_device_ms")},
+            "library_covers": ("bf16 SDPA forward" if short == "fwd" else
+                               "bf16 SDPA backward: K2 and K3 together")}
+        if name == "flash_attn_bwd_dec_mxu_bf16":
+            entry["also_replaces"] = BWD_DEC_ALSO
+        out.append(entry)
+    return out
 
 
 def phase_err(report: dict, entry: dict, phase: str) -> dict:
@@ -7752,6 +8488,7 @@ def main() -> int:
         ("3c", lambda: check_short_dkv(report)),
         ("3d", lambda: wg_times(report)),
         ("3e", lambda: check_keep_bits(report)),
+        ("3f", lambda: check_mxu(report)),
         ("4", lambda: serve(report, counters)),
         ("5", lambda: train(report, counters)),
         ("5b", lambda: train_f32(report, counters)),

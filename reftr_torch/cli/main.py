@@ -42,9 +42,10 @@ model-major (``parallel/sharding.py::mesh_grid``). On the CPU:
   python -m reftr_torch.tools.launch --nproc_per_node 2 -- \
       python -m reftr_torch.cli.main --device cpu --mesh_model 2 ...
 
-int8 (``--quantize_int8``, ``--quantize_train_prefix``) with
-``--mesh_model`` > 1 raises NotImplementedError (ROADMAP.md queue 1
-item 13).
+int8 runs under ``--mesh_model`` > 1 as in JAX: ``--eval
+--quantize_int8`` calibrates the sharded float model and evaluates the
+int8 model unsharded on every rank; ``--quantize_train_prefix`` trains on
+the mesh with layer1, in the replicated backbone, in int8.
 
 The JAX step's knobs run as in the JAX package: the backbone's
 reparameterisations (``--space_to_depth_stem``, ``--fold_bn``,
@@ -77,8 +78,7 @@ from reftr_torch.cli.presets import PRESETS, apply_preset
 from reftr_torch.core.config import BertConfig, RefTRConfig
 from reftr_torch.core.distributed import env_world_size
 from reftr_torch.core.logging import master_print
-from reftr_torch.parallel.sharding import (check_data_axis,
-                                           refuse_int8_model_axis)
+from reftr_torch.parallel.sharding import check_data_axis
 
 # --use_pallas_attention's values and ModelConfig's
 PALLAS_ATTENTION = {None: None, "auto": None, "on": True, "off": False}
@@ -248,11 +248,8 @@ def get_args_parser() -> argparse.ArgumentParser:
 
 
 def refuse_not_ported(args: argparse.Namespace) -> None:
-    """Raise NotImplementedError for what the port does not run:
-    ``--no_decoder``, and int8 with a model axis (ROADMAP.md queue 1 item
-    13)."""
-    refuse_int8_model_axis(args.mesh_model, args.quantize_int8,
-                           args.quantize_train_prefix)
+    """Raise NotImplementedError for what neither package runs:
+    ``--no_decoder``."""
     if args.no_decoder:
         raise NotImplementedError(
             "--no_decoder (the JAX package refuses it too: the reference has "

@@ -5,8 +5,7 @@ A copy of the matching fields of reftr_tpu/core/config.py (``BertConfig``
 :24-67, ``ModelConfig`` :70-176, ``LossConfig`` :232-249, ``DataConfig``
 :251-287, ``TrainConfig`` :302-343), kept here because the port imports
 nothing of reftr_tpu. ``MeshConfig`` holds the mesh's model axis
-(tensor parallelism) too; the one combination the port does not run,
-int8 under tensor parallelism, raises (ROADMAP.md queue 1 item 13).
+(tensor parallelism) too.
 """
 
 from __future__ import annotations

@@ -50,6 +50,19 @@ takes the plain versions on the card ("plain"), a rule of the dispatch that no
 error reaches. A kernel that fails to build or launch raises; no variant stands
 in for another.
 
+The ``mxu_bf16`` mode (``_mxu``, :69-83, of the TPU kernels) computes
+K1-K3 for a float32 caller with bf16 dot operands: q and k for the
+logits, p * keep and v for the output, dO and v for dp, ds and k for dq,
+ds and q for dk, p * keep and dO for dv, each rounded to bf16 (to nearest
+even) where it enters its product; the sums, the softmax, lse, di (from
+the float32 dO and O) and the stored outputs and gradients stay float32.
+The rule sends such a call to the "dec" or "tc" kernels (never "wg" or
+"tf32x3"), which round their float32 tiles to bf16 as they stage them
+(dtype code 2 of their C entry points); the launches are counted also in
+``<wrapper>.launches_mxu``. For a bf16 caller the mode changes nothing:
+its operands are bf16 already and the bf16 kernels round p and ds to bf16
+for their products anyway. No model path sets the mode, as in JAX.
+
 Head dims. The kernels are instantiated for ``HEAD_DIMS`` (16, 32, 64,
 128). A call with another head dim up to 128 is zero-padded to the next
 one in the wrapper and its outputs sliced back: zero columns leave q k^T,
@@ -122,6 +135,16 @@ MAX_HEAD_DIM = HEAD_DIMS[-1]
 WG_HEAD_DIM = 32
 WG_MIN = {"fwd": (2040, 2040), "dq": (256, 256), "dkv": (256, 256)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the dtype code of the "dec" and "tc" entry points for a float32 call in
+# the mxu_bf16 mode: float32 in and out, bf16 products
+_MXU_F32 = 2
+# where K1 keeps its running max, in the mxu_bf16 mode the max that p is
+# rounded against (mxu_key_blocks): "tc" over tiles of 64 keys
+# (flash_attn_fwd_tc.cu's kTileK); "dec" a lane per 4 consecutive keys of
+# its warp's quarter of the row, stepping by 128 (flash_attn_fwd_dec.cu's
+# kWarps, kPerLane, kStep)
+TC_KEY_TILE = 64
+_DEC_WARPS, _DEC_PER_LANE, _DEC_STEP = 4, 4, 128
 _MASK32 = 0xFFFFFFFF
 # Philox4x32-10 multipliers and Weyl key increments (Salmon et al., SC'11)
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -295,11 +318,59 @@ def _keep_scale(rate: float, seed: Optional[int], b: int, h: int, sq: int,
     return keep.to(dtype) * (1.0 / (1.0 - rate))
 
 
+def uses_mxu(dtype: torch.dtype, mxu_bf16: bool) -> bool:
+    """Whether a call in ``dtype`` takes bf16 dot operands: the mxu_bf16
+    mode asked for, by a caller that is not bf16 already."""
+    return mxu_bf16 and dtype != torch.bfloat16
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to the nearest bf16 (ties to even), in its own dtype: a
+    dot operand of the mxu_bf16 mode."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def mxu_key_blocks(layout: Union[str, int], sk: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(owner, step) [Sk] of each key in a forward kernel's order: the
+    thread or tile that keeps a running max over its keys, and the step
+    at which it takes the key in. ``layout`` "tc", "dec" (the forward
+    kernels' variants), or n: tiles of n keys, one owner (the TPU kernel's
+    block_k). Keys that share (owner, step) enter the running max at
+    once."""
+    j = torch.arange(sk)
+    if layout == "dec":
+        per_warp = -(-sk // _DEC_WARPS)
+        quarter = -(-per_warp // _DEC_PER_LANE) * _DEC_PER_LANE
+        warp, r = j // quarter, j % quarter
+        owner = warp * (_DEC_STEP // _DEC_PER_LANE) + (
+            r // _DEC_PER_LANE) % (_DEC_STEP // _DEC_PER_LANE)
+        return owner, r // _DEC_STEP
+    tile = TC_KEY_TILE if layout == "tc" else int(layout)
+    return torch.zeros_like(j), j // tile
+
+
+def _running_max(logits: torch.Tensor, owner: torch.Tensor,
+                 step: torch.Tensor) -> torch.Tensor:
+    """[..., Sk]: for each key, the max of the logits of its owner's keys
+    up to its step (``mxu_key_blocks``)."""
+    n_step = int(step.max()) + 1
+    slot = (owner * n_step + step).to(logits.device).expand_as(logits)
+    blocks = logits.new_full(
+        (*logits.shape[:-1], (int(owner.max()) + 1) * n_step), -math.inf)
+    blocks = blocks.scatter_reduce(-1, slot, logits, "amax")
+    run = blocks.unflatten(-1, (-1, n_step)).cummax(-1).values.flatten(-2)
+    return run.gather(-1, slot)
+
+
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     valid_mask: Optional[torch.Tensor] = None,
                     return_lse: bool = False, *, dropout_rate: float = 0.0,
                     seed: Optional[int] = None,
-                    scale: Optional[float] = None):
+                    scale: Optional[float] = None,
+                    mxu_bf16: bool = False,
+                    key_blocks: Optional[Tuple[torch.Tensor,
+                                               torch.Tensor]] = None):
     """The forward kernel's function in plain PyTorch: f32 logits and
     softmax (f64 for f64 inputs) with an additive -1e9 on masked keys, the
     kernels' dropout mask after the softmax, output in the input dtype.
@@ -308,17 +379,44 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q [B, Sq, H, D]; k, v [B, Sk, H, D]; valid_mask [B, Sk] bool or None;
     scale 1 / sqrt(D) unless given. Returns out [B, Sq, H, D] and, with
     return_lse, lse [B, H, Sq].
+
+    With ``mxu_bf16`` (and inputs that are not bf16; ``uses_mxu``), the
+    TPU kernel's bf16 dot operands: q and k rounded to bf16 for the
+    logits, and p * keep, with p = exp(x - rowmax) not yet normalised, and
+    v rounded for the output, which is then divided by the float32 sum of
+    the un-dropped p (``_flash_kernel`` with one key block, :103-128).
+    A kernel that walks the keys in blocks rounds p against its running
+    max instead, and rescales the sum as the max grows: ``key_blocks``
+    (``mxu_key_blocks``) makes the plain version round p as that kernel
+    does; None rounds against the row max, as one block does.
     """
     _check_dropout(dropout_rate, seed)
-    acc = _plain_precision(q)
+    acc, dtype = _plain_precision(q), q.dtype
+    mxu = uses_mxu(dtype, mxu_bf16)
     with _no_autocast(q.device):
+        if mxu:
+            q, k, v = (_bf16(x.to(acc)) for x in (q, k, v))
         logits = _logits(q, k, valid_mask, acc, scale)
-        weights = torch.softmax(logits, dim=-1)
+        if mxu:
+            row_max = logits.amax(-1, keepdim=True)
+            run = (row_max if key_blocks is None
+                   else _running_max(logits, *key_blocks))
+            p = torch.exp(logits - run)
+            denom = torch.exp(logits - row_max).sum(-1)
+        else:
+            p = torch.softmax(logits, dim=-1)
         if dropout_rate > 0.0:
-            b, h, sq, sk = weights.shape
-            weights = weights * _keep_scale(dropout_rate, seed, b, h, sq, sk,
-                                            acc, q.device)
-        out = torch.einsum("bhqk,bkhd->bqhd", weights, v.to(acc)).to(q.dtype)
+            b, h, sq, sk = p.shape
+            p = p * _keep_scale(dropout_rate, seed, b, h, sq, sk, acc,
+                                q.device)
+        if mxu:
+            p = _bf16(p) if key_blocks is None else (
+                _bf16(p) * torch.exp(run - row_max))
+            out = (torch.einsum("bhqk,bkhd->bqhd", p, v)
+                   / denom.transpose(1, 2)[..., None])
+        else:
+            out = torch.einsum("bhqk,bkhd->bqhd", p, v.to(acc))
+        out = out.to(dtype)
         if return_lse:
             return out, torch.logsumexp(logits, dim=-1)
     return out
@@ -329,7 +427,8 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         lse: torch.Tensor, do: torch.Tensor,
                         dropout_rate: float = 0.0, seed: Optional[int] = None,
                         scale: Optional[float] = None,
-                        keep_bits: Optional[torch.Tensor] = None
+                        keep_bits: Optional[torch.Tensor] = None,
+                        mxu_bf16: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernels' function in plain PyTorch, the flash-2
     formulas of ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel`` written out:
@@ -343,7 +442,10 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     gradient of o. With ``keep_bits`` (``keep_bits_plain``'s layout, as
     K2-wg hands them to K3-wg; only with dropout) the mask is read from
     them in place of the seed. Computes in f32 (f64 for f64 inputs);
-    returns (dq, dk, dv) in the input dtype.
+    returns (dq, dk, dv) in the input dtype. With ``mxu_bf16`` (inputs not
+    bf16; ``uses_mxu``) every product takes bf16 operands as the TPU
+    kernels' ``_mxu`` rounds them: q, k, v and dO, then ds and p * keep;
+    di sums the unrounded dO and O.
     """
     if keep_bits is None:
         _check_dropout(dropout_rate, seed)
@@ -351,10 +453,14 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("keep_bits go with a dropout rate above 0")
     acc = _plain_precision(q, do)
     scale = _scale(q, scale)
+    dtypes = (q.dtype, k.dtype, v.dtype)
+    rnd = _bf16 if uses_mxu(q.dtype, mxu_bf16) else (lambda x: x)
     with _no_autocast(q.device):
+        di = (do.to(acc) * o.to(acc)).sum(-1).transpose(1, 2)  # [B, H, Sq]
+        q, k, v, do = (rnd(x.to(acc)) for x in (q, k, v, do))
         p = torch.exp(_logits(q, k, valid_mask, acc, scale)
                       - lse.to(acc)[..., None])  # [B, H, Sq, Sk]
-        dp = torch.einsum("bqhd,bkhd->bhqk", do.to(acc), v.to(acc))
+        dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
         pk = p
         if dropout_rate > 0.0:
             b, h, sq, sk = p.shape
@@ -366,12 +472,11 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         * (1.0 / (1.0 - dropout_rate)))
             pk = p * keep
             dp = dp * keep
-        di = (do.to(acc) * o.to(acc)).sum(-1).transpose(1, 2)  # [B, H, Sq]
-        ds = p * (dp - di[..., None])
-        dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.to(acc)) * scale
-        dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.to(acc)) * scale
-        dv = torch.einsum("bhqk,bqhd->bkhd", pk, do.to(acc))
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+        ds = rnd(p * (dp - di[..., None]))
+        dq = torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale
+        dk = torch.einsum("bhqk,bqhd->bkhd", ds, q) * scale
+        dv = torch.einsum("bhqk,bqhd->bkhd", rnd(pk), do)
+    return dq.to(dtypes[0]), dk.to(dtypes[1]), dv.to(dtypes[2])
 
 
 def unpack_keep_bits(keep_bits: torch.Tensor, sk: int) -> torch.Tensor:
@@ -449,7 +554,8 @@ def _wg(kernel: str, sq: int, sk: int, dtype: torch.dtype, d: int) -> bool:
             and sk >= least_sk)
 
 
-def fwd_variant(sq: int, sk: int, dtype: torch.dtype, d: int) -> str:
+def fwd_variant(sq: int, sk: int, dtype: torch.dtype, d: int,
+                mxu_bf16: bool = False) -> str:
     """K1's kernel on the card for sq queries, sk keys and head dim d:
     "plain" (``attention_plain`` on the card, counted in
     ``flash_attention.launches_plain``) for d above MAX_HEAD_DIM, where no
@@ -481,17 +587,24 @@ def fwd_variant(sq: int, sk: int, dtype: torch.dtype, d: int) -> str:
     tiles does not hide under its products. K1's draw makes one Philox
     call per 4 decisions at any key count (flash_tc::keep_bits), so the
     rule no longer asks for Sk % 4 == 0 (before the draw, "wg" was
-    1.36x slower with dropout at 2090^2)."""
+    1.36x slower with dropout at 2090^2).
+
+    A float32 call in the mxu_bf16 mode (``uses_mxu``) takes "dec" below
+    TC_MIN_ROWS queries and "tc" from there, both rounding its tiles to
+    bf16 as they stage them; a bf16 call ignores the mode."""
     if d > MAX_HEAD_DIM:
         return "plain"
     if sq < TC_MIN_ROWS:
         return "dec"
+    if uses_mxu(dtype, mxu_bf16):
+        return "tc"
     if dtype != torch.bfloat16:
         return "tf32x3"
     return "wg" if _wg("fwd", sq, sk, dtype, d) else "tc"
 
 
-def dq_variant(sq: int, sk: int, dtype: torch.dtype, d: int) -> str:
+def dq_variant(sq: int, sk: int, dtype: torch.dtype, d: int,
+               mxu_bf16: bool = False) -> str:
     """K2's kernel on the card for sq queries, sk keys and head dim d:
     "plain" (``attention_bwd_plain`` on the card) for d above MAX_HEAD_DIM;
     else "dec" (flash_attn_bwd_dec.cu, which gives dk and dv in the same
@@ -530,17 +643,21 @@ def dq_variant(sq: int, sk: int, dtype: torch.dtype, d: int) -> str:
     pair on "tc" (time_keep_ab.py rec, medians of four turns in turns),
     so the pair keeps "wg" there. Below 256 queries and keys the model has
     no site, and the decoder's 16 queries (a tile of 128 an eighth full)
-    keep "tc"."""
+    keep "tc". A float32 call in the mxu_bf16 mode takes "dec" or "tc" as
+    in ``fwd_variant``."""
     if d > MAX_HEAD_DIM:
         return "plain"
     if sq < TC_MIN_ROWS:
         return "dec"
+    if uses_mxu(dtype, mxu_bf16):
+        return "tc"
     if dtype != torch.bfloat16:
         return "tf32x3"
     return "wg" if _wg("dq", sq, sk, dtype, d) else "tc"
 
 
-def dkv_variant(sq: int, sk: int, dtype: torch.dtype, d: int) -> str:
+def dkv_variant(sq: int, sk: int, dtype: torch.dtype, d: int,
+                mxu_bf16: bool = False) -> str:
     """K3's kernel on the card for sq queries, sk keys and head dim d:
     "plain" and "dec" as for ``dq_variant``; with at least TC_MIN_ROWS
     queries and keys (the VL encoder and BERT) in bf16 "wg"
@@ -565,11 +682,15 @@ def dkv_variant(sq: int, sk: int, dtype: torch.dtype, d: int) -> str:
     always follows a K2-wg that hands it di and the keep bits (with them
     K3-wg draws no random number: at 8540^2, B=8 it reads 4.505 ms with
     dropout, chip_smoke.py phase 3d; 11.02 when it drew the mask itself,
-    time_keep_ab.py on the parent checkout in the same call)."""
+    time_keep_ab.py on the parent checkout in the same call). A float32
+    call in the mxu_bf16 mode takes "dec" or "tc" (at any key count) as in
+    ``fwd_variant``."""
     if d > MAX_HEAD_DIM:
         return "plain"
     if sq < TC_MIN_ROWS:
         return "dec"
+    if uses_mxu(dtype, mxu_bf16):
+        return "tc"
     if dtype != torch.bfloat16:
         return "tf32x3"
     return "wg" if _wg("dkv", sq, sk, dtype, d) else "tc"
@@ -581,11 +702,12 @@ _FLOAT = ctypes.c_float
 _DROPOUT_ARGS = [ctypes.c_uint64, ctypes.c_uint32, ctypes.c_float]
 # each C entry point: its source under csrc/ and its arguments before the
 # stream, which every entry point takes last: pointers, then B, H, Sq, Sk,
-# D, the softmax scale, then the dtype and threads per row where the kernel
-# takes them, then the dropout
+# D, the softmax scale, then the dtype where the kernel takes it (0
+# float32, 1 bf16, 2 float32 with bf16 products), then the dropout
 _ARGTYPES = {
     "flash_attn_fwd_tc": ("flash_attn_fwd_tc.cu",
-                          [_PTR] * 6 + [_INT] * 5 + [_FLOAT] + _DROPOUT_ARGS),
+                          [_PTR] * 6 + [_INT] * 5 + [_FLOAT, _INT]
+                          + _DROPOUT_ARGS),
     "flash_attn_fwd_wg": ("flash_attn_fwd_wg.cu",
                           [_PTR] * 6 + [_INT] * 5 + [_FLOAT] + _DROPOUT_ARGS),
     "flash_attn_fwd_f32tc": ("flash_attn_fwd_f32tc.cu",
@@ -595,7 +717,7 @@ _ARGTYPES = {
                            [_PTR] * 6 + [_INT] * 5 + [_FLOAT, _INT]
                            + _DROPOUT_ARGS),
     "flash_attn_bwd_dq_tc": ("flash_attn_bwd_dq_tc.cu",
-                             [_PTR] * 8 + [_INT] * 5 + [_FLOAT]
+                             [_PTR] * 8 + [_INT] * 5 + [_FLOAT, _INT]
                              + _DROPOUT_ARGS),
     "flash_attn_bwd_dq_wg": ("flash_attn_bwd_dq_wg.cu",
                              [_PTR] * 10 + [_INT] * 5 + [_FLOAT]
@@ -604,7 +726,7 @@ _ARGTYPES = {
                                 [_PTR] * 8 + [_INT] * 5 + [_FLOAT]
                                 + _DROPOUT_ARGS),
     "flash_attn_bwd_dkv_tc": ("flash_attn_bwd_dkv_tc.cu",
-                              [_PTR] * 9 + [_INT] * 5 + [_FLOAT]
+                              [_PTR] * 9 + [_INT] * 5 + [_FLOAT, _INT]
                               + _DROPOUT_ARGS),
     # no seed: it reads the keep bits (or none), and the keep scale
     "flash_attn_bwd_dkv_wg": ("flash_attn_bwd_dkv_wg.cu",
@@ -651,12 +773,13 @@ def _unpad(t: torch.Tensor, d: int) -> torch.Tensor:
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              valid_mask: Optional[torch.Tensor], dropout_rate: float,
-             seed: Optional[int], return_lse: bool = True):
+             seed: Optional[int], return_lse: bool = True,
+             mxu_bf16: bool = False):
     """K1 without autograd, on checked inputs, through the registered op
     ``torch.ops.reftr.flash_attention_fwd``: (out [B, Sq, H, D], lse
     [B, H, Sq] f32 or None)."""
     out, lse = torch.ops.reftr.flash_attention_fwd(
-        q, k, v, valid_mask, dropout_rate, seed, return_lse)
+        q, k, v, valid_mask, dropout_rate, seed, return_lse, mxu_bf16)
     return out, (lse if return_lse else None)
 
 
@@ -678,15 +801,18 @@ def _dense(t: torch.Tensor) -> torch.Tensor:
 
 
 def _plain_fwd(q, k, v, valid_mask, dropout_rate: float,
-               seed: Optional[int], return_lse: bool):
+               seed: Optional[int], return_lse: bool,
+               mxu_bf16: bool = False):
     """``attention_plain`` as K1's launchers return it: (out, lse or
     None), row-major."""
     if return_lse:
         out, lse = attention_plain(q, k, v, valid_mask, True,
-                                   dropout_rate=dropout_rate, seed=seed)
+                                   dropout_rate=dropout_rate, seed=seed,
+                                   mxu_bf16=mxu_bf16)
         return _dense(out), _dense(lse)
     return _dense(attention_plain(q, k, v, valid_mask,
-                                  dropout_rate=dropout_rate, seed=seed)), None
+                                  dropout_rate=dropout_rate, seed=seed,
+                                  mxu_bf16=mxu_bf16)), None
 
 
 def _check_aligned(what: str, *tensors: Optional[torch.Tensor]) -> None:
@@ -699,10 +825,10 @@ def _check_aligned(what: str, *tensors: Optional[torch.Tensor]) -> None:
 def _check_tc(*tensors: Optional[torch.Tensor],
               dtype: torch.dtype = torch.bfloat16) -> None:
     """What the tensor-core kernels take beyond ``_check_cuda``: their
-    dtype (bf16, or float32 for the 3xTF32 kernels), and 16-byte aligned
-    rows for their cp.async tile copies."""
+    dtype (bf16, or float32 for the 3xTF32 kernels and the "tc" kernels'
+    mxu_bf16 mode), and 16-byte aligned rows for their tile copies."""
     if tensors[0].dtype != dtype:
-        name = "bf16" if dtype == torch.bfloat16 else "3xTF32"
+        name = "bf16" if dtype == torch.bfloat16 else "float32"
         raise TypeError(f"the {name} tensor-core kernels take "
                         f"{str(dtype).removeprefix('torch.')}, not "
                         f"{tensors[0].dtype}")
@@ -719,15 +845,27 @@ def _check_wg(*tensors: Optional[torch.Tensor]) -> None:
                          f"{WG_HEAD_DIM}, not {tensors[0].shape[-1]}")
 
 
+def _mxu_variant(what: str, variant: str, mxu: bool) -> None:
+    """The mxu_bf16 mode runs on the "dec" and "tc" kernels alone."""
+    if mxu and variant not in ("dec", "tc", "plain"):
+        raise ValueError(f"{what}'s {variant!r} kernel has no mxu_bf16 mode: "
+                         f"the rule sends such calls to 'dec' or 'tc'")
+
+
 def _launch_fwd(variant: str, q, k, v, valid_mask, dropout_rate: float,
-                seed: Optional[int], return_lse: bool = True):
+                seed: Optional[int], return_lse: bool = True,
+                mxu_bf16: bool = False):
     """Launch K1's ``variant`` ("dec", "tc", "wg" or "tf32x3"; "plain" runs
     ``attention_plain``) on CUDA tensors: (out, lse or None), both
     row-major. A head dim between the instances is zero-padded to the next
-    one."""
+    one. With ``mxu_bf16`` a float32 call takes bf16 products ("dec" and
+    "tc" only; counted also in ``launches_mxu``)."""
+    mxu = uses_mxu(q.dtype, mxu_bf16)
+    _mxu_variant("K1", variant, mxu)
     if variant == "plain":
         flash_attention.launches_plain += 1
-        return _plain_fwd(q, k, v, valid_mask, dropout_rate, seed, return_lse)
+        return _plain_fwd(q, k, v, valid_mask, dropout_rate, seed, return_lse,
+                          mxu)
     _check_cuda(q, k, v, valid_mask)
     b, sq, h, d = q.shape
     dp = padded_head_dim(d)
@@ -743,11 +881,12 @@ def _launch_fwd(variant: str, q, k, v, valid_mask, dropout_rate: float,
     if variant == "dec":
         _check_aligned("decode", q, k, v)
         _launch("flash_attn_fwd_dec", q.device, *ptrs, *shape,
-                _DTYPES[q.dtype], *drop)
+                _MXU_F32 if mxu else _DTYPES[q.dtype], *drop)
         flash_attention.launches_dec += 1
     elif variant == "tc":
-        _check_tc(q, k, v)
-        _launch("flash_attn_fwd_tc", q.device, *ptrs, *shape, *drop)
+        _check_tc(q, k, v, dtype=torch.float32 if mxu else torch.bfloat16)
+        _launch("flash_attn_fwd_tc", q.device, *ptrs, *shape,
+                _MXU_F32 if mxu else _DTYPES[torch.bfloat16], *drop)
         flash_attention.launches_tc += 1
     elif variant == "wg":
         _check_wg(q, k, v)
@@ -760,20 +899,23 @@ def _launch_fwd(variant: str, q, k, v, valid_mask, dropout_rate: float,
     else:
         raise ValueError(f"unknown variant {variant!r}")
     flash_attention.launches += 1
+    flash_attention.launches_mxu += mxu
     return _unpad(out, d), lse
 
 
 def flash_attn_bwd_dq(q, k, v, valid_mask, o, lse, do,
                       dropout_rate: float = 0.0,
-                      seed: Optional[int] = None) -> torch.Tensor:
+                      seed: Optional[int] = None,
+                      mxu_bf16: bool = False) -> torch.Tensor:
     """K2: dq [B, Sq, H, D] in the input dtype. The plain version on a CPU
     tensor."""
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, valid_mask, o, lse, do,
-                                   dropout_rate, seed)[0]
+                                   dropout_rate, seed, mxu_bf16=mxu_bf16)[0]
     return _launch_dq(dq_variant(q.shape[1], k.shape[1], q.dtype,
-                                 q.shape[-1]),
-                      q, k, v, valid_mask, o, lse, do, dropout_rate, seed)
+                                 q.shape[-1], mxu_bf16),
+                      q, k, v, valid_mask, o, lse, do, dropout_rate, seed,
+                      mxu_bf16=mxu_bf16)
 
 
 def _bwd_inputs(q, k, v, valid_mask, o, lse, do):
@@ -819,19 +961,23 @@ def new_keep_bits(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 def _launch_dq(variant: str, q, k, v, valid_mask, o, lse, do,
                dropout_rate: float, seed: Optional[int],
                di_out: Optional[torch.Tensor] = None,
-               bits_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+               bits_out: Optional[torch.Tensor] = None,
+               mxu_bf16: bool = False) -> torch.Tensor:
     """Launch K2's ``variant`` ("dec", "tc", "wg" or "tf32x3"; "plain" runs
     ``attention_bwd_plain``) on CUDA tensors: dq. "wg" alone takes
     ``di_out`` ([B, H, Sq] f32), where it also writes di = rowsum(dO * O),
     and, with dropout, ``bits_out`` (``new_keep_bits``), where it writes
-    the mask it drew: both for K3-wg."""
+    the mask it drew: both for K3-wg. ``mxu_bf16`` as in
+    ``_launch_fwd``."""
     if (di_out is not None or bits_out is not None) and variant != "wg":
         raise ValueError(f"di_out and bits_out are K2-wg's, not for "
                          f"variant {variant}")
     _check_keep_bits("bits_out", bits_out, q, k, dropout_rate)
+    mxu = uses_mxu(q.dtype, mxu_bf16)
+    _mxu_variant("K2", variant, mxu)
     if variant in ("dec", "plain"):
         return _bwd_shared(variant, q, k, v, valid_mask, o, lse, do,
-                           dropout_rate, seed)[0]
+                           dropout_rate, seed, mxu)[0]
     q, k, v, o, do, d, shape = _bwd_inputs(q, k, v, valid_mask, o, lse, do)
     dq = torch.empty_like(q)
     ptrs = (_ptr(q), _ptr(k), _ptr(v), _ptr(valid_mask), _ptr(o), _ptr(do),
@@ -844,8 +990,10 @@ def _launch_dq(variant: str, q, k, v, valid_mask, o, lse, do,
         raise ValueError(f"di_out must be float32 {tuple(lse.shape)}, "
                          f"contiguous, on {q.device}")
     if variant == "tc":
-        _check_tc(q, k, v, o, do)
-        _launch("flash_attn_bwd_dq_tc", q.device, *ptrs, *shape, *drop)
+        _check_tc(q, k, v, o, do,
+                  dtype=torch.float32 if mxu else torch.bfloat16)
+        _launch("flash_attn_bwd_dq_tc", q.device, *ptrs, *shape,
+                _MXU_F32 if mxu else _DTYPES[torch.bfloat16], *drop)
         flash_attn_bwd_dq.launches_tc += 1
     elif variant == "wg":
         _check_wg(q, k, v, o, do)
@@ -859,13 +1007,15 @@ def _launch_dq(variant: str, q, k, v, valid_mask, o, lse, do,
     else:
         raise ValueError(f"unknown variant {variant!r}")
     flash_attn_bwd_dq.launches += 1
+    flash_attn_bwd_dq.launches_mxu += mxu
     return _unpad(dq, d)
 
 
 def flash_attn_bwd_dkv(q, k, v, valid_mask, o, lse, do,
                        dropout_rate: float = 0.0, seed: Optional[int] = None,
                        di: Optional[torch.Tensor] = None,
-                       keep_bits: Optional[torch.Tensor] = None
+                       keep_bits: Optional[torch.Tensor] = None,
+                       mxu_bf16: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3: (dk, dv) [B, Sk, H, D] in the input dtype. The plain version on
     a CPU tensor. The "wg" kernel reads di = rowsum(dO * O) [B, H, Sq]
@@ -876,11 +1026,12 @@ def flash_attn_bwd_dkv(q, k, v, valid_mask, o, lse, do,
     themselves and ignore both."""
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, valid_mask, o, lse, do,
-                                   dropout_rate, seed)[1:]
+                                   dropout_rate, seed,
+                                   mxu_bf16=mxu_bf16)[1:]
     return _launch_dkv(dkv_variant(q.shape[1], k.shape[1], q.dtype,
-                                   q.shape[-1]),
+                                   q.shape[-1], mxu_bf16),
                        q, k, v, valid_mask, o, lse, do, dropout_rate, seed,
-                       di, keep_bits)
+                       di, keep_bits, mxu_bf16)
 
 
 def di_plain(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -892,14 +1043,18 @@ def di_plain(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 def _launch_dkv(variant: str, q, k, v, valid_mask, o, lse, do,
                 dropout_rate: float, seed: Optional[int],
                 di: Optional[torch.Tensor] = None,
-                keep_bits: Optional[torch.Tensor] = None
+                keep_bits: Optional[torch.Tensor] = None,
+                mxu_bf16: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K3's ``variant`` ("dec", "tc", "wg" or "tf32x3";
     "plain" runs ``attention_bwd_plain``) on CUDA tensors: (dk, dv). "wg"
-    reads ``di`` and ``keep_bits`` (``_launch_dkv_wg``)."""
+    reads ``di`` and ``keep_bits`` (``_launch_dkv_wg``). ``mxu_bf16`` as
+    in ``_launch_fwd``."""
+    mxu = uses_mxu(q.dtype, mxu_bf16)
+    _mxu_variant("K3", variant, mxu)
     if variant in ("dec", "plain"):
         return _bwd_shared(variant, q, k, v, valid_mask, o, lse, do,
-                           dropout_rate, seed)[1:]
+                           dropout_rate, seed, mxu)[1:]
     if variant == "wg":
         return _launch_dkv_wg(q, k, v, valid_mask, o, lse, do, dropout_rate,
                               seed, di, keep_bits)
@@ -910,8 +1065,10 @@ def _launch_dkv(variant: str, q, k, v, valid_mask, o, lse, do,
             _ptr(lse), _ptr(dk), _ptr(dv))
     drop = _dropout_args(dropout_rate, seed)
     if variant == "tc":
-        _check_tc(q, k, v, o, do)
-        _launch("flash_attn_bwd_dkv_tc", q.device, *ptrs, *shape, *drop)
+        _check_tc(q, k, v, o, do,
+                  dtype=torch.float32 if mxu else torch.bfloat16)
+        _launch("flash_attn_bwd_dkv_tc", q.device, *ptrs, *shape,
+                _MXU_F32 if mxu else _DTYPES[torch.bfloat16], *drop)
         flash_attn_bwd_dkv.launches_tc += 1
     elif variant == "tf32x3":
         _check_tc(q, k, v, o, do, dtype=torch.float32)
@@ -920,6 +1077,7 @@ def _launch_dkv(variant: str, q, k, v, valid_mask, o, lse, do,
     else:
         raise ValueError(f"unknown variant {variant!r}")
     flash_attn_bwd_dkv.launches += 1
+    flash_attn_bwd_dkv.launches_mxu += mxu
     return _unpad(dk, d), _unpad(dv, d)
 
 
@@ -959,25 +1117,26 @@ def _launch_dkv_wg(q, k, v, valid_mask, o, lse, do, dropout_rate: float,
 
 
 def _bwd_shared(variant: str, q, k, v, valid_mask, o, lse, do,
-                dropout_rate: float, seed: Optional[int]
+                dropout_rate: float, seed: Optional[int], mxu: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The variants that give K2's and K3's gradients in one call: "dec",
     the decode backward, and "plain", ``attention_bwd_plain`` on the card.
-    The call counts once on K2 and once on K3."""
+    The call counts once on K2 and once on K3. ``mxu``: a float32 call in
+    the mxu_bf16 mode."""
     if variant == "plain":
         grads = attention_bwd_plain(q, k, v, valid_mask, o, lse, do,
-                                    dropout_rate, seed)
+                                    dropout_rate, seed, mxu_bf16=mxu)
         for wrapper in (flash_attn_bwd_dq, flash_attn_bwd_dkv):
             wrapper.launches_plain += 1
         return grads
     if variant != "dec":
         raise ValueError(f"unknown variant {variant!r}")
     return _launch_bwd_dec(q, k, v, valid_mask, o, lse, do, dropout_rate,
-                           seed)
+                           seed, mxu)
 
 
 def _launch_bwd_dec(q, k, v, valid_mask, o, lse, do, dropout_rate: float,
-                    seed: Optional[int]
+                    seed: Optional[int], mxu: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the decode backward (flash_attn_bwd_dec.cu: K2 and K3 in one
     kernel, fewer than TC_MIN_ROWS queries) on CUDA tensors: (dq, dk, dv).
@@ -993,11 +1152,12 @@ def _launch_bwd_dec(q, k, v, valid_mask, o, lse, do, dropout_rate: float,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     _launch("flash_attn_bwd_dec", q.device, _ptr(q), _ptr(k), _ptr(v),
             _ptr(valid_mask), _ptr(o), _ptr(do), _ptr(lse), _ptr(dq),
-            _ptr(dk), _ptr(dv), *shape, _DTYPES[q.dtype],
+            _ptr(dk), _ptr(dv), *shape, _MXU_F32 if mxu else _DTYPES[q.dtype],
             *_dropout_args(dropout_rate, seed))
     for wrapper in (flash_attn_bwd_dq, flash_attn_bwd_dkv):
         wrapper.launches += 1
         wrapper.launches_dec += 1
+        wrapper.launches_mxu += mxu
     return _unpad(dq, d), _unpad(dk, d), _unpad(dv, d)
 
 
@@ -1011,6 +1171,8 @@ for _wrapper in (flash_attn_bwd_dq, flash_attn_bwd_dkv):
     _wrapper.launches_tf32x3 = 0
     _wrapper.launches_dec = 0
     _wrapper.launches_plain = 0
+    # the launches above of a float32 call in the mxu_bf16 mode
+    _wrapper.launches_mxu = 0
 # K3-wg calls that took their keep bits from keep_bits_plain (no K2-wg
 # before them): 0 over a training step
 flash_attn_bwd_dkv.bits_plain = 0
@@ -1023,29 +1185,35 @@ class FlashAttentionFn(torch.autograd.Function):
     decode backward for fewer than TC_MIN_ROWS queries, one call of
     ``attention_bwd_plain`` for a head dim above MAX_HEAD_DIM; their plain
     versions on the CPU; where K3 takes "wg", so does K2, which writes di
-    and, with dropout, the keep bits for it) and gives no gradient for the
-    mask, the rate or the seed."""
+    and, with dropout, the keep bits for it; in the mxu_bf16 mode, K2 and
+    K3 in it too) and gives no gradient for the mask, the rate, the seed or
+    the mode."""
 
     @staticmethod
-    def forward(ctx, q, k, v, valid_mask, dropout_rate, seed):
-        out, lse = _forward(q, k, v, valid_mask, dropout_rate, seed)
+    def forward(ctx, q, k, v, valid_mask, dropout_rate, seed,
+                mxu_bf16=False):
+        out, lse = _forward(q, k, v, valid_mask, dropout_rate, seed,
+                            mxu_bf16=mxu_bf16)
         ctx.save_for_backward(q, k, v, valid_mask, out, lse)
         ctx.dropout = (dropout_rate, seed)
+        ctx.mxu = uses_mxu(q.dtype, mxu_bf16)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, valid_mask, out, lse = ctx.saved_tensors
         do = do.to(out.dtype).contiguous()
-        variant = dq_variant(q.shape[1], k.shape[1], q.dtype, q.shape[-1])
+        mxu = ctx.mxu
+        variant = dq_variant(q.shape[1], k.shape[1], q.dtype, q.shape[-1],
+                             mxu)
         if q.device.type == "cpu":
             dq, dk, dv = attention_bwd_plain(q, k, v, valid_mask, out, lse,
-                                             do, *ctx.dropout)
+                                             do, *ctx.dropout, mxu_bf16=mxu)
         elif variant in ("dec", "plain"):
             dq, dk, dv = _bwd_shared(variant, q, k, v, valid_mask, out, lse,
-                                     do, *ctx.dropout)
-        elif dkv_variant(q.shape[1], k.shape[1], q.dtype,
-                         q.shape[-1]) == "wg":
+                                     do, *ctx.dropout, mxu)
+        elif dkv_variant(q.shape[1], k.shape[1], q.dtype, q.shape[-1],
+                         mxu) == "wg":
             # K2-wg hands K3-wg each query's di = rowsum(dO * O) and, with
             # dropout, the mask it drew; the bits are freed as K3 returns
             di = torch.empty_like(lse)
@@ -1056,16 +1224,16 @@ class FlashAttentionFn(torch.autograd.Function):
                                  *ctx.dropout, di, bits)
         else:
             dq = flash_attn_bwd_dq(q, k, v, valid_mask, out, lse, do,
-                                   *ctx.dropout)
+                                   *ctx.dropout, mxu_bf16=mxu)
             dk, dv = flash_attn_bwd_dkv(q, k, v, valid_mask, out, lse, do,
-                                        *ctx.dropout)
-        return dq, dk, dv, None, None, None
+                                        *ctx.dropout, mxu_bf16=mxu)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     valid_mask: Optional[torch.Tensor] = None,
                     return_lse: bool = False, *, dropout_rate: float = 0.0,
-                    seed: Optional[int] = None
+                    seed: Optional[int] = None, mxu_bf16: bool = False
                     ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """softmax(q k^T / sqrt(D) - 1e9 * ~valid) v per batch and head, with
     attention dropout at ``dropout_rate`` keyed by ``seed``.
@@ -1075,7 +1243,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B, Sq, H, D] in the input dtype and, with return_lse, the row
     logsumexp [B, H, Sq] f32. Where grad is enabled and q, k or v needs
     it, the call goes through ``FlashAttentionFn`` (K1, then K2 and K3 in
-    the backward); return_lse is for calls without grad.
+    the backward); return_lse is for calls without grad. ``mxu_bf16``:
+    for float32 inputs, every product of K1, K2 and K3 takes bf16
+    operands and sums in float32 (``fused_attention(mxu_bf16=True)``,
+    reftr_tpu/kernels/attention.py:505-571); for bf16 inputs it changes
+    nothing. Off by default, and no model path sets it.
     """
     _check(q, k, v, valid_mask)
     _check_dropout(dropout_rate, seed)
@@ -1084,9 +1256,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if return_lse:
             raise ValueError("return_lse is for calls without grad")
         return FlashAttentionFn.apply(q, k, v, valid_mask, dropout_rate,
-                                      seed)
+                                      seed, mxu_bf16)
     out, lse = _forward(q, k, v, valid_mask, dropout_rate, seed,
-                        return_lse=return_lse)
+                        return_lse=return_lse, mxu_bf16=mxu_bf16)
     return (out, lse) if return_lse else out
 
 
@@ -1096,6 +1268,7 @@ flash_attention.launches_wg = 0
 flash_attention.launches_tf32x3 = 0
 flash_attention.launches_dec = 0
 flash_attention.launches_plain = 0
+flash_attention.launches_mxu = 0
 
 
 # K1 as an operator of the dispatcher, so that a traced program
@@ -1105,35 +1278,39 @@ flash_attention.launches_plain = 0
 # calls the Python implementation directly, where custom_op's wrapper adds
 # Python work to each of a forward's 30 calls (PERF.md §6, phase 12d).
 # lse is an empty float32 tensor without return_lse (the schema has no
-# optional output), and the launchers then write none. K2 and K3 are not
-# ops: no traced program runs the backward.
+# optional output), and the launchers then write none. mxu_bf16 defaults to
+# False, so a program traced without it holds the same node. K2 and K3 are
+# not ops: no traced program runs the backward.
 _LIB = torch.library.Library("reftr", "DEF")
 _LIB.define("flash_attention_fwd(Tensor q, Tensor k, Tensor v, "
             "Tensor? valid_mask, float dropout_rate, int? seed, "
-            "bool return_lse) -> (Tensor, Tensor)")
+            "bool return_lse, bool mxu_bf16=False) -> (Tensor, Tensor)")
 
 
 def _no_lse(q: torch.Tensor) -> torch.Tensor:
     return q.new_empty((0,), dtype=torch.float32)
 
 
-def _fwd_op_cpu(q, k, v, valid_mask, dropout_rate, seed, return_lse):
+def _fwd_op_cpu(q, k, v, valid_mask, dropout_rate, seed, return_lse,
+                mxu_bf16=False):
     """The op on CPU tensors: the plain version."""
     out, lse = _plain_fwd(q, k, v, valid_mask, dropout_rate, seed,
-                          return_lse)
+                          return_lse, mxu_bf16)
     return out, _no_lse(q) if lse is None else lse
 
 
-def _fwd_op_cuda(q, k, v, valid_mask, dropout_rate, seed, return_lse):
+def _fwd_op_cuda(q, k, v, valid_mask, dropout_rate, seed, return_lse,
+                 mxu_bf16=False):
     """The op on CUDA tensors: K1's variant by the rule (fwd_variant)."""
     out, lse = _launch_fwd(fwd_variant(q.shape[1], k.shape[1], q.dtype,
-                                       q.shape[-1]),
+                                       q.shape[-1], mxu_bf16),
                            q, k, v, valid_mask, dropout_rate, seed,
-                           return_lse)
+                           return_lse, mxu_bf16)
     return out, _no_lse(q) if lse is None else lse
 
 
-def _fwd_op_fake(q, k, v, valid_mask, dropout_rate, seed, return_lse):
+def _fwd_op_fake(q, k, v, valid_mask, dropout_rate, seed, return_lse,
+                 mxu_bf16=False):
     """The op's outputs as both implementations give them: out [B, Sq, H,
     D] in q's dtype, lse [B, H, Sq] float32 (or [0]), row-major."""
     b, sq, h, _ = q.shape

@@ -26,6 +26,13 @@
 // [B, Sk] bool (nullable); lse [B, H, Sq] f32; D in {16, 32, 64, 128};
 // Sq <= 15.
 //
+// mxu_bf16 (dtype 2, T = float, kMxu): the TPU kernels' `_mxu` mode
+// (:69-83) for float32 callers: q and dO are staged rounded to bf16, each
+// key and value row is rounded as it is loaded, and ds and p * keep are
+// rounded before they multiply q, k and dO; di is summed from the
+// unrounded dO and O (:251-253, :323-325), and the sums and gradients stay
+// float32.
+//
 // Design. A short query side is bound by reading K and V and writing dK and
 // dV once each, so one launch does all three gradients and reads K and V
 // once (the SIMT pair reads them twice, in two launches):
@@ -165,7 +172,13 @@ __device__ __forceinline__ void store_part(__nv_bfloat16* p,
   }
 }
 
-template <typename T, int D>
+// x rounded to bf16 where the call takes bf16 products.
+template <bool kMxu>
+__device__ __forceinline__ float operand(float x) {
+  return kMxu ? flash::round_bf16(x) : x;
+}
+
+template <typename T, int D, bool kMxu>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dec_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v,
@@ -208,8 +221,8 @@ flash_bwd_dec_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int d = lane; d < D; d += 32) {
       const long off = q_base + i * row_stride + d;
       const float g = to_f32(dout[off]);
-      qs[i][d] = to_f32(q[off]);
-      dos[i][d] = g;
+      qs[i][d] = operand<kMxu>(to_f32(q[off]));
+      dos[i][d] = operand<kMxu>(g);
       s = fmaf(g, to_f32(o[off]), s);
     }
 #pragma unroll
@@ -235,6 +248,11 @@ flash_bwd_dec_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int j = min(j0 + u, Sk - 1);  // keys past Sk: valid address
       load_part<E>(kr[u], kb + j * row_stride);
       load_part<E>(vr[u], vb + j * row_stride);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        kr[u][e] = operand<kMxu>(kr[u][e]);
+        vr[u][e] = operand<kMxu>(vr[u][e]);
+      }
       bias[u] = (vrow == nullptr || vrow[j]) ? 0.f : flash::kMaskBias;
 #pragma unroll
       for (int e = 0; e < E; ++e) dkr[u][e] = dvr[u][e] = 0.f;
@@ -297,8 +315,8 @@ flash_bwd_dec_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             ? flash::logit(dot, scale, bias[u], shift)
                             : -INFINITY;
         const float p = expf(x - lse_i);
-        const float ds = p * (dp * kp[u] - di_i);
-        const float pk = p * kp[u];
+        const float ds = operand<kMxu>(p * (dp * kp[u] - di_i));
+        const float pk = operand<kMxu>(p * kp[u]);
 #pragma unroll
         for (int e = 0; e < E; ++e) {
           dkr[u][e] = fmaf(ds, qi[e], dkr[u][e]);
@@ -339,7 +357,7 @@ flash_bwd_dec_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kMxu>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const uint8_t* valid, const void* o, const void* dout,
                    const float* lse, void* dq, void* dk, void* dv, int B,
@@ -350,21 +368,23 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   constexpr int bytes = kSmemBytes<D>;
   if (bytes > 48 * 1024) {  // above 48 KB only by opting in
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dec_kernel<T, D>,
+        flash_bwd_dec_kernel<T, D, kMxu>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
   }
-  flash_bwd_dec_kernel<T, D><<<(unsigned)blocks, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), valid, static_cast<const T*>(o),
-      static_cast<const T*>(dout), lse, static_cast<T*>(dq),
-      static_cast<T*>(dk), static_cast<T*>(dv), H, Sq, Sk, scale, dr);
+  flash_bwd_dec_kernel<T, D, kMxu>
+      <<<(unsigned)blocks, kThreads, bytes, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), valid, static_cast<const T*>(o),
+          static_cast<const T*>(dout), lse, static_cast<T*>(dq),
+          static_cast<T*>(dk), static_cast<T*>(dv), H, Sq, Sk, scale, dr);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; 1 <= Sq <= 15; q, k, v, O, dO and the
+// dtype: 0 = float32, 1 = bfloat16, 2 = float32 with bf16 products
+// (mxu_bf16); 1 <= Sq <= 15; q, k, v, O, dO and the
 // gradients 16-byte aligned; scale = 1 / sqrt(the caller's head dim), which
 // is below D where the caller zero-pads the head dim up to D. Dropout as in
 // flash_attn_fwd: threshold = ceil(rate * 2^24) (0 = none), inv_keep =
@@ -382,23 +402,30 @@ extern "C" int flash_attn_bwd_dec(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout dr{seed, threshold, inv_keep};
-#define DEC_CASE(T, DIM)                                                    \
-  case DIM:                                                                 \
-    return (int)launch<T, DIM>(q, k, v, valid, o, dout, lse, dq, dk, dv, B, \
-                               H, Sq, Sk, scale, dr, s);
+#define DEC_CASE(T, DIM, MXU)                                            \
+  case DIM:                                                              \
+    return (int)launch<T, DIM, MXU>(q, k, v, valid, o, dout, lse, dq, dk, \
+                                    dv, B, H, Sq, Sk, scale, dr, s);
   if (dtype == 0) {
     switch (D) {
-      DEC_CASE(float, 16)
-      DEC_CASE(float, 32)
-      DEC_CASE(float, 64)
-      DEC_CASE(float, 128)
+      DEC_CASE(float, 16, false)
+      DEC_CASE(float, 32, false)
+      DEC_CASE(float, 64, false)
+      DEC_CASE(float, 128, false)
     }
   } else if (dtype == 1) {
     switch (D) {
-      DEC_CASE(__nv_bfloat16, 16)
-      DEC_CASE(__nv_bfloat16, 32)
-      DEC_CASE(__nv_bfloat16, 64)
-      DEC_CASE(__nv_bfloat16, 128)
+      DEC_CASE(__nv_bfloat16, 16, false)
+      DEC_CASE(__nv_bfloat16, 32, false)
+      DEC_CASE(__nv_bfloat16, 64, false)
+      DEC_CASE(__nv_bfloat16, 128, false)
+    }
+  } else if (dtype == 2) {
+    switch (D) {
+      DEC_CASE(float, 16, true)
+      DEC_CASE(float, 32, true)
+      DEC_CASE(float, 64, true)
+      DEC_CASE(float, 128, true)
     }
   }
 #undef DEC_CASE

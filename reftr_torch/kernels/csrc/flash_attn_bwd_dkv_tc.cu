@@ -2,7 +2,8 @@
 // plain C interface for ctypes: K3-TC.
 //
 // Replaces, for bf16 inputs with at least 16 queries and any number of
-// keys, the TPU kernel `_bwd_dkv_kernel` of reftr_tpu/kernels/attention.py
+// keys, and for float32 inputs in the mxu_bf16 mode (below), the TPU
+// kernel `_bwd_dkv_kernel` of reftr_tpu/kernels/attention.py
 // (:287-339, pallas_call at :434). The same function and contract as dk
 // and dv of kernels/attention.py::attention_bwd_plain, in the transposed
 // form the tensor cores take, with keys as the M side and queries as N:
@@ -49,6 +50,13 @@
 // - Precision: dS^T enters the dK product rounded to bf16 (relative
 //   2^-9 per term), as P does in the forward; the tolerance, 1e-2 of the
 //   largest plain gradient, holds with that (PERF.md).
+// - mxu_bf16 (T = float): the TPU kernel's `_mxu` mode (:69-83) for
+//   float32 callers. K, V, Q and dO are rounded to bf16 in registers as
+//   they are staged (flash_attn_fwd_tc.cu says why there), P^T o keep and
+//   dS^T as they already are; di = rowsum(dO o O) is summed from the
+//   float32 dO and O in global memory (two threads a query), as the TPU
+//   kernel sums it from its unrounded tiles (:323-325), so O is not
+//   staged; dk and dv are stored as float32.
 //
 // Bound on an NVIDIA H100 80GB HBM3 at its 700 W power limit (data sheet):
 // at the VL encoder's shape (B=8, H=8, S=440, D=32) the four products are
@@ -60,6 +68,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "flash_common.cuh"
 #include "flash_tc.cuh"
@@ -81,15 +91,15 @@ constexpr int smem_bytes() {
   return (2 * kKeys + 6 * kTileQ) * Tile<D>::kStride * 2 + 4 * kTileQ * 4;
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, D <= 32 ? 4 : 2)
-flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
+flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v,
                         const uint8_t* __restrict__ valid,
-                        const bf16* __restrict__ o,
-                        const bf16* __restrict__ dout,
-                        const float* __restrict__ lse, bf16* __restrict__ dk,
-                        bf16* __restrict__ dv, int H, int Sq, int Sk,
+                        const T* __restrict__ o,
+                        const T* __restrict__ dout,
+                        const float* __restrict__ lse, T* __restrict__ dk,
+                        T* __restrict__ dv, int H, int Sq, int Sk,
                         int n_kt, float scale, Dropout dr) {
   constexpr int kS = Tile<D>::kStride;
   constexpr int kTile = kTileQ * kS;  // elements of one staged tile
@@ -113,9 +123,10 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int c = (lane % 4) * 2;  // this lane's first query in an n-tile
   const long row_stride = (long)H * D;
   const long head = h * D;
-  const bf16* qb = q + (long)b * Sq * row_stride + head;
-  const bf16* ob = o + (long)b * Sq * row_stride + head;
-  const bf16* dob = dout + (long)b * Sq * row_stride + head;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  const T* qb = q + (long)b * Sq * row_stride + head;
+  const T* ob = o + (long)b * Sq * row_stride + head;
+  const T* dob = dout + (long)b * Sq * row_stride + head;
   const int n_qt = (Sq + kTileQ - 1) / kTileQ;
 
   auto stage = [&](int t) {
@@ -125,8 +136,9 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                              row_stride, nq);
     flash_tc::load_tile<D, kTileQ, kThreads>(dos + buf * kTile, dob + off,
                                              row_stride, nq);
-    flash_tc::load_tile<D, kTileQ, kThreads>(os + buf * kTile, ob + off,
-                                             row_stride, nq);
+    if constexpr (!kF32)
+      flash_tc::load_tile<D, kTileQ, kThreads>(os + buf * kTile, ob + off,
+                                               row_stride, nq);
     if (tid < kTileQ)
       flash_tc::cp_async4(ls + buf * kTileQ + tid,
                           lse + (long)bh * Sq + q0 + (tid < nq ? tid : 0),
@@ -190,14 +202,25 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         flash_tc::load_a<D>(va[kk], vs, warp * 16, kk * 16);
       }
     }
-    {  // di of the tile's queries, two threads a query
+    {  // di of the tile's queries, two threads a query: of the staged
+       // tiles or, in float32, of dO and O in global memory
       const int row = tid / 2, half = tid % 2;
-      const bf16* drow = dot + row * kS + half * (D / 2);
-      const bf16* orow = os + buf * kTile + row * kS + half * (D / 2);
       float sum = 0.f;
+      if constexpr (kF32) {
+        const long off = (long)(q0 + row) * row_stride + half * (D / 2);
+        if (q0 + row < Sq) {
 #pragma unroll
-      for (int d = 0; d < D / 2; ++d)
-        sum = fmaf(__bfloat162float(drow[d]), __bfloat162float(orow[d]), sum);
+          for (int d = 0; d < D / 2; ++d)
+            sum = fmaf(dob[off + d], ob[off + d], sum);
+        }
+      } else {
+        const bf16* drow = dot + row * kS + half * (D / 2);
+        const bf16* orow = os + buf * kTile + row * kS + half * (D / 2);
+#pragma unroll
+        for (int d = 0; d < D / 2; ++d)
+          sum = fmaf(__bfloat162float(drow[d]), __bfloat162float(orow[d]),
+                     sum);
+      }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       if (half == 0) dis[buf * kTileQ + row] = sum;
     }
@@ -275,16 +298,14 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const long off = ((long)b * Sk + keys[r]) * row_stride + head + c;
 #pragma unroll
     for (int n = 0; n < kN; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + off + n * 8) =
-          __floats2bfloat162_rn(dka[n][2 * r] * scale,
-                                dka[n][2 * r + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off + n * 8) =
-          __floats2bfloat162_rn(dva[n][2 * r], dva[n][2 * r + 1]);
+      flash_tc::store2(dk + off + n * 8, dka[n][2 * r] * scale,
+                       dka[n][2 * r + 1] * scale);
+      flash_tc::store2(dv + off + n * 8, dva[n][2 * r], dva[n][2 * r + 1]);
     }
   }
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const uint8_t* valid, const void* o, const void* dout,
                    const float* lse, void* dk, void* dv, int B, int H, int Sq,
@@ -295,50 +316,69 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   constexpr int bytes = smem_bytes<D>();
   if (bytes > 48 * 1024) {  // above 48 KB only by opting in
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dkv_tc_kernel<D>,
+        flash_bwd_dkv_tc_kernel<T, D>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
   }
-  flash_bwd_dkv_tc_kernel<D><<<(unsigned)blocks, kThreads, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), valid, static_cast<const bf16*>(o),
-      static_cast<const bf16*>(dout), lse, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), H, Sq, Sk, n_kt, scale, dr);
+  flash_bwd_dkv_tc_kernel<T, D>
+      <<<(unsigned)blocks, kThreads, bytes, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), valid, static_cast<const T*>(o),
+          static_cast<const T*>(dout), lse, static_cast<T*>(dk),
+          static_cast<T*>(dv), H, Sq, Sk, n_kt, scale, dr);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_d(const void* q, const void* k, const void* v,
+                       const uint8_t* valid, const void* o, const void* dout,
+                       const float* lse, void* dk, void* dv, int B, int H,
+                       int Sq, int Sk, int D, float scale, Dropout dr,
+                       cudaStream_t stream) {
+  switch (D) {
+    case 16:
+      return launch<T, 16>(q, k, v, valid, o, dout, lse, dk, dv, B, H, Sq, Sk,
+                           scale, dr, stream);
+    case 32:
+      return launch<T, 32>(q, k, v, valid, o, dout, lse, dk, dv, B, H, Sq, Sk,
+                           scale, dr, stream);
+    case 64:
+      return launch<T, 64>(q, k, v, valid, o, dout, lse, dk, dv, B, H, Sq, Sk,
+                           scale, dr, stream);
+    case 128:
+      return launch<T, 128>(q, k, v, valid, o, dout, lse, dk, dv, B, H, Sq,
+                            Sk, scale, dr, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// bf16 only; q, k, v, O, dO, dk, dv 16-byte aligned; D in {16, 32, 64,
-// 128}; scale = 1 / sqrt(the caller's head dim), which is below D where
-// the caller zero-pads the head dim up to D. Dropout as in flash_attn_fwd,
-// with the forward's seed. Returns a cudaError_t (0 = launched).
+// dtype: 1 = bfloat16, 2 = float32 with bf16 products (mxu_bf16: q, k,
+// v, dO rounded to bf16 as they are staged, di from the float32 O and dO,
+// dk and dv float32); q, k, v, O, dO, dk, dv 16-byte aligned; D in {16,
+// 32, 64, 128}; scale = 1 / sqrt(the caller's head dim), which is below D
+// where the caller zero-pads the head dim up to D. Dropout as in
+// flash_attn_fwd_tc, with the forward's seed. Returns a cudaError_t (0 =
+// launched).
 extern "C" int flash_attn_bwd_dkv_tc(const void* q, const void* k,
                                      const void* v, const uint8_t* valid,
                                      const void* o, const void* dout,
                                      const float* lse, void* dk, void* dv,
                                      int B, int H, int Sq, int Sk, int D,
-                                     float scale, uint64_t seed,
+                                     float scale, int dtype, uint64_t seed,
                                      uint32_t threshold, float inv_keep,
                                      void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || threshold > (1u << 24))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout dr{seed, threshold, inv_keep};
-  switch (D) {
-    case 16:
-      return (int)launch<16>(q, k, v, valid, o, dout, lse, dk, dv, B, H, Sq,
-                             Sk, scale, dr, s);
-    case 32:
-      return (int)launch<32>(q, k, v, valid, o, dout, lse, dk, dv, B, H, Sq,
-                             Sk, scale, dr, s);
-    case 64:
-      return (int)launch<64>(q, k, v, valid, o, dout, lse, dk, dv, B, H, Sq,
-                             Sk, scale, dr, s);
-    case 128:
-      return (int)launch<128>(q, k, v, valid, o, dout, lse, dk, dv, B, H, Sq,
-                              Sk, scale, dr, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (dtype == 1)
+    return (int)dispatch_d<bf16>(q, k, v, valid, o, dout, lse, dk, dv, B, H,
+                                 Sq, Sk, D, scale, dr, s);
+  if (dtype == 2)
+    return (int)dispatch_d<float>(q, k, v, valid, o, dout, lse, dk, dv, B, H,
+                                  Sq, Sk, D, scale, dr, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,8 @@
 // Flash-attention dq backward on Hopper's tensor cores, bf16 (sm_90a), plain
 // C interface for ctypes: K2-TC.
 //
-// Replaces, for bf16 inputs with at least 16 queries, the TPU kernel
+// Replaces, for bf16 inputs with at least 16 queries, and for float32
+// inputs in the mxu_bf16 mode (below), the TPU kernel
 // `_bwd_dq_kernel` of reftr_tpu/kernels/attention.py (:242-284, driven by
 // `_bwd` :342-457, pallas_call at :420). The same function and contract as
 // dq of kernels/attention.py::attention_bwd_plain:
@@ -45,6 +46,12 @@
 // - Precision: dS enters the dQ product rounded to bf16 (relative 2^-9 per
 //   term), as K3-TC's dS^T does; the tolerance is 1e-2 of the largest plain
 //   gradient.
+// - mxu_bf16 (T = float): the TPU kernel's `_mxu` mode (:69-83) for
+//   float32 callers. Q, dO, K and V are rounded to bf16 in registers as
+//   they are staged (flash_attn_fwd_tc.cu says why there), dS as it
+//   already is; di = rowsum(dO o O) is summed from the float32 dO and O in
+//   global memory, as the TPU kernel sums it from its unrounded tiles
+//   (:251-253), so O is not staged; dq is stored as float32.
 //
 // Bound on an NVIDIA H100 80GB HBM3 at its 700 W power limit (data sheet):
 // at the VL encoder's shape (B=8, H=8, S=440, D=32) the three products are
@@ -56,6 +63,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "flash_common.cuh"
 #include "flash_tc.cuh"
@@ -77,14 +86,14 @@ constexpr int smem_bytes() {
   return (3 * kRows + 4 * kTileK) * Tile<D>::kStride * 2 + 2 * kTileK * 4;
 }
 
-template <int D, bool kAligned>
+template <typename T, int D, bool kAligned>
 __global__ void __launch_bounds__(kThreads, D <= 32 ? 4 : 2)
-flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v,
+flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v,
                        const uint8_t* __restrict__ valid,
-                       const bf16* __restrict__ o,
-                       const bf16* __restrict__ dout,
-                       const float* __restrict__ lse, bf16* __restrict__ dq,
+                       const T* __restrict__ o,
+                       const T* __restrict__ dout,
+                       const float* __restrict__ lse, T* __restrict__ dq,
                        int H, int Sq, int Sk,
                        int n_qt, float scale, Dropout dr) {
   constexpr int kS = Tile<D>::kStride;
@@ -107,8 +116,9 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = tid / 32, lane = tid % 32;
   const int c = (lane % 4) * 2;  // this lane's first key in an n-tile
   const long row_stride = (long)H * D;
-  const bf16* kb = k + (long)b * Sk * row_stride + h * D;
-  const bf16* vb = v + (long)b * Sk * row_stride + h * D;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  const T* kb = k + (long)b * Sk * row_stride + h * D;
+  const T* vb = v + (long)b * Sk * row_stride + h * D;
   const int n_kt = (Sk + kTileK - 1) / kTileK;
 
   auto stage = [&](int t) {
@@ -133,7 +143,8 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int nq = min(kRows, Sq - q0);
     flash_tc::load_tile<D, kRows, kThreads>(qs, q + off, row_stride, nq);
     flash_tc::load_tile<D, kRows, kThreads>(dos, dout + off, row_stride, nq);
-    flash_tc::load_tile<D, kRows, kThreads>(os, o + off, row_stride, nq);
+    if constexpr (!kF32)
+      flash_tc::load_tile<D, kRows, kThreads>(os, o + off, row_stride, nq);
   }
   stage(0);
   flash_tc::cp_async_commit();
@@ -174,16 +185,27 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         flash_tc::load_a<D>(qa[kk], qs, warp * 16, kk * 16);
         flash_tc::load_a<D>(da[kk], dos, warp * 16, kk * 16);
       }
-      // di of this lane's rows: each lane of the quad sums D / 4 columns
+      // di of this lane's rows: each lane of the quad sums D / 4 columns,
+      // of the staged tiles or, in float32, of dO and O in global memory
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const int off =
-            (warp * 16 + lane / 4 + r * 8) * kS + (lane % 4) * (D / 4);
         float sum = 0.f;
+        if constexpr (kF32) {
+          const long off = ((long)b * Sq + rows[r]) * row_stride + h * D +
+                           (lane % 4) * (D / 4);
+          if (rows[r] < Sq) {
 #pragma unroll
-        for (int d = 0; d < D / 4; ++d)
-          sum = fmaf(__bfloat162float(dos[off + d]),
-                     __bfloat162float(os[off + d]), sum);
+            for (int d = 0; d < D / 4; ++d)
+              sum = fmaf(dout[off + d], o[off + d], sum);
+          }
+        } else {
+          const int off =
+              (warp * 16 + lane / 4 + r * 8) * kS + (lane % 4) * (D / 4);
+#pragma unroll
+          for (int d = 0; d < D / 4; ++d)
+            sum = fmaf(__bfloat162float(dos[off + d]),
+                       __bfloat162float(os[off + d]), sum);
+        }
         sum += __shfl_xor_sync(0xffffffffu, sum, 1);
         sum += __shfl_xor_sync(0xffffffffu, sum, 2);
         di[r] = sum;
@@ -256,15 +278,15 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (rows[r] >= Sq) continue;
-    bf16* out = dq + ((long)b * Sq + rows[r]) * row_stride + h * D + c;
+    T* out = dq + ((long)b * Sq + rows[r]) * row_stride + h * D + c;
 #pragma unroll
     for (int n = 0; n < kN; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(out + n * 8) = __floats2bfloat162_rn(
-          acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
+      flash_tc::store2(out + n * 8, acc[n][2 * r] * scale,
+                       acc[n][2 * r + 1] * scale);
   }
 }
 
-template <int D, bool kAligned>
+template <typename T, int D, bool kAligned>
 cudaError_t launch_as(const void* q, const void* k, const void* v,
                       const uint8_t* valid, const void* o, const void* dout,
                       const float* lse, void* dq, int B, int H,
@@ -276,67 +298,84 @@ cudaError_t launch_as(const void* q, const void* k, const void* v,
   constexpr int bytes = smem_bytes<D>();
   if (bytes > 48 * 1024) {  // above 48 KB only by opting in
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dq_tc_kernel<D, kAligned>,
+        flash_bwd_dq_tc_kernel<T, D, kAligned>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
   }
-  flash_bwd_dq_tc_kernel<D, kAligned>
+  flash_bwd_dq_tc_kernel<T, D, kAligned>
       <<<(unsigned)blocks, kThreads, bytes, stream>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-          static_cast<const bf16*>(v), valid, static_cast<const bf16*>(o),
-          static_cast<const bf16*>(dout), lse, static_cast<bf16*>(dq),
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), valid, static_cast<const T*>(o),
+          static_cast<const T*>(dout), lse, static_cast<T*>(dq),
           H, Sq, Sk, n_qt, scale, dr);
   return cudaGetLastError();
 }
 
 // the instance of the kernel whose dropout draw takes Sk % 4 == 0's
 // path or the general one (flash_tc::keep_bits)
-template <int D>
+template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const uint8_t* valid, const void* o, const void* dout,
                    const float* lse, void* dq, int B, int H,
                    int Sq, int Sk, float scale, Dropout dr,
                    cudaStream_t stream) {
   if ((Sk & 3) == 0)
-    return launch_as<D, true>(q, k, v, valid, o, dout, lse, dq, B, H,
-                              Sq, Sk, scale, dr, stream);
-  return launch_as<D, false>(q, k, v, valid, o, dout, lse, dq, B, H,
-                             Sq, Sk, scale, dr, stream);
+    return launch_as<T, D, true>(q, k, v, valid, o, dout, lse, dq, B, H,
+                                 Sq, Sk, scale, dr, stream);
+  return launch_as<T, D, false>(q, k, v, valid, o, dout, lse, dq, B, H,
+                                Sq, Sk, scale, dr, stream);
+}
+
+template <typename T>
+cudaError_t dispatch_d(const void* q, const void* k, const void* v,
+                       const uint8_t* valid, const void* o, const void* dout,
+                       const float* lse, void* dq, int B, int H, int Sq,
+                       int Sk, int D, float scale, Dropout dr,
+                       cudaStream_t stream) {
+  switch (D) {
+    case 16:
+      return launch<T, 16>(q, k, v, valid, o, dout, lse, dq, B, H, Sq, Sk,
+                           scale, dr, stream);
+    case 32:
+      return launch<T, 32>(q, k, v, valid, o, dout, lse, dq, B, H, Sq, Sk,
+                           scale, dr, stream);
+    case 64:
+      return launch<T, 64>(q, k, v, valid, o, dout, lse, dq, B, H, Sq, Sk,
+                           scale, dr, stream);
+    case 128:
+      return launch<T, 128>(q, k, v, valid, o, dout, lse, dq, B, H, Sq, Sk,
+                            scale, dr, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// bf16 only; q, k, v, O, dO, dq 16-byte aligned; D in {16, 32, 64, 128};
-// scale = 1 / sqrt(the caller's head dim), which is below
-// D where the caller zero-pads the head dim up to D. Dropout as in
-// flash_attn_fwd, with the forward's seed. Returns a cudaError_t (0 =
-// launched).
+// dtype: 1 = bfloat16, 2 = float32 with bf16 products (mxu_bf16: q, k,
+// v, dO rounded to bf16 as they are staged, di from the float32 O and dO,
+// dq float32); q, k, v, O, dO, dq 16-byte aligned; D in {16, 32, 64, 128};
+// scale = 1 / sqrt(the caller's head dim), which is below D where the
+// caller zero-pads the head dim up to D. Dropout as in flash_attn_fwd_tc,
+// with the forward's seed. Returns a cudaError_t (0 = launched).
 extern "C" int flash_attn_bwd_dq_tc(const void* q, const void* k,
                                     const void* v, const uint8_t* valid,
                                     const void* o, const void* dout,
                                     const float* lse, void* dq,
                                     int B, int H,
                                     int Sq, int Sk, int D, float scale,
-                                    uint64_t seed, uint32_t threshold,
-                                    float inv_keep, void* stream) {
+                                    int dtype, uint64_t seed,
+                                    uint32_t threshold, float inv_keep,
+                                    void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || threshold > (1u << 24))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout dr{seed, threshold, inv_keep};
-  switch (D) {
-    case 16:
-      return (int)launch<16>(q, k, v, valid, o, dout, lse, dq, B, H,
-                             Sq, Sk, scale, dr, s);
-    case 32:
-      return (int)launch<32>(q, k, v, valid, o, dout, lse, dq, B, H,
-                             Sq, Sk, scale, dr, s);
-    case 64:
-      return (int)launch<64>(q, k, v, valid, o, dout, lse, dq, B, H,
-                             Sq, Sk, scale, dr, s);
-    case 128:
-      return (int)launch<128>(q, k, v, valid, o, dout, lse, dq, B, H,
-                              Sq, Sk, scale, dr, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (dtype == 1)
+    return (int)dispatch_d<bf16>(q, k, v, valid, o, dout, lse, dq, B, H, Sq,
+                                 Sk, D, scale, dr, s);
+  if (dtype == 2)
+    return (int)dispatch_d<float>(q, k, v, valid, o, dout, lse, dq, B, H, Sq,
+                                  Sk, D, scale, dr, s);
+  return (int)cudaErrorInvalidValue;
 }

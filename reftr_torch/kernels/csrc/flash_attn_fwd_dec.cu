@@ -20,6 +20,11 @@
 // [B, H, Sq] f32 (nullable); D in {16, 32, 64, 128} (at D = 128 a
 // thread's q, accumulator and key rows pass the 255 registers and spill).
 //
+// mxu_bf16 (dtype 2, T = float, kMxu): the TPU kernel's `_mxu` mode
+// (:69-83) for float32 callers: q, each key row and each value row are
+// rounded to bf16 as they are loaded, and so is p * keep before it
+// multiplies v; the sums, the softmax and the output stay float32.
+//
 // Design. A short query side is bound by reading K and V once, and a
 // 64-row tile would be mostly empty rows, so:
 // - One block of 4 warps per (batch * head, query row). The warps split the
@@ -91,7 +96,16 @@ __device__ __forceinline__ void load_row(float (&x)[D],
   }
 }
 
-template <typename T, int D>
+// x's D elements rounded to bf16 where the call takes bf16 products.
+template <bool kMxu, int D>
+__device__ __forceinline__ void operand(float (&x)[D]) {
+  if constexpr (kMxu) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) x[d] = flash::round_bf16(x[d]);
+  }
+}
+
+template <typename T, int D, bool kMxu>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_dec_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v,
@@ -115,6 +129,7 @@ flash_fwd_dec_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   float qr[D], acc[D];
   load_row<D>(qr, q + q_off);
+  operand<kMxu>(qr);
 #pragma unroll
   for (int d = 0; d < D; ++d) acc[d] = 0.f;
   float m = -INFINITY;  // running max over this lane's keys
@@ -130,6 +145,7 @@ flash_fwd_dec_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int j = min(j0 + e, Sk - 1);
       float kr[D];
       load_row<D>(kr, kb + j * row_stride);
+      operand<kMxu>(kr);
       float dot = 0.f;
 #pragma unroll
       for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
@@ -166,9 +182,10 @@ flash_fwd_dec_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < kPerLane; ++e) {
       const float p = expf(x[e] - m);  // 0 past `end`
       l += p;  // the denominator sums the un-dropped p
-      const float pv = p * kp[e];
+      const float pv = kMxu ? flash::round_bf16(p * kp[e]) : p * kp[e];
       float vr[D];
       load_row<D>(vr, vb + min(j0 + e, Sk - 1) * row_stride);
+      operand<kMxu>(vr);
 #pragma unroll
       for (int d = 0; d < D; ++d) acc[d] = fmaf(pv, vr[d], acc[d]);
     }
@@ -213,7 +230,7 @@ flash_fwd_dec_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kMxu>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const uint8_t* valid, void* out, float* lse, int B, int H,
                    int Sq, int Sk, float scale, Dropout dr,
@@ -224,31 +241,31 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   // start a Philox counter where Sk % 4 == 0
   const int quarter = ((Sk + kWarps - 1) / kWarps + kPerLane - 1) /
                       kPerLane * kPerLane;
-  flash_fwd_dec_kernel<T, D><<<(unsigned)blocks, kThreads, 0, stream>>>(
+  flash_fwd_dec_kernel<T, D, kMxu><<<(unsigned)blocks, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), valid, static_cast<T*>(out), lse, H, Sq, Sk,
       quarter, scale, dr);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kMxu = false>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v,
                        const uint8_t* valid, void* out, float* lse, int B,
                        int H, int Sq, int Sk, int D, float scale, Dropout dr,
                        cudaStream_t stream) {
   switch (D) {
     case 16:
-      return launch<T, 16>(q, k, v, valid, out, lse, B, H, Sq, Sk, scale, dr,
-                           stream);
+      return launch<T, 16, kMxu>(q, k, v, valid, out, lse, B, H, Sq, Sk,
+                                 scale, dr, stream);
     case 32:
-      return launch<T, 32>(q, k, v, valid, out, lse, B, H, Sq, Sk, scale, dr,
-                           stream);
+      return launch<T, 32, kMxu>(q, k, v, valid, out, lse, B, H, Sq, Sk,
+                                 scale, dr, stream);
     case 64:
-      return launch<T, 64>(q, k, v, valid, out, lse, B, H, Sq, Sk, scale, dr,
-                           stream);
+      return launch<T, 64, kMxu>(q, k, v, valid, out, lse, B, H, Sq, Sk,
+                                 scale, dr, stream);
     case 128:
-      return launch<T, 128>(q, k, v, valid, out, lse, B, H, Sq, Sk, scale, dr,
-                            stream);
+      return launch<T, 128, kMxu>(q, k, v, valid, out, lse, B, H, Sq, Sk,
+                                 scale, dr, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -256,7 +273,8 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; q, k, v, out 16-byte aligned; scale =
+// dtype: 0 = float32, 1 = bfloat16, 2 = float32 with bf16 products
+// (mxu_bf16); q, k, v, out 16-byte aligned; scale =
 // 1 / sqrt(the caller's head dim), which is below D where the caller
 // zero-pads the head dim up to D. Dropout as in flash_attn_fwd: threshold =
 // ceil(rate * 2^24) (0 = none), inv_keep = 1 / (1 - rate). Returns a
@@ -277,5 +295,8 @@ extern "C" int flash_attn_fwd_dec(const void* q, const void* k, const void* v,
   if (dtype == 1)
     return (int)dispatch_d<__nv_bfloat16>(q, k, v, valid, out, lse, B, H, Sq,
                                           Sk, D, scale, dr, s);
+  if (dtype == 2)
+    return (int)dispatch_d<float, true>(q, k, v, valid, out, lse, B, H, Sq,
+                                        Sk, D, scale, dr, s);
   return (int)cudaErrorInvalidValue;
 }

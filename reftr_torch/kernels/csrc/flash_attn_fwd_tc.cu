@@ -1,7 +1,8 @@
 // Flash-attention forward on Hopper's tensor cores, bf16 (sm_90a), plain C
 // interface for ctypes: K1-TC.
 //
-// Replaces, for bf16 inputs with at least 16 queries, the TPU kernel
+// Replaces, for bf16 inputs with at least 16 queries, and for float32
+// inputs in the mxu_bf16 mode (below), the TPU kernel
 // `_flash_kernel` of reftr_tpu/kernels/attention.py (:86-132, driven by
 // `_fwd`, pallas_call at :210). The same function and contract as
 // kernels/attention.py::attention_plain: out = softmax(q k^T / sqrt(D) +
@@ -54,6 +55,16 @@
 //   masked-row vote runs while the first tiles are in flight.
 // - The tiles live in dynamic shared memory: 87 KB at D = 128, which a
 //   block gets only by opting in above 48 KB.
+// - mxu_bf16 (T = float): the TPU kernel's `_mxu` mode (:69-83) for
+//   float32 callers, bf16 dot operands with f32 accumulation and softmax.
+//   The kernel is this one with float32 q, k, v and out: each Q, K and V
+//   element is rounded to bf16 (to nearest even, as JAX's astype) in
+//   registers as its tile is staged (flash_tc::load_tile's float32
+//   overload: plain loads in place of cp.async, so a tile's copy does not
+//   overlap the products before it), P is rounded as it already is, and O
+//   is stored as float32 without a bf16 round. Rounding in the kernel and
+//   not in the wrapper keeps the call one launch that reads q, k and v
+//   once, with no bf16 copies of them in global memory.
 //
 // Bound on an NVIDIA H100 80GB HBM3 at its 700 W power limit (data sheet):
 // at the VL encoder's shape (B=8, H=8, S=440, D=32) the two products are
@@ -84,11 +95,11 @@ constexpr int smem_bytes() {
   return (kRows + 4 * kTileK) * Tile<D>::kStride * 2 + 2 * kTileK * 4;
 }
 
-template <int D, bool kAligned>
+template <typename T, int D, bool kAligned>
 __global__ void __launch_bounds__(kThreads, D <= 32 ? 4 : 2)
-flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v,
-                    const uint8_t* __restrict__ valid, bf16* __restrict__ out,
+flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v,
+                    const uint8_t* __restrict__ valid, T* __restrict__ out,
                     float* __restrict__ lse, int H, int Sq, int Sk, int n_qt,
                     float scale, Dropout dr) {
   constexpr int kS = Tile<D>::kStride;
@@ -109,8 +120,8 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = tid / 32, lane = tid % 32;
   const int c = (lane % 4) * 2;  // this lane's first column in an n-tile
   const long row_stride = (long)H * D;
-  const bf16* kb = k + (long)b * Sk * row_stride + h * D;
-  const bf16* vb = v + (long)b * Sk * row_stride + h * D;
+  const T* kb = k + (long)b * Sk * row_stride + h * D;
+  const T* vb = v + (long)b * Sk * row_stride + h * D;
   const int n_kt = (Sk + kTileK - 1) / kTileK;
 
   auto stage = [&](int t) {
@@ -261,17 +272,17 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     if (rows[r] >= Sq) continue;
     const float inv_l = 1.f / l[r];
-    bf16* op = out + ((long)b * Sq + rows[r]) * row_stride + h * D + c;
+    T* op = out + ((long)b * Sq + rows[r]) * row_stride + h * D + c;
 #pragma unroll
     for (int n = 0; n < kN; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(op + n * 8) = __floats2bfloat162_rn(
-          o[n][2 * r] * inv_l, o[n][2 * r + 1] * inv_l);
+      flash_tc::store2(op + n * 8, o[n][2 * r] * inv_l,
+                       o[n][2 * r + 1] * inv_l);
     if (lse != nullptr && lane % 4 == 0)
       lse[(long)bh * Sq + rows[r]] = m[r] + logf(l[r]);
   }
 }
 
-template <int D, bool kAligned>
+template <typename T, int D, bool kAligned>
 cudaError_t launch_as(const void* q, const void* k, const void* v,
                       const uint8_t* valid, void* out, float* lse, int B, int H,
                       int Sq, int Sk, float scale, Dropout dr,
@@ -282,62 +293,78 @@ cudaError_t launch_as(const void* q, const void* k, const void* v,
   constexpr int bytes = smem_bytes<D>();
   if (bytes > 48 * 1024) {  // above 48 KB only by opting in
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_tc_kernel<D, kAligned>,
+        flash_fwd_tc_kernel<T, D, kAligned>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
   }
-  flash_fwd_tc_kernel<D, kAligned>
+  flash_fwd_tc_kernel<T, D, kAligned>
       <<<(unsigned)blocks, kThreads, bytes, stream>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-          static_cast<const bf16*>(v), valid, static_cast<bf16*>(out), lse, H,
-          Sq, Sk, n_qt, scale, dr);
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), valid, static_cast<T*>(out), lse, H, Sq,
+          Sk, n_qt, scale, dr);
   return cudaGetLastError();
 }
 
 // the instance of the kernel whose dropout draw takes Sk % 4 == 0's
 // path or the general one (flash_tc::keep_bits)
-template <int D>
+template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const uint8_t* valid, void* out, float* lse, int B, int H,
                    int Sq, int Sk, float scale, Dropout dr,
                    cudaStream_t stream) {
   if ((Sk & 3) == 0)
-    return launch_as<D, true>(q, k, v, valid, out, lse, B, H, Sq, Sk, scale,
-                              dr, stream);
-  return launch_as<D, false>(q, k, v, valid, out, lse, B, H, Sq, Sk, scale, dr,
-                             stream);
+    return launch_as<T, D, true>(q, k, v, valid, out, lse, B, H, Sq, Sk,
+                                 scale, dr, stream);
+  return launch_as<T, D, false>(q, k, v, valid, out, lse, B, H, Sq, Sk, scale,
+                                dr, stream);
+}
+
+template <typename T>
+cudaError_t dispatch_d(const void* q, const void* k, const void* v,
+                       const uint8_t* valid, void* out, float* lse, int B,
+                       int H, int Sq, int Sk, int D, float scale, Dropout dr,
+                       cudaStream_t stream) {
+  switch (D) {
+    case 16:
+      return launch<T, 16>(q, k, v, valid, out, lse, B, H, Sq, Sk, scale, dr,
+                           stream);
+    case 32:
+      return launch<T, 32>(q, k, v, valid, out, lse, B, H, Sq, Sk, scale, dr,
+                           stream);
+    case 64:
+      return launch<T, 64>(q, k, v, valid, out, lse, B, H, Sq, Sk, scale, dr,
+                           stream);
+    case 128:
+      return launch<T, 128>(q, k, v, valid, out, lse, B, H, Sq, Sk, scale, dr,
+                            stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// bf16 only; q, k, v, out 16-byte aligned; scale = 1 / sqrt(the caller's
-// head dim), which is below D where the caller zero-pads the head dim up to
-// D. Dropout as in flash_attn_fwd: threshold = ceil(rate * 2^24) (0 =
-// none), inv_keep = 1 / (1 - rate). Returns a cudaError_t (0 = launched).
+// dtype: 1 = bfloat16, 2 = float32 with bf16 products (mxu_bf16: q, k, v
+// rounded to bf16 as they are staged, out float32); q, k, v, out 16-byte
+// aligned; scale = 1 / sqrt(the caller's head dim), which is below D where
+// the caller zero-pads the head dim up to D. Dropout as in
+// flash_attn_fwd_dec: threshold = ceil(rate * 2^24) (0 = none), inv_keep =
+// 1 / (1 - rate). Returns a cudaError_t (0 = launched).
 extern "C" int flash_attn_fwd_tc(const void* q, const void* k, const void* v,
                                  const uint8_t* valid, void* out, float* lse,
                                  int B, int H, int Sq, int Sk, int D,
-                                 float scale, uint64_t seed,
+                                 float scale, int dtype, uint64_t seed,
                                  uint32_t threshold, float inv_keep,
                                  void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || threshold > (1u << 24))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout dr{seed, threshold, inv_keep};
-  switch (D) {
-    case 16:
-      return (int)launch<16>(q, k, v, valid, out, lse, B, H, Sq, Sk, scale,
-                             dr, s);
-    case 32:
-      return (int)launch<32>(q, k, v, valid, out, lse, B, H, Sq, Sk, scale,
-                             dr, s);
-    case 64:
-      return (int)launch<64>(q, k, v, valid, out, lse, B, H, Sq, Sk, scale,
-                             dr, s);
-    case 128:
-      return (int)launch<128>(q, k, v, valid, out, lse, B, H, Sq, Sk, scale,
-                              dr, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (dtype == 1)
+    return (int)dispatch_d<bf16>(q, k, v, valid, out, lse, B, H, Sq, Sk, D,
+                                 scale, dr, s);
+  if (dtype == 2)
+    return (int)dispatch_d<float>(q, k, v, valid, out, lse, B, H, Sq, Sk, D,
+                                  scale, dr, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -58,6 +58,14 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// x rounded to the nearest bf16 (ties to even), as a float: a dot operand
+// of the mxu_bf16 mode (reftr_tpu/kernels/attention.py::_mxu), whose
+// products take bf16 operands and sum in f32; the product of two such
+// operands is exact in f32.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // 1e9 when every key of batch row b is masked, else 0. Every thread of the
 // block must call it (it ends in a block-wide vote).
 __device__ __forceinline__ float masked_row_shift(const uint8_t* valid, int b,

@@ -1,7 +1,8 @@
 // Tensor-core building blocks of the bf16 flash-attention kernels
-// (flash_attn_fwd_tc.cu, flash_attn_bwd_dq_tc.cu, flash_attn_bwd_dkv_tc.cu):
-// asynchronous tile copies, ldmatrix, the warp-level bf16 product mma.sync
-// m16n8k16 with f32 accumulation (sm_80 and later, so sm_90a too), and the
+// (flash_attn_fwd_tc.cu, flash_attn_bwd_dq_tc.cu, flash_attn_bwd_dkv_tc.cu,
+// which also serve float32 callers in the mxu_bf16 mode): asynchronous
+// tile copies, float32 tiles rounded to bf16 on the way in, ldmatrix, the
+// warp-level bf16 product mma.sync m16n8k16 with f32 accumulation (sm_80 and later, so sm_90a too), and the
 // dropout decisions of a tile in the accumulator layout with queries as M
 // (keep_bits) or keys as M (chunk_keep). The float32 kernels' 3xTF32
 // pieces (flash_tf32.cuh) use the copies and the dropout decisions: the
@@ -123,6 +124,42 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Stage `rows` (<= R) rows of D float32 into a padded bf16 tile of R rows,
+// each element rounded to the nearest bf16 (ties to even) in registers on
+// the way: the operand tiles of a float32 call whose products take bf16
+// operands (mxu_bf16, reftr_tpu/kernels/attention.py::_mxu, which rounds
+// the same way). Rows past `rows` are zero-filled. Plain loads and
+// stores, not cp.async, so the copy is done when the call returns; the
+// caller's barrier publishes it as it publishes the asynchronous copies.
+// Every thread of the block calls it; rows 16-byte aligned.
+template <int D, int R, int kThreads>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* tile,
+                                          const float* src, long row_stride,
+                                          int rows) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks of a bf16 row
+  for (int i = threadIdx.x; i < R * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = i % kChunks;
+    uint4 w = make_uint4(0u, 0u, 0u, 0u);
+    if (r < rows) {
+      const float4* p =
+          reinterpret_cast<const float4*>(src + r * row_stride + c * 8);
+      const float4 a = __ldg(p), b = __ldg(p + 1);
+      w = make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w),
+                     pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
+    }
+    *reinterpret_cast<uint4*>(tile + r * Tile<D>::kStride + c * 8) = w;
+  }
+}
+
+// Two neighbouring outputs of a lane (8-byte aligned), in the caller's
+// dtype: rounded once to bf16, or stored as the float32 they are.
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float lo, float hi) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
+}
+__device__ __forceinline__ void store2(float* p, float lo, float hi) {
+  *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
 }
 
 // The A fragment of rows row0..row0+15, cols col0..col0+15 of a padded

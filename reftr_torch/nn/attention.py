@@ -60,8 +60,8 @@ from reftr_torch.kernels.attention import (MAX_HEAD_DIM, NEG_INF, SEED_BITS,
                                            shard_seed)
 from reftr_torch.nn.quant import dense
 from reftr_torch.parallel.tensor_parallel import (CopyToModelRegion,
-                                                  ReduceFromModelRegion,
-                                                  row_parallel, split_layer)
+                                                  RowParallelLinear,
+                                                  split_layer)
 
 __all__ = ["MultiHeadAttention", "NEG_INF", "attention_rng", "seed_replay",
            "seeded_dropout", "set_attention_route", "set_plain_attention"]
@@ -172,16 +172,16 @@ class MultiHeadAttention(nn.Module):
         self.kernel_only = False
         self.local_heads = num_heads
         self.enter: Optional[CopyToModelRegion] = None
-        self.reduce: Optional[ReduceFromModelRegion] = None
 
     def tensor_parallel(self, mesh, name: str) -> None:
         """Hold ``num_heads / model`` heads of the mesh's model axis
         (``parallel/tensor_parallel.py::shard_model`` slices the
         weights)."""
-        self.local_heads, self.enter, self.reduce = split_layer(
+        self.local_heads, self.enter = split_layer(
             f"{name or 'attention'} ({self.num_heads} heads)",
             self.num_heads, mesh, self.q_proj, self.k_proj, self.v_proj,
             self.out_proj)
+        self.out_proj = RowParallelLinear(self.out_proj, mesh)
 
     def forward(self, query: torch.Tensor, key: torch.Tensor,
                 value: torch.Tensor,
@@ -204,10 +204,7 @@ class MultiHeadAttention(nn.Module):
         seed = _draw_seed(b) if rate > 0.0 else None
         attend = attention_plain if self.plain else flash_attention
         out = attend(q, k, v, key_valid, dropout_rate=rate, seed=seed)
-        out = out.reshape(b, sq, h * dh)
-        if self.reduce is None:
-            return self.out_proj(out)
-        return row_parallel(self.out_proj, self.reduce, out)
+        return self.out_proj(out.reshape(b, sq, h * dh))
 
 
 def set_plain_attention(model: nn.Module, plain: bool) -> None:

@@ -25,8 +25,8 @@ from reftr_torch.core.config import BertConfig
 from reftr_torch.nn.attention import MultiHeadAttention
 from reftr_torch.nn.quant import dense
 from reftr_torch.parallel.tensor_parallel import (CopyToModelRegion,
-                                                  ReduceFromModelRegion,
-                                                  row_parallel, split_layer)
+                                                  RowParallelLinear,
+                                                  split_layer)
 
 
 class BertEmbeddings(nn.Module):
@@ -75,25 +75,22 @@ class BertLayer(nn.Module):
         self.output_norm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
         self.dropout = nn.Dropout(c.hidden_dropout)
         self.enter: Optional[CopyToModelRegion] = None
-        self.reduce: Optional[ReduceFromModelRegion] = None
 
     def tensor_parallel(self, mesh, name: str) -> None:
         """Hold a block of the intermediate width over the mesh's model
         axis (the attention takes its own)."""
         n = self.intermediate.out_features
-        _, self.enter, self.reduce = split_layer(
+        _, self.enter = split_layer(
             f"{name or 'layer'} ({n} intermediate)", n, mesh,
             self.intermediate, self.output)
+        self.output = RowParallelLinear(self.output, mesh)
 
     def forward(self, x: torch.Tensor,
                 valid_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = self.attention_norm(
             x + self.dropout(self.attention(x, x, x, valid_mask)))
-        if self.enter is None:
-            y = self.output(F.gelu(self.intermediate(x)))  # exact GELU
-        else:
-            y = row_parallel(self.output, self.reduce,
-                             F.gelu(self.intermediate(self.enter(x))))
+        h = x if self.enter is None else self.enter(x)
+        y = self.output(F.gelu(self.intermediate(h)))  # exact GELU
         return self.output_norm(x + self.dropout(y))
 
 

@@ -105,6 +105,7 @@ class QuantDense(nn.Module):
     def __init__(self, in_features: int, out_features: int,
                  use_bias: bool = True):
         super().__init__()
+        self.in_features, self.out_features = in_features, out_features
         self.register_buffer("kernel_q", torch.zeros(
             out_features, in_features, dtype=torch.int8))
         self.register_buffer("w_scale", torch.ones(out_features))

@@ -36,8 +36,8 @@ from reftr_torch.nn.attention import (MultiHeadAttention, seed_replay,
                                       seeded_dropout)
 from reftr_torch.nn.quant import dense
 from reftr_torch.parallel.tensor_parallel import (CopyToModelRegion,
-                                                  ReduceFromModelRegion,
-                                                  row_parallel, split_layer)
+                                                  RowParallelLinear,
+                                                  split_layer)
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default
 
@@ -61,14 +61,14 @@ class FFN(nn.Module):
         self.activation = _ACTIVATIONS[activation]
         self.dropout = nn.Dropout(dropout)
         self.enter: Optional[CopyToModelRegion] = None
-        self.reduce: Optional[ReduceFromModelRegion] = None
 
     def tensor_parallel(self, mesh, name: str) -> None:
         """Hold a block of the hidden width over the mesh's model axis."""
         n = self.linear1.out_features
-        _, self.enter, self.reduce = split_layer(
+        _, self.enter = split_layer(
             f"{name or 'ffn'} ({n} hidden)", n, mesh, self.linear1,
             self.linear2)
+        self.linear2 = RowParallelLinear(self.linear2, mesh)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.enter is None:
@@ -77,7 +77,7 @@ class FFN(nn.Module):
         hidden = self.activation(self.linear1(self.enter(x)))
         if self.training:
             hidden = seeded_dropout(hidden, self.dropout.p)
-        return row_parallel(self.linear2, self.reduce, hidden)
+        return self.linear2(hidden)
 
 
 class TransformerEncoderLayer(nn.Module):

@@ -19,6 +19,14 @@ is a grid of ranks (``context.Mesh``, made by ``create_mesh``):
     one process's full shapes and a rank's slices;
   * everything else is replicated, identical on every rank of a data row.
 
+int8 runs under a model axis as JAX runs it, not sharded: ``--eval
+--quantize_int8`` calibrates the sharded float model and evaluates the
+int8 model unsharded on every rank (JAX puts the int8 tree on the mesh
+replicated, reftr_tpu/nn/quant.py:346-350, and its ``_TP_RULES`` match
+``kernel$``, which ``kernel_q`` does not); ``--quantize_train_prefix``
+quantizes layer1, which lies in the replicated backbone
+(``train/loop.py``).
+
 JAX's rules also match pairs that are not Megatron pairs: the query
 encoder's ``linear1`` and ``linear2`` compute the attended reduce's keys
 and queries from one input (reftr_tpu/nn/query_encoder.py:28-29). Under
@@ -57,20 +65,6 @@ _TP_RULES = [
 ]
 # names that JAX's rules shard and the port keeps replicated
 REPLICATED_COINCIDENCES = re.compile(r"^query_encoder\.linear[12]\.")
-
-
-INT8_TP_ITEM = "int8 under tensor parallelism (ROADMAP.md queue 1 item 13)"
-
-
-def refuse_int8_model_axis(model_axis: int, quantize_int8: bool,
-                           quantize_train_prefix: bool) -> None:
-    """Raise NotImplementedError for int8 with a model axis: the int8
-    layers (``nn/quant.py``) have no tensor-parallel form yet."""
-    if model_axis > 1 and (quantize_int8 or quantize_train_prefix):
-        flag = ("--quantize_int8" if quantize_int8
-                else "--quantize_train_prefix")
-        raise NotImplementedError(f"{flag} with --mesh_model {model_axis}: "
-                                  f"{INT8_TP_ITEM} is not ported yet")
 
 
 def check_data_axis(mesh_data: int, world: int, model: int = 1) -> None:

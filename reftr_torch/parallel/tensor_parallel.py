@@ -13,9 +13,11 @@ the gradients (Shoeybi et al., 2019, §3):
   * ``CopyToModelRegion`` before the column-parallel layers: the
     identity forward, an all_reduce of the input's gradient backward (each
     rank's block contributes to it);
-  * ``ReduceFromModelRegion`` after the row-parallel product: an
-    all_reduce forward, the identity backward. The row-parallel bias is
-    added once, after the reduce.
+  * ``RowParallelLinear``, the row-parallel layer itself: its product,
+    then an all_reduce forward and the identity backward, then its bias,
+    once. It is called as a module, so forward hooks on it (int8
+    calibration's, ``nn/quant.py::Calibrator``) see this rank's slice of
+    its input.
 
 Both use all_reduce only, which gloo has for CUDA tensors too, so two
 ranks can share one card. ``shard_model`` turns a model of one process's
@@ -76,45 +78,45 @@ class CopyToModelRegion(nn.Module):
         return _CopyToModel.apply(x, self.group)
 
 
-class ReduceFromModelRegion(nn.Module):
-    """all_reduce over the model group forward, identity backward: the
-    output of the row-parallel layers."""
+class RowParallelLinear(nn.Linear):
+    """An ``nn.Linear`` holding a block of its input features: the product
+    on this rank's block, summed over the model group (all_reduce forward,
+    identity backward), then the bias, once. It takes over ``linear``'s
+    parameters, so the names of the state dict stay the same."""
 
-    def __init__(self, mesh: Mesh):
-        super().__init__()
+    def __init__(self, linear: nn.Linear, mesh: Mesh):
+        super().__init__(linear.in_features, linear.out_features,
+                         device="meta")
+        self.weight, self.bias = linear.weight, linear.bias
         self.group = mesh.model_group
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _ReduceFromModel.apply(x, self.group)
+        out = _ReduceFromModel.apply(nn.functional.linear(x, self.weight),
+                                     self.group)
+        return out + self.bias.to(out.dtype)
 
 
 def split_layer(what: str, n: int, mesh: Mesh, *layers: nn.Module
-                ) -> Tuple[int, CopyToModelRegion, ReduceFromModelRegion]:
-    """(n / model, the layer's region operators) for a layer named
-    ``what`` whose ``n`` heads or hidden features split over the model
-    axis. Raises ValueError naming ``what`` where the model axis does not
-    divide n, as ``fused_attention_sharded`` refuses a head count
-    (:617-620), or where one of ``layers`` is not a float ``nn.Linear``:
-    an int8 ``QuantDense`` has no tensor-parallel form yet (ROADMAP.md
-    queue 1 item 13)."""
+                ) -> Tuple[int, CopyToModelRegion]:
+    """(n / model, the input's region operator) for a layer named ``what``
+    whose ``n`` heads or hidden features split over the model axis; the
+    caller makes its row-parallel ``layers[-1]`` a ``RowParallelLinear``.
+    Raises ValueError naming ``what`` where the model axis does not divide
+    n, as ``fused_attention_sharded`` refuses a head count (:617-620), or
+    where one of ``layers`` is not a float ``nn.Linear``: no path shards an
+    int8 ``QuantDense``. int8 eval under a model axis runs the int8 model
+    unsharded on every rank, as JAX replicates its int8 tree over the mesh
+    (reftr_tpu/nn/quant.py:346-350); a row-parallel int8 product would be
+    a feature JAX lacks."""
     for layer in layers:
         if not isinstance(layer, nn.Linear):
             raise ValueError(f"{what}: {type(layer).__name__} has no "
-                             f"tensor-parallel form (int8 under --mesh_model "
-                             f"is ROADMAP.md queue 1 item 13)")
+                             f"tensor-parallel form: int8 eval under "
+                             f"--mesh_model runs unsharded, as in JAX")
     if n % mesh.model:
         raise ValueError(f"{what}: {n} does not divide over the model axis "
                          f"of {mesh.model} ranks (--mesh_model)")
-    return (n // mesh.model, CopyToModelRegion(mesh),
-            ReduceFromModelRegion(mesh))
-
-
-def row_parallel(linear: nn.Module, reduce: ReduceFromModelRegion,
-                 x: torch.Tensor) -> torch.Tensor:
-    """``linear`` (holding a block of its input features) on ``x``, summed
-    over the model group, then its bias, once."""
-    out = reduce(nn.functional.linear(x, linear.weight))
-    return out + linear.bias.to(out.dtype)
+    return n // mesh.model, CopyToModelRegion(mesh)
 
 
 def shard_model(model: nn.Module, mesh: Mesh) -> nn.Module:

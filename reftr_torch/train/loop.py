@@ -10,8 +10,9 @@ card or on many under DDP, one process each.
   * the (data, model) mesh of ``cfg.mesh`` over the ranks
     (``parallel/sharding.py::create_mesh``), installed for the run
     (``use_mesh``); with ``--mesh_model`` > 1 the model is split over each
-    model group (``parallel/tensor_parallel.py``), and int8 with it
-    raises (ROADMAP.md queue 1 item 13);
+    model group (``parallel/tensor_parallel.py``), and int8 runs with it
+    as in JAX: the int8 eval model unsharded on every rank, the int8 train
+    prefix in the replicated backbone;
   * the host seed np.random.seed(seed + shard) (:171-174), and loaders
     that give each data row its own shard (``loader_shards``: the ranks
     of a model group load the same one);
@@ -72,8 +73,7 @@ from reftr_torch.nn.fold import optimize_backbone_in_tree
 from reftr_torch.nn.quant import calibrate_and_quantize, calibrate_train_prefix
 from reftr_torch.parallel.context import Mesh, use_mesh
 from reftr_torch.parallel.sharding import (check_data_axis, create_mesh,
-                                           loader_shards,
-                                           refuse_int8_model_axis,
+                                           gather_state_dict, loader_shards,
                                            shard_state_dict)
 from reftr_torch.train.engine import evaluate, train_one_epoch
 from reftr_torch.train.state import TrainState
@@ -213,8 +213,6 @@ def run_training(cfg: RefTRConfig,
     dev = train_device(device)
     distributed.initialize(dev)
     check_data_axis(cfg.mesh.data, distributed.world_size(), cfg.mesh.model)
-    refuse_int8_model_axis(cfg.mesh.model, cfg.model.quantize_int8,
-                           cfg.model.quantize_train_prefix)
     mesh = create_mesh(cfg.mesh)
     n_shards, shard_rank = loader_shards(mesh)
     if distributed.is_initialized():
@@ -279,11 +277,16 @@ def _run(cfg: RefTRConfig, dev: torch.device, mesh: Mesh, n_shards: int,
     if cfg.model.quantize_train_prefix:
         # before the state the run trains, so that its optimizer and a
         # resume below see the int8 layout
+        # under a model axis: layer1 is in the replicated backbone, its
+        # absmax max-reduced over every rank; the state dict is gathered
+        # to one process's shapes, which the state then shards again
         prefix = calibrate_train_prefix(
             cfg, state.model, train_loader,
             n_batches=cfg.train.quant_calib_batches, print_fn=master_print)
         state = TrainState.create(cfg.model, cfg.train, steps_per_epoch,
-                                  device=dev, state_dict=prefix, mesh=mesh)
+                                  device=dev,
+                                  state_dict=gather_state_dict(prefix, mesh),
+                                  mesh=mesh)
 
     out_dir = cfg.train.output_dir
     start_epoch = cfg.train.start_epoch
@@ -350,10 +353,17 @@ def _run(cfg: RefTRConfig, dev: torch.device, mesh: Mesh, n_shards: int,
 
     if cfg.train.eval_only:
         if cfg.model.quantize_int8:
+            # under a model axis as JAX runs it: calibrated on the sharded
+            # fp model (a row-parallel layer sees its slice of the input,
+            # the absmax is max-reduced over every rank), the fp weights
+            # gathered to one process's shapes, and the int8 model built
+            # unsharded on every rank (JAX replicates the int8 tree over
+            # the mesh, reftr_tpu/nn/quant.py:346-350)
             qweights = calibrate_and_quantize(
                 cfg, state.model, next(iter(test_loaders.values())),
                 n_batches=cfg.train.quant_calib_batches,
-                print_fn=master_print, autocast=True)
+                print_fn=master_print, autocast=True,
+                state_dict=state.full_model_state())
             eval_step = make_eval_step(
                 build_model(cfg.model, dev, state_dict=qweights), cfg.loss,
                 device=dev)

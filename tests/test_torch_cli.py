@@ -361,7 +361,8 @@ RANK_VARS = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
 def test_tensor_parallel_flags_reach_the_mesh_config(monkeypatch, argv):
     """--mesh_model and --mesh_model_spans_processes parse to the JAX
     config's mesh (cli/main.py:320-323) under a launcher of two ranks, and
-    int8 with them raises under its own ROADMAP item."""
+    the int8 flags with them parse to JAX's model config, as JAX runs
+    them."""
     for k in RANK_VARS:
         monkeypatch.delenv(k, raising=False)
     monkeypatch.setenv("RANK", "0")
@@ -373,10 +374,13 @@ def test_tensor_parallel_flags_reach_the_mesh_config(monkeypatch, argv):
     assert got.mesh.model == 2
     assert got.mesh.model_spans_processes == ("--mesh_model_spans_processes"
                                               in argv)
-    with pytest.raises(NotImplementedError, match=r"int8 under tensor "
-                       r"parallelism \(ROADMAP.md queue 1 item 13\)"):
-        cli.args_to_config(parse(cli, argv + ["--fold_bn",
-                                              "--quantize_train_prefix"]))
+    for int8 in (["--quantize_train_prefix"], ["--quantize_int8", "--eval"]):
+        argv8 = argv + ["--fold_bn"] + int8
+        got = cli.args_to_config(parse(cli, argv8))
+        want = jax_main.args_to_config(parse(jax_main, argv8))
+        assert dataclasses.asdict(got.mesh) == dataclasses.asdict(want.mesh)
+        for flag in ("quantize_int8", "quantize_train_prefix", "fold_bn"):
+            assert getattr(got.model, flag) == getattr(want.model, flag)
 
 
 @pytest.mark.parametrize("world,mesh_data", [(1, "-1"), (1, "1"),

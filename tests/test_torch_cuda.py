@@ -2112,3 +2112,92 @@ def test_int8_serving_and_export_launch_the_int8_kernels(gen, tmp_path,
     tol = 1e-5 if dtype == "float32" else 1e-3
     assert float((outs["live"] - outs["exported"]).abs().max()) <= tol
     assert np.isfinite(outs["live"].float().cpu().numpy()).all()
+
+
+# the mxu_bf16 mode (float32 in and out, bf16 products) against its plain
+# versions: chip_smoke.MXU_TOL through chip_smoke.mxu_errors, whose
+# comment gives its reasons (the plain forward rounds p against the
+# kernel's running max; the control, the float32 kernels without the
+# mode, must fail the mean checks)
+# (Sq, Sk): the "tc" kernels at their 64-row and 64-key tile edges and K3
+# below 16 keys; the decode kernels below 16 queries
+MXU_SHAPES = [(16, 1), (63, 15), (65, 63), (64, 440), (1, 1), (5, 65),
+              (15, 440)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("d", HEAD_DIMS + (24, 48))
+@pytest.mark.parametrize("sq,sk", MXU_SHAPES)
+def test_mxu_kernels_match_plain(gen, sq, sk, d, rate):
+    """K1, K2 and K3 in the mxu_bf16 mode through the rule ("tc" from 16
+    queries, "dec" below, a head dim between the instances padded), batch
+    row 0 with every key masked, against attention_plain and
+    attention_bwd_plain with mxu_bf16 on the same float32 inputs
+    (chip_smoke.mxu_plain), the backward on the kernel's O and lse, within
+    chip_smoke.MXU_TOL, and the control outside its mean checks; float32
+    outputs; counted in launches_mxu."""
+    q, k, v, valid = inputs(gen, 2, sq, sk, 3, d, torch.float32)
+    seed = 0x5EED if rate else None
+    counters = (flash_attention, flash_attn_bwd_dq, flash_attn_bwd_dkv)
+    before = [c.launches_mxu for c in counters]
+    out, lse = flash_attention(q, k, v, valid, True, dropout_rate=rate,
+                               seed=seed, mxu_bf16=True)
+    do = torch.randn(out.shape, device="cuda", generator=gen)
+    args = (q, k, v, valid, out, lse, do, rate, seed)
+    dq = flash_attn_bwd_dq(*args, mxu_bf16=True)
+    dk, dv = flash_attn_bwd_dkv(*args, mxu_bf16=True)
+    torch.cuda.synchronize()
+    bwd = 2 if sq < 16 else 1  # the decode backward counts on K2 and K3
+    assert [c.launches_mxu - b for c, b in zip(counters, before)] == [
+        1, bwd, bwd]
+    (want, want_lse), wants = chip_smoke.mxu_plain(
+        *args, fwd_variant(sq, sk, torch.float32, d, True))
+    for got, w in zip((out, dq, dk, dv), (want, *wants)):
+        assert got.dtype == torch.float32 and got.shape == w.shape
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-6)
+    errs = chip_smoke.mxu_errors((out, dq, dk, dv), (want, *wants))
+    assert chip_smoke.mxu_failures(errs) == [], errs
+    control = chip_smoke.mxu_errors(chip_smoke.mxu_control(*args),
+                                    (want, *wants))
+    assert chip_smoke.mxu_control_caught(
+        chip_smoke.mxu_failures(control)), control
+
+
+def test_mxu_mode_changes_nothing_for_bf16(gen):
+    """A bf16 call ignores the mode: the same variants, the same bits,
+    nothing counted in launches_mxu."""
+    q, k, v, valid = inputs(gen, 2, 440, 440, 8, 32, torch.bfloat16)
+    do = torch.randn(q.shape, device="cuda", generator=gen).to(q.dtype)
+    grads = []
+    before = flash_attention.launches_mxu
+    for mxu in (False, True):
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        out = flash_attention(*leaves, valid, dropout_rate=0.1, seed=9,
+                              mxu_bf16=mxu)
+        out.backward(do)
+        grads.append([out.detach()] + [x.grad for x in leaves])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+    assert flash_attention.launches_mxu == before
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_mxu_function_backward_is_the_wrappers(gen, rate):
+    """FlashAttentionFn in the mode: its forward is K1's call in the mode
+    and its backward K2's and K3's (on "tc"), bit for bit."""
+    q, k, v, valid = inputs(gen, 4, 97, 97, 8, 32, torch.float32)
+    seed = 78 if rate else None
+    do = torch.randn(q.shape, device="cuda", generator=gen)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out = flash_attention(*leaves, valid, dropout_rate=rate, seed=seed,
+                          mxu_bf16=True)
+    out.backward(do)
+    with torch.no_grad():
+        want, lse = flash_attention(q, k, v, valid, True, dropout_rate=rate,
+                                    seed=seed, mxu_bf16=True)
+        args = (q, k, v, valid, want, lse, do, rate, seed)
+        wants = (flash_attn_bwd_dq(*args, mxu_bf16=True),
+                 *flash_attn_bwd_dkv(*args, mxu_bf16=True))
+    assert torch.equal(out.detach(), want)
+    for leaf, w in zip(leaves, wants):
+        assert torch.equal(leaf.grad, w)

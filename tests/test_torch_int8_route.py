@@ -7,7 +7,8 @@ the edges of the "wg" kernel's tiles (Cout = 64 with M not a multiple of
 
 The route is written out here as a table, apart from the code, and checked
 at the 31 product shapes of a refcoco_det forward (chip_smoke.INT8_SHAPES)
-at B = 8 and 64 in both output dtypes, and at the card tests' shapes
+at phase 14a's batches (B = 8, 32 and 64) in both output dtypes, and at
+the card tests' shapes
 (tests/test_torch_cuda.py's INT8_CONVS). Nothing here needs a card.
 """
 
@@ -56,7 +57,8 @@ def want_tile(n, h, w, c, cout, k, s, d, dtype) -> int:
 
 
 MODEL_SHAPES = [chip_smoke.scaled(shape, b // chip_smoke.SERVE_BATCH)
-                for shape in chip_smoke.INT8_SHAPES for b in (8, 64)]
+                for shape in chip_smoke.INT8_SHAPES
+                for b in chip_smoke.INT8_BATCHES]
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))

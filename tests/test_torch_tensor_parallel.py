@@ -30,11 +30,34 @@ out model-major):
 - (g) at dropout 0.1 the replicated parameters stay bit-identical across
   each model group, and every seed is ``shard_seed(draw, mesh.shard, b)``;
 - (h) two 2 x 2 steps each of refcoco_seg and flickr at tiny width;
-- (i) widths the model axis does not divide, a mesh off the world, and
-  int8 with a model axis raise.
+- (i) widths the model axis does not divide, a mesh off the world, and a
+  model axis over an int8 layer raise;
+- (j) int8 eval's calibration on the tensor-parallel fp model (a (a)
+  model folded, fold_bn) at 2 x 2, each data row on its half of the batch,
+  and at 1 x 2: the absmax tree on every rank equal to one process's on
+  the whole batch at tests/test_torch_quant.py's CALIB_RTOL (2e-6; the
+  float32 forwards sum in other orders, a row-parallel layer's input is
+  its rank's slice, and the max over every rank puts the tree together),
+  and at 1 x 2 ``calibrate_and_quantize``'s int8 weights, of the fp
+  weights gathered to one process's shapes, against JAX's
+  ``calibrate_and_quantize`` on ``MeshConfig(data=1, model=2)`` over 2
+  CPU devices carried through ``convert.from_flax``: every weight leaf
+  bit-equal (they depend on the weights alone), each ``in_scale`` (the
+  absmax over 127) within CALIB_RTOL;
+- (k) ``--quantize_train_prefix``'s calibration, gather and two steps at
+  1 x 2 against one process's: the losses at 1e-5 and ``grad_norm`` at
+  1e-4 (tests/test_torch_train.py's), the first step's gradients at (a)'s
+  rule, layer1's int8 leaves bit-identical across the ranks and equal to
+  one process's;
+- (l) ``run_training`` at 1 x 2 (model-major): ``--eval --quantize_int8
+  --fold_bn`` gives one process's accuracy_iou0.5 and its miou within
+  1e-5, and a ``--quantize_train_prefix --fold_bn`` epoch one process's
+  train_loss within 1e-5 and a checkpoint of one process's keys and
+  shapes with its int8 layer1.
 """
 
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -55,9 +78,12 @@ from reftr_tpu.core.config import TrainConfig as JaxTrainConfig
 from reftr_tpu.kernels.attention import fused_attention_sharded
 from reftr_tpu.models import build as jax_build
 from reftr_tpu.models import criterion as jax_criterion
+from reftr_tpu.core.config import RefTRConfig as JaxRefTRConfig
 from reftr_tpu.models.reftr import RefTR as JaxRefTR
+from reftr_tpu.nn import quant as jax_quant
 from reftr_tpu.parallel.sharding import _loader_shards_from as jax_shards
 from reftr_tpu.parallel.sharding import create_mesh as jax_create_mesh
+from reftr_tpu.parallel.sharding import param_shardings
 from reftr_tpu.parallel.sharding import param_spec as jax_param_spec
 from reftr_tpu.train import schedules as jax_schedules
 from reftr_tpu.train.optimizer import build_optimizer
@@ -68,9 +94,10 @@ from reftr_torch.cli import main as cli
 from reftr_torch.convert import flax_leaf_to_torch, from_flax, model_class
 from reftr_torch.core import checkpoint as ckpt_lib
 from reftr_torch.core.config import (LossConfig, MeshConfig, ModelConfig,
-                                     TrainConfig)
+                                     RefTRConfig, TrainConfig)
 from reftr_torch.kernels.attention import shard_seed
 from reftr_torch.models.criterion import weight_dict
+from reftr_torch.nn import quant
 from reftr_torch.parallel.context import Mesh
 from reftr_torch.parallel.sharding import (MODEL_AXIS,
                                            REPLICATED_COINCIDENCES,
@@ -85,6 +112,7 @@ from test_model_forward import multi_phrase_batch, single_phrase_batch
 from test_torch_cli import parse
 from test_torch_distributed import (ADAM_EPS, CLIP, PRESETS, STEP_MODEL,
                                     _free_port, jax_config, micro_batch)
+from test_torch_quant import CALIB_RTOL
 from torch_parity_utils import random_flax_params
 
 torch.set_num_threads(1)
@@ -97,6 +125,17 @@ RUN_BATCH = 8
 MESHES = {"2x2": "mesh22.step", "1x2": "mesh12_a.step"}
 # (c): (data, model) shapes of create_mesh over CPU devices
 GRIDS = [(4, 2), (2, 2), (1, 2), (2, 4)]
+# (j)-(k): (a)'s model folded, and the prefix's steps
+INT8_MODEL = dict(STEP_MODEL, fold_bn=True)
+PREFIX_STEPS = 2
+# (l): the runs' model flags and train config (the micro trainer's batch
+# of 8 over 16 items: 2 steps, and 2 eval batches of the 16 val items)
+INT8_RUNS = {
+    "eval": ({"fold_bn": True, "quantize_int8": True},
+             {"epochs": 1, "eval_only": True, "quant_calib_batches": 1}),
+    "prefix": ({"fold_bn": True, "quantize_train_prefix": True},
+               {"epochs": 1, "quant_calib_batches": 1}),
+}
 # (d): each preset at tiny width
 SPEC_ARGV = ["--bert_size", "tiny", "--enc_layers", "1", "--dec_layers",
              "1", "--dim_feedforward", "64"]
@@ -127,6 +166,12 @@ def attention_inputs():
     return q, k, v, valid
 
 
+def int8_runs(root) -> dict:
+    """(l)'s runs, each writing under ``root``/its name."""
+    return {name: (model, dict(train, output_dir=str(root / name)))
+            for name, (model, train) in INT8_RUNS.items()}
+
+
 def one_process(cfg, state_dict=None):
     state = TrainState.create(cfg, TrainConfig(epochs=1), 1, device="cpu",
                               state_dict=state_dict)
@@ -140,14 +185,27 @@ def jax_params():
     return random_flax_params(JaxRefTR(jax_config()), micro_batch()[0])
 
 
+def jax_int8_config():
+    return dataclasses.replace(jax_config(), fold_bn=True)
+
+
+@pytest.fixture(scope="module")
+def jax_params8():
+    """(j)-(k)'s folded model's weights."""
+    return random_flax_params(JaxRefTR(jax_int8_config()), micro_batch()[0],
+                              seed=1)
+
+
 @pytest.fixture(scope="module", autouse=True)
-def launched(jax_params, tmp_path_factory):
+def launched(jax_params, jax_params8, tmp_path_factory):
     """The four ranks, started on every job before the module's first
     test, so that JAX's step compiles and the tests that need no rank run
     meanwhile: (process, out dir, one process's resume results)."""
     out = tmp_path_factory.mktemp("tp")
     pcfg = worker.micro_model(0.0, **STEP_MODEL)
     torch.save(from_flax(jax_params, pcfg), out / "weights.pt")
+    torch.save(from_flax(jax_params8, worker.micro_model(0.0, **INT8_MODEL)),
+               out / "weights8.pt")
     batch = save_batch(out / "batch.npz", *micro_batch())
     batch2 = save_batch(out / "batch2.npz", *second_batch())
     q, k, v, valid = attention_inputs()
@@ -162,6 +220,8 @@ def launched(jax_params, tmp_path_factory):
                     for n, t in state.model.state_dict().items()}}
     step_job = {"state_dict": str(out / "weights.pt"), "batch": batch,
                 "model": STEP_MODEL}
+    int8_job = {"state_dict": str(out / "weights8.pt"), "batch": batch,
+                "model": INT8_MODEL}
     spec = {
         "out": str(out), "port_a": _free_port(), "port_b": _free_port(),
         "mesh22": {
@@ -170,16 +230,20 @@ def launched(jax_params, tmp_path_factory):
             "dropout": {"batch": batch, "steps": DROPOUT_STEPS},
             "presets": {"presets": {k: v for k, v in PRESETS.items()
                                     if k != "refcoco_det"}},
+            "int8_calib": int8_job,
         },
         "mesh12_a": {
             "step": step_job,
             "checkpoint": {"batch1": batch, "batch2": batch2,
                            "one_checkpoint": str(out / "one_checkpoint")},
+            "int8_calib": int8_job,
+            "int8_prefix": dict(int8_job, steps=PREFIX_STEPS),
         },
         "mesh12_b": {
             "run_training": {"epochs": RUN_EPOCHS, "batch_size": RUN_BATCH,
                              "output_dir": str(out / "train"),
                              "spans": True},
+            "int8_runs": {"runs": int8_runs(out / "int8"), "spans": True},
         },
     }
     path = out / "spec.json"
@@ -330,7 +394,8 @@ def tp_model(**model):
 MESH12 = Mesh(1, 2, 0, 0, ((0, 1),))
 
 
-@pytest.mark.parametrize("case", ["heads", "ffn", "bert", "world", "int8"])
+@pytest.mark.parametrize("case", ["heads", "ffn", "bert", "world",
+                                  "quant_dense"])
 def test_what_the_model_axis_does_not_divide_raises(case):
     if case == "heads":
         with pytest.raises(ValueError, match=r"vl_transformer\.encoder\."
@@ -357,13 +422,13 @@ def test_what_the_model_axis_does_not_divide_raises(case):
         with pytest.raises(ValueError, match="empty local batch"):
             shard_seed(1, 3, 0)
     else:
-        with pytest.raises(NotImplementedError,
-                           match=r"--quantize_int8 with --mesh_model 2: "
-                                 r"int8 under tensor parallelism "
-                                 r"\(ROADMAP.md queue 1 item 13\)"):
-            cli.args_to_config(parse(cli, [
-                "--preset", "refcoco_det", "--fold_bn", "--quantize_int8",
-                "--mesh_model", "2", "--eval"]))
+        # nothing shards an int8 model: int8 eval on a model axis runs it
+        # unsharded on every rank, as JAX replicates its int8 tree
+        with pytest.raises(ValueError, match=r"lang_backbone\.layer\.0 "
+                           r"\(\d+ intermediate\): QuantDense has no "
+                           r"tensor-parallel form: int8 eval under "
+                           r"--mesh_model runs unsharded"):
+            shard_model(tp_model(fold_bn=True, quantize_int8=True), MESH12)
 
 
 @pytest.mark.parametrize("mesh", sorted(MESHES))
@@ -535,3 +600,134 @@ def test_tp_steps_of_each_preset(ranks, name):
     assert got[0]["losses"] == got[1]["losses"]
     assert got[2]["losses"] == got[3]["losses"]
     assert all(r["digests"] == got[0]["digests"] for r in got)
+
+
+def port_int8_model():
+    return worker.micro_model(0.0, **INT8_MODEL)
+
+
+@pytest.fixture(scope="module")
+def one_int8(jax_params8):
+    """One process's side of (j) and (k) on the whole batch: the
+    calibration tree of the fp model, and the prefix's calibration and
+    steps."""
+    cfg = port_int8_model()
+    weights = from_flax(jax_params8, cfg)
+    batch, targets = micro_batch()
+    state, _ = one_process(cfg, weights)
+    mc = dataclasses.replace(cfg, quantize_int8=True)
+    absmax, _, _ = quant._calibrate(
+        state.model, quant.quant_targets(model_class(mc), mc),
+        [(batch, targets)], 1, torch.device("cpu"), autocast=False)
+    pcfg = dataclasses.replace(cfg, quantize_train_prefix=True)
+    prefix = quant.calibrate_train_prefix(
+        RefTRConfig(model=pcfg), state.model, [(batch, targets)],
+        n_batches=1, print_fn=worker.quiet)
+    state, step = one_process(pcfg, prefix)
+    metrics = [step(state, batch, targets)[1].get()]
+    grads = {n: p.grad.clone() for n, p in state.model.named_parameters()
+             if p.grad is not None}
+    metrics += [step(state, batch, targets)[1].get()
+                for _ in range(PREFIX_STEPS - 1)]
+    layer1 = {n: hashlib.sha256(v.numpy().tobytes()).hexdigest()
+              for n, v in state.model.img_backbone.layer1.state_dict().items()}
+    return {"absmax": worker.calib_leaves(absmax), "metrics": metrics,
+            "layer1": layer1, "grads": grads}
+
+
+@pytest.fixture(scope="module")
+def jax_int8_weights(jax_params8, launched):
+    """JAX's calibrate_and_quantize on a (data 1, model 2) mesh of 2 CPU
+    devices, its params sharded by its rules, carried through
+    from_flax."""
+    mesh = jax_create_mesh(JaxMeshConfig(data=1, model=2),
+                           devices=jax.devices()[:2])
+    params = jax.device_put(jax_params8,
+                            param_shardings(jax_params8, mesh))
+    qparams = jax_quant.calibrate_and_quantize(
+        JaxRefTRConfig(model=jax_int8_config()), params, [micro_batch()],
+        mesh=mesh, n_batches=1, print_fn=worker.quiet)
+    return from_flax(jax.device_get(qparams),
+                     dataclasses.replace(port_int8_model(),
+                                         quantize_int8=True))
+
+
+@pytest.mark.parametrize("mesh", ["mesh22", "mesh12_a"])
+def test_int8_calibration_on_the_model_axis_is_one_process(ranks, one_int8,
+                                                           mesh):
+    got = ranks[f"{mesh}.int8_calib"]
+    want = one_int8["absmax"]
+    assert all(r["absmax"] == got[0]["absmax"] for r in got)
+    assert set(got[0]["absmax"]) == set(want)
+    # every product of every scope: 52 convs, BERT-tiny's 2 layers of 6
+    # denses, the encoder's 2 layers of 6, the decoder's 2 of 10
+    assert len(want) == 52 + 2 * 6 + 2 * 6 + 2 * 10
+    for k, v in want.items():
+        assert got[0]["absmax"][k] == pytest.approx(v, rel=CALIB_RTOL), k
+
+
+def test_int8_weights_on_the_model_axis_match_jax(ranks, jax_int8_weights):
+    got = [r["qweights"] for r in ranks["mesh12_a.int8_calib"]]
+    want = jax_int8_weights
+    assert set(got[0]) == set(want)
+    scales = 0
+    for name, w in want.items():
+        assert got[0][name].dtype == w.dtype, name
+        assert torch.equal(got[0][name], got[1][name]), name
+        if name.endswith(".in_scale"):
+            assert got[0][name].item() == pytest.approx(w.item(),
+                                                        rel=CALIB_RTOL), name
+            scales += 1
+        else:
+            assert torch.equal(got[0][name], w), name
+    assert scales == 52 + 2 * 6 + 2 * 6 + 2 * 10
+    assert got[0]["img_backbone.layer3.0.conv2.kernel_q"].dtype == torch.int8
+
+
+def test_int8_prefix_steps_on_the_model_axis_are_one_process(ranks,
+                                                             one_int8):
+    got = ranks["mesh12_a.int8_prefix"]
+    want = one_int8
+    assert len(want["layer1"]) > 20
+    for r in got:
+        assert r["layer1"] == want["layer1"]
+        assert len(r["metrics"]) == PREFIX_STEPS
+        for m, w in zip(r["metrics"], want["metrics"]):
+            np.testing.assert_allclose(m["loss"], w["loss"], rtol=1e-5)
+            np.testing.assert_allclose(m["grad_norm"], w["grad_norm"],
+                                       rtol=1e-4)
+    r0 = got[0]
+    assert set(r0["grads"]) == set(want["grads"])
+    gmax = max(g.abs().max().item() for g in want["grads"].values())
+    for name, w in want["grads"].items():
+        assert torch.equal(r0["grads"][name], got[1]["grads"][name]), name
+        err = (r0["grads"][name] - w).abs().max().item()
+        assert err <= 1e-4 * w.abs().max().item() + 1e-6 * gmax, name
+
+
+def test_int8_runs_on_the_model_axis_are_one_process(ranks, launched,
+                                                     tmp_path):
+    _, out, _ = launched
+    one = {}
+    for name, (model, train) in int8_runs(tmp_path).items():
+        cfg = worker.micro_config(0.0, **train)
+        cfg.model = dataclasses.replace(cfg.model, **model)
+        one[name] = run_training(cfg, device="cpu")
+    want_eval = one["eval"]["test"]["val"]
+    for r in ranks["mesh12_b.int8_runs"]:
+        got = r["eval"]["test"]["val"]
+        assert np.isfinite(got["loss"])
+        assert got["accuracy_iou0.5"] == want_eval["accuracy_iou0.5"]
+        assert got["miou"] == pytest.approx(want_eval["miou"], abs=1e-5)
+        assert r["prefix"]["history"][0]["train_loss"] == pytest.approx(
+            one["prefix"]["history"][0]["train_loss"], rel=1e-5)
+    tp = ckpt_lib.load_checkpoint(str(out / "int8" / "prefix" /
+                                      "checkpoint"))["model"]
+    mine = ckpt_lib.load_checkpoint(str(tmp_path / "prefix" /
+                                        "checkpoint"))["model"]
+    assert {n: v.shape for n, v in tp.items()} == {
+        n: v.shape for n, v in mine.items()}
+    layer1 = [n for n in tp if n.startswith("img_backbone.layer1.")]
+    assert tp["img_backbone.layer1.0.conv2.kernel_q"].dtype == torch.int8
+    for name in layer1:
+        assert torch.equal(tp[name], mine[name]), name

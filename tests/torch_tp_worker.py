@@ -7,11 +7,13 @@ Four ranks start gloo from the launcher's variables and run SPEC's
 ``mesh22`` jobs on a (data 2, model 2) mesh; then they leave that group,
 and ranks 0-1 and 2-3 start a group of two each (ports ``port_a`` and
 ``port_b``), a (data 1, model 2) mesh, and run ``mesh12_a`` and
-``mesh12_b`` (model-major, ``model_spans_processes``). Each job writes
+``mesh12_b`` (model-major, ``model_spans_processes``); the int8 jobs
+(j)-(l) run on these meshes too. Each job writes
 ``<out>/<job>_<rank>.pt``. It imports no JAX: the test module holds the
 results to JAX's and to one process.
 """
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -29,11 +31,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 from reftr_torch.cli.presets import preset_config  # noqa: E402
 from reftr_torch.core import checkpoint as ckpt_lib  # noqa: E402
 from reftr_torch.core import distributed  # noqa: E402
+from reftr_torch.convert import model_class  # noqa: E402
 from reftr_torch.core.config import (LossConfig, MeshConfig,  # noqa: E402
-                                     TrainConfig)
+                                     RefTRConfig, TrainConfig)
 from reftr_torch.kernels.attention import flash_attention  # noqa: E402
 from reftr_torch.models.criterion import weight_dict  # noqa: E402
 from reftr_torch.nn import attention as nn_attention  # noqa: E402
+from reftr_torch.nn import quant  # noqa: E402
 from reftr_torch.parallel.sharding import (create_mesh,  # noqa: E402
                                            gather_state_dict, shard_dim)
 from reftr_torch.train.loop import (build_loaders,  # noqa: E402
@@ -192,9 +196,86 @@ def job_run_training(spec: dict, mesh) -> dict:
     return run_training(cfg, device="cpu")
 
 
+def calib_leaves(tree: dict, prefix: str = "") -> dict:
+    """A calibration tree's leaves by their "/"-joined path."""
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out.update(calib_leaves(value, f"{prefix}{key}/"))
+        else:
+            out[prefix + key] = float(value)
+    return out
+
+
+def quiet(*_args) -> None:
+    pass
+
+
+def job_int8_calib(spec: dict, mesh) -> dict:
+    """(j): int8 eval's calibration on the tensor-parallel fp model, each
+    data row on its block of the batch: the absmax tree (max-reduced over
+    every rank) and ``calibrate_and_quantize``'s int8 weights of the fp
+    weights gathered to one process's shapes."""
+    cfg = micro_model(0.0, **spec["model"])
+    batch, targets = load_batch(spec["batch"])
+    loader = [(rows(batch, mesh), rows(targets, mesh))]
+    state, _ = tp_state(cfg, mesh, state_dict=torch.load(spec["state_dict"]))
+    mc = dataclasses.replace(cfg, quantize_int8=True)
+    absmax, _, _ = quant._calibrate(
+        state.model, quant.quant_targets(model_class(mc), mc), loader, 1,
+        CPU, autocast=False)
+    qweights = quant.calibrate_and_quantize(
+        RefTRConfig(model=cfg), state.model, loader, n_batches=1,
+        print_fn=quiet, state_dict=state.full_model_state())
+    return {"absmax": calib_leaves(absmax), "qweights": qweights,
+            **coords(mesh)}
+
+
+def job_int8_prefix(spec: dict, mesh) -> dict:
+    """(k): ``--quantize_train_prefix`` as the loop runs it on a model
+    axis: layer1 calibrated on the tensor-parallel fp model, the state
+    dict gathered to one process's shapes and sharded again, then steps;
+    the metrics, the first step's gathered gradients (AdamW's first update
+    can move a parameter by up to its LR where its gradient is at rounding
+    level, so later steps' gradients part further) and the digest of each
+    of layer1's int8 leaves."""
+    cfg = micro_model(0.0, **spec["model"])
+    pcfg = dataclasses.replace(cfg, quantize_train_prefix=True)
+    batch, targets = load_batch(spec["batch"])
+    state, _ = tp_state(cfg, mesh, state_dict=torch.load(spec["state_dict"]))
+    prefix = quant.calibrate_train_prefix(
+        RefTRConfig(model=pcfg), state.model, [(batch, targets)],
+        n_batches=1, print_fn=quiet)
+    state, step = tp_state(pcfg, mesh,
+                           state_dict=gather_state_dict(prefix, state.mesh))
+    metrics = [step(state, batch, targets)[1].get()]
+    grads = {n: g.clone() for n, g in gathered_grads(state).items()}
+    metrics += [step(state, batch, targets)[1].get()
+                for _ in range(spec["steps"] - 1)]
+    layer1 = {n: hashlib.sha256(t.numpy().tobytes()).hexdigest()
+              for n, t in state.model.img_backbone.layer1.state_dict().items()}
+    return {"metrics": metrics, "grads": grads, "layer1": layer1,
+            **coords(mesh)}
+
+
+def job_int8_runs(spec: dict, mesh) -> dict:
+    """(l): the entry point's int8 routes on a model axis of 2:
+    ``--eval --quantize_int8 --fold_bn`` of the seeded init, and a
+    ``--quantize_train_prefix --fold_bn`` run."""
+    out = {}
+    for name, (model, train) in spec["runs"].items():
+        cfg = micro_config(0.0, **train)
+        cfg.model = dataclasses.replace(cfg.model, **model)
+        cfg.mesh = MeshConfig(model=2, model_spans_processes=spec["spans"])
+        out[name] = run_training(cfg, device="cpu")
+    return {**out, **coords(mesh)}
+
+
 JOBS = {"step": job_step, "attention": job_attention,
         "dropout": job_dropout, "presets": job_presets,
-        "checkpoint": job_checkpoint, "run_training": job_run_training}
+        "checkpoint": job_checkpoint, "run_training": job_run_training,
+        "int8_calib": job_int8_calib, "int8_prefix": job_int8_prefix,
+        "int8_runs": job_int8_runs}
 
 
 def run_jobs(spec: dict, phase: str, mesh_cfg: MeshConfig) -> None:
